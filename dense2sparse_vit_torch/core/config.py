@@ -1,0 +1,119 @@
+"""Model and pruning configuration.
+
+A copy of `dense2sparse_vit_tpu/core/config.py::ModelConfig` and
+`::PruningConfig` (fields, defaults and checks). The port keeps its own copy
+because importing the JAX package's `core` also imports `jax`
+(`core/__init__.py` pulls in `core/mesh.py`), and the machine that runs the
+port has no JAX. Fields that select a path the port does not have yet are
+kept, and the models reject them; fields that no port code reads (remat, the
+differentiable top-k's settings, the attention-selection options) are left
+out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Backbone architecture (DeiT-shape ViT)."""
+
+    img_size: int = 224
+    patch_size: int = 16
+    in_chans: int = 3
+    num_classes: int = 1000
+    embed_dim: int = 384
+    depth: int = 12
+    num_heads: int = 6
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qk_scale: Optional[float] = None
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
+    layer_norm_eps: float = 1e-6
+    # compute dtype for activations; parameters stay fp32
+    dtype: str = "float32"
+    # run the blocks, predictors and token gathers through the hand-written
+    # CUDA kernels (the plain torch versions run for tensors on the CPU)
+    use_fused_attention: bool = False
+    # 'none' | 'int8' (W8A8 serving, not ported yet)
+    quant: str = "none"
+
+    @property
+    def num_patches(self) -> int:
+        return (self.img_size // self.patch_size) ** 2
+
+    @property
+    def grid_size(self) -> int:
+        return self.img_size // self.patch_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def deit_tiny(**kw) -> ModelConfig:
+    return ModelConfig(embed_dim=192, num_heads=3, **kw)
+
+
+def deit_small(**kw) -> ModelConfig:
+    return ModelConfig(embed_dim=384, num_heads=6, **kw)
+
+
+def deit_base(**kw) -> ModelConfig:
+    return ModelConfig(embed_dim=768, num_heads=12, **kw)
+
+
+@dataclass(frozen=True)
+class PruningConfig:
+    """Token-pruning configuration."""
+
+    # encoder layer indices where a pruning stage sits
+    pruning_locs: Tuple[int, ...] = (3,)
+    # keep ratio per stage, relative to the ORIGINAL spatial token count
+    keep_ratios: Tuple[float, ...] = (0.7,)
+    # 'topk' | 'gumbel' | 'attn' | 'random'
+    selection: str = "topk"
+    patch_score_threshold: Optional[float] = None
+    small_predictor: bool = False
+    predictor_bn: bool = False
+    # 'kl_div' | 'mse' | 'bce': also selects softmax or sigmoid keep-probs
+    mask_loss_type: str = "kl_div"
+    pad_keep_to_tile: bool = False
+    cls_from_teacher: bool = False
+    early_exit: bool = False
+
+    def __post_init__(self):
+        if len(self.pruning_locs) != len(self.keep_ratios):
+            raise ValueError(
+                f"pruning_locs ({self.pruning_locs}) and keep_ratios "
+                f"({self.keep_ratios}) must have equal length"
+            )
+        if self.selection not in ("topk", "gumbel", "attn", "random"):
+            raise ValueError(f"unknown selection mode {self.selection!r}")
+        if self.mask_loss_type not in ("kl_div", "mse", "bce"):
+            raise ValueError(f"unknown mask_loss_type {self.mask_loss_type!r}")
+
+    def keep_counts(self, num_patches: int) -> Tuple[int, ...]:
+        """Static per-stage kept-token counts K_i = int(N * r_i).
+
+        Ratios are relative to the original spatial token count. With
+        pad_keep_to_tile, each K is rounded up so that K+1 (with CLS) fills
+        a 16-token tile.
+        """
+        counts = [int(num_patches * r) for r in self.keep_ratios]
+        if self.pad_keep_to_tile:
+            counts = [
+                min(num_patches, -(-(k + 1) // 16) * 16 - 1) for k in counts
+            ]
+        return tuple(counts)
+
+    def replace(self, **kw) -> "PruningConfig":
+        return dataclasses.replace(self, **kw)

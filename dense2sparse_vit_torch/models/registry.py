@@ -1,0 +1,80 @@
+"""Model registry (port of the student part of
+`dense2sparse_vit_tpu/models/registry.py`)."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from dense2sparse_vit_torch.core.config import (
+    ModelConfig,
+    PruningConfig,
+    deit_base,
+    deit_small,
+    deit_tiny,
+)
+from dense2sparse_vit_torch.models.student import DiffPruningStudent
+
+_REGISTRY: Dict[str, Callable] = {}
+
+# The headline student, as the JAX package's bench.py builds it: DeiT-S/16 at
+# 224 px in bf16, pruned at blocks 3/6/9 to 0.7/0.49/0.343 of the patches,
+# with the small predictor: create_model(HEADLINE_MODEL, **HEADLINE_KWARGS).
+HEADLINE_MODEL = "dynamic_vit_small_patch16_224_student"
+HEADLINE_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
+                       dtype="bfloat16", small_predictor=True)
+
+
+def list_models():
+    return sorted(_REGISTRY)
+
+
+def create_model(
+    name: str,
+    *,
+    generator: Optional[torch.Generator] = None,
+    device: torch.device | str | None = None,
+    **kwargs,
+):
+    """Instantiate a registered model by name, with initialised weights.
+
+    Keyword arguments are those of the JAX package's `create_model`
+    (`pruning_locs`, `keep_ratios`, any `ModelConfig` or `PruningConfig`
+    field). The weights are drawn on the CPU from `generator` (seed 0 when
+    None) and the model is then moved to `device`.
+    """
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown model {name!r}; available: {list_models()}")
+    model = _REGISTRY[name](**kwargs)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return model.init_weights(generator).to(device)
+
+
+def _student(size_cfg: ModelConfig):
+    def factory(
+        pruning_locs: Sequence[int] = (3,),
+        keep_ratios: Sequence[float] = (0.7,),
+        **kwargs,
+    ):
+        pruning_kwargs = {
+            k: kwargs.pop(k)
+            for k in list(kwargs)
+            if k in PruningConfig.__dataclass_fields__
+        }
+        return DiffPruningStudent(
+            cfg=size_cfg.replace(**kwargs),
+            pruning=PruningConfig(
+                pruning_locs=tuple(pruning_locs),
+                keep_ratios=tuple(keep_ratios),
+                **pruning_kwargs,
+            ),
+        )
+
+    return factory
+
+
+_REGISTRY["dynamic_vit_tiny_patch16_224_student"] = _student(deit_tiny())
+_REGISTRY["dynamic_vit_small_patch16_224_student"] = _student(deit_small())
+_REGISTRY["dynamic_vit_base_patch16_224_student"] = _student(deit_base())

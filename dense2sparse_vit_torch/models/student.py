@@ -1,0 +1,150 @@
+"""Dynamic token-pruning student ViT (port of
+`dense2sparse_vit_tpu/models/student.py::DiffPruningStudent`).
+
+A DeiT-shape ViT with score-predictor pruning stages at `pruning_locs`: the
+predictor scores the spatial tokens, the top K = int(N * keep_ratio) of them
+survive with the CLS token, and later blocks run on the shorter sequence.
+This port has the deterministic top-k path with the LayerNorm predictors;
+the threshold policy mode, the attn / random / teacher-CLS selections, soft
+top-k, the BatchNorm predictor, the early-exit head and CLS-attention capture
+are not ported yet and are rejected at construction.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from dense2sparse_vit_torch.core.config import ModelConfig, PruningConfig
+from dense2sparse_vit_torch.nn.layers import (
+    Block,
+    LayerNorm,
+    Linear,
+    PatchEmbed,
+    compute_weights,
+    trunc_normal_,
+)
+from dense2sparse_vit_torch.nn.predictor import PredictorLG
+from dense2sparse_vit_torch.ops.gather import fused_gather_tokens, gather_tokens_reference
+from dense2sparse_vit_torch.ops.topk import topk_keep_indices
+
+
+@dataclass
+class StudentOutput:
+    logits: torch.Tensor  # (B, num_classes)
+    features: torch.Tensor  # (B, K_last, D) final spatial tokens, post-norm
+    # per-stage predictor logits, each (B, N_stage); N_stage shrinks
+    pred_logits: Tuple[torch.Tensor, ...]
+    # per-stage kept / dropped indices in stage-local coordinates, ascending
+    kept_idx: Tuple[torch.Tensor, ...]
+    dropped_idx: Tuple[torch.Tensor, ...]
+    # the last stage's kept indices in original token coordinates (B, K_last)
+    kept_idx_orig: Optional[torch.Tensor]
+
+
+def _check_supported(cfg: ModelConfig, pr: PruningConfig) -> None:
+    unported = {
+        "selection != 'topk'": pr.selection != "topk",
+        "patch_score_threshold": pr.patch_score_threshold is not None,
+        "predictor_bn": pr.predictor_bn,
+        "early_exit": pr.early_exit,
+        "cls_from_teacher": pr.cls_from_teacher,
+        "quant": cfg.quant != "none",
+        "drop_rate / attn_drop_rate": cfg.drop_rate > 0 or cfg.attn_drop_rate > 0,
+    }
+    missing = [name for name, used in unported.items() if used]
+    if missing:
+        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+
+
+class DiffPruningStudent(nn.Module):
+    """See the module docstring. Images are NHWC (B, H, W, 3)."""
+
+    def __init__(self, cfg: ModelConfig, pruning: PruningConfig):
+        super().__init__()
+        _check_supported(cfg, pruning)
+        self.cfg, self.pruning = cfg, pruning
+        C = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, C)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, C))
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, C))
+        self.blocks = nn.ModuleList(
+            Block(
+                C, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
+                drop_path=cfg.drop_path_rate * i / max(cfg.depth - 1, 1),
+                layer_norm_eps=cfg.layer_norm_eps,
+                use_fused=cfg.use_fused_attention,
+            )
+            for i in range(cfg.depth)
+        )
+        self.score_predictor = nn.ModuleList(
+            PredictorLG(C, pruning.small_predictor, pruning.mask_loss_type,
+                        use_fused=cfg.use_fused_attention)
+            for _ in pruning.pruning_locs
+        )
+        self.norm = LayerNorm(C, eps=cfg.layer_norm_eps)
+        self.head = Linear(C, cfg.num_classes)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "DiffPruningStudent":
+        """DeiT init, as the JAX model's: truncated-normal (std 0.02) linear,
+        conv, CLS and position weights; zero biases; unit LayerNorms. The
+        generator must be on the parameters' device."""
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                trunc_normal_(m.weight, generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+        trunc_normal_(self.cls_token, generator)
+        trunc_normal_(self.pos_embed, generator)
+        return self
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images -> (B, N+1, C) tokens: patches, CLS, positions."""
+        dtype = getattr(torch, self.cfg.dtype)
+        x = self.patch_embed(x.to(dtype))
+        w = compute_weights(self, dtype)
+        cls = w["cls_token"].expand(x.shape[0], -1, -1)
+        return torch.cat([cls, x], dim=1) + w["pos_embed"]
+
+    def forward(self, x: torch.Tensor, *, unpruned: bool = False) -> StudentOutput:
+        """x: (B, H, W, 3) images. unpruned: skip every pruning stage."""
+        cfg, pr = self.cfg, self.pruning
+        B, N = x.shape[0], cfg.num_patches
+        keep = pr.keep_counts(N)
+        gather = fused_gather_tokens if cfg.use_fused_attention else gather_tokens_reference
+
+        x = self.embed(x)
+        pred_logits, kept_stage, dropped_stage = [], [], []
+        # current spatial position -> original token id
+        cur_orig = torch.arange(N, device=x.device).expand(B, N)
+        p = 0
+        for i, blk in enumerate(self.blocks):
+            if i in pr.pruning_locs:
+                if not unpruned:
+                    scores_logits, scores = self.score_predictor[p](x[:, 1:])
+                    kept, dropped = topk_keep_indices(scores, keep[p])
+                    pred_logits.append(scores_logits)
+                    kept_stage.append(kept)
+                    dropped_stage.append(dropped)
+                    cur_orig = torch.gather(cur_orig, 1, kept)
+                    idx = torch.cat([kept.new_zeros(B, 1), kept + 1], dim=1)
+                    x = gather(x, idx)
+                p += 1
+            x = blk(x)
+
+        x = self.norm(x)
+        return StudentOutput(
+            logits=self.head(x[:, 0]),
+            features=x[:, 1:],
+            pred_logits=tuple(pred_logits),
+            kept_idx=tuple(kept_stage),
+            dropped_idx=tuple(dropped_stage),
+            kept_idx_orig=cur_orig if kept_stage else None,
+        )

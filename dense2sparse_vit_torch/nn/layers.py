@@ -1,0 +1,180 @@
+"""Core ViT layers (port of `dense2sparse_vit_tpu/nn/layers.py`).
+
+As in the JAX package, parameters are fp32 and activations run in the dtype
+of the input (the model's compute dtype): each layer multiplies by copies of
+its weights in that dtype, which `compute_weights` makes once and keeps.
+Images are NHWC. Module and parameter names follow the reference torch key
+layout (`blocks.{i}.attn.qkv.weight`, ...), so a JAX checkpoint maps onto
+them key by key (`utils/convert.py`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dense2sparse_vit_torch.ops.block import (
+    attention_reference,
+    fused_transformer_block,
+    layer_norm,
+)
+
+
+def compute_weights(module: nn.Module, dtype: torch.dtype) -> dict:
+    """`module`'s own parameters by name, in `dtype`.
+
+    Outside autograd the copies are made once per dtype and kept on the
+    module; they are remade after a parameter is replaced or changed in place
+    (`load_state_dict`, `.to(device)`). Under autograd the casts are made on
+    each call, so that gradients reach the fp32 parameters.
+    """
+    params = {n: p for n, p in module._parameters.items() if p is not None}
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params.values()):
+        return {n: p.to(dtype) for n, p in params.items()}
+    # an inference tensor has no version counter; it cannot be changed in
+    # place outside inference mode
+    key = (dtype,) + tuple(
+        (p.data_ptr(), -1 if p.is_inference() else p._version)
+        for p in params.values()
+    )
+    cache = getattr(module, "_compute_copies", None)
+    if cache is None or cache[0] != key:
+        cache = (key, {n: p.detach().to(dtype) for n, p in params.items()})
+        module._compute_copies = cache
+    return cache[1]
+
+
+# std of a unit normal cut at +-2: flax's truncated_normal(0.02, -2, 2)
+# scales by 0.02 / this, so that the cut distribution has std 0.02
+_CUT_STD = 0.87962566103423978
+
+
+def trunc_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """DeiT init as flax draws it: truncated normal of std 0.02, cut at two
+    standard deviations of the uncut normal."""
+    std = 0.02 / _CUT_STD
+    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in the dtype of its input."""
+
+    def forward(self, x):
+        w = compute_weights(self, x.dtype)
+        return F.linear(x, w["weight"], w.get("bias"))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm with fp32 statistics, returning the dtype of its input."""
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class PatchEmbed(nn.Module):
+    """Image to patch embedding by a strided conv; NHWC images in."""
+
+    def __init__(self, patch_size: int = 16, in_chans: int = 3, embed_dim: int = 768):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x):
+        """(B, H, W, C_in) -> (B, H/p * W/p, embed_dim), in x's dtype."""
+        w = compute_weights(self.proj, x.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w["weight"], w["bias"], stride=self.patch_size)
+        return y.flatten(2).transpose(1, 2)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> fc2."""
+
+    def __init__(self, in_features: int, hidden_features: int):
+        super().__init__()
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, in_features)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x).float()).to(x.dtype))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention, exact fp32 softmax."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
+
+    def forward(self, x):
+        return self.proj(attention_reference(self.qkv(x), self.num_heads, self.scale))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: drop the residual branch per sample (training only)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = x.new_empty((x.shape[0],) + (1,) * (x.dim() - 1)).bernoulli_(keep)
+        return x * mask / keep
+
+
+class Block(nn.Module):
+    """Pre-norm transformer encoder block.
+
+    With `use_fused`, the whole block is one call of
+    `ops.block.fused_transformer_block`: the CUDA kernel for a CUDA tensor,
+    which has no backward yet and raises under autograd, and its plain torch
+    version for a CPU tensor. The kernel has no DropPath either, so a fused
+    block with drop_path > 0 refuses to train.
+    """
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 drop_path: float = 0.0, layer_norm_eps: float = 1e-6,
+                 use_fused: bool = False):
+        super().__init__()
+        self.use_fused = use_fused
+        self.norm1 = LayerNorm(dim, eps=layer_norm_eps)
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale)
+        self.drop_path = DropPath(drop_path)
+        self.norm2 = LayerNorm(dim, eps=layer_norm_eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def kernel_weights(self, dtype: torch.dtype) -> dict:
+        """The block's weights in the layout `fused_transformer_block` takes."""
+        qkv = compute_weights(self.attn.qkv, dtype)
+        return {
+            "ln1_w": self.norm1.weight, "ln1_b": self.norm1.bias,
+            "wqkv": qkv["weight"], "bqkv": self.attn.qkv.bias,
+            "wproj": compute_weights(self.attn.proj, dtype)["weight"],
+            "bproj": self.attn.proj.bias,
+            "ln2_w": self.norm2.weight, "ln2_b": self.norm2.bias,
+            "w1": compute_weights(self.mlp.fc1, dtype)["weight"],
+            "b1": self.mlp.fc1.bias,
+            "w2": compute_weights(self.mlp.fc2, dtype)["weight"],
+            "b2": self.mlp.fc2.bias,
+        }
+
+    def forward(self, x):
+        if self.use_fused:
+            if self.training and self.drop_path.rate > 0:
+                raise NotImplementedError("the fused block has no DropPath kernel yet")
+            return fused_transformer_block(
+                x, self.kernel_weights(x.dtype), self.attn.num_heads,
+                scale=self.attn.scale, ln_eps=self.norm1.eps,
+            )
+        x = x + self.drop_path(self.attn(self.norm1(x)))
+        return x + self.drop_path(self.mlp(self.norm2(x)))

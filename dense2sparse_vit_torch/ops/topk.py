@@ -1,0 +1,29 @@
+"""Static-shape token selection (port of `dense2sparse_vit_tpu/ops/topk.py`).
+
+The plain token gather is `ops.gather.gather_tokens_reference`, beside its
+kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def topk_keep_indices(scores: torch.Tensor, k: int):
+    """Top-k token selection with index bookkeeping.
+
+    Args:
+      scores: (B, N) per-token keep scores (higher = more important).
+      k: number of tokens to keep.
+
+    Returns:
+      (kept, dropped): int64 indices of shape (B, k) and (B, N-k), each
+      sorted ascending. Equal scores rank by lowest index first, as
+      `jax.lax.top_k` does: the ranking is a stable descending sort
+      (`torch.topk` promises no order among ties, and bf16 keep-probabilities
+      tie often).
+    """
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    kept = torch.sort(order[:, :k], dim=-1).values
+    dropped = torch.sort(order[:, k:], dim=-1).values
+    return kept, dropped

@@ -1,0 +1,80 @@
+"""JAX student parameters -> the port's state_dict (numpy only).
+
+The port's modules follow the reference torch key layout, so this is the
+same mapping as `dense2sparse_vit_tpu/utils/convert.py::export_student_state_dict`
+for a `DiffPruningStudent` with LayerNorm predictors, written without the
+JAX package (which this package must not import):
+
+  conv kernels   (kH, kW, I, O) -> (O, I, kH, kW)
+  dense kernels  (in, out)      -> (out, in)
+  LayerNorm      scale / bias   -> weight / bias
+  blocks_{i}/...                -> blocks.{i}....
+  score_predictor_{p}/in_{j}    -> score_predictor.{p}.in_conv.{3j, 3j+1}
+  score_predictor_{p}/out_{j}   -> score_predictor.{p}.out_conv.{3j, 3j+1}
+  .../final_norm, final_dense   -> the last two entries of out_conv
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = np.asarray(v)
+    return flat
+
+
+def _leaf(name: str) -> str:
+    return {"kernel": "weight", "scale": "weight", "bias": "bias"}[name]
+
+
+def _predictor_key(path: Tuple[str, ...], n_out: int) -> str:
+    p = int(path[0].rsplit("_", 1)[1])
+    unit = path[1]
+    if unit in ("final_norm", "final_dense"):
+        seq, idx = "out_conv", 3 * n_out + (unit == "final_dense")
+    else:
+        kind, j = unit.rsplit("_", 1)
+        seq = "in_conv" if kind == "in" else "out_conv"
+        idx = 3 * int(j) + (path[2] == "dense")
+    return f"score_predictor.{p}.{seq}.{idx}.{_leaf(path[-1])}"
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """Map JAX `DiffPruningStudent` params (nested dicts of arrays; a full
+    variables dict with a 'params' entry is accepted) onto the port's
+    state_dict keys. Returns numpy arrays: load them with
+    `model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})`.
+    """
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    flat = _flatten(params)
+    n_out: Dict[str, int] = {}
+    for path in flat:
+        if path[0].startswith("score_predictor_") and path[1].startswith("out_"):
+            n_out[path[0]] = max(n_out.get(path[0], 0), int(path[1][4:]) + 1)
+
+    out: Dict[str, np.ndarray] = {}
+    for path, v in flat.items():
+        head = path[0]
+        if head in ("cls_token", "pos_embed"):
+            key = head
+        elif head.startswith("blocks_"):
+            key = ".".join(("blocks", head[len("blocks_"):]) + path[1:-1] + (_leaf(path[-1]),))
+        elif head.startswith("score_predictor_"):
+            key = _predictor_key(path, n_out[head])
+        elif head in ("patch_embed", "norm", "head"):
+            key = ".".join(path[:-1] + (_leaf(path[-1]),))
+        else:
+            raise KeyError(f"no port counterpart for {'/'.join(path)}")
+        if path[-1] == "kernel":
+            v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+        out[key] = np.array(v, order="C")  # a writable, contiguous copy
+    return out

@@ -1,0 +1,78 @@
+"""Where the device time of the headline student's forward goes, by kernel.
+
+    python -m dense2sparse_vit_torch.utils.profile_forward [--batch 256] [--plain]
+
+Runs `--iters` forwards of `dynamic_vit_small_patch16_224_student` (bf16,
+keep 0.7/0.49/0.343 at blocks 3/6/9, small predictor, random weights) under
+`torch.profiler` on the first CUDA device and prints one JSON line per
+device kernel (calls and ms per forward, share of the device time), then a
+summary line with the window's wall time per forward, the device's busy
+share (kernel time over wall time) and the host's time to enqueue one
+forward onto an idle device. `--plain` profiles the model without the
+hand-written kernels. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+import torch
+
+from dense2sparse_vit_torch.models import HEADLINE_KWARGS, HEADLINE_MODEL, create_model
+from dense2sparse_vit_torch.utils import card_name_and_power_limit
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--plain", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_forward needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    model = create_model(HEADLINE_MODEL, use_fused_attention=not args.plain,
+                         device=dev, **HEADLINE_KWARGS).eval()
+    x = torch.randn((args.batch, 224, 224, 3), device=dev, dtype=torch.bfloat16)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        for _ in range(3):
+            model(x)
+        # host time to enqueue one forward onto an idle device: where it
+        # exceeds the device time, the host sets the pace
+        host_ms = []
+        for _ in range(args.iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                model(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / args.iters
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        ms = e.self_device_time_total / 1e3 / args.iters
+        print(json.dumps({"kernel": e.key[:120], "calls": e.count / args.iters,
+                          "ms": ms, "share": ms / total if total else None}))
+    card = card_name_and_power_limit()
+    print(json.dumps({
+        "batch": args.batch, "plain": args.plain, "wall_ms": wall_ms,
+        "device_ms": total, "busy_share": total / wall_ms,
+        "host_enqueue_ms": statistics.median(host_ms),
+        "img_per_s": args.batch / wall_ms * 1e3, "card": card,
+    }))
+
+
+if __name__ == "__main__":
+    main()

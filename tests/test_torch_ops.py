@@ -1,0 +1,246 @@
+"""Port parity, op and module level: dense2sparse_vit_torch vs dense2sparse_vit_tpu.
+
+The same inputs and weights, drawn with numpy from fixed seeds, go through
+the JAX function (its Pallas kernel in interpret mode, and its plain
+reference) and through the port's counterpart, which runs its plain torch
+version for CPU tensors. Comparisons are in fp32 on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dense2sparse_vit_tpu.nn.predictor import PredictorLG as JaxPredictorLG
+from dense2sparse_vit_tpu.ops.pallas.block import _ref_block
+from dense2sparse_vit_tpu.ops.pallas.block import (
+    fused_transformer_block as jax_fused_block,
+)
+from dense2sparse_vit_tpu.ops.pallas.gather import (
+    fused_gather_tokens as jax_fused_gather,
+)
+from dense2sparse_vit_tpu.ops.pallas.predictor import (
+    fused_predictor_lg as jax_fused_predictor,
+)
+from dense2sparse_vit_tpu.ops.topk import topk_keep_indices as jax_topk
+
+from dense2sparse_vit_torch.nn.layers import Block
+from dense2sparse_vit_torch.nn.predictor import PredictorLG
+from dense2sparse_vit_torch.ops.gather import fused_gather_tokens
+from dense2sparse_vit_torch.ops.topk import topk_keep_indices
+from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def random_like_tree(tree, seed):
+    """A copy of a flax param tree with every leaf redrawn from numpy:
+    LayerNorm scales near 1, biases small, kernels ~N(0, 1/fan_in), so that
+    activations stay O(1), attention logits stay far inside the +-30 range
+    of the TPU inference kernel, and predictor scores are well separated."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, name):
+        if hasattr(node, "items"):
+            return {k: walk(v, k) for k, v in node.items()}
+        shape = np.shape(node)
+        if name == "scale":
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name == "bias":
+            v = 0.1 * rng.standard_normal(shape)
+        elif name == "kernel":
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        else:  # cls_token, pos_embed
+            v = 0.5 * rng.standard_normal(shape)
+        return v.astype(np.float32)
+
+    return walk(tree, None)
+
+
+def load_numpy_state(module, sd):
+    """Load a numpy state_dict into a torch module, strictly."""
+    module.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    return module
+
+
+class TestTopk:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_ties_break_by_lowest_index(self, dtype):
+        # scores on a 4-value grid: every row has many exact ties
+        scores = np.random.default_rng(1).integers(0, 4, (3, 20)) / 4.0
+        k = 7
+        want_kept, want_dropped = jax_topk(jnp.asarray(scores, dtype), k)
+        kept, dropped = topk_keep_indices(
+            torch.tensor(scores, dtype=getattr(torch, dtype)), k
+        )
+        np.testing.assert_array_equal(kept.numpy(), np.asarray(want_kept))
+        np.testing.assert_array_equal(dropped.numpy(), np.asarray(want_dropped))
+
+
+class TestGather:
+    def test_matches_pallas_kernel_bit_exactly(self):
+        rng = np.random.default_rng(2)
+        x = rng.standard_normal((2, 13, 16)).astype(np.float32)
+        idx = rng.integers(0, 13, (2, 9))
+        idx[0, 3], idx[1, 0], idx[1, 8] = -1, 13, 40  # out of range: zero rows
+        want = jax_fused_gather(jnp.asarray(x), jnp.asarray(idx, jnp.int32), 8, True)
+        got = fused_gather_tokens(torch.from_numpy(x), torch.from_numpy(idx))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert not got[0, 3].any() and not got[1, 0].any()
+
+    def test_in_range_equals_plain_gather(self):
+        rng = np.random.default_rng(3)
+        x = torch.from_numpy(rng.standard_normal((3, 11, 8)).astype(np.float32))
+        idx = torch.from_numpy(rng.integers(0, 11, (3, 5)))
+        want = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
+        torch.testing.assert_close(fused_gather_tokens(x, idx), want, rtol=0, atol=0)
+
+
+def _block_params(c, hidden, seed):
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, s=1.0):
+        return (s * rng.standard_normal(shape)).astype(np.float32)
+
+    return {
+        "ln1_scale": 1 + n(c, s=0.1), "ln1_bias": n(c, s=0.1),
+        "wqkv": n(c, 3 * c, s=c ** -0.5), "bqkv": n(3 * c, s=0.1),
+        "wproj": n(c, c, s=c ** -0.5), "bproj": n(c, s=0.1),
+        "ln2_scale": 1 + n(c, s=0.1), "ln2_bias": n(c, s=0.1),
+        "w1": n(c, hidden, s=c ** -0.5), "b1": n(hidden, s=0.1),
+        "w2": n(hidden, c, s=hidden ** -0.5), "b2": n(c, s=0.1),
+    }
+
+
+def _port_block_state(p):
+    """JAX fused-block params (kernels (in, out)) -> port Block state_dict."""
+    names = {
+        "ln1_scale": "norm1.weight", "ln1_bias": "norm1.bias",
+        "wqkv": "attn.qkv.weight", "bqkv": "attn.qkv.bias",
+        "wproj": "attn.proj.weight", "bproj": "attn.proj.bias",
+        "ln2_scale": "norm2.weight", "ln2_bias": "norm2.bias",
+        "w1": "mlp.fc1.weight", "b1": "mlp.fc1.bias",
+        "w2": "mlp.fc2.weight", "b2": "mlp.fc2.bias",
+    }
+    return {names[k]: np.array(v.T if v.ndim == 2 else v) for k, v in p.items()}
+
+
+class TestBlock:
+    # B=2, N=13 (not a multiple of the TPU kernel's 16-token tile), C=64,
+    # H=2. Tolerance 2e-4: the TPU kernel folds LayerNorm into the weights,
+    # which reorders fp32 sums.
+    B, N, C, H = 2, 13, 64, 2
+
+    @pytest.mark.parametrize("use_fused", [False, True])
+    def test_matches_pallas_kernel_and_reference(self, use_fused):
+        p = _block_params(self.C, 4 * self.C, seed=4)
+        x = np.random.default_rng(5).standard_normal(
+            (self.B, self.N, self.C)).astype(np.float32)
+        want_kernel = np.asarray(jax_fused_block(
+            jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}, self.H,
+            interpret=True,
+        ))
+        want_ref = np.asarray(_ref_block(
+            jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}, self.H,
+            None, None, 1e-6,
+        ))
+        blk = load_numpy_state(
+            Block(self.C, self.H, use_fused=use_fused), _port_block_state(p)
+        ).eval()
+        with torch.no_grad():
+            got = blk(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, want_kernel, atol=2e-4, rtol=2e-4)
+        np.testing.assert_allclose(got, want_ref, atol=2e-4, rtol=2e-4)
+
+    def test_fused_block_trains_on_cpu_through_the_plain_version(self):
+        """Train mode takes the same dispatch as eval; on the CPU the wrapper
+        runs the differentiable plain version, so gradients flow."""
+        p = _block_params(self.C, 4 * self.C, seed=4)
+        blk = load_numpy_state(
+            Block(self.C, self.H, use_fused=True), _port_block_state(p))
+        x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (self.B, self.N, self.C)).astype(np.float32))
+        with torch.no_grad():
+            want = blk.eval()(x)
+        got = blk.train()(x)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        got.sum().backward()
+        assert blk.attn.qkv.weight.grad is not None
+
+    def test_fused_block_with_drop_path_refuses_to_train(self):
+        blk = Block(self.C, self.H, drop_path=0.1, use_fused=True).train()
+        with pytest.raises(NotImplementedError, match="DropPath"):
+            blk(torch.zeros((self.B, self.N, self.C)))
+        assert blk.eval()(torch.zeros((self.B, self.N, self.C))).shape == (
+            self.B, self.N, self.C)
+
+
+class TestPredictor:
+    # N=13, D=64; tolerance 1e-4 (fp32, LayerNorm folding in the TPU kernel)
+    B, N, D = 2, 13, 64
+
+    @pytest.mark.parametrize("small", [True, False])
+    @pytest.mark.parametrize("use_fused", [False, True])
+    def test_matches_flax_module_and_pallas_kernel(self, small, use_fused):
+        x = np.random.default_rng(6).standard_normal(
+            (self.B, self.N, self.D)).astype(np.float32)
+        mod = JaxPredictorLG(embed_dim=self.D, small_predictor=small)
+        params = random_like_tree(
+            jax.eval_shape(mod.init, jax.random.PRNGKey(7), jnp.asarray(x))["params"],
+            seed=8,
+        )
+        want_scores, want_probs = mod.apply({"params": params}, jnp.asarray(x))
+        want_kernel = jax_fused_predictor(
+            jnp.asarray(x), params, act="gelu" if small else "relu",
+            interpret=True,
+        )
+        sd = state_dict_from_jax({"score_predictor_0": params})
+        sd = {k[len("score_predictor.0."):]: v for k, v in sd.items()}
+        port = load_numpy_state(
+            PredictorLG(self.D, small_predictor=small, use_fused=use_fused), sd
+        ).eval()
+        with torch.no_grad():
+            scores, probs = port(torch.from_numpy(x))
+        np.testing.assert_allclose(
+            scores.numpy(), np.asarray(want_scores), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(
+            scores.numpy(), np.asarray(want_kernel), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(
+            probs.numpy(), np.asarray(want_probs), atol=1e-5, rtol=1e-4)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import dense2sparse_vit_torch, dense2sparse_vit_torch.models, "
+        "dense2sparse_vit_torch.ops, dense2sparse_vit_torch.nn, "
+        "dense2sparse_vit_torch.utils.convert\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """Without a CUDA device, and without the package beside it, the script
+    exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run for real")
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        cwd = str(tmp_path)
+        with open(script) as src, open(tmp_path / "chip_smoke.py", "w") as dst:
+            dst.write(src.read())
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,115 @@
+"""The block check of chip_smoke.py, on the CPU.
+
+The check must pass a right block and reject one whose attention core is
+wrong, even where the residual stream is far larger than the attention
+branch (the init's weight scale, std 0.02), which is where a tolerance on
+the block's whole output cannot see the fault. On the CPU the block wrapper
+runs its plain version, so a fault is planted by handing that plain version
+a wrong attention core for the duration of the wrapper's call.
+"""
+
+import json
+import os
+import sys
+
+import pytest
+import torch
+
+import dense2sparse_vit_torch.ops.block as block_ops
+from dense2sparse_vit_torch import ops
+from dense2sparse_vit_torch.nn.layers import Block, trunc_normal_
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
+
+B, N, C, H = 2, 13, 128, 2
+_attention = block_ops.attention_reference  # the right one, for the faults
+
+
+def _padded_keys(qkv, num_heads, scale):
+    """Three zero keys (and values) enter every row's softmax."""
+    pad = qkv.new_zeros((qkv.shape[0], 3, qkv.shape[2]))
+    out = _attention(torch.cat([qkv, pad], 1), num_heads, scale)
+    return out[:, : qkv.shape[1]]
+
+
+def _wrong_head(qkv, num_heads, scale):
+    """Each head multiplies its probabilities into the next head's values."""
+    b, n, c3 = qkv.shape
+    q, k, v = qkv.split(c3 // 3, dim=-1)
+    v = v.reshape(b, n, num_heads, -1).roll(1, dims=2).reshape(b, n, -1)
+    return _attention(torch.cat([q, k, v], -1), num_heads, scale)
+
+
+def _zero(qkv, num_heads, scale):
+    return qkv.new_zeros((qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3))
+
+
+FAULTS = {"padded_keys": _padded_keys, "wrong_head": _wrong_head, "zero": _zero}
+
+
+def _block_input():
+    """A bf16 block at the init's scale, and a unit-scale residual stream."""
+    g = torch.Generator().manual_seed(0)
+    blk = Block(C, H, use_fused=True).eval()
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if p.dim() == 2:
+                trunc_normal_(p, g)
+            elif not name.endswith("norm1.weight") and not name.endswith("norm2.weight"):
+                p.zero_()
+    x = torch.randn((B, N, C), generator=g).to(torch.bfloat16)
+    args = (H, blk.attn.scale, blk.norm1.eps)
+    return x, blk.kernel_weights(torch.bfloat16), args
+
+
+def _last_line(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_check_block_passes_the_plain_block(capsys):
+    x, w, args = _block_input()
+    with torch.inference_mode():
+        y, err = chip_smoke.check_block(torch, x, w, *args, block=0)
+    line = _last_line(capsys)
+    assert err == 0.0 and y.shape == x.shape
+    assert set(line["rel_err"]) == {"qkv", "attn", "hid", "mid", "out", "block"}
+    assert all(line["rel_err"][k] <= line["tol_rel"][k] for k in line["rel_err"])
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_check_block_rejects_a_wrong_attention_core(monkeypatch, capsys, fault):
+    real_block = ops.fused_transformer_block
+
+    def faulty_block(*args, **kwargs):
+        block_ops.attention_reference = FAULTS[fault]
+        try:
+            return real_block(*args, **kwargs)
+        finally:
+            block_ops.attention_reference = _attention
+
+    monkeypatch.setattr(ops, "fused_transformer_block", faulty_block)
+    x, w, args = _block_input()
+    with torch.inference_mode(), pytest.raises(AssertionError, match="attn"):
+        chip_smoke.check_block(torch, x, w, *args, block=0)
+    line = _last_line(capsys)
+    assert line["rel_err"]["attn"] > 2 * line["tol_rel"]["attn"]
+    # the residual stages are held given the kernel's own attention output
+    assert line["rel_err"]["mid"] <= line["tol_rel"]["mid"]
+
+
+def test_check_block_rejects_a_wrong_residual_branch(monkeypatch):
+    """A proj epilogue that drops its bias: the `mid` stage sees it."""
+    real_block = ops.fused_transformer_block
+
+    def faulty_block(x, w, *args, **kwargs):
+        y, st = real_block(x, w, *args, **kwargs)
+        st["mid"] = st["mid"] - w["bproj"].to(x.dtype)
+        return y, st
+
+    monkeypatch.setattr(ops, "fused_transformer_block", faulty_block)
+    x, w, args = _block_input()
+    w["bproj"] = torch.full_like(w["bproj"], 0.05)
+    with torch.inference_mode(), pytest.raises(AssertionError, match="mid"):
+        chip_smoke.check_block(torch, x, w, *args, block=0)
