@@ -1,60 +1,121 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU.
 
 Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase below
+    python3 chip_smoke.py --plant-fault   # the block-backward check, against
+                                          # a kernel with a planted fault
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
-  1. build   the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
-  2. serve   batches of 1, 8 and 256 random NHWC images through the headline
-             student (DeiT-S/16, 224 px, bf16, pruning 0.7/0.49/0.343 at
-             blocks 3/6/9, small predictor) built by `create_model`, check
-             the outputs and that each forward launched 12 block, 3
-             predictor and 3 gather kernels;
-  3. check   walk the model stage by stage at B=256 and hold every kernel
-             against its plain torch version on the same activations (the
-             block stage by stage: see `check_block`), then the unpruned
-             forward against the plain torch model;
-  4. time    each kernel against its plain version at every main-path shape,
-             and the whole B=256 forward with kernels against without.
-The line before the last is the kernels summary; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
+  1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
+  2. serve       batches of 1, 8 and 256 random NHWC images through the
+                 headline student (DeiT-S/16, 224 px, bf16, pruning
+                 0.7/0.49/0.343 at blocks 3/6/9, small predictor) built by
+                 `create_model`, check the outputs and that each forward
+                 launched 12 block, 3 predictor and 3 gather kernels;
+  3. check       walk the model stage by stage at B=256 and hold every
+                 serving kernel against its plain torch version on the same
+                 activations (the block stage by stage: see `check_block`),
+                 then the unpruned forward against the plain torch model;
+  4. time        each serving kernel against its plain version at every
+                 main-path shape, and the whole B=256 forward with kernels
+                 against without;
+  5. train       three B=128 train steps of the headline student with its
+                 live teacher (DeiT-S, bf16), built by `create_model`,
+                 `make_optimizer` and `make_train_step`, at epoch 6 with the
+                 optimizer's count past the warmup; check every metric is
+                 finite, each step's launches per kernel (PER_TRAIN_STEP),
+                 that every trained parameter moved and cls_token and
+                 pos_embed did not;
+  6. check_train hold the training kernels against their plain versions on
+                 a train step's own activations: the block backward at every
+                 block's input (`check_block_backward`), the scatter at every
+                 stage (bit-equal), the teacher's CLS rows at every block;
+  7. time_train  the training kernels against their plain versions (and the
+                 one torch call that computes the same function, where there
+                 is one), and the whole train step with kernels against
+                 without.
+The line before the last two is the kernels summary, then the card's name
+and power limit, then {"ok": true, "device": {...}}. Without a CUDA device
+it exits 1 at once.
+
+--plant-fault builds a copy of the kernels whose block backward drops the
+rowsum(dO * O) term of the softmax backward, runs phase 6's block-backward
+check with it, prints whether the check rejected it, and exits 0 only if it
+did; it prints no "ok" line.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import sys
 import time
 
 SERVE_BATCHES = (1, 8, 256)
 B_CHECK = 256
+B_TRAIN = 128
+TRAIN_STEPS = 3
+TRAIN_EPOCH = 6  # past TrainConfig's 5 warmup epochs
+STEPS_PER_EPOCH = 10
 # Tolerances, bf16. Kernel and plain version round to bf16 (2^-8 relative)
 # at different points (qkv, probabilities, the GELU input), so a few
 # roundings compound. Each is relative to the largest magnitude of what is
 # compared.
-STAGE_TOL = 2e-2  # a block stage, the predictor's scores
+STAGE_TOL = 2e-2  # a block stage, the predictor's scores, the CLS rows
 # a residual stage x + branch: the kernel's error beyond the one bf16
 # rounding of the sum, relative to the largest magnitude of the branch
 BRANCH_TOL = 1e-2
 BF16_U = 2.0 ** -8  # round-to-nearest bf16: |rn(z) - z| <= 2^-8 |z|
 BLOCK_TOL = 2e-2  # the whole block output
 LOGITS_TOL = 3e-2  # twelve blocks of such differences, unpruned forward
-PER_FORWARD = {"fused_transformer_block": 12, "fused_predictor_lg": 3,
-               "fused_gather_tokens": 3}
+# the block backward: dx and each of the twelve gradients, relative to that
+# tensor's largest magnitude; the plain version (autograd through the plain
+# block) rounds every intermediate gradient to bf16, the kernel keeps the
+# LayerNorm and residual ones in fp32
+BWD_TOL = 3e-2
+# a CLS row's sum: N probabilities each rounded to bf16
+ROWSUM_TOL = 1e-2
+KERNEL_NAMES = (
+    "fused_transformer_block", "fused_transformer_block_cls",
+    "fused_transformer_block_backward", "fused_predictor_lg",
+    "fused_gather_tokens", "fused_scatter_tokens",
+)
+PER_FORWARD = {**dict.fromkeys(KERNEL_NAMES, 0), "fused_transformer_block": 12,
+               "fused_predictor_lg": 3, "fused_gather_tokens": 3}
+# one train step: the teacher's 12 blocks with their CLS rows; the student's
+# 12 block forwards and backwards, 3 gathers and their 3 scatters; the
+# predictors train through their plain layers
+PER_TRAIN_STEP = {"fused_transformer_block": 12, "fused_transformer_block_cls": 12,
+                  "fused_transformer_block_backward": 12, "fused_predictor_lg": 0,
+                  "fused_gather_tokens": 3, "fused_scatter_tokens": 3}
 SOURCES = {
     "fused_transformer_block": (
         "dense2sparse_vit_torch/csrc/block.cu",
         "dense2sparse_vit_tpu/ops/pallas/block.py:198"),
+    "fused_transformer_block_cls": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:285"),
+    "fused_transformer_block_backward": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:729"),
     "fused_predictor_lg": (
         "dense2sparse_vit_torch/csrc/predictor.cu",
         "dense2sparse_vit_tpu/ops/pallas/predictor.py:242"),
     "fused_gather_tokens": (
         "dense2sparse_vit_torch/csrc/gather.cu",
         "dense2sparse_vit_tpu/ops/pallas/gather.py:121"),
+    "fused_scatter_tokens": (
+        "dense2sparse_vit_torch/csrc/gather.cu",
+        "dense2sparse_vit_tpu/ops/pallas/gather.py:143"),
 }
+# the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+# the fault --plant-fault puts into a copy of block_bwd.cu
+FAULT = ("    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n")
 
 
 def emit(obj) -> None:
@@ -78,14 +139,14 @@ def cuda_ms(torch, fn, iters: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def paired_ms(torch, kernel_fn, plain_fn, iters: int, rounds: int = 2):
+def paired_ms(torch, kernel_fn, plain_fn, iters: int, rounds: int = 2, repeats: int = 5):
     """Kernel and plain times, measured in turns: plain, kernel, kernel, plain."""
     k, p = [], []
     for _ in range(rounds):
-        p.append(cuda_ms(torch, plain_fn, iters))
-        k.append(cuda_ms(torch, kernel_fn, iters))
-        k.append(cuda_ms(torch, kernel_fn, iters))
-        p.append(cuda_ms(torch, plain_fn, iters))
+        p.append(cuda_ms(torch, plain_fn, iters, repeats))
+        k.append(cuda_ms(torch, kernel_fn, iters, repeats))
+        k.append(cuda_ms(torch, kernel_fn, iters, repeats))
+        p.append(cuda_ms(torch, plain_fn, iters, repeats))
     return statistics.median(k), statistics.median(p)
 
 
@@ -95,6 +156,92 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         raise AssertionError("non-finite values")
     return (got - want).abs().max().item(), want.abs().max().item()
+
+
+# ---- the least time the card could take: max(operations, bytes) ----------
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def block_bound(B, N, C, H, hidden, cls=False) -> dict:
+    """One block forward: the four projections and QK^T, PV; x read, out
+    (and the CLS rows) written, the weights read once."""
+    M = B * N
+    flops = 2 * M * C * (4 * C + 2 * hidden) + 4 * B * H * N * N * (C // H)
+    weights = 2 * (4 * C * C + 2 * C * hidden) + 4 * (8 * C + hidden)
+    return bound(flops, 2 * M * C * 2 + weights + (B * H * N * 2 if cls else 0))
+
+
+def block_backward_bound(B, N, C, H, hidden) -> dict:
+    """dx and the 12 gradients from x and g alone: the forward up to fc1
+    recomputed (three projections, QK^T, PV), then each projection's dX and
+    dW and the attention core's dV, dP, dQ, dK; x and g read, dx written,
+    the weights read, the fp32 gradients written."""
+    M, hd = B * N, C // H
+    flops = (2 * M * (4 * C * C + C * hidden) + 4 * B * H * N * N * hd
+             + 4 * M * (4 * C * C + 2 * C * hidden) + 8 * B * H * N * N * hd)
+    params = 4 * C * C + 2 * C * hidden
+    vectors = 8 * C + hidden
+    nbytes = 3 * M * C * 2 + 2 * params + 4 * vectors + 4 * (params + vectors)
+    return bound(flops, nbytes)
+
+
+def predictor_bound(B, N, D, w) -> dict:
+    flops, c_in, weights = 0, D, 0
+    for _, _, weight, _ in w["units"]:
+        flops += 2 * B * N * c_in * weight.shape[0]
+        weights += weight.numel() * 2
+        c_in = weight.shape[0]
+    return bound(flops + 2 * B * N * c_in, B * N * D * 2 + weights + B * N * 2)
+
+
+def rows_bound(B, K, D, out_rows, elt) -> dict:
+    """A gather or a scatter: K rows read (or written), out_rows written, the
+    indices read."""
+    return bound(0, B * K * D * elt + B * out_rows * D * elt + B * K * 8)
+
+
+class Tally:
+    """Per kernel: main-path launches and, per main-path run, the kernel's,
+    the plain version's, the library call's and the bound's milliseconds."""
+
+    def __init__(self):
+        self.rows = {n: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                         "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0}
+                     for n in KERNEL_NAMES}
+
+    def add(self, name, calls, k_ms, p_ms, b, lib_ms=None):
+        r = self.rows[name]
+        r["ms"] += calls * k_ms
+        r["plain_ms"] += calls * p_ms
+        r["ops_ms"] += calls * b["ops_ms"]
+        r["bytes_ms"] += calls * b["bytes_ms"]
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + calls * lib_ms
+
+    def err(self, name, e):
+        self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"], e)
+
+    def line(self):
+        out = []
+        for n in KERNEL_NAMES:
+            r = self.rows[n]
+            by = "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes"
+            out.append({
+                "name": n, "route": "cuda", "source": SOURCES[n][0],
+                "replaces": SOURCES[n][1], "launches": r["launches"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": max(r["ops_ms"], r["bytes_ms"]), "bound_by": by,
+                "library_ms": r["library_ms"],
+            })
+        return {"kernels": out}
+
+
+# ---- the serving checks ----------------------------------------------------
 
 
 def check_block(torch, x, w, num_heads, scale, ln_eps, block=None):
@@ -164,38 +311,176 @@ def check_unpruned(torch, model, plain, images) -> None:
         raise AssertionError(f"unpruned logits: max err {err} vs scale {scale}")
 
 
-def main() -> int:
+# ---- the training checks --------------------------------------------------
+
+
+def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None):
+    """Hold the block-backward kernel against its plain version (autograd
+    through the plain block) on the same x, g and weights: dx and each of the
+    twelve gradients, and the thirds of the qkv weight's (q, k, v) and
+    bias's (q, v) apart, within BWD_TOL of that tensor's largest magnitude.
+    Prints the relative errors, raises naming every tensor out of tolerance,
+    and returns the largest absolute error."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import transformer_block_backward_reference
+
+    dx, dw = ops.fused_transformer_block_backward(x, g, w, num_heads, scale=scale,
+                                                  ln_eps=ln_eps)
+    want_dx, want_dw = transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps)
+    pairs = {"dx": (dx, want_dx)}
+    for k in dw:
+        if dw[k] is None:
+            continue
+        pairs[k] = (dw[k], want_dw[k])
+        if k in ("wqkv", "bqkv"):
+            # q, k and v apart too: the values' gradient is the largest, and
+            # a fault in the scores' gradient (dQ, dK) would hide under it.
+            # Not the key bias's: it is zero in exact arithmetic (softmax
+            # ignores a shift of a row's scores), rounding noise on both sides
+            for part, got, want in zip("qkv", dw[k].chunk(3), want_dw[k].chunk(3)):
+                if k + part != "bqkvk":
+                    pairs[f"{k}.{part}"] = (got, want)
+    rel, worst = {}, 0.0
+    for name, (got, want) in pairs.items():
+        err, ref = rel_err(torch, got, want)
+        rel[name] = err / max(ref, 1e-30)
+        worst = max(worst, err)
+    emit({"phase": "check_train", "kernel": "fused_transformer_block_backward",
+          "block": block, "shape": list(x.shape), "rel_err": rel, "tol_rel": BWD_TOL})
+    bad = {k: r for k, r in rel.items() if not r <= BWD_TOL}
+    if bad:
+        raise AssertionError(f"block backward out of tolerance: {bad}")
+    return worst
+
+
+def build_trainer(torch, dev, fused: bool):
+    """The headline student and its teacher, from seeded generators, with
+    AdamW past the warmup and the train step: (student, teacher, step)."""
+    from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
+    from dense2sparse_vit_torch.models import (
+        HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER, create_model)
+    from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+
+    student = create_model(HEADLINE_MODEL, use_fused_attention=fused, device=dev,
+                           generator=torch.Generator().manual_seed(0), **HEADLINE_KWARGS)
+    teacher = create_model(HEADLINE_TEACHER, use_fused_attention=fused, device=dev,
+                           dtype="bfloat16", generator=torch.Generator().manual_seed(2))
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=TrainConfig())
+    opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH)
+    opt.count = cfg.train.warmup_epochs * STEPS_PER_EPOCH
+    return student, teacher, make_train_step(student, teacher, opt, cfg)
+
+
+def train_batch(torch, dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randn((B_TRAIN, 224, 224, 3), generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (B_TRAIN,), generator=gen, device=dev)
+    return images, labels
+
+
+def capture_train_step(torch, student, teacher, step, images, labels):
+    """Run one more train step with hooks: every student block's input and
+    weights (before the update), the cotangent of the last block's output,
+    every gather's input, indices and output cotangent, and every teacher
+    block's input."""
+    import dense2sparse_vit_torch.models.student as student_module
+
+    bf16 = torch.bfloat16
+    rec = {"block_in": {}, "gathers": [], "teacher_in": {}, "last_g": None}
+    with torch.no_grad():
+        rec["weights"] = [{k: None if v is None else v.detach().clone()
+                           for k, v in blk.kernel_weights(bf16).items()}
+                          for blk in student.blocks]
+        rec["teacher_weights"] = [blk.kernel_weights(bf16) for blk in teacher.blocks]
+    handles = []
+    for i, blk in enumerate(student.blocks):
+        handles.append(blk.register_forward_pre_hook(
+            lambda m, args, i=i: rec["block_in"].__setitem__(i, args[0].detach())))
+    for i, blk in enumerate(teacher.blocks):
+        handles.append(blk.register_forward_pre_hook(
+            lambda m, args, i=i: rec["teacher_in"].__setitem__(i, args[0].detach())))
+
+    def last_hook(m, args, out):
+        out.register_hook(lambda g: rec.__setitem__("last_g", g.detach()))
+
+    handles.append(student.blocks[-1].register_forward_hook(last_hook))
+    real_gather = student_module.fused_gather_tokens
+
+    def gather_spy(x, idx):
+        out = real_gather(x, idx)
+        entry = {"x": x.detach(), "idx": idx}
+        out.register_hook(lambda g: entry.__setitem__("g", g.detach()))
+        rec["gathers"].append(entry)
+        return out
+
+    student_module.fused_gather_tokens = gather_spy
+    try:
+        step(images, labels, TRAIN_EPOCH)
+        torch.cuda.synchronize()
+    finally:
+        student_module.fused_gather_tokens = real_gather
+        for h in handles:
+            h.remove()
+    return rec
+
+
+def check_block_backwards(torch, student, rec, tally=None):
+    """Kernel C at every student block's input: the real cotangent at the
+    last block, a seeded one of the same scale at the others."""
+    gen = torch.Generator(device=rec["last_g"].device).manual_seed(4)
+    scale_g = rec["last_g"].float().std().item()
+    for i, blk in enumerate(student.blocks):
+        x = rec["block_in"][i]
+        if i == len(student.blocks) - 1:
+            g = rec["last_g"].contiguous()
+        else:
+            g = (torch.randn(x.shape, generator=gen, device=x.device) * scale_g).to(x.dtype)
+        with torch.no_grad():
+            err = check_block_backward(torch, x, g, rec["weights"][i], blk.attn.num_heads,
+                                       blk.attn.scale, blk.norm1.eps, block=i)
+        if tally is not None:
+            tally.err("fused_transformer_block_backward", err)
+
+
+def plant_fault(dev) -> int:
+    """Build the kernels with the fault, run the block-backward check on a
+    train step's activations, and report whether it rejected the fault."""
     import torch
+    from pathlib import Path
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from dense2sparse_vit_torch.ops import _cuda
 
+    faulty = _cuda.BUILD_DIR / "fault_csrc"
+    shutil.rmtree(faulty, ignore_errors=True)
+    shutil.copytree(_cuda.CSRC, faulty)
+    src = Path(faulty) / "block_bwd.cu"
+    text = src.read_text()
+    if text.count(FAULT[0]) != 1:
+        raise AssertionError("the fault's pattern is not in block_bwd.cu once")
+    src.write_text(text.replace(*FAULT))
+    _cuda.CSRC = faulty
+    _cuda.library()
+    student, teacher, step = build_trainer(torch, dev, fused=True)
+    images, labels = train_batch(torch, dev)
+    rec = capture_train_step(torch, student, teacher, step, images, labels)
+    try:
+        check_block_backwards(torch, student, rec)
+    except AssertionError as e:
+        emit({"phase": "plant_fault", "fault": "rowsum(dO * O) dropped", "rejected": True,
+              "message": str(e)[:400]})
+        return 0
+    emit({"phase": "plant_fault", "fault": "rowsum(dO * O) dropped", "rejected": False})
+    return 1
+
+
+# ---- phases ----------------------------------------------------------------
+
+
+def phase_serve(torch, dev, tally):
+    """Phase 2; returns (model, plain, images, outputs)."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.models import HEADLINE_KWARGS, HEADLINE_MODEL, create_model
-    from dense2sparse_vit_torch.ops import _cuda
-    from dense2sparse_vit_torch.ops.block import transformer_block_reference
-    from dense2sparse_vit_torch.ops.gather import gather_tokens_reference
-    from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
-    from dense2sparse_vit_torch.ops.topk import topk_keep_indices
-    from dense2sparse_vit_torch.utils import card_name_and_power_limit
 
-    dev = torch.device("cuda", 0)
-    smi = card_name_and_power_limit()
-    emit({"phase": "device", "torch": torch.__version__,
-          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(dev)})
-
-    # ---- 1. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    _cuda.library()
-    ptxas = [ln.strip() for ln in _cuda.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "ptxas": ptxas})
-
-    # ---- 2. serve through the entry point -------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
     model = create_model(HEADLINE_MODEL, use_fused_attention=True, device=dev,
                          generator=torch.Generator().manual_seed(0),
@@ -237,15 +522,23 @@ def main() -> int:
                   "features": list(out.features.shape),
                   "pred_logits": [t.shape[1] for t in out.pred_logits],
                   "first_call_s": round(seconds, 4)})
-        launches = ops.launch_counts()
+        for k, v in ops.launch_counts().items():
+            tally.rows[k]["launches"] += v
+    return model, plain, images, outputs
 
-    # ---- 3. every kernel against its plain version, stage by stage ------
+
+def phase_check(torch, model, plain, images, outputs, tally):
+    """Phase 3; returns the shapes phase 4 times."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.gather import gather_tokens_reference
+    from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
+    from dense2sparse_vit_torch.ops.topk import topk_keep_indices
+
     bf16 = torch.bfloat16
-    errs = {k: 0.0 for k in PER_FORWARD}
+    keep = model.pruning.keep_counts(model.cfg.num_patches)
     block_shapes, pred_shapes, gather_shapes = [], [], []
-    x_in = images[B_CHECK]
     with torch.inference_mode():
-        x = model.embed(x_in)
+        x = model.embed(images[B_CHECK])
         p = 0
         for i, blk in enumerate(model.blocks):
             if i in model.pruning.pruning_locs:
@@ -259,7 +552,7 @@ def main() -> int:
                       "max_abs_ref": scale, "tol_rel": STAGE_TOL})
                 if err > STAGE_TOL * scale:
                     raise AssertionError(f"predictor stage {p}: err {err} scale {scale}")
-                errs["fused_predictor_lg"] = max(errs["fused_predictor_lg"], err)
+                tally.err("fused_predictor_lg", err)
                 pred_shapes.append((xs, w))
                 probs = torch.softmax(s_k.float(), dim=-1).to(bf16)
                 kept, _ = topk_keep_indices(probs, keep[p])
@@ -277,7 +570,7 @@ def main() -> int:
             w = blk.kernel_weights(bf16)
             args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
             y, err = check_block(torch, x, w, *args, block=i)
-            errs["fused_transformer_block"] = max(errs["fused_transformer_block"], err)
+            tally.err("fused_transformer_block", err)
             if not block_shapes or block_shapes[-1][0].shape != x.shape:
                 block_shapes.append((x, w, args))
             x = y
@@ -288,52 +581,244 @@ def main() -> int:
         emit({"phase": "check", "walk_equals_forward": True})
         # the whole model against the plain one, where no selection can differ
         check_unpruned(torch, model, plain, images[8])
+    return block_shapes, pred_shapes, gather_shapes
 
-    # ---- 4. time ---------------------------------------------------------
-    timing = {k: {"ms": 0.0, "plain_ms": 0.0} for k in PER_FORWARD}
+
+def phase_time(torch, model, plain, images, shapes, tally, smi):
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import transformer_block_reference
+    from dense2sparse_vit_torch.ops.gather import gather_tokens_reference
+    from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
+
+    block_shapes, pred_shapes, gather_shapes = shapes
+    hidden = model.blocks[0].mlp.fc1.out_features
     with torch.inference_mode():
         for x, w, args in block_shapes:  # 3 blocks at each width
             k_ms, p_ms = paired_ms(
                 torch,
                 lambda: ops.fused_transformer_block(x, w, args[0], scale=args[1], ln_eps=args[2]),
                 lambda: transformer_block_reference(x, w, *args), iters=10)
-            n_calls = 3
-            timing["fused_transformer_block"]["ms"] += n_calls * k_ms
-            timing["fused_transformer_block"]["plain_ms"] += n_calls * p_ms
+            b = block_bound(*x.shape, args[0], hidden)
+            tally.add("fused_transformer_block", 3, k_ms, p_ms, b)
             emit({"phase": "time", "kernel": "fused_transformer_block",
-                  "shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms})
+                  "shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
+                  "bound_ms": max(b.values())})
         for xs, w in pred_shapes:
             k_ms, p_ms = paired_ms(
                 torch, lambda: ops.fused_predictor_lg(xs, w),
                 lambda: predictor_lg_reference(xs, w), iters=10)
-            timing["fused_predictor_lg"]["ms"] += k_ms
-            timing["fused_predictor_lg"]["plain_ms"] += p_ms
+            b = predictor_bound(*xs.shape, w)
+            tally.add("fused_predictor_lg", 1, k_ms, p_ms, b)
             emit({"phase": "time", "kernel": "fused_predictor_lg",
-                  "shape": list(xs.shape), "ms": k_ms, "plain_ms": p_ms})
+                  "shape": list(xs.shape), "ms": k_ms, "plain_ms": p_ms,
+                  "bound_ms": max(b.values())})
         for x, idx in gather_shapes:
             k_ms, p_ms = paired_ms(
                 torch, lambda: ops.fused_gather_tokens(x, idx),
                 lambda: gather_tokens_reference(x, idx), iters=20)
-            timing["fused_gather_tokens"]["ms"] += k_ms
-            timing["fused_gather_tokens"]["plain_ms"] += p_ms
+            # one torch call for the same function: the indices are in range
+            full = idx[..., None].expand(-1, -1, x.shape[2])
+            lib_ms = cuda_ms(torch, lambda: torch.gather(x, 1, full), iters=20)
+            b = rows_bound(x.shape[0], idx.shape[1], x.shape[2], idx.shape[1], 2)
+            tally.add("fused_gather_tokens", 1, k_ms, p_ms, b, lib_ms)
             emit({"phase": "time", "kernel": "fused_gather_tokens",
                   "shape": list(x.shape), "k": idx.shape[1],
-                  "ms": k_ms, "plain_ms": p_ms})
+                  "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                  "bound_ms": max(b.values())})
         imgs = images[B_CHECK]
-        f_ms, p_ms = paired_ms(torch, lambda: model(imgs), lambda: plain(imgs),
-                               iters=5)
+        f_ms, p_ms = paired_ms(torch, lambda: model(imgs), lambda: plain(imgs), iters=5)
         emit({"phase": "time", "forward": "B=256 pruned student",
               "kernels_ms": f_ms, "plain_ms": p_ms,
               "kernels_img_per_s": B_CHECK / f_ms * 1e3,
               "plain_img_per_s": B_CHECK / p_ms * 1e3, "card": smi})
 
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": timing[name]["ms"],
-         "plain_ms": timing[name]["plain_ms"]}
-        for name in PER_FORWARD
-    ]})
+
+def phase_train(torch, dev, tally):
+    """Phase 5; returns (student, teacher, step, images, labels)."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.train import label_params
+
+    student, teacher, step = build_trainer(torch, dev, fused=True)
+    images, labels = train_batch(torch, dev)
+    groups = label_params(student)
+    before = {n: p.detach().clone() for n, p in student.named_parameters()}
+    for s in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(images, labels, TRAIN_EPOCH)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts != PER_TRAIN_STEP:
+            raise AssertionError(f"step {s}: launches {counts}, expected {PER_TRAIN_STEP}")
+        for k, v in counts.items():
+            tally.rows[k]["launches"] += v
+        values = {k: v.item() for k, v in metrics.items()}
+        bad = [k for k, v in values.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"step {s}: non-finite metrics {bad}")
+        emit({"phase": "train", "step": s, "batch": B_TRAIN, "epoch": TRAIN_EPOCH,
+              "launches": counts, "metrics": values, "seconds": round(seconds, 4)})
+    moved = {n: not torch.equal(p, before[n]) for n, p in student.named_parameters()}
+    stuck = [n for n, m in moved.items() if groups[n] != "frozen" and not m]
+    drifted = [n for n, m in moved.items() if groups[n] == "frozen" and m]
+    emit({"phase": "train", "trained_tensors": sum(groups[n] != "frozen" for n in moved),
+          "unchanged": stuck, "frozen_changed": drifted})
+    if stuck or drifted:
+        raise AssertionError(f"parameters not updated: {stuck}; frozen but changed: {drifted}")
+    return student, teacher, step, images, labels
+
+
+def phase_check_train(torch, student, teacher, step, images, labels, tally):
+    """Phase 6; returns the recorded activations for phase 7."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import transformer_block_reference
+    from dense2sparse_vit_torch.ops.gather import scatter_tokens_reference
+
+    rec = capture_train_step(torch, student, teacher, step, images, labels)
+    check_block_backwards(torch, student, rec, tally)
+    with torch.no_grad():
+        for p, entry in enumerate(rec["gathers"]):
+            n = entry["x"].shape[1]
+            got = ops.fused_scatter_tokens(entry["g"], entry["idx"], n)
+            if not torch.equal(got, scatter_tokens_reference(entry["g"], entry["idx"], n)):
+                raise AssertionError(f"scatter stage {p}: not bit-equal")
+            emit({"phase": "check_train", "kernel": "fused_scatter_tokens",
+                  "shape": list(entry["g"].shape), "n": n, "bit_equal": True})
+        for i, blk in enumerate(teacher.blocks):
+            x, w = rec["teacher_in"][i], rec["teacher_weights"][i]
+            args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+            out, cls = ops.fused_transformer_block_cls(x, w, args[0], scale=args[1],
+                                                       ln_eps=args[2])
+            want_out, want_cls = transformer_block_reference(x, w, *args, return_cls=True)
+            err, ref = rel_err(torch, cls, want_cls)
+            out_err, out_ref = rel_err(torch, out, want_out)
+            rowsum = (cls.float().sum(-1) - 1).abs().max().item()
+            emit({"phase": "check_train", "kernel": "fused_transformer_block_cls",
+                  "block": i, "shape": list(x.shape), "cls_rel_err": err / ref,
+                  "out_rel_err": out_err / out_ref, "rowsum_err": rowsum,
+                  "tol_rel": STAGE_TOL, "rowsum_tol": ROWSUM_TOL})
+            if err > STAGE_TOL * ref or out_err > BLOCK_TOL * out_ref or rowsum > ROWSUM_TOL:
+                raise AssertionError(f"teacher block {i}: CLS rows out of tolerance")
+            tally.err("fused_transformer_block_cls", err)
+    return rec
+
+
+def phase_time_train(torch, dev, student, rec, tally, smi):
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import (
+        transformer_block_backward_reference, transformer_block_reference)
+    from dense2sparse_vit_torch.ops.gather import scatter_tokens_reference
+
+    hidden = student.blocks[0].mlp.fc1.out_features
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scale_g = rec["last_g"].float().std().item()
+    with torch.no_grad():
+        widths = {}
+        for i, x in rec["block_in"].items():
+            widths.setdefault(x.shape[1], []).append(i)
+        for n, idxs in widths.items():
+            i = idxs[0]
+            x, w, blk = rec["block_in"][i], rec["weights"][i], student.blocks[i]
+            g = rec["last_g"] if i == len(student.blocks) - 1 else (
+                torch.randn(x.shape, generator=gen, device=dev) * scale_g).to(x.dtype)
+            args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+            k_ms, p_ms = paired_ms(
+                torch,
+                lambda: ops.fused_transformer_block_backward(
+                    x, g, w, args[0], scale=args[1], ln_eps=args[2]),
+                lambda: transformer_block_backward_reference(x, g, w, *args),
+                iters=3, repeats=3)
+            b = block_backward_bound(*x.shape, args[0], hidden)
+            tally.add("fused_transformer_block_backward", len(idxs), k_ms, p_ms, b)
+            emit({"phase": "time_train", "kernel": "fused_transformer_block_backward",
+                  "shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
+                  "bound_ms": max(b.values()), "calls_per_step": len(idxs)})
+        x, w = rec["teacher_in"][0], rec["teacher_weights"][0]
+        blk = student.blocks[0]
+        args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+        k_ms, p_ms = paired_ms(
+            torch,
+            lambda: ops.fused_transformer_block_cls(x, w, args[0], scale=args[1],
+                                                    ln_eps=args[2]),
+            lambda: transformer_block_reference(x, w, *args, return_cls=True),
+            iters=5, repeats=3)
+        b = block_bound(*x.shape, args[0], hidden, cls=True)
+        tally.add("fused_transformer_block_cls", len(rec["teacher_in"]), k_ms, p_ms, b)
+        emit({"phase": "time_train", "kernel": "fused_transformer_block_cls",
+              "shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
+              "bound_ms": max(b.values()), "calls_per_step": len(rec["teacher_in"])})
+        for entry in rec["gathers"]:
+            g, idx, n = entry["g"], entry["idx"], entry["x"].shape[1]
+            B, K, D = g.shape
+            k_ms, p_ms = paired_ms(
+                torch, lambda: ops.fused_scatter_tokens(g, idx, n),
+                lambda: scatter_tokens_reference(g, idx, n), iters=20)
+            # one torch call for the same function: index_add_ into zero rows
+            rows = (idx + torch.arange(B, device=dev)[:, None] * n).reshape(-1)
+            buf = torch.zeros((B * n, D), dtype=g.dtype, device=dev)
+            flat = g.reshape(B * K, D)
+            lib_ms = cuda_ms(torch, lambda: buf.index_add_(0, rows, flat), iters=20)
+            b = rows_bound(B, K, D, n, g.element_size())
+            tally.add("fused_scatter_tokens", 1, k_ms, p_ms, b, lib_ms)
+            emit({"phase": "time_train", "kernel": "fused_scatter_tokens",
+                  "shape": list(g.shape), "n": n, "ms": k_ms, "plain_ms": p_ms,
+                  "library_ms": lib_ms, "bound_ms": max(b.values())})
+
+    # the whole train step, with the kernels and without, on the same weights
+    f_student, f_teacher, f_step = build_trainer(torch, dev, fused=True)
+    p_student, p_teacher, p_step = build_trainer(torch, dev, fused=False)
+    p_student.load_state_dict(f_student.state_dict())
+    p_teacher.load_state_dict(f_teacher.state_dict())
+    images, labels = train_batch(torch, dev)
+    f_ms, p_ms = paired_ms(torch, lambda: f_step(images, labels, TRAIN_EPOCH),
+                           lambda: p_step(images, labels, TRAIN_EPOCH), iters=2, repeats=3)
+    emit({"phase": "time_train", "train_step": f"B={B_TRAIN} headline student + teacher",
+          "kernels_ms": f_ms, "plain_ms": p_ms,
+          "kernels_img_per_s": B_TRAIN / f_ms * 1e3,
+          "plain_img_per_s": B_TRAIN / p_ms * 1e3, "card": smi})
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from dense2sparse_vit_torch.ops import _cuda
+    from dense2sparse_vit_torch.utils import card_name_and_power_limit
+
+    dev = torch.device("cuda", 0)
+    smi = card_name_and_power_limit()
+    emit({"phase": "device", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(dev)})
+    if "--plant-fault" in argv:
+        return plant_fault(dev)
+
+    # ---- 1. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    _cuda.library()
+    ptxas = [ln.strip() for ln in _cuda.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "ptxas": ptxas})
+
+    tally = Tally()
+    # ---- 2-4. serve, check, time ----------------------------------------
+    model, plain, images, outputs = phase_serve(torch, dev, tally)
+    shapes = phase_check(torch, model, plain, images, outputs, tally)
+    phase_time(torch, model, plain, images, shapes, tally, smi)
+    del model, plain, images, outputs, shapes
+    # ---- 5-7. train, check_train, time_train ----------------------------
+    student, teacher, step, t_images, t_labels = phase_train(torch, dev, tally)
+    rec = phase_check_train(torch, student, teacher, step, t_images, t_labels, tally)
+    phase_time_train(torch, dev, student, rec, tally, smi)
+
+    emit(tally.line())
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

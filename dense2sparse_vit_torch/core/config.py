@@ -1,19 +1,20 @@
 """Model and pruning configuration.
 
-A copy of `dense2sparse_vit_tpu/core/config.py::ModelConfig` and
-`::PruningConfig` (fields, defaults and checks). The port keeps its own copy
-because importing the JAX package's `core` also imports `jax`
-(`core/__init__.py` pulls in `core/mesh.py`), and the machine that runs the
-port has no JAX. Fields that select a path the port does not have yet are
-kept, and the models reject them; fields that no port code reads (remat, the
-differentiable top-k's settings, the attention-selection options) are left
-out.
+A copy of `dense2sparse_vit_tpu/core/config.py::ModelConfig`,
+`::PruningConfig`, `::TrainConfig` and `::ExperimentConfig` (fields, defaults
+and checks). The port keeps its own copy because importing the JAX package's
+`core` also imports `jax` (`core/__init__.py` pulls in `core/mesh.py`), and
+the machine that runs the port has no JAX. Fields that select a path the port
+does not have yet are kept, and the models and the train step reject them;
+fields that no port code reads (remat, the differentiable top-k's settings,
+the attention-selection options, the data pipeline's and the loop's settings)
+are left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -87,6 +88,9 @@ class PruningConfig:
     # 'kl_div' | 'mse' | 'bce': also selects softmax or sigmoid keep-probs
     mask_loss_type: str = "kl_div"
     pad_keep_to_tile: bool = False
+    # mean over heads instead of max when aggregating the teacher's
+    # CLS-attention rows into the mask loss's target
+    mean_heads: bool = False
     cls_from_teacher: bool = False
     early_exit: bool = False
 
@@ -116,4 +120,46 @@ class PruningConfig:
         return tuple(counts)
 
     def replace(self, **kw) -> "PruningConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and schedule settings the train step reads."""
+
+    epochs: int = 25
+    lr: float = 5e-4
+    min_lr: float = 1e-5
+    weight_decay: float = 0.05
+    # epochs during which the backbone stays frozen and only the predictor
+    # trains: the backbone's lr is 0 and its loss term is gated off
+    warmup_epochs: int = 5
+    freeze_backbone: bool = False
+    # backbone lr after warmup: min(lr * backbone_lr_scale, cosine lr)
+    backbone_lr_scale: float = 0.01
+    # gradient accumulation and the frozen-teacher cache: not ported yet,
+    # the train step rejects them
+    grad_accum_steps: int = 1
+    teacher_cache: bool = False
+    seed: int = 42
+
+    def __post_init__(self):
+        if self.grad_accum_steps < 1:
+            raise ValueError(
+                f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}"
+            )
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """The parts of the JAX package's ExperimentConfig the train step reads."""
+
+    model: ModelConfig = field(default_factory=deit_small)
+    pruning: PruningConfig = field(default_factory=PruningConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

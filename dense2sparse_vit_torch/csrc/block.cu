@@ -1,8 +1,9 @@
-// Whole pre-norm transformer block, inference, for sm_90a.
+// Whole pre-norm transformer block, forward, for sm_90a.
 //
 // Replaces dense2sparse_vit_tpu/ops/pallas/block.py::fused_transformer_block
-// (kernel body `_block_kernel`) in its plain mode: no keep-policy, no CLS
-// output, no DropPath branch scales. It computes what `_ref_block` defines:
+// (kernel body `_block_kernel`) in its plain mode, with its `return_cls`
+// output: no keep-policy, no DropPath branch scales. It computes what
+// `_ref_block` defines:
 //   x_mid = x + proj(MHA(qkv(LN1 x)))
 //   out   = x_mid + fc2(GELU(fc1(LN2 x_mid)))
 // with an exact row-max softmax in fp32 over the N real columns. The TPU
@@ -18,6 +19,21 @@
 //   3. ln_gemm  x_mid = x + attn @ Wproj^T + bproj           (B*N, C)
 //   4. ln_gemm  h     = GELU(LN2(x_mid) @ W1^T + b1)         (B*N, 4C)
 //   5. ln_gemm  out   = x_mid + h @ W2^T + b2                (B*N, C)
+// Three outputs are optional, each written only where its pointer is not
+// null, so that the serving path pays nothing for them:
+//   cls     (B, H, N) bf16: the CLS (query 0) row of each head's attention
+//           probabilities, the TPU kernel's `return_cls` output. The CTA of
+//           the first query tile already holds that row's max and sum; once
+//           the sum is known its first warp recomputes row 0's scores and
+//           writes them normalised (one extra pass over the keys for one
+//           warp of one CTA per sample-head).
+//   lse     (B, H, N) fp32: each attention row's log-sum-exp of its scaled
+//           scores, max + log(sum), which the backward (block_bwd.cu) needs
+//           to rebuild the probabilities;
+//   preact  (B*N, 4C) bf16: the fc1 pre-activation, GELU's input, which the
+//           backward needs for GELU'.
+// With out == null the fc2 stage is skipped: the backward recomputes the
+// forward up to the fc1 activation and has no use for the block's output.
 //
 // What bounds it on the H100: at the headline shapes (B=256, C=384, N from
 // 197 down to 68) the four projections are ~92% of the block's FLOPs and
@@ -57,7 +73,8 @@ static size_t att_smem_bytes(int n) {
 }
 
 static __global__ void __launch_bounds__(ATT_THREADS)
-    attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
+    attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                     float* __restrict__ lse, bf16* __restrict__ cls, int N, int H,
                      float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = att_padded(N);
@@ -176,6 +193,26 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 
   const int q = q0 + row0 + g;
+  const long long stat = (long long)blockIdx.y * N;  // (b, h) row of lse and cls
+  if (lse && t == 0) {
+    if (q < N) lse[stat + q] = mx0 + logf(l0);
+    if (q + 8 < N) lse[stat + q + 8] = mx1 + logf(l1);
+  }
+  if (cls && q0 == 0 && row0 == 0) {
+    // query row 0 is row g == 0 of warp 0: recompute its scores, normalise
+    for (int n0 = 0; n0 < np; n0 += 8) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      const bf16* kp = Ks + (n0 + g) * ATT_LDK + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < ATT_HD / 16; ++kk)
+        mma_16816(s, qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
+      const int col = n0 + 2 * t;
+      if (g == 0) {
+        if (col < N) cls[stat + col] = __float2bfloat16(__expf(s[0] * scale - mx0) * inv0);
+        if (col + 1 < N) cls[stat + col + 1] = __float2bfloat16(__expf(s[1] * scale - mx0) * inv0);
+      }
+    }
+  }
   bf16* obase = out + (long long)b * N * C + h * ATT_HD + 2 * t;
 #pragma unroll
   for (int nd = 0; nd < ATT_HD / 8; ++nd) {
@@ -188,15 +225,15 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
-static cudaError_t launch_attention(const bf16* qkv, bf16* out, int B, int N, int H,
-                                    float scale, cudaStream_t stream) {
+static cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls, int B,
+                                    int N, int H, float scale, cudaStream_t stream) {
   if (N <= 0 || N > ATT_MAX_N) return cudaErrorInvalidValue;
   const size_t smem = att_smem_bytes(N);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + ATT_BQ - 1) / ATT_BQ, B * H);
-  attention_kernel<<<grid, ATT_THREADS, smem, stream>>>(qkv, out, N, H, scale);
+  attention_kernel<<<grid, ATT_THREADS, smem, stream>>>(qkv, out, lse, cls, N, H, scale);
   return cudaGetLastError();
 }
 
@@ -204,8 +241,10 @@ static cudaError_t launch_attention(const bf16* qkv, bf16* out, int B, int N, in
 
 using d2s::bf16;
 
-// x, out: (B, N, C) bf16. Scratch: qkv (B*N, 3C), attn (B*N, C),
-// mid (B*N, C), hid (B*N, hidden), all bf16, and stats (B*N) float2.
+// x, out: (B, N, C) bf16; out may be null (the fc2 stage is then skipped).
+// Scratch: qkv (B*N, 3C), attn (B*N, C), mid (B*N, C), hid (B*N, hidden),
+// all bf16, and stats (B*N) float2. Optional outputs (null: not written):
+// preact (B*N, hidden) bf16, lse (B, H, N) fp32, cls (B, H, N) bf16.
 // Matrices are bf16 in the torch Linear layout (out, in); LayerNorm
 // parameters and biases are fp32; bqkv may be null. Requires C == 64 * H,
 // hidden % 8 == 0, N <= 800, 16-byte aligned pointers.
@@ -213,8 +252,9 @@ extern "C" int d2s_block_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* hid_buf,
     void* stats_buf, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
-    const void* w1, const void* b1, const void* w2, const void* b2, int B, int N, int C,
-    int H, int hidden, float scale, float ln_eps, void* stream) {
+    const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
+    void* cls, int B, int N, int C, int H, int hidden, float scale, float ln_eps,
+    void* stream) {
   if (C != H * d2s::ATT_HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
@@ -239,7 +279,8 @@ extern "C" int d2s_block_forward(
   if (err != cudaSuccess) return (int)err;
 
   err = d2s::launch_attention(static_cast<const bf16*>(qkv_buf), static_cast<bf16*>(attn_buf),
-                              B, N, H, scale, s);
+                              static_cast<float*>(lse), static_cast<bf16*>(cls), B, N, H, scale,
+                              s);
   if (err != cudaSuccess) return (int)err;
 
   g.a = static_cast<const bf16*>(attn_buf);
@@ -261,11 +302,12 @@ extern "C" int d2s_block_forward(
   g.ln_b = static_cast<const float*>(ln2_b);
   g.residual = nullptr;
   g.out = static_cast<bf16*>(hid_buf);
+  g.preact = static_cast<bf16*>(preact);
   g.N = hidden;
   g.K = C;
   g.act = d2s::ACT_GELU;
   err = d2s::launch_ln_gemm(g, s);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || out == nullptr) return (int)err;
 
   g.a = static_cast<const bf16*>(hid_buf);
   g.w = static_cast<const bf16*>(w2);
@@ -273,6 +315,7 @@ extern "C" int d2s_block_forward(
   g.ln_w = nullptr;
   g.ln_b = nullptr;
   g.residual = static_cast<const bf16*>(mid_buf);
+  g.preact = nullptr;
   g.out = static_cast<bf16*>(out);
   g.N = C;
   g.K = hidden;

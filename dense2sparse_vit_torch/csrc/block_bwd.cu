@@ -1,0 +1,600 @@
+// Whole pre-norm transformer block, backward, for sm_90a.
+//
+// Replaces dense2sparse_vit_tpu/ops/pallas/block.py::
+// fused_transformer_block_backward (kernel body `_block_bwd_kernel`) in its
+// plain mode: no keep-policy, no DropPath branch scales. Given the block's
+// input x and the cotangent g of its output, it recomputes the forward and
+// returns dx and the twelve parameter gradients summed over the batch, for
+//   x_mid = x + proj(MHA(qkv(LN1 x)))
+//   out   = x_mid + fc2(GELU(fc1(LN2 x_mid)))
+// with the exact row-max softmax of block.cu. dx is bf16, the gradients fp32,
+// as the TPU kernel returns them.
+//
+// d2s_block_backward runs this sequence on the caller's stream (M = B*N
+// token rows; "wgrad" is ln_gemm.cuh's split-K weight-gradient GEMM, "gemm"
+// its A @ W with W in the (out, in) layout):
+//   1. recompute  d2s_block_forward without its fc2 stage, keeping qkv, the
+//                 attention output O, x_mid, h = GELU(y), the pre-activation
+//                 y and each attention row's log-sum-exp; LN1(x) and
+//                 LN2(x_mid) again, with their row statistics (ln_apply)
+//   2. MLP half   dW2 = g^T h, db2 = sum g; dy = (g W2) * GELU'(y) in the
+//                 gemm's epilogue; dW1 = dy^T LN2(x_mid), db1 = sum dy;
+//                 dLN2 = dy W1 (fp32); LayerNorm backward (ln_bwd) with
+//                 dgamma2, dbeta2, giving dx_mid = LN-bwd + g
+//   3. attn half  dWproj = dx_mid^T O, dbproj = sum dx_mid; dO = dx_mid Wproj
+//   4. core       attention_bwd, one CTA per (sample, head), all of that
+//                 sample-head's Q, K, V and dO in shared memory (N <= 384):
+//                 P = exp(scale q.k - lse), D = rowsum(dO * O),
+//                 dS = P * (dO V^T - D), dV = P^T dO, dQ = scale dS K,
+//                 dK = scale dS^T Q, all on mma.sync; writes packed dqkv
+//   5. LN1 input  dWqkv = dqkv^T LN1(x), dbqkv = sum dqkv; dLN1 = dqkv Wqkv
+//                 (fp32); LayerNorm backward with dgamma1, dbeta1, giving
+//                 dx = LN-bwd + dx_mid
+// Every sum over the token rows is split over CTAs into fp32 partials that
+// one more kernel adds in a fixed order: no atomics, the same bits each run.
+//
+// What bounds it on the H100: tensor-core work. At B=128, N=197, C=384 the
+// ten projection products (two of the forward's four recomputed, each
+// backward projection twice, as dX and dW) are ~90% of the FLOPs, on the
+// mma.sync GEMM of ln_gemm.cuh; the weight-gradient GEMMs reduce over 25,216
+// rows into small matrices (dWproj is 384 x 384, nine 128-wide tiles), which
+// is why they split the rows. The intermediates (qkv, O, x_mid, h, y, dy,
+// dqkv, the LayerNorm outputs) go through device memory, about 0.6 GB at
+// that shape. The attention core recomputes the scores twice (once for
+// dK/dV, once for dQ), seven products where five would do. A faster design
+// would keep the MLP's hidden activation on chip (fc1, GELU', fc2 fused per
+// row tile), produce dK/dV and dQ from one pass over the scores with dQ
+// reduced across key tiles, move the GEMMs to TMA + wgmma pipelines, and
+// fuse the bias sums into the gradient GEMMs' epilogues.
+#include <algorithm>
+
+#include "ln_gemm.cuh"
+
+extern "C" int d2s_block_forward(
+    const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* hid_buf,
+    void* stats_buf, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
+    const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
+    const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
+    void* cls, int B, int N, int C, int H, int hidden, float scale, float ln_eps,
+    void* stream);
+
+namespace d2s {
+
+// ---- LayerNorm forward, materialised (warp per row) ----------------------
+
+// out = bf16((x - mu) * rstd * gamma + beta) and stats = (mu, rstd), with
+// the same arithmetic as ln_stats_kernel and ln_gemm's prologue, so that the
+// recomputed LN1(x) and LN2(x_mid) equal what the forward multiplied.
+static __global__ void ln_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                                       const float* __restrict__ beta, bf16* __restrict__ out,
+                                       float2* __restrict__ stats, int M, int C, float eps) {
+  const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const int lane = threadIdx.x & 31;
+  const uint4* row = reinterpret_cast<const uint4*>(x + (long long)m * C);
+  const int nv = C / 8;
+  float s = 0.f;
+  for (int j = lane; j < nv; j += 32) {
+    const uint4 v = row[j];
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) s += __bfloat162float(e[t]);
+  }
+  const float mu = warp_sum(s) / C;
+  float q = 0.f;
+  for (int j = lane; j < nv; j += 32) {
+    const uint4 v = row[j];
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float d = __bfloat162float(e[t]) - mu;
+      q += d * d;
+    }
+  }
+  const float rs = rsqrtf(warp_sum(q) / C + eps);
+  if (lane == 0) stats[m] = make_float2(mu, rs);
+  uint4* dst = reinterpret_cast<uint4*>(out + (long long)m * C);
+  for (int j = lane; j < nv; j += 32) {
+    uint4 v = row[j];
+    bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int c = j * 8 + t;
+      e[t] = __float2bfloat16((__bfloat162float(e[t]) - mu) * rs * gamma[c] + beta[c]);
+    }
+    dst[j] = v;
+  }
+}
+
+static cudaError_t launch_ln_apply(const bf16* x, const float* gamma, const float* beta,
+                                   bf16* out, float2* stats, int M, int C, float eps,
+                                   cudaStream_t stream) {
+  constexpr int rows_per_cta = 8;
+  ln_apply_kernel<<<(M + rows_per_cta - 1) / rows_per_cta, 32 * rows_per_cta, 0, stream>>>(
+      x, gamma, beta, out, stats, M, C, eps);
+  return cudaGetLastError();
+}
+
+// ---- LayerNorm backward ---------------------------------------------------
+
+constexpr int LNB_ROWS = 64;   // rows per CTA (8 warps, a row per warp at a time)
+constexpr int LNB_MAXCPL = 24;  // columns per lane: C <= 768
+
+// For y = LN(x) * gamma + beta with the cotangent dy (fp32) of y:
+//   z = (x - mu) * rstd, dz = dy * gamma,
+//   dx = rstd * (dz - mean(dz) - z * mean(dz * z)) + residual,
+// written as fp32 and/or bf16; each CTA also writes its partial sums of
+// dgamma = sum dy * z and dbeta = sum dy to part[0][blockIdx] and
+// part[1][blockIdx] (each gridDim.x x C).
+static __global__ void __launch_bounds__(256)
+    ln_bwd_kernel(const float* __restrict__ dy, const bf16* __restrict__ x,
+                  const float2* __restrict__ stats, const float* __restrict__ gamma,
+                  const bf16* __restrict__ res_b, const float* __restrict__ res_f,
+                  float* __restrict__ dx_f, bf16* __restrict__ dx_b, float* __restrict__ part,
+                  int M, int C) {
+  extern __shared__ float sh[];  // [2][8][C]: per-warp dgamma, dbeta
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int cpl = C / 32;
+  float pg[LNB_MAXCPL], pb[LNB_MAXCPL];
+#pragma unroll
+  for (int j = 0; j < LNB_MAXCPL; ++j) pg[j] = pb[j] = 0.f;
+  const int m0 = blockIdx.x * LNB_ROWS;
+  const int m1 = min(M, m0 + LNB_ROWS);
+  for (int m = m0 + warp; m < m1; m += 8) {
+    const float2 st = stats[m];
+    const long long r = (long long)m * C;
+    float dz[LNB_MAXCPL], z[LNB_MAXCPL];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < LNB_MAXCPL; ++j) {
+      if (j < cpl) {
+        const int c = lane + 32 * j;
+        const float d = dy[r + c];
+        const float zz = (__bfloat162float(x[r + c]) - st.x) * st.y;
+        pg[j] += d * zz;
+        pb[j] += d;
+        const float dzz = d * gamma[c];
+        s1 += dzz;
+        s2 += dzz * zz;
+        dz[j] = dzz;
+        z[j] = zz;
+      }
+    }
+    s1 = warp_sum(s1) / C;
+    s2 = warp_sum(s2) / C;
+#pragma unroll
+    for (int j = 0; j < LNB_MAXCPL; ++j) {
+      if (j < cpl) {
+        const int c = lane + 32 * j;
+        float v = st.y * (dz[j] - s1 - z[j] * s2);
+        if (res_b) v += __bfloat162float(res_b[r + c]);
+        if (res_f) v += res_f[r + c];
+        if (dx_f) dx_f[r + c] = v;
+        if (dx_b) dx_b[r + c] = __float2bfloat16(v);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < LNB_MAXCPL; ++j) {
+    if (j < cpl) {
+      sh[warp * C + lane + 32 * j] = pg[j];
+      sh[(8 + warp) * C + lane + 32 * j] = pb[j];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      a += sh[w * C + c];
+      b += sh[(8 + w) * C + c];
+    }
+    part[(long long)blockIdx.x * C + c] = a;
+    part[(long long)(gridDim.x + blockIdx.x) * C + c] = b;
+  }
+}
+
+static inline int ln_bwd_ctas(int M) { return (M + LNB_ROWS - 1) / LNB_ROWS; }
+
+static cudaError_t launch_ln_bwd(const float* dy, const bf16* x, const float2* stats,
+                                 const float* gamma, const bf16* res_b, const float* res_f,
+                                 float* dx_f, bf16* dx_b, float* dgamma, float* dbeta,
+                                 float* work, int M, int C, cudaStream_t stream) {
+  if (C % 32 != 0 || C / 32 > LNB_MAXCPL) return cudaErrorInvalidValue;
+  const int ctas = ln_bwd_ctas(M);
+  ln_bwd_kernel<<<ctas, 256, 2 * 8 * C * sizeof(float), stream>>>(
+      dy, x, stats, gamma, res_b, res_f, dx_f, dx_b, work, M, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_reduce(work, ctas, C, dgamma, stream);
+  if (err != cudaSuccess) return err;
+  return launch_reduce(work + (long long)ctas * C, ctas, C, dbeta, stream);
+}
+
+// ---- attention core backward ----------------------------------------------
+
+constexpr int AB_HD = 64;
+constexpr int AB_THREADS = 256;
+constexpr int AB_WARPS = AB_THREADS / 32;
+constexpr int AB_LD = AB_HD + 8;  // bf16 pitch of the Q, K, V, dO rows
+constexpr int AB_MAX_N = 384;     // four (N, 64) bf16 tiles stay under 227 KB
+
+__host__ __device__ inline int ab_padded(int n) { return (n + 15) / 16 * 16; }
+
+static size_t ab_smem_bytes(int n) {
+  const size_t np = ab_padded(n);
+  return 4 * np * AB_LD * 2 + 2 * np * sizeof(float);
+}
+
+// the four A fragments of a 16 x 64 row slice of a [row][d] bf16 tile
+__device__ __forceinline__ void ld_a_rows(uint32_t (&a)[AB_HD / 16][4], const bf16* rows,
+                                          int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < AB_HD / 16; ++kk) {
+    const bf16* p = rows + g * AB_LD + kk * 16 + 2 * t;
+    a[kk][0] = ld32(p);
+    a[kk][1] = ld32(p + 8 * AB_LD);
+    a[kk][2] = ld32(p + 8);
+    a[kk][3] = ld32(p + 8 * AB_LD + 8);
+  }
+}
+
+// c (16 x 8) += a (16 x 64 rows) . b^T, b the 8 rows of a [row][d] tile at `rows`
+__device__ __forceinline__ void mma_rows(float (&c)[4], const uint32_t (&a)[AB_HD / 16][4],
+                                         const bf16* rows, int g, int t) {
+  const bf16* p = rows + g * AB_LD + 2 * t;
+#pragma unroll
+  for (int kk = 0; kk < AB_HD / 16; ++kk) mma_16816(c, a[kk], ld32(p + kk * 16), ld32(p + kk * 16 + 8));
+}
+
+// the A fragment of a 16 x 16 tile held as two 16 x 8 accumulators
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[2][4]) {
+  a[0] = pack_bf16(c[0][0], c[0][1]);
+  a[1] = pack_bf16(c[0][2], c[0][3]);
+  a[2] = pack_bf16(c[1][0], c[1][1]);
+  a[3] = pack_bf16(c[1][2], c[1][3]);
+}
+
+// acc (16 x 64) += a (16 x 16) . rows (16 x 64), rows the [row][d] tile slice
+__device__ __forceinline__ void mma_into(float (&acc)[AB_HD / 8][4], const uint32_t (&a)[4],
+                                         const bf16* rows, int lane) {
+#pragma unroll
+  for (int nd = 0; nd < AB_HD / 8; nd += 2) {
+    uint32_t r[4];
+    ld_b_kn(r, rows + nd * 8, AB_LD, lane);
+    mma_16816(acc[nd], a, r[0], r[1]);
+    mma_16816(acc[nd + 1], a, r[2], r[3]);
+  }
+}
+
+// rows r and r + 8 of a 16 x 64 accumulator into columns [col0, col0 + 64)
+// of the (rows, ld) bf16 matrix `dst`, rows past n left alone
+__device__ __forceinline__ void store_rows(bf16* dst, long long ld, int r, int n,
+                                           const float (&acc)[AB_HD / 8][4], int t) {
+#pragma unroll
+  for (int nd = 0; nd < AB_HD / 8; ++nd) {
+    if (r < n)
+      *reinterpret_cast<uint32_t*>(dst + r * ld + nd * 8 + 2 * t) =
+          pack_bf16(acc[nd][0], acc[nd][1]);
+    if (r + 8 < n)
+      *reinterpret_cast<uint32_t*>(dst + (r + 8) * ld + nd * 8 + 2 * t) =
+          pack_bf16(acc[nd][2], acc[nd][3]);
+  }
+}
+
+// CTA = one (sample, head). qkv (B*N, 3C) packed, o and dout (B*N, C),
+// lse (B, H, N), dqkv (B*N, 3C) packed like qkv.
+static __global__ void __launch_bounds__(AB_THREADS)
+    attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
+                         const bf16* __restrict__ dout, const float* __restrict__ lse,
+                         bf16* __restrict__ dqkv, int N, int H, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int np = ab_padded(N);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + np * AB_LD;
+  bf16* Vs = Ks + np * AB_LD;
+  bf16* dOs = Vs + np * AB_LD;
+  float* Ds = reinterpret_cast<float*>(dOs + np * AB_LD);
+  float* Ls = Ds + np;
+
+  const int C = H * AB_HD;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int tid = threadIdx.x;
+  const bf16* base = qkv + (long long)b * N * 3 * C + h * AB_HD;
+  const bf16* ob = o + (long long)b * N * C + h * AB_HD;
+  const bf16* dob = dout + (long long)b * N * C + h * AB_HD;
+
+  // rows past N are zero; their probabilities are masked to 0 below
+  constexpr int VPR = AB_HD / 8;
+  for (int v = tid; v < np * VPR; v += AB_THREADS) {
+    const int r = v / VPR, c = (v % VPR) * 8;
+    uint4 q = make_uint4(0u, 0u, 0u, 0u), k = q, vv = q, d = q;
+    if (r < N) {
+      const bf16* row = base + (long long)r * 3 * C + c;
+      q = *reinterpret_cast<const uint4*>(row);
+      k = *reinterpret_cast<const uint4*>(row + C);
+      vv = *reinterpret_cast<const uint4*>(row + 2 * C);
+      d = *reinterpret_cast<const uint4*>(dob + (long long)r * C + c);
+    }
+    *reinterpret_cast<uint4*>(Qs + r * AB_LD + c) = q;
+    *reinterpret_cast<uint4*>(Ks + r * AB_LD + c) = k;
+    *reinterpret_cast<uint4*>(Vs + r * AB_LD + c) = vv;
+    *reinterpret_cast<uint4*>(dOs + r * AB_LD + c) = d;
+  }
+  for (int r = tid; r < np; r += AB_THREADS) {
+    Ls[r] = r < N ? lse[(long long)blockIdx.x * N + r] : 0.f;
+    // D = rowsum(dO * O): the softmax backward's sum_j P_ij dP_ij
+    float acc = 0.f;
+    if (r < N) {
+      for (int c = 0; c < AB_HD; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(ob + (long long)r * C + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dob + (long long)r * C + c);
+        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+        const bf16* de = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc += __bfloat162float(oe[j]) * __bfloat162float(de[j]);
+      }
+    }
+    Ds[r] = acc;
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int tiles = np / 16;
+  const long long ld = 3LL * C;
+  bf16* drow = dqkv + (long long)b * N * ld + h * AB_HD;
+
+  // pass 1, a warp per 16-key tile: dV = P^T dO and dK = dS^T Q, over all
+  // queries; the transposed tiles P^T, dP^T = V dO^T come straight out of
+  // the products with the keys as rows
+  for (int kt = warp; kt < tiles; kt += AB_WARPS) {
+    const int j0 = kt * 16;
+    uint32_t ka[AB_HD / 16][4], va[AB_HD / 16][4];
+    ld_a_rows(ka, Ks + j0 * AB_LD, g, t);
+    ld_a_rows(va, Vs + j0 * AB_LD, g, t);
+    float dk[AB_HD / 8][4], dv[AB_HD / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < AB_HD / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
+    for (int i0 = 0; i0 < np; i0 += 16) {
+      float st[2][4] = {}, dpt[2][4] = {};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        mma_rows(st[nt], ka, Qs + (i0 + nt * 8) * AB_LD, g, t);
+        mma_rows(dpt[nt], va, dOs + (i0 + nt * 8) * AB_LD, g, t);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j0 + g + 8 * (e >> 1);
+          const int q = i0 + nt * 8 + 2 * t + (e & 1);
+          const float p = (key < N && q < N) ? __expf(st[nt][e] * scale - Ls[q]) : 0.f;
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - Ds[q]) * scale;
+        }
+      uint32_t pa[4], da[4];
+      pack_a(pa, st);
+      pack_a(da, dpt);
+      mma_into(dv, pa, dOs + i0 * AB_LD, lane);
+      mma_into(dk, da, Qs + i0 * AB_LD, lane);
+    }
+    store_rows(drow + C, ld, j0 + g, N, dk, t);
+    store_rows(drow + 2 * C, ld, j0 + g, N, dv, t);
+  }
+
+  // pass 2, a warp per 16-query tile: dQ = dS K over all keys
+  for (int qt = warp; qt < tiles; qt += AB_WARPS) {
+    const int i0 = qt * 16;
+    uint32_t qa[AB_HD / 16][4], oa[AB_HD / 16][4];
+    ld_a_rows(qa, Qs + i0 * AB_LD, g, t);
+    ld_a_rows(oa, dOs + i0 * AB_LD, g, t);
+    const float l0 = Ls[i0 + g], l1 = Ls[i0 + g + 8];
+    const float d0 = Ds[i0 + g], d1 = Ds[i0 + g + 8];
+    const bool r0 = i0 + g < N, r1 = i0 + g + 8 < N;
+    float dq[AB_HD / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < AB_HD / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
+    for (int j0 = 0; j0 < np; j0 += 16) {
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        mma_rows(s[nt], qa, Ks + (j0 + nt * 8) * AB_LD, g, t);
+        mma_rows(dp[nt], oa, Vs + (j0 + nt * 8) * AB_LD, g, t);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e >> 1;
+          const int key = j0 + nt * 8 + 2 * t + (e & 1);
+          const float p =
+              (key < N && (hi ? r1 : r0)) ? __expf(s[nt][e] * scale - (hi ? l1 : l0)) : 0.f;
+          s[nt][e] = p * (dp[nt][e] - (hi ? d1 : d0)) * scale;
+        }
+      uint32_t da[4];
+      pack_a(da, s);
+      mma_into(dq, da, Ks + j0 * AB_LD, lane);
+    }
+    store_rows(drow, ld, i0 + g, N, dq, t);
+  }
+}
+
+static cudaError_t launch_attention_bwd(const bf16* qkv, const bf16* o, const bf16* dout,
+                                        const float* lse, bf16* dqkv, int B, int N, int H,
+                                        float scale, cudaStream_t stream) {
+  if (N <= 0 || N > AB_MAX_N) return cudaErrorInvalidValue;
+  const size_t smem = ab_smem_bytes(N);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_kernel<<<B * H, AB_THREADS, smem, stream>>>(qkv, o, dout, lse, dqkv, N, H,
+                                                           scale);
+  return cudaGetLastError();
+}
+
+// ---- scratch ----------------------------------------------------------------
+
+struct Scratch {
+  bf16 *qkv, *attn, *mid, *hid, *pre, *ln1o, *ln2o, *dy, *dmid_b, *dattn, *dqkv;
+  float *lse, *dln, *dmid_f, *work;
+  float2 *stats, *st1, *st2;
+};
+
+// Carves `base` into the backward's buffers; with base == nullptr only
+// counts. Returns the bytes needed.
+static size_t carve(char* base, int B, int N, int C, int H, int hidden, Scratch* s) {
+  const long long M = (long long)B * N;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  const size_t e2 = sizeof(bf16), e4 = sizeof(float);
+  s->qkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
+  s->attn = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->mid = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->hid = reinterpret_cast<bf16*>(take(M * hidden * e2));
+  s->pre = reinterpret_cast<bf16*>(take(M * hidden * e2));
+  s->ln1o = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->ln2o = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->dy = reinterpret_cast<bf16*>(take(M * hidden * e2));
+  s->dmid_b = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
+  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4));
+  s->dln = reinterpret_cast<float*>(take(M * C * e4));
+  s->dmid_f = reinterpret_cast<float*>(take(M * C * e4));
+  s->stats = reinterpret_cast<float2*>(take(M * sizeof(float2)));
+  s->st1 = reinterpret_cast<float2*>(take(M * sizeof(float2)));
+  s->st2 = reinterpret_cast<float2*>(take(M * sizeof(float2)));
+  const int m = (int)M;
+  long long work = wgrad_workspace_floats(m, C, hidden);
+  work = std::max(work, wgrad_workspace_floats(m, hidden, C));
+  work = std::max(work, wgrad_workspace_floats(m, C, C));
+  work = std::max(work, wgrad_workspace_floats(m, 3 * C, C));
+  work = std::max(work, column_sums_workspace_floats(m, std::max(3 * C, hidden)));
+  work = std::max(work, 2LL * ln_bwd_ctas(m) * C);
+  s->work = reinterpret_cast<float*>(take(work * e4));
+  return off;
+}
+
+static bool shapes_ok(int B, int N, int C, int H, int hidden) {
+  return B > 0 && N > 0 && N <= AB_MAX_N && H > 0 && C == H * AB_HD && C / 32 <= LNB_MAXCPL &&
+         hidden > 0 && hidden % 8 == 0 && (long long)B * N <= (1LL << 31) - 1;
+}
+
+}  // namespace d2s
+
+using d2s::bf16;
+
+// Bytes of scratch d2s_block_backward needs at these shapes; 0 for shapes it
+// does not take.
+extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H, int hidden) {
+  if (!d2s::shapes_ok(B, N, C, H, hidden)) return 0;
+  d2s::Scratch s;
+  return (long long)d2s::carve(nullptr, B, N, C, H, hidden, &s);
+}
+
+// x, g: (B, N, C) bf16, the block's input and its output's cotangent; dx
+// (B, N, C) bf16 out. Weights as d2s_block_forward takes them (bqkv may be
+// null); the twelve gradients fp32 in the same shapes (d_bqkv null when
+// bqkv is). scratch: d2s_block_backward_scratch_bytes(...) bytes. Requires
+// C == 64 * H <= 768, hidden % 8 == 0, N <= 384, 16-byte aligned pointers.
+extern "C" int d2s_block_backward(
+    const void* x, const void* g, void* dx, const void* ln1_w, const void* ln1_b,
+    const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
+    const void* ln2_w, const void* ln2_b, const void* w1, const void* b1, const void* w2,
+    const void* b2, void* d_ln1_w, void* d_ln1_b, void* d_wqkv, void* d_bqkv, void* d_wproj,
+    void* d_bproj, void* d_ln2_w, void* d_ln2_b, void* d_w1, void* d_b1, void* d_w2,
+    void* d_b2, void* scratch, int B, int N, int C, int H, int hidden, float scale,
+    float ln_eps, void* stream) {
+  using namespace d2s;
+  if (!shapes_ok(B, N, C, H, hidden) || (bqkv == nullptr) != (d_bqkv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Scratch s;
+  carve(static_cast<char*>(scratch), B, N, C, H, hidden, &s);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto fo = [](void* p) { return static_cast<float*>(p); };
+  auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+
+  // 1. recompute
+  int rc = d2s_block_forward(x, nullptr, s.qkv, s.attn, s.mid, s.hid, s.stats, ln1_w, ln1_b,
+                             wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, s.pre,
+                             s.lse, nullptr, B, N, C, H, hidden, scale, ln_eps, stream);
+  if (rc != 0) return rc;
+  cudaError_t err = launch_ln_apply(xb, f(ln1_w), f(ln1_b), s.ln1o, s.st1, M, C, ln_eps, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_ln_apply(s.mid, f(ln2_w), f(ln2_b), s.ln2o, s.st2, M, C, ln_eps, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // A @ W, W (K, N) in the (out, in) layout of a Linear with out = K
+  auto gemm_kn = [&](const bf16* a, const bf16* wt, int K, int Nn, const bf16* gelu_in,
+                     bf16* out, float* out_f32) {
+    GemmArgs p{};
+    p.a = a;
+    p.a_rows = M;
+    p.w = wt;
+    p.w_kn = 1;
+    p.gelu_in = gelu_in;
+    p.out = out;
+    p.out_f32 = out_f32;
+    p.M = M;
+    p.N = Nn;
+    p.K = K;
+    p.act = ACT_NONE;
+    return launch_ln_gemm(p, st);
+  };
+
+  // 2. MLP half
+  if ((err = launch_wgrad(gb, s.hid, fo(d_w2), s.work, M, C, hidden, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_column_sums(gb, fo(d_b2), s.work, M, C, st)) != cudaSuccess) return (int)err;
+  if ((err = gemm_kn(gb, w(w2), C, hidden, s.pre, s.dy, nullptr)) != cudaSuccess) return (int)err;
+  if ((err = launch_wgrad(s.dy, s.ln2o, fo(d_w1), s.work, M, hidden, C, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_column_sums(s.dy, fo(d_b1), s.work, M, hidden, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = gemm_kn(s.dy, w(w1), hidden, C, nullptr, nullptr, s.dln)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_ln_bwd(s.dln, s.mid, s.st2, f(ln2_w), gb, nullptr, s.dmid_f, s.dmid_b,
+                           fo(d_ln2_w), fo(d_ln2_b), s.work, M, C, st)) != cudaSuccess)
+    return (int)err;
+
+  // 3. attention half
+  if ((err = launch_wgrad(s.dmid_b, s.attn, fo(d_wproj), s.work, M, C, C, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_column_sums<float>(s.dmid_f, fo(d_bproj), s.work, M, C, st)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = gemm_kn(s.dmid_b, w(wproj), C, C, nullptr, s.dattn, nullptr)) != cudaSuccess)
+    return (int)err;
+
+  // 4. attention core
+  if ((err = launch_attention_bwd(s.qkv, s.attn, s.dattn, s.lse, s.dqkv, B, N, H, scale, st)) !=
+      cudaSuccess)
+    return (int)err;
+
+  // 5. LN1 input
+  if ((err = launch_wgrad(s.dqkv, s.ln1o, fo(d_wqkv), s.work, M, 3 * C, C, st)) != cudaSuccess)
+    return (int)err;
+  if (d_bqkv &&
+      (err = launch_column_sums(s.dqkv, fo(d_bqkv), s.work, M, 3 * C, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = gemm_kn(s.dqkv, w(wqkv), 3 * C, C, nullptr, nullptr, s.dln)) != cudaSuccess)
+    return (int)err;
+  err = launch_ln_bwd(s.dln, xb, s.st1, f(ln1_w), nullptr, s.dmid_f, nullptr,
+                      static_cast<bf16*>(dx), fo(d_ln1_w), fo(d_ln1_b), s.work, M, C, st);
+  return (int)err;
+}

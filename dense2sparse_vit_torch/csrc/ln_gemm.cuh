@@ -1,18 +1,24 @@
 // LayerNorm-prologue GEMM with a bias / activation / residual epilogue, for
-// sm_90a, shared by block.cu and predictor.cu, and the tensor-core helpers
-// both use.
+// sm_90a, shared by block.cu, block_bwd.cu and predictor.cu; the
+// weight-gradient GEMM of block_bwd.cu; and the tensor-core helpers all use.
 //
-//   out[m, n] = epi( sum_k LN(a)[m, k] * w[n, k] )
+//   out[m, n] = epi( sum_k LN(a)[m, k] * W[k, n] )
 //   LN(a)[m, k] = bf16((a[m, k] - mu_m) * rstd_m * ln_w[k] + ln_b[k])   (optional)
-//   epi(v)      = bf16(act(v + bias[n]) + residual[m, n])             (each optional)
+//   epi(v)      = act(v + bias[n]) * gelu'(gelu_in[m, n]) + residual[m, n]
+//                 (each term optional), stored as bf16 or fp32; `preact`
+//                 optionally keeps v + bias, the activation's input, in bf16
 //
 // `a` is bf16 (M, K) with rows grouped per sample, so a strided view such as
-// the spatial tokens x[:, 1:] of a (B, N+1, C) stream is read in place; `w` is
-// the torch Linear layout (N, K), row-major, which is the column-major B
-// operand of the tensor-core product. With a LayerNorm, ln_stats_kernel
-// first writes each row's fp32 mean and 1/std (two-pass, the row held in
-// registers) to a scratch buffer, and the GEMM normalises each A slice in
-// shared memory once it has arrived.
+// the spatial tokens x[:, 1:] of a (B, N+1, C) stream is read in place. The
+// weight comes in one of two layouts: the torch Linear layout (N, K)
+// row-major, W[k, n] = w[n, k], which is the forward's x @ w^T and the
+// column-major B operand of the tensor-core product; or (K, N) row-major,
+// W[k, n] = w[k, n], which is the backward's g @ w for a Linear weight w of
+// shape (out, in) = (K, N), loaded into shared memory as it lies and read
+// with transposing ldmatrix. With a LayerNorm, ln_stats_kernel first writes
+// each row's fp32 mean and 1/std (two-pass, the row held in registers) to a
+// scratch buffer, and the GEMM normalises each A slice in shared memory once
+// it has arrived.
 //
 // Design: CTA tile 128 x 128 x 64, 8 warps each owning a 64 x 32 sub-tile of
 // mma.sync m16n8k16 products (bf16 in, fp32 accumulate, the PTX ISA's
@@ -22,6 +28,16 @@
 // mma.sync path reaches only part of Hopper's bf16 rate, which needs wgmma;
 // a faster version would load with TMA into the ring and multiply with
 // wgmma on 64-row warpgroup tiles.
+//
+// The weight gradient dW[i, j] = sum_m P[m, i] * Q[m, j] (wgrad_kernel)
+// reduces over the B*N token rows, 25,216 at B=128, N=197, while its output
+// is a small weight matrix: a 128 x 128 tiling of a 384 x 384 dW has only 9
+// tiles for 132 SMs. So the row range is split across CTAs (split-K), each
+// CTA writes its fp32 partial product to a workspace, and reduce_partials
+// sums the partials in a fixed order: deterministic, no atomics. Both
+// operands lie row-major with the reduction along their rows and are read
+// with transposing ldmatrix. column_sums (bias gradients) splits rows the
+// same way.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,6 +94,34 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
                : "r"(s));
 }
 
+// the same, transposed: r[i] gets the pair (rows 2 (lane % 4) + {0, 1},
+// col lane / 4) of matrix i
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// B fragments of two neighbouring 8-column tiles of a 16 x 16 slice of a
+// (K, N) row-major matrix in shared memory (pitch `ld`), from the slice's
+// corner: r[0], r[1] for columns n0..n0+7, r[2], r[3] for n0+8..n0+15
+__device__ __forceinline__ void ld_b_kn(uint32_t (&r)[4], const bf16* corner, int ld, int lane) {
+  ldmatrix_x4_trans(r, corner + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8);
+}
+
+// the A fragment of a 16 x 16 slice of A^T, where A is (K, M) row-major in
+// shared memory (pitch `ld`): the slice's rows are A's columns m0..m0+15
+__device__ __forceinline__ void ld_a_trans(uint32_t (&r)[4], const bf16* corner, int ld, int lane) {
+  ldmatrix_x4_trans(r, corner + ((lane & 7) + ((lane >> 4) & 1) * 8) * ld + ((lane >> 3) & 1) * 8);
+}
+
+// d/dv of the exact GELU
+__device__ __forceinline__ float gelu_grad(float v) {
+  return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) +
+         v * 0.39894228040143268f * __expf(-0.5f * v * v);
+}
+
 // 16 bytes global -> shared, asynchronously; zero-filled when !valid
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -99,6 +143,7 @@ constexpr int GEMM_THREADS = 256;
 constexpr int GEMM_STAGES = 3;
 constexpr int GEMM_LDS = GEMM_BK + 8;  // bf16 pitch: conflict-free ldmatrix rows
 constexpr int GEMM_LDC = GEMM_BN + 4;  // fp32 pitch of the epilogue tile
+constexpr int GEMM_LDB_KN = GEMM_BN + 8;  // bf16 pitch of a (K, N) weight slice
 constexpr int GEMM_STAGE = (GEMM_BM + GEMM_BN) * GEMM_LDS;  // bf16 per stage
 constexpr int GEMM_SMEM_BYTES = GEMM_STAGES * GEMM_STAGE * 2;
 constexpr int GEMM_WM = 64;  // warp tile: 2 warps down, 4 across
@@ -110,19 +155,24 @@ constexpr int GEMM_VECS = GEMM_BM * GEMM_BK / 8 / GEMM_THREADS;
 static_assert(GEMM_BM == GEMM_BN, "A and B slices share the copy mapping");
 static_assert(GEMM_VECS * GEMM_THREADS * 8 == GEMM_BM * GEMM_BK, "slice copy");
 static_assert(GEMM_BM * GEMM_LDC * 4 <= GEMM_SMEM_BYTES, "epilogue tile fits the ring");
+static_assert(GEMM_BK * GEMM_LDB_KN <= GEMM_BN * GEMM_LDS, "a (K, N) slice fits the B stage");
 
 struct GemmArgs {
   const bf16* a;         // rows of K values; see a_rows / a_bstride
   int a_rows;            // rows per sample in `a` (M for a packed matrix)
   long long a_bstride;   // elements from one sample's first row to the next
-  const bf16* w;         // (N, K)
+  const bf16* w;         // (N, K), or (K, N) with w_kn
+  int w_kn;              // 0: w is (N, K); 1: w is (K, N)
   const float* bias;     // (N) or null
   const float* ln_w;     // (K) or null: no LayerNorm prologue
   const float* ln_b;     // (K)
   float ln_eps;
   float2* ln_stats;      // (M) scratch for the rows' (mean, 1/std)
   const bf16* residual;  // (M, N) or null
-  bf16* out;             // (M, N)
+  const bf16* gelu_in;   // (M, N) or null: multiply by gelu'(gelu_in)
+  bf16* preact;          // (M, N) or null: store act's input
+  bf16* out;             // (M, N) bf16, or null with out_f32
+  float* out_f32;        // (M, N) fp32 instead of `out`, or null
   int M, N, K;
   int act;
 };
@@ -161,6 +211,7 @@ static __global__ void ln_stats_kernel(const GemmArgs p) {
   if (lane == 0) p.ln_stats[m] = make_float2(mu, rs);
 }
 
+template <bool W_KN>
 static __global__ void __launch_bounds__(GEMM_THREADS, 2) ln_gemm_kernel(const GemmArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float2 s_stats[GEMM_BM];
@@ -194,9 +245,17 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 2) ln_gemm_kernel(const G
       const bool ka = k0 + c < p.K;
       const bool va = ka && m0 + r < p.M;
       cp_async16(As + r * GEMM_LDS + c, va ? gemm_a_row(p, m0 + r) + k0 + c : p.a, va);
-      const bool vb = ka && n0 + r < p.N;
-      cp_async16(Bs + r * GEMM_LDS + c, vb ? p.w + (long long)(n0 + r) * p.K + k0 + c : p.w,
-                 vb);
+      if (W_KN) {
+        const int rb = v / (GEMM_BN / 8);
+        const int cb = (v % (GEMM_BN / 8)) * 8;
+        const bool vb = k0 + rb < p.K && n0 + cb < p.N;
+        cp_async16(Bs + rb * GEMM_LDB_KN + cb,
+                   vb ? p.w + (long long)(k0 + rb) * p.N + n0 + cb : p.w, vb);
+      } else {
+        const bool vb = ka && n0 + r < p.N;
+        cp_async16(Bs + r * GEMM_LDS + c, vb ? p.w + (long long)(n0 + r) * p.K + k0 + c : p.w,
+                   vb);
+      }
     }
   };
 
@@ -255,8 +314,11 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 2) ln_gemm_kernel(const G
 #pragma unroll
       for (int j = 0; j < GEMM_NT; j += 2) {
         uint32_t r[4];
-        ldmatrix_x4(r, Bs + (wn + j * 8 + (lane & 7) + (lane >> 4) * 8) * GEMM_LDS + kk +
-                           ((lane >> 3) & 1) * 8);
+        if (W_KN)
+          ld_b_kn(r, Bs + kk * GEMM_LDB_KN + wn + j * 8, GEMM_LDB_KN, lane);
+        else
+          ldmatrix_x4(r, Bs + (wn + j * 8 + (lane & 7) + (lane >> 4) * 8) * GEMM_LDS + kk +
+                             ((lane >> 3) & 1) * 8);
         bfr[j][0] = r[0];
         bfr[j][1] = r[1];
         bfr[j + 1][0] = r[2];
@@ -302,6 +364,11 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 2) ln_gemm_kernel(const G
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] += bb[j];
     }
+    const long long o = (long long)m * p.N + n;
+    if (p.preact)
+      *reinterpret_cast<uint4*>(p.preact + o) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                     pack_bf16(v[6], v[7]));
     if (p.act == ACT_GELU) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = gelu_exact(v[j]);
@@ -309,16 +376,26 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 2) ln_gemm_kernel(const G
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = fmaxf(v[j], 0.f);
     }
-    const long long o = (long long)m * p.N + n;
+    if (p.gelu_in) {
+      const uint4 gv = *reinterpret_cast<const uint4*>(p.gelu_in + o);
+      const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] *= gelu_grad(__bfloat162float(ge[j]));
+    }
     if (p.residual) {
       const uint4 rv = *reinterpret_cast<const uint4*>(p.residual + o);
       const bf16* re = reinterpret_cast<const bf16*>(&rv);
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] += __bfloat162float(re[j]);
     }
-    const uint4 ov = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                                pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-    *reinterpret_cast<uint4*>(p.out + o) = ov;
+    if (p.out_f32) {
+      *reinterpret_cast<float4*>(p.out_f32 + o) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(p.out_f32 + o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      *reinterpret_cast<uint4*>(p.out + o) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                     pack_bf16(v[6], v[7]));
+    }
   }
 }
 
@@ -327,7 +404,7 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 2) ln_gemm_kernel(const G
 // multiples of 8 and 16-byte aligned pointers.
 static cudaError_t launch_ln_gemm(const GemmArgs& p, cudaStream_t stream) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.K % 8 != 0 || p.N % 8 != 0 || p.a_rows <= 0 ||
-      (p.ln_w && !p.ln_stats))
+      (p.ln_w && !p.ln_stats) || (!p.out) == (!p.out_f32))
     return cudaErrorInvalidValue;
   if (p.ln_w) {
     constexpr int rows_per_cta = 8;
@@ -335,13 +412,217 @@ static cudaError_t launch_ln_gemm(const GemmArgs& p, cudaStream_t stream) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  cudaError_t err = cudaFuncSetAttribute(ln_gemm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel = p.w_kn ? ln_gemm_kernel<true> : ln_gemm_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          GEMM_SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + GEMM_BN - 1) / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM);
-  ln_gemm_kernel<<<grid, GEMM_THREADS, GEMM_SMEM_BYTES, stream>>>(p);
+  kernel<<<grid, GEMM_THREADS, GEMM_SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
+}
+
+// ---- weight gradient: dW (I, J) = P^T Q, P (M, I), Q (M, J), fp32 out -----
+
+constexpr int WG_BI = 128;
+constexpr int WG_BJ = 128;
+constexpr int WG_BK = 32;  // token rows per slice
+constexpr int WG_THREADS = 256;
+constexpr int WG_STAGES = 3;
+constexpr int WG_LD = WG_BI + 8;  // bf16 pitch: conflict-free transposing ldmatrix
+constexpr int WG_STAGE = 2 * WG_BK * WG_LD;  // bf16 per stage: the P slice, then Q's
+constexpr int WG_SMEM_BYTES = WG_STAGES * WG_STAGE * 2;
+constexpr int WG_VECS = WG_BK * WG_BI / 8 / WG_THREADS;  // 16-byte vectors per operand
+static_assert(WG_BI == WG_BJ, "P and Q slices share the copy mapping");
+static_assert(WG_VECS * WG_THREADS * 8 == WG_BK * WG_BI, "slice copy");
+
+struct WgradArgs {
+  const bf16* p;     // (M, I)
+  const bf16* q;     // (M, J)
+  float* partial;    // (splits, I, J)
+  int M, I, J;
+  int rows_per_split;  // a multiple of WG_BK
+};
+
+// CTA (j tile, i tile, split s): partial[s] tile = sum over the split's rows
+static __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* stages = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int j0 = blockIdx.x * WG_BJ;
+  const int i0 = blockIdx.y * WG_BI;
+  const int m_begin = blockIdx.z * a.rows_per_split;
+  const int m_end = min(a.M, m_begin + a.rows_per_split);
+  const int wi = (warp & 1) * 64;
+  const int wj = (warp >> 1) * 32;
+
+  auto issue = [&](int slice) {
+    const int m0 = m_begin + slice * WG_BK;
+    bf16* Ps = stages + (slice % WG_STAGES) * WG_STAGE;
+    bf16* Qs = Ps + WG_BK * WG_LD;
+#pragma unroll
+    for (int i = 0; i < WG_VECS; ++i) {
+      const int v = tid + i * WG_THREADS;
+      const int r = v / (WG_BI / 8);
+      const int c = (v % (WG_BI / 8)) * 8;
+      const bool vm = m0 + r < m_end;
+      const bool vp = vm && i0 + c < a.I;
+      cp_async16(Ps + r * WG_LD + c, vp ? a.p + (long long)(m0 + r) * a.I + i0 + c : a.p, vp);
+      const bool vq = vm && j0 + c < a.J;
+      cp_async16(Qs + r * WG_LD + c, vq ? a.q + (long long)(m0 + r) * a.J + j0 + c : a.q, vq);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  const int slices = m_end > m_begin ? (m_end - m_begin + WG_BK - 1) / WG_BK : 0;
+#pragma unroll
+  for (int s = 0; s < WG_STAGES - 1; ++s) {
+    if (s < slices) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slices; ++s) {
+    cp_async_wait<WG_STAGES - 2>();
+    __syncthreads();
+    if (s + WG_STAGES - 1 < slices) issue(s + WG_STAGES - 1);
+    cp_async_commit();
+    const bf16* Ps = stages + (s % WG_STAGES) * WG_STAGE;
+    const bf16* Qs = Ps + WG_BK * WG_LD;
+#pragma unroll
+    for (int kk = 0; kk < WG_BK; kk += 16) {
+      uint32_t af[4][4];
+      uint32_t bfr[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ld_a_trans(af[i], Ps + kk * WG_LD + wi + i * 16, WG_LD, lane);
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        uint32_t r[4];
+        ld_b_kn(r, Qs + kk * WG_LD + wj + j * 8, WG_LD, lane);
+        bfr[j][0] = r[0];
+        bfr[j][1] = r[1];
+        bfr[j + 1][0] = r[2];
+        bfr[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = a.partial + (long long)blockIdx.z * a.I * a.J;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = i0 + wi + i * 16 + g + half * 8;
+        const int col = j0 + wj + j * 8 + 2 * t;
+        if (row < a.I && col < a.J)
+          *reinterpret_cast<float2*>(out + (long long)row * a.J + col) =
+              make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+}
+
+// How many row splits wgrad uses for an (I, J) gradient over M rows: enough
+// CTAs for two per SM of the H100's 132, each split at least 128 rows.
+static inline void wgrad_plan(int M, int I, int J, int* splits, int* rows_per_split) {
+  const int tiles = ((I + WG_BI - 1) / WG_BI) * ((J + WG_BJ - 1) / WG_BJ);
+  int s = (2 * 132 + tiles - 1) / tiles;
+  const int most = (M + 127) / 128;
+  if (s > most) s = most;
+  if (s < 1) s = 1;
+  int rows = (M + s - 1) / s;
+  rows = (rows + WG_BK - 1) / WG_BK * WG_BK;
+  *rows_per_split = rows;
+  *splits = (M + rows - 1) / rows;
+}
+
+static inline long long wgrad_workspace_floats(int M, int I, int J) {
+  int s, rows;
+  wgrad_plan(M, I, J, &s, &rows);
+  return (long long)s * I * J;
+}
+
+// out[e] = sum_s partial[s * len + e], in s order
+static __global__ void reduce_partials_kernel(const float* __restrict__ partial, int splits,
+                                              long long len, float* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= len) return;
+  float acc = 0.f;
+  for (int s = 0; s < splits; ++s) acc += partial[(long long)s * len + e];
+  out[e] = acc;
+}
+
+static cudaError_t launch_reduce(const float* partial, int splits, long long len, float* out,
+                                 cudaStream_t stream) {
+  const long long blocks = (len + 255) / 256;
+  reduce_partials_kernel<<<(unsigned)blocks, 256, 0, stream>>>(partial, splits, len, out);
+  return cudaGetLastError();
+}
+
+// dW (I, J) fp32 = P^T Q over M rows; `workspace` holds
+// wgrad_workspace_floats(M, I, J) floats. I, J multiples of 8.
+static cudaError_t launch_wgrad(const bf16* p, const bf16* q, float* dw, float* workspace, int M,
+                                int I, int J, cudaStream_t stream) {
+  if (M <= 0 || I <= 0 || J <= 0 || I % 8 != 0 || J % 8 != 0) return cudaErrorInvalidValue;
+  WgradArgs a{p, q, workspace, M, I, J, 0};
+  int splits;
+  wgrad_plan(M, I, J, &splits, &a.rows_per_split);
+  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         WG_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((J + WG_BJ - 1) / WG_BJ, (I + WG_BI - 1) / WG_BI, splits);
+  wgrad_kernel<<<grid, WG_THREADS, WG_SMEM_BYTES, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(workspace, splits, (long long)I * J, dw, stream);
+}
+
+// ---- column sums (bias gradients): out[n] = sum_m a[m, n], fp32 ---------
+
+constexpr int COLSUM_ROWS = 256;  // rows per split
+
+template <typename T>
+static __global__ void column_sums_kernel(const T* __restrict__ a, int M, int N,
+                                          float* __restrict__ partial) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int m0 = blockIdx.y * COLSUM_ROWS;
+  const int m1 = min(M, m0 + COLSUM_ROWS);
+  float acc = 0.f;
+  for (int m = m0; m < m1; ++m) {
+    if constexpr (sizeof(T) == 2)
+      acc += __bfloat162float(a[(long long)m * N + n]);
+    else
+      acc += a[(long long)m * N + n];
+  }
+  partial[(long long)blockIdx.y * N + n] = acc;
+}
+
+static inline long long column_sums_workspace_floats(int M, int N) {
+  return (long long)((M + COLSUM_ROWS - 1) / COLSUM_ROWS) * N;
+}
+
+template <typename T>
+static cudaError_t launch_column_sums(const T* a, float* out, float* workspace, int M, int N,
+                                      cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return cudaErrorInvalidValue;
+  const int splits = (M + COLSUM_ROWS - 1) / COLSUM_ROWS;
+  column_sums_kernel<T><<<dim3((N + 255) / 256, splits), 256, 0, stream>>>(a, M, N, workspace);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce(workspace, splits, N, out, stream);
 }
 
 }  // namespace d2s

@@ -1,4 +1,4 @@
-"""Model registry (port of the student part of
+"""Model registry (port of the student and teacher part of
 `dense2sparse_vit_tpu/models/registry.py`)."""
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from dense2sparse_vit_torch.core.config import (
     deit_tiny,
 )
 from dense2sparse_vit_torch.models.student import DiffPruningStudent
+from dense2sparse_vit_torch.models.teacher import ViTTeacher
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -22,6 +23,8 @@ _REGISTRY: Dict[str, Callable] = {}
 # 224 px in bf16, pruned at blocks 3/6/9 to 0.7/0.49/0.343 of the patches,
 # with the small predictor: create_model(HEADLINE_MODEL, **HEADLINE_KWARGS).
 HEADLINE_MODEL = "dynamic_vit_small_patch16_224_student"
+# and the teacher the train step distils it from (the same widths, dense)
+HEADLINE_TEACHER = "dynamic_vit_small_patch16_224_teacher"
 HEADLINE_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
                        dtype="bfloat16", small_predictor=True)
 
@@ -34,7 +37,7 @@ def create_model(
     name: str,
     *,
     generator: Optional[torch.Generator] = None,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
     **kwargs,
 ):
     """Instantiate a registered model by name, with initialised weights.
@@ -42,10 +45,17 @@ def create_model(
     Keyword arguments are those of the JAX package's `create_model`
     (`pruning_locs`, `keep_ratios`, any `ModelConfig` or `PruningConfig`
     field). The weights are drawn on the CPU from `generator` (seed 0 when
-    None) and the model is then moved to `device`.
+    None) and the model is then moved to `device`: the card unless the
+    caller asks for the CPU with device="cpu".
     """
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; available: {list_models()}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"create_model builds on {device} and there is no CUDA device: "
+            "pass device='cpu' to build on the CPU"
+        )
     model = _REGISTRY[name](**kwargs)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -75,6 +85,16 @@ def _student(size_cfg: ModelConfig):
     return factory
 
 
+def _teacher(size_cfg: ModelConfig):
+    def factory(**kwargs):
+        return ViTTeacher(cfg=size_cfg.replace(**kwargs))
+
+    return factory
+
+
 _REGISTRY["dynamic_vit_tiny_patch16_224_student"] = _student(deit_tiny())
 _REGISTRY["dynamic_vit_small_patch16_224_student"] = _student(deit_small())
 _REGISTRY["dynamic_vit_base_patch16_224_student"] = _student(deit_base())
+_REGISTRY["dynamic_vit_tiny_patch16_224_teacher"] = _teacher(deit_tiny())
+_REGISTRY["dynamic_vit_small_patch16_224_teacher"] = _teacher(deit_small())
+_REGISTRY["dynamic_vit_base_patch16_224_teacher"] = _teacher(deit_base())

@@ -4,10 +4,13 @@
 A DeiT-shape ViT with score-predictor pruning stages at `pruning_locs`: the
 predictor scores the spatial tokens, the top K = int(N * keep_ratio) of them
 survive with the CLS token, and later blocks run on the shorter sequence.
-This port has the deterministic top-k path with the LayerNorm predictors;
-the threshold policy mode, the attn / random / teacher-CLS selections, soft
-top-k, the BatchNorm predictor, the early-exit head and CLS-attention capture
-are not ported yet and are rejected at construction.
+This port has the top-k path with the LayerNorm predictors, in eval mode
+(the JAX model's `deterministic=True`) and in train mode
+(`deterministic=False`, as the train step runs it, with
+`collect_cls_attns=False`); the threshold policy mode, the attn / random /
+teacher-CLS selections, soft top-k, the BatchNorm predictor, the early-exit
+head and the student's own CLS-attention capture are not ported yet and are
+rejected at construction.
 """
 
 from __future__ import annotations
@@ -43,6 +46,10 @@ class StudentOutput:
     dropped_idx: Tuple[torch.Tensor, ...]
     # the last stage's kept indices in original token coordinates (B, K_last)
     kept_idx_orig: Optional[torch.Tensor]
+    # threshold mode's keep masks, which the losses accept; the port has no
+    # threshold mode, so these stay empty
+    keep_mask: Optional[torch.Tensor] = None
+    keep_masks: Tuple[torch.Tensor, ...] = ()
 
 
 def _check_supported(cfg: ModelConfig, pr: PruningConfig) -> None:
@@ -60,13 +67,14 @@ def _check_supported(cfg: ModelConfig, pr: PruningConfig) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
 
 
-class DiffPruningStudent(nn.Module):
-    """See the module docstring. Images are NHWC (B, H, W, 3)."""
+class DeiTBackbone(nn.Module):
+    """The DeiT pieces the student and the teacher share: patch embedding,
+    CLS token, position embedding, the blocks, the final norm and the head,
+    with the JAX models' init."""
 
-    def __init__(self, cfg: ModelConfig, pruning: PruningConfig):
+    def __init__(self, cfg: ModelConfig):
         super().__init__()
-        _check_supported(cfg, pruning)
-        self.cfg, self.pruning = cfg, pruning
+        self.cfg = cfg
         C = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, C)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, C))
@@ -80,16 +88,11 @@ class DiffPruningStudent(nn.Module):
             )
             for i in range(cfg.depth)
         )
-        self.score_predictor = nn.ModuleList(
-            PredictorLG(C, pruning.small_predictor, pruning.mask_loss_type,
-                        use_fused=cfg.use_fused_attention)
-            for _ in pruning.pruning_locs
-        )
         self.norm = LayerNorm(C, eps=cfg.layer_norm_eps)
         self.head = Linear(C, cfg.num_classes)
 
     @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "DiffPruningStudent":
+    def init_weights(self, generator: torch.Generator):
         """DeiT init, as the JAX model's: truncated-normal (std 0.02) linear,
         conv, CLS and position weights; zero biases; unit LayerNorms. The
         generator must be on the parameters' device."""
@@ -113,8 +116,27 @@ class DiffPruningStudent(nn.Module):
         cls = w["cls_token"].expand(x.shape[0], -1, -1)
         return torch.cat([cls, x], dim=1) + w["pos_embed"]
 
+
+class DiffPruningStudent(DeiTBackbone):
+    """See the module docstring. Images are NHWC (B, H, W, 3)."""
+
+    def __init__(self, cfg: ModelConfig, pruning: PruningConfig):
+        _check_supported(cfg, pruning)
+        super().__init__(cfg)
+        self.pruning = pruning
+        C = cfg.embed_dim
+        self.score_predictor = nn.ModuleList(
+            PredictorLG(C, pruning.small_predictor, pruning.mask_loss_type,
+                        use_fused=cfg.use_fused_attention)
+            for _ in pruning.pruning_locs
+        )
+
     def forward(self, x: torch.Tensor, *, unpruned: bool = False) -> StudentOutput:
-        """x: (B, H, W, 3) images. unpruned: skip every pruning stage."""
+        """x: (B, H, W, 3) images. unpruned: skip every pruning stage.
+
+        In train mode the blocks take the trainable kernel (fused) and the
+        predictors their plain layers; the gather is differentiable in both
+        modes, with the scatter-add as its backward."""
         cfg, pr = self.cfg, self.pruning
         B, N = x.shape[0], cfg.num_patches
         keep = pr.keep_counts(N)

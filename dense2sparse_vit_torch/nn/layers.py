@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from dense2sparse_vit_torch.ops.block import (
     attention_reference,
     fused_transformer_block,
+    fused_transformer_block_cls,
+    fused_transformer_block_trainable,
     layer_norm,
 )
 
@@ -102,7 +104,9 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention, exact fp32 softmax."""
+    """Multi-head self-attention, exact fp32 softmax. With `return_cls_attn`,
+    forward returns (out, cls_attn): the (B, H, N) CLS row of the attention
+    probabilities."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None):
@@ -112,8 +116,12 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x):
-        return self.proj(attention_reference(self.qkv(x), self.num_heads, self.scale))
+    def forward(self, x, *, return_cls_attn: bool = False):
+        out = attention_reference(self.qkv(x), self.num_heads, self.scale,
+                                  return_cls=return_cls_attn)
+        if return_cls_attn:
+            return self.proj(out[0]), out[1]
+        return self.proj(out)
 
 
 class DropPath(nn.Module):
@@ -134,11 +142,17 @@ class DropPath(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer encoder block.
 
-    With `use_fused`, the whole block is one call of
-    `ops.block.fused_transformer_block`: the CUDA kernel for a CUDA tensor,
-    which has no backward yet and raises under autograd, and its plain torch
-    version for a CPU tensor. The kernel has no DropPath either, so a fused
-    block with drop_path > 0 refuses to train.
+    With `use_fused`, the whole block is one call of a kernel wrapper of
+    `ops.block`, chosen as the JAX package's Block chooses
+    (`nn/layers.py:239-349`): with `return_cls_attn`,
+    `fused_transformer_block_cls`, which has no gradient (the teacher's CLS
+    capture); in train mode, `fused_transformer_block_trainable`, whose
+    backward is the block-backward kernel; in eval mode,
+    `fused_transformer_block`. Each wrapper launches its CUDA kernel for a
+    CUDA tensor and runs its plain torch version for a CPU tensor. The
+    kernels have no DropPath, so a fused block with drop_path > 0 refuses to
+    train, and no CLS capture under autograd (the JAX package's packed
+    attention kernel, not ported), which a fused block refuses in train mode.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -168,13 +182,25 @@ class Block(nn.Module):
             "b2": self.mlp.fc2.bias,
         }
 
-    def forward(self, x):
+    def forward(self, x, *, return_cls_attn: bool = False):
+        """(B, N, C) -> (B, N, C); with `return_cls_attn`, (out, cls_attn)
+        with the (B, H, N) CLS row of the attention probabilities."""
         if self.use_fused:
             if self.training and self.drop_path.rate > 0:
                 raise NotImplementedError("the fused block has no DropPath kernel yet")
-            return fused_transformer_block(
-                x, self.kernel_weights(x.dtype), self.attn.num_heads,
-                scale=self.attn.scale, ln_eps=self.norm1.eps,
-            )
-        x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+            if self.training and return_cls_attn and torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "the fused block has no CLS capture under autograd yet")
+            kernel = fused_transformer_block
+            if return_cls_attn:
+                kernel = fused_transformer_block_cls
+            elif self.training:
+                kernel = fused_transformer_block_trainable
+            return kernel(x, self.kernel_weights(x.dtype), self.attn.num_heads,
+                          scale=self.attn.scale, ln_eps=self.norm1.eps)
+        y = self.attn(self.norm1(x), return_cls_attn=return_cls_attn)
+        if return_cls_attn:
+            y, cls_attn = y
+        x = x + self.drop_path(y)
+        x = x + self.drop_path(self.mlp(self.norm2(x)))
+        return (x, cls_attn) if return_cls_attn else x

@@ -42,9 +42,12 @@ class PredictorLG(nn.Module):
 
     forward returns (scores, keep_probs): raw per-token logits (B, N) and
     keep probabilities (B, N), a softmax over the tokens for the kl_div and
-    mse mask losses or a sigmoid for bce. With `use_fused`, the scores come
-    from `ops.predictor.fused_predictor_lg` (the CUDA kernel for a CUDA
-    tensor, which raises under autograd until it has a backward).
+    mse mask losses or a sigmoid for bce. With `use_fused`, in eval mode the
+    scores come from `ops.predictor.fused_predictor_lg` (the CUDA kernel for
+    a CUDA tensor). In train mode the predictor always runs its plain torch
+    layers under autograd, as the JAX package's PredictorLG takes its flax
+    path whenever the model is not deterministic (`nn/predictor.py:142-147`):
+    the predictor kernel has no backward, there or here.
     """
 
     def __init__(self, embed_dim: int, small_predictor: bool = False,
@@ -73,7 +76,7 @@ class PredictorLG(nn.Module):
 
     def forward(self, x):
         w = self.kernel_weights(x.dtype)
-        if self.use_fused:
+        if self.use_fused and not self.training:
             scores = fused_predictor_lg(x, w, PREDICTOR_LN_EPS)
         else:
             scores = predictor_lg_reference(x, w, PREDICTOR_LN_EPS)

@@ -4,12 +4,25 @@ Each kernel wrapper counts its launches in a `launches` attribute; the
 wrappers of this package are listed in `KERNELS`.
 """
 
-from dense2sparse_vit_torch.ops.block import fused_transformer_block
-from dense2sparse_vit_torch.ops.gather import fused_gather_tokens, gather_tokens_reference
+from dense2sparse_vit_torch.ops.block import (
+    fused_transformer_block,
+    fused_transformer_block_backward,
+    fused_transformer_block_cls,
+    fused_transformer_block_trainable,
+)
+from dense2sparse_vit_torch.ops.gather import (
+    fused_gather_tokens,
+    fused_scatter_tokens,
+    gather_tokens_reference,
+)
 from dense2sparse_vit_torch.ops.predictor import fused_predictor_lg
-from dense2sparse_vit_torch.ops.topk import topk_keep_indices
+from dense2sparse_vit_torch.ops.topk import mask_from_scores, topk_keep_indices
 
-KERNELS = (fused_transformer_block, fused_predictor_lg, fused_gather_tokens)
+KERNELS = (
+    fused_transformer_block, fused_transformer_block_cls,
+    fused_transformer_block_backward, fused_predictor_lg, fused_gather_tokens,
+    fused_scatter_tokens,
+)
 
 
 def reset_launch_counts() -> None:
@@ -23,6 +36,9 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS", "fused_gather_tokens", "fused_predictor_lg",
-    "fused_transformer_block", "gather_tokens_reference", "launch_counts",
-    "reset_launch_counts", "topk_keep_indices",
+    "fused_scatter_tokens", "fused_transformer_block",
+    "fused_transformer_block_backward", "fused_transformer_block_cls",
+    "fused_transformer_block_trainable", "gather_tokens_reference",
+    "launch_counts", "mask_from_scores", "reset_launch_counts",
+    "topk_keep_indices",
 ]

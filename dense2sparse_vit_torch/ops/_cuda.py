@@ -32,12 +32,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "d2s_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "d2s_block_forward": [_P] * 19 + [_I] * 5 + [_F, _F, _P],
+    "d2s_scatter_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "d2s_block_forward": [_P] * 22 + [_I] * 5 + [_F, _F, _P],
+    "d2s_block_backward": [_P] * 28 + [_I] * 5 + [_F, _F, _P],
+    "d2s_block_backward_scratch_bytes": [_I] * 5,
     "d2s_predictor_forward": (
         [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         + [_P] * 4 + [_P] * 4 + [_I, _F, _P]
     ),
 }
+
+_RESTYPES = {"d2s_block_backward_scratch_bytes": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -115,7 +120,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
     return _lib
 

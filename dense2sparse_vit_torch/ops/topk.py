@@ -27,3 +27,13 @@ def topk_keep_indices(scores: torch.Tensor, k: int):
     kept = torch.sort(order[:, :k], dim=-1).values
     dropped = torch.sort(order[:, k:], dim=-1).values
     return kept, dropped
+
+
+def mask_from_scores(scores: torch.Tensor, keep_ratio: float) -> torch.Tensor:
+    """(B, N) mask in the dtype of `scores`, 1 at the top int(N * keep_ratio)
+    scores of each row and 0 elsewhere; equal scores rank by lowest index,
+    as `jax.lax.top_k` does."""
+    k = int(scores.shape[1] * keep_ratio)
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    mask = torch.zeros_like(scores)
+    return mask.scatter_(1, order[:, :k], 1.0)

@@ -1,0 +1,15 @@
+"""Schedules, parameter groups with AdamW, and the train step."""
+
+from dense2sparse_vit_torch.train.optimizer import (
+    GROUPS,
+    ScheduledAdamW,
+    label_params,
+    make_optimizer,
+)
+from dense2sparse_vit_torch.train.schedule import backbone_lr, cosine_lr, predictor_lr
+from dense2sparse_vit_torch.train.train_step import make_train_step
+
+__all__ = [
+    "GROUPS", "ScheduledAdamW", "backbone_lr", "cosine_lr", "label_params",
+    "make_optimizer", "make_train_step", "predictor_lr",
+]

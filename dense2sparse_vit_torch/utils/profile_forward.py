@@ -37,41 +37,51 @@ def main(argv=None) -> None:
     model = create_model(HEADLINE_MODEL, use_fused_attention=not args.plain,
                          device=dev, **HEADLINE_KWARGS).eval()
     x = torch.randn((args.batch, 224, 224, 3), device=dev, dtype=torch.bfloat16)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.inference_mode():
-        for _ in range(3):
-            model(x)
-        # host time to enqueue one forward onto an idle device: where it
-        # exceeds the device time, the host sets the pace
-        host_ms = []
-        for _ in range(args.iters):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model(x)
-            host_ms.append((time.perf_counter() - t0) * 1e3)
+        summary = profile_device(lambda: model(x), args.iters)
+    print(json.dumps({"batch": args.batch, "plain": args.plain, **summary,
+                      "img_per_s": args.batch / summary["wall_ms"] * 1e3}))
+
+
+def profile_device(fn, iters: int) -> dict:
+    """Run fn 3 times to warm up, time the host's enqueue of one call onto an
+    idle device, then profile `iters` calls: print one JSON line per device
+    kernel (calls and ms per call of fn, share of the device time) and
+    return the window's wall and device ms per call, the device's busy
+    share, the median host enqueue ms and the card."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        fn()
+    # host time to enqueue one call onto an idle device: where it exceeds
+    # the device time, the host sets the pace
+    host_ms = []
+    for _ in range(iters):
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.iters):
-                model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+        t0 = time.perf_counter()
+        fn()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    # device kernels, without the ranges that user annotations such as
+    # Optimizer.step draw over them (their device time is the kernels')
     kernels = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
     ]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3 / args.iters
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-        ms = e.self_device_time_total / 1e3 / args.iters
-        print(json.dumps({"kernel": e.key[:120], "calls": e.count / args.iters,
+        ms = e.self_device_time_total / 1e3 / iters
+        print(json.dumps({"kernel": e.key[:120], "calls": e.count / iters,
                           "ms": ms, "share": ms / total if total else None}))
-    card = card_name_and_power_limit()
-    print(json.dumps({
-        "batch": args.batch, "plain": args.plain, "wall_ms": wall_ms,
-        "device_ms": total, "busy_share": total / wall_ms,
-        "host_enqueue_ms": statistics.median(host_ms),
-        "img_per_s": args.batch / wall_ms * 1e3, "card": card,
-    }))
+    return {"wall_ms": wall_ms, "device_ms": total, "busy_share": total / wall_ms,
+            "host_enqueue_ms": statistics.median(host_ms),
+            "card": card_name_and_power_limit()}
 
 
 if __name__ == "__main__":

@@ -15,15 +15,24 @@ import pytest
 import torch
 
 from dense2sparse_vit_torch import ops
-from dense2sparse_vit_torch.models import HEADLINE_KWARGS, HEADLINE_MODEL, create_model
+from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
+from dense2sparse_vit_torch.models import (
+    HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER, create_model)
 from dense2sparse_vit_torch.nn.layers import Block
 from dense2sparse_vit_torch.nn.predictor import PredictorLG
-from dense2sparse_vit_torch.ops.block import transformer_block_reference
-from dense2sparse_vit_torch.ops.gather import gather_tokens_reference
+from dense2sparse_vit_torch.ops.block import (
+    BLOCK_WEIGHT_KEYS, transformer_block_backward_reference, transformer_block_reference)
+from dense2sparse_vit_torch.ops.gather import gather_tokens_reference, scatter_tokens_reference
 from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
+from dense2sparse_vit_torch.train import make_optimizer, make_train_step
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
+# the block backward: dx and each of the twelve gradients, relative to that
+# tensor's largest magnitude; the plain version rounds every intermediate
+# gradient to bf16, the kernel keeps the LayerNorm and residual ones in fp32
+BWD_TOL = 3e-2
+NO_LAUNCHES = {k.__name__: 0 for k in ops.KERNELS}
 
 
 @pytest.fixture
@@ -47,11 +56,11 @@ def _sharpen(module, seed):
     return module
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, tol=TOL):
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
     err = (got - want).abs().max().item()
-    assert err <= TOL * want.abs().max().item(), err
+    assert err <= tol * want.abs().max().item(), err
 
 
 @pytest.mark.parametrize("n,k", [(197, 138), (138, 97), (97, 68)])
@@ -68,6 +77,45 @@ def test_gather_bit_equal(cuda, n, k):
     assert not got[0, 0].any() and not got[7, k - 1].any()
 
 
+@pytest.mark.parametrize("n,k", [(197, 138), (138, 97), (97, 68)])
+def test_scatter_bit_equal_on_unique_indices(cuda, n, k):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rows = torch.randn((8, k, 384), generator=g, device=cuda).to(torch.bfloat16)
+    idx = torch.argsort(torch.rand((8, n), generator=g, device=cuda), dim=1)[:, :k]
+    before = ops.fused_scatter_tokens.launches
+    got = ops.fused_scatter_tokens(rows, idx.contiguous(), n)
+    torch.cuda.synchronize()
+    assert ops.fused_scatter_tokens.launches == before + 1
+    assert torch.equal(got, scatter_tokens_reference(rows, idx, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scatter_sums_repeats_and_drops_out_of_range(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    rows = torch.randn((4, 50, 64), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, 13, (4, 50), generator=g, device=cuda)
+    idx[0, 0], idx[1, 7], idx[3, 49] = -1, 13, 99
+    got = ops.fused_scatter_tokens(rows, idx, 13)
+    want = scatter_tokens_reference(rows, idx, 13)
+    torch.cuda.synchronize()
+    # fp32 sums of a few rows, in another order than index_add_'s
+    torch.testing.assert_close(got, want, rtol=1e-2 if dtype == torch.bfloat16 else 1e-6,
+                               atol=1e-6)
+
+
+def test_gather_backward_is_the_scatter(cuda):
+    x = torch.randn((4, 197, 384), device=cuda).to(torch.bfloat16).requires_grad_()
+    idx = torch.argsort(torch.rand((4, 197), device=cuda), dim=1)[:, :138].contiguous()
+    ops.reset_launch_counts()
+    out = ops.fused_gather_tokens(x, idx)
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_gather_tokens": 1,
+                                   "fused_scatter_tokens": 1}
+    assert torch.equal(x.grad, scatter_tokens_reference(g, idx, 197))
+
+
 @pytest.mark.parametrize("n", [197, 138, 97, 68, 13, 1, 577])
 @pytest.mark.parametrize("c,heads", [(384, 6), (768, 12)])
 def test_block_kernel(cuda, c, heads, n):
@@ -80,6 +128,60 @@ def test_block_kernel(cuda, c, heads, n):
         want = transformer_block_reference(x, w, heads, blk.attn.scale, 1e-6)
         torch.cuda.synchronize()
     _assert_close(got, want)
+
+
+@pytest.mark.parametrize("n", [197, 138, 13, 1])
+def test_block_cls_rows(cuda, n):
+    blk = _sharpen(Block(384, 6, use_fused=True), seed=n).to(cuda).eval()
+    x = torch.randn((4, n, 384), generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        w = blk.kernel_weights(torch.bfloat16)
+        got, cls = ops.fused_transformer_block_cls(x, w, 6)
+        want, want_cls = transformer_block_reference(
+            x, w, 6, blk.attn.scale, 1e-6, return_cls=True)
+        plain_kernel = ops.fused_transformer_block(x, w, 6)
+        torch.cuda.synchronize()
+    assert cls.shape == (4, 6, n) and cls.dtype == torch.bfloat16
+    assert torch.equal(got, plain_kernel)
+    _assert_close(cls, want_cls)
+    torch.testing.assert_close(cls.float().sum(-1), torch.ones((4, 6), device=cuda),
+                               rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("n", [197, 138, 97, 68, 13, 1, 384])
+@pytest.mark.parametrize("c,heads", [(384, 6), (768, 12)])
+def test_block_backward_kernel(cuda, c, heads, n):
+    blk = _sharpen(Block(c, heads, use_fused=True), seed=n).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, c), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((4, n, c), generator=gen, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        w = blk.kernel_weights(torch.bfloat16)
+        dx, dw = ops.fused_transformer_block_backward(x, g, w, heads)
+        want_dx, want_dw = transformer_block_backward_reference(
+            x, g, w, heads, blk.attn.scale, 1e-6)
+        torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16
+    _assert_close(dx, want_dx, BWD_TOL)
+    for k in BLOCK_WEIGHT_KEYS:
+        assert dw[k].dtype == torch.float32 and dw[k].shape == w[k].shape, k
+        _assert_close(dw[k], want_dw[k], BWD_TOL)
+
+
+def test_trainable_block_gradients_reach_the_parameters(cuda):
+    blk = _sharpen(Block(384, 6, use_fused=True), seed=3).to(cuda).train()
+    ref = Block(384, 6, use_fused=False).to(cuda).train()
+    ref.load_state_dict(blk.state_dict())
+    x = torch.randn((2, 97, 384), device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    blk(x).float().square().sum().backward()
+    ref(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block": 1,
+                                   "fused_transformer_block_backward": 1}
+    for (name, p), q in zip(blk.named_parameters(), ref.parameters()):
+        _assert_close(p.grad, q.grad, BWD_TOL)
 
 
 # DeiT-S widths at the three stages, and DeiT-B's large predictor, whose
@@ -109,7 +211,7 @@ def test_student_forward_launches_every_kernel(cuda):
         out = model(x)
         torch.cuda.synchronize()
     assert ops.launch_counts() == {
-        "fused_transformer_block": 12, "fused_predictor_lg": 3,
+        **NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
         "fused_gather_tokens": 3,
     }
     assert out.logits.shape == (2, 1000) and out.features.shape == (2, 67, 384)
@@ -117,21 +219,28 @@ def test_student_forward_launches_every_kernel(cuda):
 
 
 def test_train_mode_launches_the_kernels_or_raises(cuda):
-    """Train mode takes no plain path on the card: without autograd it
-    launches the kernels, under autograd the wrappers raise."""
+    """Train mode takes no plain path on the card for the blocks and the
+    gather: under autograd the forward launches the block and gather
+    kernels and the backward their backward kernels; the predictor runs its
+    plain layers in train mode, as in the JAX package. A fused block in
+    train mode refuses CLS capture under autograd."""
     model = create_model(HEADLINE_MODEL, use_fused_attention=True, device=cuda,
                          **HEADLINE_KWARGS).train()
     x = torch.randn((2, 224, 224, 3), device=cuda, dtype=torch.bfloat16)
     ops.reset_launch_counts()
-    with torch.no_grad():
-        model(x)
-        torch.cuda.synchronize()
+    out = model(x)
+    (out.logits.float().sum() + sum(p.float().sum() for p in out.pred_logits)).backward()
+    torch.cuda.synchronize()
     assert ops.launch_counts() == {
-        "fused_transformer_block": 12, "fused_predictor_lg": 3,
-        "fused_gather_tokens": 3,
+        **NO_LAUNCHES, "fused_transformer_block": 12,
+        "fused_transformer_block_backward": 12, "fused_gather_tokens": 3,
+        "fused_scatter_tokens": 3,
     }
-    with pytest.raises(RuntimeError, match="no backward"):
-        model(x)
+    assert model.blocks[0].attn.qkv.weight.grad is not None
+    assert model.score_predictor[0].in_conv[1].weight.grad is not None
+    with pytest.raises(NotImplementedError, match="CLS capture"):
+        model.blocks[0](torch.zeros((2, 197, 384), device=cuda, dtype=torch.bfloat16),
+                        return_cls_attn=True)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -139,6 +248,33 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     blk = Block(384, 6).to(cuda).eval()
     with torch.inference_mode(), pytest.raises(TypeError):
         ops.fused_transformer_block(x, blk.kernel_weights(torch.float32), 6)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.fused_gather_tokens(
-            x.requires_grad_(), torch.zeros((2, 3), dtype=torch.long, device=cuda))
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        ops.fused_transformer_block(xb, blk.kernel_weights(torch.bfloat16), 6)
+    with torch.no_grad(), pytest.raises(ValueError, match="at most 384"):
+        ops.fused_transformer_block_backward(
+            torch.zeros((1, 385, 384), device=cuda, dtype=torch.bfloat16),
+            torch.zeros((1, 385, 384), device=cuda, dtype=torch.bfloat16),
+            blk.kernel_weights(torch.bfloat16), 6)
+
+
+def test_train_step_launches_every_training_kernel(cuda):
+    student = create_model(HEADLINE_MODEL, use_fused_attention=True, device=cuda,
+                           **HEADLINE_KWARGS)
+    teacher = create_model(HEADLINE_TEACHER, use_fused_attention=True, device=cuda,
+                           dtype="bfloat16")
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=TrainConfig())
+    opt = make_optimizer(student, cfg.train, steps_per_epoch=10)
+    opt.count = cfg.train.warmup_epochs * 10
+    step = make_train_step(student, teacher, opt, cfg)
+    x = torch.randn((2, 224, 224, 3), device=cuda)
+    labels = torch.tensor([3, 7], device=cuda)
+    ops.reset_launch_counts()
+    metrics = step(x, labels, epoch=cfg.train.warmup_epochs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        "fused_transformer_block": 12, "fused_transformer_block_cls": 12,
+        "fused_transformer_block_backward": 12, "fused_predictor_lg": 0,
+        "fused_gather_tokens": 3, "fused_scatter_tokens": 3,
+    }
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

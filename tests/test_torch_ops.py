@@ -219,7 +219,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import dense2sparse_vit_torch, dense2sparse_vit_torch.models, "
         "dense2sparse_vit_torch.ops, dense2sparse_vit_torch.nn, "
-        "dense2sparse_vit_torch.utils.convert\n"
+        "dense2sparse_vit_torch.utils.convert, dense2sparse_vit_torch.losses, "
+        "dense2sparse_vit_torch.train, dense2sparse_vit_torch.utils.profile_train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"

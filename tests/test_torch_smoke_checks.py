@@ -113,3 +113,61 @@ def test_check_block_rejects_a_wrong_residual_branch(monkeypatch):
     w["bproj"] = torch.full_like(w["bproj"], 0.05)
     with torch.inference_mode(), pytest.raises(AssertionError, match="mid"):
         chip_smoke.check_block(torch, x, w, *args, block=0)
+
+
+class _SoftmaxWithoutRowsum(torch.autograd.Function):
+    """Softmax whose backward drops the rowsum(dP * P) term: the fault that
+    chip_smoke.py --plant-fault puts into the block-backward kernel."""
+
+    @staticmethod
+    def forward(ctx, s):
+        p = torch.softmax(s, dim=-1)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        return p * g  # the right one is p * (g - (g * p).sum(-1, keepdim=True))
+
+
+def _attention_without_rowsum(qkv, num_heads, scale):
+    b, n, c3 = qkv.shape
+    q, k, v = qkv.view(b, n, 3, num_heads, c3 // 3 // num_heads).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = _SoftmaxWithoutRowsum.apply(s).to(qkv.dtype)
+    return torch.matmul(p, v).transpose(1, 2).reshape(b, n, c3 // 3)
+
+
+def _cotangent(x):
+    return torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(x.dtype)
+
+
+def test_check_block_backward_passes_the_plain_backward(capsys):
+    x, w, args = _block_input()
+    with torch.no_grad():
+        err = chip_smoke.check_block_backward(torch, x, _cotangent(x), w, *args, block=0)
+    line = _last_line(capsys)
+    assert err == 0.0
+    parts = {"wqkv.q", "wqkv.k", "wqkv.v", "bqkv.q", "bqkv.v"}
+    assert set(line["rel_err"]) == {"dx", *parts, *w}
+
+
+def test_check_block_backward_rejects_a_dropped_rowsum(monkeypatch, capsys):
+    real = ops.fused_transformer_block_backward
+
+    def faulty(*args, **kwargs):
+        block_ops.attention_reference = _attention_without_rowsum
+        try:
+            return real(*args, **kwargs)
+        finally:
+            block_ops.attention_reference = _attention
+
+    monkeypatch.setattr(ops, "fused_transformer_block_backward", faulty)
+    x, w, args = _block_input()
+    with torch.no_grad(), pytest.raises(AssertionError, match="wqkv.k"):
+        chip_smoke.check_block_backward(torch, x, _cotangent(x), w, *args, block=0)
+    line = _last_line(capsys)
+    # the fault reaches only what flows through dQ and dK
+    assert line["rel_err"]["w2"] == 0.0 and line["rel_err"]["wqkv.v"] == 0.0

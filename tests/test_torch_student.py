@@ -53,7 +53,7 @@ def _jax_params(small):
 def _port(small, use_fused):
     model = create_model(
         "dynamic_vit_small_patch16_224_student", small_predictor=small,
-        use_fused_attention=use_fused, **MODEL, **PRUNING,
+        use_fused_attention=use_fused, device="cpu", **MODEL, **PRUNING,
     )
     return load_numpy_state(model, state_dict_from_jax(_jax_params(small))).eval()
 
@@ -146,11 +146,12 @@ def test_unpruned_forward_matches_jax():
 
 def test_unported_options_are_rejected():
     with pytest.raises(NotImplementedError, match="predictor_bn"):
-        create_model("dynamic_vit_tiny_patch16_224_student", predictor_bn=True)
+        create_model("dynamic_vit_tiny_patch16_224_student", predictor_bn=True,
+                     device="cpu")
 
 
-@pytest.mark.parametrize("field", ["remat", "topk_num_samples", "mean_heads",
+@pytest.mark.parametrize("field", ["remat", "topk_num_samples", "initial_sigma",
                                    "differentiable_topk", "attn_selection_threshold"])
 def test_fields_no_port_code_reads_are_refused(field):
     with pytest.raises(TypeError, match=field):
-        create_model("dynamic_vit_tiny_patch16_224_student", **{field: 1})
+        create_model("dynamic_vit_tiny_patch16_224_student", device="cpu", **{field: 1})
