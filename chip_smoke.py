@@ -3,9 +3,11 @@
 
 Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 chip_smoke.py                 # every phase below
-    python3 chip_smoke.py --plant-fault   # the block-backward check, against
-                                          # a kernel with a planted fault
+    python3 chip_smoke.py                        # every phase below
+    python3 chip_smoke.py --plant-fault          # the block-backward check,
+                                                 # against a kernel with a
+                                                 # planted fault
+    python3 chip_smoke.py --plant-fault policy   # the dPolicy check, the same
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -35,7 +37,25 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   7. time_train  the training kernels against their plain versions (and the
                  one torch call that computes the same function, where there
                  is one), and the whole train step with kernels against
-                 without.
+                 without;
+  8. serve_threshold  batches of 1, 8 and 256 through the same student in
+                 threshold mode (patch_score_threshold 0.5): per forward 3
+                 plain and 9 policy-mode blocks, 3 predictors, no gather;
+                 walk it stage by stage at B=256 holding every block against
+                 its plain version (policy blocks at eps 1e-6 and 0.1), and
+                 time the policy block and the whole forward;
+  9. train_threshold, 10. train_gumbel  three B=128 steps each, with the
+                 live teacher, of the threshold student (`make_train_step`)
+                 and of the gumbel baseline (`default_dynamic_vit_small_
+                 patch16_224_student`, `make_dynamic_vit_train_step`): per
+                 step 3 plain and 9 policy blocks each way; every trained
+                 parameter (the gumbel predictors included) moves; the block
+                 backward at every block of a step's own activations, the
+                 policy ones with dPolicy at eps 1e-6 and 0.1 (the gumbel
+                 run once more on an input with planted exact ties), and the
+                 policy backward and each step timed;
+ 11. serve_gumbel  a B=8 eval forward of the gumbel baseline (top-k gathers,
+                 plain blocks).
 The line before the last two is the kernels summary, then the card's name
 and power limit, then {"ok": true, "device": {...}}. Without a CUDA device
 it exits 1 at once.
@@ -43,7 +63,9 @@ it exits 1 at once.
 --plant-fault builds a copy of the kernels whose block backward drops the
 rowsum(dO * O) term of the softmax backward, runs phase 6's block-backward
 check with it, prints whether the check rejected it, and exits 0 only if it
-did; it prints no "ok" line.
+did; it prints no "ok" line. --plant-fault policy does the same with a
+block backward whose dPolicy keeps the diagonal (which the policy softmax
+leaves out), on a gumbel train step's policy blocks.
 """
 
 from __future__ import annotations
@@ -78,29 +100,55 @@ LOGITS_TOL = 3e-2  # twelve blocks of such differences, unpruned forward
 BWD_TOL = 3e-2
 # a CLS row's sum: N probabilities each rounded to bf16
 ROWSUM_TOL = 1e-2
+# dPolicy (the policy backward's gradient of the keep policy), relative to
+# its largest magnitude: fp32 sums on both sides over bf16 products
+DPOL_TOL = 3e-2
+EPS_CHECKS = (1e-6, 0.1)  # the policy softmax's smoothing: the model's, and visible
 KERNEL_NAMES = (
-    "fused_transformer_block", "fused_transformer_block_cls",
-    "fused_transformer_block_backward", "fused_predictor_lg",
+    "fused_transformer_block", "fused_transformer_block[policy]",
+    "fused_transformer_block_cls", "fused_transformer_block_backward",
+    "fused_transformer_block_backward[policy]", "fused_predictor_lg",
     "fused_gather_tokens", "fused_scatter_tokens",
 )
-PER_FORWARD = {**dict.fromkeys(KERNEL_NAMES, 0), "fused_transformer_block": 12,
-               "fused_predictor_lg": 3, "fused_gather_tokens": 3}
+NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
+PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
+               "fused_gather_tokens": 3}
 # one train step: the teacher's 12 blocks with their CLS rows; the student's
 # 12 block forwards and backwards, 3 gathers and their 3 scatters; the
 # predictors train through their plain layers
-PER_TRAIN_STEP = {"fused_transformer_block": 12, "fused_transformer_block_cls": 12,
-                  "fused_transformer_block_backward": 12, "fused_predictor_lg": 0,
+PER_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block": 12,
+                  "fused_transformer_block_cls": 12, "fused_transformer_block_backward": 12,
                   "fused_gather_tokens": 3, "fused_scatter_tokens": 3}
+# threshold serving: 3 plain blocks before the first stage, 9 policy blocks
+# from it on, 3 predictors, nothing gathered
+PER_THRESHOLD_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 3,
+                         "fused_transformer_block[policy]": 9, "fused_predictor_lg": 3}
+# a threshold or gumbel train step: the teacher's 12 CLS-row blocks; the
+# student's 3 plain and 9 policy blocks in each direction
+PER_POLICY_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block": 3,
+                         "fused_transformer_block[policy]": 9,
+                         "fused_transformer_block_cls": 12,
+                         "fused_transformer_block_backward": 3,
+                         "fused_transformer_block_backward[policy]": 9}
+# the gumbel baseline's eval forward: 3 gathers, 12 plain blocks (its
+# predictor has no kernel)
+PER_GUMBEL_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_gather_tokens": 3}
 SOURCES = {
     "fused_transformer_block": (
         "dense2sparse_vit_torch/csrc/block.cu",
         "dense2sparse_vit_tpu/ops/pallas/block.py:198"),
+    "fused_transformer_block[policy]": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:88"),
     "fused_transformer_block_cls": (
         "dense2sparse_vit_torch/csrc/block.cu",
         "dense2sparse_vit_tpu/ops/pallas/block.py:285"),
     "fused_transformer_block_backward": (
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
         "dense2sparse_vit_tpu/ops/pallas/block.py:729"),
+    "fused_transformer_block_backward[policy]": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:484"),
     "fused_predictor_lg": (
         "dense2sparse_vit_torch/csrc/predictor.cu",
         "dense2sparse_vit_tpu/ops/pallas/predictor.py:242"),
@@ -114,8 +162,13 @@ SOURCES = {
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
-# the fault --plant-fault puts into a copy of block_bwd.cu
-FAULT = ("    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n")
+# the faults --plant-fault puts into a copy of block_bwd.cu: rowsum(dO * O)
+# dropped, or (policy) dPolicy's diagonal kept; and the tensor whose check
+# must reject it
+FAULTS = {
+    "rowsum": ("    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
+    "policy": ("if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
+}
 
 
 def emit(obj) -> None:
@@ -244,8 +297,9 @@ class Tally:
 # ---- the serving checks ----------------------------------------------------
 
 
-def check_block(torch, x, w, num_heads, scale, ln_eps, block=None):
-    """Hold the block kernel against its plain version, stage by stage.
+def check_block(torch, x, w, num_heads, scale, ln_eps, block=None, policy=None, eps=1e-6):
+    """Hold the block kernel against its plain version, stage by stage (in
+    policy mode with a (B, N) keep `policy` and smoothing `eps`).
 
     The block's output is x plus two branches, and at the init's weight
     scale the residual x is tens of times larger than the attention branch,
@@ -268,11 +322,12 @@ def check_block(torch, x, w, num_heads, scale, ln_eps, block=None):
         attention_reference, layer_norm, linear, transformer_block_reference)
 
     y, st = ops.fused_transformer_block(
-        x, w, num_heads, scale=scale, ln_eps=ln_eps, stages=True)
+        x, w, num_heads, policy, scale=scale, eps=eps, ln_eps=ln_eps, stages=True)
     h2 = layer_norm(st["mid"], w["ln2_w"], w["ln2_b"], ln_eps)
+    pol = {} if policy is None else {"policy": policy, "eps": eps}
     plain = {
         "qkv": linear(layer_norm(x, w["ln1_w"], w["ln1_b"], ln_eps), w["wqkv"], w["bqkv"]),
-        "attn": attention_reference(st["qkv"], num_heads, scale),
+        "attn": attention_reference(st["qkv"], num_heads, scale, **pol),
         "hid": F.gelu(linear(h2, w["w1"], w["b1"]).float()).to(x.dtype),
     }
     rel = {}
@@ -287,9 +342,11 @@ def check_block(torch, x, w, num_heads, scale, ln_eps, block=None):
         excess = ((got.float() - z).abs() - BF16_U * z.abs()).clamp(min=0)
         rel[name] = (excess.max().item() / max(branch.abs().max().item(), 1e-30),
                      BRANCH_TOL)
-    err, ref = rel_err(torch, y, transformer_block_reference(x, w, num_heads, scale, ln_eps))
+    err, ref = rel_err(torch, y, transformer_block_reference(x, w, num_heads, scale, ln_eps,
+                                                             **pol))
     rel["block"] = (err / ref, BLOCK_TOL)
-    emit({"phase": "check", "kernel": "fused_transformer_block", "block": block,
+    emit({"phase": "check", "kernel": "fused_transformer_block" + ("[policy]" if pol else ""),
+          "block": block, **({"eps": eps} if pol else {}),
           "shape": list(x.shape), "max_abs_err": err, "max_abs_ref": ref,
           "rel_err": {k: r for k, (r, _) in rel.items()},
           "tol_rel": {k: t for k, (_, t) in rel.items()}})
@@ -314,20 +371,27 @@ def check_unpruned(torch, model, plain, images) -> None:
 # ---- the training checks --------------------------------------------------
 
 
-def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None):
+def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None, policy=None,
+                         eps=1e-6):
     """Hold the block-backward kernel against its plain version (autograd
-    through the plain block) on the same x, g and weights: dx and each of the
+    through the plain block) on the same x, g and weights (and in policy
+    mode the (B, N) keep `policy`, smoothing `eps`): dx and each of the
     twelve gradients, and the thirds of the qkv weight's (q, k, v) and
-    bias's (q, v) apart, within BWD_TOL of that tensor's largest magnitude.
-    Prints the relative errors, raises naming every tensor out of tolerance,
-    and returns the largest absolute error."""
+    bias's (q, v) apart, within BWD_TOL of that tensor's largest magnitude;
+    in policy mode dPolicy too, within DPOL_TOL. Prints the relative errors,
+    raises naming every tensor out of tolerance, and returns the largest
+    absolute error."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.ops.block import transformer_block_backward_reference
 
-    dx, dw = ops.fused_transformer_block_backward(x, g, w, num_heads, scale=scale,
-                                                  ln_eps=ln_eps)
-    want_dx, want_dw = transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps)
+    pol = {} if policy is None else {"policy": policy, "eps": eps}
+    dx, dw, dpol = ops.fused_transformer_block_backward(x, g, w, num_heads, scale=scale,
+                                                        ln_eps=ln_eps, **pol)
+    want_dx, want_dw, want_dpol = transformer_block_backward_reference(
+        x, g, w, num_heads, scale, ln_eps, **pol)
     pairs = {"dx": (dx, want_dx)}
+    if pol:
+        pairs["dpolicy"] = (dpol, want_dpol)
     for k in dw:
         if dw[k] is None:
             continue
@@ -345,29 +409,48 @@ def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None):
         err, ref = rel_err(torch, got, want)
         rel[name] = err / max(ref, 1e-30)
         worst = max(worst, err)
-    emit({"phase": "check_train", "kernel": "fused_transformer_block_backward",
-          "block": block, "shape": list(x.shape), "rel_err": rel, "tol_rel": BWD_TOL})
-    bad = {k: r for k, r in rel.items() if not r <= BWD_TOL}
+    tol = {k: DPOL_TOL if k == "dpolicy" else BWD_TOL for k in rel}
+    emit({"phase": "check_train",
+          "kernel": "fused_transformer_block_backward" + ("[policy]" if pol else ""),
+          "block": block, **({"eps": eps} if pol else {}), "shape": list(x.shape),
+          "rel_err": rel, "tol_rel": BWD_TOL, **({"dpolicy_tol_rel": DPOL_TOL} if pol else {})})
+    bad = {k: r for k, r in rel.items() if not r <= tol[k]}
     if bad:
         raise AssertionError(f"block backward out of tolerance: {bad}")
     return worst
 
 
-def build_trainer(torch, dev, fused: bool):
-    """The headline student and its teacher, from seeded generators, with
-    AdamW past the warmup and the train step: (student, teacher, step)."""
+def build_trainer(torch, dev, fused: bool, mode: str = "topk"):
+    """The headline student (mode "topk"; "threshold": the same in
+    threshold mode; "gumbel": the gumbel baseline at the same widths and
+    ratios, with the ratio and token-distillation losses on, as the JAX
+    package's bench_train.py runs it) and its teacher, from seeded
+    generators, with AdamW past the warmup and the train step:
+    (student, teacher, step)."""
     from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
     from dense2sparse_vit_torch.models import (
-        HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER, create_model)
-    from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+        GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER,
+        THRESHOLD_KWARGS, create_model)
+    from dense2sparse_vit_torch.train import (
+        make_dynamic_vit_train_step, make_optimizer, make_train_step)
 
-    student = create_model(HEADLINE_MODEL, use_fused_attention=fused, device=dev,
-                           generator=torch.Generator().manual_seed(0), **HEADLINE_KWARGS)
+    name, kwargs, train = {
+        "topk": (HEADLINE_MODEL, HEADLINE_KWARGS, TrainConfig()),
+        "threshold": (HEADLINE_MODEL, THRESHOLD_KWARGS, TrainConfig()),
+        "gumbel": (GUMBEL_MODEL, GUMBEL_KWARGS,
+                   TrainConfig(use_ratio_loss=True, use_token_dist_loss=True)),
+    }[mode]
+    student = create_model(name, use_fused_attention=fused, device=dev,
+                           generator=torch.Generator().manual_seed(0), **kwargs)
     teacher = create_model(HEADLINE_TEACHER, use_fused_attention=fused, device=dev,
                            dtype="bfloat16", generator=torch.Generator().manual_seed(2))
-    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=TrainConfig())
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=train)
     opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH)
     opt.count = cfg.train.warmup_epochs * STEPS_PER_EPOCH
+    if mode == "gumbel":
+        noise = torch.Generator(device=dev).manual_seed(7)
+        return student, teacher, make_dynamic_vit_train_step(student, teacher, opt, cfg,
+                                                             generator=noise)
     return student, teacher, make_train_step(student, teacher, opt, cfg)
 
 
@@ -379,23 +462,28 @@ def train_batch(torch, dev):
 
 
 def capture_train_step(torch, student, teacher, step, images, labels):
-    """Run one more train step with hooks: every student block's input and
-    weights (before the update), the cotangent of the last block's output,
-    every gather's input, indices and output cotangent, and every teacher
-    block's input."""
+    """Run one more train step with hooks: every student block's input, keep
+    policy (None for a plain block) and weights (before the update), the
+    cotangent of the last block's output, every gather's input, indices and
+    output cotangent, and every teacher block's input."""
     import dense2sparse_vit_torch.models.student as student_module
 
     bf16 = torch.bfloat16
-    rec = {"block_in": {}, "gathers": [], "teacher_in": {}, "last_g": None}
+    rec = {"block_in": {}, "policy": {}, "gathers": [], "teacher_in": {}, "last_g": None}
     with torch.no_grad():
         rec["weights"] = [{k: None if v is None else v.detach().clone()
                            for k, v in blk.kernel_weights(bf16).items()}
                           for blk in student.blocks]
         rec["teacher_weights"] = [blk.kernel_weights(bf16) for blk in teacher.blocks]
     handles = []
+    def block_hook(m, args, i):
+        rec["block_in"][i] = args[0].detach()
+        policy = args[1] if len(args) > 1 else None
+        rec["policy"][i] = None if policy is None else policy.detach().reshape(args[0].shape[:2])
+
     for i, blk in enumerate(student.blocks):
         handles.append(blk.register_forward_pre_hook(
-            lambda m, args, i=i: rec["block_in"].__setitem__(i, args[0].detach())))
+            lambda m, args, i=i: block_hook(m, args, i)))
     for i, blk in enumerate(teacher.blocks):
         handles.append(blk.register_forward_pre_hook(
             lambda m, args, i=i: rec["teacher_in"].__setitem__(i, args[0].detach())))
@@ -424,52 +512,66 @@ def capture_train_step(torch, student, teacher, step, images, labels):
     return rec
 
 
-def check_block_backwards(torch, student, rec, tally=None):
+def check_block_backwards(torch, student, rec, tally=None, plain_blocks=True):
     """Kernel C at every student block's input: the real cotangent at the
-    last block, a seeded one of the same scale at the others."""
+    last block, a seeded one of the same scale at the others; a policy
+    block with its step's policy, at every eps of EPS_CHECKS. With
+    `plain_blocks` False, the policy blocks alone."""
     gen = torch.Generator(device=rec["last_g"].device).manual_seed(4)
     scale_g = rec["last_g"].float().std().item()
     for i, blk in enumerate(student.blocks):
-        x = rec["block_in"][i]
+        x, policy = rec["block_in"][i], rec["policy"][i]
         if i == len(student.blocks) - 1:
             g = rec["last_g"].contiguous()
         else:
             g = (torch.randn(x.shape, generator=gen, device=x.device) * scale_g).to(x.dtype)
+        if policy is None and not plain_blocks:
+            continue
+        args = (rec["weights"][i], blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
         with torch.no_grad():
-            err = check_block_backward(torch, x, g, rec["weights"][i], blk.attn.num_heads,
-                                       blk.attn.scale, blk.norm1.eps, block=i)
+            if policy is None:
+                err = check_block_backward(torch, x, g, *args, block=i)
+            else:
+                err = max(check_block_backward(torch, x, g, *args, block=i, policy=policy,
+                                               eps=eps) for eps in EPS_CHECKS)
         if tally is not None:
-            tally.err("fused_transformer_block_backward", err)
+            tally.err("fused_transformer_block_backward" + ("" if policy is None else "[policy]"),
+                      err)
 
 
-def plant_fault(dev) -> int:
-    """Build the kernels with the fault, run the block-backward check on a
-    train step's activations, and report whether it rejected the fault."""
+def plant_fault(dev, kind: str) -> int:
+    """Build the kernels with the fault `kind` of FAULTS, run the
+    block-backward check on a train step's activations (for "policy" the
+    gumbel baseline's policy blocks), and report whether it rejected the
+    fault on the tensor the fault reaches."""
     import torch
     from pathlib import Path
 
     from dense2sparse_vit_torch.ops import _cuda
 
+    pattern, replacement, reaches = FAULTS[kind]
     faulty = _cuda.BUILD_DIR / "fault_csrc"
     shutil.rmtree(faulty, ignore_errors=True)
     shutil.copytree(_cuda.CSRC, faulty)
     src = Path(faulty) / "block_bwd.cu"
     text = src.read_text()
-    if text.count(FAULT[0]) != 1:
+    if text.count(pattern) != 1:
         raise AssertionError("the fault's pattern is not in block_bwd.cu once")
-    src.write_text(text.replace(*FAULT))
+    src.write_text(text.replace(pattern, replacement))
     _cuda.CSRC = faulty
     _cuda.library()
-    student, teacher, step = build_trainer(torch, dev, fused=True)
+    mode = "gumbel" if kind == "policy" else "topk"
+    student, teacher, step = build_trainer(torch, dev, fused=True, mode=mode)
     images, labels = train_batch(torch, dev)
     rec = capture_train_step(torch, student, teacher, step, images, labels)
     try:
-        check_block_backwards(torch, student, rec)
+        check_block_backwards(torch, student, rec, plain_blocks=kind != "policy")
     except AssertionError as e:
-        emit({"phase": "plant_fault", "fault": "rowsum(dO * O) dropped", "rejected": True,
+        rejected = reaches in str(e)
+        emit({"phase": "plant_fault", "fault": kind, "rejected": rejected,
               "message": str(e)[:400]})
-        return 0
-    emit({"phase": "plant_fault", "fault": "rowsum(dO * O) dropped", "rejected": False})
+        return 0 if rejected else 1
+    emit({"phase": "plant_fault", "fault": kind, "rejected": False})
     return 1
 
 
@@ -779,6 +881,271 @@ def phase_time_train(torch, dev, student, rec, tally, smi):
           "plain_img_per_s": B_TRAIN / p_ms * 1e3, "card": smi})
 
 
+# ---- the policy-masked paths: threshold pruning and the gumbel baseline ----
+
+
+def policy_bytes(B, N) -> int:
+    """The keep policy read (fp32), for a policy block's bound."""
+    return B * N * 4
+
+
+def phase_serve_threshold(torch, dev, tally, smi):
+    """Phase 8: serve, walk and time the threshold-mode student."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import HEADLINE_MODEL, THRESHOLD_KWARGS, create_model
+    from dense2sparse_vit_torch.ops.block import transformer_block_reference
+    from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
+    from dense2sparse_vit_torch.ops.topk import threshold_keep_mask
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    model = create_model(HEADLINE_MODEL, use_fused_attention=True, device=dev,
+                         generator=torch.Generator().manual_seed(0), **THRESHOLD_KWARGS).eval()
+    plain = create_model(HEADLINE_MODEL, use_fused_attention=False, device=dev,
+                         **THRESHOLD_KWARGS).eval()
+    plain.load_state_dict(model.state_dict())
+    N, C = model.cfg.num_patches, model.cfg.embed_dim
+    threshold = model.pruning.patch_score_threshold
+    images = {b: torch.randn((b, 224, 224, 3), generator=gen, device=dev, dtype=bf16)
+              for b in SERVE_BATCHES}
+    outputs = {}
+    with torch.inference_mode():
+        for b in SERVE_BATCHES:
+            ops.reset_launch_counts()
+            out = model(images[b])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            if counts != PER_THRESHOLD_FORWARD:
+                raise AssertionError(f"threshold B={b}: launches {counts}, "
+                                     f"expected {PER_THRESHOLD_FORWARD}")
+            ratios = out.keep_ratios.float()
+            ok = (out.logits.shape == (b, 1000) and out.features.shape == (b, N, C)
+                  and [t.shape[1] for t in out.pred_logits] == [N] * 3
+                  and len(out.keep_masks) == 3
+                  and bool(torch.isfinite(out.logits.float()).all())
+                  and bool(torch.isfinite(out.features.float()).all())
+                  and bool(((ratios > 0) & (ratios <= 1)).all()))
+            if not ok:
+                raise AssertionError(f"threshold B={b}: bad outputs {out.logits.shape} "
+                                     f"{out.features.shape} keep ratios {ratios.tolist()[:8]}")
+            for k, v in counts.items():
+                tally.rows[k]["launches"] += v
+            outputs[b] = out
+            emit({"phase": "serve_threshold", "batch": b, "launches": counts,
+                  "features": list(out.features.shape),
+                  "keep_ratio_mean": ratios.mean().item(),
+                  "keep_ratio_min": ratios.min().item(),
+                  "keep_ratio_max": ratios.max().item()})
+
+        # the walk: each stage's predictor and mask, each block against its
+        # plain version, the policy blocks at each eps of EPS_CHECKS
+        x = model.embed(images[B_CHECK])
+        policy, p, first_policy = None, 0, None
+        for i, blk in enumerate(model.blocks):
+            if i in model.pruning.pruning_locs:
+                w = model.score_predictor[p].kernel_weights(bf16)
+                s_k = ops.fused_predictor_lg(x[:, 1:], w)
+                err, scale = rel_err(torch, s_k, predictor_lg_reference(x[:, 1:], w))
+                if err > STAGE_TOL * scale:
+                    raise AssertionError(f"threshold predictor stage {p}: err {err} scale {scale}")
+                tally.err("fused_predictor_lg", err)
+                probs = torch.softmax(s_k.float(), dim=-1).to(bf16)
+                mask, _ = threshold_keep_mask(probs, threshold)
+                policy = torch.cat([mask.new_ones(B_CHECK, 1), mask], dim=1)
+                p += 1
+            w = blk.kernel_weights(bf16)
+            args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+            if policy is None:
+                y, err = check_block(torch, x, w, *args, block=i)
+                tally.err("fused_transformer_block", err)
+            else:
+                for eps in EPS_CHECKS:
+                    out_eps, err = check_block(torch, x, w, *args, block=i, policy=policy, eps=eps)
+                    tally.err("fused_transformer_block[policy]", err)
+                    if eps == 1e-6:
+                        y = out_eps
+                if first_policy is None:
+                    first_policy = (x, w, args, policy)
+            x = y
+        logits = model.head(model.norm(x)[:, 0])
+        if not torch.equal(logits, outputs[B_CHECK].logits):
+            raise AssertionError("threshold stage walk and model forward disagree")
+        emit({"phase": "check", "threshold_walk_equals_forward": True})
+
+        # time the policy block against its plain version and the plain-mode
+        # kernel on the same input, and the whole forward
+        x, w, args, policy = first_policy
+        hidden = model.blocks[0].mlp.fc1.out_features
+        k_ms, p_ms = paired_ms(
+            torch, lambda: ops.fused_transformer_block(x, w, args[0], policy, scale=args[1],
+                                                       ln_eps=args[2]),
+            lambda: transformer_block_reference(x, w, *args, policy=policy), iters=10)
+        plain_mode_ms = cuda_ms(torch, lambda: ops.fused_transformer_block(
+            x, w, args[0], scale=args[1], ln_eps=args[2]), iters=10)
+        b = block_bound(*x.shape, args[0], hidden)
+        b["bytes_ms"] += policy_bytes(*x.shape[:2]) / HBM_BYTES_PER_S * 1e3
+        tally.add("fused_transformer_block[policy]", 9, k_ms, p_ms, b)
+        emit({"phase": "time_threshold", "kernel": "fused_transformer_block[policy]",
+              "shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
+              "plain_mode_kernel_ms": plain_mode_ms, "bound_ms": max(b.values()),
+              "calls_per_forward": 9})
+        imgs = images[B_CHECK]
+        f_ms, p_ms = paired_ms(torch, lambda: model(imgs), lambda: plain(imgs), iters=5)
+        emit({"phase": "time_threshold", "forward": "B=256 threshold student",
+              "kernels_ms": f_ms, "plain_ms": p_ms,
+              "kernels_img_per_s": B_CHECK / f_ms * 1e3,
+              "plain_img_per_s": B_CHECK / p_ms * 1e3, "card": smi})
+
+
+def planted_ties(torch, x, w, num_heads, scale, ln_eps):
+    """x with the token that is most often a row's argmax copied into five
+    other positions, so that those rows reach their max at six columns with
+    bit-equal keys, and how many (sample, head, query) rows then have their
+    max in that group (in exact arithmetic, each such row ties six ways)."""
+    from dense2sparse_vit_torch.ops.block import layer_norm, linear
+
+    def scores(xx):
+        qkv = linear(layer_norm(xx, w["ln1_w"], w["ln1_b"], ln_eps), w["wqkv"], w["bqkv"])
+        B, N, C3 = qkv.shape
+        q, k, _ = qkv.view(B, N, 3, num_heads, C3 // 3 // num_heads).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        return torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+
+    s = scores(x)
+    top = int(torch.mode(s.argmax(-1)[:, :, 1:].flatten()).values)
+    others = [j for j in range(1, x.shape[1]) if j != top][:5]
+    x = x.clone()
+    x[:, others] = x[:, top:top + 1]
+    group = torch.tensor([top] + others, device=x.device)
+    return x, int(torch.isin(scores(x).argmax(-1), group).sum())
+
+
+def phase_train_policy(torch, dev, tally, smi, mode):
+    """Phases 9 and 10: three steps of the threshold student or the gumbel
+    baseline, the block backward checked at every block of a step, the
+    policy backward and the step timed."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import transformer_block_backward_reference
+    from dense2sparse_vit_torch.train import label_params
+
+    phase = f"train_{mode}"
+    student, teacher, step = build_trainer(torch, dev, fused=True, mode=mode)
+    images, labels = train_batch(torch, dev)
+    groups = label_params(student)
+    before = {n: p.detach().clone() for n, p in student.named_parameters()}
+    for s in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(images, labels, TRAIN_EPOCH)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts != PER_POLICY_TRAIN_STEP:
+            raise AssertionError(f"{phase} step {s}: launches {counts}, "
+                                 f"expected {PER_POLICY_TRAIN_STEP}")
+        for k, v in counts.items():
+            tally.rows[k]["launches"] += v
+        values = {k: v.item() for k, v in metrics.items()}
+        bad = [k for k, v in values.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"{phase} step {s}: non-finite metrics {bad}")
+        emit({"phase": phase, "step": s, "batch": B_TRAIN, "epoch": TRAIN_EPOCH,
+              "launches": counts, "metrics": values, "seconds": round(seconds, 4)})
+    moved = {n: not torch.equal(p, before[n]) for n, p in student.named_parameters()}
+    stuck = [n for n, m in moved.items() if groups[n] != "frozen" and not m]
+    drifted = [n for n, m in moved.items() if groups[n] == "frozen" and m]
+    predictors = [n for n in moved if groups[n] == "predictor"]
+    emit({"phase": phase, "trained_tensors": sum(groups[n] != "frozen" for n in moved),
+          "predictor_tensors_moved": sum(moved[n] for n in predictors),
+          "predictor_tensors": len(predictors), "unchanged": stuck, "frozen_changed": drifted})
+    if stuck or drifted or not predictors:
+        raise AssertionError(f"{phase}: parameters not updated: {stuck}; "
+                             f"frozen but changed: {drifted}")
+
+    rec = capture_train_step(torch, student, teacher, step, images, labels)
+    check_block_backwards(torch, student, rec, tally)
+    first = min(i for i, pol in rec["policy"].items() if pol is not None)
+    x, policy, w = rec["block_in"][first], rec["policy"][first], rec["weights"][first]
+    blk = student.blocks[first]
+    args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    g = (torch.randn(x.shape, generator=gen, device=dev)
+         * rec["last_g"].float().std().item()).to(x.dtype)
+    with torch.no_grad():
+        if mode == "gumbel":
+            x_tie, ties = planted_ties(torch, x, w, *args)
+            emit({"phase": phase, "planted_ties": {"block": first, "tied_rows": ties}})
+            if ties == 0:
+                raise AssertionError("the planted ties reach no row's max")
+            check_block_backward(torch, x_tie, g, w, *args, block=first, policy=policy, eps=0.1)
+
+        # the policy backward with dPolicy and without, the plain version,
+        # and the plain-mode kernel on the same input
+        hidden = blk.mlp.fc1.out_features
+        k_ms, p_ms = paired_ms(
+            torch,
+            lambda: ops.fused_transformer_block_backward(x, g, w, args[0], policy, scale=args[1],
+                                                         ln_eps=args[2]),
+            lambda: transformer_block_backward_reference(x, g, w, *args, policy=policy),
+            iters=3, repeats=3)
+        no_dpol_ms = cuda_ms(torch, lambda: ops.fused_transformer_block_backward(
+            x, g, w, args[0], policy, scale=args[1], ln_eps=args[2], policy_grad=False),
+            iters=3, repeats=3)
+        plain_mode_ms = cuda_ms(torch, lambda: ops.fused_transformer_block_backward(
+            x, g, w, args[0], scale=args[1], ln_eps=args[2]), iters=3, repeats=3)
+    b = block_backward_bound(*x.shape, args[0], hidden)
+    b["bytes_ms"] += 2 * policy_bytes(*x.shape[:2]) / HBM_BYTES_PER_S * 1e3
+    if mode == "gumbel":  # the path that asks for dPolicy
+        tally.add("fused_transformer_block_backward[policy]", 9, k_ms, p_ms, b)
+    emit({"phase": f"time_{mode}", "kernel": "fused_transformer_block_backward[policy]",
+          "shape": list(x.shape), "ms": k_ms, "no_dpolicy_ms": no_dpol_ms, "plain_ms": p_ms,
+          "plain_mode_kernel_ms": plain_mode_ms, "bound_ms": max(b.values()),
+          "calls_per_step": 9})
+    del student, teacher, step, rec
+
+    f_student, f_teacher, f_step = build_trainer(torch, dev, fused=True, mode=mode)
+    p_student, p_teacher, p_step = build_trainer(torch, dev, fused=False, mode=mode)
+    p_student.load_state_dict(f_student.state_dict())
+    p_teacher.load_state_dict(f_teacher.state_dict())
+    f_ms, p_ms = paired_ms(torch, lambda: f_step(images, labels, TRAIN_EPOCH),
+                           lambda: p_step(images, labels, TRAIN_EPOCH), iters=2, repeats=3)
+    emit({"phase": f"time_{mode}", "train_step": f"B={B_TRAIN} {mode} student + teacher",
+          "kernels_ms": f_ms, "plain_ms": p_ms,
+          "kernels_img_per_s": B_TRAIN / f_ms * 1e3,
+          "plain_img_per_s": B_TRAIN / p_ms * 1e3, "card": smi})
+
+
+def phase_serve_gumbel(torch, dev, tally):
+    """Phase 11: the gumbel baseline's eval forward (top-k gathers)."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import GUMBEL_KWARGS, GUMBEL_MODEL, create_model
+
+    model = create_model(GUMBEL_MODEL, use_fused_attention=True, device=dev,
+                         generator=torch.Generator().manual_seed(0), **GUMBEL_KWARGS).eval()
+    N, C = model.cfg.num_patches, model.cfg.embed_dim
+    keep = model.pruning.keep_counts(N)
+    x = torch.randn((8, 224, 224, 3), generator=torch.Generator(device=dev).manual_seed(12),
+                    device=dev, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    if counts != PER_GUMBEL_FORWARD:
+        raise AssertionError(f"gumbel eval: launches {counts}, expected {PER_GUMBEL_FORWARD}")
+    ok = (out.logits.shape == (8, 1000) and out.features.shape == (8, keep[-1], C)
+          and int(out.kept_idx_orig.max()) < N and out.decisions is None
+          and bool(torch.isfinite(out.logits.float()).all())
+          and bool(torch.isfinite(out.features.float()).all()))
+    if not ok:
+        raise AssertionError(f"gumbel eval: bad outputs {out.logits.shape} {out.features.shape}")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    emit({"phase": "serve_gumbel", "batch": 8, "launches": counts,
+          "features": list(out.features.shape),
+          "pred_keep_probs": [t.shape[1] for t in out.pred_keep_probs]})
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -797,7 +1164,8 @@ def main(argv=None) -> int:
     emit({"phase": "device", "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(dev)})
     if "--plant-fault" in argv:
-        return plant_fault(dev)
+        rest = argv[argv.index("--plant-fault") + 1:]
+        return plant_fault(dev, rest[0] if rest else "rowsum")
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -817,6 +1185,14 @@ def main(argv=None) -> int:
     student, teacher, step, t_images, t_labels = phase_train(torch, dev, tally)
     rec = phase_check_train(torch, student, teacher, step, t_images, t_labels, tally)
     phase_time_train(torch, dev, student, rec, tally, smi)
+    del student, teacher, step, rec
+    # ---- 8-11. the policy-masked paths ----------------------------------
+    phase_serve_threshold(torch, dev, tally, smi)
+    torch.cuda.empty_cache()
+    for mode in ("threshold", "gumbel"):
+        phase_train_policy(torch, dev, tally, smi, mode)
+        torch.cuda.empty_cache()
+    phase_serve_gumbel(torch, dev, tally)
 
     emit(tally.line())
     print(smi, flush=True)

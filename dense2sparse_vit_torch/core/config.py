@@ -142,6 +142,17 @@ class TrainConfig:
     grad_accum_steps: int = 1
     teacher_cache: bool = False
     seed: int = 42
+    # the gumbel baseline's loss (`make_dynamic_vit_train_step`): the
+    # temperature of its logit KL, the keep-ratio and token-distillation
+    # terms with their weights, the CE weight, and the predictors' BCE
+    # against the teacher's CLS-attention mask
+    softmax_temp: float = 1.0
+    use_ratio_loss: bool = False
+    ratio_weight: float = 2.0
+    use_token_dist_loss: bool = False
+    dist_weight: float = 0.5
+    cls_weight: float = 1.0
+    teacher_cls_loss: bool = False
 
     def __post_init__(self):
         if self.grad_accum_steps < 1:
@@ -163,3 +174,11 @@ class ExperimentConfig:
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
+
+
+def reject_unported(unported: dict) -> None:
+    """Raise NotImplementedError naming every option in use ({name: in use})
+    whose path is not ported yet."""
+    missing = [name for name, used in unported.items() if used]
+    if missing:
+        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")

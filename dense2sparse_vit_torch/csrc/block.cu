@@ -1,8 +1,8 @@
 // Whole pre-norm transformer block, forward, for sm_90a.
 //
 // Replaces dense2sparse_vit_tpu/ops/pallas/block.py::fused_transformer_block
-// (kernel body `_block_kernel`) in its plain mode, with its `return_cls`
-// output: no keep-policy, no DropPath branch scales. It computes what
+// (kernel body `_block_kernel`) in its plain and its policy mode, with its
+// `return_cls` output; no DropPath branch scales. It computes what
 // `_ref_block` defines:
 //   x_mid = x + proj(MHA(qkv(LN1 x)))
 //   out   = x_mid + fc2(GELU(fc1(LN2 x_mid)))
@@ -11,6 +11,15 @@
 // padding with the padded columns subtracted from the denominator, and its
 // LayerNorm folded into the weights are TPU layout choices and are not
 // carried over: here nothing is padded, so no row's denominator can cancel.
+//
+// Policy mode (a (B, N) fp32 keep policy, `use_policy` in the TPU kernel)
+// computes the softmax of ops/masked_softmax.py::softmax_with_policy: with
+// m_i the row's max over all N columns, dropped ones included, and
+// a_ij = pol_j + (1 - pol_j) [i = j],
+//   e_ij = exp(s_ij - m_i) a_ij,  den_i = sum_j e_ij + eps,
+//   out_i = (sum_j e_ij v_j + (eps/N) colsum(V)) / den_i.
+// colsum(V) is one reduction per CTA over the V tile already in shared
+// memory; the policy row sits beside it.
 //
 // d2s_block_forward runs these kernels on the caller's stream (each ln_gemm
 // with a LayerNorm is preceded by its row-statistics kernel):
@@ -22,14 +31,18 @@
 // Three outputs are optional, each written only where its pointer is not
 // null, so that the serving path pays nothing for them:
 //   cls     (B, H, N) bf16: the CLS (query 0) row of each head's attention
-//           probabilities, the TPU kernel's `return_cls` output. The CTA of
-//           the first query tile already holds that row's max and sum; once
-//           the sum is known its first warp recomputes row 0's scores and
-//           writes them normalised (one extra pass over the keys for one
-//           warp of one CTA per sample-head).
-//   lse     (B, H, N) fp32: each attention row's log-sum-exp of its scaled
-//           scores, max + log(sum), which the backward (block_bwd.cu) needs
-//           to rebuild the probabilities;
+//           probabilities, the TPU kernel's `return_cls` output (in policy
+//           mode (e_0j + eps/N) / den_0). The CTA of the first query tile
+//           already holds that row's max and sum; once the sum is known its
+//           first warp recomputes row 0's scores and writes them normalised
+//           (one extra pass over the keys for one warp of one CTA per
+//           sample-head).
+//   lse     what the backward (block_bwd.cu) needs to rebuild the
+//           probabilities: in plain mode (B, H, N) fp32, each row's
+//           log-sum-exp of its scaled scores, max + log(sum); in policy
+//           mode (B, H, N) float4 (m, den, ties, 0): the max, the
+//           denominator, and how many columns reach the max, which the
+//           backward's max path splits its gradient among;
 //   preact  (B*N, 4C) bf16: the fc1 pre-activation, GELU's input, which the
 //           backward needs for GELU'.
 // With out == null the fc2 stage is skipped: the backward recomputes the
@@ -44,7 +57,8 @@
 // per element of x, against 2 for the TPU kernel, which keeps them in
 // VMEM). A faster design fuses fc1 -> GELU -> fc2 so the hidden activation
 // stays on chip, fuses the attention output into the proj GEMM, and moves
-// the GEMMs to TMA + wgmma pipelines.
+// the GEMMs to TMA + wgmma pipelines. Policy mode adds a multiply per score
+// and the colsum: its time is the plain mode's at the same N.
 //
 // Attention: one CTA of 4 warps per (sample, head, 64-row query tile); each
 // warp owns 16 query rows. The sample-head's K (row-major) and V (stored
@@ -54,7 +68,10 @@
 // first pass over the keys takes each row's maximum, a second recomputes
 // the scores, exponentiates them against that maximum and multiplies the
 // bf16 probabilities (the score accumulators repacked as A fragments)
-// into V; the rows are divided by their fp32 sums at the end.
+// into V; the rows are divided by their fp32 sums at the end. The scores
+// of the first pass are bit for bit those of the backward's query-row pass
+// (the same mma.sync on the same fragments), so the backward finds the
+// columns that reach the max by comparing with the stored max.
 #include "ln_gemm.cuh"
 
 namespace d2s {
@@ -67,21 +84,37 @@ constexpr int ATT_MAX_N = 800;       // keeps shared memory under 227 KB
 
 __host__ __device__ inline int att_padded(int n) { return (n + 15) / 16 * 16; }
 
-static size_t att_smem_bytes(int n) {
+static size_t att_smem_bytes(int n, bool policy) {
   const size_t np = att_padded(n);
-  return ((size_t)ATT_BQ * ATT_LDK + np * ATT_LDK + (size_t)ATT_HD * (np + 8)) * 2;
+  size_t bytes = ((size_t)ATT_BQ * ATT_LDK + np * ATT_LDK + (size_t)ATT_HD * (np + 8)) * 2;
+  if (policy) bytes += (np + ATT_HD) * sizeof(float);  // the policy row, colsum(V)
+  return bytes;
 }
 
+// s[e] of a 16 x 8 score tile: rows g (e < 2) and g + 8, columns 2t + (e & 1)
+// of the 8-key block; (max, ties) of a row, merged across a quad
+__device__ __forceinline__ void max_count(float v, float& m, float& c) {
+  if (v > m) {
+    m = v;
+    c = 1.f;
+  } else if (v == m) {
+    c += 1.f;
+  }
+}
+
+template <bool POLICY>
 static __global__ void __launch_bounds__(ATT_THREADS)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                     float* __restrict__ lse, bf16* __restrict__ cls, int N, int H,
-                     float scale) {
+                     float* __restrict__ lse, bf16* __restrict__ cls,
+                     const float* __restrict__ pol, int N, int H, float scale, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = att_padded(N);
   const int ldt = np + 8;  // bf16 pitch of the transposed V rows
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + ATT_BQ * ATT_LDK;
   bf16* Vt = Ks + np * ATT_LDK;
+  float* Ps = reinterpret_cast<float*>(Vt + ATT_HD * ldt);  // policy mode: pol_j
+  float* Cv = Ps + np;                                      // policy mode: colsum(V)
 
   const int C = H * ATT_HD;
   const int b = blockIdx.y / H;
@@ -112,7 +145,17 @@ static __global__ void __launch_bounds__(ATT_THREADS)
 #pragma unroll
     for (int j = 0; j < 8; ++j) Vt[(c + j) * ldt + r] = e[j];
   }
+  if (POLICY)
+    for (int r = tid; r < np; r += ATT_THREADS) Ps[r] = r < N ? pol[(long long)b * N + r] : 0.f;
   __syncthreads();
+  if (POLICY) {
+    if (tid < ATT_HD) {
+      float acc = 0.f;
+      for (int r = 0; r < N; ++r) acc += __bfloat162float(Vt[tid * ldt + r]);
+      Cv[tid] = acc;
+    }
+    __syncthreads();
+  }
 
   const int lane = tid & 31;
   const int g = lane >> 2;
@@ -129,8 +172,10 @@ static __global__ void __launch_bounds__(ATT_THREADS)
     qa[kk][3] = ld32(p + 8 * ATT_LDK + 8);
   }
 
-  // pass 1: each row's largest score over the N real keys
+  // pass 1: each row's largest score over the N real keys (policy mode:
+  // the scaled scores' max, and how many columns reach it)
   float mx0 = -INFINITY, mx1 = -INFINITY;  // rows g and g + 8
+  float ct0 = 0.f, ct1 = 0.f;
   for (int n0 = 0; n0 < np; n0 += 8) {
     float s[4] = {0.f, 0.f, 0.f, 0.f};
     const bf16* kp = Ks + (n0 + g) * ATT_LDK + 2 * t;
@@ -138,24 +183,48 @@ static __global__ void __launch_bounds__(ATT_THREADS)
     for (int kk = 0; kk < ATT_HD / 16; ++kk)
       mma_16816(s, qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
     const int col = n0 + 2 * t;
-    if (col < N) {
-      mx0 = fmaxf(mx0, s[0]);
-      mx1 = fmaxf(mx1, s[2]);
-    }
-    if (col + 1 < N) {
-      mx0 = fmaxf(mx0, s[1]);
-      mx1 = fmaxf(mx1, s[3]);
+    if (POLICY) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + (e & 1) < N) {
+          const float v = s[e] * scale;
+          if (e < 2) max_count(v, mx0, ct0);
+          else max_count(v, mx1, ct1);
+        }
+      }
+    } else {
+      if (col < N) {
+        mx0 = fmaxf(mx0, s[0]);
+        mx1 = fmaxf(mx1, s[2]);
+      }
+      if (col + 1 < N) {
+        mx0 = fmaxf(mx0, s[1]);
+        mx1 = fmaxf(mx1, s[3]);
+      }
     }
   }
 #pragma unroll
   for (int o = 1; o < 4; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    const float m0 = __shfl_xor_sync(0xffffffffu, mx0, o);
+    const float m1 = __shfl_xor_sync(0xffffffffu, mx1, o);
+    if (POLICY) {
+      const float c0 = __shfl_xor_sync(0xffffffffu, ct0, o);
+      const float c1 = __shfl_xor_sync(0xffffffffu, ct1, o);
+      if (m0 > mx0) ct0 = c0; else if (m0 == mx0) ct0 += c0;
+      if (m1 > mx1) ct1 = c1; else if (m1 == mx1) ct1 += c1;
+    }
+    mx0 = fmaxf(mx0, m0);
+    mx1 = fmaxf(mx1, m1);
   }
-  mx0 *= scale;  // scale > 0, so the max of the scaled scores
-  mx1 *= scale;
+  if (!POLICY) {
+    mx0 *= scale;  // scale > 0, so the max of the scaled scores
+    mx1 *= scale;
+  }
 
-  // pass 2: p = exp(scale * s - max), O += p V, l += p
+  // pass 2: p = exp(scale * s - max) (times a_ij in policy mode), O += p V,
+  // l += p
+  const int qr0 = q0 + row0 + g;  // this thread's two query rows
+  const int qr1 = qr0 + 8;
   float o[ATT_HD / 8][4];
 #pragma unroll
   for (int nd = 0; nd < ATT_HD / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
@@ -172,7 +241,12 @@ static __global__ void __launch_bounds__(ATT_THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * j + 2 * t + (e & 1);
-        p[j][e] = col < N ? __expf(s[e] * scale - (e < 2 ? mx0 : mx1)) : 0.f;
+        float v = col < N ? __expf(s[e] * scale - (e < 2 ? mx0 : mx1)) : 0.f;
+        if (POLICY && col < N) {
+          const float pc = Ps[col];
+          v *= col == (e < 2 ? qr0 : qr1) ? pc + (1.f - pc) : pc;
+        }
+        p[j][e] = v;
       }
       l0 += p[j][0] + p[j][1];
       l1 += p[j][2] + p[j][3];
@@ -190,13 +264,32 @@ static __global__ void __launch_bounds__(ATT_THREADS)
     l0 += __shfl_xor_sync(0xffffffffu, l0, s);
     l1 += __shfl_xor_sync(0xffffffffu, l1, s);
   }
+  const float cc = POLICY ? eps / N : 0.f;  // the smoothing's share per column
+  if (POLICY) {
+    l0 += eps;
+    l1 += eps;
+#pragma unroll
+    for (int nd = 0; nd < ATT_HD / 8; ++nd) {
+      const float c0 = cc * Cv[nd * 8 + 2 * t], c1 = cc * Cv[nd * 8 + 2 * t + 1];
+      o[nd][0] += c0;
+      o[nd][1] += c1;
+      o[nd][2] += c0;
+      o[nd][3] += c1;
+    }
+  }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 
-  const int q = q0 + row0 + g;
+  const int q = qr0;
   const long long stat = (long long)blockIdx.y * N;  // (b, h) row of lse and cls
   if (lse && t == 0) {
-    if (q < N) lse[stat + q] = mx0 + logf(l0);
-    if (q + 8 < N) lse[stat + q + 8] = mx1 + logf(l1);
+    if (POLICY) {
+      float4* st4 = reinterpret_cast<float4*>(lse);
+      if (q < N) st4[stat + q] = make_float4(mx0, l0, ct0, 0.f);
+      if (q + 8 < N) st4[stat + q + 8] = make_float4(mx1, l1, ct1, 0.f);
+    } else {
+      if (q < N) lse[stat + q] = mx0 + logf(l0);
+      if (q + 8 < N) lse[stat + q + 8] = mx1 + logf(l1);
+    }
   }
   if (cls && q0 == 0 && row0 == 0) {
     // query row 0 is row g == 0 of warp 0: recompute its scores, normalise
@@ -206,10 +299,18 @@ static __global__ void __launch_bounds__(ATT_THREADS)
 #pragma unroll
       for (int kk = 0; kk < ATT_HD / 16; ++kk)
         mma_16816(s, qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
-      const int col = n0 + 2 * t;
       if (g == 0) {
-        if (col < N) cls[stat + col] = __float2bfloat16(__expf(s[0] * scale - mx0) * inv0);
-        if (col + 1 < N) cls[stat + col + 1] = __float2bfloat16(__expf(s[1] * scale - mx0) * inv0);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + 2 * t + e;
+          if (col >= N) continue;
+          float v = __expf(s[e] * scale - mx0);
+          if (POLICY) {
+            const float pc = Ps[col];
+            v = v * (col == 0 ? pc + (1.f - pc) : pc) + cc;
+          }
+          cls[stat + col] = __float2bfloat16(v * inv0);
+        }
       }
     }
   }
@@ -225,15 +326,17 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
-static cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls, int B,
-                                    int N, int H, float scale, cudaStream_t stream) {
+static cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
+                                    const float* pol, int B, int N, int H, float scale,
+                                    float eps, cudaStream_t stream) {
   if (N <= 0 || N > ATT_MAX_N) return cudaErrorInvalidValue;
-  const size_t smem = att_smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = att_smem_bytes(N, pol != nullptr);
+  auto kernel = pol ? attention_kernel<true> : attention_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + ATT_BQ - 1) / ATT_BQ, B * H);
-  attention_kernel<<<grid, ATT_THREADS, smem, stream>>>(qkv, out, lse, cls, N, H, scale);
+  kernel<<<grid, ATT_THREADS, smem, stream>>>(qkv, out, lse, cls, pol, N, H, scale, eps);
   return cudaGetLastError();
 }
 
@@ -244,17 +347,19 @@ using d2s::bf16;
 // x, out: (B, N, C) bf16; out may be null (the fc2 stage is then skipped).
 // Scratch: qkv (B*N, 3C), attn (B*N, C), mid (B*N, C), hid (B*N, hidden),
 // all bf16, and stats (B*N) float2. Optional outputs (null: not written):
-// preact (B*N, hidden) bf16, lse (B, H, N) fp32, cls (B, H, N) bf16.
-// Matrices are bf16 in the torch Linear layout (out, in); LayerNorm
-// parameters and biases are fp32; bqkv may be null. Requires C == 64 * H,
-// hidden % 8 == 0, N <= 800, 16-byte aligned pointers.
+// preact (B*N, hidden) bf16, lse (B, H, N) fp32 (policy mode: (B, H, N)
+// float4), cls (B, H, N) bf16. policy: (B, N) fp32 keep policy, or null for
+// the plain softmax; eps: the policy softmax's smoothing. Matrices are bf16
+// in the torch Linear layout (out, in); LayerNorm parameters and biases are
+// fp32; bqkv may be null. Requires C == 64 * H, hidden % 8 == 0, N <= 800,
+// 16-byte aligned pointers.
 extern "C" int d2s_block_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* hid_buf,
     void* stats_buf, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
     const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
-    void* cls, int B, int N, int C, int H, int hidden, float scale, float ln_eps,
-    void* stream) {
+    void* cls, const void* policy, int B, int N, int C, int H, int hidden, float scale,
+    float ln_eps, float eps, void* stream) {
   if (C != H * d2s::ATT_HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
@@ -279,8 +384,8 @@ extern "C" int d2s_block_forward(
   if (err != cudaSuccess) return (int)err;
 
   err = d2s::launch_attention(static_cast<const bf16*>(qkv_buf), static_cast<bf16*>(attn_buf),
-                              static_cast<float*>(lse), static_cast<bf16*>(cls), B, N, H, scale,
-                              s);
+                              static_cast<float*>(lse), static_cast<bf16*>(cls),
+                              static_cast<const float*>(policy), B, N, H, scale, eps, s);
   if (err != cudaSuccess) return (int)err;
 
   g.a = static_cast<const bf16*>(attn_buf);

@@ -2,36 +2,64 @@
 //
 // Replaces dense2sparse_vit_tpu/ops/pallas/block.py::
 // fused_transformer_block_backward (kernel body `_block_bwd_kernel`) in its
-// plain mode: no keep-policy, no DropPath branch scales. Given the block's
+// plain and its policy mode; no DropPath branch scales. Given the block's
 // input x and the cotangent g of its output, it recomputes the forward and
 // returns dx and the twelve parameter gradients summed over the batch, for
 //   x_mid = x + proj(MHA(qkv(LN1 x)))
 //   out   = x_mid + fc2(GELU(fc1(LN2 x_mid)))
-// with the exact row-max softmax of block.cu. dx is bf16, the gradients fp32,
-// as the TPU kernel returns them.
+// with the softmax of block.cu, and in policy mode the (B, N) gradient of
+// the keep policy, dPolicy. dx is bf16, the gradients fp32, as the TPU
+// kernel returns them.
 //
 // d2s_block_backward runs this sequence on the caller's stream (M = B*N
 // token rows; "wgrad" is ln_gemm.cuh's split-K weight-gradient GEMM, "gemm"
 // its A @ W with W in the (out, in) layout):
 //   1. recompute  d2s_block_forward without its fc2 stage, keeping qkv, the
 //                 attention output O, x_mid, h = GELU(y), the pre-activation
-//                 y and each attention row's log-sum-exp; LN1(x) and
-//                 LN2(x_mid) again, with their row statistics (ln_apply)
+//                 y and each attention row's statistics (plain: log-sum-exp;
+//                 policy: max, denominator, ties); LN1(x) and LN2(x_mid)
+//                 again, with their row statistics (ln_apply)
 //   2. MLP half   dW2 = g^T h, db2 = sum g; dy = (g W2) * GELU'(y) in the
 //                 gemm's epilogue; dW1 = dy^T LN2(x_mid), db1 = sum dy;
 //                 dLN2 = dy W1 (fp32); LayerNorm backward (ln_bwd) with
 //                 dgamma2, dbeta2, giving dx_mid = LN-bwd + g
 //   3. attn half  dWproj = dx_mid^T O, dbproj = sum dx_mid; dO = dx_mid Wproj
 //   4. core       attention_bwd, one CTA per (sample, head), all of that
-//                 sample-head's Q, K, V and dO in shared memory (N <= 384):
-//                 P = exp(scale q.k - lse), D = rowsum(dO * O),
-//                 dS = P * (dO V^T - D), dV = P^T dO, dQ = scale dS K,
-//                 dK = scale dS^T Q, all on mma.sync; writes packed dqkv
+//                 sample-head's Q, K, V and dO in shared memory (N <= 384;
+//                 policy mode N <= 352): P = exp(scale q.k - lse),
+//                 D = rowsum(dO * O), dS = P * (dO V^T - D), dV = P^T dO,
+//                 dQ = scale dS K, dK = scale dS^T Q, all on mma.sync;
+//                 writes packed dqkv (policy mode below)
 //   5. LN1 input  dWqkv = dqkv^T LN1(x), dbqkv = sum dqkv; dLN1 = dqkv Wqkv
 //                 (fp32); LayerNorm backward with dgamma1, dbeta1, giving
 //                 dx = LN-bwd + dx_mid
 // Every sum over the token rows is split over CTAs into fp32 partials that
 // one more kernel adds in a fixed order: no atomics, the same bits each run.
+//
+// Policy mode differentiates ops/masked_softmax.py::softmax_with_policy,
+// p_ij = (e_ij + c) / den_i with e_ij = exp(s_ij - m_i) a_ij, c = eps/N:
+//   de_ij = (dP_ij - D_i) / den_i, D_i = rowsum(dO * O) as in plain mode
+//           (O includes the smoothing), dS_ij = de_ij e_ij;
+//   the max path: m_i is a function of the scores, and since the smoothing
+//           breaks shift invariance it carries gmx_i = -sum_j de_ij e_ij,
+//           which (sum_j p_ij = 1) is (c / den_i) (dO_i . colsum(V) - N D_i):
+//           no extra pass over the scores. It goes to the columns where s_ij
+//           reaches m_i, split evenly among ties as JAX's max does. Those
+//           columns are found by comparing with the stored max, which only
+//           products bit-identical to the forward's may do: the query-row
+//           products of pass 2 below are (the same mma.sync on the same
+//           fragments as block.cu's pass 1); pass 1's key-row products are
+//           not, so pass 1 recomputes its tile's scores query-row-wise, and
+//           where a tile holds a tie (a warp vote) moves the tie terms into
+//           its key-row layout through a per-warp shared-memory tile. The
+//           forward stores how many columns tie (float4 statistics);
+//   dPolicy_j = sum_h sum_{i != j} de_ij exp(s_ij - m_i): the unmasked exp,
+//           the diagonal left out. A warp of pass 1 owns a key tile and sums
+//           over every query in a fixed order; the (B, H, N) fp32 partials
+//           are then added over the heads in order by sum_heads_kernel, so
+//           dPolicy is deterministic and takes no atomics. With a null
+//           d_policy (the threshold path, whose policy needs no gradient)
+//           none of this runs.
 //
 // What bounds it on the H100: tensor-core work. At B=128, N=197, C=384 the
 // ten projection products (two of the forward's four recomputed, each
@@ -41,11 +69,12 @@
 // is why they split the rows. The intermediates (qkv, O, x_mid, h, y, dy,
 // dqkv, the LayerNorm outputs) go through device memory, about 0.6 GB at
 // that shape. The attention core recomputes the scores twice (once for
-// dK/dV, once for dQ), seven products where five would do. A faster design
-// would keep the MLP's hidden activation on chip (fc1, GELU', fc2 fused per
-// row tile), produce dK/dV and dQ from one pass over the scores with dQ
-// reduced across key tiles, move the GEMMs to TMA + wgmma pipelines, and
-// fuse the bias sums into the gradient GEMMs' epilogues.
+// dK/dV, once for dQ), seven products where five would do (policy mode:
+// eight, with the tie recompute). A faster design would keep the MLP's
+// hidden activation on chip (fc1, GELU', fc2 fused per row tile), produce
+// dK/dV and dQ from one pass over the scores with dQ reduced across key
+// tiles, move the GEMMs to TMA + wgmma pipelines, and fuse the bias sums
+// into the gradient GEMMs' epilogues.
 #include <algorithm>
 
 #include "ln_gemm.cuh"
@@ -55,8 +84,8 @@ extern "C" int d2s_block_forward(
     void* stats_buf, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
     const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
-    void* cls, int B, int N, int C, int H, int hidden, float scale, float ln_eps,
-    void* stream);
+    void* cls, const void* policy, int B, int N, int C, int H, int hidden, float scale,
+    float ln_eps, float eps, void* stream);
 
 namespace d2s {
 
@@ -219,12 +248,17 @@ constexpr int AB_THREADS = 256;
 constexpr int AB_WARPS = AB_THREADS / 32;
 constexpr int AB_LD = AB_HD + 8;  // bf16 pitch of the Q, K, V, dO rows
 constexpr int AB_MAX_N = 384;     // four (N, 64) bf16 tiles stay under 227 KB
+constexpr int AB_POLICY_MAX_N = 352;  // policy mode: and four more row vectors
+constexpr int AB_TIE_LD = 17;     // fp32 pitch of a warp's 16 x 16 tie tile
 
 __host__ __device__ inline int ab_padded(int n) { return (n + 15) / 16 * 16; }
 
-static size_t ab_smem_bytes(int n) {
+static size_t ab_smem_bytes(int n, bool policy) {
   const size_t np = ab_padded(n);
-  return 4 * np * AB_LD * 2 + 2 * np * sizeof(float);
+  size_t bytes = 4 * np * AB_LD * 2 + 2 * np * sizeof(float);
+  // 1/den, gmx/ties, pol per row; colsum(V); the warps' tie tiles
+  if (policy) bytes += (3 * np + AB_HD + AB_WARPS * 16 * AB_TIE_LD) * sizeof(float);
+  return bytes;
 }
 
 // the four A fragments of a 16 x 64 row slice of a [row][d] bf16 tile
@@ -284,11 +318,14 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long ld, int r, int n
 }
 
 // CTA = one (sample, head). qkv (B*N, 3C) packed, o and dout (B*N, C),
-// lse (B, H, N), dqkv (B*N, 3C) packed like qkv.
+// lse (B, H, N) (policy mode: float4 (m, den, ties, 0)), dqkv (B*N, 3C)
+// packed like qkv; policy mode: pol (B, N), dpol_part (B, H, N) or null.
+template <bool POLICY>
 static __global__ void __launch_bounds__(AB_THREADS)
     attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
                          const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         bf16* __restrict__ dqkv, int N, int H, float scale) {
+                         const float* __restrict__ pol, bf16* __restrict__ dqkv,
+                         float* __restrict__ dpol_part, int N, int H, float scale, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = ab_padded(N);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -296,7 +333,12 @@ static __global__ void __launch_bounds__(AB_THREADS)
   bf16* Vs = Ks + np * AB_LD;
   bf16* dOs = Vs + np * AB_LD;
   float* Ds = reinterpret_cast<float*>(dOs + np * AB_LD);
-  float* Ls = Ds + np;
+  float* Ls = Ds + np;  // plain: log-sum-exp; policy: the row max m
+  float* Rd = Ls + np;  // policy: 1 / den
+  float* Gc = Rd + np;  // policy: the max path's gmx / ties
+  float* Ps = Gc + np;  // policy: pol_j
+  float* Cv = Ps + np;  // policy: colsum(V)
+  float* Tw = Cv + AB_HD;  // policy: a 16 x 16 tie tile per warp
 
   const int C = H * AB_HD;
   const int b = blockIdx.x / H;
@@ -305,6 +347,7 @@ static __global__ void __launch_bounds__(AB_THREADS)
   const bf16* base = qkv + (long long)b * N * 3 * C + h * AB_HD;
   const bf16* ob = o + (long long)b * N * C + h * AB_HD;
   const bf16* dob = dout + (long long)b * N * C + h * AB_HD;
+  const float4* st4 = reinterpret_cast<const float4*>(lse);
 
   // rows past N are zero; their probabilities are masked to 0 below
   constexpr int VPR = AB_HD / 8;
@@ -324,7 +367,15 @@ static __global__ void __launch_bounds__(AB_THREADS)
     *reinterpret_cast<uint4*>(dOs + r * AB_LD + c) = d;
   }
   for (int r = tid; r < np; r += AB_THREADS) {
-    Ls[r] = r < N ? lse[(long long)blockIdx.x * N + r] : 0.f;
+    if (POLICY) {
+      const float4 st = r < N ? st4[(long long)blockIdx.x * N + r] : make_float4(0.f, 1.f, 1.f, 0.f);
+      Ls[r] = st.x;
+      Rd[r] = r < N ? 1.f / st.y : 0.f;
+      Gc[r] = st.z;  // the ties, until gmx replaces them below
+      Ps[r] = r < N ? pol[(long long)b * N + r] : 0.f;
+    } else {
+      Ls[r] = r < N ? lse[(long long)blockIdx.x * N + r] : 0.f;
+    }
     // D = rowsum(dO * O): the softmax backward's sum_j P_ij dP_ij
     float acc = 0.f;
     if (r < N) {
@@ -340,6 +391,23 @@ static __global__ void __launch_bounds__(AB_THREADS)
     Ds[r] = acc;
   }
   __syncthreads();
+  const float cc = POLICY ? eps / N : 0.f;
+  if (POLICY) {
+    if (tid < AB_HD) {
+      float acc = 0.f;
+      for (int r = 0; r < N; ++r) acc += __bfloat162float(Vs[r * AB_LD + tid]);
+      Cv[tid] = acc;
+    }
+    __syncthreads();
+    // the max path: gmx_i = (c / den_i) (dO_i . colsum(V) - N D_i), split
+    // over the row's ties
+    for (int r = tid; r < N; r += AB_THREADS) {
+      float dv = 0.f;
+      for (int c = 0; c < AB_HD; ++c) dv += __bfloat162float(dOs[r * AB_LD + c]) * Cv[c];
+      Gc[r] = cc * Rd[r] * (dv - N * Ds[r]) / Gc[r];
+    }
+    __syncthreads();
+  }
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -348,6 +416,7 @@ static __global__ void __launch_bounds__(AB_THREADS)
   const int tiles = np / 16;
   const long long ld = 3LL * C;
   bf16* drow = dqkv + (long long)b * N * ld + h * AB_HD;
+  float* tw = Tw + warp * 16 * AB_TIE_LD;
 
   // pass 1, a warp per 16-key tile: dV = P^T dO and dK = dS^T Q, over all
   // queries; the transposed tiles P^T, dP^T = V dO^T come straight out of
@@ -362,6 +431,7 @@ static __global__ void __launch_bounds__(AB_THREADS)
     for (int nd = 0; nd < AB_HD / 8; ++nd)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
+    float dpa[2] = {0.f, 0.f};  // dPolicy of keys j0 + g and j0 + g + 8
     for (int i0 = 0; i0 < np; i0 += 16) {
       float st[2][4] = {}, dpt[2][4] = {};
 #pragma unroll
@@ -375,10 +445,60 @@ static __global__ void __launch_bounds__(AB_THREADS)
         for (int e = 0; e < 4; ++e) {
           const int key = j0 + g + 8 * (e >> 1);
           const int q = i0 + nt * 8 + 2 * t + (e & 1);
-          const float p = (key < N && q < N) ? __expf(st[nt][e] * scale - Ls[q]) : 0.f;
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - Ds[q]) * scale;
+          const bool valid = key < N && q < N;
+          if (POLICY) {
+            const float xe = valid ? __expf(st[nt][e] * scale - Ls[q]) : 0.f;
+            const float pk = Ps[key];
+            const float ew = xe * (key == q ? pk + (1.f - pk) : pk);
+            const float de = (dpt[nt][e] - Ds[q]) * Rd[q];
+            if (dpol_part) {
+              if (key != q) dpa[e >> 1] += de * xe;  // dPolicy: the diagonal left out
+            }
+            st[nt][e] = valid ? (ew + cc) * Rd[q] : 0.f;
+            dpt[nt][e] = de * ew * scale;
+          } else {
+            const float p = valid ? __expf(st[nt][e] * scale - Ls[q]) : 0.f;
+            st[nt][e] = p;
+            dpt[nt][e] = p * (dpt[nt][e] - Ds[q]) * scale;
+          }
         }
+      if (POLICY) {
+        // the max path's share of dS^T: this tile's scores query-row-wise,
+        // bit for bit the forward's, compared with the stored max
+        uint32_t qa[AB_HD / 16][4];
+        ld_a_rows(qa, Qs + i0 * AB_LD, g, t);
+        float sf[2][4] = {};
+        bool tie[2][4];
+        bool any = false;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_rows(sf[nt], qa, Ks + (j0 + nt * 8) * AB_LD, g, t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = i0 + g + 8 * (e >> 1);
+            const int key = j0 + nt * 8 + 2 * t + (e & 1);
+            tie[nt][e] = q < N && key < N && sf[nt][e] * scale == Ls[q];
+            any |= tie[nt][e];
+          }
+        }
+        if (__any_sync(0xffffffffu, any)) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int ql = g + 8 * (e >> 1);
+              const int kl = nt * 8 + 2 * t + (e & 1);
+              tw[ql * AB_TIE_LD + kl] = tie[nt][e] ? Gc[i0 + ql] * scale : 0.f;
+            }
+          __syncwarp();
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dpt[nt][e] += tw[(nt * 8 + 2 * t + (e & 1)) * AB_TIE_LD + g + 8 * (e >> 1)];
+          __syncwarp();
+        }
+      }
       uint32_t pa[4], da[4];
       pack_a(pa, st);
       pack_a(da, dpt);
@@ -387,6 +507,16 @@ static __global__ void __launch_bounds__(AB_THREADS)
     }
     store_rows(drow + C, ld, j0 + g, N, dk, t);
     store_rows(drow + 2 * C, ld, j0 + g, N, dv, t);
+    if (POLICY && dpol_part) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        dpa[0] += __shfl_xor_sync(0xffffffffu, dpa[0], o);
+        dpa[1] += __shfl_xor_sync(0xffffffffu, dpa[1], o);
+      }
+      float* dp = dpol_part + (long long)blockIdx.x * N;
+      if (t == 0 && j0 + g < N) dp[j0 + g] = dpa[0];
+      if (t == 0 && j0 + g + 8 < N) dp[j0 + g + 8] = dpa[1];
+    }
   }
 
   // pass 2, a warp per 16-query tile: dQ = dS K over all keys
@@ -398,6 +528,13 @@ static __global__ void __launch_bounds__(AB_THREADS)
     const float l0 = Ls[i0 + g], l1 = Ls[i0 + g + 8];
     const float d0 = Ds[i0 + g], d1 = Ds[i0 + g + 8];
     const bool r0 = i0 + g < N, r1 = i0 + g + 8 < N;
+    float rd0 = 0.f, rd1 = 0.f, gc0 = 0.f, gc1 = 0.f;
+    if (POLICY) {
+      rd0 = Rd[i0 + g];
+      rd1 = Rd[i0 + g + 8];
+      gc0 = Gc[i0 + g];
+      gc1 = Gc[i0 + g + 8];
+    }
     float dq[AB_HD / 8][4];
 #pragma unroll
     for (int nd = 0; nd < AB_HD / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
@@ -414,9 +551,22 @@ static __global__ void __launch_bounds__(AB_THREADS)
         for (int e = 0; e < 4; ++e) {
           const bool hi = e >> 1;
           const int key = j0 + nt * 8 + 2 * t + (e & 1);
-          const float p =
-              (key < N && (hi ? r1 : r0)) ? __expf(s[nt][e] * scale - (hi ? l1 : l0)) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - (hi ? d1 : d0)) * scale;
+          const bool valid = key < N && (hi ? r1 : r0);
+          if (POLICY) {
+            const float m = hi ? l1 : l0;
+            const float v = s[nt][e] * scale;
+            const float xe = valid ? __expf(v - m) : 0.f;
+            const float pk = Ps[key];
+            const int q = i0 + g + 8 * hi;
+            const float ew = xe * (key == q ? pk + (1.f - pk) : pk);
+            float ds = (dp[nt][e] - (hi ? d1 : d0)) * (hi ? rd1 : rd0) * ew;
+            if (valid && v == m) ds += hi ? gc1 : gc0;
+            s[nt][e] = ds * scale;
+          } else {
+            const float p =
+                valid ? __expf(s[nt][e] * scale - (hi ? l1 : l0)) : 0.f;
+            s[nt][e] = p * (dp[nt][e] - (hi ? d1 : d0)) * scale;
+          }
         }
       uint32_t da[4];
       pack_a(da, s);
@@ -426,16 +576,30 @@ static __global__ void __launch_bounds__(AB_THREADS)
   }
 }
 
+// dpol[b][j] = sum over h, in order, of part[b][h][j]
+static __global__ void sum_heads_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                        int B, int H, int N) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * N) return;
+  const int b = i / N, j = i % N;
+  float acc = 0.f;
+  for (int h = 0; h < H; ++h) acc += part[((long long)b * H + h) * N + j];
+  out[i] = acc;
+}
+
 static cudaError_t launch_attention_bwd(const bf16* qkv, const bf16* o, const bf16* dout,
-                                        const float* lse, bf16* dqkv, int B, int N, int H,
-                                        float scale, cudaStream_t stream) {
-  if (N <= 0 || N > AB_MAX_N) return cudaErrorInvalidValue;
-  const size_t smem = ab_smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                        const float* lse, const float* pol, bf16* dqkv,
+                                        float* dpol_part, int B, int N, int H, float scale,
+                                        float eps, cudaStream_t stream) {
+  const bool policy = pol != nullptr;
+  if (N <= 0 || N > (policy ? AB_POLICY_MAX_N : AB_MAX_N)) return cudaErrorInvalidValue;
+  const size_t smem = ab_smem_bytes(N, policy);
+  auto kernel = policy ? attention_bwd_kernel<true> : attention_bwd_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_kernel<<<B * H, AB_THREADS, smem, stream>>>(qkv, o, dout, lse, dqkv, N, H,
-                                                           scale);
+  kernel<<<B * H, AB_THREADS, smem, stream>>>(qkv, o, dout, lse, pol, dqkv, dpol_part, N, H,
+                                              scale, eps);
   return cudaGetLastError();
 }
 
@@ -443,13 +607,15 @@ static cudaError_t launch_attention_bwd(const bf16* qkv, const bf16* o, const bf
 
 struct Scratch {
   bf16 *qkv, *attn, *mid, *hid, *pre, *ln1o, *ln2o, *dy, *dmid_b, *dattn, *dqkv;
-  float *lse, *dln, *dmid_f, *work;
+  float *lse, *dln, *dmid_f, *work, *dpol_part;
   float2 *stats, *st1, *st2;
 };
 
 // Carves `base` into the backward's buffers; with base == nullptr only
-// counts. Returns the bytes needed.
-static size_t carve(char* base, int B, int N, int C, int H, int hidden, Scratch* s) {
+// counts. Returns the bytes needed. Policy mode keeps float4 row statistics
+// and the (B, H, N) dPolicy partials.
+static size_t carve(char* base, int B, int N, int C, int H, int hidden, bool policy,
+                    Scratch* s) {
   const long long M = (long long)B * N;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -469,7 +635,8 @@ static size_t carve(char* base, int B, int N, int C, int H, int hidden, Scratch*
   s->dmid_b = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
-  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4));
+  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy ? 4 : 1)));
+  s->dpol_part = reinterpret_cast<float*>(take(policy ? (size_t)B * H * N * e4 : 0));
   s->dln = reinterpret_cast<float*>(take(M * C * e4));
   s->dmid_f = reinterpret_cast<float*>(take(M * C * e4));
   s->stats = reinterpret_cast<float2*>(take(M * sizeof(float2)));
@@ -486,8 +653,9 @@ static size_t carve(char* base, int B, int N, int C, int H, int hidden, Scratch*
   return off;
 }
 
-static bool shapes_ok(int B, int N, int C, int H, int hidden) {
-  return B > 0 && N > 0 && N <= AB_MAX_N && H > 0 && C == H * AB_HD && C / 32 <= LNB_MAXCPL &&
+static bool shapes_ok(int B, int N, int C, int H, int hidden, bool policy) {
+  return B > 0 && N > 0 && N <= (policy ? AB_POLICY_MAX_N : AB_MAX_N) && H > 0 &&
+         C == H * AB_HD && C / 32 <= LNB_MAXCPL &&
          hidden > 0 && hidden % 8 == 0 && (long long)B * N <= (1LL << 31) - 1;
 }
 
@@ -495,33 +663,39 @@ static bool shapes_ok(int B, int N, int C, int H, int hidden) {
 
 using d2s::bf16;
 
-// Bytes of scratch d2s_block_backward needs at these shapes; 0 for shapes it
-// does not take.
-extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H, int hidden) {
-  if (!d2s::shapes_ok(B, N, C, H, hidden)) return 0;
+// Bytes of scratch d2s_block_backward needs at these shapes (policy: 1 in
+// policy mode, else 0); 0 for shapes it does not take.
+extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H, int hidden,
+                                                      int policy) {
+  if (!d2s::shapes_ok(B, N, C, H, hidden, policy != 0)) return 0;
   d2s::Scratch s;
-  return (long long)d2s::carve(nullptr, B, N, C, H, hidden, &s);
+  return (long long)d2s::carve(nullptr, B, N, C, H, hidden, policy != 0, &s);
 }
 
 // x, g: (B, N, C) bf16, the block's input and its output's cotangent; dx
 // (B, N, C) bf16 out. Weights as d2s_block_forward takes them (bqkv may be
 // null); the twelve gradients fp32 in the same shapes (d_bqkv null when
-// bqkv is). scratch: d2s_block_backward_scratch_bytes(...) bytes. Requires
-// C == 64 * H <= 768, hidden % 8 == 0, N <= 384, 16-byte aligned pointers.
+// bqkv is). policy: (B, N) fp32 keep policy or null (plain mode); d_policy:
+// its (B, N) fp32 gradient, or null where it is not wanted (always null in
+// plain mode); eps: the policy softmax's smoothing. scratch:
+// d2s_block_backward_scratch_bytes(...) bytes. Requires C == 64 * H <= 768,
+// hidden % 8 == 0, N <= 384 (policy mode 352), 16-byte aligned pointers.
 extern "C" int d2s_block_backward(
     const void* x, const void* g, void* dx, const void* ln1_w, const void* ln1_b,
     const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
     const void* ln2_w, const void* ln2_b, const void* w1, const void* b1, const void* w2,
     const void* b2, void* d_ln1_w, void* d_ln1_b, void* d_wqkv, void* d_bqkv, void* d_wproj,
     void* d_bproj, void* d_ln2_w, void* d_ln2_b, void* d_w1, void* d_b1, void* d_w2,
-    void* d_b2, void* scratch, int B, int N, int C, int H, int hidden, float scale,
-    float ln_eps, void* stream) {
+    void* d_b2, const void* policy, void* d_policy, void* scratch, int B, int N, int C, int H,
+    int hidden, float scale, float ln_eps, float eps, void* stream) {
   using namespace d2s;
-  if (!shapes_ok(B, N, C, H, hidden) || (bqkv == nullptr) != (d_bqkv == nullptr))
+  const bool use_policy = policy != nullptr;
+  if (!shapes_ok(B, N, C, H, hidden, use_policy) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
+      (d_policy != nullptr && !use_policy))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Scratch s;
-  carve(static_cast<char*>(scratch), B, N, C, H, hidden, &s);
+  carve(static_cast<char*>(scratch), B, N, C, H, hidden, use_policy, &s);
   const int M = B * N;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* gb = static_cast<const bf16*>(g);
@@ -532,7 +706,8 @@ extern "C" int d2s_block_backward(
   // 1. recompute
   int rc = d2s_block_forward(x, nullptr, s.qkv, s.attn, s.mid, s.hid, s.stats, ln1_w, ln1_b,
                              wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, s.pre,
-                             s.lse, nullptr, B, N, C, H, hidden, scale, ln_eps, stream);
+                             s.lse, nullptr, policy, B, N, C, H, hidden, scale, ln_eps, eps,
+                             stream);
   if (rc != 0) return rc;
   cudaError_t err = launch_ln_apply(xb, f(ln1_w), f(ln1_b), s.ln1o, s.st1, M, C, ln_eps, st);
   if (err != cudaSuccess) return (int)err;
@@ -582,9 +757,14 @@ extern "C" int d2s_block_backward(
     return (int)err;
 
   // 4. attention core
-  if ((err = launch_attention_bwd(s.qkv, s.attn, s.dattn, s.lse, s.dqkv, B, N, H, scale, st)) !=
+  if ((err = launch_attention_bwd(s.qkv, s.attn, s.dattn, s.lse, f(policy), s.dqkv,
+                                  d_policy ? s.dpol_part : nullptr, B, N, H, scale, eps, st)) !=
       cudaSuccess)
     return (int)err;
+  if (d_policy) {
+    sum_heads_kernel<<<(M + 255) / 256, 256, 0, st>>>(s.dpol_part, fo(d_policy), B, H, N);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
 
   // 5. LN1 input
   if ((err = launch_wgrad(s.dqkv, s.ln1o, fo(d_wqkv), s.work, M, 3 * C, C, st)) != cudaSuccess)

@@ -1,15 +1,24 @@
 from dense2sparse_vit_torch.models.registry import (
+    GUMBEL_KWARGS,
+    GUMBEL_MODEL,
     HEADLINE_KWARGS,
     HEADLINE_MODEL,
     HEADLINE_TEACHER,
+    THRESHOLD_KWARGS,
     create_model,
     list_models,
+)
+from dense2sparse_vit_torch.models.dynamic_vit_default import (
+    DynamicViTOutput,
+    DynamicViTPredictor,
+    DynamicViTStudent,
 )
 from dense2sparse_vit_torch.models.student import DiffPruningStudent, StudentOutput
 from dense2sparse_vit_torch.models.teacher import ViTTeacher
 
 __all__ = [
-    "DiffPruningStudent", "HEADLINE_KWARGS", "HEADLINE_MODEL", "HEADLINE_TEACHER",
-    "StudentOutput",
+    "DiffPruningStudent", "DynamicViTOutput", "DynamicViTPredictor", "DynamicViTStudent",
+    "GUMBEL_KWARGS", "GUMBEL_MODEL", "HEADLINE_KWARGS", "HEADLINE_MODEL", "HEADLINE_TEACHER",
+    "StudentOutput", "THRESHOLD_KWARGS",
     "ViTTeacher", "create_model", "list_models",
 ]

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -14,6 +14,7 @@ from dense2sparse_vit_torch.core.config import (
     deit_small,
     deit_tiny,
 )
+from dense2sparse_vit_torch.models.dynamic_vit_default import DynamicViTStudent
 from dense2sparse_vit_torch.models.student import DiffPruningStudent
 from dense2sparse_vit_torch.models.teacher import ViTTeacher
 
@@ -27,6 +28,14 @@ HEADLINE_MODEL = "dynamic_vit_small_patch16_224_student"
 HEADLINE_TEACHER = "dynamic_vit_small_patch16_224_teacher"
 HEADLINE_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
                        dtype="bfloat16", small_predictor=True)
+# threshold mode: the same student keeping, at each stage, each image's
+# tokens above half of the predictor's score mass (bench_train.py's
+# threshold row)
+THRESHOLD_KWARGS = dict(HEADLINE_KWARGS, patch_score_threshold=0.5)
+# the gumbel baseline at the same widths, stages and keep ratios
+GUMBEL_MODEL = "default_dynamic_vit_small_patch16_224_student"
+GUMBEL_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
+                     dtype="bfloat16")
 
 
 def list_models():
@@ -62,25 +71,18 @@ def create_model(
     return model.init_weights(generator).to(device)
 
 
-def _student(size_cfg: ModelConfig):
-    def factory(
-        pruning_locs: Sequence[int] = (3,),
-        keep_ratios: Sequence[float] = (0.7,),
-        **kwargs,
-    ):
-        pruning_kwargs = {
-            k: kwargs.pop(k)
-            for k in list(kwargs)
-            if k in PruningConfig.__dataclass_fields__
-        }
-        return DiffPruningStudent(
-            cfg=size_cfg.replace(**kwargs),
-            pruning=PruningConfig(
-                pruning_locs=tuple(pruning_locs),
-                keep_ratios=tuple(keep_ratios),
-                **pruning_kwargs,
-            ),
-        )
+def _student(size_cfg: ModelConfig, cls=DiffPruningStudent, **pruning_defaults):
+    """A student factory: keyword arguments that are PruningConfig fields go
+    to its PruningConfig (over `pruning_defaults`), the rest to the
+    ModelConfig."""
+    def factory(**kwargs):
+        pruning = dict(pruning_defaults)
+        pruning.update({k: kwargs.pop(k) for k in list(kwargs)
+                        if k in PruningConfig.__dataclass_fields__})
+        for k in ("pruning_locs", "keep_ratios"):
+            if k in pruning:
+                pruning[k] = tuple(pruning[k])
+        return cls(cfg=size_cfg.replace(**kwargs), pruning=PruningConfig(**pruning))
 
     return factory
 
@@ -98,3 +100,10 @@ _REGISTRY["dynamic_vit_base_patch16_224_student"] = _student(deit_base())
 _REGISTRY["dynamic_vit_tiny_patch16_224_teacher"] = _teacher(deit_tiny())
 _REGISTRY["dynamic_vit_small_patch16_224_teacher"] = _teacher(deit_small())
 _REGISTRY["dynamic_vit_base_patch16_224_teacher"] = _teacher(deit_base())
+# the DynamicViT-paper baseline (stages at 3/6/9 keeping 0.7/0.49/0.343
+# unless told otherwise) and its teachers, the same plain ViT
+_GUMBEL = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343), selection="gumbel")
+for _size, _cfg in (("tiny", deit_tiny()), ("small", deit_small()), ("base", deit_base())):
+    _REGISTRY[f"default_dynamic_vit_{_size}_patch16_224_student"] = _student(
+        _cfg, DynamicViTStudent, **_GUMBEL)
+    _REGISTRY[f"default_dynamic_vit_{_size}_patch16_224_teacher"] = _teacher(_cfg)

@@ -4,13 +4,17 @@
 A DeiT-shape ViT with score-predictor pruning stages at `pruning_locs`: the
 predictor scores the spatial tokens, the top K = int(N * keep_ratio) of them
 survive with the CLS token, and later blocks run on the shorter sequence.
-This port has the top-k path with the LayerNorm predictors, in eval mode
-(the JAX model's `deterministic=True`) and in train mode
-(`deterministic=False`, as the train step runs it, with
-`collect_cls_attns=False`); the threshold policy mode, the attn / random /
-teacher-CLS selections, soft top-k, the BatchNorm predictor, the early-exit
-head and the student's own CLS-attention capture are not ported yet and are
-rejected at construction.
+With `patch_score_threshold` set (threshold mode) the keep count is the
+image's own: each stage keeps the tokens above a cumulative score-mass
+threshold as a (B, N+1) keep policy, which replaces the previous stage's,
+and every block from the first stage on runs policy-masked attention on
+all N+1 tokens; nothing is gathered. This port has both modes with the
+LayerNorm predictors, in eval mode (the JAX model's `deterministic=True`)
+and in train mode (`deterministic=False`, as the train step runs it, with
+`collect_cls_attns=False`); the attn / random / teacher-CLS selections,
+soft top-k, the BatchNorm predictor, the early-exit head and the student's
+own CLS-attention capture are not ported yet and are rejected at
+construction.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from dense2sparse_vit_torch.core.config import ModelConfig, PruningConfig
+from dense2sparse_vit_torch.core.config import ModelConfig, PruningConfig, reject_unported
 from dense2sparse_vit_torch.nn.layers import (
     Block,
     LayerNorm,
@@ -32,7 +36,7 @@ from dense2sparse_vit_torch.nn.layers import (
 )
 from dense2sparse_vit_torch.nn.predictor import PredictorLG
 from dense2sparse_vit_torch.ops.gather import fused_gather_tokens, gather_tokens_reference
-from dense2sparse_vit_torch.ops.topk import topk_keep_indices
+from dense2sparse_vit_torch.ops.topk import threshold_keep_mask, topk_keep_indices
 
 
 @dataclass
@@ -46,33 +50,25 @@ class StudentOutput:
     dropped_idx: Tuple[torch.Tensor, ...]
     # the last stage's kept indices in original token coordinates (B, K_last)
     kept_idx_orig: Optional[torch.Tensor]
-    # threshold mode's keep masks, which the losses accept; the port has no
-    # threshold mode, so these stay empty
+    # threshold mode: the last stage's (B, N) spatial keep mask and (B,) kept
+    # fractions, and every stage's (B, N) mask, which chain the mask loss's
+    # target from stage to stage as kept_idx does in top-k mode
     keep_mask: Optional[torch.Tensor] = None
+    keep_ratios: Optional[torch.Tensor] = None
     keep_masks: Tuple[torch.Tensor, ...] = ()
-
-
-def _check_supported(cfg: ModelConfig, pr: PruningConfig) -> None:
-    unported = {
-        "selection != 'topk'": pr.selection != "topk",
-        "patch_score_threshold": pr.patch_score_threshold is not None,
-        "predictor_bn": pr.predictor_bn,
-        "early_exit": pr.early_exit,
-        "cls_from_teacher": pr.cls_from_teacher,
-        "quant": cfg.quant != "none",
-        "drop_rate / attn_drop_rate": cfg.drop_rate > 0 or cfg.attn_drop_rate > 0,
-    }
-    missing = [name for name, used in unported.items() if used]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
 
 
 class DeiTBackbone(nn.Module):
     """The DeiT pieces the student and the teacher share: patch embedding,
     CLS token, position embedding, the blocks, the final norm and the head,
-    with the JAX models' init."""
+    with the JAX models' init. Int8 serving and elementwise dropout are not
+    ported and are rejected."""
 
     def __init__(self, cfg: ModelConfig):
+        reject_unported({
+            "quant": cfg.quant != "none",
+            "drop_rate / attn_drop_rate": cfg.drop_rate > 0 or cfg.attn_drop_rate > 0,
+        })
         super().__init__()
         self.cfg = cfg
         C = cfg.embed_dim
@@ -121,7 +117,12 @@ class DiffPruningStudent(DeiTBackbone):
     """See the module docstring. Images are NHWC (B, H, W, 3)."""
 
     def __init__(self, cfg: ModelConfig, pruning: PruningConfig):
-        _check_supported(cfg, pruning)
+        reject_unported({
+            "selection != 'topk'": pruning.selection != "topk",
+            "predictor_bn": pruning.predictor_bn,
+            "early_exit": pruning.early_exit,
+            "cls_from_teacher": pruning.cls_from_teacher,
+        })
         super().__init__(cfg)
         self.pruning = pruning
         C = cfg.embed_dim
@@ -131,19 +132,27 @@ class DiffPruningStudent(DeiTBackbone):
             for _ in pruning.pruning_locs
         )
 
-    def forward(self, x: torch.Tensor, *, unpruned: bool = False) -> StudentOutput:
+    def forward(self, x: torch.Tensor, *, unpruned: bool = False,
+                threshold_override: Optional[float] = None) -> StudentOutput:
         """x: (B, H, W, 3) images. unpruned: skip every pruning stage.
+        threshold_override: replaces `patch_score_threshold` in threshold
+        mode (the threshold curriculum's per-epoch value).
 
         In train mode the blocks take the trainable kernel (fused) and the
         predictors their plain layers; the gather is differentiable in both
-        modes, with the scatter-add as its backward."""
+        modes, with the scatter-add as its backward. Threshold masks come
+        from the scores without their gradient, as in the JAX model."""
         cfg, pr = self.cfg, self.pruning
         B, N = x.shape[0], cfg.num_patches
         keep = pr.keep_counts(N)
         gather = fused_gather_tokens if cfg.use_fused_attention else gather_tokens_reference
+        threshold = pr.patch_score_threshold
+        if threshold_override is not None:
+            threshold = threshold_override
 
         x = self.embed(x)
-        pred_logits, kept_stage, dropped_stage = [], [], []
+        pred_logits, kept_stage, dropped_stage, keep_masks = [], [], [], []
+        policy = keep_ratios = None  # threshold mode: the (B, N+1) keep policy
         # current spatial position -> original token id
         cur_orig = torch.arange(N, device=x.device).expand(B, N)
         p = 0
@@ -151,15 +160,20 @@ class DiffPruningStudent(DeiTBackbone):
             if i in pr.pruning_locs:
                 if not unpruned:
                     scores_logits, scores = self.score_predictor[p](x[:, 1:])
-                    kept, dropped = topk_keep_indices(scores, keep[p])
                     pred_logits.append(scores_logits)
-                    kept_stage.append(kept)
-                    dropped_stage.append(dropped)
-                    cur_orig = torch.gather(cur_orig, 1, kept)
-                    idx = torch.cat([kept.new_zeros(B, 1), kept + 1], dim=1)
-                    x = gather(x, idx)
+                    if threshold is not None:
+                        mask, keep_ratios = threshold_keep_mask(scores.detach(), threshold)
+                        keep_masks.append(mask)
+                        policy = torch.cat([mask.new_ones(B, 1), mask], dim=1)
+                    else:
+                        kept, dropped = topk_keep_indices(scores, keep[p])
+                        kept_stage.append(kept)
+                        dropped_stage.append(dropped)
+                        cur_orig = torch.gather(cur_orig, 1, kept)
+                        idx = torch.cat([kept.new_zeros(B, 1), kept + 1], dim=1)
+                        x = gather(x, idx)
                 p += 1
-            x = blk(x)
+            x = blk(x, policy)
 
         x = self.norm(x)
         return StudentOutput(
@@ -169,4 +183,7 @@ class DiffPruningStudent(DeiTBackbone):
             kept_idx=tuple(kept_stage),
             dropped_idx=tuple(dropped_stage),
             kept_idx_orig=cur_orig if kept_stage else None,
+            keep_mask=None if policy is None else policy[:, 1:],
+            keep_ratios=keep_ratios,
+            keep_masks=tuple(keep_masks),
         )

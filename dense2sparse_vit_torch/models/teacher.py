@@ -11,26 +11,11 @@ from __future__ import annotations
 
 import torch
 
-from dense2sparse_vit_torch.core.config import ModelConfig
 from dense2sparse_vit_torch.models.student import DeiTBackbone
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    unported = {
-        "quant": cfg.quant != "none",
-        "drop_rate / attn_drop_rate": cfg.drop_rate > 0 or cfg.attn_drop_rate > 0,
-    }
-    missing = [name for name, used in unported.items() if used]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
 
 
 class ViTTeacher(DeiTBackbone):
     """See the module docstring. Images are NHWC (B, H, W, 3)."""
-
-    def __init__(self, cfg: ModelConfig):
-        _check_supported(cfg)
-        super().__init__(cfg)
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, *, return_head: bool = True):

@@ -104,9 +104,10 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention, exact fp32 softmax. With `return_cls_attn`,
-    forward returns (out, cls_attn): the (B, H, N) CLS row of the attention
-    probabilities."""
+    """Multi-head self-attention, exact fp32 softmax (with a (B, N) keep
+    policy, `ops.masked_softmax.softmax_with_policy`). With
+    `return_cls_attn`, forward returns (out, cls_attn): the (B, H, N) CLS row
+    of the attention probabilities."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None):
@@ -116,8 +117,8 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x, *, return_cls_attn: bool = False):
-        out = attention_reference(self.qkv(x), self.num_heads, self.scale,
+    def forward(self, x, policy=None, *, return_cls_attn: bool = False):
+        out = attention_reference(self.qkv(x), self.num_heads, self.scale, policy=policy,
                                   return_cls=return_cls_attn)
         if return_cls_attn:
             return self.proj(out[0]), out[1]
@@ -148,7 +149,9 @@ class Block(nn.Module):
     `fused_transformer_block_cls`, which has no gradient (the teacher's CLS
     capture); in train mode, `fused_transformer_block_trainable`, whose
     backward is the block-backward kernel; in eval mode,
-    `fused_transformer_block`. Each wrapper launches its CUDA kernel for a
+    `fused_transformer_block`. A (B, N) keep `policy` (threshold pruning,
+    the gumbel baseline's training) goes to the same wrapper, which then
+    runs its policy mode. Each wrapper launches its CUDA kernel for a
     CUDA tensor and runs its plain torch version for a CPU tensor. The
     kernels have no DropPath, so a fused block with drop_path > 0 refuses to
     train, and no CLS capture under autograd (the JAX package's packed
@@ -182,9 +185,12 @@ class Block(nn.Module):
             "b2": self.mlp.fc2.bias,
         }
 
-    def forward(self, x, *, return_cls_attn: bool = False):
+    def forward(self, x, policy=None, *, return_cls_attn: bool = False):
         """(B, N, C) -> (B, N, C); with `return_cls_attn`, (out, cls_attn)
-        with the (B, H, N) CLS row of the attention probabilities."""
+        with the (B, H, N) CLS row of the attention probabilities. policy:
+        an optional (B, N) or (B, N, 1) keep mask (1 = kept), CLS included."""
+        if policy is not None:
+            policy = policy.reshape(x.shape[0], x.shape[1])
         if self.use_fused:
             if self.training and self.drop_path.rate > 0:
                 raise NotImplementedError("the fused block has no DropPath kernel yet")
@@ -196,9 +202,9 @@ class Block(nn.Module):
                 kernel = fused_transformer_block_cls
             elif self.training:
                 kernel = fused_transformer_block_trainable
-            return kernel(x, self.kernel_weights(x.dtype), self.attn.num_heads,
+            return kernel(x, self.kernel_weights(x.dtype), self.attn.num_heads, policy,
                           scale=self.attn.scale, ln_eps=self.norm1.eps)
-        y = self.attn(self.norm1(x), return_cls_attn=return_cls_attn)
+        y = self.attn(self.norm1(x), policy, return_cls_attn=return_cls_attn)
         if return_cls_attn:
             y, cls_attn = y
         x = x + self.drop_path(y)

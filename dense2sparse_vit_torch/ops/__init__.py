@@ -1,7 +1,8 @@
 """Token selection and the hand-written CUDA kernels with their plain versions.
 
 Each kernel wrapper counts its launches in a `launches` attribute; the
-wrappers of this package are listed in `KERNELS`.
+block's forward and backward count their policy-mode launches apart, in
+`policy_launches`. `COUNTERS` lists every count by its name.
 """
 
 from dense2sparse_vit_torch.ops.block import (
@@ -16,29 +17,37 @@ from dense2sparse_vit_torch.ops.gather import (
     gather_tokens_reference,
 )
 from dense2sparse_vit_torch.ops.predictor import fused_predictor_lg
-from dense2sparse_vit_torch.ops.topk import mask_from_scores, topk_keep_indices
+from dense2sparse_vit_torch.ops.topk import mask_from_scores, threshold_keep_mask, topk_keep_indices
 
-KERNELS = (
-    fused_transformer_block, fused_transformer_block_cls,
-    fused_transformer_block_backward, fused_predictor_lg, fused_gather_tokens,
-    fused_scatter_tokens,
+# (name, wrapper, attribute holding the count)
+COUNTERS = (
+    ("fused_transformer_block", fused_transformer_block, "launches"),
+    ("fused_transformer_block[policy]", fused_transformer_block, "policy_launches"),
+    ("fused_transformer_block_cls", fused_transformer_block_cls, "launches"),
+    ("fused_transformer_block_backward", fused_transformer_block_backward, "launches"),
+    ("fused_transformer_block_backward[policy]", fused_transformer_block_backward,
+     "policy_launches"),
+    ("fused_predictor_lg", fused_predictor_lg, "launches"),
+    ("fused_gather_tokens", fused_gather_tokens, "launches"),
+    ("fused_scatter_tokens", fused_scatter_tokens, "launches"),
 )
+KERNEL_NAMES = tuple(name for name, _, _ in COUNTERS)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    for _, fn, attr in COUNTERS:
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    return {name: getattr(fn, attr) for name, fn, attr in COUNTERS}
 
 
 __all__ = [
-    "KERNELS", "fused_gather_tokens", "fused_predictor_lg",
+    "COUNTERS", "KERNEL_NAMES", "fused_gather_tokens", "fused_predictor_lg",
     "fused_scatter_tokens", "fused_transformer_block",
     "fused_transformer_block_backward", "fused_transformer_block_cls",
     "fused_transformer_block_trainable", "gather_tokens_reference",
     "launch_counts", "mask_from_scores", "reset_launch_counts",
-    "topk_keep_indices",
+    "threshold_keep_mask", "topk_keep_indices",
 ]

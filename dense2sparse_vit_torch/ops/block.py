@@ -1,21 +1,24 @@
 """Whole pre-norm transformer block, both directions.
 
-The port of `dense2sparse_vit_tpu/ops/pallas/block.py` in its plain mode (no
-keep-policy, no DropPath branch scales):
+The port of `dense2sparse_vit_tpu/ops/pallas/block.py` without DropPath
+branch scales, in its plain and its policy mode:
 
     x_mid = x + proj(MHA(qkv(LN1 x)))
     out   = x_mid + fc2(GELU(fc1(LN2 x_mid)))
 
-with an exact fp32 row-max softmax over the N real tokens, which is what the
-JAX package's `_ref_block` defines.
+Plain mode takes an exact fp32 row-max softmax over the N real tokens, which
+is what the JAX package's `_ref_block` defines. Policy mode takes a (B, N)
+keep policy and the softmax of `ops.masked_softmax.softmax_with_policy`
+(dropped columns zeroed except on the diagonal, eps/N smoothing), the
+threshold and gumbel paths' attention.
 
 - `fused_transformer_block`: the forward (`fused_transformer_block`);
 - `fused_transformer_block_cls`: the same with the CLS row of every head's
   attention probabilities as a second output (the TPU kernel's
   `return_cls=True`), which the teacher hands to the mask loss;
-- `fused_transformer_block_backward`: dx and the twelve parameter
-  gradients from x and the output's cotangent, recomputing the forward
-  (`fused_transformer_block_backward`);
+- `fused_transformer_block_backward`: dx, the twelve parameter gradients
+  and, in policy mode, dPolicy, from x and the output's cotangent,
+  recomputing the forward (`fused_transformer_block_backward`);
 - `fused_transformer_block_trainable`: the block as an autograd Function,
   forward `fused_transformer_block`, backward
   `fused_transformer_block_backward` (`fused_transformer_block_trainable`).
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from dense2sparse_vit_torch.ops import _cuda
+from dense2sparse_vit_torch.ops.masked_softmax import softmax_with_policy
 
 BLOCK_WEIGHT_KEYS = (
     "ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj",
@@ -43,6 +47,7 @@ BLOCK_WEIGHT_KEYS = (
 HEAD_DIM = 64  # the kernels' head width
 MAX_TOKENS = 800  # the forward keeps a sample-head's K and V in shared memory
 BWD_MAX_TOKENS = 384  # the backward keeps its Q, K, V and dO there
+BWD_POLICY_MAX_TOKENS = 352  # and in policy mode six row vectors besides
 
 
 def layer_norm(x, weight, bias, eps):
@@ -58,10 +63,12 @@ def linear(x, weight, bias):
 
 
 def attention_reference(qkv: torch.Tensor, num_heads: int, scale: float, *,
+                        policy: torch.Tensor | None = None, eps: float = 1e-6,
                         return_cls: bool = False):
     """Multi-head attention on packed (B, N, 3C) qkv -> (B, N, C).
 
-    Scores in fp32, exact softmax, probabilities in the compute dtype. With
+    Scores in fp32, exact softmax (with a (B, N) `policy`, the policy
+    softmax with smoothing `eps`), probabilities in the compute dtype. With
     `return_cls`, also the (B, H, N) CLS (query 0) row of the probabilities.
     """
     B, N, C3 = qkv.shape
@@ -70,22 +77,28 @@ def attention_reference(qkv: torch.Tensor, num_heads: int, scale: float, *,
         2, 0, 3, 1, 4
     ).unbind(0)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+    if policy is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        p = softmax_with_policy(s, policy, eps)
+    p = p.to(qkv.dtype)
     out = torch.matmul(p, v).transpose(1, 2).reshape(B, N, C)
     if return_cls:
         return out, p[:, :, 0]
     return out
 
 
-def transformer_block_reference(x, w, num_heads, scale, ln_eps, *, stages=False,
-                                return_cls=False):
+def transformer_block_reference(x, w, num_heads, scale, ln_eps, *, policy=None, eps=1e-6,
+                                stages=False, return_cls=False):
     """Plain torch version of the block's forward: `out`, then the CLS rows
     with `return_cls`, then the stages dict with `stages`."""
     qkv = linear(layer_norm(x, w["ln1_w"], w["ln1_b"], ln_eps), w["wqkv"], w["bqkv"])
+    kw = {} if policy is None else {"policy": policy, "eps": eps}
     if return_cls:
-        attn, cls = attention_reference(qkv, num_heads, scale, return_cls=True)
-    else:
-        attn = attention_reference(qkv, num_heads, scale)
+        kw["return_cls"] = True
+    attn = attention_reference(qkv, num_heads, scale, **kw)
+    if return_cls:
+        attn, cls = attn
     mid = x + linear(attn, w["wproj"], w["bproj"])
     h = layer_norm(mid, w["ln2_w"], w["ln2_b"], ln_eps)
     hid = F.gelu(linear(h, w["w1"], w["b1"]).float()).to(x.dtype)
@@ -98,21 +111,31 @@ def transformer_block_reference(x, w, num_heads, scale, ln_eps, *, stages=False,
     return result if len(result) > 1 else out
 
 
-def transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps):
+def transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps, *, policy=None,
+                                         eps=1e-6, policy_grad=True):
     """Plain torch version of `fused_transformer_block_backward`: autograd
     through `transformer_block_reference`. Returns (dx in x.dtype, grads in
-    fp32 keyed like `w`, None for a None weight). The inputs must not be
-    inference tensors."""
+    fp32 keyed like `w` with None for a None weight, dPolicy in fp32 or
+    None): dPolicy only with a policy and `policy_grad`. The policy enters
+    in fp32, as the kernel takes it. The inputs must not be inference
+    tensors."""
     with torch.enable_grad():
         xs = x.detach().clone().requires_grad_()
         ws = {k: None if v is None else v.detach().clone().requires_grad_()
               for k, v in w.items()}
-        out = transformer_block_reference(xs, ws, num_heads, scale, ln_eps)
+        pol = None
+        if policy is not None:
+            pol = policy.detach().float().clone().requires_grad_(policy_grad)
+        out = transformer_block_reference(xs, ws, num_heads, scale, ln_eps, policy=pol, eps=eps)
         keys = [k for k in BLOCK_WEIGHT_KEYS if ws[k] is not None]
-        grads = torch.autograd.grad(out, [xs] + [ws[k] for k in keys], g)
+        inputs = [xs] + [ws[k] for k in keys]
+        if pol is not None and policy_grad:
+            inputs.append(pol)
+        grads = torch.autograd.grad(out, inputs, g)
     dw = dict.fromkeys(BLOCK_WEIGHT_KEYS)
     dw.update({k: d.float() for k, d in zip(keys, grads[1:])})
-    return grads[0], dw
+    dpol = grads[-1] if pol is not None and policy_grad else None
+    return grads[0], dw, dpol
 
 
 def _kernel_args(x, w, num_heads, max_tokens, what):
@@ -141,9 +164,22 @@ def _kernel_args(x, w, num_heads, max_tokens, what):
     return hidden, ptrs, shapes
 
 
-def _refuse_autograd(x, w, what):
+def _policy_arg(policy, x, what):
+    """The (B, N) policy as the kernels take it, fp32 and contiguous, or None."""
+    if policy is None:
+        return None
+    B, N, _ = x.shape
+    pol = policy.detach().reshape(B, N) if policy.numel() == B * N else None
+    if pol is None or not pol.is_floating_point():
+        raise ValueError(f"{what}: policy must be a float (B, N) = {(B, N)} keep mask, "
+                         f"got {policy.dtype} {tuple(policy.shape)}")
+    return pol.float().contiguous()
+
+
+def _refuse_autograd(x, w, policy, what):
     if torch.is_grad_enabled() and (
         x.requires_grad or any(v is not None and v.requires_grad for v in w.values())
+        or (policy is not None and policy.requires_grad)
     ):
         raise RuntimeError(
             f"{what} is not differentiable on the card: under autograd use "
@@ -151,13 +187,14 @@ def _refuse_autograd(x, w, what):
         )
 
 
-def _launch_forward(x, w, num_heads, scale, ln_eps, *, cls, what):
+def _launch_forward(x, w, num_heads, scale, ln_eps, *, policy, eps, cls, what):
     """One d2s_block_forward call: (out, stages, cls rows or None)."""
-    _refuse_autograd(x, w, what)
+    _refuse_autograd(x, w, policy, what)
     B, N, C = x.shape
     hidden, ptrs, _ = _kernel_args(x, w, num_heads, MAX_TOKENS, what)
     dev, bf16 = x.device, torch.bfloat16
     x_ptr = _cuda.ptr(x, "x", dev, bf16, (B, N, C))
+    pol = _policy_arg(policy, x, what)
     out = torch.empty_like(x)
     qkv = torch.empty((B, N, 3 * C), dtype=bf16, device=dev)
     attn = torch.empty_like(x)
@@ -169,7 +206,8 @@ def _launch_forward(x, w, num_heads, scale, ln_eps, *, cls, what):
         x_ptr, out.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
         mid.data_ptr(), hid.data_ptr(), stats.data_ptr(), *ptrs,
         0, 0, 0 if cls_rows is None else cls_rows.data_ptr(),
-        B, N, C, num_heads, hidden, float(scale), float(ln_eps),
+        _cuda.ptr(pol, "policy", dev, torch.float32, (B, N)),
+        B, N, C, num_heads, hidden, float(scale), float(ln_eps), float(eps),
         _cuda.stream_handle(dev),
     )
     _cuda.check(err, "d2s_block_forward")
@@ -186,27 +224,36 @@ def fused_transformer_block(
     x: torch.Tensor,
     w: dict,
     num_heads: int,
+    policy: torch.Tensor | None = None,
     *,
     scale: float | None = None,
+    eps: float = 1e-6,
     ln_eps: float = 1e-6,
     stages: bool = False,
 ):
     """One whole pre-norm block, (B, N, C) -> (B, N, C).
 
-    With `stages`, returns (out, {"qkv", "attn", "mid", "hid"}): the
-    intermediates the block computes on the way (qkv projection, attention
-    core output, x_mid, GELU(fc1) activation), so that each can be checked
-    on its own. On the card it is not differentiable: under autograd it
-    raises (`fused_transformer_block_trainable` is).
+    With a (B, N) keep `policy` (fp32 or bf16), the attention is the policy
+    softmax with smoothing `eps`. With `stages`, returns (out, {"qkv",
+    "attn", "mid", "hid"}): the intermediates the block computes on the way
+    (qkv projection, attention core output, x_mid, GELU(fc1) activation), so
+    that each can be checked on its own. On the card it is not
+    differentiable: under autograd it raises
+    (`fused_transformer_block_trainable` is). Plain-mode launches count in
+    `launches`, policy-mode ones in `policy_launches`.
     """
     C = _check_x(x)
     if scale is None:
         scale = (C // num_heads) ** -0.5
     if x.device.type == "cpu":
-        return transformer_block_reference(x, w, num_heads, scale, ln_eps, stages=stages)
-    out, st, _ = _launch_forward(x, w, num_heads, scale, ln_eps, cls=False,
-                                 what="fused_transformer_block")
-    fused_transformer_block.launches += 1
+        return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
+                                           eps=eps, stages=stages)
+    out, st, _ = _launch_forward(x, w, num_heads, scale, ln_eps, policy=policy, eps=eps,
+                                 cls=False, what="fused_transformer_block")
+    if policy is None:
+        fused_transformer_block.launches += 1
+    else:
+        fused_transformer_block.policy_launches += 1
     return (out, st) if stages else out
 
 
@@ -214,20 +261,24 @@ def fused_transformer_block_cls(
     x: torch.Tensor,
     w: dict,
     num_heads: int,
+    policy: torch.Tensor | None = None,
     *,
     scale: float | None = None,
+    eps: float = 1e-6,
     ln_eps: float = 1e-6,
 ):
     """The block with its CLS-attention output: (out, cls) where cls is the
     (B, H, N) query-0 row of every head's attention probabilities, in
-    x.dtype. Not differentiable on the card."""
+    x.dtype (in policy mode (e_0j + eps/N) / den_0, as the policy softmax
+    gives it). Not differentiable on the card."""
     C = _check_x(x)
     if scale is None:
         scale = (C // num_heads) ** -0.5
     if x.device.type == "cpu":
-        return transformer_block_reference(x, w, num_heads, scale, ln_eps, return_cls=True)
-    out, _, cls = _launch_forward(x, w, num_heads, scale, ln_eps, cls=True,
-                                  what="fused_transformer_block_cls")
+        return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
+                                           eps=eps, return_cls=True)
+    out, _, cls = _launch_forward(x, w, num_heads, scale, ln_eps, policy=policy, eps=eps,
+                                  cls=True, what="fused_transformer_block_cls")
     fused_transformer_block_cls.launches += 1
     return out, cls
 
@@ -237,26 +288,36 @@ def fused_transformer_block_backward(
     g: torch.Tensor,
     w: dict,
     num_heads: int,
+    policy: torch.Tensor | None = None,
     *,
     scale: float | None = None,
+    eps: float = 1e-6,
     ln_eps: float = 1e-6,
+    policy_grad: bool = True,
 ):
     """The block's backward from its input x and the cotangent g of its
-    output: (dx in x.dtype, {key: fp32 gradient summed over the batch}),
-    with the keys of `w` (None where the weight is None)."""
+    output: (dx in x.dtype, {key: fp32 gradient summed over the batch},
+    dPolicy), with the keys of `w` (None where the weight is None). dPolicy
+    is the (B, N) fp32 gradient of the keep policy, None in plain mode or
+    with `policy_grad=False`, which spares the kernel its work. Plain-mode
+    launches count in `launches`, policy-mode ones in `policy_launches`."""
     C = _check_x(x)
     if scale is None:
         scale = (C // num_heads) ** -0.5
     if x.device.type == "cpu":
-        return transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps)
+        return transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps,
+                                                    policy=policy, eps=eps,
+                                                    policy_grad=policy_grad)
     what = "fused_transformer_block_backward"
     B, N, _ = x.shape
-    hidden, ptrs, shapes = _kernel_args(x, w, num_heads, BWD_MAX_TOKENS, what)
+    max_n = BWD_MAX_TOKENS if policy is None else BWD_POLICY_MAX_TOKENS
+    hidden, ptrs, shapes = _kernel_args(x, w, num_heads, max_n, what)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     x_ptr = _cuda.ptr(x, "x", dev, bf16, (B, N, C))
     g_ptr = _cuda.ptr(g, "g", dev, bf16, (B, N, C))
+    pol = _policy_arg(policy, x, what)
     lib = _cuda.library()
-    nbytes = lib.d2s_block_backward_scratch_bytes(B, N, C, num_heads, hidden)
+    nbytes = lib.d2s_block_backward_scratch_bytes(B, N, C, num_heads, hidden, int(pol is not None))
     if nbytes <= 0:
         raise ValueError(f"{what}: shapes {(B, N, C)}, {num_heads} heads, hidden "
                          f"{hidden}: not taken by the kernel")
@@ -264,58 +325,77 @@ def fused_transformer_block_backward(
     dx = torch.empty_like(x)
     dw = {k: None if w[k] is None else torch.empty(shapes[k][1], dtype=f32, device=dev)
           for k in BLOCK_WEIGHT_KEYS}
+    dpol = torch.empty((B, N), dtype=f32, device=dev) if pol is not None and policy_grad else None
     err = lib.d2s_block_backward(
         x_ptr, g_ptr, dx.data_ptr(), *ptrs,
         *(0 if dw[k] is None else dw[k].data_ptr() for k in BLOCK_WEIGHT_KEYS),
+        _cuda.ptr(pol, "policy", dev, f32, (B, N)), 0 if dpol is None else dpol.data_ptr(),
         scratch.data_ptr(), B, N, C, num_heads, hidden, float(scale),
-        float(ln_eps), _cuda.stream_handle(dev),
+        float(ln_eps), float(eps), _cuda.stream_handle(dev),
     )
     _cuda.check(err, "d2s_block_backward")
-    fused_transformer_block_backward.launches += 1
-    return dx, dw
+    if policy is None:
+        fused_transformer_block_backward.launches += 1
+    else:
+        fused_transformer_block_backward.policy_launches += 1
+    return dx, dw, dpol
 
 
 class _TrainableBlock(torch.autograd.Function):
     """Forward `fused_transformer_block`, backward
     `fused_transformer_block_backward`, which recomputes the forward from x:
-    only x and the weights are kept between the two. The gradients come back
-    in each weight's dtype, as the JAX package's custom VJP casts them."""
+    only x, the policy and the weights are kept between the two. The
+    gradients come back in each weight's dtype and dPolicy in the policy's,
+    as the JAX package's custom VJP casts them; dPolicy is asked of the
+    kernel only when the policy needs a gradient (the threshold path's
+    policy comes from stopped scores and does not)."""
 
     @staticmethod
-    def forward(ctx, x, num_heads, scale, ln_eps, *weights):
-        ctx.save_for_backward(x, *weights)
-        ctx.args = (num_heads, scale, ln_eps)
+    def forward(ctx, x, policy, num_heads, scale, ln_eps, eps, *weights):
+        ctx.save_for_backward(x, policy, *weights)
+        ctx.args = (num_heads, scale, ln_eps, eps)
         w = dict(zip(BLOCK_WEIGHT_KEYS, weights))
-        return fused_transformer_block(x, w, num_heads, scale=scale, ln_eps=ln_eps)
+        return fused_transformer_block(x, w, num_heads, policy, scale=scale, eps=eps,
+                                       ln_eps=ln_eps)
 
     @staticmethod
     def backward(ctx, g):
-        x, *weights = ctx.saved_tensors
-        num_heads, scale, ln_eps = ctx.args
+        x, policy, *weights = ctx.saved_tensors
+        num_heads, scale, ln_eps, eps = ctx.args
         w = dict(zip(BLOCK_WEIGHT_KEYS, weights))
-        dx, dw = fused_transformer_block_backward(
-            x, g.contiguous(), w, num_heads, scale=scale, ln_eps=ln_eps)
+        policy_grad = policy is not None and ctx.needs_input_grad[1]
+        dx, dw, dpol = fused_transformer_block_backward(
+            x, g.contiguous(), w, num_heads, policy, scale=scale, eps=eps, ln_eps=ln_eps,
+            policy_grad=policy_grad)
         grads = [None if w[k] is None else dw[k].to(w[k].dtype)
                  for k in BLOCK_WEIGHT_KEYS]
-        return (dx, None, None, None, *grads)
+        if dpol is not None:
+            dpol = dpol.to(policy.dtype).reshape(policy.shape)
+        return (dx, dpol, None, None, None, None, *grads)
 
 
 def fused_transformer_block_trainable(
     x: torch.Tensor,
     w: dict,
     num_heads: int,
+    policy: torch.Tensor | None = None,
     *,
     scale: float | None = None,
+    eps: float = 1e-6,
     ln_eps: float = 1e-6,
 ):
-    """`fused_transformer_block` with a gradient for x and every weight."""
+    """`fused_transformer_block` with a gradient for x, every weight and, in
+    policy mode, the policy."""
     C = _check_x(x)
     if scale is None:
         scale = (C // num_heads) ** -0.5
     return _TrainableBlock.apply(
-        x, num_heads, float(scale), float(ln_eps), *(w[k] for k in BLOCK_WEIGHT_KEYS))
+        x, policy, num_heads, float(scale), float(ln_eps), float(eps),
+        *(w[k] for k in BLOCK_WEIGHT_KEYS))
 
 
 fused_transformer_block.launches = 0
+fused_transformer_block.policy_launches = 0
 fused_transformer_block_cls.launches = 0
 fused_transformer_block_backward.launches = 0
+fused_transformer_block_backward.policy_launches = 0

@@ -37,3 +37,22 @@ def mask_from_scores(scores: torch.Tensor, keep_ratio: float) -> torch.Tensor:
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
     mask = torch.zeros_like(scores)
     return mask.scatter_(1, order[:, :k], 1.0)
+
+
+def threshold_keep_mask(scores: torch.Tensor, threshold: float):
+    """Keep mask from a cumulative score-mass threshold.
+
+    Sorts each row ascending (stably, as `jnp.argsort`), takes the fp32
+    prefix sums and keeps every token whose prefix mass exceeds `threshold`:
+    the least important tail holding at most `threshold` of the mass is
+    dropped. Keep counts vary per image, so the result is a mask for
+    policy-masked attention and the sequence keeps its length.
+
+    Returns (mask, keep_ratios): the (B, N) {0, 1} mask in the dtype of
+    `scores` and the (B,) kept fractions.
+    """
+    N = scores.shape[1]
+    val, order = torch.sort(scores, dim=-1, stable=True)
+    th = (torch.cumsum(val.float(), dim=-1) > threshold).to(scores.dtype)
+    mask = torch.zeros_like(scores).scatter_(1, order, th)
+    return mask, th.sum(dim=-1) / N

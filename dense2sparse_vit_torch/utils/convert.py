@@ -12,6 +12,13 @@ JAX package (which this package must not import):
   score_predictor_{p}/in_{j}    -> score_predictor.{p}.in_conv.{3j, 3j+1}
   score_predictor_{p}/out_{j}   -> score_predictor.{p}.out_conv.{3j, 3j+1}
   .../final_norm, final_dense   -> the last two entries of out_conv
+
+and, for the gumbel baseline's `DynamicViTStudent` (whose predictor units
+are single layers, not LayerNorm + Dense pairs), the layout of the JAX
+package's own map for that predictor (`convert.py:500-506`):
+
+  score_predictor_{p}/in_norm, in_dense -> score_predictor.{p}.in_conv.{0, 1}
+  score_predictor_{p}/out_{0,1,2}       -> score_predictor.{p}.out_conv.{0, 2, 4}
 """
 
 from __future__ import annotations
@@ -35,9 +42,15 @@ def _leaf(name: str) -> str:
     return {"kernel": "weight", "scale": "weight", "bias": "bias"}[name]
 
 
+_DYNAMIC_VIT_UNITS = {"in_norm": "in_conv.0", "in_dense": "in_conv.1", "out_0": "out_conv.0",
+                      "out_1": "out_conv.2", "out_2": "out_conv.4"}
+
+
 def _predictor_key(path: Tuple[str, ...], n_out: int) -> str:
     p = int(path[0].rsplit("_", 1)[1])
     unit = path[1]
+    if len(path) == 3 and unit in _DYNAMIC_VIT_UNITS:  # a DynamicViTPredictor's layer
+        return f"score_predictor.{p}.{_DYNAMIC_VIT_UNITS[unit]}.{_leaf(path[-1])}"
     if unit in ("final_norm", "final_dense"):
         seq, idx = "out_conv", 3 * n_out + (unit == "final_dense")
     else:
@@ -48,8 +61,9 @@ def _predictor_key(path: Tuple[str, ...], n_out: int) -> str:
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
-    """Map JAX `DiffPruningStudent` params (nested dicts of arrays; a full
-    variables dict with a 'params' entry is accepted) onto the port's
+    """Map JAX `DiffPruningStudent`, `DynamicViTStudent` or `ViTTeacher`
+    params (nested dicts of arrays; a full variables dict with a 'params'
+    entry is accepted) onto the port's
     state_dict keys. Returns numpy arrays: load them with
     `model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})`.
     """

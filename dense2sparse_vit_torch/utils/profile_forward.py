@@ -1,9 +1,12 @@
 """Where the device time of the headline student's forward goes, by kernel.
 
     python -m dense2sparse_vit_torch.utils.profile_forward [--batch 256] [--plain]
+        [--mode topk|threshold|gumbel]
 
 Runs `--iters` forwards of `dynamic_vit_small_patch16_224_student` (bf16,
-keep 0.7/0.49/0.343 at blocks 3/6/9, small predictor, random weights) under
+keep 0.7/0.49/0.343 at blocks 3/6/9, small predictor, random weights; with
+`--mode threshold` the same student in threshold mode, with `--mode gumbel`
+the gumbel baseline's eval forward at the same ratios) under
 `torch.profiler` on the first CUDA device and prints one JSON line per
 device kernel (calls and ms per forward, share of the device time), then a
 summary line with the window's wall time per forward, the device's busy
@@ -21,8 +24,15 @@ import time
 
 import torch
 
-from dense2sparse_vit_torch.models import HEADLINE_KWARGS, HEADLINE_MODEL, create_model
+from dense2sparse_vit_torch.models import (
+    GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL, THRESHOLD_KWARGS, create_model)
 from dense2sparse_vit_torch.utils import card_name_and_power_limit
+
+MODES = {
+    "topk": (HEADLINE_MODEL, HEADLINE_KWARGS),
+    "threshold": (HEADLINE_MODEL, THRESHOLD_KWARGS),
+    "gumbel": (GUMBEL_MODEL, GUMBEL_KWARGS),
+}
 
 
 def main(argv=None) -> None:
@@ -30,16 +40,17 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--mode", choices=sorted(MODES), default="topk")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
     dev = torch.device("cuda", 0)
-    model = create_model(HEADLINE_MODEL, use_fused_attention=not args.plain,
-                         device=dev, **HEADLINE_KWARGS).eval()
+    name, kwargs = MODES[args.mode]
+    model = create_model(name, use_fused_attention=not args.plain, device=dev, **kwargs).eval()
     x = torch.randn((args.batch, 224, 224, 3), device=dev, dtype=torch.bfloat16)
     with torch.inference_mode():
         summary = profile_device(lambda: model(x), args.iters)
-    print(json.dumps({"batch": args.batch, "plain": args.plain, **summary,
+    print(json.dumps({"batch": args.batch, "mode": args.mode, "plain": args.plain, **summary,
                       "img_per_s": args.batch / summary["wall_ms"] * 1e3}))
 
 

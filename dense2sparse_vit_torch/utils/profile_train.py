@@ -1,10 +1,14 @@
 """Where the device time of the headline student's train step goes, by kernel.
 
     python -m dense2sparse_vit_torch.utils.profile_train [--batch 128] [--plain]
+        [--mode topk|threshold|gumbel]
 
 Builds `dynamic_vit_small_patch16_224_student` (bf16, keep 0.7/0.49/0.343 at
-blocks 3/6/9, small predictor) and its teacher with random weights, AdamW
-past the warmup and `make_train_step`, runs `--iters` steps at epoch 6 under
+blocks 3/6/9, small predictor; `--mode threshold`: in threshold mode) and
+its teacher with random weights, AdamW past the warmup and
+`make_train_step` (`--mode gumbel`: the gumbel baseline at the same ratios
+with `make_dynamic_vit_train_step` and its ratio and token-distillation
+losses), runs `--iters` steps at epoch 6 under
 `torch.profiler` on the first CUDA device, and prints one JSON line per
 device kernel (calls and ms per step, share of the device time), then a
 summary line with the wall time per step, the device's busy share and the
@@ -20,10 +24,10 @@ import json
 import torch
 
 from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
-from dense2sparse_vit_torch.models import (
-    HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER, create_model)
-from dense2sparse_vit_torch.train import make_optimizer, make_train_step
-from dense2sparse_vit_torch.utils.profile_forward import profile_device
+from dense2sparse_vit_torch.models import HEADLINE_TEACHER, create_model
+from dense2sparse_vit_torch.train import (
+    make_dynamic_vit_train_step, make_optimizer, make_train_step)
+from dense2sparse_vit_torch.utils.profile_forward import MODES, profile_device
 
 EPOCH = 6
 STEPS_PER_EPOCH = 10
@@ -34,24 +38,28 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--mode", choices=sorted(MODES), default="topk")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     dev = torch.device("cuda", 0)
     fused = not args.plain
-    student = create_model(HEADLINE_MODEL, use_fused_attention=fused, device=dev,
-                           **HEADLINE_KWARGS)
+    name, kwargs = MODES[args.mode]
+    student = create_model(name, use_fused_attention=fused, device=dev, **kwargs)
     teacher = create_model(HEADLINE_TEACHER, use_fused_attention=fused, device=dev,
                            dtype="bfloat16")
-    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=TrainConfig())
+    gumbel = args.mode == "gumbel"
+    train = TrainConfig(use_ratio_loss=gumbel, use_token_dist_loss=gumbel)
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=train)
     opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH)
     opt.count = cfg.train.warmup_epochs * STEPS_PER_EPOCH
-    step = make_train_step(student, teacher, opt, cfg)
+    make = make_dynamic_vit_train_step if gumbel else make_train_step
+    step = make(student, teacher, opt, cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev)
     labels = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
     summary = profile_device(lambda: step(x, labels, EPOCH), args.iters)
-    print(json.dumps({"batch": args.batch, "plain": args.plain, **summary,
+    print(json.dumps({"batch": args.batch, "mode": args.mode, "plain": args.plain, **summary,
                       "img_per_s": args.batch / summary["wall_ms"] * 1e3}))
 
 

@@ -32,7 +32,7 @@ TOL = 2e-2
 # tensor's largest magnitude; the plain version rounds every intermediate
 # gradient to bf16, the kernel keeps the LayerNorm and residual ones in fp32
 BWD_TOL = 3e-2
-NO_LAUNCHES = {k.__name__: 0 for k in ops.KERNELS}
+NO_LAUNCHES = dict.fromkeys(ops.KERNEL_NAMES, 0)
 
 
 @pytest.fixture
@@ -158,11 +158,11 @@ def test_block_backward_kernel(cuda, c, heads, n):
     g = torch.randn((4, n, c), generator=gen, device=cuda).to(torch.bfloat16)
     with torch.no_grad():
         w = blk.kernel_weights(torch.bfloat16)
-        dx, dw = ops.fused_transformer_block_backward(x, g, w, heads)
-        want_dx, want_dw = transformer_block_backward_reference(
+        dx, dw, none = ops.fused_transformer_block_backward(x, g, w, heads)
+        want_dx, want_dw, _ = transformer_block_backward_reference(
             x, g, w, heads, blk.attn.scale, 1e-6)
         torch.cuda.synchronize()
-    assert dx.dtype == torch.bfloat16
+    assert dx.dtype == torch.bfloat16 and none is None
     _assert_close(dx, want_dx, BWD_TOL)
     for k in BLOCK_WEIGHT_KEYS:
         assert dw[k].dtype == torch.float32 and dw[k].shape == w[k].shape, k
@@ -273,8 +273,88 @@ def test_train_step_launches_every_training_kernel(cuda):
     metrics = step(x, labels, epoch=cfg.train.warmup_epochs)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
-        "fused_transformer_block": 12, "fused_transformer_block_cls": 12,
-        "fused_transformer_block_backward": 12, "fused_predictor_lg": 0,
-        "fused_gather_tokens": 3, "fused_scatter_tokens": 3,
+        **NO_LAUNCHES, "fused_transformer_block": 12, "fused_transformer_block_cls": 12,
+        "fused_transformer_block_backward": 12, "fused_gather_tokens": 3,
+        "fused_scatter_tokens": 3,
     }
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+# ---- the block's policy mode ------------------------------------------------
+
+
+def _policy(gen, b, n, dev):
+    pol = (torch.rand((b, n), generator=gen, device=dev) < 0.6).float()
+    pol[:, 0] = 1.0
+    return pol
+
+
+@pytest.mark.parametrize("eps", [1e-6, 0.1])
+@pytest.mark.parametrize("n", [197, 138, 13, 1, 800])
+def test_policy_block_kernel(cuda, n, eps):
+    """The policy-mode forward and its CLS rows against the plain version;
+    at N=13 with eps = 0.1 the smoothing is large enough to see in bf16."""
+    blk = _sharpen(Block(384, 6, use_fused=True), seed=n).to(cuda).eval()
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    pol = _policy(gen, 4, n, cuda)
+    with torch.inference_mode():
+        w = blk.kernel_weights(torch.bfloat16)
+        ops.reset_launch_counts()
+        got = ops.fused_transformer_block(x, w, 6, pol, eps=eps)
+        got_c, cls = ops.fused_transformer_block_cls(x, w, 6, pol.to(torch.bfloat16), eps=eps)
+        want, want_cls = transformer_block_reference(
+            x, w, 6, blk.attn.scale, 1e-6, policy=pol, eps=eps, return_cls=True)
+        torch.cuda.synchronize()
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[policy]": 1,
+                                   "fused_transformer_block_cls": 1}
+    assert torch.equal(got, got_c)
+    _assert_close(got, want)
+    _assert_close(cls, want_cls)
+    torch.testing.assert_close(cls.float().sum(-1), torch.ones((4, 6), device=cuda),
+                               rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("eps,ties", [(1e-6, False), (0.1, False), (0.1, True)])
+@pytest.mark.parametrize("n", [197, 68, 13, 352])
+def test_policy_block_backward_kernel(cuda, n, eps, ties):
+    """dx, the twelve gradients and dPolicy against the plain version; with
+    ties, tokens copied from token 1 give rows whose max is reached at
+    several columns (the max path's gradient is split among them)."""
+    blk = _sharpen(Block(384, 6, use_fused=True), seed=n).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    if ties and n > 8:
+        x[:, 2:8] = x[:, 1:2]
+    g = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    pol = _policy(gen, 4, n, cuda)
+    with torch.no_grad():
+        w = blk.kernel_weights(torch.bfloat16)
+        ops.reset_launch_counts()
+        dx, dw, dpol = ops.fused_transformer_block_backward(x, g, w, 6, pol, eps=eps)
+        dx2, dw2, none = ops.fused_transformer_block_backward(x, g, w, 6, pol, eps=eps,
+                                                              policy_grad=False)
+        want_dx, want_dw, want_dpol = transformer_block_backward_reference(
+            x, g, w, 6, blk.attn.scale, 1e-6, policy=pol, eps=eps)
+        torch.cuda.synchronize()
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block_backward[policy]": 2}
+    assert none is None and torch.equal(dx, dx2)
+    assert dpol.dtype == torch.float32 and dpol.shape == (4, n)
+    _assert_close(dx, want_dx, BWD_TOL)
+    _assert_close(dpol, want_dpol, BWD_TOL)
+    for k in BLOCK_WEIGHT_KEYS:
+        _assert_close(dw[k], want_dw[k], BWD_TOL)
+        assert torch.equal(dw[k], dw2[k]), k
+
+
+def test_policy_trainable_block_returns_dpolicy_in_its_dtype(cuda):
+    blk = _sharpen(Block(384, 6, use_fused=True), seed=5).to(cuda).train()
+    x = torch.randn((2, 197, 384), device=cuda).to(torch.bfloat16)
+    pol = _policy(torch.Generator(device=cuda).manual_seed(5), 2, 197, cuda)
+    pol = pol.to(torch.bfloat16).requires_grad_()
+    ops.reset_launch_counts()
+    blk(x, pol).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[policy]": 1,
+                                   "fused_transformer_block_backward[policy]": 1}
+    assert pol.grad.dtype == torch.bfloat16 and torch.isfinite(pol.grad.float()).all()

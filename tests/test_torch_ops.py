@@ -220,7 +220,10 @@ def test_port_imports_no_jax():
         "import dense2sparse_vit_torch, dense2sparse_vit_torch.models, "
         "dense2sparse_vit_torch.ops, dense2sparse_vit_torch.nn, "
         "dense2sparse_vit_torch.utils.convert, dense2sparse_vit_torch.losses, "
-        "dense2sparse_vit_torch.train, dense2sparse_vit_torch.utils.profile_train\n"
+        "dense2sparse_vit_torch.train, dense2sparse_vit_torch.utils.profile_train, "
+        "dense2sparse_vit_torch.utils.profile_forward, dense2sparse_vit_torch.ops.gumbel, "
+        "dense2sparse_vit_torch.ops.masked_softmax, dense2sparse_vit_torch.losses.distill, "
+        "dense2sparse_vit_torch.models.dynamic_vit_default\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"

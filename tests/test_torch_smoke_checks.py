@@ -171,3 +171,82 @@ def test_check_block_backward_rejects_a_dropped_rowsum(monkeypatch, capsys):
     line = _last_line(capsys)
     # the fault reaches only what flows through dQ and dK
     assert line["rel_err"]["w2"] == 0.0 and line["rel_err"]["wqkv.v"] == 0.0
+
+
+# ---- the policy mode's checks ----------------------------------------------
+
+
+def _keep_policy(n):
+    pol = (torch.rand((B, n), generator=torch.Generator().manual_seed(2)) < 0.6).float()
+    pol[:, 0] = 1.0
+    return pol
+
+
+@pytest.mark.parametrize("eps", chip_smoke.EPS_CHECKS)
+def test_check_block_holds_the_policy_block(capsys, eps):
+    x, w, args = _block_input()
+    with torch.inference_mode():
+        y, err = chip_smoke.check_block(torch, x, w, *args, block=3, policy=_keep_policy(N),
+                                        eps=eps)
+    line = _last_line(capsys)
+    assert err == 0.0 and line["kernel"] == "fused_transformer_block[policy]"
+    assert line["eps"] == eps
+    assert all(line["rel_err"][k] <= line["tol_rel"][k] for k in line["rel_err"])
+
+
+def _faulty_softmax_with_policy(attn, policy, eps=1e-6):
+    """The policy softmax whose dPolicy keeps the diagonal: the forward is
+    the same, but a_jj = pol_j + (1 - pol_j) passes pol_j's gradient on.
+    The fault chip_smoke.py --plant-fault policy puts into the kernel."""
+    b, h, n, _ = attn.shape
+    ap = policy.reshape(b, n)[:, None, None, :]
+    ap = ap + (1.0 - ap.detach()) * torch.eye(n, dtype=ap.dtype)
+    e = torch.exp((attn - torch.amax(attn, dim=-1, keepdim=True)).float()) * ap.float()
+    return ((e + eps / n) / (e.sum(dim=-1, keepdim=True) + eps)).to(attn.dtype)
+
+
+@pytest.mark.parametrize("eps", chip_smoke.EPS_CHECKS)
+def test_check_block_backward_holds_dpolicy(capsys, eps):
+    x, w, args = _block_input()
+    with torch.no_grad():
+        err = chip_smoke.check_block_backward(torch, x, _cotangent(x), w, *args, block=3,
+                                              policy=_keep_policy(N), eps=eps)
+    line = _last_line(capsys)
+    assert err == 0.0 and line["kernel"] == "fused_transformer_block_backward[policy]"
+    assert "dpolicy" in line["rel_err"] and line["dpolicy_tol_rel"] == chip_smoke.DPOL_TOL
+
+
+@pytest.mark.parametrize("eps", chip_smoke.EPS_CHECKS)
+def test_check_block_backward_rejects_dpolicy_with_its_diagonal(monkeypatch, capsys, eps):
+    real = ops.fused_transformer_block_backward
+    right = block_ops.softmax_with_policy
+
+    def faulty(*args, **kwargs):
+        block_ops.softmax_with_policy = _faulty_softmax_with_policy
+        try:
+            return real(*args, **kwargs)
+        finally:
+            block_ops.softmax_with_policy = right
+
+    monkeypatch.setattr(ops, "fused_transformer_block_backward", faulty)
+    x, w, args = _block_input()
+    with torch.no_grad(), pytest.raises(AssertionError, match="dpolicy"):
+        chip_smoke.check_block_backward(torch, x, _cotangent(x), w, *args, block=3,
+                                        policy=_keep_policy(N), eps=eps)
+    line = _last_line(capsys)
+    # the fault reaches dPolicy alone
+    assert line["rel_err"]["dpolicy"] > 2 * chip_smoke.DPOL_TOL
+    assert all(v == 0.0 for k, v in line["rel_err"].items() if k != "dpolicy")
+
+
+def test_the_planted_faults_are_in_the_kernel_source_once():
+    src = open(os.path.join(REPO, "dense2sparse_vit_torch", "csrc", "block_bwd.cu")).read()
+    for pattern, replacement, _ in chip_smoke.FAULTS.values():
+        assert src.count(pattern) == 1 and replacement not in src
+
+
+def test_planted_ties_reach_row_maxima():
+    x, w, args = _block_input()
+    with torch.no_grad():
+        x_tie, tied = chip_smoke.planted_ties(torch, x, w, *args)
+    assert tied > 0 and x_tie.shape == x.shape
