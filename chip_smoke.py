@@ -8,6 +8,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
                                                  # against a kernel with a
                                                  # planted fault
     python3 chip_smoke.py --plant-fault policy   # the dPolicy check, the same
+    python3 chip_smoke.py --plant-fault int8     # the int8 block check, the same
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -55,7 +56,26 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  run once more on an input with planted exact ties), and the
                  policy backward and each step timed;
  11. serve_gumbel  a B=8 eval forward of the gumbel baseline (top-k gathers,
-                 plain blocks).
+                 plain blocks);
+ 12. serve_int8  batches of 1, 8 and 256 through the headline student with
+                 quant="int8": per forward 12 int8 blocks, 3 predictors, 3
+                 gathers and no bf16 block;
+ 13. check_int8  walk its B=256 forward stage by stage and hold every int8
+                 block against its plain version (`check_int8_block`); the
+                 int8 logits against the bf16-kernel model's;
+ 14. time_int8   the int8 block against its plain version and the bf16 block
+                 kernel at N=197/138/97/68, and the whole B=256 forward int8,
+                 bf16 kernels and plain;
+ 15. serve_export  `ServingModel.export` of the int8 student (symbolic, or
+                 buckets 1/8/32/256: printed), saved and loaded in a fresh
+                 process that never imports the model code, serving ragged
+                 batches of 1, 5, 37, 256 and 300; the bf16 top-k, threshold
+                 and gumbel students the same at one bucket of 8: the live
+                 model's logits and launch counts;
+ 16. eval        one `make_eval_step` of the headline student (bf16 and int8)
+                 and one `make_dynamic_vit_eval_step` at B=64, 8 rows padded
+                 with label -1: finite metrics, n_valid 56, and the launches
+                 of the teacher's, the pruned and the unpruned forwards.
 The line before the last two is the kernels summary, then the card's name
 and power limit, then {"ok": true, "device": {...}}. Without a CUDA device
 it exits 1 at once.
@@ -65,7 +85,9 @@ rowsum(dO * O) term of the softmax backward, runs phase 6's block-backward
 check with it, prints whether the check rejected it, and exits 0 only if it
 did; it prints no "ok" line. --plant-fault policy does the same with a
 block backward whose dPolicy keeps the diagonal (which the policy softmax
-leaves out), on a gumbel train step's policy blocks.
+leaves out), on a gumbel train step's policy blocks; --plant-fault int8
+with an int8 block whose fc2 takes fc1's column scales, on phase 13's walk
+at B=64.
 """
 
 from __future__ import annotations
@@ -104,11 +126,24 @@ ROWSUM_TOL = 1e-2
 # its largest magnitude: fp32 sums on both sides over bf16 products
 DPOL_TOL = 3e-2
 EPS_CHECKS = (1e-6, 0.1)  # the policy softmax's smoothing: the model's, and visible
+# The int8 block (check_int8_block). A quantization whose input the kernel
+# and the plain version compute alike (the attention output, the GELU
+# activation) gives the same codes; one fed a LayerNorm (LN1(x), LN2(x_mid))
+# may move a code by one step where h / s lies within rounding of a half:
+# at most CODE_FLIP_SHARE of the codes, by at most one step. The stages fed
+# the kernel's own codes (qkv, x_mid, GELU(fc1), fc2's output) repeat its
+# exact integer products: within one bf16 rounding of each element, beyond
+# which INT8_ULP_TOL of the tensor's largest magnitude (erf near zero);
+# x_mid (fp32) within INT8_MID_TOL of its branch.
+CODE_FLIP_SHARE = 1e-3
+INT8_ULP_TOL = 1e-3
+INT8_MID_TOL = 1e-5
+SCALE_TOL = 1e-6  # a row scale, relative: one fp32 rounding of the absmax
 KERNEL_NAMES = (
     "fused_transformer_block", "fused_transformer_block[policy]",
     "fused_transformer_block_cls", "fused_transformer_block_backward",
     "fused_transformer_block_backward[policy]", "fused_predictor_lg",
-    "fused_gather_tokens", "fused_scatter_tokens",
+    "fused_gather_tokens", "fused_scatter_tokens", "fused_transformer_block_int8",
 )
 NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
@@ -133,6 +168,23 @@ PER_POLICY_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block": 3,
 # the gumbel baseline's eval forward: 3 gathers, 12 plain blocks (its
 # predictor has no kernel)
 PER_GUMBEL_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_gather_tokens": 3}
+# the int8 student's eval forward: every block int8
+PER_INT8_FORWARD = {**NO_LAUNCHES, "fused_transformer_block_int8": 12, "fused_predictor_lg": 3,
+                    "fused_gather_tokens": 3}
+# an eval step: the teacher's 12 CLS-row blocks, the pruned forward, and the
+# unpruned one (12 blocks, no gather; the LN predictors do not run)
+PER_EVAL_STEP = {
+    "topk": {**NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_transformer_block": 24,
+             "fused_predictor_lg": 3, "fused_gather_tokens": 3},
+    "int8": {**NO_LAUNCHES, "fused_transformer_block_cls": 12,
+             "fused_transformer_block_int8": 24, "fused_predictor_lg": 3,
+             "fused_gather_tokens": 3},
+    "gumbel": {**NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_transformer_block": 24,
+               "fused_gather_tokens": 3},
+}
+B_EVAL, EVAL_PADDING = 64, 8
+EXPORT_BUCKETS = (1, 8, 32, 256)
+EXPORT_BATCHES = (1, 5, 37, 256, 300)
 SOURCES = {
     "fused_transformer_block": (
         "dense2sparse_vit_torch/csrc/block.cu",
@@ -158,16 +210,23 @@ SOURCES = {
     "fused_scatter_tokens": (
         "dense2sparse_vit_torch/csrc/gather.cu",
         "dense2sparse_vit_tpu/ops/pallas/gather.py:143"),
+    "fused_transformer_block_int8": (
+        "dense2sparse_vit_torch/csrc/quant_block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/quant.py:179"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
-# the faults --plant-fault puts into a copy of block_bwd.cu: rowsum(dO * O)
-# dropped, or (policy) dPolicy's diagonal kept; and the tensor whose check
-# must reject it
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
+# the faults --plant-fault puts into a copy of a kernel source: (block_bwd.cu)
+# rowsum(dO * O) dropped, or (policy) dPolicy's diagonal kept; (quant_block.cu)
+# fc2 dequantized with fc1's column scales; and the stage whose check must
+# reject it
 FAULTS = {
-    "rowsum": ("    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
-    "policy": ("if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
+    "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
+    "policy": ("block_bwd.cu", "if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
+    "int8": ("quant_block.cu", "q.col_s = f(s2);  // fc2's column scales",
+             "q.col_s = f(s1);  // fc2's column scales", "fc2_out"),
 }
 
 
@@ -241,6 +300,17 @@ def block_backward_bound(B, N, C, H, hidden) -> dict:
     vectors = 8 * C + hidden
     nbytes = 3 * M * C * 2 + 2 * params + 4 * vectors + 4 * (params + vectors)
     return bound(flops, nbytes)
+
+
+def int8_block_bound(B, N, C, H, hidden) -> dict:
+    """The int8 block: the four projections at the int8 rate, QK^T and PV
+    at the bf16 rate; x read and out written (bf16), the int8 weights, their
+    scales, the biases and LayerNorms read once."""
+    M = B * N
+    ops_ms = (2 * M * C * (4 * C + 2 * hidden) / INT8_OPS_PER_S
+              + 4 * B * H * N * N * (C // H) / BF16_FLOPS_PER_S) * 1e3
+    nbytes = 2 * M * C * 2 + (4 * C * C + 2 * C * hidden) + 4 * (2 * (4 * C + hidden) + 8 * C)
+    return {"ops_ms": ops_ms, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
 def predictor_bound(B, N, D, w) -> dict:
@@ -549,23 +619,30 @@ def plant_fault(dev, kind: str) -> int:
 
     from dense2sparse_vit_torch.ops import _cuda
 
-    pattern, replacement, reaches = FAULTS[kind]
+    source, pattern, replacement, reaches = FAULTS[kind]
     faulty = _cuda.BUILD_DIR / "fault_csrc"
     shutil.rmtree(faulty, ignore_errors=True)
     shutil.copytree(_cuda.CSRC, faulty)
-    src = Path(faulty) / "block_bwd.cu"
+    src = Path(faulty) / source
     text = src.read_text()
     if text.count(pattern) != 1:
-        raise AssertionError("the fault's pattern is not in block_bwd.cu once")
+        raise AssertionError(f"the fault's pattern is not in {source} once")
     src.write_text(text.replace(pattern, replacement))
     _cuda.CSRC = faulty
     _cuda.library()
-    mode = "gumbel" if kind == "policy" else "topk"
-    student, teacher, step = build_trainer(torch, dev, fused=True, mode=mode)
-    images, labels = train_batch(torch, dev)
-    rec = capture_train_step(torch, student, teacher, step, images, labels)
     try:
-        check_block_backwards(torch, student, rec, plain_blocks=kind != "policy")
+        if kind == "int8":
+            model = build_int8_student(torch, dev)
+            images = torch.randn((64, 224, 224, 3), device=dev, dtype=torch.bfloat16,
+                                 generator=torch.Generator(device=dev).manual_seed(13))
+            with torch.inference_mode():
+                walk_int8(torch, model, images)
+        else:
+            mode = "gumbel" if kind == "policy" else "topk"
+            student, teacher, step = build_trainer(torch, dev, fused=True, mode=mode)
+            images, labels = train_batch(torch, dev)
+            rec = capture_train_step(torch, student, teacher, step, images, labels)
+            check_block_backwards(torch, student, rec, plain_blocks=kind != "policy")
     except AssertionError as e:
         rejected = reaches in str(e)
         emit({"phase": "plant_fault", "fault": kind, "rejected": rejected,
@@ -1146,6 +1223,357 @@ def phase_serve_gumbel(torch, dev, tally):
           "pred_keep_probs": [t.shape[1] for t in out.pred_keep_probs]})
 
 
+# ---- int8 serving, export, eval -------------------------------------------
+
+
+def ulp_excess(got, want) -> float:
+    """How far got strays beyond one bf16 rounding of each element of want,
+    relative to want's largest magnitude."""
+    got, want = got.float(), want.float()
+    if not (got.isfinite().all() and want.isfinite().all()):
+        raise AssertionError("non-finite values")
+    excess = ((got - want).abs() - 2 * BF16_U * want.abs()).clamp(min=0)
+    return excess.max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def check_int8_block(torch, x, qw, num_heads, scale, ln_eps, block=None):
+    """Hold the int8 block kernel against its plain version, stage by stage,
+    each stage's plain version fed the kernel's own input to it:
+      codes1..codes4: the four quantizations (LN1(x), the attention output,
+        LN2(x_mid), the GELU activation): the share of codes that differ and
+        by how many steps, and the row scales (CODE_FLIP_SHARE, SCALE_TOL);
+      qkv, act, fc2_out: the dequantized products of the kernel's codes (fc1
+        through GELU, fc2 plus x_mid) within one bf16 rounding
+        (INT8_ULP_TOL); x_mid within INT8_MID_TOL of its branch;
+      attn: the attention core on the kernel's qkv (STAGE_TOL);
+      block: the whole output against `quant_block_reference` (BLOCK_TOL).
+    Prints the results, raises if a stage is out of tolerance, and returns
+    the kernel's output and its largest absolute error against the plain
+    block."""
+    import torch.nn.functional as F
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import attention_reference
+    from dense2sparse_vit_torch.ops.quant import (
+        dequantize, int_dot, layer_norm_f32, quant_block_reference, quantize_rows)
+
+    y, st = ops.fused_transformer_block_int8(x, qw, num_heads, scale=scale, ln_eps=ln_eps,
+                                             stages=True)
+
+    def product(i, codes, scales, bias):
+        return dequantize(int_dot(st[f"q{i}"], qw[codes]), st[f"s{i}"][..., None], qw[scales],
+                          qw[bias])
+
+    rel, codes, bad = {}, {}, {}
+    inputs = {1: layer_norm_f32(x.float(), qw["ln1_w"], qw["ln1_b"], ln_eps),
+              2: st["attn"].float(),
+              3: layer_norm_f32(st["mid"], qw["ln2_w"], qw["ln2_b"], ln_eps),
+              4: st["act"].float()}
+    for i, h in inputs.items():
+        q, s = quantize_rows(h)
+        step = (st[f"q{i}"].int() - q.int()).abs()
+        c = codes[f"codes{i}"] = {
+            "share": (step > 0).float().mean().item(), "max_step": step.max().item(),
+            "scale_rel_err": ((st[f"s{i}"] - s[..., 0]).abs() / s[..., 0]).max().item()}
+        flips = CODE_FLIP_SHARE if i in (1, 3) else 0.0  # the LayerNorm-fed ones
+        if c["share"] > flips or c["max_step"] > 1 or c["scale_rel_err"] > SCALE_TOL:
+            bad[f"codes{i}"] = c
+    dtype = x.dtype
+    branch = product(2, "wproj_q", "sproj", "bproj")
+    mid_err = (st["mid"] - (x.float() + branch)).abs().max().item()
+    rel["x_mid"] = (mid_err / max(branch.abs().max().item(), 1e-30), INT8_MID_TOL)
+    rel["qkv"] = (ulp_excess(st["qkv"], product(1, "wqkv_q", "sqkv", "bqkv").to(dtype)),
+                  INT8_ULP_TOL)
+    act = F.gelu(product(3, "w1_q", "s1", "b1").to(dtype).float()).to(dtype)
+    rel["act"] = (ulp_excess(st["act"], act), INT8_ULP_TOL)
+    rel["fc2_out"] = (ulp_excess(y, (st["mid"] + product(4, "w2_q", "s2", "b2")).to(dtype)),
+                      INT8_ULP_TOL)
+    err, ref = rel_err(torch, st["attn"], attention_reference(st["qkv"], num_heads, scale))
+    rel["attn"] = (err / max(ref, 1e-30), STAGE_TOL)
+    err, ref = rel_err(torch, y, quant_block_reference(x, qw, num_heads, scale, ln_eps))
+    rel["block"] = (err / ref, BLOCK_TOL)
+    emit({"phase": "check_int8", "kernel": "fused_transformer_block_int8", "block": block,
+          "shape": list(x.shape), "codes": codes, "max_abs_err": err, "max_abs_ref": ref,
+          "rel_err": {k: r for k, (r, _) in rel.items()},
+          "tol_rel": {k: t for k, (_, t) in rel.items()},
+          "tol_codes": {"share_ln": CODE_FLIP_SHARE, "share_other": 0.0, "max_step": 1,
+                        "scale_rel": SCALE_TOL}})
+    bad.update({k: r for k, (r, t) in rel.items() if not r <= t})
+    if bad:
+        raise AssertionError(f"int8 block kernel out of tolerance: {bad}")
+    return y, err
+
+
+def build_int8_student(torch, dev, quant="int8"):
+    """The headline student from seed 0 with the kernels, eval mode, int8
+    (quant="none": the bf16 kernels, on the same weights)."""
+    from dense2sparse_vit_torch.models import HEADLINE_KWARGS, HEADLINE_MODEL, create_model
+
+    return create_model(HEADLINE_MODEL, use_fused_attention=True, quant=quant, device=dev,
+                        generator=torch.Generator().manual_seed(0), **HEADLINE_KWARGS).eval()
+
+
+def walk_int8(torch, model, images, tally=None):
+    """The int8 student's forward stage by stage, every block held against
+    its plain version (`check_int8_block`); returns the logits and, per
+    width, the first block's input, int8 weights and arguments."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.topk import topk_keep_indices
+
+    bf16 = torch.bfloat16
+    keep = model.pruning.keep_counts(model.cfg.num_patches)
+    shapes = []
+    x = model.embed(images)
+    p = 0
+    for i, blk in enumerate(model.blocks):
+        if i in model.pruning.pruning_locs:
+            _, probs = model.score_predictor[p](x[:, 1:])
+            kept, _ = topk_keep_indices(probs, keep[p])
+            x = ops.fused_gather_tokens(x, torch.cat([kept.new_zeros(x.shape[0], 1), kept + 1],
+                                                     dim=1))
+            p += 1
+        qw = blk.int8_weights(bf16)
+        args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+        y, err = check_int8_block(torch, x, qw, *args, block=i)
+        if tally is not None:
+            tally.err("fused_transformer_block_int8", err)
+        if not shapes or shapes[-1][0].shape != x.shape:
+            shapes.append((x, qw, blk.kernel_weights(bf16), args))
+        x = y
+    return model.head(model.norm(x)[:, 0]), shapes
+
+
+def phase_serve_int8(torch, dev, tally):
+    """Phase 12; returns (model, images, outputs)."""
+    from dense2sparse_vit_torch import ops
+
+    model = build_int8_student(torch, dev)
+    N, C = model.cfg.num_patches, model.cfg.embed_dim
+    keep = model.pruning.keep_counts(N)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    images = {b: torch.randn((b, 224, 224, 3), generator=gen, device=dev, dtype=torch.bfloat16)
+              for b in SERVE_BATCHES}
+    outputs = {}
+    with torch.inference_mode():
+        for b in SERVE_BATCHES:
+            ops.reset_launch_counts()
+            out = model(images[b])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            if counts != PER_INT8_FORWARD:
+                raise AssertionError(f"int8 B={b}: launches {counts}, expected {PER_INT8_FORWARD}")
+            ok = (out.logits.shape == (b, 1000) and out.features.shape == (b, keep[-1], C)
+                  and int(out.kept_idx_orig.max()) < N
+                  and bool(torch.isfinite(out.logits.float()).all())
+                  and bool(torch.isfinite(out.features.float()).all()))
+            if not ok:
+                raise AssertionError(f"int8 B={b}: bad outputs {out.logits.shape} "
+                                     f"{out.features.shape}")
+            for k, v in counts.items():
+                tally.rows[k]["launches"] += v
+            outputs[b] = out
+            emit({"phase": "serve_int8", "batch": b, "launches": counts,
+                  "logits": list(out.logits.shape), "features": list(out.features.shape)})
+    return model, images, outputs
+
+
+def phase_check_int8(torch, dev, model, images, outputs, tally):
+    """Phase 13; returns (the bf16-kernel model on the same weights, the
+    shapes phase 14 times)."""
+    bf16_model = build_int8_student(torch, dev, quant="none")
+    bf16_model.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        logits, shapes = walk_int8(torch, model, images[B_CHECK], tally)
+        if not torch.equal(logits, outputs[B_CHECK].logits):
+            raise AssertionError("int8 stage walk and model forward disagree")
+        ref = bf16_model(images[B_CHECK]).logits.float()
+    got = logits.float()
+    rms = ((got - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+    top1 = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    emit({"phase": "check_int8", "int8_walk_equals_forward": True,
+          "logits_vs_bf16_kernels": {"batch": B_CHECK, "rel_rms": rms, "top1_agreement": top1}})
+    return bf16_model, shapes
+
+
+def phase_time_int8(torch, dev, model, bf16_model, images, shapes, tally, smi):
+    """Phase 14."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import HEADLINE_KWARGS, HEADLINE_MODEL, create_model
+    from dense2sparse_vit_torch.ops.quant import quant_block_reference
+
+    hidden = model.blocks[0].mlp.fc1.out_features
+    with torch.inference_mode():
+        for x, qw, w, args in shapes:  # 3 blocks at each width
+            k_ms, p_ms = paired_ms(
+                torch,
+                lambda: ops.fused_transformer_block_int8(x, qw, args[0], scale=args[1],
+                                                         ln_eps=args[2]),
+                lambda: quant_block_reference(x, qw, *args), iters=10)
+            bf16_ms = cuda_ms(torch, lambda: ops.fused_transformer_block(
+                x, w, args[0], scale=args[1], ln_eps=args[2]), iters=10)
+            b = int8_block_bound(*x.shape, args[0], hidden)
+            tally.add("fused_transformer_block_int8", 3, k_ms, p_ms, b)
+            emit({"phase": "time_int8", "kernel": "fused_transformer_block_int8",
+                  "shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
+                  "bf16_kernel_ms": bf16_ms, "bound_ms": max(b.values()),
+                  "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes"})
+        plain = create_model(HEADLINE_MODEL, use_fused_attention=False, device=dev,
+                             **HEADLINE_KWARGS).eval()
+        plain.load_state_dict(model.state_dict())
+        imgs = images[B_CHECK]
+        i_ms, b_ms = paired_ms(torch, lambda: model(imgs), lambda: bf16_model(imgs), iters=5)
+        i2_ms, p_ms = paired_ms(torch, lambda: model(imgs), lambda: plain(imgs), iters=5)
+    emit({"phase": "time_int8", "forward": "B=256 pruned student",
+          "int8_kernels_ms": i_ms, "bf16_kernels_ms": b_ms, "plain_ms": p_ms,
+          "int8_kernels_ms_beside_plain": i2_ms,
+          "int8_img_per_s": B_CHECK / i_ms * 1e3, "bf16_img_per_s": B_CHECK / b_ms * 1e3,
+          "plain_img_per_s": B_CHECK / p_ms * 1e3, "card": smi})
+
+
+# The serving process of phase 15: loads each saved artifact directory and
+# serves seeded batches; imports the port's op library, never its models.
+LOADER = r"""
+import json, sys, torch
+from dense2sparse_vit_torch import ops
+from dense2sparse_vit_torch.utils.serving import ServingModel
+jobs, out = json.loads(sys.argv[1]), sys.argv[2]
+dev = torch.device("cuda", 0)
+res = {}
+for name, path, batches, seed in jobs:
+    sm = ServingModel.load(path)
+    entry = {"symbolic": sm.symbolic, "buckets": list(sm.buckets), "counts": {}, "logits": {}}
+    for b in batches:
+        gen = torch.Generator(device=dev).manual_seed(seed + b)
+        x = torch.randn((b, 224, 224, 3), generator=gen, device=dev)
+        ops.reset_launch_counts()
+        y = sm(x)
+        torch.cuda.synchronize()
+        entry["counts"][b], entry["logits"][b] = ops.launch_counts(), y.cpu()
+    res[name] = entry
+res["models_imported"] = sorted(m for m in sys.modules
+                                if m.startswith("dense2sparse_vit_torch.models"))
+torch.save(res, out)
+"""
+
+
+def phase_serve_export(torch, dev, int8_model):
+    """Phase 15."""
+    import subprocess
+    from pathlib import Path
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import (
+        GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL, THRESHOLD_KWARGS,
+        create_model)
+    from dense2sparse_vit_torch.ops import _cuda
+    from dense2sparse_vit_torch.utils.serving import ServingModel
+
+    root = _cuda.BUILD_DIR / "serving"
+    shutil.rmtree(root, ignore_errors=True)
+    students = {"int8": (int8_model, PER_INT8_FORWARD, EXPORT_BUCKETS, EXPORT_BATCHES, True)}
+    for name, model, kwargs, per in (
+        ("topk", HEADLINE_MODEL, HEADLINE_KWARGS, PER_FORWARD),
+        ("threshold", HEADLINE_MODEL, THRESHOLD_KWARGS, PER_THRESHOLD_FORWARD),
+        ("gumbel", GUMBEL_MODEL, GUMBEL_KWARGS, PER_GUMBEL_FORWARD),
+    ):
+        m = create_model(model, use_fused_attention=True, device=dev,
+                         generator=torch.Generator().manual_seed(0), **kwargs).eval()
+        students[name] = (m, per, (8,), (1, 5, 8, 9), False)
+    jobs, served = [], {}
+    for name, (model, per, buckets, batches, try_symbolic) in students.items():
+        t0 = time.perf_counter()
+        sm = ServingModel.export(model, buckets=buckets, try_symbolic=try_symbolic)
+        path = root / name
+        sm.save(str(path))
+        served[name] = sm
+        emit({"phase": "serve_export", "student": name, "symbolic": sm.symbolic,
+              "buckets": list(sm.buckets), "symbolic_error": sm.symbolic_error,
+              "export_s": round(time.perf_counter() - t0, 2),
+              "artifact_bytes": sum(f.stat().st_size for f in Path(path).iterdir())})
+        jobs.append((name, str(path), list(batches), 100))
+    out = root / "served.pt"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", LOADER, json.dumps(jobs), str(out)],
+                   cwd=str(Path(__file__).resolve().parent), check=True, timeout=900)
+    res = torch.load(out)
+    if res["models_imported"]:
+        raise AssertionError(f"the serving process imported {res['models_imported']}")
+    emit({"phase": "serve_export", "loaded_in_fresh_process_s": round(time.perf_counter() - t0, 2),
+          "models_imported": res["models_imported"]})
+    for name, (model, per, buckets, batches, _) in students.items():
+        entry, sm = res[name], served[name]
+        if entry["symbolic"] != sm.symbolic or tuple(entry["buckets"]) != sm.buckets:
+            raise AssertionError(f"{name}: the loaded artifact is not the one saved")
+        dtype = getattr(torch, model.cfg.dtype)
+        for b in batches:
+            gen = torch.Generator(device=dev).manual_seed(100 + b)
+            x = torch.randn((b, 224, 224, 3), generator=gen, device=dev)
+            with torch.inference_mode():
+                ops.reset_launch_counts()
+                want = model(x.to(dtype)).logits.float().cpu()
+                torch.cuda.synchronize()
+                live = ops.launch_counts()
+            if live != per:
+                raise AssertionError(f"{name} B={b}: live launches {live}, expected {per}")
+            calls, i = 0, 0
+            while i < b:  # the artifact calls ServingModel makes for b rows
+                i += sm._bucket_for(b - i) if not sm.symbolic else b
+                calls += 1
+            expect = {k: v * calls for k, v in per.items()}
+            got = entry["logits"][b]
+            err, scale = rel_err(torch, got, want)
+            top1 = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+            emit({"phase": "serve_export", "student": name, "batch": b,
+                  "artifact_calls": calls, "launches": entry["counts"][b],
+                  "bit_equal": bool(torch.equal(got, want)), "top1_equal": top1,
+                  "max_abs_err": err, "max_abs_ref": scale, "tol_rel": LOGITS_TOL})
+            if entry["counts"][b] != expect:
+                raise AssertionError(f"{name} B={b}: artifact launches {entry['counts'][b]}, "
+                                     f"expected {expect}")
+            if got.shape != want.shape or not top1 or err > LOGITS_TOL * max(scale, 1e-3):
+                raise AssertionError(f"{name} B={b}: served logits differ from the live "
+                                     f"model's (max err {err}, top-1 equal {top1})")
+
+
+def phase_eval(torch, dev, tally):
+    """Phase 16."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.core import ExperimentConfig
+    from dense2sparse_vit_torch.models import (
+        GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER,
+        create_model)
+    from dense2sparse_vit_torch.train import make_dynamic_vit_eval_step, make_eval_step
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    images = torch.randn((B_EVAL, 224, 224, 3), generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (B_EVAL,), generator=gen, device=dev)
+    labels[-EVAL_PADDING:] = -1
+    teacher = create_model(HEADLINE_TEACHER, use_fused_attention=True, device=dev,
+                           dtype="bfloat16", generator=torch.Generator().manual_seed(2))
+    for name, model, kwargs, make in (
+        ("topk", HEADLINE_MODEL, HEADLINE_KWARGS, make_eval_step),
+        ("int8", HEADLINE_MODEL, dict(HEADLINE_KWARGS, quant="int8"), make_eval_step),
+        ("gumbel", GUMBEL_MODEL, GUMBEL_KWARGS, make_dynamic_vit_eval_step),
+    ):
+        student = create_model(model, use_fused_attention=True, device=dev,
+                               generator=torch.Generator().manual_seed(0), **kwargs)
+        step = make(student, teacher, ExperimentConfig(model=student.cfg, pruning=student.pruning))
+        ops.reset_launch_counts()
+        metrics = step(images, labels)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        values = {k: v.item() for k, v in metrics.items()}
+        emit({"phase": "eval", "student": name, "batch": B_EVAL, "padded_rows": EVAL_PADDING,
+              "launches": counts, "metrics": values})
+        if counts != PER_EVAL_STEP[name]:
+            raise AssertionError(f"eval {name}: launches {counts}, expected {PER_EVAL_STEP[name]}")
+        bad = [k for k, v in values.items() if v != v or abs(v) == float("inf")]
+        if bad or values["n_valid"] != B_EVAL - EVAL_PADDING:
+            raise AssertionError(f"eval {name}: non-finite {bad}, n_valid {values['n_valid']}")
+        for k, v in counts.items():
+            tally.rows[k]["launches"] += v
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1193,6 +1621,17 @@ def main(argv=None) -> int:
         phase_train_policy(torch, dev, tally, smi, mode)
         torch.cuda.empty_cache()
     phase_serve_gumbel(torch, dev, tally)
+    torch.cuda.empty_cache()
+    # ---- 12-16. int8 serving, export, eval -------------------------------
+    model, images, outputs = phase_serve_int8(torch, dev, tally)
+    bf16_model, shapes = phase_check_int8(torch, dev, model, images, outputs, tally)
+    phase_time_int8(torch, dev, model, bf16_model, images, shapes, tally, smi)
+    del bf16_model, images, outputs, shapes
+    torch.cuda.empty_cache()
+    phase_serve_export(torch, dev, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_eval(torch, dev, tally)
 
     emit(tally.line())
     print(smi, flush=True)

@@ -41,8 +41,19 @@ class ModelConfig:
     # run the blocks, predictors and token gathers through the hand-written
     # CUDA kernels (the plain torch versions run for tensors on the CPU)
     use_fused_attention: bool = False
-    # 'none' | 'int8' (W8A8 serving, not ported yet)
+    # 'none' | 'int8': W8A8 projections (ops/quant.py) on the eval-mode,
+    # policy-free blocks of the students; training, policy blocks, CLS
+    # capture and the teacher stay in the compute dtype
     quant: str = "none"
+
+    def __post_init__(self):
+        if self.quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant mode {self.quant!r}")
+        if self.quant == "int8" and not self.use_fused_attention:
+            raise ValueError(
+                "quant='int8' runs through the fused block kernels; set "
+                "use_fused_attention=True"
+            )
 
     @property
     def num_patches(self) -> int:

@@ -326,9 +326,10 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
-static cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
-                                    const float* pol, int B, int N, int H, float scale,
-                                    float eps, cudaStream_t stream) {
+// also launched by quant_block.cu (the int8 block's bf16 attention core)
+cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
+                             const float* pol, int B, int N, int H, float scale, float eps,
+                             cudaStream_t stream) {
   if (N <= 0 || N > ATT_MAX_N) return cudaErrorInvalidValue;
   const size_t smem = att_smem_bytes(N, pol != nullptr);
   auto kernel = pol ? attention_kernel<true> : attention_kernel<false>;

@@ -61,12 +61,14 @@ class StudentOutput:
 class DeiTBackbone(nn.Module):
     """The DeiT pieces the student and the teacher share: patch embedding,
     CLS token, position embedding, the blocks, the final norm and the head,
-    with the JAX models' init. Int8 serving and elementwise dropout are not
-    ported and are rejected."""
+    with the JAX models' init. The blocks take `cfg.quant` unless
+    `quantized_blocks` is False (the teacher's). Elementwise dropout is not
+    ported and is rejected."""
+
+    quantized_blocks = True
 
     def __init__(self, cfg: ModelConfig):
         reject_unported({
-            "quant": cfg.quant != "none",
             "drop_rate / attn_drop_rate": cfg.drop_rate > 0 or cfg.attn_drop_rate > 0,
         })
         super().__init__()
@@ -81,6 +83,7 @@ class DeiTBackbone(nn.Module):
                 drop_path=cfg.drop_path_rate * i / max(cfg.depth - 1, 1),
                 layer_norm_eps=cfg.layer_norm_eps,
                 use_fused=cfg.use_fused_attention,
+                quant=cfg.quant if self.quantized_blocks else "none",
             )
             for i in range(cfg.depth)
         )

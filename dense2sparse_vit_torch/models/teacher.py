@@ -15,7 +15,12 @@ from dense2sparse_vit_torch.models.student import DeiTBackbone
 
 
 class ViTTeacher(DeiTBackbone):
-    """See the module docstring. Images are NHWC (B, H, W, 3)."""
+    """See the module docstring. Images are NHWC (B, H, W, 3). The teacher
+    never quantizes: as the JAX teacher builds its blocks without `quant`
+    (`models/teacher.py:58-69`), its blocks stay in the compute dtype
+    whatever `cfg.quant` says."""
+
+    quantized_blocks = False
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, *, return_head: bool = True):

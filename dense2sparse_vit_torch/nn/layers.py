@@ -23,30 +23,59 @@ from dense2sparse_vit_torch.ops.block import (
     fused_transformer_block_trainable,
     layer_norm,
 )
+from dense2sparse_vit_torch.ops.quant import fused_transformer_block_int8, quantize_matrices
+
+
+def _param_key(params) -> tuple:
+    # an inference tensor has no version counter; it cannot be changed in
+    # place outside inference mode
+    return tuple((p.data_ptr(), -1 if p.is_inference() else p._version) for p in params)
+
+
+def cached_tensors(module: nn.Module, tag: str, key, make) -> dict:
+    """The tensors `make()` returns ({name: tensor}), kept on `module` as
+    non-persistent buffers `_{tag}_{name}` and remade when `key()` changes.
+
+    Buffers, so that `torch.export` lifts them into the artifact as they are
+    instead of recomputing them in the graph. While export traces, the
+    parameters are fake and have no data pointer to key on: the buffers of
+    the last eager call are used as they stand (`utils.export` makes one
+    eager call right before it traces), or, without one, `make()` runs in
+    the traced graph.
+    """
+    caches = module.__dict__.setdefault("_weight_caches", {})
+    if torch.compiler.is_compiling():
+        if tag not in caches:
+            return make()
+        return {n: module._buffers[f"_{tag}_{n}"] for n in caches[tag][1]}
+    k = key()
+    if tag not in caches or caches[tag][0] != k:
+        tensors = make()
+        for n, t in tensors.items():
+            module.register_buffer(f"_{tag}_{n}", t, persistent=False)
+        caches[tag] = (k, tuple(tensors))
+    return {n: module._buffers[f"_{tag}_{n}"] for n in caches[tag][1]}
 
 
 def compute_weights(module: nn.Module, dtype: torch.dtype) -> dict:
     """`module`'s own parameters by name, in `dtype`.
 
     Outside autograd the copies are made once per dtype and kept on the
-    module; they are remade after a parameter is replaced or changed in place
-    (`load_state_dict`, `.to(device)`). Under autograd the casts are made on
-    each call, so that gradients reach the fp32 parameters.
+    module (`cached_tensors`); they are remade after a parameter is replaced
+    or changed in place (`load_state_dict`, `.to(device)`). A parameter
+    already in `dtype` is returned as it is. Under autograd the casts are
+    made on each call, so that gradients reach the fp32 parameters.
     """
     params = {n: p for n, p in module._parameters.items() if p is not None}
     if torch.is_grad_enabled() and any(p.requires_grad for p in params.values()):
         return {n: p.to(dtype) for n, p in params.items()}
-    # an inference tensor has no version counter; it cannot be changed in
-    # place outside inference mode
-    key = (dtype,) + tuple(
-        (p.data_ptr(), -1 if p.is_inference() else p._version)
-        for p in params.values()
-    )
-    cache = getattr(module, "_compute_copies", None)
-    if cache is None or cache[0] != key:
-        cache = (key, {n: p.detach().to(dtype) for n, p in params.items()})
-        module._compute_copies = cache
-    return cache[1]
+    cast = {n: p for n, p in params.items() if p.dtype != dtype}
+    if not cast:
+        return params
+    copies = cached_tensors(module, str(dtype).replace("torch.", ""),
+                            lambda: (dtype,) + _param_key(cast.values()),
+                            lambda: {n: p.detach().to(dtype) for n, p in cast.items()})
+    return {n: copies.get(n, p) for n, p in params.items()}
 
 
 # std of a unit normal cut at +-2: flax's truncated_normal(0.02, -2, 2)
@@ -156,14 +185,22 @@ class Block(nn.Module):
     kernels have no DropPath, so a fused block with drop_path > 0 refuses to
     train, and no CLS capture under autograd (the JAX package's packed
     attention kernel, not ported), which a fused block refuses in train mode.
+
+    With quant="int8" (W8A8 serving, JAX `nn/layers.py:295-311`), the eval
+    mode's policy-free block without CLS capture runs
+    `ops.quant.fused_transformer_block_int8` on `int8_weights`; policy
+    blocks, CLS capture and train mode keep the wrappers above.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  drop_path: float = 0.0, layer_norm_eps: float = 1e-6,
-                 use_fused: bool = False):
+                 use_fused: bool = False, quant: str = "none"):
         super().__init__()
+        if quant not in ("none", "int8") or (quant == "int8" and not use_fused):
+            raise ValueError(f"quant={quant!r}: 'none', or 'int8' with use_fused")
         self.use_fused = use_fused
+        self.quant = quant
         self.norm1 = LayerNorm(dim, eps=layer_norm_eps)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale)
         self.drop_path = DropPath(drop_path)
@@ -185,12 +222,30 @@ class Block(nn.Module):
             "b2": self.mlp.fc2.bias,
         }
 
+    def int8_weights(self, dtype: torch.dtype) -> dict:
+        """The layout `fused_transformer_block_int8` takes: the four matrices
+        quantized from their `dtype` copies (as the JAX block quantizes its
+        compute-dtype casts), kept on the block until a weight changes; the
+        LayerNorm parameters and biases as they are (fp32)."""
+        w = self.kernel_weights(dtype)
+        mats = (self.attn.qkv.weight, self.attn.proj.weight, self.mlp.fc1.weight,
+                self.mlp.fc2.weight)
+        codes = cached_tensors(self, f"int8_{str(dtype).replace('torch.', '')}",
+                               lambda: (dtype,) + _param_key(mats), lambda: quantize_matrices(w))
+        return {**{k: w[k] for k in ("ln1_w", "ln1_b", "bqkv", "bproj", "ln2_w", "ln2_b",
+                                     "b1", "b2")}, **codes}
+
     def forward(self, x, policy=None, *, return_cls_attn: bool = False):
         """(B, N, C) -> (B, N, C); with `return_cls_attn`, (out, cls_attn)
         with the (B, H, N) CLS row of the attention probabilities. policy:
         an optional (B, N) or (B, N, 1) keep mask (1 = kept), CLS included."""
         if policy is not None:
             policy = policy.reshape(x.shape[0], x.shape[1])
+        if (self.quant == "int8" and not self.training and policy is None
+                and not return_cls_attn):
+            return fused_transformer_block_int8(x, self.int8_weights(x.dtype),
+                                                self.attn.num_heads, scale=self.attn.scale,
+                                                ln_eps=self.norm1.eps)
         if self.use_fused:
             if self.training and self.drop_path.rate > 0:
                 raise NotImplementedError("the fused block has no DropPath kernel yet")

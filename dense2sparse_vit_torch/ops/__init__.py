@@ -1,8 +1,12 @@
 """Token selection and the hand-written CUDA kernels with their plain versions.
 
-Each kernel wrapper counts its launches in a `launches` attribute; the
-block's forward and backward count their policy-mode launches apart, in
-`policy_launches`. `COUNTERS` lists every count by its name.
+Each kernel wrapper counts its launches in a `launches` attribute, where it
+launches the kernel (for the serving path's kernels, in the `cuda`
+implementation of their custom op, so that calls from an exported artifact
+count too); the block's forward and backward count their policy-mode
+launches apart, in `policy_launches`. `COUNTERS` lists every count by its
+name. Importing this package registers the custom ops (`d2s::*`), which is
+all a loaded `torch.export` artifact needs of the port.
 """
 
 from dense2sparse_vit_torch.ops.block import (
@@ -17,6 +21,7 @@ from dense2sparse_vit_torch.ops.gather import (
     gather_tokens_reference,
 )
 from dense2sparse_vit_torch.ops.predictor import fused_predictor_lg
+from dense2sparse_vit_torch.ops.quant import fused_transformer_block_int8
 from dense2sparse_vit_torch.ops.topk import mask_from_scores, threshold_keep_mask, topk_keep_indices
 
 # (name, wrapper, attribute holding the count)
@@ -30,6 +35,7 @@ COUNTERS = (
     ("fused_predictor_lg", fused_predictor_lg, "launches"),
     ("fused_gather_tokens", fused_gather_tokens, "launches"),
     ("fused_scatter_tokens", fused_scatter_tokens, "launches"),
+    ("fused_transformer_block_int8", fused_transformer_block_int8, "launches"),
 )
 KERNEL_NAMES = tuple(name for name, _, _ in COUNTERS)
 
@@ -47,7 +53,7 @@ __all__ = [
     "COUNTERS", "KERNEL_NAMES", "fused_gather_tokens", "fused_predictor_lg",
     "fused_scatter_tokens", "fused_transformer_block",
     "fused_transformer_block_backward", "fused_transformer_block_cls",
-    "fused_transformer_block_trainable", "gather_tokens_reference",
+    "fused_transformer_block_int8", "fused_transformer_block_trainable", "gather_tokens_reference",
     "launch_counts", "mask_from_scores", "reset_launch_counts",
     "threshold_keep_mask", "topk_keep_indices",
 ]

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "d2s_block_forward": [_P] * 23 + [_I] * 5 + [_F] * 3 + [_P],
     "d2s_block_backward": [_P] * 30 + [_I] * 5 + [_F] * 3 + [_P],
     "d2s_block_backward_scratch_bytes": [_I] * 6,
+    "d2s_block_int8_forward": [_P] * 30 + [_I] * 5 + [_F] * 2 + [_P],
     "d2s_predictor_forward": (
         [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         + [_P] * 4 + [_P] * 4 + [_I, _F, _P]

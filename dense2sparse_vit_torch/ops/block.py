@@ -25,7 +25,12 @@ threshold and gumbel paths' attention.
 
 For CUDA tensors the wrappers launch `csrc/block.cu` and `csrc/block_bwd.cu`;
 for CPU tensors they run `transformer_block_reference` and
-`transformer_block_backward_reference`, the plain torch versions.
+`transformer_block_backward_reference`, the plain torch versions. The two
+forwards go through the custom ops `d2s::block_forward` and
+`d2s::block_forward_cls` (a `cuda` implementation that launches the
+kernel and counts the launch, a `cpu` one that runs the plain version, and
+a fake one for `torch.export`); on the CPU under autograd the wrappers call
+the differentiable plain version directly.
 
 Weights are a dict with the keys of `BLOCK_WEIGHT_KEYS`: the matrices in the
 torch Linear layout (out, in) and the compute dtype, the LayerNorm
@@ -33,6 +38,8 @@ parameters and biases in fp32; `bqkv` may be None.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -176,11 +183,14 @@ def _policy_arg(policy, x, what):
     return pol.float().contiguous()
 
 
-def _refuse_autograd(x, w, policy, what):
-    if torch.is_grad_enabled() and (
+def _needs_grad(x, w, policy) -> bool:
+    return torch.is_grad_enabled() and (
         x.requires_grad or any(v is not None and v.requires_grad for v in w.values())
-        or (policy is not None and policy.requires_grad)
-    ):
+        or (policy is not None and policy.requires_grad))
+
+
+def _refuse_autograd(x, w, policy, what):
+    if _needs_grad(x, w, policy):
         raise RuntimeError(
             f"{what} is not differentiable on the card: under autograd use "
             "fused_transformer_block_trainable"
@@ -211,6 +221,12 @@ def _launch_forward(x, w, num_heads, scale, ln_eps, *, policy, eps, cls, what):
         _cuda.stream_handle(dev),
     )
     _cuda.check(err, "d2s_block_forward")
+    if cls:
+        fused_transformer_block_cls.launches += 1
+    elif policy is None:
+        fused_transformer_block.launches += 1
+    else:
+        fused_transformer_block.policy_launches += 1
     return out, {"qkv": qkv, "attn": attn, "mid": mid, "hid": hid}, cls_rows
 
 
@@ -218,6 +234,61 @@ def _check_x(x):
     if x.dim() != 3:
         raise ValueError(f"expected x (B, N, C), got {tuple(x.shape)}")
     return x.shape[2]
+
+
+# the custom ops take the weights as one list (BLOCK_WEIGHT_KEYS without the
+# optional bqkv) and bqkv apart
+_OP_KEYS = tuple(k for k in BLOCK_WEIGHT_KEYS if k != "bqkv")
+
+
+def _op_weights(w: dict) -> list:
+    return [w[k] for k in _OP_KEYS]
+
+
+def _weights_dict(weights, bqkv) -> dict:
+    return dict(zip(_OP_KEYS, weights), bqkv=bqkv)
+
+
+@torch.library.custom_op("d2s::block_forward", mutates_args=(), device_types="cpu")
+def _block_forward_op(x: torch.Tensor, weights: List[torch.Tensor], bqkv: Optional[torch.Tensor],
+                      policy: Optional[torch.Tensor], num_heads: int, scale: float,
+                      ln_eps: float, eps: float) -> torch.Tensor:
+    return transformer_block_reference(x, _weights_dict(weights, bqkv), num_heads, scale,
+                                       ln_eps, policy=policy, eps=eps)
+
+
+@_block_forward_op.register_kernel("cuda")
+def _(x, weights, bqkv, policy, num_heads, scale, ln_eps, eps):
+    return _launch_forward(x, _weights_dict(weights, bqkv), num_heads, scale, ln_eps,
+                           policy=policy, eps=eps, cls=False, what="fused_transformer_block")[0]
+
+
+@_block_forward_op.register_fake
+def _(x, weights, bqkv, policy, num_heads, scale, ln_eps, eps):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("d2s::block_forward_cls", mutates_args=(), device_types="cpu")
+def _block_forward_cls_op(x: torch.Tensor, weights: List[torch.Tensor],
+                          bqkv: Optional[torch.Tensor], policy: Optional[torch.Tensor],
+                          num_heads: int, scale: float, ln_eps: float,
+                          eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return transformer_block_reference(x, _weights_dict(weights, bqkv), num_heads, scale,
+                                       ln_eps, policy=policy, eps=eps, return_cls=True)
+
+
+@_block_forward_cls_op.register_kernel("cuda")
+def _(x, weights, bqkv, policy, num_heads, scale, ln_eps, eps):
+    out, _, cls = _launch_forward(x, _weights_dict(weights, bqkv), num_heads, scale, ln_eps,
+                                  policy=policy, eps=eps, cls=True,
+                                  what="fused_transformer_block_cls")
+    return out, cls
+
+
+@_block_forward_cls_op.register_fake
+def _(x, weights, bqkv, policy, num_heads, scale, ln_eps, eps):
+    B, N, _ = x.shape
+    return torch.empty_like(x), x.new_empty((B, num_heads, N))
 
 
 def fused_transformer_block(
@@ -245,16 +316,17 @@ def fused_transformer_block(
     C = _check_x(x)
     if scale is None:
         scale = (C // num_heads) ** -0.5
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and (stages or _needs_grad(x, w, policy)):
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, stages=stages)
-    out, st, _ = _launch_forward(x, w, num_heads, scale, ln_eps, policy=policy, eps=eps,
-                                 cls=False, what="fused_transformer_block")
-    if policy is None:
-        fused_transformer_block.launches += 1
-    else:
-        fused_transformer_block.policy_launches += 1
-    return (out, st) if stages else out
+    if stages:
+        out, st, _ = _launch_forward(x, w, num_heads, scale, ln_eps, policy=policy, eps=eps,
+                                     cls=False, what="fused_transformer_block")
+        return out, st
+    _refuse_autograd(x, w, policy, "fused_transformer_block")
+    return torch.ops.d2s.block_forward(x, _op_weights(w), w["bqkv"],
+                                       _policy_arg(policy, x, "fused_transformer_block"),
+                                       num_heads, float(scale), float(ln_eps), float(eps))
 
 
 def fused_transformer_block_cls(
@@ -274,13 +346,13 @@ def fused_transformer_block_cls(
     C = _check_x(x)
     if scale is None:
         scale = (C // num_heads) ** -0.5
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and _needs_grad(x, w, policy):
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, return_cls=True)
-    out, _, cls = _launch_forward(x, w, num_heads, scale, ln_eps, policy=policy, eps=eps,
-                                  cls=True, what="fused_transformer_block_cls")
-    fused_transformer_block_cls.launches += 1
-    return out, cls
+    _refuse_autograd(x, w, policy, "fused_transformer_block_cls")
+    return torch.ops.d2s.block_forward_cls(x, _op_weights(w), w["bqkv"],
+                                           _policy_arg(policy, x, "fused_transformer_block_cls"),
+                                           num_heads, float(scale), float(ln_eps), float(eps))
 
 
 def fused_transformer_block_backward(

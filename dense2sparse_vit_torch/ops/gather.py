@@ -10,7 +10,10 @@ indices add up and out-of-range ones contribute nothing.
 
 For CUDA tensors both launch `csrc/gather.cu`; for CPU tensors they run
 `gather_tokens_reference` and `scatter_tokens_reference`, the plain torch
-versions of the same functions.
+versions of the same functions. The gather goes through the custom op
+`d2s::gather_tokens` (a `cuda` implementation that launches the kernel and
+counts the launch, a `cpu` one that runs the plain version, and a fake one
+for `torch.export`).
 """
 
 from __future__ import annotations
@@ -65,9 +68,18 @@ def _check_pair(rows: torch.Tensor, idx: torch.Tensor, what: str) -> None:
             f"{what}: rows of {row_bytes} bytes: need a 16-byte multiple, aligned")
 
 
-def _gather_forward(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return gather_tokens_reference(x, idx)
+@torch.library.custom_op("d2s::gather_tokens", mutates_args=(), device_types="cpu")
+def _gather_op(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return gather_tokens_reference(x, idx)
+
+
+@_gather_op.register_fake
+def _(x, idx):
+    return x.new_empty((x.shape[0], idx.shape[1], x.shape[2]))
+
+
+@_gather_op.register_kernel("cuda")
+def _launch_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check_pair(x, idx, "fused_gather_tokens")
     B, N, D = x.shape
     K = idx.shape[1]
@@ -109,7 +121,7 @@ class _GatherTokens(torch.autograd.Function):
     def forward(ctx, x, idx):
         ctx.save_for_backward(idx)
         ctx.n = x.shape[1]
-        return _gather_forward(x, idx)
+        return torch.ops.d2s.gather_tokens(x, idx)
 
     @staticmethod
     def backward(ctx, g):
@@ -126,7 +138,7 @@ def fused_gather_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         )
     if torch.is_grad_enabled() and x.requires_grad:
         return _GatherTokens.apply(x, idx)
-    return _gather_forward(x, idx)  # no graph to record: skip the Function's host cost
+    return torch.ops.d2s.gather_tokens(x, idx)  # no graph to record: skip the Function's host cost
 
 
 fused_gather_tokens.launches = 0

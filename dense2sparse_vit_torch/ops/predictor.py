@@ -3,7 +3,11 @@
 `fused_predictor_lg` is the port of
 `dense2sparse_vit_tpu/ops/pallas/predictor.py::fused_predictor_lg`. For a
 CUDA tensor it launches `csrc/predictor.cu`; for a CPU tensor it runs
-`predictor_lg_reference`, the plain torch version.
+`predictor_lg_reference`, the plain torch version. Both go through the
+custom op `d2s::predictor_lg` (a `cuda` implementation that launches the
+kernel and counts the launch, a `cpu` one that runs the plain version, and
+a fake one for `torch.export`); on the CPU under autograd the wrapper calls
+the differentiable plain version directly.
 
 Weights are a dict:
   units: [(ln_w, ln_b, weight, bias), ...] for the input units, then the
@@ -18,6 +22,7 @@ Weights are a dict:
 from __future__ import annotations
 
 import ctypes
+from typing import List
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +53,32 @@ def predictor_lg_reference(x: torch.Tensor, w: dict, eps: float = 1e-5):
     return linear(layer_norm(h, ln_w, ln_b, eps), weight, bias)[..., 0]
 
 
+def _flat(w: dict) -> list:
+    """The units' and the final unit's tensors, four each, in order."""
+    return [t for unit in (*w["units"], w["final"]) for t in unit]
+
+
+def _unflat(tensors, n_in: int, act: str) -> dict:
+    units = [tuple(tensors[i:i + 4]) for i in range(0, len(tensors), 4)]
+    return {"units": units[:-1], "n_in": n_in, "final": units[-1], "act": act}
+
+
+@torch.library.custom_op("d2s::predictor_lg", mutates_args=(), device_types="cpu")
+def _predictor_op(x: torch.Tensor, tensors: List[torch.Tensor], n_in: int, act: str,
+                  eps: float) -> torch.Tensor:
+    return predictor_lg_reference(x, _unflat(tensors, n_in, act), eps).contiguous()
+
+
+@_predictor_op.register_fake
+def _(x, tensors, n_in, act, eps):
+    return x.new_empty(x.shape[:2])
+
+
+@_predictor_op.register_kernel("cuda")
+def _(x, tensors, n_in, act, eps):
+    return _launch_predictor(x, _unflat(tensors, n_in, act), eps)
+
+
 def fused_predictor_lg(x: torch.Tensor, w: dict, eps: float = 1e-5):
     """(B, N, D) spatial tokens -> (B, N) raw keep scores, in x.dtype.
 
@@ -57,12 +88,16 @@ def fused_predictor_lg(x: torch.Tensor, w: dict, eps: float = 1e-5):
     """
     if x.dim() != 3:
         raise ValueError(f"expected x (B, N, D), got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in _flat(w)))
+    if x.device.type == "cpu" and needs_grad:
         return predictor_lg_reference(x, w, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"x is on {x.device}: need a CUDA or CPU tensor")
-    if torch.is_grad_enabled() and x.requires_grad:
+    if needs_grad:
         raise RuntimeError("fused_predictor_lg has no backward kernel yet")
+    return torch.ops.d2s.predictor_lg(x, _flat(w), w["n_in"], w["act"], float(eps))
+
+
+def _launch_predictor(x: torch.Tensor, w: dict, eps: float):
     B, N, D = x.shape
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     if x.dtype != bf16:

@@ -1,12 +1,13 @@
 """Where the device time of the headline student's forward goes, by kernel.
 
     python -m dense2sparse_vit_torch.utils.profile_forward [--batch 256] [--plain]
-        [--mode topk|threshold|gumbel]
+        [--mode topk|threshold|gumbel] [--quant int8]
 
 Runs `--iters` forwards of `dynamic_vit_small_patch16_224_student` (bf16,
 keep 0.7/0.49/0.343 at blocks 3/6/9, small predictor, random weights; with
 `--mode threshold` the same student in threshold mode, with `--mode gumbel`
-the gumbel baseline's eval forward at the same ratios) under
+the gumbel baseline's eval forward at the same ratios; with `--quant int8`
+the W8A8 blocks wherever the model quantizes, see `nn.layers.Block`) under
 `torch.profiler` on the first CUDA device and prints one JSON line per
 device kernel (calls and ms per forward, share of the device time), then a
 summary line with the window's wall time per forward, the device's busy
@@ -41,16 +42,21 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--mode", choices=sorted(MODES), default="topk")
+    ap.add_argument("--quant", choices=("none", "int8"), default="none")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
+    if args.plain and args.quant != "none":
+        raise SystemExit("--quant int8 runs through the kernels: it has no --plain model")
     dev = torch.device("cuda", 0)
     name, kwargs = MODES[args.mode]
-    model = create_model(name, use_fused_attention=not args.plain, device=dev, **kwargs).eval()
+    model = create_model(name, use_fused_attention=not args.plain, quant=args.quant, device=dev,
+                         **kwargs).eval()
     x = torch.randn((args.batch, 224, 224, 3), device=dev, dtype=torch.bfloat16)
     with torch.inference_mode():
         summary = profile_device(lambda: model(x), args.iters)
-    print(json.dumps({"batch": args.batch, "mode": args.mode, "plain": args.plain, **summary,
+    print(json.dumps({"batch": args.batch, "mode": args.mode, "plain": args.plain,
+                      "quant": args.quant, **summary,
                       "img_per_s": args.batch / summary["wall_ms"] * 1e3}))
 
 

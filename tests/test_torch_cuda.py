@@ -11,6 +11,8 @@ bf16 and relative to the largest magnitude of the plain output: the two
 versions round to bf16 at different points.
 """
 
+import copy
+
 import pytest
 import torch
 
@@ -24,7 +26,9 @@ from dense2sparse_vit_torch.ops.block import (
     BLOCK_WEIGHT_KEYS, transformer_block_backward_reference, transformer_block_reference)
 from dense2sparse_vit_torch.ops.gather import gather_tokens_reference, scatter_tokens_reference
 from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
+from dense2sparse_vit_torch.ops.quant import quant_block_reference, quantize_rows
 from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+from dense2sparse_vit_torch.utils.export import export_student, load_exported
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
@@ -358,3 +362,122 @@ def test_policy_trainable_block_returns_dpolicy_in_its_dtype(cuda):
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[policy]": 1,
                                    "fused_transformer_block_backward[policy]": 1}
     assert pol.grad.dtype == torch.bfloat16 and torch.isfinite(pol.grad.float()).all()
+
+
+# ---- the int8 block, the custom ops and export ------------------------------
+
+
+def _int8_block(seed, c=384, heads=6):
+    return _sharpen(Block(c, heads, use_fused=True, quant="int8"), seed=seed)
+
+
+@pytest.mark.parametrize("n", [13, 68, 197])
+@pytest.mark.parametrize("c,heads", [(384, 6), (768, 12)])
+def test_int8_block_kernel(cuda, c, heads, n):
+    """The W8A8 block against its plain version on the same codes: the
+    attention output's and the activation's codes are bit-equal (the same
+    bf16 rows divided by the same scales); the whole output within TOL (the
+    attention cores and LayerNorms round differently). DeiT-S and DeiT-B
+    widths (fc2's K up to 3072)."""
+    blk = _int8_block(n, c, heads).to(cuda).eval()
+    x = torch.randn((4, n, c), generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        qw = blk.int8_weights(torch.bfloat16)
+        before = ops.fused_transformer_block_int8.launches
+        got, st = ops.fused_transformer_block_int8(x, qw, heads, stages=True)
+        want = quant_block_reference(x, qw, heads, blk.attn.scale, 1e-6)
+        torch.cuda.synchronize()
+        assert ops.fused_transformer_block_int8.launches == before + 1
+        for i, h in ((2, st["attn"]), (4, st["act"])):
+            q, s = quantize_rows(h.float())
+            assert torch.equal(st[f"q{i}"], q) and torch.equal(st[f"s{i}"], s[..., 0]), i
+    _assert_close(got, want)
+
+
+def _op_inputs(n=13):
+    """Small inputs and weights for every serving op, on the CPU."""
+    blk = _int8_block(seed=3).eval()
+    pred = _sharpen(PredictorLG(384, small_predictor=True), seed=4).eval()
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, n, 384), generator=g).to(torch.bfloat16)
+    idx = torch.randint(0, n, (2, 7), generator=g)
+    pol = (torch.rand((2, n), generator=g) < 0.6).float()
+    pol[:, 0] = 1.0
+    return blk, pred, x, idx, pol
+
+
+def test_custom_ops_cuda_against_cpu(cuda):
+    """Each d2s:: op's CUDA implementation (the kernel) against its CPU
+    implementation (the plain version) on the same bf16 inputs."""
+    inputs = _op_inputs()
+    with torch.inference_mode():
+        outs = {}
+        for dev in (cuda, torch.device("cpu")):
+            blk, pred, x, idx, pol = (copy.deepcopy(t).to(dev) for t in inputs)
+            w = blk.kernel_weights(torch.bfloat16)
+            outs[dev.type] = {
+                "block": ops.fused_transformer_block(x, w, 6),
+                "policy": ops.fused_transformer_block(x, w, 6, pol),
+                "cls": ops.fused_transformer_block_cls(x, w, 6)[1],
+                "int8": ops.fused_transformer_block_int8(x, blk.int8_weights(torch.bfloat16), 6),
+                "predictor": ops.fused_predictor_lg(x[:, 1:], pred.kernel_weights(torch.bfloat16)),
+                "gather": ops.fused_gather_tokens(x, idx),
+            }
+        torch.cuda.synchronize()
+    for k, got in outs["cuda"].items():
+        got, want = got.cpu().float(), outs["cpu"][k].float()
+        err = (got - want).abs().max().item()
+        assert err <= TOL * want.abs().max().item(), (k, err)
+    assert torch.equal(outs["cuda"]["gather"].cpu(), outs["cpu"]["gather"])
+
+
+def test_int8_students_launch_the_int8_kernel_in_eval_only(cuda):
+    """Top-k: 12 int8 blocks, 3 predictors, 3 gathers; threshold: 3 int8 and
+    9 bf16 policy blocks; the teacher built with quant='int8' and the
+    students in train mode never launch the int8 kernel."""
+    x = torch.randn((2, 224, 224, 3), device=cuda, dtype=torch.bfloat16)
+    int8 = dict(HEADLINE_KWARGS, quant="int8", use_fused_attention=True)
+    topk = create_model(HEADLINE_MODEL, device=cuda, **int8).eval()
+    thr = create_model(HEADLINE_MODEL, device=cuda, patch_score_threshold=0.5, **int8).eval()
+    teacher = create_model(HEADLINE_TEACHER, device=cuda, dtype="bfloat16", quant="int8",
+                           use_fused_attention=True)
+    for model, want in (
+        (topk, {"fused_transformer_block_int8": 12, "fused_predictor_lg": 3,
+                "fused_gather_tokens": 3}),
+        (thr, {"fused_transformer_block_int8": 3, "fused_transformer_block[policy]": 9,
+               "fused_predictor_lg": 3}),
+        (teacher, {"fused_transformer_block_cls": 12}),
+    ):
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            logits = model(x)
+            logits = logits.logits if hasattr(logits, "logits") else logits[0]
+            torch.cuda.synchronize()
+        assert ops.launch_counts() == {**NO_LAUNCHES, **want}
+        assert torch.isfinite(logits.float()).all()
+    ops.reset_launch_counts()
+    topk.train()(x).logits.float().sum().backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_transformer_block_int8"] == 0
+    assert ops.launch_counts()["fused_transformer_block"] == 12
+
+
+def test_exported_int8_student_serves_on_the_card(cuda):
+    """A symbolic-batch artifact of the int8 headline student, loaded back:
+    the live model's logits bit for bit and its launches, at two batch
+    sizes."""
+    model = create_model(HEADLINE_MODEL, device=cuda, quant="int8", use_fused_attention=True,
+                         **HEADLINE_KWARGS).eval()
+    fn = load_exported(export_student(model))
+    for b in (1, 3):
+        x = torch.randn((b, 224, 224, 3), device=cuda)
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            want = model(x.to(torch.bfloat16)).logits.float()
+            live = ops.launch_counts()
+            ops.reset_launch_counts()
+            got = fn(x)
+            torch.cuda.synchronize()
+        assert ops.launch_counts() == live
+        assert torch.equal(got, want)

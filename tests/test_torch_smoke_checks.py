@@ -1,4 +1,4 @@
-"""The block check of chip_smoke.py, on the CPU.
+"""The block checks of chip_smoke.py, on the CPU.
 
 The check must pass a right block and reject one whose attention core is
 wrong, even where the residual stream is far larger than the attention
@@ -240,8 +240,8 @@ def test_check_block_backward_rejects_dpolicy_with_its_diagonal(monkeypatch, cap
 
 
 def test_the_planted_faults_are_in_the_kernel_source_once():
-    src = open(os.path.join(REPO, "dense2sparse_vit_torch", "csrc", "block_bwd.cu")).read()
-    for pattern, replacement, _ in chip_smoke.FAULTS.values():
+    for source, pattern, replacement, _ in chip_smoke.FAULTS.values():
+        src = open(os.path.join(REPO, "dense2sparse_vit_torch", "csrc", source)).read()
         assert src.count(pattern) == 1 and replacement not in src
 
 
@@ -250,3 +250,80 @@ def test_planted_ties_reach_row_maxima():
     with torch.no_grad():
         x_tie, tied = chip_smoke.planted_ties(torch, x, w, *args)
     assert tied > 0 and x_tie.shape == x.shape
+
+
+# ---- the int8 block's check ------------------------------------------------
+
+
+def _int8_input():
+    x, _, args = _block_input()
+    blk = Block(C, H, use_fused=True, quant="int8").eval()
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel()))
+                    / (p.shape[-1] ** 0.5 if p.dim() == 2 else 10))
+        blk.norm1.weight.add_(1)
+        blk.norm2.weight.add_(1)
+    return x, blk.int8_weights(torch.bfloat16), args
+
+
+def test_check_int8_block_passes_the_plain_block(capsys):
+    x, qw, args = _int8_input()
+    with torch.inference_mode():
+        y, err = chip_smoke.check_int8_block(torch, x, qw, *args, block=0)
+    line = _last_line(capsys)
+    assert err == 0.0 and y.shape == x.shape
+    assert set(line["rel_err"]) == {"x_mid", "qkv", "act", "fc2_out", "attn", "block"}
+    assert all(line["rel_err"][k] <= line["tol_rel"][k] for k in line["rel_err"])
+    assert all(c["share"] == 0.0 for c in line["codes"].values())
+
+
+def test_check_int8_block_rejects_fc2_with_fc1_scales(monkeypatch, capsys):
+    """The fault chip_smoke.py --plant-fault int8 plants in the kernel: fc2
+    dequantized with fc1's column scales. Only the fc2 stage sees it; the
+    whole output, at this weight scale, may not."""
+    real = ops.fused_transformer_block_int8
+
+    def faulty(x, qw, *args, **kwargs):
+        return real(x, {**qw, "s2": qw["s1"][: qw["s2"].shape[0]]}, *args, **kwargs)
+
+    monkeypatch.setattr(ops, "fused_transformer_block_int8", faulty)
+    x, qw, args = _int8_input()
+    with torch.inference_mode(), pytest.raises(AssertionError, match="fc2_out"):
+        chip_smoke.check_int8_block(torch, x, qw, *args, block=0)
+    line = _last_line(capsys)
+    assert all(line["rel_err"][k] <= line["tol_rel"][k] for k in ("qkv", "x_mid", "act", "attn"))
+
+
+def test_check_int8_block_rejects_a_shifted_code(monkeypatch):
+    """Codes of the attention output off by one step where the plain
+    quantization of the same rows must agree exactly."""
+    real = ops.fused_transformer_block_int8
+
+    def faulty(*args, **kwargs):
+        y, st = real(*args, **kwargs)
+        st["q2"] = st["q2"].clone()
+        st["q2"][0, 0, 0] += 1
+        return y, st
+
+    monkeypatch.setattr(ops, "fused_transformer_block_int8", faulty)
+    x, qw, args = _int8_input()
+    with torch.inference_mode(), pytest.raises(AssertionError, match="codes2"):
+        chip_smoke.check_int8_block(torch, x, qw, *args, block=0)
+
+
+def test_int8_walk_equals_the_forward():
+    """chip_smoke.walk_int8 (the forward stage by stage, every block
+    checked) gives the int8 student's logits, on a tiny student."""
+    from dense2sparse_vit_torch.models import create_model
+
+    model = create_model("dynamic_vit_small_patch16_224_student", device="cpu", img_size=32,
+                         patch_size=8, embed_dim=C, depth=3, num_heads=H, num_classes=10,
+                         pruning_locs=(1, 2), keep_ratios=(0.7, 0.49), small_predictor=True,
+                         dtype="bfloat16", use_fused_attention=True, quant="int8").eval()
+    images = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        logits, shapes = chip_smoke.walk_int8(torch, model, images.to(torch.bfloat16))
+        want = model(images.to(torch.bfloat16)).logits
+    assert torch.equal(logits, want)
+    assert [x.shape[1] for x, _, _, _ in shapes] == [17, 12, 8]
