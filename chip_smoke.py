@@ -9,6 +9,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
                                                  # planted fault
     python3 chip_smoke.py --plant-fault policy   # the dPolicy check, the same
     python3 chip_smoke.py --plant-fault int8     # the int8 block check, the same
+    python3 chip_smoke.py --plant-fault cls      # the CLS fold's check, the same
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -75,7 +76,27 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
  16. eval        one `make_eval_step` of the headline student (bf16 and int8)
                  and one `make_dynamic_vit_eval_step` at B=64, 8 rows padded
                  with label -1: finite metrics, n_valid 56, and the launches
-                 of the teacher's, the pruned and the unpruned forwards.
+                 of the teacher's, the pruned and the unpruned forwards;
+ 17. train_attn  three B=128 train steps of the attn-selection student
+                 (the headline student ranking by its own CLS rows, no
+                 predictors) with its live teacher: per step
+                 PER_ATTN_TRAIN_STEP, finite metrics, every trained tensor
+                 moves and cls_token and pos_embed do not;
+ 18. check_attn  on a step's own activations at every block, the packed
+                 attention both ways and the MLP half both ways against
+                 their plain versions (`check_attn_block`), the CLS fold alone
+                 (g = 0) where the rows rank a stage; the packed attention's
+                 policy mode at N=197 on a threshold student's keep mask, eps
+                 1e-6 and 0.1;
+ 19. time_attn   each of the four against its plain version at N=197, 138,
+                 97, 68 (the packed core beside torch's
+                 scaled_dot_product_attention), and the whole attn train step
+                 with kernels against without;
+ 20. serve_attn  a B=8 eval forward of the attn student: 12 CLS-row blocks and
+                 3 gathers, 12 CLS-row widths, logits against the plain model.
+The pruning student runs its serving, timing and export phases without
+capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
+callers do.
 The line before the last two is the kernels summary, then the card's name
 and power limit, then {"ok": true, "device": {...}}. Without a CUDA device
 it exits 1 at once.
@@ -87,7 +108,9 @@ did; it prints no "ok" line. --plant-fault policy does the same with a
 block backward whose dPolicy keeps the diagonal (which the policy softmax
 leaves out), on a gumbel train step's policy blocks; --plant-fault int8
 with an int8 block whose fc2 takes fc1's column scales, on phase 13's walk
-at B=64.
+at B=64; --plant-fault cls with a packed attention backward that leaves
+sum_j gcls_j P_0j out of D_0, on phase 18's checks at the blocks whose CLS
+rows rank a stage.
 """
 
 from __future__ import annotations
@@ -144,6 +167,8 @@ KERNEL_NAMES = (
     "fused_transformer_block_cls", "fused_transformer_block_backward",
     "fused_transformer_block_backward[policy]", "fused_predictor_lg",
     "fused_gather_tokens", "fused_scatter_tokens", "fused_transformer_block_int8",
+    "fused_attention_packed", "fused_attention_backward_packed", "fused_mlp_residual",
+    "fused_mlp_residual_backward",
 )
 NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
@@ -182,6 +207,17 @@ PER_EVAL_STEP = {
     "gumbel": {**NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_transformer_block": 24,
                "fused_gather_tokens": 3},
 }
+# a train step of the attn-selection student, which captures its own CLS
+# rows: the teacher's 12 CLS-row blocks; the student's 12 blocks as packed
+# attention with CLS rows and the MLP half, each way; 3 gathers and their 3
+# scatters; no whole-block kernel and no predictor
+PER_ATTN_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block_cls": 12,
+                       "fused_attention_packed": 12, "fused_attention_backward_packed": 12,
+                       "fused_mlp_residual": 12, "fused_mlp_residual_backward": 12,
+                       "fused_gather_tokens": 3, "fused_scatter_tokens": 3}
+# its eval forward: 12 CLS-row blocks, 3 gathers
+PER_ATTN_FORWARD = {**NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_gather_tokens": 3}
+ATTN_STAGE_FEEDERS = (2, 5, 8)  # the blocks whose CLS rows rank a stage's tokens
 B_EVAL, EVAL_PADDING = 64, 8
 EXPORT_BUCKETS = (1, 8, 32, 256)
 EXPORT_BATCHES = (1, 5, 37, 256, 300)
@@ -213,20 +249,33 @@ SOURCES = {
     "fused_transformer_block_int8": (
         "dense2sparse_vit_torch/csrc/quant_block.cu",
         "dense2sparse_vit_tpu/ops/pallas/quant.py:179"),
+    "fused_attention_packed": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/attention.py:171"),
+    "fused_attention_backward_packed": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/attention.py:554"),
+    "fused_mlp_residual": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/mlp.py:93"),
+    "fused_mlp_residual_backward": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/mlp.py:305"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # the faults --plant-fault puts into a copy of a kernel source: (block_bwd.cu)
-# rowsum(dO * O) dropped, or (policy) dPolicy's diagonal kept; (quant_block.cu)
-# fc2 dequantized with fc1's column scales; and the stage whose check must
-# reject it
+# rowsum(dO * O) dropped, (policy) dPolicy's diagonal kept, or (cls) the CLS
+# fold's sum_j gcls_j P_0j left out of D_0; (quant_block.cu) fc2 dequantized
+# with fc1's column scales; and the stage whose check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
     "int8": ("quant_block.cu", "q.col_s = f(s2);  // fc2's column scales",
              "q.col_s = f(s1);  // fc2's column scales", "fc2_out"),
+    "cls": ("block_bwd.cu", "        Ds[0] += s0;\n", "        Ds[0] += 0.f * s0;\n", "gcls_only"),
 }
 
 
@@ -320,6 +369,39 @@ def predictor_bound(B, N, D, w) -> dict:
         weights += weight.numel() * 2
         c_in = weight.shape[0]
     return bound(flops + 2 * B * N * c_in, B * N * D * 2 + weights + B * N * 2)
+
+
+def attention_bound(B, N, C, H, cls=False, policy=False) -> dict:
+    """The packed attention core: QK^T and PV; qkv read, the output (and the
+    CLS rows) written, the policy read."""
+    flops = 4 * B * H * N * N * (C // H)
+    nbytes = B * N * 3 * C * 2 + B * N * C * 2 + (B * H * N * 2 if cls else 0)
+    return bound(flops, nbytes + (policy_bytes(B, N) if policy else 0))
+
+
+def attention_backward_bound(B, N, C, H, gcls=False, policy=False) -> dict:
+    """dqkv from qkv and g alone: the scores recomputed, then dP, dV, dQ and
+    dK; qkv and g read (and the fp32 gcls, the policy), dqkv (and dPolicy)
+    written."""
+    flops = 10 * B * H * N * N * (C // H)
+    nbytes = 2 * B * N * 3 * C * 2 + B * N * C * 2 + (B * H * N * 4 if gcls else 0)
+    return bound(flops, nbytes + (2 * policy_bytes(B, N) if policy else 0))
+
+
+def mlp_bound(B, N, C, hidden) -> dict:
+    """The MLP half: fc1 and fc2; x read, out written, the weights read."""
+    M = B * N
+    return bound(4 * M * C * hidden, 2 * M * C * 2 + 2 * 2 * C * hidden + 4 * (3 * C + hidden))
+
+
+def mlp_backward_bound(B, N, C, hidden) -> dict:
+    """dx and the six gradients from x and g alone: fc1 recomputed, then dW2,
+    dH, dW1 and dX; x and g read, dx written, the weights read, the fp32
+    gradients written."""
+    M = B * N
+    vectors = 3 * C + hidden
+    return bound(10 * M * C * hidden,
+                 3 * M * C * 2 + 2 * 2 * C * hidden + 4 * vectors + 4 * (2 * C * hidden + vectors))
 
 
 def rows_bound(B, K, D, out_rows, elt) -> dict:
@@ -429,8 +511,8 @@ def check_block(torch, x, w, num_heads, scale, ln_eps, block=None, policy=None, 
 def check_unpruned(torch, model, plain, images) -> None:
     """The unpruned forward has no selection, so the kernel model and the
     plain one agree up to bf16 rounding: hold the logits against each other."""
-    got = model(images, unpruned=True).logits
-    want = plain(images, unpruned=True).logits
+    got = model(images, unpruned=True, collect_cls_attns=False).logits
+    want = plain(images, unpruned=True, collect_cls_attns=False).logits
     err, scale = rel_err(torch, got, want)
     emit({"phase": "serve_vs_plain", "batch": images.shape[0], "unpruned": True,
           "max_abs_err": err, "max_abs_ref": scale, "tol_rel": LOGITS_TOL})
@@ -492,21 +574,23 @@ def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None, p
 
 def build_trainer(torch, dev, fused: bool, mode: str = "topk"):
     """The headline student (mode "topk"; "threshold": the same in
-    threshold mode; "gumbel": the gumbel baseline at the same widths and
+    threshold mode; "attn": the same ranking by its own CLS rows, with no
+    predictors; "gumbel": the gumbel baseline at the same widths and
     ratios, with the ratio and token-distillation losses on, as the JAX
     package's bench_train.py runs it) and its teacher, from seeded
     generators, with AdamW past the warmup and the train step:
     (student, teacher, step)."""
     from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
     from dense2sparse_vit_torch.models import (
-        GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER,
-        THRESHOLD_KWARGS, create_model)
+        ATTN_KWARGS, GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL,
+        HEADLINE_TEACHER, THRESHOLD_KWARGS, create_model)
     from dense2sparse_vit_torch.train import (
         make_dynamic_vit_train_step, make_optimizer, make_train_step)
 
     name, kwargs, train = {
         "topk": (HEADLINE_MODEL, HEADLINE_KWARGS, TrainConfig()),
         "threshold": (HEADLINE_MODEL, THRESHOLD_KWARGS, TrainConfig()),
+        "attn": (HEADLINE_MODEL, ATTN_KWARGS, TrainConfig()),
         "gumbel": (GUMBEL_MODEL, GUMBEL_KWARGS,
                    TrainConfig(use_ratio_loss=True, use_token_dist_loss=True)),
     }[mode]
@@ -559,6 +643,7 @@ def capture_train_step(torch, student, teacher, step, images, labels):
             lambda m, args, i=i: rec["teacher_in"].__setitem__(i, args[0].detach())))
 
     def last_hook(m, args, out):
+        out = out[0] if isinstance(out, tuple) else out  # (x, cls rows) with CLS capture
         out.register_hook(lambda g: rec.__setitem__("last_g", g.detach()))
 
     handles.append(student.blocks[-1].register_forward_hook(last_hook))
@@ -637,6 +722,12 @@ def plant_fault(dev, kind: str) -> int:
                                  generator=torch.Generator(device=dev).manual_seed(13))
             with torch.inference_mode():
                 walk_int8(torch, model, images)
+        elif kind == "cls":
+            student, teacher, step = build_trainer(torch, dev, fused=True, mode="attn")
+            images, labels = train_batch(torch, dev)
+            rec = capture_attn_step(torch, step, images, labels)
+            for i in ATTN_STAGE_FEEDERS:
+                check_attn_block(torch, rec["attn"][i], rec["mlp"][i], block=i)
         else:
             mode = "gumbel" if kind == "policy" else "topk"
             student, teacher, step = build_trainer(torch, dev, fused=True, mode=mode)
@@ -678,7 +769,7 @@ def phase_serve(torch, dev, tally):
         for b in SERVE_BATCHES:
             before = ops.launch_counts()
             t0 = time.perf_counter()
-            out = model(images[b])
+            out = model(images[b], collect_cls_attns=False)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
@@ -805,19 +896,23 @@ def phase_time(torch, model, plain, images, shapes, tally, smi):
                   "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                   "bound_ms": max(b.values())})
         imgs = images[B_CHECK]
-        f_ms, p_ms = paired_ms(torch, lambda: model(imgs), lambda: plain(imgs), iters=5)
+        f_ms, p_ms = paired_ms(torch, lambda: model(imgs, collect_cls_attns=False),
+                               lambda: plain(imgs, collect_cls_attns=False), iters=5)
         emit({"phase": "time", "forward": "B=256 pruned student",
               "kernels_ms": f_ms, "plain_ms": p_ms,
               "kernels_img_per_s": B_CHECK / f_ms * 1e3,
               "plain_img_per_s": B_CHECK / p_ms * 1e3, "card": smi})
 
 
-def phase_train(torch, dev, tally):
-    """Phase 5; returns (student, teacher, step, images, labels)."""
+def phase_train(torch, dev, tally, mode="topk"):
+    """Phase 5 (mode "attn": phase 17); returns (student, teacher, step,
+    images, labels)."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.train import label_params
 
-    student, teacher, step = build_trainer(torch, dev, fused=True)
+    phase, per_step = {"topk": ("train", PER_TRAIN_STEP),
+                       "attn": ("train_attn", PER_ATTN_TRAIN_STEP)}[mode]
+    student, teacher, step = build_trainer(torch, dev, fused=True, mode=mode)
     images, labels = train_batch(torch, dev)
     groups = label_params(student)
     before = {n: p.detach().clone() for n, p in student.named_parameters()}
@@ -828,20 +923,20 @@ def phase_train(torch, dev, tally):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = ops.launch_counts()
-        if counts != PER_TRAIN_STEP:
-            raise AssertionError(f"step {s}: launches {counts}, expected {PER_TRAIN_STEP}")
+        if counts != per_step:
+            raise AssertionError(f"{phase} step {s}: launches {counts}, expected {per_step}")
         for k, v in counts.items():
             tally.rows[k]["launches"] += v
         values = {k: v.item() for k, v in metrics.items()}
         bad = [k for k, v in values.items() if v != v or abs(v) == float("inf")]
         if bad:
-            raise AssertionError(f"step {s}: non-finite metrics {bad}")
-        emit({"phase": "train", "step": s, "batch": B_TRAIN, "epoch": TRAIN_EPOCH,
+            raise AssertionError(f"{phase} step {s}: non-finite metrics {bad}")
+        emit({"phase": phase, "step": s, "batch": B_TRAIN, "epoch": TRAIN_EPOCH,
               "launches": counts, "metrics": values, "seconds": round(seconds, 4)})
     moved = {n: not torch.equal(p, before[n]) for n, p in student.named_parameters()}
     stuck = [n for n, m in moved.items() if groups[n] != "frozen" and not m]
     drifted = [n for n, m in moved.items() if groups[n] == "frozen" and m]
-    emit({"phase": "train", "trained_tensors": sum(groups[n] != "frozen" for n in moved),
+    emit({"phase": phase, "trained_tensors": sum(groups[n] != "frozen" for n in moved),
           "unchanged": stuck, "frozen_changed": drifted})
     if stuck or drifted:
         raise AssertionError(f"parameters not updated: {stuck}; frozen but changed: {drifted}")
@@ -989,7 +1084,7 @@ def phase_serve_threshold(torch, dev, tally, smi):
     with torch.inference_mode():
         for b in SERVE_BATCHES:
             ops.reset_launch_counts()
-            out = model(images[b])
+            out = model(images[b], collect_cls_attns=False)
             torch.cuda.synchronize()
             counts = ops.launch_counts()
             if counts != PER_THRESHOLD_FORWARD:
@@ -1067,7 +1162,8 @@ def phase_serve_threshold(torch, dev, tally, smi):
               "plain_mode_kernel_ms": plain_mode_ms, "bound_ms": max(b.values()),
               "calls_per_forward": 9})
         imgs = images[B_CHECK]
-        f_ms, p_ms = paired_ms(torch, lambda: model(imgs), lambda: plain(imgs), iters=5)
+        f_ms, p_ms = paired_ms(torch, lambda: model(imgs, collect_cls_attns=False),
+                               lambda: plain(imgs, collect_cls_attns=False), iters=5)
         emit({"phase": "time_threshold", "forward": "B=256 threshold student",
               "kernels_ms": f_ms, "plain_ms": p_ms,
               "kernels_img_per_s": B_CHECK / f_ms * 1e3,
@@ -1223,6 +1319,359 @@ def phase_serve_gumbel(torch, dev, tally):
           "pred_keep_probs": [t.shape[1] for t in out.pred_keep_probs]})
 
 
+# ---- training with the student's own CLS rows: attn selection --------------
+
+
+def capture_attn_step(torch, step, images, labels):
+    """Run one more train step of the attn student with spies on its packed
+    attention cores and MLP halves: per block, in order, {"qkv", "heads",
+    "scale", "g", "gcls"} (the core's input and its two outputs' cotangents;
+    gcls None where the CLS rows get no gradient) and {"x", "w", "eps", "g"}
+    (the MLP half's input, weights before the update and output's
+    cotangent)."""
+    import dense2sparse_vit_torch.nn.layers as layers
+
+    rec = {"attn": [], "mlp": []}
+    real_attn = layers.fused_attention_packed_with_cls_trainable
+    real_mlp = layers.fused_mlp_residual
+
+    def attn_spy(qkv, num_heads, policy=None, scale=None):
+        out, cls = real_attn(qkv, num_heads, policy, scale)
+        e = {"qkv": qkv.detach(), "heads": num_heads, "scale": scale, "g": None, "gcls": None}
+        out.register_hook(lambda g: e.__setitem__("g", g.detach().contiguous()))
+        # a row that feeds no loss gets no gradient: the hook sees None
+        cls.register_hook(lambda g: e.__setitem__("gcls", None if g is None else g.detach()))
+        rec["attn"].append(e)
+        return out, cls
+
+    def mlp_spy(x, *weights_eps):
+        y = real_mlp(x, *weights_eps)
+        e = {"x": x.detach(), "w": [t.detach().clone() for t in weights_eps[:6]],
+             "eps": weights_eps[6], "g": None}
+        y.register_hook(lambda g: e.__setitem__("g", g.detach().contiguous()))
+        rec["mlp"].append(e)
+        return y
+
+    layers.fused_attention_packed_with_cls_trainable = attn_spy
+    layers.fused_mlp_residual = mlp_spy
+    try:
+        step(images, labels, TRAIN_EPOCH)
+        torch.cuda.synchronize()
+    finally:
+        layers.fused_attention_packed_with_cls_trainable = real_attn
+        layers.fused_mlp_residual = real_mlp
+    return rec
+
+
+def _thirds(torch, name, got, want, rel):
+    """q, k and v of a packed dqkv apart: dV is the largest, and a fault in
+    the scores' gradient (dQ, dK) would hide under it."""
+    worst = 0.0
+    for part, a, b in zip("qkv", got.chunk(3, -1), want.chunk(3, -1)):
+        err, ref = rel_err(torch, a, b)
+        rel[f"{name}.{part}"] = (err / max(ref, 1e-30), BWD_TOL)
+        worst = max(worst, err)
+    return worst
+
+
+def check_attn_block(torch, e, m, block=None):
+    """Hold the packed attention and the MLP half against their plain
+    versions on a train step's own activations at one block (`e`, `m` from
+    `capture_attn_step`):
+      out, cls: the packed forward's output and CLS rows against
+        `attention_reference` (STAGE_TOL), each CLS row summing to 1
+        (ROWSUM_TOL);
+      dqkv.{q,k,v}: the packed backward with the step's g and gcls against
+        autograd through the plain version (BWD_TOL);
+      gcls_only[step|offset].{q,k,v}: where the CLS rows get a gradient,
+        the backward with g = 0, so that the fold stands alone: with the
+        step's gcls, and with a seeded one plus a constant (which the
+        softmax's row sum cancels in exact arithmetic, and a fold that
+        leaves sum_j gcls_j P_0j out of D_0 does not);
+      mlp_out: the MLP half's output (BLOCK_TOL), and mlp_branch: its
+        fc2(GELU(fc1(LN x))) beyond the one bf16 rounding of the sum, relative
+        to the branch (BRANCH_TOL);
+      mlp.{dx,ln_w,ln_b,w1,b1,w2,b2}: its backward (BWD_TOL).
+    Prints the relative errors, raises naming every tensor out of tolerance,
+    and returns the largest absolute errors per kernel."""
+    import torch.nn.functional as F
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import attention_backward_reference
+    from dense2sparse_vit_torch.ops.block import attention_reference, layer_norm
+    from dense2sparse_vit_torch.ops.mlp import (
+        mlp_residual_backward_reference, mlp_residual_reference)
+
+    qkv, H, scale, g, gcls = e["qkv"], e["heads"], e["scale"], e["g"], e["gcls"]
+    rel, worst = {}, dict.fromkeys(("fwd", "bwd", "mlp", "mlp_bwd"), 0.0)
+    with torch.no_grad():
+        out, cls = ops.fused_attention_packed(qkv, H, scale=scale, return_cls=True)
+        want_out, want_cls = attention_reference(qkv, H, scale, return_cls=True)
+        for name, got, want in (("out", out, want_out), ("cls", cls, want_cls)):
+            err, ref = rel_err(torch, got, want)
+            rel[name] = (err / max(ref, 1e-30), STAGE_TOL)
+            worst["fwd"] = max(worst["fwd"], err)
+        rel["cls_rowsum"] = ((cls.float().sum(-1) - 1).abs().max().item(), ROWSUM_TOL)
+        cases = {"dqkv": (g, gcls)}
+        if gcls is not None:
+            gen = torch.Generator(device=qkv.device).manual_seed(17 + (block or 0))
+            sd = gcls.float().std().item()
+            offset = ((torch.randn(gcls.shape, generator=gen, device=qkv.device) + 1.0)
+                      * sd).to(gcls.dtype)
+            cases["gcls_only[step]"] = (torch.zeros_like(g), gcls)
+            cases["gcls_only[offset]"] = (torch.zeros_like(g), offset)
+        for name, (gg, gc) in cases.items():
+            got = ops.fused_attention_backward_packed(qkv, gg, H, gcls=gc, scale=scale)
+            want, _ = attention_backward_reference(qkv, gg, H, scale, gcls=gc)
+            worst["bwd"] = max(worst["bwd"], _thirds(torch, name, got, want, rel))
+
+        x, w, eps, gm = m["x"], m["w"], m["eps"], m["g"]
+        y = ops.fused_mlp_residual(x, *w, eps)
+        err, ref = rel_err(torch, y, mlp_residual_reference(x, *w, eps))
+        rel["mlp_out"] = (err / ref, BLOCK_TOL)
+        worst["mlp"] = err
+        ln_w, ln_b, w1, b1, w2, b2 = w
+        pre = layer_norm(x, ln_w, ln_b, eps).float() @ w1.float().t() + b1
+        branch = F.gelu(pre).to(x.dtype).float() @ w2.float().t() + b2
+        z = x.float() + branch
+        excess = ((y.float() - z).abs() - BF16_U * z.abs()).clamp(min=0)
+        rel["mlp_branch"] = (excess.max().item() / max(branch.abs().max().item(), 1e-30),
+                             BRANCH_TOL)
+        got = ops.fused_mlp_residual_backward(x, gm, *w[:5], eps=eps)
+        want = mlp_residual_backward_reference(x, gm, *w[:5], eps)
+        for name, a, b in zip(("dx", "ln_w", "ln_b", "w1", "b1", "w2", "b2"), got, want):
+            err, ref = rel_err(torch, a, b)
+            rel[f"mlp.{name}"] = (err / max(ref, 1e-30), BWD_TOL)
+            worst["mlp_bwd"] = max(worst["mlp_bwd"], err)
+    emit({"phase": "check_attn", "block": block, "shape": list(qkv.shape),
+          "gcls": gcls is not None, "rel_err": {k: r for k, (r, _) in rel.items()},
+          "tol_rel": {k: t for k, (_, t) in rel.items()}})
+    bad = {k: r for k, (r, t) in rel.items() if not r <= t}
+    if bad:
+        raise AssertionError(f"block {block}: packed attention / MLP half out of tolerance: {bad}")
+    return worst
+
+
+def check_attn_policy(torch, qkv, policy, g, gcls, H, scale, eps):
+    """The packed attention's policy mode, which no model path reaches yet:
+    the forward (out, CLS rows) against its plain version (STAGE_TOL), the
+    backward's dqkv (BWD_TOL) and dPolicy (DPOL_TOL) with g and gcls
+    against autograd through the plain version."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import attention_backward_reference
+    from dense2sparse_vit_torch.ops.block import attention_reference
+
+    rel = {}
+    with torch.no_grad():
+        out, cls = ops.fused_attention_packed(qkv, H, policy, scale=scale, eps=eps,
+                                              return_cls=True)
+        want = attention_reference(qkv, H, scale, policy=policy, eps=eps, return_cls=True)
+        for name, a, b in (("out", out, want[0]), ("cls", cls, want[1])):
+            err, ref = rel_err(torch, a, b)
+            rel[name] = (err / max(ref, 1e-30), STAGE_TOL)
+        dqkv, dpol = ops.fused_attention_backward_packed(qkv, g, H, policy=policy, gcls=gcls,
+                                                         scale=scale, eps=eps)
+        want_dqkv, want_dpol = attention_backward_reference(qkv, g, H, scale, policy=policy,
+                                                            gcls=gcls, eps=eps)
+        _thirds(torch, "dqkv", dqkv, want_dqkv, rel)
+        err, ref = rel_err(torch, dpol, want_dpol)
+        rel["dpolicy"] = (err / max(ref, 1e-30), DPOL_TOL)
+    emit({"phase": "check_attn", "kernel": "packed attention [policy]", "eps": eps,
+          "shape": list(qkv.shape), "kept_share": policy.float().mean().item(),
+          "rel_err": {k: r for k, (r, _) in rel.items()},
+          "tol_rel": {k: t for k, (_, t) in rel.items()}})
+    bad = {k: r for k, (r, t) in rel.items() if not r <= t}
+    if bad:
+        raise AssertionError(f"packed attention, policy mode, eps {eps}: out of tolerance: {bad}")
+
+
+def phase_check_attn(torch, dev, step, images, labels, tally):
+    """Phase 18; returns the recorded activations for phase 19."""
+    from dense2sparse_vit_torch.models import HEADLINE_MODEL, THRESHOLD_KWARGS, create_model
+
+    rec = capture_attn_step(torch, step, images, labels)
+    fed = [i for i, e in enumerate(rec["attn"]) if e["gcls"] is not None]
+    emit({"phase": "check_attn", "blocks": len(rec["attn"]), "cls_rows_with_gradient": fed})
+    if len(rec["attn"]) != 12 or len(rec["mlp"]) != 12 or fed != list(ATTN_STAGE_FEEDERS):
+        raise AssertionError(f"attn step: {len(rec['attn'])} cores, {len(rec['mlp'])} MLP "
+                             f"halves, CLS rows with a gradient at {fed}")
+    for i, (e, m) in enumerate(zip(rec["attn"], rec["mlp"])):
+        worst = check_attn_block(torch, e, m, block=i)
+        for name, key in (("fused_attention_packed", "fwd"),
+                          ("fused_attention_backward_packed", "bwd"),
+                          ("fused_mlp_residual", "mlp"), ("fused_mlp_residual_backward", "mlp_bwd")):
+            tally.err(name, worst[key])
+
+    # policy mode at N=197: a threshold student's first-stage keep mask
+    model = create_model(HEADLINE_MODEL, use_fused_attention=True, device=dev,
+                         generator=torch.Generator().manual_seed(0), **THRESHOLD_KWARGS).eval()
+    with torch.inference_mode():
+        mask = model(images, collect_cls_attns=False).keep_masks[0]
+    del model
+    e = rec["attn"][ATTN_STAGE_FEEDERS[0]]
+    qkv = e["qkv"]
+    policy = torch.cat([mask.new_ones(mask.shape[0], 1), mask], dim=1).float()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    gcls = (torch.randn(e["gcls"].shape, generator=gen, device=dev)
+            * e["gcls"].float().std()).to(e["gcls"].dtype)
+    for eps in EPS_CHECKS:
+        check_attn_policy(torch, qkv, policy, e["g"], gcls, e["heads"], e["scale"], eps)
+    return rec
+
+
+def sdpa_inputs(torch, qkv, g, H):
+    """q, k, v (B, H, N, d), contiguous leaves with gradients, and the
+    output's cotangent in the same layout, for the library call."""
+    B, N, C3 = qkv.shape
+    q, k, v = (t.contiguous().requires_grad_() for t in
+               qkv.detach().view(B, N, 3, H, C3 // 3 // H).permute(2, 0, 3, 1, 4).unbind(0))
+    return q, k, v, g.view(B, N, H, -1).transpose(1, 2).contiguous()
+
+
+def phase_time_attn(torch, dev, rec, tally, smi, images, labels):
+    """Phase 19: each new kernel against its plain version at every width
+    of the step (and the library's attention beside the packed core), and
+    the whole attn train step with kernels against without."""
+    import torch.nn.functional as F
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import attention_backward_reference
+    from dense2sparse_vit_torch.ops.block import attention_reference
+    from dense2sparse_vit_torch.ops.mlp import (
+        mlp_residual_backward_reference, mlp_residual_reference)
+
+    widths = {}
+    for i, e in enumerate(rec["attn"]):
+        widths.setdefault(e["qkv"].shape[1], []).append(i)
+    for n, idxs in widths.items():
+        e = rec["attn"][idxs[0]]
+        qkv, H, scale, g = e["qkv"], e["heads"], e["scale"], e["g"]
+        fed = [i for i in idxs if rec["attn"][i]["gcls"] is not None]
+        B, N, C3 = qkv.shape
+        C = C3 // 3
+        q, k, v, g4 = sdpa_inputs(torch, qkv, g, H)
+        with torch.no_grad():
+            k_ms, p_ms = paired_ms(
+                torch, lambda: ops.fused_attention_packed(qkv, H, scale=scale, return_cls=True),
+                lambda: attention_reference(qkv, H, scale, return_cls=True), iters=10)
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                             iters=10)
+        b = attention_bound(B, N, C, H, cls=True)
+        tally.add("fused_attention_packed", len(idxs), k_ms, p_ms, b, lib_ms)
+        emit({"phase": "time_attn", "kernel": "fused_attention_packed", "shape": list(qkv.shape),
+              "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": max(b.values()),
+              "calls_per_step": len(idxs)})
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+            torch.autograd.grad(out, (q, k, v), g4)
+
+        lib_ms = cuda_ms(torch, sdpa_fwd_bwd, iters=5)
+        for gcls, calls in ((None, len(idxs) - len(fed)),
+                            (rec["attn"][fed[0]]["gcls"] if fed else None, len(fed))):
+            if calls == 0:
+                continue
+            with torch.no_grad():
+                k_ms, p_ms = paired_ms(
+                    torch, lambda: ops.fused_attention_backward_packed(qkv, g, H, gcls=gcls,
+                                                                       scale=scale),
+                    lambda: attention_backward_reference(qkv, g, H, scale, gcls=gcls),
+                    iters=5, repeats=3)
+            b = attention_backward_bound(B, N, C, H, gcls=gcls is not None)
+            tally.add("fused_attention_backward_packed", calls, k_ms, p_ms, b, lib_ms)
+            emit({"phase": "time_attn", "kernel": "fused_attention_backward_packed",
+                  "shape": list(qkv.shape), "gcls": gcls is not None, "ms": k_ms,
+                  "plain_ms": p_ms, "library_fwd_bwd_ms": lib_ms, "bound_ms": max(b.values()),
+                  "calls_per_step": calls})
+
+        m = rec["mlp"][idxs[0]]
+        x, w, eps, gm = m["x"], m["w"], m["eps"], m["g"]
+        hidden = w[2].shape[0]
+        with torch.no_grad():
+            k_ms, p_ms = paired_ms(torch, lambda: ops.fused_mlp_residual(x, *w, eps),
+                                   lambda: mlp_residual_reference(x, *w, eps), iters=10)
+            b = mlp_bound(B, N, C, hidden)
+            tally.add("fused_mlp_residual", len(idxs), k_ms, p_ms, b)
+            emit({"phase": "time_attn", "kernel": "fused_mlp_residual", "shape": list(x.shape),
+                  "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                  "bound_ms": max(b.values()), "calls_per_step": len(idxs)})
+            k_ms, p_ms = paired_ms(
+                torch, lambda: ops.fused_mlp_residual_backward(x, gm, *w[:5], eps=eps),
+                lambda: mlp_residual_backward_reference(x, gm, *w[:5], eps), iters=5, repeats=3)
+            b = mlp_backward_bound(B, N, C, hidden)
+            tally.add("fused_mlp_residual_backward", len(idxs), k_ms, p_ms, b)
+            emit({"phase": "time_attn", "kernel": "fused_mlp_residual_backward",
+                  "shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                  "bound_ms": max(b.values()), "calls_per_step": len(idxs)})
+
+    f_student, f_teacher, f_step = build_trainer(torch, dev, fused=True, mode="attn")
+    p_student, p_teacher, p_step = build_trainer(torch, dev, fused=False, mode="attn")
+    p_student.load_state_dict(f_student.state_dict())
+    p_teacher.load_state_dict(f_teacher.state_dict())
+    f_ms, p_ms = paired_ms(torch, lambda: f_step(images, labels, TRAIN_EPOCH),
+                           lambda: p_step(images, labels, TRAIN_EPOCH), iters=2, repeats=3)
+    emit({"phase": "time_attn", "train_step": f"B={B_TRAIN} attn student + teacher",
+          "kernels_ms": f_ms, "plain_ms": p_ms,
+          "kernels_img_per_s": B_TRAIN / f_ms * 1e3,
+          "plain_img_per_s": B_TRAIN / p_ms * 1e3, "card": smi})
+
+
+def phase_serve_attn(torch, dev, tally):
+    """Phase 20: a B=8 eval forward of the attn student: its launches, the
+    widths of its CLS rows, and its logits against the plain model's, with
+    the plain model's stage scores pinned to the kernel model's (a near tie
+    among CLS-attention scores may rank differently in bf16; how many kept
+    indices the plain model's own ranking moves is printed)."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import ATTN_KWARGS, HEADLINE_MODEL, create_model
+
+    model = create_model(HEADLINE_MODEL, use_fused_attention=True, device=dev,
+                         generator=torch.Generator().manual_seed(0), **ATTN_KWARGS).eval()
+    plain = create_model(HEADLINE_MODEL, use_fused_attention=False, device=dev,
+                         **ATTN_KWARGS).eval()
+    plain.load_state_dict(model.state_dict())
+    N, C = model.cfg.num_patches, model.cfg.embed_dim
+    keep = model.pruning.keep_counts(N)
+    x = torch.randn((8, 224, 224, 3), generator=torch.Generator(device=dev).manual_seed(18),
+                    device=dev, dtype=torch.bfloat16)
+    scores = []
+    real_scores = type(model)._stage_scores
+
+    def record(self, p, xx, last):
+        out = real_scores(self, p, xx, last)
+        scores.append(out)
+        return out
+
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        model._stage_scores = record.__get__(model)
+        out = model(x)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        del model._stage_scores
+        own = plain(x)
+        plain._stage_scores = lambda p, xx, last: scores[p]
+        pinned = plain(x)
+    widths = [t.shape[-1] for t in out.cls_attns]
+    want_widths = [N] * 3 + [keep[0]] * 3 + [keep[1]] * 3 + [keep[2]] * 3
+    moved = [(a != b).float().mean().item() for a, b in zip(out.kept_idx, own.kept_idx)]
+    err, scale = rel_err(torch, out.logits, pinned.logits)
+    emit({"phase": "serve_attn", "batch": 8, "launches": counts, "cls_attn_widths": widths,
+          "kept_idx_moved_by_plain_ranking": moved, "max_abs_err": err, "max_abs_ref": scale,
+          "tol_rel": LOGITS_TOL})
+    if counts != PER_ATTN_FORWARD:
+        raise AssertionError(f"attn eval: launches {counts}, expected {PER_ATTN_FORWARD}")
+    ok = (widths == want_widths and out.logits.shape == (8, 1000)
+          and out.features.shape == (8, keep[-1], C) and out.pred_logits[0].shape == (8, N)
+          and bool(torch.isfinite(out.logits.float()).all()))
+    if not ok:
+        raise AssertionError(f"attn eval: bad outputs, CLS-row widths {widths}")
+    if err > LOGITS_TOL * max(scale, 1e-3):
+        raise AssertionError(f"attn eval: logits max err {err} vs scale {scale}")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+
+
 # ---- int8 serving, export, eval -------------------------------------------
 
 
@@ -1357,7 +1806,7 @@ def phase_serve_int8(torch, dev, tally):
     with torch.inference_mode():
         for b in SERVE_BATCHES:
             ops.reset_launch_counts()
-            out = model(images[b])
+            out = model(images[b], collect_cls_attns=False)
             torch.cuda.synchronize()
             counts = ops.launch_counts()
             if counts != PER_INT8_FORWARD:
@@ -1386,7 +1835,7 @@ def phase_check_int8(torch, dev, model, images, outputs, tally):
         logits, shapes = walk_int8(torch, model, images[B_CHECK], tally)
         if not torch.equal(logits, outputs[B_CHECK].logits):
             raise AssertionError("int8 stage walk and model forward disagree")
-        ref = bf16_model(images[B_CHECK]).logits.float()
+        ref = bf16_model(images[B_CHECK], collect_cls_attns=False).logits.float()
     got = logits.float()
     rms = ((got - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
     top1 = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
@@ -1421,8 +1870,10 @@ def phase_time_int8(torch, dev, model, bf16_model, images, shapes, tally, smi):
                              **HEADLINE_KWARGS).eval()
         plain.load_state_dict(model.state_dict())
         imgs = images[B_CHECK]
-        i_ms, b_ms = paired_ms(torch, lambda: model(imgs), lambda: bf16_model(imgs), iters=5)
-        i2_ms, p_ms = paired_ms(torch, lambda: model(imgs), lambda: plain(imgs), iters=5)
+        i_ms, b_ms = paired_ms(torch, lambda: model(imgs, collect_cls_attns=False),
+                               lambda: bf16_model(imgs, collect_cls_attns=False), iters=5)
+        i2_ms, p_ms = paired_ms(torch, lambda: model(imgs, collect_cls_attns=False),
+                               lambda: plain(imgs, collect_cls_attns=False), iters=5)
     emit({"phase": "time_int8", "forward": "B=256 pruned student",
           "int8_kernels_ms": i_ms, "bf16_kernels_ms": b_ms, "plain_ms": p_ms,
           "int8_kernels_ms_beside_plain": i2_ms,
@@ -1510,14 +1961,15 @@ def phase_serve_export(torch, dev, int8_model):
             x = torch.randn((b, 224, 224, 3), generator=gen, device=dev)
             with torch.inference_mode():
                 ops.reset_launch_counts()
-                want = model(x.to(dtype)).logits.float().cpu()
+                kw = {} if name == "gumbel" else {"collect_cls_attns": False}
+                want = model(x.to(dtype), **kw).logits.float().cpu()
                 torch.cuda.synchronize()
                 live = ops.launch_counts()
             if live != per:
                 raise AssertionError(f"{name} B={b}: live launches {live}, expected {per}")
             calls, i = 0, 0
             while i < b:  # the artifact calls ServingModel makes for b rows
-                i += sm._bucket_for(b - i) if not sm.symbolic else b
+                i += sm._bucket_for(b - i) if not sm.symbolic else sm.max_batch
                 calls += 1
             expect = {k: v * calls for k, v in per.items()}
             got = entry["logits"][b]
@@ -1632,6 +2084,16 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     phase_eval(torch, dev, tally)
+    torch.cuda.empty_cache()
+    # ---- 17-20. training with the student's own CLS rows ----------------
+    student, teacher, step, t_images, t_labels = phase_train(torch, dev, tally, mode="attn")
+    rec = phase_check_attn(torch, dev, step, t_images, t_labels, tally)
+    del student, teacher, step
+    torch.cuda.empty_cache()
+    phase_time_attn(torch, dev, rec, tally, smi, t_images, t_labels)
+    del rec
+    torch.cuda.empty_cache()
+    phase_serve_attn(torch, dev, tally)
 
     emit(tally.line())
     print(smi, flush=True)

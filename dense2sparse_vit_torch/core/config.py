@@ -99,8 +99,9 @@ class PruningConfig:
     # 'kl_div' | 'mse' | 'bce': also selects softmax or sigmoid keep-probs
     mask_loss_type: str = "kl_div"
     pad_keep_to_tile: bool = False
-    # mean over heads instead of max when aggregating the teacher's
-    # CLS-attention rows into the mask loss's target
+    # mean over heads instead of max when aggregating CLS-attention rows:
+    # the teacher's into the mask loss's target, and with selection="attn"
+    # the student's own into a stage's scores
     mean_heads: bool = False
     cls_from_teacher: bool = False
     early_exit: bool = False

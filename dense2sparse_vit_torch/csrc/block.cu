@@ -48,6 +48,18 @@
 // With out == null the fc2 stage is skipped: the backward recomputes the
 // forward up to the fc1 activation and has no use for the block's output.
 //
+// Two stages are also entries of their own, for a training block that
+// captures its CLS rows (its qkv and proj products run outside, as torch
+// calls): d2s_attention_packed_forward, stage 2 on qkv the caller gives
+// (with its own row stride), replaces dense2sparse_vit_tpu/ops/pallas/
+// attention.py::fused_attention_packed with return_cls; and
+// d2s_mlp_residual_forward, stages 4-5 on their own, replaces
+// dense2sparse_vit_tpu/ops/pallas/mlp.py::fused_mlp_residual. The first is
+// bound by bytes (qkv read, the output and CLS rows written: ~78 MB at
+// B=128, N=197, against ~6 GFLOP of score products), the second by its two
+// products (~60 GFLOP at that shape); each runs this file's kernels as they
+// run inside the block, with the fc1 activation through device memory.
+//
 // What bounds it on the H100: at the headline shapes (B=256, C=384, N from
 // 197 down to 68) the four projections are ~92% of the block's FLOPs and
 // are tensor-core bound in principle, but this first version's GEMM
@@ -104,8 +116,8 @@ __device__ __forceinline__ void max_count(float v, float& m, float& c) {
 
 template <bool POLICY>
 static __global__ void __launch_bounds__(ATT_THREADS)
-    attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                     float* __restrict__ lse, bf16* __restrict__ cls,
+    attention_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld,
+                     bf16* __restrict__ out, float* __restrict__ lse, bf16* __restrict__ cls,
                      const float* __restrict__ pol, int N, int H, float scale, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = att_padded(N);
@@ -121,7 +133,7 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * ATT_BQ;
   const int tid = threadIdx.x;
-  const bf16* base = qkv + (long long)b * N * 3 * C + h * ATT_HD;
+  const bf16* base = qkv + (long long)b * q_bstride + h * ATT_HD;
 
   // rows past N are zero: padded keys score 0 and are masked below, padded
   // V columns then multiply zero probabilities by zero
@@ -129,14 +141,14 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   for (int v = tid; v < ATT_BQ * VPR; v += ATT_THREADS) {
     const int r = v / VPR, c = (v % VPR) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < N) val = *reinterpret_cast<const uint4*>(base + (long long)(q0 + r) * 3 * C + c);
+    if (q0 + r < N) val = *reinterpret_cast<const uint4*>(base + (long long)(q0 + r) * q_ld + c);
     *reinterpret_cast<uint4*>(Qs + r * ATT_LDK + c) = val;
   }
   for (int v = tid; v < np * VPR; v += ATT_THREADS) {
     const int r = v / VPR, c = (v % VPR) * 8;
     uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
     if (r < N) {
-      const bf16* row = base + (long long)r * 3 * C + c;
+      const bf16* row = base + (long long)r * q_ld + c;
       kv = *reinterpret_cast<const uint4*>(row + C);
       vv = *reinterpret_cast<const uint4*>(row + 2 * C);
     }
@@ -326,19 +338,73 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
-// also launched by quant_block.cu (the int8 block's bf16 attention core)
-cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
-                             const float* pol, int B, int N, int H, float scale, float eps,
-                             cudaStream_t stream) {
-  if (N <= 0 || N > ATT_MAX_N) return cudaErrorInvalidValue;
+// qkv's token rows lie q_ld elements apart and its samples q_bstride apart
+// (both multiples of 8); out is (B*N, C) packed. Also launched by
+// block_bwd.cu (the packed backward's recompute).
+cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q_ld, bf16* out,
+                                     float* lse, bf16* cls, const float* pol, int B, int N,
+                                     int H, float scale, float eps, cudaStream_t stream) {
+  if (N <= 0 || N > ATT_MAX_N || q_ld < 3 * H * ATT_HD || q_ld % 8 || q_bstride % 8)
+    return cudaErrorInvalidValue;
   const size_t smem = att_smem_bytes(N, pol != nullptr);
   auto kernel = pol ? attention_kernel<true> : attention_kernel<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + ATT_BQ - 1) / ATT_BQ, B * H);
-  kernel<<<grid, ATT_THREADS, smem, stream>>>(qkv, out, lse, cls, pol, N, H, scale, eps);
+  kernel<<<grid, ATT_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, out, lse, cls, pol, N, H,
+                                              scale, eps);
   return cudaGetLastError();
+}
+
+// qkv packed (B*N, 3C); also launched by quant_block.cu (the int8 block's
+// bf16 attention core)
+cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
+                             const float* pol, int B, int N, int H, float scale, float eps,
+                             cudaStream_t stream) {
+  const int ld = 3 * H * ATT_HD;
+  return launch_attention_strided(qkv, (long long)N * ld, ld, out, lse, cls, pol, B, N, H, scale,
+                                  eps, stream);
+}
+
+// The MLP half x + fc2(GELU(fc1(LN x))) over M token rows: the LayerNorm's
+// row statistics, fc1 with the LN prologue and the GELU epilogue into hid
+// (and its input into preact, where not null), then fc2 with the residual
+// epilogue into out (skipped where out is null).
+static cudaError_t mlp_half(const bf16* x, bf16* out, bf16* hid, bf16* preact, float2* stats,
+                            const float* ln_w, const float* ln_b, const bf16* w1,
+                            const float* b1, const bf16* w2, const float* b2, int M, int C,
+                            int hidden, float ln_eps, cudaStream_t stream) {
+  GemmArgs g{};
+  g.a = x;
+  g.a_rows = M;
+  g.M = M;
+  g.w = w1;
+  g.bias = b1;
+  g.ln_w = ln_w;
+  g.ln_b = ln_b;
+  g.ln_eps = ln_eps;
+  g.ln_stats = stats;
+  g.out = hid;
+  g.preact = preact;
+  g.N = hidden;
+  g.K = C;
+  g.act = ACT_GELU;
+  cudaError_t err = launch_ln_gemm(g, stream);
+  if (err != cudaSuccess || out == nullptr) return err;
+
+  g.a = hid;
+  g.w = w2;
+  g.bias = b2;
+  g.ln_w = nullptr;
+  g.ln_b = nullptr;
+  g.residual = x;
+  g.preact = nullptr;
+  g.out = out;
+  g.N = C;
+  g.K = hidden;
+  g.act = ACT_NONE;
+  return launch_ln_gemm(g, stream);
 }
 
 }  // namespace d2s
@@ -401,30 +467,43 @@ extern "C" int d2s_block_forward(
   err = d2s::launch_ln_gemm(g, s);
   if (err != cudaSuccess) return (int)err;
 
-  g.a = static_cast<const bf16*>(mid_buf);
-  g.w = static_cast<const bf16*>(w1);
-  g.bias = static_cast<const float*>(b1);
-  g.ln_w = static_cast<const float*>(ln2_w);
-  g.ln_b = static_cast<const float*>(ln2_b);
-  g.residual = nullptr;
-  g.out = static_cast<bf16*>(hid_buf);
-  g.preact = static_cast<bf16*>(preact);
-  g.N = hidden;
-  g.K = C;
-  g.act = d2s::ACT_GELU;
-  err = d2s::launch_ln_gemm(g, s);
-  if (err != cudaSuccess || out == nullptr) return (int)err;
+  return (int)d2s::mlp_half(
+      static_cast<const bf16*>(mid_buf), static_cast<bf16*>(out), static_cast<bf16*>(hid_buf),
+      static_cast<bf16*>(preact), static_cast<float2*>(stats_buf),
+      static_cast<const float*>(ln2_w), static_cast<const float*>(ln2_b),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), M, C, hidden, ln_eps, s);
+}
 
-  g.a = static_cast<const bf16*>(hid_buf);
-  g.w = static_cast<const bf16*>(w2);
-  g.bias = static_cast<const float*>(b2);
-  g.ln_w = nullptr;
-  g.ln_b = nullptr;
-  g.residual = static_cast<const bf16*>(mid_buf);
-  g.preact = nullptr;
-  g.out = static_cast<bf16*>(out);
-  g.N = C;
-  g.K = hidden;
-  g.act = d2s::ACT_NONE;
-  return (int)d2s::launch_ln_gemm(g, s);
+// The packed attention core alone (the MHA of a Block whose qkv projection
+// runs outside: the CLS-capture route of a training block). qkv: (B, N, 3C)
+// bf16 with token rows q_ld elements apart and samples q_bstride apart; out
+// (B, N, C) bf16; cls (B, H, N) bf16 or null; policy (B, N) fp32 or null.
+// Requires C == 64 * H, N <= 800, q_ld and q_bstride multiples of 8,
+// 16-byte aligned pointers.
+extern "C" int d2s_attention_packed_forward(const void* qkv, long long q_bstride, int q_ld,
+                                            void* out, void* cls, const void* policy, int B,
+                                            int N, int H, float scale, float eps, void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  return (int)d2s::launch_attention_strided(
+      static_cast<const bf16*>(qkv), q_bstride, q_ld, static_cast<bf16*>(out), nullptr,
+      static_cast<bf16*>(cls), static_cast<const float*>(policy), B, N, H, scale, eps,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The MLP half alone, out = x + fc2(GELU(fc1(LN x))), over M = B*N rows: x,
+// out (M, C) bf16; scratch hid (M, hidden) bf16 and stats (M) float2;
+// weights as d2s_block_forward takes ln2/w1/b1/w2/b2. Requires C and hidden
+// multiples of 8, 16-byte aligned pointers.
+extern "C" int d2s_mlp_residual_forward(const void* x, void* out, void* hid_buf, void* stats_buf,
+                                        const void* ln_w, const void* ln_b, const void* w1,
+                                        const void* b1, const void* w2, const void* b2, int M,
+                                        int C, int hidden, float ln_eps, void* stream) {
+  if (M <= 0 || out == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)d2s::mlp_half(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<bf16*>(hid_buf), nullptr,
+      static_cast<float2*>(stats_buf), static_cast<const float*>(ln_w),
+      static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+      M, C, hidden, ln_eps, static_cast<cudaStream_t>(stream));
 }

@@ -36,6 +36,23 @@
 // Every sum over the token rows is split over CTAs into fp32 partials that
 // one more kernel adds in a fixed order: no atomics, the same bits each run.
 //
+// Two halves of this sequence are also entries of their own, the backward
+// of a training block that captures its CLS rows (its qkv and proj products
+// run outside, as torch calls):
+//   d2s_attention_packed_backward  replaces dense2sparse_vit_tpu/ops/pallas/
+//       attention.py::fused_attention_backward_packed: step 4 from packed
+//       qkv and the output's cotangent, after recomputing the attention
+//       output and its row statistics from qkv (the TPU kernel recomputes P
+//       from qkv too), with the CLS rows' cotangent folded into dP's row 0
+//       (attention_bwd_kernel below);
+//   d2s_mlp_residual_backward  replaces dense2sparse_vit_tpu/ops/pallas/
+//       mlp.py::fused_mlp_residual_backward: step 2 for out = x + MLP(LN x),
+//       after recomputing LN(x) and fc1 with its GELU from x.
+// Both are bound by the same things as the steps they run here: the core by
+// its recomputed score products on mma.sync (~0.04 ms of bytes at B=128,
+// N=197), the MLP half by its four products (~150 GFLOP with fc1
+// recomputed).
+//
 // Policy mode differentiates ops/masked_softmax.py::softmax_with_policy,
 // p_ij = (e_ij + c) / den_i with e_ij = exp(s_ij - m_i) a_ij, c = eps/N:
 //   de_ij = (dP_ij - D_i) / den_i, D_i = rowsum(dO * O) as in plain mode
@@ -88,6 +105,11 @@ extern "C" int d2s_block_forward(
     float ln_eps, float eps, void* stream);
 
 namespace d2s {
+
+// block.cu's attention core, on qkv rows q_ld apart and samples q_bstride apart
+cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q_ld, bf16* out,
+                                     float* lse, bf16* cls, const float* pol, int B, int N,
+                                     int H, float scale, float eps, cudaStream_t stream);
 
 // ---- LayerNorm forward, materialised (warp per row) ----------------------
 
@@ -253,11 +275,12 @@ constexpr int AB_TIE_LD = 17;     // fp32 pitch of a warp's 16 x 16 tie tile
 
 __host__ __device__ inline int ab_padded(int n) { return (n + 15) / 16 * 16; }
 
-static size_t ab_smem_bytes(int n, bool policy) {
+static size_t ab_smem_bytes(int n, bool policy, bool fold) {
   const size_t np = ab_padded(n);
   size_t bytes = 4 * np * AB_LD * 2 + 2 * np * sizeof(float);
   // 1/den, gmx/ties, pol per row; colsum(V); the warps' tie tiles
   if (policy) bytes += (3 * np + AB_HD + AB_WARPS * 16 * AB_TIE_LD) * sizeof(float);
+  if (fold) bytes += np * sizeof(float);  // the CLS row's cotangent
   return bytes;
 }
 
@@ -317,14 +340,24 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long ld, int r, int n
   }
 }
 
-// CTA = one (sample, head). qkv (B*N, 3C) packed, o and dout (B*N, C),
-// lse (B, H, N) (policy mode: float4 (m, den, ties, 0)), dqkv (B*N, 3C)
-// packed like qkv; policy mode: pol (B, N), dpol_part (B, H, N) or null.
+// CTA = one (sample, head). qkv (B, N, 3C) with token rows q_ld elements
+// apart and samples q_bstride apart, o and dout (B*N, C), lse (B, H, N)
+// (policy mode: float4 (m, den, ties, 0)), dqkv (B*N, 3C) packed; policy
+// mode: pol (B, N), dpol_part (B, H, N) or null. gcls: (B, H, N) fp32, the
+// cotangent of the CLS (query 0) rows of the probabilities, or null.
+//
+// The CLS rows are the probabilities' row 0, so their cotangent adds to dP's
+// row 0: dP_0j += gcls_j, and with it D_0 = sum_j P_0j dP_0j gains
+// sum_j gcls_j P_0j, which warp 0 computes from row 0's scores recomputed in
+// fp32 before the passes. Policy mode's de = (dP - D) / den then carries the
+// fold into dS, dPolicy and, through sum_j dP_0j = dO_0 . colsum(V) +
+// sum_j gcls_j, the max path.
 template <bool POLICY>
 static __global__ void __launch_bounds__(AB_THREADS)
-    attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ pol, bf16* __restrict__ dqkv,
+    attention_bwd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld,
+                         const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ pol,
+                         const float* __restrict__ gcls, bf16* __restrict__ dqkv,
                          float* __restrict__ dpol_part, int N, int H, float scale, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = ab_padded(N);
@@ -339,12 +372,14 @@ static __global__ void __launch_bounds__(AB_THREADS)
   float* Ps = Gc + np;  // policy: pol_j
   float* Cv = Ps + np;  // policy: colsum(V)
   float* Tw = Cv + AB_HD;  // policy: a 16 x 16 tie tile per warp
+  float* Gs = POLICY ? Tw + AB_WARPS * 16 * AB_TIE_LD : Rd;  // gcls: the CLS row's cotangent
+  __shared__ float gsum;  // gcls: sum_j gcls_j
 
   const int C = H * AB_HD;
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int tid = threadIdx.x;
-  const bf16* base = qkv + (long long)b * N * 3 * C + h * AB_HD;
+  const bf16* base = qkv + (long long)b * q_bstride + h * AB_HD;
   const bf16* ob = o + (long long)b * N * C + h * AB_HD;
   const bf16* dob = dout + (long long)b * N * C + h * AB_HD;
   const float4* st4 = reinterpret_cast<const float4*>(lse);
@@ -355,7 +390,7 @@ static __global__ void __launch_bounds__(AB_THREADS)
     const int r = v / VPR, c = (v % VPR) * 8;
     uint4 q = make_uint4(0u, 0u, 0u, 0u), k = q, vv = q, d = q;
     if (r < N) {
-      const bf16* row = base + (long long)r * 3 * C + c;
+      const bf16* row = base + (long long)r * q_ld + c;
       q = *reinterpret_cast<const uint4*>(row);
       k = *reinterpret_cast<const uint4*>(row + C);
       vv = *reinterpret_cast<const uint4*>(row + 2 * C);
@@ -367,6 +402,7 @@ static __global__ void __launch_bounds__(AB_THREADS)
     *reinterpret_cast<uint4*>(dOs + r * AB_LD + c) = d;
   }
   for (int r = tid; r < np; r += AB_THREADS) {
+    if (gcls) Gs[r] = r < N ? gcls[(long long)blockIdx.x * N + r] : 0.f;
     if (POLICY) {
       const float4 st = r < N ? st4[(long long)blockIdx.x * N + r] : make_float4(0.f, 1.f, 1.f, 0.f);
       Ls[r] = st.x;
@@ -392,6 +428,33 @@ static __global__ void __launch_bounds__(AB_THREADS)
   }
   __syncthreads();
   const float cc = POLICY ? eps / N : 0.f;
+  if (gcls) {
+    // D_0 += sum_j gcls_j P_0j, P_0j from row 0's scores in fp32
+    if (tid < 32) {
+      float s0 = 0.f, gs = 0.f;
+      for (int j = tid; j < N; j += 32) {
+        float dot = 0.f;
+        for (int c = 0; c < AB_HD; ++c)
+          dot += __bfloat162float(Qs[c]) * __bfloat162float(Ks[j * AB_LD + c]);
+        float p;
+        if (POLICY) {
+          const float pk = Ps[j];
+          p = (__expf(dot * scale - Ls[0]) * (j == 0 ? pk + (1.f - pk) : pk) + cc) * Rd[0];
+        } else {
+          p = __expf(dot * scale - Ls[0]);
+        }
+        s0 += Gs[j] * p;
+        gs += Gs[j];
+      }
+      s0 = warp_sum(s0);
+      gs = warp_sum(gs);
+      if (tid == 0) {
+        Ds[0] += s0;
+        gsum = gs;
+      }
+    }
+    __syncthreads();
+  }
   if (POLICY) {
     if (tid < AB_HD) {
       float acc = 0.f;
@@ -404,6 +467,7 @@ static __global__ void __launch_bounds__(AB_THREADS)
     for (int r = tid; r < N; r += AB_THREADS) {
       float dv = 0.f;
       for (int c = 0; c < AB_HD; ++c) dv += __bfloat162float(dOs[r * AB_LD + c]) * Cv[c];
+      if (gcls && r == 0) dv += gsum;  // sum_j dP_0j
       Gc[r] = cc * Rd[r] * (dv - N * Ds[r]) / Gc[r];
     }
     __syncthreads();
@@ -446,11 +510,12 @@ static __global__ void __launch_bounds__(AB_THREADS)
           const int key = j0 + g + 8 * (e >> 1);
           const int q = i0 + nt * 8 + 2 * t + (e & 1);
           const bool valid = key < N && q < N;
+          const float dpv = dpt[nt][e] + (gcls && q == 0 ? Gs[key] : 0.f);
           if (POLICY) {
             const float xe = valid ? __expf(st[nt][e] * scale - Ls[q]) : 0.f;
             const float pk = Ps[key];
             const float ew = xe * (key == q ? pk + (1.f - pk) : pk);
-            const float de = (dpt[nt][e] - Ds[q]) * Rd[q];
+            const float de = (dpv - Ds[q]) * Rd[q];
             if (dpol_part) {
               if (key != q) dpa[e >> 1] += de * xe;  // dPolicy: the diagonal left out
             }
@@ -459,7 +524,7 @@ static __global__ void __launch_bounds__(AB_THREADS)
           } else {
             const float p = valid ? __expf(st[nt][e] * scale - Ls[q]) : 0.f;
             st[nt][e] = p;
-            dpt[nt][e] = p * (dpt[nt][e] - Ds[q]) * scale;
+            dpt[nt][e] = p * (dpv - Ds[q]) * scale;
           }
         }
       if (POLICY) {
@@ -551,21 +616,22 @@ static __global__ void __launch_bounds__(AB_THREADS)
         for (int e = 0; e < 4; ++e) {
           const bool hi = e >> 1;
           const int key = j0 + nt * 8 + 2 * t + (e & 1);
+          const int q = i0 + g + 8 * hi;
           const bool valid = key < N && (hi ? r1 : r0);
+          const float dpv = dp[nt][e] + (gcls && q == 0 ? Gs[key] : 0.f);
           if (POLICY) {
             const float m = hi ? l1 : l0;
             const float v = s[nt][e] * scale;
             const float xe = valid ? __expf(v - m) : 0.f;
             const float pk = Ps[key];
-            const int q = i0 + g + 8 * hi;
             const float ew = xe * (key == q ? pk + (1.f - pk) : pk);
-            float ds = (dp[nt][e] - (hi ? d1 : d0)) * (hi ? rd1 : rd0) * ew;
+            float ds = (dpv - (hi ? d1 : d0)) * (hi ? rd1 : rd0) * ew;
             if (valid && v == m) ds += hi ? gc1 : gc0;
             s[nt][e] = ds * scale;
           } else {
             const float p =
                 valid ? __expf(s[nt][e] * scale - (hi ? l1 : l0)) : 0.f;
-            s[nt][e] = p * (dp[nt][e] - (hi ? d1 : d0)) * scale;
+            s[nt][e] = p * (dpv - (hi ? d1 : d0)) * scale;
           }
         }
       uint32_t da[4];
@@ -587,19 +653,28 @@ static __global__ void sum_heads_kernel(const float* __restrict__ part, float* _
   out[i] = acc;
 }
 
-static cudaError_t launch_attention_bwd(const bf16* qkv, const bf16* o, const bf16* dout,
-                                        const float* lse, const float* pol, bf16* dqkv,
+static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, int q_ld,
+                                        const bf16* o, const bf16* dout, const float* lse,
+                                        const float* pol, const float* gcls, bf16* dqkv,
                                         float* dpol_part, int B, int N, int H, float scale,
                                         float eps, cudaStream_t stream) {
   const bool policy = pol != nullptr;
-  if (N <= 0 || N > (policy ? AB_POLICY_MAX_N : AB_MAX_N)) return cudaErrorInvalidValue;
-  const size_t smem = ab_smem_bytes(N, policy);
+  if (N <= 0 || N > (policy ? AB_POLICY_MAX_N : AB_MAX_N) || q_ld < 3 * H * AB_HD || q_ld % 8 ||
+      q_bstride % 8)
+    return cudaErrorInvalidValue;
+  const size_t smem = ab_smem_bytes(N, policy, gcls != nullptr);
   auto kernel = policy ? attention_bwd_kernel<true> : attention_bwd_kernel<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, AB_THREADS, smem, stream>>>(qkv, o, dout, lse, pol, dqkv, dpol_part, N, H,
-                                              scale, eps);
+  kernel<<<B * H, AB_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, o, dout, lse, pol, gcls, dqkv,
+                                              dpol_part, N, H, scale, eps);
+  return cudaGetLastError();
+}
+
+static cudaError_t launch_sum_heads(const float* part, float* out, int B, int H, int N,
+                                   cudaStream_t stream) {
+  sum_heads_kernel<<<(B * N + 255) / 256, 256, 0, stream>>>(part, out, B, H, N);
   return cudaGetLastError();
 }
 
@@ -651,6 +726,82 @@ static size_t carve(char* base, int B, int N, int C, int H, int hidden, bool pol
   work = std::max(work, 2LL * ln_bwd_ctas(m) * C);
   s->work = reinterpret_cast<float*>(take(work * e4));
   return off;
+}
+
+// A @ W over M rows, W (K, N) in the (out, in) layout of a Linear with
+// out = K; with gelu_in, times GELU'(gelu_in) in the epilogue
+static cudaError_t gemm_kn(const bf16* a, const bf16* wt, int M, int K, int Nn,
+                           const bf16* gelu_in, bf16* out, float* out_f32, cudaStream_t st) {
+  GemmArgs p{};
+  p.a = a;
+  p.a_rows = M;
+  p.w = wt;
+  p.w_kn = 1;
+  p.gelu_in = gelu_in;
+  p.out = out;
+  p.out_f32 = out_f32;
+  p.M = M;
+  p.N = Nn;
+  p.K = K;
+  p.act = ACT_NONE;
+  return launch_ln_gemm(p, st);
+}
+
+// The MLP half's backward, out = x + fc2(h), h = GELU(y), y = fc1(LN(x)),
+// over M rows, given g (the cotangent of out), x with its LayerNorm's row
+// statistics and output ln_x, h and y: dW2 = g^T h, db2 = sum g; dy =
+// (g W2) * GELU'(y) in the gemm's epilogue; dW1 = dy^T LN(x), db1 = sum
+// dy; dLN = dy W1 (fp32); the LayerNorm backward with dgamma, dbeta, giving
+// dx = LN-bwd + g, into dx_f (fp32) and/or dx_b (bf16). dy (M, hidden)
+// bf16, dln (M, C) fp32 and work are scratch.
+static cudaError_t mlp_backward(const bf16* g, const bf16* x, const float2* stats,
+                                const bf16* ln_x, const bf16* h, const bf16* y,
+                                const float* ln_w, const bf16* w1, const bf16* w2, float* d_ln_w,
+                                float* d_ln_b, float* d_w1, float* d_b1, float* d_w2,
+                                float* d_b2, float* dx_f, bf16* dx_b, bf16* dy, float* dln,
+                                float* work, int M, int C, int hidden, cudaStream_t st) {
+  cudaError_t err;
+  if ((err = launch_wgrad(g, h, d_w2, work, M, C, hidden, st)) != cudaSuccess) return err;
+  if ((err = launch_column_sums(g, d_b2, work, M, C, st)) != cudaSuccess) return err;
+  if ((err = gemm_kn(g, w2, M, C, hidden, y, dy, nullptr, st)) != cudaSuccess) return err;
+  if ((err = launch_wgrad(dy, ln_x, d_w1, work, M, hidden, C, st)) != cudaSuccess) return err;
+  if ((err = launch_column_sums(dy, d_b1, work, M, hidden, st)) != cudaSuccess) return err;
+  if ((err = gemm_kn(dy, w1, M, hidden, C, nullptr, nullptr, dln, st)) != cudaSuccess) return err;
+  return launch_ln_bwd(dln, x, stats, ln_w, g, nullptr, dx_f, dx_b, d_ln_w, d_ln_b, work, M, C,
+                       st);
+}
+
+// scratch of d2s_mlp_residual_backward
+struct MlpScratch {
+  bf16 *ln_x, *hid, *pre, *dy;
+  float *dln, *work;
+  float2* stats;
+};
+
+static size_t carve_mlp(char* base, int M, int C, int hidden, MlpScratch* s) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  const size_t m = (size_t)M, e2 = sizeof(bf16), e4 = sizeof(float);
+  s->ln_x = reinterpret_cast<bf16*>(take(m * C * e2));
+  s->hid = reinterpret_cast<bf16*>(take(m * hidden * e2));
+  s->pre = reinterpret_cast<bf16*>(take(m * hidden * e2));
+  s->dy = reinterpret_cast<bf16*>(take(m * hidden * e2));
+  s->dln = reinterpret_cast<float*>(take(m * C * e4));
+  s->stats = reinterpret_cast<float2*>(take(m * sizeof(float2)));
+  long long work = std::max(wgrad_workspace_floats(M, C, hidden),
+                            wgrad_workspace_floats(M, hidden, C));
+  work = std::max(work, column_sums_workspace_floats(M, std::max(C, hidden)));
+  work = std::max(work, 2LL * ln_bwd_ctas(M) * C);
+  s->work = reinterpret_cast<float*>(take(work * e4));
+  return off;
+}
+
+static bool mlp_shapes_ok(int M, int C, int hidden) {
+  return M > 0 && C > 0 && C % 32 == 0 && C / 32 <= LNB_MAXCPL && hidden > 0 && hidden % 8 == 0;
 }
 
 static bool shapes_ok(int B, int N, int C, int H, int hidden, bool policy) {
@@ -714,37 +865,11 @@ extern "C" int d2s_block_backward(
   err = launch_ln_apply(s.mid, f(ln2_w), f(ln2_b), s.ln2o, s.st2, M, C, ln_eps, st);
   if (err != cudaSuccess) return (int)err;
 
-  // A @ W, W (K, N) in the (out, in) layout of a Linear with out = K
-  auto gemm_kn = [&](const bf16* a, const bf16* wt, int K, int Nn, const bf16* gelu_in,
-                     bf16* out, float* out_f32) {
-    GemmArgs p{};
-    p.a = a;
-    p.a_rows = M;
-    p.w = wt;
-    p.w_kn = 1;
-    p.gelu_in = gelu_in;
-    p.out = out;
-    p.out_f32 = out_f32;
-    p.M = M;
-    p.N = Nn;
-    p.K = K;
-    p.act = ACT_NONE;
-    return launch_ln_gemm(p, st);
-  };
-
   // 2. MLP half
-  if ((err = launch_wgrad(gb, s.hid, fo(d_w2), s.work, M, C, hidden, st)) != cudaSuccess)
-    return (int)err;
-  if ((err = launch_column_sums(gb, fo(d_b2), s.work, M, C, st)) != cudaSuccess) return (int)err;
-  if ((err = gemm_kn(gb, w(w2), C, hidden, s.pre, s.dy, nullptr)) != cudaSuccess) return (int)err;
-  if ((err = launch_wgrad(s.dy, s.ln2o, fo(d_w1), s.work, M, hidden, C, st)) != cudaSuccess)
-    return (int)err;
-  if ((err = launch_column_sums(s.dy, fo(d_b1), s.work, M, hidden, st)) != cudaSuccess)
-    return (int)err;
-  if ((err = gemm_kn(s.dy, w(w1), hidden, C, nullptr, nullptr, s.dln)) != cudaSuccess)
-    return (int)err;
-  if ((err = launch_ln_bwd(s.dln, s.mid, s.st2, f(ln2_w), gb, nullptr, s.dmid_f, s.dmid_b,
-                           fo(d_ln2_w), fo(d_ln2_b), s.work, M, C, st)) != cudaSuccess)
+  if ((err = mlp_backward(gb, s.mid, s.st2, s.ln2o, s.hid, s.pre, f(ln2_w), w(w1), w(w2),
+                          fo(d_ln2_w), fo(d_ln2_b), fo(d_w1), fo(d_b1), fo(d_w2), fo(d_b2),
+                          s.dmid_f, s.dmid_b, s.dy, s.dln, s.work, M, C, hidden, st)) !=
+      cudaSuccess)
     return (int)err;
 
   // 3. attention half
@@ -753,18 +878,17 @@ extern "C" int d2s_block_backward(
   if ((err = launch_column_sums<float>(s.dmid_f, fo(d_bproj), s.work, M, C, st)) !=
       cudaSuccess)
     return (int)err;
-  if ((err = gemm_kn(s.dmid_b, w(wproj), C, C, nullptr, s.dattn, nullptr)) != cudaSuccess)
+  if ((err = gemm_kn(s.dmid_b, w(wproj), M, C, C, nullptr, s.dattn, nullptr, st)) != cudaSuccess)
     return (int)err;
 
   // 4. attention core
-  if ((err = launch_attention_bwd(s.qkv, s.attn, s.dattn, s.lse, f(policy), s.dqkv,
-                                  d_policy ? s.dpol_part : nullptr, B, N, H, scale, eps, st)) !=
-      cudaSuccess)
+  if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.dattn, s.lse,
+                                  f(policy), nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr,
+                                  B, N, H, scale, eps, st)) != cudaSuccess)
     return (int)err;
-  if (d_policy) {
-    sum_heads_kernel<<<(M + 255) / 256, 256, 0, st>>>(s.dpol_part, fo(d_policy), B, H, N);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
+  if (d_policy &&
+      (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, st)) != cudaSuccess)
+    return (int)err;
 
   // 5. LN1 input
   if ((err = launch_wgrad(s.dqkv, s.ln1o, fo(d_wqkv), s.work, M, 3 * C, C, st)) != cudaSuccess)
@@ -772,9 +896,97 @@ extern "C" int d2s_block_backward(
   if (d_bqkv &&
       (err = launch_column_sums(s.dqkv, fo(d_bqkv), s.work, M, 3 * C, st)) != cudaSuccess)
     return (int)err;
-  if ((err = gemm_kn(s.dqkv, w(wqkv), 3 * C, C, nullptr, nullptr, s.dln)) != cudaSuccess)
+  if ((err = gemm_kn(s.dqkv, w(wqkv), M, 3 * C, C, nullptr, nullptr, s.dln, st)) != cudaSuccess)
     return (int)err;
   err = launch_ln_bwd(s.dln, xb, s.st1, f(ln1_w), nullptr, s.dmid_f, nullptr,
                       static_cast<bf16*>(dx), fo(d_ln1_w), fo(d_ln1_b), s.work, M, C, st);
   return (int)err;
+}
+
+// The packed attention core's backward (the CLS-capture route of a training
+// block): dqkv (B, N, 3C) bf16 packed, from qkv (B, N, 3C) bf16 with token
+// rows q_ld elements apart and samples q_bstride apart, and g (B, N, C)
+// bf16, the cotangent of the attention output. gcls: (B, H, N) fp32, the
+// cotangent of the CLS rows, or null (no fold). policy: (B, N) fp32 keep
+// policy or null; d_policy: its (B, N) fp32 gradient or null. The forward
+// is recomputed from qkv first (as the TPU kernel recomputes P): o (B*N, C)
+// bf16 and stats (B, H, N) fp32 (policy mode float4) are its scratch, and
+// dpol_part (B, H, N) fp32 dPolicy's per-head partials (null without
+// d_policy). Requires C == 64 * H, N <= 384 (policy mode 352), q_ld and
+// q_bstride multiples of 8, 16-byte aligned pointers.
+extern "C" int d2s_attention_packed_backward(const void* qkv, long long q_bstride, int q_ld,
+                                             const void* g, const void* gcls,
+                                             const void* policy, void* dqkv, void* d_policy,
+                                             void* o_buf, void* stats_buf, void* dpol_part,
+                                             int B, int N, int H, float scale, float eps,
+                                             void* stream) {
+  using namespace d2s;
+  if (B <= 0 || (d_policy != nullptr && (policy == nullptr || dpol_part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const float* pol = static_cast<const float*>(policy);
+  cudaError_t err = launch_attention_strided(q, q_bstride, q_ld, static_cast<bf16*>(o_buf),
+                                             static_cast<float*>(stats_buf), nullptr, pol, B, N,
+                                             H, scale, eps, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_attention_bwd(q, q_bstride, q_ld, static_cast<const bf16*>(o_buf),
+                             static_cast<const bf16*>(g), static_cast<const float*>(stats_buf),
+                             pol, static_cast<const float*>(gcls), static_cast<bf16*>(dqkv),
+                             d_policy ? static_cast<float*>(dpol_part) : nullptr, B, N, H, scale,
+                             eps, st);
+  if (err != cudaSuccess || d_policy == nullptr) return (int)err;
+  return (int)launch_sum_heads(static_cast<const float*>(dpol_part),
+                               static_cast<float*>(d_policy), B, H, N, st);
+}
+
+// Bytes of scratch d2s_mlp_residual_backward needs for M rows; 0 for shapes
+// it does not take.
+extern "C" long long d2s_mlp_residual_backward_scratch_bytes(int M, int C, int hidden) {
+  if (!d2s::mlp_shapes_ok(M, C, hidden)) return 0;
+  d2s::MlpScratch s;
+  return (long long)d2s::carve_mlp(nullptr, M, C, hidden, &s);
+}
+
+// The MLP half's backward alone, for out = x + fc2(GELU(fc1(LN x))) over
+// M = B*N rows: x and g (the cotangent of out) (M, C) bf16; dx (M, C) bf16
+// out; weights as d2s_block_forward takes ln2/w1/b1/w2 (b2 is not needed);
+// the six gradients fp32 in the weights' shapes, summed over the rows in a
+// fixed order. LN(x) and fc1 with GELU are recomputed from x. scratch:
+// d2s_mlp_residual_backward_scratch_bytes(M, C, hidden) bytes. Requires
+// C % 32 == 0, C <= 768, hidden % 8 == 0, 16-byte aligned pointers.
+extern "C" int d2s_mlp_residual_backward(const void* x, const void* g, void* dx,
+                                         const void* ln_w, const void* ln_b, const void* w1,
+                                         const void* b1, const void* w2, void* d_ln_w,
+                                         void* d_ln_b, void* d_w1, void* d_b1, void* d_w2,
+                                         void* d_b2, void* scratch, int M, int C, int hidden,
+                                         float ln_eps, void* stream) {
+  using namespace d2s;
+  if (!mlp_shapes_ok(M, C, hidden)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MlpScratch s;
+  carve_mlp(static_cast<char*>(scratch), M, C, hidden, &s);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float* lw = static_cast<const float*>(ln_w);
+  cudaError_t err =
+      launch_ln_apply(xb, lw, static_cast<const float*>(ln_b), s.ln_x, s.stats, M, C, ln_eps, st);
+  if (err != cudaSuccess) return (int)err;
+  GemmArgs p{};  // h = GELU(y), y = LN(x) W1^T + b1, kept for GELU'
+  p.a = s.ln_x;
+  p.a_rows = M;
+  p.w = static_cast<const bf16*>(w1);
+  p.bias = static_cast<const float*>(b1);
+  p.preact = s.pre;
+  p.out = s.hid;
+  p.M = M;
+  p.N = hidden;
+  p.K = C;
+  p.act = ACT_GELU;
+  if ((err = launch_ln_gemm(p, st)) != cudaSuccess) return (int)err;
+  auto fo = [](void* q) { return static_cast<float*>(q); };
+  return (int)mlp_backward(static_cast<const bf16*>(g), xb, s.stats, s.ln_x, s.hid, s.pre, lw,
+                           static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
+                           fo(d_ln_w), fo(d_ln_b), fo(d_w1), fo(d_b1), fo(d_w2), fo(d_b2),
+                           nullptr, static_cast<bf16*>(dx), s.dy, s.dln, s.work, M, C, hidden,
+                           st);
 }

@@ -1,4 +1,5 @@
 from dense2sparse_vit_torch.models.registry import (
+    ATTN_KWARGS,
     GUMBEL_KWARGS,
     GUMBEL_MODEL,
     HEADLINE_KWARGS,
@@ -17,7 +18,7 @@ from dense2sparse_vit_torch.models.student import DiffPruningStudent, StudentOut
 from dense2sparse_vit_torch.models.teacher import ViTTeacher
 
 __all__ = [
-    "DiffPruningStudent", "DynamicViTOutput", "DynamicViTPredictor", "DynamicViTStudent",
+    "ATTN_KWARGS", "DiffPruningStudent", "DynamicViTOutput", "DynamicViTPredictor", "DynamicViTStudent",
     "GUMBEL_KWARGS", "GUMBEL_MODEL", "HEADLINE_KWARGS", "HEADLINE_MODEL", "HEADLINE_TEACHER",
     "StudentOutput", "THRESHOLD_KWARGS",
     "ViTTeacher", "create_model", "list_models",

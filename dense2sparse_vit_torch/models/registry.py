@@ -32,6 +32,10 @@ HEADLINE_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
 # tokens above half of the predictor's score mass (bench_train.py's
 # threshold row)
 THRESHOLD_KWARGS = dict(HEADLINE_KWARGS, patch_score_threshold=0.5)
+# attn selection (the JAX package's --attn-selection): the same student
+# ranking each stage's tokens by the previous block's CLS-attention row, with
+# no predictors
+ATTN_KWARGS = dict(HEADLINE_KWARGS, selection="attn")
 # the gumbel baseline at the same widths, stages and keep ratios
 GUMBEL_MODEL = "default_dynamic_vit_small_patch16_224_student"
 GUMBEL_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),

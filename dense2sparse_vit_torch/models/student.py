@@ -8,13 +8,15 @@ With `patch_score_threshold` set (threshold mode) the keep count is the
 image's own: each stage keeps the tokens above a cumulative score-mass
 threshold as a (B, N+1) keep policy, which replaces the previous stage's,
 and every block from the first stage on runs policy-masked attention on
-all N+1 tokens; nothing is gathered. This port has both modes with the
-LayerNorm predictors, in eval mode (the JAX model's `deterministic=True`)
-and in train mode (`deterministic=False`, as the train step runs it, with
-`collect_cls_attns=False`); the attn / random / teacher-CLS selections,
-soft top-k, the BatchNorm predictor, the early-exit head and the student's
-own CLS-attention capture are not ported yet and are rejected at
-construction.
+all N+1 tokens; nothing is gathered. With selection="attn" (the JAX
+package's --attn-selection) a stage ranks the tokens by the previous
+block's CLS-attention row instead of a predictor, and the model has no
+predictors. This port has these modes with the LayerNorm predictors, in
+eval mode (the JAX model's `deterministic=True`) and in train mode
+(`deterministic=False`), with or without the student's own CLS-attention
+capture (`collect_cls_attns`); the random and teacher-CLS selections, soft
+top-k, the BatchNorm predictor and the early-exit head are not ported yet
+and are rejected at construction.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ class StudentOutput:
     dropped_idx: Tuple[torch.Tensor, ...]
     # the last stage's kept indices in original token coordinates (B, K_last)
     kept_idx_orig: Optional[torch.Tensor]
+    # with collect_cls_attns: every capturing block's CLS-attention rows over
+    # the spatial tokens, (B, H, N_layer) each; widths shrink at the stages.
+    # Blocks under a threshold policy capture nothing.
+    cls_attns: Tuple[torch.Tensor, ...] = ()
     # threshold mode: the last stage's (B, N) spatial keep mask and (B,) kept
     # fractions, and every stage's (B, N) mask, which chain the mask loss's
     # target from stage to stage as kept_idx does in top-k mode
@@ -120,11 +126,14 @@ class DiffPruningStudent(DeiTBackbone):
     """See the module docstring. Images are NHWC (B, H, W, 3)."""
 
     def __init__(self, cfg: ModelConfig, pruning: PruningConfig):
+        attn = pruning.selection == "attn"
         reject_unported({
-            "selection != 'topk'": pruning.selection != "topk",
+            "selection == 'random'": pruning.selection == "random",
             "predictor_bn": pruning.predictor_bn,
             "early_exit": pruning.early_exit,
             "cls_from_teacher": pruning.cls_from_teacher,
+            # the JAX model falls back to a predictor where no block precedes
+            "selection == 'attn' with a stage at block 0": attn and 0 in pruning.pruning_locs,
         })
         super().__init__(cfg)
         self.pruning = pruning
@@ -132,20 +141,29 @@ class DiffPruningStudent(DeiTBackbone):
         self.score_predictor = nn.ModuleList(
             PredictorLG(C, pruning.small_predictor, pruning.mask_loss_type,
                         use_fused=cfg.use_fused_attention)
-            for _ in pruning.pruning_locs
+            for _ in ([] if attn else pruning.pruning_locs)
         )
 
     def forward(self, x: torch.Tensor, *, unpruned: bool = False,
-                threshold_override: Optional[float] = None) -> StudentOutput:
+                threshold_override: Optional[float] = None,
+                collect_cls_attns: bool = True) -> StudentOutput:
         """x: (B, H, W, 3) images. unpruned: skip every pruning stage.
         threshold_override: replaces `patch_score_threshold` in threshold
         mode (the threshold curriculum's per-epoch value).
+        collect_cls_attns: capture every block's CLS-attention rows (the JAX
+        model's default; always on with selection="attn", which ranks by
+        them). Off, blocks take the whole-block kernels: the train and eval
+        steps, the export and the profilers turn it off, as the JAX package's
+        do.
 
-        In train mode the blocks take the trainable kernel (fused) and the
+        In train mode the blocks take the trainable kernels (fused) and the
         predictors their plain layers; the gather is differentiable in both
         modes, with the scatter-add as its backward. Threshold masks come
-        from the scores without their gradient, as in the JAX model."""
+        from the scores without their gradient, as in the JAX model; attn
+        scores keep theirs, so the mask loss reaches the blocks through the
+        CLS rows."""
         cfg, pr = self.cfg, self.pruning
+        collect = collect_cls_attns or pr.selection == "attn"
         B, N = x.shape[0], cfg.num_patches
         keep = pr.keep_counts(N)
         gather = fused_gather_tokens if cfg.use_fused_attention else gather_tokens_reference
@@ -154,15 +172,16 @@ class DiffPruningStudent(DeiTBackbone):
             threshold = threshold_override
 
         x = self.embed(x)
-        pred_logits, kept_stage, dropped_stage, keep_masks = [], [], [], []
+        pred_logits, kept_stage, dropped_stage, keep_masks, cls_attns = [], [], [], [], []
         policy = keep_ratios = None  # threshold mode: the (B, N+1) keep policy
+        last_cls = None  # the last capturing block's (B, H, N_layer + 1) CLS rows
         # current spatial position -> original token id
         cur_orig = torch.arange(N, device=x.device).expand(B, N)
         p = 0
         for i, blk in enumerate(self.blocks):
             if i in pr.pruning_locs:
                 if not unpruned:
-                    scores_logits, scores = self.score_predictor[p](x[:, 1:])
+                    scores_logits, scores = self._stage_scores(p, x, last_cls)
                     pred_logits.append(scores_logits)
                     if threshold is not None:
                         mask, keep_ratios = threshold_keep_mask(scores.detach(), threshold)
@@ -176,7 +195,11 @@ class DiffPruningStudent(DeiTBackbone):
                         idx = torch.cat([kept.new_zeros(B, 1), kept + 1], dim=1)
                         x = gather(x, idx)
                 p += 1
-            x = blk(x, policy)
+            if collect and policy is None:
+                x, last_cls = blk(x, return_cls_attn=True)
+                cls_attns.append(last_cls[:, :, 1:])
+            else:
+                x = blk(x, policy)
 
         x = self.norm(x)
         return StudentOutput(
@@ -186,7 +209,22 @@ class DiffPruningStudent(DeiTBackbone):
             kept_idx=tuple(kept_stage),
             dropped_idx=tuple(dropped_stage),
             kept_idx_orig=cur_orig if kept_stage else None,
+            cls_attns=tuple(cls_attns),
             keep_mask=None if policy is None else policy[:, 1:],
             keep_ratios=keep_ratios,
             keep_masks=tuple(keep_masks),
         )
+
+    def _stage_scores(self, p: int, x: torch.Tensor, last_cls: Optional[torch.Tensor]):
+        """(logits, scores) of stage p's spatial tokens: the predictor's, or
+        with selection="attn" the previous block's CLS rows, max over heads
+        (mean with mean_heads), renormalised over the spatial tokens, as both
+        (JAX `student.py:341-349`). torch.amax splits a tie's gradient evenly,
+        as jnp.max does."""
+        pr = self.pruning
+        if pr.selection == "attn":
+            agg = last_cls.mean(dim=1) if pr.mean_heads else torch.amax(last_cls, dim=1)
+            s = agg[:, 1:]
+            s = s / s.sum(dim=-1, keepdim=True)
+            return s, s
+        return self.score_predictor[p](x[:, 1:])

@@ -16,6 +16,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dense2sparse_vit_torch.ops.attention import (
+    fused_attention_packed_trainable,
+    fused_attention_packed_with_cls_trainable,
+)
 from dense2sparse_vit_torch.ops.block import (
     attention_reference,
     fused_transformer_block,
@@ -23,6 +27,7 @@ from dense2sparse_vit_torch.ops.block import (
     fused_transformer_block_trainable,
     layer_norm,
 )
+from dense2sparse_vit_torch.ops.mlp import fused_mlp_residual
 from dense2sparse_vit_torch.ops.quant import fused_transformer_block_int8, quantize_matrices
 
 
@@ -136,19 +141,29 @@ class Attention(nn.Module):
     """Multi-head self-attention, exact fp32 softmax (with a (B, N) keep
     policy, `ops.masked_softmax.softmax_with_policy`). With
     `return_cls_attn`, forward returns (out, cls_attn): the (B, H, N) CLS row
-    of the attention probabilities."""
+    of the attention probabilities. With `use_fused`, the core between the
+    qkv and proj products is `ops.attention`'s packed attention, an autograd
+    Function with a kernel both ways (the JAX Attention's fused route,
+    `nn/layers.py:115-144`)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None):
+                 qk_scale: Optional[float] = None, use_fused: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.use_fused = use_fused
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
     def forward(self, x, policy=None, *, return_cls_attn: bool = False):
-        out = attention_reference(self.qkv(x), self.num_heads, self.scale, policy=policy,
-                                  return_cls=return_cls_attn)
+        qkv = self.qkv(x)
+        if self.use_fused:
+            core = (fused_attention_packed_with_cls_trainable if return_cls_attn
+                    else fused_attention_packed_trainable)
+            out = core(qkv, self.num_heads, policy, self.scale)
+        else:
+            out = attention_reference(qkv, self.num_heads, self.scale, policy=policy,
+                                      return_cls=return_cls_attn)
         if return_cls_attn:
             return self.proj(out[0]), out[1]
         return self.proj(out)
@@ -172,19 +187,25 @@ class DropPath(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer encoder block.
 
-    With `use_fused`, the whole block is one call of a kernel wrapper of
-    `ops.block`, chosen as the JAX package's Block chooses
-    (`nn/layers.py:239-349`): with `return_cls_attn`,
-    `fused_transformer_block_cls`, which has no gradient (the teacher's CLS
-    capture); in train mode, `fused_transformer_block_trainable`, whose
-    backward is the block-backward kernel; in eval mode,
-    `fused_transformer_block`. A (B, N) keep `policy` (threshold pruning,
-    the gumbel baseline's training) goes to the same wrapper, which then
-    runs its policy mode. Each wrapper launches its CUDA kernel for a
-    CUDA tensor and runs its plain torch version for a CPU tensor. The
-    kernels have no DropPath, so a fused block with drop_path > 0 refuses to
-    train, and no CLS capture under autograd (the JAX package's packed
-    attention kernel, not ported), which a fused block refuses in train mode.
+    With `use_fused`, the block runs kernel wrappers chosen as the JAX
+    package's Block chooses, by mode and not by whether autograd is on
+    (`nn/layers.py:239-392`). In eval mode the whole block is one call:
+    with `return_cls_attn`, `ops.block.fused_transformer_block_cls` (the
+    teacher's and an eval student's CLS capture), else
+    `fused_transformer_block`. In train mode without CLS capture it is
+    `fused_transformer_block_trainable`, whose backward is the
+    block-backward kernel. In train mode with CLS capture (a student that
+    collects its own CLS rows) it takes two halves: LN1, the `qkv` product,
+    `ops.attention.fused_attention_packed_with_cls_trainable` (the packed
+    attention core with its CLS rows, whose backward folds in their
+    cotangent), the `proj` product and the residual, then
+    `ops.mlp.fused_mlp_residual`; the products and LN1 stay torch calls, as
+    flax Dense and LayerNorm layers in the JAX package. A (B, N) keep
+    `policy` (threshold pruning, the gumbel baseline's training) goes to
+    the same wrappers, which then run their policy mode. Each wrapper
+    launches its CUDA kernel for a CUDA tensor and runs its plain torch
+    version for a CPU tensor. The kernels have no DropPath, so a fused
+    block with drop_path > 0 refuses to train.
 
     With quant="int8" (W8A8 serving, JAX `nn/layers.py:295-311`), the eval
     mode's policy-free block without CLS capture runs
@@ -202,7 +223,7 @@ class Block(nn.Module):
         self.use_fused = use_fused
         self.quant = quant
         self.norm1 = LayerNorm(dim, eps=layer_norm_eps)
-        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale)
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, use_fused=use_fused)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=layer_norm_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
@@ -249,9 +270,15 @@ class Block(nn.Module):
         if self.use_fused:
             if self.training and self.drop_path.rate > 0:
                 raise NotImplementedError("the fused block has no DropPath kernel yet")
-            if self.training and return_cls_attn and torch.is_grad_enabled():
-                raise NotImplementedError(
-                    "the fused block has no CLS capture under autograd yet")
+            if self.training and return_cls_attn:
+                y, cls_attn = self.attn(self.norm1(x), policy, return_cls_attn=True)
+                x = x + y
+                x = fused_mlp_residual(
+                    x, self.norm2.weight, self.norm2.bias,
+                    compute_weights(self.mlp.fc1, x.dtype)["weight"], self.mlp.fc1.bias,
+                    compute_weights(self.mlp.fc2, x.dtype)["weight"], self.mlp.fc2.bias,
+                    self.norm2.eps)
+                return x, cls_attn
             kernel = fused_transformer_block
             if return_cls_attn:
                 kernel = fused_transformer_block_cls

@@ -9,6 +9,12 @@ name. Importing this package registers the custom ops (`d2s::*`), which is
 all a loaded `torch.export` artifact needs of the port.
 """
 
+from dense2sparse_vit_torch.ops.attention import (
+    fused_attention_backward_packed,
+    fused_attention_packed,
+    fused_attention_packed_trainable,
+    fused_attention_packed_with_cls_trainable,
+)
 from dense2sparse_vit_torch.ops.block import (
     fused_transformer_block,
     fused_transformer_block_backward,
@@ -20,6 +26,7 @@ from dense2sparse_vit_torch.ops.gather import (
     fused_scatter_tokens,
     gather_tokens_reference,
 )
+from dense2sparse_vit_torch.ops.mlp import fused_mlp_residual, fused_mlp_residual_backward
 from dense2sparse_vit_torch.ops.predictor import fused_predictor_lg
 from dense2sparse_vit_torch.ops.quant import fused_transformer_block_int8
 from dense2sparse_vit_torch.ops.topk import mask_from_scores, threshold_keep_mask, topk_keep_indices
@@ -36,6 +43,10 @@ COUNTERS = (
     ("fused_gather_tokens", fused_gather_tokens, "launches"),
     ("fused_scatter_tokens", fused_scatter_tokens, "launches"),
     ("fused_transformer_block_int8", fused_transformer_block_int8, "launches"),
+    ("fused_attention_packed", fused_attention_packed, "launches"),
+    ("fused_attention_backward_packed", fused_attention_backward_packed, "launches"),
+    ("fused_mlp_residual", fused_mlp_residual, "launches"),
+    ("fused_mlp_residual_backward", fused_mlp_residual_backward, "launches"),
 )
 KERNEL_NAMES = tuple(name for name, _, _ in COUNTERS)
 
@@ -50,7 +61,10 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "COUNTERS", "KERNEL_NAMES", "fused_gather_tokens", "fused_predictor_lg",
+    "COUNTERS", "KERNEL_NAMES", "fused_attention_backward_packed", "fused_attention_packed",
+    "fused_attention_packed_trainable", "fused_attention_packed_with_cls_trainable",
+    "fused_gather_tokens", "fused_mlp_residual", "fused_mlp_residual_backward",
+    "fused_predictor_lg",
     "fused_scatter_tokens", "fused_transformer_block",
     "fused_transformer_block_backward", "fused_transformer_block_cls",
     "fused_transformer_block_int8", "fused_transformer_block_trainable", "gather_tokens_reference",

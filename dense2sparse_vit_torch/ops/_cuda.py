@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "d2s_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "d2s_scatter_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -37,13 +38,19 @@ _SIGNATURES = {
     "d2s_block_backward": [_P] * 30 + [_I] * 5 + [_F] * 3 + [_P],
     "d2s_block_backward_scratch_bytes": [_I] * 6,
     "d2s_block_int8_forward": [_P] * 30 + [_I] * 5 + [_F] * 2 + [_P],
+    "d2s_attention_packed_forward": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "d2s_attention_packed_backward": [_P, _L, _I] + [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
+    "d2s_mlp_residual_forward": [_P] * 10 + [_I] * 3 + [_F, _P],
+    "d2s_mlp_residual_backward": [_P] * 15 + [_I] * 3 + [_F, _P],
+    "d2s_mlp_residual_backward_scratch_bytes": [_I] * 3,
     "d2s_predictor_forward": (
         [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         + [_P] * 4 + [_P] * 4 + [_I, _F, _P]
     ),
 }
 
-_RESTYPES = {"d2s_block_backward_scratch_bytes": ctypes.c_longlong}
+_RESTYPES = {"d2s_block_backward_scratch_bytes": _L,
+             "d2s_mlp_residual_backward_scratch_bytes": _L}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

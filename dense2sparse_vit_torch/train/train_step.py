@@ -4,7 +4,8 @@ train_step.py::make_train_step`, `::make_dynamic_vit_train_step`,
 
 `make_train_step`, for `DiffPruningStudent` in top-k or threshold mode: the
 frozen teacher's forward without gradients; the student in train mode (the
-JAX model's deterministic=False, collect_cls_attns=False); mask loss +
+JAX model's deterministic=False, collect_cls_attns=False, which the attn
+selection overrides: it ranks by the student's own CLS rows); mask loss +
 (epoch >= warmup_epochs) * backbone loss; backward; the AdamW update.
 `make_dynamic_vit_train_step`, for the gumbel baseline: the teacher, the
 student's gumbel-policy forward, the DynamicViT distillation loss (with the
@@ -71,7 +72,8 @@ def make_train_step(
         teacher.eval()
         student.train()
         t_logits, t_tokens, t_attns = teacher(images)
-        out = student(images)
+        # no loss reads the student's own CLS rows (JAX `train_step.py:172`)
+        out = student(images, collect_cls_attns=False)
         m_loss, m_metrics = mask_loss(
             out.pred_logits, t_attns, out.kept_idx, pr.keep_ratios,
             loss_type=pr.mask_loss_type, mean_heads=pr.mean_heads,
@@ -201,8 +203,9 @@ def make_eval_step(student: nn.Module, teacher: nn.Module, cfg: ExperimentConfig
         student.eval()
         n_valid, accuracy, cross_entropy = _masked_scores(labels)
         t_logits, _, t_attns = teacher(images)
-        out = student(images)
-        out_unpruned = student(images, unpruned=True)
+        # no eval metric reads the student's own CLS rows (JAX `train_step.py:415`)
+        out = student(images, collect_cls_attns=False)
+        out_unpruned = student(images, unpruned=True, collect_cls_attns=False)
         m_loss, m_metrics = mask_loss(
             out.pred_logits, t_attns, out.kept_idx, pr.keep_ratios,
             loss_type=pr.mask_loss_type, mean_heads=pr.mean_heads, keep_masks=out.keep_masks,

@@ -29,6 +29,7 @@ that the exported graph casts and quantizes nothing per call.
 
 from __future__ import annotations
 
+import inspect
 import io
 from typing import Callable, Optional
 
@@ -47,10 +48,14 @@ class _EvalForward(nn.Module):
     def __init__(self, student: nn.Module):
         super().__init__()
         self.student = student
+        # the pruning student's serving forward captures no CLS rows (JAX
+        # `export.py:74`); the gumbel baseline has no such switch
+        params = inspect.signature(student.forward).parameters
+        self.kwargs = {"collect_cls_attns": False} if "collect_cls_attns" in params else {}
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         dtype = getattr(torch, self.student.cfg.dtype)
-        return self.student(images.to(dtype)).logits.float()
+        return self.student(images.to(dtype), **self.kwargs).logits.float()
 
 
 def export_student(student: nn.Module, batch_size: Optional[int] = None,

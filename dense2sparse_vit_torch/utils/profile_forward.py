@@ -1,12 +1,14 @@
 """Where the device time of the headline student's forward goes, by kernel.
 
     python -m dense2sparse_vit_torch.utils.profile_forward [--batch 256] [--plain]
-        [--mode topk|threshold|gumbel] [--quant int8]
+        [--mode topk|threshold|attn|gumbel] [--quant int8]
 
 Runs `--iters` forwards of `dynamic_vit_small_patch16_224_student` (bf16,
 keep 0.7/0.49/0.343 at blocks 3/6/9, small predictor, random weights; with
-`--mode threshold` the same student in threshold mode, with `--mode gumbel`
-the gumbel baseline's eval forward at the same ratios; with `--quant int8`
+`--mode threshold` the same student in threshold mode, with `--mode attn`
+ranking by its own CLS rows, with `--mode gumbel` the gumbel baseline's eval
+forward at the same ratios; the pruning student without capturing its CLS
+rows where its mode does not rank by them; with `--quant int8`
 the W8A8 blocks wherever the model quantizes, see `nn.layers.Block`) under
 `torch.profiler` on the first CUDA device and prints one JSON line per
 device kernel (calls and ms per forward, share of the device time), then a
@@ -26,12 +28,14 @@ import time
 import torch
 
 from dense2sparse_vit_torch.models import (
-    GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL, THRESHOLD_KWARGS, create_model)
+    ATTN_KWARGS, GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL, THRESHOLD_KWARGS,
+    create_model)
 from dense2sparse_vit_torch.utils import card_name_and_power_limit
 
 MODES = {
     "topk": (HEADLINE_MODEL, HEADLINE_KWARGS),
     "threshold": (HEADLINE_MODEL, THRESHOLD_KWARGS),
+    "attn": (HEADLINE_MODEL, ATTN_KWARGS),
     "gumbel": (GUMBEL_MODEL, GUMBEL_KWARGS),
 }
 
@@ -53,8 +57,9 @@ def main(argv=None) -> None:
     model = create_model(name, use_fused_attention=not args.plain, quant=args.quant, device=dev,
                          **kwargs).eval()
     x = torch.randn((args.batch, 224, 224, 3), device=dev, dtype=torch.bfloat16)
+    kw = {} if args.mode == "gumbel" else {"collect_cls_attns": False}
     with torch.inference_mode():
-        summary = profile_device(lambda: model(x), args.iters)
+        summary = profile_device(lambda: model(x, **kw), args.iters)
     print(json.dumps({"batch": args.batch, "mode": args.mode, "plain": args.plain,
                       "quant": args.quant, **summary,
                       "img_per_s": args.batch / summary["wall_ms"] * 1e3}))

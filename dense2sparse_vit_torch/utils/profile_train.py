@@ -1,10 +1,11 @@
 """Where the device time of the headline student's train step goes, by kernel.
 
     python -m dense2sparse_vit_torch.utils.profile_train [--batch 128] [--plain]
-        [--mode topk|threshold|gumbel]
+        [--mode topk|threshold|attn|gumbel]
 
 Builds `dynamic_vit_small_patch16_224_student` (bf16, keep 0.7/0.49/0.343 at
-blocks 3/6/9, small predictor; `--mode threshold`: in threshold mode) and
+blocks 3/6/9, small predictor; `--mode threshold`: in threshold mode;
+`--mode attn`: ranking by its own CLS rows, no predictors) and
 its teacher with random weights, AdamW past the warmup and
 `make_train_step` (`--mode gumbel`: the gumbel baseline at the same ratios
 with `make_dynamic_vit_train_step` and its ratio and token-distillation

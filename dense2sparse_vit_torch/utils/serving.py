@@ -5,7 +5,9 @@ ragged batch sizes; `ServingModel` pads each one up to the nearest
 configured bucket, runs that bucket's artifact (`utils/export.py`) and slices
 the rows back, chunking a batch larger than the biggest bucket. Where the
 symbolic-batch export succeeds, one artifact serves every size and no
-padding is needed. Which of the two a model holds is never hidden: `symbolic`
+padding is needed: a batch above the artifact's largest symbolic batch
+(`utils.export.MAX_BATCH` when it was exported, kept in the manifest) is
+served in chunks of that size. Which of the two a model holds is never hidden: `symbolic`
 says it, and when the symbolic export failed and buckets were built
 instead, `symbolic_error` holds why (and a warning said so).
 
@@ -25,6 +27,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from dense2sparse_vit_torch.utils import export
 from dense2sparse_vit_torch.utils.export import export_student, load_exported
 
 _MANIFEST = "manifest.json"
@@ -40,9 +43,12 @@ class ServingModel:
 
     def __init__(self, bucket_fns: Dict[int, Callable], bucket_blobs: Dict[int, bytes],
                  symbolic_fn: Optional[Callable] = None, symbolic_blob: Optional[bytes] = None,
-                 symbolic_error: Optional[str] = None):
+                 symbolic_error: Optional[str] = None, max_batch: Optional[int] = None):
         if symbolic_fn is None and not bucket_fns:
             raise ValueError("need at least one bucket or a symbolic artifact")
+        if symbolic_fn is not None and not (max_batch and max_batch > 0):
+            raise ValueError(f"a symbolic artifact needs its largest batch, got {max_batch}")
+        self.max_batch = max_batch  # the symbolic artifact's largest batch
         self._bucket_fns = dict(sorted(bucket_fns.items()))
         self._bucket_blobs = bucket_blobs
         self._symbolic_fn = symbolic_fn
@@ -65,7 +71,7 @@ class ServingModel:
         if try_symbolic:
             try:
                 blob = export_student(student, batch_size=None, **export_kwargs)
-                return cls({}, {}, load_exported(blob), blob)
+                return cls({}, {}, load_exported(blob), blob, max_batch=export.MAX_BATCH)
             except Exception as e:  # the symbolic trace is refused: fall back, and say so
                 error = f"{type(e).__name__}: {e}"
                 warnings.warn(f"symbolic-batch export failed, exporting buckets {tuple(buckets)} "
@@ -80,6 +86,8 @@ class ServingModel:
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
         manifest = {"buckets": sorted(self._bucket_blobs), "symbolic": self.symbolic}
+        if self.symbolic:
+            manifest["max_batch"] = self.max_batch
         if self.symbolic_error is not None:
             manifest["symbolic_error"] = self.symbolic_error
         if self.symbolic:
@@ -105,7 +113,8 @@ class ServingModel:
             with open(os.path.join(path, _bucket_file(b)), "rb") as f:
                 blobs[int(b)] = f.read()
         return cls({b: load_exported(blob) for b, blob in blobs.items()}, blobs,
-                   symbolic_fn, symbolic_blob, manifest.get("symbolic_error"))
+                   symbolic_fn, symbolic_blob, manifest.get("symbolic_error"),
+                   manifest.get("max_batch"))
 
     # -- dispatch ----------------------------------------------------------
 
@@ -127,7 +136,8 @@ class ServingModel:
         if n == 0:
             raise ValueError("empty batch")
         if self.symbolic:
-            return self._symbolic_fn(images)
+            step = self.max_batch
+            return torch.cat([self._symbolic_fn(images[i:i + step]) for i in range(0, n, step)])
         out, i = [], 0
         while i < n:
             b = self._bucket_for(n - i)

@@ -22,9 +22,13 @@ from dense2sparse_vit_torch.models import (
     HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER, create_model)
 from dense2sparse_vit_torch.nn.layers import Block
 from dense2sparse_vit_torch.nn.predictor import PredictorLG
+from dense2sparse_vit_torch.ops.attention import attention_backward_reference
 from dense2sparse_vit_torch.ops.block import (
     BLOCK_WEIGHT_KEYS, transformer_block_backward_reference, transformer_block_reference)
+from dense2sparse_vit_torch.ops.block import attention_reference
 from dense2sparse_vit_torch.ops.gather import gather_tokens_reference, scatter_tokens_reference
+from dense2sparse_vit_torch.ops.mlp import (
+    mlp_residual_backward_reference, mlp_residual_reference)
 from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
 from dense2sparse_vit_torch.ops.quant import quant_block_reference, quantize_rows
 from dense2sparse_vit_torch.train import make_optimizer, make_train_step
@@ -212,7 +216,7 @@ def test_student_forward_launches_every_kernel(cuda):
     x = torch.randn((2, 224, 224, 3), device=cuda, dtype=torch.bfloat16)
     ops.reset_launch_counts()
     with torch.inference_mode():
-        out = model(x)
+        out = model(x, collect_cls_attns=False)
         torch.cuda.synchronize()
     assert ops.launch_counts() == {
         **NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
@@ -227,12 +231,13 @@ def test_train_mode_launches_the_kernels_or_raises(cuda):
     gather: under autograd the forward launches the block and gather
     kernels and the backward their backward kernels; the predictor runs its
     plain layers in train mode, as in the JAX package. A fused block in
-    train mode refuses CLS capture under autograd."""
+    train mode that captures its CLS rows takes the packed attention and
+    the MLP half, a kernel each way."""
     model = create_model(HEADLINE_MODEL, use_fused_attention=True, device=cuda,
                          **HEADLINE_KWARGS).train()
     x = torch.randn((2, 224, 224, 3), device=cuda, dtype=torch.bfloat16)
     ops.reset_launch_counts()
-    out = model(x)
+    out = model(x, collect_cls_attns=False)
     (out.logits.float().sum() + sum(p.float().sum() for p in out.pred_logits)).backward()
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
@@ -242,9 +247,15 @@ def test_train_mode_launches_the_kernels_or_raises(cuda):
     }
     assert model.blocks[0].attn.qkv.weight.grad is not None
     assert model.score_predictor[0].in_conv[1].weight.grad is not None
-    with pytest.raises(NotImplementedError, match="CLS capture"):
-        model.blocks[0](torch.zeros((2, 197, 384), device=cuda, dtype=torch.bfloat16),
-                        return_cls_attn=True)
+    ops.reset_launch_counts()
+    y, cls = model.blocks[0](torch.randn((2, 197, 384), device=cuda, dtype=torch.bfloat16),
+                             return_cls_attn=True)
+    (y.float().sum() + cls.float().sum()).backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        **NO_LAUNCHES, "fused_attention_packed": 1, "fused_attention_backward_packed": 1,
+        "fused_mlp_residual": 1, "fused_mlp_residual_backward": 1,
+    }
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -441,7 +452,7 @@ def test_int8_students_launch_the_int8_kernel_in_eval_only(cuda):
     topk = create_model(HEADLINE_MODEL, device=cuda, **int8).eval()
     thr = create_model(HEADLINE_MODEL, device=cuda, patch_score_threshold=0.5, **int8).eval()
     teacher = create_model(HEADLINE_TEACHER, device=cuda, dtype="bfloat16", quant="int8",
-                           use_fused_attention=True)
+                           use_fused_attention=True).eval()
     for model, want in (
         (topk, {"fused_transformer_block_int8": 12, "fused_predictor_lg": 3,
                 "fused_gather_tokens": 3}),
@@ -450,14 +461,15 @@ def test_int8_students_launch_the_int8_kernel_in_eval_only(cuda):
         (teacher, {"fused_transformer_block_cls": 12}),
     ):
         ops.reset_launch_counts()
+        kw = {} if model is teacher else {"collect_cls_attns": False}
         with torch.inference_mode():
-            logits = model(x)
+            logits = model(x, **kw)
             logits = logits.logits if hasattr(logits, "logits") else logits[0]
             torch.cuda.synchronize()
         assert ops.launch_counts() == {**NO_LAUNCHES, **want}
         assert torch.isfinite(logits.float()).all()
     ops.reset_launch_counts()
-    topk.train()(x).logits.float().sum().backward()
+    topk.train()(x, collect_cls_attns=False).logits.float().sum().backward()
     torch.cuda.synchronize()
     assert ops.launch_counts()["fused_transformer_block_int8"] == 0
     assert ops.launch_counts()["fused_transformer_block"] == 12
@@ -474,10 +486,110 @@ def test_exported_int8_student_serves_on_the_card(cuda):
         x = torch.randn((b, 224, 224, 3), device=cuda)
         with torch.inference_mode():
             ops.reset_launch_counts()
-            want = model(x.to(torch.bfloat16)).logits.float()
+            want = model(x.to(torch.bfloat16), collect_cls_attns=False).logits.float()
             live = ops.launch_counts()
             ops.reset_launch_counts()
             got = fn(x)
             torch.cuda.synchronize()
         assert ops.launch_counts() == live
         assert torch.equal(got, want)
+
+
+# ---- the packed attention and the MLP half (a training block's CLS capture) --
+
+
+def _thirds_close(got, want, tol=BWD_TOL):
+    """q, k and v of a packed dqkv apart: a fault in dQ or dK would hide
+    under dV."""
+    for a, b in zip(got.chunk(3, -1), want.chunk(3, -1)):
+        _assert_close(a, b, tol)
+
+
+@pytest.mark.parametrize("policy,n", [(False, 13), (False, 197), (True, 197), (True, 352)])
+@pytest.mark.parametrize("with_gcls", [False, True])
+def test_packed_attention_both_ways(cuda, n, policy, with_gcls):
+    """The packed forward (output, CLS rows) and backward (dqkv, and dPolicy
+    in policy mode, at eps 0.1) against the plain versions, on qkv that is a
+    strided view (the first 3C channels of wider rows), with and without
+    the CLS rows' cotangent."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    bf16 = torch.bfloat16
+    wide = torch.randn((4, n, 4 * 384), generator=gen, device=cuda).to(bf16)
+    qkv = wide[..., :3 * 384]
+    g = torch.randn((4, n, 384), generator=gen, device=cuda).to(bf16)
+    gcls = torch.randn((4, 6, n), generator=gen, device=cuda) if with_gcls else None
+    pol = _policy(gen, 4, n, cuda) if policy else None
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    scale = 64 ** -0.5
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out, cls = ops.fused_attention_packed(qkv, 6, pol, scale=scale, eps=0.1, return_cls=True)
+        res = ops.fused_attention_backward_packed(qkv, g, 6, gcls=gcls, scale=scale, **kw)
+        torch.cuda.synchronize()
+        want_out, want_cls = attention_reference(qkv, 6, scale, return_cls=True, **kw)
+        want_dqkv, want_dpol = attention_backward_reference(qkv, g, 6, scale, gcls=gcls, **kw)
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_attention_packed": 1,
+                                   "fused_attention_backward_packed": 1}
+    _assert_close(out, want_out)
+    _assert_close(cls, want_cls)
+    dqkv, dpol = res if policy else (res, None)
+    _thirds_close(dqkv, want_dqkv)
+    if policy:
+        _assert_close(dpol, want_dpol, BWD_TOL)
+    if with_gcls:  # the fold alone
+        zero = torch.zeros_like(g)
+        with torch.no_grad():
+            res = ops.fused_attention_backward_packed(qkv, zero, 6, gcls=gcls, scale=scale, **kw)
+            want, _ = attention_backward_reference(qkv, zero, 6, scale, gcls=gcls, **kw)
+        _thirds_close(res[0] if policy else res, want)
+
+
+@pytest.mark.parametrize("n", [13, 197])
+def test_mlp_residual_both_ways(cuda, n):
+    """The MLP half's output and its seven cotangents against the plain
+    versions; the Function's gradients are the backward kernel's."""
+    blk = _sharpen(Block(384, 6, use_fused=True), seed=n).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    kw = blk.kernel_weights(torch.bfloat16)
+    w = [kw[k].detach() for k in ("ln2_w", "ln2_b", "w1", "b1", "w2", "b2")]
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        y = ops.fused_mlp_residual(x, *w, 1e-6)
+        grads = ops.fused_mlp_residual_backward(x, g, *w[:5])
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {**NO_LAUNCHES, "fused_mlp_residual": 1,
+                                       "fused_mlp_residual_backward": 1}
+        _assert_close(y, mlp_residual_reference(x, *w, 1e-6))
+        for a, b in zip(grads, mlp_residual_backward_reference(x, g, *w[:5], 1e-6)):
+            _assert_close(a, b, BWD_TOL)
+    leaves = [t.clone().requires_grad_() for t in [x] + w]
+    ops.fused_mlp_residual(*leaves, 1e-6).backward(g)
+    for a, b in zip(leaves, grads):
+        assert torch.equal(a.grad, b.to(a.dtype))
+
+
+def test_attn_student_train_step_launches(cuda):
+    """One train step of the attn-selection student: the teacher's 12
+    CLS-row blocks; the student's 12 packed cores and MLP halves each way, 3
+    gathers and 3 scatters; no whole-block kernel and no predictor."""
+    from dense2sparse_vit_torch.models import ATTN_KWARGS
+
+    student = create_model(HEADLINE_MODEL, use_fused_attention=True, device=cuda, **ATTN_KWARGS)
+    teacher = create_model(HEADLINE_TEACHER, use_fused_attention=True, device=cuda,
+                           dtype="bfloat16")
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=TrainConfig())
+    opt = make_optimizer(student, cfg.train, steps_per_epoch=10)
+    opt.count = cfg.train.warmup_epochs * 10
+    step = make_train_step(student, teacher, opt, cfg)
+    x = torch.randn((2, 224, 224, 3), device=cuda)
+    ops.reset_launch_counts()
+    metrics = step(x, torch.tensor([3, 7], device=cuda), epoch=cfg.train.warmup_epochs + 1)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        **NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_attention_packed": 12,
+        "fused_attention_backward_packed": 12, "fused_mlp_residual": 12,
+        "fused_mlp_residual_backward": 12, "fused_gather_tokens": 3, "fused_scatter_tokens": 3,
+    }
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

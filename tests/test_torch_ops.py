@@ -224,7 +224,8 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.utils.profile_forward, dense2sparse_vit_torch.ops.gumbel, "
         "dense2sparse_vit_torch.ops.masked_softmax, dense2sparse_vit_torch.losses.distill, "
         "dense2sparse_vit_torch.models.dynamic_vit_default, dense2sparse_vit_torch.ops.quant, "
-        "dense2sparse_vit_torch.utils.export, dense2sparse_vit_torch.utils.serving\n"
+        "dense2sparse_vit_torch.utils.export, dense2sparse_vit_torch.utils.serving, "
+        "dense2sparse_vit_torch.ops.attention, dense2sparse_vit_torch.ops.mlp\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"

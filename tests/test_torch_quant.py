@@ -237,7 +237,7 @@ def test_int8_student_matches_jax(int8_calls, threshold, int8_blocks):
     want = _jax_int8_forward(threshold)
     model = _port_student(threshold).eval()
     with torch.no_grad():
-        out = model(torch.from_numpy(_images()))
+        out = model(torch.from_numpy(_images()), collect_cls_attns=False)
     assert len(int8_calls) == int8_blocks
     np.testing.assert_allclose(out.logits.numpy(), np.asarray(want.logits), rtol=1e-4, atol=1e-4)
     for got, w in zip(out.kept_idx, want.kept_idx):

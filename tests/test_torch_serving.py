@@ -25,8 +25,9 @@ from dense2sparse_vit_tpu.core.config import PruningConfig as JaxPruningConfig
 from dense2sparse_vit_tpu.models.student import DiffPruningStudent as JaxStudent
 from dense2sparse_vit_tpu.utils.serving import ServingModel as JaxServingModel
 
+import dense2sparse_vit_torch.utils.export as export_module
 import dense2sparse_vit_torch.utils.serving as serving
-from dense2sparse_vit_torch.models import create_model
+from dense2sparse_vit_torch.models import DiffPruningStudent, create_model
 from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 from dense2sparse_vit_torch.utils.export import export_student, load_exported
 from dense2sparse_vit_torch.utils.serving import ServingModel
@@ -56,8 +57,10 @@ def _images(n, seed=0):
 
 
 def _live(student, x):
+    """The live eval forward, which (as the export's) captures no CLS rows."""
+    kw = {"collect_cls_attns": False} if isinstance(student, DiffPruningStudent) else {}
     with torch.no_grad():
-        return student(x.to(getattr(torch, student.cfg.dtype))).logits.float()
+        return student(x.to(getattr(torch, student.cfg.dtype)), **kw).logits.float()
 
 
 @pytest.mark.parametrize("kind", sorted(STUDENTS))
@@ -130,6 +133,25 @@ def test_save_load_round_trips(tmp_path, bucketed):
     assert loaded.symbolic
     x = _images(7)
     assert torch.equal(loaded(x), _live(student, x))
+
+
+def test_symbolic_serving_chunks_above_its_largest_batch(tmp_path, monkeypatch):
+    """A symbolic artifact takes batches up to `utils.export.MAX_BATCH` (4
+    here): larger ones are served in chunks of that size, equal to the live
+    model bit for bit, and a loaded model reads the size from its manifest."""
+    monkeypatch.setattr(export_module, "MAX_BATCH", 4)
+    student = _student()
+    sm = ServingModel.export(student)
+    assert sm.symbolic and sm.max_batch == 4
+    sm.save(str(tmp_path))
+    assert json.loads((tmp_path / "manifest.json").read_text())["max_batch"] == 4
+    monkeypatch.setattr(export_module, "MAX_BATCH", 4096)
+    loaded = ServingModel.load(str(tmp_path))
+    assert loaded.max_batch == 4
+    for n in (5, 9):
+        x = _images(n, seed=n)
+        want = _live(student, x)
+        assert torch.equal(sm(x), want) and torch.equal(loaded(x), want), n
 
 
 def test_symbolic_failure_falls_back_to_buckets_and_says_so(tmp_path, monkeypatch):

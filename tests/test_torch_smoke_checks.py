@@ -324,6 +324,82 @@ def test_int8_walk_equals_the_forward():
     images = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(3))
     with torch.inference_mode():
         logits, shapes = chip_smoke.walk_int8(torch, model, images.to(torch.bfloat16))
-        want = model(images.to(torch.bfloat16)).logits
+        want = model(images.to(torch.bfloat16), collect_cls_attns=False).logits
     assert torch.equal(logits, want)
     assert [x.shape[1] for x, _, _, _ in shapes] == [17, 12, 8]
+
+
+# ---- the packed attention's and the MLP half's checks ----------------------
+
+
+def _attn_case(gcls=True):
+    """A train step's record at one block, as chip_smoke.capture_attn_step
+    keeps it: the packed core's qkv and cotangents, the MLP half's input,
+    weights and cotangent (bf16 activations, fp32 LayerNorm and biases)."""
+    g = torch.Generator().manual_seed(5)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=g) * s
+
+    e = {"qkv": rnd(B, N, 3 * C).to(bf16), "heads": H, "scale": (C // H) ** -0.5,
+         "g": rnd(B, N, C).to(bf16), "gcls": rnd(B, H, N, s=0.1).to(bf16) if gcls else None}
+    w = [1 + rnd(C, s=0.1), rnd(C, s=0.1), rnd(4 * C, C, s=C ** -0.5).to(bf16),
+         rnd(4 * C, s=0.1), rnd(C, 4 * C, s=(4 * C) ** -0.5).to(bf16), rnd(C, s=0.1)]
+    m = {"x": rnd(B, N, C).to(bf16), "w": w, "eps": 1e-6, "g": rnd(B, N, C).to(bf16)}
+    return e, m
+
+
+@pytest.mark.parametrize("gcls", [True, False])
+def test_check_attn_block_passes_the_plain_versions(capsys, gcls):
+    e, m = _attn_case(gcls)
+    worst = chip_smoke.check_attn_block(torch, e, m, block=2)
+    line = _last_line(capsys)
+    assert all(v == 0.0 for v in worst.values())
+    folds = {f"gcls_only[{k}].{p}" for k in ("step", "offset") for p in "qkv"}
+    assert folds <= set(line["rel_err"]) if gcls else not folds & set(line["rel_err"])
+    assert all(line["rel_err"][k] <= line["tol_rel"][k] for k in line["rel_err"])
+
+
+def _fold_without_cls_mass(real):
+    """The packed backward whose CLS fold leaves sum_j gcls_j P_0j out of
+    D_0: the fault chip_smoke.py --plant-fault cls puts into the kernel.
+    Every dS_0j = P_0j (dP_0j - D_0) then gains P_0j sum_k gcls_k P_0k."""
+
+    def faulty(qkv, g, num_heads, *, gcls=None, scale=None, **kwargs):
+        right = real(qkv, g, num_heads, gcls=gcls, scale=scale, **kwargs)
+        if gcls is None:
+            return right
+        b, n, c3 = qkv.shape
+        q, k, _ = qkv.float().view(b, n, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
+        p0 = torch.softmax(q[:, :, :1] @ k.transpose(-1, -2) * scale, dim=-1)[:, :, 0]
+        ds0 = p0 * (gcls.float() * p0).sum(-1, keepdim=True)  # (b, h, n)
+        extra = torch.zeros((b, n, 3, num_heads, c3 // 3 // num_heads))
+        extra[:, 0, 0] = scale * (ds0[..., None] * k).sum(2)
+        extra[:, :, 1] = (scale * ds0[..., None] * q[:, :, :1]).permute(0, 2, 1, 3)
+        return (right.float() + extra.reshape(b, n, c3)).to(right.dtype)
+
+    return faulty
+
+
+def test_check_attn_block_rejects_the_fold_without_its_mass(monkeypatch, capsys):
+    monkeypatch.setattr(ops, "fused_attention_backward_packed",
+                        _fold_without_cls_mass(ops.fused_attention_backward_packed))
+    e, m = _attn_case()
+    with pytest.raises(AssertionError, match=r"gcls_only\[offset\]"):
+        chip_smoke.check_attn_block(torch, e, m, block=2)
+    line = _last_line(capsys)
+    assert line["rel_err"]["gcls_only[offset].k"] > 2 * chip_smoke.BWD_TOL
+    # the forward, the values' gradient and the MLP half do not see it
+    assert all(v == 0.0 for k, v in line["rel_err"].items()
+               if k in ("out", "cls") or k.endswith(".v") or k.startswith("mlp."))
+
+
+@pytest.mark.parametrize("eps", chip_smoke.EPS_CHECKS)
+def test_check_attn_policy_passes_the_plain_versions(capsys, eps):
+    e, _ = _attn_case()
+    chip_smoke.check_attn_policy(torch, e["qkv"], _keep_policy(N), e["g"], e["gcls"], H,
+                                 e["scale"], eps)
+    line = _last_line(capsys)
+    assert line["eps"] == eps and "dpolicy" in line["rel_err"]
+    assert all(v == 0.0 for v in line["rel_err"].values())

@@ -17,8 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+import dense2sparse_vit_tpu.ops.pallas.attention as jax_attention
 import dense2sparse_vit_tpu.ops.pallas.block as jax_block
 import dense2sparse_vit_tpu.ops.pallas.gather as jax_gather
+import dense2sparse_vit_tpu.ops.pallas.mlp as jax_mlp
+import dense2sparse_vit_tpu.ops.pallas.predictor as jax_predictor
 from dense2sparse_vit_tpu.core.config import ModelConfig as JaxModelConfig
 from dense2sparse_vit_tpu.core.config import PruningConfig as JaxPruningConfig
 from dense2sparse_vit_tpu.losses.backbone_loss import backbone_loss as jax_backbone_loss
@@ -66,8 +69,15 @@ def _teacher_params():
 
 
 def _interpret_kernels():
-    """The Pallas kernels the training path reaches, in interpret mode."""
+    """The Pallas kernels the training path reaches, in interpret mode (the
+    packed attention and the MLP half: a fused training Block that captures
+    its CLS rows; the predictor: an eval-mode student)."""
     gather = jax_gather.fused_gather_tokens
+    mlp = jax_mlp.fused_mlp_residual
+
+    def mlp_interpret(x, ln_s, ln_b, w1, b1, w2, b2, eps=1e-6, block_batch=8, interpret=False):
+        return mlp(x, ln_s, ln_b, w1, b1, w2, b2, eps, block_batch, True)
+
     return [
         (jax_block, "fused_transformer_block",
          functools.partial(jax_block.fused_transformer_block, interpret=True)),
@@ -75,6 +85,15 @@ def _interpret_kernels():
          functools.partial(jax_block.fused_transformer_block_backward, interpret=True)),
         (jax_gather, "fused_gather_tokens",
          lambda x, idx, block_batch=8, interpret=False: gather(x, idx, block_batch, True)),
+        (jax_attention, "fused_attention_packed",
+         functools.partial(jax_attention.fused_attention_packed, interpret=True)),
+        (jax_attention, "fused_attention_backward_packed",
+         functools.partial(jax_attention.fused_attention_backward_packed, interpret=True)),
+        (jax_mlp, "fused_mlp_residual", mlp_interpret),
+        (jax_mlp, "fused_mlp_residual_backward",
+         functools.partial(jax_mlp.fused_mlp_residual_backward, interpret=True)),
+        (jax_predictor, "fused_predictor_lg",
+         functools.partial(jax_predictor.fused_predictor_lg, interpret=True)),
     ]
 
 
@@ -191,12 +210,14 @@ def test_block_cls_rows_match_pallas_kernel_and_flax_block(use_fused):
 
 def test_block_dispatch_follows_the_jax_block(monkeypatch):
     """Fused: eval -> fused_transformer_block, train ->
-    fused_transformer_block_trainable, CLS capture ->
-    fused_transformer_block_cls, which a training block refuses under
-    autograd; the train-mode forward equals the eval one."""
+    fused_transformer_block_trainable, CLS capture in eval ->
+    fused_transformer_block_cls, CLS capture in train (with autograd or
+    without) -> the packed attention with its CLS rows and the MLP half; the
+    train-mode forwards equal the eval ones."""
     calls = []
     for name in ("fused_transformer_block", "fused_transformer_block_trainable",
-                 "fused_transformer_block_cls"):
+                 "fused_transformer_block_cls", "fused_attention_packed_with_cls_trainable",
+                 "fused_mlp_residual"):
         real = getattr(port_layers, name)
         monkeypatch.setattr(port_layers, name, functools.partial(
             lambda real, name, *a, **k: calls.append(name) or real(*a, **k), real, name))
@@ -205,13 +226,18 @@ def test_block_dispatch_follows_the_jax_block(monkeypatch):
     xt = torch.from_numpy(x)
     with torch.no_grad():
         want = blk.eval()(xt)
-        blk.eval()(xt, return_cls_attn=True)
+        want_cls = blk.eval()(xt, return_cls_attn=True)
     got = blk.train()(xt)
     assert calls == ["fused_transformer_block", "fused_transformer_block_cls",
                      "fused_transformer_block_trainable"]
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="CLS capture"):
+    calls.clear()
+    got_cls = blk(xt, return_cls_attn=True)
+    with torch.no_grad():
         blk(xt, return_cls_attn=True)
+    assert calls == ["fused_attention_packed_with_cls_trainable", "fused_mlp_residual"] * 2
+    for a, b in zip(got_cls, want_cls):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 # ---- the teacher ----------------------------------------------------------
