@@ -168,7 +168,8 @@ KERNEL_NAMES = (
     "fused_transformer_block_backward[policy]", "fused_predictor_lg",
     "fused_gather_tokens", "fused_scatter_tokens", "fused_transformer_block_int8",
     "fused_attention_packed", "fused_attention_backward_packed", "fused_mlp_residual",
-    "fused_mlp_residual_backward",
+    "fused_mlp_residual_backward", "fused_transformer_block[scaled]",
+    "fused_transformer_block_backward[scaled]",
 )
 NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
@@ -261,6 +262,12 @@ SOURCES = {
     "fused_mlp_residual_backward": (
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
         "dense2sparse_vit_tpu/ops/pallas/mlp.py:305"),
+    "fused_transformer_block[scaled]": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:39"),
+    "fused_transformer_block_backward[scaled]": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:408"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -269,13 +276,16 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # the faults --plant-fault puts into a copy of a kernel source: (block_bwd.cu)
 # rowsum(dO * O) dropped, (policy) dPolicy's diagonal kept, or (cls) the CLS
 # fold's sum_j gcls_j P_0j left out of D_0; (quant_block.cu) fc2 dequantized
-# with fc1's column scales; and the stage whose check must reject it
+# with fc1's column scales; (ln_gemm.cuh) the DropPath branch scales ignored
+# in the residual epilogue; and the stage whose check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
     "int8": ("quant_block.cu", "q.col_s = f(s2);  // fc2's column scales",
              "q.col_s = f(s1);  // fc2's column scales", "fc2_out"),
     "cls": ("block_bwd.cu", "        Ds[0] += s0;\n", "        Ds[0] += 0.f * s0;\n", "gcls_only"),
+    "droppath": ("ln_gemm.cuh", "for (int j = 0; j < 8; ++j) v[j] *= sc;",
+                 "for (int j = 0; j < 8; ++j) v[j] *= 1.f + 0.f * sc;", "mid"),
 }
 
 
@@ -449,9 +459,12 @@ class Tally:
 # ---- the serving checks ----------------------------------------------------
 
 
-def check_block(torch, x, w, num_heads, scale, ln_eps, block=None, policy=None, eps=1e-6):
+def check_block(torch, x, w, num_heads, scale, ln_eps, block=None, policy=None, eps=1e-6,
+                branch_scales=None, phase="check"):
     """Hold the block kernel against its plain version, stage by stage (in
-    policy mode with a (B, N) keep `policy` and smoothing `eps`).
+    policy mode with a (B, N) keep `policy` and smoothing `eps`; with
+    DropPath's (sa, sm) `branch_scales`, each residual branch scaled per
+    sample).
 
     The block's output is x plus two branches, and at the init's weight
     scale the residual x is tens of times larger than the attention branch,
@@ -460,9 +473,9 @@ def check_block(torch, x, w, num_heads, scale, ln_eps, block=None, policy=None, 
     kernel's own input to that stage:
       qkv, attn, hid: the LN1-qkv projection, the attention core and the
         GELU(fc1) activation, within STAGE_TOL;
-      mid, out: x + proj(attn) and mid + fc2(hid), with the branch computed
-        in fp32, within BRANCH_TOL once the one bf16 rounding of the sum is
-        allowed for.
+      mid, out: x + sa proj(attn) and mid + sm fc2(hid), with the branch
+        computed in fp32, within BRANCH_TOL once the one bf16 rounding of the
+        sum is allowed for.
     The whole output is held against the plain block too (BLOCK_TOL). Prints
     the results, raises if a stage is out of tolerance, and returns the
     kernel's output and its max abs error.
@@ -474,7 +487,9 @@ def check_block(torch, x, w, num_heads, scale, ln_eps, block=None, policy=None, 
         attention_reference, layer_norm, linear, transformer_block_reference)
 
     y, st = ops.fused_transformer_block(
-        x, w, num_heads, policy, scale=scale, eps=eps, ln_eps=ln_eps, stages=True)
+        x, w, num_heads, policy, scale=scale, eps=eps, ln_eps=ln_eps, stages=True,
+        branch_scales=branch_scales)
+    sa, sm = (None, None) if branch_scales is None else branch_scales
     h2 = layer_norm(st["mid"], w["ln2_w"], w["ln2_b"], ln_eps)
     pol = {} if policy is None else {"policy": policy, "eps": eps}
     plain = {
@@ -486,18 +501,21 @@ def check_block(torch, x, w, num_heads, scale, ln_eps, block=None, policy=None, 
     for name, want in plain.items():
         err, ref = rel_err(torch, st[name], want)
         rel[name] = (err / max(ref, 1e-30), STAGE_TOL)
-    residual = {"mid": (st["mid"], x, st["attn"], w["wproj"], w["bproj"]),
-                "out": (y, st["mid"], st["hid"], w["w2"], w["b2"])}
-    for name, (got, res, a, wt, b) in residual.items():
+    residual = {"mid": (st["mid"], x, st["attn"], w["wproj"], w["bproj"], sa),
+                "out": (y, st["mid"], st["hid"], w["w2"], w["b2"], sm)}
+    for name, (got, res, a, wt, b, s) in residual.items():
         branch = a.float() @ wt.float().t() + b
+        if s is not None:
+            branch = s.float()[:, None, None] * branch
         z = res.float() + branch
         excess = ((got.float() - z).abs() - BF16_U * z.abs()).clamp(min=0)
         rel[name] = (excess.max().item() / max(branch.abs().max().item(), 1e-30),
                      BRANCH_TOL)
-    err, ref = rel_err(torch, y, transformer_block_reference(x, w, num_heads, scale, ln_eps,
-                                                             **pol))
+    err, ref = rel_err(torch, y, transformer_block_reference(
+        x, w, num_heads, scale, ln_eps, branch_scales=branch_scales, **pol))
     rel["block"] = (err / ref, BLOCK_TOL)
-    emit({"phase": "check", "kernel": "fused_transformer_block" + ("[policy]" if pol else ""),
+    emit({"phase": phase, "kernel": block_kernel_name("fused_transformer_block", pol,
+                                                     branch_scales),
           "block": block, **({"eps": eps} if pol else {}),
           "shape": list(x.shape), "max_abs_err": err, "max_abs_ref": ref,
           "rel_err": {k: r for k, (r, _) in rel.items()},
@@ -523,11 +541,20 @@ def check_unpruned(torch, model, plain, images) -> None:
 # ---- the training checks --------------------------------------------------
 
 
+def block_kernel_name(name, policy, branch_scales):
+    """The counter a block launch counts in: with branch scales [scaled],
+    else in policy mode [policy]."""
+    if branch_scales is not None:
+        return name + "[scaled]"
+    return name + ("[policy]" if policy else "")
+
+
 def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None, policy=None,
-                         eps=1e-6):
+                         eps=1e-6, branch_scales=None, phase="check_train"):
     """Hold the block-backward kernel against its plain version (autograd
     through the plain block) on the same x, g and weights (and in policy
-    mode the (B, N) keep `policy`, smoothing `eps`): dx and each of the
+    mode the (B, N) keep `policy`, smoothing `eps`; with `branch_scales`,
+    DropPath's per-sample scales of the two branches): dx and each of the
     twelve gradients, and the thirds of the qkv weight's (q, k, v) and
     bias's (q, v) apart, within BWD_TOL of that tensor's largest magnitude;
     in policy mode dPolicy too, within DPOL_TOL. Prints the relative errors,
@@ -537,10 +564,10 @@ def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None, p
     from dense2sparse_vit_torch.ops.block import transformer_block_backward_reference
 
     pol = {} if policy is None else {"policy": policy, "eps": eps}
-    dx, dw, dpol = ops.fused_transformer_block_backward(x, g, w, num_heads, scale=scale,
-                                                        ln_eps=ln_eps, **pol)
+    dx, dw, dpol = ops.fused_transformer_block_backward(
+        x, g, w, num_heads, scale=scale, ln_eps=ln_eps, branch_scales=branch_scales, **pol)
     want_dx, want_dw, want_dpol = transformer_block_backward_reference(
-        x, g, w, num_heads, scale, ln_eps, **pol)
+        x, g, w, num_heads, scale, ln_eps, branch_scales=branch_scales, **pol)
     pairs = {"dx": (dx, want_dx)}
     if pol:
         pairs["dpolicy"] = (dpol, want_dpol)
@@ -562,8 +589,8 @@ def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None, p
         rel[name] = err / max(ref, 1e-30)
         worst = max(worst, err)
     tol = {k: DPOL_TOL if k == "dpolicy" else BWD_TOL for k in rel}
-    emit({"phase": "check_train",
-          "kernel": "fused_transformer_block_backward" + ("[policy]" if pol else ""),
+    emit({"phase": phase,
+          "kernel": block_kernel_name("fused_transformer_block_backward", pol, branch_scales),
           "block": block, **({"eps": eps} if pol else {}), "shape": list(x.shape),
           "rel_err": rel, "tol_rel": BWD_TOL, **({"dpolicy_tol_rel": DPOL_TOL} if pol else {})})
     bad = {k: r for k, r in rel.items() if not r <= tol[k]}
@@ -722,6 +749,11 @@ def plant_fault(dev, kind: str) -> int:
                                  generator=torch.Generator(device=dev).manual_seed(13))
             with torch.inference_mode():
                 walk_int8(torch, model, images)
+        elif kind == "droppath":
+            student, teacher, step = build_t2t_trainer(torch, dev, fused=True)
+            images, labels = train_batch(torch, dev)
+            rec = capture_train_step(torch, student, teacher, step, images, labels)
+            check_droppath(torch, dev, student, rec)
         elif kind == "cls":
             student, teacher, step = build_trainer(torch, dev, fused=True, mode="attn")
             images, labels = train_batch(torch, dev)
@@ -797,8 +829,9 @@ def phase_serve(torch, dev, tally):
     return model, plain, images, outputs
 
 
-def phase_check(torch, model, plain, images, outputs, tally):
-    """Phase 3; returns the shapes phase 4 times."""
+def phase_check(torch, model, plain, images, outputs, tally, b=B_CHECK, phase="check"):
+    """Phase 3 (and serve_t2t's walk at `b`); returns the shapes phase 4
+    times."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.ops.gather import gather_tokens_reference
     from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
@@ -808,7 +841,7 @@ def phase_check(torch, model, plain, images, outputs, tally):
     keep = model.pruning.keep_counts(model.cfg.num_patches)
     block_shapes, pred_shapes, gather_shapes = [], [], []
     with torch.inference_mode():
-        x = model.embed(images[B_CHECK])
+        x = model.embed(images[b])
         p = 0
         for i, blk in enumerate(model.blocks):
             if i in model.pruning.pruning_locs:
@@ -817,7 +850,7 @@ def phase_check(torch, model, plain, images, outputs, tally):
                 s_k = ops.fused_predictor_lg(xs, w)
                 s_p = predictor_lg_reference(xs, w)
                 err, scale = rel_err(torch, s_k, s_p)
-                emit({"phase": "check", "kernel": "fused_predictor_lg",
+                emit({"phase": phase, "kernel": "fused_predictor_lg",
                       "shape": list(xs.shape), "max_abs_err": err,
                       "max_abs_ref": scale, "tol_rel": STAGE_TOL})
                 if err > STAGE_TOL * scale:
@@ -826,29 +859,29 @@ def phase_check(torch, model, plain, images, outputs, tally):
                 pred_shapes.append((xs, w))
                 probs = torch.softmax(s_k.float(), dim=-1).to(bf16)
                 kept, _ = topk_keep_indices(probs, keep[p])
-                idx = torch.cat([kept.new_zeros(B_CHECK, 1), kept + 1], dim=1)
+                idx = torch.cat([kept.new_zeros(b, 1), kept + 1], dim=1)
                 g_k = ops.fused_gather_tokens(x, idx)
                 g_p = gather_tokens_reference(x, idx)
                 if not torch.equal(g_k, g_p):
                     raise AssertionError(f"gather stage {p}: not bit-equal")
                 gather_shapes.append((x, idx))
-                emit({"phase": "check", "kernel": "fused_gather_tokens",
+                emit({"phase": phase, "kernel": "fused_gather_tokens",
                       "shape": list(x.shape), "k": idx.shape[1],
                       "bit_equal": True})
                 x = g_k
                 p += 1
             w = blk.kernel_weights(bf16)
             args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
-            y, err = check_block(torch, x, w, *args, block=i)
+            y, err = check_block(torch, x, w, *args, block=i, phase=phase)
             tally.err("fused_transformer_block", err)
             if not block_shapes or block_shapes[-1][0].shape != x.shape:
                 block_shapes.append((x, w, args))
             x = y
         # the walk ran the same kernels on the same inputs as the forward
         logits = model.head(model.norm(x)[:, 0])
-        if not torch.equal(logits, outputs[B_CHECK].logits):
+        if not torch.equal(logits, outputs[b].logits):
             raise AssertionError("stage walk and model forward disagree")
-        emit({"phase": "check", "walk_equals_forward": True})
+        emit({"phase": phase, "walk_equals_forward": True})
         # the whole model against the plain one, where no selection can differ
         check_unpruned(torch, model, plain, images[8])
     return block_shapes, pred_shapes, gather_shapes
@@ -2026,6 +2059,388 @@ def phase_eval(torch, dev, tally):
             tally.rows[k]["launches"] += v
 
 
+# ---- the T2T-ViT-14 family, trained with stochastic depth ------------------
+
+B_T2T = 128
+T2T_DROP_PATH = 0.1
+# T2T serving (bench_zoo.py's config 4): 14 plain blocks, the full-size LN
+# predictor at 3 stages, 3 gathers
+PER_T2T_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 14, "fused_predictor_lg": 3,
+                   "fused_gather_tokens": 3}
+# a T2T train step at drop path 0.1: the teacher's 14 CLS-row blocks; the
+# student's block 0 (rate 0: no draw) plain and blocks 1-13 with their
+# branch scales, each way; 3 gathers and their 3 scatters
+PER_T2T_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block_cls": 14,
+                      "fused_transformer_block": 1, "fused_transformer_block[scaled]": 13,
+                      "fused_transformer_block_backward": 1,
+                      "fused_transformer_block_backward[scaled]": 13,
+                      "fused_gather_tokens": 3, "fused_scatter_tokens": 3}
+# the dense t2t_vit_14's forward and backward at the same rate
+PER_T2T_DENSE_STEP = {**NO_LAUNCHES, "fused_transformer_block": 1,
+                      "fused_transformer_block[scaled]": 13,
+                      "fused_transformer_block_backward": 1,
+                      "fused_transformer_block_backward[scaled]": 13}
+B_T2T_DENSE = 64
+# check_droppath's scales: Bernoulli(0.7)/0.7, so that both values occur often
+DROPPATH_CHECK_RATE = 0.3
+# train step 1, kernels against the plain model from the same draws and the
+# same kept tokens: the loss relative to its size, and all trained
+# gradients as one vector, relative L2 (bf16 through 14 blocks and the stem)
+STEP_LOSS_TOL = 1e-2
+STEP_GRAD_TOL = 5e-2
+
+
+def build_t2t_trainer(torch, dev, fused: bool):
+    """The pruned T2T-ViT-14 (`T2T_KWARGS`) at drop path 0.1 and the teacher
+    the JAX loop pairs with a student (a `ViTTeacher` of its ModelConfig,
+    `train/loop.py:219-220`), from seeded generators, with AdamW past the
+    warmup and the train step drawing from a generator seeded 11:
+    (student, teacher, step)."""
+    from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
+    from dense2sparse_vit_torch.models import T2T_KWARGS, T2T_MODEL, ViTTeacher, create_model
+    from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+
+    student = create_model(T2T_MODEL, device=dev, generator=torch.Generator().manual_seed(0),
+                           **dict(T2T_KWARGS, use_fused_attention=fused,
+                                  drop_path_rate=T2T_DROP_PATH))
+    teacher = ViTTeacher(student.cfg).init_weights(torch.Generator().manual_seed(2)).to(dev)
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=TrainConfig())
+    opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH)
+    opt.count = cfg.train.warmup_epochs * STEPS_PER_EPOCH
+    draws = torch.Generator(device=dev).manual_seed(11)
+    return student, teacher, make_train_step(student, teacher, opt, cfg, generator=draws)
+
+
+def phase_serve_t2t(torch, dev, tally):
+    """Phase 21: B=8 and B=128 through the pruned T2T-ViT-14 in eval mode
+    (`collect_cls_attns=False`, as the eval step runs it), launches and
+    outputs checked; the B=128 forward walked stage by stage with every
+    serving kernel held against its plain version, and the unpruned logits
+    against the plain model's. Returns (model, plain, images)."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import T2T_KWARGS, T2T_MODEL, create_model
+
+    model = create_model(T2T_MODEL, device=dev, generator=torch.Generator().manual_seed(0),
+                         **T2T_KWARGS).eval()
+    plain = create_model(T2T_MODEL, device=dev,
+                         **dict(T2T_KWARGS, use_fused_attention=False)).eval()
+    plain.load_state_dict(model.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(21)
+    images = {b: torch.randn((b, 224, 224, 3), generator=gen, device=dev, dtype=torch.bfloat16)
+              for b in (8, B_T2T)}
+    N, C = model.cfg.num_patches, model.cfg.embed_dim
+    keep = model.pruning.keep_counts(N)
+    outputs = {}
+    with torch.inference_mode():
+        for b, x in images.items():
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = model(x, collect_cls_attns=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            if counts != PER_T2T_FORWARD:
+                raise AssertionError(f"T2T B={b}: launches {counts}, expected {PER_T2T_FORWARD}")
+            ok = (out.logits.shape == (b, 1000) and out.features.shape == (b, keep[-1], C)
+                  and [t.shape[1] for t in out.pred_logits] == [N, keep[0], keep[1]]
+                  and int(out.kept_idx_orig.max()) < N
+                  and bool(torch.isfinite(out.logits.float()).all())
+                  and bool(torch.isfinite(out.features.float()).all()))
+            if not ok:
+                raise AssertionError(f"T2T B={b}: bad outputs {out.logits.shape} "
+                                     f"{out.features.shape}")
+            for k, v in counts.items():
+                tally.rows[k]["launches"] += v
+            outputs[b] = out
+            emit({"phase": "serve_t2t", "batch": b, "launches": counts,
+                  "logits": list(out.logits.shape), "features": list(out.features.shape),
+                  "pred_logits": [t.shape[1] for t in out.pred_logits],
+                  "first_call_s": round(seconds, 4)})
+    phase_check(torch, model, plain, images, outputs, tally, b=B_T2T, phase="serve_t2t")
+    return model, plain, images
+
+
+def train_step_grads(torch, student):
+    return {n: p.grad.detach().float().clone() for n, p in student.named_parameters()
+            if p.grad is not None}
+
+
+def phase_train_t2t(torch, dev, tally):
+    """Phase 22: three B=128 steps of the pruned T2T-ViT-14 at drop path 0.1
+    with its live teacher (PER_T2T_TRAIN_STEP each); finite metrics; every
+    trained tensor moves and the frozen ones (the performer's projections
+    among them) do not. Step 1 again on the plain model with the same
+    weights, draws and kept tokens: its loss and gradients against the
+    kernels'. Then the dense t2t_vit_14's forward and backward at B=64 and
+    the same rate, kernels against plain. Returns (student, teacher, step,
+    images, labels)."""
+    import dense2sparse_vit_torch.models.student as student_module
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import create_model
+    from dense2sparse_vit_torch.train import label_params
+
+    student, teacher, step = build_t2t_trainer(torch, dev, fused=True)
+    p_student, p_teacher, p_step = build_t2t_trainer(torch, dev, fused=False)
+    p_student.load_state_dict(student.state_dict())
+    p_teacher.load_state_dict(teacher.state_dict())
+    images, labels = train_batch(torch, dev)
+    groups = label_params(student)
+    before = {n: p.detach().clone() for n, p in student.named_parameters()}
+    real_topk = student_module.topk_keep_indices
+    kept = []
+
+    def record_topk(scores, k):
+        kept.append(real_topk(scores, k))
+        return kept[-1]
+
+    for s in range(TRAIN_STEPS):
+        if s == 0:  # record the kept tokens, for the plain step to replay
+            student_module.topk_keep_indices = record_topk
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            metrics = step(images, labels, TRAIN_EPOCH)
+            torch.cuda.synchronize()
+        finally:
+            student_module.topk_keep_indices = real_topk
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts != PER_T2T_TRAIN_STEP:
+            raise AssertionError(f"train_t2t step {s}: launches {counts}, "
+                                 f"expected {PER_T2T_TRAIN_STEP}")
+        for k, v in counts.items():
+            tally.rows[k]["launches"] += v
+        values = {k: v.item() for k, v in metrics.items()}
+        bad = [k for k, v in values.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"train_t2t step {s}: non-finite metrics {bad}")
+        if s == 0:
+            step1 = (values["loss"], train_step_grads(torch, student))
+        emit({"phase": "train_t2t", "step": s, "batch": B_TRAIN, "epoch": TRAIN_EPOCH,
+              "drop_path_rate": T2T_DROP_PATH, "launches": counts, "metrics": values,
+              "seconds": round(seconds, 4)})
+    moved = {n: not torch.equal(p, before[n]) for n, p in student.named_parameters()}
+    stuck = [n for n, m in moved.items() if groups[n] != "frozen" and not m]
+    drifted = [n for n, m in moved.items() if groups[n] == "frozen" and m]
+    emit({"phase": "train_t2t", "trained_tensors": sum(groups[n] != "frozen" for n in moved),
+          "frozen": sorted(n for n in moved if groups[n] == "frozen"),
+          "unchanged": stuck, "frozen_changed": drifted})
+    if stuck or drifted:
+        raise AssertionError(f"parameters not updated: {stuck}; frozen but changed: {drifted}")
+
+    # step 1 on the plain model: the same weights, draws (seed 11) and kept tokens
+    queue = list(kept)
+    student_module.topk_keep_indices = lambda sc, k: queue.pop(0)
+    try:
+        p_values = {k: v.item() for k, v in p_step(images, labels, TRAIN_EPOCH).items()}
+    finally:
+        student_module.topk_keep_indices = real_topk
+    compare_steps(torch, "train_t2t", step1,
+                  (p_values["loss"], train_step_grads(torch, p_student)),
+                  {n for n in groups if groups[n] != "frozen"})
+    del p_student, p_teacher, p_step
+
+    # the dense t2t_vit_14, forward and backward at the same rate (the JAX pin's route)
+    x = images[:B_T2T_DENSE]
+    runs = []
+    for fused in (True, False):
+        model = create_model("t2t_vit_14", device=dev,
+                             generator=torch.Generator().manual_seed(5), dtype="bfloat16",
+                             use_fused_attention=fused, drop_path_rate=T2T_DROP_PATH).train()
+        ops.reset_launch_counts()
+        logits = model(x, generator=torch.Generator(device=dev).manual_seed(12))
+        loss = logits.float().square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = PER_T2T_DENSE_STEP if fused else NO_LAUNCHES
+        if counts != want:
+            raise AssertionError(f"dense t2t_vit_14 (fused={fused}): launches {counts}")
+        if fused:
+            for k, v in counts.items():
+                tally.rows[k]["launches"] += v
+        runs.append((loss.item(), train_step_grads(torch, model)))
+        del model
+    compare_steps(torch, "train_t2t_dense", *runs, set(runs[0][1]))
+    return student, teacher, step, images, labels
+
+
+def compare_steps(torch, phase, kernels, plain, names):
+    """(loss, grads) of the kernels' run against the plain run's: the loss
+    within STEP_LOSS_TOL of its size, the gradients of `names` as one
+    vector within STEP_GRAD_TOL (relative L2); each tensor's relative L2
+    printed."""
+    (k_loss, k_grads), (p_loss, p_grads) = kernels, plain
+    names = sorted(n for n in names if n in p_grads)
+    per = {n: ((k_grads[n] - p_grads[n]).norm() / p_grads[n].norm().clamp_min(1e-30)).item()
+           for n in names}
+    diff = torch.stack([(k_grads[n] - p_grads[n]).square().sum() for n in names]).sum().sqrt()
+    ref = torch.stack([p_grads[n].square().sum() for n in names]).sum().sqrt()
+    grad_rel = (diff / ref).item()
+    loss_rel = abs(k_loss - p_loss) / max(abs(p_loss), 1e-30)
+    worst = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    emit({"phase": phase, "vs_plain": True, "loss": k_loss, "plain_loss": p_loss,
+          "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel, "tensors": len(names),
+          "worst_tensors_rel_l2": worst, "tol": {"loss": STEP_LOSS_TOL, "grad": STEP_GRAD_TOL}})
+    if not (loss_rel <= STEP_LOSS_TOL and grad_rel <= STEP_GRAD_TOL and len(names) > 0):
+        raise AssertionError(f"{phase}: kernels vs plain: loss {loss_rel}, gradients {grad_rel}")
+
+
+def droppath_scales(torch, B, gen):
+    from dense2sparse_vit_torch.nn import draw_branch_scales
+
+    return draw_branch_scales(B, DROPPATH_CHECK_RATE, gen)
+
+
+def check_droppath(torch, dev, student, rec, tally=None):
+    """The branch-scale kernels at every scaled block (1-13) of a T2T train
+    step's own activations (N = 197, 138, 97, 68; C 384, hidden 1152, no
+    qkv bias), with seeded scales in {0, 1/0.7}: the forward stage by stage
+    (`check_block`) and the backward (`check_block_backward`) against their
+    plain versions; the policy mode too at the first scaled block of each
+    width, on a random keep policy. Raises on the first failure."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    scale_g = rec["last_g"].float().std().item()
+    last = len(student.blocks) - 1
+    seen_widths = set()
+    with torch.no_grad():
+        for i, blk in enumerate(student.blocks):
+            if blk.drop_path.rate == 0:
+                continue
+            x, w = rec["block_in"][i], rec["weights"][i]
+            B, N, _ = x.shape
+            g = rec["last_g"].contiguous() if i == last else (
+                torch.randn(x.shape, generator=gen, device=dev) * scale_g).to(x.dtype)
+            args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+            scales = droppath_scales(torch, B, gen)
+            modes = [None]
+            if N not in seen_widths:
+                seen_widths.add(N)
+                pol = (torch.rand((B, N), generator=gen, device=dev) < 0.6).float()
+                pol[:, 0] = 1.0
+                modes.append(pol)
+            for pol in modes:
+                _, f_err = check_block(torch, x, w, *args, block=i, policy=pol,
+                                       branch_scales=scales, phase="check_droppath")
+                b_err = check_block_backward(torch, x, g, w, *args, block=i, policy=pol,
+                                             branch_scales=scales, phase="check_droppath")
+                if tally is not None:
+                    tally.err("fused_transformer_block[scaled]", f_err)
+                    tally.err("fused_transformer_block_backward[scaled]", b_err)
+
+
+def phase_check_droppath(torch, dev, student, teacher, step, images, labels, tally):
+    """Phase 23: `check_droppath` on a captured T2T step; at block 1 the
+    kernels with scales of one, both ways, bit-equal to the kernels without
+    scales. Returns the captured step for phase 24."""
+    from dense2sparse_vit_torch import ops
+
+    rec = capture_train_step(torch, student, teacher, step, images, labels)
+    check_droppath(torch, dev, student, rec, tally)
+    x, w, blk = rec["block_in"][1], rec["weights"][1], student.blocks[1]
+    kw = dict(scale=blk.attn.scale, ln_eps=blk.norm1.eps)
+    ones = (x.new_ones(x.shape[0], dtype=torch.float32),) * 2
+    g = (torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(32), device=dev)
+         * rec["last_g"].float().std()).to(x.dtype)
+    with torch.no_grad():
+        same_fwd = torch.equal(ops.fused_transformer_block(x, w, blk.attn.num_heads, **kw),
+                               ops.fused_transformer_block(x, w, blk.attn.num_heads,
+                                                           branch_scales=ones, **kw))
+        a = ops.fused_transformer_block_backward(x, g, w, blk.attn.num_heads, **kw)
+        b = ops.fused_transformer_block_backward(x, g, w, blk.attn.num_heads,
+                                                 branch_scales=ones, **kw)
+        same_bwd = torch.equal(a[0], b[0]) and all(
+            a[1][k] is None or torch.equal(a[1][k], b[1][k]) for k in a[1])
+    emit({"phase": "check_droppath", "block": 1, "shape": list(x.shape),
+          "ones_equal_none": {"forward": same_fwd, "backward": same_bwd}})
+    if not (same_fwd and same_bwd):
+        raise AssertionError("scales of one do not reproduce the unscaled kernels bit for bit")
+    return rec
+
+
+def phase_time_droppath(torch, dev, student, rec, serve, tally, smi):
+    """Phase 24: at each width of the T2T step, the block forward and
+    backward with scales against the same kernel without them (in turns, on
+    the same input) and against the plain version with them; the T2T train
+    step with kernels against without, and its stem's forward and backward;
+    the B=128 serving forward against plain, and its stem's share."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import (
+        transformer_block_backward_reference, transformer_block_reference)
+
+    hidden = student.blocks[0].mlp.fc1.out_features
+    gen = torch.Generator(device=dev).manual_seed(33)
+    scale_g = rec["last_g"].float().std().item()
+    widths = {}
+    for i, x in rec["block_in"].items():
+        if student.blocks[i].drop_path.rate > 0:
+            widths.setdefault(x.shape[1], []).append(i)
+    with torch.no_grad():
+        for n, idxs in widths.items():
+            i = idxs[0]
+            x, w, blk = rec["block_in"][i], rec["weights"][i], student.blocks[i]
+            B = x.shape[0]
+            H, kw = blk.attn.num_heads, dict(scale=blk.attn.scale, ln_eps=blk.norm1.eps)
+            args = (H, blk.attn.scale, blk.norm1.eps)
+            sc = droppath_scales(torch, B, gen)
+            g = (torch.randn(x.shape, generator=gen, device=dev) * scale_g).to(x.dtype)
+            s_ms, u_ms = paired_ms(
+                torch, lambda: ops.fused_transformer_block(x, w, H, branch_scales=sc, **kw),
+                lambda: ops.fused_transformer_block(x, w, H, **kw), iters=10)
+            p_ms = cuda_ms(torch, lambda: transformer_block_reference(
+                x, w, *args, branch_scales=sc), iters=10)
+            b = block_bound(B, n, x.shape[2], H, hidden)
+            b["bytes_ms"] += 2 * B * 4 / HBM_BYTES_PER_S * 1e3  # the two scale vectors
+            tally.add("fused_transformer_block[scaled]", len(idxs), s_ms, p_ms, b)
+            emit({"phase": "time_droppath", "kernel": "fused_transformer_block[scaled]",
+                  "shape": list(x.shape), "ms": s_ms, "unscaled_ms": u_ms, "plain_ms": p_ms,
+                  "bound_ms": max(b.values()), "calls_per_step": len(idxs)})
+            s_ms, u_ms = paired_ms(
+                torch, lambda: ops.fused_transformer_block_backward(x, g, w, H, branch_scales=sc,
+                                                                    **kw),
+                lambda: ops.fused_transformer_block_backward(x, g, w, H, **kw),
+                iters=3, repeats=3)
+            p_ms = cuda_ms(torch, lambda: transformer_block_backward_reference(
+                x, g, w, *args, branch_scales=sc), iters=3, repeats=3)
+            b = block_backward_bound(B, n, x.shape[2], H, hidden)
+            b["bytes_ms"] += 2 * B * 4 / HBM_BYTES_PER_S * 1e3
+            tally.add("fused_transformer_block_backward[scaled]", len(idxs), s_ms, p_ms, b)
+            emit({"phase": "time_droppath", "kernel": "fused_transformer_block_backward[scaled]",
+                  "shape": list(x.shape), "ms": s_ms, "unscaled_ms": u_ms, "plain_ms": p_ms,
+                  "bound_ms": max(b.values()), "calls_per_step": len(idxs)})
+
+    # the whole train step, with the kernels and without, and the stem's share
+    f_student, _, f_step = build_t2t_trainer(torch, dev, fused=True)
+    p_student, p_teacher, p_step = build_t2t_trainer(torch, dev, fused=False)
+    p_student.load_state_dict(f_student.state_dict())
+    images, labels = train_batch(torch, dev)
+    f_ms, p_ms = paired_ms(torch, lambda: f_step(images, labels, TRAIN_EPOCH),
+                           lambda: p_step(images, labels, TRAIN_EPOCH), iters=2, repeats=3)
+    draws = torch.Generator(device=dev).manual_seed(34)
+
+    def stem_fwd_bwd():
+        f_student.embed(images, draws).float().sum().backward()
+
+    f_student.train()
+    stem_ms = cuda_ms(torch, stem_fwd_bwd, iters=2, repeats=3)
+    emit({"phase": "time_droppath", "train_step": f"B={B_TRAIN} pruned T2T-ViT-14 + teacher, "
+          f"drop path {T2T_DROP_PATH}", "kernels_ms": f_ms, "plain_ms": p_ms,
+          "kernels_img_per_s": B_TRAIN / f_ms * 1e3, "plain_img_per_s": B_TRAIN / p_ms * 1e3,
+          "stem_fwd_bwd_ms": stem_ms, "stem_share": stem_ms / f_ms, "card": smi})
+    del f_student, f_step, p_student, p_teacher, p_step
+
+    model, plain, imgs = serve
+    x = imgs[B_T2T]
+    with torch.inference_mode():
+        f_ms, p_ms = paired_ms(torch, lambda: model(x, collect_cls_attns=False),
+                               lambda: plain(x, collect_cls_attns=False), iters=5)
+        stem_ms = cuda_ms(torch, lambda: model.embed(x), iters=5)
+    emit({"phase": "time_droppath", "forward": f"B={B_T2T} pruned T2T-ViT-14",
+          "kernels_ms": f_ms, "plain_ms": p_ms, "kernels_img_per_s": B_T2T / f_ms * 1e3,
+          "plain_img_per_s": B_T2T / p_ms * 1e3, "stem_ms": stem_ms,
+          "stem_share": stem_ms / f_ms, "card": smi})
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2094,6 +2509,15 @@ def main(argv=None) -> int:
     del rec
     torch.cuda.empty_cache()
     phase_serve_attn(torch, dev, tally)
+    torch.cuda.empty_cache()
+    # ---- 21-24. the T2T-ViT-14 family, trained with stochastic depth -----
+    serve = phase_serve_t2t(torch, dev, tally)
+    student, teacher, step, t_images, t_labels = phase_train_t2t(torch, dev, tally)
+    rec = phase_check_droppath(torch, dev, student, teacher, step, t_images, t_labels, tally)
+    del teacher, step
+    torch.cuda.empty_cache()
+    phase_time_droppath(torch, dev, student, rec, serve, tally, smi)
+    del student, rec, serve
 
     emit(tally.line())
     print(smi, flush=True)

@@ -2,10 +2,15 @@
 //
 // Replaces dense2sparse_vit_tpu/ops/pallas/block.py::fused_transformer_block
 // (kernel body `_block_kernel`) in its plain and its policy mode, with its
-// `return_cls` output; no DropPath branch scales. It computes what
+// `return_cls` output and its DropPath branch scales. It computes what
 // `_ref_block` defines:
-//   x_mid = x + proj(MHA(qkv(LN1 x)))
-//   out   = x_mid + fc2(GELU(fc1(LN2 x_mid)))
+//   x_mid = x + sa[b] * proj(MHA(qkv(LN1 x)))
+//   out   = x_mid + sm[b] * fc2(GELU(fc1(LN2 x_mid)))
+// where sa, sm are the per-sample (B,) fp32 DropPath scales (Bernoulli(keep)
+// / keep, the TPU kernel's `sa_ref`/`sm_ref`), or absent (null): 1, and no
+// multiply at all, so that a block without them is bit for bit the same. A
+// scale multiplies the branch in the residual GEMM's fp32 epilogue, before
+// the residual is added and the sum rounded once (ln_gemm.cuh `row_scale`).
 // with an exact row-max softmax in fp32 over the N real columns. The TPU
 // kernel's clamped exp(clip(s, -30, 30)) without a row max, its 16-token
 // padding with the padded columns subtracted from the denominator, and its
@@ -25,9 +30,9 @@
 // with a LayerNorm is preceded by its row-statistics kernel):
 //   1. ln_gemm  qkv   = LN1(x) @ Wqkv^T + bqkv              (B*N, 3C)
 //   2. attention       per (sample, head, 64-query tile)      (B*N, C)
-//   3. ln_gemm  x_mid = x + attn @ Wproj^T + bproj           (B*N, C)
+//   3. ln_gemm  x_mid = x + sa (attn @ Wproj^T + bproj)      (B*N, C)
 //   4. ln_gemm  h     = GELU(LN2(x_mid) @ W1^T + b1)         (B*N, 4C)
-//   5. ln_gemm  out   = x_mid + h @ W2^T + b2                (B*N, C)
+//   5. ln_gemm  out   = x_mid + sm (h @ W2^T + b2)           (B*N, C)
 // Three outputs are optional, each written only where its pointer is not
 // null, so that the serving path pays nothing for them:
 //   cls     (B, H, N) bf16: the CLS (query 0) row of each head's attention
@@ -367,14 +372,16 @@ cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
                                   eps, stream);
 }
 
-// The MLP half x + fc2(GELU(fc1(LN x))) over M token rows: the LayerNorm's
-// row statistics, fc1 with the LN prologue and the GELU epilogue into hid
-// (and its input into preact, where not null), then fc2 with the residual
-// epilogue into out (skipped where out is null).
+// The MLP half x + sm fc2(GELU(fc1(LN x))) over M token rows: the
+// LayerNorm's row statistics, fc1 with the LN prologue and the GELU
+// epilogue into hid (and its input into preact, where not null), then fc2
+// with the residual epilogue into out (skipped where out is null); sm: a
+// scale per `rows` rows, or null.
 static cudaError_t mlp_half(const bf16* x, bf16* out, bf16* hid, bf16* preact, float2* stats,
                             const float* ln_w, const float* ln_b, const bf16* w1,
                             const float* b1, const bf16* w2, const float* b2, int M, int C,
-                            int hidden, float ln_eps, cudaStream_t stream) {
+                            int hidden, float ln_eps, const float* sm, int rows,
+                            cudaStream_t stream) {
   GemmArgs g{};
   g.a = x;
   g.a_rows = M;
@@ -399,6 +406,8 @@ static cudaError_t mlp_half(const bf16* x, bf16* out, bf16* hid, bf16* preact, f
   g.ln_w = nullptr;
   g.ln_b = nullptr;
   g.residual = x;
+  g.row_scale = sm;
+  g.scale_rows = rows;
   g.preact = nullptr;
   g.out = out;
   g.N = C;
@@ -416,7 +425,9 @@ using d2s::bf16;
 // all bf16, and stats (B*N) float2. Optional outputs (null: not written):
 // preact (B*N, hidden) bf16, lse (B, H, N) fp32 (policy mode: (B, H, N)
 // float4), cls (B, H, N) bf16. policy: (B, N) fp32 keep policy, or null for
-// the plain softmax; eps: the policy softmax's smoothing. Matrices are bf16
+// the plain softmax; eps: the policy softmax's smoothing. sa, sm: (B) fp32
+// DropPath scales of the attention and the MLP branch, each or both null
+// (no scale). Matrices are bf16
 // in the torch Linear layout (out, in); LayerNorm parameters and biases are
 // fp32; bqkv may be null. Requires C == 64 * H, hidden % 8 == 0, N <= 800,
 // 16-byte aligned pointers.
@@ -425,8 +436,8 @@ extern "C" int d2s_block_forward(
     void* stats_buf, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
     const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
-    void* cls, const void* policy, int B, int N, int C, int H, int hidden, float scale,
-    float ln_eps, float eps, void* stream) {
+    void* cls, const void* policy, const void* sa, const void* sm, int B, int N, int C, int H,
+    int hidden, float scale, float ln_eps, float eps, void* stream) {
   if (C != H * d2s::ATT_HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
@@ -461,6 +472,8 @@ extern "C" int d2s_block_forward(
   g.ln_w = nullptr;
   g.ln_b = nullptr;
   g.residual = static_cast<const bf16*>(x);
+  g.row_scale = static_cast<const float*>(sa);
+  g.scale_rows = N;
   g.out = static_cast<bf16*>(mid_buf);
   g.N = C;
   g.K = C;
@@ -472,7 +485,7 @@ extern "C" int d2s_block_forward(
       static_cast<bf16*>(preact), static_cast<float2*>(stats_buf),
       static_cast<const float*>(ln2_w), static_cast<const float*>(ln2_b),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), M, C, hidden, ln_eps, s);
+      static_cast<const float*>(b2), M, C, hidden, ln_eps, static_cast<const float*>(sm), N, s);
 }
 
 // The packed attention core alone (the MHA of a Block whose qkv projection
@@ -505,5 +518,5 @@ extern "C" int d2s_mlp_residual_forward(const void* x, void* out, void* hid_buf,
       static_cast<float2*>(stats_buf), static_cast<const float*>(ln_w),
       static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      M, C, hidden, ln_eps, static_cast<cudaStream_t>(stream));
+      M, C, hidden, ln_eps, nullptr, M, static_cast<cudaStream_t>(stream));
 }

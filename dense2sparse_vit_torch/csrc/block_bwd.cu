@@ -2,28 +2,36 @@
 //
 // Replaces dense2sparse_vit_tpu/ops/pallas/block.py::
 // fused_transformer_block_backward (kernel body `_block_bwd_kernel`) in its
-// plain and its policy mode; no DropPath branch scales. Given the block's
-// input x and the cotangent g of its output, it recomputes the forward and
-// returns dx and the twelve parameter gradients summed over the batch, for
-//   x_mid = x + proj(MHA(qkv(LN1 x)))
-//   out   = x_mid + fc2(GELU(fc1(LN2 x_mid)))
+// plain and its policy mode, with its DropPath branch scales. Given the
+// block's input x and the cotangent g of its output, it recomputes the
+// forward and returns dx and the twelve parameter gradients summed over the
+// batch, for
+//   x_mid = x + sa[b] * proj(MHA(qkv(LN1 x)))
+//   out   = x_mid + sm[b] * fc2(GELU(fc1(LN2 x_mid)))
 // with the softmax of block.cu, and in policy mode the (B, N) gradient of
 // the keep policy, dPolicy. dx is bf16, the gradients fp32, as the TPU
-// kernel returns them.
+// kernel returns them. The scales (B,) fp32, each or both null (1, and no
+// multiply: the unscaled path is bit for bit unchanged) are constants, as
+// in the TPU kernel's custom VJP: the cotangent entering the MLP branch is
+// sm[b] g and the one entering the attention branch sa[b] dx_mid, while the
+// residual terms of dx_mid and dx stay unscaled (steps 2 and 3 below).
 //
 // d2s_block_backward runs this sequence on the caller's stream (M = B*N
 // token rows; "wgrad" is ln_gemm.cuh's split-K weight-gradient GEMM, "gemm"
 // its A @ W with W in the (out, in) layout):
-//   1. recompute  d2s_block_forward without its fc2 stage, keeping qkv, the
-//                 attention output O, x_mid, h = GELU(y), the pre-activation
+//   1. recompute  d2s_block_forward without its fc2 stage (x_mid with sa),
+//                 keeping qkv, the attention output O, x_mid, h = GELU(y),
+//                 the pre-activation
 //                 y and each attention row's statistics (plain: log-sum-exp;
 //                 policy: max, denominator, ties); LN1(x) and LN2(x_mid)
 //                 again, with their row statistics (ln_apply)
-//   2. MLP half   dW2 = g^T h, db2 = sum g; dy = (g W2) * GELU'(y) in the
+//   2. MLP half   with gm = sm g (scale_rows; g itself without sm):
+//                 dW2 = gm^T h, db2 = sum gm; dy = (gm W2) * GELU'(y) in the
 //                 gemm's epilogue; dW1 = dy^T LN2(x_mid), db1 = sum dy;
 //                 dLN2 = dy W1 (fp32); LayerNorm backward (ln_bwd) with
 //                 dgamma2, dbeta2, giving dx_mid = LN-bwd + g
-//   3. attn half  dWproj = dx_mid^T O, dbproj = sum dx_mid; dO = dx_mid Wproj
+//   3. attn half  with da = sa dx_mid (dx_mid itself without sa):
+//                 dWproj = da^T O, dbproj = sum da; dO = da Wproj
 //   4. core       attention_bwd, one CTA per (sample, head), all of that
 //                 sample-head's Q, K, V and dO in shared memory (N <= 384;
 //                 policy mode N <= 352): P = exp(scale q.k - lse),
@@ -35,6 +43,10 @@
 //                 dx = LN-bwd + dx_mid
 // Every sum over the token rows is split over CTAs into fp32 partials that
 // one more kernel adds in a fixed order: no atomics, the same bits each run.
+// The scaled cotangents take no scratch of their own: gm (bf16) sits in the
+// bf16 dx_mid buffer until step 2's LayerNorm backward overwrites it, and da
+// in the bf16 dx_mid buffer (bf16) and the dLN buffer (fp32), free between
+// step 2 and step 5; dx_mid's fp32 copy, the residual into dx, is kept.
 //
 // Two halves of this sequence are also entries of their own, the backward
 // of a training block that captures its CLS rows (its qkv and proj products
@@ -101,8 +113,8 @@ extern "C" int d2s_block_forward(
     void* stats_buf, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
     const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
-    void* cls, const void* policy, int B, int N, int C, int H, int hidden, float scale,
-    float ln_eps, float eps, void* stream);
+    void* cls, const void* policy, const void* sa, const void* sm, int B, int N, int C, int H,
+    int hidden, float scale, float ln_eps, float eps, void* stream);
 
 namespace d2s {
 
@@ -163,6 +175,31 @@ static cudaError_t launch_ln_apply(const bf16* x, const float* gamma, const floa
   constexpr int rows_per_cta = 8;
   ln_apply_kernel<<<(M + rows_per_cta - 1) / rows_per_cta, 32 * rows_per_cta, 0, stream>>>(
       x, gamma, beta, out, stats, M, C, eps);
+  return cudaGetLastError();
+}
+
+// ---- DropPath: a cotangent scaled per sample ----------------------------
+
+// For the M = B * rows rows of C values in in_b (bf16) or else in_f (fp32):
+// v = s[m / rows] * in, written to out_b as bf16 and, where not null, to
+// out_f as fp32. out_b may be in_b's buffer: each element is read, then
+// written, by the same thread.
+static __global__ void scale_rows_kernel(const bf16* in_b, const float* __restrict__ in_f,
+                                         const float* __restrict__ s, int rows, bf16* out_b,
+                                         float* __restrict__ out_f, long long M, int C) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= M * C) return;
+  const float v = s[e / C / rows] * (in_b ? __bfloat162float(in_b[e]) : in_f[e]);
+  out_b[e] = __float2bfloat16(v);
+  if (out_f) out_f[e] = v;
+}
+
+static cudaError_t launch_scale_rows(const bf16* in_b, const float* in_f, const float* s,
+                                     int rows, bf16* out_b, float* out_f, long long M, int C,
+                                     cudaStream_t stream) {
+  const long long n = M * C;
+  scale_rows_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(in_b, in_f, s, rows, out_b,
+                                                                     out_f, M, C);
   return cudaGetLastError();
 }
 
@@ -747,19 +784,22 @@ static cudaError_t gemm_kn(const bf16* a, const bf16* wt, int M, int K, int Nn,
   return launch_ln_gemm(p, st);
 }
 
-// The MLP half's backward, out = x + fc2(h), h = GELU(y), y = fc1(LN(x)),
-// over M rows, given g (the cotangent of out), x with its LayerNorm's row
-// statistics and output ln_x, h and y: dW2 = g^T h, db2 = sum g; dy =
-// (g W2) * GELU'(y) in the gemm's epilogue; dW1 = dy^T LN(x), db1 = sum
-// dy; dLN = dy W1 (fp32); the LayerNorm backward with dgamma, dbeta, giving
-// dx = LN-bwd + g, into dx_f (fp32) and/or dx_b (bf16). dy (M, hidden)
-// bf16, dln (M, C) fp32 and work are scratch.
-static cudaError_t mlp_backward(const bf16* g, const bf16* x, const float2* stats,
-                                const bf16* ln_x, const bf16* h, const bf16* y,
-                                const float* ln_w, const bf16* w1, const bf16* w2, float* d_ln_w,
-                                float* d_ln_b, float* d_w1, float* d_b1, float* d_w2,
-                                float* d_b2, float* dx_f, bf16* dx_b, bf16* dy, float* dln,
-                                float* work, int M, int C, int hidden, cudaStream_t st) {
+// The MLP half's backward, out = x + s fc2(h), h = GELU(y), y = fc1(LN(x)),
+// over M rows, given g (the cotangent entering the branch, s times the
+// output's) and g_res (the output's: the residual's), x with its
+// LayerNorm's row statistics and output ln_x, h and y: dW2 = g^T h, db2 =
+// sum g; dy = (g W2) * GELU'(y) in the gemm's epilogue; dW1 = dy^T LN(x),
+// db1 = sum dy; dLN = dy W1 (fp32); the LayerNorm backward with dgamma,
+// dbeta, giving dx = LN-bwd + g_res, into dx_f (fp32) and/or dx_b (bf16),
+// which may be g's buffer. dy (M, hidden) bf16, dln (M, C) fp32 and work
+// are scratch.
+static cudaError_t mlp_backward(const bf16* g, const bf16* g_res, const bf16* x,
+                                const float2* stats, const bf16* ln_x, const bf16* h,
+                                const bf16* y, const float* ln_w, const bf16* w1,
+                                const bf16* w2, float* d_ln_w, float* d_ln_b, float* d_w1,
+                                float* d_b1, float* d_w2, float* d_b2, float* dx_f,
+                                bf16* dx_b, bf16* dy, float* dln, float* work, int M, int C,
+                                int hidden, cudaStream_t st) {
   cudaError_t err;
   if ((err = launch_wgrad(g, h, d_w2, work, M, C, hidden, st)) != cudaSuccess) return err;
   if ((err = launch_column_sums(g, d_b2, work, M, C, st)) != cudaSuccess) return err;
@@ -767,8 +807,8 @@ static cudaError_t mlp_backward(const bf16* g, const bf16* x, const float2* stat
   if ((err = launch_wgrad(dy, ln_x, d_w1, work, M, hidden, C, st)) != cudaSuccess) return err;
   if ((err = launch_column_sums(dy, d_b1, work, M, hidden, st)) != cudaSuccess) return err;
   if ((err = gemm_kn(dy, w1, M, hidden, C, nullptr, nullptr, dln, st)) != cudaSuccess) return err;
-  return launch_ln_bwd(dln, x, stats, ln_w, g, nullptr, dx_f, dx_b, d_ln_w, d_ln_b, work, M, C,
-                       st);
+  return launch_ln_bwd(dln, x, stats, ln_w, g_res, nullptr, dx_f, dx_b, d_ln_w, d_ln_b, work, M,
+                       C, st);
 }
 
 // scratch of d2s_mlp_residual_backward
@@ -828,7 +868,9 @@ extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H
 // null); the twelve gradients fp32 in the same shapes (d_bqkv null when
 // bqkv is). policy: (B, N) fp32 keep policy or null (plain mode); d_policy:
 // its (B, N) fp32 gradient, or null where it is not wanted (always null in
-// plain mode); eps: the policy softmax's smoothing. scratch:
+// plain mode); eps: the policy softmax's smoothing. sa, sm: (B) fp32
+// DropPath scales of the attention and the MLP branch, each or both null
+// (no scale); they get no gradient. scratch:
 // d2s_block_backward_scratch_bytes(...) bytes. Requires C == 64 * H <= 768,
 // hidden % 8 == 0, N <= 384 (policy mode 352), 16-byte aligned pointers.
 extern "C" int d2s_block_backward(
@@ -837,8 +879,8 @@ extern "C" int d2s_block_backward(
     const void* ln2_w, const void* ln2_b, const void* w1, const void* b1, const void* w2,
     const void* b2, void* d_ln1_w, void* d_ln1_b, void* d_wqkv, void* d_bqkv, void* d_wproj,
     void* d_bproj, void* d_ln2_w, void* d_ln2_b, void* d_w1, void* d_b1, void* d_w2,
-    void* d_b2, const void* policy, void* d_policy, void* scratch, int B, int N, int C, int H,
-    int hidden, float scale, float ln_eps, float eps, void* stream) {
+    void* d_b2, const void* policy, void* d_policy, const void* sa, const void* sm, void* scratch,
+    int B, int N, int C, int H, int hidden, float scale, float ln_eps, float eps, void* stream) {
   using namespace d2s;
   const bool use_policy = policy != nullptr;
   if (!shapes_ok(B, N, C, H, hidden, use_policy) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
@@ -857,26 +899,40 @@ extern "C" int d2s_block_backward(
   // 1. recompute
   int rc = d2s_block_forward(x, nullptr, s.qkv, s.attn, s.mid, s.hid, s.stats, ln1_w, ln1_b,
                              wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, s.pre,
-                             s.lse, nullptr, policy, B, N, C, H, hidden, scale, ln_eps, eps,
-                             stream);
+                             s.lse, nullptr, policy, sa, nullptr, B, N, C, H, hidden, scale,
+                             ln_eps, eps, stream);
   if (rc != 0) return rc;
   cudaError_t err = launch_ln_apply(xb, f(ln1_w), f(ln1_b), s.ln1o, s.st1, M, C, ln_eps, st);
   if (err != cudaSuccess) return (int)err;
   err = launch_ln_apply(s.mid, f(ln2_w), f(ln2_b), s.ln2o, s.st2, M, C, ln_eps, st);
   if (err != cudaSuccess) return (int)err;
 
-  // 2. MLP half
-  if ((err = mlp_backward(gb, s.mid, s.st2, s.ln2o, s.hid, s.pre, f(ln2_w), w(w1), w(w2),
+  // 2. MLP half, its branch's cotangent sm g in the dx_mid buffer
+  const bf16* gm = gb;
+  if (sm) {
+    if ((err = launch_scale_rows(gb, nullptr, f(sm), N, s.dmid_b, nullptr, M, C, st)) !=
+        cudaSuccess)
+      return (int)err;
+    gm = s.dmid_b;
+  }
+  if ((err = mlp_backward(gm, gb, s.mid, s.st2, s.ln2o, s.hid, s.pre, f(ln2_w), w(w1), w(w2),
                           fo(d_ln2_w), fo(d_ln2_b), fo(d_w1), fo(d_b1), fo(d_w2), fo(d_b2),
                           s.dmid_f, s.dmid_b, s.dy, s.dln, s.work, M, C, hidden, st)) !=
       cudaSuccess)
     return (int)err;
 
-  // 3. attention half
+  // 3. attention half, its branch's cotangent sa dx_mid in the bf16 dx_mid
+  // buffer and the dLN buffer
+  const float* da_f = s.dmid_f;
+  if (sa) {
+    if ((err = launch_scale_rows(nullptr, s.dmid_f, f(sa), N, s.dmid_b, s.dln, M, C, st)) !=
+        cudaSuccess)
+      return (int)err;
+    da_f = s.dln;
+  }
   if ((err = launch_wgrad(s.dmid_b, s.attn, fo(d_wproj), s.work, M, C, C, st)) != cudaSuccess)
     return (int)err;
-  if ((err = launch_column_sums<float>(s.dmid_f, fo(d_bproj), s.work, M, C, st)) !=
-      cudaSuccess)
+  if ((err = launch_column_sums<float>(da_f, fo(d_bproj), s.work, M, C, st)) != cudaSuccess)
     return (int)err;
   if ((err = gemm_kn(s.dmid_b, w(wproj), M, C, C, nullptr, s.dattn, nullptr, st)) != cudaSuccess)
     return (int)err;
@@ -984,7 +1040,8 @@ extern "C" int d2s_mlp_residual_backward(const void* x, const void* g, void* dx,
   p.act = ACT_GELU;
   if ((err = launch_ln_gemm(p, st)) != cudaSuccess) return (int)err;
   auto fo = [](void* q) { return static_cast<float*>(q); };
-  return (int)mlp_backward(static_cast<const bf16*>(g), xb, s.stats, s.ln_x, s.hid, s.pre, lw,
+  const bf16* gb = static_cast<const bf16*>(g);
+  return (int)mlp_backward(gb, gb, xb, s.stats, s.ln_x, s.hid, s.pre, lw,
                            static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
                            fo(d_ln_w), fo(d_ln_b), fo(d_w1), fo(d_b1), fo(d_w2), fo(d_b2),
                            nullptr, static_cast<bf16*>(dx), s.dy, s.dln, s.work, M, C, hidden,

@@ -4,9 +4,12 @@
 //
 //   out[m, n] = epi( sum_k LN(a)[m, k] * W[k, n] )
 //   LN(a)[m, k] = bf16((a[m, k] - mu_m) * rstd_m * ln_w[k] + ln_b[k])   (optional)
-//   epi(v)      = act(v + bias[n]) * gelu'(gelu_in[m, n]) + residual[m, n]
+//   epi(v)      = act(v + bias[n]) * gelu'(gelu_in[m, n]) * s[m / rows]
+//                 + residual[m, n]
 //                 (each term optional), stored as bf16 or fp32; `preact`
-//                 optionally keeps v + bias, the activation's input, in bf16
+//                 optionally keeps v + bias, the activation's input, in bf16;
+//                 s is a per-sample scale of the branch (DropPath's
+//                 Bernoulli(keep)/keep draw), `rows` the tokens per sample
 //
 // `a` is bf16 (M, K) with rows grouped per sample, so a strided view such as
 // the spatial tokens x[:, 1:] of a (B, N+1, C) stream is read in place. The
@@ -169,6 +172,8 @@ struct GemmArgs {
   float ln_eps;
   float2* ln_stats;      // (M) scratch for the rows' (mean, 1/std)
   const bf16* residual;  // (M, N) or null
+  const float* row_scale;  // (M / scale_rows) or null: scales the branch per sample
+  int scale_rows;
   const bf16* gelu_in;   // (M, N) or null: multiply by gelu'(gelu_in)
   bf16* preact;          // (M, N) or null: store act's input
   bf16* out;             // (M, N) bf16, or null with out_f32
@@ -382,6 +387,11 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 2) ln_gemm_kernel(const G
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] *= gelu_grad(__bfloat162float(ge[j]));
     }
+    if (p.row_scale) {
+      const float sc = p.row_scale[m / p.scale_rows];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] *= sc;
+    }
     if (p.residual) {
       const uint4 rv = *reinterpret_cast<const uint4*>(p.residual + o);
       const bf16* re = reinterpret_cast<const bf16*>(&rv);
@@ -404,7 +414,8 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 2) ln_gemm_kernel(const G
 // multiples of 8 and 16-byte aligned pointers.
 static cudaError_t launch_ln_gemm(const GemmArgs& p, cudaStream_t stream) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.K % 8 != 0 || p.N % 8 != 0 || p.a_rows <= 0 ||
-      (p.ln_w && !p.ln_stats) || (!p.out) == (!p.out_f32))
+      (p.ln_w && !p.ln_stats) || (!p.out) == (!p.out_f32) ||
+      (p.row_scale && (p.scale_rows <= 0 || p.M % p.scale_rows != 0)))
     return cudaErrorInvalidValue;
   if (p.ln_w) {
     constexpr int rows_per_cta = 8;

@@ -93,8 +93,9 @@ class DynamicViTStudent(DeiTBackbone):
         gather = fused_gather_tokens if cfg.use_fused_attention else gather_tokens_reference
         if self.training and not unpruned and generator is None:
             raise ValueError("train mode draws gumbel noise: pass a torch.Generator")
+        self.check_generator(generator)
 
-        x = self.embed(x)
+        x = self.embed(x, generator)
         prev = x.new_ones((B, N, 1))  # the cumulative keep decision
         policy = None  # train mode: the (B, N+1) keep policy
         pred_keep_probs = []
@@ -102,23 +103,23 @@ class DynamicViTStudent(DeiTBackbone):
         p = 0
         for i, blk in enumerate(self.blocks):
             if i not in pr.pruning_locs:
-                x = blk(x, policy)
+                x = blk(x, policy, generator=generator)
                 continue
             pred = self.score_predictor[p](x[:, 1:], prev)
             keep_logprob = pred[..., 0]
             pred_keep_probs.append(torch.exp(keep_logprob))
             if unpruned:
-                x = blk(x)
+                x = blk(x, generator=generator)
             elif self.training:
                 prev = gumbel_softmax_keep(pred, prev, generator, tau)
                 policy = torch.cat([prev.new_ones((B, 1, 1)), prev], dim=1)[..., 0]
-                x = blk(x, policy)
+                x = blk(x, policy, generator=generator)
             else:
                 kept, _ = topk_keep_indices(keep_logprob, keep[p])
                 cur_orig = torch.gather(cur_orig, 1, kept)
                 x = gather(x, torch.cat([kept.new_zeros(B, 1), kept + 1], dim=1))
                 prev = x.new_ones((B, keep[p], 1))
-                x = blk(x)
+                x = blk(x, generator=generator)
             p += 1
 
         x = self.norm(x)

@@ -1,4 +1,4 @@
-"""Model registry (port of the student and teacher part of
+"""Model registry (port of the student, teacher and T2T-ViT part of
 `dense2sparse_vit_tpu/models/registry.py`)."""
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ from dense2sparse_vit_torch.core.config import (
 )
 from dense2sparse_vit_torch.models.dynamic_vit_default import DynamicViTStudent
 from dense2sparse_vit_torch.models.student import DiffPruningStudent
+from dense2sparse_vit_torch.models.t2t import T2TViT
 from dense2sparse_vit_torch.models.teacher import ViTTeacher
+from dense2sparse_vit_torch.nn.t2t import T2TModule
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -40,6 +42,12 @@ ATTN_KWARGS = dict(HEADLINE_KWARGS, selection="attn")
 GUMBEL_MODEL = "default_dynamic_vit_small_patch16_224_student"
 GUMBEL_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
                      dtype="bfloat16")
+# the pruned T2T-ViT-14 (performer stem, sinusoid positions, 6 heads of 64,
+# mlp_ratio 3, no qkv bias, LayerNorm eps 1e-5), as the JAX package's
+# bench_zoo.py builds its config 4: create_model(T2T_MODEL, **T2T_KWARGS)
+T2T_MODEL = "t2t_vit_14_student"
+T2T_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
+                  dtype="bfloat16", use_fused_attention=True)
 
 
 def list_models():
@@ -111,3 +119,51 @@ for _size, _cfg in (("tiny", deit_tiny()), ("small", deit_small()), ("base", dei
     _REGISTRY[f"default_dynamic_vit_{_size}_patch16_224_student"] = _student(
         _cfg, DynamicViTStudent, **_GUMBEL)
     _REGISTRY[f"default_dynamic_vit_{_size}_patch16_224_teacher"] = _teacher(_cfg)
+
+
+def _t2t_config(embed_dim, depth, num_heads, mlp_ratio, **kwargs) -> ModelConfig:
+    return ModelConfig(embed_dim=embed_dim, depth=depth, num_heads=num_heads,
+                       mlp_ratio=mlp_ratio, qkv_bias=False, layer_norm_eps=1e-5, **kwargs)
+
+
+def _t2t(embed_dim, depth, num_heads, mlp_ratio, tokens_type="performer"):
+    """A dense T2T-ViT factory (JAX `registry.py:230-247`); `tokens_type`
+    and `token_dim` may be given, the rest goes to the ModelConfig."""
+    def factory(**kwargs):
+        stem = {"tokens_type": kwargs.pop("tokens_type", tokens_type)}
+        if "token_dim" in kwargs:
+            stem["token_dim"] = kwargs.pop("token_dim")
+        return T2TViT(_t2t_config(embed_dim, depth, num_heads, mlp_ratio, **kwargs), **stem)
+
+    return factory
+
+
+def _t2t_student(embed_dim, depth, num_heads, mlp_ratio, tokens_type="performer"):
+    """A pruned T2T-ViT factory (JAX `registry.py:397-431`): the student on
+    a T2T stem with the fixed sinusoid table, stages at 3/6/9 keeping
+    0.7/0.49/0.343 unless told otherwise."""
+    def factory(**kwargs):
+        pruning = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343))
+        pruning.update({k: kwargs.pop(k) for k in list(kwargs)
+                        if k in PruningConfig.__dataclass_fields__})
+        for k in ("pruning_locs", "keep_ratios"):
+            pruning[k] = tuple(pruning[k])
+        cfg = _t2t_config(embed_dim, depth, num_heads, mlp_ratio, **kwargs)
+        return DiffPruningStudent(cfg, PruningConfig(**pruning),
+                                  stem=T2TModule(embed_dim, tokens_type, in_chans=cfg.in_chans),
+                                  pos_embed_type="sinusoid")
+
+    return factory
+
+
+# the T2T-ViT family whose heads are 64 wide, which the block kernels take
+# (JAX `registry.py:250-265`)
+for _name, _shape in (("7", (256, 7, 4, 2.0)), ("10", (256, 10, 4, 2.0)),
+                      ("12", (256, 12, 4, 2.0)), ("14", (384, 14, 6, 3.0)),
+                      ("19", (448, 19, 7, 3.0)), ("24", (512, 24, 8, 3.0))):
+    _REGISTRY[f"t2t_vit_{_name}"] = _t2t(*_shape)
+for _name, _shape in (("14", (384, 14, 6, 3.0)), ("19", (448, 19, 7, 3.0)),
+                      ("24", (512, 24, 8, 3.0))):
+    _REGISTRY[f"t2t_vit_t_{_name}"] = _t2t(*_shape, tokens_type="transformer")
+_REGISTRY["t2t_vit_14_student"] = _t2t_student(384, 14, 6, 3.0)
+_REGISTRY["t2t_vit_t_14_student"] = _t2t_student(384, 14, 6, 3.0, tokens_type="transformer")

@@ -17,6 +17,12 @@ eval mode (the JAX model's `deterministic=True`) and in train mode
 capture (`collect_cls_attns`); the random and teacher-CLS selections, soft
 top-k, the BatchNorm predictor and the early-exit head are not ported yet
 and are rejected at construction.
+
+The embedding is backbone-agnostic, as the JAX model's (`stem`,
+`pos_embed_type`): the DeiT patch embedding with a learned position
+embedding by default, or a T2T stem (`nn.t2t.T2TModule`, bound as
+`tokens_to_token`) with the fixed sinusoid table, which gives the pruned
+T2T-ViT (`t2t_vit_14_student`).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from dense2sparse_vit_torch.nn.layers import (
     trunc_normal_,
 )
 from dense2sparse_vit_torch.nn.predictor import PredictorLG
+from dense2sparse_vit_torch.nn.t2t import TokenPerformer, get_sinusoid_encoding
 from dense2sparse_vit_torch.ops.gather import fused_gather_tokens, gather_tokens_reference
 from dense2sparse_vit_torch.ops.topk import threshold_keep_mask, topk_keep_indices
 
@@ -65,24 +72,40 @@ class StudentOutput:
 
 
 class DeiTBackbone(nn.Module):
-    """The DeiT pieces the student and the teacher share: patch embedding,
-    CLS token, position embedding, the blocks, the final norm and the head,
-    with the JAX models' init. The blocks take `cfg.quant` unless
+    """The pieces the student and the teacher share: the embedding (a DeiT
+    patch embedding, or the `stem` module given, bound as `tokens_to_token`),
+    CLS token, position embedding (pos_embed_type "learned": a parameter;
+    "sinusoid": the fixed table, a buffer outside the state_dict), the
+    blocks, the final norm and the head, with the JAX models' init. The
+    position embedding covers `num_tokens` tokens and the CLS token
+    (default cfg.num_patches). The blocks take `cfg.quant` unless
     `quantized_blocks` is False (the teacher's). Elementwise dropout is not
     ported and is rejected."""
 
     quantized_blocks = True
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, stem: Optional[nn.Module] = None,
+                 pos_embed_type: str = "learned", num_tokens: Optional[int] = None):
         reject_unported({
             "drop_rate / attn_drop_rate": cfg.drop_rate > 0 or cfg.attn_drop_rate > 0,
         })
+        if pos_embed_type not in ("learned", "sinusoid"):
+            raise ValueError(f"unknown pos_embed_type {pos_embed_type!r}")
         super().__init__()
         self.cfg = cfg
+        self.pos_embed_type = pos_embed_type
         C = cfg.embed_dim
-        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, C)
+        if stem is None:
+            self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, C)
+        else:
+            self.tokens_to_token = stem
         self.cls_token = nn.Parameter(torch.zeros(1, 1, C))
-        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, C))
+        n = cfg.num_patches if num_tokens is None else num_tokens
+        if pos_embed_type == "learned":
+            self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, C))
+        else:
+            table = torch.from_numpy(get_sinusoid_encoding(n + 1, C))
+            self.register_buffer("pos_embed", table, persistent=False)
         self.blocks = nn.ModuleList(
             Block(
                 C, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
@@ -99,8 +122,9 @@ class DeiTBackbone(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
         """DeiT init, as the JAX model's: truncated-normal (std 0.02) linear,
-        conv, CLS and position weights; zero biases; unit LayerNorms. The
-        generator must be on the parameters' device."""
+        conv, CLS and learned position weights; zero biases; unit
+        LayerNorms; a T2T performer's frozen projection orthogonal times
+        sqrt(m). The generator must be on the parameters' device."""
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 trunc_normal_(m.weight, generator)
@@ -109,23 +133,42 @@ class DeiTBackbone(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, TokenPerformer):
+                m.reset_projection(generator)
         trunc_normal_(self.cls_token, generator)
-        trunc_normal_(self.pos_embed, generator)
+        if self.pos_embed_type == "learned":
+            trunc_normal_(self.pos_embed, generator)
         return self
 
-    def embed(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) images -> (B, N+1, C) tokens: patches, CLS, positions."""
+    def check_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Train mode draws random numbers where a block has drop_path > 0
+        or the stem has active dropout (the T2T performer): raise without a
+        generator to draw them from."""
+        if not self.training or generator is not None:
+            return
+        if (any(blk.drop_path.rate > 0 for blk in self.blocks)
+                or any(isinstance(m, TokenPerformer) and (m.dp1 > 0 or m.dp2 > 0)
+                       for m in self.modules())):
+            raise ValueError("train mode draws DropPath scales or dropout masks: pass a "
+                             "torch.Generator")
+
+    def embed(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, 3) images -> (B, N+1, C) tokens: patches (or the stem's
+        tokens), CLS, positions. generator: the stem's dropout masks."""
         dtype = getattr(torch, self.cfg.dtype)
-        x = self.patch_embed(x.to(dtype))
+        stem = getattr(self, "tokens_to_token", None)
+        x = self.patch_embed(x.to(dtype)) if stem is None else stem(x.to(dtype), generator)
         w = compute_weights(self, dtype)
         cls = w["cls_token"].expand(x.shape[0], -1, -1)
-        return torch.cat([cls, x], dim=1) + w["pos_embed"]
+        pos = w["pos_embed"] if self.pos_embed_type == "learned" else self.pos_embed.to(dtype)
+        return torch.cat([cls, x], dim=1) + pos
 
 
 class DiffPruningStudent(DeiTBackbone):
     """See the module docstring. Images are NHWC (B, H, W, 3)."""
 
-    def __init__(self, cfg: ModelConfig, pruning: PruningConfig):
+    def __init__(self, cfg: ModelConfig, pruning: PruningConfig, stem: Optional[nn.Module] = None,
+                 pos_embed_type: str = "learned"):
         attn = pruning.selection == "attn"
         reject_unported({
             "selection == 'random'": pruning.selection == "random",
@@ -135,7 +178,7 @@ class DiffPruningStudent(DeiTBackbone):
             # the JAX model falls back to a predictor where no block precedes
             "selection == 'attn' with a stage at block 0": attn and 0 in pruning.pruning_locs,
         })
-        super().__init__(cfg)
+        super().__init__(cfg, stem, pos_embed_type)
         self.pruning = pruning
         C = cfg.embed_dim
         self.score_predictor = nn.ModuleList(
@@ -146,7 +189,8 @@ class DiffPruningStudent(DeiTBackbone):
 
     def forward(self, x: torch.Tensor, *, unpruned: bool = False,
                 threshold_override: Optional[float] = None,
-                collect_cls_attns: bool = True) -> StudentOutput:
+                collect_cls_attns: bool = True,
+                generator: Optional[torch.Generator] = None) -> StudentOutput:
         """x: (B, H, W, 3) images. unpruned: skip every pruning stage.
         threshold_override: replaces `patch_score_threshold` in threshold
         mode (the threshold curriculum's per-epoch value).
@@ -154,7 +198,9 @@ class DiffPruningStudent(DeiTBackbone):
         model's default; always on with selection="attn", which ranks by
         them). Off, blocks take the whole-block kernels: the train and eval
         steps, the export and the profilers turn it off, as the JAX package's
-        do.
+        do. generator: the source of train mode's DropPath scales and the
+        T2T performer stem's dropout masks, which train mode needs where
+        either is active (`check_generator`).
 
         In train mode the blocks take the trainable kernels (fused) and the
         predictors their plain layers; the gather is differentiable in both
@@ -171,7 +217,8 @@ class DiffPruningStudent(DeiTBackbone):
         if threshold_override is not None:
             threshold = threshold_override
 
-        x = self.embed(x)
+        self.check_generator(generator)
+        x = self.embed(x, generator)
         pred_logits, kept_stage, dropped_stage, keep_masks, cls_attns = [], [], [], [], []
         policy = keep_ratios = None  # threshold mode: the (B, N+1) keep policy
         last_cls = None  # the last capturing block's (B, H, N_layer + 1) CLS rows
@@ -196,10 +243,10 @@ class DiffPruningStudent(DeiTBackbone):
                         x = gather(x, idx)
                 p += 1
             if collect and policy is None:
-                x, last_cls = blk(x, return_cls_attn=True)
+                x, last_cls = blk(x, return_cls_attn=True, generator=generator)
                 cls_attns.append(last_cls[:, :, 1:])
             else:
-                x = blk(x, policy)
+                x = blk(x, policy, generator=generator)
 
         x = self.norm(x)
         return StudentOutput(

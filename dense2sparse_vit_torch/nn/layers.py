@@ -169,19 +169,33 @@ class Attention(nn.Module):
         return self.proj(out)
 
 
+def draw_branch_scales(batch: int, rate: float,
+                       generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """A block's two DropPath draws: (sa, sm), each (B,) fp32 on the
+    generator's device, Bernoulli(keep)/keep per sample with keep = 1 - rate,
+    the attention branch's first, then the MLP branch's (JAX
+    `nn/layers.py:312-327`). Both of a Block's routes take their scales from
+    here, so that one generator state gives the same draws on the kernel
+    route and on the plain one."""
+    keep = 1.0 - rate
+    draws = torch.empty((2, batch), device=generator.device).bernoulli_(keep, generator=generator)
+    return draws[0] / keep, draws[1] / keep
+
+
 class DropPath(nn.Module):
-    """Stochastic depth: drop the residual branch per sample (training only)."""
+    """Stochastic depth: the residual branch times a per-sample scale from
+    `draw_branch_scales` (training only; the Block draws the scales)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        if self.rate == 0.0 or not self.training:
+    def forward(self, x, scale: Optional[torch.Tensor] = None):
+        """x (B, ...) times the (B,) `scale`, in fp32 rounded once to
+        x.dtype; x itself where there is no scale."""
+        if scale is None:
             return x
-        keep = 1.0 - self.rate
-        mask = x.new_empty((x.shape[0],) + (1,) * (x.dim() - 1)).bernoulli_(keep)
-        return x * mask / keep
+        return (x.float() * scale.view((-1,) + (1,) * (x.dim() - 1))).to(x.dtype)
 
 
 class Block(nn.Module):
@@ -204,8 +218,16 @@ class Block(nn.Module):
     `policy` (threshold pruning, the gumbel baseline's training) goes to
     the same wrappers, which then run their policy mode. Each wrapper
     launches its CUDA kernel for a CUDA tensor and runs its plain torch
-    version for a CPU tensor. The kernels have no DropPath, so a fused
-    block with drop_path > 0 refuses to train.
+    version for a CPU tensor.
+
+    Stochastic depth (drop_path > 0, train mode) draws the two branches'
+    per-sample scales from the `generator` the caller passes
+    (`draw_branch_scales`); it raises without one. As in the JAX Block
+    (`nn/layers.py:231-245`), the fused block without CLS capture hands them
+    to `fused_transformer_block_trainable`, whose kernels scale the branches
+    both ways; with CLS capture the block leaves the whole-block kernel and
+    the MLP half's kernel, which have no scale: LN1, the attention (its
+    packed core when fused), DropPath, then the plain Mlp with DropPath.
 
     With quant="int8" (W8A8 serving, JAX `nn/layers.py:295-311`), the eval
     mode's policy-free block without CLS capture runs
@@ -256,10 +278,13 @@ class Block(nn.Module):
         return {**{k: w[k] for k in ("ln1_w", "ln1_b", "bqkv", "bproj", "ln2_w", "ln2_b",
                                      "b1", "b2")}, **codes}
 
-    def forward(self, x, policy=None, *, return_cls_attn: bool = False):
+    def forward(self, x, policy=None, *, return_cls_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
         """(B, N, C) -> (B, N, C); with `return_cls_attn`, (out, cls_attn)
         with the (B, H, N) CLS row of the attention probabilities. policy:
-        an optional (B, N) or (B, N, 1) keep mask (1 = kept), CLS included."""
+        an optional (B, N) or (B, N, 1) keep mask (1 = kept), CLS included.
+        generator: the source of the DropPath draws, which train mode with
+        drop_path > 0 needs."""
         if policy is not None:
             policy = policy.reshape(x.shape[0], x.shape[1])
         if (self.quant == "int8" and not self.training and policy is None
@@ -267,9 +292,13 @@ class Block(nn.Module):
             return fused_transformer_block_int8(x, self.int8_weights(x.dtype),
                                                 self.attn.num_heads, scale=self.attn.scale,
                                                 ln_eps=self.norm1.eps)
-        if self.use_fused:
-            if self.training and self.drop_path.rate > 0:
-                raise NotImplementedError("the fused block has no DropPath kernel yet")
+        sa = sm = None
+        if self.training and self.drop_path.rate > 0:
+            if generator is None:
+                raise ValueError("a training block with drop_path > 0 draws its DropPath "
+                                 "scales: pass a torch.Generator")
+            sa, sm = draw_branch_scales(x.shape[0], self.drop_path.rate, generator)
+        if self.use_fused and not (return_cls_attn and sa is not None):
             if self.training and return_cls_attn:
                 y, cls_attn = self.attn(self.norm1(x), policy, return_cls_attn=True)
                 x = x + y
@@ -279,16 +308,18 @@ class Block(nn.Module):
                     compute_weights(self.mlp.fc2, x.dtype)["weight"], self.mlp.fc2.bias,
                     self.norm2.eps)
                 return x, cls_attn
-            kernel = fused_transformer_block
+            w = self.kernel_weights(x.dtype)
+            kw = dict(scale=self.attn.scale, ln_eps=self.norm1.eps)
             if return_cls_attn:
-                kernel = fused_transformer_block_cls
-            elif self.training:
-                kernel = fused_transformer_block_trainable
-            return kernel(x, self.kernel_weights(x.dtype), self.attn.num_heads, policy,
-                          scale=self.attn.scale, ln_eps=self.norm1.eps)
+                return fused_transformer_block_cls(x, w, self.attn.num_heads, policy, **kw)
+            if self.training:
+                return fused_transformer_block_trainable(
+                    x, w, self.attn.num_heads, policy,
+                    branch_scales=None if sa is None else (sa, sm), **kw)
+            return fused_transformer_block(x, w, self.attn.num_heads, policy, **kw)
         y = self.attn(self.norm1(x), policy, return_cls_attn=return_cls_attn)
         if return_cls_attn:
             y, cls_attn = y
-        x = x + self.drop_path(y)
-        x = x + self.drop_path(self.mlp(self.norm2(x)))
+        x = x + self.drop_path(y, sa)
+        x = x + self.drop_path(self.mlp(self.norm2(x)), sm)
         return (x, cls_attn) if return_cls_attn else x

@@ -4,7 +4,8 @@ Each kernel wrapper counts its launches in a `launches` attribute, where it
 launches the kernel (for the serving path's kernels, in the `cuda`
 implementation of their custom op, so that calls from an exported artifact
 count too); the block's forward and backward count their policy-mode
-launches apart, in `policy_launches`. `COUNTERS` lists every count by its
+launches apart, in `policy_launches`, and those with DropPath branch scales
+in `scaled_launches`. `COUNTERS` lists every count by its
 name. Importing this package registers the custom ops (`d2s::*`), which is
 all a loaded `torch.export` artifact needs of the port.
 """
@@ -39,6 +40,9 @@ COUNTERS = (
     ("fused_transformer_block_backward", fused_transformer_block_backward, "launches"),
     ("fused_transformer_block_backward[policy]", fused_transformer_block_backward,
      "policy_launches"),
+    ("fused_transformer_block[scaled]", fused_transformer_block, "scaled_launches"),
+    ("fused_transformer_block_backward[scaled]", fused_transformer_block_backward,
+     "scaled_launches"),
     ("fused_predictor_lg", fused_predictor_lg, "launches"),
     ("fused_gather_tokens", fused_gather_tokens, "launches"),
     ("fused_scatter_tokens", fused_scatter_tokens, "launches"),

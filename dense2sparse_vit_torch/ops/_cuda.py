@@ -34,8 +34,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "d2s_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "d2s_scatter_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "d2s_block_forward": [_P] * 23 + [_I] * 5 + [_F] * 3 + [_P],
-    "d2s_block_backward": [_P] * 30 + [_I] * 5 + [_F] * 3 + [_P],
+    "d2s_block_forward": [_P] * 25 + [_I] * 5 + [_F] * 3 + [_P],
+    "d2s_block_backward": [_P] * 32 + [_I] * 5 + [_F] * 3 + [_P],
     "d2s_block_backward_scratch_bytes": [_I] * 6,
     "d2s_block_int8_forward": [_P] * 30 + [_I] * 5 + [_F] * 2 + [_P],
     "d2s_attention_packed_forward": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _F, _F, _P],

@@ -1,10 +1,16 @@
 """Whole pre-norm transformer block, both directions.
 
-The port of `dense2sparse_vit_tpu/ops/pallas/block.py` without DropPath
-branch scales, in its plain and its policy mode:
+The port of `dense2sparse_vit_tpu/ops/pallas/block.py`, in its plain and
+its policy mode, with its DropPath branch scales:
 
-    x_mid = x + proj(MHA(qkv(LN1 x)))
-    out   = x_mid + fc2(GELU(fc1(LN2 x_mid)))
+    x_mid = x + sa[b] * proj(MHA(qkv(LN1 x)))
+    out   = x_mid + sm[b] * fc2(GELU(fc1(LN2 x_mid)))
+
+`branch_scales` = (sa, sm), two (B,) fp32 vectors of Bernoulli(keep)/keep
+draws (stochastic depth, one draw per sample and branch), or None: no
+scale. Each branch is scaled and added to its residual in fp32 and the sum
+rounded once, as the JAX package's `_ref_block` defines; the scales are
+constants and get no gradient (JAX `_ftb_bwd` returns zeros for them).
 
 Plain mode takes an exact fp32 row-max softmax over the N real tokens, which
 is what the JAX package's `_ref_block` defines. Policy mode takes a (B, N)
@@ -22,6 +28,9 @@ threshold and gumbel paths' attention.
 - `fused_transformer_block_trainable`: the block as an autograd Function,
   forward `fused_transformer_block`, backward
   `fused_transformer_block_backward` (`fused_transformer_block_trainable`).
+
+Every entry but the CLS one takes `branch_scales`; launches with scales
+count in `scaled_launches`, whatever the mode.
 
 For CUDA tensors the wrappers launch `csrc/block.cu` and `csrc/block_bwd.cu`;
 for CPU tensors they run `transformer_block_reference` and
@@ -95,10 +104,19 @@ def attention_reference(qkv: torch.Tensor, num_heads: int, scale: float, *,
     return out
 
 
+def _residual(res, branch, s):
+    """res + branch, or with a (B,) scale s, res + s * branch in fp32 rounded
+    once to res.dtype."""
+    if s is None:
+        return res + branch
+    return (res.float() + s.float().view(-1, 1, 1) * branch.float()).to(res.dtype)
+
+
 def transformer_block_reference(x, w, num_heads, scale, ln_eps, *, policy=None, eps=1e-6,
-                                stages=False, return_cls=False):
+                                stages=False, return_cls=False, branch_scales=None):
     """Plain torch version of the block's forward: `out`, then the CLS rows
     with `return_cls`, then the stages dict with `stages`."""
+    sa, sm = (None, None) if branch_scales is None else branch_scales
     qkv = linear(layer_norm(x, w["ln1_w"], w["ln1_b"], ln_eps), w["wqkv"], w["bqkv"])
     kw = {} if policy is None else {"policy": policy, "eps": eps}
     if return_cls:
@@ -106,10 +124,10 @@ def transformer_block_reference(x, w, num_heads, scale, ln_eps, *, policy=None, 
     attn = attention_reference(qkv, num_heads, scale, **kw)
     if return_cls:
         attn, cls = attn
-    mid = x + linear(attn, w["wproj"], w["bproj"])
+    mid = _residual(x, linear(attn, w["wproj"], w["bproj"]), sa)
     h = layer_norm(mid, w["ln2_w"], w["ln2_b"], ln_eps)
     hid = F.gelu(linear(h, w["w1"], w["b1"]).float()).to(x.dtype)
-    out = mid + linear(hid, w["w2"], w["b2"])
+    out = _residual(mid, linear(hid, w["w2"], w["b2"]), sm)
     result = (out,)
     if return_cls:
         result += (cls,)
@@ -119,7 +137,7 @@ def transformer_block_reference(x, w, num_heads, scale, ln_eps, *, policy=None, 
 
 
 def transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps, *, policy=None,
-                                         eps=1e-6, policy_grad=True):
+                                         eps=1e-6, policy_grad=True, branch_scales=None):
     """Plain torch version of `fused_transformer_block_backward`: autograd
     through `transformer_block_reference`. Returns (dx in x.dtype, grads in
     fp32 keyed like `w` with None for a None weight, dPolicy in fp32 or
@@ -133,7 +151,9 @@ def transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps, *, p
         pol = None
         if policy is not None:
             pol = policy.detach().float().clone().requires_grad_(policy_grad)
-        out = transformer_block_reference(xs, ws, num_heads, scale, ln_eps, policy=pol, eps=eps)
+        scales = None if branch_scales is None else tuple(t.detach() for t in branch_scales)
+        out = transformer_block_reference(xs, ws, num_heads, scale, ln_eps, policy=pol, eps=eps,
+                                          branch_scales=scales)
         keys = [k for k in BLOCK_WEIGHT_KEYS if ws[k] is not None]
         inputs = [xs] + [ws[k] for k in keys]
         if pol is not None and policy_grad:
@@ -183,6 +203,31 @@ def _policy_arg(policy, x, what):
     return pol.float().contiguous()
 
 
+def _scales_arg(branch_scales, x, what):
+    """(sa, sm) as the kernels take them, fp32 (B,) and contiguous on x's
+    device, or (None, None)."""
+    if branch_scales is None:
+        return None, None
+    B = x.shape[0]
+    out = []
+    for name, t in zip(("sa", "sm"), branch_scales):
+        if t.shape != (B,) or not t.is_floating_point():
+            raise ValueError(f"{what}: {name} must be a float (B,) = ({B},) vector, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        out.append(t.detach().float().contiguous())
+    return tuple(out)
+
+
+def _count(fn, policy, sa):
+    """One launch of `fn`'s kernel, counted by mode."""
+    if sa is not None:
+        fn.scaled_launches += 1
+    elif policy is None:
+        fn.launches += 1
+    else:
+        fn.policy_launches += 1
+
+
 def _needs_grad(x, w, policy) -> bool:
     return torch.is_grad_enabled() and (
         x.requires_grad or any(v is not None and v.requires_grad for v in w.values())
@@ -197,14 +242,16 @@ def _refuse_autograd(x, w, policy, what):
         )
 
 
-def _launch_forward(x, w, num_heads, scale, ln_eps, *, policy, eps, cls, what):
+def _launch_forward(x, w, num_heads, scale, ln_eps, *, policy, eps, cls, what,
+                    branch_scales=None):
     """One d2s_block_forward call: (out, stages, cls rows or None)."""
     _refuse_autograd(x, w, policy, what)
     B, N, C = x.shape
     hidden, ptrs, _ = _kernel_args(x, w, num_heads, MAX_TOKENS, what)
-    dev, bf16 = x.device, torch.bfloat16
+    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     x_ptr = _cuda.ptr(x, "x", dev, bf16, (B, N, C))
     pol = _policy_arg(policy, x, what)
+    sa, sm = _scales_arg(branch_scales, x, what)
     out = torch.empty_like(x)
     qkv = torch.empty((B, N, 3 * C), dtype=bf16, device=dev)
     attn = torch.empty_like(x)
@@ -216,17 +263,16 @@ def _launch_forward(x, w, num_heads, scale, ln_eps, *, policy, eps, cls, what):
         x_ptr, out.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
         mid.data_ptr(), hid.data_ptr(), stats.data_ptr(), *ptrs,
         0, 0, 0 if cls_rows is None else cls_rows.data_ptr(),
-        _cuda.ptr(pol, "policy", dev, torch.float32, (B, N)),
+        _cuda.ptr(pol, "policy", dev, f32, (B, N)),
+        _cuda.ptr(sa, "sa", dev, f32, (B,)), _cuda.ptr(sm, "sm", dev, f32, (B,)),
         B, N, C, num_heads, hidden, float(scale), float(ln_eps), float(eps),
         _cuda.stream_handle(dev),
     )
     _cuda.check(err, "d2s_block_forward")
     if cls:
         fused_transformer_block_cls.launches += 1
-    elif policy is None:
-        fused_transformer_block.launches += 1
     else:
-        fused_transformer_block.policy_launches += 1
+        _count(fused_transformer_block, policy, sa)
     return out, {"qkv": qkv, "attn": attn, "mid": mid, "hid": hid}, cls_rows
 
 
@@ -249,22 +295,29 @@ def _weights_dict(weights, bqkv) -> dict:
     return dict(zip(_OP_KEYS, weights), bqkv=bqkv)
 
 
+def _scales(sa, sm):
+    return None if sa is None else (sa, sm)
+
+
 @torch.library.custom_op("d2s::block_forward", mutates_args=(), device_types="cpu")
 def _block_forward_op(x: torch.Tensor, weights: List[torch.Tensor], bqkv: Optional[torch.Tensor],
-                      policy: Optional[torch.Tensor], num_heads: int, scale: float,
+                      policy: Optional[torch.Tensor], sa: Optional[torch.Tensor],
+                      sm: Optional[torch.Tensor], num_heads: int, scale: float,
                       ln_eps: float, eps: float) -> torch.Tensor:
     return transformer_block_reference(x, _weights_dict(weights, bqkv), num_heads, scale,
-                                       ln_eps, policy=policy, eps=eps)
+                                       ln_eps, policy=policy, eps=eps,
+                                       branch_scales=_scales(sa, sm))
 
 
 @_block_forward_op.register_kernel("cuda")
-def _(x, weights, bqkv, policy, num_heads, scale, ln_eps, eps):
+def _(x, weights, bqkv, policy, sa, sm, num_heads, scale, ln_eps, eps):
     return _launch_forward(x, _weights_dict(weights, bqkv), num_heads, scale, ln_eps,
-                           policy=policy, eps=eps, cls=False, what="fused_transformer_block")[0]
+                           policy=policy, eps=eps, cls=False, what="fused_transformer_block",
+                           branch_scales=_scales(sa, sm))[0]
 
 
 @_block_forward_op.register_fake
-def _(x, weights, bqkv, policy, num_heads, scale, ln_eps, eps):
+def _(x, weights, bqkv, policy, sa, sm, num_heads, scale, ln_eps, eps):
     return torch.empty_like(x)
 
 
@@ -301,31 +354,36 @@ def fused_transformer_block(
     eps: float = 1e-6,
     ln_eps: float = 1e-6,
     stages: bool = False,
+    branch_scales=None,
 ):
     """One whole pre-norm block, (B, N, C) -> (B, N, C).
 
     With a (B, N) keep `policy` (fp32 or bf16), the attention is the policy
-    softmax with smoothing `eps`. With `stages`, returns (out, {"qkv",
-    "attn", "mid", "hid"}): the intermediates the block computes on the way
+    softmax with smoothing `eps`. With `branch_scales` (sa, sm), the two
+    branches are scaled per sample (DropPath). With `stages`, returns (out,
+    {"qkv", "attn", "mid", "hid"}): the intermediates the block computes on the way
     (qkv projection, attention core output, x_mid, GELU(fc1) activation), so
     that each can be checked on its own. On the card it is not
     differentiable: under autograd it raises
     (`fused_transformer_block_trainable` is). Plain-mode launches count in
-    `launches`, policy-mode ones in `policy_launches`.
+    `launches`, policy-mode ones in `policy_launches`, those with branch
+    scales in `scaled_launches`.
     """
     C = _check_x(x)
+    what = "fused_transformer_block"
     if scale is None:
         scale = (C // num_heads) ** -0.5
     if x.device.type == "cpu" and (stages or _needs_grad(x, w, policy)):
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
-                                           eps=eps, stages=stages)
+                                           eps=eps, stages=stages, branch_scales=branch_scales)
     if stages:
         out, st, _ = _launch_forward(x, w, num_heads, scale, ln_eps, policy=policy, eps=eps,
-                                     cls=False, what="fused_transformer_block")
+                                     cls=False, what=what, branch_scales=branch_scales)
         return out, st
-    _refuse_autograd(x, w, policy, "fused_transformer_block")
+    _refuse_autograd(x, w, policy, what)
     return torch.ops.d2s.block_forward(x, _op_weights(w), w["bqkv"],
-                                       _policy_arg(policy, x, "fused_transformer_block"),
+                                       _policy_arg(policy, x, what),
+                                       *_scales_arg(branch_scales, x, what),
                                        num_heads, float(scale), float(ln_eps), float(eps))
 
 
@@ -366,20 +424,25 @@ def fused_transformer_block_backward(
     eps: float = 1e-6,
     ln_eps: float = 1e-6,
     policy_grad: bool = True,
+    branch_scales=None,
 ):
     """The block's backward from its input x and the cotangent g of its
     output: (dx in x.dtype, {key: fp32 gradient summed over the batch},
     dPolicy), with the keys of `w` (None where the weight is None). dPolicy
     is the (B, N) fp32 gradient of the keep policy, None in plain mode or
-    with `policy_grad=False`, which spares the kernel its work. Plain-mode
-    launches count in `launches`, policy-mode ones in `policy_launches`."""
+    with `policy_grad=False`, which spares the kernel its work. With
+    `branch_scales` (sa, sm), the block's branches are scaled as in the
+    forward; they get no gradient. Plain-mode launches count in `launches`,
+    policy-mode ones in `policy_launches`, those with branch scales in
+    `scaled_launches`."""
     C = _check_x(x)
     if scale is None:
         scale = (C // num_heads) ** -0.5
     if x.device.type == "cpu":
         return transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps,
                                                     policy=policy, eps=eps,
-                                                    policy_grad=policy_grad)
+                                                    policy_grad=policy_grad,
+                                                    branch_scales=branch_scales)
     what = "fused_transformer_block_backward"
     B, N, _ = x.shape
     max_n = BWD_MAX_TOKENS if policy is None else BWD_POLICY_MAX_TOKENS
@@ -388,6 +451,7 @@ def fused_transformer_block_backward(
     x_ptr = _cuda.ptr(x, "x", dev, bf16, (B, N, C))
     g_ptr = _cuda.ptr(g, "g", dev, bf16, (B, N, C))
     pol = _policy_arg(policy, x, what)
+    sa, sm = _scales_arg(branch_scales, x, what)
     lib = _cuda.library()
     nbytes = lib.d2s_block_backward_scratch_bytes(B, N, C, num_heads, hidden, int(pol is not None))
     if nbytes <= 0:
@@ -402,48 +466,47 @@ def fused_transformer_block_backward(
         x_ptr, g_ptr, dx.data_ptr(), *ptrs,
         *(0 if dw[k] is None else dw[k].data_ptr() for k in BLOCK_WEIGHT_KEYS),
         _cuda.ptr(pol, "policy", dev, f32, (B, N)), 0 if dpol is None else dpol.data_ptr(),
+        _cuda.ptr(sa, "sa", dev, f32, (B,)), _cuda.ptr(sm, "sm", dev, f32, (B,)),
         scratch.data_ptr(), B, N, C, num_heads, hidden, float(scale),
         float(ln_eps), float(eps), _cuda.stream_handle(dev),
     )
     _cuda.check(err, "d2s_block_backward")
-    if policy is None:
-        fused_transformer_block_backward.launches += 1
-    else:
-        fused_transformer_block_backward.policy_launches += 1
+    _count(fused_transformer_block_backward, policy, sa)
     return dx, dw, dpol
 
 
 class _TrainableBlock(torch.autograd.Function):
     """Forward `fused_transformer_block`, backward
     `fused_transformer_block_backward`, which recomputes the forward from x:
-    only x, the policy and the weights are kept between the two. The
+    only x, the policy, the branch scales and the weights are kept between
+    the two; the scales get no gradient. The
     gradients come back in each weight's dtype and dPolicy in the policy's,
     as the JAX package's custom VJP casts them; dPolicy is asked of the
     kernel only when the policy needs a gradient (the threshold path's
     policy comes from stopped scores and does not)."""
 
     @staticmethod
-    def forward(ctx, x, policy, num_heads, scale, ln_eps, eps, *weights):
-        ctx.save_for_backward(x, policy, *weights)
+    def forward(ctx, x, policy, sa, sm, num_heads, scale, ln_eps, eps, *weights):
+        ctx.save_for_backward(x, policy, sa, sm, *weights)
         ctx.args = (num_heads, scale, ln_eps, eps)
         w = dict(zip(BLOCK_WEIGHT_KEYS, weights))
         return fused_transformer_block(x, w, num_heads, policy, scale=scale, eps=eps,
-                                       ln_eps=ln_eps)
+                                       ln_eps=ln_eps, branch_scales=_scales(sa, sm))
 
     @staticmethod
     def backward(ctx, g):
-        x, policy, *weights = ctx.saved_tensors
+        x, policy, sa, sm, *weights = ctx.saved_tensors
         num_heads, scale, ln_eps, eps = ctx.args
         w = dict(zip(BLOCK_WEIGHT_KEYS, weights))
         policy_grad = policy is not None and ctx.needs_input_grad[1]
         dx, dw, dpol = fused_transformer_block_backward(
             x, g.contiguous(), w, num_heads, policy, scale=scale, eps=eps, ln_eps=ln_eps,
-            policy_grad=policy_grad)
+            policy_grad=policy_grad, branch_scales=_scales(sa, sm))
         grads = [None if w[k] is None else dw[k].to(w[k].dtype)
                  for k in BLOCK_WEIGHT_KEYS]
         if dpol is not None:
             dpol = dpol.to(policy.dtype).reshape(policy.shape)
-        return (dx, dpol, None, None, None, None, *grads)
+        return (dx, dpol, None, None, None, None, None, None, *grads)
 
 
 def fused_transformer_block_trainable(
@@ -455,19 +518,24 @@ def fused_transformer_block_trainable(
     scale: float | None = None,
     eps: float = 1e-6,
     ln_eps: float = 1e-6,
+    branch_scales=None,
 ):
     """`fused_transformer_block` with a gradient for x, every weight and, in
-    policy mode, the policy."""
+    policy mode, the policy; `branch_scales` (sa, sm), DropPath's (B,)
+    multipliers, get none."""
     C = _check_x(x)
     if scale is None:
         scale = (C // num_heads) ** -0.5
+    sa, sm = (None, None) if branch_scales is None else (t.detach() for t in branch_scales)
     return _TrainableBlock.apply(
-        x, policy, num_heads, float(scale), float(ln_eps), float(eps),
+        x, policy, sa, sm, num_heads, float(scale), float(ln_eps), float(eps),
         *(w[k] for k in BLOCK_WEIGHT_KEYS))
 
 
 fused_transformer_block.launches = 0
 fused_transformer_block.policy_launches = 0
+fused_transformer_block.scaled_launches = 0
 fused_transformer_block_cls.launches = 0
 fused_transformer_block_backward.launches = 0
 fused_transformer_block_backward.policy_launches = 0
+fused_transformer_block_backward.scaled_launches = 0

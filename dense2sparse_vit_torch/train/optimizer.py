@@ -2,10 +2,11 @@
 `dense2sparse_vit_tpu/train/optimizer.py`).
 
 Groups, by parameter name (the rules of the JAX package's `label_params`
-for the modules the port has; it has no early-exit head, performer or
-distillation token):
-  frozen        cls_token, pos_embed: in no group, never updated (optax's
-                set_to_zero)
+for the modules the port has; it has no early-exit head or distillation
+token):
+  frozen        cls_token, pos_embed and the T2T performer's projection
+                (`tokens_to_token.attention{1,2}.w`, JAX `prm_w`): in no
+                group, never updated (optax's set_to_zero)
   predictor     the score predictors: the cosine lr, weight decay
   base_no_decay 1-D parameters and biases: the backbone's lr, no decay
   base_decay    everything else: the backbone's lr, weight decay
@@ -24,12 +25,20 @@ from dense2sparse_vit_torch.train import schedule as sched
 GROUPS = ("predictor", "base_decay", "base_no_decay")
 
 
+def _is_performer_projection(name: str) -> bool:
+    """The frozen random projection of a T2T performer unit: `w` directly
+    under tokens_to_token.attention{1,2} (the reference's key for JAX's
+    `prm_w`, `optimizer.py:38-42`)."""
+    parts = name.split(".")
+    return parts[-1] == "w" and "tokens_to_token" in parts
+
+
 def label_params(model: nn.Module) -> Dict[str, str]:
     """{parameter name: group label}, "frozen" included."""
 
     def label(name: str, p: torch.Tensor) -> str:
         n = name.lower()
-        if "cls_token" in n or "pos_embed" in n:
+        if "cls_token" in n or "pos_embed" in n or _is_performer_projection(n):
             return "frozen"
         if "score_predictor" in n:
             return "predictor"

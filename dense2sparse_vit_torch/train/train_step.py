@@ -50,12 +50,16 @@ def make_train_step(
     optimizer: ScheduledAdamW,
     cfg: ExperimentConfig,
     mixup_active: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Callable:
     """Build `step(images, labels, epoch) -> metrics`.
 
     images: (B, H, W, 3) float NHWC; labels: (B,) int64; epoch: the current
     epoch, which gates the backbone loss (the lr schedules read the
-    optimizer's update count). metrics: {name: 0-d tensor}, detached. After
+    optimizer's update count). metrics: {name: 0-d tensor}, detached. The
+    student's random draws (DropPath's branch scales, a T2T performer
+    stem's dropout) come from `generator`, by default one seeded with
+    TrainConfig.seed on the images' device at the first step. After
     the step every trained parameter's `.grad` holds this step's gradient.
     In threshold mode the student's per-stage keep masks chain the mask
     loss's target and its last mask restricts the token KL. Mixup, the
@@ -65,15 +69,18 @@ def make_train_step(
     """
     tr, pr = cfg.train, cfg.pruning
     _reject_unported(cfg, mixup_active)
+    draws = [generator]
 
     def step(images: torch.Tensor, labels: torch.Tensor, epoch) -> dict:
         if not images.is_floating_point():
             raise TypeError(f"images must be float (normalised), got {images.dtype}")
+        if draws[0] is None:
+            draws[0] = torch.Generator(device=images.device).manual_seed(tr.seed)
         teacher.eval()
         student.train()
         t_logits, t_tokens, t_attns = teacher(images)
         # no loss reads the student's own CLS rows (JAX `train_step.py:172`)
-        out = student(images, collect_cls_attns=False)
+        out = student(images, collect_cls_attns=False, generator=draws[0])
         m_loss, m_metrics = mask_loss(
             out.pred_logits, t_attns, out.kept_idx, pr.keep_ratios,
             loss_type=pr.mask_loss_type, mean_heads=pr.mean_heads,

@@ -19,6 +19,22 @@ package's own map for that predictor (`convert.py:500-506`):
 
   score_predictor_{p}/in_norm, in_dense -> score_predictor.{p}.in_conv.{0, 1}
   score_predictor_{p}/out_{0,1,2}       -> score_predictor.{p}.out_conv.{0, 2, 4}
+
+and the T2T stem onto the reference's `tokens_to_token.*` keys, as the JAX
+package's `convert_t2t_state_dict` lays them out (`convert.py:400-460`),
+from `stem/...` (the pruned T2T student binds its stem under its `stem`
+attribute) or `tokens_to_token/...` (the dense `T2TViT`):
+
+  attention{1,2}/prm_w                   -> attention{1,2}.w  (not transposed)
+  attention{1,2}/kqv, proj, norm1, norm2 -> the same names (performer)
+  attention{1,2}/mlp_fc1, mlp_fc2        -> attention{1,2}.mlp.0, .mlp.2
+  attention{1,2}/qkv, proj               -> attention{1,2}.attn.qkv, .attn.proj
+                                            (transformer unit; its mlp/fc1,
+                                            fc2 and norms keep their names)
+  conv_0, conv_1, conv_2                 -> soft_split0, soft_split1, project
+  project                                -> project
+
+A T2T model has no `pos_embed` parameter: its sinusoid table is a constant.
 """
 
 from __future__ import annotations
@@ -60,10 +76,33 @@ def _predictor_key(path: Tuple[str, ...], n_out: int) -> str:
     return f"score_predictor.{p}.{seq}.{idx}.{_leaf(path[-1])}"
 
 
+_STEM_CONVS = {"conv_0": "soft_split0", "conv_1": "soft_split1", "conv_2": "project"}
+_PERFORMER_MLP = {"mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2"}
+
+
+def _stem_key(path: Tuple[str, ...], attention_units: set) -> str:
+    """A T2T stem param's port key; `attention_units` holds the units with
+    a `qkv` layer (the transformer units, whose qkv and proj sit under
+    `attn`)."""
+    unit, rest = path[1], path[2:]
+    if unit in _STEM_CONVS:
+        return f"tokens_to_token.{_STEM_CONVS[unit]}.{_leaf(rest[-1])}"
+    if unit == "project":
+        return f"tokens_to_token.project.{_leaf(rest[-1])}"
+    name = rest[0]
+    if name == "prm_w":
+        return f"tokens_to_token.{unit}.w"
+    if name in ("qkv", "proj") and unit in attention_units:
+        name = f"attn.{name}"
+    name = _PERFORMER_MLP.get(name, name)
+    return ".".join(("tokens_to_token", unit, name) + rest[1:-1] + (_leaf(rest[-1]),))
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
-    """Map JAX `DiffPruningStudent`, `DynamicViTStudent` or `ViTTeacher`
-    params (nested dicts of arrays; a full variables dict with a 'params'
-    entry is accepted) onto the port's
+    """Map JAX `DiffPruningStudent` (with the DeiT or the T2T stem),
+    `DynamicViTStudent`, `ViTTeacher` or `T2TViT` params (nested dicts of
+    arrays; a full variables dict with a 'params' entry is accepted) onto
+    the port's
     state_dict keys. Returns numpy arrays: load them with
     `model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})`.
     """
@@ -75,11 +114,16 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         if path[0].startswith("score_predictor_") and path[1].startswith("out_"):
             n_out[path[0]] = max(n_out.get(path[0], 0), int(path[1][4:]) + 1)
 
+    attention_units = {path[1] for path in flat
+                       if path[0] in ("stem", "tokens_to_token") and path[2:3] == ("qkv",)}
+
     out: Dict[str, np.ndarray] = {}
     for path, v in flat.items():
         head = path[0]
         if head in ("cls_token", "pos_embed"):
             key = head
+        elif head in ("stem", "tokens_to_token"):
+            key = _stem_key(path, attention_units)
         elif head.startswith("blocks_"):
             key = ".".join(("blocks", head[len("blocks_"):]) + path[1:-1] + (_leaf(path[-1]),))
         elif head.startswith("score_predictor_"):

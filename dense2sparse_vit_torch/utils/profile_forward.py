@@ -1,13 +1,14 @@
 """Where the device time of the headline student's forward goes, by kernel.
 
     python -m dense2sparse_vit_torch.utils.profile_forward [--batch 256] [--plain]
-        [--mode topk|threshold|attn|gumbel] [--quant int8]
+        [--mode topk|threshold|attn|gumbel|t2t] [--quant int8]
 
 Runs `--iters` forwards of `dynamic_vit_small_patch16_224_student` (bf16,
 keep 0.7/0.49/0.343 at blocks 3/6/9, small predictor, random weights; with
 `--mode threshold` the same student in threshold mode, with `--mode attn`
 ranking by its own CLS rows, with `--mode gumbel` the gumbel baseline's eval
-forward at the same ratios; the pruning student without capturing its CLS
+forward at the same ratios, with `--mode t2t` the pruned T2T-ViT-14
+(`T2T_MODEL`, the same stages); the pruning student without capturing its CLS
 rows where its mode does not rank by them; with `--quant int8`
 the W8A8 blocks wherever the model quantizes, see `nn.layers.Block`) under
 `torch.profiler` on the first CUDA device and prints one JSON line per
@@ -28,8 +29,8 @@ import time
 import torch
 
 from dense2sparse_vit_torch.models import (
-    ATTN_KWARGS, GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL, THRESHOLD_KWARGS,
-    create_model)
+    ATTN_KWARGS, GUMBEL_KWARGS, GUMBEL_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL, T2T_KWARGS,
+    T2T_MODEL, THRESHOLD_KWARGS, create_model)
 from dense2sparse_vit_torch.utils import card_name_and_power_limit
 
 MODES = {
@@ -37,6 +38,7 @@ MODES = {
     "threshold": (HEADLINE_MODEL, THRESHOLD_KWARGS),
     "attn": (HEADLINE_MODEL, ATTN_KWARGS),
     "gumbel": (GUMBEL_MODEL, GUMBEL_KWARGS),
+    "t2t": (T2T_MODEL, {k: v for k, v in T2T_KWARGS.items() if k != "use_fused_attention"}),
 }
 
 

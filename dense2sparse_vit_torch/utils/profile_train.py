@@ -1,7 +1,7 @@
 """Where the device time of the headline student's train step goes, by kernel.
 
     python -m dense2sparse_vit_torch.utils.profile_train [--batch 128] [--plain]
-        [--mode topk|threshold|attn|gumbel]
+        [--mode topk|threshold|attn|gumbel|t2t]
 
 Builds `dynamic_vit_small_patch16_224_student` (bf16, keep 0.7/0.49/0.343 at
 blocks 3/6/9, small predictor; `--mode threshold`: in threshold mode;
@@ -9,7 +9,9 @@ blocks 3/6/9, small predictor; `--mode threshold`: in threshold mode;
 its teacher with random weights, AdamW past the warmup and
 `make_train_step` (`--mode gumbel`: the gumbel baseline at the same ratios
 with `make_dynamic_vit_train_step` and its ratio and token-distillation
-losses), runs `--iters` steps at epoch 6 under
+losses; `--mode t2t`: the pruned T2T-ViT-14 at drop path 0.1 with the
+teacher the JAX loop pairs with it, a `ViTTeacher` of its ModelConfig),
+runs `--iters` steps at epoch 6 under
 `torch.profiler` on the first CUDA device, and prints one JSON line per
 device kernel (calls and ms per step, share of the device time), then a
 summary line with the wall time per step, the device's busy share and the
@@ -25,13 +27,14 @@ import json
 import torch
 
 from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
-from dense2sparse_vit_torch.models import HEADLINE_TEACHER, create_model
+from dense2sparse_vit_torch.models import HEADLINE_TEACHER, ViTTeacher, create_model
 from dense2sparse_vit_torch.train import (
     make_dynamic_vit_train_step, make_optimizer, make_train_step)
 from dense2sparse_vit_torch.utils.profile_forward import MODES, profile_device
 
 EPOCH = 6
 STEPS_PER_EPOCH = 10
+T2T_DROP_PATH = 0.1
 
 
 def main(argv=None) -> None:
@@ -46,9 +49,14 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     fused = not args.plain
     name, kwargs = MODES[args.mode]
-    student = create_model(name, use_fused_attention=fused, device=dev, **kwargs)
-    teacher = create_model(HEADLINE_TEACHER, use_fused_attention=fused, device=dev,
-                           dtype="bfloat16")
+    if args.mode == "t2t":
+        student = create_model(name, use_fused_attention=fused, device=dev,
+                               drop_path_rate=T2T_DROP_PATH, **kwargs)
+        teacher = ViTTeacher(student.cfg).init_weights(torch.Generator().manual_seed(1)).to(dev)
+    else:
+        student = create_model(name, use_fused_attention=fused, device=dev, **kwargs)
+        teacher = create_model(HEADLINE_TEACHER, use_fused_attention=fused, device=dev,
+                               dtype="bfloat16")
     gumbel = args.mode == "gumbel"
     train = TrainConfig(use_ratio_loss=gumbel, use_token_dist_loss=gumbel)
     cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=train)

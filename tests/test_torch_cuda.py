@@ -593,3 +593,115 @@ def test_attn_student_train_step_launches(cuda):
         "fused_mlp_residual_backward": 12, "fused_gather_tokens": 3, "fused_scatter_tokens": 3,
     }
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+# ---- DropPath branch scales: the T2T-ViT-14 block (C 384, hidden 1152, no
+# qkv bias) with per-sample scales in {0, 1/keep} ------------------------------
+
+KEEP = 0.7
+SA = [0.0, 1 / KEEP, 1 / KEEP, 0.0]
+SM = [1 / KEEP, 0.0, 1 / KEEP, 0.0]
+
+
+def _t2t_block_case(cuda, n, policy):
+    blk = _sharpen(Block(384, 6, mlp_ratio=3.0, qkv_bias=False, layer_norm_eps=1e-5,
+                         use_fused=True), seed=n).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    pol = None
+    if policy:
+        pol = (torch.rand((4, n), generator=gen, device=cuda) < 0.6).float()
+        pol[:, 0] = 1.0
+    scales = (torch.tensor(SA, device=cuda), torch.tensor(SM, device=cuda))
+    return blk, x, g, pol, scales
+
+
+@pytest.mark.parametrize("policy", [False, True])
+@pytest.mark.parametrize("n", [197, 138, 97, 68, 13])
+def test_scaled_block_kernels_both_ways(cuda, n, policy):
+    blk, x, g, pol, scales = _t2t_block_case(cuda, n, policy)
+    kw = dict(scale=blk.attn.scale, ln_eps=1e-5)
+    with torch.no_grad():
+        w = blk.kernel_weights(torch.bfloat16)
+        ops.reset_launch_counts()
+        got = ops.fused_transformer_block(x, w, 6, pol, branch_scales=scales, **kw)
+        dx, dw, dpol = ops.fused_transformer_block_backward(x, g, w, 6, pol,
+                                                            branch_scales=scales, **kw)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[scaled]": 1,
+                                       "fused_transformer_block_backward[scaled]": 1}
+        want = transformer_block_reference(x, w, 6, blk.attn.scale, 1e-5, policy=pol,
+                                           branch_scales=scales)
+        want_dx, want_dw, want_dpol = transformer_block_backward_reference(
+            x, g, w, 6, blk.attn.scale, 1e-5, policy=pol, branch_scales=scales)
+    _assert_close(got, want)
+    _assert_close(dx, want_dx, BWD_TOL)
+    for k in BLOCK_WEIGHT_KEYS:
+        if w[k] is not None:
+            _assert_close(dw[k], want_dw[k], BWD_TOL)
+    if policy:
+        _assert_close(dpol, want_dpol, BWD_TOL)
+    # sample 3 drops both branches: the block passes its input through
+    assert torch.equal(got[3], x[3])
+
+
+@pytest.mark.parametrize("policy", [False, True])
+def test_scales_of_one_are_the_unscaled_kernels_bit_for_bit(cuda, policy):
+    """Scales of one multiply exactly, so the scaled kernels reproduce the
+    unscaled ones (null scales: no multiply) bit for bit, both ways."""
+    blk, x, g, pol, _ = _t2t_block_case(cuda, 197, policy)
+    ones = (torch.ones(4, device=cuda),) * 2
+    kw = dict(scale=blk.attn.scale, ln_eps=1e-5)
+    with torch.no_grad():
+        w = blk.kernel_weights(torch.bfloat16)
+        assert torch.equal(ops.fused_transformer_block(x, w, 6, pol, **kw),
+                           ops.fused_transformer_block(x, w, 6, pol, branch_scales=ones, **kw))
+        a = ops.fused_transformer_block_backward(x, g, w, 6, pol, **kw)
+        b = ops.fused_transformer_block_backward(x, g, w, 6, pol, branch_scales=ones, **kw)
+        torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and (a[2] is None or torch.equal(a[2], b[2]))
+    assert all(a[1][k] is None or torch.equal(a[1][k], b[1][k]) for k in BLOCK_WEIGHT_KEYS)
+
+
+def test_drop_path_block_trains_through_the_scaled_kernels(cuda):
+    """A fused training Block at drop path 0.4 takes the scaled kernels each
+    way and gives the plain Block's gradients from the same generator seed."""
+    blk = _sharpen(Block(384, 6, mlp_ratio=3.0, qkv_bias=False, drop_path=0.4,
+                         use_fused=True), seed=4).to(cuda).train()
+    ref = Block(384, 6, mlp_ratio=3.0, qkv_bias=False, drop_path=0.4).to(cuda).train()
+    ref.load_state_dict(blk.state_dict())
+    x = torch.randn((8, 97, 384), device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    blk(x, generator=torch.Generator(device=cuda).manual_seed(1)).float().square().sum().backward()
+    ref(x, generator=torch.Generator(device=cuda).manual_seed(1)).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[scaled]": 1,
+                                   "fused_transformer_block_backward[scaled]": 1}
+    for p, q in zip(blk.parameters(), ref.parameters()):
+        _assert_close(p.grad, q.grad, BWD_TOL)
+
+
+def test_t2t_student_train_step_launches(cuda):
+    """One train step of the pruned T2T-ViT-14 at drop path 0.1 with its
+    teacher: 14 CLS-row teacher blocks; the student's block 0 plain and
+    blocks 1-13 scaled, each way; 3 gathers and 3 scatters."""
+    from dense2sparse_vit_torch.models import T2T_KWARGS, T2T_MODEL, ViTTeacher
+
+    student = create_model(T2T_MODEL, device=cuda, drop_path_rate=0.1, **T2T_KWARGS)
+    teacher = ViTTeacher(student.cfg).init_weights(torch.Generator().manual_seed(2)).to(cuda)
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=TrainConfig())
+    opt = make_optimizer(student, cfg.train, steps_per_epoch=10)
+    opt.count = cfg.train.warmup_epochs * 10
+    step = make_train_step(student, teacher, opt, cfg)
+    x = torch.randn((2, 224, 224, 3), device=cuda)
+    ops.reset_launch_counts()
+    metrics = step(x, torch.tensor([3, 7], device=cuda), epoch=cfg.train.warmup_epochs + 1)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        **NO_LAUNCHES, "fused_transformer_block_cls": 14, "fused_transformer_block": 1,
+        "fused_transformer_block[scaled]": 13, "fused_transformer_block_backward": 1,
+        "fused_transformer_block_backward[scaled]": 13, "fused_gather_tokens": 3,
+        "fused_scatter_tokens": 3,
+    }
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

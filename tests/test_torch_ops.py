@@ -173,9 +173,14 @@ class TestBlock:
         assert blk.attn.qkv.weight.grad is not None
 
     def test_fused_block_with_drop_path_refuses_to_train(self):
+        """Without a generator to draw its DropPath scales from, a training
+        block with drop_path > 0 refuses; with one it trains, and eval mode
+        needs none."""
         blk = Block(self.C, self.H, drop_path=0.1, use_fused=True).train()
-        with pytest.raises(NotImplementedError, match="DropPath"):
+        with pytest.raises(ValueError, match="Generator"):
             blk(torch.zeros((self.B, self.N, self.C)))
+        out = blk(torch.zeros((self.B, self.N, self.C)), generator=torch.Generator())
+        assert out.shape == (self.B, self.N, self.C)
         assert blk.eval()(torch.zeros((self.B, self.N, self.C))).shape == (
             self.B, self.N, self.C)
 
@@ -225,7 +230,8 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.ops.masked_softmax, dense2sparse_vit_torch.losses.distill, "
         "dense2sparse_vit_torch.models.dynamic_vit_default, dense2sparse_vit_torch.ops.quant, "
         "dense2sparse_vit_torch.utils.export, dense2sparse_vit_torch.utils.serving, "
-        "dense2sparse_vit_torch.ops.attention, dense2sparse_vit_torch.ops.mlp\n"
+        "dense2sparse_vit_torch.ops.attention, dense2sparse_vit_torch.ops.mlp, "
+        "dense2sparse_vit_torch.nn.t2t, dense2sparse_vit_torch.models.t2t\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"

@@ -403,3 +403,48 @@ def test_check_attn_policy_passes_the_plain_versions(capsys, eps):
     line = _last_line(capsys)
     assert line["eps"] == eps and "dpolicy" in line["rel_err"]
     assert all(v == 0.0 for v in line["rel_err"].values())
+
+
+# ---- the DropPath branch scales' check ------------------------------------
+
+
+def _droppath_case():
+    """A two-block stand-in for a T2T step's capture: block 0 without
+    DropPath, block 1 with it, each at the init's weight scale, and its
+    input, weights and the step's last cotangent."""
+    x, w, _ = _block_input()
+    blocks = [Block(C, H, use_fused=True), Block(C, H, drop_path=0.1, use_fused=True)]
+    student = torch.nn.Module()
+    student.blocks = torch.nn.ModuleList(blocks)
+    rec = {"block_in": {0: x, 1: x}, "weights": {0: w, 1: w}, "last_g": _cotangent(x)}
+    return student, rec
+
+
+def test_check_droppath_passes_the_plain_versions(capsys):
+    student, rec = _droppath_case()
+    chip_smoke.check_droppath(torch, torch.device("cpu"), student, rec)
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
+    # block 1 alone, plain and policy mode, each way
+    assert [ln["kernel"] for ln in lines] == [
+        "fused_transformer_block[scaled]", "fused_transformer_block_backward[scaled]"] * 2
+    assert all(ln["block"] == 1 for ln in lines) and "eps" in lines[2]
+    assert all(v <= lines[0]["tol_rel"][k] for k, v in lines[0]["rel_err"].items())
+
+
+def test_check_droppath_rejects_kernels_that_ignore_the_scales(monkeypatch, capsys):
+    """The fault chip_smoke.py --plant-fault droppath puts into the residual
+    GEMM's epilogue: the branches unscaled. Zero scales leave whole branches
+    out, which the residual stage sees."""
+    for name in ("fused_transformer_block", "fused_transformer_block_backward"):
+        real = getattr(ops, name)
+
+        def unscaled(*args, branch_scales=None, _real=real, **kwargs):
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(ops, name, unscaled)
+    student, rec = _droppath_case()
+    with pytest.raises(AssertionError, match="mid"):
+        chip_smoke.check_droppath(torch, torch.device("cpu"), student, rec)
+    line = _last_line(capsys)
+    assert line["kernel"] == "fused_transformer_block[scaled]"
+    assert line["rel_err"]["mid"] > 2 * chip_smoke.BRANCH_TOL
