@@ -10,6 +10,9 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault policy   # the dPolicy check, the same
     python3 chip_smoke.py --plant-fault int8     # the int8 block check, the same
     python3 chip_smoke.py --plant-fault cls      # the CLS fold's check, the same
+    python3 chip_smoke.py --plant-fault droppath    # the branch scales' check
+    python3 chip_smoke.py --plant-fault attn_block  # the half-block backward's
+    python3 chip_smoke.py --plant-fault variant     # the variants' check against v0
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -93,7 +96,31 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  scaled_dot_product_attention), and the whole attn train step
                  with kernels against without;
  20. serve_attn  a B=8 eval forward of the attn student: 12 CLS-row blocks and
-                 3 gathers, 12 CLS-row widths, logits against the plain model.
+                 3 gathers, 12 CLS-row widths, logits against the plain model;
+ 21-24. serve_t2t, train_t2t, check_droppath, time_droppath  the pruned
+                 T2T-ViT-14 served at B=8 and 128 and trained at B=128 with
+                 drop path 0.1, the DropPath branch-scale kernels held against
+                 their plain versions at every scaled block, and timed;
+ 25. attn_block  the attention half-block x + proj(MHA(qkv(LN1 x))) on the
+                 headline student's own block inputs and weights at N=197,
+                 138, 97, 68: the forward (plain; policy at eps 1e-6 and 0.1
+                 on a threshold student's keep mask; the CLS rows) stage by
+                 stage (`check_attn_half`) and the backward (plain; policy
+                 with dPolicy) against their plain versions at B=128
+                 (`check_attn_half_backward`), the forward again at B=256;
+                 the trainable half-block through autograd (its launches
+                 checked); each plain version timed (forward B=256, backward
+                 B=128), and the packed attention's policy mode beside its
+                 plain version;
+ 26. kernel_sweep  `scripts.kernel_sweep.main` at its defaults, its rows as
+                 JSON lines (a main-path run of the half-block's kernels:
+                 its rows' launches, and per launch their times, go into
+                 the kernels line);
+ 27. attn_variants  `scripts.attn_variants.main` at B=256, C=384, 6 heads,
+                 N=197/138/97/68, v0-v3 (the other main-path run, counted
+                 the same way): every variant within the forward check's
+                 tolerance of v0, then against its plain version
+                 (`check_variant`), timed.
 The pruning student runs its serving, timing and export phases without
 capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
 callers do.
@@ -110,7 +137,12 @@ leaves out), on a gumbel train step's policy blocks; --plant-fault int8
 with an int8 block whose fc2 takes fc1's column scales, on phase 13's walk
 at B=64; --plant-fault cls with a packed attention backward that leaves
 sum_j gcls_j P_0j out of D_0, on phase 18's checks at the blocks whose CLS
-rows rank a stage.
+rows rank a stage; --plant-fault droppath with a residual epilogue that
+ignores the branch scales, on phase 23's checks; --plant-fault attn_block
+with a half-block backward whose dx leaves out the residual cotangent g on
+row 0 of each sample, on phase 25's backward checks; --plant-fault variant
+with a v2 that recovers head b's scores as (S+ + S-) / 2, on phase 27's
+comparison with v0.
 """
 
 from __future__ import annotations
@@ -169,7 +201,8 @@ KERNEL_NAMES = (
     "fused_gather_tokens", "fused_scatter_tokens", "fused_transformer_block_int8",
     "fused_attention_packed", "fused_attention_backward_packed", "fused_mlp_residual",
     "fused_mlp_residual_backward", "fused_transformer_block[scaled]",
-    "fused_transformer_block_backward[scaled]",
+    "fused_transformer_block_backward[scaled]", "attention_block_forward",
+    "attention_block_backward", "attention_block_backward_policy", "attention_variant",
 )
 NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
@@ -268,6 +301,18 @@ SOURCES = {
     "fused_transformer_block_backward[scaled]": (
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
         "dense2sparse_vit_tpu/ops/pallas/block.py:408"),
+    "attention_block_forward": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/attention.py:1014"),
+    "attention_block_backward": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/attention.py:1354"),
+    "attention_block_backward_policy": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/attention.py:1655"),
+    "attention_variant": (
+        "dense2sparse_vit_torch/csrc/attn_variants.cu",
+        "scripts/attn_variants.py:171"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -277,7 +322,10 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # rowsum(dO * O) dropped, (policy) dPolicy's diagonal kept, or (cls) the CLS
 # fold's sum_j gcls_j P_0j left out of D_0; (quant_block.cu) fc2 dequantized
 # with fc1's column scales; (ln_gemm.cuh) the DropPath branch scales ignored
-# in the residual epilogue; and the stage whose check must reject it
+# in the residual epilogue; (block_bwd.cu, attn_block) the attention
+# half-block's dx without the residual cotangent g on row 0 of each sample;
+# (attn_variants.cu) v2 recovering head b's scores as (S+ + S-) / 2, head a's;
+# and the stage whose check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
@@ -286,6 +334,14 @@ FAULTS = {
     "cls": ("block_bwd.cu", "        Ds[0] += s0;\n", "        Ds[0] += 0.f * s0;\n", "gcls_only"),
     "droppath": ("ln_gemm.cuh", "for (int j = 0; j < 8; ++j) v[j] *= sc;",
                  "for (int j = 0; j < 8; ++j) v[j] *= 1.f + 0.f * sc;", "mid"),
+    "attn_block": ("block_bwd.cu", "  const bf16* res = gb;  // dx's residual term, g itself\n",
+                   "  const bf16* res = s.dattn;\n"
+                   "  cudaMemcpyAsync(s.dattn, gb, (size_t)M * C * sizeof(bf16),\n"
+                   "                  cudaMemcpyDeviceToDevice, st);\n"
+                   "  cudaMemset2DAsync(s.dattn, (size_t)N * C * sizeof(bf16), 0,\n"
+                   "                    (size_t)C * sizeof(bf16), B, st);\n", "'dx'"),
+    "variant": ("attn_variants.cu", "sd[j][e] = 0.5f * (sum - dif);  // head b's",
+                "sd[j][e] = 0.5f * (sum + dif);  // head b's", "v2 "),
 }
 
 
@@ -327,6 +383,18 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         raise AssertionError("non-finite values")
     return (got - want).abs().max().item(), want.abs().max().item()
+
+
+def branch_excess(got, res, a, wt, b, s=None) -> float:
+    """A residual stage got = res + s (a wt^T + b), the branch in fp32: the
+    error beyond the one bf16 rounding of the sum, relative to the branch's
+    largest magnitude."""
+    branch = a.float() @ wt.float().t() + b
+    if s is not None:
+        branch = s.float()[:, None, None] * branch
+    z = res.float() + branch
+    excess = ((got.float() - z).abs() - BF16_U * z.abs()).clamp(min=0)
+    return excess.max().item() / max(branch.abs().max().item(), 1e-30)
 
 
 # ---- the least time the card could take: max(operations, bytes) ----------
@@ -503,14 +571,8 @@ def check_block(torch, x, w, num_heads, scale, ln_eps, block=None, policy=None, 
         rel[name] = (err / max(ref, 1e-30), STAGE_TOL)
     residual = {"mid": (st["mid"], x, st["attn"], w["wproj"], w["bproj"], sa),
                 "out": (y, st["mid"], st["hid"], w["w2"], w["b2"], sm)}
-    for name, (got, res, a, wt, b, s) in residual.items():
-        branch = a.float() @ wt.float().t() + b
-        if s is not None:
-            branch = s.float()[:, None, None] * branch
-        z = res.float() + branch
-        excess = ((got.float() - z).abs() - BF16_U * z.abs()).clamp(min=0)
-        rel[name] = (excess.max().item() / max(branch.abs().max().item(), 1e-30),
-                     BRANCH_TOL)
+    for name, args in residual.items():
+        rel[name] = (branch_excess(*args), BRANCH_TOL)
     err, ref = rel_err(torch, y, transformer_block_reference(
         x, w, num_heads, scale, ln_eps, branch_scales=branch_scales, **pol))
     rel["block"] = (err / ref, BLOCK_TOL)
@@ -566,10 +628,24 @@ def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None, p
     pol = {} if policy is None else {"policy": policy, "eps": eps}
     dx, dw, dpol = ops.fused_transformer_block_backward(
         x, g, w, num_heads, scale=scale, ln_eps=ln_eps, branch_scales=branch_scales, **pol)
-    want_dx, want_dw, want_dpol = transformer_block_backward_reference(
-        x, g, w, num_heads, scale, ln_eps, branch_scales=branch_scales, **pol)
+    want = transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps,
+                                                branch_scales=branch_scales, **pol)
+    head = {"phase": phase,
+            "kernel": block_kernel_name("fused_transformer_block_backward", pol, branch_scales),
+            "block": block, **({"eps": eps} if pol else {}), "shape": list(x.shape)}
+    return hold_gradients(torch, head, (dx, dw, dpol), want, "block backward")
+
+
+def hold_gradients(torch, head, got, want, what):
+    """The check of a backward kernel's (dx, {name: gradient}, dPolicy or
+    None) against its plain version's: dx and each gradient, and the thirds
+    of the qkv weight's (q, k, v) and bias's (q, v) apart, within BWD_TOL of
+    that tensor's largest magnitude; dPolicy within DPOL_TOL. Prints `head`
+    with the relative errors, raises naming every tensor out of tolerance
+    (after `what`), and returns the largest absolute error."""
+    (dx, dw, dpol), (want_dx, want_dw, want_dpol) = got, want
     pairs = {"dx": (dx, want_dx)}
-    if pol:
+    if want_dpol is not None:
         pairs["dpolicy"] = (dpol, want_dpol)
     for k in dw:
         if dw[k] is None:
@@ -580,22 +656,20 @@ def check_block_backward(torch, x, g, w, num_heads, scale, ln_eps, block=None, p
             # a fault in the scores' gradient (dQ, dK) would hide under it.
             # Not the key bias's: it is zero in exact arithmetic (softmax
             # ignores a shift of a row's scores), rounding noise on both sides
-            for part, got, want in zip("qkv", dw[k].chunk(3), want_dw[k].chunk(3)):
+            for part, a, b in zip("qkv", dw[k].chunk(3), want_dw[k].chunk(3)):
                 if k + part != "bqkvk":
-                    pairs[f"{k}.{part}"] = (got, want)
+                    pairs[f"{k}.{part}"] = (a, b)
     rel, worst = {}, 0.0
-    for name, (got, want) in pairs.items():
-        err, ref = rel_err(torch, got, want)
+    for name, (a, b) in pairs.items():
+        err, ref = rel_err(torch, a, b)
         rel[name] = err / max(ref, 1e-30)
         worst = max(worst, err)
     tol = {k: DPOL_TOL if k == "dpolicy" else BWD_TOL for k in rel}
-    emit({"phase": phase,
-          "kernel": block_kernel_name("fused_transformer_block_backward", pol, branch_scales),
-          "block": block, **({"eps": eps} if pol else {}), "shape": list(x.shape),
-          "rel_err": rel, "tol_rel": BWD_TOL, **({"dpolicy_tol_rel": DPOL_TOL} if pol else {})})
+    emit({**head, "rel_err": rel, "tol_rel": BWD_TOL,
+          **({"dpolicy_tol_rel": DPOL_TOL} if want_dpol is not None else {})})
     bad = {k: r for k, r in rel.items() if not r <= tol[k]}
     if bad:
-        raise AssertionError(f"block backward out of tolerance: {bad}")
+        raise AssertionError(f"{what} out of tolerance: {bad}")
     return worst
 
 
@@ -754,6 +828,15 @@ def plant_fault(dev, kind: str) -> int:
             images, labels = train_batch(torch, dev)
             rec = capture_train_step(torch, student, teacher, step, images, labels)
             check_droppath(torch, dev, student, rec)
+        elif kind == "attn_block":
+            inputs, _, (H, scale, ln_eps) = capture_half_blocks(torch, dev)
+            with torch.no_grad():
+                for n, (i, x256, w6) in inputs.items():
+                    x = x256[:B_TRAIN].contiguous()
+                    check_attn_half_backward(torch, x, half_block_grad(torch, x, dev, 41 + i),
+                                             w6, H, scale, ln_eps, block=i)
+        elif kind == "variant":
+            phase_attn_variants(torch, dev, None, None)
         elif kind == "cls":
             student, teacher, step = build_trainer(torch, dev, fused=True, mode="attn")
             images, labels = train_batch(torch, dev)
@@ -2441,6 +2524,419 @@ def phase_time_droppath(torch, dev, student, rec, serve, tally, smi):
           "stem_share": stem_ms / f_ms, "card": smi})
 
 
+# ---- the attention half-block and the kernel-timing entry points ----------
+
+# the trainable half-block's forward and backward, in plain and in policy mode
+PER_ATTN_BLOCK_TRAINABLE = {**NO_LAUNCHES, "attention_block_forward": 2,
+                            "attention_block_backward": 1, "attention_block_backward_policy": 1}
+HALF_BLOCK_KEYS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj")
+# this slice's kernels and the main path that runs them: the launches of the
+# kernel_sweep and attn_variants runs (phases 26, 27), each row's time per call
+# times its launches; the sweep's launches of earlier slices' kernels are not
+# their main paths', and the trainable half-block of phase 25 is a check
+SLICE_KERNELS = ("attention_block_forward", "attention_block_backward",
+                 "attention_block_backward_policy", "attention_variant")
+SWEEP_KERNELS = {"attn_half_fwd": "attention_block_forward",
+                 "attn_half_bwd": "attention_block_backward",
+                 "attn_half_bwd[policy]": "attention_block_backward_policy"}
+# kernel_sweep's rows at its defaults: six kernels at four widths
+SWEEP_ROWS = 24
+
+
+def half_block_bound(B, N, C, H, cls=False, policy=False) -> dict:
+    """The half-block forward: qkv and proj (8 B N C^2), QK^T and PV
+    (4 B N^2 C); x read, out (and the CLS rows) written, the two matrices,
+    LayerNorm and biases read once (and the policy)."""
+    M = B * N
+    nbytes = 2 * M * C * 2 + 2 * 4 * C * C + 4 * 6 * C
+    nbytes += (B * H * N * 2 if cls else 0) + (policy_bytes(B, N) if policy else 0)
+    return bound(8 * M * C * C + 4 * B * N * N * C, nbytes)
+
+
+def half_block_backward_bound(B, N, C, H, policy=False) -> dict:
+    """dx and the six gradients from x and g alone: qkv, QK^T and PV
+    recomputed, then proj's and qkv's dX and dW and the core's dV, dP, dQ,
+    dK; x and g read, dx written, the weights read, the fp32 gradients
+    written (and the policy read, dPolicy written)."""
+    M = B * N
+    flops = 2 * M * 3 * C * C + 4 * B * N * N * C + 4 * M * 4 * C * C + 8 * B * N * N * C
+    nbytes = 3 * M * C * 2 + 2 * 4 * C * C + 4 * 5 * C + 4 * (4 * C * C + 6 * C)
+    return bound(flops, nbytes + (2 * policy_bytes(B, N) if policy else 0))
+
+
+def check_attn_half(torch, x, w6, num_heads, scale, ln_eps, block=None, policy=None, eps=1e-6,
+                    cls=False, phase="attn_block"):
+    """Hold the half-block forward kernel against its plain version, stage
+    by stage as `check_block` does the block's: the LN1-qkv projection and
+    the attention core (fed the kernel's qkv) within STAGE_TOL; out =
+    x + proj(attn) beyond the one bf16 rounding of the sum, relative to the
+    branch, within BRANCH_TOL; the whole output against the plain half-block
+    within BLOCK_TOL; with `cls`, the CLS rows within STAGE_TOL and their
+    sums within ROWSUM_TOL. Prints, raises if a stage is out of tolerance,
+    and returns the largest absolute error."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import attention_block_reference
+    from dense2sparse_vit_torch.ops.block import attention_reference, layer_norm, linear
+
+    ln_w, ln_b, wqkv, bqkv, wproj, bproj = w6
+    pol = {} if policy is None else {"policy": policy, "eps": eps}
+    res = ops.fused_attention_block(x, *w6, num_heads, scale=scale, ln_eps=ln_eps,
+                                    return_cls=cls, stages=True, **pol)
+    y, st = res[0], res[-1]
+    core = attention_reference(st["qkv"], num_heads, scale, return_cls=cls, **pol)
+    plain = {"qkv": linear(layer_norm(x, ln_w, ln_b, ln_eps), wqkv, bqkv),
+             "attn": core[0] if cls else core}
+    if cls:
+        plain["cls"] = core[1]
+        st = dict(st, cls=res[1])
+    rel = {}
+    for name, want in plain.items():
+        err, ref = rel_err(torch, st[name], want)
+        rel[name] = (err / max(ref, 1e-30), STAGE_TOL)
+    if cls:
+        rel["cls_rowsum"] = ((res[1].float().sum(-1) - 1).abs().max().item(), ROWSUM_TOL)
+    rel["out"] = (branch_excess(y, x, st["attn"], wproj, bproj), BRANCH_TOL)
+    err, ref = rel_err(torch, y, attention_block_reference(x, *w6, num_heads, scale=scale,
+                                                           ln_eps=ln_eps, **pol))
+    rel["block"] = (err / ref, BLOCK_TOL)
+    emit({"phase": phase, "kernel": "attention_block_forward" + ("[policy]" if pol else ""),
+          "block": block, **({"eps": eps} if pol else {}), "cls": cls, "shape": list(x.shape),
+          "max_abs_err": err, "rel_err": {k: r for k, (r, _) in rel.items()},
+          "tol_rel": {k: t for k, (_, t) in rel.items()}})
+    bad = {k: r for k, (r, t) in rel.items() if not r <= t}
+    if bad:
+        raise AssertionError(f"block {block}: half-block forward out of tolerance: {bad}")
+    return err
+
+
+def check_attn_half_backward(torch, x, g, w6, num_heads, scale, ln_eps, block=None, policy=None,
+                             eps=1e-6, phase="attn_block"):
+    """Hold the half-block's backward kernel against autograd through its
+    plain version on the same x, g and weights (in policy mode with dPolicy),
+    as `hold_gradients` holds the block's."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import (
+        ATTN_BLOCK_KEYS, attention_block_backward_reference)
+
+    kw = dict(scale=scale, ln_eps=ln_eps)
+    if policy is None:
+        dx, *grads = ops.fused_attention_block_backward(x, g, *w6[:5], num_heads, **kw)
+        dpol = None
+    else:
+        dx, dpol, *grads = ops.fused_attention_block_backward_policy(
+            x, g, policy, *w6[:5], num_heads, eps=eps, **kw)
+    want = attention_block_backward_reference(x, g, *w6[:5], num_heads, policy=policy, eps=eps,
+                                              **kw)
+    head = {"phase": phase,
+            "kernel": "attention_block_backward" + ("" if policy is None else "_policy"),
+            "block": block, **({} if policy is None else {"eps": eps}), "shape": list(x.shape)}
+    return hold_gradients(torch, head, (dx, dict(zip(ATTN_BLOCK_KEYS, grads)), dpol), want,
+                          f"block {block}: half-block backward")
+
+
+def capture_half_blocks(torch, dev):
+    """The headline student's block inputs at B=256 (its first block at each
+    width, N = 197, 138, 97, 68) from one eval forward, with those blocks'
+    half-block weights, and a threshold student's first keep mask over the
+    197 tokens (CLS kept) from the same images: ({N: (block, x, w6)},
+    keep policy (256, 197), (heads, scale, ln_eps))."""
+    from dense2sparse_vit_torch.models import (
+        HEADLINE_KWARGS, HEADLINE_MODEL, THRESHOLD_KWARGS, create_model)
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    images = torch.randn((B_CHECK, 224, 224, 3), generator=gen, device=dev, dtype=torch.bfloat16)
+    model = create_model(HEADLINE_MODEL, use_fused_attention=True, device=dev,
+                         generator=torch.Generator().manual_seed(0), **HEADLINE_KWARGS).eval()
+    seen = {}
+
+    def first_at_its_width(i, x):  # returns None: the block's input stays as it is
+        seen.setdefault(x.shape[1], (i, x.detach()))
+
+    handles = [blk.register_forward_pre_hook(lambda m, args, i=i: first_at_its_width(i, args[0]))
+               for i, blk in enumerate(model.blocks)]
+    # no_grad, not inference_mode: the backward's plain version runs autograd
+    with torch.no_grad():
+        model(images, collect_cls_attns=False)
+        inputs = {}
+        for n, (i, x) in seen.items():
+            w = model.blocks[i].kernel_weights(torch.bfloat16)
+            inputs[n] = (i, x, [None if w[k] is None else w[k].detach().clone()
+                                for k in HALF_BLOCK_KEYS])
+    for h in handles:
+        h.remove()
+    blk = model.blocks[0]
+    args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+    del model
+    model = create_model(HEADLINE_MODEL, use_fused_attention=True, device=dev,
+                         generator=torch.Generator().manual_seed(0), **THRESHOLD_KWARGS).eval()
+    with torch.no_grad():
+        mask = model(images, collect_cls_attns=False).keep_masks[0]
+    keep = torch.cat([mask.new_ones(B_CHECK, 1), mask], dim=1).float()
+    return inputs, keep, args
+
+
+def half_block_grad(torch, x, dev, seed):
+    """A seeded cotangent for a half-block's output: N(0, 0.01^2) in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(x.shape, generator=gen, device=dev) * 0.01).to(x.dtype)
+
+
+def phase_attn_block(torch, dev, tally, smi):
+    """Phase 25: the attention half-block on the headline student's own
+    weights and block inputs at N = 197, 138, 97, 68: the forward (plain;
+    policy at eps 1e-6 and 0.1 on a threshold student's keep mask, cut to
+    the width; the CLS rows) and the backward (plain; policy with dPolicy at
+    both eps) held against their plain versions at B=128; the trainable
+    half-block forward and backward through autograd at N=197, its launches
+    counted and its dx and dPolicy against the plain version; each kernel
+    timed against its plain version (the forward at B=256, the backward at
+    B=128), and the packed attention's policy mode beside its plain version
+    at B=128 (a threshold keep mask; no torch call computes the eps/N
+    policy softmax). The forward is also held at B=256, the batch the
+    timing scripts run it at. Returns {(kernel, N): (plain ms, bound)} for
+    the half-block's three kernels at the scripts' batches."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import (
+        attention_backward_reference, attention_block_backward_reference,
+        attention_block_reference)
+    from dense2sparse_vit_torch.ops.block import attention_reference, layer_norm, linear
+
+    inputs, keep, (H, scale, ln_eps) = capture_half_blocks(torch, dev)
+    kw = dict(scale=scale, ln_eps=ln_eps)
+    with torch.no_grad():
+        for n, (i, x256, w6) in inputs.items():
+            x = x256[:B_TRAIN].contiguous()
+            pol = keep[:B_TRAIN, :n].contiguous()
+            g = half_block_grad(torch, x, dev, 41 + i)
+            for xb, pb in ((x, pol), (x256, keep[:, :n].contiguous())):
+                f_err = max([check_attn_half(torch, xb, w6, H, scale, ln_eps, block=i),
+                             check_attn_half(torch, xb, w6, H, scale, ln_eps, block=i,
+                                             cls=True)]
+                            + [check_attn_half(torch, xb, w6, H, scale, ln_eps, block=i,
+                                               policy=pb, eps=eps) for eps in EPS_CHECKS])
+                tally.err("attention_block_forward", f_err)
+            tally.err("attention_block_backward",
+                      check_attn_half_backward(torch, x, g, w6, H, scale, ln_eps, block=i))
+            tally.err("attention_block_backward_policy", max(
+                check_attn_half_backward(torch, x, g, w6, H, scale, ln_eps, block=i, policy=pol,
+                                         eps=eps) for eps in EPS_CHECKS))
+
+    # the trainable half-block, forward and backward through autograd
+    i, x256, w6 = inputs[max(inputs)]
+    x = x256[:B_TRAIN].contiguous()
+    pol = keep[:B_TRAIN].contiguous()
+    g = half_block_grad(torch, x, dev, 49)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *w6)]
+    pol_leaf = pol.clone().requires_grad_()
+    ops.reset_launch_counts()
+    with torch.enable_grad():
+        out = ops.fused_attention_block_trainable(leaves[0], *leaves[1:], H, **kw)
+        grads = torch.autograd.grad(out, leaves, g)
+        out = ops.fused_attention_block_trainable(leaves[0], *leaves[1:], H, pol_leaf, **kw)
+        grads_p = torch.autograd.grad(out, leaves + [pol_leaf], g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with torch.no_grad():
+        want_dx = attention_block_backward_reference(x, g, *w6[:5], H, **kw)[0]
+        want_p = attention_block_backward_reference(x, g, *w6[:5], H, policy=pol, **kw)
+    rel = {}
+    for name, got, want in (("dx", grads[0], want_dx), ("dx[policy]", grads_p[0], want_p[0]),
+                            ("dpolicy", grads_p[-1], want_p[2])):
+        err, ref = rel_err(torch, got, want)
+        rel[name] = err / max(ref, 1e-30)
+    emit({"phase": "attn_block", "trainable": list(x.shape), "launches": counts,
+          "rel_err": rel, "tol_rel": {"dx": BWD_TOL, "dpolicy": DPOL_TOL}})
+    if counts != PER_ATTN_BLOCK_TRAINABLE:
+        raise AssertionError(f"trainable half-block: launches {counts}, expected "
+                             f"{PER_ATTN_BLOCK_TRAINABLE}")
+    if not (rel["dx"] <= BWD_TOL and rel["dx[policy]"] <= BWD_TOL and rel["dpolicy"] <= DPOL_TOL):
+        raise AssertionError(f"trainable half-block gradients out of tolerance: {rel}")
+
+    # times, at every width
+    plain = {}
+    with torch.no_grad():
+        for n, (i, x256, w6) in inputs.items():
+            C = x256.shape[2]
+            x = x256[:B_TRAIN].contiguous()
+            pol256, pol = keep[:, :n].contiguous(), keep[:B_TRAIN, :n].contiguous()
+            g = half_block_grad(torch, x, dev, 41 + i)
+            k_ms, p_ms = paired_ms(torch, lambda: ops.fused_attention_block(x256, *w6, H, **kw),
+                                   lambda: attention_block_reference(x256, *w6, H, **kw),
+                                   iters=10)
+            b = half_block_bound(B_CHECK, n, C, H)
+            plain["attention_block_forward", n] = (p_ms, b)
+            kp_ms, pp_ms = paired_ms(
+                torch, lambda: ops.fused_attention_block(x256, *w6, H, pol256, **kw),
+                lambda: attention_block_reference(x256, *w6, H, policy=pol256, **kw), iters=10)
+            emit({"phase": "attn_block", "kernel": "attention_block_forward",
+                  "shape": list(x256.shape), "ms": k_ms, "plain_ms": p_ms,
+                  "bound_ms": max(b.values()), "policy_ms": kp_ms, "policy_plain_ms": pp_ms,
+                  "policy_bound_ms": max(half_block_bound(B_CHECK, n, C, H,
+                                                          policy=True).values()),
+                  "library_ms": None})
+            for name, pl in (("attention_block_backward", None),
+                             ("attention_block_backward_policy", pol)):
+                if pl is None:
+                    fn = lambda: ops.fused_attention_block_backward(x, g, *w6[:5], H, **kw)
+                else:
+                    fn = lambda: ops.fused_attention_block_backward_policy(x, g, pl, *w6[:5], H,
+                                                                           **kw)
+                k_ms, p_ms = paired_ms(
+                    torch, fn, lambda: attention_block_backward_reference(
+                        x, g, *w6[:5], H, policy=pl, **kw), iters=5, repeats=3)
+                b = half_block_backward_bound(B_TRAIN, n, C, H, policy=pl is not None)
+                plain[name, n] = (p_ms, b)
+                emit({"phase": "attn_block", "kernel": name, "shape": list(x.shape), "ms": k_ms,
+                      "plain_ms": p_ms, "bound_ms": max(b.values()), "library_ms": None})
+            # the packed attention's policy mode (table row 6), on this block's qkv
+            qkv = linear(layer_norm(x, w6[0], w6[1], ln_eps), w6[2], w6[3])
+            gc = half_block_grad(torch, x, dev, 45 + i)
+            k_ms, p_ms = paired_ms(
+                torch, lambda: ops.fused_attention_packed(qkv, H, pol, scale=scale,
+                                                          return_cls=True),
+                lambda: attention_reference(qkv, H, scale, policy=pol, return_cls=True),
+                iters=10)
+            kb_ms, pb_ms = paired_ms(
+                torch, lambda: ops.fused_attention_backward_packed(qkv, gc, H, policy=pol,
+                                                                   scale=scale),
+                lambda: attention_backward_reference(qkv, gc, H, scale, policy=pol), iters=5,
+                repeats=3)
+            emit({"phase": "attn_block", "kernel": "packed attention [policy]",
+                  "shape": list(qkv.shape), "kept_share": pol.mean().item(),
+                  "forward_ms": k_ms, "forward_plain_ms": p_ms,
+                  "forward_bound_ms": max(attention_bound(B_TRAIN, n, C, H, cls=True,
+                                                          policy=True).values()),
+                  "backward_ms": kb_ms, "backward_plain_ms": pb_ms,
+                  "backward_bound_ms": max(attention_backward_bound(B_TRAIN, n, C, H,
+                                                                    policy=True).values()),
+                  "library_ms": None, "card": smi})
+    return plain
+
+
+def phase_kernel_sweep(torch, dev, tally, smi, plain):
+    """Phase 26: `scripts.kernel_sweep.main` at its defaults (the attention
+    half forward and backward, plain and policy, the MLP half, the block
+    both ways, at N = 197, 138, 97, 68), its rows printed as JSON lines; a
+    main-path run of the half-block's kernels: each row of theirs adds its
+    launches and, per launch, its time, the plain version's at that width
+    (`plain`, from phase 25) and the bound to the kernels line."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops import _cuda
+    from dense2sparse_vit_torch.scripts import kernel_sweep
+
+    out = _cuda.BUILD_DIR / "kernel_sweep.md"
+    ops.reset_launch_counts()
+    rows = kernel_sweep.main(["--out", str(out)])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for r in rows:
+        emit({"phase": "kernel_sweep", **r})
+    emit({"phase": "kernel_sweep", "launches": {k: v for k, v in counts.items() if v},
+          "card": smi})
+    seen = dict.fromkeys(SWEEP_KERNELS.values(), 0)
+    for r in rows:
+        if r["kernel"] in SWEEP_KERNELS:
+            seen[SWEEP_KERNELS[r["kernel"]]] += r["launches"]
+    if (len(rows) != SWEEP_ROWS or any(counts[k] == 0 or counts[k] != v for k, v in seen.items())
+            or counts["attention_variant"]):
+        raise AssertionError(f"kernel_sweep: {len(rows)} rows, launches {counts}, by row {seen}")
+    for r in rows:
+        if r["kernel"] in SWEEP_KERNELS:
+            name = SWEEP_KERNELS[r["kernel"]]
+            tally.rows[name]["launches"] += r["launches"]
+            tally.add(name, r["launches"], r["ms"], *plain[name, r["N"]])
+
+
+def check_variant(torch, v, x, params, num_heads):
+    """Hold variant v's half-block kernel against its plain version, stage by
+    stage: qkv and the attention core (v2: the head-pair algebra, fed the
+    kernel's qkv) within STAGE_TOL, out beyond the bf16 rounding of the sum
+    within BRANCH_TOL of the branch, the whole output within BLOCK_TOL.
+    Returns the largest absolute error."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import (
+        attention_variant_reference, paired_attention_reference)
+    from dense2sparse_vit_torch.ops.block import attention_reference, layer_norm, linear
+
+    ln_w, ln_b, wqkv, bqkv, wproj, bproj = params
+    scale = (x.shape[2] // num_heads) ** -0.5
+    y, st = ops.fused_attention_variant(v, x, *params, num_heads, stages=True)
+    core = paired_attention_reference if v == 2 else attention_reference
+    rel = {}
+    for name, want in (("qkv", linear(layer_norm(x, ln_w, ln_b, 1e-6), wqkv, bqkv)),
+                       ("attn", core(st["qkv"], num_heads, scale))):
+        err, ref = rel_err(torch, st[name], want)
+        rel[name] = (err / max(ref, 1e-30), STAGE_TOL)
+    rel["out"] = (branch_excess(y, x, st["attn"], wproj, bproj), BRANCH_TOL)
+    err, ref = rel_err(torch, y, attention_variant_reference(v, x, *params, num_heads))
+    rel["block"] = (err / ref, BLOCK_TOL)
+    emit({"phase": "attn_variants", "variant": v, "shape": list(x.shape), "max_abs_err": err,
+          "rel_err": {k: r for k, (r, _) in rel.items()},
+          "tol_rel": {k: t for k, (_, t) in rel.items()}})
+    bad = {k: r for k, (r, t) in rel.items() if not r <= t}
+    if bad:
+        raise AssertionError(f"attention_variant v{v} N={x.shape[1]}: out of tolerance against "
+                             f"its plain version: {bad}")
+    return err
+
+
+def phase_attn_variants(torch, dev, tally, smi, plain=None):
+    """Phase 27: `scripts.attn_variants.main` at B=256, C=384, 6 heads,
+    N = 197, 138, 97, 68, variants 0-3 (a main-path run of the variants'
+    kernels and of the half-block forward, v0, whose launches it counts),
+    its rows printed; every variant within STAGE_TOL of v0 in its attention
+    core and BLOCK_TOL in its output; then each against its plain version
+    (`check_variant`, with its plain time). Each row adds its launches and,
+    per launch, its time, the plain version's (v0's from phase 25, `plain`)
+    and the bound to the kernels line. With tally None (the planted fault),
+    the comparison with v0 alone."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import attention_variant_reference
+    from dense2sparse_vit_torch.scripts import attn_variants as av
+
+    ops.reset_launch_counts()
+    rows = av.main(["--iters", "20"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for r in rows:
+        emit({"phase": "attn_variants", **r})
+    emit({"phase": "attn_variants", "launches": {k: v for k, v in counts.items() if v},
+          "card": smi})
+    ran = [r for r in rows if not r.get("skipped")]
+    bad = [f"v{r['variant']} N={r['N']}: core {r['core_rel_vs_v0']}, out {r['out_rel_vs_v0']}"
+           for r in ran if not (r["core_rel_vs_v0"] <= STAGE_TOL
+                                and r["out_rel_vs_v0"] <= BLOCK_TOL)]
+    if bad:
+        raise AssertionError("attention variants against v0 out of tolerance: "
+                             + "; ".join(f"{b} " for b in bad))
+    by_row = {"attention_block_forward": sum(r["launches"] for r in ran if r["variant"] == 0),
+              "attention_variant": sum(r["launches"] for r in ran if r["variant"])}
+    if (any(counts[k] == 0 or counts[k] != v for k, v in by_row.items())
+            or sum(counts.values()) != sum(by_row.values())):
+        raise AssertionError(f"attn_variants: launches {counts}, by row {by_row}")
+    if tally is None:
+        return
+    params = av.make_params(av.C, dev)
+    with torch.no_grad():
+        for r in ran:
+            v, n = r["variant"], r["N"]
+            if v == 0:
+                tally.rows["attention_block_forward"]["launches"] += r["launches"]
+                tally.add("attention_block_forward", r["launches"], r["ms"],
+                          *plain["attention_block_forward", n])
+                continue
+            x = av.make_input(av.B, n, av.C, dev)
+            tally.err("attention_variant", check_variant(torch, v, x, params, av.HEADS))
+            p_ms = cuda_ms(torch, lambda: attention_variant_reference(v, x, *params, av.HEADS),
+                           iters=5, repeats=3)
+            b = half_block_bound(av.B, n, av.C, av.HEADS)
+            tally.rows["attention_variant"]["launches"] += r["launches"]
+            tally.add("attention_variant", r["launches"], r["ms"], p_ms, b)
+            emit({"phase": "attn_variants", "variant": v, "N": n, "ms": r["ms"],
+                  "plain_ms": p_ms, "bound_ms": max(b.values()), "library_ms": None})
+
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2518,6 +3014,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_time_droppath(torch, dev, student, rec, serve, tally, smi)
     del student, rec, serve
+    torch.cuda.empty_cache()
+    # ---- 25-27. the attention half-block and the kernel-timing scripts ----
+    plain = phase_attn_block(torch, dev, tally, smi)
+    torch.cuda.empty_cache()
+    phase_kernel_sweep(torch, dev, tally, smi, plain)
+    phase_attn_variants(torch, dev, tally, smi, plain)
 
     emit(tally.line())
     print(smi, flush=True)

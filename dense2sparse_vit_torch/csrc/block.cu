@@ -64,6 +64,9 @@
 // B=128, N=197, against ~6 GFLOP of score products), the second by its two
 // products (~60 GFLOP at that shape); each runs this file's kernels as they
 // run inside the block, with the fc1 activation through device memory.
+// Stages 1-3 together are d2s_attention_block_forward, the attention
+// half-block x + proj(MHA(qkv(LN1 x))), which replaces dense2sparse_vit_tpu/
+// ops/pallas/attention.py::fused_attention_block (see its entry below).
 //
 // What bounds it on the H100: at the headline shapes (B=256, C=384, N from
 // 197 down to 68) the four projections are ~92% of the block's FLOPs and
@@ -372,6 +375,66 @@ cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
                                   eps, stream);
 }
 
+// Stage 1, qkv = LN1(x) Wqkv^T + bqkv over M rows (the rows' LayerNorm
+// statistics into stats first); also launched by block_bwd.cu (the
+// recompute of the half-block's backward) and attn_variants.cu.
+cudaError_t qkv_stage(const bf16* x, bf16* qkv, float2* stats, const float* ln_w,
+                      const float* ln_b, const bf16* wqkv, const float* bqkv, int M, int C,
+                      float ln_eps, cudaStream_t stream) {
+  GemmArgs g{};
+  g.a = x;
+  g.a_rows = M;
+  g.M = M;
+  g.w = wqkv;
+  g.bias = bqkv;
+  g.ln_w = ln_w;
+  g.ln_b = ln_b;
+  g.ln_eps = ln_eps;
+  g.ln_stats = stats;
+  g.out = qkv;
+  g.N = 3 * C;
+  g.K = C;
+  g.act = ACT_NONE;
+  return launch_ln_gemm(g, stream);
+}
+
+// Stage 3, out = x + sa (attn Wproj^T + bproj) over M rows, the branch
+// scaled per `rows` rows by sa where sa is not null; also launched by
+// attn_variants.cu.
+cudaError_t proj_stage(const bf16* x, const bf16* attn, bf16* out, const bf16* wproj,
+                       const float* bproj, const float* sa, int rows, int M, int C,
+                       cudaStream_t stream) {
+  GemmArgs g{};
+  g.a = attn;
+  g.a_rows = M;
+  g.M = M;
+  g.w = wproj;
+  g.bias = bproj;
+  g.residual = x;
+  g.row_scale = sa;
+  g.scale_rows = rows;
+  g.out = out;
+  g.N = C;
+  g.K = C;
+  g.act = ACT_NONE;
+  return launch_ln_gemm(g, stream);
+}
+
+// Stages 1-3, the attention half x + sa proj(MHA(qkv(LN1 x))) into out
+static cudaError_t attention_half(const bf16* x, bf16* out, bf16* qkv, bf16* attn, float2* stats,
+                                  const float* ln_w, const float* ln_b, const bf16* wqkv,
+                                  const float* bqkv, const bf16* wproj, const float* bproj,
+                                  float* lse, bf16* cls, const float* policy, const float* sa,
+                                  int B, int N, int C, int H, float scale, float ln_eps,
+                                  float eps, cudaStream_t stream) {
+  const int M = B * N;
+  cudaError_t err = qkv_stage(x, qkv, stats, ln_w, ln_b, wqkv, bqkv, M, C, ln_eps, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_attention(qkv, attn, lse, cls, policy, B, N, H, scale, eps, stream);
+  if (err != cudaSuccess) return err;
+  return proj_stage(x, attn, out, wproj, bproj, sa, N, M, C, stream);
+}
+
 // The MLP half x + sm fc2(GELU(fc1(LN x))) over M token rows: the
 // LayerNorm's row statistics, fc1 with the LN prologue and the GELU
 // epilogue into hid (and its input into preact, where not null), then fc2
@@ -440,52 +503,59 @@ extern "C" int d2s_block_forward(
     int hidden, float scale, float ln_eps, float eps, void* stream) {
   if (C != H * d2s::ATT_HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * N;
-  d2s::GemmArgs g{};
-  g.a_rows = M;
-  g.a_bstride = 0;
-  g.ln_eps = ln_eps;
-  g.ln_stats = static_cast<float2*>(stats_buf);
-  g.M = M;
-
-  g.a = static_cast<const bf16*>(x);
-  g.w = static_cast<const bf16*>(wqkv);
-  g.bias = static_cast<const float*>(bqkv);
-  g.ln_w = static_cast<const float*>(ln1_w);
-  g.ln_b = static_cast<const float*>(ln1_b);
-  g.residual = nullptr;
-  g.out = static_cast<bf16*>(qkv_buf);
-  g.N = 3 * C;
-  g.K = C;
-  g.act = d2s::ACT_NONE;
-  cudaError_t err = d2s::launch_ln_gemm(g, s);
+  cudaError_t err = d2s::attention_half(
+      static_cast<const bf16*>(x), static_cast<bf16*>(mid_buf), static_cast<bf16*>(qkv_buf),
+      static_cast<bf16*>(attn_buf), static_cast<float2*>(stats_buf),
+      static_cast<const float*>(ln1_w), static_cast<const float*>(ln1_b),
+      static_cast<const bf16*>(wqkv), static_cast<const float*>(bqkv),
+      static_cast<const bf16*>(wproj), static_cast<const float*>(bproj),
+      static_cast<float*>(lse), static_cast<bf16*>(cls), static_cast<const float*>(policy),
+      static_cast<const float*>(sa), B, N, C, H, scale, ln_eps, eps, s);
   if (err != cudaSuccess) return (int)err;
-
-  err = d2s::launch_attention(static_cast<const bf16*>(qkv_buf), static_cast<bf16*>(attn_buf),
-                              static_cast<float*>(lse), static_cast<bf16*>(cls),
-                              static_cast<const float*>(policy), B, N, H, scale, eps, s);
-  if (err != cudaSuccess) return (int)err;
-
-  g.a = static_cast<const bf16*>(attn_buf);
-  g.w = static_cast<const bf16*>(wproj);
-  g.bias = static_cast<const float*>(bproj);
-  g.ln_w = nullptr;
-  g.ln_b = nullptr;
-  g.residual = static_cast<const bf16*>(x);
-  g.row_scale = static_cast<const float*>(sa);
-  g.scale_rows = N;
-  g.out = static_cast<bf16*>(mid_buf);
-  g.N = C;
-  g.K = C;
-  err = d2s::launch_ln_gemm(g, s);
-  if (err != cudaSuccess) return (int)err;
-
   return (int)d2s::mlp_half(
       static_cast<const bf16*>(mid_buf), static_cast<bf16*>(out), static_cast<bf16*>(hid_buf),
       static_cast<bf16*>(preact), static_cast<float2*>(stats_buf),
       static_cast<const float*>(ln2_w), static_cast<const float*>(ln2_b),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), M, C, hidden, ln_eps, static_cast<const float*>(sm), N, s);
+      static_cast<const float*>(b2), B * N, C, hidden, ln_eps, static_cast<const float*>(sm), N,
+      s);
+}
+
+// The attention half-block alone, out = x + proj(MHA(qkv(LN1 x))): stages
+// 1-3 of d2s_block_forward, with out in place of x_mid and no MLP stage.
+// Replaces dense2sparse_vit_tpu/ops/pallas/attention.py::
+// fused_attention_block (kernel body `_attn_block_kernel`) in its plain and
+// policy mode with its `return_cls` output; the plain mode is that
+// kernel's `exact=True` softmax (the exact row max over the N real columns),
+// whatever the caller asks of the TPU kernel: its clamped fast path has no
+// counterpart here. Its LayerNorm folded into the qkv weights, its
+// 16-token padding and its VMEM-resident qkv are TPU layout choices; here
+// qkv and the attention output go through device memory (~5 bf16 reads and
+// writes per element of x besides x and out), and the two products and the
+// core run on the kernels of the whole block. Bound by operations: the
+// projections (8 B N C^2) and the core (4 B N^2 C), ~75 GFLOP at B=256,
+// N=197, C=384.
+// x, out: (B, N, C) bf16; scratch qkv (B*N, 3C) and attn (B*N, C) bf16 and
+// stats (B*N) float2; lse, cls, policy as d2s_block_forward takes them
+// (each may be null); weights bf16 (out, in), LayerNorm and biases fp32,
+// bqkv and bproj may be null. Requires C == 64 * H, N <= 800, 16-byte
+// aligned pointers.
+extern "C" int d2s_attention_block_forward(const void* x, void* out, void* qkv_buf,
+                                           void* attn_buf, void* stats_buf, const void* ln_w,
+                                           const void* ln_b, const void* wqkv, const void* bqkv,
+                                           const void* wproj, const void* bproj, void* lse,
+                                           void* cls, const void* policy, int B, int N, int C,
+                                           int H, float scale, float ln_eps, float eps,
+                                           void* stream) {
+  if (B <= 0 || C != H * d2s::ATT_HD || out == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)d2s::attention_half(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<bf16*>(qkv_buf),
+      static_cast<bf16*>(attn_buf), static_cast<float2*>(stats_buf),
+      static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
+      static_cast<const bf16*>(wqkv), static_cast<const float*>(bqkv),
+      static_cast<const bf16*>(wproj), static_cast<const float*>(bproj),
+      static_cast<float*>(lse), static_cast<bf16*>(cls), static_cast<const float*>(policy),
+      nullptr, B, N, C, H, scale, ln_eps, eps, static_cast<cudaStream_t>(stream));
 }
 
 // The packed attention core alone (the MHA of a Block whose qkv projection

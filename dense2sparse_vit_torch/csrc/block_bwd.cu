@@ -63,7 +63,10 @@
 // Both are bound by the same things as the steps they run here: the core by
 // its recomputed score products on mma.sync (~0.04 ms of bytes at B=128,
 // N=197), the MLP half by its four products (~150 GFLOP with fc1
-// recomputed).
+// recomputed). Steps 3-5 with the output's cotangent as the branch's are
+// d2s_attention_block_backward, the attention half-block's backward
+// (dense2sparse_vit_tpu/ops/pallas/attention.py::
+// fused_attention_block_backward and its policy mode; see its entry below).
 //
 // Policy mode differentiates ops/masked_softmax.py::softmax_with_policy,
 // p_ij = (e_ij + c) / den_i with e_ij = exp(s_ij - m_i) a_ij, c = eps/N:
@@ -122,6 +125,10 @@ namespace d2s {
 cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q_ld, bf16* out,
                                      float* lse, bf16* cls, const float* pol, int B, int N,
                                      int H, float scale, float eps, cudaStream_t stream);
+// block.cu's stage 1, qkv = LN1(x) Wqkv^T + bqkv
+cudaError_t qkv_stage(const bf16* x, bf16* qkv, float2* stats, const float* ln_w,
+                      const float* ln_b, const bf16* wqkv, const float* bqkv, int M, int C,
+                      float ln_eps, cudaStream_t stream);
 
 // ---- LayerNorm forward, materialised (warp per row) ----------------------
 
@@ -715,6 +722,47 @@ static cudaError_t launch_sum_heads(const float* part, float* out, int B, int H,
   return cudaGetLastError();
 }
 
+// ---- the attention half-block's backward ---------------------------------
+
+// scratch of d2s_attention_block_backward
+struct AttnScratch {
+  bf16 *qkv, *attn, *ln1o, *dattn, *dqkv;
+  float *lse, *dpol_part, *dln, *work;
+  float2 *stats, *st1;
+};
+
+static size_t carve_attn(char* base, int B, int N, int C, int H, bool policy, AttnScratch* s) {
+  const long long M = (long long)B * N;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  const size_t e2 = sizeof(bf16), e4 = sizeof(float);
+  s->qkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
+  s->attn = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->ln1o = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
+  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy ? 4 : 1)));
+  s->dpol_part = reinterpret_cast<float*>(take(policy ? (size_t)B * H * N * e4 : 0));
+  s->dln = reinterpret_cast<float*>(take(M * C * e4));
+  s->stats = reinterpret_cast<float2*>(take(M * sizeof(float2)));
+  s->st1 = reinterpret_cast<float2*>(take(M * sizeof(float2)));
+  const int m = (int)M;
+  long long work = std::max(wgrad_workspace_floats(m, C, C), wgrad_workspace_floats(m, 3 * C, C));
+  work = std::max(work, column_sums_workspace_floats(m, 3 * C));
+  work = std::max(work, 2LL * ln_bwd_ctas(m) * C);
+  s->work = reinterpret_cast<float*>(take(work * e4));
+  return off;
+}
+
+static bool attn_shapes_ok(int B, int N, int C, int H, bool policy) {
+  return B > 0 && N > 0 && N <= (policy ? AB_POLICY_MAX_N : AB_MAX_N) && H > 0 &&
+         C == H * AB_HD && C / 32 <= LNB_MAXCPL && (long long)B * N <= (1LL << 31) - 1;
+}
+
 // ---- scratch ----------------------------------------------------------------
 
 struct Scratch {
@@ -994,6 +1042,101 @@ extern "C" int d2s_attention_packed_backward(const void* qkv, long long q_bstrid
   if (err != cudaSuccess || d_policy == nullptr) return (int)err;
   return (int)launch_sum_heads(static_cast<const float*>(dpol_part),
                                static_cast<float*>(d_policy), B, H, N, st);
+}
+
+// Bytes of scratch d2s_attention_block_backward needs at these shapes
+// (policy: 1 in policy mode, else 0); 0 for shapes it does not take.
+extern "C" long long d2s_attention_block_backward_scratch_bytes(int B, int N, int C, int H,
+                                                                int policy) {
+  if (!d2s::attn_shapes_ok(B, N, C, H, policy != 0)) return 0;
+  d2s::AttnScratch s;
+  return (long long)d2s::carve_attn(nullptr, B, N, C, H, policy != 0, &s);
+}
+
+// The attention half-block's backward, for out = x + proj(MHA(qkv(LN1 x)))
+// (block.cu's d2s_attention_block_forward). Replaces dense2sparse_vit_tpu/
+// ops/pallas/attention.py::fused_attention_block_backward (plain mode,
+// `_attn_block_bwd_kernel`) and ::fused_attention_block_backward_policy
+// (with dPolicy, `_attn_block_bwd_policy_kernel`): one entry, the policy and
+// its gradient nullable, as d2s_block_backward has them. It recomputes qkv,
+// the attention output and its row statistics (stages 1-2 of the forward)
+// and LN1(x), then runs steps 3-5 of d2s_block_backward with g, the
+// output's cotangent, as the branch's: dWproj = g^T O, dbproj = sum g,
+// dO = g Wproj; the attention core's backward (and dPolicy's head sum);
+// dWqkv = dqkv^T LN1(x), dbqkv = sum dqkv, dLN1 = dqkv Wqkv (fp32); and
+// the LayerNorm backward with dgamma, dbeta, whose fp32 sum takes g, bf16
+// as it comes, as its residual term: dx = g + LN1-bwd, rounded once to
+// bf16, with no widened copy of g. Bound by operations (qkv's product
+// recomputed, qkv's and proj's dX and dW products, the core's seven score
+// products: ~105 GFLOP at B=128, N=197, C=384), as the block's backward is.
+// x, g: (B, N, C) bf16; dx (B, N, C) bf16 out. Weights as
+// d2s_attention_block_forward takes them (bqkv may be null; bproj is not
+// needed); the six gradients fp32 in the weights' shapes (d_bqkv null when
+// bqkv is). policy: (B, N) fp32 keep policy or null; d_policy: its (B, N)
+// fp32 gradient or null. scratch: d2s_attention_block_backward_scratch_bytes
+// bytes. Requires C == 64 * H <= 768, N <= 384 (policy mode 352), 16-byte
+// aligned pointers.
+extern "C" int d2s_attention_block_backward(
+    const void* x, const void* g, void* dx, const void* ln_w, const void* ln_b,
+    const void* wqkv, const void* bqkv, const void* wproj, void* d_ln_w, void* d_ln_b,
+    void* d_wqkv, void* d_bqkv, void* d_wproj, void* d_bproj, const void* policy,
+    void* d_policy, void* scratch, int B, int N, int C, int H, float scale, float ln_eps,
+    float eps, void* stream) {
+  using namespace d2s;
+  const bool use_policy = policy != nullptr;
+  if (!attn_shapes_ok(B, N, C, H, use_policy) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
+      (d_policy != nullptr && !use_policy))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  AttnScratch s;
+  carve_attn(static_cast<char*>(scratch), B, N, C, H, use_policy, &s);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const float* pol = static_cast<const float*>(policy);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto fo = [](void* p) { return static_cast<float*>(p); };
+  auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+
+  // recompute qkv, O with its row statistics, and LN1(x)
+  cudaError_t err = qkv_stage(xb, s.qkv, s.stats, f(ln_w), f(ln_b), w(wqkv), f(bqkv), M, C,
+                              ln_eps, st);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = launch_attention_strided(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.lse, nullptr,
+                                      pol, B, N, H, scale, eps, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_ln_apply(xb, f(ln_w), f(ln_b), s.ln1o, s.st1, M, C, ln_eps, st)) !=
+      cudaSuccess)
+    return (int)err;
+
+  // the proj product
+  if ((err = launch_wgrad(gb, s.attn, fo(d_wproj), s.work, M, C, C, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_column_sums(gb, fo(d_bproj), s.work, M, C, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = gemm_kn(gb, w(wproj), M, C, C, nullptr, s.dattn, nullptr, st)) != cudaSuccess)
+    return (int)err;
+
+  // the attention core
+  if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.dattn, s.lse,
+                                  pol, nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr, B, N,
+                                  H, scale, eps, st)) != cudaSuccess)
+    return (int)err;
+  if (d_policy &&
+      (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, st)) != cudaSuccess)
+    return (int)err;
+
+  // the qkv product and LN1
+  if ((err = launch_wgrad(s.dqkv, s.ln1o, fo(d_wqkv), s.work, M, 3 * C, C, st)) != cudaSuccess)
+    return (int)err;
+  if (d_bqkv &&
+      (err = launch_column_sums(s.dqkv, fo(d_bqkv), s.work, M, 3 * C, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = gemm_kn(s.dqkv, w(wqkv), M, 3 * C, C, nullptr, nullptr, s.dln, st)) != cudaSuccess)
+    return (int)err;
+  const bf16* res = gb;  // dx's residual term, g itself
+  return (int)launch_ln_bwd(s.dln, xb, s.st1, f(ln_w), res, nullptr, nullptr,
+                            static_cast<bf16*>(dx), fo(d_ln_w), fo(d_ln_b), s.work, M, C, st);
 }
 
 // Bytes of scratch d2s_mlp_residual_backward needs for M rows; 0 for shapes

@@ -6,15 +6,21 @@ implementation of their custom op, so that calls from an exported artifact
 count too); the block's forward and backward count their policy-mode
 launches apart, in `policy_launches`, and those with DropPath branch scales
 in `scaled_launches`. `COUNTERS` lists every count by its
-name. Importing this package registers the custom ops (`d2s::*`), which is
+name (the attention half-block's by what they compute: its forward, its
+backward in plain and in policy mode, and the variants' forward). Importing this package registers the custom ops (`d2s::*`), which is
 all a loaded `torch.export` artifact needs of the port.
 """
 
 from dense2sparse_vit_torch.ops.attention import (
     fused_attention_backward_packed,
+    fused_attention_block,
+    fused_attention_block_backward,
+    fused_attention_block_backward_policy,
+    fused_attention_block_trainable,
     fused_attention_packed,
     fused_attention_packed_trainable,
     fused_attention_packed_with_cls_trainable,
+    fused_attention_variant,
 )
 from dense2sparse_vit_torch.ops.block import (
     fused_transformer_block,
@@ -51,6 +57,10 @@ COUNTERS = (
     ("fused_attention_backward_packed", fused_attention_backward_packed, "launches"),
     ("fused_mlp_residual", fused_mlp_residual, "launches"),
     ("fused_mlp_residual_backward", fused_mlp_residual_backward, "launches"),
+    ("attention_block_forward", fused_attention_block, "launches"),
+    ("attention_block_backward", fused_attention_block_backward, "launches"),
+    ("attention_block_backward_policy", fused_attention_block_backward_policy, "launches"),
+    ("attention_variant", fused_attention_variant, "launches"),
 )
 KERNEL_NAMES = tuple(name for name, _, _ in COUNTERS)
 
@@ -65,9 +75,12 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "COUNTERS", "KERNEL_NAMES", "fused_attention_backward_packed", "fused_attention_packed",
+    "COUNTERS", "KERNEL_NAMES", "fused_attention_backward_packed", "fused_attention_block",
+    "fused_attention_block_backward", "fused_attention_block_backward_policy",
+    "fused_attention_block_trainable", "fused_attention_packed",
     "fused_attention_packed_trainable", "fused_attention_packed_with_cls_trainable",
-    "fused_gather_tokens", "fused_mlp_residual", "fused_mlp_residual_backward",
+    "fused_attention_variant", "fused_gather_tokens", "fused_mlp_residual",
+    "fused_mlp_residual_backward",
     "fused_predictor_lg",
     "fused_scatter_tokens", "fused_transformer_block",
     "fused_transformer_block_backward", "fused_transformer_block_cls",

@@ -43,6 +43,11 @@ _SIGNATURES = {
     "d2s_mlp_residual_forward": [_P] * 10 + [_I] * 3 + [_F, _P],
     "d2s_mlp_residual_backward": [_P] * 15 + [_I] * 3 + [_F, _P],
     "d2s_mlp_residual_backward_scratch_bytes": [_I] * 3,
+    "d2s_attention_block_forward": [_P] * 14 + [_I] * 4 + [_F] * 3 + [_P],
+    "d2s_attention_block_backward": [_P] * 17 + [_I] * 4 + [_F] * 3 + [_P],
+    "d2s_attention_block_backward_scratch_bytes": [_I] * 5,
+    "d2s_attention_variant_forward": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],
+    "d2s_attention_variant_supported": [_I] * 3,
     "d2s_predictor_forward": (
         [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         + [_P] * 4 + [_P] * 4 + [_I, _F, _P]
@@ -50,7 +55,8 @@ _SIGNATURES = {
 }
 
 _RESTYPES = {"d2s_block_backward_scratch_bytes": _L,
-             "d2s_mlp_residual_backward_scratch_bytes": _L}
+             "d2s_mlp_residual_backward_scratch_bytes": _L,
+             "d2s_attention_block_backward_scratch_bytes": _L}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

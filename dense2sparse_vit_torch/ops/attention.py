@@ -22,6 +22,31 @@ TPU kernel recomputes P), so the Function keeps only qkv and the policy
 between the two. For CPU tensors they run `attention_reference` and autograd
 through it, the plain versions. The kernels take head_dim 64, N <= 800
 forward and N <= 384 (policy mode 352) backward.
+
+The attention half-block, x + proj(MHA(qkv(LN1 x))), the port of
+`fused_attention_block` and its backward kernels in the same JAX module:
+
+- `fused_attention_block`: the forward, plain or policy mode, with the CLS
+  rows on request (`fused_attention_block`);
+- `fused_attention_block_backward`, `fused_attention_block_backward_policy`:
+  its seven cotangents, and dPolicy in policy mode, from x and the output's
+  cotangent, recomputing the forward (the two JAX kernels of those names);
+- `fused_attention_block_trainable`: the two as an autograd Function, with a
+  gradient for the policy in policy mode (`fused_attention_block_trainable`).
+
+Weights come in the torch Linear layout (out, in) in the compute dtype, the
+LayerNorm and biases fp32; `bqkv` and `bproj` may be None. JAX's
+`block_batch` and `interpret` have no counterpart, and neither has `exact`:
+the port always computes the exact row-max softmax over the N real columns
+(the JAX kernel's `exact=True`), never the TPU's clamped fast path. For
+CUDA tensors the wrappers launch `csrc/block.cu`'s
+d2s_attention_block_forward and `csrc/block_bwd.cu`'s
+d2s_attention_block_backward (one entry, the policy nullable); for CPU tensors
+they run `attention_block_reference` and autograd through it.
+
+`fused_attention_variant` runs the half-block's inference forward with one of
+the attention cores v1-v3 of `scripts/attn_variants.py` (`csrc/
+attn_variants.cu`); `attention_variant_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -36,6 +61,8 @@ from dense2sparse_vit_torch.ops.block import (
     MAX_TOKENS,
     _policy_arg,
     attention_reference,
+    layer_norm,
+    linear,
 )
 
 
@@ -210,5 +237,342 @@ def fused_attention_packed_with_cls_trainable(qkv: torch.Tensor, num_heads: int,
                                   float(_default_scale(qkv, num_heads, scale)), float(eps), True)
 
 
+# ---- the attention half-block ---------------------------------------------
+
+ATTN_BLOCK_KEYS = ("ln_w", "ln_b", "wqkv", "bqkv", "wproj", "bproj")
+VARIANTS = (1, 2, 3)  # the attention cores of `fused_attention_variant`
+
+
+def _scale_of(x, num_heads, scale):
+    if x.dim() != 3:
+        raise ValueError(f"expected x (B, N, C), got {tuple(x.shape)}")
+    return (x.shape[2] // num_heads) ** -0.5 if scale is None else scale
+
+
+def _half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, ln_eps, core, stages):
+    """x + proj(core(qkv(LN1 x))); core maps qkv to the attention output, or
+    to (output, CLS rows)."""
+    qkv = linear(layer_norm(x, ln_w, ln_b, ln_eps), wqkv, bqkv)
+    attn = core(qkv)
+    cls = None
+    if isinstance(attn, tuple):
+        attn, cls = attn
+    out = x + linear(attn, wproj, bproj)
+    result = (out,) + (() if cls is None else (cls,))
+    if stages:
+        result += ({"qkv": qkv, "attn": attn},)
+    return result if len(result) > 1 else out
+
+
+def attention_block_reference(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, *,
+                              policy=None, scale=None, eps=1e-6, ln_eps=1e-6,
+                              return_cls=False, stages=False):
+    """Plain torch version of `fused_attention_block` (the JAX package's
+    `_ref_attention_block`): `out`, then the (B, H, N) CLS rows with
+    `return_cls`, then {"qkv", "attn"} (the LN1-qkv projection and the
+    attention core's output) with `stages`. The proj branch is rounded to
+    x.dtype before the residual add, as `transformer_block_reference` does."""
+    scale = _scale_of(x, num_heads, scale)
+    kw = {} if policy is None else {"policy": policy, "eps": eps}
+    return _half_block(
+        x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, ln_eps,
+        lambda qkv: attention_reference(qkv, num_heads, scale, return_cls=return_cls, **kw),
+        stages)
+
+
+def attention_block_backward_reference(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, *,
+                                       policy=None, scale=None, eps=1e-6, ln_eps=1e-6,
+                                       policy_grad=True):
+    """Plain torch version of the half-block's backward: autograd through
+    `attention_block_reference`. Returns (dx in x.dtype, {key of
+    ATTN_BLOCK_KEYS: fp32 gradient, None for a None bqkv}, dPolicy in fp32
+    or None): dPolicy only with a policy and `policy_grad`. dbproj, the sum
+    of g, does not need bproj. The inputs must not be inference tensors."""
+    scale = _scale_of(x, num_heads, scale)
+    with torch.enable_grad():
+        xs = x.detach().clone().requires_grad_()
+        ws = {k: None if v is None else v.detach().clone().requires_grad_()
+              for k, v in zip(ATTN_BLOCK_KEYS[:5], (ln_w, ln_b, wqkv, bqkv, wproj))}
+        ws["bproj"] = torch.zeros(x.shape[2], device=x.device, requires_grad=True)
+        pol = None
+        if policy is not None:
+            pol = policy.detach().float().clone().requires_grad_(policy_grad)
+        out = attention_block_reference(xs, *(ws[k] for k in ATTN_BLOCK_KEYS), num_heads,
+                                        policy=pol, scale=scale, eps=eps, ln_eps=ln_eps)
+        keys = [k for k in ATTN_BLOCK_KEYS if ws[k] is not None]
+        inputs = [xs] + [ws[k] for k in keys]
+        if pol is not None and policy_grad:
+            inputs.append(pol)
+        grads = torch.autograd.grad(out, inputs, g)
+    dw = dict.fromkeys(ATTN_BLOCK_KEYS)
+    dw.update({k: d.float() for k, d in zip(keys, grads[1:])})
+    dpol = grads[-1] if pol is not None and policy_grad else None
+    return grads[0], dw, dpol
+
+
+def _half_block_ptrs(x, weights, num_heads, max_tokens, what):
+    """Checks for the half-block kernels; returns (B, N, C, x's pointer, the
+    pointers of `weights` (a dict over ATTN_BLOCK_KEYS) in that order, their
+    dtypes and shapes)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
+    B, N, C = x.shape
+    if C != HEAD_DIM * num_heads:
+        raise ValueError(f"{what}: the kernel takes head_dim {HEAD_DIM}, got {C}/{num_heads}")
+    if N > max_tokens:
+        raise ValueError(f"{what}: the kernel takes at most {max_tokens} tokens, got {N}")
+    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
+    shapes = {"ln_w": (f32, (C,)), "ln_b": (f32, (C,)), "wqkv": (bf16, (3 * C, C)),
+              "bqkv": (f32, (3 * C,)), "wproj": (bf16, (C, C)), "bproj": (f32, (C,))}
+    x_ptr = _cuda.ptr(x, "x", dev, bf16, (B, N, C))
+    ptrs = [_cuda.ptr(weights.get(k), k, dev, *shapes[k]) for k in ATTN_BLOCK_KEYS]
+    return B, N, C, x_ptr, ptrs, shapes
+
+
+def _refuse_autograd(tensors, what):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} is not differentiable on the card: under autograd use "
+                           "fused_attention_block_trainable")
+
+
+def fused_attention_block(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                          wqkv: torch.Tensor, bqkv: torch.Tensor | None, wproj: torch.Tensor,
+                          bproj: torch.Tensor | None, num_heads: int,
+                          policy: torch.Tensor | None = None, *, scale: float | None = None,
+                          eps: float = 1e-6, ln_eps: float = 1e-6, return_cls: bool = False,
+                          stages: bool = False):
+    """x + proj(MHA(qkv(LN1 x))), (B, N, C) -> (B, N, C) in x.dtype.
+
+    With a (B, N) keep `policy`, the attention is the policy softmax with
+    smoothing `eps`; without, the exact row-max softmax (JAX's `exact=True`,
+    whatever JAX's caller asks: the port has no clamped path). With
+    `return_cls`, also the (B, H, N) CLS row of every head's probabilities;
+    with `stages`, then {"qkv", "attn"}, the kernel's intermediates. On the
+    card it is not differentiable (`fused_attention_block_trainable` is).
+    Launches count in `launches`."""
+    scale = _scale_of(x, num_heads, scale)
+    if x.device.type == "cpu":
+        return attention_block_reference(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads,
+                                         policy=policy, scale=scale, eps=eps, ln_eps=ln_eps,
+                                         return_cls=return_cls, stages=stages)
+    what = "fused_attention_block"
+    _refuse_autograd((x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, policy), what)
+    weights = dict(zip(ATTN_BLOCK_KEYS, (ln_w, ln_b, wqkv, bqkv, wproj, bproj)))
+    B, N, C, x_ptr, ptrs, _ = _half_block_ptrs(x, weights, num_heads, MAX_TOKENS, what)
+    dev = x.device
+    pol = _policy_arg(policy, x, what)
+    out = torch.empty_like(x)
+    qkv = torch.empty((B, N, 3 * C), dtype=x.dtype, device=dev)
+    attn = torch.empty_like(x)
+    stats = torch.empty((B * N, 2), dtype=torch.float32, device=dev)
+    cls = torch.empty((B, num_heads, N), dtype=x.dtype, device=dev) if return_cls else None
+    err = _cuda.library().d2s_attention_block_forward(
+        x_ptr, out.data_ptr(), qkv.data_ptr(), attn.data_ptr(), stats.data_ptr(), *ptrs, 0,
+        0 if cls is None else cls.data_ptr(),
+        _cuda.ptr(pol, "policy", dev, torch.float32, (B, N)), B, N, C, num_heads, float(scale),
+        float(ln_eps), float(eps), _cuda.stream_handle(dev))
+    _cuda.check(err, "d2s_attention_block_forward")
+    fused_attention_block.launches += 1
+    result = (out,) + (() if cls is None else (cls,))
+    if stages:
+        result += ({"qkv": qkv, "attn": attn},)
+    return result if len(result) > 1 else out
+
+
+def _attention_block_backward(x, g, weights, num_heads, policy, scale, eps, ln_eps,
+                              policy_grad, what):
+    """(dx, {key: fp32 gradient}, dPolicy) from the kernel or, for CPU
+    tensors, the plain version; counted in the wrapper `what` names."""
+    scale = _scale_of(x, num_heads, scale)
+    w5 = [weights[k] for k in ATTN_BLOCK_KEYS[:5]]
+    if x.device.type == "cpu":
+        return attention_block_backward_reference(x, g, *w5, num_heads, policy=policy,
+                                                  scale=scale, eps=eps, ln_eps=ln_eps,
+                                                  policy_grad=policy_grad)
+    max_n = BWD_MAX_TOKENS if policy is None else BWD_POLICY_MAX_TOKENS
+    B, N, C, x_ptr, ptrs, shapes = _half_block_ptrs(x, weights, num_heads, max_n, what)
+    dev, f32 = x.device, torch.float32
+    g_ptr = _cuda.ptr(g, "g", dev, torch.bfloat16, (B, N, C))
+    pol = _policy_arg(policy, x, what)
+    lib = _cuda.library()
+    nbytes = lib.d2s_attention_block_backward_scratch_bytes(B, N, C, num_heads,
+                                                            int(pol is not None))
+    if nbytes <= 0:
+        raise ValueError(f"{what}: shapes {(B, N, C)}, {num_heads} heads: not taken by the "
+                         "kernel")
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    dx = torch.empty_like(x)
+    dw = {k: None if k == "bqkv" and weights[k] is None
+          else torch.empty(shapes[k][1], dtype=f32, device=dev) for k in ATTN_BLOCK_KEYS}
+    dpol = torch.empty((B, N), dtype=f32, device=dev) if pol is not None and policy_grad else None
+    err = lib.d2s_attention_block_backward(
+        x_ptr, g_ptr, dx.data_ptr(), *ptrs[:5],
+        *(0 if dw[k] is None else dw[k].data_ptr() for k in ATTN_BLOCK_KEYS),
+        _cuda.ptr(pol, "policy", dev, f32, (B, N)), 0 if dpol is None else dpol.data_ptr(),
+        scratch.data_ptr(), B, N, C, num_heads, float(scale), float(ln_eps), float(eps),
+        _cuda.stream_handle(dev))
+    _cuda.check(err, "d2s_attention_block_backward")
+    if policy is None:
+        fused_attention_block_backward.launches += 1
+    else:
+        fused_attention_block_backward_policy.launches += 1
+    return dx, dw, dpol
+
+
+def fused_attention_block_backward(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Tensor,
+                                   ln_b: torch.Tensor, wqkv: torch.Tensor,
+                                   bqkv: torch.Tensor | None, wproj: torch.Tensor,
+                                   num_heads: int, *, scale: float | None = None,
+                                   ln_eps: float = 1e-6):
+    """All cotangents of the plain-mode half-block from its input x and the
+    cotangent g of its output: (dx in x.dtype, d_ln_w, d_ln_b, dwqkv, dbqkv,
+    dwproj, dbproj), the gradients fp32 and summed over the batch in a fixed
+    order (dbqkv None where bqkv is). Launches count in `launches`."""
+    w = dict(zip(ATTN_BLOCK_KEYS, (ln_w, ln_b, wqkv, bqkv, wproj, None)))
+    dx, dw, _ = _attention_block_backward(x, g, w, num_heads, None, scale, 1e-6, ln_eps, False,
+                                          "fused_attention_block_backward")
+    return (dx, *(dw[k] for k in ATTN_BLOCK_KEYS))
+
+
+def fused_attention_block_backward_policy(x: torch.Tensor, g: torch.Tensor,
+                                          policy: torch.Tensor, ln_w: torch.Tensor,
+                                          ln_b: torch.Tensor, wqkv: torch.Tensor,
+                                          bqkv: torch.Tensor | None, wproj: torch.Tensor,
+                                          num_heads: int, *, scale: float | None = None,
+                                          eps: float = 1e-6, ln_eps: float = 1e-6):
+    """The policy-mode half-block's cotangents: (dx, dPolicy, d_ln_w, d_ln_b,
+    dwqkv, dbqkv, dwproj, dbproj), dPolicy the (B, N) fp32 gradient of the
+    keep policy. Launches count in `launches`."""
+    w = dict(zip(ATTN_BLOCK_KEYS, (ln_w, ln_b, wqkv, bqkv, wproj, None)))
+    dx, dw, dpol = _attention_block_backward(x, g, w, num_heads, policy, scale, eps, ln_eps,
+                                             True, "fused_attention_block_backward_policy")
+    return (dx, dpol, *(dw[k] for k in ATTN_BLOCK_KEYS))
+
+
+class _TrainableAttentionBlock(torch.autograd.Function):
+    """Forward `fused_attention_block`, backward the half-block's backward
+    kernel, which recomputes the forward from x: only x, the policy and the
+    weights are kept. Gradients come back in each input's dtype (the JAX
+    custom VJP casts them); dPolicy is asked of the kernel only where the
+    policy needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, policy, num_heads, scale, eps, ln_eps, *weights):
+        ctx.save_for_backward(x, policy, *weights)
+        ctx.args = (num_heads, scale, eps, ln_eps)
+        return fused_attention_block(x, *weights, num_heads, policy, scale=scale, eps=eps,
+                                     ln_eps=ln_eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, policy, *weights = ctx.saved_tensors
+        num_heads, scale, eps, ln_eps = ctx.args
+        w = dict(zip(ATTN_BLOCK_KEYS, weights))
+        policy_grad = policy is not None and ctx.needs_input_grad[1]
+        what = ("fused_attention_block_backward" if policy is None
+                else "fused_attention_block_backward_policy")
+        dx, dw, dpol = _attention_block_backward(x, g.contiguous(), w, num_heads, policy, scale,
+                                                 eps, ln_eps, policy_grad, what)
+        grads = [None if t is None else dw[k].to(t.dtype) for k, t in w.items()]
+        if dpol is not None:
+            dpol = dpol.to(policy.dtype).reshape(policy.shape)
+        return (dx, dpol, None, None, None, None, *grads)
+
+
+def fused_attention_block_trainable(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                                    wqkv: torch.Tensor, bqkv: torch.Tensor | None,
+                                    wproj: torch.Tensor, bproj: torch.Tensor | None,
+                                    num_heads: int, policy: torch.Tensor | None = None, *,
+                                    scale: float | None = None, eps: float = 1e-6,
+                                    ln_eps: float = 1e-6):
+    """`fused_attention_block` with a gradient for x, every weight and, in
+    policy mode, the policy."""
+    return _TrainableAttentionBlock.apply(x, policy, num_heads,
+                                          float(_scale_of(x, num_heads, scale)), float(eps),
+                                          float(ln_eps), ln_w, ln_b, wqkv, bqkv, wproj, bproj)
+
+
+# ---- the variants' attention cores ------------------------------------------
+
+
+def paired_attention_reference(qkv, num_heads, scale):
+    """v2's algebra: for each head pair (a, b), S+ = [qa|qb].[ka|kb]^T and
+    S- = [qa|-qb].[ka|kb]^T in fp32, Sa = (S+ + S-) / 2, Sb = (S+ - S-) / 2,
+    then each head's exact softmax; an odd last head alone."""
+    B, N, C3 = qkv.shape
+    q, k, v = qkv.view(B, N, 3, num_heads, C3 // 3 // num_heads).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    scores = []
+    for a in range(0, num_heads - 1, 2):
+        kab = torch.cat([k[:, a], k[:, a + 1]], -1).float()
+        s_sum = torch.cat([q[:, a], q[:, a + 1]], -1).float() @ kab.transpose(-1, -2)
+        s_dif = torch.cat([q[:, a], -q[:, a + 1]], -1).float() @ kab.transpose(-1, -2)
+        scores += [0.5 * (s_sum + s_dif), 0.5 * (s_sum - s_dif)]
+    if num_heads % 2:
+        scores.append(q[:, -1].float() @ k[:, -1].float().transpose(-1, -2))
+    p = torch.softmax(torch.stack(scores, 1) * scale, dim=-1).to(qkv.dtype)
+    return torch.matmul(p, v).transpose(1, 2).reshape(B, N, C3 // 3)
+
+
+def attention_variant_reference(variant, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, *,
+                                scale=None, ln_eps=1e-6, stages=False):
+    """Plain torch version of `fused_attention_variant`: the half-block whose
+    attention core is v2's head-pair algebra (`paired_attention_reference`)
+    for variant 2, and the exact softmax of `attention_reference` for v1 and
+    v3, which differ from it in their schedule, not their algebra."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant}: expected one of {VARIANTS}")
+    scale = _scale_of(x, num_heads, scale)
+    core = paired_attention_reference if variant == 2 else attention_reference
+    return _half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, ln_eps,
+                       lambda qkv: core(qkv, num_heads, scale), stages)
+
+
+def attention_variant_supported(variant: int, n: int, num_heads: int) -> bool:
+    """Whether the card's kernel of `variant` takes n tokens and num_heads
+    heads of 64 (v3 stages every head's scores of a 16-row query tile in
+    shared memory). Builds the kernels on first use."""
+    return bool(_cuda.library().d2s_attention_variant_supported(variant, n, num_heads))
+
+
+def fused_attention_variant(variant: int, x: torch.Tensor, ln_w: torch.Tensor,
+                            ln_b: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor | None,
+                            wproj: torch.Tensor, bproj: torch.Tensor | None, num_heads: int, *,
+                            scale: float | None = None, ln_eps: float = 1e-6,
+                            stages: bool = False):
+    """The half-block's inference forward (no policy, no CLS rows) with the
+    attention core of `variant` in VARIANTS: 1 one pass with an online
+    softmax, 2 head pairs by sum and difference, 3 two phases over all
+    heads (`csrc/attn_variants.cu`). With `stages`, (out, {"qkv", "attn"}).
+    Not differentiable. Launches count in `launches`."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant}: expected one of {VARIANTS}")
+    scale = _scale_of(x, num_heads, scale)
+    if x.device.type == "cpu":
+        return attention_variant_reference(variant, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                           num_heads, scale=scale, ln_eps=ln_eps, stages=stages)
+    what = "fused_attention_variant"
+    _refuse_autograd((x, ln_w, ln_b, wqkv, bqkv, wproj, bproj), what)
+    weights = dict(zip(ATTN_BLOCK_KEYS, (ln_w, ln_b, wqkv, bqkv, wproj, bproj)))
+    B, N, C, x_ptr, ptrs, _ = _half_block_ptrs(x, weights, num_heads, MAX_TOKENS, what)
+    if not attention_variant_supported(variant, N, num_heads):
+        raise ValueError(f"{what}: v{variant} does not take N={N} with {num_heads} heads")
+    dev = x.device
+    out = torch.empty_like(x)
+    qkv = torch.empty((B, N, 3 * C), dtype=x.dtype, device=dev)
+    attn = torch.empty_like(x)
+    stats = torch.empty((B * N, 2), dtype=torch.float32, device=dev)
+    err = _cuda.library().d2s_attention_variant_forward(
+        x_ptr, out.data_ptr(), qkv.data_ptr(), attn.data_ptr(), stats.data_ptr(), *ptrs,
+        variant, B, N, C, num_heads, float(scale), float(ln_eps), _cuda.stream_handle(dev))
+    _cuda.check(err, "d2s_attention_variant_forward")
+    fused_attention_variant.launches += 1
+    return (out, {"qkv": qkv, "attn": attn}) if stages else out
+
+
 fused_attention_packed.launches = 0
 fused_attention_backward_packed.launches = 0
+fused_attention_block.launches = 0
+fused_attention_block_backward.launches = 0
+fused_attention_block_backward_policy.launches = 0
+fused_attention_variant.launches = 0

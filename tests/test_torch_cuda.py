@@ -22,7 +22,9 @@ from dense2sparse_vit_torch.models import (
     HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER, create_model)
 from dense2sparse_vit_torch.nn.layers import Block
 from dense2sparse_vit_torch.nn.predictor import PredictorLG
-from dense2sparse_vit_torch.ops.attention import attention_backward_reference
+from dense2sparse_vit_torch.ops.attention import (
+    ATTN_BLOCK_KEYS, attention_backward_reference, attention_block_backward_reference,
+    attention_block_reference, attention_variant_reference)
 from dense2sparse_vit_torch.ops.block import (
     BLOCK_WEIGHT_KEYS, transformer_block_backward_reference, transformer_block_reference)
 from dense2sparse_vit_torch.ops.block import attention_reference
@@ -705,3 +707,124 @@ def test_t2t_student_train_step_launches(cuda):
         "fused_scatter_tokens": 3,
     }
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+# ---- the attention half-block and its inference variants -----------------------
+
+
+HALF_BLOCK_KEYS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj")
+
+
+def _half_block(cuda, seed, c=384, heads=6):
+    """A sharpened block's LN1, qkv and proj weights, as the half-block takes
+    them, and its softmax scale."""
+    blk = _sharpen(Block(c, heads, use_fused=True), seed=seed).to(cuda).eval()
+    w = blk.kernel_weights(torch.bfloat16)
+    return [w[k] for k in HALF_BLOCK_KEYS], blk.attn.scale
+
+
+@pytest.mark.parametrize("policy,n", [(False, 13), (False, 197), (False, 384), (True, 197),
+                                      (True, 352)])
+def test_attention_block_both_ways(cuda, n, policy):
+    """The half-block forward (output, its attention core, the CLS rows) and
+    backward (dx, the six gradients, qkv's thirds apart, and dPolicy at eps
+    0.1 in policy mode) against the plain versions."""
+    w6, scale = _half_block(cuda, n)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    bf16 = torch.bfloat16
+    x = torch.randn((4, n, 384), generator=gen, device=cuda).to(bf16)
+    g = torch.randn((4, n, 384), generator=gen, device=cuda).to(bf16)
+    pol = _policy(gen, 4, n, cuda) if policy else None
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out, cls, st = ops.fused_attention_block(x, *w6, 6, return_cls=True, stages=True, **kw)
+        if policy:
+            dx, dpol, *grads = ops.fused_attention_block_backward_policy(x, g, pol, *w6[:5], 6,
+                                                                         eps=0.1)
+        else:
+            dx, *grads = ops.fused_attention_block_backward(x, g, *w6[:5], 6)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want_out, want_cls = attention_block_reference(x, *w6, 6, return_cls=True, **kw)
+        want_core = attention_reference(st["qkv"], 6, scale, **kw)
+        want_dx, want_dw, want_dpol = attention_block_backward_reference(x, g, *w6[:5], 6, **kw)
+    bwd = "attention_block_backward" + ("_policy" if policy else "")
+    assert counts == {**NO_LAUNCHES, "attention_block_forward": 1, bwd: 1}
+    _assert_close(out, want_out)
+    _assert_close(st["attn"], want_core)
+    _assert_close(cls, want_cls)
+    _assert_close(dx, want_dx, BWD_TOL)
+    for k, got in zip(ATTN_BLOCK_KEYS, grads):
+        _assert_close(got, want_dw[k], BWD_TOL)
+    _thirds_close(grads[2].t(), want_dw["wqkv"].t())
+    if policy:
+        _assert_close(dpol, want_dpol, BWD_TOL)
+
+
+def test_trainable_attention_block_launches_and_returns_dpolicy(cuda):
+    """The autograd Function: one forward and one backward launch per mode,
+    its gradients those of the backward kernel in each input's dtype,
+    dPolicy in the policy's."""
+    w6, _ = _half_block(cuda, 5)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((4, 68, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn(x.shape, generator=gen, device=cuda).to(x.dtype)
+    pol = _policy(gen, 4, 68, cuda).to(torch.bfloat16).requires_grad_()
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *w6)]
+    ops.reset_launch_counts()
+    out = ops.fused_attention_block_trainable(leaves[0], *leaves[1:], 6)
+    grads = torch.autograd.grad(out, leaves, g)
+    out = ops.fused_attention_block_trainable(leaves[0], *leaves[1:], 6, pol)
+    grads_p = torch.autograd.grad(out, leaves + [pol], g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**NO_LAUNCHES, "attention_block_forward": 2,
+                                   "attention_block_backward": 1,
+                                   "attention_block_backward_policy": 1}
+    with torch.no_grad():
+        want = ops.fused_attention_block_backward(x, g, *w6[:5], 6)
+    for got, w in zip(grads, want[:6]):
+        torch.testing.assert_close(got, w.to(got.dtype), rtol=0, atol=0)
+    assert grads_p[-1].dtype == torch.bfloat16 and grads_p[-1].shape == (4, 68)
+
+
+@pytest.mark.parametrize("variant", [1, 2, 3])
+@pytest.mark.parametrize("n", [13, 68, 197, 200])
+def test_attention_variant_against_v0_and_plain(cuda, n, variant):
+    """Each variant's half-block, its attention core against v0's (the
+    shipped kernel) and its output against v0's and its plain version's."""
+    from dense2sparse_vit_torch.scripts import attn_variants
+
+    params = attn_variants.make_params(384, cuda)
+    x = attn_variants.make_input(4, n, 384, cuda)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out, st = ops.fused_attention_variant(variant, x, *params, 6, stages=True)
+        base, base_st = ops.fused_attention_block(x, *params, 6, stages=True)
+        torch.cuda.synchronize()
+        want = attention_variant_reference(variant, x, *params, 6)
+    assert ops.launch_counts() == {**NO_LAUNCHES, "attention_variant": 1,
+                                   "attention_block_forward": 1}
+    _assert_close(st["attn"], base_st["attn"])
+    _assert_close(out, base)
+    _assert_close(out, want)
+
+
+def test_paired_variant_runs_an_odd_last_head_alone(cuda):
+    """v2 at 5 heads: two pairs, and head 4 on v1's kernel."""
+    w6, scale = _half_block(cuda, 7, c=320, heads=5)
+    x = torch.randn((2, 97, 320), generator=torch.Generator(device=cuda).manual_seed(7),
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        out, st = ops.fused_attention_variant(2, x, *w6, 5, stages=True)
+        _assert_close(st["attn"], attention_reference(st["qkv"], 5, scale))
+
+
+def test_two_phase_variant_refuses_what_does_not_fit(cuda):
+    from dense2sparse_vit_torch.ops.attention import attention_variant_supported
+
+    assert attention_variant_supported(3, 197, 6) and not attention_variant_supported(3, 800, 6)
+    w6, _ = _half_block(cuda, 8)
+    x = torch.zeros((1, 800, 384), device=cuda, dtype=torch.bfloat16)
+    with torch.inference_mode(), pytest.raises(ValueError, match="v3"):
+        ops.fused_attention_variant(3, x, *w6, 6)

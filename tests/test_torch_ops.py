@@ -231,7 +231,9 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.models.dynamic_vit_default, dense2sparse_vit_torch.ops.quant, "
         "dense2sparse_vit_torch.utils.export, dense2sparse_vit_torch.utils.serving, "
         "dense2sparse_vit_torch.ops.attention, dense2sparse_vit_torch.ops.mlp, "
-        "dense2sparse_vit_torch.nn.t2t, dense2sparse_vit_torch.models.t2t\n"
+        "dense2sparse_vit_torch.nn.t2t, dense2sparse_vit_torch.models.t2t, "
+        "dense2sparse_vit_torch.scripts, dense2sparse_vit_torch.scripts.attn_variants, "
+        "dense2sparse_vit_torch.scripts.kernel_sweep, dense2sparse_vit_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"

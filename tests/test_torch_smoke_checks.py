@@ -448,3 +448,128 @@ def test_check_droppath_rejects_kernels_that_ignore_the_scales(monkeypatch, caps
     line = _last_line(capsys)
     assert line["kernel"] == "fused_transformer_block[scaled]"
     assert line["rel_err"]["mid"] > 2 * chip_smoke.BRANCH_TOL
+
+
+# ---- the attention half-block's and the variants' checks --------------------
+
+
+def _half_block_input():
+    """A bf16 half-block at the init's scale (the `_block_input` block's LN1,
+    qkv and proj weights) and its unit-scale input."""
+    x, w, args = _block_input()
+    return x, [w[k] for k in chip_smoke.HALF_BLOCK_KEYS], args
+
+
+@pytest.mark.parametrize("mode", ["plain", "policy", "cls"])
+def test_check_attn_half_passes_the_plain_half_block(capsys, mode):
+    x, w6, args = _half_block_input()
+    kw = {"policy": _keep_policy(N), "eps": 0.1} if mode == "policy" else {}
+    with torch.no_grad():
+        err = chip_smoke.check_attn_half(torch, x, w6, *args, block=0, cls=mode == "cls", **kw)
+    line = _last_line(capsys)
+    assert err == 0.0
+    stages = {"qkv", "attn", "out", "block"} | ({"cls", "cls_rowsum"} if mode == "cls" else set())
+    assert set(line["rel_err"]) == stages
+    assert all(line["rel_err"][k] <= line["tol_rel"][k] for k in line["rel_err"])
+
+
+def test_check_attn_half_rejects_a_wrong_attention_core(monkeypatch):
+    """The core far smaller than the residual: the staged check sees a wrong
+    head's values that a tolerance on the output would not."""
+    import dense2sparse_vit_torch.ops.attention as attn_ops
+
+    real = ops.fused_attention_block
+
+    def faulty(*args, **kwargs):
+        attn_ops.attention_reference = lambda qkv, h, scale, **kw: _wrong_head(qkv, h, scale)
+        try:
+            return real(*args, **kwargs)
+        finally:
+            attn_ops.attention_reference = _attention
+
+    monkeypatch.setattr(ops, "fused_attention_block", faulty)
+    x, w6, args = _half_block_input()
+    with torch.no_grad(), pytest.raises(AssertionError, match="attn"):
+        chip_smoke.check_attn_half(torch, x, w6, *args, block=0)
+
+
+@pytest.mark.parametrize("policy", [False, True])
+def test_check_attn_half_backward_passes_the_plain_backward(capsys, policy):
+    x, w6, args = _half_block_input()
+    kw = {"policy": _keep_policy(N), "eps": 0.1} if policy else {}
+    with torch.no_grad():
+        err = chip_smoke.check_attn_half_backward(torch, x, _cotangent(x), w6, *args, block=0,
+                                                  **kw)
+    line = _last_line(capsys)
+    assert err == 0.0
+    names = {"dx", "ln_w", "ln_b", "wqkv", "bqkv", "wproj", "bproj",
+             "wqkv.q", "wqkv.k", "wqkv.v", "bqkv.q", "bqkv.v"}
+    assert set(line["rel_err"]) == names | ({"dpolicy"} if policy else set())
+
+
+def test_check_attn_half_backward_rejects_dx_without_g_on_row_0(monkeypatch, capsys):
+    """The fault --plant-fault attn_block puts into the kernel: dx leaves out
+    the residual cotangent g on row 0 of each sample."""
+    real = ops.fused_attention_block_backward
+
+    def faulty(x, g, *args, **kwargs):
+        dx, *rest = real(x, g, *args, **kwargs)
+        dx = dx.clone()
+        dx[:, 0] -= g[:, 0]
+        return (dx, *rest)
+
+    monkeypatch.setattr(ops, "fused_attention_block_backward", faulty)
+    x, w6, args = _half_block_input()
+    with torch.no_grad(), pytest.raises(AssertionError, match=chip_smoke.FAULTS["attn_block"][3]):
+        chip_smoke.check_attn_half_backward(torch, x, _cotangent(x), w6, *args, block=0)
+    line = _last_line(capsys)
+    assert all(v == 0.0 for k, v in line["rel_err"].items() if k != "dx")
+
+
+def _variant_input():
+    from dense2sparse_vit_torch.scripts import attn_variants
+
+    params = attn_variants.make_params(C, "cpu")
+    return attn_variants.make_input(B, N, C, "cpu"), params
+
+
+@pytest.mark.parametrize("variant", [1, 2, 3])
+def test_check_variant_passes_the_plain_versions(capsys, variant):
+    x, params = _variant_input()
+    with torch.no_grad():
+        err = chip_smoke.check_variant(torch, variant, x, params, H)
+    line = _last_line(capsys)
+    assert err == 0.0 and line["variant"] == variant
+    assert all(line["rel_err"][k] <= line["tol_rel"][k] for k in line["rel_err"])
+
+
+def _head_a_twice(qkv, num_heads, scale):
+    """v2 with head b's scores recovered as (S+ + S-) / 2, head a's: the
+    fault --plant-fault variant puts into the kernel."""
+    b, n, c3 = qkv.shape
+    q, k, v = qkv.split(c3 // 3, dim=-1)
+    d = c3 // 3 // num_heads
+    q = q.reshape(b, n, num_heads // 2, 2, d)
+    k = k.reshape(b, n, num_heads // 2, 2, d)
+    q, k = q[:, :, :, :1].expand_as(q), k[:, :, :, :1].expand_as(k)
+    return _attention(torch.cat([q.reshape(b, n, -1), k.reshape(b, n, -1), v], -1), num_heads,
+                      scale)
+
+
+def test_the_variants_check_rejects_v2_with_head_a_scores_twice(monkeypatch):
+    import dense2sparse_vit_torch.ops.attention as attn_ops
+
+    real = ops.fused_attention_variant
+    right = attn_ops.paired_attention_reference
+
+    def faulty(*args, **kwargs):
+        attn_ops.paired_attention_reference = _head_a_twice
+        try:
+            return real(*args, **kwargs)
+        finally:
+            attn_ops.paired_attention_reference = right
+
+    monkeypatch.setattr(ops, "fused_attention_variant", faulty)
+    x, params = _variant_input()
+    with torch.no_grad(), pytest.raises(AssertionError, match="v2 N="):
+        chip_smoke.check_variant(torch, 2, x, params, H)
