@@ -13,6 +13,8 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault droppath    # the branch scales' check
     python3 chip_smoke.py --plant-fault attn_block  # the half-block backward's
     python3 chip_smoke.py --plant-fault variant     # the variants' check against v0
+    python3 chip_smoke.py --plant-fault attn_core   # the block's attention-core check
+    python3 chip_smoke.py --plant-fault scatter     # the scatter's bit-equality
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -41,8 +43,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  stage (bit-equal), the teacher's CLS rows at every block;
   7. time_train  the training kernels against their plain versions (and the
                  one torch call that computes the same function, where there
-                 is one), and the whole train step with kernels against
-                 without;
+                 is one; the scatter and index_add_ also replayed from a
+                 CUDA graph, without the host's launch cost), and the whole
+                 train step with kernels against without;
   8. serve_threshold  batches of 1, 8 and 256 through the same student in
                  threshold mode (patch_score_threshold 0.5): per forward 3
                  plain and 9 policy-mode blocks, 3 predictors, no gather;
@@ -93,7 +96,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  1e-6 and 0.1;
  19. time_attn   each of the four against its plain version at N=197, 138,
                  97, 68 (the packed core beside torch's
-                 scaled_dot_product_attention), and the whole attn train step
+                 scaled_dot_product_attention, also from a CUDA graph; its
+                 backward beside the library's backward alone, forward and
+                 backward less the forward), and the whole attn train step
                  with kernels against without;
  20. serve_attn  a B=8 eval forward of the attn student: 12 CLS-row blocks and
                  3 gathers, 12 CLS-row widths, logits against the plain model;
@@ -142,7 +147,10 @@ ignores the branch scales, on phase 23's checks; --plant-fault attn_block
 with a half-block backward whose dx leaves out the residual cotangent g on
 row 0 of each sample, on phase 25's backward checks; --plant-fault variant
 with a v2 that recovers head b's scores as (S+ + S-) / 2, on phase 27's
-comparison with v0.
+comparison with v0; --plant-fault attn_core with an attention core whose
+P.V and row sums stop one 16-key block short of N, on phase 3's walk (the
+core stage of `check_block`); --plant-fault scatter with a scatter that
+leaves out each row's last matching index, on phase 6's bit-equality check.
 """
 
 from __future__ import annotations
@@ -325,6 +333,8 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # in the residual epilogue; (block_bwd.cu, attn_block) the attention
 # half-block's dx without the residual cotangent g on row 0 of each sample;
 # (attn_variants.cu) v2 recovering head b's scores as (S+ + S-) / 2, head a's;
+# (block.cu, attn_core) pass 2 of the attention core stopping one 16-key block
+# short of N; (gather.cu) the scatter leaving out each row's last source;
 # and the stage whose check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
@@ -342,6 +352,8 @@ FAULTS = {
                    "                    (size_t)C * sizeof(bf16), B, st);\n", "'dx'"),
     "variant": ("attn_variants.cu", "sd[j][e] = 0.5f * (sum - dif);  // head b's",
                 "sd[j][e] = 0.5f * (sum + dif);  // head b's", "v2 "),
+    "attn_core": ("block.cu", "k0 < np; k0 += 16", "k0 < np - 16; k0 += 16", "attn"),
+    "scatter": ("gather.cu", "k <= last; ++k", "k < last; ++k", "scatter"),
 }
 
 
@@ -364,6 +376,23 @@ def cuda_ms(torch, fn, iters: int, repeats: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Time per call of `iters` calls captured in one CUDA graph and replayed
+    between CUDA events: the card's time without the host's launch cost,
+    which events around a loop of small calls also take in."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(torch, graph.replay, iters=1) / iters
 
 
 def paired_ms(torch, kernel_fn, plain_fn, iters: int, rounds: int = 2, repeats: int = 5):
@@ -837,6 +866,14 @@ def plant_fault(dev, kind: str) -> int:
                                              w6, H, scale, ln_eps, block=i)
         elif kind == "variant":
             phase_attn_variants(torch, dev, None, None)
+        elif kind == "attn_core":
+            model, plain, images, outputs = phase_serve(torch, dev, Tally())
+            phase_check(torch, model, plain, images, outputs, Tally())
+        elif kind == "scatter":
+            student, teacher, step = build_trainer(torch, dev, fused=True)
+            images, labels = train_batch(torch, dev)
+            check_scatters(torch, capture_train_step(torch, student, teacher, step, images,
+                                                     labels))
         elif kind == "cls":
             student, teacher, step = build_trainer(torch, dev, fused=True, mode="attn")
             images, labels = train_batch(torch, dev)
@@ -1063,18 +1100,11 @@ def phase_check_train(torch, student, teacher, step, images, labels, tally):
     """Phase 6; returns the recorded activations for phase 7."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.ops.block import transformer_block_reference
-    from dense2sparse_vit_torch.ops.gather import scatter_tokens_reference
 
     rec = capture_train_step(torch, student, teacher, step, images, labels)
     check_block_backwards(torch, student, rec, tally)
+    check_scatters(torch, rec)
     with torch.no_grad():
-        for p, entry in enumerate(rec["gathers"]):
-            n = entry["x"].shape[1]
-            got = ops.fused_scatter_tokens(entry["g"], entry["idx"], n)
-            if not torch.equal(got, scatter_tokens_reference(entry["g"], entry["idx"], n)):
-                raise AssertionError(f"scatter stage {p}: not bit-equal")
-            emit({"phase": "check_train", "kernel": "fused_scatter_tokens",
-                  "shape": list(entry["g"].shape), "n": n, "bit_equal": True})
         for i, blk in enumerate(teacher.blocks):
             x, w = rec["teacher_in"][i], rec["teacher_weights"][i]
             args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
@@ -1092,6 +1122,22 @@ def phase_check_train(torch, student, teacher, step, images, labels, tally):
                 raise AssertionError(f"teacher block {i}: CLS rows out of tolerance")
             tally.err("fused_transformer_block_cls", err)
     return rec
+
+
+def check_scatters(torch, rec):
+    """The scatter at every stage of a recorded train step, on that step's
+    cotangents and kept indices, bit-equal to its plain version."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.gather import scatter_tokens_reference
+
+    with torch.no_grad():
+        for p, entry in enumerate(rec["gathers"]):
+            n = entry["x"].shape[1]
+            got = ops.fused_scatter_tokens(entry["g"], entry["idx"], n)
+            if not torch.equal(got, scatter_tokens_reference(entry["g"], entry["idx"], n)):
+                raise AssertionError(f"scatter stage {p}: not bit-equal")
+            emit({"phase": "check_train", "kernel": "fused_scatter_tokens",
+                  "shape": list(entry["g"].shape), "n": n, "bit_equal": True})
 
 
 def phase_time_train(torch, dev, student, rec, tally, smi):
@@ -1153,7 +1199,9 @@ def phase_time_train(torch, dev, student, rec, tally, smi):
             tally.add("fused_scatter_tokens", 1, k_ms, p_ms, b, lib_ms)
             emit({"phase": "time_train", "kernel": "fused_scatter_tokens",
                   "shape": list(g.shape), "n": n, "ms": k_ms, "plain_ms": p_ms,
-                  "library_ms": lib_ms, "bound_ms": max(b.values())})
+                  "library_ms": lib_ms, "bound_ms": max(b.values()),
+                  "graph_ms": graph_ms(torch, lambda: ops.fused_scatter_tokens(g, idx, n)),
+                  "library_graph_ms": graph_ms(torch, lambda: buf.index_add_(0, rows, flat))})
 
     # the whole train step, with the kernels and without, on the same weights
     f_student, f_teacher, f_step = build_trainer(torch, dev, fused=True)
@@ -1672,17 +1720,24 @@ def phase_time_attn(torch, dev, rec, tally, smi, images, labels):
                 lambda: attention_reference(qkv, H, scale, return_cls=True), iters=10)
             lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                              iters=10)
+            k_graph_ms = graph_ms(
+                torch, lambda: ops.fused_attention_packed(qkv, H, scale=scale, return_cls=True))
+            lib_graph_ms = graph_ms(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         b = attention_bound(B, N, C, H, cls=True)
         tally.add("fused_attention_packed", len(idxs), k_ms, p_ms, b, lib_ms)
         emit({"phase": "time_attn", "kernel": "fused_attention_packed", "shape": list(qkv.shape),
               "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": max(b.values()),
+              "graph_ms": k_graph_ms, "library_graph_ms": lib_graph_ms,
               "calls_per_step": len(idxs)})
 
         def sdpa_fwd_bwd():
             out = F.scaled_dot_product_attention(q, k, v, scale=scale)
             torch.autograd.grad(out, (q, k, v), g4)
 
-        lib_ms = cuda_ms(torch, sdpa_fwd_bwd, iters=5)
+        # the library's backward alone: its forward and backward less its forward
+        lib_fwd_bwd_ms = cuda_ms(torch, sdpa_fwd_bwd, iters=5)
+        lib_ms = lib_fwd_bwd_ms - lib_ms
         for gcls, calls in ((None, len(idxs) - len(fed)),
                             (rec["attn"][fed[0]]["gcls"] if fed else None, len(fed))):
             if calls == 0:
@@ -1697,8 +1752,8 @@ def phase_time_attn(torch, dev, rec, tally, smi, images, labels):
             tally.add("fused_attention_backward_packed", calls, k_ms, p_ms, b, lib_ms)
             emit({"phase": "time_attn", "kernel": "fused_attention_backward_packed",
                   "shape": list(qkv.shape), "gcls": gcls is not None, "ms": k_ms,
-                  "plain_ms": p_ms, "library_fwd_bwd_ms": lib_ms, "bound_ms": max(b.values()),
-                  "calls_per_step": calls})
+                  "plain_ms": p_ms, "library_ms": lib_ms, "library_fwd_bwd_ms": lib_fwd_bwd_ms,
+                  "bound_ms": max(b.values()), "calls_per_step": calls})
 
         m = rec["mlp"][idxs[0]]
         x, w, eps, gm = m["x"], m["w"], m["eps"], m["g"]

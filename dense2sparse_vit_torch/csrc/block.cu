@@ -23,13 +23,13 @@
 // a_ij = pol_j + (1 - pol_j) [i = j],
 //   e_ij = exp(s_ij - m_i) a_ij,  den_i = sum_j e_ij + eps,
 //   out_i = (sum_j e_ij v_j + (eps/N) colsum(V)) / den_i.
-// colsum(V) is one reduction per CTA over the V tile already in shared
-// memory; the policy row sits beside it.
+// The (eps/N) colsum(V) term rides in P.V (see the attention note below);
+// the policy row sits in shared memory beside K and V.
 //
 // d2s_block_forward runs these kernels on the caller's stream (each ln_gemm
 // with a LayerNorm is preceded by its row-statistics kernel):
 //   1. ln_gemm  qkv   = LN1(x) @ Wqkv^T + bqkv              (B*N, 3C)
-//   2. attention       per (sample, head, 64-query tile)      (B*N, C)
+//   2. attention       per (sample, head[, query slice])      (B*N, C)
 //   3. ln_gemm  x_mid = x + sa (attn @ Wproj^T + bproj)      (B*N, C)
 //   4. ln_gemm  h     = GELU(LN2(x_mid) @ W1^T + b1)         (B*N, 4C)
 //   5. ln_gemm  out   = x_mid + sm (h @ W2^T + b2)           (B*N, C)
@@ -37,11 +37,10 @@
 // null, so that the serving path pays nothing for them:
 //   cls     (B, H, N) bf16: the CLS (query 0) row of each head's attention
 //           probabilities, the TPU kernel's `return_cls` output (in policy
-//           mode (e_0j + eps/N) / den_0). The CTA of the first query tile
-//           already holds that row's max and sum; once the sum is known its
-//           first warp recomputes row 0's scores and writes them normalised
-//           (one extra pass over the keys for one warp of one CTA per
-//           sample-head).
+//           mode (e_0j + eps/N) / den_0). The warp of the first query tile
+//           already holds that row's max and sum; once the sum is known it
+//           recomputes row 0's scores and writes them normalised (one
+//           extra pass over the keys for one warp per sample-head).
 //   lse     what the backward (block_bwd.cu) needs to rebuild the
 //           probabilities: in plain mode (B, H, N) fp32, each row's
 //           log-sum-exp of its scaled scores, max + log(sum); in policy
@@ -77,38 +76,83 @@
 // per element of x, against 2 for the TPU kernel, which keeps them in
 // VMEM). A faster design fuses fc1 -> GELU -> fc2 so the hidden activation
 // stays on chip, fuses the attention output into the proj GEMM, and moves
-// the GEMMs to TMA + wgmma pipelines. Policy mode adds a multiply per score
-// and the colsum: its time is the plain mode's at the same N.
+// the GEMMs to TMA + wgmma pipelines. Policy mode adds to the attention
+// core a multiply and an add per score and the count of the ties.
 //
-// Attention: one CTA of 4 warps per (sample, head, 64-row query tile); each
-// warp owns 16 query rows. The sample-head's K (row-major) and V (stored
-// transposed) for all N <= 800 keys sit in shared memory. The products run
-// on mma.sync m16n8k16 (bf16 in, fp32 accumulate) with the PTX ISA's
-// documented fragment layouts, so the scores never leave registers: a
-// first pass over the keys takes each row's maximum, a second recomputes
-// the scores, exponentiates them against that maximum and multiplies the
-// bf16 probabilities (the score accumulators repacked as A fragments)
-// into V; the rows are divided by their fp32 sums at the end. The scores
-// of the first pass are bit for bit those of the backward's query-row pass
-// (the same mma.sync on the same fragments), so the backward finds the
-// columns that reach the max by comparing with the stored max.
+// Attention, what bounds it: bytes. At B=128, N=197 the core reads qkv
+// (~58 MB) and writes its output (~19 MB) and the CLS rows, ~0.023 ms at
+// 3.35 TB/s, while its score and P.V products come to ~7.6 GFLOP, a third
+// of that time at the bf16 peak. So the design moves each byte once and
+// keeps the tensor cores fed from shared memory:
+//   - one CTA of 4 warps holds one sample-head's K and V (all N <= 800
+//     keys), copied once from device memory by 16-byte cp.async in two
+//     commit groups, K then V, so that the first query tiles' pass 1 (which
+//     needs only K) runs while V is still arriving;
+//   - the rows lie in shared memory as they lie in qkv, 64 bf16 wide and
+//     unpadded, with the 16-byte chunk c of row r stored at chunk
+//     c ^ (r & 7): the eight rows an ldmatrix reads fall on eight different
+//     bank groups, so K's fragments (ldmatrix.x4) and V's transposed ones
+//     for P.V (ldmatrix.x4.trans) load without bank conflicts and no
+//     transposed copy of V is made (2 * 800 * 64 * 2 B fits with the policy
+//     row, where a padded pitch would not);
+//   - the warps walk 16-row query tiles, ceil(N / 16) of them (13 at N=197),
+//     two at a time (the last alone where the count is odd), so that each K
+//     and V fragment loaded from shared memory feeds two tiles' products;
+//     each warp stages its next tiles' Q by cp.async while it works on the
+//     current ones; the keys go by in blocks of 16, whose four score chains
+//     (two 8-key halves, two tiles) are issued interleaved, and only the
+//     last block, where it reaches past N, masks columns;
+//   - the grid is (S, B*H): S query slices per sample-head, chosen on the
+//     host from B*H and the CTAs that fit on an SM so that the grid covers
+//     the SMs (S = 1 at B >= 64 with 6 heads; more at B = 1 or 8, where one
+//     CTA per sample-head would leave most SMs idle).
+// The products run on mma.sync m16n8k16 (bf16 in, fp32 accumulate) with the
+// PTX ISA's fragment layouts, so the scores never leave registers: a first
+// pass over the keys takes each row's maximum, a second recomputes the
+// scores, exponentiates them against that maximum and multiplies the bf16
+// probabilities (the score accumulators repacked as A fragments) into V;
+// the rows are divided by their fp32 sums at the end (the exponentials as
+// 2^x of scores pre-scaled by log2 e). The scores of the
+// first pass are bit for bit those of the backward's query-row pass (the
+// same mma.sync in the same kk order on the same fragment bits: ldmatrix
+// gives what a 32-bit load of the same pair gives), so the backward finds
+// the columns that reach the max by comparing with the stored max. In
+// policy mode the smoothing eps/N rides in the probabilities fed to P.V
+// (p_ij + eps/N for every real column j), which adds (eps/N) colsum(V)
+// without a pass of its own.
+// What still holds it back (B=128, N=197 on the H100): ~0.064 ms, where
+// scaled_dot_product_attention takes ~0.046, against ~0.023 ms of bytes.
+// Its tensor work is 1.5 times a one-pass kernel's
+// (pass 1 recomputes the scores, which the bit-identical max asks for) on
+// mma.sync at ~200 TFLOP/s; 168 registers leave 12 warps on an SM; and 13
+// query tiles on 4 warps keep a CTA's K and V resident for 4 tiles' time
+// while one warp has 3.
 #include "ln_gemm.cuh"
+
+#include <algorithm>
+#include <type_traits>
 
 namespace d2s {
 
 constexpr int ATT_HD = 64;
-constexpr int ATT_BQ = 64;
-constexpr int ATT_THREADS = 128;
-constexpr int ATT_LDK = ATT_HD + 8;  // bf16 pitch of Q and K rows
-constexpr int ATT_MAX_N = 800;       // keeps shared memory under 227 KB
+constexpr int ATT_WARPS = 4;
+constexpr int ATT_THREADS = 32 * ATT_WARPS;
+constexpr int ATT_QT = 2;        // 16-row query tiles a warp carries at once
+constexpr int ATT_MAX_N = 800;   // K and V of 800 keys stay under 227 KB
+constexpr int ATT_CHUNKS = ATT_HD / 8;  // 16-byte chunks of a head row
 
 __host__ __device__ inline int att_padded(int n) { return (n + 15) / 16 * 16; }
 
 static size_t att_smem_bytes(int n, bool policy) {
   const size_t np = att_padded(n);
-  size_t bytes = ((size_t)ATT_BQ * ATT_LDK + np * ATT_LDK + (size_t)ATT_HD * (np + 8)) * 2;
-  if (policy) bytes += (np + ATT_HD) * sizeof(float);  // the policy row, colsum(V)
+  size_t bytes = (2 * np + (size_t)ATT_WARPS * ATT_QT * 16) * ATT_HD * 2;  // K, V, the warps' Q
+  if (policy) bytes += np * sizeof(float);  // the policy row
   return bytes;
+}
+
+// element offset of chunk c of row r in a swizzled [row][64] bf16 tile
+__device__ __forceinline__ int att_swz(int r, int c) {
+  return r * ATT_HD + ((c ^ (r & 7)) << 3);
 }
 
 // s[e] of a 16 x 8 score tile: rows g (e < 2) and g + 8, columns 2t + (e & 1)
@@ -122,6 +166,150 @@ __device__ __forceinline__ void max_count(float v, float& m, float& c) {
   }
 }
 
+// the A fragments of the warp's query tiles from its Q buffer
+__device__ __forceinline__ void att_load_q(uint32_t (&qa)[ATT_QT][ATT_HD / 16][4],
+                                           const bf16* Qw, int lane) {
+#pragma unroll
+  for (int qt = 0; qt < ATT_QT; ++qt)
+#pragma unroll
+    for (int kk = 0; kk < ATT_HD / 16; ++kk)
+      ldmatrix_x4(qa[qt][kk], Qw + att_swz(qt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                           2 * kk + (lane >> 4)));
+}
+
+// the B fragments of keys n0..n0+7 for the score product: kb[kk / 2][2 (kk % 2)]
+// and kb[kk / 2][2 (kk % 2) + 1] are head dims 16 kk + (0..7) and + (8..15)
+__device__ __forceinline__ void att_load_k(uint32_t (&kb)[2][4], const bf16* Ks, int n0,
+                                           int lane) {
+  ldmatrix_x4(kb[0], Ks + att_swz(n0 + (lane & 7), lane >> 3));
+  ldmatrix_x4(kb[1], Ks + att_swz(n0 + (lane & 7), 4 + (lane >> 3)));
+}
+
+// 2^x (the exponentials take their argument pre-scaled by log2 e)
+__device__ __forceinline__ float att_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// s[j][qt] = q . k for keys n0 + 8 j + (0..7) of the first NQ query tiles:
+// 2 NQ independent chains of products, each in the kk order the backward
+// uses (from zero, kk = 0..3)
+template <int NQ>
+__device__ __forceinline__ void att_scores16(float (&s)[2][ATT_QT][4],
+                                             const uint32_t (&qa)[ATT_QT][ATT_HD / 16][4],
+                                             const bf16* Ks, int n0, int lane) {
+  uint32_t kb[2][2][4];
+  att_load_k(kb[0], Ks, n0, lane);
+  att_load_k(kb[1], Ks, n0 + 8, lane);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int qt = 0; qt < NQ; ++qt) s[j][qt][0] = s[j][qt][1] = s[j][qt][2] = s[j][qt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < ATT_HD / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int qt = 0; qt < NQ; ++qt)
+        mma_16816(s[j][qt], qa[qt][kk], kb[j][kk >> 1][2 * (kk & 1)],
+                  kb[j][kk >> 1][2 * (kk & 1) + 1]);
+}
+
+// pass 1 over keys n0..n0+15: each row's largest score (policy mode: the
+// scaled scores' max, and how many columns reach it); EDGE: the block holds
+// columns past N, which are left out
+template <int NQ, bool POLICY, bool EDGE>
+__device__ __forceinline__ void att_max16(float (&mx)[ATT_QT][2], float (&ct)[ATT_QT][2],
+                                          const uint32_t (&qa)[ATT_QT][ATT_HD / 16][4],
+                                          const bf16* Ks, int n0, int N, float scale, int lane) {
+  float s[2][ATT_QT][4];
+  att_scores16<NQ>(s, qa, Ks, n0, lane);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int qt = 0; qt < NQ; ++qt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (EDGE && n0 + 8 * j + 2 * (lane & 3) + (e & 1) >= N) continue;
+        if (POLICY) {
+          const float v = s[j][qt][e] * scale;
+          max_count(v, mx[qt][e >> 1], ct[qt][e >> 1]);
+        } else {
+          mx[qt][e >> 1] = fmaxf(mx[qt][e >> 1], s[j][qt][e]);
+        }
+      }
+}
+
+// pass 2 over keys k0..k0+15: p = 2^(s scale log2 e - max log2 e) (policy
+// mode: times a_ij, the smoothing eps/N added for P.V), l += p, O += p V.
+// ml: the rows' max times log2 e; query rows row0 + 16 qt + {0, 8}; EDGE as
+// above.
+template <int NQ, bool POLICY, bool EDGE>
+__device__ __forceinline__ void att_pv16(float (&o)[ATT_QT][ATT_HD / 8][4], float (&l)[ATT_QT][2],
+                                         const uint32_t (&qa)[ATT_QT][ATT_HD / 16][4],
+                                         const float (&ml)[ATT_QT][2], const bf16* Ks,
+                                         const bf16* Vs, const float* Ps, int k0, int N,
+                                         float sl2, float cc, int row0, int lane) {
+  float s[2][ATT_QT][4];
+  att_scores16<NQ>(s, qa, Ks, k0, lane);
+  uint32_t pa[ATT_QT][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c0 = k0 + 8 * j + 2 * (lane & 3);  // this thread's columns c0, c0 + 1
+    float2 pc = make_float2(0.f, 0.f);
+    if (POLICY) pc = *reinterpret_cast<const float2*>(Ps + c0);  // zero past N
+#pragma unroll
+    for (int qt = 0; qt < NQ; ++qt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + (e & 1);
+        p[e] = (!EDGE || col < N) ? att_exp2(s[j][qt][e] * sl2 - ml[qt][e >> 1]) : 0.f;
+      }
+      if (POLICY) {
+        // a_ij = pol_j, and pol_j + (1 - pol_j) on the diagonal, which lies
+        // in the key block that starts where the tile does
+        if (k0 == row0 - (lane >> 2) + 16 * qt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float a = (e & 1) ? pc.y : pc.x;
+            p[e] *= c0 + (e & 1) == row0 + 16 * qt + 8 * (e >> 1) ? a + (1.f - a) : a;
+          }
+        } else {
+          p[0] *= pc.x;
+          p[1] *= pc.y;
+          p[2] *= pc.x;
+          p[3] *= pc.y;
+        }
+      }
+      l[qt][0] += p[0] + p[1];
+      l[qt][1] += p[2] + p[3];
+      if (POLICY) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!EDGE || c0 + (e & 1) < N) p[e] += cc;
+      }
+      pa[qt][2 * j] = pack_bf16(p[0], p[1]);
+      pa[qt][2 * j + 1] = pack_bf16(p[2], p[3]);
+    }
+  }
+#pragma unroll
+  for (int nd = 0; nd < ATT_HD / 8; nd += 2) {
+    uint32_t vb[4];
+    ldmatrix_x4_trans(vb, Vs + att_swz(k0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                       nd + (lane >> 4)));
+#pragma unroll
+    for (int qt = 0; qt < NQ; ++qt) {
+      mma_16816(o[qt][nd], pa[qt], vb[0], vb[1]);
+      mma_16816(o[qt][nd + 1], pa[qt], vb[2], vb[3]);
+    }
+  }
+}
+
+template <int V>
+using att_int = std::integral_constant<int, V>;
+
 template <bool POLICY>
 static __global__ void __launch_bounds__(ATT_THREADS)
     attention_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld,
@@ -129,220 +317,204 @@ static __global__ void __launch_bounds__(ATT_THREADS)
                      const float* __restrict__ pol, int N, int H, float scale, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = att_padded(N);
-  const int ldt = np + 8;  // bf16 pitch of the transposed V rows
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + ATT_BQ * ATT_LDK;
-  bf16* Vt = Ks + np * ATT_LDK;
-  float* Ps = reinterpret_cast<float*>(Vt + ATT_HD * ldt);  // policy mode: pol_j
-  float* Cv = Ps + np;                                      // policy mode: colsum(V)
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + np * ATT_HD;
+  bf16* Qs = Vs + np * ATT_HD;  // per warp ATT_QT x 16 query rows
+  float* Ps = reinterpret_cast<float*>(Qs + ATT_WARPS * ATT_QT * 16 * ATT_HD);  // pol_j
 
   const int C = H * ATT_HD;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int q0 = blockIdx.x * ATT_BQ;
   const int tid = threadIdx.x;
-  const bf16* base = qkv + (long long)b * q_bstride + h * ATT_HD;
-
-  // rows past N are zero: padded keys score 0 and are masked below, padded
-  // V columns then multiply zero probabilities by zero
-  constexpr int VPR = ATT_HD / 8;  // 16-byte vectors per head row
-  for (int v = tid; v < ATT_BQ * VPR; v += ATT_THREADS) {
-    const int r = v / VPR, c = (v % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < N) val = *reinterpret_cast<const uint4*>(base + (long long)(q0 + r) * q_ld + c);
-    *reinterpret_cast<uint4*>(Qs + r * ATT_LDK + c) = val;
-  }
-  for (int v = tid; v < np * VPR; v += ATT_THREADS) {
-    const int r = v / VPR, c = (v % VPR) * 8;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (r < N) {
-      const bf16* row = base + (long long)r * q_ld + c;
-      kv = *reinterpret_cast<const uint4*>(row + C);
-      vv = *reinterpret_cast<const uint4*>(row + 2 * C);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * ATT_LDK + c) = kv;
-    const bf16* e = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Vt[(c + j) * ldt + r] = e[j];
-  }
-  if (POLICY)
-    for (int r = tid; r < np; r += ATT_THREADS) Ps[r] = r < N ? pol[(long long)b * N + r] : 0.f;
-  __syncthreads();
-  if (POLICY) {
-    if (tid < ATT_HD) {
-      float acc = 0.f;
-      for (int r = 0; r < N; ++r) acc += __bfloat162float(Vt[tid * ldt + r]);
-      Cv[tid] = acc;
-    }
-    __syncthreads();
-  }
-
   const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int row0 = (tid >> 5) * 16;
+  const bf16* base = qkv + (long long)b * q_bstride + h * ATT_HD;
+  bf16* Qw = Qs + warp * ATT_QT * 16 * ATT_HD;
 
-  uint32_t qa[ATT_HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < ATT_HD / 16; ++kk) {
-    const bf16* p = Qs + (row0 + g) * ATT_LDK + kk * 16 + 2 * t;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * ATT_LDK);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * ATT_LDK + 8);
-  }
+  // units of ATT_QT query tiles (the last may hold fewer); this CTA's slice
+  // of them, dealt to its warps in turn
+  const int tiles = np / 16;
+  const int units = (tiles + ATT_QT - 1) / ATT_QT;
+  const int u_end = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
+  int u = (int)((long long)blockIdx.x * units / gridDim.x) + warp;
 
-  // pass 1: each row's largest score over the N real keys (policy mode:
-  // the scaled scores' max, and how many columns reach it)
-  float mx0 = -INFINITY, mx1 = -INFINITY;  // rows g and g + 8
-  float ct0 = 0.f, ct1 = 0.f;
-  for (int n0 = 0; n0 < np; n0 += 8) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    const bf16* kp = Ks + (n0 + g) * ATT_LDK + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < ATT_HD / 16; ++kk)
-      mma_16816(s, qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
-    const int col = n0 + 2 * t;
-    if (POLICY) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (col + (e & 1) < N) {
-          const float v = s[e] * scale;
-          if (e < 2) max_count(v, mx0, ct0);
-          else max_count(v, mx1, ct1);
-        }
-      }
-    } else {
-      if (col < N) {
-        mx0 = fmaxf(mx0, s[0]);
-        mx1 = fmaxf(mx1, s[2]);
-      }
-      if (col + 1 < N) {
-        mx0 = fmaxf(mx0, s[1]);
-        mx1 = fmaxf(mx1, s[3]);
-      }
+  // rows past N are zero-filled: padded keys score 0 and are masked below,
+  // padded V rows then multiply zero probabilities by zero
+  auto copy_q = [&](int unit) {
+    for (int i = lane; i < ATT_QT * 16 * ATT_CHUNKS; i += 32) {
+      const int r = i / ATT_CHUNKS, c = i % ATT_CHUNKS;
+      const int q = unit * ATT_QT * 16 + r;
+      cp_async16(Qw + att_swz(r, c), base + (long long)(q < N ? q : 0) * q_ld + c * 8, q < N);
     }
+  };
+  if (u < u_end) copy_q(u);
+  for (int i = tid; i < np * ATT_CHUNKS; i += ATT_THREADS) {
+    const int r = i / ATT_CHUNKS, c = i % ATT_CHUNKS;
+    cp_async16(Ks + att_swz(r, c), base + (long long)(r < N ? r : 0) * q_ld + C + c * 8, r < N);
   }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    const float m0 = __shfl_xor_sync(0xffffffffu, mx0, o);
-    const float m1 = __shfl_xor_sync(0xffffffffu, mx1, o);
-    if (POLICY) {
-      const float c0 = __shfl_xor_sync(0xffffffffu, ct0, o);
-      const float c1 = __shfl_xor_sync(0xffffffffu, ct1, o);
-      if (m0 > mx0) ct0 = c0; else if (m0 == mx0) ct0 += c0;
-      if (m1 > mx1) ct1 = c1; else if (m1 == mx1) ct1 += c1;
-    }
-    mx0 = fmaxf(mx0, m0);
-    mx1 = fmaxf(mx1, m1);
+  cp_async_commit();  // group: this warp's first Q tiles and K
+  for (int i = tid; i < np * ATT_CHUNKS; i += ATT_THREADS) {
+    const int r = i / ATT_CHUNKS, c = i % ATT_CHUNKS;
+    cp_async16(Vs + att_swz(r, c), base + (long long)(r < N ? r : 0) * q_ld + 2 * C + c * 8,
+               r < N);
   }
-  if (!POLICY) {
-    mx0 *= scale;  // scale > 0, so the max of the scaled scores
-    mx1 *= scale;
-  }
+  cp_async_commit();  // group: V
+  if (POLICY)
+    for (int r = tid; r < np; r += ATT_THREADS) Ps[r] = r < N ? pol[(long long)b * N + r] : 0.f;
+  cp_async_wait<1>();
+  __syncthreads();  // K and every warp's first Q in
 
-  // pass 2: p = exp(scale * s - max) (times a_ij in policy mode), O += p V,
-  // l += p
-  const int qr0 = q0 + row0 + g;  // this thread's two query rows
-  const int qr1 = qr0 + 8;
-  float o[ATT_HD / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < ATT_HD / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
-  for (int k0 = 0; k0 < np; k0 += 16) {
-    float p[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf16* kp = Ks + (k0 + 8 * j + g) * ATT_LDK + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < ATT_HD / 16; ++kk)
-        mma_16816(s, qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        float v = col < N ? __expf(s[e] * scale - (e < 2 ? mx0 : mx1)) : 0.f;
-        if (POLICY && col < N) {
-          const float pc = Ps[col];
-          v *= col == (e < 2 ? qr0 : qr1) ? pc + (1.f - pc) : pc;
-        }
-        p[j][e] = v;
-      }
-      l0 += p[j][0] + p[j][1];
-      l1 += p[j][2] + p[j][3];
-    }
-    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                            pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-#pragma unroll
-    for (int nd = 0; nd < ATT_HD / 8; ++nd) {
-      const bf16* vp = Vt + (nd * 8 + g) * ldt + k0 + 2 * t;
-      mma_16816(o[nd], pa, ld32(vp), ld32(vp + 8));
-    }
-  }
-#pragma unroll
-  for (int s = 1; s < 4; s <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, s);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, s);
-  }
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float sl2 = scale * LOG2E;
   const float cc = POLICY ? eps / N : 0.f;  // the smoothing's share per column
-  if (POLICY) {
-    l0 += eps;
-    l1 += eps;
-#pragma unroll
-    for (int nd = 0; nd < ATT_HD / 8; ++nd) {
-      const float c0 = cc * Cv[nd * 8 + 2 * t], c1 = cc * Cv[nd * 8 + 2 * t + 1];
-      o[nd][0] += c0;
-      o[nd][1] += c1;
-      o[nd][2] += c0;
-      o[nd][3] += c1;
-    }
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-
-  const int q = qr0;
   const long long stat = (long long)blockIdx.y * N;  // (b, h) row of lse and cls
-  if (lse && t == 0) {
-    if (POLICY) {
-      float4* st4 = reinterpret_cast<float4*>(lse);
-      if (q < N) st4[stat + q] = make_float4(mx0, l0, ct0, 0.f);
-      if (q + 8 < N) st4[stat + q + 8] = make_float4(mx1, l1, ct1, 0.f);
-    } else {
-      if (q < N) lse[stat + q] = mx0 + logf(l0);
-      if (q + 8 < N) lse[stat + q + 8] = mx1 + logf(l1);
+  uint32_t qa[ATT_QT][ATT_HD / 16][4];
+  float mx[ATT_QT][2], ct[ATT_QT][2];
+
+  // take the current unit's Q fragments, start copying the next unit's Q
+  auto take_q = [&]() {
+    att_load_q(qa, Qw, lane);
+    __syncwarp();
+    if (u + ATT_WARPS < u_end) copy_q(u + ATT_WARPS);
+  };
+  // pass 1 for NQ query tiles: each row's max over the N real keys, merged
+  // across the quad
+  auto pass1 = [&](auto nq) {
+    constexpr int NQ = decltype(nq)::value;
+#pragma unroll
+    for (int qt = 0; qt < ATT_QT; ++qt) {
+      mx[qt][0] = mx[qt][1] = -INFINITY;
+      ct[qt][0] = ct[qt][1] = 0.f;
     }
-  }
-  if (cls && q0 == 0 && row0 == 0) {
-    // query row 0 is row g == 0 of warp 0: recompute its scores, normalise
-    for (int n0 = 0; n0 < np; n0 += 8) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf16* kp = Ks + (n0 + g) * ATT_LDK + 2 * t;
+    for (int n0 = 0; n0 < np; n0 += 16) {
+      if (n0 + 16 <= N) att_max16<NQ, POLICY, false>(mx, ct, qa, Ks, n0, N, scale, lane);
+      else att_max16<NQ, POLICY, true>(mx, ct, qa, Ks, n0, N, scale, lane);
+    }
 #pragma unroll
-      for (int kk = 0; kk < ATT_HD / 16; ++kk)
-        mma_16816(s, qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
-      if (g == 0) {
+    for (int qt = 0; qt < NQ; ++qt) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + 2 * t + e;
-          if (col >= N) continue;
-          float v = __expf(s[e] * scale - mx0);
+      for (int o = 1; o < 4; o <<= 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m = __shfl_xor_sync(0xffffffffu, mx[qt][r], o);
           if (POLICY) {
-            const float pc = Ps[col];
-            v = v * (col == 0 ? pc + (1.f - pc) : pc) + cc;
+            const float c = __shfl_xor_sync(0xffffffffu, ct[qt][r], o);
+            if (m > mx[qt][r]) ct[qt][r] = c;
+            else if (m == mx[qt][r]) ct[qt][r] += c;
           }
-          cls[stat + col] = __float2bfloat16(v * inv0);
+          mx[qt][r] = fmaxf(mx[qt][r], m);
         }
       }
+      if (!POLICY) {
+        mx[qt][0] *= scale;  // scale > 0, so the max of the scaled scores
+        mx[qt][1] *= scale;
+      }
     }
-  }
-  bf16* obase = out + (long long)b * N * C + h * ATT_HD + 2 * t;
+  };
+  // pass 2 for NQ query tiles and the unit's outputs
+  auto pass2 = [&](auto nq) {
+    constexpr int NQ = decltype(nq)::value;
+    float o[ATT_QT][ATT_HD / 8][4];
+    float l[ATT_QT][2], ml[ATT_QT][2];
 #pragma unroll
-  for (int nd = 0; nd < ATT_HD / 8; ++nd) {
-    if (q < N)
-      *reinterpret_cast<uint32_t*>(obase + (long long)q * C + nd * 8) =
-          pack_bf16(o[nd][0] * inv0, o[nd][1] * inv0);
-    if (q + 8 < N)
-      *reinterpret_cast<uint32_t*>(obase + (long long)(q + 8) * C + nd * 8) =
-          pack_bf16(o[nd][2] * inv1, o[nd][3] * inv1);
+    for (int qt = 0; qt < NQ; ++qt) {
+      l[qt][0] = l[qt][1] = 0.f;
+      ml[qt][0] = mx[qt][0] * LOG2E;
+      ml[qt][1] = mx[qt][1] * LOG2E;
+#pragma unroll
+      for (int nd = 0; nd < ATT_HD / 8; ++nd)
+        o[qt][nd][0] = o[qt][nd][1] = o[qt][nd][2] = o[qt][nd][3] = 0.f;
+    }
+    const int row0 = u * ATT_QT * 16 + g;  // this thread's rows: row0 + 16 qt + {0, 8}
+    for (int k0 = 0; k0 < np; k0 += 16) {
+      if (k0 + 16 <= N)
+        att_pv16<NQ, POLICY, false>(o, l, qa, ml, Ks, Vs, Ps, k0, N, sl2, cc, row0, lane);
+      else
+        att_pv16<NQ, POLICY, true>(o, l, qa, ml, Ks, Vs, Ps, k0, N, sl2, cc, row0, lane);
+    }
+
+#pragma unroll
+    for (int qt = 0; qt < NQ; ++qt) {
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        l[qt][0] += __shfl_xor_sync(0xffffffffu, l[qt][0], sh);
+        l[qt][1] += __shfl_xor_sync(0xffffffffu, l[qt][1], sh);
+      }
+      if (POLICY) {
+        l[qt][0] += eps;
+        l[qt][1] += eps;
+      }
+      const float inv0 = 1.f / l[qt][0], inv1 = 1.f / l[qt][1];
+      const int q = row0 + 16 * qt;
+      if (lse && t == 0) {
+        if (POLICY) {
+          float4* st4 = reinterpret_cast<float4*>(lse);
+          if (q < N) st4[stat + q] = make_float4(mx[qt][0], l[qt][0], ct[qt][0], 0.f);
+          if (q + 8 < N) st4[stat + q + 8] = make_float4(mx[qt][1], l[qt][1], ct[qt][1], 0.f);
+        } else {
+          if (q < N) lse[stat + q] = mx[qt][0] + logf(l[qt][0]);
+          if (q + 8 < N) lse[stat + q + 8] = mx[qt][1] + logf(l[qt][1]);
+        }
+      }
+      if (cls && q - g == 0) {
+        // query row 0 is row g == 0 of the first tile: recompute its
+        // scores, normalise
+        for (int n0 = 0; n0 < np; n0 += 16) {
+          float s[2][ATT_QT][4];
+          att_scores16<1>(s, qa, Ks, n0, lane);
+          if (g == 0) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = n0 + 8 * (e >> 1) + 2 * t + (e & 1);
+              if (col >= N) continue;
+              float v = att_exp2(s[e >> 1][0][e & 1] * sl2 - ml[0][0]);
+              if (POLICY) {
+                const float pc = Ps[col];
+                v = v * (col == 0 ? pc + (1.f - pc) : pc) + cc;
+              }
+              cls[stat + col] = __float2bfloat16(v * inv0);
+            }
+          }
+        }
+      }
+      bf16* obase = out + (long long)b * N * C + h * ATT_HD + 2 * t;
+#pragma unroll
+      for (int nd = 0; nd < ATT_HD / 8; ++nd) {
+        if (q < N)
+          *reinterpret_cast<uint32_t*>(obase + (long long)q * C + nd * 8) =
+              pack_bf16(o[qt][nd][0] * inv0, o[qt][nd][1] * inv0);
+        if (q + 8 < N)
+          *reinterpret_cast<uint32_t*>(obase + (long long)(q + 8) * C + nd * 8) =
+              pack_bf16(o[qt][nd][2] * inv1, o[qt][nd][3] * inv1);
+      }
+    }
+  };
+  // a unit of ATT_QT tiles, or the last, single tile of an odd count
+  auto full = [&]() { return u * ATT_QT + ATT_QT <= tiles; };
+
+  if (u < u_end) take_q();
+  cp_async_commit();  // group: the next unit's Q (empty where there is none)
+  if (u < u_end) {
+    if (full()) pass1(att_int<ATT_QT>{});
+    else pass1(att_int<1>{});
+  }
+  cp_async_wait<1>();
+  __syncthreads();  // V in
+  if (u >= u_end) return;
+
+  for (;;) {
+    if (full()) pass2(att_int<ATT_QT>{});
+    else pass2(att_int<1>{});
+    u += ATT_WARPS;
+    if (u >= u_end) break;
+    cp_async_wait<0>();
+    __syncwarp();  // the next unit's Q in, from every lane's copies
+    take_q();
+    cp_async_commit();
+    if (full()) pass1(att_int<ATT_QT>{});
+    else pass1(att_int<1>{});
   }
 }
 
@@ -359,7 +531,17 @@ cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + ATT_BQ - 1) / ATT_BQ, B * H);
+  // query slices per sample-head: enough CTAs to cover the SMs, at most one
+  // per unit of query tiles
+  int dev = 0, sms = 0, fit = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, ATT_THREADS, smem)) !=
+          cudaSuccess)
+    return err;
+  const int units = (att_padded(N) / 16 + ATT_QT - 1) / ATT_QT;
+  const int slices = std::max(1, std::min(units, sms * std::max(fit, 1) / (B * H)));
+  const dim3 grid(slices, B * H);
   kernel<<<grid, ATT_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, out, lse, cls, pol, N, H,
                                               scale, eps);
   return cudaGetLastError();

@@ -12,10 +12,13 @@ versions round to bf16 at different points.
 """
 
 import copy
+import os
+import sys
 
 import pytest
 import torch
 
+import dense2sparse_vit_torch.ops.block as block_ops
 from dense2sparse_vit_torch import ops
 from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
 from dense2sparse_vit_torch.models import (
@@ -34,7 +37,11 @@ from dense2sparse_vit_torch.ops.mlp import (
 from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
 from dense2sparse_vit_torch.ops.quant import quant_block_reference, quantize_rows
 from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+from dense2sparse_vit_torch.ops import _cuda
 from dense2sparse_vit_torch.utils.export import export_student, load_exported
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
@@ -99,18 +106,26 @@ def test_scatter_bit_equal_on_unique_indices(cuda, n, k):
     assert torch.equal(got, scatter_tokens_reference(rows, idx, n))
 
 
+# (B, K, N, D): repeats among a few rows; K = 8192, the kernel's limit, into
+# rows that each collect ~40 sources; N = 33, one row past a CTA's 32
+SCATTER_CASES = [(4, 50, 13, 64), (2, 8192, 197, 384), (3, 40, 33, 384)]
+
+
+@pytest.mark.parametrize("b,k,n,d", SCATTER_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_scatter_sums_repeats_and_drops_out_of_range(cuda, dtype):
+def test_scatter_sums_repeats_and_drops_out_of_range(cuda, dtype, b, k, n, d):
+    """Repeated indices sum in ascending k, in fp32, so the result is bit for
+    bit the plain version's on the CPU (a sequential index_add_); indices
+    below 0 or at N and past contribute nothing."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    rows = torch.randn((4, 50, 64), generator=g, device=cuda).to(dtype)
-    idx = torch.randint(0, 13, (4, 50), generator=g, device=cuda)
-    idx[0, 0], idx[1, 7], idx[3, 49] = -1, 13, 99
-    got = ops.fused_scatter_tokens(rows, idx, 13)
-    want = scatter_tokens_reference(rows, idx, 13)
+    rows = torch.randn((b, k, d), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, n, (b, k), generator=g, device=cuda)
+    idx[0, 0], idx[1, 7], idx[b - 1, k - 1] = -1, n, n + 99
+    before = ops.fused_scatter_tokens.launches
+    got = ops.fused_scatter_tokens(rows, idx, n)
     torch.cuda.synchronize()
-    # fp32 sums of a few rows, in another order than index_add_'s
-    torch.testing.assert_close(got, want, rtol=1e-2 if dtype == torch.bfloat16 else 1e-6,
-                               atol=1e-6)
+    assert ops.fused_scatter_tokens.launches == before + 1
+    assert torch.equal(got.cpu(), scatter_tokens_reference(rows.cpu(), idx.cpu(), n))
 
 
 def test_gather_backward_is_the_scatter(cuda):
@@ -157,6 +172,77 @@ def test_block_cls_rows(cuda, n):
     _assert_close(cls, want_cls)
     torch.testing.assert_close(cls.float().sum(-1), torch.ones((4, 6), device=cuda),
                                rtol=0, atol=2e-2)
+
+
+def _block_core(x, w, heads, scale, policy=None, eps=1e-6):
+    """One d2s_block_forward call with every optional output: (the qkv its
+    attention core read, the core's output, the (B, H, N) CLS rows, the
+    rows' statistics: plain mode (B, H, N) log-sum-exp, policy mode
+    (B, H, N, 4) max, denominator, ties, 0)."""
+    B, N, C = x.shape
+    hidden, ptrs, _ = block_ops._kernel_args(x, w, heads, block_ops.MAX_TOKENS, "core")
+    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
+    qkv = torch.empty((B, N, 3 * C), dtype=bf16, device=dev)
+    out, attn, mid = (torch.empty_like(x) for _ in range(3))
+    hid = torch.empty((B, N, hidden), dtype=bf16, device=dev)
+    stats = torch.empty((B * N, 2), dtype=f32, device=dev)
+    lse = torch.empty((B, heads, N) + (() if policy is None else (4,)), dtype=f32, device=dev)
+    cls = torch.empty((B, heads, N), dtype=bf16, device=dev)
+    err = _cuda.library().d2s_block_forward(
+        x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(), mid.data_ptr(),
+        hid.data_ptr(), stats.data_ptr(), *ptrs, 0, lse.data_ptr(), cls.data_ptr(),
+        0 if policy is None else policy.data_ptr(), 0, 0, B, N, C, heads, hidden,
+        float(scale), 1e-6, float(eps), _cuda.stream_handle(dev))
+    _cuda.check(err, "d2s_block_forward")
+    return qkv, attn, cls, lse
+
+
+def _scores(qkv, heads, scale):
+    """(B, H, N, N) fp32 scaled scores and (B, H, N, 64) keys of packed qkv."""
+    B, N, C3 = qkv.shape
+    q, k, _ = qkv.view(B, N, 3, heads, C3 // 3 // heads).permute(2, 0, 3, 1, 4).unbind(0)
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, k
+
+
+@pytest.mark.parametrize("b", [8, 128])
+@pytest.mark.parametrize("eps", [None, 1e-6, 0.1])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 65, 68, 97, 138, 197, 577, 800])
+def test_attention_core_output_cls_rows_and_row_statistics(cuda, n, eps, b):
+    """The block's attention core, plain (eps None) and policy mode, on the
+    qkv it read: its output and CLS rows against the plain versions, its
+    row statistics against the scores' in fp32 (the log-sum-exp; the max,
+    the denominator, and one column at the max on rows whose two largest
+    scores are apart). B=8 splits each sample-head's query tiles over
+    several CTAs, B=128 gives each one CTA."""
+    blk = _sharpen(Block(384, 6, use_fused=True), seed=n).to(cuda).eval()
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((b, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    pol = None if eps is None else _policy(gen, b, n, cuda)
+    kw = {} if pol is None else {"policy": pol, "eps": eps}
+    scale = blk.attn.scale
+    with torch.inference_mode():
+        qkv, attn, cls, st = _block_core(x, blk.kernel_weights(torch.bfloat16), 6, scale, pol,
+                                         1e-6 if eps is None else eps)
+        want, want_cls = attention_reference(qkv, 6, scale, return_cls=True, **kw)
+        s, _ = _scores(qkv, 6, scale)
+        torch.cuda.synchronize()
+    _assert_close(attn, want)
+    _assert_close(cls, want_cls)
+    torch.testing.assert_close(cls.float().sum(-1), torch.ones((b, 6), device=cuda),
+                               rtol=0, atol=2e-2)
+    if pol is None:
+        want_lse = torch.logsumexp(s, -1)
+        assert (st - want_lse).abs().max().item() <= 1e-3 * max(1.0, want_lse.abs().max().item())
+        return
+    m, den, ties = st[..., 0], st[..., 1], st[..., 2]
+    top = s.topk(min(2, n), -1).values
+    want_m = top[..., 0]
+    assert (m - want_m).abs().max().item() <= 1e-5 * want_m.abs().max().item() + 1e-6
+    a = pol[:, None, None, :] + (1 - pol[:, None, None, :]) * torch.eye(n, device=cuda)
+    want_den = (torch.exp(s - want_m[..., None]) * a).sum(-1) + eps
+    torch.testing.assert_close(den, want_den, rtol=1e-3, atol=0)
+    apart = top[..., 0] - top[..., -1] > 1e-3 * top[..., 0].abs() if n > 1 else ties == ties
+    assert apart.float().mean() > 0.9 and torch.all(ties[apart] == 1)
 
 
 @pytest.mark.parametrize("n", [197, 138, 97, 68, 13, 1, 384])
@@ -362,6 +448,53 @@ def test_policy_block_backward_kernel(cuda, n, eps, ties):
     for k in BLOCK_WEIGHT_KEYS:
         _assert_close(dw[k], want_dw[k], BWD_TOL)
         assert torch.equal(dw[k], dw2[k]), k
+
+
+@pytest.mark.parametrize("n", [197, 352, 800])
+def test_policy_block_on_planted_exact_ties(cuda, n):
+    """The token most often at a row's max copied to five more positions
+    (chip_smoke.planted_ties): rows whose max is that group reach it at six
+    bit-identical keys. The forward's stored tie count, which the policy
+    backward's max path divides by, must count exactly the columns whose
+    keys equal the max's (the backward finds them by comparing its own
+    recomputed scores with the stored max, so the forward's scores must be
+    its bits); and where the policy backward takes the width (N <= 352),
+    dx, the gradients and dPolicy against the plain version on that input."""
+    blk = _sharpen(Block(384, 6, use_fused=True), seed=n).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    pol = _policy(gen, 4, n, cuda)
+    g = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    scale = blk.attn.scale
+    with torch.no_grad():
+        w = blk.kernel_weights(torch.bfloat16)
+        x, tied = chip_smoke.planted_ties(torch, x, w, 6, scale, 1e-6)
+        qkv, _, _, st = _block_core(x, w, 6, scale, pol, 0.1)
+        s, k = _scores(qkv, 6, scale)
+        # the columns whose key is bit for bit the key at the row's max
+        _, ids = torch.unique(k.contiguous().view(torch.int16).reshape(-1, 64), dim=0,
+                              return_inverse=True)
+        ids = ids.view(4, 6, 1, n)
+        at_max = ids.gather(-1, s.argmax(-1)[..., None].transpose(-1, -2)).transpose(-1, -2)
+        want_ties = (ids == at_max).sum(-1).float()
+        # rows whose max group stands clear of every other column
+        other = torch.where(ids == at_max, torch.full_like(s, -torch.inf), s).amax(-1)
+        top = s.amax(-1)
+        clear = top - other > 1e-3 * top.abs()
+        torch.cuda.synchronize()
+    assert tied > 0 and bool(((want_ties == 6) & clear).any())
+    assert torch.equal(st[..., 2][clear], want_ties[clear])
+    if n > block_ops.BWD_POLICY_MAX_TOKENS:
+        return
+    with torch.no_grad():
+        dx, dw, dpol = ops.fused_transformer_block_backward(x, g, w, 6, pol, eps=0.1)
+        want_dx, want_dw, want_dpol = transformer_block_backward_reference(
+            x, g, w, 6, scale, 1e-6, policy=pol, eps=0.1)
+        torch.cuda.synchronize()
+    _assert_close(dx, want_dx, BWD_TOL)
+    _assert_close(dpol, want_dpol, BWD_TOL)
+    for key in BLOCK_WEIGHT_KEYS:
+        _assert_close(dw[key], want_dw[key], BWD_TOL)
 
 
 def test_policy_trainable_block_returns_dpolicy_in_its_dtype(cuda):
