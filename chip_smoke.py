@@ -15,6 +15,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault variant     # the variants' check against v0
     python3 chip_smoke.py --plant-fault attn_core   # the block's attention-core check
     python3 chip_smoke.py --plant-fault scatter     # the scatter's bit-equality
+    python3 chip_smoke.py --plant-fault gemm        # the block's qkv-stage check
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -125,7 +126,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  N=197/138/97/68, v0-v3 (the other main-path run, counted
                  the same way): every variant within the forward check's
                  tolerance of v0, then against its plain version
-                 (`check_variant`), timed.
+                 (`check_variant`), timed;
+ 28. gemm        the shared GEMM engine (`ops.gemm`, csrc/ln_gemm.cuh) alone
+                 at the main path's shapes: the block forward's four
+                 products at B=256, N=197, the backward's four dX products
+                 and four weight gradients at B=128, each held against its
+                 plain version and timed by CUDA events and from a CUDA
+                 graph beside one torch call (`F.linear`, `torch.matmul`);
+                 the built library's SASS: wgmma (HGMMA) in every GEMM
+                 kernel and no mma.sync (HMMA).
+The build phase fails if ptxas reports a spill in a GEMM kernel.
 The pruning student runs its serving, timing and export phases without
 capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
 callers do.
@@ -150,7 +160,10 @@ with a v2 that recovers head b's scores as (S+ + S-) / 2, on phase 27's
 comparison with v0; --plant-fault attn_core with an attention core whose
 P.V and row sums stop one 16-key block short of N, on phase 3's walk (the
 core stage of `check_block`); --plant-fault scatter with a scatter that
-leaves out each row's last matching index, on phase 6's bit-equality check.
+leaves out each row's last matching index, on phase 6's bit-equality check;
+--plant-fault gemm with a GEMM whose consumers skip the last K slice's
+products (`ln_gemm.cuh`), on phase 3's walk (the qkv stage of
+`check_block`).
 """
 
 from __future__ import annotations
@@ -335,7 +348,8 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # (attn_variants.cu) v2 recovering head b's scores as (S+ + S-) / 2, head a's;
 # (block.cu, attn_core) pass 2 of the attention core stopping one 16-key block
 # short of N; (gather.cu) the scatter leaving out each row's last source;
-# and the stage whose check must reject it
+# (ln_gemm.cuh, gemm) the GEMM's consumers skipping the last K slice's
+# products; and the stage whose check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
@@ -354,6 +368,8 @@ FAULTS = {
                 "sd[j][e] = 0.5f * (sum + dif);  // head b's", "v2 "),
     "attn_core": ("block.cu", "k0 < np; k0 += 16", "k0 < np - 16; k0 += 16", "attn"),
     "scatter": ("gather.cu", "k <= last; ++k", "k < last; ++k", "scatter"),
+    "gemm": ("ln_gemm.cuh", "const int mma_slices = slices;", "const int mma_slices = slices - 1;",
+             "'qkv'"),
 }
 
 
@@ -866,7 +882,7 @@ def plant_fault(dev, kind: str) -> int:
                                              w6, H, scale, ln_eps, block=i)
         elif kind == "variant":
             phase_attn_variants(torch, dev, None, None)
-        elif kind == "attn_core":
+        elif kind in ("attn_core", "gemm"):
             model, plain, images, outputs = phase_serve(torch, dev, Tally())
             phase_check(torch, model, plain, images, outputs, Tally())
         elif kind == "scatter":
@@ -1047,7 +1063,9 @@ def phase_time(torch, model, plain, images, shapes, tally, smi):
             emit({"phase": "time", "kernel": "fused_gather_tokens",
                   "shape": list(x.shape), "k": idx.shape[1],
                   "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                  "bound_ms": max(b.values())})
+                  "bound_ms": max(b.values()),
+                  "graph_ms": graph_ms(torch, lambda: ops.fused_gather_tokens(x, idx)),
+                  "library_graph_ms": graph_ms(torch, lambda: torch.gather(x, 1, full))})
         imgs = images[B_CHECK]
         f_ms, p_ms = paired_ms(torch, lambda: model(imgs, collect_cls_attns=False),
                                lambda: plain(imgs, collect_cls_attns=False), iters=5)
@@ -1185,6 +1203,12 @@ def phase_time_train(torch, dev, student, rec, tally, smi):
               "shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
               "bound_ms": max(b.values()), "calls_per_step": len(rec["teacher_in"])})
         for entry in rec["gathers"]:
+            x, idx = entry["x"], entry["idx"]
+            full = idx[..., None].expand(-1, -1, x.shape[2])
+            emit({"phase": "time_train", "kernel": "fused_gather_tokens",
+                  "shape": list(x.shape), "k": idx.shape[1],
+                  "graph_ms": graph_ms(torch, lambda: ops.fused_gather_tokens(x, idx)),
+                  "library_graph_ms": graph_ms(torch, lambda: torch.gather(x, 1, full))})
             g, idx, n = entry["g"], entry["idx"], entry["x"].shape[1]
             B, K, D = g.shape
             k_ms, p_ms = paired_ms(
@@ -2992,6 +3016,146 @@ def phase_attn_variants(torch, dev, tally, smi, plain=None):
 
 
 
+# ---- the shared GEMM engine alone -----------------------------------------
+
+# the main path's products, phase 28: (name, N, K, the epilogue's options);
+# the forward's four at B=256, N=197 in the (N, K) weight layout, the
+# backward's dX products at B=128 in the (K, N) layout (dy = g W2 with
+# GELU'(y), dLN2 = dy W1, dO = da Wproj, dLN1 = dqkv Wqkv), then its weight
+# gradients dW (I, J) = P^T Q over the B=128 step's rows
+GEMM_FWD = (("qkv", 1152, 384, ("ln", "bias")), ("proj", 384, 384, ("bias", "residual")),
+            ("fc1", 1536, 384, ("ln", "bias", "gelu")), ("fc2", 384, 1536, ("bias", "residual")))
+GEMM_DX = (("dy", 1536, 384, ("gelu_in",)), ("dln2", 384, 1536, ("out_f32",)),
+           ("do", 384, 384, ()), ("dln1", 384, 1152, ("out_f32",)))
+GEMM_DW = (("dw2", 384, 1536), ("dw1", 1536, 384), ("dwproj", 384, 384), ("dwqkv", 1152, 384))
+GEMM_TOL = 1e-2  # one bf16 rounding of the output and the LayerNorm's roundings
+WGRAD_TOL = 1e-4  # bf16 products summed in fp32 on both sides, in other orders
+
+
+def gemm_sass(torch, lib_path) -> dict:
+    """Per GEMM kernel of the built library, its wgmma (HGMMA) and mma.sync
+    (HMMA) instructions, from `cuobjdump -sass`."""
+    import subprocess
+    from pathlib import Path
+
+    from dense2sparse_vit_torch.ops import _cuda
+
+    tool = Path(_cuda._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+        elif name is not None and "11gemm_kernel" in name:
+            c = counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+            if "HGMMA" in line:
+                c["HGMMA"] += 1
+            elif "HMMA" in line:
+                c["HMMA"] += 1
+    return counts
+
+
+def gemm_inputs(torch, gen, M, N, K, kn, opts):
+    """Seeded operands of an `ops.gemm.ln_gemm` call over M rows, the weight
+    (K, N) with `kn` else (N, K), with the epilogue options named in `opts`
+    ("ln", "bias", "gelu", "relu", "preact", "residual", "row_scale",
+    "gelu_in", "out_f32"): (a, w, kwargs, the bytes the call moves)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+
+    a = rnd(M, K)
+    w = rnd(*((K, N) if kn else (N, K)), scale=K ** -0.5)
+    kw = {"out_f32": "out_f32" in opts}
+    nbytes = 2 * M * K + 2 * N * K + (4 if kw["out_f32"] else 2) * M * N
+    if "ln" in opts:
+        kw["ln"] = (1 + rnd(K, scale=0.1, dtype=f32), rnd(K, scale=0.1, dtype=f32), 1e-6)
+        nbytes += 8 * K
+    if "bias" in opts:
+        kw["bias"] = rnd(N, dtype=f32)
+        nbytes += 4 * N
+    for act in ("gelu", "relu"):
+        if act in opts:
+            kw["act"] = act
+    if "preact" in opts:
+        kw["preact"] = True
+        nbytes += 2 * M * N
+    if "row_scale" in opts and M % 4 == 0:  # one scale for each quarter of the rows
+        kw["row_scale"] = torch.rand((4,), generator=gen, device=gen.device) * 2
+    for key in ("residual", "gelu_in"):
+        if key in opts:
+            kw[key] = rnd(M, N)
+            nbytes += 2 * M * N
+    return a, w, kw, nbytes
+
+
+def phase_gemm(torch, dev, smi):
+    """Phase 28: the GEMM engine alone at the main path's shapes, each
+    product held against its plain version and timed (events, graph) beside
+    one torch call; then the built library's SASS."""
+    import torch.nn.functional as F
+
+    from dense2sparse_vit_torch.ops import _cuda
+    from dense2sparse_vit_torch.ops.gemm import (
+        ln_gemm, ln_gemm_reference, weight_grad, weight_grad_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+
+    def run(name, kind, flops, nbytes, kernel, plain, library, tol):
+        got, want = kernel(), plain()
+        if isinstance(got, tuple):
+            got, want = got[0], want[0]
+        err, ref = rel_err(torch, got, want)
+        k_ms, p_ms = paired_ms(torch, kernel, plain, iters=10)
+        lib_ms = cuda_ms(torch, library, iters=10)
+        b = bound(flops, nbytes)
+        g_ms, lg_ms = graph_ms(torch, kernel), graph_ms(torch, library)
+        emit({"phase": "gemm", "product": name, "kind": kind, "shape": list(got.shape),
+              "ms": k_ms, "graph_ms": g_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+              "library_graph_ms": lg_ms, "bound_ms": max(b.values()),
+              "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
+              "tflops": flops / k_ms * 1e-9, "graph_tflops": flops / g_ms * 1e-9,
+              "max_abs_err": err, "max_abs_ref": ref, "tol_rel": tol, "card": smi})
+        if not err <= tol * ref:
+            raise AssertionError(f"gemm {name}: err {err} against {ref}")
+
+    with torch.inference_mode():
+        for kind, M, products in (("forward", B_CHECK * 197, GEMM_FWD),
+                                  ("dx", B_TRAIN * 197, GEMM_DX)):
+            kn = kind == "dx"
+            for name, N, K, opts in products:
+                a, w, kw, nbytes = gemm_inputs(torch, gen, M, N, K, kn, opts)
+                w_lin = w.t() if kn else w  # F.linear's (N, K) view of the same weight
+                bias = kw.get("bias")
+                run(name, kind, 2 * M * N * K, nbytes,
+                    lambda: ln_gemm(a, w, w_kn=kn, **kw),
+                    lambda: ln_gemm_reference(a, w, w_kn=kn, **kw),
+                    lambda: F.linear(a, w_lin, None if bias is None else bias.to(a.dtype)),
+                    GEMM_TOL)
+        M = B_TRAIN * 197
+        for name, I, J in GEMM_DW:
+            p, q = (torch.randn((M, n), generator=gen, device=dev).to(torch.bfloat16)
+                    for n in (I, J))
+            run(name, "dw", 2 * M * I * J, 2 * M * (I + J) + 4 * I * J,
+                lambda: weight_grad(p, q), lambda: weight_grad_reference(p, q),
+                lambda: torch.matmul(p.t(), q), WGRAD_TOL)
+    counts = gemm_sass(torch, _cuda.library()._name)
+    modes = {n.split("gemm_kernelILi")[1][0] for n in counts}
+    emit({"phase": "gemm", "sass": counts})
+    if modes != {"0", "1", "2"} or any(c["HGMMA"] == 0 or c["HMMA"] for c in counts.values()):
+        raise AssertionError(f"GEMM kernels' SASS: {counts}")
+
+
+def gemm_spills(build_log: str) -> dict:
+    """ptxas's spill line for each GEMM kernel of the build log."""
+    lines = build_log.splitlines()
+    return {ln.split("Function properties for ")[1].strip(): lines[i + 1].strip()
+            for i, ln in enumerate(lines[:-1])
+            if "Function properties for " in ln and "11gemm_kernel" in ln}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -3020,6 +3184,10 @@ def main(argv=None) -> int:
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "ptxas": ptxas})
+    spills = gemm_spills(_cuda.build_log)
+    if not spills or any("0 bytes spill stores, 0 bytes spill loads" not in v
+                         for v in spills.values()):
+        raise AssertionError(f"GEMM kernels spill: {spills}")
 
     tally = Tally()
     # ---- 2-4. serve, check, time ----------------------------------------
@@ -3075,6 +3243,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_kernel_sweep(torch, dev, tally, smi, plain)
     phase_attn_variants(torch, dev, tally, smi, plain)
+    # ---- 28. the GEMM engine alone ------------------------------------------
+    torch.cuda.empty_cache()
+    phase_gemm(torch, dev, smi)
 
     emit(tally.line())
     print(smi, flush=True)

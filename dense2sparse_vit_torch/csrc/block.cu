@@ -68,16 +68,15 @@
 // ops/pallas/attention.py::fused_attention_block (see its entry below).
 //
 // What bounds it on the H100: at the headline shapes (B=256, C=384, N from
-// 197 down to 68) the four projections are ~92% of the block's FLOPs and
-// are tensor-core bound in principle, but this first version's GEMM
-// (mma.sync fed by a cp.async ring, not wgmma) reaches a fraction of the
-// card's bf16 rate. The intermediates qkv, attn, x_mid and the (B*N, 4C)
-// fc1 activation go through device memory (about 21 bf16 reads and writes
-// per element of x, against 2 for the TPU kernel, which keeps them in
-// VMEM). A faster design fuses fc1 -> GELU -> fc2 so the hidden activation
-// stays on chip, fuses the attention output into the proj GEMM, and moves
-// the GEMMs to TMA + wgmma pipelines. Policy mode adds to the attention
-// core a multiply and an add per score and the count of the ties.
+// 197 down to 68) the four projections are ~92% of the block's FLOPs,
+// tensor-core bound, on ln_gemm.cuh's TMA + wgmma engine (its notes). The
+// intermediates qkv, attn, x_mid and the (B*N, 4C) fc1 activation go
+// through device memory (about 21 bf16 reads and writes per element of x,
+// against 2 for the TPU kernel, which keeps them in VMEM), and each stage
+// is a launch of its own. A faster design fuses fc1 -> GELU -> fc2 so the
+// hidden activation stays on chip and fuses the attention output into the
+// proj GEMM. Policy mode adds to the attention core a multiply and an add
+// per score and the count of the ties.
 //
 // Attention, what bounds it: bytes. At B=128, N=197 the core reads qkv
 // (~58 MB) and writes its output (~19 MB) and the CLS rows, ~0.023 ms at

@@ -18,7 +18,8 @@
 //
 // d2s_block_backward runs this sequence on the caller's stream (M = B*N
 // token rows; "wgrad" is ln_gemm.cuh's split-K weight-gradient GEMM, "gemm"
-// its A @ W with W in the (out, in) layout):
+// its A @ W with W in the (out, in) layout; the recompute runs the
+// forward's own GEMMs on the same tiles, so its qkv has the forward's bits):
 //   1. recompute  d2s_block_forward without its fc2 stage (x_mid with sa),
 //                 keeping qkv, the attention output O, x_mid, h = GELU(y),
 //                 the pre-activation
@@ -93,20 +94,24 @@
 //           d_policy (the threshold path, whose policy needs no gradient)
 //           none of this runs.
 //
-// What bounds it on the H100: tensor-core work. At B=128, N=197, C=384 the
-// ten projection products (two of the forward's four recomputed, each
-// backward projection twice, as dX and dW) are ~90% of the FLOPs, on the
-// mma.sync GEMM of ln_gemm.cuh; the weight-gradient GEMMs reduce over 25,216
-// rows into small matrices (dWproj is 384 x 384, nine 128-wide tiles), which
-// is why they split the rows. The intermediates (qkv, O, x_mid, h, y, dy,
-// dqkv, the LayerNorm outputs) go through device memory, about 0.6 GB at
-// that shape. The attention core recomputes the scores twice (once for
-// dK/dV, once for dQ), seven products where five would do (policy mode:
-// eight, with the tie recompute). A faster design would keep the MLP's
-// hidden activation on chip (fc1, GELU', fc2 fused per row tile), produce
-// dK/dV and dQ from one pass over the scores with dQ reduced across key
-// tiles, move the GEMMs to TMA + wgmma pipelines, and fuse the bias sums
-// into the gradient GEMMs' epilogues.
+// What bounds it on the H100: at B=128, N=197, C=384 the eleven projection
+// products (three of the forward's recomputed, each backward projection's
+// dX and dW) are ~238 GFLOP, ~90% of the work, tensor-core bound. They run
+// on ln_gemm.cuh's engine: TMA into a 4-stage mbarrier ring and wgmma
+// m64n128k16, the dX products reading the (out, in) weights as an
+// MN-major operand, the weight gradients with both operands MN-major and
+// their 25,216 rows split across the SMs into fp32 partials (dWproj is
+// 384 x 384, nine tiles) added in a fixed order. With the products near
+// the tensor cores' rate, what remains is memory-bound: the intermediates
+// (qkv, O, x_mid, h, y, dy, dqkv, the LayerNorm outputs, about 0.6 GB at
+// that shape) go through device memory, the two LayerNorm backwards and
+// the bias column sums read them again, and the attention core recomputes
+// the scores twice (once for dK/dV, once for dQ), seven products on
+// mma.sync where five would do (policy mode: eight, with the tie
+// recompute). A faster design would keep the MLP's hidden activation on
+// chip (fc1, GELU', fc2 fused per row tile), produce dK/dV and dQ from one
+// pass over the scores, and fuse the bias sums and the LayerNorm
+// backward's row reductions into the GEMMs' epilogues.
 #include <algorithm>
 
 #include "ln_gemm.cuh"

@@ -12,41 +12,63 @@
 //                 Bernoulli(keep)/keep draw), `rows` the tokens per sample
 //
 // `a` is bf16 (M, K) with rows grouped per sample, so a strided view such as
-// the spatial tokens x[:, 1:] of a (B, N+1, C) stream is read in place. The
-// weight comes in one of two layouts: the torch Linear layout (N, K)
-// row-major, W[k, n] = w[n, k], which is the forward's x @ w^T and the
-// column-major B operand of the tensor-core product; or (K, N) row-major,
-// W[k, n] = w[k, n], which is the backward's g @ w for a Linear weight w of
-// shape (out, in) = (K, N), loaded into shared memory as it lies and read
-// with transposing ldmatrix. With a LayerNorm, ln_stats_kernel first writes
-// each row's fp32 mean and 1/std (two-pass, the row held in registers) to a
-// scratch buffer, and the GEMM normalises each A slice in shared memory once
-// it has arrived.
+// the spatial tokens x[:, 1:] of a (B, N+1, C) stream is read in place: its
+// TMA tensor map is 3-D, (K, rows per sample, samples), and a tile never
+// spans two samples. The weight comes in one of two layouts: the torch
+// Linear layout (N, K) row-major, W[k, n] = w[n, k], the forward's x @ w^T,
+// a K-major B operand; or (K, N) row-major, W[k, n] = w[k, n], the
+// backward's g @ w for a Linear weight w of shape (out, in) = (K, N), an
+// MN-major B that wgmma reads transposed. With a LayerNorm, ln_stats_kernel
+// first writes each row's fp32 mean and 1/std (two-pass, the row held in
+// registers) to a scratch buffer. The weight gradient dW = P^T Q runs on
+// the same kernel with both operands MN-major.
 //
-// Design: CTA tile 128 x 128 x 64, 8 warps each owning a 64 x 32 sub-tile of
-// mma.sync m16n8k16 products (bf16 in, fp32 accumulate, the PTX ISA's
-// fragment layouts, fragments loaded with ldmatrix), fed by a 3-stage
-// cp.async ring; the accumulators are staged through shared memory so that
-// the epilogue reads and writes 16-byte vectors. What bounds it: the legacy
-// mma.sync path reaches only part of Hopper's bf16 rate, which needs wgmma;
-// a faster version would load with TMA into the ring and multiply with
-// wgmma on 64-row warpgroup tiles.
+// These are the projections that the TPU kernels (dense2sparse_vit_tpu/ops/
+// pallas/block.py, mlp.py, predictor.py, attention.py) compute with
+// jnp.dot on the MXU. What bounds them on the H100: operations. At B=256,
+// N=197 the block forward's four products are 178.5 GFLOP, ~0.18 ms at the
+// 989 TFLOP/s bf16 peak, against ~0.21 ms for the larger of bytes and
+// operations product by product; only wgmma reaches that rate (mma.sync,
+// which an earlier version of this engine ran, stays near 14% of it).
 //
-// The weight gradient dW[i, j] = sum_m P[m, i] * Q[m, j] (wgrad_kernel)
-// reduces over the B*N token rows, 25,216 at B=128, N=197, while its output
-// is a small weight matrix: a 128 x 128 tiling of a 384 x 384 dW has only 9
-// tiles for 132 SMs. So the row range is split across CTAs (split-K), each
-// CTA writes its fp32 partial product to a workspace, and reduce_partials
-// sums the partials in a fixed order: deterministic, no atomics. Both
-// operands lie row-major with the reduction along their rows and are read
-// with transposing ldmatrix. column_sums (bias gradients) splits rows the
-// same way.
+// Design: gemm_kernel, one persistent CTA per SM, five warpgroups. A
+// producer warpgroup has one thread issue TMA loads of 128 x 64 A and
+// 128 x 64 B slices, in the 128-byte swizzle, into a 4-stage ring, each
+// stage with a full and an empty mbarrier; out-of-bounds rows and columns
+// (M not a multiple of the tile, K = 96) arrive as zeros. Two MMA
+// warpgroups each own 64 rows of the 128 x 128 output tile and issue
+// wgmma.mma_async m64n128k16 (bf16 in, fp32 accumulate) from shared
+// memory, keeping one slice's products in flight while they wait for the
+// next. The LayerNorm prologue normalises the warpgroup's rows of A in
+// place in shared memory, with the expression above (which block_bwd.cu's
+// ln_apply repeats), then fences the writes to the async proxy before the
+// products read them (the SS form rather than A from registers: one
+// product form and one operand layout for every caller, and the pass over
+// A runs while the previous slice's products do). Each MMA warpgroup
+// stages its accumulators in an fp32 tile of its own and goes on to the
+// next tile; an epilogue warpgroup beside it applies the epilogue in the
+// order above and stores 16-byte vectors, so a tile's epilogue (GELU's
+// erf, the residual's reads) runs beside the next tile's products, and
+// the producer fills the ring across tiles. Registers move from the
+// producer to the MMA warpgroups by setmaxnreg. What bounds it now, on
+// the H100: at K = 384 the tile's six slices leave the LayerNorm pass and
+// the ring's refill in the way (~200 TFLOP/s for qkv and fc1 at B=256),
+// at K >= 1152 the L2's bandwidth for a 128 x 128 tile (~550 TFLOP/s for
+// fc2); wider tiles (or TMA multicast across a cluster) are the next step.
+// Tiles are a pure function of the shapes and each output tile's sum runs
+// in one CTA in K order, so a product gives the same bits on every run and
+// in the backward's recompute; the weight gradient, whose output is small
+// (a 384 x 384 dW is nine tiles), splits its rows across CTAs into fp32
+// partials that reduce_partials adds in a fixed order. No atomics.
+// column_sums (bias gradients) splits rows the same way.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <cmath>
 
 namespace d2s {
@@ -113,12 +135,6 @@ __device__ __forceinline__ void ld_b_kn(uint32_t (&r)[4], const bf16* corner, in
   ldmatrix_x4_trans(r, corner + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8);
 }
 
-// the A fragment of a 16 x 16 slice of A^T, where A is (K, M) row-major in
-// shared memory (pitch `ld`): the slice's rows are A's columns m0..m0+15
-__device__ __forceinline__ void ld_a_trans(uint32_t (&r)[4], const bf16* corner, int ld, int lane) {
-  ldmatrix_x4_trans(r, corner + ((lane & 7) + ((lane >> 4) & 1) * 8) * ld + ((lane >> 3) & 1) * 8);
-}
-
 // d/dv of the exact GELU
 __device__ __forceinline__ float gelu_grad(float v) {
   return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) +
@@ -139,26 +155,33 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-constexpr int GEMM_BM = 128;
-constexpr int GEMM_BN = 128;
-constexpr int GEMM_BK = 64;
-constexpr int GEMM_THREADS = 256;
-constexpr int GEMM_STAGES = 3;
-constexpr int GEMM_LDS = GEMM_BK + 8;  // bf16 pitch: conflict-free ldmatrix rows
-constexpr int GEMM_LDC = GEMM_BN + 4;  // fp32 pitch of the epilogue tile
-constexpr int GEMM_LDB_KN = GEMM_BN + 8;  // bf16 pitch of a (K, N) weight slice
-constexpr int GEMM_STAGE = (GEMM_BM + GEMM_BN) * GEMM_LDS;  // bf16 per stage
-constexpr int GEMM_SMEM_BYTES = GEMM_STAGES * GEMM_STAGE * 2;
-constexpr int GEMM_WM = 64;  // warp tile: 2 warps down, 4 across
-constexpr int GEMM_WN = 32;
-constexpr int GEMM_MT = GEMM_WM / 16;
-constexpr int GEMM_NT = GEMM_WN / 8;
-// 16-byte vectors of the A and B tiles each thread moves per K slice
-constexpr int GEMM_VECS = GEMM_BM * GEMM_BK / 8 / GEMM_THREADS;
-static_assert(GEMM_BM == GEMM_BN, "A and B slices share the copy mapping");
-static_assert(GEMM_VECS * GEMM_THREADS * 8 == GEMM_BM * GEMM_BK, "slice copy");
-static_assert(GEMM_BM * GEMM_LDC * 4 <= GEMM_SMEM_BYTES, "epilogue tile fits the ring");
-static_assert(GEMM_BK * GEMM_LDB_KN <= GEMM_BN * GEMM_LDS, "a (K, N) slice fits the B stage");
+// ---- the Hopper GEMM engine: TMA loads, wgmma products, an mbarrier ring ----
+
+constexpr int GEMM_BM = 128;  // two MMA warpgroups of 64 rows each
+constexpr int GEMM_BN = 128;  // one m64n128k16 product per warpgroup and 16-deep step
+constexpr int GEMM_BK = 64;   // 128 bytes of bf16: one row of the 128-byte swizzle
+constexpr int GEMM_STAGES = 4;
+constexpr int GEMM_THREADS = 640;  // producer, two MMA warpgroups, two epilogue warpgroups
+constexpr int GEMM_A_BYTES = GEMM_BM * GEMM_BK * 2;
+constexpr int GEMM_B_BYTES = GEMM_BN * GEMM_BK * 2;
+constexpr int GEMM_STAGE_BYTES = GEMM_A_BYTES + GEMM_B_BYTES;
+constexpr int GEMM_BOX_BYTES = 64 * GEMM_BK * 2;  // one 64 x 64 TMA box: 8 rows of 1024-byte atoms
+constexpr int GEMM_LDC = GEMM_BN + 8;  // fp32 pitch of the epilogue tile: conflict-free float2 stores
+constexpr int GEMM_C_BYTES = GEMM_BM * GEMM_LDC * 4;
+constexpr int GEMM_SMEM_BYTES =
+    1024 + GEMM_STAGES * GEMM_STAGE_BYTES + GEMM_C_BYTES + (2 * GEMM_STAGES + 4) * 8;
+// The weight gradient's split plan assumes the H100 SXM's 132 SMs, fixed so
+// that the plan, and with it the bits, depend on the shapes alone.
+constexpr int GEMM_PLAN_SMS = 132;
+static_assert(GEMM_SMEM_BYTES <= 232448, "one CTA per SM");
+static_assert(GEMM_A_BYTES == 2 * GEMM_BOX_BYTES && GEMM_B_BYTES == 2 * GEMM_BOX_BYTES,
+              "a tile is two 64-wide boxes");
+
+// GEMM_NK: A (rows, K) and the weight in the torch Linear layout (N, K),
+// both K-major; GEMM_KN: the weight (K, N), an MN-major B; GEMM_WGRAD: dW =
+// P^T Q, A = P^T and B = Q^T, both MN-major (P and Q lie with the reduction
+// along their rows).
+enum GemmMode : int { GEMM_NK = 0, GEMM_KN = 1, GEMM_WGRAD = 2 };
 
 struct GemmArgs {
   const bf16* a;         // rows of K values; see a_rows / a_bstride
@@ -182,8 +205,130 @@ struct GemmArgs {
   int act;
 };
 
+// The work tiles of one launch: `outer` x row_tiles x n_tiles, where outer
+// is the sample (A's rows come per sample) or, for the weight gradient, the
+// split of the reduction; each split reduces k_split elements.
+struct GemmTiles {
+  int row_tiles;
+  int n_tiles;
+  int tiles;
+  int k_split;
+};
+
 __device__ __forceinline__ const bf16* gemm_a_row(const GemmArgs& p, int m) {
   return p.a + (long long)(m / p.a_rows) * p.a_bstride + (long long)(m % p.a_rows) * p.K;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+// arrive once and add `bytes` to the transactions the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: a box of the tensor `map` at the given coordinates (innermost
+// first) into shared memory, completing `bytes` on the barrier; the parts
+// of the box outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory operand in the 128-byte swizzle: `lead` bytes
+// between 64-element column blocks of an MN-major operand (unused K-major),
+// `stride` bytes between groups of 8 rows (K-major) or 8 K-rows (MN-major)
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)((lead >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((stride >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving register traffic across the asynchronous
+// products that own the accumulators
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, fp32) += A (64 x 16) B (16 x 128), both bf16 from shared
+// memory; TA / TB: the operand is MN-major (transposed). d's layout: warp w
+// of the warpgroup holds rows 16w..16w+15, and d[4j..4j+3] are the mma.sync
+// c fragment of columns 8j..8j+7, (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // One warp per row: fp32 mean, then 1/std from the squared deviations (two
@@ -216,344 +361,434 @@ static __global__ void ln_stats_kernel(const GemmArgs p) {
   if (lane == 0) p.ln_stats[m] = make_float2(mu, rs);
 }
 
-template <bool W_KN>
-static __global__ void __launch_bounds__(GEMM_THREADS, 2) ln_gemm_kernel(const GemmArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float2 s_stats[GEMM_BM];
-  bf16* stages = reinterpret_cast<bf16*>(smem);  // [STAGES][A (BM x LDS) | B (BN x LDS)]
+// Persistent: each CTA walks the work tiles blockIdx.x, + gridDim.x, ...
+// with five warpgroups. The producer's one thread keeps the ring of
+// GEMM_STAGES (A, B) slices full by TMA; a slice's full barrier completes
+// when its bytes have landed, its empty barrier when the eight MMA warps
+// are done with it. Each of the two MMA warpgroups owns 64 rows of the
+// 128-row tile: it normalises its rows of A in place (LayerNorm prologue),
+// issues four m64n128k16 products per slice and keeps one slice's products
+// in flight while it waits for the next; at the tile's end it stages its
+// accumulators in its half of the fp32 tile (`staged`) and goes on to the
+// next tile's slices, which the producer has loaded meanwhile. Its
+// epilogue warpgroup applies the epilogue to those 64 rows, stores them
+// and frees the half (`drained`): one tile's epilogue runs beside the next
+// tile's products. Registers (setmaxnreg; 640 threads enter with 96 each):
+// the producer gives up 64 a thread, which the MMA warpgroups take (128
+// each, 64 of them accumulators); the epilogue warpgroups keep 96.
+template <int MODE>
+static __global__ void __launch_bounds__(GEMM_THREADS, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+                const __grid_constant__ CUtensorMap tma_b, const GemmArgs p, const GemmTiles t) {
+  extern __shared__ unsigned char gemm_smem[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~uintptr_t(1023));
+  float* c_tile = reinterpret_cast<float*>(ring + GEMM_STAGES * GEMM_STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(c_tile + GEMM_BM * GEMM_LDC);
+  uint64_t* empty = full + GEMM_STAGES;
+  uint64_t* staged = empty + GEMM_STAGES;  // per MMA warpgroup: its 64 rows staged
+  uint64_t* drained = staged + 2;         // and read by its epilogue warpgroup
+  constexpr bool WGRAD = MODE == GEMM_WGRAD;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.y * GEMM_BM;
-  const int n0 = blockIdx.x * GEMM_BN;
-  const int wm = (warp & 1) * GEMM_WM;
-  const int wn = (warp >> 1) * GEMM_WN;
-  const bool ln = p.ln_w != nullptr;
-
-  if (ln) {
-    for (int r = tid; r < GEMM_BM; r += GEMM_THREADS)
-      s_stats[r] = m0 + r < p.M ? p.ln_stats[m0 + r] : make_float2(0.f, 0.f);
-  }
-
-  auto issue = [&](int slice) {
-    const int k0 = slice * GEMM_BK;
-    bf16* As = stages + (slice % GEMM_STAGES) * GEMM_STAGE;
-    bf16* Bs = As + GEMM_BM * GEMM_LDS;
-#pragma unroll
-    for (int i = 0; i < GEMM_VECS; ++i) {
-      const int v = tid + i * GEMM_THREADS;
-      const int r = v / (GEMM_BK / 8);
-      const int c = (v % (GEMM_BK / 8)) * 8;
-      const bool ka = k0 + c < p.K;
-      const bool va = ka && m0 + r < p.M;
-      cp_async16(As + r * GEMM_LDS + c, va ? gemm_a_row(p, m0 + r) + k0 + c : p.a, va);
-      if (W_KN) {
-        const int rb = v / (GEMM_BN / 8);
-        const int cb = (v % (GEMM_BN / 8)) * 8;
-        const bool vb = k0 + rb < p.K && n0 + cb < p.N;
-        cp_async16(Bs + rb * GEMM_LDB_KN + cb,
-                   vb ? p.w + (long long)(k0 + rb) * p.N + n0 + cb : p.w, vb);
-      } else {
-        const bool vb = ka && n0 + r < p.N;
-        cp_async16(Bs + r * GEMM_LDS + c, vb ? p.w + (long long)(n0 + r) * p.K + k0 + c : p.w,
-                   vb);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GEMM_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
     }
-  };
-
-  float acc[GEMM_MT][GEMM_NT][4];
-#pragma unroll
-  for (int i = 0; i < GEMM_MT; ++i)
-#pragma unroll
-    for (int j = 0; j < GEMM_NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int slices = (p.K + GEMM_BK - 1) / GEMM_BK;
-#pragma unroll
-  for (int s = 0; s < GEMM_STAGES - 1; ++s) {
-    if (s < slices) issue(s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < slices; ++s) {
-    cp_async_wait<GEMM_STAGES - 2>();
-    __syncthreads();  // slice s has landed; slice s-1's stage is free
-    bf16* As = stages + (s % GEMM_STAGES) * GEMM_STAGE;
-    const bf16* Bs = As + GEMM_BM * GEMM_LDS;
-    if (ln) {
-      const int k0 = s * GEMM_BK;
-#pragma unroll
-      for (int i = 0; i < GEMM_VECS; ++i) {
-        const int v = tid + i * GEMM_THREADS;
-        const int r = v / (GEMM_BK / 8);
-        const int c = (v % (GEMM_BK / 8)) * 8;
-        if (m0 + r >= p.M || k0 + c >= p.K) continue;
-        uint4* slot = reinterpret_cast<uint4*>(As + r * GEMM_LDS + c);
-        uint4 val = *slot;
-        bf16* e = reinterpret_cast<bf16*>(&val);
-        const float2 st = s_stats[r];
-        const float4 g0 = __ldg(reinterpret_cast<const float4*>(p.ln_w + k0 + c));
-        const float4 g1 = __ldg(reinterpret_cast<const float4*>(p.ln_w + k0 + c + 4));
-        const float4 b0 = __ldg(reinterpret_cast<const float4*>(p.ln_b + k0 + c));
-        const float4 b1 = __ldg(reinterpret_cast<const float4*>(p.ln_b + k0 + c + 4));
-        const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-        const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          e[j] = __float2bfloat16((__bfloat162float(e[j]) - st.x) * st.y * gm[j] + bt[j]);
-        *slot = val;
-      }
-      __syncthreads();
+    for (int h = 0; h < 2; ++h) {
+      mbar_init(&staged[h], 4);
+      mbar_init(&drained[h], 4);
     }
-    if (s + GEMM_STAGES - 1 < slices) issue(s + GEMM_STAGES - 1);
-    cp_async_commit();
-#pragma unroll
-    for (int kk = 0; kk < GEMM_BK; kk += 16) {
-      uint32_t af[GEMM_MT][4];
-      uint32_t bfr[GEMM_NT][2];
-#pragma unroll
-      for (int i = 0; i < GEMM_MT; ++i)
-        ldmatrix_x4(af[i], As + (wm + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * GEMM_LDS +
-                               kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < GEMM_NT; j += 2) {
-        uint32_t r[4];
-        if (W_KN)
-          ld_b_kn(r, Bs + kk * GEMM_LDB_KN + wn + j * 8, GEMM_LDB_KN, lane);
-        else
-          ldmatrix_x4(r, Bs + (wn + j * 8 + (lane & 7) + (lane >> 4) * 8) * GEMM_LDS + kk +
-                             ((lane >> 3) & 1) * 8);
-        bfr[j][0] = r[0];
-        bfr[j][1] = r[1];
-        bfr[j + 1][0] = r[2];
-        bfr[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < GEMM_MT; ++i)
-#pragma unroll
-        for (int j = 0; j < GEMM_NT; ++j) mma_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring: reuse it for the tile
-
-  // accumulators -> fp32 tile; a thread holds column pairs (2t, 2t+1) of
-  // rows g and g + 8 of every 16 x 8 product
-  float* Cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < GEMM_MT; ++i)
-#pragma unroll
-    for (int j = 0; j < GEMM_NT; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<float2*>(Cs + (wm + i * 16 + g + half * 8) * GEMM_LDC + wn + j * 8 +
-                                   2 * t) =
-            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
   __syncthreads();
 
-  // 8 consecutive columns a thread: N % 8 == 0, so a chunk is all in or out
-  for (int e = tid; e < GEMM_BM * GEMM_BN / 8; e += GEMM_THREADS) {
-    const int r = e / (GEMM_BN / 8);
-    const int c = (e % (GEMM_BN / 8)) * 8;
-    const int m = m0 + r;
-    const int n = n0 + c;
-    if (m >= p.M || n >= p.N) continue;
-    const float4 c0 = *reinterpret_cast<const float4*>(Cs + r * GEMM_LDC + c);
-    const float4 c1 = *reinterpret_cast<const float4*>(Cs + r * GEMM_LDC + c + 4);
-    float v[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-    if (p.bias) {
-      const float4 b0 = __ldg(reinterpret_cast<const float4*>(p.bias + n));
-      const float4 b1 = __ldg(reinterpret_cast<const float4*>(p.bias + n + 4));
-      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] += bb[j];
+  // work tile -> (outer, first row, first column, reduction range)
+  auto decode = [&](int tile, int& outer, int& r0, int& n0, int& k_begin, int& slices) {
+    n0 = (tile % t.n_tiles) * GEMM_BN;
+    const int rest = tile / t.n_tiles;
+    r0 = (rest % t.row_tiles) * GEMM_BM;
+    outer = rest / t.row_tiles;
+    k_begin = WGRAD ? outer * t.k_split : 0;
+    const int k_end = WGRAD ? min(p.K, k_begin + t.k_split) : p.K;
+    slices = (k_end - k_begin + GEMM_BK - 1) / GEMM_BK;
+  };
+  const int role = threadIdx.x >> 7;  // 0 producer, 1 and 2 MMA, 3 and 4 their epilogues
+  const int ct = threadIdx.x & 127;
+  const int lane = ct & 31;
+
+  if (role == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
+    if (ct == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < t.tiles; tile += gridDim.x) {
+        int outer, r0, n0, k_begin, slices;
+        decode(tile, outer, r0, n0, k_begin, slices);
+        for (int kb = 0; kb < slices; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint64_t* bar = &full[stage];
+          mbar_expect_tx(bar, GEMM_STAGE_BYTES);
+          unsigned char* a_s = ring + stage * GEMM_STAGE_BYTES;
+          unsigned char* b_s = a_s + GEMM_A_BYTES;
+          const int k0 = k_begin + kb * GEMM_BK;
+          if (WGRAD) {  // P (tokens, I): boxes of 64 columns x 64 token rows
+            tma_load_2d(a_s, &tma_a, bar, r0, k0);
+            tma_load_2d(a_s + GEMM_BOX_BYTES, &tma_a, bar, r0 + 64, k0);
+          } else {  // A (K, rows per sample, samples)
+            tma_load_3d(a_s, &tma_a, bar, k0, r0, outer);
+          }
+          if (MODE == GEMM_NK) {  // W (N, K): 128 rows of 64
+            tma_load_2d(b_s, &tma_b, bar, k0, n0);
+          } else {  // W (K, N) or Q (tokens, J): boxes of 64 columns x 64 rows
+            tma_load_2d(b_s, &tma_b, bar, n0, k0);
+            tma_load_2d(b_s + GEMM_BOX_BYTES, &tma_b, bar, n0 + 64, k0);
+          }
+          if (++stage == GEMM_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
     }
-    const long long o = (long long)m * p.N + n;
-    if (p.preact)
-      *reinterpret_cast<uint4*>(p.preact + o) =
-          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                     pack_bf16(v[6], v[7]));
-    if (p.act == ACT_GELU) {
+    return;
+  }
+
+  if (role >= 3) {  // the epilogue of MMA warpgroup role - 3's 64 rows
+    const int h = role - 3;
+    // 8 consecutive columns a thread, the same in each of its 8 rows (N % 8
+    // == 0, so a chunk is all in or out); the global loads of 4 rows are
+    // issued before their arithmetic, so their latencies overlap
+    const int c = (ct & 15) * 8;
+    uint32_t parity = 0;
+    for (int tile = blockIdx.x; tile < t.tiles; tile += gridDim.x) {
+      int outer, r0, n0, k_begin, slices;
+      decode(tile, outer, r0, n0, k_begin, slices);
+      const int row_base = WGRAD ? 0 : outer * p.a_rows;  // the sample's first packed row
+      float* out_f32 =
+          p.out_f32 ? p.out_f32 + (WGRAD ? (long long)outer * p.M * p.N : 0) : nullptr;
+      const int n = n0 + c;
+      mbar_wait(&staged[h], parity);
+      if (n < p.N) {
+        float bb[8];
+        if (p.bias) {
+          const float4 b0 = __ldg(reinterpret_cast<const float4*>(p.bias + n));
+          const float4 b1 = __ldg(reinterpret_cast<const float4*>(p.bias + n + 4));
+          bb[0] = b0.x, bb[1] = b0.y, bb[2] = b0.z, bb[3] = b0.w;
+          bb[4] = b1.x, bb[5] = b1.y, bb[6] = b1.z, bb[7] = b1.w;
+        }
+#pragma unroll 1
+        for (int batch = 0; batch < 2; ++batch) {
+          uint4 gin[4], res[4];
+          float scl[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = gelu_exact(v[j]);
-    } else if (p.act == ACT_RELU) {
+          for (int i = 0; i < 4; ++i) {
+            const int r = 64 * h + (ct >> 4) + 8 * (i + 4 * batch);
+            if (r0 + r >= p.a_rows) continue;
+            const int m = row_base + r0 + r;
+            const long long o = (long long)m * p.N + n;
+            if (p.gelu_in) gin[i] = *reinterpret_cast<const uint4*>(p.gelu_in + o);
+            if (p.row_scale) scl[i] = __ldg(p.row_scale + m / p.scale_rows);
+            if (p.residual) res[i] = *reinterpret_cast<const uint4*>(p.residual + o);
+          }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = fmaxf(v[j], 0.f);
-    }
-    if (p.gelu_in) {
-      const uint4 gv = *reinterpret_cast<const uint4*>(p.gelu_in + o);
-      const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+          for (int i = 0; i < 4; ++i) {
+            const int r = 64 * h + (ct >> 4) + 8 * (i + 4 * batch);
+            if (r0 + r >= p.a_rows) continue;
+            const long long o = (long long)(row_base + r0 + r) * p.N + n;
+            const float4 c0 = *reinterpret_cast<const float4*>(c_tile + r * GEMM_LDC + c);
+            const float4 c1 = *reinterpret_cast<const float4*>(c_tile + r * GEMM_LDC + c + 4);
+            float v[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+            if (p.bias) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] *= gelu_grad(__bfloat162float(ge[j]));
-    }
-    if (p.row_scale) {
-      const float sc = p.row_scale[m / p.scale_rows];
+              for (int j = 0; j < 8; ++j) v[j] += bb[j];
+            }
+            if (p.preact)
+              *reinterpret_cast<uint4*>(p.preact + o) =
+                  make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                             pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+            if (p.act == ACT_GELU) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] *= sc;
-    }
-    if (p.residual) {
-      const uint4 rv = *reinterpret_cast<const uint4*>(p.residual + o);
-      const bf16* re = reinterpret_cast<const bf16*>(&rv);
+              for (int j = 0; j < 8; ++j) v[j] = gelu_exact(v[j]);
+            } else if (p.act == ACT_RELU) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] += __bfloat162float(re[j]);
+              for (int j = 0; j < 8; ++j) v[j] = fmaxf(v[j], 0.f);
+            }
+            if (p.gelu_in) {
+              const bf16* ge = reinterpret_cast<const bf16*>(&gin[i]);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) v[j] *= gelu_grad(__bfloat162float(ge[j]));
+            }
+            if (p.row_scale) {
+              const float sc = scl[i];
+#pragma unroll
+              for (int j = 0; j < 8; ++j) v[j] *= sc;
+            }
+            if (p.residual) {
+              const bf16* re = reinterpret_cast<const bf16*>(&res[i]);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) v[j] += __bfloat162float(re[j]);
+            }
+            if (out_f32) {
+              *reinterpret_cast<float4*>(out_f32 + o) = make_float4(v[0], v[1], v[2], v[3]);
+              *reinterpret_cast<float4*>(out_f32 + o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+            } else {
+              *reinterpret_cast<uint4*>(p.out + o) =
+                  make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                             pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&drained[h]);  // read: the MMA warps may stage the next
+      parity ^= 1;
     }
-    if (p.out_f32) {
-      *reinterpret_cast<float4*>(p.out_f32 + o) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(p.out_f32 + o + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-      *reinterpret_cast<uint4*>(p.out + o) =
-          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                     pack_bf16(v[6], v[7]));
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 128;\n");
+  const int wg = role - 1;  // MMA warpgroup: rows 64 wg .. 64 wg + 63 of the tile
+  const int warp = ct >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const bool ln = p.ln_w != nullptr;
+  float* cs = c_tile + wg * 64 * GEMM_LDC;
+  // the LayerNorm prologue's share of a slice: 16-byte chunk `pc` of rows
+  // ct / 8 + 16 i (i < 4), which holds columns 8 (pc ^ row % 8) .. + 7
+  const int ln_row = ct >> 3;
+  const int pc = ct & 7;
+  const int lc = pc ^ (ln_row & 7);
+  float4 lnp[4];  // ln_w, ln_b at the slice's columns 8 lc .. 8 lc + 7
+  auto load_ln = [&](int kb) {
+    const int k = kb * GEMM_BK + lc * 8;
+    if (k >= p.K) return;
+    lnp[0] = __ldg(reinterpret_cast<const float4*>(p.ln_w + k));
+    lnp[1] = __ldg(reinterpret_cast<const float4*>(p.ln_w + k + 4));
+    lnp[2] = __ldg(reinterpret_cast<const float4*>(p.ln_b + k));
+    lnp[3] = __ldg(reinterpret_cast<const float4*>(p.ln_b + k + 4));
+  };
+  int stage = 0;
+  uint32_t phase = 0;
+  uint32_t drain_parity = 1;  // the first tile finds the staging tile free
+
+  for (int tile = blockIdx.x; tile < t.tiles; tile += gridDim.x) {
+    int outer, r0, n0, k_begin, slices;
+    decode(tile, outer, r0, n0, k_begin, slices);
+    const int row_base = WGRAD ? 0 : outer * p.a_rows;  // the sample's first packed row
+    const int wr0 = r0 + wg * 64;                       // this warpgroup's first row
+    float2 st[4];
+    if (ln) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wr0 + ln_row + 16 * i;
+        st[i] = r < p.a_rows ? p.ln_stats[row_base + r] : make_float2(0.f, 0.f);
+      }
+      load_ln(0);
     }
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const int mma_slices = slices;  // the K slices whose products enter the sum
+    int prev = 0;
+    for (int kb = 0; kb < slices; ++kb) {
+      mbar_wait(&full[stage], phase);
+      unsigned char* a_s = ring + stage * GEMM_STAGE_BYTES;
+      const unsigned char* b_s = a_s + GEMM_A_BYTES;
+      if (ln) {
+        const float4 g0 = lnp[0], g1 = lnp[1], b0 = lnp[2], b1 = lnp[3];
+        const bool live = kb * GEMM_BK + lc * 8 < p.K;
+        if (kb + 1 < slices) load_ln(kb + 1);  // the next slice's, in flight meanwhile
+        if (live) {
+          const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+          const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = ln_row + 16 * i;
+            if (wr0 + r >= p.a_rows) continue;
+            uint4* slot = reinterpret_cast<uint4*>(a_s + (wg * 64 + r) * 128 + pc * 16);
+            uint4 val = *slot;
+            bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              e[j] = __float2bfloat16((__bfloat162float(e[j]) - st[i].x) * st[i].y * gm[j] + bt[j]);
+            *slot = val;
+          }
+        }
+        // the generic-proxy writes before the products' async-proxy reads
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      }
+      fence_acc(acc);
+      wgmma_fence();
+      if (kb < mma_slices) {
+#pragma unroll
+        for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
+          if (WGRAD)  // P^T: this warpgroup's box, 16 token rows of 128 bytes a step
+            wgmma_m64n128k16<1, 1>(acc,
+                                   wgmma_desc(a_s + wg * GEMM_BOX_BYTES + kk * 2048, 0, 1024),
+                                   wgmma_desc(b_s + kk * 2048, GEMM_BOX_BYTES, 1024));
+          else if (MODE == GEMM_KN)
+            wgmma_m64n128k16<0, 1>(acc, wgmma_desc(a_s + wg * GEMM_BOX_BYTES + kk * 32, 16, 1024),
+                                   wgmma_desc(b_s + kk * 2048, GEMM_BOX_BYTES, 1024));
+          else
+            wgmma_m64n128k16<0, 0>(acc, wgmma_desc(a_s + wg * GEMM_BOX_BYTES + kk * 32, 16, 1024),
+                                   wgmma_desc(b_s + kk * 32, 16, 1024));
+        }
+      }
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();  // the previous slice's products are done: release its stage
+      if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == GEMM_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // accumulators -> this warpgroup's 64 rows of the fp32 tile, once the
+    // epilogue warpgroup has read the previous tile's
+    mbar_wait(&drained[wg], drain_parity);
+    drain_parity ^= 1;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(cs + (warp * 16 + g + half * 8) * GEMM_LDC + j * 8 + 2 * tq) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&staged[wg]);
   }
 }
 
+// ---- host: tensor maps and launches ---------------------------------------
+
+using TensorMapEncoder = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                      const cuuint32_t*, CUtensorMapInterleave,
+                                      CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                      CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver-API call, through the runtime's entry
+// point table (the library links no libcuda)
+static TensorMapEncoder tensor_map_encoder() {
+  static const TensorMapEncoder fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncoder>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor of `rank` dims (innermost first; strides in bytes, from the
+// second dim on) read in boxes of `box`, in the 128-byte swizzle that the
+// products' descriptors name, out-of-bounds elements zero
+static bool encode_map(CUtensorMap* map, const void* base, cuuint32_t rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  const TensorMapEncoder encode = tensor_map_encoder();
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MODE>
+static cudaError_t launch_gemm_tiles(const CUtensorMap& ma, const CUtensorMap& mb,
+                                     const GemmArgs& p, const GemmTiles& t,
+                                     cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gemm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               GEMM_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  gemm_kernel<MODE><<<std::min(t.tiles, sms), GEMM_THREADS, GEMM_SMEM_BYTES, stream>>>(ma, mb, p,
+                                                                                       t);
+  return cudaGetLastError();
+}
+
 // Launches on `stream` (the row statistics first, when there is a
-// LayerNorm); returns the launch error (cudaSuccess = 0). Requires K and N
-// multiples of 8 and 16-byte aligned pointers.
+// LayerNorm); returns the launch error (cudaSuccess = 0), and
+// cudaErrorInvalidValue for arguments the engine does not take. Requires K
+// and N multiples of 8, M a multiple of a_rows, a_bstride a multiple of 8
+// where there is more than one sample, and 16-byte aligned pointers.
 static cudaError_t launch_ln_gemm(const GemmArgs& p, cudaStream_t stream) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.K % 8 != 0 || p.N % 8 != 0 || p.a_rows <= 0 ||
-      (p.ln_w && !p.ln_stats) || (!p.out) == (!p.out_f32) ||
+      p.M % p.a_rows != 0 || (p.ln_w && !p.ln_stats) || (!p.out) == (!p.out_f32) ||
       (p.row_scale && (p.scale_rows <= 0 || p.M % p.scale_rows != 0)))
     return cudaErrorInvalidValue;
+  const int samples = p.M / p.a_rows;
+  const long long bstride = samples > 1 ? p.a_bstride : (long long)p.a_rows * p.K;
+  if (samples > 1 && (bstride <= 0 || bstride % 8 != 0)) return cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  const cuuint64_t a_dims[3] = {(cuuint64_t)p.K, (cuuint64_t)p.a_rows, (cuuint64_t)samples};
+  const cuuint64_t a_strides[2] = {(cuuint64_t)p.K * 2, (cuuint64_t)bstride * 2};
+  const cuuint32_t a_box[3] = {GEMM_BK, GEMM_BM, 1};
+  if (!encode_map(&ma, p.a, 3, a_dims, a_strides, a_box)) return cudaErrorInvalidValue;
+  bool ok;
+  if (p.w_kn) {
+    const cuuint64_t dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.K};
+    const cuuint64_t strides[1] = {(cuuint64_t)p.N * 2};
+    const cuuint32_t box[2] = {64, GEMM_BK};
+    ok = encode_map(&mb, p.w, 2, dims, strides, box);
+  } else {
+    const cuuint64_t dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.N};
+    const cuuint64_t strides[1] = {(cuuint64_t)p.K * 2};
+    const cuuint32_t box[2] = {GEMM_BK, GEMM_BN};
+    ok = encode_map(&mb, p.w, 2, dims, strides, box);
+  }
+  if (!ok) return cudaErrorInvalidValue;
   if (p.ln_w) {
     constexpr int rows_per_cta = 8;
     ln_stats_kernel<<<(p.M + rows_per_cta - 1) / rows_per_cta, 32 * rows_per_cta, 0, stream>>>(p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const auto kernel = p.w_kn ? ln_gemm_kernel<true> : ln_gemm_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         GEMM_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + GEMM_BN - 1) / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM);
-  kernel<<<grid, GEMM_THREADS, GEMM_SMEM_BYTES, stream>>>(p);
-  return cudaGetLastError();
+  GemmTiles t;
+  t.row_tiles = (p.a_rows + GEMM_BM - 1) / GEMM_BM;
+  t.n_tiles = (p.N + GEMM_BN - 1) / GEMM_BN;
+  t.tiles = samples * t.row_tiles * t.n_tiles;
+  t.k_split = p.K;
+  return p.w_kn ? launch_gemm_tiles<GEMM_KN>(ma, mb, p, t, stream)
+                : launch_gemm_tiles<GEMM_NK>(ma, mb, p, t, stream);
 }
 
 // ---- weight gradient: dW (I, J) = P^T Q, P (M, I), Q (M, J), fp32 out -----
+//
+// gemm_kernel<GEMM_WGRAD> with the (I, J) tiles as its rows and columns and
+// the M token rows split across CTAs: each split writes its fp32 partial
+// product to a workspace, and reduce_partials adds the partials in a fixed
+// order, so the sum takes no atomics and gives the same bits on every run.
 
-constexpr int WG_BI = 128;
-constexpr int WG_BJ = 128;
-constexpr int WG_BK = 32;  // token rows per slice
-constexpr int WG_THREADS = 256;
-constexpr int WG_STAGES = 3;
-constexpr int WG_LD = WG_BI + 8;  // bf16 pitch: conflict-free transposing ldmatrix
-constexpr int WG_STAGE = 2 * WG_BK * WG_LD;  // bf16 per stage: the P slice, then Q's
-constexpr int WG_SMEM_BYTES = WG_STAGES * WG_STAGE * 2;
-constexpr int WG_VECS = WG_BK * WG_BI / 8 / WG_THREADS;  // 16-byte vectors per operand
-static_assert(WG_BI == WG_BJ, "P and Q slices share the copy mapping");
-static_assert(WG_VECS * WG_THREADS * 8 == WG_BK * WG_BI, "slice copy");
-
-struct WgradArgs {
-  const bf16* p;     // (M, I)
-  const bf16* q;     // (M, J)
-  float* partial;    // (splits, I, J)
-  int M, I, J;
-  int rows_per_split;  // a multiple of WG_BK
-};
-
-// CTA (j tile, i tile, split s): partial[s] tile = sum over the split's rows
-static __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* stages = reinterpret_cast<bf16*>(smem);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int j0 = blockIdx.x * WG_BJ;
-  const int i0 = blockIdx.y * WG_BI;
-  const int m_begin = blockIdx.z * a.rows_per_split;
-  const int m_end = min(a.M, m_begin + a.rows_per_split);
-  const int wi = (warp & 1) * 64;
-  const int wj = (warp >> 1) * 32;
-
-  auto issue = [&](int slice) {
-    const int m0 = m_begin + slice * WG_BK;
-    bf16* Ps = stages + (slice % WG_STAGES) * WG_STAGE;
-    bf16* Qs = Ps + WG_BK * WG_LD;
-#pragma unroll
-    for (int i = 0; i < WG_VECS; ++i) {
-      const int v = tid + i * WG_THREADS;
-      const int r = v / (WG_BI / 8);
-      const int c = (v % (WG_BI / 8)) * 8;
-      const bool vm = m0 + r < m_end;
-      const bool vp = vm && i0 + c < a.I;
-      cp_async16(Ps + r * WG_LD + c, vp ? a.p + (long long)(m0 + r) * a.I + i0 + c : a.p, vp);
-      const bool vq = vm && j0 + c < a.J;
-      cp_async16(Qs + r * WG_LD + c, vq ? a.q + (long long)(m0 + r) * a.J + j0 + c : a.q, vq);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int slices = m_end > m_begin ? (m_end - m_begin + WG_BK - 1) / WG_BK : 0;
-#pragma unroll
-  for (int s = 0; s < WG_STAGES - 1; ++s) {
-    if (s < slices) issue(s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < slices; ++s) {
-    cp_async_wait<WG_STAGES - 2>();
-    __syncthreads();
-    if (s + WG_STAGES - 1 < slices) issue(s + WG_STAGES - 1);
-    cp_async_commit();
-    const bf16* Ps = stages + (s % WG_STAGES) * WG_STAGE;
-    const bf16* Qs = Ps + WG_BK * WG_LD;
-#pragma unroll
-    for (int kk = 0; kk < WG_BK; kk += 16) {
-      uint32_t af[4][4];
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ld_a_trans(af[i], Ps + kk * WG_LD + wi + i * 16, WG_LD, lane);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t r[4];
-        ld_b_kn(r, Qs + kk * WG_LD + wj + j * 8, WG_LD, lane);
-        bfr[j][0] = r[0];
-        bfr[j][1] = r[1];
-        bfr[j + 1][0] = r[2];
-        bfr[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  float* out = a.partial + (long long)blockIdx.z * a.I * a.J;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = i0 + wi + i * 16 + g + half * 8;
-        const int col = j0 + wj + j * 8 + 2 * t;
-        if (row < a.I && col < a.J)
-          *reinterpret_cast<float2*>(out + (long long)row * a.J + col) =
-              make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-      }
-}
-
-// How many row splits wgrad uses for an (I, J) gradient over M rows: enough
-// CTAs for two per SM of the H100's 132, each split at least 128 rows.
+// How many row splits wgrad uses for an (I, J) gradient over M rows: at most
+// one work tile per SM of the H100's 132 (the kernel keeps one CTA on an
+// SM), each split a multiple of GEMM_BK rows and at least 128.
 static inline void wgrad_plan(int M, int I, int J, int* splits, int* rows_per_split) {
-  const int tiles = ((I + WG_BI - 1) / WG_BI) * ((J + WG_BJ - 1) / WG_BJ);
-  int s = (2 * 132 + tiles - 1) / tiles;
+  const int tiles = ((I + GEMM_BM - 1) / GEMM_BM) * ((J + GEMM_BN - 1) / GEMM_BN);
+  int s = GEMM_PLAN_SMS / tiles;
   const int most = (M + 127) / 128;
   if (s > most) s = most;
   if (s < 1) s = 1;
   int rows = (M + s - 1) / s;
-  rows = (rows + WG_BK - 1) / WG_BK * WG_BK;
+  rows = (rows + GEMM_BK - 1) / GEMM_BK * GEMM_BK;
   *rows_per_split = rows;
   *splits = (M + rows - 1) / rows;
 }
@@ -586,16 +821,32 @@ static cudaError_t launch_reduce(const float* partial, int splits, long long len
 static cudaError_t launch_wgrad(const bf16* p, const bf16* q, float* dw, float* workspace, int M,
                                 int I, int J, cudaStream_t stream) {
   if (M <= 0 || I <= 0 || J <= 0 || I % 8 != 0 || J % 8 != 0) return cudaErrorInvalidValue;
-  WgradArgs a{p, q, workspace, M, I, J, 0};
-  int splits;
-  wgrad_plan(M, I, J, &splits, &a.rows_per_split);
-  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         WG_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((J + WG_BJ - 1) / WG_BJ, (I + WG_BI - 1) / WG_BI, splits);
-  wgrad_kernel<<<grid, WG_THREADS, WG_SMEM_BYTES, stream>>>(a);
-  err = cudaGetLastError();
+  int splits, rows;
+  wgrad_plan(M, I, J, &splits, &rows);
+  GemmArgs g{};
+  g.a = p;
+  g.a_rows = I;
+  g.w = q;
+  g.out_f32 = workspace;
+  g.M = I;
+  g.N = J;
+  g.K = M;
+  g.act = ACT_NONE;
+  CUtensorMap ma, mb;
+  const cuuint32_t box[2] = {64, GEMM_BK};
+  const cuuint64_t p_dims[2] = {(cuuint64_t)I, (cuuint64_t)M};
+  const cuuint64_t p_strides[1] = {(cuuint64_t)I * 2};
+  const cuuint64_t q_dims[2] = {(cuuint64_t)J, (cuuint64_t)M};
+  const cuuint64_t q_strides[1] = {(cuuint64_t)J * 2};
+  if (!encode_map(&ma, p, 2, p_dims, p_strides, box) ||
+      !encode_map(&mb, q, 2, q_dims, q_strides, box))
+    return cudaErrorInvalidValue;
+  GemmTiles t;
+  t.row_tiles = (I + GEMM_BM - 1) / GEMM_BM;
+  t.n_tiles = (J + GEMM_BN - 1) / GEMM_BN;
+  t.tiles = splits * t.row_tiles * t.n_tiles;
+  t.k_split = rows;
+  const cudaError_t err = launch_gemm_tiles<GEMM_WGRAD>(ma, mb, g, t, stream);
   if (err != cudaSuccess) return err;
   return launch_reduce(workspace, splits, (long long)I * J, dw, stream);
 }

@@ -33,9 +33,9 @@
 // 178.5 GOP of int8 (0.090 ms at the dense int8 peak of 1,979 TOP/s) and
 // the attention dots 15.3 GFLOP of bf16 (0.015 ms at 989 TFLOP/s): it is
 // operations-bound in principle. This first version does not come near:
-// the GEMM is block.cu's mma.sync design with int8 operands
-// (m16n8k32.s8.s8.s32, 128 x 128 x 128-byte tiles, a 3-stage cp.async
-// ring), not wgmma, and the intermediates (codes, qkv, attn, the fp32
+// the GEMM is an mma.sync design with int8 operands (m16n8k32.s8.s8.s32,
+// 128 x 128 x 128-byte tiles, a 3-stage cp.async ring), not ln_gemm.cuh's
+// TMA + wgmma engine, and the intermediates (codes, qkv, attn, the fp32
 // x_mid, the (B*N, 4C) activation) go through device memory, about 30
 // bytes moved per element of x. A faster design quantizes inside the GEMM
 // epilogue that produces each activation (a row's absmax needs the whole
@@ -47,7 +47,7 @@
 // mean and variance, the absmax and the codes from there. The int8 GEMM (qgemm_kernel): the PTX ISA's fragments
 // of m16n8k32 with s8 operands lie in bytes exactly as m16n8k16's bf16 ones
 // do (a register holds four int8 where it held two bf16), so the tiles are
-// loaded with the same ldmatrix as ln_gemm.cuh's, over byte columns; the
+// loaded with ln_gemm.cuh's ldmatrix helper, over byte columns; the
 // weight's torch layout (out, in) is the `col` operand as it lies.
 #include "ln_gemm.cuh"
 

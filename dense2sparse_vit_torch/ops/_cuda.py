@@ -48,13 +48,17 @@ _SIGNATURES = {
     "d2s_attention_block_backward_scratch_bytes": [_I] * 5,
     "d2s_attention_variant_forward": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],
     "d2s_attention_variant_supported": [_I] * 3,
+    "d2s_ln_gemm": [_P, _I, _L, _P, _I, _P, _P, _P, _F, _P, _P, _P, _I, _P, _P, _P, _P]
+                   + [_I] * 4 + [_P],
+    "d2s_wgrad": [_P] * 4 + [_I] * 3 + [_P],
+    "d2s_wgrad_workspace_bytes": [_I] * 3,
     "d2s_predictor_forward": (
         [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         + [_P] * 4 + [_P] * 4 + [_I, _F, _P]
     ),
 }
 
-_RESTYPES = {"d2s_block_backward_scratch_bytes": _L,
+_RESTYPES = {"d2s_block_backward_scratch_bytes": _L, "d2s_wgrad_workspace_bytes": _L,
              "d2s_mlp_residual_backward_scratch_bytes": _L,
              "d2s_attention_block_backward_scratch_bytes": _L}
 

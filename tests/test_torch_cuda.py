@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import dense2sparse_vit_torch.ops.block as block_ops
+import dense2sparse_vit_torch.ops.gemm as gemm_ops
 from dense2sparse_vit_torch import ops
 from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
 from dense2sparse_vit_torch.models import (
@@ -961,3 +962,133 @@ def test_two_phase_variant_refuses_what_does_not_fit(cuda):
     x = torch.zeros((1, 800, 384), device=cuda, dtype=torch.bfloat16)
     with torch.inference_mode(), pytest.raises(ValueError, match="v3"):
         ops.fused_attention_variant(3, x, *w6, 6)
+
+
+# ---- the shared GEMM engine (csrc/ln_gemm.cuh) alone -----------------------
+
+# the products the block kernels give the engine, as chip_smoke.py's phase 28
+# times them: (name, N, K, epilogue options), the forward's in the (N, K)
+# weight layout, the backward's dX products in the (K, N) layout
+GEMM_PRODUCTS = {name: (n, k, opts, kn) for kn, table in ((False, chip_smoke.GEMM_FWD),
+                                                          (True, chip_smoke.GEMM_DX))
+                 for name, n, k, opts in table}
+GEMM_TOL = chip_smoke.GEMM_TOL  # one bf16 rounding of the output and the LayerNorm's
+
+
+def _gemm_check(a, w, kn, kw):
+    got = gemm_ops.ln_gemm(a, w, w_kn=kn, **kw)
+    want = gemm_ops.ln_gemm_reference(a, w, w_kn=kn, **kw)
+    torch.cuda.synchronize()
+    if kw.get("preact"):
+        (got, got_pre), (want, want_pre) = got, want
+        _assert_close(got_pre, want_pre, GEMM_TOL)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _assert_close(got, want, GEMM_TOL)
+
+
+@pytest.mark.parametrize("what", sorted(GEMM_PRODUCTS))
+@pytest.mark.parametrize("m", [1, 63, 65, 25216, 50432])
+def test_ln_gemm_at_the_block_products_shapes(cuda, m, what):
+    n, k, opts, kn = GEMM_PRODUCTS[what]
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    a, w, kw, _ = chip_smoke.gemm_inputs(torch, gen, m, n, k, kn, opts)
+    _gemm_check(a, w, kn, kw)
+
+
+@pytest.mark.parametrize("kn", [False, True])
+@pytest.mark.parametrize("opts", [("ln", "bias"), ("bias", "residual", "row_scale"),
+                                  ("ln", "bias", "gelu", "preact"), ("gelu_in",),
+                                  ("out_f32",), ("bias", "relu")])
+def test_ln_gemm_every_epilogue_option_in_both_layouts(cuda, opts, kn):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a, w, kw, _ = chip_smoke.gemm_inputs(torch, gen, 8 * 197, 384, 384, kn, opts)
+    _gemm_check(a, w, kn, kw)
+
+
+@pytest.mark.parametrize("b,n,d,width,act", [(256, 197, 384, 384, "gelu"), (8, 197, 384, 192, "gelu"),
+                                              (3, 97, 96, 96, "relu"), (1, 69, 384, 96, "gelu")])
+def test_ln_gemm_on_a_strided_view(cuda, b, n, d, width, act):
+    """The predictor's first unit reads the spatial tokens x[:, 1:] in place:
+    (n - 1) rows per sample, samples n * d apart, never a multiple of the
+    tile's 128 rows; ragged K = 96 too."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((b, n, d), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((width, d), generator=gen, device=cuda) / d ** 0.5).to(torch.bfloat16)
+    ln = (torch.ones(d, device=cuda), torch.zeros(d, device=cuda), 1e-5)
+    kw = {"ln": ln, "bias": torch.randn(width, generator=gen, device=cuda), "act": act}
+    xs = x[:, 1:]
+    assert xs.is_contiguous() == (b == 1)
+    _gemm_check(xs, w, False, kw)
+
+
+@pytest.mark.parametrize("i,j", [(384, 1536), (1536, 384), (384, 384), (1152, 384)])
+@pytest.mark.parametrize("m", [1, 63, 65, 25216])
+def test_weight_grad_against_fp32(cuda, m, i, j):
+    gen = torch.Generator(device=cuda).manual_seed(m + i)
+    p = torch.randn((m, i), generator=gen, device=cuda).to(torch.bfloat16)
+    q = torch.randn((m, j), generator=gen, device=cuda).to(torch.bfloat16)
+    got = gemm_ops.weight_grad(p, q)
+    want = p.float().t() @ q.float()
+    torch.cuda.synchronize()
+    # bf16 products summed in fp32 on both sides, in other orders
+    _assert_close(got, want, 1e-4)
+
+
+def test_gemm_runs_give_equal_bits(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a, w, kw, _ = chip_smoke.gemm_inputs(torch, gen, 25216, 1536, 384, False,
+                                         ("ln", "bias", "gelu", "preact"))
+    first = gemm_ops.ln_gemm(a, w, **kw)
+    second = gemm_ops.ln_gemm(a, w, **kw)
+    p, q = a, first[0]
+    dw1, dw2 = gemm_ops.weight_grad(p, q), gemm_ops.weight_grad(p, q)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+    assert torch.equal(dw1, dw2)
+
+
+@pytest.mark.parametrize("policy", [False, True])
+def test_backward_recomputes_the_forwards_qkv_bit_for_bit(cuda, policy, monkeypatch):
+    """The policy backward finds a row's ties by comparing recomputed scores
+    with the max the forward stored, so step 1 of d2s_block_backward must
+    give the forward's qkv bits: read from the first region of its scratch."""
+    B, N, C = 16, 197, 384
+    blk = _sharpen(Block(C, 6, use_fused=True), seed=5).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((B, N, C), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((B, N, C), generator=gen, device=cuda).to(torch.bfloat16)
+    pol = _policy(gen, B, N, cuda) if policy else None
+    scratch = []
+    empty = torch.empty
+
+    def spy(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        if t.dtype == torch.uint8:
+            scratch.append(t)
+        return t
+
+    with torch.no_grad():
+        w = blk.kernel_weights(torch.bfloat16)
+        _, st = ops.fused_transformer_block(x, w, 6, pol, stages=True)
+        monkeypatch.setattr(torch, "empty", spy)
+        ops.fused_transformer_block_backward(x, g, w, 6, pol)
+        monkeypatch.setattr(torch, "empty", empty)
+        torch.cuda.synchronize()
+    recomputed = scratch[0][: B * N * 3 * C * 2].view(torch.bfloat16).view(B, N, 3 * C)
+    assert torch.equal(recomputed, st["qkv"])
+
+
+def test_ln_gemm_refuses_what_the_engine_does_not_take(cuda):
+    a = torch.zeros((64, 384), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((384, 384), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gemm_ops.ln_gemm(a[:, :380], w[:, :380])
+    with pytest.raises(TypeError):
+        gemm_ops.ln_gemm(a.float(), w)
+    # the C entry itself: no output, or M not a whole number of samples
+    lib = _cuda.library()
+    stream = _cuda.stream_handle(cuda)
+    args = [a.data_ptr(), 64, 0, w.data_ptr(), 0, 0, 0, 0, 0.0, 0, 0, 0, 0, 0, 0]
+    assert lib.d2s_ln_gemm(*args, 0, 0, 64, 384, 384, 0, stream) != 0
+    args[1] = 60
+    assert lib.d2s_ln_gemm(*args, a.data_ptr(), 0, 64, 384, 384, 0, stream) != 0

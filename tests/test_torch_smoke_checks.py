@@ -573,3 +573,38 @@ def test_the_variants_check_rejects_v2_with_head_a_scores_twice(monkeypatch):
     x, params = _variant_input()
     with torch.no_grad(), pytest.raises(AssertionError, match="v2 N="):
         chip_smoke.check_variant(torch, 2, x, params, H)
+
+
+def test_check_block_rejects_a_qkv_short_of_its_last_k_slice(monkeypatch, capsys):
+    """The qkv product without its last 64-deep K slice, what
+    `--plant-fault gemm` does to every product of the GEMM engine: the qkv
+    stage sees it."""
+    real_block = ops.fused_transformer_block
+
+    def faulty_block(x, w, *args, **kwargs):
+        y, st = real_block(x, w, *args, **kwargs)
+        h = block_ops.layer_norm(x, w["ln1_w"], w["ln1_b"], 1e-6)[..., :-64]
+        st["qkv"] = block_ops.linear(h, w["wqkv"][:, :-64].contiguous(), w["bqkv"])
+        return y, st
+
+    monkeypatch.setattr(ops, "fused_transformer_block", faulty_block)
+    x, w, args = _block_input()
+    with torch.inference_mode(), pytest.raises(AssertionError, match="qkv"):
+        chip_smoke.check_block(torch, x, w, *args, block=0)
+    line = _last_line(capsys)
+    assert line["rel_err"]["qkv"] > 2 * line["tol_rel"]["qkv"]
+
+
+def test_gemm_spills_reads_each_gemm_kernels_ptxas_line():
+    log = "\n".join([
+        "ptxas info    : Function properties for _ZN3d2s11gemm_kernelILi0EEEv14CUtensorMap",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Function properties for _ZN3d2s12qgemm_kernelENS_9QGemmArgsE",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Function properties for _ZN3d2s11gemm_kernelILi2EEEv14CUtensorMap",
+        "    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads",
+    ])
+    spills = chip_smoke.gemm_spills(log)
+    assert sorted(spills) == ["_ZN3d2s11gemm_kernelILi0EEEv14CUtensorMap",
+                              "_ZN3d2s11gemm_kernelILi2EEEv14CUtensorMap"]
+    assert spills["_ZN3d2s11gemm_kernelILi2EEEv14CUtensorMap"].startswith("16 bytes stack")
