@@ -16,6 +16,8 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault attn_core   # the block's attention-core check
     python3 chip_smoke.py --plant-fault scatter     # the scatter's bit-equality
     python3 chip_smoke.py --plant-fault gemm        # the block's qkv-stage check
+    python3 chip_smoke.py --plant-fault ln_bwd      # the LayerNorm backward's check
+    python3 chip_smoke.py --plant-fault colsum      # the column sums' check
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -134,7 +136,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  plain version and timed by CUDA events and from a CUDA
                  graph beside one torch call (`F.linear`, `torch.matmul`);
                  the built library's SASS: wgmma (HGMMA) in every GEMM
-                 kernel and no mma.sync (HMMA).
+                 kernel and no mma.sync (HMMA);
+ 29. norm        the block backward's LayerNorm backward (csrc/norm.cu,
+                 `ops.norm.ln_backward`) and bias column sums on a B=128
+                 top-k step's own activations at N=197/138/97/68 (its two
+                 calls per block backward; the column-sum kernel on the
+                 bf16 g, dy, dqkv and the fp32 da; the bf16 sums folded into
+                 the weight gradients, dW's bits unchanged), each against
+                 its plain version, then timed beside it, one torch call
+                 (native_layer_norm_backward; a.sum(0, dtype=float32)) and
+                 its bound.
 The build phase fails if ptxas reports a spill in a GEMM kernel.
 The pruning student runs its serving, timing and export phases without
 capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
@@ -163,7 +174,9 @@ core stage of `check_block`); --plant-fault scatter with a scatter that
 leaves out each row's last matching index, on phase 6's bit-equality check;
 --plant-fault gemm with a GEMM whose consumers skip the last K slice's
 products (`ln_gemm.cuh`), on phase 3's walk (the qkv stage of
-`check_block`).
+`check_block`); --plant-fault ln_bwd with a LayerNorm backward that leaves
+z mean(dz z) out of dx, and --plant-fault colsum with column sums that
+leave out the last split's rows (`norm.cu`), on phase 29's checks.
 """
 
 from __future__ import annotations
@@ -224,8 +237,20 @@ KERNEL_NAMES = (
     "fused_mlp_residual_backward", "fused_transformer_block[scaled]",
     "fused_transformer_block_backward[scaled]", "attention_block_forward",
     "attention_block_backward", "attention_block_backward_policy", "attention_variant",
+    "ln_bwd", "column_sums",
 )
 NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
+
+
+def norm_launches(blocks=0, halves=0) -> dict:
+    """The LayerNorm backward's and the column sums' launches inside `blocks`
+    whole-block backwards (two LayerNorm backwards and dbproj's fp32 column
+    sums each; the bf16 bias sums ride on the weight gradients) and `halves`
+    half-block backwards (the MLP half's or the attention half's: one
+    LayerNorm backward, no column-sum kernel)."""
+    return {"ln_bwd": 2 * blocks + halves, "column_sums": blocks}
+
+
 PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
                "fused_gather_tokens": 3}
 # one train step: the teacher's 12 blocks with their CLS rows; the student's
@@ -233,7 +258,7 @@ PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg
 # predictors train through their plain layers
 PER_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block": 12,
                   "fused_transformer_block_cls": 12, "fused_transformer_block_backward": 12,
-                  "fused_gather_tokens": 3, "fused_scatter_tokens": 3}
+                  "fused_gather_tokens": 3, "fused_scatter_tokens": 3, **norm_launches(12)}
 # threshold serving: 3 plain blocks before the first stage, 9 policy blocks
 # from it on, 3 predictors, nothing gathered
 PER_THRESHOLD_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 3,
@@ -244,7 +269,7 @@ PER_POLICY_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block": 3,
                          "fused_transformer_block[policy]": 9,
                          "fused_transformer_block_cls": 12,
                          "fused_transformer_block_backward": 3,
-                         "fused_transformer_block_backward[policy]": 9}
+                         "fused_transformer_block_backward[policy]": 9, **norm_launches(12)}
 # the gumbel baseline's eval forward: 3 gathers, 12 plain blocks (its
 # predictor has no kernel)
 PER_GUMBEL_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_gather_tokens": 3}
@@ -269,7 +294,8 @@ PER_EVAL_STEP = {
 PER_ATTN_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block_cls": 12,
                        "fused_attention_packed": 12, "fused_attention_backward_packed": 12,
                        "fused_mlp_residual": 12, "fused_mlp_residual_backward": 12,
-                       "fused_gather_tokens": 3, "fused_scatter_tokens": 3}
+                       "fused_gather_tokens": 3, "fused_scatter_tokens": 3,
+                       **norm_launches(halves=12)}
 # its eval forward: 12 CLS-row blocks, 3 gathers
 PER_ATTN_FORWARD = {**NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_gather_tokens": 3}
 ATTN_STAGE_FEEDERS = (2, 5, 8)  # the blocks whose CLS rows rank a stage's tokens
@@ -334,6 +360,12 @@ SOURCES = {
     "attention_variant": (
         "dense2sparse_vit_torch/csrc/attn_variants.cu",
         "scripts/attn_variants.py:171"),
+    "ln_bwd": (
+        "dense2sparse_vit_torch/csrc/norm.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:663"),
+    "column_sums": (
+        "dense2sparse_vit_torch/csrc/norm.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:679"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -349,7 +381,9 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # (block.cu, attn_core) pass 2 of the attention core stopping one 16-key block
 # short of N; (gather.cu) the scatter leaving out each row's last source;
 # (ln_gemm.cuh, gemm) the GEMM's consumers skipping the last K slice's
-# products; and the stage whose check must reject it
+# products; (norm.cu) the LayerNorm backward without z mean(dz z) (ln_bwd), the
+# column sums without the last split's rows (colsum); and the stage whose
+# check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
@@ -370,6 +404,10 @@ FAULTS = {
     "scatter": ("gather.cu", "k <= last; ++k", "k < last; ++k", "scatter"),
     "gemm": ("ln_gemm.cuh", "const int mma_slices = slices;", "const int mma_slices = slices - 1;",
              "'qkv'"),
+    "ln_bwd": ("norm.cu", "rs * (dz - mdz - z * mdzz)", "rs * (dz - mdz)", "ln_bwd"),
+    "colsum": ("norm.cu", "const int m1 = min(M, m0 + rows);",
+               "const int m1 = blockIdx.y + 1 == gridDim.y ? m0 : min(M, m0 + rows);",
+               "column_sums"),
 }
 
 
@@ -745,7 +783,9 @@ def build_trainer(torch, dev, fused: bool, mode: str = "topk"):
     teacher = create_model(HEADLINE_TEACHER, use_fused_attention=fused, device=dev,
                            dtype="bfloat16", generator=torch.Generator().manual_seed(2))
     cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=train)
-    opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH)
+    # the gumbel baseline trains its backbone from epoch 0 (JAX train/loop.py)
+    opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH,
+                         backbone_warmup_freeze=mode != "gumbel")
     opt.count = cfg.train.warmup_epochs * STEPS_PER_EPOCH
     if mode == "gumbel":
         noise = torch.Generator(device=dev).manual_seed(7)
@@ -885,6 +925,10 @@ def plant_fault(dev, kind: str) -> int:
         elif kind in ("attn_core", "gemm"):
             model, plain, images, outputs = phase_serve(torch, dev, Tally())
             phase_check(torch, model, plain, images, outputs, Tally())
+        elif kind in ("ln_bwd", "colsum"):
+            cases = capture_norm_cases(torch, dev)
+            with torch.no_grad():
+                check_norm(torch, cases)
         elif kind == "scatter":
             student, teacher, step = build_trainer(torch, dev, fused=True)
             images, labels = train_batch(torch, dev)
@@ -2236,12 +2280,12 @@ PER_T2T_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block_cls": 14,
                       "fused_transformer_block": 1, "fused_transformer_block[scaled]": 13,
                       "fused_transformer_block_backward": 1,
                       "fused_transformer_block_backward[scaled]": 13,
-                      "fused_gather_tokens": 3, "fused_scatter_tokens": 3}
+                      "fused_gather_tokens": 3, "fused_scatter_tokens": 3, **norm_launches(14)}
 # the dense t2t_vit_14's forward and backward at the same rate
 PER_T2T_DENSE_STEP = {**NO_LAUNCHES, "fused_transformer_block": 1,
                       "fused_transformer_block[scaled]": 13,
                       "fused_transformer_block_backward": 1,
-                      "fused_transformer_block_backward[scaled]": 13}
+                      "fused_transformer_block_backward[scaled]": 13, **norm_launches(14)}
 B_T2T_DENSE = 64
 # check_droppath's scales: Bernoulli(0.7)/0.7, so that both values occur often
 DROPPATH_CHECK_RATE = 0.3
@@ -2607,7 +2651,8 @@ def phase_time_droppath(torch, dev, student, rec, serve, tally, smi):
 
 # the trainable half-block's forward and backward, in plain and in policy mode
 PER_ATTN_BLOCK_TRAINABLE = {**NO_LAUNCHES, "attention_block_forward": 2,
-                            "attention_block_backward": 1, "attention_block_backward_policy": 1}
+                            "attention_block_backward": 1, "attention_block_backward_policy": 1,
+                            **norm_launches(halves=2)}
 HALF_BLOCK_KEYS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj")
 # this slice's kernels and the main path that runs them: the launches of the
 # kernel_sweep and attn_variants runs (phases 26, 27), each row's time per call
@@ -3148,6 +3193,258 @@ def phase_gemm(torch, dev, smi):
         raise AssertionError(f"GEMM kernels' SASS: {counts}")
 
 
+# ---- 29. the LayerNorm backward and the bias column sums ------------------
+
+# dx's fp32 copy, relative to its largest magnitude, and a column sum (d_ln_w,
+# d_ln_b, a bias gradient), relative to the sum of its terms' magnitudes:
+# fp32 sums in other orders on both sides
+LN_TOL = 1e-5
+SUM_TOL = 1e-5
+FP32_FLOPS_PER_S = 67e12  # the H100 SXM's fp32 rate outside the tensor cores
+
+
+def norm_inputs(torch, x, g, w, num_heads, scale, ln_eps):
+    """The inputs of a block backward's two LayerNorm backwards and four bias
+    sums at a block's input x and output cotangent g, from plain torch
+    autograd through the block's forward (plain mode, no branch scales):
+    {"ln": {"ln2": (dy, x_mid, stats, ln2_w, g: the residual, fp32_copy),
+            "ln1": (dy, x, stats, ln1_w, dx_mid fp32, fp32_copy)},
+     "sums": {"g": g, "dy": fc1's cotangent, "dqkv": qkv's, "da": dx_mid fp32},
+     "wgrad": {name: (P, Q)} of the three weight gradients the bf16 sums ride on}.
+    The LayerNorms' cotangents enter in fp32, as the kernel's GEMMs give them."""
+    import torch.nn.functional as F
+
+    from dense2sparse_vit_torch.ops import norm
+    from dense2sparse_vit_torch.ops.block import attention_reference, layer_norm, linear
+
+    B, N, C = x.shape
+    rows = lambda t: t.reshape(B * N, -1).contiguous()  # noqa: E731
+    with torch.enable_grad():
+        h1 = layer_norm(x, w["ln1_w"], w["ln1_b"], ln_eps).requires_grad_()
+        qkv = linear(h1, w["wqkv"], w["bqkv"])
+        qkv_l = qkv.detach().requires_grad_()
+        attn = attention_reference(qkv_l, num_heads, scale)
+        attn_l = attn.detach().requires_grad_()
+        branch = linear(attn_l, w["wproj"], w["bproj"])
+        mid = (x + branch).detach()
+        h2 = layer_norm(mid, w["ln2_w"], w["ln2_b"], ln_eps).requires_grad_()
+        pre = linear(h2, w["w1"], w["b1"])
+        pre_l = pre.detach().requires_grad_()
+        hid = F.gelu(pre_l.float()).to(x.dtype)
+        hid_l = hid.detach().requires_grad_()
+        (dhid,) = torch.autograd.grad(linear(hid_l, w["w2"], w["b2"]), hid_l, g)
+        (dy,) = torch.autograd.grad(hid, pre_l, dhid)
+        (dln2,) = torch.autograd.grad(pre, h2, dy)
+        st2 = norm.ln_stats(mid, ln_eps)
+        ln2 = (rows(dln2).float(), rows(mid), st2, w["ln2_w"], rows(g), True)
+        dmid_b, dmid_f, _, _ = norm.ln_backward_reference(*ln2[:5], fp32_copy=True)
+        (dattn,) = torch.autograd.grad(branch, attn_l, dmid_b.reshape(B, N, C))
+        (dqkv,) = torch.autograd.grad(attn, qkv_l, dattn)
+        (dln1,) = torch.autograd.grad(qkv, h1, dqkv)
+    ln1 = (rows(dln1).float(), rows(x), norm.ln_stats(x, ln_eps), w["ln1_w"], dmid_f, False)
+    return {"ln": {"ln2": ln2, "ln1": ln1},
+            "sums": {"g": rows(g), "dy": rows(dy), "dqkv": rows(dqkv), "da": dmid_f},
+            "wgrad": {"w2": (rows(g), rows(hid)), "w1": (rows(dy), rows(h2.detach())),
+                      "wqkv": (rows(dqkv), rows(h1.detach()))}}
+
+
+def capture_norm_cases(torch, dev):
+    """One B=128 top-k train step's own activations at the first block of
+    each width (N = 197, 138, 97, 68; the real output cotangent at the last
+    block, a seeded one of its scale at the others, as
+    `check_block_backwards`): [(N, block backwards at that width, inputs)]."""
+    student, teacher, step = build_trainer(torch, dev, fused=True)
+    images, labels = train_batch(torch, dev)
+    rec = capture_train_step(torch, student, teacher, step, images, labels)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    scale_g = rec["last_g"].float().std().item()
+    widths = {}
+    for i, x in rec["block_in"].items():
+        widths.setdefault(x.shape[1], []).append(i)
+    cases = []
+    for n, idxs in widths.items():
+        i = idxs[-1]
+        x, blk = rec["block_in"][i], student.blocks[i]
+        g = rec["last_g"].contiguous() if i == len(student.blocks) - 1 else (
+            torch.randn(x.shape, generator=gen, device=dev) * scale_g).to(x.dtype)
+        inputs = norm_inputs(torch, x, g, rec["weights"][i], blk.attn.num_heads,
+                             blk.attn.scale, blk.norm1.eps)
+        cases.append((n, len(idxs), inputs))
+    return cases
+
+
+def check_ln_bwd(torch, case, n, which):
+    """Hold the LayerNorm backward kernel against its plain version on one
+    call's inputs: dx's fp32 copy within LN_TOL, its bf16 dx that copy
+    rounded, d_ln_w and d_ln_b within SUM_TOL; returns dx's largest error."""
+    from dense2sparse_vit_torch.ops import norm
+
+    dy, x, st, ln_w, res, _ = case
+    dx, dx_f, d_w, d_b = norm.ln_backward(dy, x, st, ln_w, res, fp32_copy=True)
+    _, want_f, want_w, want_b = norm.ln_backward_reference(dy, x, st, ln_w, res, fp32_copy=True)
+    err, ref = rel_err(torch, dx_f, want_f)
+    rounded = bool(torch.equal(dx, dx_f.to(torch.bfloat16)))
+    z = (x.float() - st[:, :1]) * st[:, 1:]
+    sums = {k: ((got - want).abs() / (terms.abs().sum(0) + 1e-30)).max().item()
+            for k, got, want, terms in (("d_ln_w", d_w, want_w, dy * z),
+                                        ("d_ln_b", d_b, want_b, dy))}
+    emit({"phase": "norm", "kernel": "ln_bwd", "call": which, "shape": list(x.shape), "N": n,
+          "dx_rel_err": err / ref, "bf16_dx_rounded": rounded, "sum_rel_err": sums,
+          "tol": {"dx": LN_TOL, "sums": SUM_TOL}})
+    if not (err <= LN_TOL * ref and rounded and all(v <= SUM_TOL for v in sums.values())):
+        raise AssertionError(f"ln_bwd N={n} {which}: dx {err / ref}, bf16 dx the rounded fp32 "
+                             f"dx {rounded}, sums {sums}")
+    return err
+
+
+def check_column_sums(torch, a, n, name):
+    """Hold the column-sum kernel against its plain version: each column
+    within SUM_TOL of the sum of its terms' magnitudes; returns the largest
+    error."""
+    from dense2sparse_vit_torch.ops import norm
+
+    got, want = norm.column_sums(a), norm.column_sums_reference(a)
+    errs = (got - want).abs()
+    rel = (errs / (a.float().abs().sum(0) + 1e-30)).max().item()
+    emit({"phase": "norm", "kernel": "column_sums", "tensor": name, "shape": list(a.shape),
+          "dtype": str(a.dtype), "N": n, "rel_err": rel, "tol": SUM_TOL})
+    if not rel <= SUM_TOL:
+        raise AssertionError(f"column_sums N={n} {name} {tuple(a.shape)}: {rel}")
+    return errs.max().item()
+
+
+def check_folded_sums(torch, p, q, n, name):
+    """The bias sums folded into the weight gradient: db within SUM_TOL of
+    the plain column sums, dW the bits of the product without them."""
+    from dense2sparse_vit_torch.ops.gemm import weight_grad
+
+    dw, db = weight_grad(p, q, bias=True)
+    same = bool(torch.equal(dw, weight_grad(p, q)))
+    rel = ((db - p.float().sum(0)).abs() / (p.float().abs().sum(0) + 1e-30)).max().item()
+    emit({"phase": "norm", "kernel": "wgrad+bias", "weight": name, "shape": list(p.shape),
+          "N": n, "db_rel_err": rel, "dw_bits_unchanged": same, "tol": SUM_TOL})
+    if not (rel <= SUM_TOL and same):
+        raise AssertionError(f"wgrad bias sums N={n} {name}: {rel}, dW unchanged {same}")
+
+
+def check_norm(torch, cases, tally=None):
+    """Every check of phase 29 on the captured cases."""
+    for n, _, inputs in cases:
+        for which, case in inputs["ln"].items():
+            err = check_ln_bwd(torch, case, n, which)
+            if tally is not None:
+                tally.err("ln_bwd", err)
+        for name, a in inputs["sums"].items():
+            err = check_column_sums(torch, a, n, name)
+            if tally is not None and name == "da":
+                tally.err("column_sums", err)
+        for name, (p, q) in inputs["wgrad"].items():
+            check_folded_sums(torch, p, q, n, name)
+
+
+def ln_bwd_bound(M, C, res_bytes, fp32_copy) -> dict:
+    """dy (fp32), x and the residual read, dx written (bf16, and fp32 with
+    the copy), the row statistics and gamma read, d_ln_w and d_ln_b written;
+    ~12 fp32 operations an element."""
+    nbytes = M * C * (4 + 2 + res_bytes + 2 + (4 if fp32_copy else 0)) + 8 * M + 12 * C
+    return {"ops_ms": 12 * M * C / FP32_FLOPS_PER_S * 1e3,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def sums_bound(a) -> dict:
+    M, N = a.shape
+    return {"ops_ms": M * N / FP32_FLOPS_PER_S * 1e3,
+            "bytes_ms": (M * N * a.element_size() + 4 * N) / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_norm(torch, dev, tally, smi):
+    """Phase 29: the LayerNorm backward and the bias column sums on the B=128
+    top-k step's own activations at N = 197, 138, 97, 68, C = 384: each held
+    against its plain version (`check_norm`: both LayerNorm backwards of a
+    block backward, the column-sum kernel on g, dy, dqkv in bf16 and da in
+    fp32, the bias sums folded into the three weight gradients), then timed
+    beside its plain version, one torch call and its bound: the LayerNorm
+    backward beside torch.ops.aten.native_layer_norm_backward (dy, x and
+    gamma in fp32, x widened outside the timing; no residual add), the
+    column sums beside a.sum(0, dtype=torch.float32), the folded sums as
+    the weight gradient's time with them less its time without. Times by
+    CUDA events and from a CUDA graph; the kernels line takes the graph's
+    (on the main path the block backward launches both kernels from its C
+    entry, without the standalone wrappers' host cost, which the events'
+    times of these ~10-60 us calls carry)."""
+    from dense2sparse_vit_torch.ops import norm
+    from dense2sparse_vit_torch.ops.gemm import weight_grad
+
+    def timed(kernel, plain, library):
+        k_ms, p_ms = paired_ms(torch, kernel, plain, iters=20)
+        return {"ms": k_ms, "graph_ms": graph_ms(torch, kernel), "plain_ms": p_ms,
+                "plain_graph_ms": graph_ms(torch, plain),
+                "library_ms": cuda_ms(torch, library, iters=20),
+                "library_graph_ms": graph_ms(torch, library)}
+
+    cases = capture_norm_cases(torch, dev)
+    with torch.no_grad():
+        check_norm(torch, cases, tally)
+        step = dict.fromkeys(("ln_bwd", "ln_bwd_plain", "ln_bwd_library", "ln_bwd_bound",
+                              "column_sums", "column_sums_plain", "column_sums_library",
+                              "column_sums_bound", "folded_sums", "bf16_sums_standalone",
+                              "bf16_sums_library", "bf16_sums_bound"), 0.0)
+        for n, calls, inputs in cases:
+            pair = {"k": 0.0, "p": 0.0, "l": 0.0, "b": {"ops_ms": 0.0, "bytes_ms": 0.0}}
+            for which, (dy, x, st, ln_w, res, fp32_copy) in inputs["ln"].items():
+                M, C = x.shape
+                xf, mean, rstd = x.float(), st[:, :1].contiguous(), st[:, 1:].contiguous()
+                zeros = torch.zeros_like(ln_w)
+                t = timed(lambda: norm.ln_backward(dy, x, st, ln_w, res, fp32_copy),
+                          lambda: norm.ln_backward_reference(dy, x, st, ln_w, res, fp32_copy),
+                          lambda: torch.ops.aten.native_layer_norm_backward(
+                              dy, xf, [C], mean, rstd, ln_w, zeros, [True, True, True]))
+                b = ln_bwd_bound(M, C, res.element_size(), fp32_copy)
+                emit({"phase": "norm", "kernel": "ln_bwd", "call": which, "shape": [M, C],
+                      "N": n, "fp32_copy": fp32_copy, "residual": str(res.dtype), **t,
+                      "bound_ms": max(b.values()), "calls_per_step": calls, "card": smi})
+                pair["k"] += t["graph_ms"]
+                pair["p"] += t["plain_graph_ms"]
+                pair["l"] += t["library_graph_ms"]
+                pair["b"] = {k: pair["b"][k] + b[k] for k in b}
+            tally.add("ln_bwd", calls, pair["k"], pair["p"], pair["b"], pair["l"])
+            step["ln_bwd"] += calls * pair["k"]
+            step["ln_bwd_plain"] += calls * pair["p"]
+            step["ln_bwd_library"] += calls * pair["l"]
+            step["ln_bwd_bound"] += calls * max(pair["b"].values())
+            for name, a in inputs["sums"].items():
+                t = timed(lambda: norm.column_sums(a), lambda: norm.column_sums_reference(a),
+                          lambda: a.sum(0, dtype=torch.float32))
+                b = sums_bound(a)
+                emit({"phase": "norm", "kernel": "column_sums", "tensor": name,
+                      "shape": list(a.shape), "dtype": str(a.dtype), "N": n, **t,
+                      "bound_ms": max(b.values()), "card": smi})
+                if name == "da":  # the main path's column-sum launch: dbproj
+                    tally.add("column_sums", calls, t["graph_ms"], t["plain_graph_ms"], b,
+                              t["library_graph_ms"])
+                    step["column_sums"] += calls * t["graph_ms"]
+                    step["column_sums_plain"] += calls * t["plain_graph_ms"]
+                    step["column_sums_library"] += calls * t["library_graph_ms"]
+                    step["column_sums_bound"] += calls * max(b.values())
+                else:
+                    step["bf16_sums_standalone"] += calls * t["graph_ms"]
+                    step["bf16_sums_library"] += calls * t["library_graph_ms"]
+                    step["bf16_sums_bound"] += calls * max(b.values())
+            for name, (p, q) in inputs["wgrad"].items():
+                without, with_ = [], []
+                for _ in range(2):  # in turns: without, with, with, without
+                    without.append(graph_ms(torch, lambda: weight_grad(p, q)))
+                    with_.append(graph_ms(torch, lambda: weight_grad(p, q, bias=True)))
+                    with_.append(graph_ms(torch, lambda: weight_grad(p, q, bias=True)))
+                    without.append(graph_ms(torch, lambda: weight_grad(p, q)))
+                w_ms, wo_ms = statistics.median(with_), statistics.median(without)
+                step["folded_sums"] += calls * (w_ms - wo_ms)
+                emit({"phase": "norm", "kernel": "wgrad+bias", "weight": name,
+                      "shape": list(p.shape), "N": n, "graph_ms": w_ms,
+                      "without_bias_graph_ms": wo_ms, "card": smi})
+    emit({"phase": "norm", "per_step_graph_ms": step, "card": smi})
+
+
 def gemm_spills(build_log: str) -> dict:
     """ptxas's spill line for each GEMM kernel of the build log."""
     lines = build_log.splitlines()
@@ -3246,6 +3543,9 @@ def main(argv=None) -> int:
     # ---- 28. the GEMM engine alone ------------------------------------------
     torch.cuda.empty_cache()
     phase_gemm(torch, dev, smi)
+    # ---- 29. the LayerNorm backward and the bias column sums ------------------
+    torch.cuda.empty_cache()
+    phase_norm(torch, dev, tally, smi)
 
     emit(tally.line())
     print(smi, flush=True)

@@ -27,19 +27,21 @@
 //                 policy: max, denominator, ties); LN1(x) and LN2(x_mid)
 //                 again, with their row statistics (ln_apply)
 //   2. MLP half   with gm = sm g (scale_rows; g itself without sm):
-//                 dW2 = gm^T h, db2 = sum gm; dy = (gm W2) * GELU'(y) in the
-//                 gemm's epilogue; dW1 = dy^T LN2(x_mid), db1 = sum dy;
-//                 dLN2 = dy W1 (fp32); LayerNorm backward (ln_bwd) with
-//                 dgamma2, dbeta2, giving dx_mid = LN-bwd + g
+//                 dW2 = gm^T h with db2 = sum gm (the wgrad's column sums);
+//                 dy = (gm W2) * GELU'(y) in the gemm's epilogue; dW1 =
+//                 dy^T LN2(x_mid) with db1 = sum dy; dLN2 = dy W1 (fp32);
+//                 LayerNorm backward (norm.cu's ln_bwd) with dgamma2,
+//                 dbeta2, giving dx_mid = LN-bwd + g
 //   3. attn half  with da = sa dx_mid (dx_mid itself without sa):
-//                 dWproj = da^T O, dbproj = sum da; dO = da Wproj
+//                 dWproj = da^T O (on da's bf16 copy), dbproj = sum da over
+//                 the fp32 da (norm.cu's column_sums); dO = da Wproj
 //   4. core       attention_bwd, one CTA per (sample, head), all of that
 //                 sample-head's Q, K, V and dO in shared memory (N <= 384;
 //                 policy mode N <= 352): P = exp(scale q.k - lse),
 //                 D = rowsum(dO * O), dS = P * (dO V^T - D), dV = P^T dO,
 //                 dQ = scale dS K, dK = scale dS^T Q, all on mma.sync;
 //                 writes packed dqkv (policy mode below)
-//   5. LN1 input  dWqkv = dqkv^T LN1(x), dbqkv = sum dqkv; dLN1 = dqkv Wqkv
+//   5. LN1 input  dWqkv = dqkv^T LN1(x) with dbqkv = sum dqkv; dLN1 = dqkv Wqkv
 //                 (fp32); LayerNorm backward with dgamma1, dbeta1, giving
 //                 dx = LN-bwd + dx_mid
 // Every sum over the token rows is split over CTAs into fp32 partials that
@@ -104,14 +106,15 @@
 // 384 x 384, nine tiles) added in a fixed order. With the products near
 // the tensor cores' rate, what remains is memory-bound: the intermediates
 // (qkv, O, x_mid, h, y, dy, dqkv, the LayerNorm outputs, about 0.6 GB at
-// that shape) go through device memory, the two LayerNorm backwards and
-// the bias column sums read them again, and the attention core recomputes
-// the scores twice (once for dK/dV, once for dQ), seven products on
-// mma.sync where five would do (policy mode: eight, with the tie
-// recompute). A faster design would keep the MLP's hidden activation on
-// chip (fc1, GELU', fc2 fused per row tile), produce dK/dV and dQ from one
-// pass over the scores, and fuse the bias sums and the LayerNorm
-// backward's row reductions into the GEMMs' epilogues.
+// that shape) go through device memory, the two LayerNorm backwards (at
+// about their bytes bound, norm.cu) and dbproj's column sums read them
+// again (the bf16 bias sums ride on the weight gradients' reads), and the
+// attention core recomputes the scores twice (once for dK/dV, once for
+// dQ), seven products on mma.sync where five would do (policy mode: eight,
+// with the tie recompute). A faster design would keep the MLP's hidden
+// activation on chip (fc1, GELU', fc2 fused per row tile), produce dK/dV
+// and dQ from one pass over the scores, and fuse the LayerNorm backward's
+// row reductions into the dX GEMMs' epilogues.
 #include <algorithm>
 
 #include "ln_gemm.cuh"
@@ -215,102 +218,22 @@ static cudaError_t launch_scale_rows(const bf16* in_b, const float* in_f, const 
   return cudaGetLastError();
 }
 
-// ---- LayerNorm backward ---------------------------------------------------
+// ---- norm.cu: the LayerNorm backward and the fp32 column sums -------------
 
-constexpr int LNB_ROWS = 64;   // rows per CTA (8 warps, a row per warp at a time)
-constexpr int LNB_MAXCPL = 24;  // columns per lane: C <= 768
-
-// For y = LN(x) * gamma + beta with the cotangent dy (fp32) of y:
-//   z = (x - mu) * rstd, dz = dy * gamma,
-//   dx = rstd * (dz - mean(dz) - z * mean(dz * z)) + residual,
-// written as fp32 and/or bf16; each CTA also writes its partial sums of
-// dgamma = sum dy * z and dbeta = sum dy to part[0][blockIdx] and
-// part[1][blockIdx] (each gridDim.x x C).
-static __global__ void __launch_bounds__(256)
-    ln_bwd_kernel(const float* __restrict__ dy, const bf16* __restrict__ x,
-                  const float2* __restrict__ stats, const float* __restrict__ gamma,
-                  const bf16* __restrict__ res_b, const float* __restrict__ res_f,
-                  float* __restrict__ dx_f, bf16* __restrict__ dx_b, float* __restrict__ part,
-                  int M, int C) {
-  extern __shared__ float sh[];  // [2][8][C]: per-warp dgamma, dbeta
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int cpl = C / 32;
-  float pg[LNB_MAXCPL], pb[LNB_MAXCPL];
-#pragma unroll
-  for (int j = 0; j < LNB_MAXCPL; ++j) pg[j] = pb[j] = 0.f;
-  const int m0 = blockIdx.x * LNB_ROWS;
-  const int m1 = min(M, m0 + LNB_ROWS);
-  for (int m = m0 + warp; m < m1; m += 8) {
-    const float2 st = stats[m];
-    const long long r = (long long)m * C;
-    float dz[LNB_MAXCPL], z[LNB_MAXCPL];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < LNB_MAXCPL; ++j) {
-      if (j < cpl) {
-        const int c = lane + 32 * j;
-        const float d = dy[r + c];
-        const float zz = (__bfloat162float(x[r + c]) - st.x) * st.y;
-        pg[j] += d * zz;
-        pb[j] += d;
-        const float dzz = d * gamma[c];
-        s1 += dzz;
-        s2 += dzz * zz;
-        dz[j] = dzz;
-        z[j] = zz;
-      }
-    }
-    s1 = warp_sum(s1) / C;
-    s2 = warp_sum(s2) / C;
-#pragma unroll
-    for (int j = 0; j < LNB_MAXCPL; ++j) {
-      if (j < cpl) {
-        const int c = lane + 32 * j;
-        float v = st.y * (dz[j] - s1 - z[j] * s2);
-        if (res_b) v += __bfloat162float(res_b[r + c]);
-        if (res_f) v += res_f[r + c];
-        if (dx_f) dx_f[r + c] = v;
-        if (dx_b) dx_b[r + c] = __float2bfloat16(v);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < LNB_MAXCPL; ++j) {
-    if (j < cpl) {
-      sh[warp * C + lane + 32 * j] = pg[j];
-      sh[(8 + warp) * C + lane + 32 * j] = pb[j];
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float a = 0.f, b = 0.f;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      a += sh[w * C + c];
-      b += sh[(8 + w) * C + c];
-    }
-    part[(long long)blockIdx.x * C + c] = a;
-    part[(long long)(gridDim.x + blockIdx.x) * C + c] = b;
-  }
-}
-
-static inline int ln_bwd_ctas(int M) { return (M + LNB_ROWS - 1) / LNB_ROWS; }
-
-static cudaError_t launch_ln_bwd(const float* dy, const bf16* x, const float2* stats,
-                                 const float* gamma, const bf16* res_b, const float* res_f,
-                                 float* dx_f, bf16* dx_b, float* dgamma, float* dbeta,
-                                 float* work, int M, int C, cudaStream_t stream) {
-  if (C % 32 != 0 || C / 32 > LNB_MAXCPL) return cudaErrorInvalidValue;
-  const int ctas = ln_bwd_ctas(M);
-  ln_bwd_kernel<<<ctas, 256, 2 * 8 * C * sizeof(float), stream>>>(
-      dy, x, stats, gamma, res_b, res_f, dx_f, dx_b, work, M, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = launch_reduce(work, ctas, C, dgamma, stream);
-  if (err != cudaSuccess) return err;
-  return launch_reduce(work + (long long)ctas * C, ctas, C, dbeta, stream);
-}
+// dx = rstd (dz - mean dz - z mean(dz z)) + residual (res_b or res_f or
+// none) into dx_f and/or dx_b, with dgamma, dbeta; work:
+// ln_bwd_workspace_floats(M, C) floats
+cudaError_t launch_ln_bwd(const float* dy, const bf16* x, const float2* stats,
+                          const float* gamma, const bf16* res_b, const float* res_f,
+                          float* dx_f, bf16* dx_b, float* dgamma, float* dbeta, float* work,
+                          int M, int C, cudaStream_t stream);
+long long ln_bwd_workspace_floats(int M, int C);
+bool ln_bwd_takes(int C);  // the widths the LayerNorm backward takes
+// out (N) = the column sums of a (M, N) fp32; work:
+// column_sums_workspace_floats(M, N, 4) floats
+cudaError_t launch_column_sums(const float* a, float* out, float* work, int M, int N,
+                               cudaStream_t stream);
+long long column_sums_workspace_floats(int M, int N, int elem);
 
 // ---- attention core backward ----------------------------------------------
 
@@ -757,15 +680,14 @@ static size_t carve_attn(char* base, int B, int N, int C, int H, bool policy, At
   s->st1 = reinterpret_cast<float2*>(take(M * sizeof(float2)));
   const int m = (int)M;
   long long work = std::max(wgrad_workspace_floats(m, C, C), wgrad_workspace_floats(m, 3 * C, C));
-  work = std::max(work, column_sums_workspace_floats(m, 3 * C));
-  work = std::max(work, 2LL * ln_bwd_ctas(m) * C);
+  work = std::max(work, ln_bwd_workspace_floats(m, C));
   s->work = reinterpret_cast<float*>(take(work * e4));
   return off;
 }
 
 static bool attn_shapes_ok(int B, int N, int C, int H, bool policy) {
   return B > 0 && N > 0 && N <= (policy ? AB_POLICY_MAX_N : AB_MAX_N) && H > 0 &&
-         C == H * AB_HD && C / 32 <= LNB_MAXCPL && (long long)B * N <= (1LL << 31) - 1;
+         C == H * AB_HD && ln_bwd_takes(C) && (long long)B * N <= (1LL << 31) - 1;
 }
 
 // ---- scratch ----------------------------------------------------------------
@@ -812,8 +734,8 @@ static size_t carve(char* base, int B, int N, int C, int H, int hidden, bool pol
   work = std::max(work, wgrad_workspace_floats(m, hidden, C));
   work = std::max(work, wgrad_workspace_floats(m, C, C));
   work = std::max(work, wgrad_workspace_floats(m, 3 * C, C));
-  work = std::max(work, column_sums_workspace_floats(m, std::max(3 * C, hidden)));
-  work = std::max(work, 2LL * ln_bwd_ctas(m) * C);
+  work = std::max(work, column_sums_workspace_floats(m, C, 4));
+  work = std::max(work, ln_bwd_workspace_floats(m, C));
   s->work = reinterpret_cast<float*>(take(work * e4));
   return off;
 }
@@ -854,11 +776,10 @@ static cudaError_t mlp_backward(const bf16* g, const bf16* g_res, const bf16* x,
                                 bf16* dx_b, bf16* dy, float* dln, float* work, int M, int C,
                                 int hidden, cudaStream_t st) {
   cudaError_t err;
-  if ((err = launch_wgrad(g, h, d_w2, work, M, C, hidden, st)) != cudaSuccess) return err;
-  if ((err = launch_column_sums(g, d_b2, work, M, C, st)) != cudaSuccess) return err;
+  if ((err = launch_wgrad(g, h, d_w2, work, M, C, hidden, st, d_b2)) != cudaSuccess) return err;
   if ((err = gemm_kn(g, w2, M, C, hidden, y, dy, nullptr, st)) != cudaSuccess) return err;
-  if ((err = launch_wgrad(dy, ln_x, d_w1, work, M, hidden, C, st)) != cudaSuccess) return err;
-  if ((err = launch_column_sums(dy, d_b1, work, M, hidden, st)) != cudaSuccess) return err;
+  if ((err = launch_wgrad(dy, ln_x, d_w1, work, M, hidden, C, st, d_b1)) != cudaSuccess)
+    return err;
   if ((err = gemm_kn(dy, w1, M, hidden, C, nullptr, nullptr, dln, st)) != cudaSuccess) return err;
   return launch_ln_bwd(dln, x, stats, ln_w, g_res, nullptr, dx_f, dx_b, d_ln_w, d_ln_b, work, M,
                        C, st);
@@ -887,19 +808,18 @@ static size_t carve_mlp(char* base, int M, int C, int hidden, MlpScratch* s) {
   s->stats = reinterpret_cast<float2*>(take(m * sizeof(float2)));
   long long work = std::max(wgrad_workspace_floats(M, C, hidden),
                             wgrad_workspace_floats(M, hidden, C));
-  work = std::max(work, column_sums_workspace_floats(M, std::max(C, hidden)));
-  work = std::max(work, 2LL * ln_bwd_ctas(M) * C);
+  work = std::max(work, ln_bwd_workspace_floats(M, C));
   s->work = reinterpret_cast<float*>(take(work * e4));
   return off;
 }
 
 static bool mlp_shapes_ok(int M, int C, int hidden) {
-  return M > 0 && C > 0 && C % 32 == 0 && C / 32 <= LNB_MAXCPL && hidden > 0 && hidden % 8 == 0;
+  return M > 0 && ln_bwd_takes(C) && hidden > 0 && hidden % 8 == 0;
 }
 
 static bool shapes_ok(int B, int N, int C, int H, int hidden, bool policy) {
   return B > 0 && N > 0 && N <= (policy ? AB_POLICY_MAX_N : AB_MAX_N) && H > 0 &&
-         C == H * AB_HD && C / 32 <= LNB_MAXCPL &&
+         C == H * AB_HD && ln_bwd_takes(C) &&
          hidden > 0 && hidden % 8 == 0 && (long long)B * N <= (1LL << 31) - 1;
 }
 
@@ -985,7 +905,7 @@ extern "C" int d2s_block_backward(
   }
   if ((err = launch_wgrad(s.dmid_b, s.attn, fo(d_wproj), s.work, M, C, C, st)) != cudaSuccess)
     return (int)err;
-  if ((err = launch_column_sums<float>(da_f, fo(d_bproj), s.work, M, C, st)) != cudaSuccess)
+  if ((err = launch_column_sums(da_f, fo(d_bproj), s.work, M, C, st)) != cudaSuccess)
     return (int)err;
   if ((err = gemm_kn(s.dmid_b, w(wproj), M, C, C, nullptr, s.dattn, nullptr, st)) != cudaSuccess)
     return (int)err;
@@ -1000,10 +920,8 @@ extern "C" int d2s_block_backward(
     return (int)err;
 
   // 5. LN1 input
-  if ((err = launch_wgrad(s.dqkv, s.ln1o, fo(d_wqkv), s.work, M, 3 * C, C, st)) != cudaSuccess)
-    return (int)err;
-  if (d_bqkv &&
-      (err = launch_column_sums(s.dqkv, fo(d_bqkv), s.work, M, 3 * C, st)) != cudaSuccess)
+  if ((err = launch_wgrad(s.dqkv, s.ln1o, fo(d_wqkv), s.work, M, 3 * C, C, st, fo(d_bqkv))) !=
+      cudaSuccess)
     return (int)err;
   if ((err = gemm_kn(s.dqkv, w(wqkv), M, 3 * C, C, nullptr, nullptr, s.dln, st)) != cudaSuccess)
     return (int)err;
@@ -1115,9 +1033,8 @@ extern "C" int d2s_attention_block_backward(
     return (int)err;
 
   // the proj product
-  if ((err = launch_wgrad(gb, s.attn, fo(d_wproj), s.work, M, C, C, st)) != cudaSuccess)
-    return (int)err;
-  if ((err = launch_column_sums(gb, fo(d_bproj), s.work, M, C, st)) != cudaSuccess)
+  if ((err = launch_wgrad(gb, s.attn, fo(d_wproj), s.work, M, C, C, st, fo(d_bproj))) !=
+      cudaSuccess)
     return (int)err;
   if ((err = gemm_kn(gb, w(wproj), M, C, C, nullptr, s.dattn, nullptr, st)) != cudaSuccess)
     return (int)err;
@@ -1132,10 +1049,8 @@ extern "C" int d2s_attention_block_backward(
     return (int)err;
 
   // the qkv product and LN1
-  if ((err = launch_wgrad(s.dqkv, s.ln1o, fo(d_wqkv), s.work, M, 3 * C, C, st)) != cudaSuccess)
-    return (int)err;
-  if (d_bqkv &&
-      (err = launch_column_sums(s.dqkv, fo(d_bqkv), s.work, M, 3 * C, st)) != cudaSuccess)
+  if ((err = launch_wgrad(s.dqkv, s.ln1o, fo(d_wqkv), s.work, M, 3 * C, C, st, fo(d_bqkv))) !=
+      cudaSuccess)
     return (int)err;
   if ((err = gemm_kn(s.dqkv, w(wqkv), M, 3 * C, C, nullptr, nullptr, s.dln, st)) != cudaSuccess)
     return (int)err;

@@ -55,11 +55,13 @@ extern "C" long long d2s_wgrad_workspace_bytes(int M, int I, int J) {
   return d2s::wgrad_workspace_floats(M, I, J) * (long long)sizeof(float);
 }
 
-// dw (I, J) fp32 = p^T q for p (M, I), q (M, J) bf16; work:
-// d2s_wgrad_workspace_bytes(M, I, J) bytes. I, J multiples of 8.
-extern "C" int d2s_wgrad(const void* p, const void* q, void* dw, void* work, int M, int I, int J,
-                         void* stream) {
+// dw (I, J) fp32 = p^T q for p (M, I), q (M, J) bf16 and, where db is not
+// null, db (I) fp32 = the column sums of p (its bias gradient, summed on
+// the product's reads of p); work: d2s_wgrad_workspace_bytes(M, I, J)
+// bytes. I, J multiples of 8.
+extern "C" int d2s_wgrad(const void* p, const void* q, void* dw, void* db, void* work, int M,
+                         int I, int J, void* stream) {
   return (int)d2s::launch_wgrad(static_cast<const bf16*>(p), static_cast<const bf16*>(q),
                                 static_cast<float*>(dw), static_cast<float*>(work), M, I, J,
-                                static_cast<cudaStream_t>(stream));
+                                static_cast<cudaStream_t>(stream), static_cast<float*>(db));
 }

@@ -59,8 +59,14 @@
 // in one CTA in K order, so a product gives the same bits on every run and
 // in the backward's recompute; the weight gradient, whose output is small
 // (a 384 x 384 dW is nine tiles), splits its rows across CTAs into fp32
-// partials that reduce_partials adds in a fixed order. No atomics.
-// column_sums (bias gradients) splits rows the same way.
+// partials that reduce_partials adds in a fixed order. No atomics. The
+// bias gradient of a bf16 cotangent, the column sums of P, rides on the
+// weight gradient dW = P^T Q (wgrad's `db`): the epilogue warpgroups,
+// idle while a tile's products run, add up the P slices in the ring as the
+// MMA warps multiply them, each column tile of a split every n_tiles-th
+// slice (so that the extra shared-memory reads spread evenly over the
+// CTAs), into one fp32 partial row per split and column tile, which the
+// same reduce adds; the products, and so dW's bits, are untouched.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -168,8 +174,10 @@ constexpr int GEMM_STAGE_BYTES = GEMM_A_BYTES + GEMM_B_BYTES;
 constexpr int GEMM_BOX_BYTES = 64 * GEMM_BK * 2;  // one 64 x 64 TMA box: 8 rows of 1024-byte atoms
 constexpr int GEMM_LDC = GEMM_BN + 8;  // fp32 pitch of the epilogue tile: conflict-free float2 stores
 constexpr int GEMM_C_BYTES = GEMM_BM * GEMM_LDC * 4;
-constexpr int GEMM_SMEM_BYTES =
-    1024 + GEMM_STAGES * GEMM_STAGE_BYTES + GEMM_C_BYTES + (2 * GEMM_STAGES + 4) * 8;
+constexpr int GEMM_SUM_GROUPS = 8;  // the row groups of an epilogue warpgroup's column sums
+constexpr int GEMM_SUM_BYTES = GEMM_SUM_GROUPS * GEMM_BM * 4;
+constexpr int GEMM_SMEM_BYTES = 1024 + GEMM_STAGES * GEMM_STAGE_BYTES + GEMM_C_BYTES +
+                                GEMM_SUM_BYTES + (2 * GEMM_STAGES + 4) * 8;
 // The weight gradient's split plan assumes the H100 SXM's 132 SMs, fixed so
 // that the plan, and with it the bits, depend on the shapes alone.
 constexpr int GEMM_PLAN_SMS = 132;
@@ -201,6 +209,7 @@ struct GemmArgs {
   bf16* preact;          // (M, N) or null: store act's input
   bf16* out;             // (M, N) bf16, or null with out_f32
   float* out_f32;        // (M, N) fp32 instead of `out`, or null
+  float* colsum;         // weight gradient: (splits, n_tiles, M) partial column sums of P, or null
   int M, N, K;
   int act;
 };
@@ -384,16 +393,18 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~uintptr_t(1023));
   float* c_tile = reinterpret_cast<float*>(ring + GEMM_STAGES * GEMM_STAGE_BYTES);
-  uint64_t* full = reinterpret_cast<uint64_t*>(c_tile + GEMM_BM * GEMM_LDC);
+  float* sum_tile = c_tile + GEMM_BM * GEMM_LDC;  // [2][GEMM_SUM_GROUPS][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sum_tile + GEMM_SUM_GROUPS * GEMM_BM);
   uint64_t* empty = full + GEMM_STAGES;
   uint64_t* staged = empty + GEMM_STAGES;  // per MMA warpgroup: its 64 rows staged
   uint64_t* drained = staged + 2;         // and read by its epilogue warpgroup
   constexpr bool WGRAD = MODE == GEMM_WGRAD;
+  const bool colsum = WGRAD && p.colsum != nullptr;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < GEMM_STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);
+      mbar_init(&empty[s], colsum ? 16 : 8);  // the MMA warps (and the epilogue warps)
     }
     for (int h = 0; h < 2; ++h) {
       mbar_init(&staged[h], 4);
@@ -461,9 +472,58 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
     // issued before their arithmetic, so their latencies overlap
     const int c = (ct & 15) * 8;
     uint32_t parity = 0;
+    // the weight gradient's column sums of P (colsum), from the ring's A
+    // slices while the MMA warps multiply them: the 64 columns of box h,
+    // column tile nt taking the slices kb with kb % n_tiles == nt, a thread
+    // 4 columns (8 bytes of a swizzled 16-byte chunk) of the rows
+    // sum_rg + 8 i, which share sum_rg's swizzle
+    const int sum_cg = ct & 15, sum_rg = ct >> 4;
+    const int sum_byte = h * GEMM_BOX_BYTES + sum_rg * 128 +
+                         ((((sum_cg >> 1) ^ sum_rg) << 4) | ((sum_cg & 1) << 3));
+    float* sums = sum_tile + h * GEMM_SUM_GROUPS * 64;  // [GEMM_SUM_GROUPS][64]
+    int stage = 0;
+    uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < t.tiles; tile += gridDim.x) {
       int outer, r0, n0, k_begin, slices;
       decode(tile, outer, r0, n0, k_begin, slices);
+      if (colsum) {
+        const int nt = n0 / GEMM_BN;
+        float cs[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int kb = 0; kb < slices; ++kb) {
+          mbar_wait(&full[stage], phase);
+          if (kb % t.n_tiles == nt) {
+            const unsigned char* rows = ring + stage * GEMM_STAGE_BYTES + sum_byte;
+#pragma unroll
+            for (int i = 0; i < GEMM_BK / GEMM_SUM_GROUPS; ++i) {
+              const uint2 v = *reinterpret_cast<const uint2*>(rows + i * GEMM_SUM_GROUPS * 128);
+              const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+              const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+              cs[0] += lo.x;
+              cs[1] += lo.y;
+              cs[2] += hi.x;
+              cs[3] += hi.y;
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[stage]);
+          if (++stage == GEMM_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        // the row groups' sums, added in order
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sums[sum_rg * 64 + sum_cg * 4 + j] = cs[j];
+        asm volatile("bar.sync %0, 128;\n" ::"r"(3 + h) : "memory");
+        const int i = r0 + h * 64 + ct;
+        if (ct < 64 && i < p.M) {
+          float v = 0.f;
+#pragma unroll
+          for (int g8 = 0; g8 < GEMM_SUM_GROUPS; ++g8) v += sums[g8 * 64 + ct];
+          p.colsum[((long long)outer * t.n_tiles + nt) * p.M + i] = v;
+        }
+        asm volatile("bar.sync %0, 128;\n" ::"r"(3 + h) : "memory");
+      }
       const int row_base = WGRAD ? 0 : outer * p.a_rows;  // the sample's first packed row
       float* out_f32 =
           p.out_f32 ? p.out_f32 + (WGRAD ? (long long)outer * p.M * p.N : 0) : nullptr;
@@ -793,33 +853,80 @@ static inline void wgrad_plan(int M, int I, int J, int* splits, int* rows_per_sp
   *splits = (M + rows - 1) / rows;
 }
 
+// the splits' dW partials, then their column tiles' column sums of P
 static inline long long wgrad_workspace_floats(int M, int I, int J) {
   int s, rows;
   wgrad_plan(M, I, J, &s, &rows);
-  return (long long)s * I * J;
+  return (long long)s * I * J + (long long)s * ((J + GEMM_BN - 1) / GEMM_BN) * I;
 }
 
-// out[e] = sum_s partial[s * len + e], in s order
-static __global__ void reduce_partials_kernel(const float* __restrict__ partial, int splits,
-                                              long long len, float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= len) return;
+// The one reducer of fp32 partial rows, the weight gradient's and norm.cu's:
+// out[e] = sum_s partial[s * len + e] for e < len and, in the CTAs past
+// len's, out2[e] likewise over partial2's splits2 rows of len2 (a bias's
+// column sums, dbeta). A CTA's warps form groups of reduce_ways(rows)
+// warps, each group 32 columns: warp k of a group adds the rows k, k +
+// ways, ... in order, then the group's first warp adds their sums in
+// order. Few rows (a weight gradient's 3-14 splits) take one warp a column
+// group, a CTA 256 columns; many (the LayerNorm backward's 264 CTAs) spread
+// over 8 warps so that their loads overlap. The order depends on the
+// shapes alone: the same bits on every run.
+constexpr int RED_WARPS = 8;
+
+__host__ __device__ inline int reduce_ways(int rows) {
+  return rows >= 32 ? 8 : rows >= 16 ? 4 : rows >= 8 ? 2 : 1;
+}
+
+// the CTAs that reduce `rows` partial rows of len
+__host__ __device__ inline long long reduce_ctas(int rows, long long len) {
+  const int cols = 32 * RED_WARPS / reduce_ways(rows);
+  return (len + cols - 1) / cols;
+}
+
+static __global__ void __launch_bounds__(32 * RED_WARPS)
+    reduce_partials_kernel(const float* __restrict__ partial, int splits, long long len,
+                           float* __restrict__ out, const float* __restrict__ partial2,
+                           int splits2, long long len2, float* __restrict__ out2) {
+  __shared__ float sh[RED_WARPS][32];
+  const long long first = reduce_ctas(splits, len);
+  const bool second = blockIdx.x >= first;
+  const float* src = second ? partial2 : partial;
+  const long long n = second ? len2 : len;
+  float* dst = second ? out2 : out;
+  const int rows = second ? splits2 : splits;
+  const int ways = reduce_ways(rows);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = warp / ways, k = warp % ways;
+  const long long cta = second ? blockIdx.x - first : blockIdx.x;
+  const long long e = (cta * (RED_WARPS / ways) + group) * 32 + lane;
   float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += partial[(long long)s * len + e];
-  out[e] = acc;
+  if (e < n) {
+#pragma unroll 4
+    for (int s = k; s < rows; s += ways) acc += src[(long long)s * n + e];
+  }
+  sh[warp][lane] = acc;
+  __syncthreads();
+  if (k == 0 && e < n) {
+    float t = 0.f;
+    for (int i = 0; i < ways; ++i) t += sh[warp + i][lane];
+    dst[e] = t;
+  }
 }
 
 static cudaError_t launch_reduce(const float* partial, int splits, long long len, float* out,
-                                 cudaStream_t stream) {
-  const long long blocks = (len + 255) / 256;
-  reduce_partials_kernel<<<(unsigned)blocks, 256, 0, stream>>>(partial, splits, len, out);
+                                 cudaStream_t stream, const float* partial2 = nullptr,
+                                 int splits2 = 0, long long len2 = 0, float* out2 = nullptr) {
+  const long long ctas = reduce_ctas(splits, len) + (len2 > 0 ? reduce_ctas(splits2, len2) : 0);
+  reduce_partials_kernel<<<(unsigned)ctas, 32 * RED_WARPS, 0, stream>>>(
+      partial, splits, len, out, partial2, splits2, len2, out2);
   return cudaGetLastError();
 }
 
-// dW (I, J) fp32 = P^T Q over M rows; `workspace` holds
-// wgrad_workspace_floats(M, I, J) floats. I, J multiples of 8.
+// dW (I, J) fp32 = P^T Q over M rows and, where db is not null, db (I) fp32
+// = the column sums of P (its bias gradient), added in the same fixed
+// order; `workspace` holds wgrad_workspace_floats(M, I, J) floats. I, J
+// multiples of 8.
 static cudaError_t launch_wgrad(const bf16* p, const bf16* q, float* dw, float* workspace, int M,
-                                int I, int J, cudaStream_t stream) {
+                                int I, int J, cudaStream_t stream, float* db = nullptr) {
   if (M <= 0 || I <= 0 || J <= 0 || I % 8 != 0 || J % 8 != 0) return cudaErrorInvalidValue;
   int splits, rows;
   wgrad_plan(M, I, J, &splits, &rows);
@@ -828,6 +935,7 @@ static cudaError_t launch_wgrad(const bf16* p, const bf16* q, float* dw, float* 
   g.a_rows = I;
   g.w = q;
   g.out_f32 = workspace;
+  g.colsum = db ? workspace + (long long)splits * I * J : nullptr;
   g.M = I;
   g.N = J;
   g.K = M;
@@ -848,43 +956,8 @@ static cudaError_t launch_wgrad(const bf16* p, const bf16* q, float* dw, float* 
   t.k_split = rows;
   const cudaError_t err = launch_gemm_tiles<GEMM_WGRAD>(ma, mb, g, t, stream);
   if (err != cudaSuccess) return err;
-  return launch_reduce(workspace, splits, (long long)I * J, dw, stream);
-}
-
-// ---- column sums (bias gradients): out[n] = sum_m a[m, n], fp32 ---------
-
-constexpr int COLSUM_ROWS = 256;  // rows per split
-
-template <typename T>
-static __global__ void column_sums_kernel(const T* __restrict__ a, int M, int N,
-                                          float* __restrict__ partial) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int m0 = blockIdx.y * COLSUM_ROWS;
-  const int m1 = min(M, m0 + COLSUM_ROWS);
-  float acc = 0.f;
-  for (int m = m0; m < m1; ++m) {
-    if constexpr (sizeof(T) == 2)
-      acc += __bfloat162float(a[(long long)m * N + n]);
-    else
-      acc += a[(long long)m * N + n];
-  }
-  partial[(long long)blockIdx.y * N + n] = acc;
-}
-
-static inline long long column_sums_workspace_floats(int M, int N) {
-  return (long long)((M + COLSUM_ROWS - 1) / COLSUM_ROWS) * N;
-}
-
-template <typename T>
-static cudaError_t launch_column_sums(const T* a, float* out, float* workspace, int M, int N,
-                                      cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return cudaErrorInvalidValue;
-  const int splits = (M + COLSUM_ROWS - 1) / COLSUM_ROWS;
-  column_sums_kernel<T><<<dim3((N + 255) / 256, splits), 256, 0, stream>>>(a, M, N, workspace);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce(workspace, splits, N, out, stream);
+  return launch_reduce(workspace, splits, (long long)I * J, dw, stream, g.colsum,
+                       splits * t.n_tiles, db ? I : 0, db);
 }
 
 }  // namespace d2s

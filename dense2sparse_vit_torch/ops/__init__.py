@@ -5,7 +5,10 @@ launches the kernel (for the serving path's kernels, in the `cuda`
 implementation of their custom op, so that calls from an exported artifact
 count too); the block's forward and backward count their policy-mode
 launches apart, in `policy_launches`, and those with DropPath branch scales
-in `scaled_launches`. `COUNTERS` lists every count by its
+in `scaled_launches`. The LayerNorm backward and the column sums, which
+the backward entries launch from inside their C code, are counted by the
+kernels' library where it launches them (`ops.norm.LN_BWD`,
+`ops.norm.COLUMN_SUMS`). `COUNTERS` lists every count by its
 name (the attention half-block's by what they compute: its forward, its
 backward in plain and in policy mode, and the variants' forward). Importing this package registers the custom ops (`d2s::*`), which is
 all a loaded `torch.export` artifact needs of the port.
@@ -34,6 +37,7 @@ from dense2sparse_vit_torch.ops.gather import (
     gather_tokens_reference,
 )
 from dense2sparse_vit_torch.ops.mlp import fused_mlp_residual, fused_mlp_residual_backward
+from dense2sparse_vit_torch.ops.norm import COLUMN_SUMS, LN_BWD
 from dense2sparse_vit_torch.ops.predictor import fused_predictor_lg
 from dense2sparse_vit_torch.ops.quant import fused_transformer_block_int8
 from dense2sparse_vit_torch.ops.topk import mask_from_scores, threshold_keep_mask, topk_keep_indices
@@ -61,8 +65,12 @@ COUNTERS = (
     ("attention_block_backward", fused_attention_block_backward, "launches"),
     ("attention_block_backward_policy", fused_attention_block_backward_policy, "launches"),
     ("attention_variant", fused_attention_variant, "launches"),
+    ("ln_bwd", LN_BWD, "launches"),
+    ("column_sums", COLUMN_SUMS, "launches"),
 )
 KERNEL_NAMES = tuple(name for name, _, _ in COUNTERS)
+# the kernels that the backward entries launch from inside their C code
+INNER_KERNELS = ("ln_bwd", "column_sums")
 
 
 def reset_launch_counts() -> None:
@@ -74,8 +82,15 @@ def launch_counts() -> dict:
     return {name: getattr(fn, attr) for name, fn, attr in COUNTERS}
 
 
+def entry_launches() -> int:
+    """Launches of the kernel entries so far, the kernels they launch inside
+    (INNER_KERNELS) left out."""
+    return sum(v for k, v in launch_counts().items() if k not in INNER_KERNELS)
+
+
 __all__ = [
-    "COUNTERS", "KERNEL_NAMES", "fused_attention_backward_packed", "fused_attention_block",
+    "COUNTERS", "INNER_KERNELS", "KERNEL_NAMES", "entry_launches",
+    "fused_attention_backward_packed", "fused_attention_block",
     "fused_attention_block_backward", "fused_attention_block_backward_policy",
     "fused_attention_block_trainable", "fused_attention_packed",
     "fused_attention_packed_trainable", "fused_attention_packed_with_cls_trainable",

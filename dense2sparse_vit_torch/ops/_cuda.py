@@ -50,8 +50,13 @@ _SIGNATURES = {
     "d2s_attention_variant_supported": [_I] * 3,
     "d2s_ln_gemm": [_P, _I, _L, _P, _I, _P, _P, _P, _F, _P, _P, _P, _I, _P, _P, _P, _P]
                    + [_I] * 4 + [_P],
-    "d2s_wgrad": [_P] * 4 + [_I] * 3 + [_P],
+    "d2s_wgrad": [_P] * 5 + [_I] * 3 + [_P],
     "d2s_wgrad_workspace_bytes": [_I] * 3,
+    "d2s_ln_backward": [_P] * 11 + [_I] * 2 + [_P],
+    "d2s_ln_backward_workspace_bytes": [_I] * 2,
+    "d2s_column_sums": [_P, _I, _P, _P, _I, _I, _P],
+    "d2s_column_sums_workspace_bytes": [_I] * 3,
+    "d2s_norm_launches": [_I, _L],
     "d2s_predictor_forward": (
         [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         + [_P] * 4 + [_P] * 4 + [_I, _F, _P]
@@ -60,7 +65,9 @@ _SIGNATURES = {
 
 _RESTYPES = {"d2s_block_backward_scratch_bytes": _L, "d2s_wgrad_workspace_bytes": _L,
              "d2s_mlp_residual_backward_scratch_bytes": _L,
-             "d2s_attention_block_backward_scratch_bytes": _L}
+             "d2s_attention_block_backward_scratch_bytes": _L,
+             "d2s_ln_backward_workspace_bytes": _L, "d2s_column_sums_workspace_bytes": _L,
+             "d2s_norm_launches": _L}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -140,6 +147,11 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
+    return _lib
+
+
+def loaded() -> ctypes.CDLL | None:
+    """The kernels' library if `library()` has loaded it, else None (no build)."""
     return _lib
 
 

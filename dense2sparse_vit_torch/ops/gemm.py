@@ -13,7 +13,9 @@ version and timed at the block kernels' shapes:
   rounding (or none, with `out_f32`);
 - `weight_grad`: dW = P^T Q in fp32, P (M, I), Q (M, J), the backward's
   weight gradient, its M rows split across the card and summed in a fixed
-  order.
+  order; with `bias=True` also db = P's column sums in fp32 (the bias
+  gradient of a layer whose output's cotangent is P), summed from the
+  product's own reads of P.
 
 For CUDA tensors they launch `csrc/gemm.cu` (`d2s_ln_gemm`, `d2s_wgrad`);
 for CPU tensors they run `ln_gemm_reference` and `weight_grad_reference`:
@@ -72,9 +74,11 @@ def ln_gemm_reference(a, w, *, w_kn=False, bias=None, ln=None, act="none", gelu_
     return (out, pre) if preact else out
 
 
-def weight_grad_reference(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of `weight_grad`: P^T Q in fp32."""
-    return p.float().t() @ q.float()
+def weight_grad_reference(p: torch.Tensor, q: torch.Tensor, bias: bool = False):
+    """Plain torch version of `weight_grad`: P^T Q in fp32 (and P's column
+    sums in fp32 with `bias`)."""
+    dw = p.float().t() @ q.float()
+    return (dw, p.float().sum(0)) if bias else dw
 
 
 def _a_layout(a: torch.Tensor, K: int):
@@ -143,14 +147,15 @@ def ln_gemm(a, w, *, w_kn=False, bias=None, ln=None, act="none", gelu_in=None,
     return (out, pre) if preact else out
 
 
-def weight_grad(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """dW (I, J) fp32 = P^T Q for P (M, I), Q (M, J) in bf16. Launches count
-    in `weight_grad.launches`."""
+def weight_grad(p: torch.Tensor, q: torch.Tensor, bias: bool = False):
+    """dW (I, J) fp32 = P^T Q for P (M, I), Q (M, J) in bf16; with `bias`,
+    (dW, db) with db (I,) fp32 = P's column sums. Launches count in
+    `weight_grad.launches`."""
     if p.dim() != 2 or q.dim() != 2 or p.shape[0] != q.shape[0]:
         raise ValueError(f"weight_grad: P {tuple(p.shape)} and Q {tuple(q.shape)}: need "
                          "(M, I) and (M, J)")
     if p.device.type == "cpu":
-        return weight_grad_reference(p, q)
+        return weight_grad_reference(p, q, bias)
     (M, I), J = p.shape, q.shape[1]
     dev, bf16 = p.device, torch.bfloat16
     if I % 8 or J % 8:
@@ -160,11 +165,12 @@ def weight_grad(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     lib = _cuda.library()
     work = torch.empty((lib.d2s_wgrad_workspace_bytes(M, I, J),), dtype=torch.uint8, device=dev)
     dw = torch.empty((I, J), dtype=torch.float32, device=dev)
-    err = lib.d2s_wgrad(p_ptr, q_ptr, dw.data_ptr(), work.data_ptr(), M, I, J,
-                        _cuda.stream_handle(dev))
+    db = torch.empty((I,), dtype=torch.float32, device=dev) if bias else None
+    err = lib.d2s_wgrad(p_ptr, q_ptr, dw.data_ptr(), 0 if db is None else db.data_ptr(),
+                        work.data_ptr(), M, I, J, _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_wgrad")
     weight_grad.launches += 1
-    return dw
+    return (dw, db) if bias else dw
 
 
 ln_gemm.launches = 0

@@ -1,0 +1,135 @@
+"""The block backward's LayerNorm backward and bias column sums, alone.
+
+`csrc/norm.cu` holds the two reductions that every backward entry of
+`csrc/block_bwd.cu` runs beside its GEMMs (the LayerNorm backward and the
+`colsum` bias sums inside the TPU kernel
+`dense2sparse_vit_tpu/ops/pallas/block.py::fused_transformer_block_backward`):
+
+- `ln_backward`: for y = LN(x) * ln_w + ln_b and the fp32 cotangent dy of
+  y, with x's row statistics (mean, 1/std) given,
+  dx = rstd * (dz - mean(dz) - z * mean(dz * z)) + residual, where
+  z = (x - mean) * rstd and dz = dy * ln_w, rounded once to bf16 (and kept
+  in fp32 too with `fp32_copy`), and d_ln_w = sum dy * z, d_ln_b = sum dy
+  over the rows, in fp32;
+- `column_sums`: a (M, N) matrix's column sums in fp32, for bf16 or fp32.
+
+For CUDA tensors they launch the kernels (`d2s_ln_backward`,
+`d2s_column_sums`); for CPU tensors they run `ln_backward_reference` and
+`column_sums_reference`, the plain versions. `ln_stats` gives the row
+statistics the LayerNorm backward takes, as the kernels compute them.
+
+The kernels count their launches where they are launched, inside the
+block backward's own entries too: `LN_BWD.launches` and
+`COLUMN_SUMS.launches` (0 until the kernels' library is loaded).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dense2sparse_vit_torch.ops import _cuda
+
+
+class LaunchCount:
+    """A kernel's launches as the kernels' library counts them (`which`: 0
+    the LayerNorm backward, 1 the column sums); setting it resets the
+    library's count. 0 while the library is not loaded."""
+
+    def __init__(self, which: int):
+        self.which = which
+
+    @property
+    def launches(self) -> int:
+        lib = _cuda.loaded()
+        return 0 if lib is None else int(lib.d2s_norm_launches(self.which, -1))
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        lib = _cuda.loaded()
+        if lib is not None:
+            lib.d2s_norm_launches(self.which, int(value))
+
+
+LN_BWD = LaunchCount(0)
+COLUMN_SUMS = LaunchCount(1)
+
+
+def ln_stats(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """(M, 2) fp32 (mean, 1/std) of x's rows, two-pass in fp32."""
+    xf = x.reshape(-1, x.shape[-1]).float()
+    mu = xf.mean(-1)
+    rstd = torch.rsqrt(((xf - mu[:, None]) ** 2).mean(-1) + eps)
+    return torch.stack([mu, rstd], -1)
+
+
+def ln_backward_reference(dy, x, stats, ln_w, residual=None, fp32_copy=False):
+    """Plain torch version of `ln_backward`, in fp32."""
+    C = x.shape[-1]
+    dy = dy.reshape(-1, C).float()
+    mu, rstd = stats[:, :1], stats[:, 1:]
+    z = (x.reshape(-1, C).float() - mu) * rstd
+    dz = dy * ln_w.float()
+    v = rstd * (dz - dz.mean(-1, keepdim=True) - z * (dz * z).mean(-1, keepdim=True))
+    if residual is not None:
+        v = v + residual.reshape(-1, C).float()
+    d_ln_w, d_ln_b = (dy * z).sum(0), dy.sum(0)
+    dx = v.to(torch.bfloat16)
+    return (dx, v, d_ln_w, d_ln_b) if fp32_copy else (dx, d_ln_w, d_ln_b)
+
+
+def ln_backward(dy: torch.Tensor, x: torch.Tensor, stats: torch.Tensor, ln_w: torch.Tensor,
+                residual: torch.Tensor | None = None, fp32_copy: bool = False):
+    """(dx (M, C) bf16[, dx fp32 with `fp32_copy`], d_ln_w (C,), d_ln_b (C,))
+    for dy (M, C) fp32, x (M, C) bf16, stats (M, 2) fp32 (mean, 1/std; see
+    `ln_stats`), ln_w (C,) fp32 and a residual (M, C) in bf16 or fp32 (or
+    None) added to dx. The kernel takes C a multiple of 32 up to 768, and
+    raises on any other."""
+    if x.device.type == "cpu":
+        return ln_backward_reference(dy, x, stats, ln_w, residual, fp32_copy)
+    what = "ln_backward"
+    M, C = x.shape
+    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
+    lib = _cuda.library()
+    nbytes = lib.d2s_ln_backward_workspace_bytes(M, C)
+    if nbytes <= 0:
+        raise ValueError(f"{what}: M={M}, C={C}: not taken by the kernel")
+    res_b = residual if residual is not None and residual.dtype == bf16 else None
+    res_f = residual if residual is not None and residual.dtype != bf16 else None
+    ptrs = (_cuda.ptr(dy, "dy", dev, f32, (M, C)), _cuda.ptr(x, "x", dev, bf16, (M, C)),
+            _cuda.ptr(stats, "stats", dev, f32, (M, 2)), _cuda.ptr(ln_w, "ln_w", dev, f32, (C,)),
+            _cuda.ptr(res_b, "residual", dev, bf16, (M, C)),
+            _cuda.ptr(res_f, "residual", dev, f32, (M, C)))
+    dx = torch.empty((M, C), dtype=bf16, device=dev)
+    dx_f = torch.empty((M, C), dtype=f32, device=dev) if fp32_copy else None
+    d_ln_w, d_ln_b = (torch.empty((C,), dtype=f32, device=dev) for _ in range(2))
+    work = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    err = lib.d2s_ln_backward(*ptrs, 0 if dx_f is None else dx_f.data_ptr(), dx.data_ptr(),
+                              d_ln_w.data_ptr(), d_ln_b.data_ptr(), work.data_ptr(), M, C,
+                              _cuda.stream_handle(dev))
+    _cuda.check(err, "d2s_ln_backward")
+    return (dx, dx_f, d_ln_w, d_ln_b) if fp32_copy else (dx, d_ln_w, d_ln_b)
+
+
+def column_sums_reference(a: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of `column_sums`: the sums in fp32."""
+    return a.float().sum(0)
+
+
+def column_sums(a: torch.Tensor) -> torch.Tensor:
+    """(N,) fp32 column sums of a (M, N), bf16 or fp32; the kernel takes N a
+    multiple of 8."""
+    if a.device.type == "cpu":
+        return column_sums_reference(a)
+    M, N = a.shape
+    if a.dtype not in (torch.bfloat16, torch.float32) or N % 8:
+        raise ValueError(f"column_sums: {a.dtype} ({M}, {N}): the kernel takes bf16 or fp32 "
+                         "with N a multiple of 8")
+    dev, fp32 = a.device, int(a.dtype == torch.float32)
+    lib = _cuda.library()
+    work = torch.empty((lib.d2s_column_sums_workspace_bytes(M, N, fp32),), dtype=torch.uint8,
+                       device=dev)
+    out = torch.empty((N,), dtype=torch.float32, device=dev)
+    err = lib.d2s_column_sums(_cuda.ptr(a, "a", dev, a.dtype, (M, N)), fp32, out.data_ptr(),
+                              work.data_ptr(), M, N, _cuda.stream_handle(dev))
+    _cuda.check(err, "d2s_column_sums")
+    return out

@@ -35,7 +35,7 @@ import argparse
 
 import torch
 
-from dense2sparse_vit_torch.ops import launch_counts
+from dense2sparse_vit_torch.ops import entry_launches
 from dense2sparse_vit_torch.ops.attention import (
     VARIANTS,
     attention_variant_supported,
@@ -86,8 +86,8 @@ def run_variant(variant, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads=HEAD
 
 
 def _launches() -> int:
-    """Kernel launches so far, over every counter of `ops`."""
-    return sum(launch_counts().values())
+    """Kernel launches so far, over every entry's counter of `ops`."""
+    return entry_launches()
 
 
 def _rel(a, b) -> float:

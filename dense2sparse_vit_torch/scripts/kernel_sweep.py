@@ -9,7 +9,8 @@ per-stage sequence lengths of the keep-0.7/0.49/0.343 schedule (N = 197,
 TFLOP/s, headed by the card's name and power limit, which it also writes to
 --out (`kernel_sweep.md` in the temporary directory by default, /tmp as in
 JAX where TMPDIR is unset). It returns the rows, each with the kernel
-launches its timing made.
+launches its timing made (the entries', not the LayerNorm backward and
+column sums that the backward entries launch inside).
 
 MFU counts algorithmic matmul FLOPs, as JAX does: 8BNC^2 + 4BN^2C for the
 attention half, 16BNC^2 for the MLP half, and a backward twice its forward
@@ -102,11 +103,11 @@ def main(argv=None) -> list:
     rows = []
 
     def record(kind, batch, n, fn, flops):
-        before = sum(ops.launch_counts().values())
+        before = ops.entry_launches()
         s = time_call(fn, iters=args.iters, repeats=args.repeats, device=dev)
         mfu = flops / s / PEAK_BF16 if on_card else None
         rows.append({"kernel": kind, "B": batch, "N": n, "ms": s * 1e3, "mfu": mfu,
-                     "launches": sum(ops.launch_counts().values()) - before})
+                     "launches": ops.entry_launches() - before})
         lines.append(f"| {kind} | {batch} | {n} | {s * 1e3:.3f} | "
                      f"{'not measured' if mfu is None else f'{mfu:.1%}'} |")
         print(lines[-1], flush=True)

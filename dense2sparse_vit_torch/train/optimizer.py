@@ -55,19 +55,24 @@ class ScheduledAdamW(torch.optim.AdamW):
     update each group's lr is set from its schedule at the epoch
     `count // steps_per_epoch`, where `count` is the number of updates made
     so far: optax evaluates a schedule at the update count before it
-    increments. Set `count` to start the schedule later (a resumed run)."""
+    increments. Set `count` to start the schedule later (a resumed run).
+    backbone_warmup_freeze=False trains the backbone during the warmup
+    epochs too (`schedule.backbone_lr`'s warmup_freeze), as the gumbel
+    baseline's recipe does."""
 
-    def __init__(self, groups, cfg: TrainConfig, steps_per_epoch: int):
+    def __init__(self, groups, cfg: TrainConfig, steps_per_epoch: int,
+                 backbone_warmup_freeze: bool = True):
         super().__init__(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                          weight_decay=cfg.weight_decay)
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
+        self.backbone_warmup_freeze = backbone_warmup_freeze
         self.count = 0
 
     def group_lr(self, label: str, epoch) -> float:
         if label == "predictor":
             return sched.predictor_lr(epoch, self.cfg)
-        return sched.backbone_lr(epoch, self.cfg)
+        return sched.backbone_lr(epoch, self.cfg, warmup_freeze=self.backbone_warmup_freeze)
 
     def step(self, closure=None):
         epoch = self.count // self.steps_per_epoch
@@ -78,8 +83,11 @@ class ScheduledAdamW(torch.optim.AdamW):
         return loss
 
 
-def make_optimizer(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int) -> ScheduledAdamW:
-    """AdamW over `model`'s parameters in the groups of `label_params`."""
+def make_optimizer(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int,
+                   backbone_warmup_freeze: bool = True) -> ScheduledAdamW:
+    """AdamW over `model`'s parameters in the groups of `label_params`.
+    backbone_warmup_freeze=False: the backbone trains from epoch 0 (the gumbel
+    baseline; JAX `make_optimizer`'s switch of the same name)."""
     labels = label_params(model)
     params = dict(model.named_parameters())
     wd = {"predictor": cfg.weight_decay, "base_decay": cfg.weight_decay,
@@ -89,4 +97,4 @@ def make_optimizer(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int) -> 
         members = [params[n] for n, lbl in labels.items() if lbl == g]
         if members:
             groups.append({"params": members, "label": g, "weight_decay": wd[g]})
-    return ScheduledAdamW(groups, cfg, steps_per_epoch)
+    return ScheduledAdamW(groups, cfg, steps_per_epoch, backbone_warmup_freeze)

@@ -25,15 +25,20 @@ def predictor_lr(epoch, cfg: TrainConfig):
     return cosine_lr(epoch, cfg)
 
 
-def backbone_lr(epoch, cfg: TrainConfig):
-    """The backbone: 0 under freeze_backbone and while epoch <
-    cfg.warmup_epochs; else min(lr * backbone_lr_scale, cosine lr)."""
+def backbone_lr(epoch, cfg: TrainConfig, warmup_freeze: bool = True):
+    """The backbone: 0 under freeze_backbone and, with `warmup_freeze`, while
+    epoch < cfg.warmup_epochs; else min(lr * backbone_lr_scale, cosine lr).
+
+    warmup_freeze=False keeps the cap and drops the warmup's zero: the
+    DynamicViT gumbel baseline fine-tunes the whole model from epoch 0."""
     cos = cosine_lr(epoch, cfg)
     tensor = isinstance(cos, torch.Tensor)
     if cfg.freeze_backbone:
         return torch.zeros_like(cos) if tensor else 0.0
     cap = cfg.lr * cfg.backbone_lr_scale
     lr = torch.clamp(cos, max=cap) if tensor else min(cap, cos)
+    if not warmup_freeze:
+        return lr
     if tensor:
         return torch.where(epoch < cfg.warmup_epochs, torch.zeros_like(lr), lr)
     return 0.0 if epoch < cfg.warmup_epochs else lr

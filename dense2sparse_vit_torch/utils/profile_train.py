@@ -60,7 +60,7 @@ def main(argv=None) -> None:
     gumbel = args.mode == "gumbel"
     train = TrainConfig(use_ratio_loss=gumbel, use_token_dist_loss=gumbel)
     cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=train)
-    opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH)
+    opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH, backbone_warmup_freeze=not gumbel)
     opt.count = cfg.train.warmup_epochs * STEPS_PER_EPOCH
     make = make_dynamic_vit_train_step if gumbel else make_train_step
     step = make(student, teacher, opt, cfg)

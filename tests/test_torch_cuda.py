@@ -20,6 +20,7 @@ import torch
 
 import dense2sparse_vit_torch.ops.block as block_ops
 import dense2sparse_vit_torch.ops.gemm as gemm_ops
+import dense2sparse_vit_torch.ops.norm as norm_ops
 from dense2sparse_vit_torch import ops
 from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
 from dense2sparse_vit_torch.models import (
@@ -51,6 +52,10 @@ TOL = 2e-2
 # gradient to bf16, the kernel keeps the LayerNorm and residual ones in fp32
 BWD_TOL = 3e-2
 NO_LAUNCHES = dict.fromkeys(ops.KERNEL_NAMES, 0)
+
+# the LayerNorm backward's and the column sums' launches in block and half-block
+# backwards
+_norm = chip_smoke.norm_launches
 
 
 @pytest.fixture
@@ -276,7 +281,7 @@ def test_trainable_block_gradients_reach_the_parameters(cuda):
     ref(x).float().square().sum().backward()
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block": 1,
-                                   "fused_transformer_block_backward": 1}
+                                   "fused_transformer_block_backward": 1, **_norm(blocks=1)}
     for (name, p), q in zip(blk.named_parameters(), ref.parameters()):
         _assert_close(p.grad, q.grad, BWD_TOL)
 
@@ -332,7 +337,7 @@ def test_train_mode_launches_the_kernels_or_raises(cuda):
     assert ops.launch_counts() == {
         **NO_LAUNCHES, "fused_transformer_block": 12,
         "fused_transformer_block_backward": 12, "fused_gather_tokens": 3,
-        "fused_scatter_tokens": 3,
+        "fused_scatter_tokens": 3, **_norm(blocks=12),
     }
     assert model.blocks[0].attn.qkv.weight.grad is not None
     assert model.score_predictor[0].in_conv[1].weight.grad is not None
@@ -343,7 +348,7 @@ def test_train_mode_launches_the_kernels_or_raises(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         **NO_LAUNCHES, "fused_attention_packed": 1, "fused_attention_backward_packed": 1,
-        "fused_mlp_residual": 1, "fused_mlp_residual_backward": 1,
+        "fused_mlp_residual": 1, "fused_mlp_residual_backward": 1, **_norm(halves=1),
     }
 
 
@@ -379,7 +384,7 @@ def test_train_step_launches_every_training_kernel(cuda):
     assert ops.launch_counts() == {
         **NO_LAUNCHES, "fused_transformer_block": 12, "fused_transformer_block_cls": 12,
         "fused_transformer_block_backward": 12, "fused_gather_tokens": 3,
-        "fused_scatter_tokens": 3,
+        "fused_scatter_tokens": 3, **_norm(blocks=12),
     }
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
@@ -441,7 +446,8 @@ def test_policy_block_backward_kernel(cuda, n, eps, ties):
         want_dx, want_dw, want_dpol = transformer_block_backward_reference(
             x, g, w, 6, blk.attn.scale, 1e-6, policy=pol, eps=eps)
         torch.cuda.synchronize()
-    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block_backward[policy]": 2}
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block_backward[policy]": 2,
+                                   **_norm(blocks=2)}
     assert none is None and torch.equal(dx, dx2)
     assert dpol.dtype == torch.float32 and dpol.shape == (4, n)
     _assert_close(dx, want_dx, BWD_TOL)
@@ -507,7 +513,8 @@ def test_policy_trainable_block_returns_dpolicy_in_its_dtype(cuda):
     blk(x, pol).float().square().sum().backward()
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[policy]": 1,
-                                   "fused_transformer_block_backward[policy]": 1}
+                                   "fused_transformer_block_backward[policy]": 1,
+                                   **_norm(blocks=1)}
     assert pol.grad.dtype == torch.bfloat16 and torch.isfinite(pol.grad.float()).all()
 
 
@@ -696,7 +703,7 @@ def test_mlp_residual_both_ways(cuda, n):
         grads = ops.fused_mlp_residual_backward(x, g, *w[:5])
         torch.cuda.synchronize()
         assert ops.launch_counts() == {**NO_LAUNCHES, "fused_mlp_residual": 1,
-                                       "fused_mlp_residual_backward": 1}
+                                       "fused_mlp_residual_backward": 1, **_norm(halves=1)}
         _assert_close(y, mlp_residual_reference(x, *w, 1e-6))
         for a, b in zip(grads, mlp_residual_backward_reference(x, g, *w[:5], 1e-6)):
             _assert_close(a, b, BWD_TOL)
@@ -727,6 +734,7 @@ def test_attn_student_train_step_launches(cuda):
         **NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_attention_packed": 12,
         "fused_attention_backward_packed": 12, "fused_mlp_residual": 12,
         "fused_mlp_residual_backward": 12, "fused_gather_tokens": 3, "fused_scatter_tokens": 3,
+        **_norm(halves=12),
     }
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
@@ -766,7 +774,8 @@ def test_scaled_block_kernels_both_ways(cuda, n, policy):
                                                             branch_scales=scales, **kw)
         torch.cuda.synchronize()
         assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[scaled]": 1,
-                                       "fused_transformer_block_backward[scaled]": 1}
+                                       "fused_transformer_block_backward[scaled]": 1,
+                                       **_norm(blocks=1)}
         want = transformer_block_reference(x, w, 6, blk.attn.scale, 1e-5, policy=pol,
                                            branch_scales=scales)
         want_dx, want_dw, want_dpol = transformer_block_backward_reference(
@@ -813,7 +822,8 @@ def test_drop_path_block_trains_through_the_scaled_kernels(cuda):
     ref(x, generator=torch.Generator(device=cuda).manual_seed(1)).float().square().sum().backward()
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[scaled]": 1,
-                                   "fused_transformer_block_backward[scaled]": 1}
+                                   "fused_transformer_block_backward[scaled]": 1,
+                                   **_norm(blocks=1)}
     for p, q in zip(blk.parameters(), ref.parameters()):
         _assert_close(p.grad, q.grad, BWD_TOL)
 
@@ -838,7 +848,7 @@ def test_t2t_student_train_step_launches(cuda):
         **NO_LAUNCHES, "fused_transformer_block_cls": 14, "fused_transformer_block": 1,
         "fused_transformer_block[scaled]": 13, "fused_transformer_block_backward": 1,
         "fused_transformer_block_backward[scaled]": 13, "fused_gather_tokens": 3,
-        "fused_scatter_tokens": 3,
+        "fused_scatter_tokens": 3, **_norm(blocks=14),
     }
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
@@ -884,7 +894,7 @@ def test_attention_block_both_ways(cuda, n, policy):
         want_core = attention_reference(st["qkv"], 6, scale, **kw)
         want_dx, want_dw, want_dpol = attention_block_backward_reference(x, g, *w6[:5], 6, **kw)
     bwd = "attention_block_backward" + ("_policy" if policy else "")
-    assert counts == {**NO_LAUNCHES, "attention_block_forward": 1, bwd: 1}
+    assert counts == {**NO_LAUNCHES, "attention_block_forward": 1, bwd: 1, **_norm(halves=1)}
     _assert_close(out, want_out)
     _assert_close(st["attn"], want_core)
     _assert_close(cls, want_cls)
@@ -914,7 +924,7 @@ def test_trainable_attention_block_launches_and_returns_dpolicy(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "attention_block_forward": 2,
                                    "attention_block_backward": 1,
-                                   "attention_block_backward_policy": 1}
+                                   "attention_block_backward_policy": 1, **_norm(halves=2)}
     with torch.no_grad():
         want = ops.fused_attention_block_backward(x, g, *w6[:5], 6)
     for got, w in zip(grads, want[:6]):
@@ -1092,3 +1102,160 @@ def test_ln_gemm_refuses_what_the_engine_does_not_take(cuda):
     assert lib.d2s_ln_gemm(*args, 0, 0, 64, 384, 384, 0, stream) != 0
     args[1] = 60
     assert lib.d2s_ln_gemm(*args, a.data_ptr(), 0, 64, 384, 384, 0, stream) != 0
+
+
+# ---- the LayerNorm backward and the bias column sums (csrc/norm.cu) --------
+
+# (M, C): the B=128 top-k step's rows at N=197 and N=68, tails that are no
+# multiple of 16 rows or of a CTA's run, one row; C for 32 lanes a row (384,
+# 768, 128), for 16 (192, 320) and for 32 with a partial last chunk (448 of
+# T2T-ViT-19, 576, 704, and the odd multiples of 32: 32, 96, 736)
+LN_SHAPES = [(25216, 384), (8704, 384), (65, 384), (1, 384), (1003, 768), (63, 192),
+             (97, 128), (40, 320), (25216, 448), (77, 448), (130, 576), (33, 704),
+             (17, 32), (200, 96), (129, 736)]
+
+
+def _ln_inputs(cuda, m, c, res, seed=11):
+    gen = torch.Generator(device=cuda).manual_seed(seed + m + c)
+    x = (torch.randn((m, c), generator=gen, device=cuda) * 2 + 0.5).to(torch.bfloat16)
+    dy = torch.randn((m, c), generator=gen, device=cuda)
+    ln_w = 1 + 0.1 * torch.randn((c,), generator=gen, device=cuda)
+    residual = None if res is None else torch.randn((m, c), generator=gen, device=cuda).to(res)
+    return dy, x, norm_ops.ln_stats(x, 1e-6), ln_w, residual
+
+
+@pytest.mark.parametrize("res", [None, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,c", LN_SHAPES)
+def test_ln_backward_kernel_against_plain(cuda, m, c, res):
+    """dx's fp32 copy within 1e-5 of its largest magnitude, and its bf16 dx
+    that copy rounded to nearest; d_ln_w and d_ln_b within 1e-5 of the sums
+    of their terms' magnitudes (fp32 sums in other orders)."""
+    dy, x, st, ln_w, residual = _ln_inputs(cuda, m, c, res)
+    before = norm_ops.LN_BWD.launches
+    dx, dx_f, dw, db = norm_ops.ln_backward(dy, x, st, ln_w, residual, fp32_copy=True)
+    torch.cuda.synchronize()
+    assert norm_ops.LN_BWD.launches == before + 1
+    want_dx, want_f, want_dw, want_db = norm_ops.ln_backward_reference(dy, x, st, ln_w,
+                                                                       residual, True)
+    _assert_close(dx_f, want_f, 1e-5)
+    assert torch.equal(dx, dx_f.to(torch.bfloat16)) and want_dx.dtype == dx.dtype
+    z = (x.float() - st[:, :1]) * st[:, 1:]
+    for got, want, terms in ((dw, want_dw, dy * z), (db, want_db, dy)):
+        assert ((got - want).abs() <= 1e-5 * terms.abs().sum(0) + 1e-30).all()
+
+
+def test_ln_backward_gives_equal_bits_on_two_runs(cuda):
+    dy, x, st, ln_w, residual = _ln_inputs(cuda, 25216, 384, torch.float32)
+    first = norm_ops.ln_backward(dy, x, st, ln_w, residual, fp32_copy=True)
+    second = norm_ops.ln_backward(dy, x, st, ln_w, residual, fp32_copy=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.parametrize("c", [48, 800, 832])
+def test_ln_backward_refuses_a_width_it_does_not_take(cuda, c):
+    dy, x, st, ln_w, _ = _ln_inputs(cuda, 64, c, None)
+    with pytest.raises(ValueError, match="not taken"):
+        norm_ops.ln_backward(dy, x, st, ln_w)
+
+
+# (M, N, dtype): the top-k step's g (384), dqkv (1152), dy (1536) in bf16 and
+# its fp32 da (384) at N=197, and tails
+COLSUM_SHAPES = [(25216, 384, torch.bfloat16), (25216, 1152, torch.bfloat16),
+                 (25216, 1536, torch.bfloat16), (25216, 384, torch.float32),
+                 (8704, 1536, torch.bfloat16), (63, 384, torch.bfloat16),
+                 (65, 1152, torch.float32), (1, 8, torch.float32)]
+
+
+def _colsum_input(cuda, m, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    return torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+
+
+@pytest.mark.parametrize("m,n,dtype", COLSUM_SHAPES)
+def test_column_sums_kernel_against_plain(cuda, m, n, dtype):
+    """Within 1e-5 of the sum of each column's magnitudes (fp32 sums in other
+    orders); two runs bit-equal."""
+    a = _colsum_input(cuda, m, n, dtype)
+    before = norm_ops.COLUMN_SUMS.launches
+    got, again = norm_ops.column_sums(a), norm_ops.column_sums(a)
+    torch.cuda.synchronize()
+    assert norm_ops.COLUMN_SUMS.launches == before + 2
+    want = norm_ops.column_sums_reference(a)
+    assert got.shape == (n,) and got.dtype == torch.float32
+    assert ((got - want).abs() <= 1e-5 * a.float().abs().sum(0) + 1e-30).all()
+    assert torch.equal(got, again)
+
+
+def test_column_sums_refuse_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        norm_ops.column_sums(torch.zeros((16, 12), device=cuda))
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        norm_ops.column_sums(torch.zeros((16, 16), device=cuda, dtype=torch.float16))
+
+
+@pytest.mark.parametrize("m,i,j", [(25216, 384, 1536), (25216, 1536, 384), (25216, 1152, 384),
+                                   (25216, 384, 384), (8704, 1536, 384), (63, 384, 384),
+                                   (65, 1152, 384), (1, 384, 1536)])
+def test_weight_grad_folds_the_bias_sums_and_keeps_dw_bits(cuda, m, i, j):
+    """The bias gradient summed on the weight gradient's reads of P: within
+    1e-5 of the sum of each column's magnitudes, bit-equal on two runs; dW
+    bit-equal to the product without the sums."""
+    gen = torch.Generator(device=cuda).manual_seed(m + i + j)
+    p = torch.randn((m, i), generator=gen, device=cuda).to(torch.bfloat16)
+    q = torch.randn((m, j), generator=gen, device=cuda).to(torch.bfloat16)
+    dw, db = gemm_ops.weight_grad(p, q, bias=True)
+    dw2, db2 = gemm_ops.weight_grad(p, q, bias=True)
+    plain = gemm_ops.weight_grad(p, q)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, plain) and torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert ((db - p.float().sum(0)).abs() <= 1e-5 * p.float().abs().sum(0) + 1e-30).all()
+
+
+@pytest.mark.parametrize("n", [197, 13])
+def test_block_backward_and_mlp_half_at_448_wide(cuda, n):
+    """T2T-ViT-19's width (C = 448, 7 heads, MLP ratio 3): the block
+    backward and the MLP half's backward against their plain versions,
+    through the LayerNorm backward's partial last chunk."""
+    blk = _sharpen(Block(448, 7, mlp_ratio=3.0, use_fused=True), seed=n).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, 448), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((4, n, 448), generator=gen, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        w = blk.kernel_weights(torch.bfloat16)
+        ops.reset_launch_counts()
+        dx, dw, _ = ops.fused_transformer_block_backward(x, g, w, 7)
+        want_dx, want_dw, _ = transformer_block_backward_reference(
+            x, g, w, 7, blk.attn.scale, 1e-6)
+        mw = [w[k] for k in ("ln2_w", "ln2_b", "w1", "b1", "w2")]
+        grads = ops.fused_mlp_residual_backward(x, g, *mw)
+        torch.cuda.synchronize()
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block_backward": 1,
+                                   "fused_mlp_residual_backward": 1,
+                                   **_norm(blocks=1, halves=1)}
+    _assert_close(dx, want_dx, BWD_TOL)
+    for k in BLOCK_WEIGHT_KEYS:
+        _assert_close(dw[k], want_dw[k], BWD_TOL)
+    for a, b in zip(grads, mlp_residual_backward_reference(x, g, *mw, 1e-6)):
+        _assert_close(a, b, BWD_TOL)
+
+
+def test_block_backward_bias_and_layernorm_gradients_are_bit_equal_on_two_runs(cuda):
+    """Every gradient of the block backward, dgamma, dbeta and the biases
+    among them, the same bits on two runs (fixed-order sums, no atomics);
+    each call launches the LayerNorm backward twice and the column sums once."""
+    blk = _sharpen(Block(384, 6, use_fused=True), seed=9).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((128, 197, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn(x.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        w = blk.kernel_weights(torch.bfloat16)
+        ops.reset_launch_counts()
+        dx, dw, _ = ops.fused_transformer_block_backward(x, g, w, 6)
+        dx2, dw2, _ = ops.fused_transformer_block_backward(x, g, w, 6)
+        torch.cuda.synchronize()
+    assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block_backward": 2,
+                                   **_norm(blocks=2)}
+    assert torch.equal(dx, dx2)
+    assert set(dw) == set(dw2) and all(dw[k] is not None and torch.equal(dw[k], dw2[k])
+                                       for k in dw)

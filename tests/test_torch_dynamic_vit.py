@@ -305,22 +305,22 @@ LOSSES = {
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step(losses, fused):
+def _jax_step(losses, fused, epoch=6, warmup_freeze=True):
     cfg = JaxExperimentConfig(
         model=JaxModelConfig(use_fused_attention=fused, **MODEL),
         pruning=JaxPruningConfig(**DPRUNING), train=JaxTrainConfig(**TRAIN, **LOSSES[losses]))
     student = jax_dvd.DynamicViTStudent(cfg=cfg.model, pruning=cfg.pruning)
     teacher = JaxTeacher(cfg=cfg.model)
     params = _student_params()
-    tx = jax_make_optimizer(cfg.train, STEPS_PER_EPOCH)
-    opt_state = _set_schedule_count(tx.init(params), 6 * STEPS_PER_EPOCH)
+    tx = jax_make_optimizer(cfg.train, STEPS_PER_EPOCH, backbone_warmup_freeze=warmup_freeze)
+    opt_state = _set_schedule_count(tx.init(params), epoch * STEPS_PER_EPOCH)
     probe = _grad_probe()
     state = TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
                        opt_state=probe.init(params))
     step = jax.jit(jax_make_dynamic_vit_train_step(student, teacher, probe, cfg))
     probed, metrics = _run_jax(lambda: step(
         state, _teacher_params(), jnp.asarray(_images()), jnp.asarray(_labels()),
-        jax.random.PRNGKey(3), jnp.float32(6)), _noise())
+        jax.random.PRNGKey(3), jnp.float32(epoch)), _noise())
     updates, _ = tx.update(probed.opt_state, opt_state, params)
     return (metrics, state_dict_from_jax(probed.opt_state),
             state_dict_from_jax(optax.apply_updates(params, updates)))
@@ -368,3 +368,39 @@ def test_dynamic_vit_train_step_matches_jax(monkeypatch, losses, jax_fused, port
     # the predictors learn, in "policy_only" through dPolicy alone
     assert all(np.abs(grads[f"score_predictor.{p}.in_conv.1.weight"]).max() > floor
                for p in range(3))
+
+
+@pytest.mark.parametrize("warmup_freeze", [False, True])
+def test_dynamic_vit_train_step_in_warmup_matches_jax(monkeypatch, warmup_freeze):
+    """One step at epoch 0, inside the warmup: with the backbone's warmup
+    freeze off (the gumbel baseline's recipe, JAX train/loop.py) the
+    backbone trains at its capped lr and every updated parameter is within
+    1e-2 * lr of JAX's where the gradient's sign is sure, as in the test
+    above; with it on (the default) the backbone's lr is 0 and it stays
+    put, as in JAX."""
+    _, grads, new_params = _jax_step("full", True, 0, warmup_freeze)
+    monkeypatch.setattr(port_gumbel, "uniform_noise", _port_noise(_noise()))
+    student = _port_student(True)
+    teacher = create_model("default_dynamic_vit_small_patch16_224_teacher", device="cpu",
+                           use_fused_attention=True, **MODEL)
+    load_numpy_state(teacher, state_dict_from_jax(_teacher_params()))
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning,
+                           train=TrainConfig(**TRAIN, **LOSSES["full"]))
+    kw = {} if warmup_freeze else {"backbone_warmup_freeze": False}
+    opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH, **kw)
+    before = {n: p.detach().clone() for n, p in student.named_parameters()}
+    step = make_dynamic_vit_train_step(student, teacher, opt, cfg, generator=torch.Generator())
+    step(torch.from_numpy(_images()), torch.from_numpy(_labels()), 0)
+    lrs = {g["label"]: g["lr"] for g in opt.param_groups}
+    labels = label_params(student)
+    assert (lrs["base_decay"] > 0) != warmup_freeze and lrs["predictor"] > 0
+    floor = 1e-3 * max(np.abs(v).max() for v in grads.values())
+    for name, p in student.named_parameters():
+        if labels[name] == "frozen":
+            continue
+        scale = max(np.abs(grads[name]).max(), floor)
+        sure = np.abs(grads[name]) > 1e-3 * scale
+        np.testing.assert_allclose(p.detach().numpy()[sure], new_params[name][sure], rtol=0,
+                                   atol=1e-2 * lrs[labels[name]] + 1e-12, err_msg=name)
+        moved = not torch.equal(p.detach(), before[name])
+        assert moved == (labels[name] == "predictor" or not warmup_freeze), name

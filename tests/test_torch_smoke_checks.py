@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import dense2sparse_vit_torch.ops.block as block_ops
+import dense2sparse_vit_torch.ops.gemm as gemm_ops
 from dense2sparse_vit_torch import ops
 from dense2sparse_vit_torch.nn.layers import Block, trunc_normal_
 
@@ -608,3 +609,76 @@ def test_gemm_spills_reads_each_gemm_kernels_ptxas_line():
     assert sorted(spills) == ["_ZN3d2s11gemm_kernelILi0EEEv14CUtensorMap",
                               "_ZN3d2s11gemm_kernelILi2EEEv14CUtensorMap"]
     assert spills["_ZN3d2s11gemm_kernelILi2EEEv14CUtensorMap"].startswith("16 bytes stack")
+
+
+def _norm_cases():
+    """Phase 29's inputs at a small block: its two LayerNorm backwards' and
+    four bias sums' inputs from plain autograd, one width."""
+    x, w, (heads, scale, ln_eps) = _block_input()
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(29)).to(x.dtype)
+    inputs = chip_smoke.norm_inputs(torch, x, g, w, heads, scale, ln_eps)
+    return [(x.shape[1], 1, inputs)]
+
+
+def test_check_norm_passes_the_plain_versions(capsys):
+    cases = _norm_cases()
+    (_, _, inputs), = cases
+    assert [c[0].dtype for c in inputs["ln"].values()] == [torch.float32] * 2
+    assert inputs["ln"]["ln2"][4].dtype == torch.bfloat16  # the residual g
+    assert inputs["ln"]["ln1"][4].dtype == torch.float32  # dx_mid
+    assert {k: a.shape[1] for k, a in inputs["sums"].items()} == {
+        "g": C, "dy": 4 * C, "dqkv": 3 * C, "da": C}
+    with torch.no_grad():
+        chip_smoke.check_norm(torch, cases)
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
+    assert [ln["kernel"] for ln in lines] == ["ln_bwd"] * 2 + ["column_sums"] * 4 + \
+        ["wgrad+bias"] * 3
+    assert all(ln.get("dx_rel_err", 0.0) == 0.0 and ln.get("rel_err", 0.0) == 0.0
+               for ln in lines)
+
+
+def test_check_norm_rejects_ln_bwd_without_its_mean_dz_z_term(monkeypatch):
+    """`--plant-fault ln_bwd`: dx = rstd (dz - mean dz), the z mean(dz z)
+    term dropped."""
+    import dense2sparse_vit_torch.ops.norm as norm_ops
+
+    def faulty(dy, x, st, ln_w, residual=None, fp32_copy=False):
+        dx, dx_f, d_w, d_b = norm_ops.ln_backward_reference(dy, x, st, ln_w, residual, True)
+        z = (x.float() - st[:, :1]) * st[:, 1:]
+        dz = dy * ln_w
+        dx_f = dx_f + st[:, 1:] * z * (dz * z).mean(-1, keepdim=True)
+        return (dx_f.to(torch.bfloat16), dx_f, d_w, d_b) if fp32_copy else (
+            dx_f.to(torch.bfloat16), d_w, d_b)
+
+    monkeypatch.setattr(norm_ops, "ln_backward", faulty)
+    cases = _norm_cases()
+    with torch.no_grad(), pytest.raises(AssertionError, match=chip_smoke.FAULTS["ln_bwd"][3]):
+        chip_smoke.check_norm(torch, cases)
+
+
+def test_check_norm_rejects_column_sums_without_the_last_rows(monkeypatch):
+    """`--plant-fault colsum`: the column sums leave out the last split's
+    rows (here the last 8)."""
+    import dense2sparse_vit_torch.ops.norm as norm_ops
+
+    monkeypatch.setattr(norm_ops, "column_sums",
+                        lambda a: norm_ops.column_sums_reference(a[:-8]))
+    cases = _norm_cases()
+    with torch.no_grad(), pytest.raises(AssertionError, match=chip_smoke.FAULTS["colsum"][3]):
+        chip_smoke.check_norm(torch, cases)
+
+
+def test_check_norm_rejects_folded_bias_sums_that_move_dw(monkeypatch):
+    """The weight gradient's folded bias sums must leave dW's bits alone."""
+    real = gemm_ops.weight_grad
+
+    def faulty(p, q, bias=False):
+        if not bias:
+            return real(p, q)
+        dw, db = real(p, q, bias=True)
+        return dw * (1 + 2.0 ** -20), db
+
+    monkeypatch.setattr(gemm_ops, "weight_grad", faulty)
+    cases = _norm_cases()
+    with torch.no_grad(), pytest.raises(AssertionError, match="wgrad bias sums"):
+        chip_smoke.check_norm(torch, cases)

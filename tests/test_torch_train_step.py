@@ -32,6 +32,7 @@ from dense2sparse_vit_torch import ops
 from dense2sparse_vit_torch.core import ExperimentConfig, ModelConfig, PruningConfig, TrainConfig
 from dense2sparse_vit_torch.models import create_model
 from dense2sparse_vit_torch.train import label_params, make_optimizer, make_train_step
+from dense2sparse_vit_torch.train.schedule import backbone_lr
 from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 from test_torch_ops import load_numpy_state
 from test_torch_train import (
@@ -71,6 +72,34 @@ def test_group_lrs_follow_the_schedule(freeze_backbone):
             seen.append((group["label"], epoch, opt.group_lr(group["label"], epoch)))
     backbone = {e: lr for lbl, e, lr in seen if lbl == "base_decay"}
     assert backbone[4] == 0.0 and (backbone[5] > 0.0) != freeze_backbone
+
+
+@pytest.mark.parametrize("warmup_freeze", [True, False])
+@pytest.mark.parametrize("epoch", [0, 2, 4, 5, 7])
+def test_backbone_lr_warmup_switch_matches_jax(epoch, warmup_freeze):
+    """backbone_lr with and without the warmup's zero, inside the warmup
+    (epochs 0-4) and after it, against JAX's; the optimizer's switch gives
+    the same lr to both backbone groups and leaves the predictor's alone."""
+    cfg, jcfg = TrainConfig(**TRAIN), JaxTrainConfig(**TRAIN)
+    want = float(jax_backbone_lr(epoch, jcfg, warmup_freeze=warmup_freeze))
+    np.testing.assert_allclose(backbone_lr(epoch, cfg, warmup_freeze=warmup_freeze), want,
+                               rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(float(backbone_lr(torch.tensor(float(epoch)), cfg,
+                                                 warmup_freeze=warmup_freeze)), want,
+                               rtol=1e-6, atol=1e-12)
+    assert (want == 0.0) == (warmup_freeze and epoch < TRAIN["warmup_epochs"])
+    opt = make_optimizer(_port_student(), cfg, STEPS_PER_EPOCH,
+                         backbone_warmup_freeze=warmup_freeze)
+    for group in opt.param_groups:
+        lr = opt.group_lr(group["label"], epoch)
+        np.testing.assert_allclose(lr, float(jax_predictor_lr(epoch, jcfg))
+                                   if group["label"] == "predictor" else want,
+                                   rtol=1e-6, atol=1e-12)
+    if warmup_freeze:  # the default is the switch on
+        default = make_optimizer(_port_student(), cfg, STEPS_PER_EPOCH)
+        assert all(default.group_lr(g["label"], epoch) == opt.group_lr(g["label"], epoch)
+                   for g in opt.param_groups)
+        assert backbone_lr(epoch, cfg) == backbone_lr(epoch, cfg, warmup_freeze=True)
 
 
 def test_adamw_update_matches_optax():
