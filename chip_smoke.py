@@ -16,6 +16,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault attn_core   # the block's attention-core check
     python3 chip_smoke.py --plant-fault scatter     # the scatter's bit-equality
     python3 chip_smoke.py --plant-fault gemm        # the block's qkv-stage check
+    python3 chip_smoke.py --plant-fault qgemm       # the int8 block's qkv-stage check
     python3 chip_smoke.py --plant-fault ln_bwd      # the LayerNorm backward's check
     python3 chip_smoke.py --plant-fault colsum      # the column sums' check
 
@@ -135,8 +136,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  and four weight gradients at B=128, each held against its
                  plain version and timed by CUDA events and from a CUDA
                  graph beside one torch call (`F.linear`, `torch.matmul`);
-                 the built library's SASS: wgmma (HGMMA) in every GEMM
-                 kernel and no mma.sync (HMMA);
+                 its int8 instantiation (`ops.quant.qgemm`) at the int8
+                 block's four products at B=256, N=197, bit-equal to its
+                 plain version (through GELU within one bf16 rounding),
+                 timed the same way beside `torch._int_mm` (int8 in, int32
+                 out, no dequantization); the built library's SASS: every
+                 GEMM kernel (the engine's three bf16 modes and its int8
+                 one, nothing else) with wgmma (HGMMA bf16, IGMMA int8) and
+                 no mma.sync (HMMA, IMMA);
  29. norm        the block backward's LayerNorm backward (csrc/norm.cu,
                  `ops.norm.ln_backward`) and bias column sums on a B=128
                  top-k step's own activations at N=197/138/97/68 (its two
@@ -146,7 +153,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  its plain version, then timed beside it, one torch call
                  (native_layer_norm_backward; a.sum(0, dtype=float32)) and
                  its bound.
-The build phase fails if ptxas reports a spill in a GEMM kernel.
+The build phase fails if ptxas reports a spill in a GEMM kernel, or
+reports on no int8 one.
 The pruning student runs its serving, timing and export phases without
 capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
 callers do.
@@ -174,9 +182,12 @@ core stage of `check_block`); --plant-fault scatter with a scatter that
 leaves out each row's last matching index, on phase 6's bit-equality check;
 --plant-fault gemm with a GEMM whose consumers skip the last K slice's
 products (`ln_gemm.cuh`), on phase 3's walk (the qkv stage of
-`check_block`); --plant-fault ln_bwd with a LayerNorm backward that leaves
-z mean(dz z) out of dx, and --plant-fault colsum with column sums that
-leave out the last split's rows (`norm.cu`), on phase 29's checks.
+`check_block`); --plant-fault qgemm with an int8 GEMM whose consumers skip
+the last K slice's products (`ln_gemm.cuh`), on phase 13's walk at B=64
+(the qkv stage of `check_int8_block`); --plant-fault ln_bwd with a
+LayerNorm backward that leaves z mean(dz z) out of dx, and --plant-fault
+colsum with column sums that leave out the last split's rows (`norm.cu`),
+on phase 29's checks.
 """
 
 from __future__ import annotations
@@ -381,9 +392,9 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # (block.cu, attn_core) pass 2 of the attention core stopping one 16-key block
 # short of N; (gather.cu) the scatter leaving out each row's last source;
 # (ln_gemm.cuh, gemm) the GEMM's consumers skipping the last K slice's
-# products; (norm.cu) the LayerNorm backward without z mean(dz z) (ln_bwd), the
-# column sums without the last split's rows (colsum); and the stage whose
-# check must reject it
+# products, (qgemm) the int8 ones alone; (norm.cu) the LayerNorm backward
+# without z mean(dz z) (ln_bwd), the column sums without the last split's
+# rows (colsum); and the stage whose check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
@@ -404,6 +415,8 @@ FAULTS = {
     "scatter": ("gather.cu", "k <= last; ++k", "k < last; ++k", "scatter"),
     "gemm": ("ln_gemm.cuh", "const int mma_slices = slices;", "const int mma_slices = slices - 1;",
              "'qkv'"),
+    "qgemm": ("ln_gemm.cuh", "wgmma_m64n128k32_s8(acc, ",
+              "if (kb + 1 < slices) wgmma_m64n128k32_s8(acc, ", "'qkv'"),
     "ln_bwd": ("norm.cu", "rs * (dz - mdz - z * mdzz)", "rs * (dz - mdz)", "ln_bwd"),
     "colsum": ("norm.cu", "const int m1 = min(M, m0 + rows);",
                "const int m1 = blockIdx.y + 1 == gridDim.y ? m0 : min(M, m0 + rows);",
@@ -902,7 +915,7 @@ def plant_fault(dev, kind: str) -> int:
     _cuda.CSRC = faulty
     _cuda.library()
     try:
-        if kind == "int8":
+        if kind in ("int8", "qgemm"):
             model = build_int8_student(torch, dev)
             images = torch.randn((64, 224, 224, 3), device=dev, dtype=torch.bfloat16,
                                  generator=torch.Generator(device=dev).manual_seed(13))
@@ -3075,11 +3088,23 @@ GEMM_DX = (("dy", 1536, 384, ("gelu_in",)), ("dln2", 384, 1536, ("out_f32",)),
 GEMM_DW = (("dw2", 384, 1536), ("dw1", 1536, 384), ("dwproj", 384, 384), ("dwqkv", 1152, 384))
 GEMM_TOL = 1e-2  # one bf16 rounding of the output and the LayerNorm's roundings
 WGRAD_TOL = 1e-4  # bf16 products summed in fp32 on both sides, in other orders
+# the int8 block's four products at B=256, N=197 (`ops.quant.qgemm`): (name,
+# N, K, options): qkv bf16; x_mid = x + proj in fp32; GELU(fc1) bf16; the
+# output x_mid + fc2 in bf16
+QGEMM_FWD = (("qkv", 1152, 384, ("bias",)), ("proj", 384, 384, ("bias", "residual", "out_f32")),
+             ("fc1", 1536, 384, ("bias", "gelu")), ("fc2", 384, 1536, ("bias", "residual_f32")))
+# the GEMM kernels the library must hold, as (mode, operand type): the
+# engine's three bf16 modes and its int8 GEMM_NK, each with wgmma (HGMMA for
+# bf16, IGMMA for int8) and none of the other three tensor-core opcodes
+GEMM_KERNELS = {("0", "bf16"): "HGMMA", ("1", "bf16"): "HGMMA", ("2", "bf16"): "HGMMA",
+                ("0", "int8"): "IGMMA"}
+SASS_OPS = ("HGMMA", "HMMA", "IGMMA", "IMMA")
 
 
 def gemm_sass(torch, lib_path) -> dict:
-    """Per GEMM kernel of the built library, its wgmma (HGMMA) and mma.sync
-    (HMMA) instructions, from `cuobjdump -sass`."""
+    """Per GEMM kernel of the built library (every function whose name
+    holds `gemm_kernel`), its wgmma (HGMMA, IGMMA) and mma.sync (HMMA, IMMA)
+    instructions, from `cuobjdump -sass`."""
     import subprocess
     from pathlib import Path
 
@@ -3092,13 +3117,41 @@ def gemm_sass(torch, lib_path) -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-        elif name is not None and "11gemm_kernel" in name:
-            c = counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
-            if "HGMMA" in line:
-                c["HGMMA"] += 1
-            elif "HMMA" in line:
-                c["HMMA"] += 1
+        elif name is not None and "gemm_kernel" in name:
+            c = counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
+            for word in line.replace(";", " ").split():
+                if word.split(".")[0] in c:
+                    c[word.split(".")[0]] += 1
     return counts
+
+
+def gemm_kernel_kind(name: str):
+    """(mode, operand type) of a `gemm_kernel<MODE, T>` instantiation from
+    its mangled name, T "bf16" or "int8"; None for any other kernel."""
+    if "11gemm_kernelILi" not in name:
+        return None
+    rest = name.split("11gemm_kernelILi")[1]
+    typ = rest[2:]
+    if typ.startswith("a"):  # int8_t: signed char
+        return rest[0], "int8"
+    if typ.startswith("13__nv_bfloat16"):
+        return rest[0], "bf16"
+    return rest[0], typ[:24]
+
+
+def gemm_sass_faults(counts: dict) -> list:
+    """What the GEMM kernels' SASS counts break of GEMM_KERNELS: a kernel
+    missing, one more, or one without its wgmma or with another
+    tensor-core opcode."""
+    kinds = {gemm_kernel_kind(n): n for n in counts}
+    faults = [f"missing {k}" for k in GEMM_KERNELS if k not in kinds]
+    for name, c in counts.items():
+        want = GEMM_KERNELS.get(gemm_kernel_kind(name))
+        if want is None:
+            faults.append(f"not an engine kernel: {name}")
+        elif c[want] == 0 or any(c[op] for op in SASS_OPS if op != want):
+            faults.append(f"{name}: {c}")
+    return faults
 
 
 def gemm_inputs(torch, gen, M, N, K, kn, opts):
@@ -3139,7 +3192,8 @@ def gemm_inputs(torch, gen, M, N, K, kn, opts):
 def phase_gemm(torch, dev, smi):
     """Phase 28: the GEMM engine alone at the main path's shapes, each
     product held against its plain version and timed (events, graph) beside
-    one torch call; then the built library's SASS."""
+    one torch call, the bf16 ones, then the int8 block's (`run_qgemm`); then
+    the built library's SASS (`gemm_sass_faults`)."""
     import torch.nn.functional as F
 
     from dense2sparse_vit_torch.ops import _cuda
@@ -3186,11 +3240,80 @@ def phase_gemm(torch, dev, smi):
             run(name, "dw", 2 * M * I * J, 2 * M * (I + J) + 4 * I * J,
                 lambda: weight_grad(p, q), lambda: weight_grad_reference(p, q),
                 lambda: torch.matmul(p.t(), q), WGRAD_TOL)
+        for name, N, K, opts in QGEMM_FWD:
+            run_qgemm(torch, gen, name, B_CHECK * 197, N, K, opts, smi)
     counts = gemm_sass(torch, _cuda.library()._name)
-    modes = {n.split("gemm_kernelILi")[1][0] for n in counts}
     emit({"phase": "gemm", "sass": counts})
-    if modes != {"0", "1", "2"} or any(c["HGMMA"] == 0 or c["HMMA"] for c in counts.values()):
-        raise AssertionError(f"GEMM kernels' SASS: {counts}")
+    faults = gemm_sass_faults(counts)
+    if faults:
+        raise AssertionError(f"GEMM kernels' SASS: {faults}")
+
+
+def qgemm_inputs(torch, gen, M, N, K, opts):
+    """Seeded operands of an `ops.quant.qgemm` call: codes (M, K) and the
+    weight's (N, K) uniform in [-127, 127], row and column scales that put
+    the output near unit scale, and the options named in `opts` ("bias",
+    "residual" bf16, "residual_f32", "gelu", "out_f32"): (codes, row_s, w_q,
+    col_s, kwargs, the bytes the call moves)."""
+    dev = gen.device
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    a, w = codes(M, K), codes(N, K)
+    row_s = (torch.rand((M,), generator=gen, device=dev) + 0.5) * (4 / 127)
+    col_s = (torch.rand((N,), generator=gen, device=dev) + 0.5) * (0.1 / 127 / (K / 384) ** 0.5)
+    out_f32 = "out_f32" in opts
+    kw = {"gelu": "gelu" in opts, "out_dtype": torch.float32 if out_f32 else torch.bfloat16}
+    nbytes = M * K + N * K + 4 * (M + N) + (4 if out_f32 else 2) * M * N
+    if "bias" in opts:
+        kw["bias"] = torch.randn((N,), generator=gen, device=dev)
+        nbytes += 4 * N
+    for key, dtype in (("residual", torch.bfloat16), ("residual_f32", torch.float32)):
+        if key in opts:
+            kw["residual"] = torch.randn((M, N), generator=gen, device=dev).to(dtype)
+            nbytes += kw["residual"].element_size() * M * N
+    return a, row_s, w, col_s, kw, nbytes
+
+
+def qgemm_bound(M, N, K, nbytes) -> dict:
+    """An int8 product: 2MNK operations at the int8 rate; its bytes."""
+    return {"ops_ms": 2 * M * N * K / INT8_OPS_PER_S * 1e3,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def run_qgemm(torch, gen, name, M, N, K, opts, smi):
+    """One int8 product of phase 28: the kernel against its plain version
+    (bit-equal; through GELU within one bf16 rounding, INT8_ULP_TOL beyond
+    it), then timed by events and from a CUDA graph beside torch._int_mm on
+    the same codes (the int32 product alone)."""
+    from dense2sparse_vit_torch.ops.quant import qgemm, qgemm_reference
+
+    a, row_s, w, col_s, kw, nbytes = qgemm_inputs(torch, gen, M, N, K, opts)
+    kernel = lambda: qgemm(a, row_s, w, col_s, **kw)  # noqa: E731
+    plain = lambda: qgemm_reference(a, row_s, w, col_s, **kw)  # noqa: E731
+    got, want = kernel(), plain()
+    equal = bool(torch.equal(got, want))
+    excess = ulp_excess(got, want)
+    k_ms, p_ms = paired_ms(torch, kernel, plain, iters=10)
+    g_ms = graph_ms(torch, kernel)
+    lib = {"library_ms": None, "library_graph_ms": None}
+    w_t = w.t()
+    try:
+        torch._int_mm(a, w_t)
+        lib = {"library_ms": cuda_ms(torch, lambda: torch._int_mm(a, w_t), iters=10),
+               "library_graph_ms": graph_ms(torch, lambda: torch._int_mm(a, w_t))}
+    except RuntimeError as e:  # the card's build may refuse a shape
+        lib["library_refused"] = str(e)[:300]
+    b = qgemm_bound(M, N, K, nbytes)
+    ops = 2 * M * N * K
+    emit({"phase": "gemm", "product": name, "kind": "int8", "shape": [M, N, K], "ms": k_ms,
+          "graph_ms": g_ms, "plain_ms": p_ms, **lib, "bound_ms": max(b.values()),
+          "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
+          "tops": ops / k_ms * 1e-9, "graph_tops": ops / g_ms * 1e-9,
+          "bit_equal": equal, "ulp_excess": excess, "gelu": kw["gelu"], "card": smi})
+    if not (equal or (kw["gelu"] and excess <= INT8_ULP_TOL)):
+        raise AssertionError(f"qgemm {name}: bit-equal {equal}, beyond one bf16 rounding {excess}")
 
 
 # ---- 29. the LayerNorm backward and the bias column sums ------------------
@@ -3446,7 +3569,8 @@ def phase_norm(torch, dev, tally, smi):
 
 
 def gemm_spills(build_log: str) -> dict:
-    """ptxas's spill line for each GEMM kernel of the build log."""
+    """ptxas's spill line for each GEMM kernel (bf16 and int8) of the build
+    log."""
     lines = build_log.splitlines()
     return {ln.split("Function properties for ")[1].strip(): lines[i + 1].strip()
             for i, ln in enumerate(lines[:-1])
@@ -3482,9 +3606,10 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "ptxas": ptxas})
     spills = gemm_spills(_cuda.build_log)
-    if not spills or any("0 bytes spill stores, 0 bytes spill loads" not in v
-                         for v in spills.values()):
-        raise AssertionError(f"GEMM kernels spill: {spills}")
+    if ({gemm_kernel_kind(n) for n in spills} != set(GEMM_KERNELS)
+            or any("0 bytes spill stores, 0 bytes spill loads" not in v
+                   for v in spills.values())):
+        raise AssertionError(f"GEMM kernels spill, or miss from ptxas's log: {spills}")
 
     tally = Tally()
     # ---- 2-4. serve, check, time ----------------------------------------

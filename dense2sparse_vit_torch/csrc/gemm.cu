@@ -2,10 +2,11 @@
 //
 // The engine runs inside every block kernel (block.cu's stages 1, 3, 4 and
 // 5, block_bwd.cu's recompute, dX and weight-gradient products,
-// predictor.cu's units) and replaces no TPU kernel of its own: these
-// entries exist so that it can be tested and timed alone, at the shapes
-// the block kernels give it, against its plain version
-// (ops/gemm.py::ln_gemm_reference, weight_grad_reference) and one torch
+// predictor.cu's units; with int8 operands, quant_block.cu's four
+// products) and replaces no TPU kernel of its own: these entries exist so
+// that it can be tested and timed alone, at the shapes the block kernels
+// give it, against its plain version (ops/gemm.py::ln_gemm_reference,
+// weight_grad_reference; ops/quant.py::qgemm_reference) and one torch
 // call. What bounds it and what its design does: ln_gemm.cuh's notes.
 #include "ln_gemm.cuh"
 
@@ -64,4 +65,30 @@ extern "C" int d2s_wgrad(const void* p, const void* q, void* dw, void* db, void*
   return (int)d2s::launch_wgrad(static_cast<const bf16*>(p), static_cast<const bf16*>(q),
                                 static_cast<float*>(dw), static_cast<float*>(work), M, I, J,
                                 static_cast<cudaStream_t>(stream), static_cast<float*>(db));
+}
+
+// One int8 product out = res + act(acc * (row_s * col_s) + bias), acc the
+// exact int32 sum of a (M, K) and w (N, K) codes over K (d2s::QGemmArgs,
+// launch_qgemm): row_s (M) and col_s (N) fp32; bias (N) fp32, residual
+// (M, N) bf16 and residual_f32 (M, N) fp32 each null for none (not both);
+// gelu: the exact GELU of the bf16-rounded value; exactly one of out (bf16)
+// and out_f32. Requires K a multiple of 16, N of 8, 16-byte aligned pointers.
+extern "C" int d2s_qgemm(const void* a, const void* row_s, const void* w, const void* col_s,
+                         const void* bias, const void* residual, const void* residual_f32,
+                         void* out, void* out_f32, int M, int N, int K, int gelu, void* stream) {
+  d2s::QGemmArgs q{};
+  q.a = static_cast<const int8_t*>(a);
+  q.row_s = static_cast<const float*>(row_s);
+  q.w = static_cast<const int8_t*>(w);
+  q.col_s = static_cast<const float*>(col_s);
+  q.bias = static_cast<const float*>(bias);
+  q.residual = static_cast<const bf16*>(residual);
+  q.residual_f32 = static_cast<const float*>(residual_f32);
+  q.out = static_cast<bf16*>(out);
+  q.out_f32 = static_cast<float*>(out_f32);
+  q.M = M;
+  q.N = N;
+  q.K = K;
+  q.act = gelu ? d2s::ACT_GELU : d2s::ACT_NONE;
+  return (int)d2s::launch_qgemm(q, static_cast<cudaStream_t>(stream));
 }

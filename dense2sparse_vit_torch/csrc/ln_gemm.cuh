@@ -67,6 +67,27 @@
 // slice (so that the extra shared-memory reads spread evenly over the
 // CTAs), into one fp32 partial row per split and column tile, which the
 // same reduce adds; the products, and so dW's bits, are untouched.
+//
+// The int8 products of quant_block.cu (W8A8) run on the same kernel,
+// instantiated for int8 operands in the GEMM_NK layout (s8 wgmma takes
+// K-major operands only: the codes (M, K) and the weight's codes (N, K)
+// both lie that way): a slice is 128 int8 values of K, the same 128 bytes
+// a row of the swizzle holds, so the TMA boxes, the ring, the descriptors
+// and their 32-byte steps are the bf16 ones byte for byte, each step a
+// wgmma.mma_async m64n128k32 .s32.s8.s8 with exact int32 sums. The MMA
+// warpgroups stage the sums converted to fp32 (round to nearest), and the
+// epilogue warpgroups dequantize, as quant_block.cu's notes define:
+//   out[m, n] = res[m, n] + act(acc * (row_s[m] * col_s[n]) + bias[n])
+// each operation rounded on its own (__fmul_rn, __fadd_rn: no fma), act
+// the exact GELU of the bf16-rounded value, res bf16 or fp32. The int8
+// epilogue (qgemm_epilogue) loads what does not depend on the sums (the
+// scales, the bias, the first rows' residual) before they are staged, and
+// takes GELU as a template argument: behind a runtime branch in its element
+// loop, erf's arithmetic stayed in every product's epilogue and cost about
+// what running it does. What bounds the int8 products at the block's
+// shapes: at K = 384 the epilogue (GELU's erf for fc1; the fp32 tile's
+// staging and reading for all), which the short K loop cannot cover; at
+// K = 1536 (fc2) the ring's refill, as for the bf16 products.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -76,6 +97,7 @@
 
 #include <algorithm>
 #include <cmath>
+#include <type_traits>
 
 namespace d2s {
 
@@ -191,11 +213,14 @@ static_assert(GEMM_A_BYTES == 2 * GEMM_BOX_BYTES && GEMM_B_BYTES == 2 * GEMM_BOX
 // along their rows).
 enum GemmMode : int { GEMM_NK = 0, GEMM_KN = 1, GEMM_WGRAD = 2 };
 
-struct GemmArgs {
-  const bf16* a;         // rows of K values; see a_rows / a_bstride
+// T: the operands' type, bf16 or int8_t (the int8 codes: GEMM_NK only,
+// no LayerNorm, preact, gelu_in, row_scale or colsum)
+template <typename T>
+struct GemmArgsT {
+  const T* a;            // rows of K values; see a_rows / a_bstride
   int a_rows;            // rows per sample in `a` (M for a packed matrix)
   long long a_bstride;   // elements from one sample's first row to the next
-  const bf16* w;         // (N, K), or (K, N) with w_kn
+  const T* w;            // (N, K), or (K, N) with w_kn
   int w_kn;              // 0: w is (N, K); 1: w is (K, N)
   const float* bias;     // (N) or null
   const float* ln_w;     // (K) or null: no LayerNorm prologue
@@ -210,9 +235,14 @@ struct GemmArgs {
   bf16* out;             // (M, N) bf16, or null with out_f32
   float* out_f32;        // (M, N) fp32 instead of `out`, or null
   float* colsum;         // weight gradient: (splits, n_tiles, M) partial column sums of P, or null
+  const float* row_s;    // int8: (M) the codes' row scales
+  const float* col_s;    // int8: (N) the weight's column scales
+  const float* residual_f32;  // int8: (M, N) fp32 residual instead of `residual`, or null
   int M, N, K;
   int act;
 };
+using GemmArgs = GemmArgsT<bf16>;
+using QGemmArgs = GemmArgsT<int8_t>;
 
 // The work tiles of one launch: `outer` x row_tiles x n_tiles, where outer
 // is the sample (A's rows come per sample) or, for the weight gradient, the
@@ -224,7 +254,8 @@ struct GemmTiles {
   int k_split;
 };
 
-__device__ __forceinline__ const bf16* gemm_a_row(const GemmArgs& p, int m) {
+template <typename T>
+__device__ __forceinline__ const T* gemm_a_row(const GemmArgsT<T>& p, int m) {
   return p.a + (long long)(m / p.a_rows) * p.a_bstride + (long long)(m % p.a_rows) * p.K;
 }
 
@@ -309,6 +340,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// an accumulator as the fp32 the epilogue takes: int32 rounded to nearest
+__device__ __forceinline__ float acc_float(float v) { return v; }
+__device__ __forceinline__ float acc_float(int v) { return __int2float_rn(v); }
+
 // d (64 x 128, fp32) += A (64 x 16) B (16 x 128), both bf16 from shared
 // memory; TA / TB: the operand is MN-major (transposed). d's layout: warp w
 // of the warpgroup holds rows 16w..16w+15, and d[4j..4j+3] are the mma.sync
@@ -338,6 +378,35 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 128, int32) += A (64 x 32) B (32 x 128), both int8 and K-major
+// from shared memory (s8 wgmma has no transposed form); d's layout as
+// wgmma_m64n128k16's
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // One warp per row: fp32 mean, then 1/std from the squared deviations (two
@@ -370,6 +439,97 @@ static __global__ void ln_stats_kernel(const GemmArgs p) {
   if (lane == 0) p.ln_stats[m] = make_float2(mu, rs);
 }
 
+// The int8 epilogue of one tile (gemm_kernel's notes): the thread's 8
+// consecutive columns n .. n + 7 (column c of the tile) of the half's rows
+// ct / 16 + 8 i, from the fp32 tile once `staged` completes its phase.
+// GELU is a template argument, so that the products without it carry none
+// of its arithmetic.
+template <bool GELU>
+__device__ __forceinline__ void qgemm_epilogue(const GemmArgsT<int8_t>& p, const float* c_tile,
+                                               uint64_t* staged, uint32_t parity, int r0,
+                                               int n0, int h, int ct) {
+  const int c = (ct & 15) * 8;
+  const int n = n0 + c;
+  // What does not depend on the sums is loaded before they are staged:
+  // the column scales, the bias, the scales of the thread's 8 rows
+  // (row0 + 8 i) and the residual of its first 4; the residual then
+  // streams 4 rows ahead of the arithmetic.
+  const bool live = n < p.N;
+  const int row0 = r0 + 64 * h + (ct >> 4);
+  float cs[8], bb[8], rs[8];
+  uint4 res[4][2];  // row i in slot i % 4: 8 bf16 in [0], or 8 fp32 in [0] and [1]
+  auto load_res = [&](int i) {
+    const int m = row0 + 8 * i;
+    if (m >= p.a_rows) return;
+    const long long o = (long long)m * p.N + n;
+    if (p.residual) {
+      res[i & 3][0] = *reinterpret_cast<const uint4*>(p.residual + o);
+    } else if (p.residual_f32) {
+      res[i & 3][0] = *reinterpret_cast<const uint4*>(p.residual_f32 + o);
+      res[i & 3][1] = *reinterpret_cast<const uint4*>(p.residual_f32 + o + 4);
+    }
+  };
+  if (live) {
+    const float4 s0 = __ldg(reinterpret_cast<const float4*>(p.col_s + n));
+    const float4 s1 = __ldg(reinterpret_cast<const float4*>(p.col_s + n + 4));
+    cs[0] = s0.x, cs[1] = s0.y, cs[2] = s0.z, cs[3] = s0.w;
+    cs[4] = s1.x, cs[5] = s1.y, cs[6] = s1.z, cs[7] = s1.w;
+    if (p.bias) {
+      const float4 b0 = __ldg(reinterpret_cast<const float4*>(p.bias + n));
+      const float4 b1 = __ldg(reinterpret_cast<const float4*>(p.bias + n + 4));
+      bb[0] = b0.x, bb[1] = b0.y, bb[2] = b0.z, bb[3] = b0.w;
+      bb[4] = b1.x, bb[5] = b1.y, bb[6] = b1.z, bb[7] = b1.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      rs[i] = row0 + 8 * i < p.a_rows ? __ldg(p.row_s + row0 + 8 * i) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) load_res(i);
+  }
+  mbar_wait(staged, parity);
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = row0 - r0 + 8 * i;  // the row in the tile
+      if (r0 + r < p.a_rows) {
+        const long long o = (long long)(r0 + r) * p.N + n;
+        const float4 c0 = *reinterpret_cast<const float4*>(c_tile + r * GEMM_LDC + c);
+        const float4 c1 = *reinterpret_cast<const float4*>(c_tile + r * GEMM_LDC + c + 4);
+        float v[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          // acc * (s_row * s_col) + bias, each operation rounded on its own
+          v[j] = __fmul_rn(v[j], __fmul_rn(rs[i], cs[j]));
+          if (p.bias) v[j] = __fadd_rn(v[j], bb[j]);
+          if (GELU) v[j] = gelu_exact(__bfloat162float(__float2bfloat16(v[j])));
+        }
+        const uint4* rr = res[i & 3];
+        if (p.residual) {
+          const bf16* re = reinterpret_cast<const bf16*>(&rr[0]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = __fadd_rn(__bfloat162float(re[j]), v[j]);
+        } else if (p.residual_f32) {
+          const float re[8] = {__uint_as_float(rr[0].x), __uint_as_float(rr[0].y),
+                               __uint_as_float(rr[0].z), __uint_as_float(rr[0].w),
+                               __uint_as_float(rr[1].x), __uint_as_float(rr[1].y),
+                               __uint_as_float(rr[1].z), __uint_as_float(rr[1].w)};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = __fadd_rn(re[j], v[j]);
+        }
+        if (p.out_f32) {
+          *reinterpret_cast<float4*>(p.out_f32 + o) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(p.out_f32 + o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+          *reinterpret_cast<uint4*>(p.out + o) =
+              make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                         pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+        }
+      }
+      if (i + 4 < 8) load_res(i + 4);  // into the slot row i has freed
+    }
+  }
+}
+
 // Persistent: each CTA walks the work tiles blockIdx.x, + gridDim.x, ...
 // with five warpgroups. The producer's one thread keeps the ring of
 // GEMM_STAGES (A, B) slices full by TMA; a slice's full barrier completes
@@ -384,11 +544,19 @@ static __global__ void ln_stats_kernel(const GemmArgs p) {
 // and frees the half (`drained`): one tile's epilogue runs beside the next
 // tile's products. Registers (setmaxnreg; 640 threads enter with 96 each):
 // the producer gives up 64 a thread, which the MMA warpgroups take (128
-// each, 64 of them accumulators); the epilogue warpgroups keep 96.
-template <int MODE>
+// each, 64 of them accumulators); the epilogue warpgroups keep 96. With
+// int8 operands (T = int8_t, GEMM_NK) a slice holds 2 * GEMM_BK values of
+// K and the epilogue dequantizes (the notes at the top).
+template <int MODE, typename T = bf16>
 static __global__ void __launch_bounds__(GEMM_THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
-                const __grid_constant__ CUtensorMap tma_b, const GemmArgs p, const GemmTiles t) {
+                const __grid_constant__ CUtensorMap tma_b, const GemmArgsT<T> p,
+                const GemmTiles t) {
+  constexpr bool INT8 = std::is_same<T, int8_t>::value;
+  static_assert(INT8 || std::is_same<T, bf16>::value, "bf16 or int8 operands");
+  static_assert(!INT8 || MODE == GEMM_NK, "s8 wgmma reads K-major operands only");
+  constexpr int BK = GEMM_BK * 2 / (int)sizeof(T);  // K values of a 128-byte slice
+  using Acc = typename std::conditional<INT8, int, float>::type;
   extern __shared__ unsigned char gemm_smem[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~uintptr_t(1023));
@@ -422,7 +590,7 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
     outer = rest / t.row_tiles;
     k_begin = WGRAD ? outer * t.k_split : 0;
     const int k_end = WGRAD ? min(p.K, k_begin + t.k_split) : p.K;
-    slices = (k_end - k_begin + GEMM_BK - 1) / GEMM_BK;
+    slices = (k_end - k_begin + BK - 1) / BK;
   };
   const int role = threadIdx.x >> 7;  // 0 producer, 1 and 2 MMA, 3 and 4 their epilogues
   const int ct = threadIdx.x & 127;
@@ -442,14 +610,14 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
           mbar_expect_tx(bar, GEMM_STAGE_BYTES);
           unsigned char* a_s = ring + stage * GEMM_STAGE_BYTES;
           unsigned char* b_s = a_s + GEMM_A_BYTES;
-          const int k0 = k_begin + kb * GEMM_BK;
+          const int k0 = k_begin + kb * BK;
           if (WGRAD) {  // P (tokens, I): boxes of 64 columns x 64 token rows
             tma_load_2d(a_s, &tma_a, bar, r0, k0);
             tma_load_2d(a_s + GEMM_BOX_BYTES, &tma_a, bar, r0 + 64, k0);
           } else {  // A (K, rows per sample, samples)
             tma_load_3d(a_s, &tma_a, bar, k0, r0, outer);
           }
-          if (MODE == GEMM_NK) {  // W (N, K): 128 rows of 64
+          if (MODE == GEMM_NK) {  // W (N, K): 128 rows of 128 bytes
             tma_load_2d(b_s, &tma_b, bar, k0, n0);
           } else {  // W (K, N) or Q (tokens, J): boxes of 64 columns x 64 rows
             tma_load_2d(b_s, &tma_b, bar, n0, k0);
@@ -528,8 +696,15 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
       float* out_f32 =
           p.out_f32 ? p.out_f32 + (WGRAD ? (long long)outer * p.M * p.N : 0) : nullptr;
       const int n = n0 + c;
-      mbar_wait(&staged[h], parity);
-      if (n < p.N) {
+      if constexpr (INT8) {
+        if (p.act == ACT_GELU)
+          qgemm_epilogue<true>(p, c_tile, &staged[h], parity, r0, n0, h, ct);
+        else
+          qgemm_epilogue<false>(p, c_tile, &staged[h], parity, r0, n0, h, ct);
+      } else {
+        mbar_wait(&staged[h], parity);
+      }
+      if (!INT8 && n < p.N) {
         float bb[8];
         if (p.bias) {
           const float4 b0 = __ldg(reinterpret_cast<const float4*>(p.bias + n));
@@ -612,7 +787,7 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
   const int warp = ct >> 5;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const bool ln = p.ln_w != nullptr;
+  const bool ln = !INT8 && p.ln_w != nullptr;
   float* cs = c_tile + wg * 64 * GEMM_LDC;
   // the LayerNorm prologue's share of a slice: 16-byte chunk `pc` of rows
   // ct / 8 + 16 i (i < 4), which holds columns 8 (pc ^ row % 8) .. + 7
@@ -646,9 +821,9 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
       }
       load_ln(0);
     }
-    float acc[64];
+    Acc acc[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
     const int mma_slices = slices;  // the K slices whose products enter the sum
     int prev = 0;
     for (int kb = 0; kb < slices; ++kb) {
@@ -683,17 +858,21 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
       wgmma_fence();
       if (kb < mma_slices) {
 #pragma unroll
-        for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
-          if (WGRAD)  // P^T: this warpgroup's box, 16 token rows of 128 bytes a step
+        for (int kk = 0; kk < GEMM_BK / 16; ++kk) {  // 32 bytes of K a step
+          if constexpr (INT8) {
+            wgmma_m64n128k32_s8(acc, wgmma_desc(a_s + wg * GEMM_BOX_BYTES + kk * 32, 16, 1024),
+                                wgmma_desc(b_s + kk * 32, 16, 1024));
+          } else if (WGRAD) {  // P^T: this warpgroup's box, 16 token rows of 128 bytes a step
             wgmma_m64n128k16<1, 1>(acc,
                                    wgmma_desc(a_s + wg * GEMM_BOX_BYTES + kk * 2048, 0, 1024),
                                    wgmma_desc(b_s + kk * 2048, GEMM_BOX_BYTES, 1024));
-          else if (MODE == GEMM_KN)
+          } else if (MODE == GEMM_KN) {
             wgmma_m64n128k16<0, 1>(acc, wgmma_desc(a_s + wg * GEMM_BOX_BYTES + kk * 32, 16, 1024),
                                    wgmma_desc(b_s + kk * 2048, GEMM_BOX_BYTES, 1024));
-          else
+          } else {
             wgmma_m64n128k16<0, 0>(acc, wgmma_desc(a_s + wg * GEMM_BOX_BYTES + kk * 32, 16, 1024),
                                    wgmma_desc(b_s + kk * 32, 16, 1024));
+          }
         }
       }
       wgmma_commit();
@@ -710,8 +889,8 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
     fence_acc(acc);
     if (lane == 0) mbar_arrive(&empty[prev]);
 
-    // accumulators -> this warpgroup's 64 rows of the fp32 tile, once the
-    // epilogue warpgroup has read the previous tile's
+    // accumulators (int32 rounded to fp32) -> this warpgroup's 64 rows of
+    // the fp32 tile, once the epilogue warpgroup has read the previous tile's
     mbar_wait(&drained[wg], drain_parity);
     drain_parity ^= 1;
 #pragma unroll
@@ -719,7 +898,7 @@ static __global__ void __launch_bounds__(GEMM_THREADS, 1)
 #pragma unroll
       for (int half = 0; half < 2; ++half)
         *reinterpret_cast<float2*>(cs + (warp * 16 + g + half * 8) * GEMM_LDC + j * 8 + 2 * tq) =
-            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+            make_float2(acc_float(acc[4 * j + 2 * half]), acc_float(acc[4 * j + 2 * half + 1]));
     __syncwarp();
     if (lane == 0) mbar_arrive(&staged[wg]);
   }
@@ -753,35 +932,35 @@ static TensorMapEncoder tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims (innermost first; strides in bytes, from the
-// second dim on) read in boxes of `box`, in the 128-byte swizzle that the
-// products' descriptors name, out-of-bounds elements zero
+// A bf16 (or `type`) tensor of `rank` dims (innermost first; strides in
+// bytes, from the second dim on) read in boxes of `box`, in the 128-byte
+// swizzle that the products' descriptors name, out-of-bounds elements zero
 static bool encode_map(CUtensorMap* map, const void* base, cuuint32_t rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const TensorMapEncoder encode = tensor_map_encoder();
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+         encode(map, type, rank, const_cast<void*>(base), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int MODE>
+template <int MODE, typename T = bf16>
 static cudaError_t launch_gemm_tiles(const CUtensorMap& ma, const CUtensorMap& mb,
-                                     const GemmArgs& p, const GemmTiles& t,
+                                     const GemmArgsT<T>& p, const GemmTiles& t,
                                      cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(gemm_kernel<MODE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                GEMM_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  gemm_kernel<MODE><<<std::min(t.tiles, sms), GEMM_THREADS, GEMM_SMEM_BYTES, stream>>>(ma, mb, p,
-                                                                                       t);
+  gemm_kernel<MODE, T><<<std::min(t.tiles, sms), GEMM_THREADS, GEMM_SMEM_BYTES, stream>>>(
+      ma, mb, p, t);
   return cudaGetLastError();
 }
 
@@ -829,6 +1008,41 @@ static cudaError_t launch_ln_gemm(const GemmArgs& p, cudaStream_t stream) {
   t.k_split = p.K;
   return p.w_kn ? launch_gemm_tiles<GEMM_KN>(ma, mb, p, t, stream)
                 : launch_gemm_tiles<GEMM_NK>(ma, mb, p, t, stream);
+}
+
+// The int8 product (the notes at the top): a (M, K) codes with row_s (M),
+// w (N, K) codes with col_s (N), bias (N) or null, at most one of residual
+// (bf16) and residual_f32, act ACT_NONE or ACT_GELU, exactly one of out and
+// out_f32; a_rows, a_bstride, w_kn and the bf16-only options are ignored.
+// Returns the launch error, and cudaErrorInvalidValue for arguments the
+// engine does not take. Requires K a multiple of 16 (TMA's 16-byte
+// strides; K past a slice's end arrives as zeros), N a multiple of 8 and
+// 16-byte aligned pointers. A template, so that only the files that call
+// it build the int8 kernel.
+template <typename T>
+static cudaError_t launch_qgemm(const GemmArgsT<T>& q, cudaStream_t stream) {
+  static_assert(std::is_same<T, int8_t>::value, "int8 codes");
+  if (q.M <= 0 || q.N <= 0 || q.K <= 0 || q.K % 16 != 0 || q.N % 8 != 0 || !q.row_s ||
+      !q.col_s || (!q.out) == (!q.out_f32) || (q.residual && q.residual_f32) ||
+      (q.act != ACT_NONE && q.act != ACT_GELU))
+    return cudaErrorInvalidValue;
+  GemmArgsT<T> p = q;
+  p.a_rows = q.M;  // one sample: rows past M arrive as zeros and are not stored
+  CUtensorMap ma, mb;
+  const cuuint32_t box[3] = {2 * GEMM_BK, GEMM_BM, 1};  // 128 bytes of K by 128 rows
+  const cuuint64_t a_dims[3] = {(cuuint64_t)p.K, (cuuint64_t)p.M, 1};
+  const cuuint64_t a_strides[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M * p.K};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.N};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)p.K};
+  if (!encode_map(&ma, p.a, 3, a_dims, a_strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      !encode_map(&mb, p.w, 2, w_dims, w_strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8))
+    return cudaErrorInvalidValue;
+  GemmTiles t;
+  t.row_tiles = (p.M + GEMM_BM - 1) / GEMM_BM;
+  t.n_tiles = (p.N + GEMM_BN - 1) / GEMM_BN;
+  t.tiles = t.row_tiles * t.n_tiles;
+  t.k_split = p.K;
+  return launch_gemm_tiles<GEMM_NK, T>(ma, mb, p, t, stream);
 }
 
 // ---- weight gradient: dW (I, J) = P^T Q, P (M, I), Q (M, J), fp32 out -----

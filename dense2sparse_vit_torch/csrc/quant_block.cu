@@ -29,26 +29,34 @@
 //   8. rowq  act           -> codes, row scales      (B*N, 4C)
 //   9. qgemm out = x_mid + fc2                       (B*N, C) bf16
 //
-// What bounds it on the H100: at B=256, N=197 the four projections are
-// 178.5 GOP of int8 (0.090 ms at the dense int8 peak of 1,979 TOP/s) and
-// the attention dots 15.3 GFLOP of bf16 (0.015 ms at 989 TFLOP/s): it is
-// operations-bound in principle. This first version does not come near:
-// the GEMM is an mma.sync design with int8 operands (m16n8k32.s8.s8.s32,
-// 128 x 128 x 128-byte tiles, a 3-stage cp.async ring), not ln_gemm.cuh's
-// TMA + wgmma engine, and the intermediates (codes, qkv, attn, the fp32
-// x_mid, the (B*N, 4C) activation) go through device memory, about 30
-// bytes moved per element of x. A faster design quantizes inside the GEMM
-// epilogue that produces each activation (a row's absmax needs the whole
-// row: one CTA across N, or a second pass), keeps fc1 -> GELU -> fc2 on
-// chip, and moves the GEMM to TMA + wgmma.
+// The four products (2, 5, 7, 9) run on ln_gemm.cuh's engine, instantiated
+// for int8 operands (launch_qgemm): TMA loads of 128-byte K slices into an
+// mbarrier ring, wgmma m64n128k32 .s32.s8.s8 with exact int32 sums, a
+// persistent CTA per SM, a producer warpgroup, and epilogue warpgroups
+// that dequantize one tile (in the order and at the rounding points above)
+// while the MMA warpgroups multiply the next. Int32 sums are exact in any
+// order, so the products give the bits of any exact int8 GEMM followed by
+// that epilogue.
 //
-// Row quantization (rowq_kernel): one warp per row, read once into
-// registers (all of a lane's loads in flight), then the LayerNorm's fp32
-// mean and variance, the absmax and the codes from there. The int8 GEMM (qgemm_kernel): the PTX ISA's fragments
-// of m16n8k32 with s8 operands lie in bytes exactly as m16n8k16's bf16 ones
-// do (a register holds four int8 where it held two bf16), so the tiles are
-// loaded with ln_gemm.cuh's ldmatrix helper, over byte columns; the
-// weight's torch layout (out, in) is the `col` operand as it lies.
+// What bounds it on the H100: bytes. Per token row at C=384, hidden=1536
+// the products move 12,672 bytes (the codes and the residuals x and x_mid
+// read; qkv, x_mid, the activation and the output written): at B=256,
+// N=197 that is 0.64 GB, 0.19 ms at 3.35 TB/s, against 178.5 GOP of int8,
+// 0.09 ms at the dense int8 peak of 1,979 TOP/s. The four row
+// quantizations move 8,832 bytes a row (0.45 GB, 0.13 ms), the attention
+// core 15.3 GFLOP of bf16. What holds the block above that now: the
+// products' epilogue at K = C (ln_gemm.cuh's notes), then the row
+// quantizations.
+//
+// Row quantization (rowq_kernel) stays a pass of its own: one warp per row,
+// read once into registers (all of a lane's loads in flight), then the
+// LayerNorm's fp32 mean and variance, the absmax and the codes from there.
+// A row's absmax spans 3 to 12 of the producing GEMM's 128-column tiles, so
+// quantizing in that GEMM's epilogue needs a CTA across the whole row or a
+// second pass over it, and a LayerNorm in the consuming GEMM's prologue is
+// what holds the bf16 engine's qkv and fc1 products to a fraction of their
+// rate. The pass already runs near its bytes bound; a fold would save
+// traffic only (each quantized activation's second read).
 #include "ln_gemm.cuh"
 
 namespace d2s {
@@ -174,192 +182,6 @@ static cudaError_t launch_rowq(const T* in, int M, int K, const float* ln_w, con
   return cudaGetLastError();
 }
 
-// ---- int8 GEMM: out[m, n] = epi(sum_k a[m, k] * w[n, k]) ------------------
-
-constexpr int QG_BM = 128;
-constexpr int QG_BN = 128;
-constexpr int QG_BK = 128;  // bytes (int8 values) of K per slice
-constexpr int QG_THREADS = 256;
-constexpr int QG_STAGES = 3;
-constexpr int QG_LDS = QG_BK + 16;  // byte pitch: rows 9 x 16 bytes apart, conflict-free ldmatrix
-constexpr int QG_STAGE = (QG_BM + QG_BN) * QG_LDS;  // bytes per stage
-constexpr int QG_SMEM_BYTES = QG_STAGES * QG_STAGE;
-constexpr int QG_LDC = QG_BN + 4;  // int32 pitch of the epilogue tile
-constexpr int QG_VECS = QG_BM * QG_BK / 16 / QG_THREADS;  // 16-byte vectors per operand
-static_assert(QG_BM == QG_BN, "A and B slices share the copy mapping");
-static_assert(QG_VECS * QG_THREADS * 16 == QG_BM * QG_BK, "slice copy");
-static_assert(QG_BM * QG_LDC * 4 <= QG_SMEM_BYTES, "epilogue tile fits the ring");
-
-struct QGemmArgs {
-  const int8_t* a;        // (M, K) activation codes
-  const int8_t* w;        // (N, K) weight codes, the torch Linear layout
-  const float* row_s;     // (M) activation scales
-  const float* col_s;     // (N) weight scales
-  const float* bias;      // (N) or null
-  const bf16* res_bf16;   // (M, N) or null: + residual
-  const float* res_f32;   // (M, N) or null: + residual
-  bf16* out;              // (M, N) bf16, or null with out_f32
-  float* out_f32;         // (M, N) fp32 instead
-  int M, N, K;
-  int gelu;               // GELU of the bf16-rounded dequantized value, before any residual
-};
-
-// c += a (16x32, row) * b (32x8, col), s8 in, s32 accumulate; fragments as
-// m16n8k16's in bytes: a: {(g, 4t..4t+3), (g+8, 4t..), (g, 16+4t..),
-// (g+8, 16+4t..)}, b: {(4t..4t+3, g), (16+4t.., g)}, c: as m16n8k16's
-__device__ __forceinline__ void mma_16832_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const int8_t* p) {
-  ldmatrix_x4(r, reinterpret_cast<const bf16*>(p));
-}
-
-static __global__ void __launch_bounds__(QG_THREADS, 2) qgemm_kernel(const QGemmArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* stages = reinterpret_cast<int8_t*>(smem);  // [STAGES][A (BM x LDS) | B (BN x LDS)]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.y * QG_BM;
-  const int n0 = blockIdx.x * QG_BN;
-  const int wm = (warp & 1) * 64;  // warp tile 64 x 32: 2 warps down, 4 across
-  const int wn = (warp >> 1) * 32;
-
-  auto issue = [&](int slice) {
-    const int k0 = slice * QG_BK;
-    int8_t* As = stages + (slice % QG_STAGES) * QG_STAGE;
-    int8_t* Bs = As + QG_BM * QG_LDS;
-#pragma unroll
-    for (int i = 0; i < QG_VECS; ++i) {
-      const int v = tid + i * QG_THREADS;
-      const int r = v / (QG_BK / 16);
-      const int c = (v % (QG_BK / 16)) * 16;
-      const bool kin = k0 + c < p.K;
-      const bool va = kin && m0 + r < p.M;
-      cp_async16(As + r * QG_LDS + c, va ? p.a + (long long)(m0 + r) * p.K + k0 + c : p.a, va);
-      const bool vb = kin && n0 + r < p.N;
-      cp_async16(Bs + r * QG_LDS + c, vb ? p.w + (long long)(n0 + r) * p.K + k0 + c : p.w, vb);
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  const int slices = (p.K + QG_BK - 1) / QG_BK;
-#pragma unroll
-  for (int s = 0; s < QG_STAGES - 1; ++s) {
-    if (s < slices) issue(s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < slices; ++s) {
-    cp_async_wait<QG_STAGES - 2>();
-    __syncthreads();  // slice s has landed; slice s-1's stage is free
-    if (s + QG_STAGES - 1 < slices) issue(s + QG_STAGES - 1);
-    cp_async_commit();
-    const int8_t* As = stages + (s % QG_STAGES) * QG_STAGE;
-    const int8_t* Bs = As + QG_BM * QG_LDS;
-#pragma unroll
-    for (int kk = 0; kk < QG_BK; kk += 32) {
-      uint32_t af[4][4];
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldsm_x4(af[i], As + (wm + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QG_LDS + kk +
-                           (lane >> 4) * 16);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t r[4];
-        ldsm_x4(r, Bs + (wn + j * 8 + (lane & 7) + (lane >> 4) * 8) * QG_LDS + kk +
-                       ((lane >> 3) & 1) * 16);
-        bfr[j][0] = r[0];
-        bfr[j][1] = r[1];
-        bfr[j + 1][0] = r[2];
-        bfr[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_16832_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring: reuse it for the tile
-
-  int* Cs = reinterpret_cast<int*>(smem);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<int2*>(Cs + (wm + i * 16 + g + half * 8) * QG_LDC + wn + j * 8 + 2 * t) =
-            make_int2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-  __syncthreads();
-
-  // 8 consecutive columns a thread: N % 8 == 0, so a chunk is all in or out
-  for (int e = tid; e < QG_BM * QG_BN / 8; e += QG_THREADS) {
-    const int r = e / (QG_BN / 8);
-    const int c = (e % (QG_BN / 8)) * 8;
-    const int m = m0 + r;
-    const int n = n0 + c;
-    if (m >= p.M || n >= p.N) continue;
-    const float rs = p.row_s[m];
-    const long long o = (long long)m * p.N + n;
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      // acc * (s_row * s_col) + bias, each operation rounded on its own
-      v[j] = __fmul_rn(__int2float_rn(Cs[r * QG_LDC + c + j]), __fmul_rn(rs, __ldg(p.col_s + n + j)));
-      if (p.bias) v[j] = __fadd_rn(v[j], __ldg(p.bias + n + j));
-      if (p.gelu) v[j] = gelu_exact(__bfloat162float(__float2bfloat16(v[j])));
-    }
-    if (p.res_bf16) {
-      float rv[8];
-      load8(p.res_bf16 + o, rv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = __fadd_rn(rv[j], v[j]);
-    }
-    if (p.res_f32) {
-      float rv[8];
-      load8(p.res_f32 + o, rv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = __fadd_rn(rv[j], v[j]);
-    }
-    if (p.out_f32) {
-      *reinterpret_cast<float4*>(p.out_f32 + o) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(p.out_f32 + o + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-      *reinterpret_cast<uint4*>(p.out + o) =
-          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                     pack_bf16(v[6], v[7]));
-    }
-  }
-}
-
-static cudaError_t launch_qgemm(const QGemmArgs& p, cudaStream_t stream) {
-  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.K % 16 != 0 || p.N % 8 != 0 ||
-      (!p.out) == (!p.out_f32))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(qgemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         QG_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + QG_BN - 1) / QG_BN, (p.M + QG_BM - 1) / QG_BM);
-  qgemm_kernel<<<grid, QG_THREADS, QG_SMEM_BYTES, stream>>>(p);
-  return cudaGetLastError();
-}
-
 }  // namespace d2s
 
 using d2s::bf16;
@@ -420,7 +242,7 @@ extern "C" int d2s_block_int8_forward(
   q.w = q8(wproj_q);
   q.col_s = f(sproj);
   q.bias = f(bproj);
-  q.res_bf16 = xb;
+  q.residual = xb;
   q.out = nullptr;
   q.out_f32 = mid;
   q.N = C;
@@ -435,10 +257,10 @@ extern "C" int d2s_block_int8_forward(
   q.w = q8(w1_q);
   q.col_s = f(s1);
   q.bias = f(b1);
-  q.res_bf16 = nullptr;
+  q.residual = nullptr;
   q.out_f32 = nullptr;
   q.out = act;
-  q.gelu = 1;
+  q.act = d2s::ACT_GELU;
   q.N = hidden;
   q.K = C;
   if ((err = d2s::launch_qgemm(q, s)) != cudaSuccess) return (int)err;
@@ -451,9 +273,9 @@ extern "C" int d2s_block_int8_forward(
   q.w = q8(w2_q);
   q.col_s = f(s2);  // fc2's column scales
   q.bias = f(b2);
-  q.res_f32 = mid;
+  q.residual_f32 = mid;
   q.out = static_cast<bf16*>(out);
-  q.gelu = 0;
+  q.act = d2s::ACT_NONE;
   q.N = C;
   q.K = hidden;
   return (int)d2s::launch_qgemm(q, s);

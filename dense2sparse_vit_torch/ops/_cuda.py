@@ -51,6 +51,7 @@ _SIGNATURES = {
     "d2s_ln_gemm": [_P, _I, _L, _P, _I, _P, _P, _P, _F, _P, _P, _P, _I, _P, _P, _P, _P]
                    + [_I] * 4 + [_P],
     "d2s_wgrad": [_P] * 5 + [_I] * 3 + [_P],
+    "d2s_qgemm": [_P] * 9 + [_I] * 4 + [_P],
     "d2s_wgrad_workspace_bytes": [_I] * 3,
     "d2s_ln_backward": [_P] * 11 + [_I] * 2 + [_P],
     "d2s_ln_backward_workspace_bytes": [_I] * 2,

@@ -25,7 +25,10 @@ exact row-max softmax of `ops.block.attention_reference`: the TPU kernel's
 
 `fused_transformer_block_int8` launches `csrc/quant_block.cu` for a CUDA
 tensor and runs `quant_block_reference`, the plain torch version, for a CPU
-tensor.
+tensor. Its four products run on the GEMM engine's int8 instantiation
+(`csrc/ln_gemm.cuh`), which `qgemm` runs alone (`csrc/gemm.cu`'s
+`d2s_qgemm`; `qgemm_reference` on the CPU), so that it can be tested and
+timed at the block's shapes.
 
 Weights are in the torch Linear layout (out, in): `quantize_weight` takes
 the absmax of each row, where the JAX package, whose kernels are (in, out),
@@ -116,6 +119,78 @@ def qmatmul(h32: torch.Tensor, wq: torch.Tensor, col_s: torch.Tensor, bias) -> t
     bias: fp32 (..., out)."""
     q, s = quantize_rows(h32)
     return dequantize(int_dot(q, wq), s, col_s, bias)
+
+
+def qgemm_reference(codes, row_s, w_q, col_s, bias=None, residual=None, gelu=False,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain torch version of `qgemm`: the exact product (`int_dot`),
+    dequantized (`dequantize`), the exact GELU of its bf16 rounding, plus
+    the residual in fp32, rounded once to out_dtype."""
+    v = dequantize(int_dot(codes, w_q), row_s[:, None], col_s, bias)
+    if gelu:
+        v = F.gelu(v.to(torch.bfloat16).float())
+    if residual is not None:
+        v = residual.float() + v
+    return v.to(out_dtype)
+
+
+def _qgemm_check(codes, row_s, w_q, col_s, bias, residual, out_dtype):
+    """Raise on what neither `qgemm` version takes."""
+    if codes.dim() != 2 or w_q.dim() != 2 or codes.shape[1] != w_q.shape[1]:
+        raise ValueError(f"qgemm: codes {tuple(codes.shape)} and w_q {tuple(w_q.shape)}: need "
+                         "(M, K) and (N, K)")
+    if codes.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"qgemm: codes {codes.dtype}, w_q {w_q.dtype}: need int8")
+    (M, _), N = codes.shape, w_q.shape[0]
+    vectors = (("row_s", row_s, (M,)), ("col_s", col_s, (N,)), ("bias", bias, (N,)))
+    for name, t, shape in vectors[:3 if bias is not None else 2]:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"qgemm: {name} {t.dtype} {tuple(t.shape)}: need fp32 {shape}")
+    if residual is not None and (residual.dtype not in (torch.bfloat16, torch.float32)
+                                 or tuple(residual.shape) != (M, N)):
+        raise ValueError(f"qgemm: residual {residual.dtype} {tuple(residual.shape)}: need bf16 "
+                         f"or fp32 {(M, N)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"qgemm: out_dtype {out_dtype}: bf16 or fp32")
+
+
+def qgemm(codes, row_s, w_q, col_s, bias=None, residual=None, gelu=False,
+          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """One int8 product of the W8A8 block, (M, N) in out_dtype:
+    residual + act(acc * (row_s * col_s) + bias), acc the exact sum over K of
+    codes (M, K) int8 times w_q (N, K) int8 (the torch Linear layout), row_s
+    (M,) and col_s (N,) fp32, bias (N,) fp32 or None, residual (M, N) bf16
+    or fp32 or None, act the exact GELU of the bf16-rounded value where
+    `gelu`; each operation rounded on its own, then one rounding to
+    out_dtype (bf16 or fp32). A CUDA tensor launches the GEMM engine's int8
+    kernel (K a multiple of 16, N of 8); a CPU tensor runs
+    `qgemm_reference`. Launches count in `qgemm.launches`."""
+    _qgemm_check(codes, row_s, w_q, col_s, bias, residual, out_dtype)
+    if codes.device.type == "cpu":
+        return qgemm_reference(codes, row_s, w_q, col_s, bias, residual, gelu, out_dtype)
+    (M, K), N = codes.shape, w_q.shape[0]
+    if K % 16 or N % 8:
+        raise ValueError(f"qgemm: K={K}, N={N}: the kernel takes K % 16 == 0 and N % 8 == 0")
+    dev, i8, f32 = codes.device, torch.int8, torch.float32
+    res_bf16 = residual if residual is not None and residual.dtype == torch.bfloat16 else None
+    res_f32 = residual if residual is not None and residual.dtype == f32 else None
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    f32_out = out_dtype == f32
+    err = _cuda.library().d2s_qgemm(
+        _cuda.ptr(codes, "codes", dev, i8, (M, K)), _cuda.ptr(row_s, "row_s", dev, f32, (M,)),
+        _cuda.ptr(w_q, "w_q", dev, i8, (N, K)), _cuda.ptr(col_s, "col_s", dev, f32, (N,)),
+        _cuda.ptr(bias, "bias", dev, f32, (N,)),
+        _cuda.ptr(res_bf16, "residual", dev, torch.bfloat16, (M, N)),
+        _cuda.ptr(res_f32, "residual", dev, f32, (M, N)),
+        0 if f32_out else out.data_ptr(), out.data_ptr() if f32_out else 0,
+        M, N, K, int(gelu), _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "d2s_qgemm")
+    qgemm.launches += 1
+    return out
+
+
+qgemm.launches = 0
 
 
 def layer_norm_f32(h32: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:

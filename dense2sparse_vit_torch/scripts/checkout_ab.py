@@ -1,0 +1,294 @@
+"""Measure one checkout of the port on the card, so that two can be compared.
+
+    PYTHONPATH=CHECKOUT python ANY_CHECKOUT/dense2sparse_vit_torch/scripts/checkout_ab.py \\
+        --bits a.json
+    PYTHONPATH=CHECKOUT python ANY_CHECKOUT/dense2sparse_vit_torch/scripts/checkout_ab.py \\
+        --int8-times
+    python -m dense2sparse_vit_torch.scripts.checkout_ab --compare a.json b.json
+
+Run by its path, the script imports whichever `dense2sparse_vit_torch` is
+first on PYTHONPATH, so one copy of it measures any checkout whose entry
+points it calls (`ops.fused_transformer_block_int8` with its stages,
+`ops.gemm.ln_gemm` and `weight_grad`, `ops.fused_transformer_block` and its
+backward); run both checkouts in one call. Every input is drawn on the CPU
+from a fixed seed and then moved to the device, so two checkouts see the
+same values.
+
+`--bits` writes {"package": the imported package's path, "card": ...,
+"digests": {case: SHA-256 of the output's bytes}} for the cases:
+
+- int8/<B>x<N>x<C>/<stage>: the W8A8 block at B=256, C=384, N = 197, 138,
+  97, 68 and at B=16, C=768, N=197: its four quantizations' codes q1-q4
+  and the products' outputs qkv, mid (x + proj, fp32), act (GELU(fc1)) and
+  out (mid + fc2);
+- gemm/<name>: the bf16 GEMM engine's products at `chip_smoke.py` phase
+  28's shapes: the block forward's four at M = 50,432, the backward's four
+  dX products and four weight gradients (with the bias sums) at M = 25,216;
+- block/<stage>, block_bwd/<tensor>: the bf16 block forward's stages and
+  its backward's dx and gradients at B=64, N=197, C=384.
+
+`--compare` prints one JSON line per case of the first file (equal, or
+missing from the second) and a summary line, and exits 1 if any differs.
+`--device cpu` runs `--bits` on the plain versions at B=2, N=13, C=128 (a
+smoke run).
+
+`--int8-times` prints, at the headline student's widths (B=256, C=384, 6
+heads, N = 197, 138, 97, 68), one JSON line per width: the int8 block's ms
+per call by CUDA events (median of 5 runs of 10 calls) and the bf16 block
+kernel's on the same input; from torch.profiler over 10 calls, the device
+ms per call of the block's row quantizations (kernels named `rowq`), its
+four products (named `gemm_kernel`), its attention core (`attention`) and
+the rest; and, the same way, the device ms of `torch._int_mm` (cuBLASLt:
+int8 codes in, int32 out, no dequantization) on the four products'
+shapes, or the reason the card's build refused it. Its last line names
+the package, the card and its power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import statistics
+import sys
+
+import torch
+
+import dense2sparse_vit_torch
+from dense2sparse_vit_torch import ops
+from dense2sparse_vit_torch.nn.layers import Block
+from dense2sparse_vit_torch.ops.gemm import ln_gemm, weight_grad
+from dense2sparse_vit_torch.utils import card_name_and_power_limit
+
+# the bf16 engine's products: (name, M, N, K, weight (K, N), options)
+GEMM_CASES = (
+    ("qkv", 50432, 1152, 384, False, ("ln", "bias")),
+    ("proj", 50432, 384, 384, False, ("bias", "residual")),
+    ("fc1", 50432, 1536, 384, False, ("ln", "bias", "gelu", "preact")),
+    ("fc2", 50432, 384, 1536, False, ("bias", "residual")),
+    ("dy", 25216, 1536, 384, True, ("gelu_in",)),
+    ("dln2", 25216, 384, 1536, True, ("out_f32",)),
+    ("do", 25216, 384, 384, True, ()),
+    ("dln1", 25216, 384, 1152, True, ("out_f32",)),
+)
+WGRAD_CASES = (("dw2", 25216, 384, 1536), ("dw1", 25216, 1536, 384),
+               ("dwproj", 25216, 384, 384), ("dwqkv", 25216, 1152, 384))
+
+
+def digest(t: torch.Tensor) -> str:
+    t = t.detach().contiguous().cpu()
+    return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def seeded_block(C: int, H: int, seed: int, device) -> Block:
+    """A block drawn on the CPU: matrices N(0, 1/fan_in), LayerNorms 1 +-
+    0.1, biases 0.1 N(0, 1)."""
+    blk = Block(C, H, use_fused=True, quant="int8")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if p.dim() == 2:
+                p.copy_(r * p.shape[1] ** -0.5)
+            elif "norm" in name and name.endswith("weight"):
+                p.copy_(1 + 0.1 * r)
+            else:
+                p.copy_(0.1 * r)
+    return blk.to(device).eval()
+
+
+def randn(gen, shape, device, dtype=torch.bfloat16, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(device, dtype)
+
+
+def int8_cases(device, shapes) -> dict:
+    out = {}
+    for B, N, C, H in shapes:
+        blk = seeded_block(C, H, seed=C, device=device)
+        x = randn(torch.Generator().manual_seed(N + C), (B, N, C), device)
+        with torch.inference_mode():
+            y, st = ops.fused_transformer_block_int8(x, blk.int8_weights(torch.bfloat16), H,
+                                                     stages=True)
+        for key in ("q1", "q2", "q3", "q4", "qkv", "mid", "act"):
+            out[f"int8/{B}x{N}x{C}/{key}"] = digest(st[key])
+        out[f"int8/{B}x{N}x{C}/out"] = digest(y)
+    return out
+
+
+def gemm_cases(device, scale_rows: int) -> dict:
+    out = {}
+    gen = torch.Generator().manual_seed(28)
+    f32 = torch.float32
+    for name, M, N, K, kn, opts in GEMM_CASES:
+        M //= scale_rows
+        a = randn(gen, (M, K), device)
+        w = randn(gen, (K, N) if kn else (N, K), device, scale=K ** -0.5)
+        kw = {"out_f32": "out_f32" in opts, "preact": "preact" in opts}
+        if "ln" in opts:
+            kw["ln"] = (1 + randn(gen, (K,), device, f32, 0.1), randn(gen, (K,), device, f32, 0.1),
+                        1e-6)
+        if "bias" in opts:
+            kw["bias"] = randn(gen, (N,), device, f32)
+        if "gelu" in opts:
+            kw["act"] = "gelu"
+        for key in ("residual", "gelu_in"):
+            if key in opts:
+                kw[key] = randn(gen, (M, N), device)
+        with torch.inference_mode():
+            got = ln_gemm(a, w, w_kn=kn, **kw)
+        for i, t in enumerate(got if isinstance(got, tuple) else (got,)):
+            out[f"gemm/{name}" + ("/preact" if i else "")] = digest(t)
+    for name, M, I, J in WGRAD_CASES:
+        M //= scale_rows
+        p, q = randn(gen, (M, I), device), randn(gen, (M, J), device)
+        with torch.inference_mode():
+            dw, db = weight_grad(p, q, bias=True)
+        out[f"gemm/{name}"], out[f"gemm/{name}/db"] = digest(dw), digest(db)
+    return out
+
+
+def block_cases(device, B, N, C, H) -> dict:
+    blk = seeded_block(C, H, seed=7, device=device)
+    gen = torch.Generator().manual_seed(64)
+    x, g = randn(gen, (B, N, C), device), randn(gen, (B, N, C), device)
+    w = blk.kernel_weights(torch.bfloat16)
+    with torch.no_grad():
+        y, st = ops.fused_transformer_block(x, w, H, stages=True)
+        dx, grads, _ = ops.fused_transformer_block_backward(x, g, w, H)
+    out = {f"block/{k}": digest(v) for k, v in st.items() if v is not None}
+    out["block/out"] = digest(y)
+    out["block_bwd/dx"] = digest(dx)
+    out.update({f"block_bwd/{k}": digest(v) for k, v in grads.items() if v is not None})
+    return out
+
+
+def measure(device) -> dict:
+    if device.type == "cpu":  # the plain versions, at a smoke size
+        shapes, rows, blk = [(2, 13, 128, 2)], 2048, (2, 13, 128, 2)
+    else:
+        shapes = [(256, n, 384, 6) for n in (197, 138, 97, 68)] + [(16, 197, 768, 12)]
+        rows, blk = 1, (64, 197, 384, 6)
+    digests = {**int8_cases(device, shapes), **gemm_cases(device, rows),
+               **block_cases(device, *blk)}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    return {"package": dense2sparse_vit_torch.__file__, "card": card, "digests": digests}
+
+
+# --int8-times: the headline student's widths, and the device-kernel groups
+WIDTHS = (197, 138, 97, 68)
+GROUPS = ("rowq", "gemm_kernel", "attention")
+
+
+def events_ms(fn, iters=10, repeats=5) -> float:
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_ms(fn, iters=10) -> dict:
+    """Device ms per call of fn, by kernel-name group (GROUPS, "other")."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(GROUPS + ("other",), 0.0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(e, "is_user_annotation", False):
+            continue
+        group = next((g for g in GROUPS if g in e.key), "other")
+        out[group] += e.self_device_time_total / 1e3 / iters
+    out["total"] = sum(out.values())
+    return out
+
+
+def int8_times(device) -> None:
+    B, C, H = 256, 384, 6
+    # the block's four products: (N, K) of the weight
+    products = ((3 * C, C), (C, C), (4 * C, C), (C, 4 * C))
+    blk = seeded_block(C, H, seed=0, device=device)
+    qw, w = blk.int8_weights(torch.bfloat16), blk.kernel_weights(torch.bfloat16)
+    gen = torch.Generator().manual_seed(12)
+    with torch.inference_mode():
+        for n in WIDTHS:
+            x = torch.randn((B, n, C), generator=gen).to(device, torch.bfloat16)
+            int8 = lambda: ops.fused_transformer_block_int8(x, qw, H)  # noqa: E731
+            row = {"N": n, "B": B, "C": C,
+                   "int8_ms": events_ms(int8),
+                   "bf16_ms": events_ms(lambda: ops.fused_transformer_block(x, w, H)),
+                   "int8_device_ms": device_ms(int8)}
+            codes = torch.randint(-127, 128, (B * n, 4 * C), generator=gen,
+                                  dtype=torch.int8).to(device)
+            mats = [torch.randint(-127, 128, (nn, k), generator=gen, dtype=torch.int8).to(device)
+                    for nn, k in products]
+            a = [codes[:, :k].contiguous() for _, k in products]
+
+            def int_mm():
+                for ai, wi in zip(a, mats):
+                    torch._int_mm(ai, wi.t())
+
+            try:
+                row["int_mm_device_ms"] = device_ms(int_mm)["total"]
+            except RuntimeError as e:  # the card's build may refuse a shape
+                row["int_mm_refused"] = str(e)[:300]
+            print(json.dumps(row), flush=True)
+    print(json.dumps({"package": dense2sparse_vit_torch.__file__,
+                      "card": card_name_and_power_limit()}), flush=True)
+
+
+def compare(a: dict, b: dict) -> int:
+    differ = 0
+    for case, d in a["digests"].items():
+        other = b["digests"].get(case)
+        equal = other == d
+        differ += not equal
+        print(json.dumps({"case": case, "equal": equal, "missing": other is None}))
+    print(json.dumps({"cases": len(a["digests"]), "differ": differ, "first": a["package"],
+                      "second": b["package"], "cards": [a["card"], b["card"]]}))
+    return 1 if differ else 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bits", metavar="OUT")
+    ap.add_argument("--int8-times", action="store_true")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if not (args.bits or args.int8_times or args.compare):
+        ap.error("give --bits OUT, --int8-times or --compare A B")
+    if args.compare:
+        with open(args.compare[0]) as fa, open(args.compare[1]) as fb:
+            return compare(json.load(fa), json.load(fb))
+    if args.device != "cpu" and not torch.cuda.is_available():
+        raise SystemExit("checkout_ab needs a CUDA device (or --device cpu for --bits)")
+    device = torch.device(args.device)
+    if args.int8_times:
+        if device.type != "cuda":
+            raise SystemExit("--int8-times times the card")
+        int8_times(device)
+        return 0
+    result = measure(device)
+    with open(args.bits, "w") as f:
+        json.dump(result, f)
+    print(json.dumps({"package": result["package"], "cases": len(result["digests"])}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,6 +21,7 @@ import torch
 import dense2sparse_vit_torch.ops.block as block_ops
 import dense2sparse_vit_torch.ops.gemm as gemm_ops
 import dense2sparse_vit_torch.ops.norm as norm_ops
+import dense2sparse_vit_torch.ops.quant as quant_ops
 from dense2sparse_vit_torch import ops
 from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
 from dense2sparse_vit_torch.models import (
@@ -1102,6 +1103,108 @@ def test_ln_gemm_refuses_what_the_engine_does_not_take(cuda):
     assert lib.d2s_ln_gemm(*args, 0, 0, 64, 384, 384, 0, stream) != 0
     args[1] = 60
     assert lib.d2s_ln_gemm(*args, a.data_ptr(), 0, 64, 384, 384, 0, stream) != 0
+
+
+# ---- the int8 products on the engine (ops.quant.qgemm, csrc/ln_gemm.cuh) ----
+
+# the int8 block's four products at DeiT-S's and DeiT-B's widths (C = 384,
+# 768): (N, K, options), K = C for qkv, proj and fc1, 4C for fc2
+QGEMM_PRODUCTS = {f"{name}_{c}": (n * c // 384, k * c // 384, opts)
+                  for c in (384, 768) for name, n, k, opts in chip_smoke.QGEMM_FWD}
+
+
+def _qgemm_check(a, row_s, w, col_s, kw):
+    """The kernel bit-equal to its plain version; through GELU (erf in the
+    kernel and in torch) within one bf16 rounding, as check_int8_block."""
+    got = quant_ops.qgemm(a, row_s, w, col_s, **kw)
+    want = quant_ops.qgemm_reference(a, row_s, w, col_s, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if kw["gelu"]:
+        assert chip_smoke.ulp_excess(got, want) <= chip_smoke.INT8_ULP_TOL
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("what", sorted(QGEMM_PRODUCTS))
+@pytest.mark.parametrize("m", [1, 52, 129, 25216, 50432])
+def test_qgemm_at_the_int8_blocks_products_shapes(cuda, m, what):
+    n, k, opts = QGEMM_PRODUCTS[what]
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    a, row_s, w, col_s, kw, _ = chip_smoke.qgemm_inputs(torch, gen, m, n, k, opts)
+    before = quant_ops.qgemm.launches
+    _qgemm_check(a, row_s, w, col_s, kw)
+    assert quant_ops.qgemm.launches == before + 1
+
+
+@pytest.mark.parametrize("m,n,k,opts", [(300, 200, 48, ()), (77, 8, 16, ("bias",)),
+                                        (1000, 136, 400, ("gelu", "residual")),
+                                        (129, 256, 3072, ("residual_f32", "out_f32")),
+                                        (64, 384, 1536, ("bias", "gelu", "residual_f32")),
+                                        (513, 1152, 384, ("bias", "residual", "out_f32"))])
+def test_qgemm_every_epilogue_option_and_ragged_shapes(cuda, m, n, k, opts):
+    """Every epilogue option; K with a partial last slice (48, 400) or one
+    short slice (16), N no multiple of the 128-wide tile."""
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    _qgemm_check(*chip_smoke.qgemm_inputs(torch, gen, m, n, k, opts)[:5])
+
+
+def test_qgemm_runs_give_equal_bits(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a, row_s, w, col_s, kw, _ = chip_smoke.qgemm_inputs(torch, gen, 25216, 1536, 384,
+                                                        ("bias", "gelu"))
+    first = quant_ops.qgemm(a, row_s, w, col_s, **kw)
+    second = quant_ops.qgemm(a, row_s, w, col_s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("c,heads", [(384, 6), (768, 12)])
+def test_int8_block_products_are_qgemm_bit_for_bit(cuda, c, heads):
+    """The int8 block's four products are the engine's int8 GEMM: each stage
+    the block returns equals `qgemm` on the block's own codes and scales."""
+    blk = _int8_block(c, c, heads).to(cuda).eval()
+    x = torch.randn((4, 197, c), generator=torch.Generator(device=cuda).manual_seed(c),
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        qw = blk.int8_weights(torch.bfloat16)
+        out, st = ops.fused_transformer_block_int8(x, qw, heads, stages=True)
+
+        def product(i, key, **kw):
+            q = st[f"q{i}"]
+            return quant_ops.qgemm(q.reshape(-1, q.shape[-1]), st[f"s{i}"].reshape(-1),
+                                   qw[f"w{key}_q"], qw[f"s{key}"], qw[f"b{key}"],
+                                   **kw).reshape(4, 197, -1)
+
+        rows = (4 * 197, c)
+        got = {"qkv": product(1, "qkv"),
+               "mid": product(2, "proj", residual=x.reshape(rows), out_dtype=torch.float32),
+               "act": product(3, "1", gelu=True),
+               "out": product(4, "2", residual=st["mid"].reshape(rows))}
+        torch.cuda.synchronize()
+    want = {"qkv": st["qkv"], "mid": st["mid"], "act": st["act"], "out": out}
+    assert all(torch.equal(got[k], want[k]) for k in want), [
+        k for k in want if not torch.equal(got[k], want[k])]
+
+
+def test_qgemm_refuses_what_the_engine_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    a, row_s, w, col_s, kw, _ = chip_smoke.qgemm_inputs(torch, gen, 64, 128, 384, ())
+    with pytest.raises(ValueError, match="K % 16"):
+        quant_ops.qgemm(a[:, :376].contiguous(), row_s, w[:, :376].contiguous(), col_s)
+    with pytest.raises(ValueError, match="N % 8"):
+        quant_ops.qgemm(a, row_s, w[:12].contiguous(), col_s[:12].contiguous())
+    # the C entry itself: both residuals, or no output
+    lib = _cuda.library()
+    stream = _cuda.stream_handle(cuda)
+    res = torch.zeros((64, 128), device=cuda, dtype=torch.bfloat16)
+    res32 = torch.zeros((64, 128), device=cuda)
+    out = torch.empty((64, 128), device=cuda, dtype=torch.bfloat16)
+    ptrs = [a.data_ptr(), row_s.data_ptr(), w.data_ptr(), col_s.data_ptr(), 0]
+    assert lib.d2s_qgemm(*ptrs, res.data_ptr(), res32.data_ptr(), out.data_ptr(), 0,
+                         64, 128, 384, 0, stream) != 0
+    assert lib.d2s_qgemm(*ptrs, 0, 0, 0, 0, 64, 128, 384, 0, stream) != 0
+    assert lib.d2s_qgemm(*ptrs, 0, 0, out.data_ptr(), 0, 64, 128, 384, 0, stream) == 0
 
 
 # ---- the LayerNorm backward and the bias column sums (csrc/norm.cu) --------

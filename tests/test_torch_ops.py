@@ -234,7 +234,8 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.nn.t2t, dense2sparse_vit_torch.models.t2t, "
         "dense2sparse_vit_torch.scripts, dense2sparse_vit_torch.scripts.attn_variants, "
         "dense2sparse_vit_torch.scripts.kernel_sweep, dense2sparse_vit_torch.utils.profiling, "
-        "dense2sparse_vit_torch.ops.gemm, dense2sparse_vit_torch.ops.norm\n"
+        "dense2sparse_vit_torch.ops.gemm, dense2sparse_vit_torch.ops.norm, "
+        "dense2sparse_vit_torch.scripts.checkout_ab\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"

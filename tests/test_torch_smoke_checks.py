@@ -596,19 +596,83 @@ def test_check_block_rejects_a_qkv_short_of_its_last_k_slice(monkeypatch, capsys
     assert line["rel_err"]["qkv"] > 2 * line["tol_rel"]["qkv"]
 
 
+# mangled names of the engine's instantiations: bf16 modes 0 and 2, int8
+BF16_NK = "_ZN3d2s11gemm_kernelILi0E13__nv_bfloat16EEv14CUtensorMap_stS2_NS_9GemmArgsTIS1_EE"
+BF16_WG = "_ZN3d2s11gemm_kernelILi2E13__nv_bfloat16EEv14CUtensorMap_stS2_NS_9GemmArgsTIS1_EE"
+INT8_NK = "_ZN3d2s11gemm_kernelILi0EaEEv14CUtensorMap_stS1_NS_9GemmArgsTIaEENS_9GemmTilesE"
+
+
 def test_gemm_spills_reads_each_gemm_kernels_ptxas_line():
     log = "\n".join([
-        "ptxas info    : Function properties for _ZN3d2s11gemm_kernelILi0EEEv14CUtensorMap",
+        f"ptxas info    : Function properties for {BF16_NK}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Function properties for _ZN3d2s12qgemm_kernelENS_9QGemmArgsE",
+        "ptxas info    : Function properties for _ZN3d2s12rowq_kernelIfLi2EEEvPKT_",
         "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
-        "ptxas info    : Function properties for _ZN3d2s11gemm_kernelILi2EEEv14CUtensorMap",
+        f"ptxas info    : Function properties for {BF16_WG}",
         "    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads",
+        f"ptxas info    : Function properties for {INT8_NK}",
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
     ])
     spills = chip_smoke.gemm_spills(log)
-    assert sorted(spills) == ["_ZN3d2s11gemm_kernelILi0EEEv14CUtensorMap",
-                              "_ZN3d2s11gemm_kernelILi2EEEv14CUtensorMap"]
-    assert spills["_ZN3d2s11gemm_kernelILi2EEEv14CUtensorMap"].startswith("16 bytes stack")
+    assert sorted(spills) == sorted([BF16_NK, BF16_WG, INT8_NK])
+    assert spills[BF16_WG].startswith("16 bytes stack")
+    assert spills[INT8_NK].startswith("0 bytes stack frame, 4 bytes spill stores")
+    assert chip_smoke.gemm_kernel_kind(INT8_NK) == ("0", "int8")
+    assert chip_smoke.gemm_kernel_kind(BF16_WG) == ("2", "bf16")
+
+
+def _sass(**ops):
+    return {**dict.fromkeys(chip_smoke.SASS_OPS, 0), **ops}
+
+
+def test_gemm_sass_faults_hold_every_engine_kernel_to_its_wgmma():
+    """The library's GEMM kernels: the engine's three bf16 modes with HGMMA,
+    its int8 one with IGMMA, no mma.sync (HMMA, IMMA) and nothing else."""
+    good = {BF16_NK: _sass(HGMMA=28), BF16_NK.replace("ILi0", "ILi1"): _sass(HGMMA=28),
+            BF16_WG: _sass(HGMMA=28), INT8_NK: _sass(IGMMA=16)}
+    assert chip_smoke.gemm_sass_faults(good) == []
+    for name, bad in ((INT8_NK, _sass(IGMMA=16, IMMA=4)), (INT8_NK, _sass(HGMMA=16)),
+                      (BF16_WG, _sass(HGMMA=28, HMMA=2)), (BF16_NK, _sass(IGMMA=28))):
+        faults = chip_smoke.gemm_sass_faults({**good, name: bad})
+        assert len(faults) == 1 and name in faults[0], (name, bad)
+    without_int8 = {k: v for k, v in good.items() if k != INT8_NK}
+    assert chip_smoke.gemm_sass_faults(without_int8) == ["missing ('0', 'int8')"]
+    old = "_ZN3d2s12qgemm_kernelENS_9QGemmArgsE"
+    assert chip_smoke.gemm_sass_faults({**good, old: _sass(IMMA=32)}) == [
+        f"not an engine kernel: {old}"]
+
+
+def test_the_qgemm_fault_reaches_the_int8_products_alone():
+    """`--plant-fault qgemm` edits the s8 product call, which only the
+    int8 instantiation's branch of the engine's consumer loop holds."""
+    source, pattern, replacement, reaches = chip_smoke.FAULTS["qgemm"]
+    lines = open(os.path.join(REPO, "dense2sparse_vit_torch", "csrc", source)).read().splitlines()
+    at = [i for i, ln in enumerate(lines) if pattern in ln]
+    assert len(at) == 1 and lines[at[0] - 1].strip() == "if constexpr (INT8) {"
+    assert replacement.startswith("if (kb + 1 < slices) ") and reaches == "'qkv'"
+
+
+def test_check_int8_block_rejects_a_qkv_short_of_its_last_k_slice(monkeypatch, capsys):
+    """The qkv product without its last 128-value K slice, what
+    `--plant-fault qgemm` does to every int8 product: the qkv stage sees it."""
+    from dense2sparse_vit_torch.ops.quant import qgemm
+
+    real = ops.fused_transformer_block_int8
+
+    def faulty(x, qw, *args, **kwargs):
+        y, st = real(x, qw, *args, **kwargs)
+        q = st["q1"].clone()
+        q[..., -128:] = 0
+        st["qkv"] = qgemm(q.reshape(-1, C), st["s1"].reshape(-1), qw["wqkv_q"], qw["sqkv"],
+                          qw["bqkv"]).reshape(st["qkv"].shape)
+        return y, st
+
+    monkeypatch.setattr(ops, "fused_transformer_block_int8", faulty)
+    x, qw, args = _int8_input()
+    with torch.inference_mode(), pytest.raises(AssertionError, match=chip_smoke.FAULTS["qgemm"][3]):
+        chip_smoke.check_int8_block(torch, x, qw, *args, block=0)
+    line = _last_line(capsys)
+    assert line["rel_err"]["qkv"] > 2 * line["tol_rel"]["qkv"]
 
 
 def _norm_cases():
