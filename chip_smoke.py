@@ -19,6 +19,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault qgemm       # the int8 block's qkv-stage check
     python3 chip_smoke.py --plant-fault ln_bwd      # the LayerNorm backward's check
     python3 chip_smoke.py --plant-fault colsum      # the column sums' check
+    python3 chip_smoke.py --plant-fault attn_bwd    # the attention core backward's check
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -152,9 +153,25 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  the weight gradients, dW's bits unchanged), each against
                  its plain version, then timed beside it, one torch call
                  (native_layer_norm_backward; a.sum(0, dtype=float32)) and
-                 its bound.
-The build phase fails if ptxas reports a spill in a GEMM kernel, or
-reports on no int8 one.
+                 its bound;
+ 30. attn_bwd    the attention core's backward (attention_bwd_kernel, inside
+                 every backward with attention) through
+                 `ops.fused_attention_backward_packed`, which launches it
+                 beside the forward recompute and dPolicy's head sum: held
+                 against its plain version at every block of a B=128 top-k
+                 step, at a threshold step's first and last policy blocks
+                 (with dPolicy, eps 1e-6 and 0.1, and on planted exact ties)
+                 and at an attn step's stage-feeding blocks (with the CLS
+                 rows' cotangent), a second call bit-equal each time; the
+                 built library's SASS (wgmma in every instantiation,
+                 mma.sync in the policy ones alone); the kernel timed at
+                 N=197/138/97/68 by the profiler's device time, its plain
+                 version and SDPA's backward from CUDA graphs, beside its
+                 bound, and at N=197 in policy mode and with the fold.
+The build phase fails if ptxas reports a spill in a GEMM kernel or in
+attention_bwd_kernel, or reports on no int8 one, or if it serializes
+attention_bwd_kernel's wgmma products; it prints that kernel's C75xx
+notices (`wgmma_notices`).
 The pruning student runs its serving, timing and export phases without
 capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
 callers do.
@@ -187,7 +204,9 @@ the last K slice's products (`ln_gemm.cuh`), on phase 13's walk at B=64
 (the qkv stage of `check_int8_block`); --plant-fault ln_bwd with a
 LayerNorm backward that leaves z mean(dz z) out of dx, and --plant-fault
 colsum with column sums that leave out the last split's rows (`norm.cu`),
-on phase 29's checks.
+on phase 29's checks; --plant-fault attn_bwd with an attention core
+backward whose dQ leaves out the last key block's products
+(`block_bwd.cu`), on phase 30's checks.
 """
 
 from __future__ import annotations
@@ -248,7 +267,7 @@ KERNEL_NAMES = (
     "fused_mlp_residual_backward", "fused_transformer_block[scaled]",
     "fused_transformer_block_backward[scaled]", "attention_block_forward",
     "attention_block_backward", "attention_block_backward_policy", "attention_variant",
-    "ln_bwd", "column_sums",
+    "ln_bwd", "column_sums", "attention_bwd",
 )
 NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 
@@ -262,6 +281,13 @@ def norm_launches(blocks=0, halves=0) -> dict:
     return {"ln_bwd": 2 * blocks + halves, "column_sums": blocks}
 
 
+def core_launches(backwards=0) -> dict:
+    """The attention core backward's launches inside `backwards` backwards
+    with attention (whole-block, packed attention and attention half-block
+    backwards: one each; an MLP half's backward has none)."""
+    return {"attention_bwd": backwards}
+
+
 PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
                "fused_gather_tokens": 3}
 # one train step: the teacher's 12 blocks with their CLS rows; the student's
@@ -269,7 +295,8 @@ PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg
 # predictors train through their plain layers
 PER_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block": 12,
                   "fused_transformer_block_cls": 12, "fused_transformer_block_backward": 12,
-                  "fused_gather_tokens": 3, "fused_scatter_tokens": 3, **norm_launches(12)}
+                  "fused_gather_tokens": 3, "fused_scatter_tokens": 3, **norm_launches(12),
+                  **core_launches(12)}
 # threshold serving: 3 plain blocks before the first stage, 9 policy blocks
 # from it on, 3 predictors, nothing gathered
 PER_THRESHOLD_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 3,
@@ -280,7 +307,8 @@ PER_POLICY_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block": 3,
                          "fused_transformer_block[policy]": 9,
                          "fused_transformer_block_cls": 12,
                          "fused_transformer_block_backward": 3,
-                         "fused_transformer_block_backward[policy]": 9, **norm_launches(12)}
+                         "fused_transformer_block_backward[policy]": 9, **norm_launches(12),
+                         **core_launches(12)}
 # the gumbel baseline's eval forward: 3 gathers, 12 plain blocks (its
 # predictor has no kernel)
 PER_GUMBEL_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_gather_tokens": 3}
@@ -306,7 +334,7 @@ PER_ATTN_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block_cls": 12,
                        "fused_attention_packed": 12, "fused_attention_backward_packed": 12,
                        "fused_mlp_residual": 12, "fused_mlp_residual_backward": 12,
                        "fused_gather_tokens": 3, "fused_scatter_tokens": 3,
-                       **norm_launches(halves=12)}
+                       **norm_launches(halves=12), **core_launches(12)}
 # its eval forward: 12 CLS-row blocks, 3 gathers
 PER_ATTN_FORWARD = {**NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_gather_tokens": 3}
 ATTN_STAGE_FEEDERS = (2, 5, 8)  # the blocks whose CLS rows rank a stage's tokens
@@ -377,6 +405,9 @@ SOURCES = {
     "column_sums": (
         "dense2sparse_vit_torch/csrc/norm.cu",
         "dense2sparse_vit_tpu/ops/pallas/block.py:679"),
+    "attention_bwd": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/attention.py:626"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -394,13 +425,15 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # (ln_gemm.cuh, gemm) the GEMM's consumers skipping the last K slice's
 # products, (qgemm) the int8 ones alone; (norm.cu) the LayerNorm backward
 # without z mean(dz z) (ln_bwd), the column sums without the last split's
-# rows (colsum); and the stage whose check must reject it
+# rows (colsum); (block_bwd.cu, attn_bwd) the attention core backward's dQ
+# without the last key block's products; and the stage whose check must
+# reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
-    "policy": ("block_bwd.cu", "if (key != q) dpa[e >> 1]", "if (true) dpa[e >> 1]", "dpolicy"),
+    "policy": ("block_bwd.cu", "if (key != q) dpa[e & 1]", "if (true) dpa[e & 1]", "dpolicy"),
     "int8": ("quant_block.cu", "q.col_s = f(s2);  // fc2's column scales",
              "q.col_s = f(s1);  // fc2's column scales", "fc2_out"),
-    "cls": ("block_bwd.cu", "        Ds[0] += s0;\n", "        Ds[0] += 0.f * s0;\n", "gcls_only"),
+    "cls": ("block_bwd.cu", "      Ds[0] += s0;\n", "      Ds[0] += 0.f * s0;\n", "gcls_only"),
     "droppath": ("ln_gemm.cuh", "for (int j = 0; j < 8; ++j) v[j] *= sc;",
                  "for (int j = 0; j < 8; ++j) v[j] *= 1.f + 0.f * sc;", "mid"),
     "attn_block": ("block_bwd.cu", "  const bf16* res = gb;  // dx's residual term, g itself\n",
@@ -421,6 +454,8 @@ FAULTS = {
     "colsum": ("norm.cu", "const int m1 = min(M, m0 + rows);",
                "const int m1 = blockIdx.y + 1 == gridDim.y ? m0 : min(M, m0 + rows);",
                "column_sums"),
+    "attn_bwd": ("block_bwd.cu", "          wgmma_m64n64k16_rs<1>(dq[qq], da[c], ",
+                 "          if (j + 1 < QB) wgmma_m64n64k16_rs<1>(dq[qq], da[c], ", "attn_bwd"),
 }
 
 
@@ -942,6 +977,8 @@ def plant_fault(dev, kind: str) -> int:
             cases = capture_norm_cases(torch, dev)
             with torch.no_grad():
                 check_norm(torch, cases)
+        elif kind == "attn_bwd":
+            check_attn_bwd_cases(torch, capture_attn_bwd_cases(torch, dev))
         elif kind == "scatter":
             student, teacher, step = build_trainer(torch, dev, fused=True)
             images, labels = train_batch(torch, dev)
@@ -2293,12 +2330,14 @@ PER_T2T_TRAIN_STEP = {**NO_LAUNCHES, "fused_transformer_block_cls": 14,
                       "fused_transformer_block": 1, "fused_transformer_block[scaled]": 13,
                       "fused_transformer_block_backward": 1,
                       "fused_transformer_block_backward[scaled]": 13,
-                      "fused_gather_tokens": 3, "fused_scatter_tokens": 3, **norm_launches(14)}
+                      "fused_gather_tokens": 3, "fused_scatter_tokens": 3, **norm_launches(14),
+                      **core_launches(14)}
 # the dense t2t_vit_14's forward and backward at the same rate
 PER_T2T_DENSE_STEP = {**NO_LAUNCHES, "fused_transformer_block": 1,
                       "fused_transformer_block[scaled]": 13,
                       "fused_transformer_block_backward": 1,
-                      "fused_transformer_block_backward[scaled]": 13, **norm_launches(14)}
+                      "fused_transformer_block_backward[scaled]": 13, **norm_launches(14),
+                      **core_launches(14)}
 B_T2T_DENSE = 64
 # check_droppath's scales: Bernoulli(0.7)/0.7, so that both values occur often
 DROPPATH_CHECK_RATE = 0.3
@@ -2665,7 +2704,7 @@ def phase_time_droppath(torch, dev, student, rec, serve, tally, smi):
 # the trainable half-block's forward and backward, in plain and in policy mode
 PER_ATTN_BLOCK_TRAINABLE = {**NO_LAUNCHES, "attention_block_forward": 2,
                             "attention_block_backward": 1, "attention_block_backward_policy": 1,
-                            **norm_launches(halves=2)}
+                            **norm_launches(halves=2), **core_launches(2)}
 HALF_BLOCK_KEYS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj")
 # this slice's kernels and the main path that runs them: the launches of the
 # kernel_sweep and attn_variants runs (phases 26, 27), each row's time per call
@@ -3101,10 +3140,10 @@ GEMM_KERNELS = {("0", "bf16"): "HGMMA", ("1", "bf16"): "HGMMA", ("2", "bf16"): "
 SASS_OPS = ("HGMMA", "HMMA", "IGMMA", "IMMA")
 
 
-def gemm_sass(torch, lib_path) -> dict:
+def gemm_sass(torch, lib_path, holds="gemm_kernel") -> dict:
     """Per GEMM kernel of the built library (every function whose name
-    holds `gemm_kernel`), its wgmma (HGMMA, IGMMA) and mma.sync (HMMA, IMMA)
-    instructions, from `cuobjdump -sass`."""
+    holds `holds`, by default `gemm_kernel`), its wgmma (HGMMA, IGMMA) and
+    mma.sync (HMMA, IMMA) instructions, from `cuobjdump -sass`."""
     import subprocess
     from pathlib import Path
 
@@ -3117,7 +3156,7 @@ def gemm_sass(torch, lib_path) -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-        elif name is not None and "gemm_kernel" in name:
+        elif name is not None and holds in name:
             c = counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
             for word in line.replace(";", " ").split():
                 if word.split(".")[0] in c:
@@ -3568,13 +3607,278 @@ def phase_norm(torch, dev, tally, smi):
     emit({"phase": "norm", "per_step_graph_ms": step, "card": smi})
 
 
-def gemm_spills(build_log: str) -> dict:
+# ---- 30. the attention core's backward alone --------------------------------
+
+# attention_bwd_kernel's instantiations: (policy mode, query blocks a warpgroup)
+ATTN_BWD_KERNELS = ((False, 1), (False, 3), (True, 1), (True, 3))
+
+
+def attn_bwd_kind(name: str):
+    """(policy mode, query blocks a warpgroup) of an `attention_bwd_kernel<
+    POLICY, QPW>` instantiation from its mangled name; None for another."""
+    if "attention_bwd_kernelILb" not in name:
+        return None
+    rest = name.split("attention_bwd_kernelILb")[1]  # e.g. "1ELi2EE..."
+    return rest[0] == "1", int(rest[4])
+
+
+def attn_bwd_sass_faults(counts: dict) -> list:
+    """What the attention core backward's SASS counts break: each of its
+    four instantiations present, each with wgmma (HGMMA); mma.sync (HMMA)
+    in the policy-mode ones alone, whose scores stay on mma.sync for the
+    tie test (the kernel's notes); no int8 opcode."""
+    kinds = {attn_bwd_kind(n): n for n in counts}
+    faults = [f"missing {k}" for k in ATTN_BWD_KERNELS if k not in kinds]
+    for name, c in counts.items():
+        kind = attn_bwd_kind(name)
+        if kind not in ATTN_BWD_KERNELS:
+            faults.append(f"not an instantiation: {name}")
+        elif c["HGMMA"] == 0 or c["IGMMA"] or c["IMMA"] or (c["HMMA"] and not kind[0]):
+            faults.append(f"{name}: {c}")
+    return faults
+
+
+def attn_bwd_inputs(torch, x, g, w, num_heads, scale, ln_eps, policy=None, eps=1e-6):
+    """The attention core backward's inputs inside a block backward at a
+    block's input x and output cotangent g, from plain torch autograd
+    through the block's forward (no branch scales): (qkv (B, N, 3C), dO
+    (B, N, C), the cotangent of the attention output)."""
+    import torch.nn.functional as F
+
+    from dense2sparse_vit_torch.ops.block import attention_reference, layer_norm, linear
+
+    kw = {} if policy is None else {"policy": policy, "eps": eps}
+    with torch.enable_grad():
+        qkv = linear(layer_norm(x, w["ln1_w"], w["ln1_b"], ln_eps), w["wqkv"], w["bqkv"])
+        attn = attention_reference(qkv.detach(), num_heads, scale, **kw).requires_grad_()
+        mid = x + linear(attn, w["wproj"], w["bproj"])
+        pre = linear(layer_norm(mid, w["ln2_w"], w["ln2_b"], ln_eps), w["w1"], w["b1"])
+        out = mid + linear(F.gelu(pre.float()).to(x.dtype), w["w2"], w["b2"])
+        (dattn,) = torch.autograd.grad(out, attn, g)
+    return qkv.detach().contiguous(), dattn.contiguous()
+
+
+def capture_attn_bwd_cases(torch, dev):
+    """Phase 30's cases, from three B=128 train steps' own activations, each
+    {"what", "block", "qkv", "g" (the attention output's cotangent), "heads",
+    "scale", "policy", "gcls", "eps"}: "topk" at every block of a top-k step
+    (the real output cotangent at the last block, a seeded one of its scale
+    at the others, as `check_block_backwards`); "threshold" at the first
+    and the last policy block of a threshold step with its keep policy, and
+    "ties" at the first on planted exact ties (`planted_ties`), each at
+    every eps of EPS_CHECKS; "gcls" at the attn step's blocks whose CLS rows
+    rank a stage, with the step's g and gcls."""
+    cases = []
+    for mode in ("topk", "threshold"):
+        student, teacher, step = build_trainer(torch, dev, fused=True, mode=mode)
+        images, labels = train_batch(torch, dev)
+        rec = capture_train_step(torch, student, teacher, step, images, labels)
+        gen = torch.Generator(device=dev).manual_seed(30)
+        scale_g = rec["last_g"].float().std().item()
+        last = len(student.blocks) - 1
+        policy_blocks = [i for i in range(last + 1) if rec["policy"][i] is not None]
+        for i, blk in enumerate(student.blocks):
+            x = rec["block_in"][i]
+            g = rec["last_g"].contiguous() if i == last else (
+                torch.randn(x.shape, generator=gen, device=dev) * scale_g).to(x.dtype)
+            w, H, scale = rec["weights"][i], blk.attn.num_heads, blk.attn.scale
+            ln_eps = blk.norm1.eps
+            base = {"block": i, "heads": H, "scale": scale, "gcls": None}
+            if mode == "topk":
+                qkv, do = attn_bwd_inputs(torch, x, g, w, H, scale, ln_eps)
+                cases.append({**base, "what": "topk", "qkv": qkv, "g": do, "policy": None,
+                              "eps": 1e-6})
+                continue
+            if i not in (policy_blocks[0], policy_blocks[-1]):
+                continue
+            pol = rec["policy"][i].float().contiguous()
+            inputs = [("threshold", x)]
+            if i == policy_blocks[0]:
+                x_tie, tied = planted_ties(torch, x, w, H, scale, ln_eps)
+                emit({"phase": "attn_bwd", "planted_ties": {"block": i, "tied_rows": tied}})
+                inputs.append(("ties", x_tie))
+            for what, xx in inputs:
+                for eps in EPS_CHECKS:
+                    qkv, do = attn_bwd_inputs(torch, xx, g, w, H, scale, ln_eps, pol, eps)
+                    cases.append({**base, "what": what, "qkv": qkv, "g": do, "policy": pol,
+                                  "eps": eps})
+        del student, teacher, step, rec
+    student, teacher, step = build_trainer(torch, dev, fused=True, mode="attn")
+    images, labels = train_batch(torch, dev)
+    rec = capture_attn_step(torch, step, images, labels)
+    for i in ATTN_STAGE_FEEDERS:
+        e = rec["attn"][i]
+        cases.append({"what": "gcls", "block": i, "qkv": e["qkv"], "g": e["g"],
+                      "heads": e["heads"], "scale": e["scale"], "policy": None,
+                      "gcls": e["gcls"], "eps": 1e-6})
+    return cases
+
+
+def check_attn_bwd(torch, case):
+    """Hold the attention core's backward kernel, launched by `ops.fused_
+    attention_backward_packed` (the main path's packed backward: the forward
+    core recomputed, then the kernel, then dPolicy's head sum), against its
+    plain version, `attention_backward_reference`: dqkv's q, k and v apart
+    within BWD_TOL and dPolicy within DPOL_TOL, each relative to its largest
+    magnitude; a second call on the same inputs bit-equal in dqkv and
+    dPolicy. Prints the relative errors, raises naming what is out of
+    tolerance, and returns the largest absolute error."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import attention_backward_reference
+
+    qkv, g, H, scale = case["qkv"], case["g"], case["heads"], case["scale"]
+    pol, gcls, eps = case["policy"], case["gcls"], case["eps"]
+    kw = {} if pol is None else {"policy": pol, "eps": eps}
+    with torch.no_grad():
+        runs = [ops.fused_attention_backward_packed(qkv, g, H, gcls=gcls, scale=scale, **kw)
+                for _ in range(2)]
+        want = attention_backward_reference(qkv, g, H, scale, gcls=gcls, **kw)
+    (dqkv, dpol), (dqkv2, dpol2) = [r if pol is not None else (r, None) for r in runs]
+    rel = {}
+    worst = _thirds(torch, "dqkv", dqkv, want[0], rel)
+    if pol is not None:
+        err, ref = rel_err(torch, dpol, want[1])
+        rel["dpolicy"] = (err / max(ref, 1e-30), DPOL_TOL)
+    same = bool(torch.equal(dqkv, dqkv2)) and (dpol is None or bool(torch.equal(dpol, dpol2)))
+    n = qkv.shape[1]
+    emit({"phase": "attn_bwd", "case": case["what"], "block": case["block"], "N": n,
+          "shape": list(qkv.shape), "eps": None if pol is None else eps,
+          "gcls": gcls is not None, "rel_err": {k: r for k, (r, _) in rel.items()},
+          "tol_rel": {k: t for k, (_, t) in rel.items()}, "bit_equal": same})
+    bad = {k: r for k, (r, t) in rel.items() if not r <= t}
+    if bad or not same:
+        raise AssertionError(f"attn_bwd {case['what']} block {case['block']} N={n}: out of "
+                             f"tolerance {bad}; two launches bit-equal: {same}")
+    return worst
+
+
+def check_attn_bwd_cases(torch, cases, tally=None):
+    """`check_attn_bwd` at every case; the largest error into the tally."""
+    worst = max(check_attn_bwd(torch, c) for c in cases)
+    if tally is not None:
+        tally.err("attention_bwd", worst)
+
+
+def phase_attn_bwd(torch, dev, tally, smi):
+    """Phase 30: the attention core's backward kernel (attention_bwd_kernel)
+    through `ops.fused_attention_backward_packed`, which launches it alone
+    besides the forward recompute. Checks at every case of
+    `capture_attn_bwd_cases` (`check_attn_bwd`: plain mode at every block of
+    a top-k step; policy mode with dPolicy at a threshold step's blocks and
+    on planted ties, eps 1e-6 and 0.1; the CLS fold at an attn step's
+    stage-feeding blocks) and the built library's SASS
+    (`attn_bwd_sass_faults`); then, at N = 197, 138, 97, 68 on the top-k
+    step's last block of each width, and at N=197 in policy mode (with
+    dPolicy) and with the fold, times the kernel by the profiler's device
+    time inside the packed backward (`checkout_ab.device_ms`: the device ms
+    per call of each kernel, over 10 calls), and from CUDA graphs the whole
+    packed backward, the plain version and, in plain mode,
+    scaled_dot_product_attention's backward (its forward and backward less
+    its forward); each beside `attention_backward_bound`. The kernels line
+    takes the device time and the graph times: none of them holds the
+    host's launch cost."""
+    import torch.nn.functional as F
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops import _cuda
+    from dense2sparse_vit_torch.ops import attention as att
+    from dense2sparse_vit_torch.scripts.checkout_ab import ATTN_BWD_GROUPS, device_ms
+
+    counts = gemm_sass(torch, _cuda.library()._name, holds="attention_bwd_kernel")
+    emit({"phase": "attn_bwd", "sass": counts})
+    faults = attn_bwd_sass_faults(counts)
+    if faults:
+        raise AssertionError(f"attn_bwd SASS: {faults}")
+    cases = capture_attn_bwd_cases(torch, dev)
+    check_attn_bwd_cases(torch, cases, tally)
+
+    def timed(case):
+        qkv, g, H, scale = case["qkv"], case["g"], case["heads"], case["scale"]
+        pol, gcls = case["policy"], case["gcls"]
+        kw = {} if pol is None else {"policy": pol, "eps": case["eps"]}
+        packed = lambda: ops.fused_attention_backward_packed(  # noqa: E731
+            qkv, g, H, gcls=gcls, scale=scale, **kw)
+        with torch.no_grad():
+            dev_ms = device_ms(packed, groups=ATTN_BWD_GROUPS)
+            return {"ms": dev_ms["attention_bwd_kernel"], "device_ms": dev_ms,
+                    "packed_graph_ms": graph_ms(torch, packed),
+                    "plain_ms": graph_ms(torch, lambda: att.attention_backward_reference(
+                        qkv, g, H, scale, gcls=gcls, **kw), iters=5)}
+
+    step = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    widths = {}
+    for c in cases:
+        if c["what"] == "topk":
+            widths.setdefault(c["qkv"].shape[1], []).append(c)
+    for n, cs in widths.items():
+        c = cs[-1]
+        qkv, g, H, scale = c["qkv"], c["g"], c["heads"], c["scale"]
+        B, N, C3 = qkv.shape
+        t = timed(c)
+        q, k, v, g4 = sdpa_inputs(torch, qkv, g, H)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+            torch.autograd.grad(o, (q, k, v), g4)
+
+        lib_fwd_bwd_ms = graph_ms(torch, sdpa_fwd_bwd)
+        with torch.no_grad():
+            lib_fwd_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale))
+        lib_ms = lib_fwd_bwd_ms - lib_fwd_ms
+        b = attention_backward_bound(B, N, C3 // 3, H)
+        tally.add("attention_bwd", len(cs), t["ms"], t["plain_ms"], b, lib_ms)
+        step["ms"] += len(cs) * t["ms"]
+        step["plain_ms"] += len(cs) * t["plain_ms"]
+        step["library_ms"] += len(cs) * lib_ms
+        step["bound_ms"] += len(cs) * max(b.values())
+        emit({"phase": "attn_bwd", "kernel": "attention_bwd", "mode": "plain",
+              "shape": list(qkv.shape), **t, "library_ms": lib_ms,
+              "library_fwd_bwd_ms": lib_fwd_bwd_ms, "library_fwd_ms": lib_fwd_ms,
+              "bound_ms": max(b.values()),
+              "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
+              "calls_per_step": len(cs), "card": smi})
+    for what in ("threshold", "gcls"):
+        c = next(c for c in cases if c["what"] == what)
+        B, N, C3 = c["qkv"].shape
+        b = attention_backward_bound(B, N, C3 // 3, c["heads"], gcls=c["gcls"] is not None,
+                                     policy=c["policy"] is not None)
+        emit({"phase": "attn_bwd", "kernel": "attention_bwd", "mode": what,
+              "block": c["block"], "eps": c["eps"], "shape": [B, N, C3], **timed(c),
+              "bound_ms": max(b.values()), "card": smi})
+    emit({"phase": "attn_bwd", "per_topk_step": step, "card": smi})
+
+
+def gemm_spills(build_log: str, word: str = "11gemm_kernel") -> dict:
     """ptxas's spill line for each GEMM kernel (bf16 and int8) of the build
-    log."""
+    log, or for each kernel whose name holds `word`."""
     lines = build_log.splitlines()
     return {ln.split("Function properties for ")[1].strip(): lines[i + 1].strip()
             for i, ln in enumerate(lines[:-1])
-            if "Function properties for " in ln and "11gemm_kernel" in ln}
+            if "Function properties for " in ln and word in ln}
+
+
+def wgmma_notices(build_log: str, word: str = "attention_bwd_kernel") -> dict:
+    """ptxas's C75xx notices on wgmma for each kernel whose name holds
+    `word`: {kernel: {"injected_arrive": n, "serialized": [the notices]}}.
+    C7519, "warpgroup.arrive is injected ... to allow use of registers in
+    GMMA", is a wgmma fence that ptxas adds before a product whose register
+    operands were written after the code's own fence; a notice that says
+    "serialized" ("Potential Performance Loss: wgmma.mma_async instructions
+    are serialized due to ...") means each product waits for the last."""
+    out = {}
+    for ln in build_log.splitlines():
+        if "(C75" not in ln or "function '" not in ln:
+            continue
+        name = ln.split("function '")[1].split("'")[0]
+        if word not in name:
+            continue
+        r = out.setdefault(name, {"injected_arrive": 0, "serialized": []})
+        if "(C7519)" in ln and "warpgroup.arrive is injected" in ln:
+            r["injected_arrive"] += 1
+        elif "serialized" in ln.lower():
+            r["serialized"].append(ln.strip())
+    return out
 
 
 def main(argv=None) -> int:
@@ -3610,6 +3914,15 @@ def main(argv=None) -> int:
             or any("0 bytes spill stores, 0 bytes spill loads" not in v
                    for v in spills.values())):
         raise AssertionError(f"GEMM kernels spill, or miss from ptxas's log: {spills}")
+    spills = gemm_spills(_cuda.build_log, "attention_bwd_kernel")
+    if ({attn_bwd_kind(n) for n in spills} != set(ATTN_BWD_KERNELS)
+            or any("0 bytes spill stores, 0 bytes spill loads" not in v
+                   for v in spills.values())):
+        raise AssertionError(f"attention_bwd_kernel spills, or misses from ptxas's log: {spills}")
+    notices = wgmma_notices(_cuda.build_log)
+    emit({"phase": "build", "attention_bwd_wgmma_notices": notices})
+    if any(r["serialized"] for r in notices.values()):
+        raise AssertionError(f"attention_bwd_kernel's wgmma products are serialized: {notices}")
 
     tally = Tally()
     # ---- 2-4. serve, check, time ----------------------------------------
@@ -3671,6 +3984,9 @@ def main(argv=None) -> int:
     # ---- 29. the LayerNorm backward and the bias column sums ------------------
     torch.cuda.empty_cache()
     phase_norm(torch, dev, tally, smi)
+    # ---- 30. the attention core's backward alone ------------------------------
+    torch.cuda.empty_cache()
+    phase_attn_bwd(torch, dev, tally, smi)
 
     emit(tally.line())
     print(smi, flush=True)

@@ -35,12 +35,12 @@
 //   3. attn half  with da = sa dx_mid (dx_mid itself without sa):
 //                 dWproj = da^T O (on da's bf16 copy), dbproj = sum da over
 //                 the fp32 da (norm.cu's column_sums); dO = da Wproj
-//   4. core       attention_bwd, one CTA per (sample, head), all of that
-//                 sample-head's Q, K, V and dO in shared memory (N <= 384;
+//   4. core       attention_bwd_kernel, one CTA per (sample, head) (N <= 384;
 //                 policy mode N <= 352): P = exp(scale q.k - lse),
 //                 D = rowsum(dO * O), dS = P * (dO V^T - D), dV = P^T dO,
-//                 dQ = scale dS K, dK = scale dS^T Q, all on mma.sync;
-//                 writes packed dqkv (policy mode below)
+//                 dQ = scale dS K, dK = scale dS^T Q in one pass over the
+//                 scores on wgmma (the design below); writes packed dqkv
+//                 (policy mode below)
 //   5. LN1 input  dWqkv = dqkv^T LN1(x) with dbqkv = sum dqkv; dLN1 = dqkv Wqkv
 //                 (fp32); LayerNorm backward with dgamma1, dbeta1, giving
 //                 dx = LN-bwd + dx_mid
@@ -64,8 +64,8 @@
 //       mlp.py::fused_mlp_residual_backward: step 2 for out = x + MLP(LN x),
 //       after recomputing LN(x) and fc1 with its GELU from x.
 // Both are bound by the same things as the steps they run here: the core by
-// its recomputed score products on mma.sync (~0.04 ms of bytes at B=128,
-// N=197), the MLP half by its four products (~150 GFLOP with fc1
+// its bytes (~0.04 ms at B=128, N=197; attention_bwd_kernel's notes), the
+// MLP half by its four products (~150 GFLOP with fc1
 // recomputed). Steps 3-5 with the output's cotangent as the branch's are
 // d2s_attention_block_backward, the attention half-block's backward
 // (dense2sparse_vit_tpu/ops/pallas/attention.py::
@@ -80,21 +80,25 @@
 //           which (sum_j p_ij = 1) is (c / den_i) (dO_i . colsum(V) - N D_i):
 //           no extra pass over the scores. It goes to the columns where s_ij
 //           reaches m_i, split evenly among ties as JAX's max does. Those
-//           columns are found by comparing with the stored max, which only
-//           products bit-identical to the forward's may do: the query-row
-//           products of pass 2 below are (the same mma.sync on the same
-//           fragments as block.cu's pass 1); pass 1's key-row products are
-//           not, so pass 1 recomputes its tile's scores query-row-wise, and
-//           where a tile holds a tie (a warp vote) moves the tie terms into
-//           its key-row layout through a per-warp shared-memory tile. The
-//           forward stores how many columns tie (float4 statistics);
+//           columns are found by comparing with the forward's stored max,
+//           which only products bit-identical to the forward core's may do,
+//           and block.cu's core takes its max on mma.sync: a wgmma product
+//           sums in another order, and a max of the backward's own would
+//           need every key of a row before the row's first dS. So in policy
+//           mode alone S comes from mma.sync m16n8k16, from zero in kk order
+//           on the fragments block.cu loads from the same swizzled rows
+//           (ab_scores_mma), into the very registers a wgmma m64n32
+//           accumulator uses: S stays one product, and dP, dQ, dK, dV stay
+//           on wgmma. The forward stores how many columns tie (float4
+//           statistics);
 //   dPolicy_j = sum_h sum_{i != j} de_ij exp(s_ij - m_i): the unmasked exp,
-//           the diagonal left out. A warp of pass 1 owns a key tile and sums
-//           over every query in a fixed order; the (B, H, N) fp32 partials
-//           are then added over the heads in order by sum_heads_kernel, so
-//           dPolicy is deterministic and takes no atomics. With a null
-//           d_policy (the threshold path, whose policy needs no gradient)
-//           none of this runs.
+//           the diagonal left out. Each warp sums its 16 query rows by
+//           shuffles into a row of the stage (per key block), the warp rows
+//           are added in order by the key block's dV owner, and the
+//           (B, H, N) fp32 partials over the heads in order by
+//           sum_heads_kernel, so dPolicy is deterministic and takes no
+//           atomics. With a null d_policy (the threshold path, whose policy
+//           needs no gradient) none of this runs.
 //
 // What bounds it on the H100: at B=128, N=197, C=384 the eleven projection
 // products (three of the forward's recomputed, each backward projection's
@@ -108,13 +112,55 @@
 // (qkv, O, x_mid, h, y, dy, dqkv, the LayerNorm outputs, about 0.6 GB at
 // that shape) go through device memory, the two LayerNorm backwards (at
 // about their bytes bound, norm.cu) and dbproj's column sums read them
-// again (the bf16 bias sums ride on the weight gradients' reads), and the
-// attention core recomputes the scores twice (once for dK/dV, once for
-// dQ), seven products on mma.sync where five would do (policy mode: eight,
-// with the tie recompute). A faster design would keep the MLP's hidden
-// activation on chip (fc1, GELU', fc2 fused per row tile), produce dK/dV
-// and dQ from one pass over the scores, and fuse the LayerNorm backward's
-// row reductions into the dX GEMMs' epilogues.
+// again (the bf16 bias sums ride on the weight gradients' reads). A faster
+// design would keep the MLP's hidden activation on chip (fc1, GELU', fc2
+// fused per row tile) and fuse the LayerNorm backward's row reductions into
+// the dX GEMMs' epilogues.
+//
+// The attention core's backward (attention_bwd_kernel), what bounds it:
+// bytes. At B=128, N=197 it reads qkv, O and dO and writes dqkv, ~0.04 ms
+// at 3.35 TB/s, against ~19 GFLOP of products (five of N x N x 64 per
+// sample-head), ~0.02 ms at the bf16 peak. A sample-head is small (N <= 384
+// rows of 64), so one CTA holds it and every sum stays inside the CTA:
+//   - the work: W warpgroups, each owning one 64-row query block (three
+//     where N > 256, W = 2, for the registers), its dQ accumulator in
+//     registers for the whole pass. The keys go by in blocks of 64. For each, a
+//     warpgroup forms S and dP for its rows in two 32-key halves (wgmma
+//     m64n32k16, Q and dO K-major from shared memory; 16 accumulator
+//     registers each, so four warpgroups fit 128 registers a thread), turns
+//     them into P and dS in registers, stores both to a stage in shared
+//     memory as bf16, and adds dS K to dQ (wgmma m64n64k16 with dS as the A
+//     operand from registers: the accumulator's layout is the A fragment's).
+//     Five products, not seven: S and dP once per tile;
+//   - dK and dV sum over the queries, that is over the warpgroups: once all
+//     have written a key block's stage (an mbarrier), warpgroup j % W forms
+//     dV_j = P^T dO and warpgroup (j + 1) % W dK_j = dS^T Q, each one wgmma
+//     chain over every query (both operands MN-major from shared memory,
+//     the 128-byte swizzle ln_gemm's MN-major operands use) written straight
+//     to dqkv. dQ's sum over the key blocks runs in one accumulator in key
+//     order, dK's and dV's in one chain in query order: no atomics, the
+//     same bits every run, for every plan below;
+//   - the copies: one thread issues TMA loads (3-D maps over the strided
+//     qkv and dO, rows past N arriving as zeros) of the first key block's K
+//     and V, every query block's Q and dO (an mbarrier each) and the next
+//     key blocks into a ring of `ring` slots, which each key block's dV
+//     owner refills once its stage is complete. Meanwhile the threads read
+//     the row statistics and form D = rowsum(dO * O) for their rows by
+//     16-byte loads (policy mode: colsum(V) and the max path's gmx; with
+//     gcls the fold), so the first products start as soon as Q_i, dO_i, K_0
+//     and V_0 are in;
+//   - the stages: `stages` (2 where it fits) buffers of P and dS, so the
+//     warpgroups go on to the next key block while the owners read the
+//     last; the host picks ring and stage depths by N (ab_plan), the
+//     deepest of those with the most CTAs an SM holds (at N <= 128 two
+//     CTAs fit).
+// The tensor cores take about 1.7x the products' FLOPs (64-row blocks at
+// N = 197 compute 256 x 256 scores); what the kernel spends beyond its bound
+// is not measured here but on the card (PERF.md). ptxas serializes none of
+// the products (chip_smoke.py's build phase fails if it does); it adds a wgmma fence
+// (notice C7519) before the owners' products, whose chain runs over a
+// count of query blocks known only at run time, and none before S, dP or
+// dQ's.
 #include <algorithm>
 
 #include "ln_gemm.cuh"
@@ -238,379 +284,606 @@ long long column_sums_workspace_floats(int M, int N, int elem);
 // ---- attention core backward ----------------------------------------------
 
 constexpr int AB_HD = 64;
-constexpr int AB_THREADS = 256;
-constexpr int AB_WARPS = AB_THREADS / 32;
-constexpr int AB_LD = AB_HD + 8;  // bf16 pitch of the Q, K, V, dO rows
-constexpr int AB_MAX_N = 384;     // four (N, 64) bf16 tiles stay under 227 KB
-constexpr int AB_POLICY_MAX_N = 352;  // policy mode: and four more row vectors
-constexpr int AB_TIE_LD = 17;     // fp32 pitch of a warp's 16 x 16 tie tile
+constexpr int AB_BLK = 64;  // the rows of a query block (a warpgroup's wgmma M) and of a key block
+constexpr int AB_TILE = AB_BLK * AB_HD * 2;  // bytes of a 64 x 64 bf16 tile: 128-byte rows
+constexpr int AB_MAX_N = 384;         // Q, dO and one stage of P and dS stay under 227 KB
+constexpr int AB_POLICY_MAX_N = 352;  // policy mode: and its row vectors and dPolicy partials
+constexpr int AB_SMEM_MAX = 232448;   // the most dynamic shared memory a CTA takes
 
-__host__ __device__ inline int ab_padded(int n) { return (n + 15) / 16 * 16; }
+// The shared memory of one launch, as byte offsets from the 1024-aligned
+// base: Q and dO of every query block (TMA, the 128-byte swizzle), a ring of
+// `ring` key blocks' K and V, `stages` stages of P and dS ([query][64 keys],
+// the same swizzle: the owner products' MN-major A), then the fp32 rows and
+// the mbarriers.
+struct AbLayout {
+  int qb;        // query blocks = key blocks: ceil(N / 64)
+  int nq16;      // the query rows the owner products reduce over: N rounded up to 16
+  int qpw, wgs;  // query blocks a warpgroup (1, or 3 past 4 blocks), warpgroups
+  int ring, stages;
+  size_t q, dout, kv, st, ds, ls, rd, gc, ps, cv, cvp, dpw, gs, misc, bars, bytes;
+};
 
-static size_t ab_smem_bytes(int n, bool policy, bool fold) {
-  const size_t np = ab_padded(n);
-  size_t bytes = 4 * np * AB_LD * 2 + 2 * np * sizeof(float);
-  // 1/den, gmx/ties, pol per row; colsum(V); the warps' tie tiles
-  if (policy) bytes += (3 * np + AB_HD + AB_WARPS * 16 * AB_TIE_LD) * sizeof(float);
-  if (fold) bytes += np * sizeof(float);  // the CLS row's cotangent
-  return bytes;
+__host__ __device__ inline AbLayout ab_layout(int N, bool policy, bool fold, int ring,
+                                              int stages) {
+  AbLayout l;
+  l.qb = (N + AB_BLK - 1) / AB_BLK;
+  l.nq16 = (N + 15) / 16 * 16;
+  l.qpw = l.qb <= 4 ? 1 : 3;
+  l.wgs = (l.qb + l.qpw - 1) / l.qpw;
+  l.ring = ring;
+  l.stages = stages;
+  const size_t rows = (size_t)l.qb * AB_BLK;
+  size_t off = 0;
+  l.q = off, off += rows * 128;
+  l.dout = off, off += rows * 128;
+  l.kv = off, off += (size_t)ring * 2 * AB_TILE;
+  l.st = off, off += (size_t)stages * 2 * l.nq16 * 128;
+  l.ds = off, off += rows * 4;
+  l.ls = off, off += rows * 4;  // plain: log-sum-exp; policy: the row max m
+  l.rd = l.gc = l.ps = l.cv = l.cvp = l.dpw = l.gs = 0;
+  if (policy) {
+    l.rd = off, off += rows * 4;                 // 1 / den
+    l.gc = off, off += rows * 4;                 // the max path's gmx / ties
+    l.ps = off, off += rows * 4;                 // pol_j of every key
+    l.cv = off, off += AB_HD * 4;                // colsum(V)
+    l.cvp = off, off += 8 * AB_HD * 4;           // its partial sums, a row per 64 threads
+    l.dpw = off, off += (size_t)stages * 4 * l.wgs * AB_BLK * 4;  // dPolicy, a row per warp
+  }
+  if (fold) l.gs = off, off += rows * 4;         // gcls: the CLS row's cotangent
+  l.misc = off, off += 16 + 2 * 16 * 4;          // gcls: sum_j gcls_j; the warps' fold sums
+  l.bars = off, off += (size_t)(l.qb + ring + 2 * stages) * 8;
+  l.bytes = off + 1024;  // and the base's alignment
+  return l;
 }
 
-// the four A fragments of a 16 x 64 row slice of a [row][d] bf16 tile
-__device__ __forceinline__ void ld_a_rows(uint32_t (&a)[AB_HD / 16][4], const bf16* rows,
-                                          int g, int t) {
+// element offset of chunk c of row r in a [row][64] bf16 tile in the 128-byte
+// swizzle, as TMA writes it: the 16-byte chunk c of row r lies at c ^ (r & 7)
+__device__ __forceinline__ int ab_swz(int r, int c) { return r * AB_HD + ((c ^ (r & 7)) << 3); }
+
+// d (64 x 32, fp32) = (acc ? d : 0) + A (64 x 16) B (16 x 32), both bf16 from
+// shared memory; TA / TB: the operand is MN-major. d's layout as
+// wgmma_m64n128k16's (ln_gemm.cuh): warp w holds rows 16w..16w+15, d[4j..4j+3]
+// the mma.sync c fragment of columns 8j..8j+7
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, fp32) = (acc ? d : 0) + A (64 x 16) B (16 x 64), both from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, fp32) += A (64 x 16) B (16 x 64), A from registers (the
+// mma.sync a fragment of warp w's rows 16w..16w+15), B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// s (this warp's 16 query rows of the Q tile x the 32 keys at Kh, the layout
+// of the m64n32 accumulator) = Q K^T on mma.sync from zero in kk order, on
+// the fragments block.cu's forward core loads from the same swizzled rows:
+// bit for bit the forward's scores, which the policy mode's tie test needs.
+// HOLD_Q: the Q fragments loaded once for the 32 keys (16 registers), else
+// again for each 8 keys (where three query blocks' dQ fill the registers)
+template <bool HOLD_Q>
+__device__ __forceinline__ void ab_scores_mma(float (&s)[16], const unsigned char* qt,
+                                              const unsigned char* kh, int warp, int lane) {
+  const bf16* Q = reinterpret_cast<const bf16*>(qt);
+  const bf16* K = reinterpret_cast<const bf16*>(kh);
+  uint32_t qa[HOLD_Q ? AB_HD / 16 : 1][4];
+  auto load_q = [&](uint32_t (&a)[4], int kk) {
+    ldmatrix_x4(a, Q + ab_swz(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                              2 * kk + (lane >> 4)));
+  };
+  if (HOLD_Q) {
 #pragma unroll
-  for (int kk = 0; kk < AB_HD / 16; ++kk) {
-    const bf16* p = rows + g * AB_LD + kk * 16 + 2 * t;
-    a[kk][0] = ld32(p);
-    a[kk][1] = ld32(p + 8 * AB_LD);
-    a[kk][2] = ld32(p + 8);
-    a[kk][3] = ld32(p + 8 * AB_LD + 8);
+    for (int kk = 0; kk < AB_HD / 16; ++kk) load_q(qa[HOLD_Q ? kk : 0], kk);
+  }
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    uint32_t kb[2][4];
+    ldmatrix_x4(kb[0], K + ab_swz(8 * jj + (lane & 7), lane >> 3));
+    ldmatrix_x4(kb[1], K + ab_swz(8 * jj + (lane & 7), 4 + (lane >> 3)));
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < AB_HD / 16; ++kk) {
+      if (!HOLD_Q) load_q(qa[0], kk);
+      mma_16816(c, qa[HOLD_Q ? kk : 0], kb[kk >> 1][2 * (kk & 1)], kb[kk >> 1][2 * (kk & 1) + 1]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * jj + e] = c[e];
   }
 }
 
-// c (16 x 8) += a (16 x 64 rows) . b^T, b the 8 rows of a [row][d] tile at `rows`
-__device__ __forceinline__ void mma_rows(float (&c)[4], const uint32_t (&a)[AB_HD / 16][4],
-                                         const bf16* rows, int g, int t) {
-  const bf16* p = rows + g * AB_LD + 2 * t;
-#pragma unroll
-  for (int kk = 0; kk < AB_HD / 16; ++kk) mma_16816(c, a[kk], ld32(p + kk * 16), ld32(p + kk * 16 + 8));
-}
-
-// the A fragment of a 16 x 16 tile held as two 16 x 8 accumulators
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[2][4]) {
-  a[0] = pack_bf16(c[0][0], c[0][1]);
-  a[1] = pack_bf16(c[0][2], c[0][3]);
-  a[2] = pack_bf16(c[1][0], c[1][1]);
-  a[3] = pack_bf16(c[1][2], c[1][3]);
-}
-
-// acc (16 x 64) += a (16 x 16) . rows (16 x 64), rows the [row][d] tile slice
-__device__ __forceinline__ void mma_into(float (&acc)[AB_HD / 8][4], const uint32_t (&a)[4],
-                                         const bf16* rows, int lane) {
-#pragma unroll
-  for (int nd = 0; nd < AB_HD / 8; nd += 2) {
-    uint32_t r[4];
-    ld_b_kn(r, rows + nd * 8, AB_LD, lane);
-    mma_16816(acc[nd], a, r[0], r[1]);
-    mma_16816(acc[nd + 1], a, r[2], r[3]);
-  }
-}
-
-// rows r and r + 8 of a 16 x 64 accumulator into columns [col0, col0 + 64)
-// of the (rows, ld) bf16 matrix `dst`, rows past n left alone
-__device__ __forceinline__ void store_rows(bf16* dst, long long ld, int r, int n,
-                                           const float (&acc)[AB_HD / 8][4], int t) {
+// rows r and r + 8 of a 64 x 64 accumulator (this thread's part) into the
+// (rows, ld) bf16 matrix `dst`, rows past n left alone
+__device__ __forceinline__ void ab_store(bf16* dst, long long ld, int r, int n,
+                                         const float (&acc)[32], int t) {
 #pragma unroll
   for (int nd = 0; nd < AB_HD / 8; ++nd) {
     if (r < n)
       *reinterpret_cast<uint32_t*>(dst + r * ld + nd * 8 + 2 * t) =
-          pack_bf16(acc[nd][0], acc[nd][1]);
+          pack_bf16(acc[4 * nd], acc[4 * nd + 1]);
     if (r + 8 < n)
       *reinterpret_cast<uint32_t*>(dst + (r + 8) * ld + nd * 8 + 2 * t) =
-          pack_bf16(acc[nd][2], acc[nd][3]);
+          pack_bf16(acc[4 * nd + 2], acc[4 * nd + 3]);
   }
 }
 
-// CTA = one (sample, head). qkv (B, N, 3C) with token rows q_ld elements
-// apart and samples q_bstride apart, o and dout (B*N, C), lse (B, H, N)
-// (policy mode: float4 (m, den, ties, 0)), dqkv (B*N, 3C) packed; policy
-// mode: pol (B, N), dpol_part (B, H, N) or null. gcls: (B, H, N) fp32, the
-// cotangent of the CLS (query 0) rows of the probabilities, or null.
+// CTA = one (sample, head), ab_layout(...).wgs warpgroups of 128 threads.
+// qkv (B, N, 3C) with token rows q_ld elements apart and samples q_bstride
+// apart (tm_qkv: its TMA map (3C, N, B)), o and dout (B*N, C) (tm_dout:
+// dout's (C, N, B)), lse (B, H, N) (policy mode: float4 (m, den, ties, 0)),
+// dqkv (B*N, 3C) packed; policy mode: pol (B, N), dpol_part (B, H, N) or
+// null. gcls: (B, H, N) fp32, the cotangent of the CLS (query 0) rows of
+// the probabilities, or null.
 //
 // The CLS rows are the probabilities' row 0, so their cotangent adds to dP's
 // row 0: dP_0j += gcls_j, and with it D_0 = sum_j P_0j dP_0j gains
 // sum_j gcls_j P_0j, which warp 0 computes from row 0's scores recomputed in
-// fp32 before the passes. Policy mode's de = (dP - D) / den then carries the
+// fp32 before the loop. Policy mode's de = (dP - D) / den then carries the
 // fold into dS, dPolicy and, through sum_j dP_0j = dO_0 . colsum(V) +
 // sum_j gcls_j, the max path.
-template <bool POLICY>
-static __global__ void __launch_bounds__(AB_THREADS)
-    attention_bwd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld,
+template <bool POLICY, int QPW>
+static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
+    attention_bwd_kernel(const __grid_constant__ CUtensorMap tm_qkv,
+                         const __grid_constant__ CUtensorMap tm_dout,
+                         const bf16* __restrict__ qkv, long long q_bstride, int q_ld,
                          const bf16* __restrict__ o, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ pol,
                          const float* __restrict__ gcls, bf16* __restrict__ dqkv,
-                         float* __restrict__ dpol_part, int N, int H, float scale, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int np = ab_padded(N);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + np * AB_LD;
-  bf16* Vs = Ks + np * AB_LD;
-  bf16* dOs = Vs + np * AB_LD;
-  float* Ds = reinterpret_cast<float*>(dOs + np * AB_LD);
-  float* Ls = Ds + np;  // plain: log-sum-exp; policy: the row max m
-  float* Rd = Ls + np;  // policy: 1 / den
-  float* Gc = Rd + np;  // policy: the max path's gmx / ties
-  float* Ps = Gc + np;  // policy: pol_j
-  float* Cv = Ps + np;  // policy: colsum(V)
-  float* Tw = Cv + AB_HD;  // policy: a 16 x 16 tie tile per warp
-  float* Gs = POLICY ? Tw + AB_WARPS * 16 * AB_TIE_LD : Rd;  // gcls: the CLS row's cotangent
-  __shared__ float gsum;  // gcls: sum_j gcls_j
+                         float* __restrict__ dpol_part, int N, int H, float scale, float eps,
+                         int ring, int stages) {
+  extern __shared__ unsigned char ab_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(ab_smem) + 1023) & ~uintptr_t(1023));
+  const AbLayout L = ab_layout(N, POLICY, gcls != nullptr, ring, stages);
+  unsigned char* Qs = base + L.q;
+  unsigned char* dOs = base + L.dout;
+  unsigned char* KVs = base + L.kv;
+  unsigned char* Sts = base + L.st;
+  auto fl = [&](size_t at) { return reinterpret_cast<float*>(base + at); };
+  float* Ds = fl(L.ds);
+  float* Ls = fl(L.ls);
+  float* Rd = fl(L.rd);
+  float* Gc = fl(L.gc);
+  float* Ps = fl(L.ps);
+  float* Cv = fl(L.cv);
+  float* Cvp = fl(L.cvp);
+  float* Dpw = fl(L.dpw);
+  float* Gs = fl(L.gs);
+  float* gsum = fl(L.misc);
+  float* Fold = gsum + 4;  // gcls: per warp, its part of the fold and of sum_j gcls_j
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(base + L.bars);  // Q and dO of a query block in
+  uint64_t* kvbar = qbar + L.qb;       // a ring slot's K and V in
+  uint64_t* fullb = kvbar + ring;      // a stage's P, dS (and dPolicy rows) written
+  uint64_t* freeb = fullb + stages;    // a stage read by its owners
 
+  const int QB = L.qb, W = L.wgs, nq16 = L.nq16;
+  const int rows = QB * AB_BLK;
   const int C = H * AB_HD;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
   const int tid = threadIdx.x;
-  const bf16* base = qkv + (long long)b * q_bstride + h * AB_HD;
-  const bf16* ob = o + (long long)b * N * C + h * AB_HD;
-  const bf16* dob = dout + (long long)b * N * C + h * AB_HD;
-  const float4* st4 = reinterpret_cast<const float4*>(lse);
-
-  // rows past N are zero; their probabilities are masked to 0 below
-  constexpr int VPR = AB_HD / 8;
-  for (int v = tid; v < np * VPR; v += AB_THREADS) {
-    const int r = v / VPR, c = (v % VPR) * 8;
-    uint4 q = make_uint4(0u, 0u, 0u, 0u), k = q, vv = q, d = q;
-    if (r < N) {
-      const bf16* row = base + (long long)r * q_ld + c;
-      q = *reinterpret_cast<const uint4*>(row);
-      k = *reinterpret_cast<const uint4*>(row + C);
-      vv = *reinterpret_cast<const uint4*>(row + 2 * C);
-      d = *reinterpret_cast<const uint4*>(dob + (long long)r * C + c);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * AB_LD + c) = q;
-    *reinterpret_cast<uint4*>(Ks + r * AB_LD + c) = k;
-    *reinterpret_cast<uint4*>(Vs + r * AB_LD + c) = vv;
-    *reinterpret_cast<uint4*>(dOs + r * AB_LD + c) = d;
-  }
-  for (int r = tid; r < np; r += AB_THREADS) {
-    if (gcls) Gs[r] = r < N ? gcls[(long long)blockIdx.x * N + r] : 0.f;
-    if (POLICY) {
-      const float4 st = r < N ? st4[(long long)blockIdx.x * N + r] : make_float4(0.f, 1.f, 1.f, 0.f);
-      Ls[r] = st.x;
-      Rd[r] = r < N ? 1.f / st.y : 0.f;
-      Gc[r] = st.z;  // the ties, until gmx replaces them below
-      Ps[r] = r < N ? pol[(long long)b * N + r] : 0.f;
-    } else {
-      Ls[r] = r < N ? lse[(long long)blockIdx.x * N + r] : 0.f;
-    }
-    // D = rowsum(dO * O): the softmax backward's sum_j P_ij dP_ij
-    float acc = 0.f;
-    if (r < N) {
-      for (int c = 0; c < AB_HD; c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(ob + (long long)r * C + c);
-        const uint4 dv = *reinterpret_cast<const uint4*>(dob + (long long)r * C + c);
-        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
-        const bf16* de = reinterpret_cast<const bf16*>(&dv);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc += __bfloat162float(oe[j]) * __bfloat162float(de[j]);
-      }
-    }
-    Ds[r] = acc;
-  }
-  __syncthreads();
-  const float cc = POLICY ? eps / N : 0.f;
-  if (gcls) {
-    // D_0 += sum_j gcls_j P_0j, P_0j from row 0's scores in fp32
-    if (tid < 32) {
-      float s0 = 0.f, gs = 0.f;
-      for (int j = tid; j < N; j += 32) {
-        float dot = 0.f;
-        for (int c = 0; c < AB_HD; ++c)
-          dot += __bfloat162float(Qs[c]) * __bfloat162float(Ks[j * AB_LD + c]);
-        float p;
-        if (POLICY) {
-          const float pk = Ps[j];
-          p = (__expf(dot * scale - Ls[0]) * (j == 0 ? pk + (1.f - pk) : pk) + cc) * Rd[0];
-        } else {
-          p = __expf(dot * scale - Ls[0]);
-        }
-        s0 += Gs[j] * p;
-        gs += Gs[j];
-      }
-      s0 = warp_sum(s0);
-      gs = warp_sum(gs);
-      if (tid == 0) {
-        Ds[0] += s0;
-        gsum = gs;
-      }
-    }
-    __syncthreads();
-  }
-  if (POLICY) {
-    if (tid < AB_HD) {
-      float acc = 0.f;
-      for (int r = 0; r < N; ++r) acc += __bfloat162float(Vs[r * AB_LD + tid]);
-      Cv[tid] = acc;
-    }
-    __syncthreads();
-    // the max path: gmx_i = (c / den_i) (dO_i . colsum(V) - N D_i), split
-    // over the row's ties
-    for (int r = tid; r < N; r += AB_THREADS) {
-      float dv = 0.f;
-      for (int c = 0; c < AB_HD; ++c) dv += __bfloat162float(dOs[r * AB_LD + c]) * Cv[c];
-      if (gcls && r == 0) dv += gsum;  // sum_j dP_0j
-      Gc[r] = cc * Rd[r] * (dv - N * Ds[r]) / Gc[r];
-    }
-    __syncthreads();
-  }
-
-  const int warp = tid >> 5;
+  const int wg = tid >> 7;
+  const int ct = tid & 127;
+  const int warp = ct >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int tiles = np / 16;
-  const long long ld = 3LL * C;
-  bf16* drow = dqkv + (long long)b * N * ld + h * AB_HD;
-  float* tw = Tw + warp * 16 * AB_TIE_LD;
+  const int sbytes = nq16 * 128;  // one half of a stage: P or dS
+  const long long ld3 = 3LL * C;
+  const float cc = POLICY ? eps / N : 0.f;
 
-  // pass 1, a warp per 16-key tile: dV = P^T dO and dK = dS^T Q, over all
-  // queries; the transposed tiles P^T, dP^T = V dO^T come straight out of
-  // the products with the keys as rows
-  for (int kt = warp; kt < tiles; kt += AB_WARPS) {
-    const int j0 = kt * 16;
-    uint32_t ka[AB_HD / 16][4], va[AB_HD / 16][4];
-    ld_a_rows(ka, Ks + j0 * AB_LD, g, t);
-    ld_a_rows(va, Vs + j0 * AB_LD, g, t);
-    float dk[AB_HD / 8][4], dv[AB_HD / 8][4];
+  if (tid == 0) {
+    for (int i = 0; i < QB; ++i) mbar_init(&qbar[i], 1);
+    for (int r = 0; r < ring; ++r) mbar_init(&kvbar[r], 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&fullb[s], W * 128);
+      mbar_init(&freeb[s], W > 1 ? 256 : 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // key block j's K and V into its ring slot; rows past N arrive as zeros
+  auto load_kv = [&](int j) {
+    uint64_t* bar = &kvbar[j % ring];
+    unsigned char* dst = KVs + (j % ring) * 2 * AB_TILE;
+    mbar_expect_tx(bar, 2 * AB_TILE);
+    tma_load_3d(dst, &tm_qkv, bar, C + h * AB_HD, j * AB_BLK, b);
+    tma_load_3d(dst + AB_TILE, &tm_qkv, bar, 2 * C + h * AB_HD, j * AB_BLK, b);
+  };
+  if (tid == 0) {
+    load_kv(0);
+    for (int i = 0; i < QB; ++i) {
+      mbar_expect_tx(&qbar[i], 2 * AB_TILE);
+      tma_load_3d(Qs + i * AB_TILE, &tm_qkv, &qbar[i], h * AB_HD, i * AB_BLK, b);
+      tma_load_3d(dOs + i * AB_TILE, &tm_dout, &qbar[i], h * AB_HD, i * AB_BLK, b);
+    }
+    for (int j = 1; j < ring; ++j) load_kv(j);
+  }
+
+  // while the copies run: the rows' statistics, D, and in policy mode
+  // colsum(V); rows past N get zero probabilities below
+  const float4* st4 = reinterpret_cast<const float4*>(lse);
+  for (int r = tid; r < rows; r += blockDim.x) {
+    const bool in = r < N;
+    if (POLICY) {
+      const float4 st = in ? st4[(long long)bh * N + r] : make_float4(0.f, 1.f, 1.f, 0.f);
+      Ls[r] = st.x;
+      Rd[r] = in ? 1.f / st.y : 0.f;
+      Gc[r] = st.z;  // the ties, until gmx replaces them below
+      Ps[r] = in ? pol[(long long)b * N + r] : 0.f;
+    } else {
+      Ls[r] = in ? lse[(long long)bh * N + r] : 0.f;
+    }
+    if (gcls) Gs[r] = in ? gcls[(long long)bh * N + r] : 0.f;
+  }
+  // D = rowsum(dO * O), the softmax backward's sum_j P_ij dP_ij, for the
+  // warpgroup's query rows: two threads a row, 16-byte loads
+  for (int qq = 0; qq < QPW; ++qq) {
+    const int qb = wg * QPW + qq;
+    if (qb >= QB) break;
+    const int r = qb * AB_BLK + (ct >> 1);
+    float acc = 0.f;
+    if (r < N) {
+      const long long at = ((long long)b * N + r) * C + h * AB_HD + (ct & 1) * 32;
 #pragma unroll
-    for (int nd = 0; nd < AB_HD / 8; ++nd)
+      for (int c = 0; c < 32; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + at + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dout + at + c);
+        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+        const bf16* de = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
-    float dpa[2] = {0.f, 0.f};  // dPolicy of keys j0 + g and j0 + g + 8
-    for (int i0 = 0; i0 < np; i0 += 16) {
-      float st[2][4] = {}, dpt[2][4] = {};
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        mma_rows(st[nt], ka, Qs + (i0 + nt * 8) * AB_LD, g, t);
-        mma_rows(dpt[nt], va, dOs + (i0 + nt * 8) * AB_LD, g, t);
+        for (int k = 0; k < 8; ++k) acc += __bfloat162float(oe[k]) * __bfloat162float(de[k]);
       }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((ct & 1) == 0) {
+      Ds[r] = acc;
+    }
+  }
+  if (POLICY) {  // colsum(V), 64 columns x blockDim / 64 row groups, added in order below
+    const int groups = blockDim.x >> 6;
+    const bf16* vcol = qkv + (long long)b * q_bstride + 2 * C + h * AB_HD + (tid & 63);
+    float acc = 0.f;
+    for (int r = tid >> 6; r < N; r += groups) acc += __bfloat162float(vcol[(long long)r * q_ld]);
+    Cvp[tid] = acc;
+  }
+  __syncthreads();
+  if (POLICY && tid < AB_HD) {
+    float acc = 0.f;
+    for (int grp = 0; grp < (int)(blockDim.x >> 6); ++grp) acc += Cvp[grp * AB_HD + tid];
+    Cv[tid] = acc;
+  }
+  if (gcls) {
+    // D_0 += sum_j gcls_j P_0j, P_0j from row 0's scores in fp32: a key a
+    // thread, the warps' sums added in order
+    const bf16* q0 = qkv + (long long)b * q_bstride + h * AB_HD;
+    float s0 = 0.f, gs = 0.f;
+    for (int j = tid; j < N; j += blockDim.x) {
+      const uint4* kj = reinterpret_cast<const uint4*>(q0 + (long long)j * q_ld + C);
+      float dot = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int c = 0; c < AB_HD / 8; ++c) {
+        const uint4 qv = reinterpret_cast<const uint4*>(q0)[c];
+        const uint4 kv = kj[c];
+        const bf16* qe = reinterpret_cast<const bf16*>(&qv);
+        const bf16* ke = reinterpret_cast<const bf16*>(&kv);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = j0 + g + 8 * (e >> 1);
-          const int q = i0 + nt * 8 + 2 * t + (e & 1);
-          const bool valid = key < N && q < N;
-          const float dpv = dpt[nt][e] + (gcls && q == 0 ? Gs[key] : 0.f);
-          if (POLICY) {
-            const float xe = valid ? __expf(st[nt][e] * scale - Ls[q]) : 0.f;
-            const float pk = Ps[key];
-            const float ew = xe * (key == q ? pk + (1.f - pk) : pk);
-            const float de = (dpv - Ds[q]) * Rd[q];
-            if (dpol_part) {
-              if (key != q) dpa[e >> 1] += de * xe;  // dPolicy: the diagonal left out
-            }
-            st[nt][e] = valid ? (ew + cc) * Rd[q] : 0.f;
-            dpt[nt][e] = de * ew * scale;
-          } else {
-            const float p = valid ? __expf(st[nt][e] * scale - Ls[q]) : 0.f;
-            st[nt][e] = p;
-            dpt[nt][e] = p * (dpv - Ds[q]) * scale;
-          }
-        }
+        for (int k = 0; k < 8; ++k) dot += __bfloat162float(qe[k]) * __bfloat162float(ke[k]);
+      }
+      float p;
       if (POLICY) {
-        // the max path's share of dS^T: this tile's scores query-row-wise,
-        // bit for bit the forward's, compared with the stored max
-        uint32_t qa[AB_HD / 16][4];
-        ld_a_rows(qa, Qs + i0 * AB_LD, g, t);
-        float sf[2][4] = {};
-        bool tie[2][4];
-        bool any = false;
+        const float pk = Ps[j];
+        p = (__expf(dot * scale - Ls[0]) * (j == 0 ? pk + (1.f - pk) : pk) + cc) * Rd[0];
+      } else {
+        p = __expf(dot * scale - Ls[0]);
+      }
+      s0 += Gs[j] * p;
+      gs += Gs[j];
+    }
+    s0 = warp_sum(s0);
+    gs = warp_sum(gs);
+    if (lane == 0) {
+      Fold[tid >> 5] = s0;
+      Fold[16 + (tid >> 5)] = gs;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      s0 = gs = 0.f;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+        s0 += Fold[w];
+        gs += Fold[16 + w];
+      }
+      Ds[0] += s0;
+      *gsum = gs;
+    }
+  }
+  if (POLICY || gcls) __syncthreads();
+  if (POLICY) {
+    // the max path: gmx_i = (c / den_i) (dO_i . colsum(V) - N D_i), split
+    // over the row's ties; the warpgroup's rows, two threads a row
+    for (int qq = 0; qq < QPW; ++qq) {
+      const int qb = wg * QPW + qq;
+      if (qb >= QB) break;
+      const int r = qb * AB_BLK + (ct >> 1);
+      float dv = 0.f;
+      if (r < N) {
+        const bf16* drow = dout + ((long long)b * N + r) * C + h * AB_HD + (ct & 1) * 32;
+        const float* cv = Cv + (ct & 1) * 32;
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          mma_rows(sf[nt], qa, Ks + (j0 + nt * 8) * AB_LD, g, t);
+        for (int c = 0; c < 32; c += 8) {
+          const uint4 v = *reinterpret_cast<const uint4*>(drow + c);
+          const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) dv += __bfloat162float(e[k]) * cv[c + k];
+        }
+      }
+      dv += __shfl_xor_sync(0xffffffffu, dv, 1);
+      if ((ct & 1) == 0 && r < N) {
+        if (gcls && r == 0) dv += *gsum;  // sum_j dP_0j
+        Gc[r] = cc * Rd[r] * (dv - N * Ds[r]) / Gc[r];
+      }
+    }
+    __syncthreads();
+  }
+
+  // One pass over the key blocks. Step j: each warpgroup, for its query
+  // blocks and the block's two 32-key halves, forms S = Q K^T (plain: wgmma;
+  // policy: mma.sync, ab_scores_mma) and dP = dO V^T (wgmma m64n32k16),
+  // then P and dS = P (dP - D) scale in registers, writes both to the
+  // stage as bf16 and adds dS K into its dQ accumulator (wgmma, dS the A
+  // operand from registers). Once every warpgroup has written the stage,
+  // warpgroup j % W forms dV_j = P^T dO and warpgroup (j + 1) % W dK_j =
+  // dS^T Q over all queries (wgmma, both operands MN-major from shared
+  // memory), and the first refills the ring with key block j + ring.
+  float dq[QPW][32];
+#pragma unroll
+  for (int qq = 0; qq < QPW; ++qq)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[qq][i] = 0.f;
+  uint32_t da[2][4];  // dS as the A fragments of the dQ product, 16 keys each
+#pragma unroll
+  for (int i = 0; i < 8; ++i) da[i >> 2][i & 3] = 0u;
+
+  for (int j = 0; j < QB; ++j) {
+    const int slot = j % ring;
+    const int st = j % stages;
+    const int use = j / stages;
+    mbar_wait(&kvbar[slot], (j / ring) & 1);
+    __syncwarp();
+    const unsigned char* Kt = KVs + slot * 2 * AB_TILE;
+    const unsigned char* Vt = Kt + AB_TILE;
+    unsigned char* Pt = Sts + st * 2 * sbytes;
+    unsigned char* dSt = Pt + sbytes;
+#pragma unroll
+    for (int qq = 0; qq < QPW; ++qq) {
+      const int qb = wg * QPW + qq;
+      if (qb >= QB) break;
+      if (j == 0) {
+        mbar_wait(&qbar[qb], 0);
+        __syncwarp();
+      }
+      const unsigned char* Qt = Qs + qb * AB_TILE;
+      const unsigned char* dOt = dOs + qb * AB_TILE;
+      const int ra = qb * AB_BLK + warp * 16 + g;  // this thread's query rows ra, rb
+      const int rb = ra + 8;
+#pragma unroll 1  // (unrolled, the two halves' live ranges overlap and spill)
+      for (int half = 0; half < 2; ++half) {
+        const unsigned char* Kh = Kt + half * 32 * 128;  // keys 32 half .. 32 half + 31
+        const unsigned char* Vh = Vt + half * 32 * 128;
+        float s[16], dp[16];
+        wgmma_fence();
+        if (!POLICY) {
+#pragma unroll
+          for (int kk = 0; kk < AB_HD / 16; ++kk)
+            wgmma_m64n32k16_ss<0, 0>(s, wgmma_desc(Qt + kk * 32, 16, 1024),
+                                     wgmma_desc(Kh + kk * 32, 16, 1024), kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < AB_HD / 16; ++kk)
+          wgmma_m64n32k16_ss<0, 0>(dp, wgmma_desc(dOt + kk * 32, 16, 1024),
+                                   wgmma_desc(Vh + kk * 32, 16, 1024), kk);
+        wgmma_commit();
+        if (POLICY) {
+          wgmma_wait<1>();  // the previous half's dQ product: its A registers are free
+          fence_acc(da[0]);
+          fence_acc(da[1]);
+          ab_scores_mma<QPW == 1>(s, Qt, Kh, warp, lane);
+        }
+        wgmma_wait<0>();  // and the previous half's dQ product
+        fence_acc(s);
+        fence_acc(dp);
+        fence_acc(da[0]);
+        fence_acc(da[1]);
+
+        if (use > 0 && qq == 0 && half == 0) {
+          mbar_wait(&freeb[st], (use - 1) & 1);  // the stage's last owners are done
+          __syncwarp();
+        }
+        // the rows' statistics, read here (not held across the products)
+        const float la = Ls[ra], lb = Ls[rb], Da = Ds[ra], Db = Ds[rb];
+        float rda = 0.f, rdb = 0.f, gca = 0.f, gcb = 0.f;
+        if (POLICY) {
+          rda = Rd[ra];
+          rdb = Rd[rb];
+          gca = Gc[ra];
+          gcb = Gc[rb];
+        }
+        // P and dS = P (dP - D) scale of this thread's 4 x 2 x 2 scores, into
+        // the stage as bf16 ([query][key], the swizzle; rows past nq16 are
+        // not in it), and in policy mode dPolicy over the warp's 16 rows
+        // into a row of the stage's partials per (warpgroup, warp), its
+        // query blocks added in order
+        float* dst = Dpw + ((st * W + wg) * 4 + warp) * AB_BLK + 32 * half + 2 * t;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float dpa[2] = {0.f, 0.f};  // dPolicy of keys k0, k0 + 1 over the two rows
+          const int k0 = j * AB_BLK + 32 * half + 8 * jj + 2 * t;
+          float2 pk = make_float2(0.f, 0.f);
+          if (POLICY) pk = *reinterpret_cast<const float2*>(Ps + k0);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int q = i0 + g + 8 * (e >> 1);
-            const int key = j0 + nt * 8 + 2 * t + (e & 1);
-            tie[nt][e] = q < N && key < N && sf[nt][e] * scale == Ls[q];
-            any |= tie[nt][e];
+            const int i = 4 * jj + e;
+            const bool hi = e >> 1;
+            const int key = k0 + (e & 1);
+            const int q = hi ? rb : ra;
+            const bool valid = key < N && q < N;
+            float dpv = dp[i];
+            if (gcls && q == 0) dpv += Gs[key];
+            if (POLICY) {
+              const float m = hi ? lb : la;
+              const float v = s[i] * scale;
+              const float xe = valid ? __expf(v - m) : 0.f;
+              const float a = (e & 1) ? pk.y : pk.x;
+              const float ew = xe * (key == q ? a + (1.f - a) : a);
+              const float de = (dpv - (hi ? Db : Da)) * (hi ? rdb : rda);
+              if (dpol_part) {
+                if (key != q) dpa[e & 1] += de * xe;  // dPolicy: the diagonal left out
+              }
+              float ds = de * ew;
+              if (valid && v == m) ds += hi ? gcb : gca;  // the max path, at a tie
+              s[i] = valid ? (ew + cc) * (hi ? rdb : rda) : 0.f;
+              dp[i] = ds * scale;
+            } else {
+              const float p = valid ? __expf(s[i] * scale - (hi ? lb : la)) : 0.f;
+              s[i] = p;
+              dp[i] = p * (dpv - (hi ? Db : Da)) * scale;
+            }
+          }
+          const int chunk = 4 * half + jj;
+          if (ra < nq16) {
+            const int at = ra * 128 + ((chunk ^ (ra & 7)) << 4) + 4 * t;
+            *reinterpret_cast<uint32_t*>(Pt + at) = pack_bf16(s[4 * jj], s[4 * jj + 1]);
+            *reinterpret_cast<uint32_t*>(dSt + at) = pack_bf16(dp[4 * jj], dp[4 * jj + 1]);
+          }
+          if (rb < nq16) {
+            const int at = rb * 128 + ((chunk ^ (rb & 7)) << 4) + 4 * t;
+            *reinterpret_cast<uint32_t*>(Pt + at) = pack_bf16(s[4 * jj + 2], s[4 * jj + 3]);
+            *reinterpret_cast<uint32_t*>(dSt + at) = pack_bf16(dp[4 * jj + 2], dp[4 * jj + 3]);
+          }
+          if (POLICY && dpol_part) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float v = dpa[e];
+              v += __shfl_xor_sync(0xffffffffu, v, 4);
+              v += __shfl_xor_sync(0xffffffffu, v, 8);
+              v += __shfl_xor_sync(0xffffffffu, v, 16);
+              if (g == 0) dst[8 * jj + e] = qq == 0 ? v : dst[8 * jj + e] + v;
+            }
           }
         }
-        if (__any_sync(0xffffffffu, any)) {
+        // dQ += dS K over the half's keys, 16 at a time
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int ql = g + 8 * (e >> 1);
-              const int kl = nt * 8 + 2 * t + (e & 1);
-              tw[ql * AB_TIE_LD + kl] = tie[nt][e] ? Gc[i0 + ql] * scale : 0.f;
-            }
-          __syncwarp();
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              dpt[nt][e] += tw[(nt * 8 + 2 * t + (e & 1)) * AB_TIE_LD + g + 8 * (e >> 1)];
-          __syncwarp();
+        for (int c = 0; c < 2; ++c) {
+          da[c][0] = pack_bf16(dp[8 * c], dp[8 * c + 1]);
+          da[c][1] = pack_bf16(dp[8 * c + 2], dp[8 * c + 3]);
+          da[c][2] = pack_bf16(dp[8 * c + 4], dp[8 * c + 5]);
+          da[c][3] = pack_bf16(dp[8 * c + 6], dp[8 * c + 7]);
         }
-      }
-      uint32_t pa[4], da[4];
-      pack_a(pa, st);
-      pack_a(da, dpt);
-      mma_into(dv, pa, dOs + i0 * AB_LD, lane);
-      mma_into(dk, da, Qs + i0 * AB_LD, lane);
-    }
-    store_rows(drow + C, ld, j0 + g, N, dk, t);
-    store_rows(drow + 2 * C, ld, j0 + g, N, dv, t);
-    if (POLICY && dpol_part) {
+        fence_acc(da[0]);
+        fence_acc(da[1]);
+        wgmma_fence();
 #pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        dpa[0] += __shfl_xor_sync(0xffffffffu, dpa[0], o);
-        dpa[1] += __shfl_xor_sync(0xffffffffu, dpa[1], o);
+        for (int c = 0; c < 2; ++c)
+          wgmma_m64n64k16_rs<1>(dq[qq], da[c], wgmma_desc(Kh + c * 16 * 128, 0, 1024));
+        wgmma_commit();
       }
-      float* dp = dpol_part + (long long)blockIdx.x * N;
-      if (t == 0 && j0 + g < N) dp[j0 + g] = dpa[0];
-      if (t == 0 && j0 + g + 8 < N) dp[j0 + g + 8] = dpa[1];
+    }
+    wgmma_wait<0>();  // every product that reads K_j and V_j
+    fence_acc(da[0]);
+    fence_acc(da[1]);
+#pragma unroll
+    for (int qq = 0; qq < QPW; ++qq) fence_acc(dq[qq]);
+    // the stage's generic-proxy writes, before the owners' wgmma reads them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(&fullb[st]);
+
+    const int ov = j % W, ok = (j + 1) % W;  // the owners of dV_j and dK_j
+    if (wg == ov || wg == ok) {
+      mbar_wait(&fullb[st], use & 1);
+      if (wg == ov && ct == 0 && j + ring < QB) load_kv(j + ring);  // the slot is read
+      __syncwarp();
+      const int nk = nq16 / 16;
+      auto owner = [&](const unsigned char* A, const unsigned char* Bm, int col) {
+        float acc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        wgmma_fence();
+        for (int kq = 0; kq < nk; ++kq)
+          wgmma_m64n64k16_ss<1, 1>(acc, wgmma_desc(A + kq * 2048, 0, 1024),
+                                   wgmma_desc(Bm + kq * 2048, 0, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+        ab_store(dqkv + (long long)b * N * ld3 + col + h * AB_HD, ld3,
+                 j * AB_BLK + warp * 16 + g, N, acc, t);
+      };
+      if (wg == ov) owner(Pt, dOs, 2 * C);  // dV_j = P^T dO
+      if (wg == ok) owner(dSt, Qs, C);      // dK_j = dS^T Q
+      if (POLICY && dpol_part && wg == ov && ct < AB_BLK && j * AB_BLK + ct < N) {
+        const float* src = Dpw + (size_t)st * W * 4 * AB_BLK + ct;
+        float acc = 0.f;
+        for (int r = 0; r < 4 * W; ++r) acc += src[r * AB_BLK];
+        dpol_part[(long long)bh * N + j * AB_BLK + ct] = acc;
+      }
+      mbar_arrive(&freeb[st]);
     }
   }
 
-  // pass 2, a warp per 16-query tile: dQ = dS K over all keys
-  for (int qt = warp; qt < tiles; qt += AB_WARPS) {
-    const int i0 = qt * 16;
-    uint32_t qa[AB_HD / 16][4], oa[AB_HD / 16][4];
-    ld_a_rows(qa, Qs + i0 * AB_LD, g, t);
-    ld_a_rows(oa, dOs + i0 * AB_LD, g, t);
-    const float l0 = Ls[i0 + g], l1 = Ls[i0 + g + 8];
-    const float d0 = Ds[i0 + g], d1 = Ds[i0 + g + 8];
-    const bool r0 = i0 + g < N, r1 = i0 + g + 8 < N;
-    float rd0 = 0.f, rd1 = 0.f, gc0 = 0.f, gc1 = 0.f;
-    if (POLICY) {
-      rd0 = Rd[i0 + g];
-      rd1 = Rd[i0 + g + 8];
-      gc0 = Gc[i0 + g];
-      gc1 = Gc[i0 + g + 8];
-    }
-    float dq[AB_HD / 8][4];
 #pragma unroll
-    for (int nd = 0; nd < AB_HD / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-    for (int j0 = 0; j0 < np; j0 += 16) {
-      float s[2][4] = {}, dp[2][4] = {};
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        mma_rows(s[nt], qa, Ks + (j0 + nt * 8) * AB_LD, g, t);
-        mma_rows(dp[nt], oa, Vs + (j0 + nt * 8) * AB_LD, g, t);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool hi = e >> 1;
-          const int key = j0 + nt * 8 + 2 * t + (e & 1);
-          const int q = i0 + g + 8 * hi;
-          const bool valid = key < N && (hi ? r1 : r0);
-          const float dpv = dp[nt][e] + (gcls && q == 0 ? Gs[key] : 0.f);
-          if (POLICY) {
-            const float m = hi ? l1 : l0;
-            const float v = s[nt][e] * scale;
-            const float xe = valid ? __expf(v - m) : 0.f;
-            const float pk = Ps[key];
-            const float ew = xe * (key == q ? pk + (1.f - pk) : pk);
-            float ds = (dpv - (hi ? d1 : d0)) * (hi ? rd1 : rd0) * ew;
-            if (valid && v == m) ds += hi ? gc1 : gc0;
-            s[nt][e] = ds * scale;
-          } else {
-            const float p =
-                valid ? __expf(s[nt][e] * scale - (hi ? l1 : l0)) : 0.f;
-            s[nt][e] = p * (dpv - (hi ? d1 : d0)) * scale;
-          }
-        }
-      uint32_t da[4];
-      pack_a(da, s);
-      mma_into(dq, da, Ks + j0 * AB_LD, lane);
-    }
-    store_rows(drow, ld, i0 + g, N, dq, t);
+  for (int qq = 0; qq < QPW; ++qq) {
+    const int qb = wg * QPW + qq;
+    if (qb < QB)
+      ab_store(dqkv + (long long)b * N * ld3 + h * AB_HD, ld3, qb * AB_BLK + warp * 16 + g, N,
+               dq[qq], t);
   }
 }
 
@@ -625,23 +898,82 @@ static __global__ void sum_heads_kernel(const float* __restrict__ part, float* _
   out[i] = acc;
 }
 
+// launches of attention_bwd_kernel, where it is launched (the backward
+// entries' own included), read by d2s_attention_bwd_launches
+static long long attention_bwd_launches = 0;
+
+static decltype(&attention_bwd_kernel<false, 1>) ab_kernel(bool policy, int qpw) {
+  if (policy) return qpw == 1 ? attention_bwd_kernel<true, 1> : attention_bwd_kernel<true, 3>;
+  return qpw == 1 ? attention_bwd_kernel<false, 1> : attention_bwd_kernel<false, 3>;
+}
+
+// The layout of a launch at N: of the ring and stage depths whose layout
+// fits, the one with the most CTAs an SM holds, then the deepest. The depths
+// change when copies and products overlap, not what is summed: every plan
+// gives the same bits. The plan is cached per (N, mode, fold); the kernel's
+// shared-memory limit, an attribute of the current device, is set on every
+// call, so a second card in the process launches with it too.
+static cudaError_t ab_plan(int N, bool policy, bool fold, AbLayout* out) {
+  static int cache[2][2][AB_MAX_N + 1];  // 4 ring + stages, 0 while unknown
+  int& plan = cache[policy][fold][N];
+  const AbLayout one = ab_layout(N, policy, fold, 1, 1);
+  auto kernel = ab_kernel(policy, one.qpw);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AB_SMEM_MAX);
+  if (err != cudaSuccess) return err;
+  if (plan == 0) {
+    const int qb = one.qb;
+    int best = 0, choice = 0;
+    for (int stages = 2; stages >= 1; --stages)
+      for (int ring = std::min(3, qb); ring >= 1; --ring) {
+        const AbLayout l = ab_layout(N, policy, fold, ring, stages);
+        if (l.bytes > (size_t)AB_SMEM_MAX) continue;
+        int fit = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, l.wgs * 128, l.bytes);
+        if (err != cudaSuccess) return err;
+        if (fit > best) {
+          best = fit;
+          choice = 4 * ring + stages;
+        }
+      }
+    if (choice == 0) return cudaErrorInvalidValue;
+    plan = choice;
+  }
+  *out = ab_layout(N, policy, fold, plan / 4, plan % 4);
+  return cudaSuccess;
+}
+
 static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, int q_ld,
                                         const bf16* o, const bf16* dout, const float* lse,
                                         const float* pol, const float* gcls, bf16* dqkv,
                                         float* dpol_part, int B, int N, int H, float scale,
                                         float eps, cudaStream_t stream) {
   const bool policy = pol != nullptr;
-  if (N <= 0 || N > (policy ? AB_POLICY_MAX_N : AB_MAX_N) || q_ld < 3 * H * AB_HD || q_ld % 8 ||
-      q_bstride % 8)
+  if (B <= 0 || N <= 0 || N > (policy ? AB_POLICY_MAX_N : AB_MAX_N) ||
+      q_ld < 3 * H * AB_HD || q_ld % 8 || q_bstride % 8)
     return cudaErrorInvalidValue;
-  const size_t smem = ab_smem_bytes(N, policy, gcls != nullptr);
-  auto kernel = policy ? attention_bwd_kernel<true> : attention_bwd_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  AbLayout l;
+  cudaError_t err = ab_plan(N, policy, gcls != nullptr, &l);
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, AB_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, o, dout, lse, pol, gcls, dqkv,
-                                              dpol_part, N, H, scale, eps);
-  return cudaGetLastError();
+  // TMA maps: qkv as (3C, N, B), rows q_ld and samples q_bstride apart; dout
+  // as (C, N, B); boxes of one head's 64 columns x 64 rows, rows past N zero
+  const int C = H * AB_HD;
+  const long long q_bs = B > 1 ? q_bstride : (long long)N * q_ld;
+  const cuuint32_t box[3] = {AB_HD, AB_BLK, 1};
+  const cuuint64_t q_dims[3] = {(cuuint64_t)3 * C, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t q_strides[2] = {(cuuint64_t)q_ld * 2, (cuuint64_t)q_bs * 2};
+  const cuuint64_t d_dims[3] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t d_strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)N * C * 2};
+  CUtensorMap tq, td;
+  if (!encode_map(&tq, qkv, 3, q_dims, q_strides, box) ||
+      !encode_map(&td, dout, 3, d_dims, d_strides, box))
+    return cudaErrorInvalidValue;
+  ab_kernel(policy, l.qpw)<<<B * H, l.wgs * 128, l.bytes, stream>>>(
+      tq, td, qkv, q_bstride, q_ld, o, dout, lse, pol, gcls, dqkv, dpol_part, N, H, scale, eps,
+      l.ring, l.stages);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++attention_bwd_launches;
+  return err;
 }
 
 static cudaError_t launch_sum_heads(const float* part, float* out, int B, int H, int N,
@@ -967,6 +1299,15 @@ extern "C" int d2s_attention_packed_backward(const void* qkv, long long q_bstrid
                                static_cast<float*>(d_policy), B, H, N, st);
 }
 
+// The launches of attention_bwd_kernel (which = 0, the one counter here)
+// since the last reset, counted where it is launched, inside the backward
+// entries too; set resets the count to `value` when it is 0 or more.
+extern "C" long long d2s_attention_bwd_launches(int which, long long value) {
+  if (which != 0) return -1;
+  if (value >= 0) d2s::attention_bwd_launches = value;
+  return d2s::attention_bwd_launches;
+}
+
 // Bytes of scratch d2s_attention_block_backward needs at these shapes
 // (policy: 1 in policy mode, else 0); 0 for shapes it does not take.
 extern "C" long long d2s_attention_block_backward_scratch_bytes(int B, int N, int C, int H,
@@ -990,8 +1331,9 @@ extern "C" long long d2s_attention_block_backward_scratch_bytes(int B, int N, in
 // the LayerNorm backward with dgamma, dbeta, whose fp32 sum takes g, bf16
 // as it comes, as its residual term: dx = g + LN1-bwd, rounded once to
 // bf16, with no widened copy of g. Bound by operations (qkv's product
-// recomputed, qkv's and proj's dX and dW products, the core's seven score
-// products: ~105 GFLOP at B=128, N=197, C=384), as the block's backward is.
+// recomputed, qkv's and proj's dX and dW products, the core's score
+// products recomputed and its five backward ones: ~108 GFLOP at B=128,
+// N=197, C=384), as the block's backward is.
 // x, g: (B, N, C) bf16; dx (B, N, C) bf16 out. Weights as
 // d2s_attention_block_forward takes them (bqkv may be null; bproj is not
 // needed); the six gradients fp32 in the weights' shapes (d_bqkv null when

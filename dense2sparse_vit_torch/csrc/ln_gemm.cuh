@@ -334,15 +334,23 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keeps the compiler from moving register traffic across the asynchronous
-// products that own the accumulators
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+// products that own the accumulators (or read the A fragments)
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // an accumulator as the fp32 the epilogue takes: int32 rounded to nearest

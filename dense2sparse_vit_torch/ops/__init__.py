@@ -5,16 +5,18 @@ launches the kernel (for the serving path's kernels, in the `cuda`
 implementation of their custom op, so that calls from an exported artifact
 count too); the block's forward and backward count their policy-mode
 launches apart, in `policy_launches`, and those with DropPath branch scales
-in `scaled_launches`. The LayerNorm backward and the column sums, which
-the backward entries launch from inside their C code, are counted by the
-kernels' library where it launches them (`ops.norm.LN_BWD`,
-`ops.norm.COLUMN_SUMS`). `COUNTERS` lists every count by its
-name (the attention half-block's by what they compute: its forward, its
-backward in plain and in policy mode, and the variants' forward). Importing this package registers the custom ops (`d2s::*`), which is
-all a loaded `torch.export` artifact needs of the port.
+in `scaled_launches`. The LayerNorm backward, the column sums and the
+attention core's backward, which the backward entries launch from inside
+their C code, are counted by the kernels' library where it launches them
+(`ops.norm.LN_BWD`, `ops.norm.COLUMN_SUMS`, `ops.attention.ATTENTION_BWD`).
+`COUNTERS` lists every count by its name (the attention half-block's by
+what they compute: its forward, its backward in plain and in policy mode,
+and the variants' forward). Importing this package registers the custom ops
+(`d2s::*`), which is all a loaded `torch.export` artifact needs of the port.
 """
 
 from dense2sparse_vit_torch.ops.attention import (
+    ATTENTION_BWD,
     fused_attention_backward_packed,
     fused_attention_block,
     fused_attention_block_backward,
@@ -67,10 +69,11 @@ COUNTERS = (
     ("attention_variant", fused_attention_variant, "launches"),
     ("ln_bwd", LN_BWD, "launches"),
     ("column_sums", COLUMN_SUMS, "launches"),
+    ("attention_bwd", ATTENTION_BWD, "launches"),
 )
 KERNEL_NAMES = tuple(name for name, _, _ in COUNTERS)
 # the kernels that the backward entries launch from inside their C code
-INNER_KERNELS = ("ln_bwd", "column_sums")
+INNER_KERNELS = ("ln_bwd", "column_sums", "attention_bwd")
 
 
 def reset_launch_counts() -> None:

@@ -64,6 +64,7 @@ from dense2sparse_vit_torch.ops.block import (
     layer_norm,
     linear,
 )
+from dense2sparse_vit_torch.ops.norm import LaunchCount
 
 
 def attention_backward_reference(qkv, g, num_heads, scale, *, policy=None, gcls=None,
@@ -184,6 +185,12 @@ def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_head
     _cuda.check(err, "d2s_attention_packed_backward")
     fused_attention_backward_packed.launches += 1
     return dqkv if policy is None else (dqkv, dpol)
+
+
+# The attention core's backward kernel (`attention_bwd_kernel` in
+# csrc/block_bwd.cu), which every backward entry with attention launches
+# inside its C code: its launches, counted by the kernels' library
+ATTENTION_BWD = LaunchCount(0, "d2s_attention_bwd_launches")
 
 
 class _PackedAttention(torch.autograd.Function):

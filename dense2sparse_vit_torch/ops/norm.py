@@ -31,23 +31,25 @@ from dense2sparse_vit_torch.ops import _cuda
 
 
 class LaunchCount:
-    """A kernel's launches as the kernels' library counts them (`which`: 0
-    the LayerNorm backward, 1 the column sums); setting it resets the
-    library's count. 0 while the library is not loaded."""
+    """A kernel's launches as the kernels' library counts them, read and
+    reset through the C entry `entry` (which, value) (`which`: for
+    d2s_norm_launches 0 the LayerNorm backward, 1 the column sums); setting
+    it resets the library's count. 0 while the library is not loaded."""
 
-    def __init__(self, which: int):
+    def __init__(self, which: int, entry: str = "d2s_norm_launches"):
         self.which = which
+        self.entry = entry
 
     @property
     def launches(self) -> int:
         lib = _cuda.loaded()
-        return 0 if lib is None else int(lib.d2s_norm_launches(self.which, -1))
+        return 0 if lib is None else int(getattr(lib, self.entry)(self.which, -1))
 
     @launches.setter
     def launches(self, value: int) -> None:
         lib = _cuda.loaded()
         if lib is not None:
-            lib.d2s_norm_launches(self.which, int(value))
+            getattr(lib, self.entry)(self.which, int(value))
 
 
 LN_BWD = LaunchCount(0)

@@ -4,13 +4,16 @@
         --bits a.json
     PYTHONPATH=CHECKOUT python ANY_CHECKOUT/dense2sparse_vit_torch/scripts/checkout_ab.py \\
         --int8-times
+    PYTHONPATH=CHECKOUT python ANY_CHECKOUT/dense2sparse_vit_torch/scripts/checkout_ab.py \\
+        --attn-bwd-times
     python -m dense2sparse_vit_torch.scripts.checkout_ab --compare a.json b.json
 
 Run by its path, the script imports whichever `dense2sparse_vit_torch` is
 first on PYTHONPATH, so one copy of it measures any checkout whose entry
 points it calls (`ops.fused_transformer_block_int8` with its stages,
 `ops.gemm.ln_gemm` and `weight_grad`, `ops.fused_transformer_block` and its
-backward); run both checkouts in one call. Every input is drawn on the CPU
+backward, `ops.fused_attention_backward_packed`); run both checkouts in one
+call. Every input is drawn on the CPU
 from a fixed seed and then moved to the device, so two checkouts see the
 same values.
 
@@ -42,6 +45,17 @@ the rest; and, the same way, the device ms of `torch._int_mm` (cuBLASLt:
 int8 codes in, int32 out, no dequantization) on the four products'
 shapes, or the reason the card's build refused it. Its last line names
 the package, the card and its power limit.
+
+`--attn-bwd-times` prints, at B=128, C=384, 6 heads, N = 197, 138, 97, 68,
+one JSON line per case of `ops.fused_attention_backward_packed` (plain
+mode at every width; at N=197 also policy mode with dPolicy at eps 1e-6,
+on a keep mask of ~60%, and the CLS rows' cotangent folded in): its ms per
+call by CUDA events (median of 5 runs of 10 calls) and, from
+torch.profiler over 10 calls, the device ms per call of the attention
+core's backward (kernels named `attention_bwd_kernel`, in any checkout),
+of the forward core it recomputes first (`attention_kernel`), of
+dPolicy's head sum (`sum_heads`) and the rest. Its last line names the
+package, the card and its power limit.
 """
 
 from __future__ import annotations
@@ -196,8 +210,9 @@ def events_ms(fn, iters=10, repeats=5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters=10) -> dict:
-    """Device ms per call of fn, by kernel-name group (GROUPS, "other")."""
+def device_ms(fn, iters=10, groups=GROUPS) -> dict:
+    """Device ms per call of fn, by kernel-name group (`groups`, the first
+    that a kernel's name holds, and "other")."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -205,13 +220,13 @@ def device_ms(fn, iters=10) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(GROUPS + ("other",), 0.0)
+    out = dict.fromkeys(groups + ("other",), 0.0)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         if getattr(e, "is_user_annotation", False):
             continue
-        group = next((g for g in GROUPS if g in e.key), "other")
+        group = next((g for g in groups if g in e.key), "other")
         out[group] += e.self_device_time_total / 1e3 / iters
     out["total"] = sum(out.values())
     return out
@@ -251,6 +266,32 @@ def int8_times(device) -> None:
                       "card": card_name_and_power_limit()}), flush=True)
 
 
+# --attn-bwd-times: the packed backward's device kernels
+ATTN_BWD_GROUPS = ("attention_bwd_kernel", "attention_kernel", "sum_heads")
+
+
+def attn_bwd_times(device) -> None:
+    B, C, H = 128, 384, 6
+    gen = torch.Generator().manual_seed(14)
+    with torch.no_grad():
+        for n in WIDTHS:
+            qkv = randn(gen, (B, n, 3 * C), device)
+            g = randn(gen, (B, n, C), device)
+            cases = [("plain", {})]
+            if n == WIDTHS[0]:
+                pol = (torch.rand((B, n), generator=gen) < 0.6).float().to(device)
+                pol[:, 0] = 1.0
+                gcls = (torch.randn((B, H, n), generator=gen) * 0.01).to(device)
+                cases += [("policy", {"policy": pol, "eps": 1e-6}), ("gcls", {"gcls": gcls})]
+            for mode, kw in cases:
+                fn = lambda: ops.fused_attention_backward_packed(qkv, g, H, **kw)  # noqa: E731
+                print(json.dumps({"N": n, "B": B, "C": C, "mode": mode, "ms": events_ms(fn),
+                                  "device_ms": device_ms(fn, groups=ATTN_BWD_GROUPS)}),
+                      flush=True)
+    print(json.dumps({"package": dense2sparse_vit_torch.__file__,
+                      "card": card_name_and_power_limit()}), flush=True)
+
+
 def compare(a: dict, b: dict) -> int:
     differ = 0
     for case, d in a["digests"].items():
@@ -267,21 +308,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bits", metavar="OUT")
     ap.add_argument("--int8-times", action="store_true")
+    ap.add_argument("--attn-bwd-times", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if not (args.bits or args.int8_times or args.compare):
-        ap.error("give --bits OUT, --int8-times or --compare A B")
+    if not (args.bits or args.int8_times or args.attn_bwd_times or args.compare):
+        ap.error("give --bits OUT, --int8-times, --attn-bwd-times or --compare A B")
     if args.compare:
         with open(args.compare[0]) as fa, open(args.compare[1]) as fb:
             return compare(json.load(fa), json.load(fb))
     if args.device != "cpu" and not torch.cuda.is_available():
         raise SystemExit("checkout_ab needs a CUDA device (or --device cpu for --bits)")
     device = torch.device(args.device)
-    if args.int8_times:
+    if args.int8_times or args.attn_bwd_times:
         if device.type != "cuda":
-            raise SystemExit("--int8-times times the card")
-        int8_times(device)
+            raise SystemExit("--int8-times and --attn-bwd-times time the card")
+        (int8_times if args.int8_times else attn_bwd_times)(device)
         return 0
     result = measure(device)
     with open(args.bits, "w") as f:

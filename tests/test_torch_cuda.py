@@ -55,8 +55,9 @@ BWD_TOL = 3e-2
 NO_LAUNCHES = dict.fromkeys(ops.KERNEL_NAMES, 0)
 
 # the LayerNorm backward's and the column sums' launches in block and half-block
-# backwards
+# backwards, and the attention core backward's in every backward with attention
 _norm = chip_smoke.norm_launches
+_core = chip_smoke.core_launches
 
 
 @pytest.fixture
@@ -282,7 +283,8 @@ def test_trainable_block_gradients_reach_the_parameters(cuda):
     ref(x).float().square().sum().backward()
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block": 1,
-                                   "fused_transformer_block_backward": 1, **_norm(blocks=1)}
+                                   "fused_transformer_block_backward": 1, **_norm(blocks=1),
+                                   **_core(1)}
     for (name, p), q in zip(blk.named_parameters(), ref.parameters()):
         _assert_close(p.grad, q.grad, BWD_TOL)
 
@@ -338,7 +340,7 @@ def test_train_mode_launches_the_kernels_or_raises(cuda):
     assert ops.launch_counts() == {
         **NO_LAUNCHES, "fused_transformer_block": 12,
         "fused_transformer_block_backward": 12, "fused_gather_tokens": 3,
-        "fused_scatter_tokens": 3, **_norm(blocks=12),
+        "fused_scatter_tokens": 3, **_norm(blocks=12), **_core(12),
     }
     assert model.blocks[0].attn.qkv.weight.grad is not None
     assert model.score_predictor[0].in_conv[1].weight.grad is not None
@@ -350,6 +352,7 @@ def test_train_mode_launches_the_kernels_or_raises(cuda):
     assert ops.launch_counts() == {
         **NO_LAUNCHES, "fused_attention_packed": 1, "fused_attention_backward_packed": 1,
         "fused_mlp_residual": 1, "fused_mlp_residual_backward": 1, **_norm(halves=1),
+        **_core(1),
     }
 
 
@@ -385,7 +388,7 @@ def test_train_step_launches_every_training_kernel(cuda):
     assert ops.launch_counts() == {
         **NO_LAUNCHES, "fused_transformer_block": 12, "fused_transformer_block_cls": 12,
         "fused_transformer_block_backward": 12, "fused_gather_tokens": 3,
-        "fused_scatter_tokens": 3, **_norm(blocks=12),
+        "fused_scatter_tokens": 3, **_norm(blocks=12), **_core(12),
     }
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
@@ -448,7 +451,7 @@ def test_policy_block_backward_kernel(cuda, n, eps, ties):
             x, g, w, 6, blk.attn.scale, 1e-6, policy=pol, eps=eps)
         torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block_backward[policy]": 2,
-                                   **_norm(blocks=2)}
+                                   **_norm(blocks=2), **_core(2)}
     assert none is None and torch.equal(dx, dx2)
     assert dpol.dtype == torch.float32 and dpol.shape == (4, n)
     _assert_close(dx, want_dx, BWD_TOL)
@@ -515,7 +518,7 @@ def test_policy_trainable_block_returns_dpolicy_in_its_dtype(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[policy]": 1,
                                    "fused_transformer_block_backward[policy]": 1,
-                                   **_norm(blocks=1)}
+                                   **_norm(blocks=1), **_core(1)}
     assert pol.grad.dtype == torch.bfloat16 and torch.isfinite(pol.grad.float()).all()
 
 
@@ -673,7 +676,7 @@ def test_packed_attention_both_ways(cuda, n, policy, with_gcls):
         want_out, want_cls = attention_reference(qkv, 6, scale, return_cls=True, **kw)
         want_dqkv, want_dpol = attention_backward_reference(qkv, g, 6, scale, gcls=gcls, **kw)
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_attention_packed": 1,
-                                   "fused_attention_backward_packed": 1}
+                                   "fused_attention_backward_packed": 1, **_core(1)}
     _assert_close(out, want_out)
     _assert_close(cls, want_cls)
     dqkv, dpol = res if policy else (res, None)
@@ -735,7 +738,7 @@ def test_attn_student_train_step_launches(cuda):
         **NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_attention_packed": 12,
         "fused_attention_backward_packed": 12, "fused_mlp_residual": 12,
         "fused_mlp_residual_backward": 12, "fused_gather_tokens": 3, "fused_scatter_tokens": 3,
-        **_norm(halves=12),
+        **_norm(halves=12), **_core(12),
     }
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
@@ -776,7 +779,7 @@ def test_scaled_block_kernels_both_ways(cuda, n, policy):
         torch.cuda.synchronize()
         assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[scaled]": 1,
                                        "fused_transformer_block_backward[scaled]": 1,
-                                       **_norm(blocks=1)}
+                                       **_norm(blocks=1), **_core(1)}
         want = transformer_block_reference(x, w, 6, blk.attn.scale, 1e-5, policy=pol,
                                            branch_scales=scales)
         want_dx, want_dw, want_dpol = transformer_block_backward_reference(
@@ -824,7 +827,7 @@ def test_drop_path_block_trains_through_the_scaled_kernels(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[scaled]": 1,
                                    "fused_transformer_block_backward[scaled]": 1,
-                                   **_norm(blocks=1)}
+                                   **_norm(blocks=1), **_core(1)}
     for p, q in zip(blk.parameters(), ref.parameters()):
         _assert_close(p.grad, q.grad, BWD_TOL)
 
@@ -849,7 +852,7 @@ def test_t2t_student_train_step_launches(cuda):
         **NO_LAUNCHES, "fused_transformer_block_cls": 14, "fused_transformer_block": 1,
         "fused_transformer_block[scaled]": 13, "fused_transformer_block_backward": 1,
         "fused_transformer_block_backward[scaled]": 13, "fused_gather_tokens": 3,
-        "fused_scatter_tokens": 3, **_norm(blocks=14),
+        "fused_scatter_tokens": 3, **_norm(blocks=14), **_core(14),
     }
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
@@ -895,7 +898,8 @@ def test_attention_block_both_ways(cuda, n, policy):
         want_core = attention_reference(st["qkv"], 6, scale, **kw)
         want_dx, want_dw, want_dpol = attention_block_backward_reference(x, g, *w6[:5], 6, **kw)
     bwd = "attention_block_backward" + ("_policy" if policy else "")
-    assert counts == {**NO_LAUNCHES, "attention_block_forward": 1, bwd: 1, **_norm(halves=1)}
+    assert counts == {**NO_LAUNCHES, "attention_block_forward": 1, bwd: 1, **_norm(halves=1),
+                      **_core(1)}
     _assert_close(out, want_out)
     _assert_close(st["attn"], want_core)
     _assert_close(cls, want_cls)
@@ -925,7 +929,8 @@ def test_trainable_attention_block_launches_and_returns_dpolicy(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "attention_block_forward": 2,
                                    "attention_block_backward": 1,
-                                   "attention_block_backward_policy": 1, **_norm(halves=2)}
+                                   "attention_block_backward_policy": 1, **_norm(halves=2),
+                                   **_core(2)}
     with torch.no_grad():
         want = ops.fused_attention_block_backward(x, g, *w6[:5], 6)
     for got, w in zip(grads, want[:6]):
@@ -1335,7 +1340,7 @@ def test_block_backward_and_mlp_half_at_448_wide(cuda, n):
         torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block_backward": 1,
                                    "fused_mlp_residual_backward": 1,
-                                   **_norm(blocks=1, halves=1)}
+                                   **_norm(blocks=1, halves=1), **_core(1)}
     _assert_close(dx, want_dx, BWD_TOL)
     for k in BLOCK_WEIGHT_KEYS:
         _assert_close(dw[k], want_dw[k], BWD_TOL)
@@ -1358,7 +1363,153 @@ def test_block_backward_bias_and_layernorm_gradients_are_bit_equal_on_two_runs(c
         dx2, dw2, _ = ops.fused_transformer_block_backward(x, g, w, 6)
         torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block_backward": 2,
-                                   **_norm(blocks=2)}
+                                   **_norm(blocks=2), **_core(2)}
     assert torch.equal(dx, dx2)
     assert set(dw) == set(dw2) and all(dw[k] is not None and torch.equal(dw[k], dw2[k])
                                        for k in dw)
+
+
+# ---- the attention core's backward (attention_bwd_kernel) -----------------
+# through `fused_attention_backward_packed`, which launches the forward core
+# (its output and row statistics), then the kernel, then dPolicy's head sum
+
+CORE_SCALE = 64 ** -0.5
+
+
+def _core_case(cuda, n, policy=False, with_gcls=False, strided=False, b=2, seed=0):
+    """qkv (b, n, 3 * 384) at 6 heads (a strided view: rows 4C apart, the
+    samples one row further apart, with `strided`), the output's cotangent,
+    and where asked a keep policy and the CLS rows' cotangent."""
+    gen = torch.Generator(device=cuda).manual_seed(1000 * seed + n)
+    bf16 = torch.bfloat16
+    if strided:
+        qkv = torch.randn((b, n + 1, 4 * 384), generator=gen, device=cuda).to(bf16)[:, 1:, :1152]
+    else:
+        qkv = torch.randn((b, n, 1152), generator=gen, device=cuda).to(bf16)
+    g = torch.randn((b, n, 384), generator=gen, device=cuda).to(bf16)
+    gcls = torch.randn((b, 6, n), generator=gen, device=cuda) if with_gcls else None
+    return qkv, g, (_policy(gen, b, n, cuda) if policy else None), gcls
+
+
+def _core_both(qkv, g, pol, gcls, eps=1e-6):
+    """The packed backward (the kernel on the recomputed forward), its
+    launches, and the plain version; each as (dqkv, dPolicy or None)."""
+    kw = {} if pol is None else {"policy": pol, "eps": eps}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got = ops.fused_attention_backward_packed(qkv, g, 6, gcls=gcls, scale=CORE_SCALE, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = attention_backward_reference(qkv, g, 6, CORE_SCALE, gcls=gcls, **kw)
+    assert counts == {**NO_LAUNCHES, "fused_attention_backward_packed": 1, **_core(1)}
+    return (got if pol is not None else (got, None)), want
+
+
+def _core_close(dqkv, want, dpol=None, want_dpol=None):
+    """dqkv's q, k and v apart within BWD_TOL, dPolicy within the check's
+    DPOL_TOL. At N=1 the one probability is 1 and dS = 0: dQ, dK and
+    dPolicy vanish in exact arithmetic and both sides hold fp32 rounding of
+    dP - D, so they are held to 1e-3 of dV's scale instead."""
+    if dqkv.shape[1] > 1:
+        _thirds_close(dqkv, want)
+        if dpol is not None:
+            _assert_close(dpol, want_dpol, chip_smoke.DPOL_TOL)
+        return
+    dv = want[..., 768:].float().abs().max().item()
+    _assert_close(dqkv[..., 768:], want[..., 768:], BWD_TOL)
+    assert dqkv[..., :768].float().abs().max().item() <= 1e-3 * dv
+    assert dpol is None or dpol.abs().max().item() <= 1e-3 * dv
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 129, 197, 384])
+@pytest.mark.parametrize("with_gcls", [False, True])
+def test_attention_bwd_kernel_against_plain(cuda, n, with_gcls):
+    """Plain mode at every edge of the 16-row and 64-row tiles up to the
+    kernel's largest N: dqkv's q, k and v apart within BWD_TOL, with and
+    without the CLS rows' cotangent."""
+    qkv, g, _, gcls = _core_case(cuda, n, with_gcls=with_gcls)
+    (dqkv, _), (want, _) = _core_both(qkv, g, None, gcls)
+    _core_close(dqkv, want)
+
+
+@pytest.mark.parametrize("n", [1, 17, 65, 129, 197, 352])
+@pytest.mark.parametrize("eps", [1e-6, 0.1])
+@pytest.mark.parametrize("with_gcls", [False, True])
+def test_attention_bwd_kernel_policy_against_plain(cuda, n, eps, with_gcls):
+    """Policy mode up to its largest N: dqkv within BWD_TOL and dPolicy
+    within the check's DPOL_TOL, at the model's eps and at a visible one."""
+    qkv, g, pol, gcls = _core_case(cuda, n, policy=True, with_gcls=with_gcls, seed=1)
+    (dqkv, dpol), (want, want_dpol) = _core_both(qkv, g, pol, gcls, eps)
+    _core_close(dqkv, want, dpol, want_dpol)
+
+
+@pytest.mark.parametrize("n", [65, 197])
+@pytest.mark.parametrize("policy", [False, True])
+def test_attention_bwd_kernel_on_a_strided_view(cuda, n, policy):
+    """qkv read in place from wider rows, the samples not packed (its TMA
+    maps' strides), with the CLS fold."""
+    qkv, g, pol, gcls = _core_case(cuda, n, policy=policy, with_gcls=True, strided=True, seed=2)
+    assert not qkv.is_contiguous()
+    (dqkv, dpol), (want, want_dpol) = _core_both(qkv, g, pol, gcls, 0.1)
+    _thirds_close(dqkv, want)
+    if policy:
+        _assert_close(dpol, want_dpol, chip_smoke.DPOL_TOL)
+
+
+@pytest.mark.parametrize("eps", [1e-6, 0.1])
+def test_attention_bwd_kernel_dpolicy_on_planted_ties(cuda, eps):
+    """The same key in six columns, and the first 98 queries shifted towards
+    it, so that those rows reach their max at the six columns with equal
+    scores (six ties, counted here in float64), and the max path's share
+    reaches every tied column (dPolicy and dqkv within tolerance of autograd
+    through torch.amax, which splits it evenly). Half the rows stay
+    unshifted: a row that puts all its mass on six equal keys has dQ = 0 in
+    exact arithmetic, which bf16 dS leaves as rounding."""
+    qkv, g, pol, _ = _core_case(cuda, 197, policy=True, seed=3)
+    cols = [5, 17, 40, 41, 100, 150]
+    qkv[:, :98, :384] += 2.0
+    qkv[:, cols, 384:768] = 2.0
+    q, k = (qkv[..., i * 384:(i + 1) * 384].double().view(2, 197, 6, 64).transpose(1, 2)
+            for i in (0, 1))
+    s = q @ k.transpose(-1, -2)  # float64: the six copies' scores are equal
+    ties = (s == s.amax(-1, keepdim=True)).sum(-1)
+    assert (ties == len(cols)).double().mean().item() > 0.4
+    (dqkv, dpol), (want, want_dpol) = _core_both(qkv, g, pol, None, eps)
+    _thirds_close(dqkv, want)
+    _assert_close(dpol, want_dpol, chip_smoke.DPOL_TOL)
+
+
+@pytest.mark.parametrize("policy", [False, True])
+def test_attention_bwd_kernel_is_bit_equal_on_two_launches(cuda, policy):
+    """dqkv (and dPolicy) the same bits on two launches at B=128, N=197:
+    every sum in a fixed order, no atomics."""
+    qkv, g, pol, gcls = _core_case(cuda, 197, policy=policy, with_gcls=True, b=128, seed=4)
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    with torch.no_grad():
+        runs = [ops.fused_attention_backward_packed(qkv, g, 6, gcls=gcls, scale=CORE_SCALE, **kw)
+                for _ in range(2)]
+    a, b = runs if policy else ((runs[0], None), (runs[1], None))
+    assert torch.equal(a[0], b[0])
+    assert not policy or torch.equal(a[1], b[1])
+
+
+def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    """N past 384 (policy mode 352) is refused by the wrapper and by the C
+    entry itself (cudaErrorInvalidValue)."""
+    for n, policy in ((385, False), (353, True)):
+        qkv, g, pol, _ = _core_case(cuda, n, policy=policy)
+        with pytest.raises(ValueError):
+            ops.fused_attention_backward_packed(qkv, g, 6, policy=pol)
+        f32 = torch.float32
+        o = torch.empty_like(g)
+        stats = torch.empty((2, 6, n, 4 if policy else 1), dtype=f32, device=cuda)
+        part = torch.empty((2, 6, n), dtype=f32, device=cuda)
+        dpol = torch.empty((2, n), dtype=f32, device=cuda)
+        dqkv = torch.empty_like(qkv)
+        err = _cuda.library().d2s_attention_packed_backward(
+            qkv.data_ptr(), qkv.stride(0), qkv.stride(1), g.data_ptr(), 0,
+            0 if pol is None else pol.data_ptr(), dqkv.data_ptr(),
+            0 if pol is None else dpol.data_ptr(), o.data_ptr(), stats.data_ptr(),
+            0 if pol is None else part.data_ptr(), 2, n, 6, CORE_SCALE, 1e-6,
+            _cuda.stream_handle(cuda))
+        assert err == 1

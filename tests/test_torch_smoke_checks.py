@@ -746,3 +746,197 @@ def test_check_norm_rejects_folded_bias_sums_that_move_dw(monkeypatch):
     cases = _norm_cases()
     with torch.no_grad(), pytest.raises(AssertionError, match="wgrad bias sums"):
         chip_smoke.check_norm(torch, cases)
+
+
+# ---- the attention core backward's check (phase 30) -----------------------
+
+CORE_N = 80  # two key blocks of the kernel's 64, the last one short
+
+
+def _core_case(what="topk", eps=1e-6, n=CORE_N):
+    """A phase-30 case at a small size (B=2, C=128, 2 heads): seeded qkv and
+    the attention output's cotangent; a keep policy for "threshold", the CLS
+    rows' cotangent for "gcls"."""
+    gen = torch.Generator().manual_seed(5)
+    qkv = torch.randn((B, n, 3 * C), generator=gen).to(torch.bfloat16)
+    g = torch.randn((B, n, C), generator=gen).to(torch.bfloat16)
+    return {"what": what, "block": 0, "qkv": qkv, "g": g, "heads": H,
+            "scale": (C // H) ** -0.5, "eps": eps,
+            "policy": _keep_policy(n) if what == "threshold" else None,
+            "gcls": torch.randn((B, H, n), generator=gen) if what == "gcls" else None}
+
+
+@pytest.mark.parametrize("what,eps", [("topk", 1e-6), ("threshold", 1e-6), ("threshold", 0.1),
+                                      ("gcls", 1e-6)])
+def test_check_attn_bwd_passes_the_plain_version(capsys, what, eps):
+    err = chip_smoke.check_attn_bwd(torch, _core_case(what, eps))
+    line = _last_line(capsys)
+    assert err == 0.0 and line["bit_equal"] and line["case"] == what
+    assert set(line["rel_err"]) == {"dqkv.q", "dqkv.k", "dqkv.v"} | (
+        {"dpolicy"} if what == "threshold" else set())
+    assert all(v == 0.0 for v in line["rel_err"].values())
+
+
+def _without_last_key_block(real):
+    """The packed backward whose dQ leaves out the last 64-key block's
+    products, what `--plant-fault attn_bwd` does to the kernel (plain
+    mode): dQ_i loses scale sum_{j in the block} dS_ij k_j."""
+
+    def faulty(qkv, g, num_heads, *, gcls=None, scale=None, **kwargs):
+        right = real(qkv, g, num_heads, gcls=gcls, scale=scale, **kwargs)
+        b, n, c3 = qkv.shape
+        q, k, v = qkv.float().view(b, n, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
+        p = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+        dp = g.float().view(b, n, num_heads, -1).transpose(1, 2) @ v.transpose(-1, -2)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+        last = (n - 1) // 64 * 64
+        lost = (ds[..., last:] @ k[:, :, last:]).transpose(1, 2).reshape(b, n, c3 // 3)
+        return torch.cat([(right[..., :c3 // 3].float() - lost).to(right.dtype),
+                          right[..., c3 // 3:]], -1)
+
+    return faulty
+
+
+def test_check_attn_bwd_rejects_a_dq_without_its_last_key_block(monkeypatch, capsys):
+    monkeypatch.setattr(ops, "fused_attention_backward_packed",
+                        _without_last_key_block(ops.fused_attention_backward_packed))
+    with pytest.raises(AssertionError, match=chip_smoke.FAULTS["attn_bwd"][3]):
+        chip_smoke.check_attn_bwd(torch, _core_case())
+    line = _last_line(capsys)
+    # dQ alone: the keys' and values' gradients do not see it
+    assert line["rel_err"]["dqkv.q"] > 2 * chip_smoke.BWD_TOL
+    assert line["rel_err"]["dqkv.k"] == 0.0 and line["rel_err"]["dqkv.v"] == 0.0
+
+
+@pytest.mark.parametrize("eps", chip_smoke.EPS_CHECKS)
+def test_check_attn_bwd_rejects_dpolicy_with_its_diagonal(monkeypatch, capsys, eps):
+    real = ops.fused_attention_backward_packed
+    right = block_ops.softmax_with_policy
+
+    def faulty(*args, **kwargs):
+        block_ops.softmax_with_policy = _faulty_softmax_with_policy
+        try:
+            return real(*args, **kwargs)
+        finally:
+            block_ops.softmax_with_policy = right
+
+    monkeypatch.setattr(ops, "fused_attention_backward_packed", faulty)
+    with pytest.raises(AssertionError, match="dpolicy"):
+        chip_smoke.check_attn_bwd(torch, _core_case("threshold", eps))
+    line = _last_line(capsys)
+    assert line["rel_err"]["dpolicy"] > 2 * chip_smoke.DPOL_TOL
+    assert all(v == 0.0 for k, v in line["rel_err"].items() if k != "dpolicy")
+
+
+def test_check_attn_bwd_rejects_two_launches_that_differ(monkeypatch, capsys):
+    real = ops.fused_attention_backward_packed
+    calls = []
+
+    def drifting(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(1)
+        return out if len(calls) == 1 else out + torch.finfo(torch.bfloat16).eps * out
+
+    monkeypatch.setattr(ops, "fused_attention_backward_packed", drifting)
+    with pytest.raises(AssertionError, match="bit-equal: False"):
+        chip_smoke.check_attn_bwd(torch, _core_case())
+    assert _last_line(capsys)["bit_equal"] is False
+
+
+def test_attn_bwd_inputs_are_the_block_backward_s(monkeypatch):
+    """qkv and dO from `attn_bwd_inputs` are what autograd through the whole
+    plain block hands its attention core."""
+    x, w, (heads, scale, ln_eps) = _block_input()
+    g = _cotangent(x)
+    qkv, do = chip_smoke.attn_bwd_inputs(torch, x, g, w, heads, scale, ln_eps)
+    seen = {}
+    real = block_ops.attention_reference
+
+    def spy(qkv_in, *args, **kwargs):
+        out = real(qkv_in, *args, **kwargs)
+        seen["qkv"] = qkv_in.detach()
+        out.retain_grad()
+        seen["out"] = out
+        return out
+
+    monkeypatch.setattr(block_ops, "attention_reference", spy)
+    with torch.enable_grad():
+        xx = x.clone().requires_grad_()
+        block_ops.transformer_block_reference(xx, w, heads, scale, ln_eps).backward(g)
+    assert torch.equal(qkv, seen["qkv"])
+    assert torch.equal(do, seen["out"].grad)
+
+
+ATTN_BWD_PLAIN = "_ZN3d2sL20attention_bwd_kernelILb0ELi1EEEv14CUtensorMap_stS1_PK13__nv_bfloat16"
+ATTN_BWD_POLICY = ATTN_BWD_PLAIN.replace("ILb0ELi1E", "ILb1ELi1E")
+
+
+def test_attn_bwd_kind_reads_the_instantiations():
+    assert chip_smoke.attn_bwd_kind(ATTN_BWD_PLAIN) == (False, 1)
+    assert chip_smoke.attn_bwd_kind(ATTN_BWD_POLICY.replace("Li1E", "Li2E")) == (True, 2)
+    assert chip_smoke.attn_bwd_kind(BF16_NK) is None
+    log = "\n".join([f"ptxas info    : Function properties for {ATTN_BWD_PLAIN}",
+                     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                     f"ptxas info    : Function properties for {BF16_NK}",
+                     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"])
+    assert list(chip_smoke.gemm_spills(log, "attention_bwd_kernel")) == [ATTN_BWD_PLAIN]
+
+
+def test_attn_bwd_sass_faults_hold_each_instantiation_to_wgmma():
+    """Every instantiation with HGMMA; HMMA (the tie test's mma.sync
+    scores) in the policy-mode ones alone; all four present."""
+    names = {k: ATTN_BWD_PLAIN.replace("ILb0ELi1E", f"ILb{int(k[0])}ELi{k[1]}E")
+             for k in chip_smoke.ATTN_BWD_KERNELS}
+    good = {n: _sass(HGMMA=40, HMMA=32 if k[0] else 0) for k, n in names.items()}
+    assert chip_smoke.attn_bwd_sass_faults(good) == []
+    plain = names[(False, 1)]
+    for bad in (_sass(HGMMA=40, HMMA=2), _sass(HMMA=64), _sass(HGMMA=40, IMMA=1)):
+        faults = chip_smoke.attn_bwd_sass_faults({**good, plain: bad})
+        assert len(faults) == 1 and plain in faults[0], bad
+    assert chip_smoke.attn_bwd_sass_faults(
+        {k: v for k, v in good.items() if k != plain}) == ["missing (False, 1)"]
+
+
+def test_the_attn_bwd_fault_reaches_the_dq_product_alone():
+    """`--plant-fault attn_bwd` guards the dQ product (dS K, A from
+    registers) with the key loop's index, so the last key block's products
+    leave dQ and nothing else."""
+    source, pattern, replacement, reaches = chip_smoke.FAULTS["attn_bwd"]
+    text = open(os.path.join(REPO, "dense2sparse_vit_torch", "csrc", source)).read()
+    assert text.count(pattern) == 1 and "dq[qq]" in pattern and reaches == "attn_bwd"
+    assert replacement == pattern.replace("wgmma", "if (j + 1 < QB) wgmma")
+    kernel = text[text.index("attention_bwd_kernel(const __grid_constant__"):]
+    assert pattern in kernel[:kernel.index("\n}\n")]
+
+
+@pytest.mark.parametrize("name,backwards", [
+    ("PER_TRAIN_STEP", 12), ("PER_POLICY_TRAIN_STEP", 12), ("PER_ATTN_TRAIN_STEP", 12),
+    ("PER_T2T_TRAIN_STEP", 14), ("PER_T2T_DENSE_STEP", 14), ("PER_ATTN_BLOCK_TRAINABLE", 2),
+    ("PER_FORWARD", 0), ("PER_EVAL_STEP", 0)])
+def test_core_launches_follow_every_backward_with_attention(name, backwards):
+    """The attention core backward runs once inside every whole-block,
+    packed-attention and attention half-block backward, and nowhere else."""
+    per = getattr(chip_smoke, name)
+    for counts in (per.values() if name == "PER_EVAL_STEP" else [per]):
+        with_attention = sum(v for k, v in counts.items() if "backward" in k
+                             and not k.startswith("fused_mlp"))
+        assert counts["attention_bwd"] == backwards == with_attention
+
+
+def test_wgmma_notices_count_injected_fences_and_catch_serialization():
+    """The build phase's reading of ptxas's C75xx notices: C7519's injected
+    fences counted per instantiation, a serialization notice kept (the
+    build fails on it), another kernel's notices left out."""
+    arrive = ("ptxas info    : (C7519) warpgroup.arrive is injected in around line {} by "
+              "compiler to allow use of registers in GMMA in function '{}'")
+    serial = ("ptxas info    : (C7510) Potential Performance Loss: wgmma.mma_async "
+              f"instructions are serialized due to the presence of Extern calls in the "
+              f"function '{ATTN_BWD_POLICY}'")
+    log = "\n".join([arrive.format(5902, ATTN_BWD_PLAIN), arrive.format(6012, ATTN_BWD_PLAIN),
+                     serial, arrive.format(7000, BF16_NK),
+                     f"ptxas info    : Function properties for {ATTN_BWD_PLAIN}"])
+    assert chip_smoke.wgmma_notices(log) == {
+        ATTN_BWD_PLAIN: {"injected_arrive": 2, "serialized": []},
+        ATTN_BWD_POLICY: {"injected_arrive": 0, "serialized": [serial]}}
+    assert chip_smoke.wgmma_notices(log, "11gemm_kernel") == {
+        BF16_NK: {"injected_arrive": 1, "serialized": []}}
