@@ -20,6 +20,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault ln_bwd      # the LayerNorm backward's check
     python3 chip_smoke.py --plant-fault colsum      # the column sums' check
     python3 chip_smoke.py --plant-fault attn_bwd    # the attention core backward's check
+    python3 chip_smoke.py --plant-fault predictor   # the score predictor's check
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -30,11 +31,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  launched 12 block, 3 predictor and 3 gather kernels;
   3. check       walk the model stage by stage at B=256 and hold every
                  serving kernel against its plain torch version on the same
-                 activations (the block stage by stage: see `check_block`),
+                 activations (the block stage by stage: see `check_block`;
+                 the predictor against its plain version and the plain
+                 split form, two launches bit-equal: `check_predictor`),
                  then the unpruned forward against the plain torch model;
   4. time        each serving kernel against its plain version at every
-                 main-path shape, and the whole B=256 forward with kernels
-                 against without;
+                 main-path shape (the predictor also from a CUDA graph; its
+                 device time is phase 31's), and the whole B=256 forward
+                 with kernels against without;
   5. train       three B=128 train steps of the headline student with its
                  live teacher (DeiT-S, bf16), built by `create_model`,
                  `make_optimizer` and `make_train_step`, at epoch 6 with the
@@ -167,7 +171,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  mma.sync in the policy ones alone); the kernel timed at
                  N=197/138/97/68 by the profiler's device time, its plain
                  version and SDPA's backward from CUDA graphs, beside its
-                 bound, and at N=197 in policy mode and with the fold.
+                 bound, and at N=197 in policy mode and with the fold;
+ 31. predictor   the score predictor's kernel (csrc/predictor.cu) alone on
+                 phase 3's three stage inputs, with the student's small
+                 predictors and a seeded large one: `check_predictor` at
+                 each, then the profiler's device time and a CUDA graph's
+                 time beside the plain version and the plain split form
+                 (CUDA graphs) and its bound.
 The build phase fails if ptxas reports a spill in a GEMM kernel or in
 attention_bwd_kernel, or reports on no int8 one, or if it serializes
 attention_bwd_kernel's wgmma products; it prints that kernel's C75xx
@@ -206,7 +216,9 @@ LayerNorm backward that leaves z mean(dz z) out of dx, and --plant-fault
 colsum with column sums that leave out the last split's rows (`norm.cu`),
 on phase 29's checks; --plant-fault attn_bwd with an attention core
 backward whose dQ leaves out the last key block's products
-(`block_bwd.cu`), on phase 30's checks.
+(`block_bwd.cu`), on phase 30's checks; --plant-fault predictor with a
+predictor whose tail takes each sample's pooled mean from the next
+sample's sums (`predictor.cu`), on phase 3's walk.
 """
 
 from __future__ import annotations
@@ -426,8 +438,9 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # products, (qgemm) the int8 ones alone; (norm.cu) the LayerNorm backward
 # without z mean(dz z) (ln_bwd), the column sums without the last split's
 # rows (colsum); (block_bwd.cu, attn_bwd) the attention core backward's dQ
-# without the last key block's products; and the stage whose check must
-# reject it
+# without the last key block's products; (predictor.cu) the means launch taking
+# each sample's pooled mean from the next sample's sums; and the stage whose
+# check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e & 1]", "if (true) dpa[e & 1]", "dpolicy"),
@@ -456,6 +469,10 @@ FAULTS = {
                "column_sums"),
     "attn_bwd": ("block_bwd.cu", "          wgmma_m64n64k16_rs<1>(dq[qq], da[c], ",
                  "          if (j + 1 < QB) wgmma_m64n64k16_rs<1>(dq[qq], da[c], ", "attn_bwd"),
+    "predictor": ("predictor.cu",
+                  "  const int src = smp;  // the sample whose partial sums are added\n",
+                  "  const int src = (smp + 1) % p.samples;  // the next sample's\n",
+                  "predictor"),
 }
 
 
@@ -970,7 +987,7 @@ def plant_fault(dev, kind: str) -> int:
                                              w6, H, scale, ln_eps, block=i)
         elif kind == "variant":
             phase_attn_variants(torch, dev, None, None)
-        elif kind in ("attn_core", "gemm"):
+        elif kind in ("attn_core", "gemm", "predictor"):
             model, plain, images, outputs = phase_serve(torch, dev, Tally())
             phase_check(torch, model, plain, images, outputs, Tally())
         elif kind in ("ln_bwd", "colsum"):
@@ -1059,12 +1076,35 @@ def phase_serve(torch, dev, tally):
     return model, plain, images, outputs
 
 
+def check_predictor(torch, xs, w, what, phase):
+    """Hold `ops.fused_predictor_lg` on spatial tokens xs against its plain
+    version and the plain split form it computes, both within STAGE_TOL of
+    the plain version's largest score, and a second launch bit-equal; print
+    the errors, raise naming the predictor where one fails, and return
+    (scores, largest absolute error)."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.predictor import (
+        predictor_lg_reference, predictor_lg_split_reference)
+
+    got = ops.fused_predictor_lg(xs, w)
+    same = bool(torch.equal(got, ops.fused_predictor_lg(xs, w)))
+    err, scale = rel_err(torch, got, predictor_lg_reference(xs, w))
+    split_err, _ = rel_err(torch, got, predictor_lg_split_reference(xs, w))
+    emit({"phase": phase, "kernel": "fused_predictor_lg", "case": what,
+          "shape": list(xs.shape), "act": w["act"], "max_abs_err": err,
+          "split_max_abs_err": split_err, "max_abs_ref": scale, "tol_rel": STAGE_TOL,
+          "bit_equal": same})
+    if not (err <= STAGE_TOL * scale and split_err <= STAGE_TOL * scale and same):
+        raise AssertionError(f"predictor {what}: err {err}, split form {split_err}, scale "
+                             f"{scale}; two launches bit-equal: {same}")
+    return got, max(err, split_err)
+
+
 def phase_check(torch, model, plain, images, outputs, tally, b=B_CHECK, phase="check"):
     """Phase 3 (and serve_t2t's walk at `b`); returns the shapes phase 4
     times."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.ops.gather import gather_tokens_reference
-    from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
     from dense2sparse_vit_torch.ops.topk import topk_keep_indices
 
     bf16 = torch.bfloat16
@@ -1077,14 +1117,7 @@ def phase_check(torch, model, plain, images, outputs, tally, b=B_CHECK, phase="c
             if i in model.pruning.pruning_locs:
                 w = model.score_predictor[p].kernel_weights(bf16)
                 xs = x[:, 1:]
-                s_k = ops.fused_predictor_lg(xs, w)
-                s_p = predictor_lg_reference(xs, w)
-                err, scale = rel_err(torch, s_k, s_p)
-                emit({"phase": phase, "kernel": "fused_predictor_lg",
-                      "shape": list(xs.shape), "max_abs_err": err,
-                      "max_abs_ref": scale, "tol_rel": STAGE_TOL})
-                if err > STAGE_TOL * scale:
-                    raise AssertionError(f"predictor stage {p}: err {err} scale {scale}")
+                s_k, err = check_predictor(torch, xs, w, f"stage {p}", phase)
                 tally.err("fused_predictor_lg", err)
                 pred_shapes.append((xs, w))
                 probs = torch.softmax(s_k.float(), dim=-1).to(bf16)
@@ -1136,14 +1169,14 @@ def phase_time(torch, model, plain, images, shapes, tally, smi):
             emit({"phase": "time", "kernel": "fused_transformer_block",
                   "shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
                   "bound_ms": max(b.values())})
-        for xs, w in pred_shapes:
+        for xs, w in pred_shapes:  # the kernels line takes phase 31's device times
             k_ms, p_ms = paired_ms(
                 torch, lambda: ops.fused_predictor_lg(xs, w),
                 lambda: predictor_lg_reference(xs, w), iters=10)
             b = predictor_bound(*xs.shape, w)
-            tally.add("fused_predictor_lg", 1, k_ms, p_ms, b)
             emit({"phase": "time", "kernel": "fused_predictor_lg",
                   "shape": list(xs.shape), "ms": k_ms, "plain_ms": p_ms,
+                  "graph_ms": graph_ms(torch, lambda: ops.fused_predictor_lg(xs, w)),
                   "bound_ms": max(b.values())})
         for x, idx in gather_shapes:
             k_ms, p_ms = paired_ms(
@@ -1348,7 +1381,6 @@ def phase_serve_threshold(torch, dev, tally, smi):
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.models import HEADLINE_MODEL, THRESHOLD_KWARGS, create_model
     from dense2sparse_vit_torch.ops.block import transformer_block_reference
-    from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
     from dense2sparse_vit_torch.ops.topk import threshold_keep_mask
 
     bf16 = torch.bfloat16
@@ -1398,10 +1430,8 @@ def phase_serve_threshold(torch, dev, tally, smi):
         for i, blk in enumerate(model.blocks):
             if i in model.pruning.pruning_locs:
                 w = model.score_predictor[p].kernel_weights(bf16)
-                s_k = ops.fused_predictor_lg(x[:, 1:], w)
-                err, scale = rel_err(torch, s_k, predictor_lg_reference(x[:, 1:], w))
-                if err > STAGE_TOL * scale:
-                    raise AssertionError(f"threshold predictor stage {p}: err {err} scale {scale}")
+                s_k, err = check_predictor(torch, x[:, 1:], w, f"threshold stage {p}",
+                                           "serve_threshold")
                 tally.err("fused_predictor_lg", err)
                 probs = torch.softmax(s_k.float(), dim=-1).to(bf16)
                 mask, _ = threshold_keep_mask(probs, threshold)
@@ -3849,6 +3879,50 @@ def phase_attn_bwd(torch, dev, tally, smi):
     emit({"phase": "attn_bwd", "per_topk_step": step, "card": smi})
 
 
+# ---- 31. the score predictor alone ------------------------------------------
+
+
+def phase_predictor(torch, dev, pred_cases, tally, smi):
+    """Phase 31: the score predictor's kernel alone, on the three stages'
+    own inputs from phase 3 (the spatial tokens x[:, 1:] at B=256, N = 196,
+    137, 96), with the headline student's small predictors and with a
+    seeded large one (`checkout_ab.seeded_predictor`: matrices N(0,
+    1/fan_in), LayerNorm scales 1 +- 0.1, biases 0.1 N(0, 1)): held against
+    both plain versions
+    with two launches bit-equal (`check_predictor`), then timed by the
+    profiler's device time (`checkout_ab.device_ms`, over 10 calls) and
+    from a CUDA graph, beside the plain version and the plain split form
+    (CUDA graphs) and `predictor_bound` (the function's work unsplit, as
+    the table's row 3 has always counted it). The kernels line takes the
+    small predictor's device time and plain graph time."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.predictor import (
+        predictor_lg_reference, predictor_lg_split_reference)
+    from dense2sparse_vit_torch.scripts.checkout_ab import device_ms, seeded_predictor
+
+    large = seeded_predictor(pred_cases[0][0].shape[2], False, 31, dev).kernel_weights(
+        torch.bfloat16)
+    with torch.inference_mode():
+        for kind in ("small", "large"):
+            for i, (xs, small) in enumerate(pred_cases):
+                w = small if kind == "small" else large
+                check_predictor(torch, xs, w, f"{kind} stage {i}", "predictor")
+                fn = lambda: ops.fused_predictor_lg(xs, w)  # noqa: E731
+                dev_ms = device_ms(fn, groups=("predictor_kernel",))
+                t = {"ms": dev_ms["predictor_kernel"], "device_ms": dev_ms,
+                     "graph_ms": graph_ms(torch, fn),
+                     "plain_ms": graph_ms(torch, lambda: predictor_lg_reference(xs, w), iters=5),
+                     "split_plain_ms": graph_ms(
+                         torch, lambda: predictor_lg_split_reference(xs, w), iters=5)}
+                b = predictor_bound(*xs.shape, w)
+                if kind == "small":
+                    tally.add("fused_predictor_lg", 1, t["ms"], t["plain_ms"], b)
+                emit({"phase": "predictor", "kernel": "fused_predictor_lg", "predictor": kind,
+                      "stage": i, "shape": list(xs.shape), **t, "bound_ms": max(b.values()),
+                      "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
+                      "card": smi})
+
+
 def gemm_spills(build_log: str, word: str = "11gemm_kernel") -> dict:
     """ptxas's spill line for each GEMM kernel (bf16 and int8) of the build
     log, or for each kernel whose name holds `word`."""
@@ -3929,6 +4003,7 @@ def main(argv=None) -> int:
     model, plain, images, outputs = phase_serve(torch, dev, tally)
     shapes = phase_check(torch, model, plain, images, outputs, tally)
     phase_time(torch, model, plain, images, shapes, tally, smi)
+    pred_cases = shapes[1]  # phase 31's inputs: the predictors' own stage activations
     del model, plain, images, outputs, shapes
     # ---- 5-7. train, check_train, time_train ----------------------------
     student, teacher, step, t_images, t_labels = phase_train(torch, dev, tally)
@@ -3987,6 +4062,10 @@ def main(argv=None) -> int:
     # ---- 30. the attention core's backward alone ------------------------------
     torch.cuda.empty_cache()
     phase_attn_bwd(torch, dev, tally, smi)
+    # ---- 31. the score predictor alone -----------------------------------------
+    torch.cuda.empty_cache()
+    phase_predictor(torch, dev, pred_cases, tally, smi)
+    del pred_cases
 
     emit(tally.line())
     print(smi, flush=True)

@@ -60,16 +60,17 @@ _SIGNATURES = {
     "d2s_norm_launches": [_I, _L],
     "d2s_attention_bwd_launches": [_I, _L],
     "d2s_predictor_forward": (
-        [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-        + [_P] * 4 + [_P] * 4 + [_I, _F, _P]
+        [_P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P] + [_P] * 4 + [_P] * 4 + [_I, _F, _P]
     ),
+    "d2s_predictor_scratch_bytes": [_I] * 5 + [_P],
 }
 
 _RESTYPES = {"d2s_block_backward_scratch_bytes": _L, "d2s_wgrad_workspace_bytes": _L,
              "d2s_mlp_residual_backward_scratch_bytes": _L,
              "d2s_attention_block_backward_scratch_bytes": _L,
              "d2s_ln_backward_workspace_bytes": _L, "d2s_column_sums_workspace_bytes": _L,
-             "d2s_norm_launches": _L, "d2s_attention_bwd_launches": _L}
+             "d2s_norm_launches": _L, "d2s_attention_bwd_launches": _L,
+             "d2s_predictor_scratch_bytes": _L}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

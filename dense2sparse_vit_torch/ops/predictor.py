@@ -9,6 +9,11 @@ kernel and counts the launch, a `cpu` one that runs the plain version, and
 a fake one for `torch.export`); on the CPU under autograd the wrapper calls
 the differentiable plain version directly.
 
+`predictor_lg_split_reference` is a second plain version, of the algebra
+the kernel computes: the first output unit split into a per-token local
+half and a per-sample rank-1 global half (the kernel's notes). Only tests
+and `chip_smoke.py` call it.
+
 Weights are a dict:
   units: [(ln_w, ln_b, weight, bias), ...] for the input units, then the
     output units, each LayerNorm -> Linear -> act; LayerNorm parameters and
@@ -49,6 +54,54 @@ def predictor_lg_reference(x: torch.Tensor, w: dict, eps: float = 1e-5):
             c2 = h.shape[-1] // 2
             glob = h[..., c2:].float().mean(dim=1, keepdim=True).to(h.dtype)
             h = torch.cat([h[..., :c2], glob.expand(-1, h.shape[1], -1)], -1)
+    ln_w, ln_b, weight, bias = w["final"]
+    return linear(layer_norm(h, ln_w, ln_b, eps), weight, bias)[..., 0]
+
+
+def predictor_lg_split_reference(x: torch.Tensor, w: dict, eps: float = 1e-5):
+    """Plain torch version of the split form `csrc/predictor.cu` computes.
+
+    The input units as in `predictor_lg_reference`; then, with c2 = c / 2,
+    the pooled half g (each sample's mean of h[:, c2:], rounded to x.dtype)
+    and the first output unit as
+        out_0 = y @ W_top^T + r (t + (m_g - mu) u) + v
+        y = ((h_local - mu) r ln_w_top + ln_b_top), rounded to x.dtype
+        t = ((g - m_g) ln_w_bot) @ W_bot^T, u = ln_w_bot @ W_bot^T,
+        v = ln_b_bot @ W_bot^T + b
+    in fp32, where mu and r = 1/sqrt(var + eps) are the concat row's
+    LayerNorm statistics, combined from the local half's mean and squared
+    deviations and the sample's (m_g and the squared deviations of g about
+    it); the remaining units and the final one as the plain version. With
+    the split after the last unit there is no out_0, and the final unit
+    runs on the concat row as in the plain version, which this returns.
+    """
+    units, n_in, act = w["units"], w["n_in"], w["act"]
+    if n_in == len(units):
+        return predictor_lg_reference(x, w, eps)
+    dt = x.dtype
+    h = x
+    for ln_w, ln_b, weight, bias in units[:n_in]:
+        h = _act(linear(layer_norm(h, ln_w, ln_b, eps), weight, bias), act)
+    c = h.shape[-1]
+    c2, cg = c // 2, c - c // 2
+    loc = h[..., :c2].float()                                       # (B, N, c2)
+    glob = h[..., c2:].float().mean(dim=1).to(dt).float()           # (B, cg)
+    m_l = loc.mean(-1, keepdim=True)
+    q_l = (loc - m_l).square().sum(-1, keepdim=True)
+    m_g = glob.mean(-1, keepdim=True)[:, None]                      # (B, 1, 1)
+    q_g = (glob - m_g[:, 0]).square().sum(-1, keepdim=True)[:, None]
+    mu = (c2 * m_l + cg * m_g) / c
+    var = (q_l + q_g + c2 * (m_l - mu).square() + cg * (m_g - mu).square()) / c
+    r = torch.rsqrt(var + eps)
+    ln_w, ln_b, weight, bias = (t.float() for t in units[n_in])
+    w_top, w_bot = weight[:, :c2], weight[:, c2:]
+    y = ((loc - mu) * r * ln_w[:c2] + ln_b[:c2]).to(dt).float()
+    t = ((glob - m_g[:, 0]) * ln_w[c2:]) @ w_bot.t()                # (B, n0)
+    u = ln_w[c2:] @ w_bot.t()
+    v = ln_b[c2:] @ w_bot.t() + bias
+    h = _act((y @ w_top.t() + r * (t[:, None] + (m_g - mu) * u) + v).to(dt), act)
+    for ln_w, ln_b, weight, bias in units[n_in + 1:]:
+        h = _act(linear(layer_norm(h, ln_w, ln_b, eps), weight, bias), act)
     ln_w, ln_b, weight, bias = w["final"]
     return linear(layer_norm(h, ln_w, ln_b, eps), weight, bias)[..., 0]
 
@@ -127,15 +180,17 @@ def _launch_predictor(x: torch.Tensor, w: dict, eps: float):
         _cuda.ptr(fb, "final.bias", dev, f32, (1,)),
     ]
     n = len(units)
+    lib = _cuda.library()
+    c_widths = (ctypes.c_int * n)(*widths)
+    nbytes = lib.d2s_predictor_scratch_bytes(B, N, D, n, n_in, c_widths)
+    if nbytes < 0:
+        raise ValueError(f"fused_predictor_lg does not take B={B}, N={N}, D={D}, widths={widths}")
     scores = torch.empty((B, N), dtype=bf16, device=dev)
-    buf0 = torch.empty((B * N * max(widths),), dtype=bf16, device=dev)
-    buf1 = torch.empty_like(buf0)
-    stats = torch.empty((B * N, 2), dtype=f32, device=dev)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     arr = ctypes.c_void_p * n
-    err = _cuda.library().d2s_predictor_forward(
-        x.data_ptr(), x.stride(0), scores.data_ptr(), buf0.data_ptr(),
-        buf1.data_ptr(), stats.data_ptr(), B, N, D, n, n_in, (ctypes.c_int * n)(*widths),
-        arr(*ln_w), arr(*ln_b), arr(*mats), arr(*biases), *final,
+    err = lib.d2s_predictor_forward(
+        x.data_ptr(), x.stride(0), scores.data_ptr(), scratch.data_ptr(), nbytes, B, N, D, n,
+        n_in, c_widths, arr(*ln_w), arr(*ln_b), arr(*mats), arr(*biases), *final,
         _ACTS[act], float(eps), _cuda.stream_handle(dev),
     )
     _cuda.check(err, "d2s_predictor_forward")

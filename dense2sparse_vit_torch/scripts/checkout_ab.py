@@ -6,14 +6,16 @@
         --int8-times
     PYTHONPATH=CHECKOUT python ANY_CHECKOUT/dense2sparse_vit_torch/scripts/checkout_ab.py \\
         --attn-bwd-times
+    PYTHONPATH=CHECKOUT python ANY_CHECKOUT/dense2sparse_vit_torch/scripts/checkout_ab.py \\
+        --predictor-times
     python -m dense2sparse_vit_torch.scripts.checkout_ab --compare a.json b.json
 
 Run by its path, the script imports whichever `dense2sparse_vit_torch` is
 first on PYTHONPATH, so one copy of it measures any checkout whose entry
 points it calls (`ops.fused_transformer_block_int8` with its stages,
 `ops.gemm.ln_gemm` and `weight_grad`, `ops.fused_transformer_block` and its
-backward, `ops.fused_attention_backward_packed`); run both checkouts in one
-call. Every input is drawn on the CPU
+backward, `ops.fused_attention_backward_packed`, `ops.fused_predictor_lg`);
+run both checkouts in one call. Every input is drawn on the CPU
 from a fixed seed and then moved to the device, so two checkouts see the
 same values.
 
@@ -56,6 +58,18 @@ core's backward (kernels named `attention_bwd_kernel`, in any checkout),
 of the forward core it recomputes first (`attention_kernel`), of
 dPolicy's head sum (`sum_heads`) and the rest. Its last line names the
 package, the card and its power limit.
+
+`--predictor-times` prints, at B=256, D=384, N = 196, 137, 96 (the
+headline student's three stages), one JSON line per width for the small
+and the large PredictorLG (seeded, on the strided spatial view x[:, 1:]
+as the model passes it): `ops.fused_predictor_lg`'s ms per call by CUDA
+events (median of 5 runs of 10 calls) and replayed from a CUDA graph of 20
+calls (without the host's launch cost) and, from torch.profiler over 10
+calls, the device ms per call of the kernels it launches, by name:
+`predictor_kernel` (the fused kernel), or `gemm_kernel`, `ln_stats`,
+`pool_broadcast` and `final_score` (the chain of launches before it), the
+rest and the total. Its last line names the package, the card and its
+power limit.
 """
 
 from __future__ import annotations
@@ -210,6 +224,22 @@ def events_ms(fn, iters=10, repeats=5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, iters=20) -> float:
+    """Ms per call of `iters` calls captured in one CUDA graph and replayed
+    (median of 5 replays), warmed up first on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return events_ms(graph.replay, iters=1) / iters
+
+
 def device_ms(fn, iters=10, groups=GROUPS) -> dict:
     """Device ms per call of fn, by kernel-name group (`groups`, the first
     that a kernel's name holds, and "other")."""
@@ -292,6 +322,47 @@ def attn_bwd_times(device) -> None:
                       "card": card_name_and_power_limit()}), flush=True)
 
 
+# --predictor-times: the kernels fused_predictor_lg launches, in either design
+PREDICTOR_GROUPS = ("predictor_kernel", "gemm_kernel", "ln_stats", "pool_broadcast",
+                    "final_score")
+
+
+def seeded_predictor(D: int, small: bool, seed: int, device):
+    """A PredictorLG drawn on the CPU: matrices N(0, 1/fan_in), LayerNorm
+    scales 1 +- 0.1, biases 0.1 N(0, 1)."""
+    from dense2sparse_vit_torch.nn.predictor import PredictorLG
+
+    pred = PredictorLG(D, small_predictor=small)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in pred.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if p.dim() == 2:
+                p.copy_(r * p.shape[1] ** -0.5)
+            elif name.endswith("weight"):
+                p.copy_(1 + 0.1 * r)
+            else:
+                p.copy_(0.1 * r)
+    return pred.to(device).eval()
+
+
+def predictor_times(device) -> None:
+    B, D = 256, 384
+    gen = torch.Generator().manual_seed(15)
+    xs = {n: randn(gen, (B, n + 1, D), device)[:, 1:] for n in (196, 137, 96)}
+    with torch.inference_mode():
+        for small in (True, False):
+            w = seeded_predictor(D, small, 15 + small, device).kernel_weights(torch.bfloat16)
+            for n, x in xs.items():
+                fn = lambda: ops.fused_predictor_lg(x, w)  # noqa: E731
+                print(json.dumps({"N": n, "B": B, "D": D, "small": small, "ms": events_ms(fn),
+                                  "graph_ms": graph_ms(fn),
+                                  "device_ms": device_ms(fn, groups=PREDICTOR_GROUPS)}),
+                      flush=True)
+    print(json.dumps({"package": dense2sparse_vit_torch.__file__,
+                      "card": card_name_and_power_limit()}), flush=True)
+
+
 def compare(a: dict, b: dict) -> int:
     differ = 0
     for case, d in a["digests"].items():
@@ -309,21 +380,29 @@ def main(argv=None) -> int:
     ap.add_argument("--bits", metavar="OUT")
     ap.add_argument("--int8-times", action="store_true")
     ap.add_argument("--attn-bwd-times", action="store_true")
+    ap.add_argument("--predictor-times", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if not (args.bits or args.int8_times or args.attn_bwd_times or args.compare):
-        ap.error("give --bits OUT, --int8-times, --attn-bwd-times or --compare A B")
+    timing = args.int8_times or args.attn_bwd_times or args.predictor_times
+    if not (args.bits or timing or args.compare):
+        ap.error("give --bits OUT, --int8-times, --attn-bwd-times, --predictor-times or "
+                 "--compare A B")
     if args.compare:
         with open(args.compare[0]) as fa, open(args.compare[1]) as fb:
             return compare(json.load(fa), json.load(fb))
     if args.device != "cpu" and not torch.cuda.is_available():
         raise SystemExit("checkout_ab needs a CUDA device (or --device cpu for --bits)")
     device = torch.device(args.device)
-    if args.int8_times or args.attn_bwd_times:
+    if timing:
         if device.type != "cuda":
-            raise SystemExit("--int8-times and --attn-bwd-times time the card")
-        (int8_times if args.int8_times else attn_bwd_times)(device)
+            raise SystemExit("--int8-times, --attn-bwd-times and --predictor-times time the card")
+        if args.int8_times:
+            int8_times(device)
+        elif args.attn_bwd_times:
+            attn_bwd_times(device)
+        else:
+            predictor_times(device)
         return 0
     result = measure(device)
     with open(args.bits, "w") as f:

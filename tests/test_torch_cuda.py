@@ -37,7 +37,8 @@ from dense2sparse_vit_torch.ops.block import attention_reference
 from dense2sparse_vit_torch.ops.gather import gather_tokens_reference, scatter_tokens_reference
 from dense2sparse_vit_torch.ops.mlp import (
     mlp_residual_backward_reference, mlp_residual_reference)
-from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
+from dense2sparse_vit_torch.ops.predictor import (
+    predictor_lg_reference, predictor_lg_split_reference)
 from dense2sparse_vit_torch.ops.quant import quant_block_reference, quantize_rows
 from dense2sparse_vit_torch.train import make_optimizer, make_train_step
 from dense2sparse_vit_torch.ops import _cuda
@@ -305,6 +306,72 @@ def test_predictor_kernel_on_spatial_view(cuda, d, small, n):
         want = predictor_lg_reference(x[:, 1:], w)
         torch.cuda.synchronize()
     _assert_close(got, want)
+
+
+# B=1 and 3; N whose samples end inside a 64- or 128-row tile (13: up to
+# eleven samples in one tile; 61, 150); the large predictor at D=768 with
+# its chunked 1536-wide inputs
+PREDICTOR_CASES = [
+    (384, True, 1, 196), (384, True, 3, 137), (384, False, 3, 96), (384, True, 5, 13),
+    (384, False, 2, 61), (384, True, 7, 150), (768, False, 3, 50), (768, False, 1, 13),
+]
+
+
+@pytest.mark.parametrize("d,small,b,n", PREDICTOR_CASES)
+def test_predictor_kernel_against_both_plain_versions(cuda, d, small, b, n):
+    """The kernel against the plain version and the plain split form it
+    computes, two launches bit-equal, one launch counted per call."""
+    pred = _sharpen(PredictorLG(d, small_predictor=small), seed=b * n).to(cuda).eval()
+    x = torch.randn((b, n + 1, d), generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        w = pred.kernel_weights(torch.bfloat16)
+        before = ops.fused_predictor_lg.launches
+        got = ops.fused_predictor_lg(x[:, 1:], w)
+        again = ops.fused_predictor_lg(x[:, 1:], w)
+        torch.cuda.synchronize()
+        assert ops.fused_predictor_lg.launches == before + 2
+        assert torch.equal(got, again)
+        _assert_close(got, predictor_lg_reference(x[:, 1:], w))
+        _assert_close(got, predictor_lg_split_reference(x[:, 1:], w))
+
+
+def _predictor_weights(d, widths, n_in, act, seed, device):
+    """PredictorLG weights at any widths, drawn on the CPU: matrices
+    N(0, 1/fan_in), LayerNorm scales 1 +- 0.1, biases 0.1 N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def unit(c_in, c_out):
+        return (1 + 0.1 * torch.randn(c_in, generator=g), 0.1 * torch.randn(c_in, generator=g),
+                (torch.randn((c_out, c_in), generator=g) / c_in ** 0.5).to(torch.bfloat16),
+                0.1 * torch.randn(c_out, generator=g))
+
+    ins = (d, *widths[:-1])
+    units = [tuple(t.to(device) for t in unit(a, b)) for a, b in zip(ins, widths)]
+    final = tuple(t.to(device) for t in unit(widths[-1], 1))
+    return {"units": units, "n_in": n_in, "final": final, "act": act}
+
+
+# Shapes no model builds that the kernel takes: the split after the last
+# unit (the final unit on the concat row), and a split width c = 8 mod 16,
+# whose local half c / 2 ends inside an 8-column vector (with and without
+# an output unit after it)
+@pytest.mark.parametrize("d,widths,n_in,act,b,n", [
+    (384, (384, 192, 96), 3, "gelu", 3, 137), (40, (40, 24, 16), 1, "gelu", 5, 13),
+    (48, (24, 32, 8), 1, "relu", 2, 61), (40, (40,), 1, "relu", 3, 29),
+])
+def test_predictor_kernel_takes_a_split_after_the_last_unit_or_inside_a_vector(
+        cuda, d, widths, n_in, act, b, n):
+    w = _predictor_weights(d, widths, n_in, act, seed=b * n, device=cuda)
+    x = torch.randn((b, n + 1, d), generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = ops.fused_predictor_lg(x[:, 1:], w)
+        again = ops.fused_predictor_lg(x[:, 1:], w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, predictor_lg_reference(x[:, 1:], w))
+        _assert_close(got, predictor_lg_split_reference(x[:, 1:], w))
 
 
 def test_student_forward_launches_every_kernel(cuda):

@@ -32,6 +32,10 @@ from dense2sparse_vit_tpu.ops.topk import topk_keep_indices as jax_topk
 from dense2sparse_vit_torch.nn.layers import Block
 from dense2sparse_vit_torch.nn.predictor import PredictorLG
 from dense2sparse_vit_torch.ops.gather import fused_gather_tokens
+from dense2sparse_vit_torch.ops.predictor import (
+    predictor_lg_reference,
+    predictor_lg_split_reference,
+)
 from dense2sparse_vit_torch.ops.topk import topk_keep_indices
 from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 
@@ -189,16 +193,19 @@ class TestPredictor:
     # N=13, D=64; tolerance 1e-4 (fp32, LayerNorm folding in the TPU kernel)
     B, N, D = 2, 13, 64
 
-    @pytest.mark.parametrize("small", [True, False])
-    @pytest.mark.parametrize("use_fused", [False, True])
-    def test_matches_flax_module_and_pallas_kernel(self, small, use_fused):
+    def _predictor(self, small, n, offset=0.0):
+        """Inputs drawn with numpy, the flax module and its weights (the
+        first unit's bias shifted by `offset`), the JAX module's scores and
+        the Pallas kernel's (interpret mode), and the port's module carrying
+        the same weights (`state_dict_from_jax`)."""
         x = np.random.default_rng(6).standard_normal(
-            (self.B, self.N, self.D)).astype(np.float32)
+            (self.B, n, self.D)).astype(np.float32)
         mod = JaxPredictorLG(embed_dim=self.D, small_predictor=small)
         params = random_like_tree(
             jax.eval_shape(mod.init, jax.random.PRNGKey(7), jnp.asarray(x))["params"],
             seed=8,
         )
+        params["in_0"]["dense"]["bias"] = params["in_0"]["dense"]["bias"] + np.float32(offset)
         want_scores, want_probs = mod.apply({"params": params}, jnp.asarray(x))
         want_kernel = jax_fused_predictor(
             jnp.asarray(x), params, act="gelu" if small else "relu",
@@ -206,6 +213,12 @@ class TestPredictor:
         )
         sd = state_dict_from_jax({"score_predictor_0": params})
         sd = {k[len("score_predictor.0."):]: v for k, v in sd.items()}
+        return x, want_scores, want_probs, want_kernel, sd
+
+    @pytest.mark.parametrize("small", [True, False])
+    @pytest.mark.parametrize("use_fused", [False, True])
+    def test_matches_flax_module_and_pallas_kernel(self, small, use_fused):
+        x, want_scores, want_probs, want_kernel, sd = self._predictor(small, self.N)
         port = load_numpy_state(
             PredictorLG(self.D, small_predictor=small, use_fused=use_fused), sd
         ).eval()
@@ -217,6 +230,71 @@ class TestPredictor:
             scores.numpy(), np.asarray(want_kernel), atol=1e-4, rtol=1e-4)
         np.testing.assert_allclose(
             probs.numpy(), np.asarray(want_probs), atol=1e-5, rtol=1e-4)
+
+    @pytest.mark.parametrize("small", [True, False])
+    @pytest.mark.parametrize("n", [13, 29])
+    def test_split_form_matches_flax_module_and_pallas_kernel(self, small, n):
+        """The algebra of the CUDA kernel's tail (out_0 split into a local
+        product and a per-sample rank-1 global term, the concat row's
+        statistics combined from the two halves) gives the flax module's and
+        the TPU kernel's scores at ragged N."""
+        x, want_scores, _, want_kernel, sd = self._predictor(small, n)
+        port = load_numpy_state(PredictorLG(self.D, small_predictor=small), sd).eval()
+        with torch.no_grad():
+            got = predictor_lg_split_reference(
+                torch.from_numpy(x), port.kernel_weights(torch.float32)).numpy()
+        np.testing.assert_allclose(got, np.asarray(want_scores), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(got, np.asarray(want_kernel), atol=1e-4, rtol=1e-4)
+
+    def test_split_form_exact_where_the_folded_form_cancels(self):
+        """A head whose outputs sit near 300 with a spread near 1 (|mean| >>
+        std in every concat row). Against the plain version in float64 (the
+        function's true values), the split form in fp32, which normalises
+        the local half about the row's own mean and takes the pooled half
+        about its own, stays within 1e-4 of the scores' scale; the TPU
+        kernel's folded form (the one-pass variance E[h^2] - mu^2, the
+        LayerNorm folded into the weights) misses by more than ten times
+        that."""
+        x, _, _, want_kernel, sd = self._predictor(True, self.N, offset=300.0)
+        port = load_numpy_state(PredictorLG(self.D, small_predictor=True), sd).eval()
+        with torch.no_grad():
+            got = predictor_lg_split_reference(
+                torch.from_numpy(x), port.kernel_weights(torch.float32)).numpy()
+            port.double()
+            truth = predictor_lg_reference(
+                torch.from_numpy(x).double(), port.kernel_weights(torch.float64)).numpy()
+        tol = 1e-4 * np.abs(truth).max()
+        assert np.abs(got - truth).max() <= tol
+        assert np.abs(np.asarray(want_kernel, np.float64) - truth).max() > 10 * tol
+
+    # a split width c = 8 mod 16 (c / 2 = 20 and 12) with an output unit
+    # after it, and the split after the last unit
+    @pytest.mark.parametrize("d,widths,n_in", [
+        (40, (40, 24, 16), 1), (48, (24, 32, 8), 1), (40, (40, 24), 2)])
+    def test_split_form_at_a_split_inside_a_vector_or_after_the_last_unit(
+            self, d, widths, n_in):
+        """The split form against the plain version in float64 at shapes no
+        model builds, which the CUDA kernel takes: weights and inputs drawn
+        with numpy, tolerance 1e-4 of the scores' scale."""
+        rng = np.random.default_rng(len(widths) * d)
+
+        def unit(c_in, c_out):
+            return [torch.from_numpy(a) for a in (
+                1 + 0.1 * rng.standard_normal(c_in), 0.1 * rng.standard_normal(c_in),
+                rng.standard_normal((c_out, c_in)) / c_in ** 0.5,
+                0.1 * rng.standard_normal(c_out))]
+
+        units = [unit(a, b) for a, b in zip((d, *widths[:-1]), widths)]
+        final = unit(widths[-1], 1)
+        x = torch.from_numpy(rng.standard_normal((self.B, self.N, d)))
+
+        def weights(dt):
+            return {"units": [tuple(t.to(dt) for t in u) for u in units], "n_in": n_in,
+                    "final": tuple(t.to(dt) for t in final), "act": "gelu"}
+
+        got = predictor_lg_split_reference(x.float(), weights(torch.float32))
+        truth = predictor_lg_reference(x, weights(torch.float64))
+        assert (got.double() - truth).abs().max() <= 1e-4 * truth.abs().max()
 
 
 def test_port_imports_no_jax():

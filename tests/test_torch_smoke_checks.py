@@ -940,3 +940,55 @@ def test_wgmma_notices_count_injected_fences_and_catch_serialization():
         ATTN_BWD_POLICY: {"injected_arrive": 0, "serialized": [serial]}}
     assert chip_smoke.wgmma_notices(log, "11gemm_kernel") == {
         BF16_NK: {"injected_arrive": 1, "serialized": []}}
+
+
+def _predictor_case(small):
+    """A bf16 predictor (seeded, as `checkout_ab.seeded_predictor` draws
+    them) and its strided spatial input."""
+    from dense2sparse_vit_torch.scripts.checkout_ab import seeded_predictor
+
+    x = torch.randn((4, 14, 64), generator=torch.Generator().manual_seed(31)).to(torch.bfloat16)
+    w = seeded_predictor(64, small, 31, torch.device("cpu")).kernel_weights(torch.bfloat16)
+    return x[:, 1:], w
+
+
+@pytest.mark.parametrize("small", [True, False])
+def test_check_predictor_passes_the_plain_versions(capsys, small):
+    xs, w = _predictor_case(small)
+    with torch.inference_mode():
+        scores, err = chip_smoke.check_predictor(torch, xs, w, "case", "predictor")
+    line = _last_line(capsys)
+    assert line["bit_equal"] and line["max_abs_err"] == 0.0
+    assert line["split_max_abs_err"] <= chip_smoke.STAGE_TOL * line["max_abs_ref"]
+    assert scores.shape == xs.shape[:2] and err == line["split_max_abs_err"]
+
+
+@pytest.mark.parametrize("fault", ["next_sample_pool", "launches_differ"])
+def test_check_predictor_rejects_a_wrong_pool_and_unequal_launches(monkeypatch, fault):
+    """Phase 3's and 31's predictor check rejects the planted fault's effect
+    (each sample's pooled half taken from the next sample, simulated on the
+    plain split form) and two launches whose scores differ."""
+    from dense2sparse_vit_torch.ops.predictor import predictor_lg_split_reference
+
+    xs, w = _predictor_case(True)
+    calls = []
+
+    def faulty(x, weights, eps=1e-5):
+        calls.append(1)
+        if fault == "launches_differ":
+            out = predictor_lg_split_reference(x, weights, eps)
+            return out if len(calls) == 1 else out + 2 ** -6 * out.abs().max()
+        mean = torch.Tensor.mean
+
+        def next_sample(t, *args, **kwargs):
+            out = mean(t, *args, **kwargs)
+            return out.roll(-1, 0) if kwargs.get("dim") == 1 else out
+
+        with monkeypatch.context() as m:
+            m.setattr(torch.Tensor, "mean", next_sample)
+            return predictor_lg_split_reference(x, weights, eps)
+
+    monkeypatch.setattr(ops, "fused_predictor_lg", faulty)
+    with torch.inference_mode(), pytest.raises(AssertionError,
+                                               match=chip_smoke.FAULTS["predictor"][3]):
+        chip_smoke.check_predictor(torch, xs, w, "case", "predictor")
