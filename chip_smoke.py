@@ -177,7 +177,28 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  predictors and a seeded large one: `check_predictor` at
                  each, then the profiler's device time and a CUDA graph's
                  time beside the plain version and the plain split form
-                 (CUDA graphs) and its bound.
+                 (CUDA graphs) and its bound;
+ 32. train_loop  the training entry point, `cli.parse_config` ->
+                 `train.loop.run_experiment`, on the headline student at
+                 B=128 with 2 spawned decode workers over a synthetic
+                 folder of 720 JPEGs (12 classes, sides 256-400 px, from a
+                 numpy seed; 576 train and 144 val images): (a) the default
+                 recipe (RandAugment, random erasing 0.25, mixup 0.8, cutmix
+                 1.0) with --epochs 3, preempted after 2 epochs of 4 steps,
+                 each step's launches PER_TRAIN_STEP, no synchronizing CUDA
+                 operation in a step or the batch's finish, each eval 128 +
+                 16 valid rows (112 padded), every logged number finite,
+                 best/ and latest/ written; (e, f) --eval-only with
+                 --export-serving on its workdir, the artifact against the
+                 best checkpoint's live model; (b) --resume of its third
+                 epoch, bit-equal to a straight 3-epoch run (parameters,
+                 moments, counts, best metric); (c) --teacher-cache, resident
+                 on the card with its images, each step PER_CACHED_TRAIN_STEP,
+                 and a cached step's loss against a live-teacher step's
+                 within CACHE_LOSS_TOL; (d) --grad-accum-steps 2, the
+                 parameters moving on every second micro-step alone. Prints
+                 the loop's train_img_per_s beside the bare step's rate
+                 (phase 5's `build_trainer`) and the host's decode ms a batch.
 The build phase fails if ptxas reports a spill in a GEMM kernel or in
 attention_bwd_kernel, or reports on no int8 one, or if it serializes
 attention_bwd_kernel's wgmma products; it prints that kernel's C75xx
@@ -3923,6 +3944,450 @@ def phase_predictor(torch, dev, pred_cases, tally, smi):
                       "card": smi})
 
 
+# ---- 32. the training entry point: CLI -> run_experiment --------------------
+
+LOOP_CLASSES, LOOP_IMAGES, LOOP_SIDES = 12, 60, (256, 400)  # 720 JPEGs: 576 train, 144 val
+LOOP_BATCH, LOOP_WORKERS, LOOP_STEPS = 128, 2, 4
+# the headline student through the CLI, with the default recipe (RandAugment,
+# random erasing 0.25, mixup 0.8, cutmix 1.0); the backbone trains from
+# epoch 1
+LOOP_FLAGS = ("--arch deit_small --dtype bfloat16 --pruning-locs 3 6 9 --keep-ratios 0.7 0.49 "
+              "0.343 --small-predictor --topk-selection --use-fused-attention --batch-size 128 "
+              "--warmup-steps 1 --seed 0").split()
+# a cached step: PER_TRAIN_STEP without the teacher's 12 CLS-row blocks
+PER_CACHED_TRAIN_STEP = {**PER_TRAIN_STEP, "fused_transformer_block_cls": 0}
+LOOP_EVAL_ROWS = (128, 16)  # the valid rows of each eval batch (the second padded by 112)
+# a cached step's loss against a live-teacher step's on the same batch and
+# weights, relative: the cache stores the teacher's rows in bf16
+CACHE_LOSS_TOL = 1e-2
+BARE_STEPS = 5
+
+
+def write_image_folder(root, classes=LOOP_CLASSES, images=LOOP_IMAGES, sides=LOOP_SIDES,
+                       seed=0) -> int:
+    """A class-per-folder JPEG set from a numpy seed: `classes` folders of
+    `images` images, each side in [sides[0], sides[1]]; returns the count."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for c in range(classes):
+        d = os.path.join(root, f"class_{c:02d}")
+        os.makedirs(d, exist_ok=True)
+        for i in range(images):
+            h, w = (int(v) for v in rng.integers(sides[0], sides[1] + 1, 2))
+            # smooth colour fields plus noise: JPEG-like content, not pure noise
+            base = rng.integers(0, 256, (1, 1, 3)).astype(np.float32)
+            ramp = np.linspace(0, 1, w, dtype=np.float32)[None, :, None] * rng.integers(
+                -128, 128, (1, 1, 3)).astype(np.float32)
+            noise = rng.normal(0, 24, (h, w, 3)).astype(np.float32)
+            arr = np.clip(base + ramp + noise, 0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(os.path.join(d, f"{i:04d}.jpg"), quality=90)
+    return classes * images
+
+
+def loop_config(root, *extra):
+    """(cfg, args) of the CLI for LOOP_FLAGS + `extra` over `root`, with
+    LOOP_WORKERS decode processes (the CLI has no flag for them)."""
+    from dense2sparse_vit_torch import cli
+
+    cfg, args = cli.parse_config([*LOOP_FLAGS, "--imgnet-val-dir", root, *extra])
+    return cfg.replace(data=cfg.data.replace(num_workers=LOOP_WORKERS)), args
+
+
+class Preempted(Exception):
+    """Raised in place of a train step, as a preempted job stops."""
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class LoopSpy:
+    """Wraps the training loop's step factories: per train step the kernel
+    launches it made (and, with `track`, whether any parameter of the
+    student moved), per eval step its launches and valid rows. With
+    `stop_after`, the train step after that many raises Preempted. With
+    `count_syncs`, every train step and the loop's per-step finish of the
+    batch (normalize, random erasing, mixup) run under
+    torch.cuda.set_sync_debug_mode("warn"), and `syncs` counts the
+    synchronizing operations it reports there."""
+
+    def __init__(self, torch, track=False, stop_after=None, count_syncs=False):
+        self.torch, self.track, self.stop_after = torch, track, stop_after
+        self.count_syncs, self.syncs, self.sync_sites = count_syncs, 0, {}
+        self.steps, self.moved, self.evals, self.valid = [], [], [], []
+
+    def __enter__(self):
+        from dense2sparse_vit_torch import ops
+        from dense2sparse_vit_torch.train import loop
+
+        self.loop, self.ops = loop, ops
+        names = ("make_train_step", "make_eval_step", "device_normalize",
+                 "device_random_erasing", "Mixup")
+        self.saved = {n: getattr(loop, n) for n in names}
+        loop.make_train_step = self._train(self.saved["make_train_step"])
+        loop.make_eval_step = self._eval(self.saved["make_eval_step"])
+        if self.count_syncs:
+            loop.device_normalize = self._synced(self.saved["device_normalize"])
+            loop.device_random_erasing = self._synced(self.saved["device_random_erasing"])
+            spy, mixup = self, self.saved["Mixup"]
+
+            class CountedMixup(mixup):
+                def __call__(self, *args):
+                    return spy._synced(super().__call__)(*args)
+            loop.Mixup = CountedMixup
+        return self
+
+    def _synced(self, fn):
+        import warnings
+
+        def run(*args, **kw):
+            if not self.count_syncs:
+                return fn(*args, **kw)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                self.torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.torch.cuda.set_sync_debug_mode(0)
+                    for w in caught:
+                        if SYNC_WARNING in str(w.message):
+                            self.syncs += 1
+                            site = f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+                            self.sync_sites[site] = self.sync_sites.get(site, 0) + 1
+        return run
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.loop, n, fn)
+
+    def _delta(self, before):
+        after = self.ops.launch_counts()
+        return {k: after[k] - before[k] for k in after}
+
+    def _train(self, real):
+        def build(student, *a, **k):
+            step = real(student, *a, **k)
+
+            def counted(*args, **kw):
+                if self.stop_after is not None and len(self.steps) >= self.stop_after:
+                    raise Preempted(f"after {self.stop_after} steps")
+                prev = ([p.detach().clone() for p in student.parameters()]
+                        if self.track else None)
+                before = self.ops.launch_counts()
+                out = self._synced(step)(*args, **kw)
+                self.steps.append(self._delta(before))
+                if self.track:
+                    self.moved.append(any(not self.torch.equal(p, q)
+                                          for p, q in zip(student.parameters(), prev)))
+                return out
+            return counted
+        return build
+
+    def _eval(self, real):
+        def build(*a, **k):
+            step = real(*a, **k)
+
+            def counted(images, labels):
+                before = self.ops.launch_counts()
+                out = step(images, labels)
+                self.evals.append(self._delta(before))
+                self.valid.append(int((labels >= 0).sum()))
+                return out
+            return counted
+        return build
+
+
+def loop_records(workdir) -> list:
+    import os
+
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def check_loop_metrics(records, what) -> None:
+    """Every logged number finite."""
+    bad = [(r["step"], k) for r in records for k, v in r.items()
+           if isinstance(v, float) and (v != v or abs(v) == float("inf"))]
+    if bad or not records:
+        raise AssertionError(f"{what}: non-finite metrics {bad[:8]} ({len(records)} records)")
+
+
+def check_step_launches(deltas, expected, what) -> None:
+    """Each step's launches per kernel equal `expected`."""
+    bad = [(i, d) for i, d in enumerate(deltas) if d != expected]
+    if bad or not deltas:
+        raise AssertionError(f"{what}: steps {[i for i, _ in bad]} launched "
+                             f"{bad[0][1] if bad else None}, expected {expected} "
+                             f"({len(deltas)} steps)")
+
+
+def compare_states(torch, a: dict, b: dict) -> dict:
+    """Two state_dicts: their keys equal, and per tensor the max abs
+    difference; bit_equal where every tensor is equal bit for bit."""
+    if set(a) != set(b):
+        raise AssertionError(f"state_dict keys differ: {sorted(set(a) ^ set(b))[:8]}")
+    diffs = {k: (a[k].float() - b[k].float()).abs().max().item() if a[k].numel() else 0.0
+             for k in a if not torch.equal(a[k], b[k])}
+    return {"bit_equal": not diffs, "differ": sorted(diffs),
+            "max_abs_diff": max(diffs.values(), default=0.0)}
+
+
+def check_resume(torch, straight: dict, resumed: dict, best: tuple) -> dict:
+    """The last checkpoints of a straight run and of a resumed one: the
+    student's parameters bit for bit, the optimizer's update count, its
+    moments and the micro-step count equal, and the best metrics `best`
+    (straight, resumed) equal."""
+    student = compare_states(torch, straight["student"], resumed["student"])
+    sa, sb = straight["optimizer"], resumed["optimizer"]
+    moments = compare_states(
+        torch, {f"{i}.{k}": v for i, s in sa["state"].items() for k, v in s.items()},
+        {f"{i}.{k}": v for i, s in sb["state"].items() for k, v in s.items()})
+    out = {"student": student, "moments": moments,
+           "count": (sa["schedule"]["count"], sb["schedule"]["count"]),
+           "step": (straight["step"], resumed["step"]), "best_metric": best}
+    if (not student["bit_equal"] or not moments["bit_equal"] or out["count"][0] != out["count"][1]
+            or out["step"][0] != out["step"][1] or best[0] != best[1]):
+        raise AssertionError(f"the resumed run differs from the straight one: {out}")
+    return out
+
+
+def host_decode_ms(torch, cfg, reps=2) -> dict:
+    """In-process ms per LOOP_BATCH batch: JPEG decode with the train
+    transform (RandomResizedCrop, flip, RandAugment) and with the eval view."""
+    from dense2sparse_vit_torch.data import ImageFolder, eval_transform, train_transform
+    from dense2sparse_vit_torch.data.pipeline import _load_batch
+
+    out = {}
+    for name, tf in (("train", train_transform(cfg.data, as_uint8=True)),
+                     ("eval", eval_transform(cfg.data, normalize=False))):
+        ds = ImageFolder(cfg.data.imgnet_val_dir, tf)
+        times = []
+        for r in range(reps):
+            t0 = time.perf_counter()
+            _load_batch(range(r * LOOP_BATCH, (r + 1) * LOOP_BATCH), 0, 0, ds)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    return out
+
+
+def bare_step_img_per_s(torch, dev) -> float:
+    """Phase 5's `build_trainer`: the headline train step on a resident B=128
+    batch, wall clock per step over BARE_STEPS steps after one."""
+    student, teacher, step = build_trainer(torch, dev, fused=True)
+    images, labels = train_batch(torch, dev)
+    step(images, labels, TRAIN_EPOCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BARE_STEPS):
+        step(images, labels, TRAIN_EPOCH)
+    torch.cuda.synchronize()
+    return BARE_STEPS * B_TRAIN / (time.perf_counter() - t0)
+
+
+def cached_step_against_live(torch, dev, cfg, root) -> dict:
+    """One cached and one live-teacher step from the same weights on the
+    same eval-view batch (the loop's seeds): their losses within
+    CACHE_LOSS_TOL, relative, and the cached step's launches
+    PER_CACHED_TRAIN_STEP."""
+    import copy
+
+    import numpy as np
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import DiffPruningStudent, ViTTeacher
+    from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+    from dense2sparse_vit_torch.train.teacher_cache import make_teacher_outputs_fn
+
+    seed = cfg.train.seed
+    xb, yb = host_batch(torch, cfg, root, dev, "train")
+    student = DiffPruningStudent(cfg.model, cfg.pruning).init_weights(
+        torch.Generator().manual_seed(seed)).to(dev)
+    teacher = ViTTeacher(cfg.model).init_weights(torch.Generator().manual_seed(seed + 1)).to(dev)
+    rows = make_teacher_outputs_fn(teacher, cfg)(xb)
+    losses, counts = {}, {}
+    for mode in ("cached", "live"):
+        s = copy.deepcopy(student)
+        step = make_train_step(s, teacher, make_optimizer(s, cfg.train, LOOP_STEPS), cfg,
+                               cached_teacher=mode == "cached")
+        ops.reset_launch_counts()
+        m = step(xb, yb, cfg.train.warmup_epochs, teacher_in=rows if mode == "cached" else None,
+                 generator=torch.Generator(device=dev).manual_seed(0))
+        counts[mode] = ops.launch_counts()
+        losses[mode] = {k: v.item() for k, v in m.items()}
+    rel = abs(losses["cached"]["loss"] - losses["live"]["loss"]) / abs(losses["live"]["loss"])
+    out = {"loss": {k: v["loss"] for k, v in losses.items()}, "rel_diff": rel,
+           "tol_rel": CACHE_LOSS_TOL,
+           "token_kl": {k: v["token_kl_loss"] for k, v in losses.items()}}
+    if counts["cached"] != PER_CACHED_TRAIN_STEP or counts["live"] != PER_TRAIN_STEP:
+        raise AssertionError(f"cached/live step launches {counts}")
+    if not np.isfinite(rel) or rel > CACHE_LOSS_TOL:
+        raise AssertionError(f"cached step's loss against the live one's: {out}")
+    return out
+
+
+def phase_train_loop(torch, dev, tally, smi):
+    """Phase 32: the training entry point, `cli.parse_config` ->
+    `train.loop.run_experiment`, on the headline student at B=128 with
+    LOOP_WORKERS spawned decode processes, over a synthetic JPEG folder
+    (`write_image_folder`: 576 train and 144 val images after the 80/20
+    split). Runs: (a) the default recipe with --epochs 3, preempted after
+    2 epochs of 4 steps (`LoopSpy`'s stop_after: the step that would be the
+    ninth raises); (e, f) --eval-only with --export-serving on (a)'s
+    workdir; (b) --resume of the third epoch there, against (b') a straight
+    3-epoch run; (c)
+    --teacher-cache without mixup and cutmix; (d) --grad-accum-steps 2.
+    The main path's launches are (a)'s, whose steps and per-step batch
+    finish must make no synchronizing CUDA operation (`LoopSpy`)."""
+    import os
+    import tempfile
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.data import device_normalize
+    from dense2sparse_vit_torch.models import DiffPruningStudent
+    from dense2sparse_vit_torch.train.loop import run_experiment
+    from dense2sparse_vit_torch.utils.checkpoint import CheckpointManager
+    from dense2sparse_vit_torch.utils.serving import ServingModel
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_loop_")
+    root = os.path.join(tmp.name, "images")
+    t0 = time.perf_counter()
+    n = write_image_folder(root, LOOP_CLASSES, LOOP_IMAGES, LOOP_SIDES)
+    emit({"phase": "train_loop", "images": n, "classes": LOOP_CLASSES, "sides": LOOP_SIDES,
+          "decode": "PIL JPEG", "write_seconds": round(time.perf_counter() - t0, 3)})
+    cfg, _ = loop_config(root)
+    decode = host_decode_ms(torch, cfg)
+    emit({"phase": "train_loop", "host_decode_ms_per_batch": decode, "batch": LOOP_BATCH,
+          "card": smi})
+    bare = bare_step_img_per_s(torch, dev)
+    torch.cuda.empty_cache()
+
+    def run(name, extra=(), track=False, expect_step=PER_TRAIN_STEP, stop_after=None,
+            count_syncs=False):
+        cfg, args = loop_config(root, *extra)
+        workdir = os.path.join(tmp.name, name)
+        seen = len(loop_records(workdir)) if os.path.exists(workdir) else 0
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        summary = "preempted"
+        with LoopSpy(torch, track, stop_after, count_syncs) as spy:
+            try:
+                summary = run_experiment(cfg, workdir, device=dev,
+                                         resume=args.resume or args.eval_only,
+                                         eval_only=args.eval_only,
+                                         export_serving=args.export_serving)
+            except Preempted:
+                if stop_after is None:
+                    raise
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        records = loop_records(workdir)[seen:]
+        check_loop_metrics(records, name)
+        rates = [r["time/train_img_per_s"] for r in records if "time/train_img_per_s" in r]
+        emit({"phase": "train_loop", "run": name, "flags": list(extra),
+              "seconds": round(time.perf_counter() - t, 3), "summary": summary,
+              "train_steps": len(spy.steps), "params_moved": spy.moved,
+              "syncs_in_steps": spy.syncs if count_syncs else None,
+              "eval_valid_rows": spy.valid, "train_img_per_s": rates, "launches": counts,
+              "card": smi})
+        k = len(LOOP_EVAL_ROWS)
+        if not spy.valid or any(tuple(spy.valid[i:i + k]) != LOOP_EVAL_ROWS
+                                for i in range(0, len(spy.valid), k)):
+            raise AssertionError(f"{name}: eval valid rows {spy.valid}, expected {LOOP_EVAL_ROWS}"
+                                 " per eval")
+        check_step_launches(spy.evals, PER_EVAL_STEP["topk"], f"{name} eval")
+        if not args.eval_only:
+            check_step_launches(spy.steps, expect_step, f"{name} train")
+        return workdir, spy, counts, rates, summary
+
+    # (a) the default recipe, a 3-epoch run preempted after its second
+    # epoch: the main path's launches
+    a_dir, spy, counts, rates_a, _ = run("default", ("--epochs", "3"),
+                                         stop_after=2 * LOOP_STEPS, count_syncs=True)
+    if len(spy.steps) != 2 * LOOP_STEPS or len(spy.valid) != 2 * len(LOOP_EVAL_ROWS):
+        raise AssertionError(f"default recipe: {len(spy.steps)} steps, evals {spy.valid}")
+    if spy.syncs:
+        raise AssertionError(f"default recipe: {spy.syncs} synchronizing operations in the "
+                             f"steps and the batch finish, at {spy.sync_sites}")
+    for stream in ("best", "latest"):
+        if not os.listdir(os.path.join(a_dir, "ckpt", stream)):
+            raise AssertionError(f"default recipe: no checkpoint in {stream}/")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    # (e, f) --eval-only and --export-serving on (a)'s workdir: the artifact
+    # against the best checkpoint's live model on one val batch
+    export_dir = os.path.join(tmp.name, "serving")
+    run("default", ("--eval-only", "--export-serving", export_dir))
+    best = CheckpointManager(os.path.join(a_dir, "ckpt")).restore_best(map_location=dev)
+    live = DiffPruningStudent(cfg.model, cfg.pruning).to(dev)
+    live.load_state_dict(best["student"])
+    live.eval()
+    images, _ = host_batch(torch, cfg, root, dev)
+    x = device_normalize(images, cfg.data)
+    with torch.no_grad():
+        want = live(x.to(torch.bfloat16), collect_cls_attns=False).logits.float()
+    got = ServingModel.load(export_dir)(x)
+    err, scale = rel_err(torch, got, want)
+    top1 = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    emit({"phase": "train_loop", "export": export_dir.rsplit("/", 1)[-1],
+          "bit_equal": bool(torch.equal(got, want)), "top1_equal": top1, "max_abs_err": err,
+          "max_abs_ref": scale, "tol_rel": LOGITS_TOL})
+    if got.shape != want.shape or not top1 or err > LOGITS_TOL * max(scale, 1e-3):
+        raise AssertionError(f"served logits differ from the best checkpoint's (max err {err})")
+    del live, best
+    # (b) its third epoch by --resume, against a straight 3-epoch run
+    _, spy_r, _, _, _ = run("default", ("--epochs", "3", "--resume"))
+    s_dir, _, _, _, _ = run("straight", ("--epochs", "3"))
+    resumed = CheckpointManager(os.path.join(a_dir, "ckpt"))
+    straight = CheckpointManager(os.path.join(s_dir, "ckpt"))
+    res = check_resume(torch, straight.restore(map_location="cpu"),
+                       resumed.restore(map_location="cpu"),
+                       (straight.best_metric, resumed.best_metric))
+    emit({"phase": "train_loop", "resume": res, "resumed_steps": len(spy_r.steps)})
+    if len(spy_r.steps) != LOOP_STEPS:
+        raise AssertionError(f"the resumed run took {len(spy_r.steps)} steps")
+    torch.cuda.empty_cache()
+    # (c) the frozen-teacher cache: resident, no teacher block in a step
+    _, spy_c, _, rates_c, summary_c = run(
+        "teacher_cache", ("--epochs", "2", "--teacher-cache", "--mixup", "0", "--cutmix", "0"),
+        expect_step=PER_CACHED_TRAIN_STEP)
+    if not summary_c["train_device_resident"] or len(spy_c.steps) != 2 * LOOP_STEPS:
+        raise AssertionError(f"teacher cache: {summary_c}, {len(spy_c.steps)} steps")
+    emit({"phase": "train_loop", "cached_against_live": cached_step_against_live(
+        torch, dev, loop_config(root, "--teacher-cache", "--mixup", "0", "--cutmix", "0")[0],
+        root)})
+    # (d) gradient accumulation: an update every second micro-step
+    d_dir, spy_d, _, _, _ = run("grad_accum", ("--epochs", "1", "--grad-accum-steps", "2"),
+                                track=True)
+    last = CheckpointManager(os.path.join(d_dir, "ckpt")).restore(map_location="cpu")
+    count = last["optimizer"]["schedule"]["count"]
+    emit({"phase": "train_loop", "grad_accum": 2, "micro_steps": last["step"],
+          "updates": count, "params_moved": spy_d.moved})
+    if (last["step"] != LOOP_STEPS or count != LOOP_STEPS // 2
+            or spy_d.moved != [i % 2 == 1 for i in range(LOOP_STEPS)]):
+        raise AssertionError(f"grad accumulation: {last['step']} micro-steps, {count} updates, "
+                             f"moved {spy_d.moved}")
+    emit({"phase": "train_loop", "batch": LOOP_BATCH, "workers": LOOP_WORKERS,
+          "loop_train_img_per_s": {"default": rates_a, "teacher_cache": rates_c},
+          "bare_step_img_per_s": bare, "host_decode_ms_per_batch": decode, "card": smi})
+    tmp.cleanup()
+
+
+def host_batch(torch, cfg, root, dev, split="val"):
+    """The first LOOP_BATCH images of the loop's train or val split in the
+    eval view, uint8 on the card, with their labels."""
+    from dense2sparse_vit_torch.data import ImageFolder, eval_transform, split_train_val_indices
+    from dense2sparse_vit_torch.data.pipeline import _load_batch
+
+    ds = ImageFolder(root, eval_transform(cfg.data, normalize=False))
+    idx = split_train_val_indices(len(ds), 0.8, seed=cfg.train.seed)[split == "val"]
+    xb, yb = _load_batch(idx[:LOOP_BATCH], cfg.train.seed, 0, ds)
+    return torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev).long()
+
+
 def gemm_spills(build_log: str, word: str = "11gemm_kernel") -> dict:
     """ptxas's spill line for each GEMM kernel (bf16 and int8) of the build
     log, or for each kernel whose name holds `word`."""
@@ -4066,6 +4531,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_predictor(torch, dev, pred_cases, tally, smi)
     del pred_cases
+    # ---- 32. the training entry point ----------------------------------------
+    torch.cuda.empty_cache()
+    phase_train_loop(torch, dev, tally, smi)
 
     emit(tally.line())
     print(smi, flush=True)

@@ -1,4 +1,5 @@
 from dense2sparse_vit_torch.core.config import (
+    DataConfig,
     ExperimentConfig,
     ModelConfig,
     PruningConfig,
@@ -9,6 +10,6 @@ from dense2sparse_vit_torch.core.config import (
 )
 
 __all__ = [
-    "ExperimentConfig", "ModelConfig", "PruningConfig", "TrainConfig",
+    "DataConfig", "ExperimentConfig", "ModelConfig", "PruningConfig", "TrainConfig",
     "deit_base", "deit_small", "deit_tiny",
 ]

@@ -1,14 +1,14 @@
-"""Model and pruning configuration.
+"""The typed configuration: model, pruning, training, data and experiment.
 
 A copy of `dense2sparse_vit_tpu/core/config.py::ModelConfig`,
-`::PruningConfig`, `::TrainConfig` and `::ExperimentConfig` (fields, defaults
-and checks). The port keeps its own copy because importing the JAX package's
-`core` also imports `jax` (`core/__init__.py` pulls in `core/mesh.py`), and
-the machine that runs the port has no JAX. Fields that select a path the port
-does not have yet are kept, and the models and the train step reject them;
-fields that no port code reads (remat, the differentiable top-k's settings,
-the attention-selection options, the data pipeline's and the loop's settings)
-are left out.
+`::PruningConfig`, `::TrainConfig`, `::DataConfig` and `::ExperimentConfig`
+(fields, defaults and checks). The port keeps its own copy because importing
+the JAX package's `core` also imports `jax` (`core/__init__.py` pulls in
+`core/mesh.py`), and the machine that runs the port has no JAX. Fields that
+select a path the port does not have yet are kept, and the models, the train
+step and the loop reject them; fields of paths the port has no code for at
+all (remat, soft top-k's settings, the attention-selection threshold) are
+left out, and the CLI rejects --remat and a set --initial-sigma.
 """
 
 from __future__ import annotations
@@ -137,10 +137,13 @@ class PruningConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer and schedule settings the train step reads."""
+    """Optimizer, schedule, loss-weight and loop settings."""
 
+    batch_size: int = 64
     epochs: int = 25
     lr: float = 5e-4
+    # kept for the flag surface: no schedule reads it, as in the JAX package
+    warmup_lr: float = 1e-6
     min_lr: float = 1e-5
     weight_decay: float = 0.05
     # epochs during which the backbone stays frozen and only the predictor
@@ -149,10 +152,21 @@ class TrainConfig:
     freeze_backbone: bool = False
     # backbone lr after warmup: min(lr * backbone_lr_scale, cosine lr)
     backbone_lr_scale: float = 0.01
-    # gradient accumulation and the frozen-teacher cache: not ported yet,
-    # the train step rejects them
+    # gradient accumulation: the gradients of this many micro-steps are
+    # averaged into one optimizer update (train/optimizer.py)
     grad_accum_steps: int = 1
+    # the loop's in-epoch progress cadence: running means every N steps
+    log_every_steps: int = 400
+    # frozen-teacher output cache (train/teacher_cache.py): the teacher's
+    # outputs computed once on the deterministic eval view and looked up
+    # every step; needs mixup and cutmix off
     teacher_cache: bool = False
+    # device-memory budget of the teacher cache (rows, images and labels)
+    # and of the retained validation batches
+    device_cache_gb: float = 6.0
+    # the JAX package's flattened AdamW: a TPU layout choice with identical
+    # updates; accepted, no effect in the port
+    flat_optimizer: bool = True
     seed: int = 42
     # the gumbel baseline's loss (`make_dynamic_vit_train_step`): the
     # temperature of its logit KL, the keep-ratio and token-distillation
@@ -171,18 +185,61 @@ class TrainConfig:
             raise ValueError(
                 f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}"
             )
+        if self.batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)
-class ExperimentConfig:
-    """The parts of the JAX package's ExperimentConfig the train step reads."""
+class DataConfig:
+    """The data pipeline's and the augmentations' settings."""
 
+    imgnet_val_dir: str = "/data/imagenet/val"
+    num_classes: int = 1000
+    # host decode processes (0: in the loader's own thread)
+    num_workers: int = 0
+    # augmentation; color_jitter is ignored whenever a RandAugment policy is
+    # set, as timm ignores it
+    color_jitter: float = 0.4
+    auto_augment: str = "rand-m9-mstd0.5-inc1"
+    smoothing: float = 0.1
+    train_interpolation: str = "bicubic"
+    repeated_aug: bool = True
+    reprob: float = 0.25  # random erasing's probability
+    remode: str = "pixel"
+    recount: int = 1
+    # mixup / cutmix (timm's Mixup)
+    mixup: float = 0.8
+    cutmix: float = 1.0
+    cutmix_minmax: Optional[Tuple[float, float]] = None
+    mixup_prob: float = 1.0
+    mixup_switch_prob: float = 0.5
+    mixup_mode: str = "batch"
+    # eval transform
+    eval_resize: int = 256
+    eval_crop: int = 224
+    mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+
+    def replace(self, **kw) -> "DataConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """Top-level experiment config, the whole flag surface."""
+
+    arch: str = "deit_small"
     model: ModelConfig = field(default_factory=deit_small)
     pruning: PruningConfig = field(default_factory=PruningConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    save_path: str = "test_imgs/"
+    wandb: bool = False
+    visualize_patch_drop: bool = False
+    visualize_cls_attn_evo: bool = False
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

@@ -1,4 +1,5 @@
-"""Schedules, parameter groups with AdamW, and the train and eval steps."""
+"""Schedules, parameter groups with AdamW, and the train and eval steps (the
+epoch loop is `train.loop`, the teacher cache `train.teacher_cache`)."""
 
 from dense2sparse_vit_torch.train.optimizer import (
     GROUPS,
@@ -6,7 +7,13 @@ from dense2sparse_vit_torch.train.optimizer import (
     label_params,
     make_optimizer,
 )
-from dense2sparse_vit_torch.train.schedule import backbone_lr, cosine_lr, predictor_lr
+from dense2sparse_vit_torch.train.schedule import (
+    backbone_lr,
+    cosine_lr,
+    current_keep_ratio,
+    current_patch_score_threshold,
+    predictor_lr,
+)
 from dense2sparse_vit_torch.train.train_step import (
     make_dynamic_vit_eval_step,
     make_dynamic_vit_train_step,
@@ -15,7 +22,8 @@ from dense2sparse_vit_torch.train.train_step import (
 )
 
 __all__ = [
-    "GROUPS", "ScheduledAdamW", "backbone_lr", "cosine_lr", "label_params",
+    "GROUPS", "ScheduledAdamW", "backbone_lr", "cosine_lr", "current_keep_ratio",
+    "current_patch_score_threshold", "label_params",
     "make_dynamic_vit_eval_step", "make_dynamic_vit_train_step", "make_eval_step",
     "make_optimizer", "make_train_step", "predictor_lr",
 ]

@@ -10,6 +10,15 @@ token):
   predictor     the score predictors: the cosine lr, weight decay
   base_no_decay 1-D parameters and biases: the backbone's lr, no decay
   base_decay    everything else: the backbone's lr, weight decay
+
+Gradient accumulation (TrainConfig.grad_accum_steps = k > 1) has the
+semantics of JAX's `optax.MultiSteps(every_k_schedule=k)`: each step()
+folds the parameters' gradients into a running mean (Welford's update,
+optax's), and every k-th applies AdamW to the mean and resets it; the other
+steps leave the parameters as they are. `count` and the schedules count
+updates, not micro-steps, and the mean carries across epoch boundaries.
+The mean and the micro-step counter are in the optimizer's state_dict, with
+`count`, so a checkpoint taken mid-cycle resumes exactly.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ class ScheduledAdamW(torch.optim.AdamW):
     increments. Set `count` to start the schedule later (a resumed run).
     backbone_warmup_freeze=False trains the backbone during the warmup
     epochs too (`schedule.backbone_lr`'s warmup_freeze), as the gumbel
-    baseline's recipe does."""
+    baseline's recipe does. With cfg.grad_accum_steps > 1 it accumulates
+    (module docstring); `steps_per_epoch` then counts updates an epoch."""
 
     def __init__(self, groups, cfg: TrainConfig, steps_per_epoch: int,
                  backbone_warmup_freeze: bool = True):
@@ -68,19 +78,66 @@ class ScheduledAdamW(torch.optim.AdamW):
         self.steps_per_epoch = steps_per_epoch
         self.backbone_warmup_freeze = backbone_warmup_freeze
         self.count = 0
+        self.accum_steps = cfg.grad_accum_steps
+        self.mini_step = 0  # micro-steps folded into `accum` since the last update
+        self.accum: Dict[torch.Tensor, torch.Tensor] = {}
 
     def group_lr(self, label: str, epoch) -> float:
         if label == "predictor":
             return sched.predictor_lr(epoch, self.cfg)
         return sched.backbone_lr(epoch, self.cfg, warmup_freeze=self.backbone_warmup_freeze)
 
+    def _params(self):
+        return [p for g in self.param_groups for p in g["params"]]
+
+    @torch.no_grad()
     def step(self, closure=None):
+        if self.accum_steps > 1:
+            # optax MultiSteps: the running mean acc + (g - acc) / (n + 1)
+            n = self.mini_step
+            for p in self._params():
+                if p.grad is None:
+                    continue
+                acc = self.accum.get(p)
+                if acc is None:
+                    acc = self.accum[p] = torch.zeros_like(p.grad)
+                acc.add_((p.grad - acc) / (n + 1))
+            self.mini_step = n + 1
+            if self.mini_step < self.accum_steps:
+                return None
+            self.mini_step = 0
+            grads = {p: p.grad for p in self.accum}
+            for p, acc in self.accum.items():
+                p.grad = acc
         epoch = self.count // self.steps_per_epoch
         for group in self.param_groups:
             group["lr"] = float(self.group_lr(group["label"], epoch))
         loss = super().step(closure)
         self.count += 1
+        if self.accum_steps > 1:
+            for p, g in grads.items():
+                p.grad = g
+            self.accum = {}
         return loss
+
+    def state_dict(self):
+        sd = super().state_dict()
+        params = self._params()
+        sd["schedule"] = {
+            "count": self.count, "mini_step": self.mini_step,
+            "accum": {i: self.accum[p].clone() for i, p in enumerate(params) if p in self.accum},
+        }
+        return sd
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        sched_state = state_dict.pop("schedule")
+        super().load_state_dict(state_dict)
+        params = self._params()
+        self.count = int(sched_state["count"])
+        self.mini_step = int(sched_state["mini_step"])
+        self.accum = {params[int(i)]: a.to(params[int(i)].device).clone()
+                      for i, a in sched_state["accum"].items()}
 
 
 def make_optimizer(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int,

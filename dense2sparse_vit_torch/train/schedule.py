@@ -1,4 +1,6 @@
-"""Learning-rate schedules (port of `dense2sparse_vit_tpu/train/schedule.py`).
+"""Learning-rate schedules and the keep-ratio and threshold curricula (port
+of `dense2sparse_vit_tpu/train/schedule.py`; soft top-k's sigma schedule is
+not ported, as soft top-k is not).
 
 Pure functions of the epoch, which may be a Python number or a tensor; the
 schedules step once per epoch.
@@ -42,3 +44,18 @@ def backbone_lr(epoch, cfg: TrainConfig, warmup_freeze: bool = True):
     if tensor:
         return torch.where(epoch < cfg.warmup_epochs, torch.zeros_like(lr), lr)
     return 0.0 if epoch < cfg.warmup_epochs else lr
+
+
+def current_keep_ratio(epoch, min_ratio: float = 0.3, ramp_epochs: int = 90):
+    """Keep-ratio curriculum: linear from 1.0 at epoch 0 down to min_ratio
+    at ramp_epochs, then min_ratio."""
+    ratio = 1.0 - (1.0 - min_ratio) / ramp_epochs * epoch
+    return torch.clamp(ratio, min=min_ratio) if isinstance(ratio, torch.Tensor) else max(ratio, min_ratio)
+
+
+def current_patch_score_threshold(epoch, base: float = 0.1, maximum: float = 0.5,
+                                  ramp_epochs: int = 90):
+    """Threshold curriculum: linear from base at epoch 0 up to maximum at
+    ramp_epochs, then maximum."""
+    th = (maximum - base) / ramp_epochs * epoch + base
+    return torch.clamp(th, max=maximum) if isinstance(th, torch.Tensor) else min(th, maximum)

@@ -3,18 +3,23 @@ train_step.py::make_train_step`, `::make_dynamic_vit_train_step`,
 `::make_eval_step` and `::make_dynamic_vit_eval_step`).
 
 `make_train_step`, for `DiffPruningStudent` in top-k or threshold mode: the
-frozen teacher's forward without gradients; the student in train mode (the
-JAX model's deterministic=False, collect_cls_attns=False, which the attn
-selection overrides: it ranks by the student's own CLS rows); mask loss +
-(epoch >= warmup_epochs) * backbone loss; backward; the AdamW update.
-`make_dynamic_vit_train_step`, for the gumbel baseline: the teacher, the
-student's gumbel-policy forward, the DynamicViT distillation loss (with the
-predictors' BCE against the teacher's mask if asked), backward, AdamW; no
-warmup gate. `make_eval_step` and `make_dynamic_vit_eval_step`: the
-teacher's, the pruned and the unpruned forwards in eval mode, top-1 of each
-and the CE (with the mask loss for the pruning student) over the rows whose
-label is not -1 (the padded tail of the last batch). The metric names are
-the JAX steps'. The threshold curriculum is not ported yet.
+frozen teacher's forward without gradients, or with `cached_teacher` its
+outputs looked up from the teacher cache (`train/teacher_cache.py`); the
+student in train mode (the JAX model's deterministic=False,
+collect_cls_attns=False, which the attn selection overrides: it ranks by
+the student's own CLS rows); mask loss + (epoch >= warmup_epochs) *
+backbone loss, the class term a soft-target CE under mixup; backward; the
+AdamW update (an accumulation micro-step under grad_accum_steps > 1).
+`make_dynamic_vit_train_step`, for the gumbel baseline: the teacher (or its
+cached rows), the student's gumbel-policy forward, the DynamicViT
+distillation loss (with the predictors' BCE against the teacher's mask if
+asked), backward, AdamW; no warmup gate. `make_eval_step` and
+`make_dynamic_vit_eval_step`: the teacher's, the pruned and the unpruned
+forwards in eval mode, top-1 of each and the CE (with the mask loss for the
+pruning student) over the rows whose label is not -1 (the padded tail of
+the last batch). Every step takes uint8 images, which it normalises on
+their device (`data.pipeline.device_normalize`), or normalised float ones.
+The metric names are the JAX steps'.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dense2sparse_vit_torch.core.config import ExperimentConfig, reject_unported
+from dense2sparse_vit_torch.data.pipeline import device_normalize
 from dense2sparse_vit_torch.losses import (
     aggregate_teacher_cls_attn,
     backbone_loss,
@@ -36,12 +42,32 @@ from dense2sparse_vit_torch.losses import (
 from dense2sparse_vit_torch.train.optimizer import ScheduledAdamW
 
 
-def _reject_unported(cfg: ExperimentConfig, mixup_active: bool) -> None:
-    reject_unported({
-        "mixup": mixup_active,
-        "teacher_cache": cfg.train.teacher_cache,
-        "grad_accum_steps > 1": cfg.train.grad_accum_steps > 1,
-    })
+def prepare_images(images: torch.Tensor, cfg: ExperimentConfig) -> torch.Tensor:
+    """uint8 images normalised on their device; float ones as they are."""
+    if images.dtype == torch.uint8:
+        return device_normalize(images, cfg.data)
+    if not images.is_floating_point():
+        raise TypeError(f"images must be uint8 or float (normalised), got {images.dtype}")
+    return images
+
+
+def teacher_outputs(teacher: nn.Module, teacher_in: Optional[dict], images: torch.Tensor,
+                    cached_teacher: bool) -> dict:
+    """The frozen teacher's supervision as a dict: 'logits', 'tokens',
+    'token_probs', 'token_entropy', 'attns', 'target' (None where absent).
+    Live: the teacher's forward on `images` (logits, tokens, attns). Cached:
+    the rows `teacher_in` holds (`train/teacher_cache.py`): logits, target
+    or attns, and token_probs with token_entropy or raw tokens."""
+    if cached_teacher:
+        if teacher_in is None:
+            raise ValueError("cached_teacher: pass the batch's teacher rows as teacher_in")
+        out = {k: teacher_in.get(k) for k in ("tokens", "token_probs", "token_entropy",
+                                               "attns", "target")}
+        return {"logits": teacher_in["logits"].float(), **out}
+    teacher.eval()
+    t_logits, t_tokens, t_attns = teacher(images)
+    return {"logits": t_logits, "tokens": t_tokens, "token_probs": None,
+            "token_entropy": None, "attns": t_attns, "target": None}
 
 
 def make_train_step(
@@ -51,44 +77,51 @@ def make_train_step(
     cfg: ExperimentConfig,
     mixup_active: bool = False,
     generator: Optional[torch.Generator] = None,
+    cached_teacher: bool = False,
 ) -> Callable:
-    """Build `step(images, labels, epoch) -> metrics`.
+    """Build `step(images, labels, epoch, teacher_in=None, generator=None)
+    -> metrics`.
 
-    images: (B, H, W, 3) float NHWC; labels: (B,) int64; epoch: the current
-    epoch, which gates the backbone loss (the lr schedules read the
-    optimizer's update count). metrics: {name: 0-d tensor}, detached. The
-    student's random draws (DropPath's branch scales, a T2T performer
-    stem's dropout) come from `generator`, by default one seeded with
-    TrainConfig.seed on the images' device at the first step. After
-    the step every trained parameter's `.grad` holds this step's gradient.
-    In threshold mode the student's per-stage keep masks chain the mask
-    loss's target and its last mask restricts the token KL. Mixup, the
-    frozen-teacher cache and gradient accumulation are not ported yet and
-    are rejected, as the student rejects early exit, soft top-k,
-    teacher-CLS selection and the BatchNorm predictor.
+    images: (B, H, W, 3) NHWC, uint8 or normalised float; labels: (B,)
+    int, or with mixup_active (B, num_classes) soft targets; epoch: the
+    current epoch, which gates the backbone loss (the lr schedules read the
+    optimizer's update count); teacher_in: with cached_teacher, the batch's
+    teacher rows, which replace the teacher's forward. metrics: {name: 0-d
+    tensor}, detached, on the images' device. The student's random draws
+    (DropPath's branch scales, a T2T performer stem's dropout) come from the
+    call's `generator`, else the one given here, by default one seeded
+    with TrainConfig.seed on the images' device at the first step. After the
+    step every trained parameter's `.grad` holds this step's gradient. In
+    threshold mode the student's per-stage keep masks chain the mask loss's
+    target and its last mask restricts the token KL. The student rejects
+    early exit, soft top-k, teacher-CLS selection and the BatchNorm
+    predictor.
     """
     tr, pr = cfg.train, cfg.pruning
-    _reject_unported(cfg, mixup_active)
     draws = [generator]
 
-    def step(images: torch.Tensor, labels: torch.Tensor, epoch) -> dict:
-        if not images.is_floating_point():
-            raise TypeError(f"images must be float (normalised), got {images.dtype}")
-        if draws[0] is None:
-            draws[0] = torch.Generator(device=images.device).manual_seed(tr.seed)
-        teacher.eval()
+    def step(images: torch.Tensor, labels: torch.Tensor, epoch,
+             teacher_in: Optional[dict] = None,
+             generator: Optional[torch.Generator] = None) -> dict:
+        images = prepare_images(images, cfg)
+        if generator is None:
+            if draws[0] is None:
+                draws[0] = torch.Generator(device=images.device).manual_seed(tr.seed)
+            generator = draws[0]
         student.train()
-        t_logits, t_tokens, t_attns = teacher(images)
+        t = teacher_outputs(teacher, teacher_in, images, cached_teacher)
         # no loss reads the student's own CLS rows (JAX `train_step.py:172`)
-        out = student(images, collect_cls_attns=False, generator=draws[0])
+        out = student(images, collect_cls_attns=False, generator=generator)
         m_loss, m_metrics = mask_loss(
-            out.pred_logits, t_attns, out.kept_idx, pr.keep_ratios,
+            out.pred_logits, t["attns"], out.kept_idx, pr.keep_ratios,
             loss_type=pr.mask_loss_type, mean_heads=pr.mean_heads,
-            keep_masks=out.keep_masks,
+            keep_masks=out.keep_masks, teacher_target=t["target"],
         )
         b_loss, b_metrics = backbone_loss(
-            out.logits, out.features, t_logits, t_tokens, labels,
+            out.logits, out.features, t["logits"], t["tokens"], labels,
             kept_idx_orig=out.kept_idx_orig, keep_mask=out.keep_mask,
+            mixup_active=mixup_active, tokens_t_probs=t["token_probs"],
+            tokens_t_entropy=t["token_entropy"],
         )
         # warmup gate: the mask loss alone for the first warmup epochs
         loss = m_loss + float(epoch >= tr.warmup_epochs) * b_loss
@@ -108,43 +141,49 @@ def make_dynamic_vit_train_step(
     cfg: ExperimentConfig,
     mixup_active: bool = False,
     generator: Optional[torch.Generator] = None,
+    cached_teacher: bool = False,
 ) -> Callable:
-    """Build `step(images, labels, epoch) -> metrics` for the gumbel
-    baseline (`DynamicViTStudent`), as `make_train_step` does for the
-    pruning student.
+    """Build `step(images, labels, epoch, teacher_in=None, generator=None)
+    -> metrics` for the gumbel baseline (`DynamicViTStudent`), as
+    `make_train_step` does for the pruning student (the cached rows hold
+    the teacher's raw tokens for this loss).
 
     The loss is `dynamic_vit_distill_loss` with the TrainConfig's
     cls_weight, ratio_weight, dist_weight, use_ratio_loss,
     use_token_dist_loss and softmax_temp, plus, with teacher_cls_loss, the
-    predictors' BCE against the teacher's aggregated CLS attention. `epoch`
-    is taken for the same signature and unused: the recipe has no warmup
-    gate. The gumbel noise comes from `generator`, by default one seeded
-    with TrainConfig.seed on the images' device at the first step.
+    predictors' BCE against the teacher's aggregated CLS attention (the
+    cache's target where cached). `epoch` is taken for the same signature
+    and unused: the recipe has no warmup gate. The gumbel noise comes from
+    the call's `generator`, else the one given here, by default one seeded with
+    TrainConfig.seed on the images' device at the first step.
     """
     tr, pr = cfg.train, cfg.pruning
-    _reject_unported(cfg, mixup_active)
     noise = [generator]
 
-    def step(images: torch.Tensor, labels: torch.Tensor, epoch) -> dict:
+    def step(images: torch.Tensor, labels: torch.Tensor, epoch,
+             teacher_in: Optional[dict] = None,
+             generator: Optional[torch.Generator] = None) -> dict:
         del epoch
-        if not images.is_floating_point():
-            raise TypeError(f"images must be float (normalised), got {images.dtype}")
-        if noise[0] is None:
-            noise[0] = torch.Generator(device=images.device).manual_seed(tr.seed)
-        teacher.eval()
+        images = prepare_images(images, cfg)
+        if generator is None:
+            if noise[0] is None:
+                noise[0] = torch.Generator(device=images.device).manual_seed(tr.seed)
+            generator = noise[0]
         student.train()
-        t_logits, t_tokens, t_attns = teacher(images)
-        out = student(images, generator=noise[0])
+        t = teacher_outputs(teacher, teacher_in, images, cached_teacher)
+        out = student(images, generator=generator)
         loss, metrics = dynamic_vit_distill_loss(
-            out.logits, out.features, t_logits, t_tokens, labels, out.pred_keep_probs,
+            out.logits, out.features, t["logits"], t["tokens"], labels, out.pred_keep_probs,
             out.decisions, pr.keep_ratios, cls_weight=tr.cls_weight,
             ratio_weight=tr.ratio_weight, dist_weight=tr.dist_weight,
             use_ratio_loss=tr.use_ratio_loss, use_token_dist_loss=tr.use_token_dist_loss,
-            temperature=tr.softmax_temp,
+            mixup_active=mixup_active, temperature=tr.softmax_temp,
         )
         if tr.teacher_cls_loss:
-            target = aggregate_teacher_cls_attn(t_attns, pr.mean_heads)
-            bce = predictor_bce_vs_teacher(out.pred_keep_probs, target, pr.keep_ratios)
+            target = t["target"]
+            if target is None:
+                target = aggregate_teacher_cls_attn(t["attns"], pr.mean_heads)
+            bce = predictor_bce_vs_teacher(out.pred_keep_probs, target.float(), pr.keep_ratios)
             loss = loss + bce
             metrics = {**metrics, "dyn_teacher_cls_bce": bce}
         student.zero_grad(set_to_none=True)
@@ -182,11 +221,6 @@ def _masked_scores(labels: torch.Tensor):
     return n_valid, accuracy, cross_entropy
 
 
-def _check_images(images: torch.Tensor) -> None:
-    if not images.is_floating_point():
-        raise TypeError(f"images must be float (normalised), got {images.dtype}")
-
-
 def make_eval_step(student: nn.Module, teacher: nn.Module, cfg: ExperimentConfig) -> Callable:
     """Build `eval_step(images, labels) -> metrics` for `DiffPruningStudent`.
 
@@ -205,7 +239,7 @@ def make_eval_step(student: nn.Module, teacher: nn.Module, cfg: ExperimentConfig
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor, labels: torch.Tensor) -> dict:
-        _check_images(images)
+        images = prepare_images(images, cfg)
         teacher.eval()
         student.eval()
         n_valid, accuracy, cross_entropy = _masked_scores(labels)
@@ -243,11 +277,10 @@ def make_dynamic_vit_eval_step(student: nn.Module, teacher: nn.Module,
     unpruned one and the teacher's; `val_loss` = `val_cls_loss` (the CE),
     `val_acc`, `unpruned_acc`, `teacher_acc`, `n_valid`, with the same
     label == -1 padding as `make_eval_step`."""
-    del cfg  # the same signature as make_eval_step; the baseline has no options here
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor, labels: torch.Tensor) -> dict:
-        _check_images(images)
+        images = prepare_images(images, cfg)
         teacher.eval()
         student.eval()
         n_valid, accuracy, cross_entropy = _masked_scores(labels)

@@ -134,8 +134,18 @@ def test_eval_step_masks_every_padded_row():
     b = step(x, torch.tensor([1, 2, -1, -7]))
     for k in a:
         assert torch.equal(a[k], b[k]), k
+    # uint8 images are normalised on their device, as the loop feeds them;
+    # any other integer dtype is refused
+    from dense2sparse_vit_torch.core import DataConfig
+    from dense2sparse_vit_torch.data import device_normalize
+
+    u8 = (x * 40 + 128).clamp(0, 255).to(torch.uint8)
+    labels = torch.tensor([1, 2, -1, -1])
+    c, d = step(u8, labels), step(device_normalize(u8, DataConfig()), labels)
+    for k in c:
+        assert torch.equal(c[k], d[k]), k
     with pytest.raises(TypeError, match="float"):
-        step(x.to(torch.uint8), torch.tensor([1, 2, -1, -1]))
+        step(x.to(torch.int32), labels)
 
 
 @pytest.mark.parametrize("field,value", [

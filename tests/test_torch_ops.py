@@ -313,7 +313,12 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.scripts, dense2sparse_vit_torch.scripts.attn_variants, "
         "dense2sparse_vit_torch.scripts.kernel_sweep, dense2sparse_vit_torch.utils.profiling, "
         "dense2sparse_vit_torch.ops.gemm, dense2sparse_vit_torch.ops.norm, "
-        "dense2sparse_vit_torch.scripts.checkout_ab\n"
+        "dense2sparse_vit_torch.scripts.checkout_ab, dense2sparse_vit_torch.cli, "
+        "dense2sparse_vit_torch.data, dense2sparse_vit_torch.data.split, "
+        "dense2sparse_vit_torch.data.augment, dense2sparse_vit_torch.data.pipeline, "
+        "dense2sparse_vit_torch.data.mixup, dense2sparse_vit_torch.train.loop, "
+        "dense2sparse_vit_torch.train.teacher_cache, dense2sparse_vit_torch.train.schedule, "
+        "dense2sparse_vit_torch.utils.checkpoint, dense2sparse_vit_torch.utils.logging\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"

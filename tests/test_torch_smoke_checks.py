@@ -992,3 +992,102 @@ def test_check_predictor_rejects_a_wrong_pool_and_unequal_launches(monkeypatch, 
     with torch.inference_mode(), pytest.raises(AssertionError,
                                                match=chip_smoke.FAULTS["predictor"][3]):
         chip_smoke.check_predictor(torch, xs, w, "case", "predictor")
+
+
+# ---- phase 32: the training entry point ----------------------------------------
+
+
+def test_the_cached_step_table_has_no_teacher_block():
+    """A cached step launches PER_TRAIN_STEP less the teacher's 12 CLS-row
+    blocks; check_step_launches holds every step to its table and rejects a
+    cached run whose steps ran the teacher, or no step at all."""
+    cached, live = chip_smoke.PER_CACHED_TRAIN_STEP, chip_smoke.PER_TRAIN_STEP
+    assert cached["fused_transformer_block_cls"] == 0 and live["fused_transformer_block_cls"] == 12
+    assert {k: v for k, v in cached.items() if k != "fused_transformer_block_cls"} == {
+        k: v for k, v in live.items() if k != "fused_transformer_block_cls"}
+    chip_smoke.check_step_launches([dict(cached)] * 8, cached, "cached")
+    with pytest.raises(AssertionError, match="steps \\[3\\]"):
+        chip_smoke.check_step_launches([dict(cached)] * 3 + [dict(live)], cached, "cached")
+    with pytest.raises(AssertionError, match="0 steps"):
+        chip_smoke.check_step_launches([], cached, "cached")
+
+
+def _resume_state(seed=0):
+    """A checkpoint of a tiny student after one AdamW update."""
+    from dense2sparse_vit_torch.core import TrainConfig
+    from dense2sparse_vit_torch.models import create_model
+    from dense2sparse_vit_torch.train import make_optimizer
+
+    model = create_model("dynamic_vit_tiny_patch16_224_student", device="cpu",
+                         generator=torch.Generator().manual_seed(seed), img_size=32,
+                         patch_size=8, embed_dim=64, depth=2, num_heads=2, num_classes=10,
+                         pruning_locs=(1,), keep_ratios=(0.5,))
+    opt = make_optimizer(model, TrainConfig(), 3)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    return {"student": model.state_dict(), "optimizer": opt.state_dict(), "step": 1}
+
+
+@pytest.mark.parametrize("plant", ["parameter", "moment", "count", "step", "best"])
+def test_check_resume_rejects_a_one_ulp_difference(plant):
+    """The resume comparison passes two equal checkpoints and rejects one
+    ulp in one parameter element or one Adam moment element, an update or
+    step count off by one, or a different best metric."""
+    import copy
+
+    a = _resume_state()
+    res = chip_smoke.check_resume(torch, a, copy.deepcopy(a), (0.25, 0.25))
+    assert res["student"]["bit_equal"] and res["moments"]["bit_equal"]
+    b, best = copy.deepcopy(a), (0.25, 0.25)
+    if plant == "parameter":
+        w = b["student"]["head.weight"]
+        w.view(-1)[5] = torch.nextafter(w.view(-1)[5], torch.tensor(float("inf")))
+    elif plant == "moment":
+        m = b["optimizer"]["state"][0]["exp_avg"]
+        m.view(-1)[0] = torch.nextafter(m.view(-1)[0], torch.tensor(-float("inf")))
+    elif plant == "count":
+        b["optimizer"]["schedule"]["count"] += 1
+    elif plant == "step":
+        b["step"] += 1
+    else:
+        best = (0.25, 0.26)
+    with pytest.raises(AssertionError, match="resumed run differs"):
+        chip_smoke.check_resume(torch, a, b, best)
+
+
+def test_check_loop_metrics_rejects_a_non_finite_record():
+    good = [{"step": 0, "time": 1.0, "train/loss": 2.5}, {"step": 1, "val/val_acc": 0.1}]
+    chip_smoke.check_loop_metrics(good, "run")
+    with pytest.raises(AssertionError, match="non-finite"):
+        chip_smoke.check_loop_metrics(good + [{"step": 2, "train/loss": float("nan")}], "run")
+    with pytest.raises(AssertionError, match="non-finite"):
+        chip_smoke.check_loop_metrics([], "run")
+
+
+def test_loop_spy_counts_steps_and_preempts(tmp_path):
+    """On a tiny CPU run of the loop: the spy sees every train and eval step
+    (launches 0 for CPU tensors), whether each micro-step moved the
+    parameters, and raises Preempted in place of the step after
+    `stop_after`, leaving the checkpoints of the epochs before it."""
+    from dense2sparse_vit_torch import cli
+    from dense2sparse_vit_torch.train.loop import run_experiment
+    from dense2sparse_vit_torch.utils.checkpoint import CheckpointManager
+
+    root = str(tmp_path / "img")
+    n = chip_smoke.write_image_folder(root, classes=2, images=10, sides=(32, 40))
+    assert n == 20
+    argv = ["--imgnet-val-dir", root, "--img-size", "32", "--eval-crop", "32",
+            "--eval-resize", "36", "--patch-size", "8", "--num-classes", "10", "--arch",
+            "deit_tiny", "--pruning-locs", "1", "--keep-ratios", "0.5", "--batch-size", "4",
+            "--epochs", "3", "--grad-accum-steps", "2"]
+    cfg, _ = cli.parse_config(argv)
+    with chip_smoke.LoopSpy(torch, track=True, stop_after=8) as spy:
+        with pytest.raises(chip_smoke.Preempted):
+            run_experiment(cfg, str(tmp_path / "run"), device="cpu")
+    assert len(spy.steps) == 8 and spy.moved == [False, True] * 4
+    assert all(d == chip_smoke.NO_LAUNCHES for d in spy.steps + spy.evals)
+    assert spy.valid == [4, 4]  # 2 epochs of one eval batch of the 4 val images
+    assert CheckpointManager(str(tmp_path / "run" / "ckpt")).latest_step() == 8
+    from dense2sparse_vit_torch.train import loop
+    assert loop.make_train_step.__name__ == "make_train_step"  # the spy put it back

@@ -241,14 +241,19 @@ def test_train_step_matches_jax(epoch, jax_fused, port_fused):
 
 
 def test_unported_training_options_are_rejected():
+    """Gradient accumulation, mixup and the teacher cache are ported now
+    (tests/test_torch_loop.py holds each against JAX): make_train_step
+    takes them. What the student does not have is still rejected at its
+    construction, naming the option."""
     student = _port_student()
     cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning,
-                           train=TrainConfig(grad_accum_steps=2))
-    with pytest.raises(NotImplementedError, match="grad_accum_steps"):
-        make_train_step(student, student, make_optimizer(student, cfg.train, 1), cfg)
-    with pytest.raises(NotImplementedError, match="mixup"):
-        make_train_step(student, student, None, cfg.replace(train=TrainConfig()),
-                        mixup_active=True)
+                           train=TrainConfig(grad_accum_steps=2, teacher_cache=True))
+    make_train_step(student, student, make_optimizer(student, cfg.train, 1), cfg,
+                    mixup_active=True, cached_teacher=True)
+    for option in ("early_exit", "cls_from_teacher", "predictor_bn"):
+        with pytest.raises(NotImplementedError, match=option):
+            create_model("dynamic_vit_small_patch16_224_student", device="cpu",
+                         **{**MODEL, **PRUNING, option: True})
 
 
 def test_mean_heads_is_a_pruning_field_again():
