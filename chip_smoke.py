@@ -21,6 +21,9 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault colsum      # the column sums' check
     python3 chip_smoke.py --plant-fault attn_bwd    # the attention core backward's check
     python3 chip_smoke.py --plant-fault predictor   # the score predictor's check
+    python3 chip_smoke.py --plant-fault mode_plain  # phase 33's launch check
+    python3 chip_smoke.py --plant-fault remat       # phase 33's remat check
+    python3 chip_smoke.py --plant-fault bn_eval     # phase 33's BatchNorm eval check
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -199,6 +202,24 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  parameters moving on every second micro-step alone. Prints
                  the loop's train_img_per_s beside the bare step's rate
                  (phase 5's `build_trainer`) and the host's decode ms a batch.
+ 33. student_modes  the student's other modes (`mode_specs`) at full width:
+                 soft top-k (`dino_small_student`, nS=500, epoch 0), random
+                 and teacher-CLS selection, the BatchNorm predictor, the
+                 early-exit head, dropout 0.1, remat (at drop path 0.1) and
+                 attn with a stage at block 0 (0/6/9). Each: one B=128 train
+                 step with the live teacher, its launches
+                 (PER_MODE_TRAIN_STEP) and peak memory, against the same
+                 step on the plain model with the same weights, draws and
+                 kept tokens (loss, and the predictors', the early-exit
+                 head's and blocks 0, 3 and 11's gradients, `compare_steps`);
+                 the soft top-k backward against float64 on the step's own
+                 noise (`check_soft_topk_backward`); the BatchNorm running
+                 statistics moved, then used in eval (`check_bn_eval`);
+                 remat's gradients against the step without it
+                 (`check_remat`); a second step, timed; one B=256 eval step
+                 (PER_MODE_EVAL_STEP). Then one CLI epoch each of
+                 `--random-drop --early-exit --predictor-bn` and
+                 `--cls-from-teacher` over phase 32's folder.
 The build phase fails if ptxas reports a spill in a GEMM kernel or in
 attention_bwd_kernel, or reports on no int8 one, or if it serializes
 attention_bwd_kernel's wgmma products; it prints that kernel's C75xx
@@ -239,7 +260,13 @@ on phase 29's checks; --plant-fault attn_bwd with an attention core
 backward whose dQ leaves out the last key block's products
 (`block_bwd.cu`), on phase 30's checks; --plant-fault predictor with a
 predictor whose tail takes each sample's pooled mean from the next
-sample's sums (`predictor.cu`), on phase 3's walk.
+sample's sums (`predictor.cu`), on phase 3's walk. --plant-fault
+mode_plain, remat and bn_eval plant phase 33's faults in the port's Python
+for the run (`mode_fault`): the dropout mode's packed attention core
+swapped for plain attention (rejected by its launch check), remat's
+recompute drawing anew from where the forward left the generator (by
+`check_remat`), an eval-mode BatchNorm normalising with the batch's
+statistics (by `check_bn_eval`).
 """
 
 from __future__ import annotations
@@ -966,15 +993,87 @@ def check_block_backwards(torch, student, rec, tally=None, plain_blocks=True):
                       err)
 
 
+# phase 33's faults, planted in the port's Python for the run: (mode_plain)
+# the dropout mode's attention core runs plain attention where the path
+# takes the packed kernel; (remat) remat's recompute draws anew, the
+# generator left where the forward left it; (bn_eval) an eval-mode
+# BatchNorm normalises with the batch's statistics; and the word the
+# rejecting check's message holds
+MODE_FAULTS = {"mode_plain": "launches", "remat": "remat gradients", "bn_eval": "bn_eval"}
+
+
+def mode_fault(kind: str):
+    """(object, attribute, replacement) that plants MODE_FAULTS' `kind`,
+    and the mode of phase 33 it reaches."""
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+
+    import dense2sparse_vit_torch.nn.layers as layers
+    import dense2sparse_vit_torch.nn.predictor as predictor
+    import dense2sparse_vit_torch.train.train_step as train_step
+    from dense2sparse_vit_torch.ops.block import attention_reference
+
+    def plain_core(qkv, num_heads, policy, scale):
+        return attention_reference(qkv, num_heads, scale, policy=policy)
+
+    def redraw(run, generator, *args):
+        return checkpoint(run, *args, use_reentrant=False)
+
+    real_bn = predictor.BatchNormLayer.forward
+
+    def batch_stats_forward(self, x):  # in eval mode alone
+        if self.training:
+            return real_bn(self, x)
+        bn = self.bn
+        y = F.batch_norm(x.float().reshape(-1, x.shape[-1]), bn.running_mean.clone(),
+                         bn.running_var.clone(), bn.weight, bn.bias, training=True,
+                         momentum=bn.momentum, eps=bn.eps)
+        return y.view(x.shape).to(x.dtype)
+
+    return {"mode_plain": (layers, "fused_attention_packed_trainable", plain_core, "dropout"),
+            "remat": (train_step, "remat_forward", redraw, "remat"),
+            "bn_eval": (predictor.BatchNormLayer, "forward", batch_stats_forward,
+                        "predictor_bn")}[kind]
+
+
+def plant_mode_fault(torch, dev, kind: str) -> int:
+    """Run phase 33's mode that the fault `kind` of MODE_FAULTS reaches with
+    the fault planted, and report whether a check rejected it."""
+    from dense2sparse_vit_torch.models import HEADLINE_TEACHER, create_model
+
+    obj, attr, replacement, mode = mode_fault(kind)
+    saved = getattr(obj, attr)
+    setattr(obj, attr, replacement)
+    teachers = {fused: create_model(HEADLINE_TEACHER, use_fused_attention=fused, device=dev,
+                                    dtype="bfloat16", generator=torch.Generator().manual_seed(2))
+                for fused in (True, False)}
+    try:
+        run_mode(torch, dev, mode, teachers, Tally(), "")
+    except AssertionError as e:
+        rejected = MODE_FAULTS[kind] in str(e)
+        emit({"phase": "plant_fault", "fault": kind, "rejected": rejected,
+              "message": str(e)[:400]})
+        return 0 if rejected else 1
+    finally:
+        setattr(obj, attr, saved)
+    emit({"phase": "plant_fault", "fault": kind, "rejected": False})
+    return 1
+
+
 def plant_fault(dev, kind: str) -> int:
     """Build the kernels with the fault `kind` of FAULTS, run the
     block-backward check on a train step's activations (for "policy" the
     gumbel baseline's policy blocks), and report whether it rejected the
-    fault on the tensor the fault reaches."""
+    fault on the tensor the fault reaches. A kind of MODE_FAULTS is
+    planted in the port's Python instead (`plant_mode_fault`)."""
     import torch
     from pathlib import Path
 
     from dense2sparse_vit_torch.ops import _cuda
+
+    if kind in MODE_FAULTS:
+        _cuda.library()
+        return plant_mode_fault(torch, dev, kind)
 
     source, pattern, replacement, reaches = FAULTS[kind]
     faulty = _cuda.BUILD_DIR / "fault_csrc"
@@ -1977,8 +2076,8 @@ def phase_serve_attn(torch, dev, tally):
     scores = []
     real_scores = type(model)._stage_scores
 
-    def record(self, p, xx, last):
-        out = real_scores(self, p, xx, last)
+    def record(self, p, *args):
+        out = real_scores(self, p, *args)
         scores.append(out)
         return out
 
@@ -1990,7 +2089,7 @@ def phase_serve_attn(torch, dev, tally):
         counts = ops.launch_counts()
         del model._stage_scores
         own = plain(x)
-        plain._stage_scores = lambda p, xx, last: scores[p]
+        plain._stage_scores = lambda p, *args: scores[p]
         pinned = plain(x)
     widths = [t.shape[-1] for t in out.cls_attns]
     want_widths = [N] * 3 + [keep[0]] * 3 + [keep[1]] * 3 + [keep[2]] * 3
@@ -4241,7 +4340,9 @@ def phase_train_loop(torch, dev, tally, smi):
     3-epoch run; (c)
     --teacher-cache without mixup and cutmix; (d) --grad-accum-steps 2.
     The main path's launches are (a)'s, whose steps and per-step batch
-    finish must make no synchronizing CUDA operation (`LoopSpy`)."""
+    finish must make no synchronizing CUDA operation (`LoopSpy`). Returns
+    (the temporary directory, the folder's root), for phase 33; the caller
+    cleans the directory up."""
     import os
     import tempfile
 
@@ -4373,7 +4474,398 @@ def phase_train_loop(torch, dev, tally, smi):
     emit({"phase": "train_loop", "batch": LOOP_BATCH, "workers": LOOP_WORKERS,
           "loop_train_img_per_s": {"default": rates_a, "teacher_cache": rates_c},
           "bare_step_img_per_s": bare, "host_decode_ms_per_batch": decode, "card": smi})
-    tmp.cleanup()
+    return tmp, root
+
+
+# ---- 33. the student's other modes ------------------------------------------
+
+# the modes, each one B=128 train step with the live teacher (twice: the
+# second timed) and one B=MODE_EVAL_BATCH eval step: name -> (model,
+# create_model's arguments beside HEADLINE_KWARGS' or DINO_KWARGS', epoch).
+# soft_topk is the JAX zoo's config 5 (`dino_small_student`: the large
+# predictor, perturbed top-k at nS=500) at epoch 0 (sigma 0.05, the warmup);
+# remat's student has drop path 0.1, so that its recompute must repeat the
+# forward's draws
+MODE_EVAL_BATCH = 256
+SOFT_SAMPLES = 500
+MODE_DROP_PATH = 0.1
+
+
+def mode_specs():
+    from dense2sparse_vit_torch.models import DINO_KWARGS, DINO_MODEL, HEADLINE_KWARGS, HEADLINE_MODEL
+
+    head = dict(HEADLINE_KWARGS, use_fused_attention=True)
+    return {
+        "soft_topk": (DINO_MODEL, dict(DINO_KWARGS, topk_num_samples=SOFT_SAMPLES), 0),
+        "random": (HEADLINE_MODEL, dict(head, selection="random"), TRAIN_EPOCH),
+        "cls_from_teacher": (HEADLINE_MODEL, dict(head, cls_from_teacher=True), TRAIN_EPOCH),
+        "predictor_bn": (HEADLINE_MODEL, dict(head, predictor_bn=True), TRAIN_EPOCH),
+        "early_exit": (HEADLINE_MODEL, dict(head, early_exit=True), TRAIN_EPOCH),
+        "dropout": (HEADLINE_MODEL, dict(head, drop_rate=0.1), TRAIN_EPOCH),
+        "remat": (HEADLINE_MODEL, dict(head, remat=True, drop_path_rate=MODE_DROP_PATH),
+                  TRAIN_EPOCH),
+        "attn_block0": (HEADLINE_MODEL, dict(head, selection="attn", pruning_locs=(0, 6, 9)),
+                        TRAIN_EPOCH),
+    }
+
+
+# per train step: the teacher's 12 CLS-row blocks and, by mode: the
+# top-k step's kernels (random, teacher-CLS, BatchNorm and early exit
+# score without a kernel: the predictors train through their plain layers);
+# soft top-k gathers by the indicator's product, so no gather or scatter;
+# dropout leaves the whole block for the packed attention core both ways and
+# the plain MLP (JAX `nn/layers.py:225-253`); remat runs the forward twice
+# (the recompute), blocks 1-11 with their branch scales; attn at 0/6/9 is
+# the attn student's step (its stage-0 predictor trains plainly)
+PER_MODE_TRAIN_STEP = {
+    "soft_topk": {**PER_TRAIN_STEP, "fused_gather_tokens": 0, "fused_scatter_tokens": 0},
+    "random": PER_TRAIN_STEP,
+    "cls_from_teacher": PER_TRAIN_STEP,
+    "predictor_bn": PER_TRAIN_STEP,
+    "early_exit": PER_TRAIN_STEP,
+    "dropout": {**NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_attention_packed": 12,
+                "fused_attention_backward_packed": 12, "fused_gather_tokens": 3,
+                "fused_scatter_tokens": 3, **core_launches(12)},
+    "remat": {**NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_transformer_block": 2,
+              "fused_transformer_block[scaled]": 22, "fused_transformer_block_backward": 1,
+              "fused_transformer_block_backward[scaled]": 11, "fused_gather_tokens": 6,
+              "fused_scatter_tokens": 3, **norm_launches(12), **core_launches(12)},
+    "attn_block0": PER_ATTN_TRAIN_STEP,
+}
+# per eval step: the top-k eval step's, without the predictor kernel where
+# a stage scores without the LayerNorm predictor (random and teacher-CLS
+# selection, the BatchNorm predictor: JAX `nn/predictor.py:141-146`); the
+# attn student captures its CLS rows in both forwards and scores stage 0
+# with its predictor
+PER_MODE_EVAL_STEP = {
+    **{m: PER_EVAL_STEP["topk"] for m in ("soft_topk", "early_exit", "dropout", "remat")},
+    **{m: {**PER_EVAL_STEP["topk"], "fused_predictor_lg": 0}
+       for m in ("random", "cls_from_teacher", "predictor_bn")},
+    "attn_block0": {**NO_LAUNCHES, "fused_transformer_block_cls": 36, "fused_predictor_lg": 1,
+                    "fused_gather_tokens": 3},
+}
+# the gradients phase 33 holds against the plain step: the predictors', the
+# early-exit head's and blocks 0, 3 and 11's
+MODE_GRAD_BLOCKS = (0, 3, 11)
+# the perturbed top-k backward against float64 (the same formula on the
+# same z and indices), relative to its largest magnitude: fp32 sums of
+# nS k products against float64 ones
+SOFT_BWD_TOL = 1e-5
+# remat's gradients against the same step without remat: the recompute
+# repeats the forward's kernels on the same draws
+REMAT_TOL = 1e-6
+# a BatchNorm student's eval scores of one image alone against its row in a
+# batch of 8 (the running statistics: the same, up to the kernels' bf16
+# rounding at another batch)
+BN_EVAL_TOL = STAGE_TOL
+# CLI epochs over phase 32's folder: (flags, per train step, per eval step)
+MODE_CLI_RUNS = (
+    (("--random-drop", "--early-exit", "--predictor-bn"), PER_TRAIN_STEP,
+     {**PER_EVAL_STEP["topk"], "fused_predictor_lg": 0}),
+    (("--cls-from-teacher",), PER_TRAIN_STEP, {**PER_EVAL_STEP["topk"], "fused_predictor_lg": 0}),
+)
+
+
+def check_mode_launches(counts, expected, what) -> None:
+    """A mode's launches per kernel equal `expected`: a kernel launched fewer
+    times ran its plain version (or nothing) where the mode's path takes it."""
+    if counts != expected:
+        diff = {k: (counts.get(k, 0), v) for k, v in expected.items() if counts.get(k, 0) != v}
+        raise AssertionError(f"{what}: launches (got, expected) {diff}")
+
+
+def check_soft_topk_backward(torch, x, z, sigma, k, g) -> float:
+    """The perturbed top-k's gradient (`PerturbedTopK`, on x's device)
+    against the estimator (1/(nS sigma)) sum_n sum_j 1[idx = d] g[b,j,d]
+    z[b,n,d] in float64, on the same indices (the top-k of x + sigma z),
+    summed by index_put_ with accumulation as the JAX function's scatter-add
+    sums them; returns the relative error, raises beyond SOFT_BWD_TOL."""
+    from dense2sparse_vit_torch.ops.perturbed_topk import PerturbedTopK, topk_sample_indices
+
+    x = x.detach().float().requires_grad_()
+    sig = torch.as_tensor(sigma, dtype=torch.float32, device=x.device).clamp_min(1e-12)
+    PerturbedTopK.apply(x, z, sig, k).backward(g)
+    B, nS, N = z.shape
+    idx = topk_sample_indices(x.detach()[:, None, :] + sig * z, k)  # (B, nS, k)
+    g64 = g.double()
+    g_sel = torch.gather(g64, 2, idx.transpose(1, 2)).transpose(1, 2)  # g[b, j, idx[b, n, j]]
+    contrib = g_sel * torch.gather(z.double(), 2, idx) / (nS * sig.double())
+    b_ix = torch.arange(B, device=x.device).view(B, 1, 1).expand_as(idx)
+    want = torch.zeros((B, N), dtype=torch.float64, device=x.device)
+    want.index_put_((b_ix, idx), contrib, accumulate=True)
+    err = ((x.grad.double() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+    emit({"phase": "student_modes", "check": "soft_topk_backward", "shape": [B, nS, N],
+          "k": k, "rel_err": err, "tol_rel": SOFT_BWD_TOL})
+    if not err <= SOFT_BWD_TOL:
+        raise AssertionError(f"soft_topk_backward: {err} against float64")
+    return err
+
+
+def check_remat(torch, remat_grads, plain_grads) -> dict:
+    """Every gradient of the remat step against the step without remat,
+    relative to the tensor's largest magnitude, within REMAT_TOL."""
+    rel = {n: ((remat_grads[n] - plain_grads[n]).abs().max()
+               / plain_grads[n].abs().max().clamp_min(1e-30)).item() for n in plain_grads}
+    bit_equal = all(torch.equal(remat_grads[n], plain_grads[n]) for n in plain_grads)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    emit({"phase": "student_modes", "check": "remat", "tensors": len(rel), "bit_equal": bit_equal,
+          "worst": worst, "tol_rel": REMAT_TOL})
+    bad = {n: r for n, r in rel.items() if not r <= REMAT_TOL}
+    if bad or set(remat_grads) != set(plain_grads) or not rel:
+        raise AssertionError(f"remat gradients differ from the plain step's: {worst}")
+    return {"bit_equal": bit_equal, "worst": worst}
+
+
+def check_bn_eval(torch, student, images) -> float:
+    """A BatchNorm student in eval mode normalises with its running
+    statistics: stage 0's scores of one image alone equal its row in a
+    batch of 8 within BN_EVAL_TOL (batch statistics of one image's tokens
+    move them by their own size). Returns the relative error."""
+    student.eval()
+    with torch.no_grad():
+        batch = student(images[:8], collect_cls_attns=False).pred_logits[0][:1].float()
+        alone = student(images[:1], collect_cls_attns=False).pred_logits[0].float()
+    err, ref = rel_err(torch, alone, batch)
+    emit({"phase": "student_modes", "check": "bn_eval", "rel_err": err / max(ref, 1e-30),
+          "tol_rel": BN_EVAL_TOL})
+    if not err <= BN_EVAL_TOL * max(ref, 1e-30):
+        raise AssertionError(f"bn_eval: one image's scores move with its batch ({err} of {ref})")
+    return err / max(ref, 1e-30)
+
+
+def mode_grad_names(names) -> set:
+    keep = tuple(f"blocks.{i}." for i in MODE_GRAD_BLOCKS) + ("score_predictor.",
+                                                            "early_exit_head.")
+    return {n for n in names if n.startswith(keep)}
+
+
+def build_mode(torch, dev, mode, fused, teacher):
+    """The mode's student (kernels or plain versions, the same seeded
+    weights), its optimizer at the mode's epoch and its train step with
+    `teacher`: (student, step, cfg, epoch)."""
+    from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
+    from dense2sparse_vit_torch.models import create_model
+    from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+
+    name, kwargs, epoch = mode_specs()[mode]
+    student = create_model(name, device=dev, generator=torch.Generator().manual_seed(0),
+                           **dict(kwargs, use_fused_attention=fused))
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=TrainConfig())
+    opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH)
+    opt.count = epoch * STEPS_PER_EPOCH
+    return student, make_train_step(student, teacher, opt, cfg), cfg, epoch
+
+
+class ModeRecorder:
+    """Within the context: the kept indices of every stage and the perturbed
+    top-k's sample indices are recorded (`replay` False) or handed out again
+    in order (`replay` True), so that the plain step keeps the tokens the
+    kernels' step kept; the soft top-k's inputs (scores, k, sigma, noise) are
+    recorded."""
+
+    def __init__(self, replay_from=None):
+        self.kept, self.samples, self.soft = [], [], []
+        self.replay = replay_from
+
+    def __enter__(self):
+        import dense2sparse_vit_torch.models.student as student_module
+        import dense2sparse_vit_torch.ops.perturbed_topk as ptk
+
+        self.sm, self.ptk = student_module, ptk
+        self.saved = (student_module.topk_keep_indices, ptk.topk_sample_indices,
+                      student_module.perturbed_topk, ptk.gaussian_noise)
+        real_keep, real_samples, real_soft, real_noise = self.saved
+        kept = list(self.replay.kept) if self.replay else None
+        samples = list(self.replay.samples) if self.replay else None
+
+        def keep(scores, k):
+            out = kept.pop(0) if kept is not None else real_keep(scores, k)
+            self.kept.append(out)
+            return out
+
+        def sample(perturbed, k):
+            out = samples.pop(0) if samples is not None else real_samples(perturbed, k)
+            self.samples.append(out)
+            return out
+
+        def soft(x, k, generator, num_samples, sigma):
+            self.soft.append({"x": x.detach(), "k": k, "sigma": sigma})
+            return real_soft(x, k, generator, num_samples, sigma)
+
+        def noise(shape, generator):
+            z = real_noise(shape, generator)
+            self.soft[-1]["z"] = z
+            return z
+
+        student_module.topk_keep_indices, ptk.topk_sample_indices = keep, sample
+        student_module.perturbed_topk, ptk.gaussian_noise = soft, noise
+        return self
+
+    def __exit__(self, *exc):
+        (self.sm.topk_keep_indices, self.ptk.topk_sample_indices, self.sm.perturbed_topk,
+         self.ptk.gaussian_noise) = self.saved
+
+
+def run_mode(torch, dev, mode, teachers, tally, smi):
+    """Phase 33 for one mode: its kernels' step (launches, peak memory)
+    against the plain step on the same weights, draws and kept tokens; the
+    mode's own checks; a second, timed step; one eval step at
+    MODE_EVAL_BATCH. Returns the mode's summary."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.train import make_eval_step
+
+    student, step, cfg, epoch = build_mode(torch, dev, mode, True, teachers[True])
+    plain, p_step, _, _ = build_mode(torch, dev, mode, False, teachers[False])
+    images, labels = train_batch(torch, dev)
+    stats = {k: v.clone() for k, v in student.state_dict().items() if "running_" in k}
+    weights = ({k: v.clone() for k, v in student.state_dict().items()}
+               if mode == "remat" else None)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    with ModeRecorder() as rec:
+        metrics = step(images, labels, epoch, generator=torch.Generator(device=dev).manual_seed(11))
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_mode_launches(counts, PER_MODE_TRAIN_STEP[mode], f"{mode} train step")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    values = {k: v.item() for k, v in metrics.items()}
+    if any(v != v or abs(v) == float("inf") for v in values.values()):
+        raise AssertionError(f"{mode}: non-finite metrics {values}")
+    grads = train_step_grads(torch, student)
+    with ModeRecorder(replay_from=rec):
+        p_values = {k: v.item() for k, v in p_step(
+            images, labels, epoch, generator=torch.Generator(device=dev).manual_seed(11)).items()}
+    compare_steps(torch, f"student_modes/{mode}", (values["loss"], grads),
+                  (p_values["loss"], train_step_grads(torch, plain)), mode_grad_names(grads))
+    # peak: the process's; step: the step's own, over what was resident
+    out = {"mode": mode, "epoch": epoch, "metrics": values, "launches": counts,
+           "peak_gib": peak / 2**30, "step_gib": (peak - resident) / 2**30}
+    if mode == "soft_topk":
+        s = rec.soft[0]
+        g = torch.randn((B_TRAIN, s["k"], s["x"].shape[1]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(17))
+        out["soft_bwd_rel_err"] = check_soft_topk_backward(torch, s["x"], s["z"], s["sigma"],
+                                                           s["k"], g)
+        out["one_hot_gib"] = B_TRAIN * SOFT_SAMPLES * s["k"] * s["x"].shape[1] * 4 / 2**30
+        out["sigma"] = float(s["sigma"])
+    if mode == "predictor_bn":
+        moved = [k for k, v in student.state_dict().items()
+                 if "running_" in k and not torch.equal(v, stats[k])]
+        if len(moved) != len(stats) or not stats:
+            raise AssertionError(f"predictor_bn: running statistics moved {len(moved)} of "
+                                 f"{len(stats)}")
+        out["bn_eval_rel_err"] = check_bn_eval(torch, student, images)
+        student.train()
+    if mode == "remat":
+        remat_grads = train_step_grads(torch, student)
+        plain_remat, plain_remat_step, _, _ = build_mode(torch, dev, mode, True, teachers[True])
+        plain_remat.load_state_dict(weights)
+        cfg_off = cfg.replace(model=cfg.model.replace(remat=False))
+        from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+
+        opt = make_optimizer(plain_remat, cfg_off.train, STEPS_PER_EPOCH)
+        opt.count = epoch * STEPS_PER_EPOCH
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        make_train_step(plain_remat, teachers[True], opt, cfg_off)(
+            images, labels, epoch, generator=torch.Generator(device=dev).manual_seed(11))
+        torch.cuda.synchronize()
+        out["no_remat_step_gib"] = (torch.cuda.max_memory_allocated(dev) - resident) / 2**30
+        out["remat"] = check_remat(torch, remat_grads, train_step_grads(torch, plain_remat))
+        del plain_remat, plain_remat_step, weights
+    del plain, p_step
+    # a second step from the first's state, timed
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(images, labels, epoch, generator=torch.Generator(device=dev).manual_seed(12))
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    check_mode_launches(counts, PER_MODE_TRAIN_STEP[mode], f"{mode} second train step")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    # one eval step at MODE_EVAL_BATCH
+    x = torch.randn((MODE_EVAL_BATCH, 224, 224, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(18))
+    y = torch.randint(0, 1000, (MODE_EVAL_BATCH,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(19))
+    eval_step = make_eval_step(student, teachers[True], cfg)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = {k: v.item() for k, v in eval_step(x, y).items()}
+    torch.cuda.synchronize()
+    out["eval_ms"] = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    check_mode_launches(counts, PER_MODE_EVAL_STEP[mode], f"{mode} eval step")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    if any(v != v for v in ev.values()) or ev["n_valid"] != MODE_EVAL_BATCH:
+        raise AssertionError(f"{mode} eval: {ev}")
+    out["eval"] = {k: ev[k] for k in ("val_acc", "val_loss", "n_valid")}
+    emit({"phase": "student_modes", **out, "card": smi})
+    return out
+
+
+def run_cli_epoch(torch, dev, root, flags, per_step, per_eval, tally, smi):
+    """One epoch of the CLI (LOOP_FLAGS + `flags`) over phase 32's folder:
+    each step's and each eval's launches, every logged number finite."""
+    import tempfile
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.train.loop import run_experiment
+
+    cfg, _ = loop_config(root, "--epochs", "1", *flags)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_modes_") as workdir:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with LoopSpy(torch) as spy:
+            summary = run_experiment(cfg, workdir, device=dev)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        records = loop_records(workdir)
+        check_loop_metrics(records, f"cli {flags}")
+    check_step_launches(spy.steps, per_step, f"cli {flags} train")
+    check_step_launches(spy.evals, per_eval, f"cli {flags} eval")
+    if len(spy.steps) != LOOP_STEPS:
+        raise AssertionError(f"cli {flags}: {len(spy.steps)} steps")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    emit({"phase": "student_modes", "cli": list(flags), "seconds": time.perf_counter() - t0,
+          "train_steps": len(spy.steps), "summary": summary, "card": smi,
+          "train_img_per_s": [r["time/train_img_per_s"] for r in records
+                              if "time/train_img_per_s" in r]})
+
+
+def phase_student_modes(torch, dev, tally, smi, root):
+    """Phase 33: every mode of `mode_specs` (`run_mode`), then one CLI
+    epoch each of MODE_CLI_RUNS over phase 32's folder `root`."""
+    from dense2sparse_vit_torch.models import HEADLINE_TEACHER, create_model
+
+    teachers = {fused: create_model(HEADLINE_TEACHER, use_fused_attention=fused, device=dev,
+                                    dtype="bfloat16",
+                                    generator=torch.Generator().manual_seed(2))
+                for fused in (True, False)}
+    t0 = time.perf_counter()
+    summary = {}
+    for mode in mode_specs():
+        summary[mode] = run_mode(torch, dev, mode, teachers, tally, smi)
+        torch.cuda.empty_cache()
+    del teachers
+    torch.cuda.empty_cache()
+    for flags, per_step, per_eval in MODE_CLI_RUNS:
+        run_cli_epoch(torch, dev, root, flags, per_step, per_eval, tally, smi)
+    emit({"phase": "student_modes", "card": smi, "seconds": time.perf_counter() - t0,
+          "step_ms": {m: s["step_ms"] for m, s in summary.items()},
+          "peak_gib": {m: s["peak_gib"] for m, s in summary.items()},
+          "step_gib": {m: s["step_gib"] for m, s in summary.items()},
+          "no_remat_step_gib": summary["remat"]["no_remat_step_gib"],
+          "soft_topk_one_hot_gib": summary["soft_topk"]["one_hot_gib"]})
 
 
 def host_batch(torch, cfg, root, dev, split="val"):
@@ -4533,7 +5025,13 @@ def main(argv=None) -> int:
     del pred_cases
     # ---- 32. the training entry point ----------------------------------------
     torch.cuda.empty_cache()
-    phase_train_loop(torch, dev, tally, smi)
+    loop_tmp, loop_root = phase_train_loop(torch, dev, tally, smi)
+    # ---- 33. the student's other modes ------------------------------------------
+    torch.cuda.empty_cache()
+    try:
+        phase_student_modes(torch, dev, tally, smi, loop_root)
+    finally:
+        loop_tmp.cleanup()
 
     emit(tally.line())
     print(smi, flush=True)

@@ -78,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mean-heads", action="store_true", default=False)
     p.add_argument("--random-drop", action="store_true", default=False)
     p.add_argument("--initial-sigma", default=0.05, type=float,
-                   help="soft top-k's initial noise: not ported, rejected when set")
+                   help="soft top-k's noise std at epoch 0 (differentiable_topk students)")
     p.add_argument("--attn-selection", action="store_true", default=False)
     p.add_argument("--cls-from-teacher", action="store_true", default=False)
     p.add_argument("--freeze-backbone", action="store_true", default=False)
@@ -127,7 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted, no effect (see --flat-optimizer)")
     p.set_defaults(flat_optimizer=True)
     p.add_argument("--remat", action="store_true", default=False,
-                   help="not ported: rejected")
+                   help="recompute the student's forward in the backward instead of keeping "
+                   "its activations (ignored with --predictor-bn)")
     p.add_argument("--dtype", type=str, default="float32")
     p.add_argument("--workdir", type=str, default="runs/latest")
     p.add_argument("--resume", action="store_true", default=False)
@@ -151,9 +152,6 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
     """Map the parsed flags onto the typed config; a flag of a path the
     port does not have raises NotImplementedError naming it."""
     reject_unported({
-        "--remat": args.remat,
-        # soft top-k's initial noise: no port code reads it
-        "--initial-sigma (soft top-k)": args.initial_sigma != 0.05,
         "--dist-coordinator / --dist-num-processes / --dist-process-id (more than one "
         "process)": (args.dist_coordinator is not None
                      or (args.dist_num_processes or 1) > 1),
@@ -168,7 +166,8 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
                          f"({args.img_size}): the model consumes eval-crop-sized inputs")
     model: ModelConfig = sizes[args.arch](
         img_size=args.img_size, patch_size=args.patch_size, num_classes=args.num_classes,
-        dtype=args.dtype, use_fused_attention=args.use_fused_attention, quant=args.quant)
+        dtype=args.dtype, use_fused_attention=args.use_fused_attention, quant=args.quant,
+        remat=args.remat)
     if args.dynamic_vit_baseline:
         selection = "gumbel"
     elif args.attn_selection:
@@ -185,6 +184,7 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
         small_predictor=args.small_predictor,
         predictor_bn=args.predictor_bn,
         mask_loss_type=args.mask_loss_type,
+        initial_sigma=args.initial_sigma,
         mean_heads=args.mean_heads,
         cls_from_teacher=args.cls_from_teacher,
         early_exit=args.early_exit,

@@ -4,11 +4,9 @@ A copy of `dense2sparse_vit_tpu/core/config.py::ModelConfig`,
 `::PruningConfig`, `::TrainConfig`, `::DataConfig` and `::ExperimentConfig`
 (fields, defaults and checks). The port keeps its own copy because importing
 the JAX package's `core` also imports `jax` (`core/__init__.py` pulls in
-`core/mesh.py`), and the machine that runs the port has no JAX. Fields that
-select a path the port does not have yet are kept, and the models, the train
-step and the loop reject them; fields of paths the port has no code for at
-all (remat, soft top-k's settings, the attention-selection threshold) are
-left out, and the CLI rejects --remat and a set --initial-sigma.
+`core/mesh.py`), and the machine that runs the port has no JAX. The
+attention-selection threshold, which no code of either package reads, is
+left out.
 """
 
 from __future__ import annotations
@@ -45,6 +43,9 @@ class ModelConfig:
     # policy-free blocks of the students; training, policy blocks, CLS
     # capture and the teacher stay in the compute dtype
     quant: str = "none"
+    # the train step recomputes the student's forward in the backward
+    # (activation checkpointing) instead of keeping its activations
+    remat: bool = False
 
     def __post_init__(self):
         if self.quant not in ("none", "int8"):
@@ -98,6 +99,13 @@ class PruningConfig:
     predictor_bn: bool = False
     # 'kl_div' | 'mse' | 'bce': also selects softmax or sigmoid keep-probs
     mask_loss_type: str = "kl_div"
+    # perturbed (soft) top-k: Monte-Carlo samples and the noise's std at
+    # epoch 0 (it decays linearly to 0, `train.schedule.sigma_schedule`)
+    topk_num_samples: int = 500
+    initial_sigma: float = 0.05
+    # train mode gathers the kept tokens as the perturbed top-k indicator
+    # times the tokens, so that the selection itself reaches the predictor
+    differentiable_topk: bool = False
     pad_keep_to_tile: bool = False
     # mean over heads instead of max when aggregating CLS-attention rows:
     # the teacher's into the mask loss's target, and with selection="attn"

@@ -1,5 +1,7 @@
 from dense2sparse_vit_torch.models.registry import (
     ATTN_KWARGS,
+    DINO_KWARGS,
+    DINO_MODEL,
     GUMBEL_KWARGS,
     GUMBEL_MODEL,
     HEADLINE_KWARGS,
@@ -21,7 +23,7 @@ from dense2sparse_vit_torch.models.t2t import T2TViT
 from dense2sparse_vit_torch.models.teacher import ViTTeacher
 
 __all__ = [
-    "ATTN_KWARGS", "DiffPruningStudent", "DynamicViTOutput", "DynamicViTPredictor", "DynamicViTStudent",
+    "ATTN_KWARGS", "DINO_KWARGS", "DINO_MODEL", "DiffPruningStudent", "DynamicViTOutput", "DynamicViTPredictor", "DynamicViTStudent",
     "GUMBEL_KWARGS", "GUMBEL_MODEL", "HEADLINE_KWARGS", "HEADLINE_MODEL", "HEADLINE_TEACHER",
     "StudentOutput", "T2TViT", "T2T_KWARGS", "T2T_MODEL", "THRESHOLD_KWARGS",
     "ViTTeacher", "create_model", "list_models",

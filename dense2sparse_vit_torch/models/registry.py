@@ -1,5 +1,5 @@
-"""Model registry (port of the student, teacher and T2T-ViT part of
-`dense2sparse_vit_tpu/models/registry.py`)."""
+"""Model registry (port of the student, teacher, T2T-ViT and DINO-student
+part of `dense2sparse_vit_tpu/models/registry.py`)."""
 
 from __future__ import annotations
 
@@ -48,6 +48,12 @@ GUMBEL_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
 T2T_MODEL = "t2t_vit_14_student"
 T2T_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
                   dtype="bfloat16", use_fused_attention=True)
+# the pruned DINO ViT-S/16 student with perturbed (soft) top-k in training,
+# the JAX package's bench_zoo.py config 5: create_model(DINO_MODEL,
+# **DINO_KWARGS)
+DINO_MODEL = "dino_small_student"
+DINO_KWARGS = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343),
+                   dtype="bfloat16", use_fused_attention=True)
 
 
 def list_models():
@@ -167,3 +173,12 @@ for _name, _shape in (("14", (384, 14, 6, 3.0)), ("19", (448, 19, 7, 3.0)),
     _REGISTRY[f"t2t_vit_t_{_name}"] = _t2t(*_shape, tokens_type="transformer")
 _REGISTRY["t2t_vit_14_student"] = _t2t_student(384, 14, 6, 3.0)
 _REGISTRY["t2t_vit_t_14_student"] = _t2t_student(384, 14, 6, 3.0, tokens_type="transformer")
+
+
+# the pruned DINO students (JAX `registry.py:441-468`): DeiT-shape students,
+# stages at 3/6/9 keeping 0.7/0.49/0.343 unless told otherwise, with
+# perturbed top-k (differentiable_topk) on unless told otherwise. The DINO
+# backbones themselves (`models/dino.py`) are not ported.
+_DINO = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343), differentiable_topk=True)
+_REGISTRY["dino_small_student"] = _student(deit_small(), **_DINO)
+_REGISTRY["dino_tiny_student"] = _student(deit_tiny(), **_DINO)

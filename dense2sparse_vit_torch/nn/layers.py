@@ -125,16 +125,55 @@ class PatchEmbed(nn.Module):
         return y.flatten(2).transpose(1, 2)
 
 
+def _warn_unfused_dropout(drop: float, attn_drop: float) -> None:
+    """The JAX Block's warning (`nn/layers.py:34-49`; Python's default filter
+    shows it once per calling line): elementwise dropout has no whole-block
+    kernel, so a fused block in train mode takes the packed attention (or,
+    with attention dropout, plain attention) and the plain MLP."""
+    import warnings
+
+    warnings.warn(
+        f"use_fused requested but elementwise dropout is active (drop={drop}, "
+        f"attn_drop={attn_drop}): training leaves the whole-block kernel for the packed "
+        f"attention core and the plain MLP (plain attention with attn_drop > 0). drop_path "
+        f"is fused; set drop/attn_drop to 0 to keep the whole-block training path.",
+        stacklevel=3,
+    )
+
+
+def dropout_keep_mask(shape, keep: float, generator: torch.Generator) -> torch.Tensor:
+    """A bool mask of `shape` on the generator's device, each element True
+    with probability `keep`. Every dropout mask of the port is drawn here,
+    so that a test can hand the port the masks it hands the JAX model."""
+    draws = torch.empty(shape, device=generator.device)
+    return draws.bernoulli_(keep, generator=generator).bool()
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Elementwise dropout as flax's nn.Dropout computes it: x / (1 - rate)
+    where the mask keeps, 0 elsewhere, in x's dtype; x itself at rate 0."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout draws its masks: pass a torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = dropout_keep_mask(x.shape, keep, generator).to(x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2."""
+    """fc1 -> exact GELU -> dropout -> fc2 -> dropout."""
 
     def __init__(self, in_features: int, hidden_features: int):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, in_features)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x).float()).to(x.dtype))
+    def forward(self, x, drop: float = 0.0, generator: Optional[torch.Generator] = None):
+        h = dropout(F.gelu(self.fc1(x).float()).to(x.dtype), drop, generator)
+        return dropout(self.fc2(h), drop, generator)
 
 
 class Attention(nn.Module):
@@ -155,18 +194,28 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x, policy=None, *, return_cls_attn: bool = False):
+    def forward(self, x, policy=None, *, return_cls_attn: bool = False,
+                attn_drop: float = 0.0, proj_drop: float = 0.0,
+                generator: Optional[torch.Generator] = None):
+        """attn_drop, proj_drop: dropout rates of the probabilities and of
+        the projection's output (0 in eval mode), their masks drawn from
+        `generator`. Attention dropout takes the plain attention, as in
+        the JAX Attention."""
         qkv = self.qkv(x)
-        if self.use_fused:
+        if self.use_fused and attn_drop == 0.0:
             core = (fused_attention_packed_with_cls_trainable if return_cls_attn
                     else fused_attention_packed_trainable)
             out = core(qkv, self.num_heads, policy, self.scale)
         else:
+            drop_p = None
+            if attn_drop > 0.0:
+                def drop_p(p):
+                    return dropout(p, attn_drop, generator)
             out = attention_reference(qkv, self.num_heads, self.scale, policy=policy,
-                                      return_cls=return_cls_attn)
+                                      return_cls=return_cls_attn, prob_dropout=drop_p)
         if return_cls_attn:
-            return self.proj(out[0]), out[1]
-        return self.proj(out)
+            return dropout(self.proj(out[0]), proj_drop, generator), out[1]
+        return dropout(self.proj(out), proj_drop, generator)
 
 
 def draw_branch_scales(batch: int, rate: float,
@@ -233,17 +282,29 @@ class Block(nn.Module):
     mode's policy-free block without CLS capture runs
     `ops.quant.fused_transformer_block_int8` on `int8_weights`; policy
     blocks, CLS capture and train mode keep the wrappers above.
+
+    Elementwise dropout (`drop`: the projection's and the MLP's outputs and
+    its hidden activation; `attn_drop`: the attention probabilities) acts in
+    train mode alone, its masks drawn from the `generator`
+    (`dropout_keep_mask`). It has no whole-block kernel: as in the JAX Block
+    (`nn/layers.py:225-253`), a fused block in train mode with dropout takes
+    LN1, the attention (the packed core, with its CLS rows where captured;
+    plain attention where attn_drop > 0), DropPath, then the plain Mlp with
+    DropPath, and warns once. Eval mode keeps the whole-block kernel.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  drop_path: float = 0.0, layer_norm_eps: float = 1e-6,
-                 use_fused: bool = False, quant: str = "none"):
+                 use_fused: bool = False, quant: str = "none", drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         if quant not in ("none", "int8") or (quant == "int8" and not use_fused):
             raise ValueError(f"quant={quant!r}: 'none', or 'int8' with use_fused")
         self.use_fused = use_fused
         self.quant = quant
+        self.drop = drop
+        self.attn_drop = attn_drop
         self.norm1 = LayerNorm(dim, eps=layer_norm_eps)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, use_fused=use_fused)
         self.drop_path = DropPath(drop_path)
@@ -283,8 +344,8 @@ class Block(nn.Module):
         """(B, N, C) -> (B, N, C); with `return_cls_attn`, (out, cls_attn)
         with the (B, H, N) CLS row of the attention probabilities. policy:
         an optional (B, N) or (B, N, 1) keep mask (1 = kept), CLS included.
-        generator: the source of the DropPath draws, which train mode with
-        drop_path > 0 needs."""
+        generator: the source of the DropPath draws and the dropout masks,
+        which train mode with drop_path, drop or attn_drop > 0 needs."""
         if policy is not None:
             policy = policy.reshape(x.shape[0], x.shape[1])
         if (self.quant == "int8" and not self.training and policy is None
@@ -298,7 +359,15 @@ class Block(nn.Module):
                 raise ValueError("a training block with drop_path > 0 draws its DropPath "
                                  "scales: pass a torch.Generator")
             sa, sm = draw_branch_scales(x.shape[0], self.drop_path.rate, generator)
-        if self.use_fused and not (return_cls_attn and sa is not None):
+        drop, attn_drop = (self.drop, self.attn_drop) if self.training else (0.0, 0.0)
+        if drop > 0.0 or attn_drop > 0.0:
+            if generator is None:
+                raise ValueError("a training block with dropout draws its masks: pass a "
+                                 "torch.Generator")
+            if self.use_fused:
+                _warn_unfused_dropout(drop, attn_drop)
+        if (self.use_fused and drop == 0.0 and attn_drop == 0.0
+                and not (return_cls_attn and sa is not None)):
             if self.training and return_cls_attn:
                 y, cls_attn = self.attn(self.norm1(x), policy, return_cls_attn=True)
                 x = x + y
@@ -317,9 +386,10 @@ class Block(nn.Module):
                     x, w, self.attn.num_heads, policy,
                     branch_scales=None if sa is None else (sa, sm), **kw)
             return fused_transformer_block(x, w, self.attn.num_heads, policy, **kw)
-        y = self.attn(self.norm1(x), policy, return_cls_attn=return_cls_attn)
+        y = self.attn(self.norm1(x), policy, return_cls_attn=return_cls_attn,
+                      attn_drop=attn_drop, proj_drop=drop, generator=generator)
         if return_cls_attn:
             y, cls_attn = y
         x = x + self.drop_path(y, sa)
-        x = x + self.drop_path(self.mlp(self.norm2(x)), sm)
+        x = x + self.drop_path(self.mlp(self.norm2(x), drop, generator), sm)
         return (x, cls_attn) if return_cls_attn else x

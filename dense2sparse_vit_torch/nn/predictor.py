@@ -1,39 +1,70 @@
-"""Token-importance score predictor, LayerNorm variants (port of
-`dense2sparse_vit_tpu/nn/predictor.py::PredictorLG`).
+"""Token-importance score predictor (port of
+`dense2sparse_vit_tpu/nn/predictor.py::PredictorLG`), with LayerNorm or
+BatchNorm units.
 
   small: in = LN -> Linear(d->d) -> GELU;  out = [LN -> Linear -> GELU] x2
          (d -> d/2 -> d/4), then LN -> Linear(->1)
   large: in = LN -> Linear(d->4d) -> ReLU; out = [LN -> Linear -> ReLU] x4
          (4d -> 2d -> d -> d/2 -> d/4), then LN -> Linear(->1)
-Between `in_conv` and `out_conv` the channels split into a per-token local
-half and a global half mean-pooled over the tokens. LayerNorm eps is 1e-5
-(torch's default, which the reference predictor keeps), not the backbone's
-1e-6. The `in_conv` / `out_conv` sequentials give the reference torch key
-layout (`score_predictor.{p}.out_conv.{0,1,3,4,6,7}...`).
+With `use_bn` (the reference's --predictor-bn) every LayerNorm is a
+`BatchNormLayer` and every activation a ReLU. Between `in_conv` and
+`out_conv` the channels split into a per-token local half and a global half
+mean-pooled over the tokens. LayerNorm eps is 1e-5 (torch's default, which
+the reference predictor keeps), not the backbone's 1e-6. The `in_conv` /
+`out_conv` sequentials give the reference torch key layout
+(`score_predictor.{p}.out_conv.{0,1,3,4,6,7}...`, a BatchNorm's under
+`...{m}.bn.`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from dense2sparse_vit_torch.nn.layers import LayerNorm, Linear, compute_weights
 from dense2sparse_vit_torch.ops.predictor import (
     fused_predictor_lg,
+    local_global,
     predictor_lg_reference,
 )
 
 PREDICTOR_LN_EPS = 1e-5
 
 
-def _units(c_in, widths, act, final):
+class BatchNormLayer(nn.Module):
+    """The reference's BatchNormLayer: `nn.BatchNorm1d` over the channels of
+    (B, N, C) tokens, the batch and token axes reduced together, in fp32,
+    returning the input's dtype (JAX `nn/predictor.py::TorchBatchNorm`). In
+    train mode the batch is normalised with its biased variance and the
+    running statistics take the unbiased one, momentum 0.1, eps 1e-5; eval
+    mode normalises with the running statistics. The module sits under
+    `bn`, as the reference's keys have it."""
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.bn = nn.BatchNorm1d(features, eps=eps, momentum=momentum)
+
+    def forward(self, x):
+        bn = self.bn
+        if self.training:
+            bn.num_batches_tracked.add_(1)
+        y = F.batch_norm(x.float().reshape(-1, x.shape[-1]), bn.running_mean, bn.running_var,
+                         bn.weight, bn.bias, training=self.training, momentum=bn.momentum,
+                         eps=bn.eps)
+        return y.view(x.shape).to(x.dtype)
+
+
+def _units(c_in, widths, act, final, use_bn):
+    def norm(c):
+        return BatchNormLayer(c) if use_bn else LayerNorm(c, eps=PREDICTOR_LN_EPS)
+
     mods = []
     for w in widths:
-        mods += [LayerNorm(c_in, eps=PREDICTOR_LN_EPS), Linear(c_in, w),
-                 nn.GELU() if act == "gelu" else nn.ReLU()]
+        mods += [norm(c_in), Linear(c_in, w), nn.GELU() if act == "gelu" else nn.ReLU()]
         c_in = w
     if final:
-        mods += [LayerNorm(c_in, eps=PREDICTOR_LN_EPS), Linear(c_in, 1)]
+        mods += [norm(c_in), Linear(c_in, 1)]
     return nn.Sequential(*mods)
 
 
@@ -47,21 +78,26 @@ class PredictorLG(nn.Module):
     a CUDA tensor). In train mode the predictor always runs its plain torch
     layers under autograd, as the JAX package's PredictorLG takes its flax
     path whenever the model is not deterministic (`nn/predictor.py:142-147`):
-    the predictor kernel has no backward, there or here.
+    the predictor kernel has no backward, there or here. The BatchNorm
+    predictor (`use_bn`) never takes the kernel, as in the JAX package: its
+    layers run as they are, with batch statistics in train mode (updating
+    the running ones) and the running statistics in eval mode.
     """
 
     def __init__(self, embed_dim: int, small_predictor: bool = False,
-                 loss_type: str = "kl_div", use_fused: bool = False):
+                 loss_type: str = "kl_div", use_fused: bool = False, use_bn: bool = False):
         super().__init__()
         d = embed_dim
         if small_predictor:
-            self.act, in_w, out_w = "gelu", (d,), (d // 2, d // 4)
+            in_w, out_w = (d,), (d // 2, d // 4)
+            self.act = "relu" if use_bn else "gelu"
         else:
             self.act, in_w, out_w = "relu", (4 * d,), (2 * d, d, d // 2, d // 4)
         self.loss_type = loss_type
         self.use_fused = use_fused
-        self.in_conv = _units(d, in_w, self.act, final=False)
-        self.out_conv = _units(in_w[-1], out_w, self.act, final=True)
+        self.use_bn = use_bn
+        self.in_conv = _units(d, in_w, self.act, final=False, use_bn=use_bn)
+        self.out_conv = _units(in_w[-1], out_w, self.act, final=True, use_bn=use_bn)
 
     def kernel_weights(self, dtype: torch.dtype) -> dict:
         """The weights in the layout `fused_predictor_lg` takes."""
@@ -75,11 +111,12 @@ class PredictorLG(nn.Module):
                 "final": pairs[-1], "act": self.act}
 
     def forward(self, x):
-        w = self.kernel_weights(x.dtype)
-        if self.use_fused and not self.training:
-            scores = fused_predictor_lg(x, w, PREDICTOR_LN_EPS)
+        if self.use_bn:
+            scores = self.out_conv(local_global(self.in_conv(x)))[..., 0]
+        elif self.use_fused and not self.training:
+            scores = fused_predictor_lg(x, self.kernel_weights(x.dtype), PREDICTOR_LN_EPS)
         else:
-            scores = predictor_lg_reference(x, w, PREDICTOR_LN_EPS)
+            scores = predictor_lg_reference(x, self.kernel_weights(x.dtype), PREDICTOR_LN_EPS)
         if self.loss_type in ("kl_div", "mse"):
             keep_probs = torch.softmax(scores.float(), dim=-1)
         else:

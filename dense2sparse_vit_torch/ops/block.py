@@ -80,12 +80,15 @@ def linear(x, weight, bias):
 
 def attention_reference(qkv: torch.Tensor, num_heads: int, scale: float, *,
                         policy: torch.Tensor | None = None, eps: float = 1e-6,
-                        return_cls: bool = False):
+                        return_cls: bool = False, prob_dropout=None):
     """Multi-head attention on packed (B, N, 3C) qkv -> (B, N, C).
 
     Scores in fp32, exact softmax (with a (B, N) `policy`, the policy
     softmax with smoothing `eps`), probabilities in the compute dtype. With
     `return_cls`, also the (B, H, N) CLS (query 0) row of the probabilities.
+    prob_dropout: a function applied to the (B, H, N, N) probabilities
+    before P.V (attention dropout); the CLS row is taken after it, as the
+    JAX Attention takes it (`nn/layers.py:163-175`).
     """
     B, N, C3 = qkv.shape
     C = C3 // 3
@@ -98,6 +101,8 @@ def attention_reference(qkv: torch.Tensor, num_heads: int, scale: float, *,
     else:
         p = softmax_with_policy(s, policy, eps)
     p = p.to(qkv.dtype)
+    if prob_dropout is not None:
+        p = prob_dropout(p)
     out = torch.matmul(p, v).transpose(1, 2).reshape(B, N, C)
     if return_cls:
         return out, p[:, :, 0]

@@ -44,16 +44,21 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
     return F.relu(h)
 
 
+def local_global(h: torch.Tensor) -> torch.Tensor:
+    """The predictor's local/global split: (B, N, c) with channels [c/2:]
+    replaced by their mean over the tokens (in fp32, rounded to h.dtype)."""
+    c2 = h.shape[-1] // 2
+    glob = h[..., c2:].float().mean(dim=1, keepdim=True).to(h.dtype)
+    return torch.cat([h[..., :c2], glob.expand(-1, h.shape[1], -1)], -1)
+
+
 def predictor_lg_reference(x: torch.Tensor, w: dict, eps: float = 1e-5):
     """Plain torch version of `fused_predictor_lg`."""
     h = x
     for i, (ln_w, ln_b, weight, bias) in enumerate(w["units"]):
         h = _act(linear(layer_norm(h, ln_w, ln_b, eps), weight, bias), w["act"])
         if i == w["n_in"] - 1:
-            # local/global split: channels [c/2:] become the per-sample mean
-            c2 = h.shape[-1] // 2
-            glob = h[..., c2:].float().mean(dim=1, keepdim=True).to(h.dtype)
-            h = torch.cat([h[..., :c2], glob.expand(-1, h.shape[1], -1)], -1)
+            h = local_global(h)
     ln_w, ln_b, weight, bias = w["final"]
     return linear(layer_norm(h, ln_w, ln_b, eps), weight, bias)[..., 0]
 

@@ -13,6 +13,7 @@ from dense2sparse_vit_torch.train.schedule import (
     current_keep_ratio,
     current_patch_score_threshold,
     predictor_lr,
+    sigma_schedule,
 )
 from dense2sparse_vit_torch.train.train_step import (
     make_dynamic_vit_eval_step,
@@ -25,5 +26,5 @@ __all__ = [
     "GROUPS", "ScheduledAdamW", "backbone_lr", "cosine_lr", "current_keep_ratio",
     "current_patch_score_threshold", "label_params",
     "make_dynamic_vit_eval_step", "make_dynamic_vit_train_step", "make_eval_step",
-    "make_optimizer", "make_train_step", "predictor_lr",
+    "make_optimizer", "make_train_step", "predictor_lr", "sigma_schedule",
 ]

@@ -10,7 +10,8 @@ device: the card unless the caller asks for the CPU.
 Per train step, on the device: the uint8 batch (copied from pinned memory
 without waiting) is normalised, randomly erased and mixed (mixup/cutmix);
 the step's generator, from which all of these and the step's own draws
-(DropPath, the performer's dropout, the gumbel noise) come, is seeded from
+(DropPath, dropout masks, the gumbel noise, random scores, the soft top-k
+noise) come, is seeded from
 (seed, epoch, step); and the host transform's generator of a sample from
 (seed, epoch, index) (`data/pipeline.py`). So a resumed run takes the same
 batches and draws as an uninterrupted one. The metrics are summed on the

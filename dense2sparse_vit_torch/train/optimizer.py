@@ -2,11 +2,12 @@
 `dense2sparse_vit_tpu/train/optimizer.py`).
 
 Groups, by parameter name (the rules of the JAX package's `label_params`
-for the modules the port has; it has no early-exit head or distillation
-token):
+for the modules the port has; it has no distillation token):
   frozen        cls_token, pos_embed and the T2T performer's projection
                 (`tokens_to_token.attention{1,2}.w`, JAX `prm_w`): in no
                 group, never updated (optax's set_to_zero)
+  early_exit    the early-exit head, its LayerNorm bias included: the
+                predictors' schedule and weight decay
   predictor     the score predictors: the cosine lr, weight decay
   base_no_decay 1-D parameters and biases: the backbone's lr, no decay
   base_decay    everything else: the backbone's lr, weight decay
@@ -19,6 +20,12 @@ steps leave the parameters as they are. `count` and the schedules count
 updates, not micro-steps, and the mean carries across epoch boundaries.
 The mean and the micro-step counter are in the optimizer's state_dict, with
 `count`, so a checkpoint taken mid-cycle resumes exactly.
+
+optax updates every parameter of a group, a zero gradient included (its
+moments decay and weight decay shrinks it); torch's AdamW skips a
+parameter without a `.grad`. So step() gives such a parameter a zero
+gradient first: the unused predictors of a teacher-CLS student train as
+they do in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import torch.nn as nn
 from dense2sparse_vit_torch.core.config import TrainConfig
 from dense2sparse_vit_torch.train import schedule as sched
 
-GROUPS = ("predictor", "base_decay", "base_no_decay")
+GROUPS = ("predictor", "early_exit", "base_decay", "base_no_decay")
 
 
 def _is_performer_projection(name: str) -> bool:
@@ -49,6 +56,8 @@ def label_params(model: nn.Module) -> Dict[str, str]:
         n = name.lower()
         if "cls_token" in n or "pos_embed" in n or _is_performer_projection(n):
             return "frozen"
+        if "early_exit" in n:
+            return "early_exit"
         if "score_predictor" in n:
             return "predictor"
         if p.dim() <= 1 or n.endswith("bias"):
@@ -83,7 +92,7 @@ class ScheduledAdamW(torch.optim.AdamW):
         self.accum: Dict[torch.Tensor, torch.Tensor] = {}
 
     def group_lr(self, label: str, epoch) -> float:
-        if label == "predictor":
+        if label in ("predictor", "early_exit"):
             return sched.predictor_lr(epoch, self.cfg)
         return sched.backbone_lr(epoch, self.cfg, warmup_freeze=self.backbone_warmup_freeze)
 
@@ -92,6 +101,9 @@ class ScheduledAdamW(torch.optim.AdamW):
 
     @torch.no_grad()
     def step(self, closure=None):
+        for p in self._params():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.accum_steps > 1:
             # optax MultiSteps: the running mean acc + (g - acc) / (n + 1)
             n = self.mini_step
@@ -147,8 +159,8 @@ def make_optimizer(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int,
     baseline; JAX `make_optimizer`'s switch of the same name)."""
     labels = label_params(model)
     params = dict(model.named_parameters())
-    wd = {"predictor": cfg.weight_decay, "base_decay": cfg.weight_decay,
-          "base_no_decay": 0.0}
+    wd = {"predictor": cfg.weight_decay, "early_exit": cfg.weight_decay,
+          "base_decay": cfg.weight_decay, "base_no_decay": 0.0}
     groups = []
     for g in GROUPS:
         members = [params[n] for n, lbl in labels.items() if lbl == g]

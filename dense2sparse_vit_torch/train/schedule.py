@@ -1,6 +1,5 @@
-"""Learning-rate schedules and the keep-ratio and threshold curricula (port
-of `dense2sparse_vit_tpu/train/schedule.py`; soft top-k's sigma schedule is
-not ported, as soft top-k is not).
+"""Learning-rate schedules, soft top-k's noise schedule and the keep-ratio
+and threshold curricula (port of `dense2sparse_vit_tpu/train/schedule.py`).
 
 Pure functions of the epoch, which may be a Python number or a tensor; the
 schedules step once per epoch.
@@ -44,6 +43,13 @@ def backbone_lr(epoch, cfg: TrainConfig, warmup_freeze: bool = True):
     if tensor:
         return torch.where(epoch < cfg.warmup_epochs, torch.zeros_like(lr), lr)
     return 0.0 if epoch < cfg.warmup_epochs else lr
+
+
+def sigma_schedule(epoch, epochs: int, initial_sigma: float = 0.05):
+    """Perturbed top-k's noise std: linear from initial_sigma at epoch 0 to
+    0 at `epochs`, then 0."""
+    sigma = (1.0 - epoch / epochs) * initial_sigma
+    return torch.clamp(sigma, min=0.0) if isinstance(sigma, torch.Tensor) else max(sigma, 0.0)
 
 
 def current_keep_ratio(epoch, min_ratio: float = 0.3, ramp_epochs: int = 90):

@@ -2,14 +2,21 @@
 train_step.py::make_train_step`, `::make_dynamic_vit_train_step`,
 `::make_eval_step` and `::make_dynamic_vit_eval_step`).
 
-`make_train_step`, for `DiffPruningStudent` in top-k or threshold mode: the
+`make_train_step`, for `DiffPruningStudent` in every selection mode: the
 frozen teacher's forward without gradients, or with `cached_teacher` its
 outputs looked up from the teacher cache (`train/teacher_cache.py`); the
 student in train mode (the JAX model's deterministic=False,
 collect_cls_attns=False, which the attn selection overrides: it ranks by
-the student's own CLS rows); mask loss + (epoch >= warmup_epochs) *
-backbone loss, the class term a soft-target CE under mixup; backward; the
-AdamW update (an accumulation micro-step under grad_accum_steps > 1).
+the student's own CLS rows), given the teacher's CLS-attention stack with
+cls_from_teacher and soft top-k at `sigma_schedule(epoch)` with
+differentiable_topk, its forward recomputed in the backward with
+`ModelConfig.remat` (not with the BatchNorm predictor, whose running
+statistics would move twice: the JAX step ignores remat there too); mask
+loss + (epoch >= warmup_epochs) * backbone loss (+ the early-exit head's
+CE with early_exit), the class terms soft-target CEs under mixup;
+backward; the AdamW update (an accumulation micro-step under
+grad_accum_steps > 1). A BatchNorm predictor's running statistics move at
+every (micro-)step, as the JAX step's mutable batch_stats do.
 `make_dynamic_vit_train_step`, for the gumbel baseline: the teacher (or its
 cached rows), the student's gumbel-policy forward, the DynamicViT
 distillation loss (with the predictors' BCE against the teacher's mask if
@@ -30,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dense2sparse_vit_torch.core.config import ExperimentConfig, reject_unported
+from dense2sparse_vit_torch.core.config import ExperimentConfig
 from dense2sparse_vit_torch.data.pipeline import device_normalize
 from dense2sparse_vit_torch.losses import (
     aggregate_teacher_cls_attn,
@@ -39,7 +46,9 @@ from dense2sparse_vit_torch.losses import (
     mask_loss,
     predictor_bce_vs_teacher,
 )
+from dense2sparse_vit_torch.losses.backbone_loss import cross_entropy, soft_target_cross_entropy
 from dense2sparse_vit_torch.train.optimizer import ScheduledAdamW
+from dense2sparse_vit_torch.train.schedule import sigma_schedule
 
 
 def prepare_images(images: torch.Tensor, cfg: ExperimentConfig) -> torch.Tensor:
@@ -70,6 +79,34 @@ def teacher_outputs(teacher: nn.Module, teacher_in: Optional[dict], images: torc
             "token_entropy": None, "attns": t_attns, "target": None}
 
 
+def remat_forward(run: Callable, generator: Optional[torch.Generator], *args):
+    """`run(*args)` under activation checkpointing (the JAX step's
+    jax.checkpoint around the student's forward): autograd keeps none of its
+    activations and recomputes the forward in the backward. The recompute
+    draws from `generator` as the forward did: torch's checkpoint restores
+    the global RNG states, not a generator passed in, so the generator's
+    state at the forward is set again for the recompute (and its state then
+    put back), and DropPath scales, dropout masks and selection noise come
+    out the same."""
+    from torch.utils.checkpoint import checkpoint
+
+    state = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def fn(*a):
+        calls[0] += 1
+        if calls[0] == 1 or generator is None:
+            return run(*a)
+        now = generator.get_state()
+        generator.set_state(state)
+        try:
+            return run(*a)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def make_train_step(
     student: nn.Module,
     teacher: nn.Module,
@@ -91,13 +128,15 @@ def make_train_step(
     (DropPath's branch scales, a T2T performer stem's dropout) come from the
     call's `generator`, else the one given here, by default one seeded
     with TrainConfig.seed on the images' device at the first step. After the
-    step every trained parameter's `.grad` holds this step's gradient. In
+    step every trained parameter's `.grad` holds this step's gradient (zero
+    for one the loss does not reach, such as the unused predictors of a
+    teacher-CLS student, which AdamW still decays, as optax does). In
     threshold mode the student's per-stage keep masks chain the mask loss's
-    target and its last mask restricts the token KL. The student rejects
-    early exit, soft top-k, teacher-CLS selection and the BatchNorm
-    predictor.
+    target and its last mask restricts the token KL. The metrics add
+    `early_exit_loss` with early_exit.
     """
     tr, pr = cfg.train, cfg.pruning
+    remat = cfg.model.remat and not pr.predictor_bn
     draws = [generator]
 
     def step(images: torch.Tensor, labels: torch.Tensor, epoch,
@@ -111,7 +150,15 @@ def make_train_step(
         student.train()
         t = teacher_outputs(teacher, teacher_in, images, cached_teacher)
         # no loss reads the student's own CLS rows (JAX `train_step.py:172`)
-        out = student(images, collect_cls_attns=False, generator=generator)
+        kwargs = dict(collect_cls_attns=False, generator=generator)
+        if pr.cls_from_teacher:
+            kwargs["teacher_cls_attns"] = t["attns"]
+        if pr.differentiable_topk:
+            kwargs.update(soft_topk=True, sigma=sigma_schedule(epoch, tr.epochs, pr.initial_sigma))
+        if remat:
+            out = remat_forward(lambda x: student(x, **kwargs), generator, images)
+        else:
+            out = student(images, **kwargs)
         m_loss, m_metrics = mask_loss(
             out.pred_logits, t["attns"], out.kept_idx, pr.keep_ratios,
             loss_type=pr.mask_loss_type, mean_heads=pr.mean_heads,
@@ -125,6 +172,12 @@ def make_train_step(
         )
         # warmup gate: the mask loss alone for the first warmup epochs
         loss = m_loss + float(epoch >= tr.warmup_epochs) * b_loss
+        if pr.early_exit and out.early_exit_logits is not None:
+            ee_logits = out.early_exit_logits.float()
+            ee = (soft_target_cross_entropy(ee_logits, labels) if mixup_active
+                  else cross_entropy(ee_logits, labels))
+            loss = loss + ee
+            m_metrics = {**m_metrics, "early_exit_loss": ee}
         student.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
@@ -155,7 +208,10 @@ def make_dynamic_vit_train_step(
     cache's target where cached). `epoch` is taken for the same signature
     and unused: the recipe has no warmup gate. The gumbel noise comes from
     the call's `generator`, else the one given here, by default one seeded with
-    TrainConfig.seed on the images' device at the first step.
+    TrainConfig.seed on the images' device at the first step. With
+    `ModelConfig.remat` the student's forward is recomputed in the backward
+    (`remat_forward`) with the same draws; the JAX step has no remat, and
+    the gradients are the same either way.
     """
     tr, pr = cfg.train, cfg.pruning
     noise = [generator]
@@ -171,7 +227,10 @@ def make_dynamic_vit_train_step(
             generator = noise[0]
         student.train()
         t = teacher_outputs(teacher, teacher_in, images, cached_teacher)
-        out = student(images, generator=generator)
+        if cfg.model.remat:
+            out = remat_forward(lambda x: student(x, generator=generator), generator, images)
+        else:
+            out = student(images, generator=generator)
         loss, metrics = dynamic_vit_distill_loss(
             out.logits, out.features, t["logits"], t["tokens"], labels, out.pred_keep_probs,
             out.decisions, pr.keep_ratios, cls_weight=tr.cls_weight,
@@ -193,15 +252,6 @@ def make_dynamic_vit_train_step(
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
-
-
-def _reject_unported_eval(cfg: ExperimentConfig) -> None:
-    pr = cfg.pruning
-    reject_unported({
-        "selection == 'random'": pr.selection == "random",
-        "cls_from_teacher": pr.cls_from_teacher,
-        "predictor_bn": pr.predictor_bn,
-    })
 
 
 def _masked_scores(labels: torch.Tensor):
@@ -230,12 +280,13 @@ def make_eval_step(student: nn.Module, teacher: nn.Module, cfg: ExperimentConfig
     the teacher's CLS rows plus the CE: `val_<mask metrics>`, `val_loss`,
     `val_cls_loss`, `val_acc`, `unpruned_acc`, `teacher_acc`, `n_valid`,
     and in threshold mode `min/avg/max_keep_ratio`. Rows with label -1 are
-    padding and count in no metric. Runs without gradients. The options the
-    port does not have (random and teacher-CLS selection, the BatchNorm
-    predictor) are rejected.
+    padding and count in no metric. Runs without gradients. Both student
+    forwards get the teacher's CLS-attention stack with cls_from_teacher;
+    random selection draws from a generator seeded with 0 at each call, and
+    a BatchNorm predictor normalises with its running statistics (JAX
+    `train_step.py:397-420`).
     """
     pr = cfg.pruning
-    _reject_unported_eval(cfg)
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor, labels: torch.Tensor) -> dict:
@@ -245,8 +296,11 @@ def make_eval_step(student: nn.Module, teacher: nn.Module, cfg: ExperimentConfig
         n_valid, accuracy, cross_entropy = _masked_scores(labels)
         t_logits, _, t_attns = teacher(images)
         # no eval metric reads the student's own CLS rows (JAX `train_step.py:415`)
-        out = student(images, collect_cls_attns=False)
-        out_unpruned = student(images, unpruned=True, collect_cls_attns=False)
+        kwargs = dict(collect_cls_attns=False)
+        if pr.cls_from_teacher:
+            kwargs["teacher_cls_attns"] = t_attns
+        out = student(images, **kwargs)
+        out_unpruned = student(images, unpruned=True, **kwargs)
         m_loss, m_metrics = mask_loss(
             out.pred_logits, t_attns, out.kept_idx, pr.keep_ratios,
             loss_type=pr.mask_loss_type, mean_heads=pr.mean_heads, keep_masks=out.keep_masks,

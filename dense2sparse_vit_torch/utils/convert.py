@@ -12,6 +12,16 @@ JAX package (which this package must not import):
   score_predictor_{p}/in_{j}    -> score_predictor.{p}.in_conv.{3j, 3j+1}
   score_predictor_{p}/out_{j}   -> score_predictor.{p}.out_conv.{3j, 3j+1}
   .../final_norm, final_dense   -> the last two entries of out_conv
+  early_exit_norm, early_exit_head -> early_exit_head.{0, 1}
+
+A BatchNorm predictor's norms (those with running statistics in the
+variables' 'batch_stats') sit one level lower, under `bn`, as the
+reference's BatchNormLayer has them (JAX `convert.py:227-251`):
+
+  .../norm scale, bias           -> ....{3j}.bn.weight, .bn.bias
+  batch_stats .../norm mean, var -> ....{3j}.bn.running_mean, .bn.running_var
+                                    (.bn.num_batches_tracked: 0, which JAX
+                                    does not count)
 
 and, for the gumbel baseline's `DynamicViTStudent` (whose predictor units
 are single layers, not LayerNorm + Dense pairs), the layout of the JAX
@@ -62,7 +72,12 @@ _DYNAMIC_VIT_UNITS = {"in_norm": "in_conv.0", "in_dense": "in_conv.1", "out_0": 
                       "out_1": "out_conv.2", "out_2": "out_conv.4"}
 
 
-def _predictor_key(path: Tuple[str, ...], n_out: int) -> str:
+_RUNNING = {"mean": "running_mean", "var": "running_var"}
+
+
+def _predictor_key(path: Tuple[str, ...], n_out: int, bn_norms: set = frozenset()) -> str:
+    """A predictor parameter's (or, for a path in `bn_norms`, which lists
+    the BatchNorm norms, a running statistic's) port key."""
     p = int(path[0].rsplit("_", 1)[1])
     unit = path[1]
     if len(path) == 3 and unit in _DYNAMIC_VIT_UNITS:  # a DynamicViTPredictor's layer
@@ -73,7 +88,10 @@ def _predictor_key(path: Tuple[str, ...], n_out: int) -> str:
         kind, j = unit.rsplit("_", 1)
         seq = "in_conv" if kind == "in" else "out_conv"
         idx = 3 * int(j) + (path[2] == "dense")
-    return f"score_predictor.{p}.{seq}.{idx}.{_leaf(path[-1])}"
+    leaf = path[-1]
+    if path[:-1] in bn_norms:
+        return f"score_predictor.{p}.{seq}.{idx}.bn.{_RUNNING.get(leaf) or _leaf(leaf)}"
+    return f"score_predictor.{p}.{seq}.{idx}.{_leaf(leaf)}"
 
 
 _STEM_CONVS = {"conv_0": "soft_split0", "conv_1": "soft_split1", "conv_2": "project"}
@@ -101,14 +119,18 @@ def _stem_key(path: Tuple[str, ...], attention_units: set) -> str:
 def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     """Map JAX `DiffPruningStudent` (with the DeiT or the T2T stem),
     `DynamicViTStudent`, `ViTTeacher` or `T2TViT` params (nested dicts of
-    arrays; a full variables dict with a 'params' entry is accepted) onto
-    the port's
-    state_dict keys. Returns numpy arrays: load them with
+    arrays) onto the port's state_dict keys. A full variables dict with a
+    'params' entry is accepted, and a BatchNorm predictor's 'batch_stats'
+    are mapped with it; the port's module then needs them. Returns numpy
+    arrays: load them with
     `model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})`.
     """
+    stats = {}
     if "params" in params and isinstance(params["params"], Mapping):
+        stats = _flatten(params.get("batch_stats") or {})
         params = params["params"]
     flat = _flatten(params)
+    bn_norms = {path[:-1] for path in stats}
     n_out: Dict[str, int] = {}
     for path in flat:
         if path[0].startswith("score_predictor_") and path[1].startswith("out_"):
@@ -127,7 +149,11 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         elif head.startswith("blocks_"):
             key = ".".join(("blocks", head[len("blocks_"):]) + path[1:-1] + (_leaf(path[-1]),))
         elif head.startswith("score_predictor_"):
-            key = _predictor_key(path, n_out[head])
+            key = _predictor_key(path, n_out[head], bn_norms)
+        elif head == "early_exit_norm":
+            key = f"early_exit_head.0.{_leaf(path[-1])}"
+        elif head == "early_exit_head":
+            key = f"early_exit_head.1.{_leaf(path[-1])}"
         elif head in ("patch_embed", "norm", "head"):
             key = ".".join(path[:-1] + (_leaf(path[-1]),))
         else:
@@ -135,4 +161,9 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         if path[-1] == "kernel":
             v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
         out[key] = np.array(v, order="C")  # a writable, contiguous copy
+    for path, v in stats.items():
+        out[_predictor_key(path, n_out[path[0]], bn_norms)] = np.array(v, order="C")
+    for path in bn_norms:
+        key = _predictor_key(path + ("mean",), n_out[path[0]], bn_norms)
+        out[key.replace("running_mean", "num_batches_tracked")] = np.array(0, np.int64)
     return out

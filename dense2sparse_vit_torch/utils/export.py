@@ -62,9 +62,11 @@ def export_student(student: nn.Module, batch_size: Optional[int] = None,
                    img_size: Optional[int] = None) -> bytes:
     """Serialise the student's eval forward (images -> fp32 logits).
 
-    student: a `DiffPruningStudent` (top-k or threshold, bf16 or int8) or a
+    student: a `DiffPruningStudent` (top-k, threshold, random or attn
+      selection; the LayerNorm or the BatchNorm predictor, whose running
+      statistics travel in the artifact as buffers; bf16 or int8) or a
       `DynamicViTStudent`, on the device the artifact is to run on; it is
-      put in eval mode.
+      put in eval mode. A teacher-CLS student is refused.
     batch_size: a fixed batch, or None for a symbolic batch dimension.
     img_size: the input resolution; defaults to the student's.
     Returns the artifact's bytes (`torch.export.save`).

@@ -26,6 +26,7 @@ from dense2sparse_vit_torch.ops.attention import (
     fused_attention_block_backward_policy,
     fused_attention_block_trainable,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, C, H = 2, 128, 2
 NAMES = ("ln_w", "ln_b", "wqkv", "bqkv", "wproj", "bproj")

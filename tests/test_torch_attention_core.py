@@ -18,6 +18,7 @@ import torch
 
 import dense2sparse_vit_tpu.ops.pallas.attention as jax_attention
 from dense2sparse_vit_torch.ops.attention import fused_attention_backward_packed
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, C, H = 2, 128, 2
 

@@ -52,6 +52,7 @@ from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 from test_torch_ops import _block_params, _port_block_state, load_numpy_state, random_like_tree
 from test_torch_train import _flax_block_params, _with_interpret
 from test_torch_train_step import _grad_probe
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODEL = dict(img_size=32, patch_size=8, embed_dim=128, depth=4, num_heads=2, num_classes=10)
 ATTN = dict(pruning_locs=(1, 2), keep_ratios=(0.7, 0.49), selection="attn")
@@ -314,9 +315,16 @@ def test_attn_student_has_no_predictor_and_maps_to_jax_params():
 
 
 def test_attn_selection_needs_a_block_before_its_first_stage():
-    with pytest.raises(NotImplementedError, match="stage at block 0"):
-        create_model(STUDENT, device="cpu", **MODEL, pruning_locs=(0,), keep_ratios=(0.5,),
-                     selection="attn")
+    """No block precedes a stage at block 0: there, as in the JAX model, the
+    attn student scores with a predictor (its only one, `score_predictor.0`),
+    and the later stages with the CLS rows (tests/test_torch_student_modes.py
+    holds it against JAX)."""
+    model = create_model(STUDENT, device="cpu", **MODEL, pruning_locs=(0, 2),
+                         keep_ratios=(0.7, 0.49), selection="attn")
+    assert len(model.score_predictor) == 1
+    with torch.no_grad():
+        out = model.eval()(torch.from_numpy(_images()))
+    assert [p.shape[1] for p in out.pred_logits] == [16, 11]
 
 
 def test_capture_off_takes_the_whole_block():

@@ -23,6 +23,7 @@ import torch
 import dense2sparse_vit_tpu.ops.pallas.attention as jax_attention
 
 from dense2sparse_vit_torch.scripts import attn_variants
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, N, C, H = 4, 20, 96, 6

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from dense2sparse_vit_tpu.nn.predictor import TorchBatchNorm
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _run_pair(shape, steps=3, seed=0):

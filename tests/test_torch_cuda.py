@@ -46,6 +46,7 @@ from dense2sparse_vit_torch.utils.export import export_student, load_exported
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2

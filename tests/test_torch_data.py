@@ -26,6 +26,7 @@ from dense2sparse_vit_tpu.data import split as jax_split
 
 from dense2sparse_vit_torch.core.config import DataConfig
 from dense2sparse_vit_torch.data import mixup, pipeline, split
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # small views: the eval transform resizes the short side to 36 and crops 32
 VIEW = dict(eval_resize=36, eval_crop=32)

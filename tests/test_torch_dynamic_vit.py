@@ -54,6 +54,7 @@ from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 from test_torch_ops import load_numpy_state, random_like_tree
 from test_torch_train import MODEL, _images, _labels, _teacher_params, _with_interpret
 from test_torch_train_step import STEPS_PER_EPOCH, TRAIN, _grad_probe, _set_schedule_count
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, N = 2, 16
 DPRUNING = dict(pruning_locs=(1, 2, 3), keep_ratios=(0.7, 0.49, 0.343), selection="gumbel")

@@ -34,6 +34,7 @@ from test_torch_dynamic_vit import _student_params as _gumbel_params
 from test_torch_ops import load_numpy_state
 from test_torch_quant import _jax_interpret
 from test_torch_train import MODEL, PRUNING, _student_params, _teacher_params
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TEACHER = "dynamic_vit_small_patch16_224_teacher"
 STUDENT = "dynamic_vit_small_patch16_224_student"
@@ -151,7 +152,14 @@ def test_eval_step_masks_every_padded_row():
 @pytest.mark.parametrize("field,value", [
     ("selection", "random"), ("cls_from_teacher", True), ("predictor_bn", True)])
 def test_eval_step_rejects_unported_options(field, value):
-    student = create_model(STUDENT, device="cpu", **MODEL, **PRUNING)
+    """Random and teacher-CLS selection and the BatchNorm predictor are
+    ported now (tests/test_torch_student_modes.py holds their eval step
+    against JAX's): make_eval_step takes them and its metrics are finite,
+    with the padded row left out."""
+    student = create_model(STUDENT, device="cpu", **MODEL, **PRUNING, **{field: value})
+    teacher = create_model("dynamic_vit_small_patch16_224_teacher", device="cpu", **MODEL)
     cfg = ExperimentConfig(model=student.cfg, pruning=PruningConfig(**PRUNING, **{field: value}))
-    with pytest.raises(NotImplementedError, match=field):
-        make_eval_step(student, student, cfg)
+    got = make_eval_step(student, teacher, cfg)(torch.from_numpy(_images()),
+                                                torch.tensor([1, 2, -1, 3]))
+    assert got["n_valid"].item() == 3
+    assert all(torch.isfinite(v).all() for v in got.values())

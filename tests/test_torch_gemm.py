@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from dense2sparse_vit_torch.ops.gemm import ln_gemm, weight_grad
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 # (option name, M rows as samples x rows, N, K)

@@ -63,6 +63,7 @@ from test_torch_data import write_folder
 from test_torch_dynamic_vit import _jax_keep_from, _port_noise
 from test_torch_ops import REPO, load_numpy_state, random_like_tree
 from test_torch_train_step import _grad_probe
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODEL = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=2, num_classes=10)
 PRUNING = dict(pruning_locs=(0, 1), keep_ratios=(0.7, 0.49), small_predictor=True)
@@ -461,6 +462,15 @@ def test_parse_config_matches_jax(argv):
     (["--dist-num-processes", "2"], "more than one process"),
 ])
 def test_unported_flags_raise_naming_themselves(argv, name):
+    """--remat and --initial-sigma are ported now: they reach the config as
+    the JAX CLI's do. More than one process is still refused, naming it."""
+    if name.startswith("--"):
+        got, _ = cli.parse_config(argv)
+        want, _ = jax_cli.parse_config(argv)
+        assert got.model.remat == want.model.remat == (name == "--remat")
+        assert got.pruning.initial_sigma == want.pruning.initial_sigma
+        assert got.pruning.initial_sigma == (0.1 if name == "--initial-sigma" else 0.05)
+        return
     with pytest.raises(NotImplementedError, match=name):
         cli.parse_config(argv)
 
@@ -473,9 +483,20 @@ def test_unported_flags_raise_naming_themselves(argv, name):
     ("--early-exit", "early_exit"),
 ])
 def test_unported_features_raise_in_the_loop(folder, tmp_path, flag, name):
-    cfg, _ = cli.parse_config(_small_argv(folder) + [flag])
-    with pytest.raises(NotImplementedError, match=name):
-        loop.run_experiment(cfg, str(tmp_path), device="cpu")
+    """Visualization is still refused, naming itself. --random-drop,
+    --cls-from-teacher and --early-exit are ported now: one epoch of one
+    step runs through run_experiment and its eval, and the summary is
+    finite."""
+    cfg, _ = cli.parse_config(_small_argv(folder, "--epochs", "1") + [flag])
+    if name.startswith("visualize"):
+        with pytest.raises(NotImplementedError, match=name):
+            loop.run_experiment(cfg, str(tmp_path), device="cpu")
+        return
+    assert {"random": cfg.pruning.selection == "random",
+            "cls_from_teacher": cfg.pruning.cls_from_teacher,
+            "early_exit": cfg.pruning.early_exit}[name]
+    summary = loop.run_experiment(cfg, str(tmp_path), device="cpu", max_steps_per_epoch=1)
+    assert summary["epochs"] == 1 and np.isfinite(summary["best_val_acc"])
 
 
 def test_the_loop_refuses_what_it_cannot_do(folder, tmp_path):

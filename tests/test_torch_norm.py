@@ -19,6 +19,7 @@ import torch
 import dense2sparse_vit_torch.ops.gemm as gemm_ops
 import dense2sparse_vit_torch.ops.norm as norm_ops
 from dense2sparse_vit_torch import ops
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EPS = 1e-6
 

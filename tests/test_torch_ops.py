@@ -38,6 +38,7 @@ from dense2sparse_vit_torch.ops.predictor import (
 )
 from dense2sparse_vit_torch.ops.topk import topk_keep_indices
 from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -318,7 +319,10 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.data.augment, dense2sparse_vit_torch.data.pipeline, "
         "dense2sparse_vit_torch.data.mixup, dense2sparse_vit_torch.train.loop, "
         "dense2sparse_vit_torch.train.teacher_cache, dense2sparse_vit_torch.train.schedule, "
-        "dense2sparse_vit_torch.utils.checkpoint, dense2sparse_vit_torch.utils.logging\n"
+        "dense2sparse_vit_torch.utils.checkpoint, dense2sparse_vit_torch.utils.logging, "
+        "dense2sparse_vit_torch.ops.perturbed_topk, dense2sparse_vit_torch.nn.predictor, "
+        "dense2sparse_vit_torch.train.train_step, dense2sparse_vit_torch.train.optimizer, "
+        "dense2sparse_vit_torch.models.registry\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"

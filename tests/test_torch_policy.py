@@ -37,6 +37,7 @@ from dense2sparse_vit_torch.ops.masked_softmax import softmax_with_policy
 from dense2sparse_vit_torch.ops.topk import threshold_keep_mask
 from test_torch_ops import _block_params, _port_block_state, load_numpy_state
 from test_torch_train import BLOCK_KEYS
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BN, BC, BH = 13, 64, 2
 EPS = (1e-6, 0.1)

@@ -24,6 +24,7 @@ from dense2sparse_vit_torch.utils.profiling import (
     time_call,
     trace,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODEL = dict(img_size=32, patch_size=8, embed_dim=128, depth=4, num_heads=2, num_classes=10)
 PRUNING = dict(pruning_locs=(1, 2), keep_ratios=(0.7, 0.49), small_predictor=True)

@@ -21,6 +21,7 @@ import torch
 from dense2sparse_vit_torch.nn.layers import Block
 from dense2sparse_vit_torch.ops.quant import qgemm, qgemm_reference, quant_block_reference
 from dense2sparse_vit_torch.scripts import checkout_ab
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF16_U = 2.0 ** -8
 GELU_TOL = 1e-6

@@ -39,6 +39,7 @@ from dense2sparse_vit_torch.ops.quant import (
 )
 from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 from test_torch_ops import _block_params, load_numpy_state, random_like_tree
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 C, H, HIDDEN = 128, 2, 512
 MODEL = dict(img_size=32, patch_size=8, embed_dim=C, depth=2, num_heads=H, num_classes=10)

@@ -32,6 +32,7 @@ from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 from dense2sparse_vit_torch.utils.export import export_student, load_exported
 from dense2sparse_vit_torch.utils.serving import ServingModel
 from test_torch_ops import load_numpy_state, random_like_tree
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2, num_classes=5)

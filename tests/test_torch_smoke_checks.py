@@ -23,6 +23,7 @@ from dense2sparse_vit_torch.nn.layers import Block, trunc_normal_
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, N, C, H = 2, 13, 128, 2
 _attention = block_ops.attention_reference  # the right one, for the faults
@@ -1091,3 +1092,135 @@ def test_loop_spy_counts_steps_and_preempts(tmp_path):
     assert CheckpointManager(str(tmp_path / "run" / "ckpt")).latest_step() == 8
     from dense2sparse_vit_torch.train import loop
     assert loop.make_train_step.__name__ == "make_train_step"  # the spy put it back
+
+
+# ---- phase 33: the student's other modes -------------------------------------
+
+
+def test_the_mode_tables_cover_every_mode():
+    """Every mode has its train and eval launch tables over every kernel;
+    dropout's step leaves the whole block for the packed core, soft top-k's
+    gathers nothing, remat runs the forward twice."""
+    specs = chip_smoke.mode_specs()
+    assert set(specs) == {"soft_topk", "random", "cls_from_teacher", "predictor_bn",
+                          "early_exit", "dropout", "remat", "attn_block0"}
+    assert set(specs) == set(chip_smoke.PER_MODE_TRAIN_STEP) == set(chip_smoke.PER_MODE_EVAL_STEP)
+    for table in (*chip_smoke.PER_MODE_TRAIN_STEP.values(),
+                  *chip_smoke.PER_MODE_EVAL_STEP.values()):
+        assert set(table) == set(chip_smoke.KERNEL_NAMES)
+    steps = chip_smoke.PER_MODE_TRAIN_STEP
+    assert steps["dropout"]["fused_transformer_block"] == 0
+    assert steps["dropout"]["fused_attention_packed"] == 12
+    assert steps["soft_topk"]["fused_gather_tokens"] == 0
+    assert (steps["remat"]["fused_transformer_block"]
+            + steps["remat"]["fused_transformer_block[scaled]"]) == 24
+    assert specs["soft_topk"][1]["topk_num_samples"] == 500 and specs["soft_topk"][2] == 0
+
+
+def test_check_mode_launches_rejects_a_mode_that_ran_a_plain_version():
+    want = chip_smoke.PER_MODE_TRAIN_STEP["dropout"]
+    chip_smoke.check_mode_launches(dict(want), want, "dropout")
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.check_mode_launches({**want, "fused_attention_packed": 0,
+                                        "fused_attention_backward_packed": 0}, want, "dropout")
+
+
+def _soft_inputs():
+    g = torch.Generator().manual_seed(0)
+    return (torch.rand((2, 20), generator=g), torch.randn((2, 30, 20), generator=g),
+            torch.randn((2, 7, 20), generator=g))
+
+
+def test_check_soft_topk_backward_passes_the_port_and_rejects_a_wrong_gradient(monkeypatch,
+                                                                               capsys):
+    from dense2sparse_vit_torch.ops.perturbed_topk import PerturbedTopK
+
+    x, z, g = _soft_inputs()
+    assert chip_smoke.check_soft_topk_backward(torch, x, z, 0.05, 7, g) <= 1e-6
+    real = PerturbedTopK.backward
+
+    def off(ctx, grad):  # the estimator's 1 / (nS sigma) off by one part in 10^4
+        dx, *rest = real(ctx, grad)
+        return (dx * (1 + 1e-4), *rest)
+
+    monkeypatch.setattr(PerturbedTopK, "backward", staticmethod(off))
+    with pytest.raises(AssertionError, match="soft_topk_backward"):
+        chip_smoke.check_soft_topk_backward(torch, x, z, 0.05, 7, g)
+
+
+def _remat_grads(remat):
+    """One CPU step of a small soft top-k student at drop path 0.2, with or
+    without remat, from the same weights and draws."""
+    from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
+    from dense2sparse_vit_torch.models import create_model
+    from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+
+    kw = dict(img_size=32, patch_size=8, embed_dim=64, depth=3, num_heads=1, num_classes=10,
+              pruning_locs=(1, 2), keep_ratios=(0.7, 0.49), small_predictor=True,
+              differentiable_topk=True, topk_num_samples=16, drop_path_rate=0.2)
+    student = create_model("dynamic_vit_tiny_patch16_224_student", device="cpu", remat=remat,
+                           **kw)
+    teacher = create_model("dynamic_vit_tiny_patch16_224_teacher", device="cpu",
+                           **{k: kw[k] for k in ("img_size", "patch_size", "embed_dim",
+                                                 "depth", "num_heads", "num_classes")})
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning,
+                           train=TrainConfig(epochs=10, warmup_epochs=5))
+    opt = make_optimizer(student, cfg.train, 3)
+    opt.count = 18
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    make_train_step(student, teacher, opt, cfg)(x, torch.tensor([1, 2]), 6,
+                                                generator=torch.Generator().manual_seed(11))
+    return chip_smoke.train_step_grads(torch, student)
+
+
+def test_check_remat_passes_remat_and_rejects_a_recompute_that_draws_anew(monkeypatch,
+                                                                          capsys):
+    plain = _remat_grads(False)
+    assert chip_smoke.check_remat(torch, _remat_grads(True), plain)["bit_equal"]
+    obj, attr, fault, mode = chip_smoke.mode_fault("remat")
+    assert mode == "remat"
+    monkeypatch.setattr(obj, attr, fault)
+    with pytest.raises(AssertionError, match="remat gradients"):
+        chip_smoke.check_remat(torch, _remat_grads(True), plain)
+
+
+def test_check_bn_eval_passes_running_stats_and_rejects_batch_statistics(monkeypatch,
+                                                                        capsys):
+    from dense2sparse_vit_torch.models import create_model
+
+    student = create_model("dynamic_vit_tiny_patch16_224_student", device="cpu", img_size=32,
+                           patch_size=8, embed_dim=64, depth=2, num_heads=1, num_classes=10,
+                           pruning_locs=(1,), keep_ratios=(0.5,), predictor_bn=True)
+    images = torch.randn((8, 32, 32, 3), generator=torch.Generator().manual_seed(2))
+    assert chip_smoke.check_bn_eval(torch, student, images) <= 1e-6
+    obj, attr, fault, mode = chip_smoke.mode_fault("bn_eval")
+    assert mode == "predictor_bn"
+    monkeypatch.setattr(obj, attr, fault)
+    with pytest.raises(AssertionError, match="bn_eval"):
+        chip_smoke.check_bn_eval(torch, student, images)
+
+
+def test_the_mode_plain_fault_takes_the_dropout_students_plain_core(monkeypatch):
+    """The fault swaps the packed core's wrapper for plain attention: the
+    dropout student's fused train step no longer reaches the wrapper."""
+    import dense2sparse_vit_torch.nn.layers as layers
+    from dense2sparse_vit_torch.models import create_model
+
+    calls = []
+    real = layers.fused_attention_packed_trainable
+    monkeypatch.setattr(layers, "fused_attention_packed_trainable",
+                        lambda *a: calls.append(1) or real(*a))
+    student = create_model("dynamic_vit_tiny_patch16_224_student", device="cpu", img_size=32,
+                           patch_size=8, embed_dim=64, depth=2, num_heads=1, num_classes=10,
+                           pruning_locs=(1,), keep_ratios=(0.5,), drop_rate=0.1,
+                           use_fused_attention=True).train()
+    x = torch.randn((2, 32, 32, 3))
+    with pytest.warns(UserWarning, match="dropout"):
+        student(x, collect_cls_attns=False, generator=torch.Generator())
+    assert len(calls) == 2
+    obj, attr, fault, mode = chip_smoke.mode_fault("mode_plain")
+    assert mode == "dropout"
+    monkeypatch.setattr(obj, attr, fault)
+    calls.clear()
+    student(x, collect_cls_attns=False, generator=torch.Generator())
+    assert not calls

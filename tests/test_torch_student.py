@@ -27,6 +27,7 @@ from dense2sparse_vit_torch import ops
 from dense2sparse_vit_torch.models import create_model
 from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 from test_torch_ops import load_numpy_state, random_like_tree
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODEL = dict(img_size=32, patch_size=8, embed_dim=64, depth=4, num_heads=2,
              num_classes=10)
@@ -145,13 +146,32 @@ def test_unpruned_forward_matches_jax():
 
 
 def test_unported_options_are_rejected():
-    with pytest.raises(NotImplementedError, match="predictor_bn"):
-        create_model("dynamic_vit_tiny_patch16_224_student", predictor_bn=True,
-                     device="cpu")
+    """The BatchNorm predictor is ported now (tests/test_torch_student_modes.py
+    holds it against JAX): create_model takes it, with BatchNorm units and
+    ReLU, and the forward runs in both modes."""
+    model = create_model("dynamic_vit_tiny_patch16_224_student", predictor_bn=True,
+                         device="cpu", **MODEL, **PRUNING)
+    assert model.pruning.predictor_bn
+    assert "score_predictor.0.in_conv.0.bn.running_var" in model.state_dict()
+    x = torch.from_numpy(_images())
+    with torch.no_grad():
+        for training in (True, False):
+            assert model.train(training)(x).logits.shape == (B, MODEL["num_classes"])
 
 
 @pytest.mark.parametrize("field", ["remat", "topk_num_samples", "initial_sigma",
                                    "differentiable_topk", "attn_selection_threshold"])
 def test_fields_no_port_code_reads_are_refused(field):
-    with pytest.raises(TypeError, match=field):
-        create_model("dynamic_vit_tiny_patch16_224_student", device="cpu", **{field: 1})
+    """remat and soft top-k's fields are read by the port now and are
+    taken, each reaching its config; attn_selection_threshold, which no
+    code of either package reads, is still refused."""
+    value = {"remat": True, "topk_num_samples": 7, "initial_sigma": 0.1,
+             "differentiable_topk": True, "attn_selection_threshold": 1}[field]
+    if field == "attn_selection_threshold":
+        with pytest.raises(TypeError, match=field):
+            create_model("dynamic_vit_tiny_patch16_224_student", device="cpu", **{field: value})
+        return
+    model = create_model("dynamic_vit_tiny_patch16_224_student", device="cpu", **MODEL,
+                         **PRUNING, **{field: value})
+    cfg = model.cfg if field == "remat" else model.pruning
+    assert getattr(cfg, field) == value

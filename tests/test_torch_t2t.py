@@ -52,6 +52,7 @@ from test_torch_ops import _block_params, _port_block_state, load_numpy_state, r
 from test_torch_policy import PORT_KEYS, _port_weights
 from test_torch_train import _with_interpret
 from test_torch_train_step import _grad_probe
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, IMG, C, TD = 2, 64, 32, 16  # T2T strides 4 * 2 * 2 = 16 -> 4 x 4 = 16 tokens
 TINY = dict(img_size=IMG, patch_size=16, embed_dim=C, depth=4, num_heads=2, qkv_bias=False,

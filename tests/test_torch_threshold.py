@@ -38,6 +38,7 @@ from test_torch_ops import load_numpy_state
 from test_torch_train import (
     MODEL, PRUNING, _images, _labels, _student_params, _teacher_params, _with_interpret)
 from test_torch_train_step import STEPS_PER_EPOCH, TRAIN, _grad_probe, _set_schedule_count
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 THRESHOLD = 0.5
 TPRUNING = dict(PRUNING, patch_score_threshold=THRESHOLD)

@@ -38,6 +38,7 @@ from dense2sparse_vit_torch.nn.layers import Block
 from dense2sparse_vit_torch.ops.gather import fused_gather_tokens
 from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 from test_torch_ops import _block_params, _port_block_state, load_numpy_state, random_like_tree
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODEL = dict(img_size=32, patch_size=8, embed_dim=64, depth=4, num_heads=2,
              num_classes=10)

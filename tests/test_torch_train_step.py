@@ -37,6 +37,7 @@ from dense2sparse_vit_torch.utils.convert import state_dict_from_jax
 from test_torch_ops import load_numpy_state
 from test_torch_train import (
     MODEL, PRUNING, _images, _labels, _student_params, _teacher_params, _with_interpret)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TRAIN = dict(epochs=10, warmup_epochs=5)
 STEPS_PER_EPOCH = 3
@@ -241,19 +242,27 @@ def test_train_step_matches_jax(epoch, jax_fused, port_fused):
 
 
 def test_unported_training_options_are_rejected():
-    """Gradient accumulation, mixup and the teacher cache are ported now
-    (tests/test_torch_loop.py holds each against JAX): make_train_step
-    takes them. What the student does not have is still rejected at its
-    construction, naming the option."""
+    """Gradient accumulation, mixup and the teacher cache are ported (tests/
+    test_torch_loop.py holds each against JAX): make_train_step takes them.
+    Early exit, teacher-CLS selection and the BatchNorm predictor are
+    ported now too (tests/test_torch_student_modes.py holds them against
+    JAX): the student takes each and one train step runs, with early exit
+    adding its loss to the metrics."""
     student = _port_student()
     cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning,
                            train=TrainConfig(grad_accum_steps=2, teacher_cache=True))
     make_train_step(student, student, make_optimizer(student, cfg.train, 1), cfg,
                     mixup_active=True, cached_teacher=True)
+    teacher = create_model("dynamic_vit_small_patch16_224_teacher", device="cpu", **MODEL)
     for option in ("early_exit", "cls_from_teacher", "predictor_bn"):
-        with pytest.raises(NotImplementedError, match=option):
-            create_model("dynamic_vit_small_patch16_224_student", device="cpu",
-                         **{**MODEL, **PRUNING, option: True})
+        student = create_model("dynamic_vit_small_patch16_224_student", device="cpu",
+                               **{**MODEL, **PRUNING, option: True})
+        cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning,
+                               train=TrainConfig(**TRAIN))
+        got = make_train_step(student, teacher, make_optimizer(student, cfg.train, 1), cfg)(
+            torch.from_numpy(_images()), torch.from_numpy(_labels()), 6)
+        assert ("early_exit_loss" in got) == (option == "early_exit")
+        assert all(torch.isfinite(v) for v in got.values()), option
 
 
 def test_mean_heads_is_a_pruning_field_again():
