@@ -220,6 +220,33 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  (PER_MODE_EVAL_STEP). Then one CLI epoch each of
                  `--random-drop --early-exit --predictor-bn` and
                  `--cls-from-teacher` over phase 32's folder.
+ 34. deit_family  the DeiT, ViT and DINO backbones and 384-px training
+                 (`phase_deit_family`): (b) one B=64 train step each in
+                 top-k, threshold and attn selection of
+                 `dynamic_vit_base_patch16_224_student` at img_size=384
+                 (N = 577 / 404 / 283 / 198) with its teacher, launches
+                 (the attention core backward's long path: 6, 12, 6) and
+                 memory, against its plain twin's step on the same weights,
+                 draws and kept tokens (`compare_steps`), a second step
+                 timed; the predictor kernel on that student's stage
+                 inputs (N = 576 / 403 / 282); one CLI epoch of
+                 `--arch deit_base --img-size 384 --eval-crop 384` at B=32
+                 over phase 32's folder, ending in a checkpoint and an
+                 eval, and a teacher-cache step against a live one at 384
+                 px; (a) attention_bwd_kernel's long path on those steps'
+                 activations (plain at N = 577 and 404, policy with dPolicy
+                 at eps 1e-6 and 0.1 and on planted ties, the CLS fold) and
+                 at N = 785 (dino_small, patch 8), each against its plain
+                 version, two launches bit-equal (`check_attn_bwd`), timed
+                 at N = 577 and 404 beside its bound and SDPA's backward;
+                 (c) one model of each family class at full width, fused
+                 against its plain twin (FAMILY_MODELS, B=32), every other
+                 DeiT, ViT and DINO name at depth 2, and a B=64 forward of
+                 `deit_base_patch16_384` and `vit_large_patch16_384` timed
+                 with the device's busy share; (d) the int8 ViT-L/16 at 384
+                 px: the int8 block at C = 1024, hidden 4096, N = 577
+                 against its plain version, its logits against the bf16
+                 kernels'.
 The build phase fails if ptxas reports a spill in a GEMM kernel or in
 attention_bwd_kernel, or reports on no int8 one, or if it serializes
 attention_bwd_kernel's wgmma products; it prints that kernel's C75xx
@@ -227,6 +254,9 @@ notices (`wgmma_notices`).
 The pruning student runs its serving, timing and export phases without
 capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
 callers do.
+The kernels summary holds two rows more than the kernels: the part of
+attention_bwd_kernel's launches on its long path and the int8 block at
+hidden 4096 (SUB_ROWS), each with phase 34's launches and times.
 The line before the last two is the kernels summary, then the card's name
 and power limit, then {"ok": true, "device": {...}}. Without a CUDA device
 it exits 1 at once.
@@ -271,6 +301,7 @@ statistics (by `check_bn_eval`).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import statistics
@@ -330,6 +361,11 @@ KERNEL_NAMES = (
     "ln_bwd", "column_sums", "attention_bwd",
 )
 NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
+# rows of the kernels line that are a part of a kernel's launches, at the
+# shapes of phase 34: attention_bwd_kernel's long path (N past 384, policy
+# mode 352; counted by the library, `ops.attention.ATTENTION_BWD_LONG`) and
+# the int8 block at ViT-L's MLP width (hidden 4096)
+SUB_ROWS = ("attention_bwd[long]", "fused_transformer_block_int8[4096]")
 
 
 def norm_launches(blocks=0, halves=0) -> dict:
@@ -468,6 +504,12 @@ SOURCES = {
     "attention_bwd": (
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
         "dense2sparse_vit_tpu/ops/pallas/attention.py:626"),
+    "attention_bwd[long]": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:729"),
+    "fused_transformer_block_int8[4096]": (
+        "dense2sparse_vit_torch/csrc/quant_block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/quant.py:179"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -691,7 +733,7 @@ class Tally:
     def __init__(self):
         self.rows = {n: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                          "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0}
-                     for n in KERNEL_NAMES}
+                     for n in KERNEL_NAMES + SUB_ROWS}
 
     def add(self, name, calls, k_ms, p_ms, b, lib_ms=None):
         r = self.rows[name]
@@ -707,7 +749,7 @@ class Tally:
 
     def line(self):
         out = []
-        for n in KERNEL_NAMES:
+        for n in KERNEL_NAMES + SUB_ROWS:
             r = self.rows[n]
             by = "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes"
             out.append({
@@ -3759,13 +3801,15 @@ def phase_norm(torch, dev, tally, smi):
 
 # ---- 30. the attention core's backward alone --------------------------------
 
-# attention_bwd_kernel's instantiations: (policy mode, query blocks a warpgroup)
+# attention_bwd_kernel's instantiations: (policy mode, query blocks a warpgroup),
+# each with one CTA a sample-head and split (the long path)
 ATTN_BWD_KERNELS = ((False, 1), (False, 3), (True, 1), (True, 3))
 
 
 def attn_bwd_kind(name: str):
     """(policy mode, query blocks a warpgroup) of an `attention_bwd_kernel<
-    POLICY, QPW>` instantiation from its mangled name; None for another."""
+    POLICY, QPW, SPLIT>` instantiation from its mangled name; None for
+    another."""
     if "attention_bwd_kernelILb" not in name:
         return None
     rest = name.split("attention_bwd_kernelILb")[1]  # e.g. "1ELi2EE..."
@@ -3774,7 +3818,7 @@ def attn_bwd_kind(name: str):
 
 def attn_bwd_sass_faults(counts: dict) -> list:
     """What the attention core backward's SASS counts break: each of its
-    four instantiations present, each with wgmma (HGMMA); mma.sync (HMMA)
+    four kinds of instantiation present, each with wgmma (HGMMA); mma.sync (HMMA)
     in the policy-mode ones alone, whose scores stay on mma.sync for the
     tie test (the kernel's notes); no int8 opcode."""
     kinds = {attn_bwd_kind(n): n for n in counts}
@@ -3927,12 +3971,7 @@ def phase_attn_bwd(torch, dev, tally, smi):
     its forward); each beside `attention_backward_bound`. The kernels line
     takes the device time and the graph times: none of them holds the
     host's launch cost."""
-    import torch.nn.functional as F
-
-    from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.ops import _cuda
-    from dense2sparse_vit_torch.ops import attention as att
-    from dense2sparse_vit_torch.scripts.checkout_ab import ATTN_BWD_GROUPS, device_ms
 
     counts = gemm_sass(torch, _cuda.library()._name, holds="attention_bwd_kernel")
     emit({"phase": "attn_bwd", "sass": counts})
@@ -3941,19 +3980,6 @@ def phase_attn_bwd(torch, dev, tally, smi):
         raise AssertionError(f"attn_bwd SASS: {faults}")
     cases = capture_attn_bwd_cases(torch, dev)
     check_attn_bwd_cases(torch, cases, tally)
-
-    def timed(case):
-        qkv, g, H, scale = case["qkv"], case["g"], case["heads"], case["scale"]
-        pol, gcls = case["policy"], case["gcls"]
-        kw = {} if pol is None else {"policy": pol, "eps": case["eps"]}
-        packed = lambda: ops.fused_attention_backward_packed(  # noqa: E731
-            qkv, g, H, gcls=gcls, scale=scale, **kw)
-        with torch.no_grad():
-            dev_ms = device_ms(packed, groups=ATTN_BWD_GROUPS)
-            return {"ms": dev_ms["attention_bwd_kernel"], "device_ms": dev_ms,
-                    "packed_graph_ms": graph_ms(torch, packed),
-                    "plain_ms": graph_ms(torch, lambda: att.attention_backward_reference(
-                        qkv, g, H, scale, gcls=gcls, **kw), iters=5)}
 
     step = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
     widths = {}
@@ -3964,18 +3990,8 @@ def phase_attn_bwd(torch, dev, tally, smi):
         c = cs[-1]
         qkv, g, H, scale = c["qkv"], c["g"], c["heads"], c["scale"]
         B, N, C3 = qkv.shape
-        t = timed(c)
-        q, k, v, g4 = sdpa_inputs(torch, qkv, g, H)
-
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(q, k, v, scale=scale)
-            torch.autograd.grad(o, (q, k, v), g4)
-
-        lib_fwd_bwd_ms = graph_ms(torch, sdpa_fwd_bwd)
-        with torch.no_grad():
-            lib_fwd_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=scale))
-        lib_ms = lib_fwd_bwd_ms - lib_fwd_ms
+        t = attn_bwd_times(torch, c)
+        lib_ms, lib_fwd_bwd_ms, lib_fwd_ms = sdpa_backward_ms(torch, qkv, g, H, scale)
         b = attention_backward_bound(B, N, C3 // 3, H)
         tally.add("attention_bwd", len(cs), t["ms"], t["plain_ms"], b, lib_ms)
         step["ms"] += len(cs) * t["ms"]
@@ -3994,9 +4010,50 @@ def phase_attn_bwd(torch, dev, tally, smi):
         b = attention_backward_bound(B, N, C3 // 3, c["heads"], gcls=c["gcls"] is not None,
                                      policy=c["policy"] is not None)
         emit({"phase": "attn_bwd", "kernel": "attention_bwd", "mode": what,
-              "block": c["block"], "eps": c["eps"], "shape": [B, N, C3], **timed(c),
+              "block": c["block"], "eps": c["eps"], "shape": [B, N, C3], **attn_bwd_times(torch, c),
               "bound_ms": max(b.values()), "card": smi})
     emit({"phase": "attn_bwd", "per_topk_step": step, "card": smi})
+
+
+def attn_bwd_times(torch, case) -> dict:
+    """The attention core backward on a case of `capture_attn_bwd_cases`'s
+    form: the kernel's device ms per call by the profiler inside
+    `ops.fused_attention_backward_packed` (`checkout_ab.device_ms`; on the
+    long path attention_bwd_kernel and its reduce_kv_kernel), the whole
+    packed backward and the plain version from CUDA graphs."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops import attention as att
+    from dense2sparse_vit_torch.scripts.checkout_ab import ATTN_BWD_GROUPS, device_ms
+
+    qkv, g, H, scale = case["qkv"], case["g"], case["heads"], case["scale"]
+    pol, gcls = case["policy"], case["gcls"]
+    kw = {} if pol is None else {"policy": pol, "eps": case["eps"]}
+    packed = lambda: ops.fused_attention_backward_packed(  # noqa: E731
+        qkv, g, H, gcls=gcls, scale=scale, **kw)
+    with torch.no_grad():
+        dev_ms = device_ms(packed, groups=ATTN_BWD_GROUPS)
+        return {"ms": dev_ms["attention_bwd_kernel"] + dev_ms["reduce_kv"], "device_ms": dev_ms,
+                "packed_graph_ms": graph_ms(torch, packed),
+                "plain_ms": graph_ms(torch, lambda: att.attention_backward_reference(
+                    qkv, g, H, scale, gcls=gcls, **kw), iters=5)}
+
+
+def sdpa_backward_ms(torch, qkv, g, H, scale):
+    """scaled_dot_product_attention's backward on the same q, k, v and
+    output cotangent, from CUDA graphs: (forward and backward less the
+    forward, forward and backward, forward) ms."""
+    import torch.nn.functional as F
+
+    q, k, v, g4 = sdpa_inputs(torch, qkv, g, H)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        torch.autograd.grad(o, (q, k, v), g4)
+
+    fwd_bwd = graph_ms(torch, sdpa_fwd_bwd)
+    with torch.no_grad():
+        fwd = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    return fwd_bwd - fwd, fwd_bwd, fwd
 
 
 # ---- 31. the score predictor alone ------------------------------------------
@@ -4657,14 +4714,14 @@ def build_mode(torch, dev, mode, fused, teacher):
 
 
 class ModeRecorder:
-    """Within the context: the kept indices of every stage and the perturbed
-    top-k's sample indices are recorded (`replay` False) or handed out again
-    in order (`replay` True), so that the plain step keeps the tokens the
-    kernels' step kept; the soft top-k's inputs (scores, k, sigma, noise) are
-    recorded."""
+    """Within the context: the kept indices of every stage, the threshold
+    mode's keep masks and the perturbed top-k's sample indices are recorded
+    (`replay` False) or handed out again in order (`replay` True), so that
+    the plain step keeps the tokens the kernels' step kept; the soft top-k's
+    inputs (scores, k, sigma, noise) are recorded."""
 
     def __init__(self, replay_from=None):
-        self.kept, self.samples, self.soft = [], [], []
+        self.kept, self.samples, self.soft, self.masks = [], [], [], []
         self.replay = replay_from
 
     def __enter__(self):
@@ -4673,10 +4730,17 @@ class ModeRecorder:
 
         self.sm, self.ptk = student_module, ptk
         self.saved = (student_module.topk_keep_indices, ptk.topk_sample_indices,
-                      student_module.perturbed_topk, ptk.gaussian_noise)
-        real_keep, real_samples, real_soft, real_noise = self.saved
+                      student_module.perturbed_topk, ptk.gaussian_noise,
+                      student_module.threshold_keep_mask)
+        real_keep, real_samples, real_soft, real_noise, real_mask = self.saved
         kept = list(self.replay.kept) if self.replay else None
         samples = list(self.replay.samples) if self.replay else None
+        masks = list(self.replay.masks) if self.replay else None
+
+        def mask(scores, threshold):
+            out = masks.pop(0) if masks is not None else real_mask(scores, threshold)
+            self.masks.append(out)
+            return out
 
         def keep(scores, k):
             out = kept.pop(0) if kept is not None else real_keep(scores, k)
@@ -4699,11 +4763,12 @@ class ModeRecorder:
 
         student_module.topk_keep_indices, ptk.topk_sample_indices = keep, sample
         student_module.perturbed_topk, ptk.gaussian_noise = soft, noise
+        student_module.threshold_keep_mask = mask
         return self
 
     def __exit__(self, *exc):
         (self.sm.topk_keep_indices, self.ptk.topk_sample_indices, self.sm.perturbed_topk,
-         self.ptk.gaussian_noise) = self.saved
+         self.ptk.gaussian_noise, self.sm.threshold_keep_mask) = self.saved
 
 
 def run_mode(torch, dev, mode, teachers, tally, smi):
@@ -4868,6 +4933,678 @@ def phase_student_modes(torch, dev, tally, smi, root):
           "soft_topk_one_hot_gib": summary["soft_topk"]["one_hot_gib"]})
 
 
+# ---- 34. the DeiT, ViT and DINO families; 384-px training --------------------
+
+B_384 = 64
+STUDENT_384 = "dynamic_vit_base_patch16_224_student"
+TEACHER_384 = "dynamic_vit_base_patch16_224_teacher"
+# per 384-px mode: the student's keyword arguments (a `models` name), its
+# step's launches, and how many of its block backwards take the attention
+# core backward's long path: top-k and attn the six blocks at N = 577 and
+# 404 before the second stage, threshold all twelve at 577
+MODES_384 = {
+    "topk": ("HEADLINE_KWARGS", PER_TRAIN_STEP, 6),
+    "threshold": ("THRESHOLD_KWARGS", PER_POLICY_TRAIN_STEP, 12),
+    "attn": ("ATTN_KWARGS", PER_ATTN_TRAIN_STEP, 6),
+}
+# the training entry point at 384 px: DeiT-B/16 with the headline's stages
+# (576 patches kept to 403 / 282 / 197), evaluated at crop 384 from a short
+# side of 384 (DeiT's 384-px recipe, crop ratio 1)
+CLI_384_FLAGS = ("--arch deit_base --img-size 384 --eval-crop 384 --eval-resize 384 "
+                 "--dtype bfloat16 --pruning-locs 3 6 9 --keep-ratios 0.7 0.49 0.343 "
+                 "--small-predictor --topk-selection --use-fused-attention --batch-size 32 "
+                 "--warmup-steps 1 --seed 0").split()
+B_FAMILY, B_FAMILY_TIME, B_FAMILY_SMALL = 32, 64, 2
+# the family models held fused against plain at full width and depth, one
+# of each class: (registry name, create_model keyword arguments); the
+# masked ones take seeded (N, 2) mask logits
+FAMILY_MODELS = (
+    ("deit_base_patch16_384", {}),
+    ("deit_small_distilled_patch16_224", {}),
+    ("vit_large_patch16_384", {}),
+    ("vit_base_patch32_384", {}),
+    ("dino_small", {"patch_size": 8}),
+    ("nonspatial_deit_small_patch16_224", {}),
+    ("deit_small_patch16_224_masked", {}),
+    ("deit_small_patch16_224_predictor", {}),
+    ("base_patch16_224_hierarchical", {}),
+    ("small_patch16_224_ensemble", {}),
+    ("dino_small_predictor", {}),
+    ("dino_small_dist", {}),
+    ("dino_small_patch16_224_masked", {}),
+)
+MASKED_FAMILY = ("deit_small_patch16_224_masked", "dino_small_patch16_224_masked")
+FAMILY_TIMED = ("deit_base_patch16_384", "vit_large_patch16_384")
+INT8_FAMILY = "vit_large_patch16_384"
+# the int8 ViT-L's logits against the bf16 kernels' on the same weights:
+# cosine similarity at least this (tests/test_torch_deit.py's bound)
+INT8_LOGITS_COS = 0.99
+
+
+def plain_twin(model):
+    """A copy of `model` (the same weights) that runs every plain version:
+    no block, predictor or gather kernel."""
+    import copy
+
+    twin = copy.deepcopy(model)
+    for m in twin.modules():
+        if hasattr(m, "use_fused"):
+            m.use_fused = False
+        if hasattr(m, "cfg"):
+            m.cfg = m.cfg.replace(use_fused_attention=False)
+    return twin
+
+
+class Replay:
+    """Within the context, `module.name` (a function of the model's own
+    choices: its Gumbel decisions, its top-k) records what it returns, or,
+    given `replay_from`, returns what that recorder recorded, in order: the
+    plain twin then keeps the tokens the kernels' run kept."""
+
+    def __init__(self, module, name, replay_from=None):
+        self.module, self.name, self.out = module, name, []
+        self.replay = list(replay_from.out) if replay_from is not None else None
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def fn(*a, **kw):
+            out = self.replay.pop(0) if self.replay is not None else self.real(*a, **kw)
+            self.out.append(out)
+            return out
+
+        setattr(self.module, self.name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def output_leaves(out) -> list:
+    """The tensors of a (nested tuple of) model output(s), None left out."""
+    if out is None:
+        return []
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in output_leaves(o)]
+    return [out]
+
+
+def family_forward(torch, model, name, x, seed=5):
+    """One eval forward of a family model on x, with seeded mask logits for
+    the masked ones and its Gumbel draws from a seeded generator."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    args = ()
+    if name in MASKED_FAMILY:
+        n = model.cfg.num_patches
+        args = (torch.randn((n, 2), device=x.device,
+                            generator=torch.Generator(device=x.device).manual_seed(seed + 1)),)
+    return model(x, *args, generator=gen)
+
+
+def family_launches(model, name) -> dict:
+    """A family model's eval forward: every block through the block kernel,
+    and the single-stage DINO student's gather."""
+    out = {**NO_LAUNCHES, "fused_transformer_block": model.cfg.depth}
+    if name == "dino_small_predictor":
+        out["fused_gather_tokens"] = 1
+    return out
+
+
+def check_family_model(torch, dev, name, kwargs, tally, smi):
+    """A family model at full width and depth, bf16, seeded weights: its
+    fused B=32 eval forward (launches `family_launches`) against its plain
+    twin on the same weights, draws and kept tokens, every output within
+    LOGITS_TOL of the plain one's largest magnitude. Returns the fused
+    model."""
+    import dense2sparse_vit_torch.models.deit as deit_mod
+    import dense2sparse_vit_torch.models.dino as dino_mod
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import create_model
+
+    model = create_model(name, use_fused_attention=True, dtype="bfloat16", device=dev,
+                         generator=torch.Generator().manual_seed(0), **kwargs).eval()
+    plain = plain_twin(model)
+    side = model.cfg.img_size
+    x = torch.randn((B_FAMILY, side, side, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    spies = ((deit_mod, "gumbel_softmax"), (dino_mod, "gumbel_softmax"),
+             (dino_mod, "topk_keep_indices"))
+    with torch.inference_mode():
+        with contextlib.ExitStack() as stack:
+            recs = [stack.enter_context(Replay(m, n)) for m, n in spies]
+            ops.reset_launch_counts()
+            got = output_leaves(family_forward(torch, model, name, x))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        with contextlib.ExitStack() as stack:
+            for (m, n), r in zip(spies, recs):
+                stack.enter_context(Replay(m, n, r))
+            ops.reset_launch_counts()
+            want = output_leaves(family_forward(torch, plain, name, x))
+            torch.cuda.synchronize()
+            plain_counts = ops.launch_counts()
+    check_mode_launches(counts, family_launches(model, name), f"{name} forward")
+    check_mode_launches(plain_counts, NO_LAUNCHES, f"{name} plain forward")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    rel = []
+    for a, b in zip(got, want):
+        err, ref = rel_err(torch, a, b)
+        rel.append(err / max(ref, 1e-30))
+    worst = max(rel)
+    emit({"phase": "deit_family", "model": name, "class": type(model).__name__,
+          "config": {k: getattr(model.cfg, k) for k in ("img_size", "patch_size", "embed_dim",
+                                                        "depth", "num_heads", "num_classes")},
+          "tokens": model.cfg.num_patches + getattr(model, "num_extra_tokens", 1),
+          "outputs": len(got), "shape": list(got[0].shape), "launches": counts,
+          "worst_rel_err": worst, "tol_rel": LOGITS_TOL, "card": smi})
+    if len(got) != len(want) or not worst <= LOGITS_TOL:
+        raise AssertionError(f"{name}: fused against plain {rel}")
+    tally.err("fused_transformer_block", max(rel_err(torch, a, b)[0] for a, b in zip(got, want)))
+    del plain
+    return model
+
+
+def time_family_model(torch, dev, model, smi) -> dict:
+    """A B=64 eval forward: img/s by wall clock and the device's busy share
+    over 5 profiled calls (`utils.profile_forward.profile_device`)."""
+    from dense2sparse_vit_torch.utils.profile_forward import profile_device
+
+    side = model.cfg.img_size
+    x = torch.randn((B_FAMILY_TIME, side, side, 3), device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    with torch.inference_mode():
+        out = profile_device(lambda: model(x), 5)
+    return {"batch": B_FAMILY_TIME, "img_per_s": B_FAMILY_TIME / out["wall_ms"] * 1e3, **out}
+
+
+def check_int8_family(torch, dev, model, tally, smi):
+    """(d): the int8 twin of the fused ViT-L/16 at 384 px (quant="int8" on
+    every block, the same weights): its B=32 forward's launches (24 int8
+    blocks), the int8 block (C = 1024, hidden 4096, N = 577) against its
+    plain int8 version at the first and the last block's input
+    (`check_int8_block`), the logits against the bf16 kernels' (cosine
+    similarity at least INT8_LOGITS_COS), and the block timed beside its
+    plain version and the bf16 block kernel."""
+    import copy
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.quant import quant_block_reference
+
+    q = copy.deepcopy(model)
+    q.cfg = q.cfg.replace(quant="int8")
+    for blk in q.blocks:
+        blk.quant = "int8"
+    side = model.cfg.img_size
+    x = torch.randn((B_FAMILY, side, side, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    inputs = {}
+    last = len(q.blocks) - 1
+    hooks = [q.blocks[i].register_forward_pre_hook(
+        lambda m, a, i=i: inputs.__setitem__(i, a[0].detach())) for i in (0, last)]
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        logits = q(x)[-1].float()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ref = model(x)[-1].float()
+    for h in hooks:
+        h.remove()
+    want = {**NO_LAUNCHES, "fused_transformer_block_int8": len(q.blocks)}
+    check_mode_launches(counts, want, "int8 ViT-L forward")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    tally.rows["fused_transformer_block_int8[4096]"]["launches"] += counts[
+        "fused_transformer_block_int8"]
+    cos = torch.nn.functional.cosine_similarity(logits.flatten(), ref.flatten(), dim=0).item()
+    rms = ((logits - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+    top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    emit({"phase": "deit_family", "int8": INT8_FAMILY, "logits_vs_bf16_kernels": {
+        "cos": cos, "rel_rms": rms, "top1_agreement": top1, "tol_cos": INT8_LOGITS_COS},
+        "launches": counts, "card": smi})
+    if not cos >= INT8_LOGITS_COS:
+        raise AssertionError(f"int8 ViT-L logits against bf16: cos {cos}")
+    blk = q.blocks[0]
+    args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+    with torch.inference_mode():
+        qw = blk.int8_weights(torch.bfloat16)
+        for i, xi in inputs.items():
+            _, err = check_int8_block(torch, xi, q.blocks[i].int8_weights(torch.bfloat16), *args,
+                                      block=i)
+            tally.err("fused_transformer_block_int8", err)
+            tally.err("fused_transformer_block_int8[4096]", err)
+        x0 = inputs[0]
+        kernel = lambda: ops.fused_transformer_block_int8(  # noqa: E731
+            x0, qw, args[0], scale=args[1], ln_eps=args[2])
+        k_ms, p_ms = paired_ms(torch, kernel, lambda: quant_block_reference(x0, qw, *args),
+                               iters=3, rounds=1, repeats=3)
+        w = blk.kernel_weights(torch.bfloat16)
+        bf16_ms = cuda_ms(torch, lambda: ops.fused_transformer_block(
+            x0, w, args[0], scale=args[1], ln_eps=args[2]), iters=3, repeats=3)
+    B, N, C = x0.shape
+    hidden = blk.mlp.fc1.weight.shape[0]
+    b = int8_block_bound(B, N, C, args[0], hidden)
+    tally.add("fused_transformer_block_int8[4096]", len(q.blocks), k_ms, p_ms, b)
+    emit({"phase": "deit_family", "kernel": "fused_transformer_block_int8", "shape": [B, N, C],
+          "hidden": hidden, "ms": k_ms, "plain_ms": p_ms, "bf16_block_ms": bf16_ms,
+          "bound_ms": max(b.values()),
+          "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
+          "calls_per_forward": len(q.blocks), "card": smi})
+    del q
+
+
+def build_384(torch, dev, mode, teacher):
+    """The 384-px DeiT-B/16 student in `mode` (fused, seeded weights) and
+    its plain twin, each with AdamW past the warmup and a train step with
+    `teacher` (fused) or its plain twin: ((student, step), (plain, step),
+    cfg)."""
+    from dense2sparse_vit_torch import models
+    from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
+    from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+
+    kwargs = getattr(models, MODES_384[mode][0])
+    student = models.create_model(STUDENT_384, img_size=384, use_fused_attention=True,
+                                  device=dev, generator=torch.Generator().manual_seed(0),
+                                  **kwargs)
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning,
+                           train=TrainConfig(batch_size=B_384))
+    out = []
+    for s, t in ((student, teacher), (plain_twin(student), plain_twin(teacher))):
+        opt = make_optimizer(s, cfg.train, STEPS_PER_EPOCH)
+        opt.count = TRAIN_EPOCH * STEPS_PER_EPOCH
+        out.append((s, make_train_step(s, t, opt, cfg)))
+    return out[0], out[1], cfg
+
+
+def run_384(torch, dev, mode, teacher, tally, smi):
+    """(b) for one mode: a B=64 train step of the 384-px student (launches,
+    the long path's among them, peak memory) against its plain twin's step
+    on the same weights, draws and kept tokens (`compare_steps`); a second
+    step, timed; a third with its activations captured for (a)'s checks.
+    Returns (the summary, the captured activations)."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import ATTENTION_BWD_LONG
+
+    _, per_step, long_per_step = MODES_384[mode]
+    (student, step), (plain, p_step), cfg = build_384(torch, dev, mode, teacher)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randn((B_384, 384, 384, 3), generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (B_384,), generator=gen, device=dev)
+
+    def counted_step(seed):
+        ops.reset_launch_counts()
+        ATTENTION_BWD_LONG.launches = 0
+        metrics = step(images, labels, TRAIN_EPOCH,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        counts, long = ops.launch_counts(), ATTENTION_BWD_LONG.launches
+        check_mode_launches(counts, per_step, f"384-px {mode} train step")
+        if long != long_per_step:
+            raise AssertionError(f"384-px {mode}: {long} long-path launches, expected "
+                                 f"{long_per_step}")
+        for k, v in counts.items():
+            tally.rows[k]["launches"] += v
+        tally.rows["attention_bwd[long]"]["launches"] += long
+        return {k: v.item() for k, v in metrics.items()}
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ModeRecorder() as rec:
+        values = counted_step(11)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if any(v != v or abs(v) == float("inf") for v in values.values()):
+        raise AssertionError(f"384-px {mode}: non-finite metrics {values}")
+    grads = train_step_grads(torch, student)
+    with ModeRecorder(replay_from=rec):
+        p_values = {k: v.item() for k, v in p_step(
+            images, labels, TRAIN_EPOCH,
+            generator=torch.Generator(device=dev).manual_seed(11)).items()}
+    compare_steps(torch, f"deit_family/384_{mode}", (values["loss"], grads),
+                  (p_values["loss"], train_step_grads(torch, plain)), mode_grad_names(grads))
+    del plain, p_step
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counted_step(12)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    if mode == "attn":
+        acts = capture_attn_step(torch, step, images, labels)
+    else:
+        acts = capture_train_step(torch, student, teacher, step, images, labels)
+        acts["heads"] = student.blocks[0].attn.num_heads
+        acts["scale"] = student.blocks[0].attn.scale
+        acts["ln_eps"] = student.blocks[0].norm1.eps
+    out = {"mode": mode, "batch": B_384, "metrics": values, "step_ms": step_ms,
+           "peak_gib": peak / 2**30, "step_gib": (peak - resident) / 2**30,
+           "tokens": [student.cfg.num_patches + 1] + [k + 1 for k in
+                                                       student.pruning.keep_counts(576)]}
+    emit({"phase": "deit_family", "train_384": out, "card": smi})
+    del student, step
+    return out, acts
+
+
+def long_cases_384(torch, dev, acts):
+    """(a)'s cases, on the 384-px steps' own activations in the form of
+    `capture_attn_bwd_cases`: plain mode at the top-k step's first block of
+    N = 577 and of 404; policy mode with dPolicy at the threshold step's
+    first policy block (N = 577, its keep policy) at every eps of
+    EPS_CHECKS, and on planted exact ties there; the CLS fold at the attn
+    step's blocks feeding the first two stages (577, 404); and N = 785 from
+    dino_small at patch 8 on a seeded block, each mode."""
+    from dense2sparse_vit_torch.models import create_model
+
+    cases = []
+    for mode in ("topk", "threshold"):
+        rec = acts[mode]
+        gen = torch.Generator(device=dev).manual_seed(34)
+        scale_g = rec["last_g"].float().std().item()
+        H, scale, ln_eps = rec["heads"], rec["scale"], rec["ln_eps"]
+        widths = {}
+        for i in range(len(rec["block_in"])):
+            widths.setdefault(rec["block_in"][i].shape[1], i)
+        blocks = ([widths[577], widths[404]] if mode == "topk"
+                  else [min(i for i, p in rec["policy"].items() if p is not None)])
+        for i in blocks:
+            x, w, pol = rec["block_in"][i], rec["weights"][i], rec["policy"][i]
+            g = (torch.randn(x.shape, generator=gen, device=dev) * scale_g).to(x.dtype)
+            base = {"block": i, "heads": H, "scale": scale, "gcls": None}
+            if pol is None:
+                qkv, do = attn_bwd_inputs(torch, x, g, w, H, scale, ln_eps)
+                cases.append({**base, "what": "topk_384", "qkv": qkv, "g": do, "policy": None,
+                              "eps": 1e-6})
+                continue
+            pol = pol.float().contiguous()
+            x_tie, tied = planted_ties(torch, x, w, H, scale, ln_eps)
+            emit({"phase": "deit_family", "planted_ties": {"block": i, "tied_rows": tied}})
+            for what, xx in (("threshold_384", x), ("ties_384", x_tie)):
+                for eps in EPS_CHECKS:
+                    qkv, do = attn_bwd_inputs(torch, xx, g, w, H, scale, ln_eps, pol, eps)
+                    cases.append({**base, "what": what, "qkv": qkv, "g": do, "policy": pol,
+                                  "eps": eps})
+    for i in ATTN_STAGE_FEEDERS[:2]:
+        e = acts["attn"]["attn"][i]
+        cases.append({"what": "gcls_384", "block": i, "qkv": e["qkv"], "g": e["g"],
+                      "heads": e["heads"], "scale": e["scale"], "policy": None,
+                      "gcls": e["gcls"], "eps": 1e-6})
+    # N = 785: dino_small at patch 8, its first block on its own embedding
+    model = create_model("dino_small", patch_size=8, depth=1, use_fused_attention=True,
+                         dtype="bfloat16", device=dev, generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(785)
+    with torch.no_grad():
+        x = model._embed(torch.randn((8, 224, 224, 3), generator=gen, device=dev))
+    blk = model.blocks[0]
+    H, scale = blk.attn.num_heads, blk.attn.scale
+    w = blk.kernel_weights(torch.bfloat16)
+    g = (torch.randn(x.shape, generator=gen, device=dev) * x.float().std()).to(x.dtype)
+    pol = (torch.rand(x.shape[:2], generator=gen, device=dev) < 0.6).float()
+    pol[:, 0] = 1.0
+    gcls = torch.randn((x.shape[0], H, x.shape[1]), generator=gen, device=dev) * 1e-2
+    base = {"block": 0, "heads": H, "scale": scale}
+    qkv, do = attn_bwd_inputs(torch, x, g, w, H, scale, blk.norm1.eps)
+    cases.append({**base, "what": "dino_p8", "qkv": qkv, "g": do, "policy": None,
+                  "gcls": None, "eps": 1e-6})
+    cases.append({**base, "what": "dino_p8_gcls", "qkv": qkv, "g": do, "policy": None,
+                  "gcls": gcls, "eps": 1e-6})
+    for eps in EPS_CHECKS:
+        qkv, do = attn_bwd_inputs(torch, x, g, w, H, scale, blk.norm1.eps, pol, eps)
+        cases.append({**base, "what": "dino_p8_policy", "qkv": qkv, "g": do, "policy": pol,
+                      "gcls": None, "eps": eps})
+    return cases
+
+
+def time_384(torch, acts, stage_in, smi):
+    """The main path's kernels at the 384-px step's own shapes (B=64, C=768),
+    each beside its plain version (CUDA events, in turns), its bound and,
+    where there is one, a torch call: the block forward at every stage width
+    (N = 577 / 404 / 283 / 198) and its backward at 577 and 404, the
+    teacher's CLS-row block at 577, the gathers and scatters (577 -> 404 ->
+    283 -> 198; the kernels and torch's from CUDA graphs), the predictor at
+    N = 576 / 403 / 282, the policy block both ways at 577 (threshold), the
+    packed attention forward at 577 (attn)."""
+    import torch.nn.functional as F
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import (
+        attention_reference, transformer_block_backward_reference, transformer_block_reference)
+    from dense2sparse_vit_torch.ops.gather import gather_tokens_reference, scatter_tokens_reference
+    from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
+
+    def row(kernel, shape, k_ms, p_ms, b, **extra):
+        emit({"phase": "deit_family", "time_384": kernel, "shape": list(shape), "ms": k_ms,
+              "plain_ms": p_ms, "bound_ms": max(b.values()),
+              "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
+              **extra, "card": smi})
+
+    rec = acts["topk"]
+    H, scale, ln_eps = rec["heads"], rec["scale"], rec["ln_eps"]
+    kw = dict(scale=scale, ln_eps=ln_eps)
+    gen = torch.Generator(device=rec["last_g"].device).manual_seed(38)
+    scale_g = rec["last_g"].float().std().item()
+    with torch.no_grad():
+        for i in (0, 3, 6, 9):
+            x, w = rec["block_in"][i], rec["weights"][i]
+            hidden = w["w1"].shape[0]
+            k, p = paired_ms(torch, lambda: ops.fused_transformer_block(x, w, H, **kw),
+                             lambda: transformer_block_reference(x, w, H, scale, ln_eps),
+                             iters=5, rounds=1, repeats=3)
+            row("fused_transformer_block", x.shape, k, p, block_bound(*x.shape, H, hidden))
+            if x.shape[1] <= 384:
+                continue
+            g = (torch.randn(x.shape, generator=gen, device=x.device) * scale_g).to(x.dtype)
+            k, p = paired_ms(
+                torch, lambda: ops.fused_transformer_block_backward(x, g, w, H, **kw),
+                lambda: transformer_block_backward_reference(x, g, w, H, scale, ln_eps),
+                iters=3, rounds=1, repeats=3)
+            row("fused_transformer_block_backward", x.shape, k, p,
+                block_backward_bound(*x.shape, H, hidden))
+        x, w = rec["teacher_in"][0], rec["teacher_weights"][0]
+        k, p = paired_ms(torch, lambda: ops.fused_transformer_block_cls(x, w, H, **kw),
+                         lambda: transformer_block_reference(x, w, H, scale, ln_eps,
+                                                             return_cls=True),
+                         iters=5, rounds=1, repeats=3)
+        row("fused_transformer_block_cls", x.shape, k, p,
+            block_bound(*x.shape, H, w["w1"].shape[0], cls=True))
+        for e in rec["gathers"]:
+            x, idx, g = e["x"], e["idx"], e["g"]
+            B, n, D = x.shape
+            full = idx[..., None].expand(-1, -1, D)
+            # (the plain versions by events: they are not graph-capturable)
+            row("fused_gather_tokens", x.shape, graph_ms(torch, lambda: ops.fused_gather_tokens(
+                x, idx)), cuda_ms(torch, lambda: gather_tokens_reference(x, idx), iters=5),
+                rows_bound(B, idx.shape[1], D, idx.shape[1], 2), k=idx.shape[1],
+                library_ms=graph_ms(torch, lambda: torch.gather(x, 1, full)))
+            row("fused_scatter_tokens", g.shape,
+                graph_ms(torch, lambda: ops.fused_scatter_tokens(g, idx, n)),
+                cuda_ms(torch, lambda: scatter_tokens_reference(g, idx, n), iters=5),
+                rows_bound(B, idx.shape[1], D, n, 2), n=n,
+                library_ms=graph_ms(torch, lambda: torch.zeros_like(x).scatter_add_(1, full, g)))
+        for xs, w in stage_in:
+            B, N, D = xs.shape
+            k, p = paired_ms(torch, lambda: ops.fused_predictor_lg(xs, w),
+                             lambda: predictor_lg_reference(xs, w), iters=5, rounds=1,
+                             repeats=3)
+            row("fused_predictor_lg", xs.shape, k, p, predictor_bound(B, N, D, w))
+        rt = acts["threshold"]
+        i = min(j for j, pol in rt["policy"].items() if pol is not None)
+        x, w, pol = rt["block_in"][i], rt["weights"][i], rt["policy"][i].float().contiguous()
+        hidden = w["w1"].shape[0]
+        k, p = paired_ms(torch, lambda: ops.fused_transformer_block(x, w, H, pol, **kw),
+                         lambda: transformer_block_reference(x, w, H, scale, ln_eps, policy=pol),
+                         iters=5, rounds=1, repeats=3)
+        row("fused_transformer_block[policy]", x.shape, k, p, block_bound(*x.shape, H, hidden))
+        g = (torch.randn(x.shape, generator=gen, device=x.device) * scale_g).to(x.dtype)
+        k, p = paired_ms(
+            torch, lambda: ops.fused_transformer_block_backward(x, g, w, H, pol, **kw),
+            lambda: transformer_block_backward_reference(x, g, w, H, scale, ln_eps, policy=pol),
+            iters=3, rounds=1, repeats=3)
+        row("fused_transformer_block_backward[policy]", x.shape, k, p,
+            block_backward_bound(*x.shape, H, hidden))
+        e = acts["attn"]["attn"][0]
+        qkv, Ha, sc = e["qkv"], e["heads"], e["scale"]
+        B, N, C3 = qkv.shape
+        q, kk, v = qkv.view(B, N, 3, Ha, C3 // 3 // Ha).permute(2, 0, 3, 1, 4).unbind(0)
+        k, p = paired_ms(torch, lambda: ops.fused_attention_packed(qkv, Ha, scale=sc),
+                         lambda: attention_reference(qkv, Ha, sc), iters=5, rounds=1,
+                         repeats=3)
+        row("fused_attention_packed", qkv.shape, k, p, attention_bound(B, N, C3 // 3, Ha),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, kk, v, scale=sc),
+                               iters=5, repeats=3))
+
+
+def phase_deit_family(torch, dev, tally, smi, root):
+    """Phase 34: (b) 384-px training (`run_384` per mode, then one CLI epoch
+    at --img-size 384 over phase 32's folder `root` ending in a checkpoint
+    and an eval, and a teacher-cache step against a live one at 384 px);
+    (a) attention_bwd_kernel's long path on (b)'s activations and at
+    N = 785 (`long_cases_384`: `check_attn_bwd`, two launches bit-equal),
+    timed at N = 577 and 404 beside its bound and SDPA's backward, the
+    predictor kernel on the 384-px student's stage inputs (N = 576, 403,
+    282), and the main path's other kernels at the 384-px shapes timed
+    (`time_384`); (c) every family model of FAMILY_MODELS fused against plain
+    (`check_family_model`), the other new names at depth 2, and a B=64
+    forward of FAMILY_TIMED timed; (d) the int8 ViT-L (`check_int8_family`)."""
+    import os
+    import tempfile
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import HEADLINE_KWARGS, create_model
+    from dense2sparse_vit_torch.models.registry import list_models
+    from dense2sparse_vit_torch.train.loop import run_experiment
+
+    t0 = time.perf_counter()
+    # (b) 384-px training
+    teacher = create_model(TEACHER_384, img_size=384, use_fused_attention=True, device=dev,
+                           dtype="bfloat16", generator=torch.Generator().manual_seed(2))
+    acts, train = {}, {}
+    for mode in MODES_384:
+        train[mode], acts[mode] = run_384(torch, dev, mode, teacher, tally, smi)
+        torch.cuda.empty_cache()
+    del teacher
+    # the predictor kernel on the 384-px student's stage inputs
+    student = create_model(STUDENT_384, img_size=384, use_fused_attention=True, device=dev,
+                           generator=torch.Generator().manual_seed(0), **HEADLINE_KWARGS).eval()
+    stage_in = []
+    hooks = [p.register_forward_pre_hook(lambda m, a: stage_in.append(a[0].detach()))
+             for p in student.score_predictor]
+    with torch.inference_mode():
+        x = torch.randn((B_384, 384, 384, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(8))
+        student(x, collect_cls_attns=False)
+        stage_in = [(xs, p.kernel_weights(xs.dtype))
+                    for p, xs in zip(student.score_predictor, stage_in)]
+        for xs, w in stage_in:
+            _, err = check_predictor(torch, xs, w, f"384px_N{xs.shape[1]}", "deit_family")
+            tally.err("fused_predictor_lg", err)
+    for h in hooks:
+        h.remove()
+    del student
+    # the CLI at 384 px, one epoch
+    from dense2sparse_vit_torch import cli
+
+    cfg, _ = cli.parse_config([*CLI_384_FLAGS, "--imgnet-val-dir", root, "--epochs", "1"])
+    cfg = cfg.replace(data=cfg.data.replace(num_workers=LOOP_WORKERS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_384_") as workdir:
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        with LoopSpy(torch) as spy:
+            summary = run_experiment(cfg, workdir, device=dev)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        records = loop_records(workdir)
+        check_loop_metrics(records, "cli 384")
+        ckpts = {stream: os.listdir(os.path.join(workdir, "ckpt", stream))
+                 for stream in ("best", "latest")}
+    check_step_launches(spy.steps, PER_TRAIN_STEP, "cli 384 train")
+    check_step_launches(spy.evals, PER_EVAL_STEP["topk"], "cli 384 eval")
+    if not all(ckpts.values()) or not spy.evals:
+        raise AssertionError(f"cli 384: checkpoints {ckpts}, {len(spy.evals)} evals")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    emit({"phase": "deit_family", "cli_384": CLI_384_FLAGS, "seconds": time.perf_counter() - t1,
+          "train_steps": len(spy.steps), "evals": len(spy.evals), "valid_rows": spy.valid,
+          "summary": summary, "checkpoints": ckpts, "card": smi,
+          "train_img_per_s": [r["time/train_img_per_s"] for r in records
+                              if "time/train_img_per_s" in r]})
+    cache_cfg, _ = cli.parse_config([*CLI_384_FLAGS, "--imgnet-val-dir", root, "--teacher-cache",
+                                     "--mixup", "0", "--cutmix", "0"])
+    emit({"phase": "deit_family", "cached_against_live_384": cached_step_against_live(
+        torch, dev, cache_cfg, root), "card": smi})
+    torch.cuda.empty_cache()
+    # the main path's kernels at the 384-px shapes, timed
+    time_384(torch, acts, stage_in, smi)
+    del stage_in
+    # (a) the long path
+    cases = long_cases_384(torch, dev, acts)
+    del acts
+    worst = max(check_attn_bwd(torch, c) for c in cases)
+    tally.err("attention_bwd", worst)
+    tally.err("attention_bwd[long]", worst)
+    for c in cases:
+        n = c["qkv"].shape[1]
+        if c["what"] not in ("topk_384", "threshold_384", "gcls_384") or (
+                c["policy"] is not None and c["eps"] != EPS_CHECKS[0]):
+            continue
+        B, N, C3 = c["qkv"].shape
+        t = attn_bwd_times(torch, c)
+        b = attention_backward_bound(B, N, C3 // 3, c["heads"], gcls=c["gcls"] is not None,
+                                     policy=c["policy"] is not None)
+        row = {"phase": "deit_family", "kernel": "attention_bwd[long]", "mode": c["what"],
+               "block": c["block"], "shape": [B, N, C3], **t, "bound_ms": max(b.values()),
+               "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
+               "card": smi}
+        if c["what"] == "topk_384":
+            lib_ms, row["library_fwd_bwd_ms"], row["library_fwd_ms"] = sdpa_backward_ms(
+                torch, c["qkv"], c["g"], c["heads"], c["scale"])
+            row["library_ms"] = lib_ms
+            # per top-k step: three block backwards at each of N = 577 and 404
+            tally.add("attention_bwd[long]", 3, t["ms"], t["plain_ms"], b, lib_ms)
+        emit(row)
+    del cases
+    torch.cuda.empty_cache()
+    # (c) the families at full width, then every other new name at depth 2
+    timed = {}
+    for name, kwargs in FAMILY_MODELS:
+        model = check_family_model(torch, dev, name, kwargs, tally, smi)
+        if name in FAMILY_TIMED:
+            timed[name] = time_family_model(torch, dev, model, smi)
+            emit({"phase": "deit_family", "timed": name, **timed[name]})
+        if name == INT8_FAMILY:
+            check_int8_family(torch, dev, model, tally, smi)
+        del model
+        torch.cuda.empty_cache()
+    from dense2sparse_vit_torch.models import registry
+
+    checked = {n for n, _ in FAMILY_MODELS}
+    others = [n for n in list_models()
+              if registry._REGISTRY[n].__qualname__.startswith("_family")
+              and n not in checked]
+    for name in others:
+        model = create_model(name, depth=2, use_fused_attention=True, dtype="bfloat16",
+                             device=dev, generator=torch.Generator().manual_seed(0)).eval()
+        side = model.cfg.img_size
+        x = torch.randn((B_FAMILY_SMALL, side, side, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9))
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            out = output_leaves(family_forward(torch, model, name, x))
+            torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_mode_launches(counts, family_launches(model, name), f"{name} at depth 2")
+        for k, v in counts.items():
+            tally.rows[k]["launches"] += v
+        if not all(bool(torch.isfinite(t.float()).all()) for t in out):
+            raise AssertionError(f"{name} at depth 2: non-finite outputs")
+        emit({"phase": "deit_family", "depth_2": name, "class": type(model).__name__,
+              "shapes": [list(t.shape) for t in out]})
+        del model
+    emit({"phase": "deit_family", "seconds": time.perf_counter() - t0,
+          "train_384": {m: {k: v[k] for k in ("step_ms", "peak_gib", "step_gib")}
+                        for m, v in train.items()},
+          "img_per_s": {n: t["img_per_s"] for n, t in timed.items()},
+          "busy_share": {n: t["busy_share"] for n, t in timed.items()},
+          "depth_2_names": len(others), "card": smi})
+
+
 def host_batch(torch, cfg, root, dev, split="val"):
     """The first LOOP_BATCH images of the loop's train or val split in the
     eval view, uint8 on the card, with their labels."""
@@ -5030,6 +5767,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     try:
         phase_student_modes(torch, dev, tally, smi, loop_root)
+        # ---- 34. the DeiT, ViT and DINO families; 384-px training ---------------
+        torch.cuda.empty_cache()
+        phase_deit_family(torch, dev, tally, smi, loop_root)
     finally:
         loop_tmp.cleanup()
 

@@ -36,7 +36,9 @@
 //                 dWproj = da^T O (on da's bf16 copy), dbproj = sum da over
 //                 the fp32 da (norm.cu's column_sums); dO = da Wproj
 //   4. core       attention_bwd_kernel, one CTA per (sample, head) (N <= 384;
-//                 policy mode N <= 352): P = exp(scale q.k - lse),
+//                 policy mode N <= 352; longer sequences, up to the
+//                 forward's 800, over 2-3 CTAs: the long path below):
+//                 P = exp(scale q.k - lse),
 //                 D = rowsum(dO * O), dS = P * (dO V^T - D), dV = P^T dO,
 //                 dQ = scale dS K, dK = scale dS^T Q in one pass over the
 //                 scores on wgmma (the design below); writes packed dqkv
@@ -140,6 +142,20 @@
 //     to dqkv. dQ's sum over the key blocks runs in one accumulator in key
 //     order, dK's and dV's in one chain in query order: no atomics, the
 //     same bits every run, for every plan below;
+//   - the long path: past 384 queries (policy mode 352) Q, dO and a stage
+//     no longer fit one CTA, so a sample-head's query blocks are split over
+//     2 (N <= 768) or 3 CTAs (ab_splits: at most six blocks a CTA, five in
+//     policy mode), each running the body above over its own query blocks
+//     while its ring streams every key block. Its dQ is then complete; its
+//     dK and dV (and dPolicy's partials) are sums over its own queries,
+//     stored as fp32 partials (kv_part, (splits, B*N, 2C)) and added in
+//     split order by reduce_kv_kernel (dPolicy's by sum_heads_kernel), so
+//     the long path too takes no atomics and gives the same bits every run.
+//     The partials cost ~2 x B N 2C x 4 bytes each split more than the
+//     one-CTA path moves (~0.45 GB written and read at B=64, N=577, C=768);
+//     the key blocks are read once by each split. Where a split holds fewer
+//     query blocks than the others (the last), its spare warpgroups only
+//     keep the stage barriers' counts;
 //   - the copies: one thread issues TMA loads (3-D maps over the strided
 //     qkv and dO, rows past N arriving as zeros) of the first key block's K
 //     and V, every query block's Q and dO (an mbarrier each) and the next
@@ -286,33 +302,61 @@ long long column_sums_workspace_floats(int M, int N, int elem);
 constexpr int AB_HD = 64;
 constexpr int AB_BLK = 64;  // the rows of a query block (a warpgroup's wgmma M) and of a key block
 constexpr int AB_TILE = AB_BLK * AB_HD * 2;  // bytes of a 64 x 64 bf16 tile: 128-byte rows
-constexpr int AB_MAX_N = 384;         // Q, dO and one stage of P and dS stay under 227 KB
-constexpr int AB_POLICY_MAX_N = 352;  // policy mode: and its row vectors and dPolicy partials
-constexpr int AB_SMEM_MAX = 232448;   // the most dynamic shared memory a CTA takes
+constexpr int AB_MAX_N = 800;  // the forward's limit (block.cu's ATT_MAX_N)
+// the most query blocks one CTA holds: Q, dO and one stage of P and dS of
+// 384 query rows stay under 227 KB; in policy mode, with its row vectors and
+// dPolicy partials, 352 rows alone (six blocks, the last partial) or five
+// full blocks a CTA of a split sample-head
+constexpr int AB_CTA_QB = 6;
+constexpr int AB_POLICY_ONE_CTA_N = 352;
+constexpr int AB_POLICY_CTA_QB = 5;
+constexpr int AB_SMEM_MAX = 232448;  // the most dynamic shared memory a CTA takes
+
+// The CTAs a sample-head's query blocks are split over: 1 while one CTA
+// holds them all (N <= 384; policy mode N <= 352), else the fewest that
+// hold AB_CTA_QB (policy: AB_POLICY_CTA_QB) blocks each.
+inline int ab_splits(int N, bool policy) {
+  const int qb = (N + 63) / 64;
+  if (policy ? N <= AB_POLICY_ONE_CTA_N : qb <= AB_CTA_QB) return 1;
+  const int per = policy ? AB_POLICY_CTA_QB : AB_CTA_QB;
+  return (qb + per - 1) / per;
+}
+
+// The query blocks of one CTA at N: all of them with one split, else as
+// even a share as the splits allow (the last split's may be fewer). The
+// host computes it and hands it to the kernel, whose layout takes it.
+inline int ab_cta_blocks(int N, bool policy) {
+  const int qb = (N + 63) / 64, sp = ab_splits(N, policy);
+  return (qb + sp - 1) / sp;
+}
 
 // The shared memory of one launch, as byte offsets from the 1024-aligned
-// base: Q and dO of every query block (TMA, the 128-byte swizzle), a ring of
-// `ring` key blocks' K and V, `stages` stages of P and dS ([query][64 keys],
-// the same swizzle: the owner products' MN-major A), then the fp32 rows and
-// the mbarriers.
+// base: Q and dO of the CTA's query blocks (TMA, the 128-byte swizzle), a
+// ring of `ring` key blocks' K and V, `stages` stages of P and dS
+// ([query][64 keys], the same swizzle: the owner products' MN-major A),
+// then the fp32 rows (the CTA's queries; the policy and gcls of every key)
+// and the mbarriers. With one split it is the whole sample-head's.
 struct AbLayout {
-  int qb;        // query blocks = key blocks: ceil(N / 64)
-  int nq16;      // the query rows the owner products reduce over: N rounded up to 16
+  int qb;        // key blocks: ceil(N / 64)
+  int lqb;       // the query blocks of a CTA (ab_cta_blocks; the last split's may be fewer)
+  int nq16;      // the query rows the owner products reduce over, at most: rounded up to 16
   int qpw, wgs;  // query blocks a warpgroup (1, or 3 past 4 blocks), warpgroups
   int ring, stages;
   size_t q, dout, kv, st, ds, ls, rd, gc, ps, cv, cvp, dpw, gs, misc, bars, bytes;
 };
 
-__host__ __device__ inline AbLayout ab_layout(int N, bool policy, bool fold, int ring,
-                                              int stages) {
+__host__ __device__ inline AbLayout ab_layout(int N, int lqb, bool split, bool policy, bool fold,
+                                              int ring, int stages) {
   AbLayout l;
   l.qb = (N + AB_BLK - 1) / AB_BLK;
-  l.nq16 = (N + 15) / 16 * 16;
-  l.qpw = l.qb <= 4 ? 1 : 3;
-  l.wgs = (l.qb + l.qpw - 1) / l.qpw;
+  l.lqb = split ? lqb : l.qb;
+  l.nq16 = split ? lqb * AB_BLK : (N + 15) / 16 * 16;
+  l.qpw = l.lqb <= 4 ? 1 : 3;
+  l.wgs = (l.lqb + l.qpw - 1) / l.qpw;
   l.ring = ring;
   l.stages = stages;
-  const size_t rows = (size_t)l.qb * AB_BLK;
+  const size_t rows = (size_t)l.lqb * AB_BLK;  // the CTA's query rows
+  const size_t keys = (size_t)l.qb * AB_BLK;
   size_t off = 0;
   l.q = off, off += rows * 128;
   l.dout = off, off += rows * 128;
@@ -324,14 +368,14 @@ __host__ __device__ inline AbLayout ab_layout(int N, bool policy, bool fold, int
   if (policy) {
     l.rd = off, off += rows * 4;                 // 1 / den
     l.gc = off, off += rows * 4;                 // the max path's gmx / ties
-    l.ps = off, off += rows * 4;                 // pol_j of every key
+    l.ps = off, off += keys * 4;                 // pol_j of every key
     l.cv = off, off += AB_HD * 4;                // colsum(V)
     l.cvp = off, off += 8 * AB_HD * 4;           // its partial sums, a row per 64 threads
     l.dpw = off, off += (size_t)stages * 4 * l.wgs * AB_BLK * 4;  // dPolicy, a row per warp
   }
-  if (fold) l.gs = off, off += rows * 4;         // gcls: the CLS row's cotangent
+  if (fold) l.gs = off, off += keys * 4;         // gcls: the CLS row's cotangent
   l.misc = off, off += 16 + 2 * 16 * 4;          // gcls: sum_j gcls_j; the warps' fold sums
-  l.bars = off, off += (size_t)(l.qb + ring + 2 * stages) * 8;
+  l.bars = off, off += (size_t)(l.lqb + ring + 2 * stages) * 8;
   l.bytes = off + 1024;  // and the base's alignment
   return l;
 }
@@ -413,13 +457,34 @@ __device__ __forceinline__ void ab_store(bf16* dst, long long ld, int r, int n,
   }
 }
 
-// CTA = one (sample, head), ab_layout(...).wgs warpgroups of 128 threads.
-// qkv (B, N, 3C) with token rows q_ld elements apart and samples q_bstride
-// apart (tm_qkv: its TMA map (3C, N, B)), o and dout (B*N, C) (tm_dout:
-// dout's (C, N, B)), lse (B, H, N) (policy mode: float4 (m, den, ties, 0)),
-// dqkv (B*N, 3C) packed; policy mode: pol (B, N), dpol_part (B, H, N) or
-// null. gcls: (B, H, N) fp32, the cotangent of the CLS (query 0) rows of
-// the probabilities, or null.
+// the same into the (rows, ld) fp32 matrix `dst`
+__device__ __forceinline__ void ab_store_f32(float* dst, long long ld, int r, int n,
+                                             const float (&acc)[32], int t) {
+#pragma unroll
+  for (int nd = 0; nd < AB_HD / 8; ++nd) {
+    if (r < n)
+      *reinterpret_cast<float2*>(dst + r * ld + nd * 8 + 2 * t) =
+          make_float2(acc[4 * nd], acc[4 * nd + 1]);
+    if (r + 8 < n)
+      *reinterpret_cast<float2*>(dst + (r + 8) * ld + nd * 8 + 2 * t) =
+          make_float2(acc[4 * nd + 2], acc[4 * nd + 3]);
+  }
+}
+
+// CTA = one (sample, head) (blockIdx.x) and one split of its query blocks
+// (blockIdx.y: blocks lqb y .. lqb y + lqb - 1), ab_layout(...).wgs
+// warpgroups of 128 threads. qkv (B, N, 3C) with token rows q_ld elements
+// apart and samples q_bstride apart (tm_qkv: its TMA map (3C, N, B)), o and
+// dout (B*N, C) (tm_dout: dout's (C, N, B)), lse (B, H, N) (policy mode:
+// float4 (m, den, ties, 0)), dqkv (B*N, 3C) packed; policy mode: pol
+// (B, N), dpol_part (splits, B, H, N) or null. gcls: (B, H, N) fp32, the
+// cotangent of the CLS (query 0) rows of the probabilities, or null.
+// kv_part: with more than one split, (splits, B*N, 2C) fp32, each split's
+// dK (columns h 64 ..) and dV (C + h 64 ..) over its own queries, which
+// reduce_kv_kernel adds in split order into dqkv; null with one split,
+// whose owners write dK and dV to dqkv themselves. dQ is each split's own.
+// SPLIT: the long path's instantiation; without it (one CTA a sample-head)
+// every split quantity is a constant and the code is the one-CTA kernel's.
 //
 // The CLS rows are the probabilities' row 0, so their cotangent adds to dP's
 // row 0: dP_0j += gcls_j, and with it D_0 = sum_j P_0j dP_0j gains
@@ -427,7 +492,7 @@ __device__ __forceinline__ void ab_store(bf16* dst, long long ld, int r, int n,
 // fp32 before the loop. Policy mode's de = (dP - D) / den then carries the
 // fold into dS, dPolicy and, through sum_j dP_0j = dO_0 . colsum(V) +
 // sum_j gcls_j, the max path.
-template <bool POLICY, int QPW>
+template <bool POLICY, int QPW, bool SPLIT>
 static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
     attention_bwd_kernel(const __grid_constant__ CUtensorMap tm_qkv,
                          const __grid_constant__ CUtensorMap tm_dout,
@@ -435,12 +500,12 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
                          const bf16* __restrict__ o, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ pol,
                          const float* __restrict__ gcls, bf16* __restrict__ dqkv,
-                         float* __restrict__ dpol_part, int N, int H, float scale, float eps,
-                         int ring, int stages) {
+                         float* __restrict__ dpol_part, float* __restrict__ kv_part, int N,
+                         int lqb, int H, float scale, float eps, int ring, int stages) {
   extern __shared__ unsigned char ab_smem[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(ab_smem) + 1023) & ~uintptr_t(1023));
-  const AbLayout L = ab_layout(N, POLICY, gcls != nullptr, ring, stages);
+  const AbLayout L = ab_layout(N, lqb, SPLIT, POLICY, gcls != nullptr, ring, stages);
   unsigned char* Qs = base + L.q;
   unsigned char* dOs = base + L.dout;
   unsigned char* KVs = base + L.kv;
@@ -458,12 +523,17 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
   float* gsum = fl(L.misc);
   float* Fold = gsum + 4;  // gcls: per warp, its part of the fold and of sum_j gcls_j
   uint64_t* qbar = reinterpret_cast<uint64_t*>(base + L.bars);  // Q and dO of a query block in
-  uint64_t* kvbar = qbar + L.qb;       // a ring slot's K and V in
+  uint64_t* kvbar = qbar + L.lqb;      // a ring slot's K and V in
   uint64_t* fullb = kvbar + ring;      // a stage's P, dS (and dPolicy rows) written
   uint64_t* freeb = fullb + stages;    // a stage read by its owners
 
-  const int QB = L.qb, W = L.wgs, nq16 = L.nq16;
-  const int rows = QB * AB_BLK;
+  const int QB = L.qb, W = L.wgs;
+  const int rows = L.lqb * AB_BLK;  // the CTA's query rows in shared memory
+  const int q0b = SPLIT ? blockIdx.y * L.lqb : 0;  // its first query block
+  const int q0 = q0b * AB_BLK;                     // and first query row
+  const int QBl = SPLIT ? min(L.lqb, QB - q0b) : QB;  // its query blocks
+  // the rows its owners reduce over
+  const int nq16 = SPLIT ? min(L.nq16, (N - q0 + 15) / 16 * 16) : L.nq16;
   const int C = H * AB_HD;
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -480,7 +550,7 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
   const float cc = POLICY ? eps / N : 0.f;
 
   if (tid == 0) {
-    for (int i = 0; i < QB; ++i) mbar_init(&qbar[i], 1);
+    for (int i = 0; i < L.lqb; ++i) mbar_init(&qbar[i], 1);
     for (int r = 0; r < ring; ++r) mbar_init(&kvbar[r], 1);
     for (int s = 0; s < stages; ++s) {
       mbar_init(&fullb[s], W * 128);
@@ -499,39 +569,46 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
   };
   if (tid == 0) {
     load_kv(0);
-    for (int i = 0; i < QB; ++i) {
+    for (int i = 0; i < QBl; ++i) {
       mbar_expect_tx(&qbar[i], 2 * AB_TILE);
-      tma_load_3d(Qs + i * AB_TILE, &tm_qkv, &qbar[i], h * AB_HD, i * AB_BLK, b);
-      tma_load_3d(dOs + i * AB_TILE, &tm_dout, &qbar[i], h * AB_HD, i * AB_BLK, b);
+      tma_load_3d(Qs + i * AB_TILE, &tm_qkv, &qbar[i], h * AB_HD, q0 + i * AB_BLK, b);
+      tma_load_3d(dOs + i * AB_TILE, &tm_dout, &qbar[i], h * AB_HD, q0 + i * AB_BLK, b);
     }
     for (int j = 1; j < ring; ++j) load_kv(j);
   }
 
-  // while the copies run: the rows' statistics, D, and in policy mode
-  // colsum(V); rows past N get zero probabilities below
+  // while the copies run: the CTA's rows' statistics, D, and in policy
+  // mode colsum(V); rows past N get zero probabilities below. Ps and Gs
+  // hold every key's.
   const float4* st4 = reinterpret_cast<const float4*>(lse);
   for (int r = tid; r < rows; r += blockDim.x) {
-    const bool in = r < N;
+    const bool in = q0 + r < N;
     if (POLICY) {
-      const float4 st = in ? st4[(long long)bh * N + r] : make_float4(0.f, 1.f, 1.f, 0.f);
+      const float4 st = in ? st4[(long long)bh * N + q0 + r] : make_float4(0.f, 1.f, 1.f, 0.f);
       Ls[r] = st.x;
       Rd[r] = in ? 1.f / st.y : 0.f;
       Gc[r] = st.z;  // the ties, until gmx replaces them below
-      Ps[r] = in ? pol[(long long)b * N + r] : 0.f;
     } else {
-      Ls[r] = in ? lse[(long long)bh * N + r] : 0.f;
+      Ls[r] = in ? lse[(long long)bh * N + q0 + r] : 0.f;
     }
-    if (gcls) Gs[r] = in ? gcls[(long long)bh * N + r] : 0.f;
+    if (!SPLIT) {  // one CTA: its rows are every key
+      if (POLICY) Ps[r] = in ? pol[(long long)b * N + r] : 0.f;
+      if (gcls) Gs[r] = in ? gcls[(long long)bh * N + r] : 0.f;
+    }
+  }
+  for (int k = tid; SPLIT && k < QB * AB_BLK; k += blockDim.x) {
+    if (POLICY) Ps[k] = k < N ? pol[(long long)b * N + k] : 0.f;
+    if (gcls) Gs[k] = k < N ? gcls[(long long)bh * N + k] : 0.f;
   }
   // D = rowsum(dO * O), the softmax backward's sum_j P_ij dP_ij, for the
   // warpgroup's query rows: two threads a row, 16-byte loads
   for (int qq = 0; qq < QPW; ++qq) {
     const int qb = wg * QPW + qq;
-    if (qb >= QB) break;
+    if (qb >= QBl) break;
     const int r = qb * AB_BLK + (ct >> 1);
     float acc = 0.f;
-    if (r < N) {
-      const long long at = ((long long)b * N + r) * C + h * AB_HD + (ct & 1) * 32;
+    if (q0 + r < N) {
+      const long long at = ((long long)b * N + q0 + r) * C + h * AB_HD + (ct & 1) * 32;
 #pragma unroll
       for (int c = 0; c < 32; c += 8) {
         const uint4 ov = *reinterpret_cast<const uint4*>(o + at + c);
@@ -560,17 +637,17 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
     for (int grp = 0; grp < (int)(blockDim.x >> 6); ++grp) acc += Cvp[grp * AB_HD + tid];
     Cv[tid] = acc;
   }
-  if (gcls) {
+  if (gcls && q0 == 0) {
     // D_0 += sum_j gcls_j P_0j, P_0j from row 0's scores in fp32: a key a
-    // thread, the warps' sums added in order
-    const bf16* q0 = qkv + (long long)b * q_bstride + h * AB_HD;
+    // thread, the warps' sums added in order (the first split's CTA)
+    const bf16* qrow0 = qkv + (long long)b * q_bstride + h * AB_HD;
     float s0 = 0.f, gs = 0.f;
     for (int j = tid; j < N; j += blockDim.x) {
-      const uint4* kj = reinterpret_cast<const uint4*>(q0 + (long long)j * q_ld + C);
+      const uint4* kj = reinterpret_cast<const uint4*>(qrow0 + (long long)j * q_ld + C);
       float dot = 0.f;
 #pragma unroll
       for (int c = 0; c < AB_HD / 8; ++c) {
-        const uint4 qv = reinterpret_cast<const uint4*>(q0)[c];
+        const uint4 qv = reinterpret_cast<const uint4*>(qrow0)[c];
         const uint4 kv = kj[c];
         const bf16* qe = reinterpret_cast<const bf16*>(&qv);
         const bf16* ke = reinterpret_cast<const bf16*>(&kv);
@@ -604,17 +681,17 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
       *gsum = gs;
     }
   }
-  if (POLICY || gcls) __syncthreads();
+  if (POLICY || (gcls && q0 == 0)) __syncthreads();
   if (POLICY) {
     // the max path: gmx_i = (c / den_i) (dO_i . colsum(V) - N D_i), split
     // over the row's ties; the warpgroup's rows, two threads a row
     for (int qq = 0; qq < QPW; ++qq) {
       const int qb = wg * QPW + qq;
-      if (qb >= QB) break;
+      if (qb >= QBl) break;
       const int r = qb * AB_BLK + (ct >> 1);
       float dv = 0.f;
-      if (r < N) {
-        const bf16* drow = dout + ((long long)b * N + r) * C + h * AB_HD + (ct & 1) * 32;
+      if (q0 + r < N) {
+        const bf16* drow = dout + ((long long)b * N + q0 + r) * C + h * AB_HD + (ct & 1) * 32;
         const float* cv = Cv + (ct & 1) * 32;
 #pragma unroll
         for (int c = 0; c < 32; c += 8) {
@@ -625,8 +702,8 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
         }
       }
       dv += __shfl_xor_sync(0xffffffffu, dv, 1);
-      if ((ct & 1) == 0 && r < N) {
-        if (gcls && r == 0) dv += *gsum;  // sum_j dP_0j
+      if ((ct & 1) == 0 && q0 + r < N) {
+        if (gcls && q0 + r == 0) dv += *gsum;  // sum_j dP_0j
         Gc[r] = cc * Rd[r] * (dv - N * Ds[r]) / Gc[r];
       }
     }
@@ -664,14 +741,14 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
 #pragma unroll
     for (int qq = 0; qq < QPW; ++qq) {
       const int qb = wg * QPW + qq;
-      if (qb >= QB) break;
+      if (qb >= QBl) break;
       if (j == 0) {
         mbar_wait(&qbar[qb], 0);
         __syncwarp();
       }
       const unsigned char* Qt = Qs + qb * AB_TILE;
       const unsigned char* dOt = dOs + qb * AB_TILE;
-      const int ra = qb * AB_BLK + warp * 16 + g;  // this thread's query rows ra, rb
+      const int ra = qb * AB_BLK + warp * 16 + g;  // this thread's query rows ra, rb (the CTA's)
       const int rb = ra + 8;
 #pragma unroll 1  // (unrolled, the two halves' live ranges overlap and spill)
       for (int half = 0; half < 2; ++half) {
@@ -732,7 +809,7 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
             const int i = 4 * jj + e;
             const bool hi = e >> 1;
             const int key = k0 + (e & 1);
-            const int q = hi ? rb : ra;
+            const int q = q0 + (hi ? rb : ra);  // the query's row in the sequence
             const bool valid = key < N && q < N;
             float dpv = dp[i];
             if (gcls && q == 0) dpv += Gs[key];
@@ -800,6 +877,13 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
     fence_acc(da[1]);
 #pragma unroll
     for (int qq = 0; qq < QPW; ++qq) fence_acc(dq[qq]);
+    // a warpgroup with no query block here (the last split's CTA) writes
+    // nothing, but arrives only once the stage's last owners are done, as
+    // the others do before they write it
+    if (SPLIT && use > 0 && wg * QPW >= QBl) {
+      mbar_wait(&freeb[st], (use - 1) & 1);
+      __syncwarp();
+    }
     // the stage's generic-proxy writes, before the owners' wgmma reads them
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_arrive(&fullb[st]);
@@ -812,25 +896,45 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
       const int nk = nq16 / 16;
       auto owner = [&](const unsigned char* A, const unsigned char* Bm, int col) {
         float acc[32];
+        if (SPLIT) {
+          // the chain's first product starts the sum (scale-d 0) outside
+          // the loop: a chain ptxas cannot prove non-empty, over an
+          // accumulator zeroed by ordinary instructions, it serializes
+          // (C7515), as it does where nk comes from the split
+          wgmma_fence();
+          wgmma_m64n64k16_ss<1, 1>(acc, wgmma_desc(A, 0, 1024), wgmma_desc(Bm, 0, 1024), 0);
+          for (int kq = 1; kq < nk; ++kq)
+            wgmma_m64n64k16_ss<1, 1>(acc, wgmma_desc(A + kq * 2048, 0, 1024),
+                                     wgmma_desc(Bm + kq * 2048, 0, 1024), 1);
+        } else {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-        wgmma_fence();
-        for (int kq = 0; kq < nk; ++kq)
-          wgmma_m64n64k16_ss<1, 1>(acc, wgmma_desc(A + kq * 2048, 0, 1024),
-                                   wgmma_desc(Bm + kq * 2048, 0, 1024), 1);
+          for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+          wgmma_fence();
+          for (int kq = 0; kq < nk; ++kq)
+            wgmma_m64n64k16_ss<1, 1>(acc, wgmma_desc(A + kq * 2048, 0, 1024),
+                                     wgmma_desc(Bm + kq * 2048, 0, 1024), 1);
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_acc(acc);
-        ab_store(dqkv + (long long)b * N * ld3 + col + h * AB_HD, ld3,
-                 j * AB_BLK + warp * 16 + g, N, acc, t);
+        if (SPLIT)  // this split's (B*N, 2C) part, from column col - C
+          ab_store_f32(kv_part + ((long long)blockIdx.y * (gridDim.x / H) + b) * N * (2 * C) +
+                           col - C + h * AB_HD,
+                       2 * C, j * AB_BLK + warp * 16 + g, N, acc, t);
+        else
+          ab_store(dqkv + (long long)b * N * ld3 + col + h * AB_HD, ld3,
+                   j * AB_BLK + warp * 16 + g, N, acc, t);
       };
       if (wg == ov) owner(Pt, dOs, 2 * C);  // dV_j = P^T dO
       if (wg == ok) owner(dSt, Qs, C);      // dK_j = dS^T Q
       if (POLICY && dpol_part && wg == ov && ct < AB_BLK && j * AB_BLK + ct < N) {
+        // the rows of the warpgroups that have query blocks here
         const float* src = Dpw + (size_t)st * W * 4 * AB_BLK + ct;
+        const int wr = SPLIT ? 4 * min(W, (QBl + QPW - 1) / QPW) : 4 * W;
         float acc = 0.f;
-        for (int r = 0; r < 4 * W; ++r) acc += src[r * AB_BLK];
-        dpol_part[(long long)bh * N + j * AB_BLK + ct] = acc;
+        for (int r = 0; r < wr; ++r) acc += src[r * AB_BLK];
+        dpol_part[((long long)(SPLIT ? blockIdx.y : 0) * gridDim.x + bh) * N + j * AB_BLK + ct] =
+            acc;
       }
       mbar_arrive(&freeb[st]);
     }
@@ -839,30 +943,67 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
 #pragma unroll
   for (int qq = 0; qq < QPW; ++qq) {
     const int qb = wg * QPW + qq;
-    if (qb < QB)
-      ab_store(dqkv + (long long)b * N * ld3 + h * AB_HD, ld3, qb * AB_BLK + warp * 16 + g, N,
-               dq[qq], t);
+    if (qb < QBl)
+      ab_store(dqkv + (long long)b * N * ld3 + h * AB_HD, ld3, q0 + qb * AB_BLK + warp * 16 + g,
+               N, dq[qq], t);
   }
 }
 
 // dpol[b][j] = sum over h, in order, of part[b][h][j]
+// dpol[b][j] = sum over h, and within a head over the splits, in order, of
+// part[split][b][h][j]
 static __global__ void sum_heads_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                        int B, int H, int N) {
+                                        int B, int H, int N, int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * N) return;
   const int b = i / N, j = i % N;
   float acc = 0.f;
-  for (int h = 0; h < H; ++h) acc += part[((long long)b * H + h) * N + j];
+  for (int h = 0; h < H; ++h)
+    for (int sp = 0; sp < splits; ++sp) acc += part[(((long long)sp * B + b) * H + h) * N + j];
   out[i] = acc;
 }
 
-// launches of attention_bwd_kernel, where it is launched (the backward
-// entries' own included), read by d2s_attention_bwd_launches
-static long long attention_bwd_launches = 0;
+// dK and dV of a split sample-head: dqkv[m][C + c] = bf16 of the sum over
+// the splits, in order, of part[split][m][c], for the M rows and 2C columns;
+// four columns a thread
+static __global__ void reduce_kv_kernel(const float* __restrict__ part, bf16* __restrict__ dqkv,
+                                        long long M, int C, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int c4 = C / 2;  // 2C columns, four at a time
+  if (i >= M * c4) return;
+  const long long m = i / c4;
+  const int c = (int)(i % c4) * 4;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < splits; ++sp) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(part + ((long long)sp * M + m) * (2 * C) + c);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  uint2 packed;
+  packed.x = pack_bf16(acc.x, acc.y);
+  packed.y = pack_bf16(acc.z, acc.w);
+  *reinterpret_cast<uint2*>(dqkv + m * 3 * C + C + c) = packed;
+}
 
-static decltype(&attention_bwd_kernel<false, 1>) ab_kernel(bool policy, int qpw) {
-  if (policy) return qpw == 1 ? attention_bwd_kernel<true, 1> : attention_bwd_kernel<true, 3>;
-  return qpw == 1 ? attention_bwd_kernel<false, 1> : attention_bwd_kernel<false, 3>;
+// launches of attention_bwd_kernel, where it is launched (the backward
+// entries' own included), and those of them on the long path (a
+// sample-head split over CTAs), read by d2s_attention_bwd_launches
+static long long attention_bwd_launches = 0;
+static long long attention_bwd_long_launches = 0;
+
+static decltype(&attention_bwd_kernel<false, 1, false>) ab_kernel(bool policy, int qpw,
+                                                                   bool split) {
+  if (split) {
+    if (policy)
+      return qpw == 1 ? attention_bwd_kernel<true, 1, true> : attention_bwd_kernel<true, 3, true>;
+    return qpw == 1 ? attention_bwd_kernel<false, 1, true> : attention_bwd_kernel<false, 3, true>;
+  }
+  if (policy)
+    return qpw == 1 ? attention_bwd_kernel<true, 1, false> : attention_bwd_kernel<true, 3, false>;
+  return qpw == 1 ? attention_bwd_kernel<false, 1, false> : attention_bwd_kernel<false, 3, false>;
 }
 
 // The layout of a launch at N: of the ring and stage depths whose layout
@@ -874,8 +1015,10 @@ static decltype(&attention_bwd_kernel<false, 1>) ab_kernel(bool policy, int qpw)
 static cudaError_t ab_plan(int N, bool policy, bool fold, AbLayout* out) {
   static int cache[2][2][AB_MAX_N + 1];  // 4 ring + stages, 0 while unknown
   int& plan = cache[policy][fold][N];
-  const AbLayout one = ab_layout(N, policy, fold, 1, 1);
-  auto kernel = ab_kernel(policy, one.qpw);
+  const int lqb = ab_cta_blocks(N, policy);
+  const bool split = ab_splits(N, policy) > 1;
+  const AbLayout one = ab_layout(N, lqb, split, policy, fold, 1, 1);
+  auto kernel = ab_kernel(policy, one.qpw, split);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AB_SMEM_MAX);
   if (err != cudaSuccess) return err;
@@ -884,7 +1027,7 @@ static cudaError_t ab_plan(int N, bool policy, bool fold, AbLayout* out) {
     int best = 0, choice = 0;
     for (int stages = 2; stages >= 1; --stages)
       for (int ring = std::min(3, qb); ring >= 1; --ring) {
-        const AbLayout l = ab_layout(N, policy, fold, ring, stages);
+        const AbLayout l = ab_layout(N, lqb, split, policy, fold, ring, stages);
         if (l.bytes > (size_t)AB_SMEM_MAX) continue;
         int fit = 0;
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, l.wgs * 128, l.bytes);
@@ -897,18 +1040,32 @@ static cudaError_t ab_plan(int N, bool policy, bool fold, AbLayout* out) {
     if (choice == 0) return cudaErrorInvalidValue;
     plan = choice;
   }
-  *out = ab_layout(N, policy, fold, plan / 4, plan % 4);
+  *out = ab_layout(N, lqb, split, policy, fold, plan / 4, plan % 4);
   return cudaSuccess;
 }
 
+// The fp32 floats of the split partials at these shapes: dK and dV
+// (splits, B*N, 2C) where a sample-head is split, else none; dPolicy's
+// (splits, B, H, N) in policy mode.
+static long long kv_part_floats(int B, int N, int H, bool policy) {
+  const int sp = ab_splits(N, policy);
+  return sp > 1 ? (long long)sp * B * N * 2 * H * AB_HD : 0;
+}
+static long long dpol_part_floats(int B, int N, int H, bool policy) {
+  return policy ? (long long)ab_splits(N, policy) * B * H * N : 0;
+}
+
+// dpol_part: dpol_part_floats(...) floats, or null (no dPolicy); kv_part:
+// kv_part_floats(...) floats (null where that is 0). A split sample-head's
+// dK and dV are added by reduce_kv_kernel right after.
 static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, int q_ld,
                                         const bf16* o, const bf16* dout, const float* lse,
                                         const float* pol, const float* gcls, bf16* dqkv,
-                                        float* dpol_part, int B, int N, int H, float scale,
-                                        float eps, cudaStream_t stream) {
+                                        float* dpol_part, float* kv_part, int B, int N, int H,
+                                        float scale, float eps, cudaStream_t stream) {
   const bool policy = pol != nullptr;
-  if (B <= 0 || N <= 0 || N > (policy ? AB_POLICY_MAX_N : AB_MAX_N) ||
-      q_ld < 3 * H * AB_HD || q_ld % 8 || q_bstride % 8)
+  if (B <= 0 || N <= 0 || N > AB_MAX_N || q_ld < 3 * H * AB_HD || q_ld % 8 || q_bstride % 8 ||
+      (kv_part == nullptr) != (kv_part_floats(B, N, H, policy) == 0))
     return cudaErrorInvalidValue;
   AbLayout l;
   cudaError_t err = ab_plan(N, policy, gcls != nullptr, &l);
@@ -926,17 +1083,26 @@ static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, in
   if (!encode_map(&tq, qkv, 3, q_dims, q_strides, box) ||
       !encode_map(&td, dout, 3, d_dims, d_strides, box))
     return cudaErrorInvalidValue;
-  ab_kernel(policy, l.qpw)<<<B * H, l.wgs * 128, l.bytes, stream>>>(
-      tq, td, qkv, q_bstride, q_ld, o, dout, lse, pol, gcls, dqkv, dpol_part, N, H, scale, eps,
-      l.ring, l.stages);
+  const int splits = ab_splits(N, policy);
+  ab_kernel(policy, l.qpw, splits > 1)<<<dim3(B * H, splits), l.wgs * 128, l.bytes, stream>>>(
+      tq, td, qkv, q_bstride, q_ld, o, dout, lse, pol, gcls, dqkv, dpol_part, kv_part, N,
+      l.lqb, H, scale, eps, l.ring, l.stages);
   err = cudaGetLastError();
-  if (err == cudaSuccess) ++attention_bwd_launches;
-  return err;
+  if (err != cudaSuccess) return err;
+  ++attention_bwd_launches;
+  if (splits == 1) return cudaSuccess;
+  ++attention_bwd_long_launches;
+  const long long n4 = (long long)B * N * C / 2;
+  reduce_kv_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(kv_part, dqkv,
+                                                                     (long long)B * N, C,
+                                                                     splits);
+  return cudaGetLastError();
 }
 
 static cudaError_t launch_sum_heads(const float* part, float* out, int B, int H, int N,
-                                   cudaStream_t stream) {
-  sum_heads_kernel<<<(B * N + 255) / 256, 256, 0, stream>>>(part, out, B, H, N);
+                                   bool policy, cudaStream_t stream) {
+  sum_heads_kernel<<<(B * N + 255) / 256, 256, 0, stream>>>(part, out, B, H, N,
+                                                            ab_splits(N, policy));
   return cudaGetLastError();
 }
 
@@ -945,7 +1111,7 @@ static cudaError_t launch_sum_heads(const float* part, float* out, int B, int H,
 // scratch of d2s_attention_block_backward
 struct AttnScratch {
   bf16 *qkv, *attn, *ln1o, *dattn, *dqkv;
-  float *lse, *dpol_part, *dln, *work;
+  float *lse, *dpol_part, *kv_part, *dln, *work;
   float2 *stats, *st1;
 };
 
@@ -964,7 +1130,9 @@ static size_t carve_attn(char* base, int B, int N, int C, int H, bool policy, At
   s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
   s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy ? 4 : 1)));
-  s->dpol_part = reinterpret_cast<float*>(take(policy ? (size_t)B * H * N * e4 : 0));
+  s->dpol_part = reinterpret_cast<float*>(take(dpol_part_floats(B, N, H, policy) * e4));
+  s->kv_part = reinterpret_cast<float*>(take(kv_part_floats(B, N, H, policy) * e4));
+  if (kv_part_floats(B, N, H, policy) == 0) s->kv_part = nullptr;
   s->dln = reinterpret_cast<float*>(take(M * C * e4));
   s->stats = reinterpret_cast<float2*>(take(M * sizeof(float2)));
   s->st1 = reinterpret_cast<float2*>(take(M * sizeof(float2)));
@@ -975,8 +1143,8 @@ static size_t carve_attn(char* base, int B, int N, int C, int H, bool policy, At
   return off;
 }
 
-static bool attn_shapes_ok(int B, int N, int C, int H, bool policy) {
-  return B > 0 && N > 0 && N <= (policy ? AB_POLICY_MAX_N : AB_MAX_N) && H > 0 &&
+static bool attn_shapes_ok(int B, int N, int C, int H) {
+  return B > 0 && N > 0 && N <= AB_MAX_N && H > 0 &&
          C == H * AB_HD && ln_bwd_takes(C) && (long long)B * N <= (1LL << 31) - 1;
 }
 
@@ -984,13 +1152,13 @@ static bool attn_shapes_ok(int B, int N, int C, int H, bool policy) {
 
 struct Scratch {
   bf16 *qkv, *attn, *mid, *hid, *pre, *ln1o, *ln2o, *dy, *dmid_b, *dattn, *dqkv;
-  float *lse, *dln, *dmid_f, *work, *dpol_part;
+  float *lse, *dln, *dmid_f, *work, *dpol_part, *kv_part;
   float2 *stats, *st1, *st2;
 };
 
 // Carves `base` into the backward's buffers; with base == nullptr only
 // counts. Returns the bytes needed. Policy mode keeps float4 row statistics
-// and the (B, H, N) dPolicy partials.
+// and the dPolicy partials; a split attention core its dK and dV partials.
 static size_t carve(char* base, int B, int N, int C, int H, int hidden, bool policy,
                     Scratch* s) {
   const long long M = (long long)B * N;
@@ -1013,7 +1181,9 @@ static size_t carve(char* base, int B, int N, int C, int H, int hidden, bool pol
   s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
   s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy ? 4 : 1)));
-  s->dpol_part = reinterpret_cast<float*>(take(policy ? (size_t)B * H * N * e4 : 0));
+  s->dpol_part = reinterpret_cast<float*>(take(dpol_part_floats(B, N, H, policy) * e4));
+  s->kv_part = reinterpret_cast<float*>(take(kv_part_floats(B, N, H, policy) * e4));
+  if (kv_part_floats(B, N, H, policy) == 0) s->kv_part = nullptr;
   s->dln = reinterpret_cast<float*>(take(M * C * e4));
   s->dmid_f = reinterpret_cast<float*>(take(M * C * e4));
   s->stats = reinterpret_cast<float2*>(take(M * sizeof(float2)));
@@ -1107,8 +1277,8 @@ static bool mlp_shapes_ok(int M, int C, int hidden) {
   return M > 0 && ln_bwd_takes(C) && hidden > 0 && hidden % 8 == 0;
 }
 
-static bool shapes_ok(int B, int N, int C, int H, int hidden, bool policy) {
-  return B > 0 && N > 0 && N <= (policy ? AB_POLICY_MAX_N : AB_MAX_N) && H > 0 &&
+static bool shapes_ok(int B, int N, int C, int H, int hidden) {
+  return B > 0 && N > 0 && N <= AB_MAX_N && H > 0 &&
          C == H * AB_HD && ln_bwd_takes(C) &&
          hidden > 0 && hidden % 8 == 0 && (long long)B * N <= (1LL << 31) - 1;
 }
@@ -1121,7 +1291,7 @@ using d2s::bf16;
 // policy mode, else 0); 0 for shapes it does not take.
 extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H, int hidden,
                                                       int policy) {
-  if (!d2s::shapes_ok(B, N, C, H, hidden, policy != 0)) return 0;
+  if (!d2s::shapes_ok(B, N, C, H, hidden)) return 0;
   d2s::Scratch s;
   return (long long)d2s::carve(nullptr, B, N, C, H, hidden, policy != 0, &s);
 }
@@ -1135,7 +1305,7 @@ extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H
 // DropPath scales of the attention and the MLP branch, each or both null
 // (no scale); they get no gradient. scratch:
 // d2s_block_backward_scratch_bytes(...) bytes. Requires C == 64 * H <= 768,
-// hidden % 8 == 0, N <= 384 (policy mode 352), 16-byte aligned pointers.
+// hidden % 8 == 0, N <= 800, 16-byte aligned pointers.
 extern "C" int d2s_block_backward(
     const void* x, const void* g, void* dx, const void* ln1_w, const void* ln1_b,
     const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
@@ -1146,7 +1316,7 @@ extern "C" int d2s_block_backward(
     int B, int N, int C, int H, int hidden, float scale, float ln_eps, float eps, void* stream) {
   using namespace d2s;
   const bool use_policy = policy != nullptr;
-  if (!shapes_ok(B, N, C, H, hidden, use_policy) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
+  if (!shapes_ok(B, N, C, H, hidden) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
       (d_policy != nullptr && !use_policy))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1203,10 +1373,10 @@ extern "C" int d2s_block_backward(
   // 4. attention core
   if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.dattn, s.lse,
                                   f(policy), nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr,
-                                  B, N, H, scale, eps, st)) != cudaSuccess)
+                                  s.kv_part, B, N, H, scale, eps, st)) != cudaSuccess)
     return (int)err;
-  if (d_policy &&
-      (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, st)) != cudaSuccess)
+  if (d_policy && (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, true, st)) !=
+                      cudaSuccess)
     return (int)err;
 
   // 5. LN1 input
@@ -1227,16 +1397,18 @@ extern "C" int d2s_block_backward(
 // cotangent of the CLS rows, or null (no fold). policy: (B, N) fp32 keep
 // policy or null; d_policy: its (B, N) fp32 gradient or null. The forward
 // is recomputed from qkv first (as the TPU kernel recomputes P): o (B*N, C)
-// bf16 and stats (B, H, N) fp32 (policy mode float4) are its scratch, and
-// dpol_part (B, H, N) fp32 dPolicy's per-head partials (null without
-// d_policy). Requires C == 64 * H, N <= 384 (policy mode 352), q_ld and
-// q_bstride multiples of 8, 16-byte aligned pointers.
+// bf16 and stats (B, H, N) fp32 (policy mode float4) are its scratch,
+// dpol_part dPolicy's partials (d2s_attention_bwd_part_floats(..., 1)
+// floats, fp32; null without d_policy) and kv_part the partial dK and dV of
+// a split sample-head (d2s_attention_bwd_part_floats(..., 0) floats; null
+// where that is 0). Requires C == 64 * H, N <= 800, q_ld and q_bstride
+// multiples of 8, 16-byte aligned pointers.
 extern "C" int d2s_attention_packed_backward(const void* qkv, long long q_bstride, int q_ld,
                                              const void* g, const void* gcls,
                                              const void* policy, void* dqkv, void* d_policy,
                                              void* o_buf, void* stats_buf, void* dpol_part,
-                                             int B, int N, int H, float scale, float eps,
-                                             void* stream) {
+                                             void* kv_part, int B, int N, int H, float scale,
+                                             float eps, void* stream) {
   using namespace d2s;
   if (B <= 0 || (d_policy != nullptr && (policy == nullptr || dpol_part == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -1250,27 +1422,40 @@ extern "C" int d2s_attention_packed_backward(const void* qkv, long long q_bstrid
   err = launch_attention_bwd(q, q_bstride, q_ld, static_cast<const bf16*>(o_buf),
                              static_cast<const bf16*>(g), static_cast<const float*>(stats_buf),
                              pol, static_cast<const float*>(gcls), static_cast<bf16*>(dqkv),
-                             d_policy ? static_cast<float*>(dpol_part) : nullptr, B, N, H, scale,
-                             eps, st);
+                             d_policy ? static_cast<float*>(dpol_part) : nullptr,
+                             static_cast<float*>(kv_part), B, N, H, scale, eps, st);
   if (err != cudaSuccess || d_policy == nullptr) return (int)err;
   return (int)launch_sum_heads(static_cast<const float*>(dpol_part),
-                               static_cast<float*>(d_policy), B, H, N, st);
+                               static_cast<float*>(d_policy), B, H, N, true, st);
 }
 
-// The launches of attention_bwd_kernel (which = 0, the one counter here)
-// since the last reset, counted where it is launched, inside the backward
-// entries too; set resets the count to `value` when it is 0 or more.
+// The fp32 floats of d2s_attention_packed_backward's partials at these
+// shapes: dPolicy's (which = 1; policy: 1 in policy mode) or a split
+// sample-head's dK and dV (which = 0; 0 where one CTA holds a sample-head);
+// -1 for N the kernel does not take.
+extern "C" long long d2s_attention_bwd_part_floats(int which, int B, int N, int H,
+                                                   int policy) {
+  if (B <= 0 || N <= 0 || N > d2s::AB_MAX_N || H <= 0) return -1;
+  return which ? d2s::dpol_part_floats(B, N, H, policy != 0)
+               : d2s::kv_part_floats(B, N, H, policy != 0);
+}
+
+// The launches of attention_bwd_kernel (which = 0) and of those on its
+// long path (which = 1) since the last reset, counted where it is launched,
+// inside the backward entries too; set resets the count to `value` when it
+// is 0 or more.
 extern "C" long long d2s_attention_bwd_launches(int which, long long value) {
-  if (which != 0) return -1;
-  if (value >= 0) d2s::attention_bwd_launches = value;
-  return d2s::attention_bwd_launches;
+  if (which != 0 && which != 1) return -1;
+  long long& n = which ? d2s::attention_bwd_long_launches : d2s::attention_bwd_launches;
+  if (value >= 0) n = value;
+  return n;
 }
 
 // Bytes of scratch d2s_attention_block_backward needs at these shapes
 // (policy: 1 in policy mode, else 0); 0 for shapes it does not take.
 extern "C" long long d2s_attention_block_backward_scratch_bytes(int B, int N, int C, int H,
                                                                 int policy) {
-  if (!d2s::attn_shapes_ok(B, N, C, H, policy != 0)) return 0;
+  if (!d2s::attn_shapes_ok(B, N, C, H)) return 0;
   d2s::AttnScratch s;
   return (long long)d2s::carve_attn(nullptr, B, N, C, H, policy != 0, &s);
 }
@@ -1297,7 +1482,7 @@ extern "C" long long d2s_attention_block_backward_scratch_bytes(int B, int N, in
 // needed); the six gradients fp32 in the weights' shapes (d_bqkv null when
 // bqkv is). policy: (B, N) fp32 keep policy or null; d_policy: its (B, N)
 // fp32 gradient or null. scratch: d2s_attention_block_backward_scratch_bytes
-// bytes. Requires C == 64 * H <= 768, N <= 384 (policy mode 352), 16-byte
+// bytes. Requires C == 64 * H <= 768, N <= 800, 16-byte
 // aligned pointers.
 extern "C" int d2s_attention_block_backward(
     const void* x, const void* g, void* dx, const void* ln_w, const void* ln_b,
@@ -1307,7 +1492,7 @@ extern "C" int d2s_attention_block_backward(
     float eps, void* stream) {
   using namespace d2s;
   const bool use_policy = policy != nullptr;
-  if (!attn_shapes_ok(B, N, C, H, use_policy) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
+  if (!attn_shapes_ok(B, N, C, H) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
       (d_policy != nullptr && !use_policy))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1341,11 +1526,11 @@ extern "C" int d2s_attention_block_backward(
 
   // the attention core
   if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.dattn, s.lse,
-                                  pol, nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr, B, N,
-                                  H, scale, eps, st)) != cudaSuccess)
+                                  pol, nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr,
+                                  s.kv_part, B, N, H, scale, eps, st)) != cudaSuccess)
     return (int)err;
-  if (d_policy &&
-      (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, st)) != cudaSuccess)
+  if (d_policy && (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, true, st)) !=
+                      cudaSuccess)
     return (int)err;
 
   // the qkv product and LN1

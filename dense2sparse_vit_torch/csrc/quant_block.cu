@@ -161,9 +161,9 @@ static __global__ void rowq_kernel(const T* __restrict__ in, int M, int K,
   }
 }
 
-// rows of up to 3,072 values (DeiT-B's MLP width); CH is the fewest chunks
+// rows of up to 4,096 values (ViT-L's MLP width); CH is the fewest chunks
 // per lane that cover K, from a few instantiations
-constexpr int ROWQ_MAX_K = 3072;
+constexpr int ROWQ_MAX_K = 4096;
 
 template <typename T>
 static cudaError_t launch_rowq(const T* in, int M, int K, const float* ln_w, const float* ln_b,
@@ -177,8 +177,10 @@ static cudaError_t launch_rowq(const T* in, int M, int K, const float* ln_w, con
     rowq_kernel<T, 3><<<grid, block, 0, stream>>>(in, M, K, ln_w, ln_b, ln_eps, codes, scales);
   else if (K <= 1536)
     rowq_kernel<T, 6><<<grid, block, 0, stream>>>(in, M, K, ln_w, ln_b, ln_eps, codes, scales);
-  else
+  else if (K <= 3072)
     rowq_kernel<T, 12><<<grid, block, 0, stream>>>(in, M, K, ln_w, ln_b, ln_eps, codes, scales);
+  else
+    rowq_kernel<T, 16><<<grid, block, 0, stream>>>(in, M, K, ln_w, ln_b, ln_eps, codes, scales);
   return cudaGetLastError();
 }
 
@@ -193,7 +195,7 @@ using d2s::bf16;
 // one buffer: each is read by the next kernel only). Weights: the matrices'
 // int8 codes in the torch Linear layout (out, in) with fp32 scales per
 // output channel; LayerNorm parameters and biases fp32; bqkv may be null.
-// Requires C == 64 * H, C % 16 == 0, hidden % 16 == 0, C and hidden <= 3072,
+// Requires C == 64 * H, C % 16 == 0, hidden % 16 == 0, C and hidden <= 4096,
 // N <= 800, 16-byte aligned pointers.
 extern "C" int d2s_block_int8_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* act_buf,

@@ -1,5 +1,13 @@
-"""Model registry (port of the student, teacher, T2T-ViT and DINO-student
-part of `dense2sparse_vit_tpu/models/registry.py`)."""
+"""Model registry (port of `dense2sparse_vit_tpu/models/registry.py`): the
+students and teachers, the DeiT, ViT and DINO backbones, the hierarchical
+and ensemble DeiT, the T2T-ViT family and the aliases of the reference's
+factory names whose targets are ported.
+
+Not ported: `vit_small_patch16_224` (the timm v0.1 ViT-S, 8 heads of 96:
+no port kernel takes a head width other than 64), `t2t_vit_14_resnext` (32
+heads of 12), `t2t_vit_14_wide`, the T2T SE, Ghost and Dense variants, TNT
+and `drop_resnet50`; they wait for the head-width slice and the model zoo's
+last part (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from dense2sparse_vit_torch.models.teacher import ViTTeacher
 from dense2sparse_vit_torch.nn.t2t import T2TModule
 
 _REGISTRY: Dict[str, Callable] = {}
+_ALIASES: Dict[str, str] = {}
 
 # The headline student, as the JAX package's bench.py builds it: DeiT-S/16 at
 # 224 px in bf16, pruned at blocks 3/6/9 to 0.7/0.49/0.343 of the patches,
@@ -60,6 +69,11 @@ def list_models():
     return sorted(_REGISTRY)
 
 
+def register_alias(alias: str, target: str) -> None:
+    """Let `create_model` build `target` under the name `alias` too."""
+    _ALIASES[alias] = target
+
+
 def create_model(
     name: str,
     *,
@@ -73,8 +87,10 @@ def create_model(
     (`pruning_locs`, `keep_ratios`, any `ModelConfig` or `PruningConfig`
     field). The weights are drawn on the CPU from `generator` (seed 0 when
     None) and the model is then moved to `device`: the card unless the
-    caller asks for the CPU with device="cpu".
+    caller asks for the CPU with device="cpu". Aliases (`register_alias`)
+    are accepted.
     """
+    name = _ALIASES.get(name, name)
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; available: {list_models()}")
     device = torch.device(device)
@@ -177,8 +193,81 @@ _REGISTRY["t2t_vit_t_14_student"] = _t2t_student(384, 14, 6, 3.0, tokens_type="t
 
 # the pruned DINO students (JAX `registry.py:441-468`): DeiT-shape students,
 # stages at 3/6/9 keeping 0.7/0.49/0.343 unless told otherwise, with
-# perturbed top-k (differentiable_topk) on unless told otherwise. The DINO
-# backbones themselves (`models/dino.py`) are not ported.
+# perturbed top-k (differentiable_topk) on unless told otherwise
 _DINO = dict(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343), differentiable_topk=True)
 _REGISTRY["dino_small_student"] = _student(deit_small(), **_DINO)
 _REGISTRY["dino_tiny_student"] = _student(deit_tiny(), **_DINO)
+
+
+def _family(module: str, cls_name: str, size_cfg: ModelConfig, dino: bool = False):
+    """A backbone factory (JAX `_deit`, `_dino`, `_heads`): keyword arguments
+    that are the class's own fields (its FIELDS: the JAX dataclass fields)
+    go to the class, the rest to the ModelConfig; a DINO factory also takes
+    `patch_size` (default 16)."""
+    def factory(**kwargs):
+        import importlib
+
+        cls = getattr(importlib.import_module(f"dense2sparse_vit_torch.models.{module}"),
+                      cls_name)
+        fields = {k: kwargs.pop(k) for k in list(kwargs) if k in cls.FIELDS}
+        if dino:
+            kwargs.setdefault("patch_size", 16)
+        return cls(size_cfg.replace(**kwargs), **fields)
+
+    return factory
+
+
+# the DeiT family (JAX `registry.py:158-191`)
+for _size, _cfg in (("tiny", deit_tiny()), ("small", deit_small()), ("base", deit_base())):
+    _REGISTRY[f"deit_{_size}_patch16_224"] = _family("deit", "DeiT", _cfg)
+    _REGISTRY[f"deit_{_size}_distilled_patch16_224"] = _family("deit", "DistilledDeiT", _cfg)
+    _REGISTRY[f"vanilla_deit_{_size}_patch16_224"] = _family("deit", "VanillaDeiT", _cfg)
+_REGISTRY["deit_base_patch16_384"] = _family("deit", "DeiT", deit_base(img_size=384))
+_REGISTRY["nonspatial_deit_small_patch16_224"] = _family("deit", "NonSpatialDeiT", deit_small())
+_REGISTRY["deit_small_patch16_224_masked"] = _family("deit", "MaskedDistilledDeiT",
+                                                     deit_small())
+_REGISTRY["deit_small_patch16_224_predictor"] = _family("deit", "MaskPredictorDeiT",
+                                                        deit_small())
+
+# the DINO family (JAX `registry.py:212-227`); its checkpoints are headless
+for _name, _cls, _cfg in (
+        ("dino_tiny", "DINOViT", deit_tiny(num_classes=0)),
+        ("dino_small", "DINOViT", deit_small(num_classes=0)),
+        ("dino_base", "DINOViT", deit_base(num_classes=0)),
+        ("dino_small_predictor", "DINOPredictorViT", deit_small(num_classes=0)),
+        ("dino_small_dist", "DINODistilledViT", deit_small(num_classes=0)),
+        ("dino_tiny_dist", "DINODistilledViT", deit_tiny(num_classes=0)),
+        ("dino_small_patch16_224_masked", "DINOMaskedViT", deit_small())):
+    _REGISTRY[_name] = _family("dino", _cls, _cfg, dino=True)
+
+# hierarchical and ensemble DeiT (JAX `registry.py:307-333`)
+for _size, _cfg in (("tiny", deit_tiny()), ("small", deit_small()), ("base", deit_base())):
+    _REGISTRY[f"{_size}_patch16_224_hierarchical"] = _family("deit_heads", "HierarchicalDeiT",
+                                                             _cfg)
+for _size, _cfg in (("tiny", deit_tiny()), ("small", deit_small())):
+    _REGISTRY[f"{_size}_patch16_224_ensemble"] = _family("deit_heads", "EnsembleDeiT", _cfg)
+
+# the timm-style ViTs with per-layer logits (JAX `registry.py:342-375`), all
+# with 64-wide heads; vit_small_patch16_224 (8 heads of 96) is not ported
+_VIT_B = dict(embed_dim=768, depth=12, num_heads=12)
+_VIT_L = dict(embed_dim=1024, depth=24, num_heads=16)
+for _name, _cfg in (
+        ("vit_base_patch16_224", ModelConfig(**_VIT_B)),
+        ("vit_base_patch16_384", ModelConfig(**_VIT_B, img_size=384)),
+        ("vit_base_patch32_384", ModelConfig(**_VIT_B, img_size=384, patch_size=32)),
+        ("vit_large_patch16_224", ModelConfig(**_VIT_L)),
+        ("vit_large_patch16_384", ModelConfig(**_VIT_L, img_size=384)),
+        ("vit_large_patch32_384", ModelConfig(**_VIT_L, img_size=384, patch_size=32))):
+    _REGISTRY[_name] = _family("deit", "VanillaDeiT", _cfg)
+
+# the reference's factory names whose targets are ported (JAX
+# `registry.py:380-394`)
+for _n in ("7", "10", "12", "14", "19", "24"):
+    register_alias(f"T2t_vit_{_n}", f"t2t_vit_{_n}")
+for _n in ("14", "19", "24"):
+    register_alias(f"T2t_vit_t_{_n}", f"t2t_vit_t_{_n}")
+for _size in ("tiny", "small", "base"):
+    register_alias(f"vit_deit_{_size}_patch16_224", f"deit_{_size}_patch16_224")
+register_alias("vit_deit_small_distilled_patch16_224", "deit_small_distilled_patch16_224")
+register_alias("deit_small_dist_masked", "deit_small_patch16_224_masked")
+register_alias("deit_small_dist_predictor", "deit_small_patch16_224_predictor")

@@ -20,8 +20,8 @@ d2s_attention_packed_forward and `csrc/block_bwd.cu`'s
 d2s_attention_packed_backward, which recomputes the forward from qkv (as the
 TPU kernel recomputes P), so the Function keeps only qkv and the policy
 between the two. For CPU tensors they run `attention_reference` and autograd
-through it, the plain versions. The kernels take head_dim 64, N <= 800
-forward and N <= 384 (policy mode 352) backward.
+through it, the plain versions. The kernels take head_dim 64 and N <= 800
+both ways.
 
 The attention half-block, x + proj(MHA(qkv(LN1 x))), the port of
 `fused_attention_block` and its backward kernels in the same JAX module:
@@ -55,8 +55,6 @@ import torch
 
 from dense2sparse_vit_torch.ops import _cuda
 from dense2sparse_vit_torch.ops.block import (
-    BWD_MAX_TOKENS,
-    BWD_POLICY_MAX_TOKENS,
     HEAD_DIM,
     MAX_TOKENS,
     _policy_arg,
@@ -147,6 +145,13 @@ def fused_attention_packed(qkv: torch.Tensor, num_heads: int, policy: torch.Tens
     return (out, cls) if return_cls else out
 
 
+def _part(lib, which, B, N, num_heads, policy, dev):
+    """The fp32 partials d2s_attention_packed_backward takes (which: 1
+    dPolicy's, 0 a split sample-head's dK and dV), None where it needs none."""
+    n = lib.d2s_attention_bwd_part_floats(which, B, N, num_heads, int(policy))
+    return torch.empty((n,), dtype=torch.float32, device=dev) if n > 0 else None
+
+
 def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, *,
                                     policy: torch.Tensor | None = None,
                                     gcls: torch.Tensor | None = None,
@@ -164,8 +169,7 @@ def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_head
                                                   gcls=gcls, eps=eps, policy_grad=policy_grad)
         return dqkv if policy is None else (dqkv, dpol)
     what = "fused_attention_backward_packed"
-    max_n = BWD_MAX_TOKENS if policy is None else BWD_POLICY_MAX_TOKENS
-    B, N, C, sb, sn = _qkv_arg(qkv, num_heads, max_n, what)
+    B, N, C, sb, sn = _qkv_arg(qkv, num_heads, MAX_TOKENS, what)
     dev, f32 = qkv.device, torch.float32
     pol = _policy_arg(policy, qkv, what)
     g_ptr = _cuda.ptr(g, "g", dev, torch.bfloat16, (B, N, C))
@@ -175,13 +179,17 @@ def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_head
     o = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
     stats = torch.empty((B, num_heads, N, 1 if pol is None else 4), dtype=f32, device=dev)
     dpol = torch.empty((B, N), dtype=f32, device=dev) if want_dpol else None
-    part = torch.empty((B, num_heads, N), dtype=f32, device=dev) if want_dpol else None
-    err = _cuda.library().d2s_attention_packed_backward(
+    lib = _cuda.library()
+    # dPolicy's partials, and the dK and dV partials of a sample-head split
+    # over CTAs (N past 384, policy mode 352)
+    part = _part(lib, 1, B, N, num_heads, pol is not None, dev) if want_dpol else None
+    kv_part = _part(lib, 0, B, N, num_heads, pol is not None, dev)
+    err = lib.d2s_attention_packed_backward(
         qkv.data_ptr(), sb, sn, g_ptr, _cuda.ptr(gc, "gcls", dev, f32, (B, num_heads, N)),
         _cuda.ptr(pol, "policy", dev, f32, (B, N)), dqkv.data_ptr(),
         0 if dpol is None else dpol.data_ptr(), o.data_ptr(), stats.data_ptr(),
-        0 if part is None else part.data_ptr(), B, N, num_heads, float(scale), float(eps),
-        _cuda.stream_handle(dev))
+        0 if part is None else part.data_ptr(), 0 if kv_part is None else kv_part.data_ptr(),
+        B, N, num_heads, float(scale), float(eps), _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_attention_packed_backward")
     fused_attention_backward_packed.launches += 1
     return dqkv if policy is None else (dqkv, dpol)
@@ -191,6 +199,9 @@ def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_head
 # csrc/block_bwd.cu), which every backward entry with attention launches
 # inside its C code: its launches, counted by the kernels' library
 ATTENTION_BWD = LaunchCount(0, "d2s_attention_bwd_launches")
+# and those of them on its long path (N past 384, policy mode 352: a
+# sample-head split over CTAs), a part of ATTENTION_BWD's count
+ATTENTION_BWD_LONG = LaunchCount(1, "d2s_attention_bwd_launches")
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -396,8 +407,7 @@ def _attention_block_backward(x, g, weights, num_heads, policy, scale, eps, ln_e
         return attention_block_backward_reference(x, g, *w5, num_heads, policy=policy,
                                                   scale=scale, eps=eps, ln_eps=ln_eps,
                                                   policy_grad=policy_grad)
-    max_n = BWD_MAX_TOKENS if policy is None else BWD_POLICY_MAX_TOKENS
-    B, N, C, x_ptr, ptrs, shapes = _half_block_ptrs(x, weights, num_heads, max_n, what)
+    B, N, C, x_ptr, ptrs, shapes = _half_block_ptrs(x, weights, num_heads, MAX_TOKENS, what)
     dev, f32 = x.device, torch.float32
     g_ptr = _cuda.ptr(g, "g", dev, torch.bfloat16, (B, N, C))
     pol = _policy_arg(policy, x, what)

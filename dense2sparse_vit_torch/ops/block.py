@@ -61,9 +61,9 @@ BLOCK_WEIGHT_KEYS = (
     "ln2_w", "ln2_b", "w1", "b1", "w2", "b2",
 )
 HEAD_DIM = 64  # the kernels' head width
-MAX_TOKENS = 800  # the forward keeps a sample-head's K and V in shared memory
-BWD_MAX_TOKENS = 384  # the backward keeps its Q, K, V and dO there
-BWD_POLICY_MAX_TOKENS = 352  # and in policy mode six row vectors besides
+# the forward keeps a sample-head's K and V in shared memory; the backward
+# splits a sample-head longer than 384 tokens (policy mode 352) over 2-3 CTAs
+MAX_TOKENS = 800
 
 
 def layer_norm(x, weight, bias, eps):
@@ -450,8 +450,7 @@ def fused_transformer_block_backward(
                                                     branch_scales=branch_scales)
     what = "fused_transformer_block_backward"
     B, N, _ = x.shape
-    max_n = BWD_MAX_TOKENS if policy is None else BWD_POLICY_MAX_TOKENS
-    hidden, ptrs, shapes = _kernel_args(x, w, num_heads, max_n, what)
+    hidden, ptrs, shapes = _kernel_args(x, w, num_heads, MAX_TOKENS, what)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     x_ptr = _cuda.ptr(x, "x", dev, bf16, (B, N, C))
     g_ptr = _cuda.ptr(g, "g", dev, bf16, (B, N, C))

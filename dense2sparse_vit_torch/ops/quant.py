@@ -47,7 +47,7 @@ from dense2sparse_vit_torch.ops.block import HEAD_DIM, MAX_TOKENS, attention_ref
 
 QMAX = 127.0
 SCALE_FLOOR = 1e-8
-ROW_MAX = 3072  # the kernel quantizes rows of at most this many values
+ROW_MAX = 4096  # the kernel quantizes rows of at most this many values (ViT-L's MLP)
 # the quantized block's weights, in the order the kernel takes them
 INT8_WEIGHT_KEYS = (
     "ln1_w", "ln1_b", "wqkv_q", "sqkv", "bqkv", "wproj_q", "sproj", "bproj",

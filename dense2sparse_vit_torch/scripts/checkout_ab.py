@@ -297,7 +297,7 @@ def int8_times(device) -> None:
 
 
 # --attn-bwd-times: the packed backward's device kernels
-ATTN_BWD_GROUPS = ("attention_bwd_kernel", "attention_kernel", "sum_heads")
+ATTN_BWD_GROUPS = ("attention_bwd_kernel", "reduce_kv", "attention_kernel", "sum_heads")
 
 
 def attn_bwd_times(device) -> None:

@@ -45,6 +45,24 @@ attribute) or `tokens_to_token/...` (the dense `T2TViT`):
   project                                -> project
 
 A T2T model has no `pos_embed` parameter: its sinusoid table is a constant.
+
+The DeiT, ViT and DINO backbones (`models/deit.py`, `deit_heads.py`,
+`dino.py`) add these trees, as the reference's modules name them:
+
+  dist_token, head_dist, predictor_fc1, predictor_fc2 -> the same names
+  transformerheads_{i}/conv, token_fc   -> transformerheads.{i}.conv, .token_fc
+  transformerheads_{i}/bn scale, bias   -> transformerheads.{i}.bn.weight, .bias
+  batch_stats .../bn mean, var          -> ....bn.running_mean, .running_var
+                                           (.num_batches_tracked: 0)
+  spatialheads_{i}                      -> spatialheads.{i}
+  predictor/in_norm, in_dense           -> predictor.in_conv.{0, 1} (DINO)
+  predictor/out_{0,1,2}                 -> predictor.out_conv.{0, 2, 4}
+
+`jax_params_from_state_dict` maps such a state_dict back (the backbones,
+their heads and predictors, the blocks and the early-exit head; not a
+student's score predictors or a T2T stem), and `resize_pos_embed` resizes
+a checkpoint's position embedding to another grid (a 224-px checkpoint into
+a 384-px model).
 """
 
 from __future__ import annotations
@@ -116,12 +134,54 @@ def _stem_key(path: Tuple[str, ...], attention_units: set) -> str:
     return ".".join(("tokens_to_token", unit, name) + rest[1:-1] + (_leaf(rest[-1]),))
 
 
+def resize_pos_embed(posemb: np.ndarray, n_tokens_new: int, n_extra: int = 1) -> np.ndarray:
+    """Bilinearly resize the (1, N_old + n_extra, D) grid to n_tokens_new
+    tokens in all (a copy of the JAX package's `utils/convert.py::
+    resize_pos_embed`): the CLS (and distillation) slots pass through, the
+    spatial grid is resized as a 2-D image with align_corners=False and no
+    antialiasing."""
+    tok, grid = posemb[:, :n_extra], posemb[0, n_extra:]
+    gs_old = int(round(np.sqrt(grid.shape[0])))
+    gs_new = int(round(np.sqrt(n_tokens_new - n_extra)))
+    if gs_old == gs_new:
+        return posemb
+    D = grid.shape[-1]
+    grid = grid.reshape(gs_old, gs_old, D)
+    coords = (np.arange(gs_new) + 0.5) * (gs_old / gs_new) - 0.5
+    c0 = np.clip(np.floor(coords).astype(int), 0, gs_old - 1)
+    c1 = np.clip(c0 + 1, 0, gs_old - 1)
+    w1 = np.clip(coords - c0, 0.0, 1.0)
+    w0 = 1.0 - w1
+    rows = grid[c0] * w0[:, None, None] + grid[c1] * w1[:, None, None]
+    out = rows[:, c0] * w0[None, :, None] + rows[:, c1] * w1[None, :, None]
+    return np.concatenate([tok, out.reshape(1, gs_new * gs_new, D)], axis=1)
+
+
+_DINO_PREDICTOR = {"in_norm": "in_conv.0", "in_dense": "in_conv.1", "out_0": "out_conv.0",
+                   "out_1": "out_conv.2", "out_2": "out_conv.4"}
+_INDEXED = ("blocks_", "transformerheads_", "spatialheads_")
+
+
+def _backbone_key(path: Tuple[str, ...]) -> str:
+    """The port key of a DeiT-family parameter (or BatchNorm statistic)."""
+    head, rest = path[0], list(path[1:])
+    if head == "predictor":
+        rest[0] = _DINO_PREDICTOR[rest[0]]
+    for prefix in _INDEXED:
+        if head.startswith(prefix):
+            head = f"{prefix[:-1]}.{head[len(prefix):]}"
+    leaf = rest[-1]
+    rest[-1] = _RUNNING.get(leaf) or _leaf(leaf)
+    return ".".join([head] + rest)
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     """Map JAX `DiffPruningStudent` (with the DeiT or the T2T stem),
-    `DynamicViTStudent`, `ViTTeacher` or `T2TViT` params (nested dicts of
-    arrays) onto the port's state_dict keys. A full variables dict with a
-    'params' entry is accepted, and a BatchNorm predictor's 'batch_stats'
-    are mapped with it; the port's module then needs them. Returns numpy
+    `DynamicViTStudent`, `ViTTeacher`, `T2TViT` or DeiT, ViT and DINO
+    backbone params (nested dicts of arrays) onto the port's state_dict
+    keys. A full variables dict with a 'params' entry is accepted, and its
+    'batch_stats' (a BatchNorm predictor's, the hierarchical heads') are
+    mapped with it; the port's module then needs them. Returns numpy
     arrays: load them with
     `model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})`.
     """
@@ -130,6 +190,8 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         stats = _flatten(params.get("batch_stats") or {})
         params = params["params"]
     flat = _flatten(params)
+    head_stats = {p: v for p, v in stats.items() if p[0].startswith("transformerheads_")}
+    stats = {p: v for p, v in stats.items() if p not in head_stats}
     bn_norms = {path[:-1] for path in stats}
     n_out: Dict[str, int] = {}
     for path in flat:
@@ -156,6 +218,9 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
             key = f"early_exit_head.1.{_leaf(path[-1])}"
         elif head in ("patch_embed", "norm", "head"):
             key = ".".join(path[:-1] + (_leaf(path[-1]),))
+        elif head in ("dist_token", "head_dist", "predictor_fc1", "predictor_fc2",
+                      "predictor") or head.startswith(_INDEXED[1:]):
+            key = head if head == "dist_token" else _backbone_key(path)
         else:
             raise KeyError(f"no port counterpart for {'/'.join(path)}")
         if path[-1] == "kernel":
@@ -166,4 +231,57 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     for path in bn_norms:
         key = _predictor_key(path + ("mean",), n_out[path[0]], bn_norms)
         out[key.replace("running_mean", "num_batches_tracked")] = np.array(0, np.int64)
+    for path, v in head_stats.items():
+        out[_backbone_key(path)] = np.array(v, order="C")
+        key = _backbone_key(path[:-1] + ("mean",))
+        out[key.replace("running_mean", "num_batches_tracked")] = np.array(0, np.int64)
+    return out
+
+
+def _jax_path(key: str) -> Tuple[Tuple[str, ...], str]:
+    """(the JAX path, 'params' or 'batch_stats') of a port key, its leaf
+    still the port's name."""
+    parts = key.split(".")
+    if parts[0] == "early_exit_head":
+        parts = ["early_exit_norm" if parts[1] == "0" else "early_exit_head"] + parts[2:]
+    elif parts[0] == "predictor":
+        inv = {v: k for k, v in _DINO_PREDICTOR.items()}
+        parts = ["predictor", inv[".".join(parts[1:3])]] + parts[3:]
+    elif parts[0] + "_" in _INDEXED:
+        parts = [f"{parts[0]}_{parts[1]}"] + parts[2:]
+    elif parts[0] in ("score_predictor", "tokens_to_token"):
+        raise KeyError(f"no JAX path mapped for {key}")
+    kind = "batch_stats" if parts[-1] in ("running_mean", "running_var") else "params"
+    return tuple(parts), kind
+
+
+def jax_params_from_state_dict(state_dict: Mapping) -> Dict[str, dict]:
+    """The port's state_dict (tensors or arrays) -> a JAX variables dict
+    {'params': ..., 'batch_stats': ...} ('batch_stats' only where there are
+    BatchNorm statistics), the inverse of `state_dict_from_jax` for the
+    DeiT, ViT and DINO backbones, their heads and predictors, the teacher,
+    the blocks and the early-exit head: conv kernels back to (kH, kW, I, O),
+    dense kernels to (in, out), LayerNorm and BatchNorm weights to `scale`,
+    running statistics to `mean` / `var`; num_batches_tracked, which JAX
+    does not count, is dropped. Raises KeyError for a student's score
+    predictor or a T2T stem."""
+    out: Dict[str, dict] = {}
+    for key, v in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        v = np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
+        (*path, leaf), kind = _jax_path(key)
+        if leaf == "weight":
+            if v.ndim == 4:
+                leaf, v = "kernel", v.transpose(2, 3, 1, 0)
+            elif v.ndim == 2:
+                leaf, v = "kernel", v.T
+            else:
+                leaf = "scale"
+        elif leaf in ("running_mean", "running_var"):
+            leaf = leaf[len("running_"):]
+        node = out.setdefault(kind, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.array(v, order="C")
     return out

@@ -432,10 +432,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     xb = x.to(torch.bfloat16)
     with pytest.raises(RuntimeError, match="not differentiable"):
         ops.fused_transformer_block(xb, blk.kernel_weights(torch.bfloat16), 6)
-    with torch.no_grad(), pytest.raises(ValueError, match="at most 384"):
+    with torch.no_grad(), pytest.raises(ValueError, match="at most 800"):
         ops.fused_transformer_block_backward(
-            torch.zeros((1, 385, 384), device=cuda, dtype=torch.bfloat16),
-            torch.zeros((1, 385, 384), device=cuda, dtype=torch.bfloat16),
+            torch.zeros((1, 801, 384), device=cuda, dtype=torch.bfloat16),
+            torch.zeros((1, 801, 384), device=cuda, dtype=torch.bfloat16),
             blk.kernel_weights(torch.bfloat16), 6)
 
 
@@ -537,8 +537,8 @@ def test_policy_block_on_planted_exact_ties(cuda, n):
     backward's max path divides by, must count exactly the columns whose
     keys equal the max's (the backward finds them by comparing its own
     recomputed scores with the stored max, so the forward's scores must be
-    its bits); and where the policy backward takes the width (N <= 352),
-    dx, the gradients and dPolicy against the plain version on that input."""
+    its bits); and dx, the gradients and dPolicy against the plain version
+    on that input (N = 800 on the backward's long path)."""
     blk = _sharpen(Block(384, 6, use_fused=True), seed=n).to(cuda)
     gen = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
@@ -563,8 +563,6 @@ def test_policy_block_on_planted_exact_ties(cuda, n):
         torch.cuda.synchronize()
     assert tied > 0 and bool(((want_ties == 6) & clear).any())
     assert torch.equal(st[..., 2][clear], want_ties[clear])
-    if n > block_ops.BWD_POLICY_MAX_TOKENS:
-        return
     with torch.no_grad():
         dx, dw, dpol = ops.fused_transformer_block_backward(x, g, w, 6, pol, eps=0.1)
         want_dx, want_dw, want_dpol = transformer_block_backward_reference(
@@ -1489,23 +1487,26 @@ def _core_close(dqkv, want, dpol=None, want_dpol=None):
     assert dpol is None or dpol.abs().max().item() <= 1e-3 * dv
 
 
-@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 129, 197, 384])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 129, 197, 384, 385, 404, 577, 768,
+                               769, 785, 800])
 @pytest.mark.parametrize("with_gcls", [False, True])
 def test_attention_bwd_kernel_against_plain(cuda, n, with_gcls):
     """Plain mode at every edge of the 16-row and 64-row tiles up to the
-    kernel's largest N: dqkv's q, k and v apart within BWD_TOL, with and
-    without the CLS rows' cotangent."""
+    kernel's largest N, the long path (N > 384: 2 and 3 CTAs a sample-head)
+    included: dqkv's q, k and v apart within BWD_TOL, with and without the
+    CLS rows' cotangent."""
     qkv, g, _, gcls = _core_case(cuda, n, with_gcls=with_gcls)
     (dqkv, _), (want, _) = _core_both(qkv, g, None, gcls)
     _core_close(dqkv, want)
 
 
-@pytest.mark.parametrize("n", [1, 17, 65, 129, 197, 352])
+@pytest.mark.parametrize("n", [1, 17, 65, 129, 197, 352, 353, 404, 577, 785, 800])
 @pytest.mark.parametrize("eps", [1e-6, 0.1])
 @pytest.mark.parametrize("with_gcls", [False, True])
 def test_attention_bwd_kernel_policy_against_plain(cuda, n, eps, with_gcls):
-    """Policy mode up to its largest N: dqkv within BWD_TOL and dPolicy
-    within the check's DPOL_TOL, at the model's eps and at a visible one."""
+    """Policy mode up to its largest N, the long path (N > 352) included:
+    dqkv within BWD_TOL and dPolicy within the check's DPOL_TOL, at the
+    model's eps and at a visible one."""
     qkv, g, pol, gcls = _core_case(cuda, n, policy=True, with_gcls=with_gcls, seed=1)
     (dqkv, dpol), (want, want_dpol) = _core_both(qkv, g, pol, gcls, eps)
     _core_close(dqkv, want, dpol, want_dpol)
@@ -1547,11 +1548,12 @@ def test_attention_bwd_kernel_dpolicy_on_planted_ties(cuda, eps):
     _assert_close(dpol, want_dpol, chip_smoke.DPOL_TOL)
 
 
+@pytest.mark.parametrize("n", [197, 577])
 @pytest.mark.parametrize("policy", [False, True])
-def test_attention_bwd_kernel_is_bit_equal_on_two_launches(cuda, policy):
-    """dqkv (and dPolicy) the same bits on two launches at B=128, N=197:
-    every sum in a fixed order, no atomics."""
-    qkv, g, pol, gcls = _core_case(cuda, 197, policy=policy, with_gcls=True, b=128, seed=4)
+def test_attention_bwd_kernel_is_bit_equal_on_two_launches(cuda, policy, n):
+    """dqkv (and dPolicy) the same bits on two launches at B=128, N=197 and
+    on the long path at N=577: every sum in a fixed order, no atomics."""
+    qkv, g, pol, gcls = _core_case(cuda, n, policy=policy, with_gcls=True, b=128, seed=4)
     kw = {} if pol is None else {"policy": pol, "eps": 0.1}
     with torch.no_grad():
         runs = [ops.fused_attention_backward_packed(qkv, g, 6, gcls=gcls, scale=CORE_SCALE, **kw)
@@ -1562,9 +1564,9 @@ def test_attention_bwd_kernel_is_bit_equal_on_two_launches(cuda, policy):
 
 
 def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
-    """N past 384 (policy mode 352) is refused by the wrapper and by the C
-    entry itself (cudaErrorInvalidValue)."""
-    for n, policy in ((385, False), (353, True)):
+    """N past the forward's 800 is refused by the wrapper and by the C entry
+    itself (cudaErrorInvalidValue)."""
+    for n, policy in ((801, False), (801, True)):
         qkv, g, pol, _ = _core_case(cuda, n, policy=policy)
         with pytest.raises(ValueError):
             ops.fused_attention_backward_packed(qkv, g, 6, policy=pol)
@@ -1578,6 +1580,6 @@ def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
             qkv.data_ptr(), qkv.stride(0), qkv.stride(1), g.data_ptr(), 0,
             0 if pol is None else pol.data_ptr(), dqkv.data_ptr(),
             0 if pol is None else dpol.data_ptr(), o.data_ptr(), stats.data_ptr(),
-            0 if pol is None else part.data_ptr(), 2, n, 6, CORE_SCALE, 1e-6,
+            0 if pol is None else part.data_ptr(), 0, 2, n, 6, CORE_SCALE, 1e-6,
             _cuda.stream_handle(cuda))
         assert err == 1

@@ -1224,3 +1224,97 @@ def test_the_mode_plain_fault_takes_the_dropout_students_plain_core(monkeypatch)
     calls.clear()
     student(x, collect_cls_attns=False, generator=torch.Generator())
     assert not calls
+
+
+# ---- phase 34: the DeiT, ViT and DINO families; 384-px training ---------------
+
+
+def test_the_384_tables_cover_every_kernel_and_the_long_path():
+    """Each 384-px mode's step table covers every kernel; the long-path
+    launches are the blocks before the second stage (576 patches: 577 and
+    404 tokens) in top-k and attn, every block in threshold mode."""
+    from dense2sparse_vit_torch.core import PruningConfig
+
+    for _, table, _ in chip_smoke.MODES_384.values():
+        assert set(table) == set(chip_smoke.KERNEL_NAMES)
+    keep = PruningConfig(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343)).keep_counts(576)
+    tokens = [577] * 3 + [keep[0] + 1] * 3 + [keep[1] + 1] * 3 + [keep[2] + 1] * 3
+    long = sum(n > 384 for n in tokens)
+    assert tokens[3] == 404 and tokens[6] == 283 and tokens[9] == 198
+    assert chip_smoke.MODES_384["topk"][2] == chip_smoke.MODES_384["attn"][2] == long == 6
+    assert chip_smoke.MODES_384["threshold"][2] == 12
+    assert {n for n, _ in chip_smoke.FAMILY_MODELS} >= set(chip_smoke.FAMILY_TIMED)
+
+
+def test_the_kernels_line_holds_the_sub_rows_with_every_key():
+    tally = chip_smoke.Tally()
+    tally.rows["attention_bwd[long]"]["launches"] += 6
+    tally.add("attention_bwd[long]", 3, 0.5, 10.0, {"ops_ms": 0.2, "bytes_ms": 0.1}, 0.4)
+    rows = {r["name"]: r for r in tally.line()["kernels"]}
+    assert set(rows) == set(chip_smoke.KERNEL_NAMES) | set(chip_smoke.SUB_ROWS)
+    r = rows["attention_bwd[long]"]
+    assert r["launches"] == 6 and r["ms"] == 1.5 and r["bound_by"] == "operations"
+    assert abs(r["library_ms"] - 1.2) < 1e-12 and r["replaces"].endswith("block.py:729")
+    assert all(set(x) == set(r) for x in rows.values())
+
+
+def test_plain_twin_runs_every_plain_version_on_the_same_weights():
+    """The twin of a fused DINO student has the same state and no fused
+    flag left; on the CPU its eval forward equals the fused model's."""
+    from dense2sparse_vit_torch.models import create_model
+
+    model = create_model("dino_small_predictor", device="cpu", img_size=32, patch_size=8,
+                         embed_dim=128, num_heads=2, depth=2, use_fused_attention=True).eval()
+    twin = chip_smoke.plain_twin(model)
+    assert not twin.cfg.use_fused_attention and model.cfg.use_fused_attention
+    assert not any(getattr(m, "use_fused", False) for m in twin.modules())
+    for (k, a), (_, b) in zip(model.state_dict().items(), twin.state_dict().items()):
+        assert torch.equal(a, b), k
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        a = chip_smoke.output_leaves(chip_smoke.family_forward(torch, model,
+                                                               "dino_small_predictor", x))
+        b = chip_smoke.output_leaves(chip_smoke.family_forward(torch, twin,
+                                                               "dino_small_predictor", x))
+    assert len(a) == len(b) == 1 and torch.equal(a[0], b[0])
+    want = chip_smoke.family_launches(model, "dino_small_predictor")
+    assert want["fused_transformer_block"] == 2 and want["fused_gather_tokens"] == 1
+
+
+def test_replay_hands_the_plain_run_the_recorded_decisions():
+    """A masked DeiT's Gumbel decisions recorded in one run come back, in
+    order, in the next, whatever the second run's generator draws."""
+    import dense2sparse_vit_torch.models.deit as deit_mod
+    from dense2sparse_vit_torch.models import create_model
+
+    model = create_model("deit_small_patch16_224_predictor", device="cpu", img_size=32,
+                         patch_size=8, embed_dim=128, num_heads=2, depth=3).eval()
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad(), chip_smoke.Replay(deit_mod, "gumbel_softmax") as rec:
+        first = model(x, generator=torch.Generator().manual_seed(5))
+    assert len(rec.out) == 1 and deit_mod.gumbel_softmax is not rec.out
+    with torch.no_grad(), chip_smoke.Replay(deit_mod, "gumbel_softmax", rec):
+        again = model(x, generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        fresh = model(x, generator=torch.Generator().manual_seed(6))
+    assert torch.equal(first[2], again[2]) and torch.equal(first[0], again[0])
+    assert not torch.equal(first[2], fresh[2])
+
+
+def test_mode_recorder_replays_threshold_masks():
+    """The threshold mode's keep masks recorded in one step's forward come
+    back in the plain step's, so that both keep the same tokens."""
+    from dense2sparse_vit_torch.models import create_model
+
+    model = create_model("dynamic_vit_small_patch16_224_student", device="cpu", img_size=32,
+                         patch_size=8, embed_dim=128, num_heads=2, depth=4,
+                         pruning_locs=(1, 2), keep_ratios=(0.7, 0.5),
+                         patch_score_threshold=0.5).eval()
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad(), chip_smoke.ModeRecorder() as rec:
+        first = model(x, collect_cls_attns=False)
+    assert len(rec.masks) == 2 and not rec.kept
+    x2 = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad(), chip_smoke.ModeRecorder(replay_from=rec):
+        replayed = model(x2, collect_cls_attns=False)
+    assert torch.equal(replayed.keep_mask, first.keep_mask)
