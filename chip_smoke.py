@@ -21,6 +21,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault colsum      # the column sums' check
     python3 chip_smoke.py --plant-fault attn_bwd    # the attention core backward's check
     python3 chip_smoke.py --plant-fault predictor   # the score predictor's check
+    python3 chip_smoke.py --plant-fault head_width  # phase 35's check at head width 12
     python3 chip_smoke.py --plant-fault mode_plain  # phase 33's launch check
     python3 chip_smoke.py --plant-fault remat       # phase 33's remat check
     python3 chip_smoke.py --plant-fault bn_eval     # phase 33's BatchNorm eval check
@@ -247,6 +248,29 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  px: the int8 block at C = 1024, hidden 4096, N = 577
                  against its plain version, its logits against the bf16
                  kernels'.
+ 35. head_width  head widths other than 64 and the rest of the zoo
+                 (`phase_head_widths`): (a) at d = 12 (32 heads, C = 384) and
+                 d = 96 (8 heads, C = 768) on seeded B=64 activations at
+                 N = 197, 138, 97, 68 (and 577, 785 for the block and the
+                 packed attention both ways), the block forward stage by
+                 stage in plain, policy (eps 0.1, and 1e-6 at N = 197),
+                 branch-scale and CLS-row mode, its backward in plain,
+                 policy (with dPolicy; planted ties at N = 197) and
+                 branch-scale mode, the packed attention both ways with the
+                 CLS fold (two backward launches bit-equal), the half-block
+                 both ways and the int8 block at d = 96, each against its
+                 plain version; (b) vit_small_patch16_224 (8 heads of 96)
+                 and t2t_vit_14_resnext (32 heads of 12) at full width and
+                 depth, bf16: a fused B=32 eval forward against the plain
+                 twin (the block kernel and the attention_hd core once a
+                 block), one cross-entropy backward against the twin
+                 (resnext at drop path 0.1: the branch-scale mode at
+                 d = 12), vit_small with quant="int8"; (c) the other seven
+                 new names (t2t_vit_14_wide, _se, 16_ghost, dense, TNT-S/B,
+                 drop_resnet50) at full width, B=8 bf16 against fp32, no
+                 kernel launched; (d) the new path's kernels timed at
+                 N = 197 and 577 beside their plain versions, SDPA and their
+                 bounds, and a B=64 forward of (b)'s models in img/s.
 The build phase fails if ptxas reports a spill in a GEMM kernel or in
 attention_bwd_kernel, or reports on no int8 one, or if it serializes
 attention_bwd_kernel's wgmma products; it prints that kernel's C75xx
@@ -296,7 +320,10 @@ for the run (`mode_fault`): the dropout mode's packed attention core
 swapped for plain attention (rejected by its launch check), remat's
 recompute drawing anew from where the forward left the generator (by
 `check_remat`), an eval-mode BatchNorm normalising with the batch's
-statistics (by `check_bn_eval`).
+statistics (by `check_bn_eval`). --plant-fault head_width with the core at
+head widths other than 64 (`block.cu`'s attention_hd_kernel) leaving the
+last 16-key chunk out of P.V and the row sums, on phase 35's block check
+at d = 12, N = 197 (its attn stage).
 """
 
 from __future__ import annotations
@@ -358,7 +385,7 @@ KERNEL_NAMES = (
     "fused_mlp_residual_backward", "fused_transformer_block[scaled]",
     "fused_transformer_block_backward[scaled]", "attention_block_forward",
     "attention_block_backward", "attention_block_backward_policy", "attention_variant",
-    "ln_bwd", "column_sums", "attention_bwd",
+    "ln_bwd", "column_sums", "attention_bwd", "attention_hd", "attention_hd_bwd",
 )
 NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # rows of the kernels line that are a part of a kernel's launches, at the
@@ -504,6 +531,12 @@ SOURCES = {
     "attention_bwd": (
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
         "dense2sparse_vit_tpu/ops/pallas/attention.py:626"),
+    "attention_hd": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:226"),
+    "attention_hd_bwd": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:753"),
     "attention_bwd[long]": (
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
         "dense2sparse_vit_tpu/ops/pallas/block.py:729"),
@@ -529,8 +562,9 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # without z mean(dz z) (ln_bwd), the column sums without the last split's
 # rows (colsum); (block_bwd.cu, attn_bwd) the attention core backward's dQ
 # without the last key block's products; (predictor.cu) the means launch taking
-# each sample's pooled mean from the next sample's sums; and the stage whose
-# check must reject it
+# each sample's pooled mean from the next sample's sums; (block.cu,
+# head_width) the core at other head widths stopping its P.V and row sums one
+# 16-key chunk short of N; and the stage whose check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e & 1]", "if (true) dpa[e & 1]", "dpolicy"),
@@ -559,6 +593,8 @@ FAULTS = {
                "column_sums"),
     "attn_bwd": ("block_bwd.cu", "          wgmma_m64n64k16_rs<1>(dq[qq], da[c], ",
                  "          if (j + 1 < QB) wgmma_m64n64k16_rs<1>(dq[qq], da[c], ", "attn_bwd"),
+    "head_width": ("block.cu", "k16 < HD_BLK && k0 + k16 < N; k16 += 16",
+                   "k16 < HD_BLK && k0 + k16 + 16 < N; k16 += 16", "attn"),
     "predictor": ("predictor.cu",
                   "  const int src = smp;  // the sample whose partial sums are added\n",
                   "  const int src = (smp + 1) % p.samples;  // the next sample's\n",
@@ -1158,6 +1194,8 @@ def plant_fault(dev, kind: str) -> int:
                 check_norm(torch, cases)
         elif kind == "attn_bwd":
             check_attn_bwd_cases(torch, capture_attn_bwd_cases(torch, dev))
+        elif kind == "head_width":
+            check_head_widths(torch, dev, None, widths=HD_WIDTHS[:1], tokens=(197,))
         elif kind == "scatter":
             student, teacher, step = build_trainer(torch, dev, fused=True)
             images, labels = train_batch(torch, dev)
@@ -5042,9 +5080,12 @@ def family_forward(torch, model, name, x, seed=5):
 
 
 def family_launches(model, name) -> dict:
-    """A family model's eval forward: every block through the block kernel,
-    and the single-stage DINO student's gather."""
+    """A family model's eval forward: every block through the block kernel
+    (at a head width other than 64 through the attention_hd core too), and
+    the single-stage DINO student's gather."""
     out = {**NO_LAUNCHES, "fused_transformer_block": model.cfg.depth}
+    if model.cfg.embed_dim != 64 * model.cfg.num_heads:  # the cores at other head widths
+        out["attention_hd"] = model.cfg.depth
     if name == "dino_small_predictor":
         out["fused_gather_tokens"] = 1
     return out
@@ -5605,6 +5646,410 @@ def phase_deit_family(torch, dev, tally, smi, root):
           "depth_2_names": len(others), "card": smi})
 
 
+# ---- 35. head widths other than 64; the rest of the zoo ---------------------------
+
+# (head width, heads, C): t2t_vit_14_resnext's and vit_small_patch16_224's
+HD_WIDTHS = ((12, 32, 384), (96, 8, 768))
+HD_BATCH = 64
+HD_TOKENS = (197, 138, 97, 68)  # the headline student's widths
+HD_LONG = (577, 785)  # the 384-px and the patch-8 sequences
+HD_TIMED = (197, 577)
+# the two registry models that reach the kernels at those widths, with the
+# keyword arguments of their train step (stochastic depth at d = 12)
+HD_MODELS = (("vit_small_patch16_224", {}), ("t2t_vit_14_resnext", {"drop_path_rate": 0.1}))
+# the other new names: plain torch, no kernel
+HD_OTHERS = ("t2t_vit_14_wide", "t2t_vit_14_se", "t2t_vit_16_ghost", "t2t_vit_dense",
+             "tnt_s_patch16_224", "tnt_b_patch16_224", "drop_resnet50")
+B_OTHERS = 8
+# bf16 against fp32 through a whole network, relative to the fp32 logits'
+# largest magnitude: a guard against a gross fault, not a kernel tolerance
+OTHERS_TOL = 0.1
+# the kernels of csrc/attention_hd.cuh by the profiler's kernel names
+HD_GROUPS = ("attention_hd_kernel", "attention_hd_bwd_kernel", "attention_hd_rows", "sum_heads")
+
+
+def hd_block(torch, dev, C, H, seed):
+    """A block at width C with H heads (MLP ratio 3) whose matrices are drawn
+    at N(0, 1/fan_in), so that the softmax is peaked, and whose LayerNorms
+    and biases are perturbed: its kernel weights (bf16 matrices) on the
+    card."""
+    from dense2sparse_vit_torch.nn.layers import Block
+
+    blk = Block(C, H, mlp_ratio=3.0, use_fused=True)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in blk.parameters():
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen) / p.shape[1] ** 0.5)
+            else:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return blk.to(dev).eval().kernel_weights(torch.bfloat16)
+
+
+def check_cls_rows(torch, x, w, H, scale, policy=None, eps=1e-6):
+    """The block's CLS-row forward (`fused_transformer_block_cls`) against
+    its plain version: the rows within STAGE_TOL, the output within
+    BLOCK_TOL. Returns the largest absolute error of the rows."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import transformer_block_reference
+
+    out, cls = ops.fused_transformer_block_cls(x, w, H, policy, scale=scale, eps=eps)
+    want, want_cls = transformer_block_reference(x, w, H, scale, 1e-6, policy=policy, eps=eps,
+                                                 return_cls=True)
+    (c_err, c_ref), (o_err, o_ref) = rel_err(torch, cls, want_cls), rel_err(torch, out, want)
+    rel = {"cls": c_err / c_ref, "block": o_err / o_ref}
+    emit({"phase": "head_width", "kernel": "fused_transformer_block_cls", "shape": list(x.shape),
+          "policy": policy is not None, "rel_err": rel,
+          "tol_rel": {"cls": STAGE_TOL, "block": BLOCK_TOL}})
+    if not (rel["cls"] <= STAGE_TOL and rel["block"] <= BLOCK_TOL):
+        raise AssertionError(f"CLS-row block at head width {x.shape[2] // H}: {rel}")
+    return c_err
+
+
+def check_packed_forward(torch, qkv, H, scale, policy=None, eps=1e-6):
+    """The packed core's output and CLS rows against `attention_reference`,
+    within STAGE_TOL. Returns the largest absolute error."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import attention_reference
+
+    kw = {} if policy is None else {"policy": policy, "eps": eps}
+    out, cls = ops.fused_attention_packed(qkv, H, scale=scale, return_cls=True, **kw)
+    want, want_cls = attention_reference(qkv, H, scale, return_cls=True, **kw)
+    (o_err, o_ref), (c_err, c_ref) = rel_err(torch, out, want), rel_err(torch, cls, want_cls)
+    rel = {"attn": o_err / o_ref, "cls": c_err / c_ref}
+    emit({"phase": "head_width", "kernel": "fused_attention_packed", "shape": list(qkv.shape),
+          "policy": policy is not None, "rel_err": rel, "tol_rel": STAGE_TOL})
+    if not max(rel.values()) <= STAGE_TOL:
+        raise AssertionError(f"packed attention at head width {qkv.shape[2] // 3 // H}: {rel}")
+    return max(o_err, c_err)
+
+
+def check_head_widths(torch, dev, tally, widths=HD_WIDTHS, tokens=HD_TOKENS + HD_LONG):
+    """(a): the block-level kernels at each head width of `widths` on seeded
+    B=64 activations at every N of `tokens`, each against its plain
+    version: the block forward stage by stage (`check_block`: plain, policy
+    at eps 0.1 (and 1e-6 at N = 197), branch scales), its CLS rows, its
+    backward (`check_block_backward`: plain, policy with dPolicy, branch
+    scales, and at N = 197 planted exact ties), the packed attention both
+    ways with the CLS fold (`check_attn_bwd`: two launches bit-equal), the
+    half-block both ways (`check_attn_half`, `check_attn_half_backward`)
+    and, at d = 96, the int8 block (`check_int8_block`). The long sequences
+    (HD_LONG) take the block both ways in plain and policy mode and the
+    packed attention both ways. The largest errors go into `tally`'s
+    attention_hd (forward) and attention_hd_bwd rows."""
+    fwd_err = bwd_err = 0.0
+    for d, H, C in widths:
+        w = hd_block(torch, dev, C, H, seed=d)
+        w6 = tuple(w[k] for k in HALF_BLOCK_KEYS)
+        scale, ln_eps = d ** -0.5, 1e-6
+        for n in tokens:
+            gen = torch.Generator(device=dev).manual_seed(100 * d + n)
+            x = torch.randn((HD_BATCH, n, C), generator=gen, device=dev).to(torch.bfloat16)
+            g = torch.randn((HD_BATCH, n, C), generator=gen, device=dev).to(torch.bfloat16)
+            pol = (torch.rand((HD_BATCH, n), generator=gen, device=dev) < 0.6).float()
+            pol[:, 0] = 1.0
+            gcls = torch.randn((HD_BATCH, H, n), generator=gen, device=dev)
+            long = n in HD_LONG
+            scales = droppath_scales(torch, HD_BATCH, gen)
+            with torch.no_grad():
+                modes = [{}, {"policy": pol, "eps": 0.1}]
+                if n == 197:
+                    modes.append({"policy": pol, "eps": 1e-6})
+                if not long:
+                    modes.append({"branch_scales": scales})
+                for kw in modes:
+                    _, err = check_block(torch, x, w, H, scale, ln_eps, phase="head_width", **kw)
+                    fwd_err = max(fwd_err, err)
+                    bwd_err = max(bwd_err, check_block_backward(
+                        torch, x, g, w, H, scale, ln_eps, phase="head_width", **kw))
+                if n == 197:
+                    x_tie, tied = planted_ties(torch, x, w, H, scale, ln_eps)
+                    emit({"phase": "head_width", "planted_ties": {"d": d, "tied_rows": tied}})
+                    bwd_err = max(bwd_err, check_block_backward(
+                        torch, x_tie, g, w, H, scale, ln_eps, policy=pol, eps=0.1,
+                        phase="head_width"))
+                for kw in ({}, {"policy": pol, "eps": 0.1}):
+                    qkv, do = attn_bwd_inputs(torch, x, g, w, H, scale, ln_eps, **kw)
+                    fwd_err = max(fwd_err, check_packed_forward(torch, qkv, H, scale, **kw))
+                    bwd_err = max(bwd_err, check_attn_bwd(torch, {
+                        "what": f"head_width_{d}", "block": None, "qkv": qkv, "g": do,
+                        "heads": H, "scale": scale, "policy": kw.get("policy"), "gcls": gcls,
+                        "eps": kw.get("eps", 1e-6)}))
+                if long:
+                    continue
+                fwd_err = max(fwd_err, check_cls_rows(torch, x, w, H, scale))
+                fwd_err = max(fwd_err, check_cls_rows(torch, x, w, H, scale, pol, 0.1))
+                for kw in ({}, {"policy": pol, "eps": 0.1}):
+                    fwd_err = max(fwd_err, check_attn_half(torch, x, w6, H, scale, ln_eps,
+                                                           cls=True, phase="head_width", **kw))
+                    bwd_err = max(bwd_err, check_attn_half_backward(
+                        torch, x, g, w6, H, scale, ln_eps, phase="head_width", **kw))
+                if d == 96 and n == 197:
+                    from dense2sparse_vit_torch.ops.quant import quantize_block_params
+
+                    _, err = check_int8_block(torch, x, quantize_block_params(w), H, scale, ln_eps)
+                    fwd_err = max(fwd_err, err)
+            torch.cuda.empty_cache()
+    if tally is not None:
+        tally.err("attention_hd", fwd_err)
+        tally.err("attention_hd_bwd", bwd_err)
+
+
+def hd_step_launches(model) -> dict:
+    """One cross-entropy step of a model whose every block is fused: each
+    block's forward and backward kernel (with branch scales where its drop
+    path rate is not 0), the LayerNorm backwards and column sums, and at a
+    head width other than 64 the attention_hd cores (the forward's and the
+    backward's recompute, one backward)."""
+    depth = len(model.blocks)
+    scaled = sum(blk.drop_path.rate > 0 for blk in model.blocks)
+    out = {**NO_LAUNCHES, **norm_launches(depth),
+           "fused_transformer_block": depth - scaled,
+           "fused_transformer_block[scaled]": scaled,
+           "fused_transformer_block_backward": depth - scaled,
+           "fused_transformer_block_backward[scaled]": scaled}
+    if model.cfg.embed_dim != 64 * model.cfg.num_heads:
+        out.update(attention_hd=2 * depth, attention_hd_bwd=depth)
+    else:
+        out["attention_bwd"] = depth
+    return out
+
+
+def check_hd_step(torch, dev, model, name, kwargs, tally):
+    """(b): one cross-entropy backward through `model` (its `kwargs`, e.g.
+    drop path) against its plain twin on the same weights, images, labels
+    and draws: the loss within STEP_LOSS_TOL, the gradients within
+    STEP_GRAD_TOL (`compare_steps`), the kernels' launches
+    (`hd_step_launches`) and none by the twin."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from dense2sparse_vit_torch import ops
+
+    model = copy.deepcopy(model)
+    model.cfg = model.cfg.replace(**kwargs)
+    rate = kwargs.get("drop_path_rate", 0.0)
+    for i, blk in enumerate(model.blocks):
+        blk.drop_path.rate = rate * i / max(len(model.blocks) - 1, 1)
+    model.train()
+    plain = plain_twin(model).train()
+    side = model.cfg.img_size
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((B_FAMILY, side, side, 3), device=dev, generator=gen)
+    labels = torch.randint(0, model.cfg.num_classes, (B_FAMILY,), device=dev, generator=gen)
+
+    def step(m):
+        out = m(x, generator=torch.Generator(device=dev).manual_seed(13))
+        logits = (out[-1] if isinstance(out, tuple) else out).float()
+        loss = F.cross_entropy(logits, labels)
+        loss.backward()
+        return loss.item(), {n: p.grad.float() for n, p in m.named_parameters()
+                             if p.grad is not None}
+
+    ops.reset_launch_counts()
+    got = step(model)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    want = step(plain)
+    torch.cuda.synchronize()
+    check_mode_launches(ops.launch_counts(), NO_LAUNCHES, f"{name} plain step")
+    check_mode_launches(counts, hd_step_launches(model), f"{name} step")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    compare_steps(torch, f"head_width {name} step", got, want, set(want[1]))
+    del model, plain
+    return counts
+
+
+def check_hd_int8(torch, dev, model, tally, smi):
+    """vit_small_patch16_224 with quant="int8" on every block (the same
+    weights): its B=32 forward's launches (every block int8, through the
+    attention_hd core), its logits against the bf16 kernels' (cosine
+    similarity at least INT8_LOGITS_COS), the int8 block against its plain
+    version at the first and the last block's input (`check_int8_block`)."""
+    import copy
+
+    from dense2sparse_vit_torch import ops
+
+    q = copy.deepcopy(model)
+    q.cfg = q.cfg.replace(quant="int8")
+    for blk in q.blocks:
+        blk.quant = "int8"
+    side = model.cfg.img_size
+    x = torch.randn((B_FAMILY, side, side, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    inputs, last = {}, len(q.blocks) - 1
+    hooks = [q.blocks[i].register_forward_pre_hook(
+        lambda m, a, i=i: inputs.__setitem__(i, a[0].detach())) for i in (0, last)]
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        logits = q(x)[-1].float()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ref = model(x)[-1].float()
+        for h in hooks:
+            h.remove()
+        blk = q.blocks[0]
+        args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+        err = max(check_int8_block(torch, xi, q.blocks[i].int8_weights(torch.bfloat16), *args,
+                                   block=i)[1] for i, xi in inputs.items())
+    want = {**NO_LAUNCHES, "fused_transformer_block_int8": len(q.blocks),
+            "attention_hd": len(q.blocks)}
+    check_mode_launches(counts, want, "int8 vit_small forward")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    tally.err("fused_transformer_block_int8", err)
+    cos = torch.nn.functional.cosine_similarity(logits.flatten(), ref.flatten(), dim=0).item()
+    emit({"phase": "head_width", "int8": "vit_small_patch16_224", "logits_vs_bf16_kernels": {
+        "cos": cos, "tol_cos": INT8_LOGITS_COS}, "launches": counts, "card": smi})
+    if not cos >= INT8_LOGITS_COS:
+        raise AssertionError(f"int8 vit_small logits against bf16: cos {cos}")
+    del q
+
+
+def check_hd_others(torch, dev, smi) -> dict:
+    """(c): each name of HD_OTHERS built on the card at full width (bf16,
+    seeded weights), a B=8 eval forward against the same module run in fp32
+    (the worst relative error printed; OTHERS_TOL guards against a gross
+    fault), and no kernel launched."""
+    import copy
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import create_model
+
+    worst = {}
+    for name in HD_OTHERS:
+        m = create_model(name, dtype="bfloat16", device=dev,
+                         generator=torch.Generator().manual_seed(0)).eval()
+        m32 = copy.deepcopy(m)
+        if hasattr(m32, "cfg"):
+            m32.cfg = m32.cfg.replace(dtype="float32")
+        else:
+            m32.dtype = "float32"
+        x = torch.randn((B_OTHERS, 224, 224, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(21))
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            out = m(x)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            ref = m32(x)
+        err, mag = rel_err(torch, out, ref)
+        worst[name] = err / mag
+        emit({"phase": "head_width", "model": name, "class": type(m).__name__,
+              "params": sum(p.numel() for p in m.parameters()), "shape": list(out.shape),
+              "worst_rel_err_vs_fp32": worst[name], "guard": OTHERS_TOL, "card": smi})
+        check_mode_launches(counts, NO_LAUNCHES, f"{name} forward")
+        if not worst[name] <= OTHERS_TOL:
+            raise AssertionError(f"{name}: bf16 against fp32 {worst[name]}")
+        del m, m32
+        torch.cuda.empty_cache()
+    return worst
+
+
+def time_head_widths(torch, dev, smi) -> dict:
+    """(d): at each head width and N of HD_TIMED (B = 64, seeded qkv): the
+    forward core's device ms (the profiler, inside `ops.fused_attention_
+    packed`), the backward's (attention_hd_bwd_kernel's two launches and
+    the rows' statistics, inside `ops.fused_attention_backward_packed`),
+    each beside its plain version (CUDA graphs), SDPA's forward and backward
+    (CUDA graphs) and its bound. Where the profiler records no device time
+    (it has missed the forward's windows in a whole run), the row's "timer"
+    says "graph": the entry's time from a CUDA graph (the backward's with
+    its forward recompute). Returns {(d, N): (forward, backward)} rows."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import attention_backward_reference
+    from dense2sparse_vit_torch.ops.block import attention_reference
+    from dense2sparse_vit_torch.scripts.checkout_ab import device_ms
+    import torch.nn.functional as F
+
+    out = {}
+    for d, H, C in HD_WIDTHS:
+        for n in HD_TIMED:
+            gen = torch.Generator(device=dev).manual_seed(300 + n + d)
+            qkv = torch.randn((HD_BATCH, n, 3 * C), generator=gen, device=dev).to(torch.bfloat16)
+            g = torch.randn((HD_BATCH, n, C), generator=gen, device=dev).to(torch.bfloat16)
+            scale = d ** -0.5
+            with torch.no_grad():
+                fwd = lambda: ops.fused_attention_packed(qkv, H, scale=scale)  # noqa: E731
+                bwd = lambda: ops.fused_attention_backward_packed(  # noqa: E731
+                    qkv, g, H, scale=scale)
+                f_dev = device_ms(fwd, groups=HD_GROUPS)
+                b_dev = device_ms(bwd, groups=HD_GROUPS)
+                f_ms = f_dev["attention_hd_kernel"]
+                b_ms = b_dev["attention_hd_bwd_kernel"] + b_dev["attention_hd_rows"]
+                timers = ["profiler", "profiler"]
+                if f_dev["total"] == 0.0:
+                    f_ms, timers[0] = graph_ms(torch, fwd), "graph"
+                if b_dev["total"] == 0.0:
+                    b_ms, timers[1] = graph_ms(torch, bwd), "graph"
+                f_plain = graph_ms(torch, lambda: attention_reference(qkv, H, scale), iters=5)
+                b_plain = graph_ms(torch, lambda: attention_backward_reference(
+                    qkv, g, H, scale), iters=5)
+                q, k, v, _ = sdpa_inputs(torch, qkv, g, H)
+                f_lib = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q.detach(), k.detach(), v.detach(), scale=scale))
+            b_lib = sdpa_backward_ms(torch, qkv, g, H, scale)[0]
+            fb, bb = attention_bound(HD_BATCH, n, C, H), attention_backward_bound(HD_BATCH, n, C, H)
+            rows = (
+                {"kernel": "attention_hd", "ms": f_ms, "timer": timers[0], "plain_ms": f_plain,
+                 "library_ms": f_lib, "bound": fb, "device_ms": f_dev},
+                {"kernel": "attention_hd_bwd", "ms": b_ms, "timer": timers[1],
+                 "plain_ms": b_plain, "library_ms": b_lib, "bound": bb, "device_ms": b_dev})
+            for r in rows:
+                b = r.pop("bound")
+                emit({"phase": "head_width", "d": d, "heads": H, "shape": [HD_BATCH, n, 3 * C],
+                      **r, "bound_ms": max(b.values()),
+                      "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
+                      "card": smi})
+                r["bound"] = b
+            out[(d, n)] = rows
+    return out
+
+
+def phase_head_widths(torch, dev, tally, smi):
+    """Phase 35: (a) the block-level kernels at head widths 12 and 96
+    (`check_head_widths`); (b) vit_small_patch16_224 and t2t_vit_14_resnext
+    at full width and depth, bf16, seeded weights: the fused B=32 eval
+    forward against the plain twin (`check_family_model`, the block kernel
+    and the attention_hd core once a block), one cross-entropy backward
+    against the twin (`check_hd_step`; resnext at drop path 0.1, so the
+    branch-scale mode runs at d = 12), and vit_small with quant="int8"
+    (`check_hd_int8`); (c) the other new names (`check_hd_others`); (d) the
+    new path's kernels timed (`time_head_widths`) and a B=64 forward of
+    each of the two models in img/s. The kernels line's attention_hd rows
+    take (b)'s launches, each at (d)'s N = 197 time of its width."""
+    t0 = time.perf_counter()
+    check_head_widths(torch, dev, tally)
+    torch.cuda.empty_cache()
+    launches, timed = {}, {}
+    for name, kwargs in HD_MODELS:
+        model = check_family_model(torch, dev, name, {}, tally, smi)
+        d = model.cfg.embed_dim // model.cfg.num_heads
+        counts = check_hd_step(torch, dev, model, name, kwargs, tally)
+        for k in ("attention_hd", "attention_hd_bwd"):
+            launches[(k, d)] = launches.get((k, d), 0) + counts[k]
+        launches[("attention_hd", d)] += model.cfg.depth  # the eval forward's
+        timed[name] = time_family_model(torch, dev, model, smi)
+        emit({"phase": "head_width", "timed": name, **timed[name]})
+        if name == "vit_small_patch16_224":
+            check_hd_int8(torch, dev, model, tally, smi)
+            launches[("attention_hd", d)] += model.cfg.depth
+        del model
+        torch.cuda.empty_cache()
+    worst = check_hd_others(torch, dev, smi)
+    times = time_head_widths(torch, dev, smi)
+    for (kernel, d), calls in launches.items():  # (b) added the launches themselves
+        r = times[(d, 197)][0 if kernel == "attention_hd" else 1]
+        tally.add(kernel, calls, r["ms"], r["plain_ms"], r["bound"], r["library_ms"])
+    emit({"phase": "head_width", "seconds": time.perf_counter() - t0,
+          "img_per_s": {n: t["img_per_s"] for n, t in timed.items()},
+          "busy_share": {n: t["busy_share"] for n, t in timed.items()},
+          "others_worst_rel_err": worst, "card": smi})
+
+
 def host_batch(torch, cfg, root, dev, split="val"):
     """The first LOOP_BATCH images of the loop's train or val split in the
     eval view, uint8 on the card, with their labels."""
@@ -5772,6 +6217,9 @@ def main(argv=None) -> int:
         phase_deit_family(torch, dev, tally, smi, loop_root)
     finally:
         loop_tmp.cleanup()
+    # ---- 35. head widths other than 64; the rest of the zoo -------------------
+    torch.cuda.empty_cache()
+    phase_head_widths(torch, dev, tally, smi)
 
     emit(tally.line())
     print(smi, flush=True)

@@ -126,7 +126,7 @@
 // mma.sync at ~200 TFLOP/s; 168 registers leave 12 warps on an SM; and 13
 // query tiles on 4 warps keep a CTA's K and V resident for 4 tiles' time
 // while one warp has 3.
-#include "ln_gemm.cuh"
+#include "attention_hd.cuh"
 
 #include <algorithm>
 #include <type_traits>
@@ -517,14 +517,242 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
+// ---- the core at head widths other than 64 (attention_hd.cuh) ------------
+//
+// attention_hd_kernel computes what attention_kernel computes, in its three
+// modes (plain, policy, the CLS rows), for a head width d that is even and
+// at most 128: the same exact fp32 row-max softmax, the same policy softmax
+// with the smoothing eps/N riding in the probabilities fed to P.V, the same
+// statistics for the backward. A CTA of 4 warps takes one sample-head's 64
+// query rows (16 a warp) and streams the keys through shared memory in
+// blocks of 64, in two passes as attention_kernel does: the first takes each
+// row's exact max (policy mode: of the scaled scores, and how many columns
+// reach it), the second exponentiates against it and multiplies into V. So
+// nothing is rescaled as the keys go by (no online softmax), and the
+// policy's eps/N term, which the max does not scale, needs no keeping apart.
+// K is read twice and V once per 64 query rows, from L2 mostly. The CLS
+// rows: the CTA of query rows 0-63 keeps row 0's unnormalised
+// probabilities in shared memory as pass 2 makes them and writes them
+// normalised at the end. Its statistics are always (B, H, N) float4: (lse,
+// 0, 0, 0) in plain mode, (max, den, ties, 0) in policy mode, which
+// block_bwd.cu's backward at these widths takes. What bounds it: at B=64,
+// N=197, d=12, H=32 its bytes (qkv read, the output written, ~0.02 ms at
+// 3.35 TB/s) against ~0.6 GFLOP; this design pays for its simplicity in
+// 4-byte loads, a K read twice and mma.sync on zero-padded tiles (at d = 12,
+// 16 columns of which 4 are zero). Its times are in PERF.md.
+template <int DP, bool POLICY>
+static __global__ void __launch_bounds__(HD_THREADS)
+    attention_hd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
+                        bf16* __restrict__ out, float* __restrict__ lse, bf16* __restrict__ cls,
+                        const float* __restrict__ pol, int N, int H, float scale, float eps) {
+  constexpr int P = DP + 8;
+  extern __shared__ __align__(16) unsigned char hd_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(hd_smem);
+  bf16* Ks = Qs + HD_BLK * P;
+  bf16* Vs = Ks + HD_BLK * P;
+  float* Ps = reinterpret_cast<float*>(Vs + HD_BLK * P);  // pol_j of the key block
+  float* Row0 = Ps + HD_BLK;  // with cls: row 0's unnormalised probabilities
+
+  const int C = H * d;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int q0 = blockIdx.x * HD_BLK;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int qr = warp * 16;  // the warp's rows of the tile: qr + g, qr + g + 8
+  const bf16* base = qkv + (long long)b * q_bstride + h * d;
+  const int nkb = (N + HD_BLK - 1) / HD_BLK;
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float sl2 = scale * LOG2E;
+  const float cc = POLICY ? eps / N : 0.f;
+  const bool row0 = cls != nullptr && q0 == 0 && warp == 0 && g == 0;
+
+  hd_load_tile<DP>(Qs, base, q_ld, q0, N, d, tid, HD_THREADS);
+
+  // pass 1: each row's max over the N real keys (policy mode: of the scaled
+  // scores, with the columns that reach it)
+  float mx[2] = {-INFINITY, -INFINITY}, ct[2] = {0.f, 0.f};
+  for (int kb = 0; kb < nkb; ++kb) {
+    __syncthreads();  // the tile's last readers are done
+    hd_load_tile<DP>(Ks, base + C, q_ld, kb * HD_BLK, N, d, tid, HD_THREADS);
+    __syncthreads();
+    for (int k16 = 0; k16 < HD_BLK && kb * HD_BLK + k16 < N; k16 += 16) {
+      float s[2][4];
+      hd_scores16<DP>(s, Qs, qr, Ks, k16, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (kb * HD_BLK + k16 + 8 * j + 2 * t + (e & 1) >= N) continue;
+          if (POLICY) max_count(s[j][e] * scale, mx[e >> 1], ct[e >> 1]);
+          else mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m = __shfl_xor_sync(0xffffffffu, mx[r], o);
+      if (POLICY) {
+        const float c = __shfl_xor_sync(0xffffffffu, ct[r], o);
+        if (m > mx[r]) ct[r] = c;
+        else if (m == mx[r]) ct[r] += c;
+      }
+      mx[r] = fmaxf(mx[r], m);
+    }
+  if (!POLICY) {
+    mx[0] *= scale;  // scale > 0, so the max of the scaled scores
+    mx[1] *= scale;
+  }
+
+  // pass 2: p = 2^(s scale log2 e - max log2 e) (policy mode: times a_ij,
+  // eps/N added for P.V), l += p, O += p V
+  const float ml[2] = {mx[0] * LOG2E, mx[1] * LOG2E};
+  float o[DP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float l[2] = {0.f, 0.f};
+  const int ra = q0 + qr + g;  // this thread's query rows ra, ra + 8
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * HD_BLK;
+    __syncthreads();
+    hd_load_tile<DP>(Ks, base + C, q_ld, k0, N, d, tid, HD_THREADS);
+    hd_load_tile<DP>(Vs, base + 2 * C, q_ld, k0, N, d, tid, HD_THREADS);
+    if (POLICY && tid < HD_BLK) Ps[tid] = k0 + tid < N ? pol[(long long)b * N + k0 + tid] : 0.f;
+    __syncthreads();
+    for (int k16 = 0; k16 < HD_BLK && k0 + k16 < N; k16 += 16) {
+      float s[2][4];
+      hd_scores16<DP>(s, Qs, qr, Ks, k16, lane);
+      uint32_t pa[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c0 = k0 + k16 + 8 * j + 2 * t;  // this thread's columns c0, c0 + 1
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + (e & 1);
+          p[e] = col < N ? att_exp2(s[j][e] * sl2 - ml[e >> 1]) : 0.f;
+          if (POLICY) {
+            const float a = Ps[col - k0];  // zero past N
+            p[e] *= col == ra + 8 * (e >> 1) ? a + (1.f - a) : a;
+          }
+          l[e >> 1] += p[e];
+          if (row0 && e < 2 && col < N) Row0[col] = p[e];
+          if (POLICY && col < N) p[e] += cc;
+        }
+        pa[2 * j] = pack_bf16(p[0], p[1]);
+        pa[2 * j + 1] = pack_bf16(p[2], p[3]);
+      }
+      hd_mma_rows<DP>(o, pa, Vs, k16, lane);
+    }
+  }
+
+#pragma unroll
+  for (int sh = 1; sh < 4; sh <<= 1) {
+    l[0] += __shfl_xor_sync(0xffffffffu, l[0], sh);
+    l[1] += __shfl_xor_sync(0xffffffffu, l[1], sh);
+  }
+  if (POLICY) {
+    l[0] += eps;
+    l[1] += eps;
+  }
+  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+  const long long stat = (long long)blockIdx.y * N;  // (b, h) row of lse and cls
+  if (lse && t == 0) {
+    float4* st4 = reinterpret_cast<float4*>(lse);
+    if (ra < N)
+      st4[stat + ra] = POLICY ? make_float4(mx[0], l[0], ct[0], 0.f)
+                              : make_float4(mx[0] + logf(l[0]), 0.f, 0.f, 0.f);
+    if (ra + 8 < N)
+      st4[stat + ra + 8] = POLICY ? make_float4(mx[1], l[1], ct[1], 0.f)
+                                  : make_float4(mx[1] + logf(l[1]), 0.f, 0.f, 0.f);
+  }
+  if (cls && q0 == 0 && warp == 0) {
+    // query row 0: its probabilities, normalised by the row's sum (lanes 0-3
+    // hold it)
+    __syncwarp();
+    const float inv = __shfl_sync(0xffffffffu, inv0, 0);
+    for (int col = lane; col < N; col += 32)
+      cls[stat + col] = __float2bfloat16((Row0[col] + cc) * inv);
+  }
+  bf16* obase = out + (long long)b * N * C + h * d;
+  const float mul[2] = {inv0, inv1};
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (c >= d) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (ra + 8 * r < N)
+        *reinterpret_cast<uint32_t*>(obase + (long long)(ra + 8 * r) * C + c) =
+            pack_bf16(o[nd][2 * r] * mul[r], o[nd][2 * r + 1] * mul[r]);
+  }
+}
+
+long long attention_hd_launches[2] = {0, 0};
+
+template <int DP>
+static cudaError_t launch_attention_hd_dp(const bf16* qkv, long long q_bstride, int q_ld, int d,
+                                          bf16* out, float* lse, bf16* cls, const float* pol,
+                                          int B, int N, int H, float scale, float eps,
+                                          cudaStream_t stream) {
+  const size_t smem = (size_t)3 * HD_BLK * (DP + 8) * 2 + HD_BLK * 4 + (cls ? (size_t)N * 4 : 0);
+  auto kernel = pol ? attention_hd_kernel<DP, true> : attention_hd_kernel<DP, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + HD_BLK - 1) / HD_BLK, B * H);
+  kernel<<<grid, HD_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, d, out, lse, cls, pol, N, H,
+                                             scale, eps);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++attention_hd_launches[0];
+  return err;
+}
+
+// the d != 64 core: rows as launch_attention_strided takes them (4-byte
+// aligned suffices), lse (B, H, N) float4 or null
+static cudaError_t launch_attention_hd(const bf16* qkv, long long q_bstride, int q_ld, int d,
+                                       bf16* out, float* lse, bf16* cls, const float* pol, int B,
+                                       int N, int H, float scale, float eps,
+                                       cudaStream_t stream) {
+#define D2S_HD_FWD(DP)                                                                      \
+  case DP:                                                                                  \
+    return launch_attention_hd_dp<DP>(qkv, q_bstride, q_ld, d, out, lse, cls, pol, B, N, H, \
+                                      scale, eps, stream);
+  switch (hd_pad(d)) {
+    D2S_HD_FWD(16)
+    D2S_HD_FWD(32)
+    D2S_HD_FWD(48)
+    D2S_HD_FWD(64)
+    D2S_HD_FWD(80)
+    D2S_HD_FWD(96)
+    D2S_HD_FWD(112)
+    D2S_HD_FWD(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef D2S_HD_FWD
+}
+
 // qkv's token rows lie q_ld elements apart and its samples q_bstride apart
-// (both multiples of 8); out is (B*N, C) packed. Also launched by
-// block_bwd.cu (the packed backward's recompute).
+// (both multiples of 8); out is (B*N, C) packed, C = H d. Heads of d = 64
+// take attention_kernel, every other even d up to 128 attention_hd_kernel
+// (whose lse is always float4). Also launched by block_bwd.cu (the packed
+// backward's recompute).
 cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q_ld, bf16* out,
                                      float* lse, bf16* cls, const float* pol, int B, int N,
-                                     int H, float scale, float eps, cudaStream_t stream) {
-  if (N <= 0 || N > ATT_MAX_N || q_ld < 3 * H * ATT_HD || q_ld % 8 || q_bstride % 8)
+                                     int H, int d, float scale, float eps, cudaStream_t stream) {
+  if (N <= 0 || N > ATT_MAX_N || q_ld < 3 * H * d || q_ld % 8 || q_bstride % 8)
     return cudaErrorInvalidValue;
+  if (d != ATT_HD) {
+    if (!hd_width_ok(d)) return cudaErrorInvalidValue;
+    return launch_attention_hd(qkv, q_bstride, q_ld, d, out, lse, cls, pol, B, N, H, scale, eps,
+                               stream);
+  }
   const size_t smem = att_smem_bytes(N, pol != nullptr);
   auto kernel = pol ? attention_kernel<true> : attention_kernel<false>;
   cudaError_t err =
@@ -549,11 +777,11 @@ cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q
 // qkv packed (B*N, 3C); also launched by quant_block.cu (the int8 block's
 // bf16 attention core)
 cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
-                             const float* pol, int B, int N, int H, float scale, float eps,
+                             const float* pol, int B, int N, int H, int d, float scale, float eps,
                              cudaStream_t stream) {
-  const int ld = 3 * H * ATT_HD;
-  return launch_attention_strided(qkv, (long long)N * ld, ld, out, lse, cls, pol, B, N, H, scale,
-                                  eps, stream);
+  const int ld = 3 * H * d;
+  return launch_attention_strided(qkv, (long long)N * ld, ld, out, lse, cls, pol, B, N, H, d,
+                                  scale, eps, stream);
 }
 
 // Stage 1, qkv = LN1(x) Wqkv^T + bqkv over M rows (the rows' LayerNorm
@@ -611,7 +839,7 @@ static cudaError_t attention_half(const bf16* x, bf16* out, bf16* qkv, bf16* att
   const int M = B * N;
   cudaError_t err = qkv_stage(x, qkv, stats, ln_w, ln_b, wqkv, bqkv, M, C, ln_eps, stream);
   if (err != cudaSuccess) return err;
-  err = launch_attention(qkv, attn, lse, cls, policy, B, N, H, scale, eps, stream);
+  err = launch_attention(qkv, attn, lse, cls, policy, B, N, H, C / H, scale, eps, stream);
   if (err != cudaSuccess) return err;
   return proj_stage(x, attn, out, wproj, bproj, sa, N, M, C, stream);
 }
@@ -673,7 +901,8 @@ using d2s::bf16;
 // DropPath scales of the attention and the MLP branch, each or both null
 // (no scale). Matrices are bf16
 // in the torch Linear layout (out, in); LayerNorm parameters and biases are
-// fp32; bqkv may be null. Requires C == 64 * H, hidden % 8 == 0, N <= 800,
+// fp32; bqkv may be null. Requires C == d * H with an even head width d
+// up to 128 (attention_hd.cuh), hidden % 8 == 0, N <= 800,
 // 16-byte aligned pointers.
 extern "C" int d2s_block_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* hid_buf,
@@ -682,7 +911,7 @@ extern "C" int d2s_block_forward(
     const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
     void* cls, const void* policy, const void* sa, const void* sm, int B, int N, int C, int H,
     int hidden, float scale, float ln_eps, float eps, void* stream) {
-  if (C != H * d2s::ATT_HD) return (int)cudaErrorInvalidValue;
+  if (!d2s::head_width_ok(C, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = d2s::attention_half(
       static_cast<const bf16*>(x), static_cast<bf16*>(mid_buf), static_cast<bf16*>(qkv_buf),
@@ -719,7 +948,8 @@ extern "C" int d2s_block_forward(
 // x, out: (B, N, C) bf16; scratch qkv (B*N, 3C) and attn (B*N, C) bf16 and
 // stats (B*N) float2; lse, cls, policy as d2s_block_forward takes them
 // (each may be null); weights bf16 (out, in), LayerNorm and biases fp32,
-// bqkv and bproj may be null. Requires C == 64 * H, N <= 800, 16-byte
+// bqkv and bproj may be null. Requires C == d * H (d even, at most 128),
+// N <= 800, 16-byte
 // aligned pointers.
 extern "C" int d2s_attention_block_forward(const void* x, void* out, void* qkv_buf,
                                            void* attn_buf, void* stats_buf, const void* ln_w,
@@ -728,7 +958,7 @@ extern "C" int d2s_attention_block_forward(const void* x, void* out, void* qkv_b
                                            void* cls, const void* policy, int B, int N, int C,
                                            int H, float scale, float ln_eps, float eps,
                                            void* stream) {
-  if (B <= 0 || C != H * d2s::ATT_HD || out == nullptr) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || !d2s::head_width_ok(C, H) || out == nullptr) return (int)cudaErrorInvalidValue;
   return (int)d2s::attention_half(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<bf16*>(qkv_buf),
       static_cast<bf16*>(attn_buf), static_cast<float2*>(stats_buf),
@@ -743,16 +973,29 @@ extern "C" int d2s_attention_block_forward(const void* x, void* out, void* qkv_b
 // runs outside: the CLS-capture route of a training block). qkv: (B, N, 3C)
 // bf16 with token rows q_ld elements apart and samples q_bstride apart; out
 // (B, N, C) bf16; cls (B, H, N) bf16 or null; policy (B, N) fp32 or null.
-// Requires C == 64 * H, N <= 800, q_ld and q_bstride multiples of 8,
-// 16-byte aligned pointers.
+// Requires C == d * H (d even, at most 128), N <= 800, q_ld and q_bstride
+// multiples of 8, 16-byte aligned pointers.
 extern "C" int d2s_attention_packed_forward(const void* qkv, long long q_bstride, int q_ld,
                                             void* out, void* cls, const void* policy, int B,
-                                            int N, int H, float scale, float eps, void* stream) {
-  if (B <= 0) return (int)cudaErrorInvalidValue;
+                                            int N, int H, int C, float scale, float eps,
+                                            void* stream) {
+  if (B <= 0 || !d2s::head_width_ok(C, H)) return (int)cudaErrorInvalidValue;
   return (int)d2s::launch_attention_strided(
       static_cast<const bf16*>(qkv), q_bstride, q_ld, static_cast<bf16*>(out), nullptr,
-      static_cast<bf16*>(cls), static_cast<const float*>(policy), B, N, H, scale, eps,
+      static_cast<bf16*>(cls), static_cast<const float*>(policy), B, N, H, C / H, scale, eps,
       static_cast<cudaStream_t>(stream));
+}
+
+// The launches of the attention core at head widths other than 64 since the
+// last reset, counted where they are launched, inside every entry: which = 0
+// the forward (attention_hd_kernel), 1 the backward (block_bwd.cu's
+// attention_hd_bwd_kernel pair and its row statistics, once a backward);
+// value >= 0 resets the count to it.
+extern "C" long long d2s_attention_hd_launches(int which, long long value) {
+  if (which != 0 && which != 1) return -1;
+  long long& n = d2s::attention_hd_launches[which];
+  if (value >= 0) n = value;
+  return n;
 }
 
 // The MLP half alone, out = x + fc2(GELU(fc1(LN x))), over M = B*N rows: x,

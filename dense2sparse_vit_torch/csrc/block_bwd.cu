@@ -179,7 +179,7 @@
 // dQ's.
 #include <algorithm>
 
-#include "ln_gemm.cuh"
+#include "attention_hd.cuh"
 
 extern "C" int d2s_block_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* hid_buf,
@@ -191,10 +191,11 @@ extern "C" int d2s_block_forward(
 
 namespace d2s {
 
-// block.cu's attention core, on qkv rows q_ld apart and samples q_bstride apart
+// block.cu's attention core, on qkv rows q_ld apart and samples q_bstride
+// apart, heads of width d (at d != 64, lse is (B, H, N) float4 in both modes)
 cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q_ld, bf16* out,
                                      float* lse, bf16* cls, const float* pol, int B, int N,
-                                     int H, float scale, float eps, cudaStream_t stream);
+                                     int H, int d, float scale, float eps, cudaStream_t stream);
 // block.cu's stage 1, qkv = LN1(x) Wqkv^T + bqkv
 cudaError_t qkv_stage(const bf16* x, bf16* qkv, float2* stats, const float* ln_w,
                       const float* ln_b, const bf16* wqkv, const float* bqkv, int M, int C,
@@ -1044,29 +1045,418 @@ static cudaError_t ab_plan(int N, bool policy, bool fold, AbLayout* out) {
   return cudaSuccess;
 }
 
-// The fp32 floats of the split partials at these shapes: dK and dV
-// (splits, B*N, 2C) where a sample-head is split, else none; dPolicy's
-// (splits, B, H, N) in policy mode.
-static long long kv_part_floats(int B, int N, int H, bool policy) {
-  const int sp = ab_splits(N, policy);
+// The splits of dPolicy's partials at head width d: attention_bwd_kernel's
+// (ab_splits) at d = 64, one at the other widths (attention_hd_bwd_kernel
+// sums every query of a key in one CTA).
+static int dpol_splits(int N, int d) { return d == AB_HD ? ab_splits(N, true) : 1; }
+
+// The fp32 floats of the split partials at these shapes (head width d): dK
+// and dV (splits, B*N, 2C) where a sample-head is split (d = 64 only), else
+// none; dPolicy's (splits, B, H, N) in policy mode.
+static long long kv_part_floats(int B, int N, int H, int d, bool policy) {
+  const int sp = d == AB_HD ? ab_splits(N, policy) : 1;
   return sp > 1 ? (long long)sp * B * N * 2 * H * AB_HD : 0;
 }
-static long long dpol_part_floats(int B, int N, int H, bool policy) {
-  return policy ? (long long)ab_splits(N, policy) * B * H * N : 0;
+static long long dpol_part_floats(int B, int N, int H, int d, bool policy) {
+  return policy ? (long long)dpol_splits(N, d) * B * H * N : 0;
+}
+
+// ---- the core's backward at head widths other than 64 ----------------------
+//
+// attention_hd_bwd_kernel computes what attention_bwd_kernel computes, in
+// its modes (plain; policy, with dPolicy's per-head partials summed by
+// sum_heads_kernel; the CLS fold), for an even head width d up to 128 (the
+// design notes of attention_hd.cuh): dQ, dK and dV from qkv, dO and the
+// forward's statistics, every N up to 800, deterministic (no atomics, the
+// same bits every launch). Three launches:
+//   - attention_hd_rows_kernel, a CTA per sample-head, turns the forward's
+//     float4 statistics into what both products need per query row, in
+//     place: (lse or the max m, 1 / den, D = rowsum(dO * O), the max path's
+//     gmx), with the CLS fold (D_0 += sum_j gcls_j P_0j, P_0j from row 0's
+//     scores in fp32) and in policy mode colsum(V), each a sum in a fixed
+//     order, exactly as attention_bwd_kernel forms them;
+//   - attention_hd_bwd_kernel<KV = true>, a CTA per (sample-head, 64-key
+//     block): streams the query blocks, each warp forms P and dS (scaled)
+//     for its 16 query rows and the block's keys from S and dP
+//     (hd_scores16, bit for bit the forward's S), stores both to a stage in
+//     shared memory, then each warp adds P^T dO and dS^T Q for its 16 keys
+//     (the stage read back transposed by ldmatrix). dK and dV sum over the
+//     query blocks in order, and dPolicy's partials of the block's keys over
+//     the warps' rows in order;
+//   - attention_hd_bwd_kernel<KV = false>, a CTA per (sample-head, 64-query
+//     block): streams the key blocks, forms dS the same way and adds dS K
+//     (dS from registers) into dQ in key order.
+// Policy mode's max path is attention_bwd_kernel's: gmx_i goes to the
+// columns whose scaled score equals the forward's stored max, split evenly
+// over the ties it counted; the scores are the forward's bits, so the test
+// finds the forward's maxima. What bounds it: at B=64, N=197, d=12, H=32 its
+// bytes (qkv and dO read, dqkv written, ~0.04 ms); it pays the scores and dP
+// twice (once a launch), 4-byte loads and zero-padded mma.sync tiles, for
+// its simplicity. Its times are in PERF.md.
+
+// the backward's statistics of the query rows, in place of the forward's:
+// (lse or m, 1 / den, D, gmx); 256 threads
+template <bool POLICY>
+static __global__ void __launch_bounds__(256)
+    attention_hd_rows_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
+                             const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                             float4* __restrict__ st, const float* __restrict__ pol,
+                             const float* __restrict__ gcls, int N, int H, float scale,
+                             float eps) {
+  __shared__ float Cvp[2 * 256];  // colsum(V)'s partial sums: a column pair over a row group
+  __shared__ float Cv[HD_MAX];
+  __shared__ float Fold[16];  // per warp, its part of the fold and of sum_j gcls_j
+  __shared__ float fold[2];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, C = H * d;
+  const int tid = threadIdx.x;
+  const float cc = POLICY ? eps / N : 0.f;
+  const bf16* base = qkv + (long long)b * q_bstride + h * d;
+  const long long srow = (long long)bh * N;
+  if (POLICY) {  // colsum(V): the row groups' sums added in order
+    const int pairs = d / 2, groups = 256 / pairs;
+    const int p = tid % pairs, grp = tid / pairs;
+    if (grp < groups) {
+      float a0 = 0.f, a1 = 0.f;
+      for (int r = grp; r < N; r += groups) {
+        const bf16* v = base + 2 * C + (long long)r * q_ld + 2 * p;
+        a0 += __bfloat162float(v[0]);
+        a1 += __bfloat162float(v[1]);
+      }
+      Cvp[2 * tid] = a0;
+      Cvp[2 * tid + 1] = a1;
+    }
+    __syncthreads();
+    if (tid < d) {
+      float acc = 0.f;
+      for (int gr = 0; gr < groups; ++gr) acc += Cvp[2 * (gr * pairs + tid / 2) + (tid & 1)];
+      Cv[tid] = acc;
+    }
+  }
+  if (gcls) {
+    // D_0 += sum_j gcls_j P_0j, P_0j from row 0's scores in fp32: a key a
+    // thread, the warps' sums added in order
+    const float4 s0 = st[srow];
+    const float rd0 = POLICY ? 1.f / s0.y : 0.f;
+    float acc = 0.f, gs = 0.f;
+    for (int j = tid; j < N; j += 256) {
+      const bf16* kj = base + C + (long long)j * q_ld;
+      float dot = 0.f;
+      for (int c = 0; c < d; ++c) dot += __bfloat162float(base[c]) * __bfloat162float(kj[c]);
+      float p;
+      if (POLICY) {
+        const float pk = pol[(long long)b * N + j];
+        p = (__expf(dot * scale - s0.x) * (j == 0 ? pk + (1.f - pk) : pk) + cc) * rd0;
+      } else {
+        p = __expf(dot * scale - s0.x);
+      }
+      acc += gcls[srow + j] * p;
+      gs += gcls[srow + j];
+    }
+    acc = warp_sum(acc);
+    gs = warp_sum(gs);
+    if ((tid & 31) == 0) {
+      Fold[tid >> 5] = acc;
+      Fold[8 + (tid >> 5)] = gs;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      acc = gs = 0.f;
+      for (int w = 0; w < 8; ++w) {
+        acc += Fold[w];
+        gs += Fold[8 + w];
+      }
+      fold[0] = acc;
+      fold[1] = gs;
+    }
+  }
+  __syncthreads();
+  for (int r = tid; r < N; r += 256) {
+    const long long at = ((long long)b * N + r) * C + h * d;
+    float D = 0.f, dv = 0.f;
+    for (int c = 0; c < d; ++c) {
+      const float dd = __bfloat162float(dout[at + c]);
+      D += __bfloat162float(o[at + c]) * dd;
+      if (POLICY) dv += dd * Cv[c];
+    }
+    float4 sr = st[srow + r];
+    if (gcls && r == 0) {
+      D += fold[0];
+      dv += fold[1];  // sum_j dP_0j gains sum_j gcls_j
+    }
+    if (POLICY) {
+      const float rd = 1.f / sr.y;
+      sr = make_float4(sr.x, rd, D, cc * rd * (dv - N * D) / sr.z);
+    } else {
+      sr = make_float4(sr.x, 0.f, D, 0.f);
+    }
+    st[srow + r] = sr;
+  }
+}
+
+// the bytes of attention_hd_bwd_kernel's shared memory at padded width DP:
+// Q, dO, K, V tiles, the P and dS stage, the rows' statistics, the key
+// block's policy and gcls, dPolicy's warp rows
+__host__ __device__ constexpr size_t hd_bwd_smem(int DP) {
+  return (size_t)(4 * HD_BLK * (DP + 8) + 2 * HD_BLK * (HD_BLK + 8)) * 2 + HD_BLK * 16 +
+         2 * HD_BLK * 4 + 4 * HD_BLK * 4;
+}
+
+// KV: a CTA per (key block blockIdx.x, sample-head blockIdx.y), dK and dV;
+// else a CTA per (query block, sample-head), dQ. st: the rows' statistics
+// of attention_hd_rows_kernel; dpol_part (B, H, N) or null (KV in policy
+// mode alone writes it).
+template <int DP, bool POLICY, bool KV>
+static __global__ void __launch_bounds__(HD_THREADS)
+    attention_hd_bwd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
+                            const bf16* __restrict__ dout, const float4* __restrict__ st,
+                            const float* __restrict__ pol, const float* __restrict__ gcls,
+                            bf16* __restrict__ dqkv, float* __restrict__ dpol_part, int N, int H,
+                            float scale, float eps) {
+  constexpr int P = DP + 8;
+  constexpr int SP = HD_BLK + 8;  // the stage's pitch: an odd number of 16-byte chunks
+  extern __shared__ __align__(16) unsigned char hb_smem[];
+  bf16* Qt = reinterpret_cast<bf16*>(hb_smem);
+  bf16* dOt = Qt + HD_BLK * P;
+  bf16* Kt = dOt + HD_BLK * P;
+  bf16* Vt = Kt + HD_BLK * P;
+  bf16* Pst = Vt + HD_BLK * P;  // [query][key]
+  bf16* dSst = Pst + HD_BLK * SP;
+  float4* Rs = reinterpret_cast<float4*>(dSst + HD_BLK * SP);
+  float* Ps = reinterpret_cast<float*>(Rs + HD_BLK);  // pol_j of the key block
+  float* Gs = Ps + HD_BLK;                             // gcls_j (query row 0's cotangent)
+  float* Dpw = Gs + HD_BLK;                            // dPolicy of the keys, a row a warp
+
+  const int C = H * d;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int w16 = warp * 16;
+  const bf16* base = qkv + (long long)b * q_bstride + h * d;
+  const bf16* dbase = dout + (long long)b * N * C + h * d;
+  const long long srow = (long long)bh * N;
+  const long long ld3 = 3LL * C;
+  const int nb = (N + HD_BLK - 1) / HD_BLK;
+  const float cc = POLICY ? eps / N : 0.f;
+
+  auto load_rows = [&](int q0) {  // Q, dO and the statistics of query rows q0 ..
+    hd_load_tile<DP>(Qt, base, q_ld, q0, N, d, tid, HD_THREADS);
+    hd_load_tile<DP>(dOt, dbase, C, q0, N, d, tid, HD_THREADS);
+    if (tid < HD_BLK)
+      Rs[tid] = q0 + tid < N ? st[srow + q0 + tid] : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto load_keys = [&](int k0) {  // K, V, the policy and gcls of keys k0 ..
+    hd_load_tile<DP>(Kt, base + C, q_ld, k0, N, d, tid, HD_THREADS);
+    hd_load_tile<DP>(Vt, base + 2 * C, q_ld, k0, N, d, tid, HD_THREADS);
+    if (tid < HD_BLK) {
+      const bool in = k0 + tid < N;
+      Ps[tid] = POLICY && in ? pol[(long long)b * N + k0 + tid] : 0.f;
+      Gs[tid] = gcls != nullptr && in ? gcls[srow + k0 + tid] : 0.f;
+    }
+  };
+  // p, ds: P and dS scale of the warp's 16 query rows (from q0) and keys
+  // k0 + k16 .. + 15, in the m16n8 layout; dpa[j][c]: in policy mode, the
+  // dPolicy terms of this thread's key 2t + c of the j-th 8 over its two rows
+  auto tile = [&](float (&p)[2][4], float (&ds)[2][4], float (&dpa)[2][2], int q0, int k0,
+                  int k16) {
+    hd_scores16<DP>(p, Qt, w16, Kt, k16, lane);    // S
+    hd_scores16<DP>(ds, dOt, w16, Vt, k16, lane);  // dP
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = k16 + 8 * j + 2 * t + (e & 1);
+        const int key = k0 + kl;
+        const int rl = w16 + g + 8 * (e >> 1);
+        const int q = q0 + rl;
+        const bool valid = key < N && q < N;
+        const float4 rs = Rs[rl];
+        float dpv = ds[j][e];
+        if (gcls != nullptr && q == 0) dpv += Gs[kl];
+        if (POLICY) {
+          const float v = p[j][e] * scale;
+          const float xe = valid ? __expf(v - rs.x) : 0.f;
+          const float a = Ps[kl];
+          const float ew = xe * (key == q ? a + (1.f - a) : a);
+          const float de = (dpv - rs.z) * rs.y;
+          if (key != q) dpa[j][e & 1] += de * xe;  // dPolicy: the diagonal left out
+          float dsv = de * ew;
+          if (valid && v == rs.x) dsv += rs.w;  // the max path, at a tie
+          p[j][e] = valid ? (ew + cc) * rs.y : 0.f;
+          ds[j][e] = dsv * scale;
+        } else {
+          const float pv = valid ? __expf(p[j][e] * scale - rs.x) : 0.f;
+          p[j][e] = pv;
+          ds[j][e] = pv * (dpv - rs.z) * scale;
+        }
+      }
+  };
+
+  if (KV) {
+    const int k0 = blockIdx.x * HD_BLK;
+    const bool want_dpol = POLICY && dpol_part != nullptr;
+    load_keys(k0);
+    float dk[DP / 8][4], dv[DP / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
+    float dpol_acc = 0.f;
+    for (int qb = 0; qb < nb; ++qb) {
+      const int q0 = qb * HD_BLK;
+      __syncthreads();  // the last query block's readers are done
+      load_rows(q0);
+      __syncthreads();
+      // the warp's query rows against the block's keys: P and dS into the
+      // stage, dPolicy into the warp's row
+      for (int k16 = 0; k16 < HD_BLK; k16 += 16) {
+        float p[2][4], ds[2][4], dpa[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+        tile(p, ds, dpa, q0, k0, k16);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = k16 + 8 * j + 2 * t;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = w16 + g + 8 * r;
+            *reinterpret_cast<uint32_t*>(Pst + row * SP + col) =
+                pack_bf16(p[j][2 * r], p[j][2 * r + 1]);
+            *reinterpret_cast<uint32_t*>(dSst + row * SP + col) =
+                pack_bf16(ds[j][2 * r], ds[j][2 * r + 1]);
+          }
+          if (want_dpol) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float v = dpa[j][c];
+              v += __shfl_xor_sync(0xffffffffu, v, 4);
+              v += __shfl_xor_sync(0xffffffffu, v, 8);
+              v += __shfl_xor_sync(0xffffffffu, v, 16);
+              if (g == 0) Dpw[warp * HD_BLK + col + c] = v;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      if (want_dpol && tid < HD_BLK)
+        dpol_acc +=
+            ((Dpw[tid] + Dpw[HD_BLK + tid]) + Dpw[2 * HD_BLK + tid]) + Dpw[3 * HD_BLK + tid];
+      // the warp's 16 keys: dV += P^T dO, dK += dS^T Q over the block's queries
+      for (int q16 = 0; q16 < HD_BLK && q0 + q16 < N; q16 += 16) {
+        uint32_t pa[4], da[4];
+        const int at = (q16 + (lane & 7) + (lane >> 4) * 8) * SP + w16 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4_trans(pa, Pst + at);
+        ldmatrix_x4_trans(da, dSst + at);
+        hd_mma_rows<DP>(dv, pa, dOt, q16, lane);
+        hd_mma_rows<DP>(dk, da, Qt, q16, lane);
+      }
+    }
+    bf16* drow = dqkv + (long long)b * N * ld3 + h * d;
+    hd_store<DP>(drow + C, ld3, k0 + w16 + g, N, d, dk, t);
+    hd_store<DP>(drow + 2 * C, ld3, k0 + w16 + g, N, d, dv, t);
+    if (want_dpol && tid < HD_BLK && k0 + tid < N) dpol_part[srow + k0 + tid] = dpol_acc;
+  } else {
+    const int q0 = blockIdx.x * HD_BLK;
+    load_rows(q0);
+    float dq[DP / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
+    for (int kb = 0; kb < nb; ++kb) {
+      const int k0 = kb * HD_BLK;
+      __syncthreads();  // the last key block's readers are done
+      load_keys(k0);
+      __syncthreads();
+      for (int k16 = 0; k16 < HD_BLK && k0 + k16 < N; k16 += 16) {
+        float p[2][4], ds[2][4], dpa[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+        tile(p, ds, dpa, q0, k0, k16);
+        const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                                pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+        hd_mma_rows<DP>(dq, da, Kt, k16, lane);  // dQ += dS K
+      }
+    }
+    hd_store<DP>(dqkv + (long long)b * N * ld3 + h * d, ld3, q0 + w16 + g, N, d, dq, t);
+  }
+}
+
+template <int DP>
+static cudaError_t launch_attention_hd_bwd_dp(const bf16* qkv, long long q_bstride, int q_ld,
+                                              int d, const bf16* o, const bf16* dout, float4* st,
+                                              const float* pol, const float* gcls, bf16* dqkv,
+                                              float* dpol_part, int B, int N, int H, float scale,
+                                              float eps, cudaStream_t stream) {
+  const bool policy = pol != nullptr;
+  const size_t smem = hd_bwd_smem(DP);
+  auto kv = policy ? attention_hd_bwd_kernel<DP, true, true>
+                   : attention_hd_bwd_kernel<DP, false, true>;
+  auto dq = policy ? attention_hd_bwd_kernel<DP, true, false>
+                   : attention_hd_bwd_kernel<DP, false, false>;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess)
+    return err;
+  auto rows = policy ? attention_hd_rows_kernel<true> : attention_hd_rows_kernel<false>;
+  rows<<<B * H, 256, 0, stream>>>(qkv, q_bstride, q_ld, d, o, dout, st, pol, gcls, N, H, scale,
+                                  eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 grid((N + HD_BLK - 1) / HD_BLK, B * H);
+  kv<<<grid, HD_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, d, dout, st, pol, gcls, dqkv,
+                                         dpol_part, N, H, scale, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dq<<<grid, HD_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, d, dout, st, pol, gcls, dqkv,
+                                         nullptr, N, H, scale, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ++attention_hd_launches[1];
+  return cudaSuccess;
+}
+
+// the d != 64 backward: st the forward's (B, H, N) float4 statistics, which
+// it rewrites; dpol_part (B, H, N) or null
+static cudaError_t launch_attention_hd_bwd(const bf16* qkv, long long q_bstride, int q_ld, int d,
+                                           const bf16* o, const bf16* dout, float4* st,
+                                           const float* pol, const float* gcls, bf16* dqkv,
+                                           float* dpol_part, int B, int N, int H, float scale,
+                                           float eps, cudaStream_t stream) {
+#define D2S_HD_BWD(DP)                                                                      \
+  case DP:                                                                                  \
+    return launch_attention_hd_bwd_dp<DP>(qkv, q_bstride, q_ld, d, o, dout, st, pol, gcls, \
+                                          dqkv, dpol_part, B, N, H, scale, eps, stream);
+  switch (hd_pad(d)) {
+    D2S_HD_BWD(16)
+    D2S_HD_BWD(32)
+    D2S_HD_BWD(48)
+    D2S_HD_BWD(64)
+    D2S_HD_BWD(80)
+    D2S_HD_BWD(96)
+    D2S_HD_BWD(112)
+    D2S_HD_BWD(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef D2S_HD_BWD
 }
 
 // dpol_part: dpol_part_floats(...) floats, or null (no dPolicy); kv_part:
 // kv_part_floats(...) floats (null where that is 0). A split sample-head's
 // dK and dV are added by reduce_kv_kernel right after.
+// At head width d != 64 the backward is attention_hd_bwd_kernel's
+// (launch_attention_hd_bwd: lse the forward's float4 statistics, rewritten;
+// no kv_part).
 static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, int q_ld,
-                                        const bf16* o, const bf16* dout, const float* lse,
+                                        const bf16* o, const bf16* dout, float* lse,
                                         const float* pol, const float* gcls, bf16* dqkv,
                                         float* dpol_part, float* kv_part, int B, int N, int H,
-                                        float scale, float eps, cudaStream_t stream) {
+                                        int d, float scale, float eps, cudaStream_t stream) {
   const bool policy = pol != nullptr;
-  if (B <= 0 || N <= 0 || N > AB_MAX_N || q_ld < 3 * H * AB_HD || q_ld % 8 || q_bstride % 8 ||
-      (kv_part == nullptr) != (kv_part_floats(B, N, H, policy) == 0))
+  if (B <= 0 || N <= 0 || N > AB_MAX_N || q_ld < 3 * H * d || q_ld % 8 || q_bstride % 8 ||
+      (kv_part == nullptr) != (kv_part_floats(B, N, H, d, policy) == 0))
     return cudaErrorInvalidValue;
+  if (d != AB_HD) {
+    if (!hd_width_ok(d)) return cudaErrorInvalidValue;
+    return launch_attention_hd_bwd(qkv, q_bstride, q_ld, d, o, dout, reinterpret_cast<float4*>(lse),
+                                   pol, gcls, dqkv, dpol_part, B, N, H, scale, eps, stream);
+  }
   AbLayout l;
   cudaError_t err = ab_plan(N, policy, gcls != nullptr, &l);
   if (err != cudaSuccess) return err;
@@ -1099,10 +1489,11 @@ static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, in
   return cudaGetLastError();
 }
 
-static cudaError_t launch_sum_heads(const float* part, float* out, int B, int H, int N,
-                                   bool policy, cudaStream_t stream) {
+// dPolicy from its (splits, B, H, N) partials at head width d
+static cudaError_t launch_sum_heads(const float* part, float* out, int B, int H, int N, int d,
+                                   cudaStream_t stream) {
   sum_heads_kernel<<<(B * N + 255) / 256, 256, 0, stream>>>(part, out, B, H, N,
-                                                            ab_splits(N, policy));
+                                                            dpol_splits(N, d));
   return cudaGetLastError();
 }
 
@@ -1129,10 +1520,11 @@ static size_t carve_attn(char* base, int B, int N, int C, int H, bool policy, At
   s->ln1o = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
-  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy ? 4 : 1)));
-  s->dpol_part = reinterpret_cast<float*>(take(dpol_part_floats(B, N, H, policy) * e4));
-  s->kv_part = reinterpret_cast<float*>(take(kv_part_floats(B, N, H, policy) * e4));
-  if (kv_part_floats(B, N, H, policy) == 0) s->kv_part = nullptr;
+  const int d = C / H;
+  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy || d != AB_HD ? 4 : 1)));
+  s->dpol_part = reinterpret_cast<float*>(take(dpol_part_floats(B, N, H, d, policy) * e4));
+  s->kv_part = reinterpret_cast<float*>(take(kv_part_floats(B, N, H, d, policy) * e4));
+  if (kv_part_floats(B, N, H, d, policy) == 0) s->kv_part = nullptr;
   s->dln = reinterpret_cast<float*>(take(M * C * e4));
   s->stats = reinterpret_cast<float2*>(take(M * sizeof(float2)));
   s->st1 = reinterpret_cast<float2*>(take(M * sizeof(float2)));
@@ -1144,8 +1536,8 @@ static size_t carve_attn(char* base, int B, int N, int C, int H, bool policy, At
 }
 
 static bool attn_shapes_ok(int B, int N, int C, int H) {
-  return B > 0 && N > 0 && N <= AB_MAX_N && H > 0 &&
-         C == H * AB_HD && ln_bwd_takes(C) && (long long)B * N <= (1LL << 31) - 1;
+  return B > 0 && N > 0 && N <= AB_MAX_N && head_width_ok(C, H) && ln_bwd_takes(C) &&
+         (long long)B * N <= (1LL << 31) - 1;
 }
 
 // ---- scratch ----------------------------------------------------------------
@@ -1180,10 +1572,11 @@ static size_t carve(char* base, int B, int N, int C, int H, int hidden, bool pol
   s->dmid_b = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
-  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy ? 4 : 1)));
-  s->dpol_part = reinterpret_cast<float*>(take(dpol_part_floats(B, N, H, policy) * e4));
-  s->kv_part = reinterpret_cast<float*>(take(kv_part_floats(B, N, H, policy) * e4));
-  if (kv_part_floats(B, N, H, policy) == 0) s->kv_part = nullptr;
+  const int d = C / H;
+  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy || d != AB_HD ? 4 : 1)));
+  s->dpol_part = reinterpret_cast<float*>(take(dpol_part_floats(B, N, H, d, policy) * e4));
+  s->kv_part = reinterpret_cast<float*>(take(kv_part_floats(B, N, H, d, policy) * e4));
+  if (kv_part_floats(B, N, H, d, policy) == 0) s->kv_part = nullptr;
   s->dln = reinterpret_cast<float*>(take(M * C * e4));
   s->dmid_f = reinterpret_cast<float*>(take(M * C * e4));
   s->stats = reinterpret_cast<float2*>(take(M * sizeof(float2)));
@@ -1278,8 +1671,7 @@ static bool mlp_shapes_ok(int M, int C, int hidden) {
 }
 
 static bool shapes_ok(int B, int N, int C, int H, int hidden) {
-  return B > 0 && N > 0 && N <= AB_MAX_N && H > 0 &&
-         C == H * AB_HD && ln_bwd_takes(C) &&
+  return B > 0 && N > 0 && N <= AB_MAX_N && head_width_ok(C, H) && ln_bwd_takes(C) &&
          hidden > 0 && hidden % 8 == 0 && (long long)B * N <= (1LL << 31) - 1;
 }
 
@@ -1304,7 +1696,8 @@ extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H
 // plain mode); eps: the policy softmax's smoothing. sa, sm: (B) fp32
 // DropPath scales of the attention and the MLP branch, each or both null
 // (no scale); they get no gradient. scratch:
-// d2s_block_backward_scratch_bytes(...) bytes. Requires C == 64 * H <= 768,
+// d2s_block_backward_scratch_bytes(...) bytes. Requires C == d * H <= 768 with
+// an even head width d up to 128,
 // hidden % 8 == 0, N <= 800, 16-byte aligned pointers.
 extern "C" int d2s_block_backward(
     const void* x, const void* g, void* dx, const void* ln1_w, const void* ln1_b,
@@ -1373,9 +1766,9 @@ extern "C" int d2s_block_backward(
   // 4. attention core
   if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.dattn, s.lse,
                                   f(policy), nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr,
-                                  s.kv_part, B, N, H, scale, eps, st)) != cudaSuccess)
+                                  s.kv_part, B, N, H, C / H, scale, eps, st)) != cudaSuccess)
     return (int)err;
-  if (d_policy && (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, true, st)) !=
+  if (d_policy && (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, C / H, st)) !=
                       cudaSuccess)
     return (int)err;
 
@@ -1401,43 +1794,47 @@ extern "C" int d2s_block_backward(
 // dpol_part dPolicy's partials (d2s_attention_bwd_part_floats(..., 1)
 // floats, fp32; null without d_policy) and kv_part the partial dK and dV of
 // a split sample-head (d2s_attention_bwd_part_floats(..., 0) floats; null
-// where that is 0). Requires C == 64 * H, N <= 800, q_ld and q_bstride
-// multiples of 8, 16-byte aligned pointers.
+// where that is 0). stats_buf is (B, H, N, 4) fp32 at a head width other
+// than 64. Requires C == d * H (d even, at most 128), N <= 800, q_ld and
+// q_bstride multiples of 8, 16-byte aligned pointers.
 extern "C" int d2s_attention_packed_backward(const void* qkv, long long q_bstride, int q_ld,
                                              const void* g, const void* gcls,
                                              const void* policy, void* dqkv, void* d_policy,
                                              void* o_buf, void* stats_buf, void* dpol_part,
-                                             void* kv_part, int B, int N, int H, float scale,
-                                             float eps, void* stream) {
+                                             void* kv_part, int B, int N, int H, int C,
+                                             float scale, float eps, void* stream) {
   using namespace d2s;
-  if (B <= 0 || (d_policy != nullptr && (policy == nullptr || dpol_part == nullptr)))
+  if (B <= 0 || !head_width_ok(C, H) ||
+      (d_policy != nullptr && (policy == nullptr || dpol_part == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const int d = C / H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* q = static_cast<const bf16*>(qkv);
   const float* pol = static_cast<const float*>(policy);
   cudaError_t err = launch_attention_strided(q, q_bstride, q_ld, static_cast<bf16*>(o_buf),
                                              static_cast<float*>(stats_buf), nullptr, pol, B, N,
-                                             H, scale, eps, st);
+                                             H, d, scale, eps, st);
   if (err != cudaSuccess) return (int)err;
   err = launch_attention_bwd(q, q_bstride, q_ld, static_cast<const bf16*>(o_buf),
-                             static_cast<const bf16*>(g), static_cast<const float*>(stats_buf),
+                             static_cast<const bf16*>(g), static_cast<float*>(stats_buf),
                              pol, static_cast<const float*>(gcls), static_cast<bf16*>(dqkv),
                              d_policy ? static_cast<float*>(dpol_part) : nullptr,
-                             static_cast<float*>(kv_part), B, N, H, scale, eps, st);
+                             static_cast<float*>(kv_part), B, N, H, d, scale, eps, st);
   if (err != cudaSuccess || d_policy == nullptr) return (int)err;
   return (int)launch_sum_heads(static_cast<const float*>(dpol_part),
-                               static_cast<float*>(d_policy), B, H, N, true, st);
+                               static_cast<float*>(d_policy), B, H, N, d, st);
 }
 
 // The fp32 floats of d2s_attention_packed_backward's partials at these
-// shapes: dPolicy's (which = 1; policy: 1 in policy mode) or a split
-// sample-head's dK and dV (which = 0; 0 where one CTA holds a sample-head);
-// -1 for N the kernel does not take.
-extern "C" long long d2s_attention_bwd_part_floats(int which, int B, int N, int H,
+// shapes (C = H d): dPolicy's (which = 1; policy: 1 in policy mode) or a
+// split sample-head's dK and dV (which = 0; 0 where one CTA holds a
+// sample-head, and at every head width but 64); -1 for shapes the kernels
+// do not take.
+extern "C" long long d2s_attention_bwd_part_floats(int which, int B, int N, int H, int C,
                                                    int policy) {
-  if (B <= 0 || N <= 0 || N > d2s::AB_MAX_N || H <= 0) return -1;
-  return which ? d2s::dpol_part_floats(B, N, H, policy != 0)
-               : d2s::kv_part_floats(B, N, H, policy != 0);
+  if (B <= 0 || N <= 0 || N > d2s::AB_MAX_N || !d2s::head_width_ok(C, H)) return -1;
+  return which ? d2s::dpol_part_floats(B, N, H, C / H, policy != 0)
+               : d2s::kv_part_floats(B, N, H, C / H, policy != 0);
 }
 
 // The launches of attention_bwd_kernel (which = 0) and of those on its
@@ -1482,8 +1879,8 @@ extern "C" long long d2s_attention_block_backward_scratch_bytes(int B, int N, in
 // needed); the six gradients fp32 in the weights' shapes (d_bqkv null when
 // bqkv is). policy: (B, N) fp32 keep policy or null; d_policy: its (B, N)
 // fp32 gradient or null. scratch: d2s_attention_block_backward_scratch_bytes
-// bytes. Requires C == 64 * H <= 768, N <= 800, 16-byte
-// aligned pointers.
+// bytes. Requires C == d * H <= 768 (d even, at most 128), N <= 800,
+// 16-byte aligned pointers.
 extern "C" int d2s_attention_block_backward(
     const void* x, const void* g, void* dx, const void* ln_w, const void* ln_b,
     const void* wqkv, const void* bqkv, const void* wproj, void* d_ln_w, void* d_ln_b,
@@ -1511,7 +1908,7 @@ extern "C" int d2s_attention_block_backward(
                               ln_eps, st);
   if (err != cudaSuccess) return (int)err;
   if ((err = launch_attention_strided(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.lse, nullptr,
-                                      pol, B, N, H, scale, eps, st)) != cudaSuccess)
+                                      pol, B, N, H, C / H, scale, eps, st)) != cudaSuccess)
     return (int)err;
   if ((err = launch_ln_apply(xb, f(ln_w), f(ln_b), s.ln1o, s.st1, M, C, ln_eps, st)) !=
       cudaSuccess)
@@ -1527,9 +1924,9 @@ extern "C" int d2s_attention_block_backward(
   // the attention core
   if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.dattn, s.lse,
                                   pol, nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr,
-                                  s.kv_part, B, N, H, scale, eps, st)) != cudaSuccess)
+                                  s.kv_part, B, N, H, C / H, scale, eps, st)) != cudaSuccess)
     return (int)err;
-  if (d_policy && (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, true, st)) !=
+  if (d_policy && (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, C / H, st)) !=
                       cudaSuccess)
     return (int)err;
 

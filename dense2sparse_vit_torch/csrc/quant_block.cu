@@ -63,7 +63,7 @@ namespace d2s {
 
 // block.cu's attention core (plain mode: pol, lse and cls null)
 cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
-                             const float* pol, int B, int N, int H, float scale, float eps,
+                             const float* pol, int B, int N, int H, int d, float scale, float eps,
                              cudaStream_t stream);
 
 constexpr float QMAX = 127.f;
@@ -195,7 +195,8 @@ using d2s::bf16;
 // one buffer: each is read by the next kernel only). Weights: the matrices'
 // int8 codes in the torch Linear layout (out, in) with fp32 scales per
 // output channel; LayerNorm parameters and biases fp32; bqkv may be null.
-// Requires C == 64 * H, C % 16 == 0, hidden % 16 == 0, C and hidden <= 4096,
+// Requires C == d * H (d even, at most 128: block.cu's cores), C % 16 == 0,
+// hidden % 16 == 0, C and hidden <= 4096,
 // N <= 800, 16-byte aligned pointers.
 extern "C" int d2s_block_int8_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* act_buf,
@@ -205,7 +206,8 @@ extern "C" int d2s_block_int8_forward(
     const void* ln2_b, const void* w1_q, const void* s1, const void* b1, const void* w2_q,
     const void* s2, const void* b2, int B, int N, int C, int H, int hidden, float scale,
     float ln_eps, void* stream) {
-  if (C != H * 64 || C % 16 != 0 || hidden % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || C % H != 0 || (C / H) % 2 != 0 || C / H > 128 || C % 16 != 0 || hidden % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -233,7 +235,8 @@ extern "C" int d2s_block_int8_forward(
   q.K = C;
   if ((err = d2s::launch_qgemm(q, s)) != cudaSuccess) return (int)err;
 
-  err = d2s::launch_attention(qkv, attn, nullptr, nullptr, nullptr, B, N, H, scale, 0.f, s);
+  err = d2s::launch_attention(qkv, attn, nullptr, nullptr, nullptr, B, N, H, C / H, scale, 0.f,
+                              s);
   if (err != cudaSuccess) return (int)err;
 
   err = d2s::launch_rowq(static_cast<const bf16*>(attn), M, C, nullptr, nullptr, 0.f, codes(aq2),

@@ -1,13 +1,11 @@
 """Model registry (port of `dense2sparse_vit_tpu/models/registry.py`): the
 students and teachers, the DeiT, ViT and DINO backbones, the hierarchical
-and ensemble DeiT, the T2T-ViT family and the aliases of the reference's
-factory names whose targets are ported.
-
-Not ported: `vit_small_patch16_224` (the timm v0.1 ViT-S, 8 heads of 96:
-no port kernel takes a head width other than 64), `t2t_vit_14_resnext` (32
-heads of 12), `t2t_vit_14_wide`, the T2T SE, Ghost and Dense variants, TNT
-and `drop_resnet50`; they wait for the head-width slice and the model zoo's
-last part (ROADMAP.md)."""
+and ensemble DeiT, the T2T-ViT family with its SE, Ghost and Dense
+variants, TNT, the Drop-ResNet-50 and the aliases of the reference's
+factory names: every name and alias of the JAX registry. Two of them reach
+the block kernels at a head width other than 64 with
+`use_fused_attention=True`: `vit_small_patch16_224` (the timm v0.1 ViT-S,
+8 heads of 96) and `t2t_vit_14_resnext` (32 heads of 12)."""
 
 from __future__ import annotations
 
@@ -178,15 +176,61 @@ def _t2t_student(embed_dim, depth, num_heads, mlp_ratio, tokens_type="performer"
     return factory
 
 
-# the T2T-ViT family whose heads are 64 wide, which the block kernels take
-# (JAX `registry.py:250-265`)
+# the T2T-ViT family (JAX `registry.py:250-271`); resnext's heads are 12
+# wide, the others' 64
 for _name, _shape in (("7", (256, 7, 4, 2.0)), ("10", (256, 10, 4, 2.0)),
                       ("12", (256, 12, 4, 2.0)), ("14", (384, 14, 6, 3.0)),
-                      ("19", (448, 19, 7, 3.0)), ("24", (512, 24, 8, 3.0))):
+                      ("19", (448, 19, 7, 3.0)), ("24", (512, 24, 8, 3.0)),
+                      ("14_resnext", (384, 14, 32, 3.0)), ("14_wide", (768, 4, 12, 3.0))):
     _REGISTRY[f"t2t_vit_{_name}"] = _t2t(*_shape)
 for _name, _shape in (("14", (384, 14, 6, 3.0)), ("19", (448, 19, 7, 3.0)),
                       ("24", (512, 24, 8, 3.0))):
     _REGISTRY[f"t2t_vit_t_{_name}"] = _t2t(*_shape, tokens_type="transformer")
+
+
+def _t2t_variant(cls_name, embed_dim, depth, num_heads, mlp_ratio):
+    """A T2T variant's factory (JAX `_t2t` with the SE, Ghost and Dense
+    classes): keyword arguments that are the class's own fields (its
+    FIELDS) go to the class, the rest to the ModelConfig."""
+    def factory(**kwargs):
+        from dense2sparse_vit_torch.models import t2t
+
+        cls = getattr(t2t, cls_name)
+        fields = {k: kwargs.pop(k) for k in list(kwargs) if k in cls.FIELDS}
+        return cls(_t2t_config(embed_dim, depth, num_heads, mlp_ratio, **kwargs), **fields)
+
+    return factory
+
+
+_REGISTRY["t2t_vit_14_se"] = _t2t_variant("T2TViTSE", 384, 14, 6, 3.0)
+_REGISTRY["t2t_vit_16_ghost"] = _t2t_variant("T2TViTGhost", 384, 16, 6, 3.0)
+_REGISTRY["t2t_vit_dense"] = _t2t_variant("T2TViTDense", 128, 12, 4, 2.0)
+
+
+def _tnt(embed_dim, depth, num_heads, in_dim, in_num_head):
+    """A TNT factory (JAX `registry.py:274-289`)."""
+    def factory(**kwargs):
+        from dense2sparse_vit_torch.models.tnt import TNT
+
+        fields = {k: kwargs.pop(k) for k in list(kwargs) if k in TNT.FIELDS}
+        cfg = ModelConfig(embed_dim=embed_dim, depth=depth, num_heads=num_heads,
+                          qkv_bias=False, layer_norm_eps=1e-5, **kwargs)
+        return TNT(cfg, **{"in_dim": in_dim, "in_num_head": in_num_head, **fields})
+
+    return factory
+
+
+_REGISTRY["tnt_s_patch16_224"] = _tnt(384, 12, 6, 24, 4)
+_REGISTRY["tnt_b_patch16_224"] = _tnt(640, 12, 10, 40, 4)
+
+
+def _drop_resnet(**kwargs):
+    from dense2sparse_vit_torch.models.resnet import drop_resnet50
+
+    return drop_resnet50(**kwargs)
+
+
+_REGISTRY["drop_resnet50"] = _drop_resnet
 _REGISTRY["t2t_vit_14_student"] = _t2t_student(384, 14, 6, 3.0)
 _REGISTRY["t2t_vit_t_14_student"] = _t2t_student(384, 14, 6, 3.0, tokens_type="transformer")
 
@@ -247,11 +291,13 @@ for _size, _cfg in (("tiny", deit_tiny()), ("small", deit_small()), ("base", dei
 for _size, _cfg in (("tiny", deit_tiny()), ("small", deit_small())):
     _REGISTRY[f"{_size}_patch16_224_ensemble"] = _family("deit_heads", "EnsembleDeiT", _cfg)
 
-# the timm-style ViTs with per-layer logits (JAX `registry.py:342-375`), all
-# with 64-wide heads; vit_small_patch16_224 (8 heads of 96) is not ported
+# the timm-style ViTs with per-layer logits (JAX `registry.py:336-375`);
+# the timm v0.1 vit_small is 768 wide, depth 8, 8 heads of 96, MLP ratio 3
 _VIT_B = dict(embed_dim=768, depth=12, num_heads=12)
 _VIT_L = dict(embed_dim=1024, depth=24, num_heads=16)
 for _name, _cfg in (
+        ("vit_small_patch16_224", ModelConfig(embed_dim=768, depth=8, num_heads=8,
+                                              mlp_ratio=3.0)),
         ("vit_base_patch16_224", ModelConfig(**_VIT_B)),
         ("vit_base_patch16_384", ModelConfig(**_VIT_B, img_size=384)),
         ("vit_base_patch32_384", ModelConfig(**_VIT_B, img_size=384, patch_size=32)),
@@ -260,10 +306,10 @@ for _name, _cfg in (
         ("vit_large_patch32_384", ModelConfig(**_VIT_L, img_size=384, patch_size=32))):
     _REGISTRY[_name] = _family("deit", "VanillaDeiT", _cfg)
 
-# the reference's factory names whose targets are ported (JAX
-# `registry.py:380-394`)
-for _n in ("7", "10", "12", "14", "19", "24"):
+# the reference's factory names (JAX `registry.py:380-394`)
+for _n in ("7", "10", "12", "14", "19", "24", "14_resnext", "14_wide"):
     register_alias(f"T2t_vit_{_n}", f"t2t_vit_{_n}")
+register_alias("T2t_vit_16_ghost", "t2t_vit_16_ghost")
 for _n in ("14", "19", "24"):
     register_alias(f"T2t_vit_t_{_n}", f"t2t_vit_t_{_n}")
 for _size in ("tiny", "small", "base"):

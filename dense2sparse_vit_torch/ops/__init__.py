@@ -8,7 +8,10 @@ launches apart, in `policy_launches`, and those with DropPath branch scales
 in `scaled_launches`. The LayerNorm backward, the column sums and the
 attention core's backward, which the backward entries launch from inside
 their C code, are counted by the kernels' library where it launches them
-(`ops.norm.LN_BWD`, `ops.norm.COLUMN_SUMS`, `ops.attention.ATTENTION_BWD`).
+(`ops.norm.LN_BWD`, `ops.norm.COLUMN_SUMS`, `ops.attention.ATTENTION_BWD`), and
+so is the attention core at head widths other than 64, which they launch in
+place of the width-64 cores (`ops.attention.ATTENTION_HD`, its forward, and
+`ATTENTION_HD_BWD`, its backward).
 `COUNTERS` lists every count by its name (the attention half-block's by
 what they compute: its forward, its backward in plain and in policy mode,
 and the variants' forward). Importing this package registers the custom ops
@@ -17,6 +20,8 @@ and the variants' forward). Importing this package registers the custom ops
 
 from dense2sparse_vit_torch.ops.attention import (
     ATTENTION_BWD,
+    ATTENTION_HD,
+    ATTENTION_HD_BWD,
     fused_attention_backward_packed,
     fused_attention_block,
     fused_attention_block_backward,
@@ -70,10 +75,12 @@ COUNTERS = (
     ("ln_bwd", LN_BWD, "launches"),
     ("column_sums", COLUMN_SUMS, "launches"),
     ("attention_bwd", ATTENTION_BWD, "launches"),
+    ("attention_hd", ATTENTION_HD, "launches"),
+    ("attention_hd_bwd", ATTENTION_HD_BWD, "launches"),
 )
 KERNEL_NAMES = tuple(name for name, _, _ in COUNTERS)
 # the kernels that the backward entries launch from inside their C code
-INNER_KERNELS = ("ln_bwd", "column_sums", "attention_bwd")
+INNER_KERNELS = ("ln_bwd", "column_sums", "attention_bwd", "attention_hd", "attention_hd_bwd")
 
 
 def reset_launch_counts() -> None:

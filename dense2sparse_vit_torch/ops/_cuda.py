@@ -38,9 +38,9 @@ _SIGNATURES = {
     "d2s_block_backward": [_P] * 32 + [_I] * 5 + [_F] * 3 + [_P],
     "d2s_block_backward_scratch_bytes": [_I] * 6,
     "d2s_block_int8_forward": [_P] * 30 + [_I] * 5 + [_F] * 2 + [_P],
-    "d2s_attention_packed_forward": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _F, _F, _P],
-    "d2s_attention_packed_backward": [_P, _L, _I] + [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P],
-    "d2s_attention_bwd_part_floats": [_I] * 5,
+    "d2s_attention_packed_forward": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "d2s_attention_packed_backward": [_P, _L, _I] + [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
+    "d2s_attention_bwd_part_floats": [_I] * 6,
     "d2s_mlp_residual_forward": [_P] * 10 + [_I] * 3 + [_F, _P],
     "d2s_mlp_residual_backward": [_P] * 15 + [_I] * 3 + [_F, _P],
     "d2s_mlp_residual_backward_scratch_bytes": [_I] * 3,
@@ -60,6 +60,7 @@ _SIGNATURES = {
     "d2s_column_sums_workspace_bytes": [_I] * 3,
     "d2s_norm_launches": [_I, _L],
     "d2s_attention_bwd_launches": [_I, _L],
+    "d2s_attention_hd_launches": [_I, _L],
     "d2s_predictor_forward": (
         [_P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P] + [_P] * 4 + [_P] * 4 + [_I, _F, _P]
     ),
@@ -71,6 +72,7 @@ _RESTYPES = {"d2s_block_backward_scratch_bytes": _L, "d2s_wgrad_workspace_bytes"
              "d2s_attention_block_backward_scratch_bytes": _L,
              "d2s_ln_backward_workspace_bytes": _L, "d2s_column_sums_workspace_bytes": _L,
              "d2s_norm_launches": _L, "d2s_attention_bwd_launches": _L,
+             "d2s_attention_hd_launches": _L,
              "d2s_predictor_scratch_bytes": _L, "d2s_attention_bwd_part_floats": _L}
 
 _lock = threading.Lock()

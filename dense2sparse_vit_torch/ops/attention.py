@@ -20,8 +20,10 @@ d2s_attention_packed_forward and `csrc/block_bwd.cu`'s
 d2s_attention_packed_backward, which recomputes the forward from qkv (as the
 TPU kernel recomputes P), so the Function keeps only qkv and the policy
 between the two. For CPU tensors they run `attention_reference` and autograd
-through it, the plain versions. The kernels take head_dim 64 and N <= 800
-both ways.
+through it, the plain versions. The kernels take every even head width up
+to 128 (`ops.block.head_width`: 64 on the wgmma cores, the others on
+csrc/attention_hd.cuh's path, whose launches count in `ATTENTION_HD` and
+`ATTENTION_HD_BWD`) and N <= 800 both ways.
 
 The attention half-block, x + proj(MHA(qkv(LN1 x))), the port of
 `fused_attention_block` and its backward kernels in the same JAX module:
@@ -59,6 +61,7 @@ from dense2sparse_vit_torch.ops.block import (
     MAX_TOKENS,
     _policy_arg,
     attention_reference,
+    head_width,
     layer_norm,
     linear,
 )
@@ -92,15 +95,15 @@ def attention_backward_reference(qkv, g, num_heads, scale, *, policy=None, gcls=
 def _qkv_arg(qkv, num_heads, max_tokens, what):
     """Checks for the kernels; returns (B, N, C, sample stride, row stride)
     of qkv, which may be a strided view with contiguous channels."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    if C3 % 3:
+        raise ValueError(f"{what}: qkv's last dimension {C3} is no multiple of 3")
+    head_width(C, num_heads, what)
     if qkv.device.type != "cuda":
         raise ValueError(f"{what}: qkv is on {qkv.device}: need a CUDA or CPU tensor")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"{what}: qkv has dtype {qkv.dtype}, the kernel takes bfloat16")
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    if C3 != 3 * HEAD_DIM * num_heads:
-        raise ValueError(f"{what}: the kernel takes head_dim {HEAD_DIM}, got {C3} / (3 * "
-                         f"{num_heads})")
     if N > max_tokens:
         raise ValueError(f"{what}: the kernel takes at most {max_tokens} tokens, got {N}")
     sb, sn, sc = qkv.stride()
@@ -138,17 +141,17 @@ def fused_attention_packed(qkv: torch.Tensor, num_heads: int, policy: torch.Tens
     cls = torch.empty((B, num_heads, N), dtype=qkv.dtype, device=dev) if return_cls else None
     err = _cuda.library().d2s_attention_packed_forward(
         qkv.data_ptr(), sb, sn, out.data_ptr(), 0 if cls is None else cls.data_ptr(),
-        _cuda.ptr(pol, "policy", dev, torch.float32, (B, N)), B, N, num_heads, float(scale),
+        _cuda.ptr(pol, "policy", dev, torch.float32, (B, N)), B, N, num_heads, C, float(scale),
         float(eps), _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_attention_packed_forward")
     fused_attention_packed.launches += 1
     return (out, cls) if return_cls else out
 
 
-def _part(lib, which, B, N, num_heads, policy, dev):
+def _part(lib, which, B, N, C, num_heads, policy, dev):
     """The fp32 partials d2s_attention_packed_backward takes (which: 1
     dPolicy's, 0 a split sample-head's dK and dV), None where it needs none."""
-    n = lib.d2s_attention_bwd_part_floats(which, B, N, num_heads, int(policy))
+    n = lib.d2s_attention_bwd_part_floats(which, B, N, num_heads, C, int(policy))
     return torch.empty((n,), dtype=torch.float32, device=dev) if n > 0 else None
 
 
@@ -177,19 +180,21 @@ def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_head
     want_dpol = pol is not None and policy_grad
     dqkv = torch.empty((B, N, 3 * C), dtype=qkv.dtype, device=dev)
     o = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
-    stats = torch.empty((B, num_heads, N, 1 if pol is None else 4), dtype=f32, device=dev)
+    # the forward's row statistics: fp32 (plain mode at width 64), else float4
+    four = pol is not None or C != HEAD_DIM * num_heads
+    stats = torch.empty((B, num_heads, N, 4 if four else 1), dtype=f32, device=dev)
     dpol = torch.empty((B, N), dtype=f32, device=dev) if want_dpol else None
     lib = _cuda.library()
     # dPolicy's partials, and the dK and dV partials of a sample-head split
     # over CTAs (N past 384, policy mode 352)
-    part = _part(lib, 1, B, N, num_heads, pol is not None, dev) if want_dpol else None
-    kv_part = _part(lib, 0, B, N, num_heads, pol is not None, dev)
+    part = _part(lib, 1, B, N, C, num_heads, pol is not None, dev) if want_dpol else None
+    kv_part = _part(lib, 0, B, N, C, num_heads, pol is not None, dev)
     err = lib.d2s_attention_packed_backward(
         qkv.data_ptr(), sb, sn, g_ptr, _cuda.ptr(gc, "gcls", dev, f32, (B, num_heads, N)),
         _cuda.ptr(pol, "policy", dev, f32, (B, N)), dqkv.data_ptr(),
         0 if dpol is None else dpol.data_ptr(), o.data_ptr(), stats.data_ptr(),
         0 if part is None else part.data_ptr(), 0 if kv_part is None else kv_part.data_ptr(),
-        B, N, num_heads, float(scale), float(eps), _cuda.stream_handle(dev))
+        B, N, num_heads, C, float(scale), float(eps), _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_attention_packed_backward")
     fused_attention_backward_packed.launches += 1
     return dqkv if policy is None else (dqkv, dpol)
@@ -202,6 +207,13 @@ ATTENTION_BWD = LaunchCount(0, "d2s_attention_bwd_launches")
 # and those of them on its long path (N past 384, policy mode 352: a
 # sample-head split over CTAs), a part of ATTENTION_BWD's count
 ATTENTION_BWD_LONG = LaunchCount(1, "d2s_attention_bwd_launches")
+# The attention core at head widths other than 64 (csrc/attention_hd.cuh),
+# launched inside every entry with attention in place of the width-64 cores:
+# its forward (block.cu's attention_hd_kernel, also in each backward's
+# recompute) and its backward (block_bwd.cu's attention_hd_bwd_kernel pair
+# with its row statistics, counted once a backward)
+ATTENTION_HD = LaunchCount(0, "d2s_attention_hd_launches")
+ATTENTION_HD_BWD = LaunchCount(1, "d2s_attention_hd_launches")
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -332,11 +344,10 @@ def _half_block_ptrs(x, weights, num_heads, max_tokens, what):
     """Checks for the half-block kernels; returns (B, N, C, x's pointer, the
     pointers of `weights` (a dict over ATTN_BLOCK_KEYS) in that order, their
     dtypes and shapes)."""
+    B, N, C = x.shape
+    head_width(C, num_heads, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
-    B, N, C = x.shape
-    if C != HEAD_DIM * num_heads:
-        raise ValueError(f"{what}: the kernel takes head_dim {HEAD_DIM}, got {C}/{num_heads}")
     if N > max_tokens:
         raise ValueError(f"{what}: the kernel takes at most {max_tokens} tokens, got {N}")
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
@@ -569,6 +580,9 @@ def fused_attention_variant(variant: int, x: torch.Tensor, ln_w: torch.Tensor,
         return attention_variant_reference(variant, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                                            num_heads, scale=scale, ln_eps=ln_eps, stages=stages)
     what = "fused_attention_variant"
+    if x.shape[2] != HEAD_DIM * num_heads:
+        raise ValueError(f"{what}: the variants take heads of {HEAD_DIM}, got "
+                         f"{x.shape[2]}/{num_heads}")
     _refuse_autograd((x, ln_w, ln_b, wqkv, bqkv, wproj, bproj), what)
     weights = dict(zip(ATTN_BLOCK_KEYS, (ln_w, ln_b, wqkv, bqkv, wproj, bproj)))
     B, N, C, x_ptr, ptrs, _ = _half_block_ptrs(x, weights, num_heads, MAX_TOKENS, what)

@@ -60,7 +60,12 @@ BLOCK_WEIGHT_KEYS = (
     "ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj",
     "ln2_w", "ln2_b", "w1", "b1", "w2", "b2",
 )
-HEAD_DIM = 64  # the kernels' head width
+# The head widths the kernels take: every even d = C / num_heads up to
+# MAX_HEAD_DIM. d = HEAD_DIM runs the wgmma cores of csrc/block.cu and
+# csrc/block_bwd.cu; every other width the mma.sync path of
+# csrc/attention_hd.cuh, chosen by the C code from d.
+HEAD_DIM = 64
+MAX_HEAD_DIM = 128
 # the forward keeps a sample-head's K and V in shared memory; the backward
 # splits a sample-head longer than 384 tokens (policy mode 352) over 2-3 CTAs
 MAX_TOKENS = 800
@@ -170,14 +175,25 @@ def transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps, *, p
     return grads[0], dw, dpol
 
 
+def head_width(C: int, num_heads: int, what: str) -> int:
+    """The head width d = C / num_heads, if the kernels take it (even, at
+    most MAX_HEAD_DIM); else ValueError naming it. The wrappers call it
+    before anything touches the device."""
+    d = C // num_heads if num_heads > 0 else 0
+    if num_heads <= 0 or d * num_heads != C or d % 2 or not 0 < d <= MAX_HEAD_DIM:
+        width = f"{C / num_heads:g}" if num_heads > 0 else "undefined"
+        raise ValueError(f"{what}: head width {width} (C={C}, {num_heads} heads): the kernels "
+                         f"take an even width up to {MAX_HEAD_DIM}")
+    return d
+
+
 def _kernel_args(x, w, num_heads, max_tokens, what):
     """Checks shared by the kernel wrappers; returns (hidden, the weight
     pointers in BLOCK_WEIGHT_KEYS order, their dtypes and shapes)."""
+    B, N, C = x.shape
+    head_width(C, num_heads, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
-    B, N, C = x.shape
-    if C != HEAD_DIM * num_heads:
-        raise ValueError(f"{what}: the kernel takes head_dim {HEAD_DIM}, got {C}/{num_heads}")
     if N > max_tokens:
         raise ValueError(f"{what}: the kernel takes at most {max_tokens} tokens, got {N}")
     hidden = w["w1"].shape[0]
@@ -381,6 +397,7 @@ def fused_transformer_block(
     if x.device.type == "cpu" and (stages or _needs_grad(x, w, policy)):
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, stages=stages, branch_scales=branch_scales)
+    head_width(C, num_heads, what)
     if stages:
         out, st, _ = _launch_forward(x, w, num_heads, scale, ln_eps, policy=policy, eps=eps,
                                      cls=False, what=what, branch_scales=branch_scales)
@@ -412,6 +429,7 @@ def fused_transformer_block_cls(
     if x.device.type == "cpu" and _needs_grad(x, w, policy):
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, return_cls=True)
+    head_width(C, num_heads, "fused_transformer_block_cls")
     _refuse_autograd(x, w, policy, "fused_transformer_block_cls")
     return torch.ops.d2s.block_forward_cls(x, _op_weights(w), w["bqkv"],
                                            _policy_arg(policy, x, "fused_transformer_block_cls"),

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from dense2sparse_vit_torch.ops import _cuda
-from dense2sparse_vit_torch.ops.block import HEAD_DIM, MAX_TOKENS, attention_reference
+from dense2sparse_vit_torch.ops.block import MAX_TOKENS, attention_reference, head_width
 
 QMAX = 127.0
 SCALE_FLOOR = 1e-8
@@ -250,12 +250,12 @@ def _launch_int8(x, qw, num_heads, scale, ln_eps, stages=False):
     quantizations' codes "q1".."q4" and row scales "s1".."s4" and the
     intermediates "qkv", "attn", "mid" (fp32) and "act"."""
     what = "fused_transformer_block_int8"
+    B, N, C = x.shape
+    head_width(C, num_heads, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
-    B, N, C = x.shape
-    if C != HEAD_DIM * num_heads or C % 16:
-        raise ValueError(f"{what}: the kernel takes head_dim {HEAD_DIM} and C % 16 == 0, "
-                         f"got {C}/{num_heads}")
+    if C % 16:
+        raise ValueError(f"{what}: the kernel takes C % 16 == 0, got C={C}")
     if N > MAX_TOKENS:
         raise ValueError(f"{what}: the kernel takes at most {MAX_TOKENS} tokens, got {N}")
     hidden = qw["w1_q"].shape[0]
@@ -336,6 +336,8 @@ def fused_transformer_block_int8(
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("fused_transformer_block_int8 has no gradient: call it under "
                            "torch.no_grad() or torch.inference_mode()")
+    if x.device.type != "cpu":
+        head_width(x.shape[2], num_heads, "fused_transformer_block_int8")
     if stages:
         if x.device.type == "cpu":
             return quant_block_reference(x, qw, num_heads, scale, ln_eps, stages=True)

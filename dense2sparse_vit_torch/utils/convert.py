@@ -58,15 +58,33 @@ The DeiT, ViT and DINO backbones (`models/deit.py`, `deit_heads.py`,
   predictor/in_norm, in_dense           -> predictor.in_conv.{0, 1} (DINO)
   predictor/out_{0,1,2}                 -> predictor.out_conv.{0, 2, 4}
 
+The rest of the zoo (`models/t2t.py`'s SE, Ghost and Dense variants,
+`models/tnt.py`, `models/resnet.py`) names its modules flat in JAX,
+`{blocks,transition}_{i}_{name}`, which map to `{blocks,transition}.{i}.
+{name}`, and:
+
+  blocks_{i}_attn/cheap_q, .../cheap2    -> the same names (Ghost's
+                                           per-channel scales, not
+                                           transposed)
+  pixel_embed_proj                       -> pixel_embed.proj (TNT)
+  pixel_pos, patch_pos, norm1_proj, proj, norm2_proj -> the same names
+  layer{s}_{b}/conv1 ... bn3             -> layer{s}.{b}.conv1 ... bn3
+  layer{s}_{b}/downsample_conv, _bn      -> layer{s}.{b}.downsample.0, .1
+  conv1, bn1, fc                         -> the same names (ResNet)
+  batch_stats .../bn mean, var           -> ....running_mean, .running_var
+                                            (.num_batches_tracked: 0)
+
 `jax_params_from_state_dict` maps such a state_dict back (the backbones,
-their heads and predictors, the blocks and the early-exit head; not a
-student's score predictors or a T2T stem), and `resize_pos_embed` resizes
-a checkpoint's position embedding to another grid (a 224-px checkpoint into
-a 384-px model).
+their heads and predictors, the blocks and the early-exit head, the T2T
+stem under `tokens_to_token` (the dense T2T models' and the variants'
+name), the T2T variants, TNT and the Drop-ResNet; not a student's score
+predictors), and `resize_pos_embed` resizes a checkpoint's position
+embedding to another grid (a 224-px checkpoint into a 384-px model).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -84,6 +102,37 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
 
 def _leaf(name: str) -> str:
     return {"kernel": "weight", "scale": "weight", "bias": "bias"}[name]
+
+
+# the zoo's flat JAX names: per-block modules, per-stage transitions, ResNet
+# units, and their top-level parameters and layers
+_FLAT = re.compile(r"^(blocks|transition)_(\d+)_(.+)$")
+_UNIT = re.compile(r"^(layer\d+)_(\d+)$")
+_ZOO_TOP = ("pixel_embed_proj", "pixel_pos", "patch_pos", "norm1_proj", "proj", "norm2_proj",
+            "conv1", "bn1", "fc")
+_DOWNSAMPLE = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+
+
+def _is_zoo(head: str) -> bool:
+    return bool(_FLAT.match(head) or _UNIT.match(head)) or head in _ZOO_TOP
+
+
+def _zoo_key(path: Tuple[str, ...]) -> str:
+    """The port key of a T2T variant's, TNT's or the Drop-ResNet's parameter
+    (or BatchNorm statistic)."""
+    head, rest = path[0], list(path[1:])
+    flat, unit = _FLAT.match(head), _UNIT.match(head)
+    if flat:
+        parts = list(flat.groups())
+    elif unit:
+        parts = list(unit.groups())
+        rest[0] = _DOWNSAMPLE.get(rest[0], rest[0])
+    else:
+        parts = ["pixel_embed", "proj"] if head == "pixel_embed_proj" else [head]
+    if rest:
+        leaf = rest[-1]
+        rest[-1] = _RUNNING.get(leaf) or {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+    return ".".join(parts + rest)
 
 
 _DYNAMIC_VIT_UNITS = {"in_norm": "in_conv.0", "in_dense": "in_conv.1", "out_0": "out_conv.0",
@@ -190,7 +239,8 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         stats = _flatten(params.get("batch_stats") or {})
         params = params["params"]
     flat = _flatten(params)
-    head_stats = {p: v for p, v in stats.items() if p[0].startswith("transformerheads_")}
+    head_stats = {p: v for p, v in stats.items()
+                  if p[0].startswith("transformerheads_") or _is_zoo(p[0])}
     stats = {p: v for p, v in stats.items() if p not in head_stats}
     bn_norms = {path[:-1] for path in stats}
     n_out: Dict[str, int] = {}
@@ -208,6 +258,8 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
             key = head
         elif head in ("stem", "tokens_to_token"):
             key = _stem_key(path, attention_units)
+        elif _is_zoo(head):
+            key = _zoo_key(path)
         elif head.startswith("blocks_"):
             key = ".".join(("blocks", head[len("blocks_"):]) + path[1:-1] + (_leaf(path[-1]),))
         elif head.startswith("score_predictor_"):
@@ -232,24 +284,65 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         key = _predictor_key(path + ("mean",), n_out[path[0]], bn_norms)
         out[key.replace("running_mean", "num_batches_tracked")] = np.array(0, np.int64)
     for path, v in head_stats.items():
-        out[_backbone_key(path)] = np.array(v, order="C")
-        key = _backbone_key(path[:-1] + ("mean",))
+        mapped = _zoo_key if _is_zoo(path[0]) else _backbone_key
+        out[mapped(path)] = np.array(v, order="C")
+        key = mapped(path[:-1] + ("mean",))
         out[key.replace("running_mean", "num_batches_tracked")] = np.array(0, np.int64)
     return out
 
 
-def _jax_path(key: str) -> Tuple[Tuple[str, ...], str]:
+_STEM_UNITS = {"soft_split0": "conv_0", "soft_split1": "conv_1"}
+
+
+def _stem_path(parts, ndim: int) -> list:
+    """The JAX path (under `tokens_to_token`) of a T2T stem key's parts
+    after `tokens_to_token`, its leaf still the port's: `_stem_key`'s
+    inverse."""
+    unit, rest = parts[0], parts[1:]
+    if unit in _STEM_UNITS:
+        return [_STEM_UNITS[unit]] + rest
+    if unit == "project":
+        return ["conv_2" if ndim == 4 else "project"] + rest
+    if rest == ["w"]:
+        return [unit, "prm_w"]
+    if rest[0] == "attn":
+        return [unit] + rest[1:]
+    if rest[0] == "mlp" and rest[1] in ("0", "2"):
+        return [unit, "mlp_fc1" if rest[1] == "0" else "mlp_fc2"] + rest[2:]
+    return [unit] + rest
+
+
+def _flat_names(keys) -> bool:
+    """Whether a state_dict's blocks are named flat in JAX (the T2T SE,
+    Ghost and Dense variants and TNT): their tell-tale keys."""
+    return any(k == "pixel_pos" or k.startswith("transition.") or
+               re.match(r"^blocks\.\d+\.(inner\.|attn\.se_fc1\.|attn\.cheap_q$)", k)
+               for k in keys)
+
+
+def _jax_path(key: str, flat: bool = False, ndim: int = 0) -> Tuple[Tuple[str, ...], str]:
     """(the JAX path, 'params' or 'batch_stats') of a port key, its leaf
-    still the port's name."""
+    still the port's name; `flat`: the blocks are named flat in JAX
+    (`_flat_names`); `ndim`: the value's, which tells a T2T stem's
+    convolution `project` from its Linear one."""
     parts = key.split(".")
-    if parts[0] == "early_exit_head":
+    if flat and parts[0] in ("blocks", "transition"):
+        parts = [f"{parts[0]}_{parts[1]}_{parts[2]}"] + parts[3:]
+    elif re.match(r"^layer\d+$", parts[0]):
+        unit = {v: k for k, v in _DOWNSAMPLE.items()}.get(".".join(parts[2:4]))
+        parts = [f"{parts[0]}_{parts[1]}"] + ([unit] + parts[4:] if unit else parts[2:])
+    elif parts[0] == "pixel_embed":
+        parts = ["pixel_embed_proj"] + parts[2:]
+    elif parts[0] == "tokens_to_token":
+        parts = ["tokens_to_token"] + _stem_path(parts[1:], ndim)
+    elif parts[0] == "early_exit_head":
         parts = ["early_exit_norm" if parts[1] == "0" else "early_exit_head"] + parts[2:]
     elif parts[0] == "predictor":
         inv = {v: k for k, v in _DINO_PREDICTOR.items()}
         parts = ["predictor", inv[".".join(parts[1:3])]] + parts[3:]
     elif parts[0] + "_" in _INDEXED:
         parts = [f"{parts[0]}_{parts[1]}"] + parts[2:]
-    elif parts[0] in ("score_predictor", "tokens_to_token"):
+    elif parts[0] == "score_predictor":
         raise KeyError(f"no JAX path mapped for {key}")
     kind = "batch_stats" if parts[-1] in ("running_mean", "running_var") else "params"
     return tuple(parts), kind
@@ -260,17 +353,21 @@ def jax_params_from_state_dict(state_dict: Mapping) -> Dict[str, dict]:
     {'params': ..., 'batch_stats': ...} ('batch_stats' only where there are
     BatchNorm statistics), the inverse of `state_dict_from_jax` for the
     DeiT, ViT and DINO backbones, their heads and predictors, the teacher,
-    the blocks and the early-exit head: conv kernels back to (kH, kW, I, O),
-    dense kernels to (in, out), LayerNorm and BatchNorm weights to `scale`,
-    running statistics to `mean` / `var`; num_batches_tracked, which JAX
-    does not count, is dropped. Raises KeyError for a student's score
-    predictor or a T2T stem."""
+    the blocks and the early-exit head, the dense T2T models and their
+    stem, the T2T variants, TNT and the Drop-ResNet: conv kernels back to
+    (kH, kW, I, O), dense kernels to (in, out), LayerNorm and BatchNorm
+    weights to `scale`, running statistics to `mean` / `var`;
+    num_batches_tracked, which JAX does not count, is dropped. Other
+    parameters (positions, tokens, the performer's `prm_w`, Ghost's cheap
+    scales) keep their values and names. Raises KeyError for a student's
+    score predictor."""
     out: Dict[str, dict] = {}
+    flat = _flat_names(state_dict)
     for key, v in state_dict.items():
         if key.endswith("num_batches_tracked"):
             continue
         v = np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
-        (*path, leaf), kind = _jax_path(key)
+        (*path, leaf), kind = _jax_path(key, flat, v.ndim)
         if leaf == "weight":
             if v.ndim == 4:
                 leaf, v = "kernel", v.transpose(2, 3, 1, 0)

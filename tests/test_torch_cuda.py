@@ -1580,6 +1580,183 @@ def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
             qkv.data_ptr(), qkv.stride(0), qkv.stride(1), g.data_ptr(), 0,
             0 if pol is None else pol.data_ptr(), dqkv.data_ptr(),
             0 if pol is None else dpol.data_ptr(), o.data_ptr(), stats.data_ptr(),
-            0 if pol is None else part.data_ptr(), 0, 2, n, 6, CORE_SCALE, 1e-6,
+            0 if pol is None else part.data_ptr(), 0, 2, n, 6, 384, CORE_SCALE, 1e-6,
             _cuda.stream_handle(cuda))
         assert err == 1
+
+
+# ---- the attention cores at head widths other than 64 ----------------------
+
+# (head width, heads): the zoo's t2t_vit_14_resnext (C = 384) and
+# vit_small_patch16_224 (C = 768); 32 and 128 the padded path's edges
+HD_CASES = ((12, 32), (96, 8))
+HD_EDGES = ((32, 12), (128, 6), (2, 192))
+
+
+def _hd_case(cuda, d, H, n, b=2, policy=False, with_gcls=False, seed=0):
+    """qkv (b, n, 3 H d), the output's cotangent, a keep policy and the CLS
+    rows' cotangent where asked, at head width d."""
+    gen = torch.Generator(device=cuda).manual_seed(1000 * seed + 10 * n + d)
+    C = d * H
+    qkv = torch.randn((b, n, 3 * C), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((b, n, C), generator=gen, device=cuda).to(torch.bfloat16)
+    gcls = torch.randn((b, H, n), generator=gen, device=cuda) if with_gcls else None
+    return qkv, g, (_policy(gen, b, n, cuda) if policy else None), gcls
+
+
+@pytest.mark.parametrize("d,H", HD_CASES + HD_EDGES)
+@pytest.mark.parametrize("n", [1, 17, 65, 197, 577, 785, 800])
+@pytest.mark.parametrize("policy", [False, True])
+def test_head_width_packed_forward_against_plain(cuda, d, H, n, policy):
+    """The forward core at head width d (attention_hd_kernel): output and CLS
+    rows against the plain version, at eps 0.1 in policy mode; one launch of
+    the packed entry and one of the core."""
+    qkv, _, pol, _ = _hd_case(cuda, d, H, n, policy=policy)
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out, cls = ops.fused_attention_packed(qkv, H, return_cls=True, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want, want_cls = attention_reference(qkv, H, d ** -0.5, return_cls=True, **kw)
+    assert counts == {**NO_LAUNCHES, "fused_attention_packed": 1, "attention_hd": 1}
+    _assert_close(out, want)
+    _assert_close(cls, want_cls)
+
+
+@pytest.mark.parametrize("d,H", HD_CASES + HD_EDGES)
+@pytest.mark.parametrize("n", [1, 17, 65, 197, 577, 785, 800])
+@pytest.mark.parametrize("policy", [False, True])
+@pytest.mark.parametrize("with_gcls", [False, True])
+def test_head_width_packed_backward_against_plain(cuda, d, H, n, policy, with_gcls):
+    """The backward core at head width d (attention_hd_bwd_kernel): dqkv's q,
+    k and v apart and dPolicy against the plain version; the forward
+    recompute and the backward launched once each."""
+    qkv, g, pol, gcls = _hd_case(cuda, d, H, n, policy=policy, with_gcls=with_gcls, seed=1)
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got = ops.fused_attention_backward_packed(qkv, g, H, gcls=gcls, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = attention_backward_reference(qkv, g, H, d ** -0.5, gcls=gcls, **kw)
+    assert counts == {**NO_LAUNCHES, "fused_attention_backward_packed": 1, "attention_hd": 1,
+                      "attention_hd_bwd": 1}
+    (dqkv, dpol), (want_dqkv, want_dpol) = (got if pol is not None else (got, None)), want
+    _core_close(dqkv, want_dqkv, dpol, want_dpol)
+
+
+@pytest.mark.parametrize("d,H", HD_CASES)
+@pytest.mark.parametrize("n", [197, 577])
+@pytest.mark.parametrize("policy", [False, True])
+def test_head_width_backward_is_bit_equal_on_two_launches(cuda, d, H, n, policy):
+    qkv, g, pol, gcls = _hd_case(cuda, d, H, n, b=64, policy=policy, with_gcls=True, seed=2)
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    with torch.no_grad():
+        runs = [ops.fused_attention_backward_packed(qkv, g, H, gcls=gcls, **kw) for _ in range(2)]
+    a, b = runs if policy else ((runs[0], None), (runs[1], None))
+    assert torch.equal(a[0], b[0])
+    assert not policy or torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("d,H", HD_CASES)
+@pytest.mark.parametrize("eps", [1e-6, 0.1])
+def test_head_width_dpolicy_on_planted_ties(cuda, d, H, eps):
+    """Six keys equal, the first half of the queries shifted towards them:
+    those rows reach their max at six columns (counted in float64), and the
+    max path's share reaches each (against autograd through torch.amax)."""
+    qkv, g, pol, _ = _hd_case(cuda, d, H, 197, policy=True, seed=3)
+    C = d * H
+    cols = [5, 17, 40, 41, 100, 150]
+    qkv[:, :98, :C] += 2.0
+    qkv[:, cols, C:2 * C] = 2.0
+    q, k = (qkv[..., i * C:(i + 1) * C].double().view(2, 197, H, d).transpose(1, 2)
+            for i in (0, 1))
+    s = q @ k.transpose(-1, -2)
+    ties = (s == s.amax(-1, keepdim=True)).sum(-1)
+    assert (ties == len(cols)).double().mean().item() > 0.4
+    with torch.no_grad():
+        dqkv, dpol = ops.fused_attention_backward_packed(qkv, g, H, policy=pol, eps=eps)
+        want, want_dpol = attention_backward_reference(qkv, g, H, d ** -0.5, policy=pol, eps=eps)
+    _thirds_close(dqkv, want)
+    _assert_close(dpol, want_dpol, chip_smoke.DPOL_TOL)
+
+
+@pytest.mark.parametrize("d,H", HD_CASES)
+@pytest.mark.parametrize("n", [68, 197, 577])
+@pytest.mark.parametrize("mode", ["plain", "policy", "scaled"])
+def test_head_width_block_both_ways(cuda, d, H, n, mode):
+    """The whole block at head width d, forward stage by stage (with its CLS
+    rows in plain and policy mode) and backward with dPolicy, through
+    chip_smoke's checks; the launches of the block and the cores."""
+    C = d * H
+    blk = _sharpen(Block(C, H, mlp_ratio=3.0, use_fused=True), seed=n + d).to(cuda).eval()
+    w = blk.kernel_weights(torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, C), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((4, n, C), generator=gen, device=cuda).to(torch.bfloat16)
+    pol = _policy(gen, 4, n, cuda) if mode == "policy" else None
+    scales = (chip_smoke.droppath_scales(torch, 4, gen) if mode == "scaled" else None)
+    args = (H, d ** -0.5, 1e-6)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        chip_smoke.check_block(torch, x, w, *args, policy=pol, eps=0.1, branch_scales=scales)
+        chip_smoke.check_block_backward(torch, x, g, w, *args, policy=pol, eps=0.1,
+                                        branch_scales=scales)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if mode != "scaled":
+            out, cls = ops.fused_transformer_block_cls(x, w, H, pol, eps=0.1)
+            want, want_cls = transformer_block_reference(x, w, *args, policy=pol, eps=0.1,
+                                                         return_cls=True)
+            _assert_close(out, want)
+            _assert_close(cls, want_cls)
+    fwd = chip_smoke.block_kernel_name("fused_transformer_block", pol is not None, scales)
+    bwd = chip_smoke.block_kernel_name("fused_transformer_block_backward", pol is not None,
+                                       scales)
+    assert counts == {**NO_LAUNCHES, fwd: 1, bwd: 1, **_norm(1), "attention_hd": 2,
+                      "attention_hd_bwd": 1}
+
+
+@pytest.mark.parametrize("d,H", HD_CASES)
+@pytest.mark.parametrize("policy", [False, True])
+def test_head_width_half_block_both_ways(cuda, d, H, policy):
+    C = d * H
+    blk = _sharpen(Block(C, H, use_fused=True), seed=d).to(cuda).eval()
+    w = blk.kernel_weights(torch.bfloat16)
+    w6 = tuple(w[k] for k in chip_smoke.HALF_BLOCK_KEYS)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((4, 197, C), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((4, 197, C), generator=gen, device=cuda).to(torch.bfloat16)
+    pol = _policy(gen, 4, 197, cuda) if policy else None
+    with torch.no_grad():
+        chip_smoke.check_attn_half(torch, x, w6, H, d ** -0.5, 1e-6, policy=pol, eps=0.1,
+                                   cls=True)
+        chip_smoke.check_attn_half_backward(torch, x, g, w6, H, d ** -0.5, 1e-6, policy=pol,
+                                            eps=0.1)
+
+
+@pytest.mark.parametrize("n", [197, 577])
+def test_head_width_int8_block(cuda, n):
+    blk = _sharpen(Block(768, 8, mlp_ratio=3.0, use_fused=True), seed=n).to(cuda).eval()
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, 768), generator=gen, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        chip_smoke.check_int8_block(torch, x, blk.int8_weights(torch.bfloat16), 8, 96 ** -0.5,
+                                    1e-6)
+
+
+def test_head_widths_the_kernels_refuse(cuda):
+    """An odd head width and one past 128 are refused by every wrapper with
+    the width in the message, and by the C entries themselves."""
+    for C, H, width in ((26, 2, "13"), (260, 2, "130")):
+        qkv = torch.zeros((2, 17, 3 * C), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"head width {width}"):
+            ops.fused_attention_packed(qkv, H)
+        with pytest.raises(ValueError, match=f"head width {width}"):
+            ops.fused_attention_backward_packed(qkv, qkv[..., :C].contiguous(), H)
+    lib = _cuda.library()
+    assert lib.d2s_attention_bwd_part_floats(1, 2, 17, 2, 26, 1) == -1
+    assert lib.d2s_attention_bwd_part_floats(1, 2, 17, 2, 24, 1) == 2 * 2 * 17
+    assert lib.d2s_attention_bwd_part_floats(0, 2, 577, 2, 24, 0) == 0
+    assert lib.d2s_block_backward_scratch_bytes(2, 17, 26, 2, 104, 0) == 0

@@ -333,13 +333,15 @@ _CFG_KEYS = ("img_size", "patch_size", "embed_dim", "depth", "num_heads", "mlp_r
 
 
 def test_registry_holds_the_new_names_and_aliases():
-    """31 names and 15 aliases more than the slice before: 56 names in all;
-    vit_small_patch16_224 (8 heads of 96) is not among them."""
+    """The backbones' 31 names and 15 aliases are registered. Since the
+    kernels take every even head width, the registry holds the JAX one's 65
+    names and 18 aliases (`tests/test_torch_zoo.py`), vit_small_patch16_224
+    (8 heads of 96) among them."""
     assert len(NEW_NAMES) == 31 and len(ALIASES) == 15
     assert set(NEW_NAMES) <= set(port_registry.list_models())
-    assert len(port_registry.list_models()) == 56
-    assert set(port_registry._ALIASES) == set(ALIASES)
-    assert "vit_small_patch16_224" not in port_registry.list_models()
+    assert len(port_registry.list_models()) == 65
+    assert set(ALIASES) <= set(port_registry._ALIASES) and len(port_registry._ALIASES) == 18
+    assert "vit_small_patch16_224" in port_registry.list_models()
 
 
 @pytest.mark.parametrize("name", NEW_NAMES)

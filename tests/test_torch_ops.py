@@ -323,7 +323,8 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.ops.perturbed_topk, dense2sparse_vit_torch.nn.predictor, "
         "dense2sparse_vit_torch.train.train_step, dense2sparse_vit_torch.train.optimizer, "
         "dense2sparse_vit_torch.models.registry, dense2sparse_vit_torch.models.deit, "
-        "dense2sparse_vit_torch.models.deit_heads, dense2sparse_vit_torch.models.dino\n"
+        "dense2sparse_vit_torch.models.deit_heads, dense2sparse_vit_torch.models.dino, "
+        "dense2sparse_vit_torch.models.tnt, dense2sparse_vit_torch.models.resnet\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"
