@@ -22,6 +22,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault attn_bwd    # the attention core backward's check
     python3 chip_smoke.py --plant-fault predictor   # the score predictor's check
     python3 chip_smoke.py --plant-fault head_width  # phase 35's check at head width 12
+    python3 chip_smoke.py --plant-fault head_width_bwd  # its backward check at width 12
     python3 chip_smoke.py --plant-fault mode_plain  # phase 33's launch check
     python3 chip_smoke.py --plant-fault remat       # phase 33's remat check
     python3 chip_smoke.py --plant-fault bn_eval     # phase 33's BatchNorm eval check
@@ -271,8 +272,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  kernel launched; (d) the new path's kernels timed at
                  N = 197 and 577 beside their plain versions, SDPA and their
                  bounds, and a B=64 forward of (b)'s models in img/s.
-The build phase fails if ptxas reports a spill in a GEMM kernel or in
-attention_bwd_kernel, or reports on no int8 one, or if it serializes
+The build phase fails if ptxas reports a spill in a GEMM kernel, in
+attention_bwd_kernel or in an instantiation of the head-width cores
+(attention_hd_kernel, attention_hd_bwd_kernel: each of the 16 of each
+must be in its log), or reports on no int8 one, or if it serializes
 attention_bwd_kernel's wgmma products; it prints that kernel's C75xx
 notices (`wgmma_notices`).
 The pruning student runs its serving, timing and export phases without
@@ -322,8 +325,11 @@ recompute drawing anew from where the forward left the generator (by
 `check_remat`), an eval-mode BatchNorm normalising with the batch's
 statistics (by `check_bn_eval`). --plant-fault head_width with the core at
 head widths other than 64 (`block.cu`'s attention_hd_kernel) leaving the
-last 16-key chunk out of P.V and the row sums, on phase 35's block check
-at d = 12, N = 197 (its attn stage).
+last key block out of P.V (not out of the row sums), on phase 35's block
+check at d = 12, N = 197 (its attn stage); --plant-fault head_width_bwd
+with its backward (`block_bwd.cu`'s attention_hd_bwd_kernel) leaving the
+last key block out of dQ, on the same run's block-backward check (the
+q third of the qkv weight's gradient).
 """
 
 from __future__ import annotations
@@ -563,8 +569,9 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # rows (colsum); (block_bwd.cu, attn_bwd) the attention core backward's dQ
 # without the last key block's products; (predictor.cu) the means launch taking
 # each sample's pooled mean from the next sample's sums; (block.cu,
-# head_width) the core at other head widths stopping its P.V and row sums one
-# 16-key chunk short of N; and the stage whose check must reject it
+# head_width) the core at other head widths leaving the last key block out of
+# P.V; (block_bwd.cu, head_width_bwd) its backward leaving the last key block
+# out of dQ; and the stage whose check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e & 1]", "if (true) dpa[e & 1]", "dpolicy"),
@@ -593,8 +600,11 @@ FAULTS = {
                "column_sums"),
     "attn_bwd": ("block_bwd.cu", "          wgmma_m64n64k16_rs<1>(dq[qq], da[c], ",
                  "          if (j + 1 < QB) wgmma_m64n64k16_rs<1>(dq[qq], da[c], ", "attn_bwd"),
-    "head_width": ("block.cu", "k16 < HD_BLK && k0 + k16 < N; k16 += 16",
-                   "k16 < HD_BLK && k0 + k16 + 16 < N; k16 += 16", "attn"),
+    "head_width": ("block.cu", "HdMma<DP>::template rs<1>(o, pa[kk], ",
+                   "if (j + 1 < nkb) HdMma<DP>::template rs<1>(o, pa[kk], ", "attn"),
+    "head_width_bwd": ("block_bwd.cu", "                da[jq >> 1][2 * (jq & 1) + r];",
+                       "                jb + 1 == nb ? 0u : da[jq >> 1][2 * (jq & 1) + r];",
+                       "qkv.q"),
     "predictor": ("predictor.cu",
                   "  const int src = smp;  // the sample whose partial sums are added\n",
                   "  const int src = (smp + 1) % p.samples;  // the next sample's\n",
@@ -1194,7 +1204,7 @@ def plant_fault(dev, kind: str) -> int:
                 check_norm(torch, cases)
         elif kind == "attn_bwd":
             check_attn_bwd_cases(torch, capture_attn_bwd_cases(torch, dev))
-        elif kind == "head_width":
+        elif kind in ("head_width", "head_width_bwd"):
             check_head_widths(torch, dev, None, widths=HD_WIDTHS[:1], tokens=(197,))
         elif kind == "scatter":
             student, teacher, step = build_trainer(torch, dev, fused=True)
@@ -5665,7 +5675,20 @@ B_OTHERS = 8
 # largest magnitude: a guard against a gross fault, not a kernel tolerance
 OTHERS_TOL = 0.1
 # the kernels of csrc/attention_hd.cuh by the profiler's kernel names
-HD_GROUPS = ("attention_hd_kernel", "attention_hd_bwd_kernel", "attention_hd_rows", "sum_heads")
+HD_GROUPS = ("attention_hd_kernel", "attention_hd_bwd_kernel", "sum_heads")
+# (padded width, policy mode) of each instantiation of the two head-width
+# cores, which the build phase finds in ptxas's log without a spill
+HD_KINDS = tuple((dp, pol) for dp in range(16, 129, 16) for pol in (False, True))
+
+
+def hd_kind(name: str, word: str):
+    """(padded width DP, policy mode) of an `attention_hd_kernel<DP, POLICY>`
+    or `attention_hd_bwd_kernel<DP, POLICY>` instantiation (`word`) from its
+    mangled name; None for another."""
+    if word + "ILi" not in name:
+        return None
+    rest = name.split(word + "ILi")[1]  # e.g. "96ELb1EEEv..."
+    return int(rest.split("E")[0]), rest.split("Lb")[1][0] == "1"
 
 
 def hd_block(torch, dev, C, H, seed):
@@ -5949,20 +5972,47 @@ def check_hd_others(torch, dev, smi) -> dict:
     return worst
 
 
+def launch_ms(torch, fn, names, iters: int = 10):
+    """Device ms of one launch of each kernel whose name holds one of `names`
+    over `iters` calls of fn under torch.profiler: each kernel's recorded
+    time over its recorded launches, so that a window which loses some of
+    its launches (whole runs of this script have shown such windows, down to
+    none) still reads the time of one; 0.0 where none was recorded. Returns
+    ({name: ms}, {name: launches recorded})."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation",
+                                                                       False):
+            continue
+        name = next((k for k in names if k in e.key), None)
+        if name is not None:
+            total[name] += e.self_device_time_total / 1e3
+            count[name] += e.count
+    return {k: total[k] / count[k] if count[k] else 0.0 for k in names}, count
+
+
 def time_head_widths(torch, dev, smi) -> dict:
     """(d): at each head width and N of HD_TIMED (B = 64, seeded qkv): the
-    forward core's device ms (the profiler, inside `ops.fused_attention_
-    packed`), the backward's (attention_hd_bwd_kernel's two launches and
-    the rows' statistics, inside `ops.fused_attention_backward_packed`),
-    each beside its plain version (CUDA graphs), SDPA's forward and backward
-    (CUDA graphs) and its bound. Where the profiler records no device time
-    (it has missed the forward's windows in a whole run), the row's "timer"
-    says "graph": the entry's time from a CUDA graph (the backward's with
-    its forward recompute). Returns {(d, N): (forward, backward)} rows."""
+    device ms of a launch of the forward core in its own window (30 calls
+    of `ops.fused_attention_packed`) and of the backward core
+    (attention_hd_bwd_kernel, 10 calls of `ops.fused_attention_backward_
+    packed`), read by `launch_ms`, each beside its plain version (CUDA
+    graphs), SDPA's forward and backward (CUDA graphs) and its bound; each
+    row keeps the launches its window recorded. A forward window with none
+    takes the forward that the backward recomputes (the same launch at the
+    same shape, its statistics written too; "timer": "profiler,
+    recompute"); a row with none in either window says "graph": the entry's
+    time from a CUDA graph. Returns {(d, N): (forward, backward)} rows."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.ops.attention import attention_backward_reference
     from dense2sparse_vit_torch.ops.block import attention_reference
-    from dense2sparse_vit_torch.scripts.checkout_ab import device_ms
     import torch.nn.functional as F
 
     out = {}
@@ -5976,14 +6026,15 @@ def time_head_widths(torch, dev, smi) -> dict:
                 fwd = lambda: ops.fused_attention_packed(qkv, H, scale=scale)  # noqa: E731
                 bwd = lambda: ops.fused_attention_backward_packed(  # noqa: E731
                     qkv, g, H, scale=scale)
-                f_dev = device_ms(fwd, groups=HD_GROUPS)
-                b_dev = device_ms(bwd, groups=HD_GROUPS)
-                f_ms = f_dev["attention_hd_kernel"]
-                b_ms = b_dev["attention_hd_bwd_kernel"] + b_dev["attention_hd_rows"]
+                f_one, f_seen = launch_ms(torch, fwd, HD_GROUPS[:1], iters=30)
+                b_one, b_seen = launch_ms(torch, bwd, HD_GROUPS[:2])
+                f_ms, b_ms = f_one["attention_hd_kernel"], b_one["attention_hd_bwd_kernel"]
                 timers = ["profiler", "profiler"]
-                if f_dev["total"] == 0.0:
+                if f_ms == 0.0 and b_one["attention_hd_kernel"] > 0.0:
+                    f_ms, timers[0] = b_one["attention_hd_kernel"], "profiler, recompute"
+                elif f_ms == 0.0:
                     f_ms, timers[0] = graph_ms(torch, fwd), "graph"
-                if b_dev["total"] == 0.0:
+                if b_ms == 0.0:
                     b_ms, timers[1] = graph_ms(torch, bwd), "graph"
                 f_plain = graph_ms(torch, lambda: attention_reference(qkv, H, scale), iters=5)
                 b_plain = graph_ms(torch, lambda: attention_backward_reference(
@@ -5995,9 +6046,10 @@ def time_head_widths(torch, dev, smi) -> dict:
             fb, bb = attention_bound(HD_BATCH, n, C, H), attention_backward_bound(HD_BATCH, n, C, H)
             rows = (
                 {"kernel": "attention_hd", "ms": f_ms, "timer": timers[0], "plain_ms": f_plain,
-                 "library_ms": f_lib, "bound": fb, "device_ms": f_dev},
+                 "library_ms": f_lib, "bound": fb, "launches_recorded": f_seen},
                 {"kernel": "attention_hd_bwd", "ms": b_ms, "timer": timers[1],
-                 "plain_ms": b_plain, "library_ms": b_lib, "bound": bb, "device_ms": b_dev})
+                 "plain_ms": b_plain, "library_ms": b_lib, "bound": bb,
+                 "launches_recorded": b_seen})
             for r in rows:
                 b = r.pop("bound")
                 emit({"phase": "head_width", "d": d, "heads": H, "shape": [HD_BATCH, n, 3 * C],
@@ -6132,6 +6184,12 @@ def main(argv=None) -> int:
             or any("0 bytes spill stores, 0 bytes spill loads" not in v
                    for v in spills.values())):
         raise AssertionError(f"attention_bwd_kernel spills, or misses from ptxas's log: {spills}")
+    for word in ("attention_hd_kernel", "attention_hd_bwd_kernel"):
+        spills = gemm_spills(_cuda.build_log, word)
+        if ({hd_kind(n, word) for n in spills} != set(HD_KINDS)
+                or any("0 bytes spill stores, 0 bytes spill loads" not in v
+                       for v in spills.values())):
+            raise AssertionError(f"{word} spills, or misses from ptxas's log: {spills}")
     notices = wgmma_notices(_cuda.build_log)
     emit({"phase": "build", "attention_bwd_wgmma_notices": notices})
     if any(r["serialized"] for r in notices.values()):

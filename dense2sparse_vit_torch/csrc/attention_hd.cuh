@@ -3,37 +3,43 @@
 // share, for sm_90a.
 //
 // The d = 64 cores (block.cu's attention_kernel, block_bwd.cu's
-// attention_bwd_kernel) lay a head's rows out 64 bf16 wide for ldmatrix's
-// swizzle and wgmma's 64-deep tiles, and hold a sample-head's K and V in
-// shared memory. Neither carries over to another width d (the JAX kernels
-// take any: dense2sparse_vit_tpu/ops/pallas/block.py:226, :753; the zoo has
-// heads of 12 and 96): at d = 96 the K and V of 800 keys take 300 KB, more
-// than a CTA's 227 KB. This path is the simple one, for every even d up to
-// 128:
-//   - a head's rows are zero-padded to DP = roundup(d, 16) columns in
-//     shared memory, [row][DP + 8] bf16 tiles: zero columns change no score
-//     and no product, the padded output columns are dropped, and a pitch of
-//     an odd number of 16-byte chunks lets the eight rows an ldmatrix reads
-//     fall on eight different bank groups;
-//   - the copies are 4-byte loads: a head's row starts at byte 2 h d of a
-//     qkv row, which at d = 12 is only 8-byte aligned;
-//   - the keys stream through shared memory in blocks of 64 (HD_BLK), so
-//     every N up to 800 fits at every width;
-//   - the products run on mma.sync m16n8k16 (bf16 in, fp32 accumulate).
-// The scores S = Q K^T and the backward's dP = dO V^T are the same
-// function, hd_scores16: each 16 x 16 tile a chain of mma.sync from zero in
-// kk order over the padded width, on fragments loaded the same way from
-// tiles laid out the same way. So the backward's scores are bit for bit the
-// forward's, which policy mode's tie test needs (see block_bwd.cu).
+// attention_bwd_kernel) lay a head's rows out 64 bf16 wide, one 128-byte
+// row of the swizzle a row, and neither carries over to another width d (the
+// JAX kernels take any: dense2sparse_vit_tpu/ops/pallas/block.py:226, :753;
+// the zoo has heads of 12 and 96). This path takes every even d up to 128:
+//   - a head's rows are zero-padded to DP = roundup(d, 16) columns in shared
+//     memory, in 64-row tiles of 8 x 8 "core matrices" without swizzle: the
+//     element (r, c) of a tile lies at byte (r / 8) 16 DP + (c / 8) 128 +
+//     (r % 8) 16 + (c % 8) 2 (hd_at). A core matrix is 8 rows of 16
+//     contiguous bytes, which wgmma reads as a K-major operand (rows the M or
+//     N index, columns the reduction: Q K^T's K, dO V^T's V) and, the same
+//     bytes, as an MN-major one (rows the reduction: P V's V, dS K's K,
+//     P^T dO's dO, dS^T Q's Q), so no tile is ever copied transposed; zero
+//     columns change no product and the padded output columns are dropped;
+//   - the copies are cp.async of 16 bytes where a head's rows are 16-byte
+//     aligned (d % 8 == 0: d = 96), else 8 (d % 4 == 0: d = 12) or 4 bytes:
+//     a head's row starts at byte 2 h d of a qkv row; eight neighbouring
+//     threads fill one core matrix, so the stores meet no bank conflict and
+//     each row is read 64 contiguous bytes at a time (hd_copy_tile);
+//   - the products run on wgmma m64nNk16 (bf16 in, fp32 accumulate): the
+//     scores S = Q K^T (forward) and S^T = K Q^T (backward) as m64n32k16
+//     chains (m64n16k16 at DP >= 112: hd_score_n) from zero in kk order
+//     over the padded width (DP / 16 steps: 6 at d = 96, one at d = 12), so
+//     the backward's scores are bit for bit
+//     the forward's, which policy mode's tie test needs: the same
+//     instruction, the same bf16 products summed in the same order, the
+//     roles of the two operands swapped (block_bwd.cu's notes); P V, P^T dO
+//     and dS^T Q as m64nDPk16 with P, P^T or dS^T from registers (an
+//     accumulator's layout is the A fragment's); dS K from a stage in shared
+//     memory.
 #pragma once
 
 #include "ln_gemm.cuh"
 
 namespace d2s {
 
-constexpr int HD_MAX = 128;      // the widest head this path takes
-constexpr int HD_BLK = 64;       // a CTA's query rows (4 warps x 16) and a streamed key block
-constexpr int HD_THREADS = 128;  // the forward's and the backward's CTAs
+constexpr int HD_MAX = 128;  // the widest head this path takes
+constexpr int HD_BLK = 64;   // the rows of a query or key block: a warpgroup's wgmma M
 
 __host__ __device__ constexpr int hd_pad(int d) { return (d + 15) / 16 * 16; }
 
@@ -42,79 +48,329 @@ __host__ __device__ constexpr int hd_pad(int d) { return (d + 15) / 16 * 16; }
 inline bool hd_width_ok(int d) { return d > 0 && d <= HD_MAX && d % 2 == 0; }
 inline bool head_width_ok(int C, int H) { return H > 0 && C % H == 0 && hd_width_ok(C / H); }
 
-// rows r0 .. r0 + 63 of one head's d columns (src: the head's first column of
-// row 0; rows ld elements apart) into a [64][DP + 8] tile: zero past d and at
-// rows from n on; 4-byte loads, nthreads threads
+// the bytes of one cp.async that a head's rows are aligned to at width d
+inline int hd_piece_bytes(int d) { return d % 8 == 0 ? 16 : d % 4 == 0 ? 8 : 4; }
+
+// bytes of a 64-row tile at padded width DP, and the byte offset of (r, c) in it
 template <int DP>
-__device__ __forceinline__ void hd_load_tile(bf16* dst, const bf16* src, long long ld, int r0,
-                                             int n, int d, int tid, int nthreads) {
-  constexpr int P = DP + 8;
-  constexpr int PAIRS = DP / 2;
-  for (int i = tid; i < HD_BLK * PAIRS; i += nthreads) {
-    const int r = i / PAIRS, c = (i % PAIRS) * 2;
-    uint32_t v = 0u;
-    if (r0 + r < n && c < d)
-      v = *reinterpret_cast<const uint32_t*>(src + (long long)(r0 + r) * ld + c);
-    *reinterpret_cast<uint32_t*>(dst + r * P + c) = v;
+constexpr int HD_TILE = HD_BLK * DP * 2;
+template <int DP>
+__device__ __forceinline__ int hd_at(int r, int c) {
+  return (r >> 3) * (DP * 16) + (c >> 3) * 128 + (r & 7) * 16 + (c & 7) * 2;
+}
+
+// `bytes` (4, 8 or 16) global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void hd_cp_async(void* dst, const void* src, int bytes, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? bytes : 0;
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+// rows r0 .. r0 + 63 of one head's d columns (src: the head's column 0 of row
+// 0; rows ld elements apart) into a tile, zero past d and at rows from n on:
+// pieces of pb bytes (hd_piece_bytes), nthreads threads from tid
+template <int DP>
+__device__ __forceinline__ void hd_copy_tile(unsigned char* dst, const bf16* src, long long ld,
+                                             int r0, int n, int d, int pb, int tid,
+                                             int nthreads) {
+  const int lg = pb == 16 ? 4 : pb == 8 ? 3 : 2;  // log2 of the piece's bytes
+  const int pieces = HD_TILE<DP> >> lg;
+  for (int i = tid; i < pieces; i += nthreads) {
+    // i walks the tile's bytes in order: core matrix (row group, column
+    // chunk), its row, the piece within the row's 16 bytes
+    const int byte = i << lg;
+    const int rr = (byte >> 4) & 7, sub = (byte & 15) >> 1;
+    const int cm = byte >> 7;  // core matrix: row group cm / (DP / 8), chunk cm % (DP / 8)
+    const int r = (cm / (DP / 8)) * 8 + rr, c = (cm % (DP / 8)) * 8 + sub;
+    const bool ok = r0 + r < n && c < d;
+    hd_cp_async(dst + byte, src + (ok ? (long long)(r0 + r) * ld + c : 0), pb, ok);
   }
 }
 
-// s[j]: the scores of the warp's 16 rows q0 .. q0 + 15 of tile A ([row][DP +
-// 8]) with rows k0 + 8 j .. + 7 of tile B, an m16n8 accumulator each (rows
-// g and g + 8, columns 2t, 2t + 1 of the 8): A B^T over the DP columns, a
-// chain of mma.sync from zero in kk order. S = Q K^T with (A, B) = (Q, K);
-// dP = dO V^T with (dO, V).
+// wgmma shared-memory descriptors of a tile without swizzle: `lead` bytes
+// between core matrices along the reduction, `stride` along M or N
+__device__ __forceinline__ uint64_t hd_desc(const void* tile, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)((lead >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((stride >> 4) & 0x3FFF) << 32);
+}
+// the tile (from `at`) as a K-major operand: its rows M or N, its columns
+// the reduction
 template <int DP>
-__device__ __forceinline__ void hd_scores16(float (&s)[2][4], const bf16* A, int q0,
-                                            const bf16* B, int k0, int lane) {
-  constexpr int P = DP + 8;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4], b[4];
-    ldmatrix_x4(a, A + (q0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + kk * 16 + (lane >> 4) * 8);
-    ldmatrix_x4(b, B + (k0 + (lane & 7) + (lane >> 4) * 8) * P + kk * 16 + ((lane >> 3) & 1) * 8);
-    mma_16816(s[0], a, b[0], b[1]);
-    mma_16816(s[1], a, b[2], b[3]);
-  }
+__device__ __forceinline__ uint64_t hd_kdesc(const void* at) {
+  return hd_desc(at, 128, DP * 16);
+}
+// the tile as an MN-major operand: its rows the reduction, its columns N
+template <int DP>
+__device__ __forceinline__ uint64_t hd_mdesc(const void* at) {
+  return hd_desc(at, DP * 16, 128);
 }
 
-// acc[nd] (16 rows x DP columns, m16n8 accumulators) += A (16 x 16, an mma
-// A fragment) times rows k0 .. k0 + 15 of tile V ([row][DP + 8]): P V, dS K,
-// P^T dO, dS^T Q
-template <int DP>
-__device__ __forceinline__ void hd_mma_rows(float (&acc)[DP / 8][4], const uint32_t (&a)[4],
-                                            const bf16* V, int k0, int lane) {
-  constexpr int P = DP + 8;
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; nd += 2) {
-    uint32_t vb[4];
-    ldmatrix_x4_trans(vb, V + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
-                              (nd + (lane >> 4)) * 8);
-    mma_16816(acc[nd], a, vb[0], vb[1]);
-    mma_16816(acc[nd + 1], a, vb[2], vb[3]);
-  }
+// the n of the score products (S = Q K^T, S^T = K Q^T, dP^T = V dO^T): 32,
+// and 16 at the widest heads, where the backward's registers are scarcest;
+// one function of the width for both cores, so that their scores are the
+// same instruction's
+__host__ __device__ constexpr int hd_score_n(int DP) { return DP >= 112 ? 16 : 32; }
+
+// the A fragments of keys (or queries) 16 kk .. 16 kk + 15 of a bf16 copy of
+// a m64nM accumulator s (this thread's part, M / 2 values): an accumulator's
+// layout is the A fragment's
+template <int M>
+__device__ __forceinline__ void hd_pack_a(uint32_t (&a)[4], const float (&s)[M], int kk) {
+  const int i = 8 * kk;
+  a[0] = pack_bf16(s[i], s[i + 1]);
+  a[1] = pack_bf16(s[i + 2], s[i + 3]);
+  a[2] = pack_bf16(s[i + 4], s[i + 5]);
+  a[3] = pack_bf16(s[i + 6], s[i + 7]);
 }
 
-// the warp's rows r and r + 8 of a 16 x DP accumulator into a bf16 matrix
-// (dst: column 0 of row 0; rows ld apart), columns below d and rows below n
-template <int DP>
-__device__ __forceinline__ void hd_store(bf16* dst, long long ld, int r, int n, int d,
-                                         const float (&acc)[DP / 8][4], int t) {
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (c >= d) continue;
-    if (r < n) *reinterpret_cast<uint32_t*>(dst + r * ld + c) = pack_bf16(acc[nd][0], acc[nd][1]);
-    if (r + 8 < n)
-      *reinterpret_cast<uint32_t*>(dst + (r + 8) * ld + c) = pack_bf16(acc[nd][2], acc[nd][3]);
+// wgmma m64nNk16, f32 += bf16 x bf16, d this thread's N / 2 accumulators
+// (warp w of the warpgroup rows 16 w .. 16 w + 15; d[4j .. 4j + 3] the
+// mma.sync c fragment of columns 8j .. 8j + 7): rs, A from registers (an
+// mma.sync a fragment of the warp's 16 rows) and B from shared memory, at
+// every n the cores' P V, P^T dO and dS^T Q take; ss, both from shared
+// memory, at the n of the score and dQ products. TA / TB: the operand is
+// MN-major. acc = 0 starts the sum from zero.
+template <int N>
+struct HdMma;
+
+template <>
+struct HdMma<16> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
   }
-}
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct HdMma<32> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct HdMma<48> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[24], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[24], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, %27, %28;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct HdMma<56> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[28], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "{%28, %29, %30, %31}, %32, p, 1, 1, %34;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct HdMma<64> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct HdMma<80> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct HdMma<96> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct HdMma<112> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[56], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, %62;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct HdMma<128> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+  }
+};
 
 // Launch counts of the two kernels, where they are launched (the entries'
-// own included): the forward core, and the backward (its three launches
-// counted once); read by d2s_attention_hd_launches
+// own included): the forward core, and the backward; read by
+// d2s_attention_hd_launches
 extern long long attention_hd_launches[2];
 
 }  // namespace d2s

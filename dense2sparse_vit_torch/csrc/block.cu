@@ -521,175 +521,300 @@ static __global__ void __launch_bounds__(ATT_THREADS)
 //
 // attention_hd_kernel computes what attention_kernel computes, in its three
 // modes (plain, policy, the CLS rows), for a head width d that is even and
-// at most 128: the same exact fp32 row-max softmax, the same policy softmax
-// with the smoothing eps/N riding in the probabilities fed to P.V, the same
-// statistics for the backward. A CTA of 4 warps takes one sample-head's 64
-// query rows (16 a warp) and streams the keys through shared memory in
-// blocks of 64, in two passes as attention_kernel does: the first takes each
-// row's exact max (policy mode: of the scaled scores, and how many columns
-// reach it), the second exponentiates against it and multiplies into V. So
-// nothing is rescaled as the keys go by (no online softmax), and the
-// policy's eps/N term, which the max does not scale, needs no keeping apart.
-// K is read twice and V once per 64 query rows, from L2 mostly. The CLS
-// rows: the CTA of query rows 0-63 keeps row 0's unnormalised
-// probabilities in shared memory as pass 2 makes them and writes them
-// normalised at the end. Its statistics are always (B, H, N) float4: (lse,
-// 0, 0, 0) in plain mode, (max, den, ties, 0) in policy mode, which
-// block_bwd.cu's backward at these widths takes. What bounds it: at B=64,
-// N=197, d=12, H=32 its bytes (qkv read, the output written, ~0.02 ms at
-// 3.35 TB/s) against ~0.6 GFLOP; this design pays for its simplicity in
-// 4-byte loads, a K read twice and mma.sync on zero-padded tiles (at d = 12,
-// 16 columns of which 4 are zero). Its times are in PERF.md.
+// at most 128: the same exact fp32 row-max softmax, the same policy softmax,
+// and the statistics the backward takes, always (B, H, N) float4 at these
+// widths: (lse, 0, 0, 0) in plain mode, (max, den, ties, 0) in policy mode.
+// What bounds it: bytes. At B=64, N=197, d=96 (8 heads) it reads qkv and
+// writes its output, ~0.023 ms at 3.35 TB/s, against ~7.6 GFLOP of score and
+// P.V products (~0.008 ms at the bf16 peak, ~0.012 ms with the padding to
+// 64-key blocks); at d=12 (32 heads) ~0.012 ms of bytes, but ~4 times as
+// many exponentials a byte. The design:
+//   - a CTA is two warpgroups, each with one 64-row query block of a
+//     sample-head, sharing the keys' tiles (grid: half the query blocks x
+//     B H): each key reaches shared memory once per 128 queries, from L2
+//     mostly, as the CTAs of one sample-head read the same K and V (one
+//     warpgroup a CTA, or four, took longer on the card);
+//   - one pass over the keys with an online softmax: per 64-key block, S =
+//     Q K^T on wgmma (m64n32k16 chains, n16 at d > 96: hd_score_n; Q and
+//     K from shared memory),
+//     the block's row max (policy mode: of the scaled scores, with the
+//     columns that reach it, merged into the running count as the max
+//     moves), the running sums and the output rescaled by 2^(m_old -
+//     m_new), p = 2^(s scale log2 e - m log2 e) (policy mode: times a_ij),
+//     and O += P V on wgmma m64nDPk16 with P from registers, V from shared
+//     memory as an MN-major operand. Nothing but the accumulators is
+//     rescaled: in policy mode the smoothing's (eps/N) colsum(V) stays
+//     apart, summed in fp32 from the V tiles as they pass, and added at the
+//     end;
+//   - the keys stream through a ring of `ring` (2 or 3) K and V tile pairs,
+//     filled by cp.async (attention_hd.cuh) ring - 1 blocks ahead of the
+//     products;
+//   - the CLS rows: the threads of query row 0 keep its raw scores in
+//     shared memory as the blocks pass and write the normalised row at the
+//     end, against the final max and sum.
+// Its times are in PERF.md.
+constexpr int HD_FWD_WG = 2;  // warpgroups (query blocks) a CTA of the forward
+
+template <int DP>
+__host__ __device__ constexpr int hd_fwd_groups() {
+  return 128 / (DP / 2);  // colsum(V)'s key groups: a column pair a thread
+}
+
+// the forward's shared memory: the CTA's Q tiles, a ring of `ring` K and V
+// tile pairs; in policy mode pol_j of every key and colsum(V)'s parts; with
+// cls row 0's raw scores
+template <int DP>
+static size_t hd_fwd_smem(int N, int ring, bool policy, bool cls) {
+  const size_t keys = (size_t)(N + HD_BLK - 1) / HD_BLK * HD_BLK;
+  size_t bytes = (size_t)(HD_FWD_WG + 2 * ring) * HD_TILE<DP>;
+  if (policy) bytes += (keys + hd_fwd_groups<DP>() * DP) * 4;
+  if (cls) bytes += keys * 4;
+  return bytes;
+}
+
 template <int DP, bool POLICY>
-static __global__ void __launch_bounds__(HD_THREADS)
+static __global__ void __launch_bounds__(128 * HD_FWD_WG)
     attention_hd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
                         bf16* __restrict__ out, float* __restrict__ lse, bf16* __restrict__ cls,
-                        const float* __restrict__ pol, int N, int H, float scale, float eps) {
-  constexpr int P = DP + 8;
-  extern __shared__ __align__(16) unsigned char hd_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(hd_smem);
-  bf16* Ks = Qs + HD_BLK * P;
-  bf16* Vs = Ks + HD_BLK * P;
-  float* Ps = reinterpret_cast<float*>(Vs + HD_BLK * P);  // pol_j of the key block
-  float* Row0 = Ps + HD_BLK;  // with cls: row 0's unnormalised probabilities
+                        const float* __restrict__ pol, int N, int H, float scale, float eps,
+                        int ring, int pb) {
+  constexpr int T = HD_TILE<DP>;
+  constexpr int NT = 128 * HD_FWD_WG;
+  constexpr int CP = DP / 2;  // column pairs
+  constexpr int GROUPS = hd_fwd_groups<DP>();
+  constexpr int SN = hd_score_n(DP), NH = HD_BLK / SN;  // a score chain's keys, chains a block
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char hd_smem[];
+  const int nkb = (N + HD_BLK - 1) / HD_BLK;
+  unsigned char* Qs = hd_smem;                   // the warpgroups' Q tiles
+  unsigned char* KVs = Qs + HD_FWD_WG * T;       // the ring's (K, V) tile pairs
+  float* Ps = reinterpret_cast<float*>(KVs + (size_t)ring * 2 * T);  // pol_j of every key
+  float* Cvp = Ps + (POLICY ? nkb * HD_BLK : 0);  // colsum(V)'s parts, [group][DP]
+  float* Row0 = Cvp + (POLICY ? GROUPS * DP : 0);  // with cls: row 0's raw scores
 
   const int C = H * d;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int q0 = blockIdx.x * HD_BLK;
   const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int ct = tid & 127;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int warp = ct >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int qr = warp * 16;  // the warp's rows of the tile: qr + g, qr + g + 8
+  const int q0 = (blockIdx.x * HD_FWD_WG + wg) * HD_BLK;  // the warpgroup's query block
   const bf16* base = qkv + (long long)b * q_bstride + h * d;
-  const int nkb = (N + HD_BLK - 1) / HD_BLK;
-  constexpr float LOG2E = 1.4426950408889634f;
   const float sl2 = scale * LOG2E;
   const float cc = POLICY ? eps / N : 0.f;
-  const bool row0 = cls != nullptr && q0 == 0 && warp == 0 && g == 0;
+  const int ra = q0 + warp * 16 + g;  // this thread's query rows ra, ra + 8
+  const bool row0 = cls != nullptr && ra == 0;
+  const int cpair = ct % CP, cgrp = ct / CP;  // colsum: a column pair, a key group
+  const unsigned char* Qt = Qs + wg * T;
 
-  hd_load_tile<DP>(Qs, base, q_ld, q0, N, d, tid, HD_THREADS);
-
-  // pass 1: each row's max over the N real keys (policy mode: of the scaled
-  // scores, with the columns that reach it)
-  float mx[2] = {-INFINITY, -INFINITY}, ct[2] = {0.f, 0.f};
-  for (int kb = 0; kb < nkb; ++kb) {
-    __syncthreads();  // the tile's last readers are done
-    hd_load_tile<DP>(Ks, base + C, q_ld, kb * HD_BLK, N, d, tid, HD_THREADS);
-    __syncthreads();
-    for (int k16 = 0; k16 < HD_BLK && kb * HD_BLK + k16 < N; k16 += 16) {
-      float s[2][4];
-      hd_scores16<DP>(s, Qs, qr, Ks, k16, lane);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (kb * HD_BLK + k16 + 8 * j + 2 * t + (e & 1) >= N) continue;
-          if (POLICY) max_count(s[j][e] * scale, mx[e >> 1], ct[e >> 1]);
-          else mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-        }
+  // key block j's K and V into its ring slot; a commit group each, empty
+  // past the last block
+  auto load_kv = [&](int j) {
+    if (j < nkb) {
+      unsigned char* slot = KVs + (size_t)(j % ring) * 2 * T;
+      hd_copy_tile<DP>(slot, base + C, q_ld, j * HD_BLK, N, d, pb, tid, NT);
+      hd_copy_tile<DP>(slot + T, base + 2 * C, q_ld, j * HD_BLK, N, d, pb, tid, NT);
     }
-  }
+    cp_async_commit();
+  };
 #pragma unroll
-  for (int o = 1; o < 4; o <<= 1)
+  for (int w = 0; w < HD_FWD_WG; ++w)  // rows past N (a CTA's spare block) are zeros
+    hd_copy_tile<DP>(Qs + w * T, base, q_ld, (blockIdx.x * HD_FWD_WG + w) * HD_BLK, N, d, pb,
+                     tid, NT);
+  for (int j = 0; j + 1 < ring; ++j) load_kv(j);  // the first group holds Q too
+  if (POLICY)
+    for (int k = tid; k < nkb * HD_BLK; k += NT) Ps[k] = k < N ? pol[(long long)b * N + k] : 0.f;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, ct2[2] = {0.f, 0.f};
+  float cs[2] = {0.f, 0.f};  // policy mode: this thread's part of colsum(V)
+
+  for (int j = 0; j < nkb; ++j) {
+    wgmma_wait<0>();  // block j - 1's P V, whose V slot is refilled below
+    fence_acc(o);
+    if (ring == 2) cp_async_wait<0>();
+    else cp_async_wait<1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // K_j and V_j in for every thread; every product of block j - 1 done
+    load_kv(j + ring - 1);
+    const unsigned char* Kt = KVs + (size_t)(j % ring) * 2 * T;
+    const unsigned char* Vt = Kt + T;
+    const int k0 = j * HD_BLK;
+
+    // S = Q K^T for keys k0 + SN hh .. + SN - 1: m64nSNk16 from zero in kk order
+    float s[NH][SN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        HdMma<SN>::template ss<0, 0>(s[hh], hd_kdesc<DP>(Qt + kk * 256),
+                                     hd_kdesc<DP>(Kt + hh * (SN / 8) * DP * 16 + kk * 256), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) fence_acc(s[hh]);
+
+    // the block's max per row (policy mode: of the scaled scores, and the
+    // columns that reach it), columns past N left out; s[hh][i] is row
+    // (i >> 1) & 1 (ra or ra + 8), column k0 + SN hh + 8 (i >> 2) + 2t + (i & 1)
+    const bool edge = k0 + HD_BLK > N;
+    float bm[2] = {-INFINITY, -INFINITY}, bc[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+      for (int i = 0; i < SN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        if (edge && k0 + SN * hh + 8 * (i >> 2) + 2 * t + (i & 1) >= N) {
+          s[hh][i] = -INFINITY;  // a probability of 0 below
+          continue;
+        }
+        if (POLICY) max_count(s[hh][i] * scale, bm[r], bc[r]);
+        else bm[r] = fmaxf(bm[r], s[hh][i]);
+      }
+    float ml[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m = __shfl_xor_sync(0xffffffffu, mx[r], o);
-      if (POLICY) {
-        const float c = __shfl_xor_sync(0xffffffffu, ct[r], o);
-        if (m > mx[r]) ct[r] = c;
-        else if (m == mx[r]) ct[r] += c;
-      }
-      mx[r] = fmaxf(mx[r], m);
-    }
-  if (!POLICY) {
-    mx[0] *= scale;  // scale > 0, so the max of the scaled scores
-    mx[1] *= scale;
-  }
-
-  // pass 2: p = 2^(s scale log2 e - max log2 e) (policy mode: times a_ij,
-  // eps/N added for P.V), l += p, O += p V
-  const float ml[2] = {mx[0] * LOG2E, mx[1] * LOG2E};
-  float o[DP / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float l[2] = {0.f, 0.f};
-  const int ra = q0 + qr + g;  // this thread's query rows ra, ra + 8
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * HD_BLK;
-    __syncthreads();
-    hd_load_tile<DP>(Ks, base + C, q_ld, k0, N, d, tid, HD_THREADS);
-    hd_load_tile<DP>(Vs, base + 2 * C, q_ld, k0, N, d, tid, HD_THREADS);
-    if (POLICY && tid < HD_BLK) Ps[tid] = k0 + tid < N ? pol[(long long)b * N + k0 + tid] : 0.f;
-    __syncthreads();
-    for (int k16 = 0; k16 < HD_BLK && k0 + k16 < N; k16 += 16) {
-      float s[2][4];
-      hd_scores16<DP>(s, Qs, qr, Ks, k16, lane);
-      uint32_t pa[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c0 = k0 + k16 + 8 * j + 2 * t;  // this thread's columns c0, c0 + 1
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + (e & 1);
-          p[e] = col < N ? att_exp2(s[j][e] * sl2 - ml[e >> 1]) : 0.f;
-          if (POLICY) {
-            const float a = Ps[col - k0];  // zero past N
-            p[e] *= col == ra + 8 * (e >> 1) ? a + (1.f - a) : a;
-          }
-          l[e >> 1] += p[e];
-          if (row0 && e < 2 && col < N) Row0[col] = p[e];
-          if (POLICY && col < N) p[e] += cc;
+      for (int off = 1; off < 4; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, bm[r], off);
+        if (POLICY) {
+          const float co = __shfl_xor_sync(0xffffffffu, bc[r], off);
+          if (mo > bm[r]) bc[r] = co;
+          else if (mo == bm[r]) bc[r] += co;
         }
-        pa[2 * j] = pack_bf16(p[0], p[1]);
-        pa[2 * j + 1] = pack_bf16(p[2], p[3]);
+        bm[r] = fmaxf(bm[r], mo);
       }
-      hd_mma_rows<DP>(o, pa, Vs, k16, lane);
+      // scale > 0, so the max of the scaled scores
+      const float bmax = POLICY ? bm[r] : bm[r] * scale;
+      const float mn = fmaxf(m[r], bmax);
+      if (POLICY) ct2[r] = bmax > m[r] ? bc[r] : bmax == m[r] ? ct2[r] + bc[r] : ct2[r];
+      const float alpha = att_exp2((m[r] - mn) * LOG2E);  // 0 at the first block
+      m[r] = mn;
+      ml[r] = mn * LOG2E;
+      l[r] *= alpha;
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd) {
+        o[4 * nd + 2 * r] *= alpha;
+        o[4 * nd + 2 * r + 1] *= alpha;
+      }
     }
+
+    if (row0) {  // query row 0's raw scores, for the CLS row at the end
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+        for (int i = 0; i < SN / 2; ++i) {
+          const int col = k0 + SN * hh + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (!(i & 2) && col < N) Row0[col] = s[hh][i];  // row ra, not ra + 8
+        }
+    }
+
+    // p = 2^(s scale log2 e - m log2 e) (policy mode: times a_ij = pol_j,
+    // pol_j + (1 - pol_j) on the diagonal), l += p, P as A fragments
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+#pragma unroll
+      for (int i = 0; i < SN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = k0 + SN * hh + 8 * (i >> 2) + 2 * t + (i & 1);
+        float p = att_exp2(s[hh][i] * sl2 - ml[r]);
+        if (POLICY) {
+          const float a = Ps[col];  // zero past N
+          p *= col == ra + 8 * r ? a + (1.f - a) : a;
+        }
+        l[r] += p;
+        s[hh][i] = p;
+      }
+#pragma unroll
+      for (int kk = 0; kk < SN / 16; ++kk) hd_pack_a(pa[(SN / 16) * hh + kk], s[hh], kk);
+    }
+    if (POLICY && wg == 0 && cgrp < GROUPS) {  // colsum(V): rows past N are zero
+      for (int k = cgrp; k < HD_BLK; k += GROUPS) {
+        const __nv_bfloat162 v2 =
+            *reinterpret_cast<const __nv_bfloat162*>(Vt + hd_at<DP>(k, 2 * cpair));
+        cs[0] += __low2float(v2);
+        cs[1] += __high2float(v2);
+      }
+    }
+
+    // O += P V over the block's keys, 16 at a time
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(pa[kk]);
+    fence_acc(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      HdMma<DP>::template rs<1>(o, pa[kk], hd_mdesc<DP>(Vt + kk * 2 * DP * 16), 1);
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  fence_acc(o);
 
 #pragma unroll
-  for (int sh = 1; sh < 4; sh <<= 1) {
-    l[0] += __shfl_xor_sync(0xffffffffu, l[0], sh);
-    l[1] += __shfl_xor_sync(0xffffffffu, l[1], sh);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (POLICY) l[r] += eps;
   }
-  if (POLICY) {
-    l[0] += eps;
-    l[1] += eps;
+  if (POLICY) {  // colsum(V): the key groups' parts added in order
+    if (wg == 0 && cgrp < GROUPS) {
+      Cvp[cgrp * DP + 2 * cpair] = cs[0];
+      Cvp[cgrp * DP + 2 * cpair + 1] = cs[1];
+    }
+    __syncthreads();
   }
-  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
   const long long stat = (long long)blockIdx.y * N;  // (b, h) row of lse and cls
   if (lse && t == 0) {
     float4* st4 = reinterpret_cast<float4*>(lse);
-    if (ra < N)
-      st4[stat + ra] = POLICY ? make_float4(mx[0], l[0], ct[0], 0.f)
-                              : make_float4(mx[0] + logf(l[0]), 0.f, 0.f, 0.f);
-    if (ra + 8 < N)
-      st4[stat + ra + 8] = POLICY ? make_float4(mx[1], l[1], ct[1], 0.f)
-                                  : make_float4(mx[1] + logf(l[1]), 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (ra + 8 * r < N)
+        st4[stat + ra + 8 * r] = POLICY ? make_float4(m[r], l[r], ct2[r], 0.f)
+                                        : make_float4(m[r] + logf(l[r]), 0.f, 0.f, 0.f);
   }
   if (cls && q0 == 0 && warp == 0) {
-    // query row 0: its probabilities, normalised by the row's sum (lanes 0-3
-    // hold it)
+    // query row 0: its probabilities against the final max and sum (lanes
+    // 0-3 hold them)
     __syncwarp();
-    const float inv = __shfl_sync(0xffffffffu, inv0, 0);
-    for (int col = lane; col < N; col += 32)
-      cls[stat + col] = __float2bfloat16((Row0[col] + cc) * inv);
+    const float inv0 = __shfl_sync(0xffffffffu, inv[0], 0);
+    const float ml0 = __shfl_sync(0xffffffffu, m[0], 0) * LOG2E;
+    for (int col = lane; col < N; col += 32) {
+      float v = att_exp2(Row0[col] * sl2 - ml0);
+      if (POLICY) {
+        const float a = Ps[col];
+        v = v * (col == 0 ? a + (1.f - a) : a) + cc;
+      }
+      cls[stat + col] = __float2bfloat16(v * inv0);
+    }
   }
   bf16* obase = out + (long long)b * N * C + h * d;
-  const float mul[2] = {inv0, inv1};
 #pragma unroll
   for (int nd = 0; nd < DP / 8; ++nd) {
     const int c = nd * 8 + 2 * t;
     if (c >= d) continue;
+    float add0 = 0.f, add1 = 0.f;  // policy mode: (eps/N) colsum(V)
+    if (POLICY) {
+      for (int grp = 0; grp < GROUPS; ++grp) {
+        add0 += Cvp[grp * DP + c];
+        add1 += Cvp[grp * DP + c + 1];
+      }
+      add0 *= cc;
+      add1 *= cc;
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (ra + 8 * r < N)
         *reinterpret_cast<uint32_t*>(obase + (long long)(ra + 8 * r) * C + c) =
-            pack_bf16(o[nd][2 * r] * mul[r], o[nd][2 * r + 1] * mul[r]);
+            pack_bf16((o[4 * nd + 2 * r] + add0) * inv[r], (o[4 * nd + 2 * r + 1] + add1) * inv[r]);
   }
 }
 
@@ -700,14 +825,18 @@ static cudaError_t launch_attention_hd_dp(const bf16* qkv, long long q_bstride, 
                                           bf16* out, float* lse, bf16* cls, const float* pol,
                                           int B, int N, int H, float scale, float eps,
                                           cudaStream_t stream) {
-  const size_t smem = (size_t)3 * HD_BLK * (DP + 8) * 2 + HD_BLK * 4 + (cls ? (size_t)N * 4 : 0);
+  // the ring: three slots where two CTAs still fit an SM's 228 KB, else two
+  const bool policy = pol != nullptr, with_cls = cls != nullptr;
+  const int ring = 2 * (hd_fwd_smem<DP>(N, 3, policy, with_cls) + 1024) <= 233472 ? 3 : 2;
+  const size_t smem = hd_fwd_smem<DP>(N, ring, policy, with_cls);
   auto kernel = pol ? attention_hd_kernel<DP, true> : attention_hd_kernel<DP, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + HD_BLK - 1) / HD_BLK, B * H);
-  kernel<<<grid, HD_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, d, out, lse, cls, pol, N, H,
-                                             scale, eps);
+  const int nqb = (N + HD_BLK - 1) / HD_BLK;
+  const dim3 grid((nqb + HD_FWD_WG - 1) / HD_FWD_WG, B * H);
+  kernel<<<grid, 128 * HD_FWD_WG, smem, stream>>>(qkv, q_bstride, q_ld, d, out, lse, cls, pol, N,
+                                                  H, scale, eps, ring, hd_piece_bytes(d));
   err = cudaGetLastError();
   if (err == cudaSuccess) ++attention_hd_launches[0];
   return err;
@@ -989,7 +1118,7 @@ extern "C" int d2s_attention_packed_forward(const void* qkv, long long q_bstride
 // The launches of the attention core at head widths other than 64 since the
 // last reset, counted where they are launched, inside every entry: which = 0
 // the forward (attention_hd_kernel), 1 the backward (block_bwd.cu's
-// attention_hd_bwd_kernel pair and its row statistics, once a backward);
+// attention_hd_bwd_kernel, once a backward);
 // value >= 0 resets the count to it.
 extern "C" long long d2s_attention_hd_launches(int which, long long value) {
   if (which != 0 && which != 1) return -1;

@@ -1050,11 +1050,14 @@ static cudaError_t ab_plan(int N, bool policy, bool fold, AbLayout* out) {
 // sums every query of a key in one CTA).
 static int dpol_splits(int N, int d) { return d == AB_HD ? ab_splits(N, true) : 1; }
 
-// The fp32 floats of the split partials at these shapes (head width d): dK
-// and dV (splits, B*N, 2C) where a sample-head is split (d = 64 only), else
-// none; dPolicy's (splits, B, H, N) in policy mode.
+// The fp32 floats of the split partials at these shapes (head width d): at
+// d = 64 dK and dV (splits, B*N, 2C) where a sample-head is split, else
+// none; at the other widths dQ's sum over the passes (B*N, C) past two key
+// blocks (attention_hd_bwd_kernel), else none; dPolicy's (splits, B, H, N)
+// in policy mode.
 static long long kv_part_floats(int B, int N, int H, int d, bool policy) {
-  const int sp = d == AB_HD ? ab_splits(N, policy) : 1;
+  if (d != AB_HD) return N > 2 * HD_BLK ? (long long)B * N * H * d : 0;
+  const int sp = ab_splits(N, policy);
   return sp > 1 ? (long long)sp * B * N * 2 * H * AB_HD : 0;
 }
 static long long dpol_part_floats(int B, int N, int H, int d, bool policy) {
@@ -1066,315 +1069,517 @@ static long long dpol_part_floats(int B, int N, int H, int d, bool policy) {
 // attention_hd_bwd_kernel computes what attention_bwd_kernel computes, in
 // its modes (plain; policy, with dPolicy's per-head partials summed by
 // sum_heads_kernel; the CLS fold), for an even head width d up to 128 (the
-// design notes of attention_hd.cuh): dQ, dK and dV from qkv, dO and the
-// forward's statistics, every N up to 800, deterministic (no atomics, the
-// same bits every launch). Three launches:
-//   - attention_hd_rows_kernel, a CTA per sample-head, turns the forward's
-//     float4 statistics into what both products need per query row, in
-//     place: (lse or the max m, 1 / den, D = rowsum(dO * O), the max path's
-//     gmx), with the CLS fold (D_0 += sum_j gcls_j P_0j, P_0j from row 0's
-//     scores in fp32) and in policy mode colsum(V), each a sum in a fixed
-//     order, exactly as attention_bwd_kernel forms them;
-//   - attention_hd_bwd_kernel<KV = true>, a CTA per (sample-head, 64-key
-//     block): streams the query blocks, each warp forms P and dS (scaled)
-//     for its 16 query rows and the block's keys from S and dP
-//     (hd_scores16, bit for bit the forward's S), stores both to a stage in
-//     shared memory, then each warp adds P^T dO and dS^T Q for its 16 keys
-//     (the stage read back transposed by ldmatrix). dK and dV sum over the
-//     query blocks in order, and dPolicy's partials of the block's keys over
-//     the warps' rows in order;
-//   - attention_hd_bwd_kernel<KV = false>, a CTA per (sample-head, 64-query
-//     block): streams the key blocks, forms dS the same way and adds dS K
-//     (dS from registers) into dQ in key order.
+// layout and product notes of attention_hd.cuh): dQ, dK and dV from qkv,
+// dO and the forward's float4 statistics, every N up to 800, deterministic
+// (no atomics, the same bits every launch). What bounds it: at B=64, N=197,
+// d=96 (8 heads) its bytes (qkv, O and dO read, dqkv written, ~0.04 ms)
+// against ~19 GFLOP of products (five of N x N x d per sample-head). The
+// design, one launch, a CTA of two warpgroups per sample-head:
+//   - the prologue, the whole CTA, while the first pass's copies run: each
+//     query row's statistics in shared memory, (lse or the max m, 1 / den,
+//     D = rowsum(dO * O), the max path's gmx), a segment of lanes a row
+//     (8 to 32 lanes by the width, so several rows a warp at d = 12) over
+//     coalesced pairs, four rows' loads in flight; in policy mode
+//     colsum(V), with gcls the CLS fold D_0 += sum_j gcls_j P_0j (P_0j from
+//     row 0's scores in fp32), each summed in a fixed order;
+//   - passes over the key blocks two at a time: warpgroup w owns key block
+//     2p + w of pass p (past the last block: every key masked), its K and V
+//     in shared memory and its dK and dV in registers for the pass, while
+//     the query blocks stream through a ring of Q and dO tiles (cp.async,
+//     ring - 1 blocks ahead). Per query block each warpgroup forms S^T = K
+//     Q^T and dP^T = V dO^T for its 64 keys, 32 queries at a time (16 at d >
+//     96; wgmma m64n32k16 or n16, the forward's instruction with the
+//     operands' roles swapped), turns them into P^T and dS^T (scaled) in registers, adds dV
+//     += P^T dO and dK += dS^T Q (wgmma m64nDPk16, A from registers, dO and
+//     Q MN-major from the ring) and stores dS^T to a stage. Five products,
+//     S and dP once per (query block, key block);
+//   - dQ: once both warpgroups have staged a query block, each forms half
+//     of dQ_i's columns over the pass's 128 keys (wgmma, the stage as an
+//     MN-major A, K as an MN-major B; the same instructions in both
+//     warpgroups) and adds it to the fp32 sum of the earlier passes, which
+//     a cp.async group brought into shared memory while the products ran;
+//     the sum goes back to dq_acc ((B*N, C), a sample-head's rows touched by
+//     its own CTA alone, in pass order), the last pass writing bf16 into
+//     dqkv. With one pass (N <= 128) there is no dq_acc;
+//   - dPolicy_j is a sum over the queries of key j's row of the
+//     warpgroup's own accumulators: summed in registers in query order,
+//     then across the quad, one partial per head.
 // Policy mode's max path is attention_bwd_kernel's: gmx_i goes to the
 // columns whose scaled score equals the forward's stored max, split evenly
 // over the ties it counted; the scores are the forward's bits, so the test
-// finds the forward's maxima. What bounds it: at B=64, N=197, d=12, H=32 its
-// bytes (qkv and dO read, dqkv written, ~0.04 ms); it pays the scores and dP
-// twice (once a launch), 4-byte loads and zero-padded mma.sync tiles, for
-// its simplicity. Its times are in PERF.md.
+// finds the forward's maxima (checked on planted ties on the card). What
+// still holds it back: one CTA an SM (dK and dV take DP registers a
+// thread), whose two warpgroups run the same phases in step (copies,
+// products, softmax, the dQ sum), so little of one phase hides behind
+// another's. Its times are in PERF.md.
 
-// the backward's statistics of the query rows, in place of the forward's:
-// (lse or m, 1 / den, D, gmx); 256 threads
-template <bool POLICY>
-static __global__ void __launch_bounds__(256)
-    attention_hd_rows_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
-                             const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                             float4* __restrict__ st, const float* __restrict__ pol,
-                             const float* __restrict__ gcls, int N, int H, float scale,
-                             float eps) {
-  __shared__ float Cvp[2 * 256];  // colsum(V)'s partial sums: a column pair over a row group
-  __shared__ float Cv[HD_MAX];
-  __shared__ float Fold[16];  // per warp, its part of the fold and of sum_j gcls_j
-  __shared__ float fold[2];
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, C = H * d;
-  const int tid = threadIdx.x;
-  const float cc = POLICY ? eps / N : 0.f;
-  const bf16* base = qkv + (long long)b * q_bstride + h * d;
-  const long long srow = (long long)bh * N;
-  if (POLICY) {  // colsum(V): the row groups' sums added in order
-    const int pairs = d / 2, groups = 256 / pairs;
-    const int p = tid % pairs, grp = tid / pairs;
-    if (grp < groups) {
-      float a0 = 0.f, a1 = 0.f;
-      for (int r = grp; r < N; r += groups) {
-        const bf16* v = base + 2 * C + (long long)r * q_ld + 2 * p;
-        a0 += __bfloat162float(v[0]);
-        a1 += __bfloat162float(v[1]);
+// the lanes a row of the backward's prologue takes at padded width DP: its
+// column pairs rounded up to a power of two, 8 to 32
+__host__ __device__ constexpr int hd_seg(int DP) { return DP >= 64 ? 32 : DP >= 32 ? 16 : 8; }
+
+// the bytes of attention_hd_bwd_kernel's shared memory at padded width DP:
+// the pass's two key blocks' K and V, a ring of `ring` query blocks' Q and
+// dO, two buffers of the two key blocks' dS^T stage, a query block's dQ sum
+// of the earlier passes (fp32), the query rows' statistics (float4), pol_j
+// and gcls_j of every key, colsum(V) with its eight warps' parts, the
+// fold's warp sums
+template <int DP>
+static size_t hd_bwd_smem(int N, int ring) {
+  const size_t rows = (size_t)(N + HD_BLK - 1) / HD_BLK * HD_BLK;
+  return (size_t)(4 + 2 * ring) * HD_TILE<DP> + 4 * HD_BLK * HD_BLK * 2 + HD_BLK * DP * 4 +
+         rows * 16 + 2 * rows * 4 + (1 + 8 * 32 / hd_seg(DP)) * DP * 4 + 66 * 4;
+}
+
+// dQ of query block rows qa, qa + 8 (this thread's), columns c0 .. c0 + CN -
+// 1 of the head (those from c_end on are dropped): the stage's dS^T (64 keys x
+// 64 queries, the MN-major A of dS) times the key block's K (MN-major B),
+// over the pass's two key blocks (a block past the last holds zeros); added
+// to the earlier passes' fp32 sum (its copy in shared memory, dqs: rows of
+// d from the block's first, qs), into dq_acc (rows ld apart), or, at the
+// last pass, written bf16 into dq
+template <int DP, int CN>
+__device__ __forceinline__ void hd_dq_chunk(const unsigned char* stg, const unsigned char* kv,
+                                            int c0, const float* dqs, int qs, float* dq_acc,
+                                            bf16* dq, long long ld, long long ld3, int qa, int N,
+                                            int d, int c_end, int t, bool first, bool last) {
+  constexpr int SB = HD_BLK * HD_BLK * 2;
+  constexpr int T = HD_TILE<DP>;
+  float acc[CN / 2];
+  const unsigned char* kc = kv + (c0 / 8) * 128;
+  wgmma_fence();
+#pragma unroll
+  for (int w2 = 0; w2 < 2; ++w2)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      HdMma<CN>::template ss<1, 1>(acc, hd_mdesc<HD_BLK>(stg + w2 * SB + ks * 2048),
+                                   hd_mdesc<DP>(kc + w2 * 2 * T + ks * 2 * DP * 16),
+                                   w2 + ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+#pragma unroll
+  for (int j = 0; j < CN / 8; ++j) {
+    const int c = c0 + 8 * j + 2 * t;
+    if (c >= c_end) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = qa + 8 * r;
+      if (q >= N) continue;
+      float2 v = make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      if (!first) {
+        const float2 prev = *reinterpret_cast<const float2*>(dqs + (q - qs) * d + c);
+        v = make_float2(prev.x + v.x, prev.y + v.y);
       }
-      Cvp[2 * tid] = a0;
-      Cvp[2 * tid + 1] = a1;
+      if (last) *reinterpret_cast<uint32_t*>(dq + q * ld3 + c) = pack_bf16(v.x, v.y);
+      else *reinterpret_cast<float2*>(dq_acc + q * ld + c) = v;
     }
-    __syncthreads();
-    if (tid < d) {
-      float acc = 0.f;
-      for (int gr = 0; gr < groups; ++gr) acc += Cvp[2 * (gr * pairs + tid / 2) + (tid & 1)];
-      Cv[tid] = acc;
+  }
+}
+
+// a CTA per sample-head (blockIdx.x), 256 threads. qkv (B, N, 3C) with token
+// rows q_ld elements apart and samples q_bstride apart, o and dout (B*N, C),
+// st the forward's (B, H, N) float4 statistics, dqkv (B*N, 3C) packed;
+// policy mode: pol (B, N), dpol_part (B, H, N) or null; gcls (B, H, N) or
+// null; dq_acc (B*N, C) fp32 where N > 128, else null; pb: the copies'
+// bytes (hd_piece_bytes)
+template <int DP, bool POLICY>
+static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // plain, d <= 16: two CTAs an SM
+    attention_hd_bwd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
+                            const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                            const float4* __restrict__ st, const float* __restrict__ pol,
+                            const float* __restrict__ gcls, bf16* __restrict__ dqkv,
+                            float* __restrict__ dpol_part, float* __restrict__ dq_acc, int N,
+                            int H, float scale, float eps, int ring, int pb) {
+  constexpr int T = HD_TILE<DP>;
+  constexpr int SB = HD_BLK * HD_BLK * 2;  // a stage tile: 64 keys x 64 queries
+  constexpr int SN = hd_score_n(DP);       // the queries of a step: the score products' n
+  extern __shared__ __align__(128) unsigned char hb_smem[];
+  const int nb = (N + HD_BLK - 1) / HD_BLK;  // query blocks, and key blocks
+  const int rows = nb * HD_BLK;
+  unsigned char* KV = hb_smem;                                // [key block of the pass][K, V]
+  unsigned char* Ring = KV + 4 * T;                           // [slot][Q, dO]
+  unsigned char* Stg = Ring + (size_t)ring * 2 * T;           // [buffer][key block] dS^T
+  float* Dqs = reinterpret_cast<float*>(Stg + 4 * SB);        // dQ of the earlier passes
+  float2* Rs0 = reinterpret_cast<float2*>(Dqs + HD_BLK * DP);  // a query row's (lse or m, D)
+  float2* Rs1 = Rs0 + rows;                                   // policy mode: its (1 / den, gmx)
+  float* Ps = reinterpret_cast<float*>(Rs1 + rows);           // pol_j
+  float* Gs = Ps + rows;                                      // gcls_j
+  float* Cv = Gs + rows;                                      // colsum(V)
+  float* Cvp = Cv + DP;                                       // its segments' parts
+  float* Fold = Cvp + 8 * 32 / hd_seg(DP) * DP;               // the fold's segment sums, totals
+
+  const int C = H * d;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;  // the CTA's warp
+  const int wg = tid >> 7;
+  const int warp = wid & 3;  // the warpgroup's
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const bf16* base = qkv + (long long)b * q_bstride + h * d;
+  const bf16* dbase = dout + (long long)b * N * C + h * d;
+  const bf16* obase = o + (long long)b * N * C + h * d;
+  const long long srow = (long long)bh * N;
+  const long long ld3 = 3LL * C;
+  const float cc = POLICY ? eps / N : 0.f;
+  auto pair = [](const bf16* p) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+    return make_float2(__low2float(v), __high2float(v));
+  };
+  // query block i's Q and dO into its ring slot; a commit group each, empty
+  // past the last block
+  auto load_q = [&](int i) {
+    if (i < nb) {
+      unsigned char* slot = Ring + (size_t)(i % ring) * 2 * T;
+      hd_copy_tile<DP>(slot, base, q_ld, i * HD_BLK, N, d, pb, tid, 256);
+      hd_copy_tile<DP>(slot + T, dbase, C, i * HD_BLK, N, d, pb, tid, 256);
+    }
+    cp_async_commit();
+  };
+  // pass p's K and V with the first query blocks' Q and dO, which complete
+  // with the first group
+  auto start_pass = [&](int p) {
+#pragma unroll
+    for (int w2 = 0; w2 < 2; ++w2) {
+      unsigned char* kv = KV + w2 * 2 * T;
+      const int k0 = (2 * p + w2) * HD_BLK;
+      hd_copy_tile<DP>(kv, base + C, q_ld, k0, N, d, pb, tid, 256);
+      hd_copy_tile<DP>(kv + T, base + 2 * C, q_ld, k0, N, d, pb, tid, 256);
+    }
+    for (int i = 0; i + 1 < ring; ++i) load_q(i);
+  };
+  start_pass(0);  // its copies run during the prologue
+
+  // The prologue, over a head's rows of d columns: a segment of SEG lanes a
+  // row (its column pairs, PPL a lane), RPW rows a warp at once, U of those
+  // in flight; a segment's sums by shuffles within it, in a fixed order.
+  constexpr int SEG = hd_seg(DP), RPW = 32 / SEG, PPL = (DP / 2 + SEG - 1) / SEG, U = 4;
+  const int sub = lane / SEG, sl = lane % SEG;
+  auto seg_sum = [](float v) {
+#pragma unroll
+    for (int off = SEG / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+  };
+  // the keys' policy and gcls; the rows' statistics as the forward stored
+  // them; colsum(V)'s parts; the fold's parts
+  for (int r = tid; r < rows; r += 256) {
+    const bool in = r < N;
+    Ps[r] = POLICY && in ? pol[(long long)b * N + r] : 0.f;
+    Gs[r] = gcls != nullptr && in ? gcls[srow + r] : 0.f;
+    Rs0[r] = Rs1[r] = make_float2(0.f, 0.f);  // rows past N: zero probabilities below
+  }
+  if (POLICY) {  // segment (wid, sub) sums rows wid RPW + sub, + 8 RPW, ...
+    float a[2 * PPL];
+#pragma unroll
+    for (int k = 0; k < 2 * PPL; ++k) a[k] = 0.f;
+#pragma unroll 4
+    for (int r = wid * RPW + sub; r < N; r += 8 * RPW) {
+      const bf16* v = base + 2 * C + (long long)r * q_ld;
+#pragma unroll
+      for (int k = 0; k < PPL; ++k) {
+        const int c = 2 * (sl + SEG * k);
+        if (c < d) {
+          const float2 f = pair(v + c);
+          a[2 * k] += f.x;
+          a[2 * k + 1] += f.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PPL; ++k) {
+      const int c = 2 * (sl + SEG * k);
+      if (c < d) {
+        Cvp[(wid * RPW + sub) * DP + c] = a[2 * k];
+        Cvp[(wid * RPW + sub) * DP + c + 1] = a[2 * k + 1];
+      }
     }
   }
   if (gcls) {
     // D_0 += sum_j gcls_j P_0j, P_0j from row 0's scores in fp32: a key a
-    // thread, the warps' sums added in order
+    // segment, the segments' sums added in order below
     const float4 s0 = st[srow];
     const float rd0 = POLICY ? 1.f / s0.y : 0.f;
     float acc = 0.f, gs = 0.f;
-    for (int j = tid; j < N; j += 256) {
-      const bf16* kj = base + C + (long long)j * q_ld;
-      float dot = 0.f;
-      for (int c = 0; c < d; ++c) dot += __bfloat162float(base[c]) * __bfloat162float(kj[c]);
-      float p;
-      if (POLICY) {
-        const float pk = pol[(long long)b * N + j];
-        p = (__expf(dot * scale - s0.x) * (j == 0 ? pk + (1.f - pk) : pk) + cc) * rd0;
-      } else {
-        p = __expf(dot * scale - s0.x);
+    for (int j0 = wid * U * RPW; j0 < N; j0 += 8 * U * RPW) {
+      float dot[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * RPW + sub;
+        const bf16* kj = base + C + (long long)j * q_ld;
+        dot[u] = 0.f;
+#pragma unroll
+        for (int k = 0; k < PPL; ++k) {
+          const int c = 2 * (sl + SEG * k);
+          if (j < N && c < d) {
+            const float2 qv = pair(base + c), kv = pair(kj + c);
+            dot[u] += qv.x * kv.x + qv.y * kv.y;
+          }
+        }
       }
-      acc += gcls[srow + j] * p;
-      gs += gcls[srow + j];
-    }
-    acc = warp_sum(acc);
-    gs = warp_sum(gs);
-    if ((tid & 31) == 0) {
-      Fold[tid >> 5] = acc;
-      Fold[8 + (tid >> 5)] = gs;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      acc = gs = 0.f;
-      for (int w = 0; w < 8; ++w) {
-        acc += Fold[w];
-        gs += Fold[8 + w];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * RPW + sub;
+        const float dt = seg_sum(dot[u]);
+        if (j >= N) continue;
+        float p;
+        if (POLICY) {
+          const float pk = pol[(long long)b * N + j];
+          p = (__expf(dt * scale - s0.x) * (j == 0 ? pk + (1.f - pk) : pk) + cc) * rd0;
+        } else {
+          p = __expf(dt * scale - s0.x);
+        }
+        const float gj = gcls[srow + j];
+        acc += gj * p;
+        gs += gj;
       }
-      fold[0] = acc;
-      fold[1] = gs;
+    }
+    if (sl == 0) {
+      Fold[wid * RPW + sub] = acc;
+      Fold[32 + wid * RPW + sub] = gs;
     }
   }
   __syncthreads();
-  for (int r = tid; r < N; r += 256) {
-    const long long at = ((long long)b * N + r) * C + h * d;
-    float D = 0.f, dv = 0.f;
-    for (int c = 0; c < d; ++c) {
-      const float dd = __bfloat162float(dout[at + c]);
-      D += __bfloat162float(o[at + c]) * dd;
-      if (POLICY) dv += dd * Cv[c];
-    }
-    float4 sr = st[srow + r];
-    if (gcls && r == 0) {
-      D += fold[0];
-      dv += fold[1];  // sum_j dP_0j gains sum_j gcls_j
-    }
-    if (POLICY) {
-      const float rd = 1.f / sr.y;
-      sr = make_float4(sr.x, rd, D, cc * rd * (dv - N * D) / sr.z);
-    } else {
-      sr = make_float4(sr.x, 0.f, D, 0.f);
-    }
-    st[srow + r] = sr;
+  if (POLICY && tid < d) {
+    float a = 0.f;
+    for (int w = 0; w < 8 * RPW; ++w) a += Cvp[w * DP + tid];
+    Cv[tid] = a;
   }
-}
-
-// the bytes of attention_hd_bwd_kernel's shared memory at padded width DP:
-// Q, dO, K, V tiles, the P and dS stage, the rows' statistics, the key
-// block's policy and gcls, dPolicy's warp rows
-__host__ __device__ constexpr size_t hd_bwd_smem(int DP) {
-  return (size_t)(4 * HD_BLK * (DP + 8) + 2 * HD_BLK * (HD_BLK + 8)) * 2 + HD_BLK * 16 +
-         2 * HD_BLK * 4 + 4 * HD_BLK * 4;
-}
-
-// KV: a CTA per (key block blockIdx.x, sample-head blockIdx.y), dK and dV;
-// else a CTA per (query block, sample-head), dQ. st: the rows' statistics
-// of attention_hd_rows_kernel; dpol_part (B, H, N) or null (KV in policy
-// mode alone writes it).
-template <int DP, bool POLICY, bool KV>
-static __global__ void __launch_bounds__(HD_THREADS)
-    attention_hd_bwd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
-                            const bf16* __restrict__ dout, const float4* __restrict__ st,
-                            const float* __restrict__ pol, const float* __restrict__ gcls,
-                            bf16* __restrict__ dqkv, float* __restrict__ dpol_part, int N, int H,
-                            float scale, float eps) {
-  constexpr int P = DP + 8;
-  constexpr int SP = HD_BLK + 8;  // the stage's pitch: an odd number of 16-byte chunks
-  extern __shared__ __align__(16) unsigned char hb_smem[];
-  bf16* Qt = reinterpret_cast<bf16*>(hb_smem);
-  bf16* dOt = Qt + HD_BLK * P;
-  bf16* Kt = dOt + HD_BLK * P;
-  bf16* Vt = Kt + HD_BLK * P;
-  bf16* Pst = Vt + HD_BLK * P;  // [query][key]
-  bf16* dSst = Pst + HD_BLK * SP;
-  float4* Rs = reinterpret_cast<float4*>(dSst + HD_BLK * SP);
-  float* Ps = reinterpret_cast<float*>(Rs + HD_BLK);  // pol_j of the key block
-  float* Gs = Ps + HD_BLK;                             // gcls_j (query row 0's cotangent)
-  float* Dpw = Gs + HD_BLK;                            // dPolicy of the keys, a row a warp
-
-  const int C = H * d;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int w16 = warp * 16;
-  const bf16* base = qkv + (long long)b * q_bstride + h * d;
-  const bf16* dbase = dout + (long long)b * N * C + h * d;
-  const long long srow = (long long)bh * N;
-  const long long ld3 = 3LL * C;
-  const int nb = (N + HD_BLK - 1) / HD_BLK;
-  const float cc = POLICY ? eps / N : 0.f;
-
-  auto load_rows = [&](int q0) {  // Q, dO and the statistics of query rows q0 ..
-    hd_load_tile<DP>(Qt, base, q_ld, q0, N, d, tid, HD_THREADS);
-    hd_load_tile<DP>(dOt, dbase, C, q0, N, d, tid, HD_THREADS);
-    if (tid < HD_BLK)
-      Rs[tid] = q0 + tid < N ? st[srow + q0 + tid] : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  auto load_keys = [&](int k0) {  // K, V, the policy and gcls of keys k0 ..
-    hd_load_tile<DP>(Kt, base + C, q_ld, k0, N, d, tid, HD_THREADS);
-    hd_load_tile<DP>(Vt, base + 2 * C, q_ld, k0, N, d, tid, HD_THREADS);
-    if (tid < HD_BLK) {
-      const bool in = k0 + tid < N;
-      Ps[tid] = POLICY && in ? pol[(long long)b * N + k0 + tid] : 0.f;
-      Gs[tid] = gcls != nullptr && in ? gcls[srow + k0 + tid] : 0.f;
+  if (gcls && tid == 0) {
+    float a = 0.f, gs = 0.f;
+    for (int w = 0; w < 8 * RPW; ++w) {
+      a += Fold[w];
+      gs += Fold[32 + w];
     }
-  };
-  // p, ds: P and dS scale of the warp's 16 query rows (from q0) and keys
-  // k0 + k16 .. + 15, in the m16n8 layout; dpa[j][c]: in policy mode, the
-  // dPolicy terms of this thread's key 2t + c of the j-th 8 over its two rows
-  auto tile = [&](float (&p)[2][4], float (&ds)[2][4], float (&dpa)[2][2], int q0, int k0,
-                  int k16) {
-    hd_scores16<DP>(p, Qt, w16, Kt, k16, lane);    // S
-    hd_scores16<DP>(ds, dOt, w16, Vt, k16, lane);  // dP
+    Fold[64] = a;  // sum_j gcls_j P_0j
+    Fold[65] = gs;  // sum_j gcls_j
+  }
+  __syncthreads();
+  // each real row's (lse or m, 1 / den, D, gmx), a segment a row: D =
+  // rowsum(dO * O) (row 0 with the fold), and in policy mode the max path's
+  // gmx_i = (c / den_i) (dO_i . colsum(V) - N D_i) over the row's ties
+  for (int r0 = wid * U * RPW; r0 < N; r0 += 8 * U * RPW) {
+    float Du[U], dvu[U];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * RPW + sub;
+      const long long at = (long long)r * C;
+      Du[u] = dvu[u] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = k16 + 8 * j + 2 * t + (e & 1);
-        const int key = k0 + kl;
-        const int rl = w16 + g + 8 * (e >> 1);
-        const int q = q0 + rl;
-        const bool valid = key < N && q < N;
-        const float4 rs = Rs[rl];
-        float dpv = ds[j][e];
-        if (gcls != nullptr && q == 0) dpv += Gs[kl];
-        if (POLICY) {
-          const float v = p[j][e] * scale;
-          const float xe = valid ? __expf(v - rs.x) : 0.f;
-          const float a = Ps[kl];
-          const float ew = xe * (key == q ? a + (1.f - a) : a);
-          const float de = (dpv - rs.z) * rs.y;
-          if (key != q) dpa[j][e & 1] += de * xe;  // dPolicy: the diagonal left out
-          float dsv = de * ew;
-          if (valid && v == rs.x) dsv += rs.w;  // the max path, at a tie
-          p[j][e] = valid ? (ew + cc) * rs.y : 0.f;
-          ds[j][e] = dsv * scale;
-        } else {
-          const float pv = valid ? __expf(p[j][e] * scale - rs.x) : 0.f;
-          p[j][e] = pv;
-          ds[j][e] = pv * (dpv - rs.z) * scale;
+      for (int k = 0; k < PPL; ++k) {
+        const int c = 2 * (sl + SEG * k);
+        if (r < N && c < d) {
+          const float2 ov = pair(obase + at + c), dov = pair(dbase + at + c);
+          Du[u] += ov.x * dov.x + ov.y * dov.y;
+          if (POLICY) dvu[u] += dov.x * Cv[c] + dov.y * Cv[c + 1];
         }
       }
-  };
-
-  if (KV) {
-    const int k0 = blockIdx.x * HD_BLK;
-    const bool want_dpol = POLICY && dpol_part != nullptr;
-    load_keys(k0);
-    float dk[DP / 8][4], dv[DP / 8][4];
+    }
 #pragma unroll
-    for (int nd = 0; nd < DP / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
-    float dpol_acc = 0.f;
-    for (int qb = 0; qb < nb; ++qb) {
-      const int q0 = qb * HD_BLK;
-      __syncthreads();  // the last query block's readers are done
-      load_rows(q0);
-      __syncthreads();
-      // the warp's query rows against the block's keys: P and dS into the
-      // stage, dPolicy into the warp's row
-      for (int k16 = 0; k16 < HD_BLK; k16 += 16) {
-        float p[2][4], ds[2][4], dpa[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-        tile(p, ds, dpa, q0, k0, k16);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = k16 + 8 * j + 2 * t;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = w16 + g + 8 * r;
-            *reinterpret_cast<uint32_t*>(Pst + row * SP + col) =
-                pack_bf16(p[j][2 * r], p[j][2 * r + 1]);
-            *reinterpret_cast<uint32_t*>(dSst + row * SP + col) =
-                pack_bf16(ds[j][2 * r], ds[j][2 * r + 1]);
-          }
-          if (want_dpol) {
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              float v = dpa[j][c];
-              v += __shfl_xor_sync(0xffffffffu, v, 4);
-              v += __shfl_xor_sync(0xffffffffu, v, 8);
-              v += __shfl_xor_sync(0xffffffffu, v, 16);
-              if (g == 0) Dpw[warp * HD_BLK + col + c] = v;
-            }
-          }
-        }
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * RPW + sub;
+      float D = seg_sum(Du[u]), dv = 0.f;
+      if (POLICY) dv = seg_sum(dvu[u]);
+      if (sl != 0 || r >= N) continue;
+      const float4 sr = st[srow + r];  // (lse, ...) or (m, den, ties, 0)
+      if (gcls && r == 0) {
+        D += Fold[64];
+        dv += Fold[65];  // sum_j dP_0j gains sum_j gcls_j
       }
-      __syncthreads();
-      if (want_dpol && tid < HD_BLK)
-        dpol_acc +=
-            ((Dpw[tid] + Dpw[HD_BLK + tid]) + Dpw[2 * HD_BLK + tid]) + Dpw[3 * HD_BLK + tid];
-      // the warp's 16 keys: dV += P^T dO, dK += dS^T Q over the block's queries
-      for (int q16 = 0; q16 < HD_BLK && q0 + q16 < N; q16 += 16) {
-        uint32_t pa[4], da[4];
-        const int at = (q16 + (lane & 7) + (lane >> 4) * 8) * SP + w16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(pa, Pst + at);
-        ldmatrix_x4_trans(da, dSst + at);
-        hd_mma_rows<DP>(dv, pa, dOt, q16, lane);
-        hd_mma_rows<DP>(dk, da, Qt, q16, lane);
+      Rs0[r] = make_float2(sr.x, D);
+      if (POLICY) {
+        const float rd = 1.f / sr.y;
+        Rs1[r] = make_float2(rd, cc * rd * (dv - N * D) / sr.z);
       }
     }
+  }
+  __syncthreads();
+
+  const int passes = (nb + 1) / 2;
+  const int wrow = warp * 16 + g;  // this thread's key rows of its block: wrow, wrow + 8
+  // At DP >= 112 a pass runs twice, each time for half of dK's, dV's and
+  // dQ's columns (DV of them), so that dK and dV fit the registers beside
+  // the rest; the scores are formed again
+  constexpr int NC = DP >= 112 ? 2 : 1, DV = DP / NC;
+  for (int pc = 0; pc < passes * NC; ++pc) {
+    const int p = pc / NC, ch = pc % NC;  // the pass, its part of the columns
+    const int jb = 2 * p + wg;  // this warpgroup's key block (past the last: all keys masked)
+    if (pc > 0) start_pass(p);
+    float* acc = dq_acc + (long long)b * N * C + h * d;  // dQ's sum, rows C apart
+    const int c_end = min(d, (ch + 1) * DV);  // the part's columns: ch DV .. c_end - 1
+
+    const unsigned char* Kt = KV + wg * 2 * T;
+    const unsigned char* Vt = Kt + T;
+    const int ka = jb * HD_BLK + wrow;  // this thread's keys ka, ka + 8
+    const int kp = jb < nb ? ka : 0;  // pol_j and gcls_j of keys kp, kp + 8 (read where used)
+    float dk[DV / 2], dv[DV / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dk[i] = dv[i] = 0.f;
+    float dpa[2] = {0.f, 0.f};  // dPolicy of keys ka, ka + 8 over the queries so far
+
+    for (int i = 0; i < nb; ++i) {
+      if (ring == 2) cp_async_wait<0>();
+      else cp_async_wait<1>();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // Q_i and dO_i in; both warpgroups past query block i - 1
+      if (p > 0) {
+        // the earlier passes' dQ of query block i ([64][d] fp32), for its sum
+        // after the products below: a commit group of its own, before the
+        // ring's; pieces of 4 floats where the rows are 16-byte aligned
+        const int lg = (d & 3) == 0 ? 2 : 1;  // log2 of the floats a piece
+#pragma unroll 1
+        for (int k = tid; k < (HD_BLK * d) >> lg; k += 256) {
+          const int r = (k << lg) / d, c = (k << lg) % d;
+          const int q = i * HD_BLK + r;
+          hd_cp_async(Dqs + r * d + c, acc + (q < N ? (long long)q * C + c : 0), 4 << lg, q < N);
+        }
+      }
+      cp_async_commit();
+      load_q(i + ring - 1);
+      const unsigned char* Qt = Ring + (size_t)(i % ring) * 2 * T;
+      const unsigned char* dOt = Qt + T;
+      unsigned char* stg = Stg + ((i & 1) * 2 + wg) * SB;
+      uint32_t pa[SN / 16][4], da[SN / 16][4];  // P^T, dS^T of 16 queries each: A fragments
+#pragma unroll
+      for (int k = 0; k < SN / 4; ++k) pa[k >> 2][k & 3] = da[k >> 2][k & 3] = 0u;
+#pragma unroll 1
+      for (int hq = 0; hq < HD_BLK / SN; ++hq) {  // queries i 64 + SN hq .. + SN - 1
+        float s[SN / 2], dp[SN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          HdMma<SN>::template ss<0, 0>(s, hd_kdesc<DP>(Kt + kk * 256),
+                                       hd_kdesc<DP>(Qt + hq * (SN / 8) * DP * 16 + kk * 256), kk);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          HdMma<SN>::template ss<0, 0>(dp, hd_kdesc<DP>(Vt + kk * 256),
+                                       hd_kdesc<DP>(dOt + hq * (SN / 8) * DP * 16 + kk * 256),
+                                       kk);
+        wgmma_commit();
+        wgmma_wait<0>();  // and the last half's dV and dK products, which read pa and da
+        fence_acc(s);
+        fence_acc(dp);
+#pragma unroll
+        for (int k = 0; k < SN / 16; ++k) {
+          fence_acc(pa[k]);
+          fence_acc(da[k]);
+        }
+        // P^T and dS^T scaled: element e is key ka + 8 ((e >> 1) & 1), query
+        // i 64 + SN hq + 8 (e >> 2) + 2t + (e & 1)
+#pragma unroll
+        for (int e = 0; e < SN / 2; ++e) {
+          const int r = (e >> 1) & 1;
+          const int key = ka + 8 * r;
+          const int q = i * HD_BLK + SN * hq + 8 * (e >> 2) + 2 * t + (e & 1);
+          const bool valid = key < N && q < N;
+          const float2 r0 = Rs0[q];  // (lse or m, D)
+          float dpv = dp[e];
+          if (gcls != nullptr && q == 0 && jb < nb) dpv += Gs[kp + 8 * r];
+          if (POLICY) {
+            const float2 r1 = Rs1[q];  // (1 / den, gmx)
+            const float v = s[e] * scale;
+            const float xe = valid ? __expf(v - r0.x) : 0.f;
+            const float a = jb < nb ? Ps[kp + 8 * r] : 0.f;
+            const float ew = xe * (key == q ? a + (1.f - a) : a);
+            const float de = (dpv - r0.y) * r1.x;
+            if (dpol_part != nullptr && key != q) dpa[r] += de * xe;  // the diagonal left out
+            float dsv = de * ew;
+            if (valid && v == r0.x) dsv += r1.y;  // the max path, at a tie
+            s[e] = valid ? (ew + cc) * r1.x : 0.f;
+            dp[e] = dsv * scale;
+          } else {
+            const float pv = valid ? __expf(s[e] * scale - r0.x) : 0.f;
+            s[e] = pv;
+            dp[e] = pv * (dpv - r0.y) * scale;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < SN / 16; ++k) {
+          hd_pack_a(pa[k], s, k);
+          hd_pack_a(da[k], dp, k);
+        }
+        // dS^T into the stage, (key, query) at the MN-major A layout of dS:
+        // the A fragments' pairs, da[jq / 2][2 (jq % 2) + r] for keys wrow +
+        // 8 r and queries 8 jq + 2t, + 1 of the step's
+#pragma unroll
+        for (int jq = 0; jq < SN / 8; ++jq)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<uint32_t*>(stg + hd_at<HD_BLK>(wrow + 8 * r, SN * hq + 8 * jq + 2 * t)) =
+                da[jq >> 1][2 * (jq & 1) + r];
+        // dV += P^T dO, dK += dS^T Q over the step's queries, 16 at a time
+#pragma unroll
+        for (int k = 0; k < SN / 16; ++k) {
+          fence_acc(pa[k]);
+          fence_acc(da[k]);
+        }
+        fence_acc(dv);
+        fence_acc(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < SN / 16; ++ks) {
+          const int at = ((SN / 8) * hq + 2 * ks) * DP * 16 + ch * (DV / 8) * 128;
+          HdMma<DV>::template rs<1>(dv, pa[ks], hd_mdesc<DP>(dOt + at), 1);
+          HdMma<DV>::template rs<1>(dk, da[ks], hd_mdesc<DP>(Qt + at), 1);
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_acc(dv);
+      fence_acc(dk);
+#pragma unroll
+      for (int k = 0; k < SN / 16; ++k) {
+        fence_acc(pa[k]);
+        fence_acc(da[k]);
+      }
+      cp_async_wait<1>();  // the earlier passes' dQ (and all but the newest ring group)
+      // the stage's generic-proxy writes, before the dQ products' wgmma reads them
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // both key blocks' dS^T of query block i staged; Q_i, dO_i read
+      {
+        // dQ_i over the pass's keys, added to the earlier passes': warpgroup
+        // w the part's DQ0 columns from w DQ0 (the same instructions in both,
+        // so no wgmma sits on a divergent path; columns past the part are
+        // dropped, and the K columns they read past the tile lie in shared
+        // memory)
+        constexpr int DQ0 = (DV + 31) / 32 * 16;
+        const unsigned char* st0 = Stg + (i & 1) * 2 * SB;
+        const int qa = i * HD_BLK + wrow;
+        bf16* dq = dqkv + (long long)b * N * ld3 + h * d;
+        const bool first = p == 0, last = p + 1 == passes;
+        hd_dq_chunk<DP, DQ0>(st0, KV, ch * DV + wg * DQ0, Dqs, i * HD_BLK, acc, dq, C, ld3, qa, N,
+                             d, c_end, t, first, last);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(dv);
+    fence_acc(dk);
+    // dK and dV of the warpgroup's key block; dPolicy's partial of its keys
     bf16* drow = dqkv + (long long)b * N * ld3 + h * d;
-    hd_store<DP>(drow + C, ld3, k0 + w16 + g, N, d, dk, t);
-    hd_store<DP>(drow + 2 * C, ld3, k0 + w16 + g, N, d, dv, t);
-    if (want_dpol && tid < HD_BLK && k0 + tid < N) dpol_part[srow + k0 + tid] = dpol_acc;
-  } else {
-    const int q0 = blockIdx.x * HD_BLK;
-    load_rows(q0);
-    float dq[DP / 8][4];
 #pragma unroll
-    for (int nd = 0; nd < DP / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-    for (int kb = 0; kb < nb; ++kb) {
-      const int k0 = kb * HD_BLK;
-      __syncthreads();  // the last key block's readers are done
-      load_keys(k0);
-      __syncthreads();
-      for (int k16 = 0; k16 < HD_BLK && k0 + k16 < N; k16 += 16) {
-        float p[2][4], ds[2][4], dpa[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-        tile(p, ds, dpa, q0, k0, k16);
-        const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                                pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-        hd_mma_rows<DP>(dq, da, Kt, k16, lane);  // dQ += dS K
+    for (int nd = 0; nd < DV / 8; ++nd) {
+      const int c = ch * DV + nd * 8 + 2 * t;
+      if (c >= c_end) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = ka + 8 * r;
+        if (key >= N) continue;
+        *reinterpret_cast<uint32_t*>(drow + key * ld3 + C + c) =
+            pack_bf16(dk[4 * nd + 2 * r], dk[4 * nd + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(drow + key * ld3 + 2 * C + c) =
+            pack_bf16(dv[4 * nd + 2 * r], dv[4 * nd + 2 * r + 1]);
       }
     }
-    hd_store<DP>(dqkv + (long long)b * N * ld3 + h * d, ld3, q0 + w16 + g, N, d, dq, t);
+    if (POLICY && dpol_part != nullptr && ch == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = dpa[r];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0 && ka + 8 * r < N) dpol_part[srow + ka + 8 * r] = v;
+      }
+    }
+    __syncthreads();  // the pass's K, V and ring read before the next pass refills them
   }
 }
 
@@ -1382,46 +1587,35 @@ template <int DP>
 static cudaError_t launch_attention_hd_bwd_dp(const bf16* qkv, long long q_bstride, int q_ld,
                                               int d, const bf16* o, const bf16* dout, float4* st,
                                               const float* pol, const float* gcls, bf16* dqkv,
-                                              float* dpol_part, int B, int N, int H, float scale,
-                                              float eps, cudaStream_t stream) {
-  const bool policy = pol != nullptr;
-  const size_t smem = hd_bwd_smem(DP);
-  auto kv = policy ? attention_hd_bwd_kernel<DP, true, true>
-                   : attention_hd_bwd_kernel<DP, false, true>;
-  auto dq = policy ? attention_hd_bwd_kernel<DP, true, false>
-                   : attention_hd_bwd_kernel<DP, false, false>;
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-          cudaSuccess ||
-      (err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-          cudaSuccess)
-    return err;
-  auto rows = policy ? attention_hd_rows_kernel<true> : attention_hd_rows_kernel<false>;
-  rows<<<B * H, 256, 0, stream>>>(qkv, q_bstride, q_ld, d, o, dout, st, pol, gcls, N, H, scale,
-                                  eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 grid((N + HD_BLK - 1) / HD_BLK, B * H);
-  kv<<<grid, HD_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, d, dout, st, pol, gcls, dqkv,
-                                         dpol_part, N, H, scale, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dq<<<grid, HD_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, d, dout, st, pol, gcls, dqkv,
-                                         nullptr, N, H, scale, eps);
+                                              float* dpol_part, float* dq_acc, int B, int N,
+                                              int H, float scale, float eps,
+                                              cudaStream_t stream) {
+  const int ring = hd_bwd_smem<DP>(N, 3) <= (size_t)AB_SMEM_MAX ? 3 : 2;
+  const size_t smem = hd_bwd_smem<DP>(N, ring);
+  auto kernel = pol ? attention_hd_bwd_kernel<DP, true> : attention_hd_bwd_kernel<DP, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * H, 256, smem, stream>>>(qkv, q_bstride, q_ld, d, o, dout, st, pol, gcls, dqkv,
+                                       dpol_part, dq_acc, N, H, scale, eps, ring,
+                                       hd_piece_bytes(d));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ++attention_hd_launches[1];
   return cudaSuccess;
 }
 
-// the d != 64 backward: st the forward's (B, H, N) float4 statistics, which
-// it rewrites; dpol_part (B, H, N) or null
+// the d != 64 backward: st the forward's (B, H, N) float4 statistics;
+// dpol_part (B, H, N) or null; dq_acc (B*N, C) fp32 past 128 tokens
 static cudaError_t launch_attention_hd_bwd(const bf16* qkv, long long q_bstride, int q_ld, int d,
                                            const bf16* o, const bf16* dout, float4* st,
                                            const float* pol, const float* gcls, bf16* dqkv,
-                                           float* dpol_part, int B, int N, int H, float scale,
-                                           float eps, cudaStream_t stream) {
+                                           float* dpol_part, float* dq_acc, int B, int N, int H,
+                                           float scale, float eps, cudaStream_t stream) {
 #define D2S_HD_BWD(DP)                                                                      \
   case DP:                                                                                  \
     return launch_attention_hd_bwd_dp<DP>(qkv, q_bstride, q_ld, d, o, dout, st, pol, gcls, \
-                                          dqkv, dpol_part, B, N, H, scale, eps, stream);
+                                          dqkv, dpol_part, dq_acc, B, N, H, scale, eps,    \
+                                          stream);
   switch (hd_pad(d)) {
     D2S_HD_BWD(16)
     D2S_HD_BWD(32)
@@ -1441,8 +1635,8 @@ static cudaError_t launch_attention_hd_bwd(const bf16* qkv, long long q_bstride,
 // kv_part_floats(...) floats (null where that is 0). A split sample-head's
 // dK and dV are added by reduce_kv_kernel right after.
 // At head width d != 64 the backward is attention_hd_bwd_kernel's
-// (launch_attention_hd_bwd: lse the forward's float4 statistics, rewritten;
-// no kv_part).
+// (launch_attention_hd_bwd: lse the forward's float4 statistics; kv_part
+// dQ's fp32 sum over the passes).
 static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, int q_ld,
                                         const bf16* o, const bf16* dout, float* lse,
                                         const float* pol, const float* gcls, bf16* dqkv,
@@ -1455,7 +1649,8 @@ static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, in
   if (d != AB_HD) {
     if (!hd_width_ok(d)) return cudaErrorInvalidValue;
     return launch_attention_hd_bwd(qkv, q_bstride, q_ld, d, o, dout, reinterpret_cast<float4*>(lse),
-                                   pol, gcls, dqkv, dpol_part, B, N, H, scale, eps, stream);
+                                   pol, gcls, dqkv, dpol_part, kv_part, B, N, H, scale, eps,
+                                   stream);
   }
   AbLayout l;
   cudaError_t err = ab_plan(N, policy, gcls != nullptr, &l);

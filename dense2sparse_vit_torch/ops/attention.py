@@ -210,8 +210,8 @@ ATTENTION_BWD_LONG = LaunchCount(1, "d2s_attention_bwd_launches")
 # The attention core at head widths other than 64 (csrc/attention_hd.cuh),
 # launched inside every entry with attention in place of the width-64 cores:
 # its forward (block.cu's attention_hd_kernel, also in each backward's
-# recompute) and its backward (block_bwd.cu's attention_hd_bwd_kernel pair
-# with its row statistics, counted once a backward)
+# recompute) and its backward (block_bwd.cu's attention_hd_bwd_kernel, one
+# launch a backward)
 ATTENTION_HD = LaunchCount(0, "d2s_attention_hd_launches")
 ATTENTION_HD_BWD = LaunchCount(1, "d2s_attention_hd_launches")
 

@@ -8,13 +8,16 @@
         --attn-bwd-times
     PYTHONPATH=CHECKOUT python ANY_CHECKOUT/dense2sparse_vit_torch/scripts/checkout_ab.py \\
         --predictor-times
+    PYTHONPATH=CHECKOUT python ANY_CHECKOUT/dense2sparse_vit_torch/scripts/checkout_ab.py \\
+        --hd-times
     python -m dense2sparse_vit_torch.scripts.checkout_ab --compare a.json b.json
 
 Run by its path, the script imports whichever `dense2sparse_vit_torch` is
 first on PYTHONPATH, so one copy of it measures any checkout whose entry
 points it calls (`ops.fused_transformer_block_int8` with its stages,
 `ops.gemm.ln_gemm` and `weight_grad`, `ops.fused_transformer_block` and its
-backward, `ops.fused_attention_backward_packed`, `ops.fused_predictor_lg`);
+backward, `ops.fused_attention_backward_packed`, `ops.fused_predictor_lg`,
+`ops.fused_attention_packed`);
 run both checkouts in one call. Every input is drawn on the CPU
 from a fixed seed and then moved to the device, so two checkouts see the
 same values.
@@ -70,6 +73,21 @@ calls, the device ms per call of the kernels it launches, by name:
 `pool_broadcast` and `final_score` (the chain of launches before it), the
 rest and the total. Its last line names the package, the card and its
 power limit.
+
+`--hd-times` prints, at the head widths other than 64 that the zoo uses
+(d = 12 with 32 heads, C = 384; d = 96 with 8 heads, C = 768), N = 197 and
+577, B=64 (seeded qkv and cotangent, plain mode), one JSON line per case:
+from torch.profiler over 10 calls, the device ms per call of the forward
+core inside `ops.fused_attention_packed` (kernels named
+`attention_hd_kernel`) and of the backward core inside
+`ops.fused_attention_backward_packed` (`attention_hd_bwd_kernel`, with
+`attention_hd_rows` where a checkout has that launch; the forward it
+recomputes first apart, as `recompute_ms`: the forward core's launch at the
+same shape, read in the backward's window, which keeps every launch where
+the forward's own window has been seen to lose some), each call's device
+total, and the entries' ms per call by CUDA events (median of 5 runs of 10
+calls).
+Its last line names the package, the card and its power limit.
 """
 
 from __future__ import annotations
@@ -363,6 +381,37 @@ def predictor_times(device) -> None:
                       "card": card_name_and_power_limit()}), flush=True)
 
 
+# --hd-times: (d, heads, C) of the zoo's head widths other than 64, the
+# sequences, the batch, and the device-kernel groups of either design
+HD_WIDTHS = ((12, 32, 384), (96, 8, 768))
+HD_TIMED = (197, 577)
+HD_BATCH = 64
+HD_GROUPS = ("attention_hd_kernel", "attention_hd_bwd_kernel", "attention_hd_rows", "sum_heads")
+
+
+def hd_times(device) -> None:
+    gen = torch.Generator().manual_seed(20)
+    with torch.no_grad():
+        for d, H, C in HD_WIDTHS:
+            for n in HD_TIMED:
+                qkv = randn(gen, (HD_BATCH, n, 3 * C), device)
+                g = randn(gen, (HD_BATCH, n, C), device)
+                fwd = lambda: ops.fused_attention_packed(qkv, H)  # noqa: E731
+                bwd = lambda: ops.fused_attention_backward_packed(qkv, g, H)  # noqa: E731
+                f_dev = device_ms(fwd, groups=HD_GROUPS)
+                b_dev = device_ms(bwd, groups=HD_GROUPS)
+                print(json.dumps({
+                    "d": d, "heads": H, "N": n, "B": HD_BATCH,
+                    "forward_ms": f_dev["attention_hd_kernel"],
+                    "backward_ms": b_dev["attention_hd_bwd_kernel"] + b_dev["attention_hd_rows"],
+                    "recompute_ms": b_dev["attention_hd_kernel"],
+                    "forward_device_total": f_dev["total"], "backward_device_total": b_dev["total"],
+                    "forward_events_ms": events_ms(fwd), "backward_events_ms": events_ms(bwd)}),
+                    flush=True)
+    print(json.dumps({"package": dense2sparse_vit_torch.__file__,
+                      "card": card_name_and_power_limit()}), flush=True)
+
+
 def compare(a: dict, b: dict) -> int:
     differ = 0
     for case, d in a["digests"].items():
@@ -381,13 +430,14 @@ def main(argv=None) -> int:
     ap.add_argument("--int8-times", action="store_true")
     ap.add_argument("--attn-bwd-times", action="store_true")
     ap.add_argument("--predictor-times", action="store_true")
+    ap.add_argument("--hd-times", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    timing = args.int8_times or args.attn_bwd_times or args.predictor_times
+    timing = args.int8_times or args.attn_bwd_times or args.predictor_times or args.hd_times
     if not (args.bits or timing or args.compare):
-        ap.error("give --bits OUT, --int8-times, --attn-bwd-times, --predictor-times or "
-                 "--compare A B")
+        ap.error("give --bits OUT, --int8-times, --attn-bwd-times, --predictor-times, "
+                 "--hd-times or --compare A B")
     if args.compare:
         with open(args.compare[0]) as fa, open(args.compare[1]) as fb:
             return compare(json.load(fa), json.load(fb))
@@ -396,11 +446,14 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     if timing:
         if device.type != "cuda":
-            raise SystemExit("--int8-times, --attn-bwd-times and --predictor-times time the card")
+            raise SystemExit("--int8-times, --attn-bwd-times, --predictor-times and --hd-times "
+                             "time the card")
         if args.int8_times:
             int8_times(device)
         elif args.attn_bwd_times:
             attn_bwd_times(device)
+        elif args.hd_times:
+            hd_times(device)
         else:
             predictor_times(device)
         return 0

@@ -1481,9 +1481,10 @@ def _core_close(dqkv, want, dpol=None, want_dpol=None):
         if dpol is not None:
             _assert_close(dpol, want_dpol, chip_smoke.DPOL_TOL)
         return
-    dv = want[..., 768:].float().abs().max().item()
-    _assert_close(dqkv[..., 768:], want[..., 768:], BWD_TOL)
-    assert dqkv[..., :768].float().abs().max().item() <= 1e-3 * dv
+    c2 = 2 * dqkv.shape[-1] // 3  # where v's third starts
+    dv = want[..., c2:].float().abs().max().item()
+    _assert_close(dqkv[..., c2:], want[..., c2:], BWD_TOL)
+    assert dqkv[..., :c2].float().abs().max().item() <= 1e-3 * dv
     assert dpol is None or dpol.abs().max().item() <= 1e-3 * dv
 
 
@@ -1588,9 +1589,14 @@ def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
 # ---- the attention cores at head widths other than 64 ----------------------
 
 # (head width, heads): the zoo's t2t_vit_14_resnext (C = 384) and
-# vit_small_patch16_224 (C = 768); 32 and 128 the padded path's edges
+# vit_small_patch16_224 (C = 768); 32 and 128 the padded path's edges, 2 its
+# 4-byte copies; 16, 48, 80 and 112 the other padded widths
 HD_CASES = ((12, 32), (96, 8))
 HD_EDGES = ((32, 12), (128, 6), (2, 192))
+HD_MORE = ((16, 8), (48, 8), (80, 8), (112, 4))
+# N: one key block and its edges, the backward's one pass (N <= 128) and
+# its first with a second (129), the zoo's sequences, the longest
+HD_TOKENS = [1, 17, 63, 64, 65, 128, 129, 197, 577, 785, 800]
 
 
 def _hd_case(cuda, d, H, n, b=2, policy=False, with_gcls=False, seed=0):
@@ -1604,8 +1610,8 @@ def _hd_case(cuda, d, H, n, b=2, policy=False, with_gcls=False, seed=0):
     return qkv, g, (_policy(gen, b, n, cuda) if policy else None), gcls
 
 
-@pytest.mark.parametrize("d,H", HD_CASES + HD_EDGES)
-@pytest.mark.parametrize("n", [1, 17, 65, 197, 577, 785, 800])
+@pytest.mark.parametrize("d,H", HD_CASES + HD_EDGES + HD_MORE)
+@pytest.mark.parametrize("n", HD_TOKENS)
 @pytest.mark.parametrize("policy", [False, True])
 def test_head_width_packed_forward_against_plain(cuda, d, H, n, policy):
     """The forward core at head width d (attention_hd_kernel): output and CLS
@@ -1624,8 +1630,8 @@ def test_head_width_packed_forward_against_plain(cuda, d, H, n, policy):
     _assert_close(cls, want_cls)
 
 
-@pytest.mark.parametrize("d,H", HD_CASES + HD_EDGES)
-@pytest.mark.parametrize("n", [1, 17, 65, 197, 577, 785, 800])
+@pytest.mark.parametrize("d,H", HD_CASES + HD_EDGES + HD_MORE)
+@pytest.mark.parametrize("n", HD_TOKENS)
 @pytest.mark.parametrize("policy", [False, True])
 @pytest.mark.parametrize("with_gcls", [False, True])
 def test_head_width_packed_backward_against_plain(cuda, d, H, n, policy, with_gcls):
@@ -1647,7 +1653,18 @@ def test_head_width_packed_backward_against_plain(cuda, d, H, n, policy, with_gc
 
 
 @pytest.mark.parametrize("d,H", HD_CASES)
-@pytest.mark.parametrize("n", [197, 577])
+@pytest.mark.parametrize("n", [65, 197, 577])
+@pytest.mark.parametrize("policy", [False, True])
+def test_head_width_forward_is_bit_equal_on_two_launches(cuda, d, H, n, policy):
+    qkv, _, pol, _ = _hd_case(cuda, d, H, n, b=64, policy=policy, seed=4)
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    with torch.no_grad():
+        runs = [ops.fused_attention_packed(qkv, H, return_cls=True, **kw) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("d,H", HD_CASES)
+@pytest.mark.parametrize("n", [65, 197, 577])
 @pytest.mark.parametrize("policy", [False, True])
 def test_head_width_backward_is_bit_equal_on_two_launches(cuda, d, H, n, policy):
     qkv, g, pol, gcls = _hd_case(cuda, d, H, n, b=64, policy=policy, with_gcls=True, seed=2)
@@ -1758,5 +1775,7 @@ def test_head_widths_the_kernels_refuse(cuda):
     lib = _cuda.library()
     assert lib.d2s_attention_bwd_part_floats(1, 2, 17, 2, 26, 1) == -1
     assert lib.d2s_attention_bwd_part_floats(1, 2, 17, 2, 24, 1) == 2 * 2 * 17
-    assert lib.d2s_attention_bwd_part_floats(0, 2, 577, 2, 24, 0) == 0
+    # dQ's fp32 sum over the head-width backward's passes: (B*N, C) past 128 tokens
+    assert lib.d2s_attention_bwd_part_floats(0, 2, 577, 2, 24, 0) == 2 * 577 * 24
+    assert lib.d2s_attention_bwd_part_floats(0, 2, 128, 2, 24, 0) == 0
     assert lib.d2s_block_backward_scratch_bytes(2, 17, 26, 2, 104, 0) == 0

@@ -159,3 +159,12 @@ def test_checkout_ab_digests_and_compares_two_runs(tmp_path, capsys):
     assert checkout_ab.main(["--compare", str(a), str(b)]) == 1
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["differ"] == 1
+
+
+@pytest.mark.parametrize("flag", ["--int8-times", "--attn-bwd-times", "--predictor-times",
+                                  "--hd-times"])
+def test_checkout_ab_times_the_card_alone(flag):
+    """Each timing mode of the script refuses the CPU: its numbers are
+    device times."""
+    with pytest.raises(SystemExit, match="time the card"):
+        checkout_ab.main([flag, "--device", "cpu"])

@@ -910,6 +910,42 @@ def test_the_attn_bwd_fault_reaches_the_dq_product_alone():
     assert pattern in kernel[:kernel.index("\n}\n")]
 
 
+HD_FWD = "_ZN3d2s19attention_hd_kernelILi96ELb0EEEvPK13__nv_bfloat16xiiPS1_PfS4_PKfiiffii"
+HD_BWD = ("_ZN3d2s23attention_hd_bwd_kernelILi16ELb1EEEvPK13__nv_bfloat16xiiS3_S3_PK6float4PKfS8_"
+          "PS1_PfSA_iiffii")
+
+
+def test_hd_kind_reads_the_head_width_instantiations():
+    """The build phase's reading of the head-width cores' names (as ptxas
+    printed them on the card): (padded width, policy mode), each core's
+    spill lines apart from the other's."""
+    assert chip_smoke.hd_kind(HD_FWD, "attention_hd_kernel") == (96, False)
+    assert chip_smoke.hd_kind(HD_BWD, "attention_hd_bwd_kernel") == (16, True)
+    assert chip_smoke.hd_kind(HD_BWD, "attention_hd_kernel") is None
+    assert chip_smoke.hd_kind(ATTN_BWD_PLAIN, "attention_hd_bwd_kernel") is None
+    assert len(set(chip_smoke.HD_KINDS)) == 16
+    log = "\n".join(f"ptxas info    : Function properties for {n}\n"
+                    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+                    for n in (HD_FWD, HD_BWD, ATTN_BWD_PLAIN))
+    assert list(chip_smoke.gemm_spills(log, "attention_hd_kernel")) == [HD_FWD]
+    assert list(chip_smoke.gemm_spills(log, "attention_hd_bwd_kernel")) == [HD_BWD]
+
+
+@pytest.mark.parametrize("kind,kernel,guarded", [
+    ("head_width", "attention_hd_kernel(const bf16*", "(o, pa[kk], "),
+    ("head_width_bwd", "attention_hd_bwd_kernel(const bf16*", "da[jq >> 1]")])
+def test_the_head_width_faults_sit_in_their_kernels(kind, kernel, guarded):
+    """`--plant-fault head_width` guards the forward's P V product (O from P
+    in registers) with the key loop's index, `head_width_bwd` zeroes the
+    last key block's dS in the stage that dQ alone reads; each pattern lies
+    in its kernel's body."""
+    source, pattern, replacement, _ = chip_smoke.FAULTS[kind]
+    text = open(os.path.join(REPO, "dense2sparse_vit_torch", "csrc", source)).read()
+    assert text.count(pattern) == 1 and guarded in pattern and replacement != pattern
+    body = text[text.index(kernel):]
+    assert pattern in body[:body.index("\n}\n")]
+
+
 @pytest.mark.parametrize("name,backwards", [
     ("PER_TRAIN_STEP", 12), ("PER_POLICY_TRAIN_STEP", 12), ("PER_ATTN_TRAIN_STEP", 12),
     ("PER_T2T_TRAIN_STEP", 14), ("PER_T2T_DENSE_STEP", 14), ("PER_ATTN_BLOCK_TRAINABLE", 2),
