@@ -272,6 +272,18 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  kernel launched; (d) the new path's kernels timed at
                  N = 197 and 577 beside their plain versions, SDPA and their
                  bounds, and a B=64 forward of (b)'s models in img/s.
+ 36. distributed  distributed training (`phase_distributed`): (a) a NCCL
+                 process group of one rank in this process; one B=128 step
+                 of the headline student under DDP (`train_step.wrap_ddp`)
+                 bit-equal to the unwrapped step from the same weights and
+                 batch (loss and every updated parameter), its launches
+                 PER_TRAIN_STEP; (b) step ms with and without DDP (CUDA
+                 events, medians); (c) `run_experiment` under that group
+                 over phase 32's folder, one epoch of 2 steps and its eval,
+                 one checkpoint, then --resume continuing at step 2; (d)
+                 two spawned processes on the one card in a gloo group,
+                 each with half of a B=64 batch, against one process on
+                 the whole batch.
 The build phase fails if ptxas reports a spill in a GEMM kernel, in
 attention_bwd_kernel or in an instantiation of the head-width cores
 (attention_hd_kernel, attention_hd_bwd_kernel: each of the 16 of each
@@ -6102,6 +6114,223 @@ def phase_head_widths(torch, dev, tally, smi):
           "others_worst_rel_err": worst, "card": smi})
 
 
+# ---- 36. distributed training ----------------------------------------------
+
+DIST_TIMED_STEPS = 5
+GLOO_BATCH, GLOO_RANKS = 64, 2  # (d): two ranks of 32 on the one card
+GLOO_LOSS_TOL = 1e-3  # (d)'s loss against one process's, relative
+DIST_LOOP_STEPS = 2  # (c): steps an epoch (max_steps_per_epoch)
+
+
+def dist_trainer(torch, dev, mesh=None):
+    """The headline student and teacher of `build_trainer` (mode "topk":
+    the same seeds, AdamW past the warmup); the step trains the student
+    under `wrap_ddp` over `mesh`'s data group where a mesh is given:
+    (student, step, optimizer)."""
+    from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
+    from dense2sparse_vit_torch.models import (
+        HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER, create_model)
+    from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+    from dense2sparse_vit_torch.train.train_step import wrap_ddp
+
+    student = create_model(HEADLINE_MODEL, use_fused_attention=True, device=dev,
+                           generator=torch.Generator().manual_seed(0), **HEADLINE_KWARGS)
+    teacher = create_model(HEADLINE_TEACHER, use_fused_attention=True, device=dev,
+                           dtype="bfloat16", generator=torch.Generator().manual_seed(2))
+    cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning, train=TrainConfig())
+    opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH)
+    opt.count = cfg.train.warmup_epochs * STEPS_PER_EPOCH
+    net = student if mesh is None else wrap_ddp(student, cfg, mesh)
+    return student, make_train_step(net, teacher, opt, cfg), opt
+
+
+def gloo_rank(rank, port, out_dir):
+    """(d)'s rank: a gloo group of GLOO_RANKS processes on the one card,
+    one DDP step on this rank's rows of the first GLOO_BATCH images of
+    `train_batch`; writes the global loss, the updated parameters and the
+    averaged gradients."""
+    import datetime
+    import os
+
+    import torch
+
+    from dense2sparse_vit_torch.core.mesh import local_rows, make_mesh, maybe_initialize_distributed
+    from dense2sparse_vit_torch.ops import _cuda
+    from dense2sparse_vit_torch.parallel import global_batch_metrics
+
+    _cuda.library()
+    maybe_initialize_distributed(f"127.0.0.1:{port}", GLOO_RANKS, rank, device_type="cuda",
+                                 backend="gloo", timeout=datetime.timedelta(seconds=300))
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh()
+    student, step, _ = dist_trainer(torch, dev, mesh)
+    images, labels = train_batch(torch, dev)
+    x, y = local_rows(images[:GLOO_BATCH], mesh), local_rows(labels[:GLOO_BATCH], mesh)
+    metrics = global_batch_metrics(step(x, y, TRAIN_EPOCH), mesh.data_group)
+    torch.cuda.synchronize()
+    torch.save({"loss": float(metrics["loss"]),
+                "params": {n: p.detach().cpu() for n, p in student.named_parameters()},
+                "grads": {n: p.grad.float().cpu() for n, p in student.named_parameters()}},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def phase_distributed(torch, dev, tally, smi, root):
+    """Phase 36: distributed training on the one card. (a) A process group
+    of one rank over NCCL (`maybe_initialize_distributed` on a free
+    localhost port): one B=128 step of the headline student under DDP
+    (`wrap_ddp`) against the same step unwrapped from the same weights and
+    batch: the loss and every updated parameter bit-equal, and the DDP
+    step's launches PER_TRAIN_STEP (the kernels line takes them). (b) Step
+    ms with and without DDP, CUDA events, medians of DIST_TIMED_STEPS
+    alternating steps. (c) `run_experiment` under that group (DDP at world
+    size 1) over phase 32's folder: one epoch of DIST_LOOP_STEPS steps and
+    its eval, one checkpoint written; then --resume with --epochs 2
+    continues at step DIST_LOOP_STEPS. The group is destroyed. (d) Two
+    processes on the one card in a gloo group, each with half of a
+    GLOO_BATCH batch: the DDP step against one process's on the whole
+    batch (loss within GLOO_LOSS_TOL; the averaged gradients within
+    STEP_GRAD_TOL as one vector, relative L2; the parameters within two
+    Adam steps of one process's, bit-equal between the ranks). (d)'s
+    processes start before (c) and run beside it (no timing there); any
+    failure kills them."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.core.mesh import free_port, make_mesh, maybe_initialize_distributed
+    from dense2sparse_vit_torch.train import loop
+    from dense2sparse_vit_torch.utils.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    out = tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_")
+    gloo = None
+    maybe_initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device_type="cuda")
+    try:
+        mesh = make_mesh()
+        # (a) the DDP step against the unwrapped one
+        student, ddp_step, _ = dist_trainer(torch, dev, mesh)
+        twin, step, _ = dist_trainer(torch, dev)
+        images, labels = train_batch(torch, dev)
+        ops.reset_launch_counts()
+        got = ddp_step(images, labels, TRAIN_EPOCH)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = step(images, labels, TRAIN_EPOCH)
+        if counts != PER_TRAIN_STEP:
+            raise AssertionError(f"distributed: DDP step launches {counts}, "
+                                 f"expected {PER_TRAIN_STEP}")
+        for k, v in counts.items():
+            tally.rows[k]["launches"] += v
+        differ = [n for (n, p), q in zip(student.named_parameters(), twin.parameters())
+                  if not torch.equal(p, q)]
+        loss_equal = bool(torch.equal(got["loss"], want["loss"]))
+        emit({"phase": "distributed", "case": "ddp_world_1_nccl", "batch": B_TRAIN,
+              "loss": got["loss"].item(), "unwrapped_loss": want["loss"].item(),
+              "loss_bit_equal": loss_equal, "params_not_bit_equal": differ,
+              "launches": {k: v for k, v in counts.items() if v}})
+        if not loss_equal or differ:
+            raise AssertionError(f"distributed: the DDP step is not the unwrapped one: loss "
+                                 f"{loss_equal}, parameters differ {differ[:5]}")
+        # (b) step ms with and without DDP, alternating
+        times = {"ddp": [], "plain": []}
+        for _ in range(DIST_TIMED_STEPS):
+            for key, fn in (("ddp", ddp_step), ("plain", step)):
+                s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s0.record()
+                fn(images, labels, TRAIN_EPOCH)
+                s1.record()
+                torch.cuda.synchronize()
+                times[key].append(s0.elapsed_time(s1))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        emit({"phase": "distributed", "case": "step_ms", "batch": B_TRAIN, "ddp_ms": med["ddp"],
+              "plain_ms": med["plain"], "ddp_overhead_ms": med["ddp"] - med["plain"],
+              "steps": DIST_TIMED_STEPS, "all_ms": times, "card": smi})
+        del student, twin, ddp_step, step, images, labels, got, want
+        torch.cuda.empty_cache()
+        # (d)'s ranks start now and run beside (c)
+        t1 = time.perf_counter()
+        gloo = mp.start_processes(gloo_rank, args=(free_port(), out.name), nprocs=GLOO_RANKS,
+                                  join=False, start_method="spawn")
+        # (c) the training entry point under the group, and its resume
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+            workdir = os.path.join(tmp, "run")
+            wrapped = []
+            real_wrap = loop.wrap_ddp
+            loop.wrap_ddp = lambda *a, **k: wrapped.append(1) or real_wrap(*a, **k)
+            try:
+                runs = []
+                for epochs, resume in ((1, False), (2, True)):
+                    cfg, _ = loop_config(root, "--epochs", str(epochs))
+                    ops.reset_launch_counts()
+                    with LoopSpy(torch) as spy:
+                        summary = loop.run_experiment(cfg, workdir, device=dev, resume=resume,
+                                                      max_steps_per_epoch=DIST_LOOP_STEPS)
+                    torch.cuda.synchronize()
+                    counts = ops.launch_counts()
+                    check_step_launches(spy.steps, PER_TRAIN_STEP, "distributed loop train")
+                    check_step_launches(spy.evals, PER_EVAL_STEP["topk"], "distributed loop eval")
+                    for k, v in counts.items():
+                        tally.rows[k]["launches"] += v
+                    latest = sorted(os.listdir(os.path.join(workdir, "ckpt", "latest")))
+                    runs.append({"steps": len(spy.steps), "evals": len(spy.evals),
+                                 "latest": latest, "summary": summary})
+            finally:
+                loop.wrap_ddp = real_wrap
+            last = CheckpointManager(os.path.join(workdir, "ckpt")).restore(map_location="cpu")
+            emit({"phase": "distributed", "case": "run_experiment_world_1_nccl", "runs": runs,
+                  "ddp_wrapped": len(wrapped), "final_step": last["step"]})
+            n = DIST_LOOP_STEPS
+            if (len(wrapped) != 2 or [r["steps"] for r in runs] != [n, n]
+                    or runs[0]["latest"] != [f"step_{n}.json", f"step_{n}.pt"]
+                    or last["step"] != 2 * n or runs[1]["summary"]["epochs"] != 2):
+                raise AssertionError(f"distributed: the entry point under DDP: {runs}, "
+                                     f"wrapped {len(wrapped)}, final step {last['step']}")
+        torch.distributed.destroy_process_group()
+        # (d) two ranks on the one card over gloo, against one process
+        deadline = time.perf_counter() + 300
+        while not gloo.join(timeout=1):
+            if time.perf_counter() > deadline:
+                raise AssertionError("distributed: the gloo ranks still run after 300 s")
+        spawn_s = time.perf_counter() - t1
+        ranks = [torch.load(os.path.join(out.name, f"rank{r}.pt"), weights_only=False)
+                 for r in range(GLOO_RANKS)]
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        if gloo is not None:
+            for proc in gloo.processes:
+                if proc.is_alive():
+                    proc.kill()
+        out.cleanup()
+    student, step, opt = dist_trainer(torch, dev)
+    images, labels = train_batch(torch, dev)
+    want = step(images[:GLOO_BATCH], labels[:GLOO_BATCH], TRAIN_EPOCH)
+    grads = {n: p.grad.float().cpu() for n, p in student.named_parameters()}
+    names = [n for n in grads if grads[n].abs().max() > 0]
+    compare_steps(torch, "distributed", (ranks[0]["loss"], ranks[0]["grads"]),
+                  (want["loss"].item(), grads), names)
+    loss_rel = abs(ranks[0]["loss"] - want["loss"].item()) / abs(want["loss"].item())
+    lr, wd = max(g["lr"] for g in opt.param_groups), opt.cfg.weight_decay
+    worst = 0.0
+    for n, p in student.named_parameters():
+        p = p.detach().cpu()
+        excess = ((ranks[0]["params"][n] - p).abs() - 2.02 * lr * (1 + wd * p.abs())).max()
+        worst = max(worst, excess.item())
+    ranks_equal = all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n])
+                      for n in ranks[0]["params"])
+    emit({"phase": "distributed", "case": "gloo_2_ranks_one_card", "batch": GLOO_BATCH,
+          "loss": ranks[0]["loss"], "one_process_loss": want["loss"].item(),
+          "loss_rel_err": loss_rel, "tol": GLOO_LOSS_TOL, "param_excess_over_2_steps": worst,
+          "ranks_bit_equal": ranks_equal, "spawn_seconds": round(spawn_s, 3)})
+    if loss_rel > GLOO_LOSS_TOL or worst > 0 or not ranks_equal:
+        raise AssertionError(f"distributed: two gloo ranks against one process: loss {loss_rel},"
+                             f" parameters {worst}, ranks equal {ranks_equal}")
+    emit({"phase": "distributed", "seconds": round(time.perf_counter() - t0, 3), "card": smi})
+
+
 def host_batch(torch, cfg, root, dev, split="val"):
     """The first LOOP_BATCH images of the loop's train or val split in the
     eval view, uint8 on the card, with their labels."""
@@ -6273,11 +6502,14 @@ def main(argv=None) -> int:
         # ---- 34. the DeiT, ViT and DINO families; 384-px training ---------------
         torch.cuda.empty_cache()
         phase_deit_family(torch, dev, tally, smi, loop_root)
+        # ---- 35. head widths other than 64; the rest of the zoo ---------------
+        torch.cuda.empty_cache()
+        phase_head_widths(torch, dev, tally, smi)
+        # ---- 36. distributed training ---------------------------------------------
+        torch.cuda.empty_cache()
+        phase_distributed(torch, dev, tally, smi, loop_root)
     finally:
         loop_tmp.cleanup()
-    # ---- 35. head widths other than 64; the rest of the zoo -------------------
-    torch.cuda.empty_cache()
-    phase_head_widths(torch, dev, tally, smi)
 
     emit(tally.line())
     print(smi, flush=True)

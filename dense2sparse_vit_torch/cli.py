@@ -4,9 +4,19 @@ training loop (port of `dense2sparse_vit_tpu/cli.py`).
     python -m dense2sparse_vit_torch.cli --imgnet-val-dir DIR [flags]
 
 Every flag of the JAX package's CLI is accepted with its name and default,
-plus --device (the first card by default; `cpu` to run there). A flag
-whose feature the port does not have yet raises NotImplementedError naming
-it; --use-dp and --use-ddp are inert, as in the JAX package.
+plus --device (the card by default; `cpu` to run there). A flag whose
+feature the port does not have yet raises NotImplementedError naming it;
+--use-dp and --use-ddp are inert, as in the JAX package.
+
+More than one process: launch one a device with torchrun, which sets the
+rank and the rendezvous,
+
+    torchrun --nproc_per_node N -m dense2sparse_vit_torch.cli --imgnet-val-dir DIR ...
+
+or start each by hand with --dist-coordinator host:port
+--dist-num-processes N --dist-process-id i. Every process joins the group
+(NCCL on the card, gloo with --device cpu) before the loop; --device names
+the device type and the rank picks its card (cuda:LOCAL_RANK).
 """
 
 from __future__ import annotations
@@ -23,7 +33,6 @@ from dense2sparse_vit_torch.core.config import (
     deit_base,
     deit_small,
     deit_tiny,
-    reject_unported,
 )
 
 
@@ -39,9 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", default=64, type=int)
     p.add_argument("--epochs", default=25, type=int)
     p.add_argument("--use-dp", action="store_true", default=False,
-                   help="inert: one process drives one device")
+                   help="inert: for data parallelism launch one process a device with "
+                   "torchrun --nproc_per_node N -m dense2sparse_vit_torch.cli")
     p.add_argument("--use-ddp", action="store_true", default=False,
-                   help="inert: one process drives one device")
+                   help="inert: for data parallelism launch one process a device with "
+                   "torchrun --nproc_per_node N -m dense2sparse_vit_torch.cli")
     p.add_argument("--imgnet-val-dir", type=str, default="/data/imagenet/val")
     # optimizer
     p.add_argument("--weight-decay", type=float, default=0.05)
@@ -140,22 +151,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after training (or with --eval-only) save ServingModel artifacts "
                    "of the best checkpoint")
     p.add_argument("--dist-coordinator", type=str, default=None,
-                   help="multi-process training: not ported, rejected")
+                   help="host:port of rank 0 for multi-process training (else torchrun's "
+                   "MASTER_ADDR / MASTER_PORT)")
     p.add_argument("--dist-num-processes", type=int, default=None)
     p.add_argument("--dist-process-id", type=int, default=None)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where to run: the first card (default) or the CPU")
+                   help="the device type: the card (default; each rank its own) or the CPU")
     return p
 
 
 def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
-    """Map the parsed flags onto the typed config; a flag of a path the
-    port does not have raises NotImplementedError naming it."""
-    reject_unported({
-        "--dist-coordinator / --dist-num-processes / --dist-process-id (more than one "
-        "process)": (args.dist_coordinator is not None
-                     or (args.dist_num_processes or 1) > 1),
-    })
+    """Map the parsed flags onto the typed config."""
     sizes = {"deit_tiny": deit_tiny, "deit_small": deit_small, "deit_base": deit_base}
     if args.arch not in sizes:
         raise ValueError(f"unknown arch {args.arch!r}; options {sorted(sizes)}")
@@ -247,17 +253,29 @@ def parse_config(argv: Optional[Sequence[str]] = None):
 def main(argv: Optional[Sequence[str]] = None):
     from dense2sparse_vit_torch.train.loop import run_experiment
 
+    import torch
+
+    from dense2sparse_vit_torch.core.mesh import distributed, maybe_initialize_distributed
+
     cfg, args = parse_config(argv)
     if args.use_ddp or args.use_dp:
-        print("note: --use-ddp/--use-dp are inert here: one process drives one device")
-    return run_experiment(
-        cfg, args.workdir,
-        resume=args.resume or args.eval_only,
-        eval_only=args.eval_only,
-        report_flops=args.report_flops,
-        export_serving=args.export_serving,
-        device=args.device,
-    )
+        print("note: --use-ddp/--use-dp are inert: for data parallelism launch one process a "
+              "device, torchrun --nproc_per_node N -m dense2sparse_vit_torch.cli ...")
+    joined = not distributed() and maybe_initialize_distributed(
+        args.dist_coordinator, args.dist_num_processes, args.dist_process_id,
+        device_type=args.device)
+    try:
+        return run_experiment(
+            cfg, args.workdir,
+            resume=args.resume or args.eval_only,
+            eval_only=args.eval_only,
+            report_flops=args.report_flops,
+            export_serving=args.export_serving,
+            device=args.device,
+        )
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from dense2sparse_vit_torch.parallel import ratio_over_group
+
 
 def soft_target_cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean over the batch of -sum(target * log_softmax(logits))."""
@@ -48,6 +50,7 @@ def backbone_loss(
     mixup_active: bool = False,
     tokens_t_probs: Optional[torch.Tensor] = None,
     tokens_t_entropy: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Classification + distillation loss.
 
@@ -62,7 +65,10 @@ def backbone_loss(
     tokens_t_probs, tokens_t_entropy: the teacher cache's form of the
       tokens, q = softmax(tokens_t) (B, N, D) and sum(q log q) (B, N); the
       token KL is then entropy - sum(q * log_softmax(tokens_s)), the same
-      value. tokens_t may then be None.
+      value. tokens_t may then be None;
+    group: the data group of a DDP step, over which the threshold mode's
+      kept-token count is summed (`parallel.ratio_over_group`); the other
+      terms are means over the samples.
     Returns (loss, metrics).
     """
     logits_s = logits_s.float()
@@ -86,7 +92,11 @@ def backbone_loss(
             lt = _rows(lt, kept_idx_orig)
         per_token = torch.sum(torch.exp(lt) * (lt - ls), dim=-1)
     if kept_idx_orig is None and keep_mask is not None:
-        token_kl = torch.sum(per_token * keep_mask) / torch.sum(keep_mask).clamp_min(1.0)
+        # the kept-token count couples the batch: summed over the data group,
+        # a rank's term is world * sum_r / count_global, whose mean over the
+        # ranks (DDP averages their gradients) is the global batch's mean
+        token_kl = ratio_over_group(torch.sum(per_token * keep_mask), torch.sum(keep_mask),
+                                    group)
     else:
         # the reference flattens (B*K, D) and takes batchmean: the mean
         token_kl = torch.mean(per_token)

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from dense2sparse_vit_torch.losses.backbone_loss import cross_entropy, soft_target_cross_entropy
+from dense2sparse_vit_torch.parallel import ratio_over_group
 from dense2sparse_vit_torch.ops.topk import mask_from_scores
 
 
@@ -42,12 +43,17 @@ def dynamic_vit_distill_loss(
     use_token_dist_loss: bool = True,
     mixup_active: bool = False,
     temperature: float = 1.0,
+    group=None,
 ) -> Tuple[torch.Tensor, dict]:
     """The gumbel student's loss, the DynamicViT-paper recipe:
 
       cls_weight * CE + T^2 KL(teacher || student logits at temperature T)
       + ratio_weight * keep_ratio_loss + dist_weight * token MSE over the
       tokens still kept (`decisions`, (B, N, 1)).
+
+    group: the data group of a DDP step, over which the token MSE's count
+    of kept tokens is summed (`parallel.ratio_over_group`); every other
+    term is a mean over the samples and needs nothing.
 
     Returns (loss, metrics) with the JAX function's metric names."""
     logits_s = logits_s.float()
@@ -70,7 +76,11 @@ def dynamic_vit_distill_loss(
     if use_token_dist_loss:
         d = decisions.float()
         diff = (tokens_s.float() - tokens_t.float()) ** 2
-        tok = torch.sum(diff.mean(dim=-1, keepdim=True) * d) / torch.sum(d).clamp_min(1.0)
+        # the kept-token count couples the batch: summed over the data group,
+        # a rank's term is world * sum_r / count_global, whose mean over the
+        # ranks (DDP averages their gradients) is the global batch's MSE
+        tok = ratio_over_group(torch.sum(diff.mean(dim=-1, keepdim=True) * d), torch.sum(d),
+                               group)
         loss = loss + dist_weight * tok
         metrics["dyn_token_dist_loss"] = tok
     metrics["dyn_loss"] = loss

@@ -28,6 +28,7 @@ from dense2sparse_vit_torch.ops.predictor import (
     local_global,
     predictor_lg_reference,
 )
+from dense2sparse_vit_torch.parallel import all_reduce_sum, group_size
 
 PREDICTOR_LN_EPS = 1e-5
 
@@ -39,20 +40,57 @@ class BatchNormLayer(nn.Module):
     train mode the batch is normalised with its biased variance and the
     running statistics take the unbiased one, momentum 0.1, eps 1e-5; eval
     mode normalises with the running statistics. The module sits under
-    `bn`, as the reference's keys have it."""
+    `bn`, as the reference's keys have it.
+
+    `process_group` (set by `set_batch_norm_group`): the data group of a DDP
+    step. With more than one rank there, train mode takes its statistics
+    over the global batch, as the JAX layer does under GSPMD: the fp32 sum,
+    sum of squares and count of the rows are summed over the group
+    (differentiably, so the gradient flows through the global moments as
+    through one batch), the rows normalised with the global biased
+    variance, and the running variance updated with the unbiased one over
+    the global count."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
         self.bn = nn.BatchNorm1d(features, eps=eps, momentum=momentum)
+        self.process_group = None
 
     def forward(self, x):
         bn = self.bn
         if self.training:
             bn.num_batches_tracked.add_(1)
+            if group_size(self.process_group) > 1:
+                return self._global_batch_norm(x)
         y = F.batch_norm(x.float().reshape(-1, x.shape[-1]), bn.running_mean, bn.running_var,
                          bn.weight, bn.bias, training=self.training, momentum=bn.momentum,
                          eps=bn.eps)
         return y.view(x.shape).to(x.dtype)
+
+    def _global_batch_norm(self, x):
+        bn = self.bn
+        rows = x.float().reshape(-1, x.shape[-1])
+        c = rows.shape[1]
+        moments = torch.cat([rows.sum(0), (rows * rows).sum(0),
+                             rows.new_full((1,), float(rows.shape[0]))])
+        moments = all_reduce_sum(moments, self.process_group)
+        n = moments[2 * c]
+        mean = moments[:c] / n
+        var = moments[c:2 * c] / n - mean * mean
+        y = (rows - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(m * mean)
+            bn.running_var.mul_(1 - m).add_(m * var * (n / (n - 1)))
+        return y.view(x.shape).to(x.dtype)
+
+
+def set_batch_norm_group(module: nn.Module, group) -> None:
+    """Give every `BatchNormLayer` under `module` the data group its train
+    mode takes the batch statistics over (None: its own rows)."""
+    for m in module.modules():
+        if isinstance(m, BatchNormLayer):
+            m.process_group = group
 
 
 def _units(c_in, widths, act, final, use_bn):

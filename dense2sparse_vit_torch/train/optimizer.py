@@ -19,7 +19,12 @@ optax's), and every k-th applies AdamW to the mean and resets it; the other
 steps leave the parameters as they are. `count` and the schedules count
 updates, not micro-steps, and the mean carries across epoch boundaries.
 The mean and the micro-step counter are in the optimizer's state_dict, with
-`count`, so a checkpoint taken mid-cycle resumes exactly.
+`count`, so a checkpoint taken mid-cycle resumes exactly. Under DDP
+(`process_group` set, by the train step) the micro-steps other than the
+last fold their rank's own gradient, and the mean is averaged over the
+group before the last one folds DDP's averaged gradient: the mean is
+linear, so the update is the one-process update on the global batches
+(`sync_accumulator` averages it at a checkpoint).
 
 optax updates every parameter of a group, a zero gradient included (its
 moments decay and weight decay shrinks it); torch's AdamW skips a
@@ -36,6 +41,7 @@ import torch
 import torch.nn as nn
 
 from dense2sparse_vit_torch.core.config import TrainConfig
+from dense2sparse_vit_torch.parallel import group_size
 from dense2sparse_vit_torch.train import schedule as sched
 
 GROUPS = ("predictor", "early_exit", "base_decay", "base_no_decay")
@@ -90,6 +96,7 @@ class ScheduledAdamW(torch.optim.AdamW):
         self.accum_steps = cfg.grad_accum_steps
         self.mini_step = 0  # micro-steps folded into `accum` since the last update
         self.accum: Dict[torch.Tensor, torch.Tensor] = {}
+        self.process_group = None  # DDP's data group (module docstring)
 
     def group_lr(self, label: str, epoch) -> float:
         if label in ("predictor", "early_exit"):
@@ -107,6 +114,8 @@ class ScheduledAdamW(torch.optim.AdamW):
         if self.accum_steps > 1:
             # optax MultiSteps: the running mean acc + (g - acc) / (n + 1)
             n = self.mini_step
+            if n == self.accum_steps - 1:
+                self.sync_accumulator()
             for p in self._params():
                 if p.grad is None:
                     continue
@@ -131,6 +140,22 @@ class ScheduledAdamW(torch.optim.AdamW):
                 p.grad = g
             self.accum = {}
         return loss
+
+    @torch.no_grad()
+    def sync_accumulator(self) -> None:
+        """Average the running mean of the gradients over `process_group`
+        (every rank calls it); nothing with one rank."""
+        n = group_size(self.process_group)
+        if n == 1 or not self.accum:
+            return
+        accs = list(self.accum.values())
+        flat = torch.cat([a.reshape(-1) for a in accs])
+        torch.distributed.all_reduce(flat, group=self.process_group)
+        flat /= n
+        at = 0
+        for a in accs:
+            a.copy_(flat[at:at + a.numel()].view_as(a))
+            at += a.numel()
 
     def state_dict(self):
         sd = super().state_dict()

@@ -27,15 +27,29 @@ pruning student) over the rows whose label is not -1 (the padded tail of
 the last batch). Every step takes uint8 images, which it normalises on
 their device (`data.pipeline.device_normalize`), or normalised float ones.
 The metric names are the JAX steps'.
+
+Data parallelism: both train steps take the student wrapped by
+`wrap_ddp` (DDP over the mesh's data group; the frozen teacher is not
+wrapped). Each rank then computes on its shard of the global batch and DDP
+averages the gradients; what couples the batch is made global: the
+BatchNorm predictor's moments, the two kept-token denominators (the loss
+functions' `group`) and the accumulated gradient, whose micro-steps other
+than the last run under `no_sync` and whose running mean is averaged over
+the group before the update (`ScheduledAdamW.process_group`). The metrics
+a rank returns are its shard's (`parallel.global_batch_metrics` averages
+them).
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.nn.parallel import DistributedDataParallel
 
 from dense2sparse_vit_torch.core.config import ExperimentConfig
 from dense2sparse_vit_torch.data.pipeline import device_normalize
@@ -47,6 +61,7 @@ from dense2sparse_vit_torch.losses import (
     predictor_bce_vs_teacher,
 )
 from dense2sparse_vit_torch.losses.backbone_loss import cross_entropy, soft_target_cross_entropy
+from dense2sparse_vit_torch.nn.predictor import set_batch_norm_group
 from dense2sparse_vit_torch.train.optimizer import ScheduledAdamW
 from dense2sparse_vit_torch.train.schedule import sigma_schedule
 
@@ -107,6 +122,78 @@ def remat_forward(run: Callable, generator: Optional[torch.Generator], *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+# DDP's switch for not broadcasting the buffers at every forward: newer torch
+# names it forward_sync_buffers and deprecates broadcast_buffers
+NO_BUFFER_SYNC = ({"forward_sync_buffers": False}
+                  if "forward_sync_buffers" in inspect.signature(DistributedDataParallel).parameters
+                  else {"broadcast_buffers": False})
+
+
+class StudentForward(nn.Module):
+    """The student's train-mode forward as the module DDP wraps, with the
+    `remat_forward` recompute inside it: a checkpoint around DDP's own
+    forward would run DDP's forward again in the middle of the backward."""
+
+    def __init__(self, student: nn.Module, remat: bool = False):
+        super().__init__()
+        self.student = student
+        self.remat = remat
+
+    def forward(self, images, generator=None, **kwargs):
+        if self.remat:
+            return remat_forward(lambda x: self.student(x, generator=generator, **kwargs),
+                                 generator, images)
+        return self.student(images, generator=generator, **kwargs)
+
+
+def student_remat(cfg: ExperimentConfig) -> bool:
+    """Whether a train step recomputes the student's forward: with
+    ModelConfig.remat, except under the BatchNorm predictor (whose running
+    statistics would move twice; the JAX step ignores remat there too)."""
+    return cfg.model.remat and (cfg.pruning.selection == "gumbel" or not cfg.pruning.predictor_bn)
+
+
+def wrap_ddp(student: nn.Module, cfg: ExperimentConfig, mesh) -> DistributedDataParallel:
+    """The student under DDP over `mesh.data_group` (`core.mesh.make_mesh`),
+    for `make_train_step` / `make_dynamic_vit_train_step`: its BatchNorm
+    predictor layers take their statistics over that group, and the remat
+    recompute runs inside the wrapped module (`StudentForward`). Buffers
+    are not broadcast at each forward: the running statistics move alike on
+    every rank."""
+    set_batch_norm_group(student, mesh.data_group)
+    # DDP raises when a parameter that requires grad gets none. Of the
+    # modes, only teacher-CLS selection leaves some without: it ranks the
+    # tokens by the teacher's CLS rows, and its predictors reach no loss.
+    unused = cfg.pruning.cls_from_teacher and cfg.pruning.selection != "gumbel"
+    return DistributedDataParallel(StudentForward(student, student_remat(cfg)),
+                                   process_group=mesh.data_group,
+                                   find_unused_parameters=unused, **NO_BUFFER_SYNC)
+
+
+def _student_call(student: nn.Module, cfg: ExperimentConfig):
+    """(the student a step trains, its forward(images, generator, **kw), the
+    DDP wrapper or None) for a student or `wrap_ddp`'s wrapper of one."""
+    if isinstance(student, DistributedDataParallel):
+        if not isinstance(student.module, StudentForward):
+            raise ValueError("a DDP student comes from wrap_ddp, whose module runs the "
+                             "step's forward (and its remat recompute)")
+        return student.module.student, student, student
+    return student, StudentForward(student, student_remat(cfg)), None
+
+
+def _sync_context(ddp, optimizer: ScheduledAdamW):
+    """Where a step's forward and backward run. Under DDP, an accumulation
+    micro-step other than the last runs without the gradient all-reduce
+    (`no_sync`, which must hold the forward too): the optimizer averages its
+    running mean over the group before the update instead."""
+    if ddp is None:
+        return contextlib.nullcontext()
+    optimizer.process_group = ddp.process_group
+    if optimizer.mini_step == optimizer.accum_steps - 1 or optimizer.accum_steps == 1:
+        return contextlib.nullcontext()
+    return ddp.no_sync()
+
+
 def make_train_step(
     student: nn.Module,
     teacher: nn.Module,
@@ -119,6 +206,7 @@ def make_train_step(
     """Build `step(images, labels, epoch, teacher_in=None, generator=None)
     -> metrics`.
 
+    student: the student, or `wrap_ddp`'s wrapper of it (module docstring);
     images: (B, H, W, 3) NHWC, uint8 or normalised float; labels: (B,)
     int, or with mixup_active (B, num_classes) soft targets; epoch: the
     current epoch, which gates the backbone loss (the lr schedules read the
@@ -136,7 +224,8 @@ def make_train_step(
     `early_exit_loss` with early_exit.
     """
     tr, pr = cfg.train, cfg.pruning
-    remat = cfg.model.remat and not pr.predictor_bn
+    student, forward, ddp = _student_call(student, cfg)
+    group = None if ddp is None else ddp.process_group
     draws = [generator]
 
     def step(images: torch.Tensor, labels: torch.Tensor, epoch,
@@ -149,16 +238,21 @@ def make_train_step(
             generator = draws[0]
         student.train()
         t = teacher_outputs(teacher, teacher_in, images, cached_teacher)
+        with _sync_context(ddp, optimizer):
+            loss, metrics = losses(images, labels, epoch, t, generator)
+            student.zero_grad(set_to_none=True)
+            loss.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def losses(images, labels, epoch, t, generator):
         # no loss reads the student's own CLS rows (JAX `train_step.py:172`)
-        kwargs = dict(collect_cls_attns=False, generator=generator)
+        kwargs = dict(collect_cls_attns=False)
         if pr.cls_from_teacher:
             kwargs["teacher_cls_attns"] = t["attns"]
         if pr.differentiable_topk:
             kwargs.update(soft_topk=True, sigma=sigma_schedule(epoch, tr.epochs, pr.initial_sigma))
-        if remat:
-            out = remat_forward(lambda x: student(x, **kwargs), generator, images)
-        else:
-            out = student(images, **kwargs)
+        out = forward(images, generator=generator, **kwargs)
         m_loss, m_metrics = mask_loss(
             out.pred_logits, t["attns"], out.kept_idx, pr.keep_ratios,
             loss_type=pr.mask_loss_type, mean_heads=pr.mean_heads,
@@ -168,7 +262,7 @@ def make_train_step(
             out.logits, out.features, t["logits"], t["tokens"], labels,
             kept_idx_orig=out.kept_idx_orig, keep_mask=out.keep_mask,
             mixup_active=mixup_active, tokens_t_probs=t["token_probs"],
-            tokens_t_entropy=t["token_entropy"],
+            tokens_t_entropy=t["token_entropy"], group=group,
         )
         # warmup gate: the mask loss alone for the first warmup epochs
         loss = m_loss + float(epoch >= tr.warmup_epochs) * b_loss
@@ -178,11 +272,7 @@ def make_train_step(
                   else cross_entropy(ee_logits, labels))
             loss = loss + ee
             m_metrics = {**m_metrics, "early_exit_loss": ee}
-        student.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        metrics = {**m_metrics, **b_metrics, "loss": loss}
-        return {k: v.detach() for k, v in metrics.items()}
+        return loss, {**m_metrics, **b_metrics, "loss": loss}
 
     return step
 
@@ -197,8 +287,9 @@ def make_dynamic_vit_train_step(
     cached_teacher: bool = False,
 ) -> Callable:
     """Build `step(images, labels, epoch, teacher_in=None, generator=None)
-    -> metrics` for the gumbel baseline (`DynamicViTStudent`), as
-    `make_train_step` does for the pruning student (the cached rows hold
+    -> metrics` for the gumbel baseline (`DynamicViTStudent`, or `wrap_ddp`'s
+    wrapper of it), as `make_train_step` does for the pruning student (the
+    cached rows hold
     the teacher's raw tokens for this loss).
 
     The loss is `dynamic_vit_distill_loss` with the TrainConfig's
@@ -214,6 +305,8 @@ def make_dynamic_vit_train_step(
     the gradients are the same either way.
     """
     tr, pr = cfg.train, cfg.pruning
+    student, forward, ddp = _student_call(student, cfg)
+    group = None if ddp is None else ddp.process_group
     noise = [generator]
 
     def step(images: torch.Tensor, labels: torch.Tensor, epoch,
@@ -227,16 +320,21 @@ def make_dynamic_vit_train_step(
             generator = noise[0]
         student.train()
         t = teacher_outputs(teacher, teacher_in, images, cached_teacher)
-        if cfg.model.remat:
-            out = remat_forward(lambda x: student(x, generator=generator), generator, images)
-        else:
-            out = student(images, generator=generator)
+        with _sync_context(ddp, optimizer):
+            loss, metrics = losses(images, labels, t, generator)
+            student.zero_grad(set_to_none=True)
+            loss.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def losses(images, labels, t, generator):
+        out = forward(images, generator=generator)
         loss, metrics = dynamic_vit_distill_loss(
             out.logits, out.features, t["logits"], t["tokens"], labels, out.pred_keep_probs,
             out.decisions, pr.keep_ratios, cls_weight=tr.cls_weight,
             ratio_weight=tr.ratio_weight, dist_weight=tr.dist_weight,
             use_ratio_loss=tr.use_ratio_loss, use_token_dist_loss=tr.use_token_dist_loss,
-            mixup_active=mixup_active, temperature=tr.softmax_temp,
+            mixup_active=mixup_active, temperature=tr.softmax_temp, group=group,
         )
         if tr.teacher_cls_loss:
             target = t["target"]
@@ -245,11 +343,7 @@ def make_dynamic_vit_train_step(
             bce = predictor_bce_vs_teacher(out.pred_keep_probs, target.float(), pr.keep_ratios)
             loss = loss + bce
             metrics = {**metrics, "dyn_teacher_cls_bce": bce}
-        student.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        metrics = {**metrics, "loss": loss}
-        return {k: v.detach() for k, v in metrics.items()}
+        return loss, {**metrics, "loss": loss}
 
     return step
 

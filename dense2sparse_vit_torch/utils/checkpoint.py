@@ -16,6 +16,12 @@ its best checkpoint with a worse one. What a checkpoint holds is the
 caller's: the training loop saves the student's state_dict, the optimizer's
 (with its update count and a mid-cycle accumulator) and the micro-step
 counter.
+
+Under a process group every rank calls `save` / `save_if_best` and tracks
+the best metric, rank 0 alone writes, and every rank waits for the write
+(a barrier). A tensor-parallel student's state is gathered into the full
+tensors before the save (`save_tensor_parallel`) and split again on the
+restore (`restore_tensor_parallel`), bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ import re
 from typing import Any, List, Optional
 
 import torch
+
+from dense2sparse_vit_torch.core.mesh import barrier, is_primary
 
 _STEP = re.compile(r"^step_(\d+)\.pt$")
 
@@ -83,19 +91,23 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, metrics: Optional[dict] = None) -> None:
         """Save into the latest stream (every epoch); a step already there
-        (an epoch that made no train step) is not saved again."""
-        if step in self._latest.all_steps():
-            return
-        self._latest.save(step, state, metrics)
+        (an epoch that made no train step) is not saved again. Rank 0
+        writes; every rank waits."""
+        if is_primary() and step not in self._latest.all_steps():
+            self._latest.save(step, state, metrics)
+        barrier()
 
     def save_if_best(self, step: int, state: Any, metric: float) -> bool:
         """Save into the best stream when `metric` beats the best so far
-        (higher is better); returns whether it saved."""
-        if self.best_metric is None or metric > self.best_metric:
+        (higher is better); returns whether it saved. Rank 0 writes; every
+        rank tracks the best and waits."""
+        better = self.best_metric is None or metric > self.best_metric
+        if better:
             self.best_metric = metric
-            self._best.save(step, state, {"best_metric": metric})
-            return True
-        return False
+            if is_primary():
+                self._best.save(step, state, {"best_metric": metric})
+        barrier()
+        return better
 
     def latest_step(self) -> Optional[int]:
         """The highest step across both streams (what --resume restores)."""
@@ -124,3 +136,23 @@ class CheckpointManager:
     def close(self) -> None:
         """Nothing is left open between calls; kept for the JAX manager's
         interface."""
+
+
+def save_tensor_parallel(ckpt: CheckpointManager, step: int, local_state: dict, mesh,
+                         extra: Optional[dict] = None) -> None:
+    """Save a tensor-parallel student: its shards gathered over the model
+    group into the full state_dict (every rank calls this), written by rank
+    0 as {"student": full, **extra}."""
+    from dense2sparse_vit_torch.parallel.tensor_parallel import gather_params
+
+    full = {k: v.detach().cpu() for k, v in gather_params(local_state, mesh).items()}
+    ckpt.save(step, {"student": full, **(extra or {})})
+
+
+def restore_tensor_parallel(ckpt: CheckpointManager, mesh, step: Optional[int] = None) -> dict:
+    """This rank's shards of a saved full student state_dict (every rank
+    reads the file), split as `parallel.tensor_parallel.shard_params`
+    splits, bit for bit."""
+    from dense2sparse_vit_torch.parallel.tensor_parallel import shard_params
+
+    return shard_params(ckpt.restore(step, map_location="cpu")["student"], mesh)

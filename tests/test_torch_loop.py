@@ -463,7 +463,10 @@ def test_parse_config_matches_jax(argv):
 ])
 def test_unported_flags_raise_naming_themselves(argv, name):
     """--remat and --initial-sigma are ported now: they reach the config as
-    the JAX CLI's do. More than one process is still refused, naming it."""
+    the JAX CLI's do. More than one process is ported too: the --dist-*
+    flags parse, into the same config as without them, and reach main's
+    `maybe_initialize_distributed` (tests/test_torch_distributed.py runs
+    them)."""
     if name.startswith("--"):
         got, _ = cli.parse_config(argv)
         want, _ = jax_cli.parse_config(argv)
@@ -471,8 +474,11 @@ def test_unported_flags_raise_naming_themselves(argv, name):
         assert got.pruning.initial_sigma == want.pruning.initial_sigma
         assert got.pruning.initial_sigma == (0.1 if name == "--initial-sigma" else 0.05)
         return
-    with pytest.raises(NotImplementedError, match=name):
-        cli.parse_config(argv)
+    got, args = cli.parse_config(argv)
+    want, jargs = jax_cli.parse_config(argv)
+    assert got == cli.parse_config([])[0]
+    assert (args.dist_coordinator, args.dist_num_processes) == (
+        jargs.dist_coordinator, jargs.dist_num_processes)
 
 
 @pytest.mark.parametrize("flag,name", [

@@ -324,7 +324,11 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.train.train_step, dense2sparse_vit_torch.train.optimizer, "
         "dense2sparse_vit_torch.models.registry, dense2sparse_vit_torch.models.deit, "
         "dense2sparse_vit_torch.models.deit_heads, dense2sparse_vit_torch.models.dino, "
-        "dense2sparse_vit_torch.models.tnt, dense2sparse_vit_torch.models.resnet\n"
+        "dense2sparse_vit_torch.models.tnt, dense2sparse_vit_torch.models.resnet, "
+        "dense2sparse_vit_torch.core.mesh, dense2sparse_vit_torch.parallel, "
+        "dense2sparse_vit_torch.parallel.tensor_parallel, "
+        "dense2sparse_vit_torch.experiments.spmd_hello_world, "
+        "dense2sparse_vit_torch.scripts.dryrun_multichip\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"
