@@ -284,6 +284,26 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  two spawned processes on the one card in a gloo group,
                  each with half of a B=64 batch, against one process on
                  the whole batch.
+ 37. experiments  the users' experiment entry points over phase 32's
+                 folder, each against its plain run (`phase_experiments`):
+                 (a) `eval_imagenet.evaluate` of a DeiT-S checkpoint at
+                 B=128 (720 images, a padded tail of 80; 24 block, 3
+                 predictor, 3 gather launches a batch; counts within 1% of
+                 the images, the first batch's unpruned logits within
+                 LOGITS_TOL; img/s); (b) `display_patch_drop` on dino_small
+                 and DeiT-S at B=16 (11 blocks and the CLS-row block a
+                 forward, the rows within STAGE_TOL, the 18 keep masks
+                 equal where the rows' error does not explain a flip, 18
+                 PNGs); (c) `run_optimized_mask`, DeiT-S, B=16, mask_block
+                 7, 5 epochs (5 block backwards an epoch, epoch 0's loss
+                 within 2% of the plain run's, ms an epoch); (d) the loop
+                 with --visualize-patch-drop --visualize-cls-attn-evo (both
+                 PNGs, parameters bit-equal to the run without); (e) the
+                 native normaliser (built, used, within 2 ulps of numpy,
+                 host ms); (f) three B=128 steps with fused AdamW, their
+                 gradients also through --no-flat-optimizer's loop on a twin
+                 (parameters within 1e-5; launches, host and device ms of an
+                 optimizer step).
 The build phase fails if ptxas reports a spill in a GEMM kernel, in
 attention_bwd_kernel or in an instantiation of the head-width cores
 (attention_hd_kernel, attention_hd_bwd_kernel: each of the 16 of each
@@ -6331,6 +6351,531 @@ def phase_distributed(torch, dev, tally, smi, root):
     emit({"phase": "distributed", "seconds": round(time.perf_counter() - t0, 3), "card": smi})
 
 
+# ---- 37. the experiment drivers, visualization, native normaliser, flat AdamW
+
+EXP_BATCH = 128  # (a)'s eval batch: 720 images, a padded tail of 80
+EXP_PANEL = 16  # (b)'s and (c)'s images
+EXP_DROP_MODELS = ("dino_small", "deit_small_patch16_224")
+EXP_MASK_EPOCHS, EXP_MASK_BLOCK = 5, 7
+EXP_LOOP_STEPS = 2  # (d): steps of its one epoch
+EVAL_COUNT_TOL = 1e-2  # (a): kernel against plain top-1 counts, a share of the images
+MASK_LOSS_TOL = 2e-2  # (c): epoch 0's loss, kernel against plain, relative
+MASK_SHARE_MARGIN = 2e-3  # (b): keep-mask entries, kernel's agreement with fp32 below bf16 plain's
+FLAT_PARAM_TOL = 1e-5  # (f): fused against per-parameter AdamW, relative per tensor
+NATIVE_ULPS = 2  # (e): ulps of the output's largest magnitude
+FLAT_STEPS = 3
+NATIVE_REPS = 20  # (e): timed calls of each version at each shape
+PER_EVAL_BATCH = {**NO_LAUNCHES, "fused_transformer_block": 24, "fused_predictor_lg": 3,
+                  "fused_gather_tokens": 3}
+PER_PATCH_DROP = {**NO_LAUNCHES, "fused_transformer_block": 11,
+                  "fused_transformer_block_cls": 1}
+_MASK_BWD = 12 - EXP_MASK_BLOCK
+PER_MASK_EPOCH = {**NO_LAUNCHES, "fused_transformer_block": 12,
+                  "fused_transformer_block_backward": _MASK_BWD,
+                  **norm_launches(blocks=_MASK_BWD), **core_launches(_MASK_BWD)}
+PER_TEACHER = {**NO_LAUNCHES, "fused_transformer_block": 12}
+
+
+def scaled(table: dict, n: int, plus: dict = NO_LAUNCHES) -> dict:
+    """n times each launch count of `table`, plus `plus`'s."""
+    return {k: n * v + plus[k] for k, v in table.items()}
+
+
+def check_eval_agreement(kernel: dict, plain: dict, images: int) -> dict:
+    """(a): the image count and the pruned and unpruned correct counts of
+    the kernel run against the plain run's, within EVAL_COUNT_TOL of the
+    images. Returns the differences."""
+    diff = {k: abs(kernel[f"{k}_top1"] - plain[f"{k}_top1"]) * images
+            for k in ("pruned", "unpruned")}
+    if (kernel["images"] != images or plain["images"] != images
+            or any(d > EVAL_COUNT_TOL * images for d in diff.values())):
+        raise AssertionError(f"experiments: eval_imagenet kernel {kernel} against plain {plain}")
+    return diff
+
+
+def keep_agreement(spatial, plain_spatial, exact_spatial) -> dict:
+    """(b): the share of equal entries over the 18 (foreground, rate) keep
+    masks of the kernel's (B, N) attention `spatial` against the bf16
+    plain model's (`kernel_vs_plain`), and of each against the fp32 plain
+    model's (`kernel_vs_fp32`, `plain_vs_fp32`). Random-weight attention is
+    near-uniform, so bf16 rounding alone reorders patches at the cut;
+    `masks_agree` asks the kernel's masks to agree with the fp32 ones no
+    less than the bf16 plain layers' do."""
+    import numpy as np
+
+    from dense2sparse_vit_torch.experiments.display_patch_drop import patch_drop_masks
+
+    got, plain, exact = (patch_drop_masks(s / s.sum(-1, keepdims=True))
+                         for s in (spatial, plain_spatial, exact_spatial))
+
+    def share(a, b):
+        return float(np.mean([a[k] == b[k] for k in b]))
+
+    return {"kernel_vs_plain": share(got, plain), "kernel_vs_fp32": share(got, exact),
+            "plain_vs_fp32": share(plain, exact)}
+
+
+def masks_agree(shares: dict) -> bool:
+    """(b): the kernel's masks agree with the fp32 model's in a share of
+    the entries at most MASK_SHARE_MARGIN below the bf16 plain model's."""
+    return shares["kernel_vs_fp32"] >= shares["plain_vs_fp32"] - MASK_SHARE_MARGIN
+
+
+class WeightGradSpy:
+    """(c): within the block, counts the trainable block's backward calls
+    and the weight gradients they return (None for a frozen weight)."""
+
+    def __enter__(self):
+        from dense2sparse_vit_torch.ops import block
+
+        self.cls = block._TrainableBlock
+        self.saved = self.cls.__dict__["backward"]
+        real = self.saved.__func__
+        self.calls = self.weight_grads = 0
+
+        def backward(ctx, g):
+            out = real(ctx, g)
+            self.calls += 1
+            self.weight_grads += sum(t is not None for t in out[8:])
+            return out
+
+        self.cls.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.backward = self.saved
+        return False
+
+
+def mask_loss(h: dict) -> float:
+    """(c): the loss `kd_loss` optimises, from an epoch's metrics."""
+    return h["kd_kl"] + h["kd_ce"] + h["kd_ratio_penalty"]
+
+
+def check_mask_history(kernel: list, plain: list, moved: float) -> float:
+    """(c): every epoch's metrics finite, the logits moved, epoch 0's loss
+    within MASK_LOSS_TOL of the plain run's. Returns that relative error."""
+    import math
+
+    finite = all(math.isfinite(v) for h in kernel for v in h.values())
+    rel = abs(mask_loss(kernel[0]) - mask_loss(plain[0])) / abs(mask_loss(plain[0]))
+    if not finite or not moved > 0 or rel > MASK_LOSS_TOL:
+        raise AssertionError(f"experiments: optimized_mask finite {finite}, logits moved "
+                             f"{moved}, epoch-0 loss rel err {rel}")
+    return rel
+
+
+def native_ulps(got, want) -> float:
+    """(e): max |got - want| in ulps of want's largest magnitude."""
+    import numpy as np
+
+    return float(np.abs(got - want).max() / np.spacing(np.abs(want).max()))
+
+
+def tensor_rel_diffs(torch, a: dict, b: dict) -> dict:
+    """(f): {name: max |a - b| / max |b|} over b's tensors."""
+    return {k: (a[k].float() - v.float()).abs().max().item()
+            / max(v.float().abs().max().item(), 1e-30) for k, v in b.items()}
+
+
+def params_rel_diff(torch, a: dict, b: dict) -> float:
+    """(f): the largest per-tensor max |a - b| / max |b|."""
+    return max(tensor_rel_diffs(torch, a, b).values())
+
+
+def write_flat_folder(root, n=EXP_PANEL, seed=5) -> None:
+    """`n` JPEGs of 256-400 px in one folder, from a numpy seed."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(256, 401, 2))
+        base = rng.integers(0, 256, (1, 1, 3)).astype(np.float32)
+        blob = np.exp(-((np.arange(h)[:, None] - h / 2) ** 2 + (np.arange(w)[None] - w / 2) ** 2)
+                      / (2 * (min(h, w) / 5) ** 2))[..., None] * 120
+        arr = np.clip(base + blob + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(root, f"{i:03d}.jpg"), quality=90)
+
+
+def exp_eval(torch, dev, tally, smi, root, tmp):
+    """(a) `eval_imagenet.evaluate` of a DeiT-S checkpoint over the folder."""
+    import os
+
+    import dense2sparse_vit_torch.experiments.eval_imagenet as ev
+    from dense2sparse_vit_torch import ops
+
+    model, _ = ev.build_model("deit_small", (3, 6, 9), (0.7, 0.49, 0.343), "float32", False)
+    model.init_weights(torch.Generator().manual_seed(7))
+    ckpt = os.path.join(tmp, "deit_small.pth")
+    torch.save({"model": {k: v for k, v in model.state_dict().items()
+                          if not k.startswith("score_predictor")}}, ckpt)
+    n_images = len(ev.ImageFolder(root))
+    firsts = {}
+    real_build = ev.build_model
+
+    def build(*a, **k):
+        m, has = real_build(*a, **k)
+        calls = []
+
+        def hook(mod, args, out):
+            if len(calls) < 2:  # the first batch's pruned and unpruned logits
+                calls.append(out.logits.float().clone())
+                firsts[k.get("use_fused_attention", a[-1])] = calls
+        m.register_forward_hook(hook)
+        return m, has
+
+    ev.build_model = build
+    try:
+        runs = {}
+        for fused in (False, True):  # the plain run first: the kernel run's decode is warm
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[fused] = ev.evaluate(arch="deit_small", imgnet_val_dir=root, checkpoint=ckpt,
+                                      batch_size=EXP_BATCH, dtype="bfloat16",
+                                      use_fused_attention=fused, device=dev)
+            torch.cuda.synchronize()
+            runs[fused]["wall_s"] = time.perf_counter() - t0
+            if fused:
+                counts = ops.launch_counts()
+    finally:
+        ev.build_model = real_build
+    batches = -(-n_images // EXP_BATCH)
+    check_mode_launches(counts, scaled(PER_EVAL_BATCH, batches), "eval_imagenet")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    diff = check_eval_agreement(runs[True], runs[False], n_images)
+    errs = {}
+    for i, what in enumerate(("pruned", "unpruned")):
+        err, scale = rel_err(torch, firsts[True][i], firsts[False][i])
+        errs[what] = {"max_abs_err": err, "max_abs_ref": scale}
+    u = errs["unpruned"]
+    emit({"phase": "experiments", "case": "eval_imagenet", "images": n_images,
+          "batch": EXP_BATCH, "kernel": runs[True], "plain": runs[False],
+          "count_diff": diff, "first_batch_logits": errs, "tol_rel": LOGITS_TOL,
+          "img_per_s": n_images / runs[True]["wall_s"],
+          "plain_img_per_s": n_images / runs[False]["wall_s"],
+          "launches_per_batch": {k: v // batches for k, v in counts.items() if v}, "card": smi})
+    # the pruned logits follow the kept tokens, which may differ at near-ties
+    if u["max_abs_err"] > LOGITS_TOL * max(u["max_abs_ref"], 1e-3):
+        raise AssertionError(f"experiments: eval_imagenet's first-batch unpruned logits {u}")
+
+
+def exp_patch_drop(torch, dev, tally, smi, tmp):
+    """(b) `display_patch_drop` on dino_small and DeiT-S."""
+    import os
+
+    import dense2sparse_vit_torch.experiments.display_patch_drop as dpd
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.models import create_model
+
+    folder = os.path.join(tmp, "flat")
+    write_flat_folder(folder)
+    images = dpd.load_panel(folder, EXP_PANEL, dev)
+    for name in EXP_DROP_MODELS:
+        model = create_model(name, device=dev, dtype="bfloat16", use_fused_attention=True).eval()
+        plain, exact = (create_model(name, device=dev, dtype=dtype,
+                                     use_fused_attention=False).eval()
+                        for dtype in ("bfloat16", "float32"))
+        plain.load_state_dict(model.state_dict())
+        exact.load_state_dict(model.state_dict())
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            rows = model(images, return_selfattention=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_mode_launches(counts, PER_PATCH_DROP, f"display_patch_drop {name}")
+        for k, v in counts.items():
+            tally.rows[k]["launches"] += v
+        with torch.no_grad():
+            want = plain(images, return_selfattention=True)
+        err, scale = rel_err(torch, rows, want)
+        tally.err("fused_transformer_block_cls", err)
+        shares = keep_agreement(*(dpd.attention_scores(m, images) for m in (model, plain, exact)))
+        out = os.path.join(tmp, f"drop_{name}")
+        ops.reset_launch_counts()
+        files = dpd.generate_patch_drop_masked_image(model, images, out)
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            tally.rows[k]["launches"] += v
+        written = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        emit({"phase": "experiments", "case": "display_patch_drop", "model": name,
+              "batch": EXP_PANEL, "cls_rows_rel_err": err / scale, "tol_rel": STAGE_TOL,
+              "keep_agreement": shares, "margin": MASK_SHARE_MARGIN, "pngs": len(written)})
+        if (err > STAGE_TOL * scale or not masks_agree(shares) or len(written) != 18
+                or len(files) != 18 or counts != PER_PATCH_DROP):
+            raise AssertionError(f"experiments: display_patch_drop {name}: rows {err / scale}, "
+                                 f"masks {shares}, {len(written)} PNGs, launches {counts}")
+        del model, plain, exact
+
+
+def exp_optimized_mask(torch, dev, tally, smi, root):
+    """(c) `optimized_mask.run_optimized_mask` on DeiT-S at B=16."""
+    import numpy as np
+
+    import dense2sparse_vit_torch.experiments.optimized_mask as om
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.core.config import DataConfig, deit_small
+    from dense2sparse_vit_torch.data import ImageFolder, eval_transform
+
+    ds = ImageFolder(root, eval_transform(DataConfig()))
+    pairs = [ds[i * 37] for i in range(EXP_PANEL)]
+    images = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    labels = torch.tensor([p[1] for p in pairs], device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with WeightGradSpy() as spy:
+        logits, hist = om.run_optimized_mask(images, labels, num_epochs=EXP_MASK_EPOCHS,
+                                             mask_block=EXP_MASK_BLOCK, device=dev)
+    t5 = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    om.run_optimized_mask(images, labels, num_epochs=1, mask_block=EXP_MASK_BLOCK, device=dev)
+    t1 = time.perf_counter() - t0
+    _, plain = om.run_optimized_mask(
+        images, labels, num_epochs=1, mask_block=EXP_MASK_BLOCK, device=dev,
+        cfg=deit_small(dtype="bfloat16", use_fused_attention=False))
+    check_mode_launches(counts, scaled(PER_MASK_EPOCH, EXP_MASK_EPOCHS, PER_TEACHER),
+                        "optimized_mask")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    n = logits.shape[0]
+    init = om.standard_normal((n, 2), torch.Generator().manual_seed(212 + 3)) * np.sqrt(
+        2.0 / (n + 2))
+    moved = (logits.cpu() - init).abs().max().item()
+    rel = check_mask_history(hist, plain, moved)
+    emit({"phase": "experiments", "case": "optimized_mask", "batch": EXP_PANEL,
+          "mask_block": EXP_MASK_BLOCK, "epochs": EXP_MASK_EPOCHS,
+          "losses": [mask_loss(h) for h in hist], "plain_loss_0": mask_loss(plain[0]),
+          "loss_0_rel_err": rel, "tol_rel": MASK_LOSS_TOL, "logits_moved": moved,
+          "block_backwards": spy.calls, "weight_grads_returned": spy.weight_grads,
+          "ms_per_epoch": (t5 - t1) / (EXP_MASK_EPOCHS - 1) * 1e3,
+          "launches": {k: v for k, v in counts.items() if v}, "card": smi})
+    if spy.weight_grads or spy.calls != _MASK_BWD * EXP_MASK_EPOCHS:
+        raise AssertionError(f"experiments: optimized_mask's block backwards: {spy.calls} calls "
+                             f"returned {spy.weight_grads} weight gradients")
+
+
+def exp_loop_viz(torch, dev, tally, root, tmp):
+    """(d) the loop with --visualize-patch-drop --visualize-cls-attn-evo
+    against the same run without them."""
+    import os
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.train import loop
+    from dense2sparse_vit_torch.utils.checkpoint import CheckpointManager
+
+    states = {}
+    for name, extra in (("viz", ["--visualize-patch-drop", "--visualize-cls-attn-evo"]),
+                        ("plain", [])):
+        cfg, _ = loop_config(root, "--epochs", "1", *extra)
+        workdir = os.path.join(tmp, f"loop_{name}")
+        ops.reset_launch_counts()
+        loop.run_experiment(cfg, workdir, device=dev, max_steps_per_epoch=EXP_LOOP_STEPS)
+        for k, v in ops.launch_counts().items():
+            tally.rows[k]["launches"] += v
+        states[name] = CheckpointManager(os.path.join(workdir, "ckpt")).restore(
+            map_location="cpu")["student"]
+    pngs = sorted(os.listdir(os.path.join(tmp, "loop_viz", "viz")))
+    differ = [k for k in states["plain"] if not torch.equal(states["viz"][k], states["plain"][k])]
+    emit({"phase": "experiments", "case": "loop_visualize", "pngs": pngs,
+          "params_not_bit_equal": differ})
+    if pngs != ["cls_attn_evo_epoch_0.png", "patch_drop_epoch_0.png"] or differ:
+        raise AssertionError(f"experiments: the loop's visualization wrote {pngs}, "
+                             f"parameters differ {differ[:4]}")
+
+
+def exp_native(torch, smi):
+    """(e) the native normaliser at the shapes the port's paths hand
+    `data.pipeline._normalize` in uint8: one 224-px image (the eval
+    transform of display_patch_drop's, optimized_mask's and
+    parity_report's loaders) and a 16-image panel (the loop's
+    --visualize-* panel)."""
+    import numpy as np
+
+    from dense2sparse_vit_torch.native import normalize as native
+
+    calls = native.normalize_u8.native_calls
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    rng = np.random.default_rng(9)
+    rows = {}
+    for what, shape in (("image", (224, 224, 3)), ("panel", (EXP_PANEL, 224, 224, 3))):
+        x = rng.integers(0, 256, shape, dtype=np.uint8)
+        ulps = native_ulps(native.normalize_u8(x, mean, std),
+                           native.normalize_u8_reference(x, mean, std))
+        times = {}
+        for key, fn in (("native", native.normalize_u8),
+                        ("numpy", native.normalize_u8_reference)):
+            t = []
+            for _ in range(NATIVE_REPS):
+                t0 = time.perf_counter()
+                fn(x, mean, std)
+                t.append((time.perf_counter() - t0) * 1e3)
+            times[key] = statistics.median(t)
+        rows[what] = {"shape": list(shape), "max_ulps": ulps, "native_ms": times["native"],
+                      "numpy_ms": times["numpy"]}
+    built = native.library_path().exists()
+    used = native.normalize_u8.native_calls - calls
+    emit({"phase": "experiments", "case": "native_normalize", **rows,
+          "library": str(native.library_path().name), "built": built, "native_calls": used,
+          "tol_ulps": NATIVE_ULPS, "host": "host CPU of the card's machine", "card": smi})
+    if (not built or used != 2 * (1 + NATIVE_REPS)
+            or any(r["max_ulps"] > NATIVE_ULPS for r in rows.values())):
+        raise AssertionError(f"experiments: native normalisation built {built}, {used} calls, "
+                             f"{rows}")
+
+
+def optimizer_launches(torch, opt) -> tuple:
+    """(f): kernel launches of one `opt.step()` (on the last gradients), from
+    torch.profiler: the most that any of three windows of FLAT_STEPS steps
+    records a step, and each window's count. Whole runs of this script
+    have shown windows that lose some or all of their launches; it fails
+    where no window records one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(FLAT_STEPS):
+                opt.step()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA")))
+    if not max(counts):
+        raise AssertionError("experiments: the profiler recorded no launch of the optimizer step")
+    return max(counts) / FLAT_STEPS, counts
+
+
+def exp_flat_optimizer(torch, dev, smi):
+    """(f) fused AdamW (the default, flat_optimizer) against torch's default
+    step (--no-flat-optimizer, the multi-tensor update on the card): three
+    B=128 headline steps of each from the same seeded weights (`whole`:
+    within FLAT_PARAM_TOL after the first), the fused run's gradients
+    handed to a twin under the default step (`same_grads`: within
+    FLAT_PARAM_TOL after three), a second default run (`default_rerun`:
+    bit-equal), each against the fused run's parameters; each optimizer
+    step's kernel launches (profiler), host enqueue ms and device ms."""
+    from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
+    from dense2sparse_vit_torch.models import HEADLINE_KWARGS, HEADLINE_MODEL, HEADLINE_TEACHER
+    from dense2sparse_vit_torch.models import create_model
+    from dense2sparse_vit_torch.train import make_optimizer, make_train_step
+
+    teacher = create_model(HEADLINE_TEACHER, use_fused_attention=True, device=dev,
+                           dtype="bfloat16", generator=torch.Generator().manual_seed(2))
+    images, labels = train_batch(torch, dev)
+    runs = []
+    # fused, default, the default twin on fused gradients, a second default run
+    for flat in (True, False, False, False):
+        student = create_model(HEADLINE_MODEL, use_fused_attention=True, device=dev,
+                               generator=torch.Generator().manual_seed(0), **HEADLINE_KWARGS)
+        cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning,
+                               train=TrainConfig(flat_optimizer=flat))
+        opt = make_optimizer(student, cfg.train, STEPS_PER_EPOCH)
+        opt.count = cfg.train.warmup_epochs * STEPS_PER_EPOCH
+        runs.append((student, opt, make_train_step(student, teacher, opt, cfg)))
+    (fused, fused_opt, fused_step), (default, default_opt, default_step) = runs[:2]
+    (twin, twin_opt, _), (rerun, _, rerun_step) = runs[2:]
+    losses, whole = {True: [], False: []}, []
+    for _ in range(FLAT_STEPS):
+        losses[True].append(fused_step(images, labels, TRAIN_EPOCH)["loss"].item())
+        losses[False].append(default_step(images, labels, TRAIN_EPOCH)["loss"].item())
+        rerun_step(images, labels, TRAIN_EPOCH)
+        for p, q in zip(fused.parameters(), twin.parameters()):
+            q.grad = None if p.grad is None else p.grad.clone()
+        twin_opt.step()
+        whole.append(tensor_rel_diffs(torch, dict(default.named_parameters()),
+                                      dict(fused.named_parameters())))
+    torch.cuda.synchronize()
+    want = dict(fused.named_parameters())
+    rel = {"whole": max(whole[-1].values()),
+           "same_grads": params_rel_diff(torch, dict(twin.named_parameters()), want),
+           "default_rerun": params_rel_diff(torch, dict(rerun.named_parameters()),
+                                            dict(default.named_parameters()))}
+    worst = sorted(whole[-1].items(), key=lambda kv: -kv[1])
+    out = {}
+    for flat, opt in ((True, fused_opt), (False, default_opt)):  # on the last gradients
+        launches, windows = optimizer_launches(torch, opt)
+        host, device = [], []
+        for _ in range(5):
+            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s0.record()
+            t0 = time.perf_counter()
+            opt.step()
+            host.append((time.perf_counter() - t0) * 1e3)
+            s1.record()
+            torch.cuda.synchronize()
+            device.append(s0.elapsed_time(s1))
+        out[flat] = {"launches": launches, "launch_windows": windows,
+                     "host_ms": statistics.median(host),
+                     "device_ms": statistics.median(device)}
+    emit({"phase": "experiments", "case": "flat_optimizer", "batch": B_TRAIN, "steps": FLAT_STEPS,
+          "params_rel_diff": rel, "tol_rel": FLAT_PARAM_TOL,
+          "whole_by_step": [max(w.values()) for w in whole],
+          "whole_median_tensor": statistics.median(whole[-1].values()),
+          "whole_worst_tensors": worst[:6], "fused_losses": losses[True],
+          "default_losses": losses[False],
+          **{f"{'fused' if f else 'default'}_{k}": v for f in (True, False)
+             for k, v in out[f].items()}, "card": smi})
+    # past the first step the runs part: the optimizers' one-ulp differences
+    # flip bf16 top-k near-ties, and Adam moves a parameter whose gradient is
+    # rounding noise (the key and the predictors' shift-invariant biases) by
+    # about lr either way
+    if (max(whole[0].values()) > FLAT_PARAM_TOL or rel["same_grads"] > FLAT_PARAM_TOL
+            or rel["default_rerun"] != 0):
+        raise AssertionError(f"experiments: fused AdamW against torch's default step: {rel}, "
+                             f"whole steps {[max(w.values()) for w in whole]}")
+
+
+def phase_experiments(torch, dev, tally, smi, root):
+    """Phase 37: the users' experiment entry points at full width over
+    phase 32's folder (`root`), each held against its plain run: (a)
+    `eval_imagenet.evaluate` of a DeiT-S checkpoint (the port's seeded
+    weights in the reference's key layout, no predictor keys) at B=128,
+    bf16, through the kernels and through the plain layers: 720 images
+    counted (a padded tail of 80), the pruned and unpruned counts within
+    EVAL_COUNT_TOL of the images, the first batch's unpruned logits within
+    LOGITS_TOL, PER_EVAL_BATCH launches a batch, img/s; (b)
+    `display_patch_drop` on dino_small and DeiT-S at B=16 from a flat
+    folder of 16 JPEGs: PER_PATCH_DROP launches a forward (the last block's
+    CLS-row kernel), the CLS rows within STAGE_TOL of the plain model's, the
+    18 keep masks as close to an fp32 plain model's as the bf16 plain
+    model's are (`keep_agreement`, `masks_agree`), 18 PNGs; (c)
+    `run_optimized_mask` on DeiT-S, B=16, mask_block 7, 5 epochs: finite
+    metrics, the logits moved, epoch 0's loss within MASK_LOSS_TOL of the
+    plain run's (same generator seeds), PER_MASK_EPOCH launches an epoch
+    (five block backwards) and the teacher's once, no weight gradient
+    returned by a block backward (`WeightGradSpy`),
+    ms an epoch; (d) the loop with --visualize-patch-drop
+    --visualize-cls-attn-evo, one epoch of EXP_LOOP_STEPS steps: both PNGs
+    under workdir/viz, the parameters bit-equal to the run without the
+    flags; (e) the native normaliser built under _build/ and used, one
+    224-px image and a 16-image panel within NATIVE_ULPS of numpy, host ms
+    of both; (f) fused AdamW against --no-flat-optimizer's default step on
+    B=128 headline steps (`exp_flat_optimizer`): the parameters within
+    FLAT_PARAM_TOL after one whole step and after three on the same
+    gradients, each optimizer step's kernel launches (profiler), host
+    enqueue ms and device ms."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_exp_") as tmp:
+        exp_eval(torch, dev, tally, smi, root, tmp)
+        torch.cuda.empty_cache()
+        exp_patch_drop(torch, dev, tally, smi, tmp)
+        torch.cuda.empty_cache()
+        exp_optimized_mask(torch, dev, tally, smi, root)
+        torch.cuda.empty_cache()
+        exp_loop_viz(torch, dev, tally, root, tmp)
+        torch.cuda.empty_cache()
+    exp_native(torch, smi)
+    exp_flat_optimizer(torch, dev, smi)
+    emit({"phase": "experiments", "seconds": round(time.perf_counter() - t0, 3), "card": smi})
+
+
 def host_batch(torch, cfg, root, dev, split="val"):
     """The first LOOP_BATCH images of the loop's train or val split in the
     eval view, uint8 on the card, with their labels."""
@@ -6508,6 +7053,9 @@ def main(argv=None) -> int:
         # ---- 36. distributed training ---------------------------------------------
         torch.cuda.empty_cache()
         phase_distributed(torch, dev, tally, smi, loop_root)
+        # ---- 37. the experiment drivers, visualization, normaliser, AdamW -------
+        torch.cuda.empty_cache()
+        phase_experiments(torch, dev, tally, smi, loop_root)
     finally:
         loop_tmp.cleanup()
 

@@ -4,9 +4,8 @@ training loop (port of `dense2sparse_vit_tpu/cli.py`).
     python -m dense2sparse_vit_torch.cli --imgnet-val-dir DIR [flags]
 
 Every flag of the JAX package's CLI is accepted with its name and default,
-plus --device (the card by default; `cpu` to run there). A flag whose
-feature the port does not have yet raises NotImplementedError naming it;
---use-dp and --use-ddp are inert, as in the JAX package.
+plus --device (the card by default; `cpu` to run there); --use-dp and
+--use-ddp are inert, as in the JAX package.
 
 More than one process: launch one a device with torchrun, which sets the
 rank and the rendezvous,
@@ -132,10 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "(effective batch = batch-size * k)")
     p.add_argument("--seed", default=42, type=int)
     p.add_argument("--flat-optimizer", action="store_true",
-                   help="accepted, no effect: the JAX package's flattened AdamW is a TPU "
-                   "layout choice whose updates are identical")
+                   help="AdamW as torch's fused step, one launch over each parameter group "
+                   "(the default)")
     p.add_argument("--no-flat-optimizer", action="store_false", dest="flat_optimizer",
-                   help="accepted, no effect (see --flat-optimizer)")
+                   help="AdamW as torch's default step (multi-tensor on the card)")
     p.set_defaults(flat_optimizer=True)
     p.add_argument("--remat", action="store_true", default=False,
                    help="recompute the student's forward in the backward instead of keeping "

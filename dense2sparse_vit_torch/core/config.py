@@ -251,11 +251,3 @@ class ExperimentConfig:
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
-
-
-def reject_unported(unported: dict) -> None:
-    """Raise NotImplementedError naming every option in use ({name: in use})
-    whose path is not ported yet."""
-    missing = [name for name, used in unported.items() if used]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")

@@ -109,7 +109,12 @@ def sample_rng(seed: int, epoch: int, index: int) -> np.random.Generator:
 
 
 def _normalize(arr: np.ndarray, cfg: DataConfig) -> np.ndarray:
-    """uint8 or float HWC (or NHWC) -> (x / 255 - mean) / std, float32."""
+    """uint8 or float HWC (or NHWC) -> (x / 255 - mean) / std, float32;
+    uint8 through the native one-pass kernel (`native.normalize_u8`)."""
+    if arr.dtype == np.uint8:
+        from dense2sparse_vit_torch.native import normalize_u8
+
+        return normalize_u8(arr, cfg.mean, cfg.std)
     arr = arr.astype(np.float32) / 255.0
     mean = np.asarray(cfg.mean, np.float32)
     std = np.asarray(cfg.std, np.float32)

@@ -104,3 +104,28 @@ def predictor_bce_vs_teacher(pred_keep_probs: Sequence[torch.Tensor],
         bce = -(w_pos * gt * torch.log(p) + (1.0 - gt) * torch.log(1.0 - p))
         loss = loss + torch.mean(bce)
     return loss / max(len(pred_keep_probs), 1)
+
+
+def kd_loss(logits_s: torch.Tensor, logits_t: torch.Tensor, labels: torch.Tensor,
+            keep_decisions: torch.Tensor, epoch, temperature: float = 1.0,
+            ratio_epochs: float = 40.0, min_ratio: float = 0.35) -> Tuple[torch.Tensor, dict]:
+    """The mask-optimisation loss (`experiments.optimized_mask`): the fp32
+    KL(teacher || student) at temperature T, summed and divided by B, times
+    T^2, plus the CE of the student's logits, plus the keep-ratio penalty
+    (max(min_ratio, 1 - epoch / ratio_epochs) - mean keep)^2.
+
+    keep_decisions: (B, N) or (B, N, 1) keep decisions in [0, 1].
+    Returns (loss, metrics) with the JAX function's metric names."""
+    logits_s = logits_s.float()
+    logits_t = logits_t.float()
+    T = float(temperature)
+    log_p = F.log_softmax(logits_s / T, dim=-1)
+    log_q = F.log_softmax(logits_t / T, dim=-1)
+    kl = torch.sum(torch.exp(log_q) * (log_q - log_p)) / log_p.shape[0] * (T * T)
+    ce = cross_entropy(logits_s, labels)
+    target_ratio = max(min_ratio, 1.0 - float(epoch) / ratio_epochs)
+    mean_keep = keep_decisions.reshape(keep_decisions.shape[0], -1).float().mean()
+    ratio_pen = (target_ratio - mean_keep) ** 2
+    loss = kl + ce + ratio_pen
+    return loss, {"kd_kl": kl, "kd_ce": ce, "kd_ratio_penalty": ratio_pen,
+                  "kd_mean_keep": mean_keep}

@@ -26,6 +26,7 @@ from dense2sparse_vit_torch.ops.block import (
     fused_transformer_block_cls,
     fused_transformer_block_trainable,
     layer_norm,
+    needs_grad,
 )
 from dense2sparse_vit_torch.ops.mlp import fused_mlp_residual
 from dense2sparse_vit_torch.ops.quant import fused_transformer_block_int8, quantize_matrices
@@ -257,8 +258,12 @@ class Block(nn.Module):
     teacher's and an eval student's CLS capture), else
     `fused_transformer_block`. In train mode without CLS capture it is
     `fused_transformer_block_trainable`, whose backward is the
-    block-backward kernel. In train mode with CLS capture (a student that
-    collects its own CLS rows) it takes two halves: LN1, the `qkv` product,
+    block-backward kernel; so it is in eval mode on the card where the
+    input or a weight needs a gradient (a frozen model's input gradient,
+    as `experiments.optimized_mask` takes it), since the forward kernel
+    alone is not differentiable there. In train mode with CLS capture (a
+    student that collects its own CLS rows) it takes two halves: LN1, the
+    `qkv` product,
     `ops.attention.fused_attention_packed_with_cls_trainable` (the packed
     attention core with its CLS rows, whose backward folds in their
     cotangent), the `proj` product and the residual, then
@@ -381,7 +386,7 @@ class Block(nn.Module):
             kw = dict(scale=self.attn.scale, ln_eps=self.norm1.eps)
             if return_cls_attn:
                 return fused_transformer_block_cls(x, w, self.attn.num_heads, policy, **kw)
-            if self.training:
+            if self.training or (x.is_cuda and needs_grad(x, w, policy)):
                 return fused_transformer_block_trainable(
                     x, w, self.attn.num_heads, policy,
                     branch_scales=None if sa is None else (sa, sm), **kw)

@@ -47,7 +47,13 @@ from dense2sparse_vit_torch.ops.mlp import fused_mlp_residual, fused_mlp_residua
 from dense2sparse_vit_torch.ops.norm import COLUMN_SUMS, LN_BWD
 from dense2sparse_vit_torch.ops.predictor import fused_predictor_lg
 from dense2sparse_vit_torch.ops.quant import fused_transformer_block_int8
-from dense2sparse_vit_torch.ops.topk import mask_from_scores, threshold_keep_mask, topk_keep_indices
+from dense2sparse_vit_torch.ops.topk import (
+    compose_kept_indices,
+    mask_from_scores,
+    scatter_token_mask,
+    threshold_keep_mask,
+    topk_keep_indices,
+)
 
 # (name, wrapper, attribute holding the count)
 COUNTERS = (
@@ -99,7 +105,7 @@ def entry_launches() -> int:
 
 
 __all__ = [
-    "COUNTERS", "INNER_KERNELS", "KERNEL_NAMES", "entry_launches",
+    "COUNTERS", "INNER_KERNELS", "KERNEL_NAMES", "compose_kept_indices", "entry_launches",
     "fused_attention_backward_packed", "fused_attention_block",
     "fused_attention_block_backward", "fused_attention_block_backward_policy",
     "fused_attention_block_trainable", "fused_attention_packed",
@@ -110,6 +116,6 @@ __all__ = [
     "fused_scatter_tokens", "fused_transformer_block",
     "fused_transformer_block_backward", "fused_transformer_block_cls",
     "fused_transformer_block_int8", "fused_transformer_block_trainable", "gather_tokens_reference",
-    "launch_counts", "mask_from_scores", "reset_launch_counts",
+    "launch_counts", "mask_from_scores", "reset_launch_counts", "scatter_token_mask",
     "threshold_keep_mask", "topk_keep_indices",
 ]

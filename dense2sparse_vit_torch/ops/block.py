@@ -249,14 +249,14 @@ def _count(fn, policy, sa):
         fn.policy_launches += 1
 
 
-def _needs_grad(x, w, policy) -> bool:
+def needs_grad(x, w, policy) -> bool:
     return torch.is_grad_enabled() and (
         x.requires_grad or any(v is not None and v.requires_grad for v in w.values())
         or (policy is not None and policy.requires_grad))
 
 
 def _refuse_autograd(x, w, policy, what):
-    if _needs_grad(x, w, policy):
+    if needs_grad(x, w, policy):
         raise RuntimeError(
             f"{what} is not differentiable on the card: under autograd use "
             "fused_transformer_block_trainable"
@@ -394,7 +394,7 @@ def fused_transformer_block(
     what = "fused_transformer_block"
     if scale is None:
         scale = (C // num_heads) ** -0.5
-    if x.device.type == "cpu" and (stages or _needs_grad(x, w, policy)):
+    if x.device.type == "cpu" and (stages or needs_grad(x, w, policy)):
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, stages=stages, branch_scales=branch_scales)
     head_width(C, num_heads, what)
@@ -426,7 +426,7 @@ def fused_transformer_block_cls(
     C = _check_x(x)
     if scale is None:
         scale = (C // num_heads) ** -0.5
-    if x.device.type == "cpu" and _needs_grad(x, w, policy):
+    if x.device.type == "cpu" and needs_grad(x, w, policy):
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, return_cls=True)
     head_width(C, num_heads, "fused_transformer_block_cls")
@@ -503,7 +503,8 @@ class _TrainableBlock(torch.autograd.Function):
     only x, the policy, the branch scales and the weights are kept between
     the two; the scales get no gradient. The
     gradients come back in each weight's dtype and dPolicy in the policy's,
-    as the JAX package's custom VJP casts them; dPolicy is asked of the
+    as the JAX package's custom VJP casts them, and None for a weight that
+    needs none (a frozen model's input gradient); dPolicy is asked of the
     kernel only when the policy needs a gradient (the threshold path's
     policy comes from stopped scores and does not)."""
 
@@ -524,8 +525,9 @@ class _TrainableBlock(torch.autograd.Function):
         dx, dw, dpol = fused_transformer_block_backward(
             x, g.contiguous(), w, num_heads, policy, scale=scale, eps=eps, ln_eps=ln_eps,
             policy_grad=policy_grad, branch_scales=_scales(sa, sm))
-        grads = [None if w[k] is None else dw[k].to(w[k].dtype)
-                 for k in BLOCK_WEIGHT_KEYS]
+        # a frozen weight's gradient (the kernel computes it) is not kept
+        grads = [None if w[k] is None or not ctx.needs_input_grad[8 + i]
+                 else dw[k].to(w[k].dtype) for i, k in enumerate(BLOCK_WEIGHT_KEYS)]
         if dpol is not None:
             dpol = dpol.to(policy.dtype).reshape(policy.shape)
         return (dx, dpol, None, None, None, None, None, None, *grads)

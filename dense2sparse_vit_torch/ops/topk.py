@@ -56,3 +56,22 @@ def threshold_keep_mask(scores: torch.Tensor, threshold: float):
     th = (torch.cumsum(val.float(), dim=-1) > threshold).to(scores.dtype)
     mask = torch.zeros_like(scores).scatter_(1, order, th)
     return mask, th.sum(dim=-1) / N
+
+
+def compose_kept_indices(stages) -> torch.Tensor:
+    """Map stage-local kept indices to original token coordinates: stage i's
+    (B, K_i) indices address the tokens that survived stage i-1, so the
+    chain is composed by gathering each stage's indices from the previous
+    result. Returns the last stage's (B, K_last) original indices."""
+    out = stages[0]
+    for idx in stages[1:]:
+        out = torch.gather(out, 1, idx.to(out.device))
+    return out
+
+
+def scatter_token_mask(kept_idx: torch.Tensor, num_tokens: int,
+                       dtype=torch.float32) -> torch.Tensor:
+    """(B, num_tokens) mask in `dtype`, 1 at the kept (original-coordinate)
+    indices of each row and 0 elsewhere, on kept_idx's device."""
+    mask = torch.zeros((kept_idx.shape[0], num_tokens), dtype=dtype, device=kept_idx.device)
+    return mask.scatter_(1, kept_idx.long(), 1.0)

@@ -45,7 +45,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from dense2sparse_vit_torch.core.config import ExperimentConfig, reject_unported
+from dense2sparse_vit_torch.core.config import ExperimentConfig
 from dense2sparse_vit_torch.core.mesh import (
     barrier,
     distributed,
@@ -141,14 +141,13 @@ def run_experiment(
     export_serving: a directory for `ServingModel` artifacts of the best
       checkpoint (else the last weights).
     device: the device, by default the card (`resolve_device`: this rank's).
-    viz_every: the JAX loop's visualization cadence; visualization is not
-      ported, and the visualize_* options are rejected.
+    viz_every: with cfg.visualize_patch_drop / visualize_cls_attn_evo, the
+      epochs (epoch % viz_every == 0) whose end draws the student on a fixed
+      panel, the first val batch's first 16 images, into workdir/viz
+      (`viz.epoch_visualize`; rank 0, not for the gumbel baseline). The
+      panel's forward runs in eval mode without gradients and draws from no
+      training generator, so the training is the same with it as without.
     """
-    reject_unported({
-        "visualize_patch_drop": cfg.visualize_patch_drop,
-        "visualize_cls_attn_evo": cfg.visualize_cls_attn_evo,
-    })
-    del viz_every
     device = resolve_device(device)
     tr, dc = cfg.train, cfg.data
     seed = tr.seed
@@ -342,6 +341,7 @@ def run_experiment(
     # the first eval's device batches are kept and fed again to later evals
     # (within what --device-cache-gb leaves after the teacher cache)
     val_dev_batches: list = []
+    viz_panel: list = []  # the first val batch's (uint8 images, labels), host, 16 rows
     val_dev_limit = int(tr.device_cache_gb * 2**30) - (tcache.device_nbytes if tcache else 0)
     val_dev_ok = [val_dev_limit > 0]
 
@@ -354,6 +354,9 @@ def run_experiment(
                 yb = torch.cat([yb, torch.full((pad,), -1, dtype=yb.dtype)])
                 if pin:
                     xb, yb = xb.pin_memory(), yb.pin_memory()
+            if not viz_panel:
+                # a host copy, taken before the batch goes to the device
+                viz_panel.extend((xb[:16].numpy().copy(), yb[:16].numpy().copy()))
             xbd, ybd = to_dev(xb), to_dev(yb).long()
             if val_dev_ok[0]:
                 nbytes += xbd.numel() * xbd.element_size() + ybd.numel() * ybd.element_size()
@@ -380,6 +383,26 @@ def run_experiment(
         if total_valid:
             agg = {k: v / total_valid for k, v in agg.items()}
         return agg, total_valid
+
+    visualize = (cfg.visualize_patch_drop or cfg.visualize_cls_attn_evo) and not gumbel
+
+    @torch.no_grad()
+    def maybe_visualize(epoch):
+        """The epoch-end pictures of the student on the panel (rank 0)."""
+        if not (visualize and primary and viz_panel and epoch % viz_every == 0):
+            return
+        from dense2sparse_vit_torch.data.pipeline import _normalize
+        from dense2sparse_vit_torch.viz import epoch_visualize
+
+        images = _normalize(viz_panel[0], dc)  # uint8 -> normalised, the native kernel
+        student.eval()
+        out = student(torch.from_numpy(images).to(device),
+                      collect_cls_attns=cfg.visualize_cls_attn_evo)
+        epoch_visualize(images, out, cfg.model.num_patches, f"{workdir}/viz", epoch,
+                        labels=viz_panel[1], patch_size=cfg.model.patch_size,
+                        visualize_patch_drop=cfg.visualize_patch_drop,
+                        visualize_cls_attn_evo=cfg.visualize_cls_attn_evo,
+                        pruning_locs=cfg.pruning.pruning_locs)
 
     def maybe_export_serving():
         """--export-serving DIR: artifacts of the best checkpoint where one
@@ -462,6 +485,7 @@ def run_experiment(
             ckpt.save(step_count, state)
             if total_valid:
                 ckpt.save_if_best(step_count, state, acc)
+            maybe_visualize(epoch)
             logger.log({
                 "epoch_seconds": time.time() - t0,
                 # the train phase alone (loader and steps, no eval)

@@ -39,6 +39,7 @@ from typing import Dict
 
 import torch
 import torch.nn as nn
+from torch.autograd.graph import increment_version
 
 from dense2sparse_vit_torch.core.config import TrainConfig
 from dense2sparse_vit_torch.parallel import group_size
@@ -83,12 +84,21 @@ class ScheduledAdamW(torch.optim.AdamW):
     backbone_warmup_freeze=False trains the backbone during the warmup
     epochs too (`schedule.backbone_lr`'s warmup_freeze), as the gumbel
     baseline's recipe does. With cfg.grad_accum_steps > 1 it accumulates
-    (module docstring); `steps_per_epoch` then counts updates an epoch."""
+    (module docstring); `steps_per_epoch` then counts updates an epoch.
+    cfg.flat_optimizer (the default, as in JAX) takes torch's fused AdamW,
+    which updates every parameter of a group in one launch (`fused=True`,
+    JAX's `make_flat_optimizer`); False torch's default update, one tensor
+    list per step of the rule (the multi-tensor `foreach` update on the
+    card, a loop over the parameters on the CPU; JAX's per-leaf optax
+    chain). The updates are the same to fp32 rounding."""
 
     def __init__(self, groups, cfg: TrainConfig, steps_per_epoch: int,
                  backbone_warmup_freeze: bool = True):
+        # the flat optimizer: torch's fused AdamW, one launch over all of a
+        # group's parameters (JAX's one raveled vector); else torch's default
         super().__init__(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                         weight_decay=cfg.weight_decay)
+                         weight_decay=cfg.weight_decay,
+                         fused=True if cfg.flat_optimizer else None)
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
         self.backbone_warmup_freeze = backbone_warmup_freeze
@@ -134,6 +144,12 @@ class ScheduledAdamW(torch.optim.AdamW):
         for group in self.param_groups:
             group["lr"] = float(self.group_lr(group["label"], epoch))
         loss = super().step(closure)
+        if self.defaults["fused"]:
+            # the fused kernel writes the parameters without bumping their
+            # version counters, by which the blocks' cached bf16 copies
+            # (`nn.layers.compute_weights`) see a change
+            for p in self._params():
+                increment_version(p)
         self.count += 1
         if self.accum_steps > 1:
             for p, g in grads.items():

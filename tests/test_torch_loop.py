@@ -489,14 +489,27 @@ def test_unported_flags_raise_naming_themselves(argv, name):
     ("--early-exit", "early_exit"),
 ])
 def test_unported_features_raise_in_the_loop(folder, tmp_path, flag, name):
-    """Visualization is still refused, naming itself. --random-drop,
-    --cls-from-teacher and --early-exit are ported now: one epoch of one
-    step runs through run_experiment and its eval, and the summary is
+    """Every one of these is ported now. --visualize-patch-drop and
+    --visualize-cls-attn-evo: one epoch of one step writes its picture under
+    workdir/viz, and the student trains bit-equal to the same run without
+    the flag. --random-drop, --cls-from-teacher and --early-exit: one epoch
+    of one step runs through run_experiment and its eval, and the summary is
     finite."""
     cfg, _ = cli.parse_config(_small_argv(folder, "--epochs", "1") + [flag])
     if name.startswith("visualize"):
-        with pytest.raises(NotImplementedError, match=name):
-            loop.run_experiment(cfg, str(tmp_path), device="cpu")
+        assert getattr(cfg, name)
+        plain, _ = cli.parse_config(_small_argv(folder, "--epochs", "1"))
+        for c, sub in ((cfg, "viz_run"), (plain, "plain_run")):
+            summary = loop.run_experiment(c, str(tmp_path / sub), device="cpu",
+                                          max_steps_per_epoch=1)
+            assert np.isfinite(summary["best_val_acc"])
+        png = {"visualize_patch_drop": "patch_drop_epoch_0.png",
+               "visualize_cls_attn_evo": "cls_attn_evo_epoch_0.png"}[name]
+        assert os.listdir(tmp_path / "viz_run" / "viz") == [png]
+        assert not os.path.exists(tmp_path / "plain_run" / "viz")
+        a, b = (CheckpointManager(str(tmp_path / sub / "ckpt")).restore()["student"]
+                for sub in ("viz_run", "plain_run"))
+        assert all(torch.equal(a[k], b[k]) for k in b)
         return
     assert {"random": cfg.pruning.selection == "random",
             "cls_from_teacher": cfg.pruning.cls_from_teacher,

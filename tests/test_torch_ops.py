@@ -328,7 +328,15 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.core.mesh, dense2sparse_vit_torch.parallel, "
         "dense2sparse_vit_torch.parallel.tensor_parallel, "
         "dense2sparse_vit_torch.experiments.spmd_hello_world, "
-        "dense2sparse_vit_torch.scripts.dryrun_multichip\n"
+        "dense2sparse_vit_torch.scripts.dryrun_multichip, dense2sparse_vit_torch.viz, "
+        "dense2sparse_vit_torch.viz.attention_segmentation, dense2sparse_vit_torch.viz.hooks, "
+        "dense2sparse_vit_torch.native, dense2sparse_vit_torch.native.normalize, "
+        "dense2sparse_vit_torch.utils.reference_loader, "
+        "dense2sparse_vit_torch.experiments.common, "
+        "dense2sparse_vit_torch.experiments.eval_imagenet, "
+        "dense2sparse_vit_torch.experiments.display_patch_drop, "
+        "dense2sparse_vit_torch.experiments.optimized_mask, "
+        "dense2sparse_vit_torch.experiments.parity_report\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'flax', 'dense2sparse_vit_tpu')))\n"
         "assert not bad, bad\n"

@@ -1354,3 +1354,111 @@ def test_mode_recorder_replays_threshold_masks():
     with torch.no_grad(), chip_smoke.ModeRecorder(replay_from=rec):
         replayed = model(x2, collect_cls_attns=False)
     assert torch.equal(replayed.keep_mask, first.keep_mask)
+
+
+# ---- phase 37: the experiment drivers ----------------------------------------
+
+
+def test_the_experiment_tables_count_each_paths_kernels():
+    """(a) 24 blocks, 3 predictors, 3 gathers a batch; (b) 11 blocks and the
+    CLS-row block a forward; (c) 12 blocks and 12 - mask_block block
+    backwards an epoch (with their inner kernels), the teacher's 12 once."""
+    nonzero = lambda t: {k: v for k, v in t.items() if v}  # noqa: E731
+    assert nonzero(chip_smoke.PER_EVAL_BATCH) == {
+        "fused_transformer_block": 24, "fused_predictor_lg": 3, "fused_gather_tokens": 3}
+    assert nonzero(chip_smoke.PER_PATCH_DROP) == {
+        "fused_transformer_block": 11, "fused_transformer_block_cls": 1}
+    assert nonzero(chip_smoke.PER_MASK_EPOCH) == {
+        "fused_transformer_block": 12, "fused_transformer_block_backward": 5, "ln_bwd": 10,
+        "column_sums": 5, "attention_bwd": 5}
+    run = chip_smoke.scaled(chip_smoke.PER_MASK_EPOCH, 5, chip_smoke.PER_TEACHER)
+    assert run["fused_transformer_block"] == 72 and run["fused_transformer_block_backward"] == 25
+    assert set(run) == set(chip_smoke.KERNEL_NAMES)
+
+
+def test_check_eval_agreement_takes_one_percent_of_the_images():
+    plain = {"images": 720, "pruned_top1": 0.5, "unpruned_top1": 0.6}
+    near = {"images": 720, "pruned_top1": 0.5 + 7 / 720, "unpruned_top1": 0.6 - 7 / 720}
+    assert chip_smoke.check_eval_agreement(near, plain, 720)["pruned"] == pytest.approx(7)
+    for bad in ({**near, "pruned_top1": 0.5 + 8 / 720}, {**near, "images": 640}):
+        with pytest.raises(AssertionError, match="eval_imagenet"):
+            chip_smoke.check_eval_agreement(bad, plain, 720)
+
+
+def _bf16(torch, x):
+    return torch.from_numpy(x.astype("float32")).bfloat16().float().numpy()
+
+
+def test_keep_agreement_explains_flips_by_the_rows_error():
+    """Near-uniform attention, as random weights give (16 rows, the mean
+    over 6 heads of the softmax of logits of std 0.15): rows with another
+    bf16-sized error than the plain model's agree with the exact masks as
+    well as the plain model's rows do, though both flip patches at the cut;
+    rows off by 3 x STAGE_TOL of their largest entry, or missing one head,
+    agree less, and fail."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    logits = rng.normal(0, 0.15, (16, 6, 196))
+    heads = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    exact = heads.mean(1)
+    plain = _bf16(torch, exact)
+    kernel = _bf16(torch, exact * (1 + rng.normal(0, 2.0 ** -9, exact.shape)))
+    assert chip_smoke.keep_agreement(exact, exact, exact) == {
+        "kernel_vs_plain": 1.0, "kernel_vs_fp32": 1.0, "plain_vs_fp32": 1.0}
+    shares = chip_smoke.keep_agreement(kernel, plain, exact)
+    assert shares["plain_vs_fp32"] < 1.0 and shares["kernel_vs_plain"] < 1.0
+    assert chip_smoke.masks_agree(shares)
+    off = exact + rng.uniform(-1, 1, exact.shape) * 3 * chip_smoke.STAGE_TOL * exact.max(
+        -1, keepdims=True)
+    one_head_less = heads[:, 1:].mean(1)
+    for fault in (off, one_head_less):
+        assert not chip_smoke.masks_agree(chip_smoke.keep_agreement(_bf16(torch, fault), plain,
+                                                                    exact))
+
+
+def test_weight_grad_spy_counts_what_the_block_backward_returns():
+    """On the CPU the trainable block runs its plain versions: with frozen
+    weights one backward returns no weight gradient, with trainable ones
+    a gradient for each weight; the spy leaves the class as it was."""
+    from dense2sparse_vit_torch.ops import block
+
+    C, H = 64, 2
+    g = torch.Generator().manual_seed(0)
+    w = {k: None for k in block.BLOCK_WEIGHT_KEYS}
+    shapes = {"ln1_w": (C,), "ln1_b": (C,), "wqkv": (3 * C, C), "bqkv": (3 * C,),
+              "wproj": (C, C), "bproj": (C,), "ln2_w": (C,), "ln2_b": (C,),
+              "w1": (4 * C, C), "b1": (4 * C,), "w2": (C, 4 * C), "b2": (C,)}
+    saved = block._TrainableBlock.__dict__["backward"]
+    for trainable in (False, True):
+        for k in block.BLOCK_WEIGHT_KEYS:
+            w[k] = (torch.randn(shapes[k], generator=g) * 0.05).requires_grad_(trainable)
+        x = torch.randn(2, 5, C, generator=g, requires_grad=True)
+        with chip_smoke.WeightGradSpy() as spy:
+            block.fused_transformer_block_trainable(x, w, H).sum().backward()
+        assert spy.calls == 1
+        assert spy.weight_grads == (len(block.BLOCK_WEIGHT_KEYS) if trainable else 0)
+        assert x.grad is not None
+    assert block._TrainableBlock.__dict__["backward"] is saved
+
+
+def test_check_mask_history_holds_epoch_zero_and_the_logits():
+    h = [{"kd_kl": 1.0, "kd_ce": 6.9, "kd_ratio_penalty": 0.1, "acc": 0.0}]
+    assert chip_smoke.check_mask_history(h, [dict(h[0], kd_ce=6.95)], 0.1) == pytest.approx(
+        0.05 / 8.05)
+    for kernel, moved in ((h, 0.0), ([dict(h[0], kd_ce=float("nan"))], 0.1),
+                          ([dict(h[0], kd_ce=7.2)], 0.1)):
+        with pytest.raises(AssertionError, match="optimized_mask"):
+            chip_smoke.check_mask_history(kernel, h, moved)
+
+
+def test_native_ulps_and_params_rel_diff():
+    import numpy as np
+
+    want = np.array([2.5, -1.0], np.float32)
+    got = want + np.array([np.spacing(np.float32(2.5)), 0], np.float32)
+    assert chip_smoke.native_ulps(got, want) == 1.0
+    a = {"w": torch.tensor([1.0, 2.0]), "b": torch.tensor([0.5])}
+    b = {"w": torch.tensor([1.0, 2.0 + 2e-5]), "b": torch.tensor([0.5])}
+    want = (b["w"][1] - 2.0).item() / b["w"][1].item()
+    assert chip_smoke.params_rel_diff(torch, a, b) == pytest.approx(want)

@@ -281,3 +281,97 @@ def test_create_model_runs_on_the_card_unless_asked_for_the_cpu():
     model = create_model("dynamic_vit_tiny_patch16_224_student", device="cpu", **MODEL,
                          **PRUNING)
     assert next(model.parameters()).device.type == "cpu"
+
+
+# ---- the flat optimizer ----------------------------------------------------
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("flat", [True, False])
+def test_flat_and_per_parameter_adamw_match_jax_flat_optimizer(flat, accum):
+    """17 updates from a fresh state (the backbone's warmup ends at count
+    15), each of `accum` micro-steps on seeded gradients, through JAX's
+    `make_flat_optimizer` and the port's AdamW, fused (flat_optimizer) or
+    torch's default (--no-flat-optimizer): the parameters within
+    1e-6 relative plus 1e-7 after every update; frozen ones stay put."""
+    from dense2sparse_vit_tpu.train.flat_optimizer import make_flat_optimizer
+
+    cfg = dict(TRAIN, grad_accum_steps=accum)
+    params = _student_params()
+    tx = make_flat_optimizer(JaxTrainConfig(**cfg), STEPS_PER_EPOCH)
+    state = tx.init(params)
+    jax_update = jax.jit(lambda g, s, p: (lambda u, s2: (optax.apply_updates(p, u), s2))(
+        *tx.update(g, s, p)))
+    model = _port_student()
+    opt = make_optimizer(model, TrainConfig(flat_optimizer=flat, **cfg), STEPS_PER_EPOCH)
+    assert opt.defaults["fused"] is (True if flat else None)
+    named = dict(model.named_parameters())
+    before = {k: v.detach().clone() for k, v in named.items()}
+    rng = np.random.default_rng(29)
+    for update in range(17):
+        for _ in range(accum):
+            grads = jax.tree_util.tree_map(
+                lambda v: rng.standard_normal(np.shape(v)).astype(np.float32), params)
+            params, state = jax_update(grads, state, params)
+            for name, g in state_dict_from_jax(grads).items():
+                named[name].grad = torch.from_numpy(g)
+            opt.step()
+        want = state_dict_from_jax(params)
+        for name, p in named.items():
+            np.testing.assert_allclose(p.detach().numpy(), want[name], rtol=1e-6, atol=1e-7,
+                                       err_msg=f"{name} after update {update}")
+    assert opt.count == 17
+    assert torch.equal(named["pos_embed"], before["pos_embed"])
+    assert not torch.equal(named["blocks.0.attn.qkv.weight"], before["blocks.0.attn.qkv.weight"])
+
+
+@pytest.mark.parametrize("argv,kernel", [([], "_fused_adam"),
+                                         (["--flat-optimizer"], "_fused_adam"),
+                                         (["--no-flat-optimizer"], "_single_tensor_adam")])
+def test_the_flat_optimizer_flag_picks_the_update(argv, kernel, tmp_path, monkeypatch):
+    """The CLI's switch reaches the optimizer: the fused update over each
+    group by default, torch's default update with --no-flat-optimizer (its
+    choice on the CPU, the loop over single parameters; the multi-tensor
+    update on the card); one step calls that update and not the others."""
+    import torch.optim.adam as torch_adam
+
+    from dense2sparse_vit_torch import cli
+
+    cfg, _ = cli.parse_config(["--imgnet-val-dir", str(tmp_path)] + argv)
+    assert cfg.train.flat_optimizer == (argv != ["--no-flat-optimizer"])
+    opt = make_optimizer(_port_student(), cfg.train, STEPS_PER_EPOCH)
+    assert opt.defaults["foreach"] is None
+    assert opt.defaults["fused"] is (True if cfg.train.flat_optimizer else None)
+    called = []
+    for name in ("_fused_adam", "_multi_tensor_adam", "_single_tensor_adam"):
+        real = getattr(torch_adam, name)
+        monkeypatch.setattr(torch_adam, name,
+                            lambda *a, _n=name, _f=real, **k: called.append(_n) or _f(*a, **k))
+    for p in opt._params():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    assert set(called) == {kernel}
+
+
+@pytest.mark.parametrize("flat", [True, False])
+def test_an_update_refreshes_the_cached_compute_copies(flat):
+    """The eval-mode blocks keep bf16 copies of their weights, remade when a
+    parameter's version changes; the fused update writes the parameters
+    without bumping their versions, so the optimizer bumps them: after a
+    step the copies are the new weights' (a stale copy made every eval
+    after training run the initial weights)."""
+    from dense2sparse_vit_torch.nn.layers import compute_weights
+
+    model = _port_student()
+    opt = make_optimizer(model, TrainConfig(flat_optimizer=flat, **TRAIN), STEPS_PER_EPOCH)
+    opt.count = 6 * STEPS_PER_EPOCH
+    qkv = model.blocks[0].attn.qkv
+    with torch.no_grad():
+        before = compute_weights(qkv, torch.bfloat16)["weight"].clone()
+    for p in opt._params():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    with torch.no_grad():
+        after = compute_weights(qkv, torch.bfloat16)["weight"]
+    assert torch.equal(after, qkv.weight.detach().to(torch.bfloat16))
+    assert not torch.equal(after, before)
