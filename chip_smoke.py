@@ -304,6 +304,30 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  gradients also through --no-flat-optimizer's loop on a twin
                  (parameters within 1e-5; launches, host and device ms of an
                  optimizer step).
+ 38. long_tokens  sequences past 800 tokens, where the width-64 attention
+                 core hands over to the attention_hd pair both ways
+                 (`phase_long_tokens`): the wrappers' ceilings against the
+                 library's; (a) DeiT-B/16 at 512 px (N = 1025 -> 717 -> 502
+                 -> 352), top-k and threshold: a B=16 step against its
+                 plain twin (launches, loss, gradients), every block both
+                 ways on a step's own activations (policy blocks at both
+                 eps, with dPolicy) and the teacher's CLS-row block at 1025,
+                 then the trainer's entry point (`--arch deit_base
+                 --img-size 512 --eval-crop 512 --patch-size 16 ...`, and
+                 with --patch-score-threshold 0.5) for one epoch of 3 steps
+                 and its eval over phase 32's folder; (b) ViT-L/16 at 512 px
+                 (B=8, 24 blocks at 1025, hidden 4096) against its plain
+                 twin, and its int8 twin (`check_int8_family`); (c) DINO
+                 ViT-S/8 at 480 px (N = 3601, B=2) against its plain twin,
+                 with the last block's CLS rows; its first block both ways
+                 at 3601 in plain and policy mode and on planted ties; the
+                 packed attention with its CLS rows and the half-block both
+                 ways at 1025 (C = 768); (d) head widths 12 and 96 at 1025
+                 and 3601 (`check_head_widths`), vit_small_patch16_224 at
+                 512 px, its forward and one backward against its twin; (e)
+                 the attention_hd pair's device times at widths 64, 96 and
+                 12, N = 1025 and 3601, beside its plain versions, SDPA and
+                 its bounds, and the block both ways at 1025 and 3601.
 The build phase fails if ptxas reports a spill in a GEMM kernel, in
 attention_bwd_kernel or in an instantiation of the head-width cores
 (attention_hd_kernel, attention_hd_bwd_kernel: each of the 16 of each
@@ -313,9 +337,11 @@ notices (`wgmma_notices`).
 The pruning student runs its serving, timing and export phases without
 capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
 callers do.
-The kernels summary holds two rows more than the kernels: the part of
+The kernels summary holds four rows more than the kernels: the part of
 attention_bwd_kernel's launches on its long path and the int8 block at
-hidden 4096 (SUB_ROWS), each with phase 34's launches and times.
+hidden 4096, each with phase 34's launches and times, and the attention_hd
+pair's launches at head width 64 past 800 tokens, both ways, with phase
+38's (SUB_ROWS).
 The line before the last two is the kernels summary, then the card's name
 and power limit, then {"ok": true, "device": {...}}. Without a CUDA device
 it exits 1 at once.
@@ -429,8 +455,15 @@ NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # rows of the kernels line that are a part of a kernel's launches, at the
 # shapes of phase 34: attention_bwd_kernel's long path (N past 384, policy
 # mode 352; counted by the library, `ops.attention.ATTENTION_BWD_LONG`) and
-# the int8 block at ViT-L's MLP width (hidden 4096)
-SUB_ROWS = ("attention_bwd[long]", "fused_transformer_block_int8[4096]")
+# the int8 block at ViT-L's MLP width (hidden 4096); at those of phase 38,
+# the attention_hd pair at head width 64 past SHORT_TOKENS, both ways
+SUB_ROWS = ("attention_bwd[long]", "fused_transformer_block_int8[4096]", "attention_hd[d64]",
+            "attention_hd_bwd[d64]")
+
+
+# the longest d = 64 sequence of the width-64 cores (ops.block.SHORT_TOKENS),
+# past which the attention_hd pair takes it both ways
+SHORT_TOKENS = 800
 
 
 def norm_launches(blocks=0, halves=0) -> dict:
@@ -442,11 +475,19 @@ def norm_launches(blocks=0, halves=0) -> dict:
     return {"ln_bwd": 2 * blocks + halves, "column_sums": blocks}
 
 
-def core_launches(backwards=0) -> dict:
-    """The attention core backward's launches inside `backwards` backwards
-    with attention (whole-block, packed attention and attention half-block
-    backwards: one each; an MLP half's backward has none)."""
-    return {"attention_bwd": backwards}
+def core_launches(backwards=0, *, forwards=0, n=0, d=64) -> dict:
+    """The attention cores' own counts inside `backwards` backwards with
+    attention (whole-block, packed attention and attention half-block
+    backwards: one each; an MLP half's backward has none) and `forwards`
+    forwards with attention, at n tokens of head width d. On the width-64
+    cores (d = 64, n up to `ops.block.SHORT_TOKENS`) attention_bwd_kernel's,
+    one a backward (the forward core has no count of its own); on the
+    attention_hd pair (any other d, or n past it) attention_hd's, one a
+    forward and one a backward's recompute, and attention_hd_bwd's, one a
+    backward."""
+    if d == 64 and n <= SHORT_TOKENS:
+        return {"attention_bwd": backwards}
+    return {"attention_hd": forwards + backwards, "attention_hd_bwd": backwards}
 
 
 PER_FORWARD = {**NO_LAUNCHES, "fused_transformer_block": 12, "fused_predictor_lg": 3,
@@ -581,6 +622,12 @@ SOURCES = {
     "fused_transformer_block_int8[4096]": (
         "dense2sparse_vit_torch/csrc/quant_block.cu",
         "dense2sparse_vit_tpu/ops/pallas/quant.py:179"),
+    "attention_hd[d64]": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:198"),
+    "attention_hd_bwd[d64]": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:729"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -5121,19 +5168,24 @@ def family_forward(torch, model, name, x, seed=5):
     return model(x, *args, generator=gen)
 
 
+def family_tokens(model) -> int:
+    """The tokens a family model's blocks take (its patches and extra tokens)."""
+    return model.cfg.num_patches + getattr(model, "num_extra_tokens", 1)
+
+
 def family_launches(model, name) -> dict:
     """A family model's eval forward: every block through the block kernel
-    (at a head width other than 64 through the attention_hd core too), and
-    the single-stage DINO student's gather."""
+    (at a head width other than 64, or past SHORT_TOKENS, through the
+    attention_hd core too), and the single-stage DINO student's gather."""
     out = {**NO_LAUNCHES, "fused_transformer_block": model.cfg.depth}
-    if model.cfg.embed_dim != 64 * model.cfg.num_heads:  # the cores at other head widths
+    if model.cfg.embed_dim != 64 * model.cfg.num_heads or family_tokens(model) > SHORT_TOKENS:
         out["attention_hd"] = model.cfg.depth
     if name == "dino_small_predictor":
         out["fused_gather_tokens"] = 1
     return out
 
 
-def check_family_model(torch, dev, name, kwargs, tally, smi):
+def check_family_model(torch, dev, name, kwargs, tally, smi, batch=B_FAMILY, phase="deit_family"):
     """A family model at full width and depth, bf16, seeded weights: its
     fused B=32 eval forward (launches `family_launches`) against its plain
     twin on the same weights, draws and kept tokens, every output within
@@ -5148,7 +5200,7 @@ def check_family_model(torch, dev, name, kwargs, tally, smi):
                          generator=torch.Generator().manual_seed(0), **kwargs).eval()
     plain = plain_twin(model)
     side = model.cfg.img_size
-    x = torch.randn((B_FAMILY, side, side, 3), device=dev,
+    x = torch.randn((batch, side, side, 3), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(4))
     spies = ((deit_mod, "gumbel_softmax"), (dino_mod, "gumbel_softmax"),
              (dino_mod, "topk_keep_indices"))
@@ -5175,10 +5227,10 @@ def check_family_model(torch, dev, name, kwargs, tally, smi):
         err, ref = rel_err(torch, a, b)
         rel.append(err / max(ref, 1e-30))
     worst = max(rel)
-    emit({"phase": "deit_family", "model": name, "class": type(model).__name__,
+    emit({"phase": phase, "model": name, "class": type(model).__name__,
           "config": {k: getattr(model.cfg, k) for k in ("img_size", "patch_size", "embed_dim",
                                                         "depth", "num_heads", "num_classes")},
-          "tokens": model.cfg.num_patches + getattr(model, "num_extra_tokens", 1),
+          "tokens": family_tokens(model),
           "outputs": len(got), "shape": list(got[0].shape), "launches": counts,
           "worst_rel_err": worst, "tol_rel": LOGITS_TOL, "card": smi})
     if len(got) != len(want) or not worst <= LOGITS_TOL:
@@ -5201,7 +5253,7 @@ def time_family_model(torch, dev, model, smi) -> dict:
     return {"batch": B_FAMILY_TIME, "img_per_s": B_FAMILY_TIME / out["wall_ms"] * 1e3, **out}
 
 
-def check_int8_family(torch, dev, model, tally, smi):
+def check_int8_family(torch, dev, model, tally, smi, batch=B_FAMILY, phase="deit_family"):
     """(d): the int8 twin of the fused ViT-L/16 at 384 px (quant="int8" on
     every block, the same weights): its B=32 forward's launches (24 int8
     blocks), the int8 block (C = 1024, hidden 4096, N = 577) against its
@@ -5219,7 +5271,7 @@ def check_int8_family(torch, dev, model, tally, smi):
     for blk in q.blocks:
         blk.quant = "int8"
     side = model.cfg.img_size
-    x = torch.randn((B_FAMILY, side, side, 3), device=dev,
+    x = torch.randn((batch, side, side, 3), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(4))
     inputs = {}
     last = len(q.blocks) - 1
@@ -5233,7 +5285,8 @@ def check_int8_family(torch, dev, model, tally, smi):
         ref = model(x)[-1].float()
     for h in hooks:
         h.remove()
-    want = {**NO_LAUNCHES, "fused_transformer_block_int8": len(q.blocks)}
+    want = {**NO_LAUNCHES, "fused_transformer_block_int8": len(q.blocks),
+            **core_launches(forwards=len(q.blocks), n=family_tokens(q))}
     check_mode_launches(counts, want, "int8 ViT-L forward")
     for k, v in counts.items():
         tally.rows[k]["launches"] += v
@@ -5242,7 +5295,7 @@ def check_int8_family(torch, dev, model, tally, smi):
     cos = torch.nn.functional.cosine_similarity(logits.flatten(), ref.flatten(), dim=0).item()
     rms = ((logits - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
     top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    emit({"phase": "deit_family", "int8": INT8_FAMILY, "logits_vs_bf16_kernels": {
+    emit({"phase": phase, "int8": INT8_FAMILY, "img_size": side, "logits_vs_bf16_kernels": {
         "cos": cos, "rel_rms": rms, "top1_agreement": top1, "tol_cos": INT8_LOGITS_COS},
         "launches": counts, "card": smi})
     if not cos >= INT8_LOGITS_COS:
@@ -5268,7 +5321,7 @@ def check_int8_family(torch, dev, model, tally, smi):
     hidden = blk.mlp.fc1.weight.shape[0]
     b = int8_block_bound(B, N, C, args[0], hidden)
     tally.add("fused_transformer_block_int8[4096]", len(q.blocks), k_ms, p_ms, b)
-    emit({"phase": "deit_family", "kernel": "fused_transformer_block_int8", "shape": [B, N, C],
+    emit({"phase": phase, "kernel": "fused_transformer_block_int8", "shape": [B, N, C],
           "hidden": hidden, "ms": k_ms, "plain_ms": p_ms, "bf16_block_ms": bf16_ms,
           "bound_ms": max(b.values()),
           "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
@@ -5276,21 +5329,21 @@ def check_int8_family(torch, dev, model, tally, smi):
     del q
 
 
-def build_384(torch, dev, mode, teacher):
-    """The 384-px DeiT-B/16 student in `mode` (fused, seeded weights) and
-    its plain twin, each with AdamW past the warmup and a train step with
-    `teacher` (fused) or its plain twin: ((student, step), (plain, step),
-    cfg)."""
+def build_384(torch, dev, mode, teacher, img=384, batch=B_384):
+    """The 384-px (`img`) DeiT-B/16 student in `mode` (fused, seeded
+    weights) and its plain twin, each with AdamW past the warmup and a train
+    step with `teacher` (fused) or its plain twin: ((student, step), (plain,
+    step), cfg)."""
     from dense2sparse_vit_torch import models
     from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
     from dense2sparse_vit_torch.train import make_optimizer, make_train_step
 
     kwargs = getattr(models, MODES_384[mode][0])
-    student = models.create_model(STUDENT_384, img_size=384, use_fused_attention=True,
+    student = models.create_model(STUDENT_384, img_size=img, use_fused_attention=True,
                                   device=dev, generator=torch.Generator().manual_seed(0),
                                   **kwargs)
     cfg = ExperimentConfig(model=student.cfg, pruning=student.pruning,
-                           train=TrainConfig(batch_size=B_384))
+                           train=TrainConfig(batch_size=batch))
     out = []
     for s, t in ((student, teacher), (plain_twin(student), plain_twin(teacher))):
         opt = make_optimizer(s, cfg.train, STEPS_PER_EPOCH)
@@ -5299,20 +5352,22 @@ def build_384(torch, dev, mode, teacher):
     return out[0], out[1], cfg
 
 
-def run_384(torch, dev, mode, teacher, tally, smi):
-    """(b) for one mode: a B=64 train step of the 384-px student (launches,
-    the long path's among them, peak memory) against its plain twin's step
-    on the same weights, draws and kept tokens (`compare_steps`); a second
-    step, timed; a third with its activations captured for (a)'s checks.
-    Returns (the summary, the captured activations)."""
+def run_384(torch, dev, mode, teacher, tally, smi, img=384, batch=B_384, modes=MODES_384,
+            phase="deit_family", on_counts=None):
+    """(b) for one mode: a B=64 train step of the 384-px student (`img`,
+    `batch`, the launches of `modes`; launches, the long path's among them,
+    peak memory) against its plain twin's step on the same weights, draws
+    and kept tokens (`compare_steps`); a second step, timed; a third with
+    its activations captured for (a)'s checks. Each counted step's launches
+    also go to `on_counts`, where given. Returns (the summary, the captured activations)."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.ops.attention import ATTENTION_BWD_LONG
 
-    _, per_step, long_per_step = MODES_384[mode]
-    (student, step), (plain, p_step), cfg = build_384(torch, dev, mode, teacher)
+    _, per_step, long_per_step = modes[mode]
+    (student, step), (plain, p_step), cfg = build_384(torch, dev, mode, teacher, img, batch)
     gen = torch.Generator(device=dev).manual_seed(3)
-    images = torch.randn((B_384, 384, 384, 3), generator=gen, device=dev)
-    labels = torch.randint(0, 1000, (B_384,), generator=gen, device=dev)
+    images = torch.randn((batch, img, img, 3), generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
 
     def counted_step(seed):
         ops.reset_launch_counts()
@@ -5321,13 +5376,15 @@ def run_384(torch, dev, mode, teacher, tally, smi):
                        generator=torch.Generator(device=dev).manual_seed(seed))
         torch.cuda.synchronize()
         counts, long = ops.launch_counts(), ATTENTION_BWD_LONG.launches
-        check_mode_launches(counts, per_step, f"384-px {mode} train step")
+        check_mode_launches(counts, per_step, f"{img}-px {mode} train step")
         if long != long_per_step:
-            raise AssertionError(f"384-px {mode}: {long} long-path launches, expected "
+            raise AssertionError(f"{img}-px {mode}: {long} long-path launches, expected "
                                  f"{long_per_step}")
         for k, v in counts.items():
             tally.rows[k]["launches"] += v
         tally.rows["attention_bwd[long]"]["launches"] += long
+        if on_counts is not None:
+            on_counts(counts)
         return {k: v.item() for k, v in metrics.items()}
 
     torch.cuda.synchronize()
@@ -5337,13 +5394,13 @@ def run_384(torch, dev, mode, teacher, tally, smi):
         values = counted_step(11)
     peak = torch.cuda.max_memory_allocated(dev)
     if any(v != v or abs(v) == float("inf") for v in values.values()):
-        raise AssertionError(f"384-px {mode}: non-finite metrics {values}")
+        raise AssertionError(f"{img}-px {mode}: non-finite metrics {values}")
     grads = train_step_grads(torch, student)
     with ModeRecorder(replay_from=rec):
         p_values = {k: v.item() for k, v in p_step(
             images, labels, TRAIN_EPOCH,
             generator=torch.Generator(device=dev).manual_seed(11)).items()}
-    compare_steps(torch, f"deit_family/384_{mode}", (values["loss"], grads),
+    compare_steps(torch, f"{phase}/{img}_{mode}", (values["loss"], grads),
                   (p_values["loss"], train_step_grads(torch, plain)), mode_grad_names(grads))
     del plain, p_step
     torch.cuda.empty_cache()
@@ -5357,11 +5414,11 @@ def run_384(torch, dev, mode, teacher, tally, smi):
         acts["heads"] = student.blocks[0].attn.num_heads
         acts["scale"] = student.blocks[0].attn.scale
         acts["ln_eps"] = student.blocks[0].norm1.eps
-    out = {"mode": mode, "batch": B_384, "metrics": values, "step_ms": step_ms,
+    patches = student.cfg.num_patches
+    out = {"mode": mode, "batch": batch, "metrics": values, "step_ms": step_ms,
            "peak_gib": peak / 2**30, "step_gib": (peak - resident) / 2**30,
-           "tokens": [student.cfg.num_patches + 1] + [k + 1 for k in
-                                                       student.pruning.keep_counts(576)]}
-    emit({"phase": "deit_family", "train_384": out, "card": smi})
+           "tokens": [patches + 1] + [k + 1 for k in student.pruning.keep_counts(patches)]}
+    emit({"phase": phase, f"train_{img}": out, "card": smi})
     del student, step
     return out, acts
 
@@ -5695,6 +5752,10 @@ HD_WIDTHS = ((12, 32, 384), (96, 8, 768))
 HD_BATCH = 64
 HD_TOKENS = (197, 138, 97, 68)  # the headline student's widths
 HD_LONG = (577, 785)  # the 384-px and the patch-8 sequences
+# past the width-64 core's 800: vit_small at 512 px, DINO-S/8 at 480 px
+# (phase 38), at the batches whose plain versions fit the card's memory
+HD_PAST_800 = (1025, 3601)
+HD_LONG_BATCH = {1025: 8, 3601: 2}
 HD_TIMED = (197, 577)
 # the two registry models that reach the kernels at those widths, with the
 # keyword arguments of their train step (stochastic depth at d = 12)
@@ -5741,7 +5802,7 @@ def hd_block(torch, dev, C, H, seed):
     return blk.to(dev).eval().kernel_weights(torch.bfloat16)
 
 
-def check_cls_rows(torch, x, w, H, scale, policy=None, eps=1e-6):
+def check_cls_rows(torch, x, w, H, scale, policy=None, eps=1e-6, phase="head_width"):
     """The block's CLS-row forward (`fused_transformer_block_cls`) against
     its plain version: the rows within STAGE_TOL, the output within
     BLOCK_TOL. Returns the largest absolute error of the rows."""
@@ -5753,7 +5814,7 @@ def check_cls_rows(torch, x, w, H, scale, policy=None, eps=1e-6):
                                                  return_cls=True)
     (c_err, c_ref), (o_err, o_ref) = rel_err(torch, cls, want_cls), rel_err(torch, out, want)
     rel = {"cls": c_err / c_ref, "block": o_err / o_ref}
-    emit({"phase": "head_width", "kernel": "fused_transformer_block_cls", "shape": list(x.shape),
+    emit({"phase": phase, "kernel": "fused_transformer_block_cls", "shape": list(x.shape),
           "policy": policy is not None, "rel_err": rel,
           "tol_rel": {"cls": STAGE_TOL, "block": BLOCK_TOL}})
     if not (rel["cls"] <= STAGE_TOL and rel["block"] <= BLOCK_TOL):
@@ -5779,9 +5840,11 @@ def check_packed_forward(torch, qkv, H, scale, policy=None, eps=1e-6):
     return max(o_err, c_err)
 
 
-def check_head_widths(torch, dev, tally, widths=HD_WIDTHS, tokens=HD_TOKENS + HD_LONG):
+def check_head_widths(torch, dev, tally, widths=HD_WIDTHS, tokens=HD_TOKENS + HD_LONG,
+                      phase="head_width"):
     """(a): the block-level kernels at each head width of `widths` on seeded
-    B=64 activations at every N of `tokens`, each against its plain
+    B=64 activations (past 800 tokens at HD_LONG_BATCH) at every N of
+    `tokens`, each against its plain
     version: the block forward stage by stage (`check_block`: plain, policy
     at eps 0.1 (and 1e-6 at N = 197), branch scales), its CLS rows, its
     backward (`check_block_backward`: plain, policy with dPolicy, branch
@@ -5789,9 +5852,9 @@ def check_head_widths(torch, dev, tally, widths=HD_WIDTHS, tokens=HD_TOKENS + HD
     ways with the CLS fold (`check_attn_bwd`: two launches bit-equal), the
     half-block both ways (`check_attn_half`, `check_attn_half_backward`)
     and, at d = 96, the int8 block (`check_int8_block`). The long sequences
-    (HD_LONG) take the block both ways in plain and policy mode and the
-    packed attention both ways. The largest errors go into `tally`'s
-    attention_hd (forward) and attention_hd_bwd rows."""
+    (HD_LONG, HD_PAST_800) take the block both ways in plain and policy
+    mode and the packed attention both ways. The largest errors go into
+    `tally`'s attention_hd (forward) and attention_hd_bwd rows."""
     fwd_err = bwd_err = 0.0
     for d, H, C in widths:
         w = hd_block(torch, dev, C, H, seed=d)
@@ -5799,13 +5862,14 @@ def check_head_widths(torch, dev, tally, widths=HD_WIDTHS, tokens=HD_TOKENS + HD
         scale, ln_eps = d ** -0.5, 1e-6
         for n in tokens:
             gen = torch.Generator(device=dev).manual_seed(100 * d + n)
-            x = torch.randn((HD_BATCH, n, C), generator=gen, device=dev).to(torch.bfloat16)
-            g = torch.randn((HD_BATCH, n, C), generator=gen, device=dev).to(torch.bfloat16)
-            pol = (torch.rand((HD_BATCH, n), generator=gen, device=dev) < 0.6).float()
+            B = HD_LONG_BATCH.get(n, HD_BATCH)
+            x = torch.randn((B, n, C), generator=gen, device=dev).to(torch.bfloat16)
+            g = torch.randn((B, n, C), generator=gen, device=dev).to(torch.bfloat16)
+            pol = (torch.rand((B, n), generator=gen, device=dev) < 0.6).float()
             pol[:, 0] = 1.0
-            gcls = torch.randn((HD_BATCH, H, n), generator=gen, device=dev)
-            long = n in HD_LONG
-            scales = droppath_scales(torch, HD_BATCH, gen)
+            gcls = torch.randn((B, H, n), generator=gen, device=dev)
+            long = n in HD_LONG + HD_PAST_800
+            scales = droppath_scales(torch, B, gen)
             with torch.no_grad():
                 modes = [{}, {"policy": pol, "eps": 0.1}]
                 if n == 197:
@@ -5813,10 +5877,10 @@ def check_head_widths(torch, dev, tally, widths=HD_WIDTHS, tokens=HD_TOKENS + HD
                 if not long:
                     modes.append({"branch_scales": scales})
                 for kw in modes:
-                    _, err = check_block(torch, x, w, H, scale, ln_eps, phase="head_width", **kw)
+                    _, err = check_block(torch, x, w, H, scale, ln_eps, phase=phase, **kw)
                     fwd_err = max(fwd_err, err)
                     bwd_err = max(bwd_err, check_block_backward(
-                        torch, x, g, w, H, scale, ln_eps, phase="head_width", **kw))
+                        torch, x, g, w, H, scale, ln_eps, phase=phase, **kw))
                 if n == 197:
                     x_tie, tied = planted_ties(torch, x, w, H, scale, ln_eps)
                     emit({"phase": "head_width", "planted_ties": {"d": d, "tied_rows": tied}})
@@ -5870,7 +5934,7 @@ def hd_step_launches(model) -> dict:
     return out
 
 
-def check_hd_step(torch, dev, model, name, kwargs, tally):
+def check_hd_step(torch, dev, model, name, kwargs, tally, batch=B_FAMILY):
     """(b): one cross-entropy backward through `model` (its `kwargs`, e.g.
     drop path) against its plain twin on the same weights, images, labels
     and draws: the loss within STEP_LOSS_TOL, the gradients within
@@ -5891,8 +5955,8 @@ def check_hd_step(torch, dev, model, name, kwargs, tally):
     plain = plain_twin(model).train()
     side = model.cfg.img_size
     gen = torch.Generator(device=dev).manual_seed(12)
-    x = torch.randn((B_FAMILY, side, side, 3), device=dev, generator=gen)
-    labels = torch.randint(0, model.cfg.num_classes, (B_FAMILY,), device=dev, generator=gen)
+    x = torch.randn((batch, side, side, 3), device=dev, generator=gen)
+    labels = torch.randint(0, model.cfg.num_classes, (batch,), device=dev, generator=gen)
 
     def step(m):
         out = m(x, generator=torch.Generator(device=dev).manual_seed(13))
@@ -6030,8 +6094,10 @@ def launch_ms(torch, fn, names, iters: int = 10):
     return {k: total[k] / count[k] if count[k] else 0.0 for k in names}, count
 
 
-def time_head_widths(torch, dev, smi) -> dict:
-    """(d): at each head width and N of HD_TIMED (B = 64, seeded qkv): the
+def time_head_widths(torch, dev, smi, widths=HD_WIDTHS, tokens=HD_TIMED, phase="head_width",
+                     batches=HD_LONG_BATCH) -> dict:
+    """(d): at each head width of `widths` and N of `tokens` (B = 64, or as
+    `batches` says for N; seeded qkv): the
     device ms of a launch of the forward core in its own window (30 calls
     of `ops.fused_attention_packed`) and of the backward core
     (attention_hd_bwd_kernel, 10 calls of `ops.fused_attention_backward_
@@ -6048,11 +6114,12 @@ def time_head_widths(torch, dev, smi) -> dict:
     import torch.nn.functional as F
 
     out = {}
-    for d, H, C in HD_WIDTHS:
-        for n in HD_TIMED:
+    for d, H, C in widths:
+        for n in tokens:
+            B = batches.get(n, HD_BATCH)
             gen = torch.Generator(device=dev).manual_seed(300 + n + d)
-            qkv = torch.randn((HD_BATCH, n, 3 * C), generator=gen, device=dev).to(torch.bfloat16)
-            g = torch.randn((HD_BATCH, n, C), generator=gen, device=dev).to(torch.bfloat16)
+            qkv = torch.randn((B, n, 3 * C), generator=gen, device=dev).to(torch.bfloat16)
+            g = torch.randn((B, n, C), generator=gen, device=dev).to(torch.bfloat16)
             scale = d ** -0.5
             with torch.no_grad():
                 fwd = lambda: ops.fused_attention_packed(qkv, H, scale=scale)  # noqa: E731
@@ -6075,7 +6142,7 @@ def time_head_widths(torch, dev, smi) -> dict:
                 f_lib = graph_ms(torch, lambda: F.scaled_dot_product_attention(
                     q.detach(), k.detach(), v.detach(), scale=scale))
             b_lib = sdpa_backward_ms(torch, qkv, g, H, scale)[0]
-            fb, bb = attention_bound(HD_BATCH, n, C, H), attention_backward_bound(HD_BATCH, n, C, H)
+            fb, bb = attention_bound(B, n, C, H), attention_backward_bound(B, n, C, H)
             rows = (
                 {"kernel": "attention_hd", "ms": f_ms, "timer": timers[0], "plain_ms": f_plain,
                  "library_ms": f_lib, "bound": fb, "launches_recorded": f_seen},
@@ -6084,7 +6151,7 @@ def time_head_widths(torch, dev, smi) -> dict:
                  "launches_recorded": b_seen})
             for r in rows:
                 b = r.pop("bound")
-                emit({"phase": "head_width", "d": d, "heads": H, "shape": [HD_BATCH, n, 3 * C],
+                emit({"phase": phase, "d": d, "heads": H, "shape": [B, n, 3 * C],
                       **r, "bound_ms": max(b.values()),
                       "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes",
                       "card": smi})
@@ -6876,6 +6943,390 @@ def phase_experiments(torch, dev, tally, smi, root):
     emit({"phase": "experiments", "seconds": round(time.perf_counter() - t0, 3), "card": smi})
 
 
+# ---- 38. sequences past 800 tokens ------------------------------------------
+
+# DeiT-B/16 trained at 512 px (1025 tokens kept to 717 / 502 / 352) through
+# the trainer's entry point, evaluated at crop 512
+B_512 = 16
+CLI_512_FLAGS = ("--arch deit_base --img-size 512 --eval-crop 512 --patch-size 16 "
+                 "--use-fused-attention --topk-selection --small-predictor --pruning-locs 3 6 9 "
+                 "--keep-ratios 0.7 0.49 0.343 --dtype bfloat16 --batch-size 16 "
+                 "--warmup-steps 1 --seed 0").split()
+LONG_CLI_STEPS = 3  # the train steps of each CLI run's one epoch
+# per 512-px mode: the student's keyword arguments (a `models` name), its
+# step's launches, and its launches on attention_bwd_kernel's split path.
+# Top-k: blocks 0-2 at 1025 tokens on the attention_hd pair (forward,
+# recompute, backward), the teacher's twelve CLS-row blocks at 1025 on its
+# forward, blocks 3-11 at 717 / 502 / 352 on attention_bwd_kernel, the six
+# past 384 tokens split; threshold: every block at 1025 on the pair
+MODES_512 = {
+    "topk": ("HEADLINE_KWARGS", {**PER_TRAIN_STEP, "attention_bwd": 9, "attention_hd": 18,
+                                 "attention_hd_bwd": 3}, 6),
+    "threshold": ("THRESHOLD_KWARGS", {**PER_POLICY_TRAIN_STEP, "attention_bwd": 0,
+                                       "attention_hd": 36, "attention_hd_bwd": 12}, 0),
+}
+# an eval step at 512 px: the teacher's 12 CLS-row blocks and the pruned and
+# unpruned forwards (threshold: 3 plain and 9 policy blocks pruned), every
+# block at 1025 tokens on the attention_hd forward but the top-k student's
+# nine after its first stage
+PER_EVAL_512 = {
+    "topk": {**PER_EVAL_STEP["topk"], "attention_hd": 27},
+    "threshold": {**NO_LAUNCHES, "fused_transformer_block_cls": 12, "fused_transformer_block": 15,
+                  "fused_transformer_block[policy]": 9, "fused_predictor_lg": 3,
+                  "attention_hd": 36},
+}
+# ViT-L/16 served at 512 px (1025 tokens, hidden 4096), bf16 and int8
+VIT_L_512, B_VIT_L = ("vit_large_patch16_384", {"img_size": 512}), 8
+# DINO ViT-S/8 at 480 px (3601 tokens), the resolution of DINO's attention maps
+DINO_480, B_DINO = ("dino_small", {"patch_size": 8, "img_size": 480}), 2
+VIT_S_512 = ("vit_small_patch16_224", {"img_size": 512})  # 8 heads of 96, 1025 tokens
+# the attention_hd pair's timed shapes, (head width, heads, C, N, B): at
+# width 64 the main path's (DeiT-B trained at 512 px, DINO-S/8 at 480 px),
+# at 96 and 12 (d)'s
+LONG_TIMED = ((64, 12, 768, 1025, B_512), (64, 6, 384, 3601, B_DINO),
+              *((d, H, C, n, HD_LONG_BATCH[n]) for d, H, C in HD_WIDTHS[::-1] for n in HD_PAST_800))
+
+
+class LongCalls:
+    """Phase 38's main-path launches of the attention_hd pair by (head
+    width, tokens), each added to the kernels line's rows (at width 64 also
+    to the [d64] rows) as it is counted; the times go in once measured."""
+
+    def __init__(self, tally):
+        self.tally, self.calls = tally, {}
+
+    def add(self, counts, d, n):
+        for k in ("attention_hd", "attention_hd_bwd"):
+            self.calls[(k, d, n)] = self.calls.get((k, d, n), 0) + counts[k]
+            if d == 64:
+                self.tally.rows[k + "[d64]"]["launches"] += counts[k]
+
+    def times(self, rows):
+        """rows: {(d, n): (forward row, backward row)} of `time_head_widths`."""
+        for (k, d, n), calls in self.calls.items():
+            r = rows[(d, n)][0 if k == "attention_hd" else 1]
+            for name in (k, k + "[d64]") if d == 64 else (k,):
+                self.tally.add(name, calls, r["ms"], r["plain_ms"], r["bound"], r["library_ms"])
+
+
+def check_ceilings(torch) -> dict:
+    """The wrappers' ceiling (`ops.block.attention_max_tokens`, computed
+    without a card) against the library's own (`d2s_attention_max_tokens`)
+    at every even head width, both modes and directions; at widths 64 and 96
+    both at least 3601."""
+    from dense2sparse_vit_torch.ops import _cuda
+    from dense2sparse_vit_torch.ops.block import attention_max_tokens
+
+    lib = _cuda.library()
+    bad = [(d, p, b) for d in range(2, 129, 2) for p in (0, 1) for b in (0, 1)
+           if lib.d2s_attention_max_tokens(d, p, b)
+           != attention_max_tokens(d, policy=bool(p), backward=bool(b))]
+    ceil = {d: attention_max_tokens(d, policy=True, backward=True) for d in (12, 64, 96, 128)}
+    emit({"phase": "long_tokens", "ceilings_both_ways_policy": ceil, "mismatches": bad})
+    if bad or min(ceil[64], ceil[96]) < 3601:
+        raise AssertionError(f"ceilings: library against wrappers {bad}; {ceil}")
+    return ceil
+
+
+def check_long_blocks(torch, rec, tally, mode):
+    """Every block of a 512-px step's own activations (`capture_train_step`)
+    held against its plain version: the forward stage by stage
+    (`check_block`) and the backward (`check_block_backward`; a policy block
+    with its step's keep policy at every eps of EPS_CHECKS, with dPolicy),
+    the real cotangent at the last block and a seeded one of its scale
+    elsewhere; the teacher's CLS-row block at its first input."""
+    gen = torch.Generator(device=rec["last_g"].device).manual_seed(38)
+    scale_g = rec["last_g"].float().std().item()
+    H, scale, ln_eps = rec["heads"], rec["scale"], rec["ln_eps"]
+    last = len(rec["block_in"]) - 1
+    fwd, bwd = {}, {}  # the largest errors by mode and by core (past 800 tokens or not)
+    with torch.no_grad():
+        for i in range(last + 1):
+            x, w, pol = rec["block_in"][i], rec["weights"][i], rec["policy"][i]
+            g = (rec["last_g"].contiguous() if i == last else
+                 (torch.randn(x.shape, generator=gen, device=x.device) * scale_g).to(x.dtype))
+            key = ("" if pol is None else "[policy]", x.shape[1] > SHORT_TOKENS)
+            for kw in ([{}] if pol is None else
+                       [{"policy": pol.float().contiguous(), "eps": e} for e in EPS_CHECKS]):
+                _, err = check_block(torch, x, w, H, scale, ln_eps, block=i,
+                                     phase=f"long_tokens/{mode}", **kw)
+                fwd[key] = max(fwd.get(key, 0.0), err)
+                err = check_block_backward(torch, x, g, w, H, scale, ln_eps, block=i,
+                                           phase=f"long_tokens/{mode}", **kw)
+                bwd[key] = max(bwd.get(key, 0.0), err)
+        c = check_cls_rows(torch, rec["teacher_in"][0], rec["teacher_weights"][0], H, scale,
+                           phase="long_tokens")
+    for (suffix, long), err in fwd.items():
+        tally.err("fused_transformer_block" + suffix, err)
+        tally.err("fused_transformer_block_backward" + suffix, bwd[(suffix, long)])
+        if long:
+            tally.err("attention_hd[d64]", err)
+            tally.err("attention_hd_bwd[d64]", bwd[(suffix, long)])
+    tally.err("fused_transformer_block_cls", c)
+    tally.err("attention_hd[d64]", c)
+
+
+def time_long_blocks(torch, rec, smi, what) -> None:
+    """The block kernel both ways at a step's first block (N = its tokens)
+    beside its plain version (CUDA events, in turns) and its bound,
+    printed."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import (
+        transformer_block_backward_reference, transformer_block_reference)
+
+    H, scale, ln_eps = rec["heads"], rec["scale"], rec["ln_eps"]
+    x, w, pol = rec["block_in"][0], rec["weights"][0], rec["policy"][0]
+    kw = {} if pol is None else {"policy": pol.float().contiguous()}
+    gen = torch.Generator(device=x.device).manual_seed(39)
+    g = (torch.randn(x.shape, generator=gen, device=x.device) * x.float().std()).to(x.dtype)
+    hidden = w["w1"].shape[0]
+    out = {}
+    with torch.no_grad():
+        k, p = paired_ms(torch, lambda: ops.fused_transformer_block(x, w, H, scale=scale,
+                                                                    ln_eps=ln_eps, **kw),
+                         lambda: transformer_block_reference(x, w, H, scale, ln_eps, **kw),
+                         iters=3, rounds=1, repeats=3)
+        out["forward"] = (k, p, block_bound(*x.shape, H, hidden))
+        k, p = paired_ms(torch, lambda: ops.fused_transformer_block_backward(
+            x, g, w, H, scale=scale, ln_eps=ln_eps, **kw),
+            lambda: transformer_block_backward_reference(x, g, w, H, scale, ln_eps, **kw),
+            iters=2, rounds=1, repeats=3)
+        out["backward"] = (k, p, block_backward_bound(*x.shape, H, hidden))
+    for direction, (k, p, b) in out.items():
+        emit({"phase": "long_tokens", "time": f"block {direction}", "case": what,
+              "policy": pol is not None, "shape": list(x.shape), "ms": k, "plain_ms": p,
+              "bound_ms": max(b.values()),
+              "bound_by": "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes", "card": smi})
+
+
+def run_cli_512(torch, dev, tally, smi, root, mode, calls):
+    """The training entry point at 512 px (`cli.parse_config` of
+    CLI_512_FLAGS, with --patch-score-threshold 0.5 in threshold mode ->
+    `run_experiment`) over phase 32's folder: one epoch of LONG_CLI_STEPS
+    steps and its eval, each step's and each eval batch's launches
+    (MODES_512, PER_EVAL_512), every logged number finite, a checkpoint."""
+    import os
+    import tempfile
+
+    from dense2sparse_vit_torch import cli, ops
+    from dense2sparse_vit_torch.train.loop import run_experiment
+
+    extra = ["--patch-score-threshold", "0.5"] if mode == "threshold" else []
+    cfg, _ = cli.parse_config([*CLI_512_FLAGS, *extra, "--imgnet-val-dir", root, "--epochs", "1"])
+    cfg = cfg.replace(data=cfg.data.replace(num_workers=LOOP_WORKERS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_512_") as workdir:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with LoopSpy(torch) as spy:
+            summary = run_experiment(cfg, workdir, device=dev, max_steps_per_epoch=LONG_CLI_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        records = loop_records(workdir)
+        check_loop_metrics(records, f"cli 512 {mode}")
+        ckpts = {s: os.listdir(os.path.join(workdir, "ckpt", s)) for s in ("best", "latest")}
+    check_step_launches(spy.steps, MODES_512[mode][1], f"cli 512 {mode} train")
+    check_step_launches(spy.evals, PER_EVAL_512[mode], f"cli 512 {mode} eval")
+    if len(spy.steps) != LONG_CLI_STEPS or not spy.evals or not all(ckpts.values()):
+        raise AssertionError(f"cli 512 {mode}: {len(spy.steps)} steps, {len(spy.evals)} evals, "
+                             f"checkpoints {ckpts}")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    calls.add(counts, 64, 1025)
+    emit({"phase": "long_tokens", "cli_512": mode, "flags": CLI_512_FLAGS + extra,
+          "seconds": seconds, "train_steps": len(spy.steps), "evals": len(spy.evals),
+          "valid_rows": spy.valid, "summary": summary, "checkpoints": ckpts, "launches": counts,
+          "card": smi})
+
+
+def check_dino_480(torch, dev, tally, smi, calls):
+    """(c): DINO ViT-S/8 at 480 px (3601 tokens, 6 heads of 64) at B=2: the
+    fused forward against its plain twin (`check_family_model`), and the
+    last block's CLS rows (`return_selfattention`: 11 blocks and the
+    CLS-row block) against the twin's within STAGE_TOL; then its first
+    block both ways on its own embedding, plain and policy (eps 0.1, with
+    dPolicy), and policy on planted exact ties (`planted_ties`); the packed
+    attention's backward on its qkv with the CLS rows' cotangent, both
+    modes, two launches bit-equal (`check_attn_bwd`). Returns the block's
+    input and weights, for the times."""
+    from dense2sparse_vit_torch import ops
+
+    name, kwargs = DINO_480
+    model = check_family_model(torch, dev, name, kwargs, tally, smi, batch=B_DINO,
+                               phase="long_tokens")
+    calls.add({"attention_hd": model.cfg.depth, "attention_hd_bwd": 0}, 64, 3601)
+    plain = plain_twin(model)
+    side = model.cfg.img_size
+    gen = torch.Generator(device=dev).manual_seed(480)
+    x = torch.randn((B_DINO, side, side, 3), device=dev, generator=gen)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        cls = model(x, return_selfattention=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = plain(x, return_selfattention=True)
+    depth = model.cfg.depth
+    check_mode_launches(counts, {**NO_LAUNCHES, "fused_transformer_block": depth - 1,
+                                 "fused_transformer_block_cls": 1, "attention_hd": depth},
+                        "DINO-S/8 480 CLS rows")
+    for k, v in counts.items():
+        tally.rows[k]["launches"] += v
+    calls.add(counts, 64, 3601)
+    err, ref = rel_err(torch, cls, want)
+    rowsum = (cls.float().sum(-1) - 1).abs().max().item()
+    emit({"phase": "long_tokens", "dino_480_cls_rows": list(cls.shape), "rel_err": err / ref,
+          "rowsum_err": rowsum, "tol_rel": STAGE_TOL, "card": smi})
+    if not (err / ref <= STAGE_TOL and rowsum <= ROWSUM_TOL):
+        raise AssertionError(f"DINO-S/8 480 CLS rows: {err / ref}, row sums {rowsum}")
+    tally.err("fused_transformer_block_cls", err)
+    tally.err("attention_hd[d64]", err)
+    blk = model.blocks[0]
+    H, scale, ln_eps = blk.attn.num_heads, blk.attn.scale, blk.norm1.eps
+    w = blk.kernel_weights(torch.bfloat16)
+    with torch.no_grad():
+        xb = model._embed(torch.randn((B_DINO, side, side, 3), generator=gen, device=dev))
+    g = (torch.randn(xb.shape, generator=gen, device=dev) * xb.float().std()).to(xb.dtype)
+    pol = (torch.rand(xb.shape[:2], generator=gen, device=dev) < 0.6).float()
+    pol[:, 0] = 1.0
+    del model, plain
+    torch.cuda.empty_cache()
+    fwd = bwd = 0.0
+    with torch.no_grad():
+        x_tie, tied = planted_ties(torch, xb, w, H, scale, ln_eps)
+        emit({"phase": "long_tokens", "planted_ties": {"N": xb.shape[1], "tied_rows": tied}})
+        for xx, kw in ((xb, {}), (xb, {"policy": pol, "eps": 0.1}),
+                       (x_tie, {"policy": pol, "eps": 0.1})):
+            _, err = check_block(torch, xx, w, H, scale, ln_eps, phase="long_tokens/dino_480",
+                                 **kw)
+            fwd = max(fwd, err)
+            bwd = max(bwd, check_block_backward(torch, xx, g, w, H, scale, ln_eps,
+                                                phase="long_tokens/dino_480", **kw))
+        gcls = torch.randn((B_DINO, H, xb.shape[1]), generator=gen, device=dev) * 1e-2
+        for kw in ({}, {"policy": pol, "eps": 0.1}):  # the split long backward, two launches
+            qkv, do = attn_bwd_inputs(torch, xb, g, w, H, scale, ln_eps, **kw)
+            bwd = max(bwd, check_attn_bwd(torch, {
+                "what": "dino_480", "block": 0, "qkv": qkv, "g": do, "heads": H, "scale": scale,
+                "policy": kw.get("policy"), "gcls": gcls, "eps": kw.get("eps", 1e-6)}))
+    tally.err("attention_hd[d64]", fwd)
+    tally.err("attention_hd_bwd[d64]", bwd)
+    return {"block_in": {0: xb}, "weights": {0: w}, "policy": {0: None}, "heads": H,
+            "scale": scale, "ln_eps": ln_eps}
+
+
+def check_core_1025(torch, dev, tally):
+    """(c): at N = 1025, width 64 (DeiT-B's 12 heads, C = 768, B = 8, a
+    seeded block): the packed attention with its CLS rows both ways, plain
+    and policy (eps 0.1), the CLS rows' cotangent folded in
+    (`check_packed_forward`, `check_attn_bwd`: two launches bit-equal), and
+    the half-block both ways with its CLS rows (`check_attn_half`,
+    `check_attn_half_backward`)."""
+    C, H, n, B = 768, 12, 1025, 8
+    w = hd_block(torch, dev, C, H, seed=1025)
+    w6 = tuple(w[k] for k in HALF_BLOCK_KEYS)
+    scale, ln_eps = 64 ** -0.5, 1e-6
+    gen = torch.Generator(device=dev).manual_seed(1025)
+    x = torch.randn((B, n, C), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((B, n, C), generator=gen, device=dev).to(torch.bfloat16)
+    pol = (torch.rand((B, n), generator=gen, device=dev) < 0.6).float()
+    pol[:, 0] = 1.0
+    gcls = torch.randn((B, H, n), generator=gen, device=dev)
+    fwd = bwd = 0.0
+    with torch.no_grad():
+        for kw in ({}, {"policy": pol, "eps": 0.1}):
+            qkv, do = attn_bwd_inputs(torch, x, g, w, H, scale, ln_eps, **kw)
+            fwd = max(fwd, check_packed_forward(torch, qkv, H, scale, **kw))
+            bwd = max(bwd, check_attn_bwd(torch, {
+                "what": "long_tokens_1025", "block": None, "qkv": qkv, "g": do, "heads": H,
+                "scale": scale, "policy": kw.get("policy"), "gcls": gcls,
+                "eps": kw.get("eps", 1e-6)}))
+            fwd = max(fwd, check_attn_half(torch, x, w6, H, scale, ln_eps, cls=True,
+                                           phase="long_tokens", **kw))
+            bwd = max(bwd, check_attn_half_backward(torch, x, g, w6, H, scale, ln_eps,
+                                                    phase="long_tokens", **kw))
+    tally.err("fused_attention_packed", fwd)
+    tally.err("fused_attention_backward_packed", bwd)
+    tally.err("attention_hd[d64]", fwd)
+    tally.err("attention_hd_bwd[d64]", bwd)
+
+
+def phase_long_tokens(torch, dev, tally, smi, root):
+    """Phase 38: sequences past 800 tokens, at full width, bf16, seeded
+    weights. The ceilings (`check_ceilings`); (a) DeiT-B/16 trained at 512
+    px: per mode (top-k, threshold) a B=16 step against its plain twin's
+    (`run_384` at 512 px: launches, loss and gradients), every block of a
+    step's own activations both ways (`check_long_blocks`), the block timed
+    at 1025 tokens, and the CLI's one epoch of LONG_CLI_STEPS steps with
+    its eval (`run_cli_512`); (b) ViT-L/16 at 512 px, B=8, fused against
+    its plain twin and its int8 twin (`check_int8_family`); (c) DINO
+    ViT-S/8 at 480 px (`check_dino_480`) and the packed attention and the
+    half-block at 1025 (`check_core_1025`); (d) head widths 12 and 96 at
+    N = 1025 and 3601 (`check_head_widths`) and vit_small_patch16_224 at
+    512 px, its forward and one cross-entropy backward; (e) the attention_hd
+    pair's device times at widths 64, 96 and 12 and N = 1025, 3601 beside
+    its plain versions, SDPA and its bounds (`time_head_widths`), and the
+    block at N = 3601 (DINO)."""
+    from dense2sparse_vit_torch.models import create_model
+
+    t0 = time.perf_counter()
+    ceil = check_ceilings(torch)
+    calls = LongCalls(tally)
+    # (a) DeiT-B/16 at 512 px
+    teacher = create_model(TEACHER_384, img_size=512, use_fused_attention=True, device=dev,
+                           dtype="bfloat16", generator=torch.Generator().manual_seed(2))
+    train = {}
+    for mode in MODES_512:
+        train[mode], acts = run_384(torch, dev, mode, teacher, tally, smi, img=512, batch=B_512,
+                                    modes=MODES_512, phase="long_tokens",
+                                    on_counts=lambda c: calls.add(c, 64, 1025))
+        torch.cuda.empty_cache()
+        check_long_blocks(torch, acts, tally, mode)
+        time_long_blocks(torch, acts, smi, f"deit_base 512 {mode}")
+        del acts
+        torch.cuda.empty_cache()
+    del teacher
+    for mode in MODES_512:
+        run_cli_512(torch, dev, tally, smi, root, mode, calls)
+        torch.cuda.empty_cache()
+    # (b) ViT-L/16 at 512 px, bf16 and int8
+    name, kwargs = VIT_L_512
+    model = check_family_model(torch, dev, name, kwargs, tally, smi, batch=B_VIT_L,
+                               phase="long_tokens")
+    calls.add({"attention_hd": model.cfg.depth, "attention_hd_bwd": 0}, 64, 1025)
+    check_int8_family(torch, dev, model, tally, smi, batch=B_VIT_L, phase="long_tokens")
+    calls.add({"attention_hd": model.cfg.depth, "attention_hd_bwd": 0}, 64, 1025)
+    del model
+    torch.cuda.empty_cache()
+    # (c) DINO ViT-S/8 at 480 px; the packed attention and the half-block at 1025
+    dino = check_dino_480(torch, dev, tally, smi, calls)
+    torch.cuda.empty_cache()
+    check_core_1025(torch, dev, tally)
+    torch.cuda.empty_cache()
+    # (d) head widths 12 and 96 past 800; vit_small at 512 px
+    check_head_widths(torch, dev, tally, tokens=HD_PAST_800, phase="long_tokens")
+    torch.cuda.empty_cache()
+    name, kwargs = VIT_S_512
+    model = check_family_model(torch, dev, name, kwargs, tally, smi, batch=HD_LONG_BATCH[1025],
+                               phase="long_tokens")
+    calls.add({"attention_hd": model.cfg.depth, "attention_hd_bwd": 0}, 96, 1025)
+    counts = check_hd_step(torch, dev, model, name, {}, tally, batch=HD_LONG_BATCH[1025])
+    calls.add(counts, 96, 1025)
+    del model
+    torch.cuda.empty_cache()
+    # (e) times
+    rows = {}
+    for d, H, C, n, B in LONG_TIMED:
+        rows.update(time_head_widths(torch, dev, smi, widths=((d, H, C),), tokens=(n,),
+                                     phase="long_tokens", batches={n: B}))
+        torch.cuda.empty_cache()
+    calls.times(rows)
+    time_long_blocks(torch, dino, smi, "dino_small p8 480")
+    emit({"phase": "long_tokens", "seconds": time.perf_counter() - t0, "ceilings": ceil,
+          "train_512": {m: {k: v[k] for k in ("step_ms", "peak_gib", "step_gib", "tokens")}
+                        for m, v in train.items()},
+          "long_calls": {f"{k}/{d}/{n}": c for (k, d, n), c in calls.calls.items()},
+          "card": smi})
+
+
 def host_batch(torch, cfg, root, dev, split="val"):
     """The first LOOP_BATCH images of the loop's train or val split in the
     eval view, uint8 on the card, with their labels."""
@@ -7056,6 +7507,9 @@ def main(argv=None) -> int:
         # ---- 37. the experiment drivers, visualization, normaliser, AdamW -------
         torch.cuda.empty_cache()
         phase_experiments(torch, dev, tally, smi, loop_root)
+        # ---- 38. sequences past 800 tokens ------------------------------------------
+        torch.cuda.empty_cache()
+        phase_long_tokens(torch, dev, tally, smi, loop_root)
     finally:
         loop_tmp.cleanup()
 

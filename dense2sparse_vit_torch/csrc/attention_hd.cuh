@@ -54,6 +54,77 @@ inline int hd_piece_bytes(int d) { return d % 8 == 0 ? 16 : d % 4 == 0 ? 8 : 4; 
 // bytes of a 64-row tile at padded width DP, and the byte offset of (r, c) in it
 template <int DP>
 constexpr int HD_TILE = HD_BLK * DP * 2;
+
+// ---- sequence length -------------------------------------------------------
+//
+// block.cu's attention_kernel keeps a whole sample-head's K and V in shared
+// memory, which holds ATT_SHORT_N keys of width 64 at most. A d = 64 head
+// longer than that takes this path at DP = 64 in both directions, switched
+// at the same N on both sides (att_on_hd): the pair's scores are one
+// instruction's both ways, which policy mode's tie test needs, where a long
+// attention_kernel paired with attention_bwd_kernel would need a third
+// kernel. The pair streams the keys (forward) and the queries (backward)
+// through rings, so what grows with N is the rows each keeps of every key
+// or query: the forward pol_j and the CLS row's raw scores (4 B a key
+// each), the backward each query row's statistics (16 B). hd_max_tokens is
+// the longest N whose layout fits a CTA's shared memory (HD_SMEM_MAX) with
+// a ring of two; ops/block.py::attention_max_tokens repeats this arithmetic
+// for the wrappers' checks.
+constexpr int ATT_SHORT_N = 800;
+constexpr long long HD_SMEM_MAX = 232448;  // the most dynamic shared memory a CTA takes
+constexpr int HD_FWD_WG = 2;               // warpgroups (query blocks) a CTA of the forward
+
+inline bool att_on_hd(int N, int d) { return d != 64 || N > ATT_SHORT_N; }
+
+// the forward's key groups of colsum(V) at padded width DP: a column pair a thread
+__host__ __device__ constexpr int hd_fwd_groups(int DP) { return 128 / (DP / 2); }
+
+// the forward's shared memory at padded width DP: the CTA's Q tiles, a ring
+// of `ring` K and V tile pairs; in policy mode pol_j of every key and
+// colsum(V)'s parts; with cls row 0's raw scores
+inline long long hd_fwd_smem(int DP, int N, int ring, bool policy, bool cls) {
+  const long long keys = (long long)(N + HD_BLK - 1) / HD_BLK * HD_BLK;
+  long long bytes = (long long)(HD_FWD_WG + 2 * ring) * HD_BLK * DP * 2;
+  if (policy) bytes += (keys + hd_fwd_groups(DP) * DP) * 4;
+  if (cls) bytes += keys * 4;
+  return bytes;
+}
+
+// the lanes a row of the backward's prologue takes at padded width DP: its
+// column pairs rounded up to a power of two, 8 to 32
+__host__ __device__ constexpr int hd_seg(int DP) { return DP >= 64 ? 32 : DP >= 32 ? 16 : 8; }
+
+// the bytes of attention_hd_bwd_kernel's shared memory at padded width DP:
+// the pass's two key blocks' K and V, a ring of `ring` query blocks' Q and
+// dO, two buffers of the two key blocks' dS^T stage, a query block's dQ sum
+// of the earlier passes (fp32), every query row's statistics (two float2),
+// colsum(V) with its eight warps' parts, the fold's warp sums
+inline long long hd_bwd_smem(int DP, int N, int ring) {
+  const long long rows = (long long)(N + HD_BLK - 1) / HD_BLK * HD_BLK;
+  return (long long)(4 + 2 * ring) * HD_BLK * DP * 2 + 4 * HD_BLK * HD_BLK * 2 +
+         HD_BLK * DP * 4 + rows * 16 + (1 + 8 * 32 / hd_seg(DP)) * DP * 4 + 66 * 4;
+}
+
+// The longest sequence the attention cores take at head width d in either
+// direction (backward: the backward with the forward it recomputes), 0 for
+// a width they do not take. The forward's bound assumes the CLS rows, the
+// backward's the policy rows, in either mode's layout as `policy` says.
+inline int hd_max_tokens(int d, bool policy, bool backward) {
+  if (!hd_width_ok(d)) return 0;
+  const int DP = hd_pad(d);
+  const long long fwd_fixed = hd_fwd_smem(DP, 0, 2, policy, true);
+  const long long fwd = (HD_SMEM_MAX - fwd_fixed) / (policy ? 8 : 4) / HD_BLK * HD_BLK;
+  if (!backward) return (int)fwd;
+  const long long bwd = (HD_SMEM_MAX - hd_bwd_smem(DP, 0, 2)) / 16 / HD_BLK * HD_BLK;
+  return (int)(fwd < bwd ? fwd : bwd);
+}
+
+// whether the cores take N tokens of width d (at d = 64 up to ATT_SHORT_N
+// also on the width-64 cores, which take any N to that)
+inline bool att_takes(int N, int d, bool policy, bool backward) {
+  return N > 0 && N <= hd_max_tokens(d, policy, backward);
+}
+
 template <int DP>
 __device__ __forceinline__ int hd_at(int r, int c) {
   return (r >> 3) * (DP * 16) + (c >> 3) * 128 + (r & 7) * 16 + (c & 7) * 2;

@@ -84,9 +84,11 @@
 // of that time at the bf16 peak. So the design moves each byte once and
 // keeps the tensor cores fed from shared memory:
 //   - one CTA of 4 warps holds one sample-head's K and V (all N <= 800
-//     keys), copied once from device memory by 16-byte cp.async in two
-//     commit groups, K then V, so that the first query tiles' pass 1 (which
-//     needs only K) runs while V is still arriving;
+//     keys; a longer sequence takes attention_hd_kernel at DP = 64, and its
+//     backward attention_hd_bwd_kernel: attention_hd.cuh), copied once from
+//     device memory by 16-byte cp.async in two commit groups, K then V, so
+//     that the first query tiles' pass 1 (which needs only K) runs while V
+//     is still arriving;
 //   - the rows lie in shared memory as they lie in qkv, 64 bf16 wide and
 //     unpadded, with the 16-byte chunk c of row r stored at chunk
 //     c ^ (r & 7): the eight rows an ldmatrix reads fall on eight different
@@ -137,7 +139,8 @@ constexpr int ATT_HD = 64;
 constexpr int ATT_WARPS = 4;
 constexpr int ATT_THREADS = 32 * ATT_WARPS;
 constexpr int ATT_QT = 2;        // 16-row query tiles a warp carries at once
-constexpr int ATT_MAX_N = 800;   // K and V of 800 keys stay under 227 KB
+// K and V of ATT_SHORT_N (attention_hd.cuh) keys stay under 227 KB; longer
+// d = 64 heads take attention_hd_kernel
 constexpr int ATT_CHUNKS = ATT_HD / 8;  // 16-byte chunks of a head row
 
 __host__ __device__ inline int att_padded(int n) { return (n + 15) / 16 * 16; }
@@ -553,25 +556,6 @@ static __global__ void __launch_bounds__(ATT_THREADS)
 //     shared memory as the blocks pass and write the normalised row at the
 //     end, against the final max and sum.
 // Its times are in PERF.md.
-constexpr int HD_FWD_WG = 2;  // warpgroups (query blocks) a CTA of the forward
-
-template <int DP>
-__host__ __device__ constexpr int hd_fwd_groups() {
-  return 128 / (DP / 2);  // colsum(V)'s key groups: a column pair a thread
-}
-
-// the forward's shared memory: the CTA's Q tiles, a ring of `ring` K and V
-// tile pairs; in policy mode pol_j of every key and colsum(V)'s parts; with
-// cls row 0's raw scores
-template <int DP>
-static size_t hd_fwd_smem(int N, int ring, bool policy, bool cls) {
-  const size_t keys = (size_t)(N + HD_BLK - 1) / HD_BLK * HD_BLK;
-  size_t bytes = (size_t)(HD_FWD_WG + 2 * ring) * HD_TILE<DP>;
-  if (policy) bytes += (keys + hd_fwd_groups<DP>() * DP) * 4;
-  if (cls) bytes += keys * 4;
-  return bytes;
-}
-
 template <int DP, bool POLICY>
 static __global__ void __launch_bounds__(128 * HD_FWD_WG)
     attention_hd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
@@ -581,7 +565,7 @@ static __global__ void __launch_bounds__(128 * HD_FWD_WG)
   constexpr int T = HD_TILE<DP>;
   constexpr int NT = 128 * HD_FWD_WG;
   constexpr int CP = DP / 2;  // column pairs
-  constexpr int GROUPS = hd_fwd_groups<DP>();
+  constexpr int GROUPS = hd_fwd_groups(DP);
   constexpr int SN = hd_score_n(DP), NH = HD_BLK / SN;  // a score chain's keys, chains a block
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(128) unsigned char hd_smem[];
@@ -827,8 +811,8 @@ static cudaError_t launch_attention_hd_dp(const bf16* qkv, long long q_bstride, 
                                           cudaStream_t stream) {
   // the ring: three slots where two CTAs still fit an SM's 228 KB, else two
   const bool policy = pol != nullptr, with_cls = cls != nullptr;
-  const int ring = 2 * (hd_fwd_smem<DP>(N, 3, policy, with_cls) + 1024) <= 233472 ? 3 : 2;
-  const size_t smem = hd_fwd_smem<DP>(N, ring, policy, with_cls);
+  const int ring = 2 * (hd_fwd_smem(DP, N, 3, policy, with_cls) + 1024) <= 233472 ? 3 : 2;
+  const size_t smem = hd_fwd_smem(DP, N, ring, policy, with_cls);
   auto kernel = pol ? attention_hd_kernel<DP, true> : attention_hd_kernel<DP, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -869,19 +853,18 @@ static cudaError_t launch_attention_hd(const bf16* qkv, long long q_bstride, int
 
 // qkv's token rows lie q_ld elements apart and its samples q_bstride apart
 // (both multiples of 8); out is (B*N, C) packed, C = H d. Heads of d = 64
-// take attention_kernel, every other even d up to 128 attention_hd_kernel
-// (whose lse is always float4). Also launched by block_bwd.cu (the packed
+// up to ATT_SHORT_N tokens take attention_kernel, longer ones and every
+// other even d up to 128 attention_hd_kernel (att_on_hd; its lse is always
+// float4), up to hd_max_tokens. Also launched by block_bwd.cu (the packed
 // backward's recompute).
 cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q_ld, bf16* out,
                                      float* lse, bf16* cls, const float* pol, int B, int N,
                                      int H, int d, float scale, float eps, cudaStream_t stream) {
-  if (N <= 0 || N > ATT_MAX_N || q_ld < 3 * H * d || q_ld % 8 || q_bstride % 8)
+  if (!att_takes(N, d, pol != nullptr, false) || q_ld < 3 * H * d || q_ld % 8 || q_bstride % 8)
     return cudaErrorInvalidValue;
-  if (d != ATT_HD) {
-    if (!hd_width_ok(d)) return cudaErrorInvalidValue;
+  if (att_on_hd(N, d))
     return launch_attention_hd(qkv, q_bstride, q_ld, d, out, lse, cls, pol, B, N, H, scale, eps,
                                stream);
-  }
   const size_t smem = att_smem_bytes(N, pol != nullptr);
   auto kernel = pol ? attention_kernel<true> : attention_kernel<false>;
   cudaError_t err =
@@ -1031,8 +1014,8 @@ using d2s::bf16;
 // (no scale). Matrices are bf16
 // in the torch Linear layout (out, in); LayerNorm parameters and biases are
 // fp32; bqkv may be null. Requires C == d * H with an even head width d
-// up to 128 (attention_hd.cuh), hidden % 8 == 0, N <= 800,
-// 16-byte aligned pointers.
+// up to 128 (attention_hd.cuh), hidden % 8 == 0, N up to hd_max_tokens
+// (attention_hd.cuh), 16-byte aligned pointers.
 extern "C" int d2s_block_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* hid_buf,
     void* stats_buf, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
@@ -1078,8 +1061,7 @@ extern "C" int d2s_block_forward(
 // stats (B*N) float2; lse, cls, policy as d2s_block_forward takes them
 // (each may be null); weights bf16 (out, in), LayerNorm and biases fp32,
 // bqkv and bproj may be null. Requires C == d * H (d even, at most 128),
-// N <= 800, 16-byte
-// aligned pointers.
+// N up to hd_max_tokens, 16-byte aligned pointers.
 extern "C" int d2s_attention_block_forward(const void* x, void* out, void* qkv_buf,
                                            void* attn_buf, void* stats_buf, const void* ln_w,
                                            const void* ln_b, const void* wqkv, const void* bqkv,
@@ -1102,8 +1084,8 @@ extern "C" int d2s_attention_block_forward(const void* x, void* out, void* qkv_b
 // runs outside: the CLS-capture route of a training block). qkv: (B, N, 3C)
 // bf16 with token rows q_ld elements apart and samples q_bstride apart; out
 // (B, N, C) bf16; cls (B, H, N) bf16 or null; policy (B, N) fp32 or null.
-// Requires C == d * H (d even, at most 128), N <= 800, q_ld and q_bstride
-// multiples of 8, 16-byte aligned pointers.
+// Requires C == d * H (d even, at most 128), N up to hd_max_tokens, q_ld
+// and q_bstride multiples of 8, 16-byte aligned pointers.
 extern "C" int d2s_attention_packed_forward(const void* qkv, long long q_bstride, int q_ld,
                                             void* out, void* cls, const void* policy, int B,
                                             int N, int H, int C, float scale, float eps,

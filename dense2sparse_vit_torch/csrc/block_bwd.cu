@@ -36,8 +36,9 @@
 //                 dWproj = da^T O (on da's bf16 copy), dbproj = sum da over
 //                 the fp32 da (norm.cu's column_sums); dO = da Wproj
 //   4. core       attention_bwd_kernel, one CTA per (sample, head) (N <= 384;
-//                 policy mode N <= 352; longer sequences, up to the
-//                 forward's 800, over 2-3 CTAs: the long path below):
+//                 policy mode N <= 352; longer sequences, up to
+//                 ATT_SHORT_N = 800, over 2-3 CTAs: the long path below;
+//                 past 800 attention_hd_bwd_kernel, as at other widths):
 //                 P = exp(scale q.k - lse),
 //                 D = rowsum(dO * O), dS = P * (dO V^T - D), dV = P^T dO,
 //                 dQ = scale dS K, dK = scale dS^T Q in one pass over the
@@ -303,7 +304,6 @@ long long column_sums_workspace_floats(int M, int N, int elem);
 constexpr int AB_HD = 64;
 constexpr int AB_BLK = 64;  // the rows of a query block (a warpgroup's wgmma M) and of a key block
 constexpr int AB_TILE = AB_BLK * AB_HD * 2;  // bytes of a 64 x 64 bf16 tile: 128-byte rows
-constexpr int AB_MAX_N = 800;  // the forward's limit (block.cu's ATT_MAX_N)
 // the most query blocks one CTA holds: Q, dO and one stage of P and dS of
 // 384 query rows stay under 227 KB; in policy mode, with its row vectors and
 // dPolicy partials, 352 rows alone (six blocks, the last partial) or five
@@ -311,7 +311,7 @@ constexpr int AB_MAX_N = 800;  // the forward's limit (block.cu's ATT_MAX_N)
 constexpr int AB_CTA_QB = 6;
 constexpr int AB_POLICY_ONE_CTA_N = 352;
 constexpr int AB_POLICY_CTA_QB = 5;
-constexpr int AB_SMEM_MAX = 232448;  // the most dynamic shared memory a CTA takes
+constexpr int AB_SMEM_MAX = (int)HD_SMEM_MAX;  // the most dynamic shared memory a CTA takes
 
 // The CTAs a sample-head's query blocks are split over: 1 while one CTA
 // holds them all (N <= 384; policy mode N <= 352), else the fewest that
@@ -989,6 +989,25 @@ static __global__ void reduce_kv_kernel(const float* __restrict__ part, bf16* __
   *reinterpret_cast<uint2*>(dqkv + m * 3 * C + C + c) = packed;
 }
 
+// dQ of a sample-head whose attention_hd_bwd_kernel passes are split:
+// dqkv[m][c] = bf16 of the sum over the splits, in order, of part[split][m][c],
+// for the M rows and C columns (C even); two columns a thread
+static __global__ void reduce_q_kernel(const float* __restrict__ part, bf16* __restrict__ dqkv,
+                                       long long M, int C, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int c2 = C / 2;
+  if (i >= M * c2) return;
+  const long long m = i / c2;
+  const int c = (int)(i % c2) * 2;
+  float2 acc = make_float2(0.f, 0.f);
+  for (int sp = 0; sp < splits; ++sp) {
+    const float2 v = *reinterpret_cast<const float2*>(part + ((long long)sp * M + m) * C + c);
+    acc.x += v.x;
+    acc.y += v.y;
+  }
+  *reinterpret_cast<uint32_t*>(dqkv + m * 3 * C + c) = pack_bf16(acc.x, acc.y);
+}
+
 // launches of attention_bwd_kernel, where it is launched (the backward
 // entries' own included), and those of them on the long path (a
 // sample-head split over CTAs), read by d2s_attention_bwd_launches
@@ -1014,7 +1033,9 @@ static decltype(&attention_bwd_kernel<false, 1, false>) ab_kernel(bool policy, i
 // shared-memory limit, an attribute of the current device, is set on every
 // call, so a second card in the process launches with it too.
 static cudaError_t ab_plan(int N, bool policy, bool fold, AbLayout* out) {
-  static int cache[2][2][AB_MAX_N + 1];  // 4 ring + stages, 0 while unknown
+  // 4 ring + stages, 0 while unknown; N up to ATT_SHORT_N (att_on_hd: longer
+  // d = 64 heads take attention_hd_bwd_kernel)
+  static int cache[2][2][ATT_SHORT_N + 1];
   int& plan = cache[policy][fold][N];
   const int lqb = ab_cta_blocks(N, policy);
   const bool split = ab_splits(N, policy) > 1;
@@ -1046,17 +1067,28 @@ static cudaError_t ab_plan(int N, bool policy, bool fold, AbLayout* out) {
 }
 
 // The splits of dPolicy's partials at head width d: attention_bwd_kernel's
-// (ab_splits) at d = 64, one at the other widths (attention_hd_bwd_kernel
-// sums every query of a key in one CTA).
-static int dpol_splits(int N, int d) { return d == AB_HD ? ab_splits(N, true) : 1; }
+// (ab_splits) at d = 64 up to ATT_SHORT_N, one on the attention_hd path
+// (att_on_hd: attention_hd_bwd_kernel sums every query of a key in one CTA).
+static int dpol_splits(int N, int d) { return att_on_hd(N, d) ? 1 : ab_splits(N, true); }
 
-// The fp32 floats of the split partials at these shapes (head width d): at
-// d = 64 dK and dV (splits, B*N, 2C) where a sample-head is split, else
-// none; at the other widths dQ's sum over the passes (B*N, C) past two key
-// blocks (attention_hd_bwd_kernel), else none; dPolicy's (splits, B, H, N)
-// in policy mode.
+// attention_hd_bwd_kernel's passes (two key blocks each) a CTA takes past
+// ATT_SHORT_N tokens, where a sample-head's passes are split over CTAs
+// (hd_bwd_splits); up to it one CTA takes them all
+constexpr int HD_BWD_PASSES = 4;
+inline int hd_bwd_passes(int N) { return (N + 2 * HD_BLK - 1) / (2 * HD_BLK); }
+inline int hd_bwd_splits(int N) {
+  return N > ATT_SHORT_N ? (hd_bwd_passes(N) + HD_BWD_PASSES - 1) / HD_BWD_PASSES : 1;
+}
+
+// The fp32 floats of the split partials at these shapes (head width d): on
+// attention_bwd_kernel (d = 64 up to ATT_SHORT_N) dK and dV (splits, B*N,
+// 2C) where a sample-head is split, else none; on the attention_hd path
+// dQ's sum over the passes (B*N, C) past two key blocks
+// (attention_hd_bwd_kernel), each split's own (splits, B*N, C) where its
+// passes are split; dPolicy's (splits, B, H, N) in policy mode.
 static long long kv_part_floats(int B, int N, int H, int d, bool policy) {
-  if (d != AB_HD) return N > 2 * HD_BLK ? (long long)B * N * H * d : 0;
+  if (att_on_hd(N, d))
+    return N > 2 * HD_BLK ? (long long)hd_bwd_splits(N) * B * N * H * d : 0;
   const int sp = ab_splits(N, policy);
   return sp > 1 ? (long long)sp * B * N * 2 * H * AB_HD : 0;
 }
@@ -1070,10 +1102,15 @@ static long long dpol_part_floats(int B, int N, int H, int d, bool policy) {
 // its modes (plain; policy, with dPolicy's per-head partials summed by
 // sum_heads_kernel; the CLS fold), for an even head width d up to 128 (the
 // layout and product notes of attention_hd.cuh): dQ, dK and dV from qkv,
-// dO and the forward's float4 statistics, every N up to 800, deterministic
-// (no atomics, the same bits every launch). What bounds it: at B=64, N=197,
-// d=96 (8 heads) its bytes (qkv, O and dO read, dqkv written, ~0.04 ms)
-// against ~19 GFLOP of products (five of N x N x d per sample-head). The
+// dO and the forward's float4 statistics, deterministic (no atomics, the
+// same bits every launch), every N up to hd_max_tokens (attention_hd.cuh),
+// and at d = 64 every N past ATT_SHORT_N (the forward's attention_kernel
+// stops there; its pair, attention_hd_kernel, takes over both ways). What
+// grows with N in shared memory is each query row's statistics (16 B a
+// row); the keys' pol_j and gcls_j are read from device memory for the
+// pass's own keys, so that d = 96 reaches 4544 tokens, d = 128 1920.
+// What bounds it: at B=64, N=197, d=96 (8 heads) its bytes (qkv, O and dO
+// read, dqkv written, ~0.04 ms on the H100, 700 W) against ~19 GFLOP of products (five of N x N x d per sample-head). The
 // design, one launch, a CTA of two warpgroups per sample-head:
 //   - the prologue, the whole CTA, while the first pass's copies run: each
 //     query row's statistics in shared memory, (lse or the max m, 1 / den,
@@ -1101,6 +1138,15 @@ static long long dpol_part_floats(int B, int N, int H, int d, bool policy) {
 //     the sum goes back to dq_acc ((B*N, C), a sample-head's rows touched by
 //     its own CTA alone, in pass order), the last pass writing bf16 into
 //     dqkv. With one pass (N <= 128) there is no dq_acc;
+//   - past ATT_SHORT_N tokens a sample-head's passes are split over CTAs,
+//     HD_BWD_PASSES (4, 512 keys) a CTA (hd_bwd_splits: 3 at N = 1025, 8 at
+//     3601), since one CTA a sample-head leaves most SMs idle there (DINO-S/8
+//     at 480 px, B = 2: 12 CTAs). A pass owns its keys, so dK, dV and
+//     dPolicy are still written once; each split sums dQ over its own passes
+//     into its slice of dq_acc ((splits, B*N, C) fp32, the prologue run by
+//     every split alike), and reduce_q_kernel adds the slices in split order
+//     into dqkv: no atomics, the same bits every launch. Up to 800 tokens
+//     nothing changes;
 //   - dPolicy_j is a sum over the queries of key j's row of the
 //     warpgroup's own accumulators: summed in registers in query order,
 //     then across the quad, one partial per head.
@@ -1112,23 +1158,6 @@ static long long dpol_part_floats(int B, int N, int H, int d, bool policy) {
 // thread), whose two warpgroups run the same phases in step (copies,
 // products, softmax, the dQ sum), so little of one phase hides behind
 // another's. Its times are in PERF.md.
-
-// the lanes a row of the backward's prologue takes at padded width DP: its
-// column pairs rounded up to a power of two, 8 to 32
-__host__ __device__ constexpr int hd_seg(int DP) { return DP >= 64 ? 32 : DP >= 32 ? 16 : 8; }
-
-// the bytes of attention_hd_bwd_kernel's shared memory at padded width DP:
-// the pass's two key blocks' K and V, a ring of `ring` query blocks' Q and
-// dO, two buffers of the two key blocks' dS^T stage, a query block's dQ sum
-// of the earlier passes (fp32), the query rows' statistics (float4), pol_j
-// and gcls_j of every key, colsum(V) with its eight warps' parts, the
-// fold's warp sums
-template <int DP>
-static size_t hd_bwd_smem(int N, int ring) {
-  const size_t rows = (size_t)(N + HD_BLK - 1) / HD_BLK * HD_BLK;
-  return (size_t)(4 + 2 * ring) * HD_TILE<DP> + 4 * HD_BLK * HD_BLK * 2 + HD_BLK * DP * 4 +
-         rows * 16 + 2 * rows * 4 + (1 + 8 * 32 / hd_seg(DP)) * DP * 4 + 66 * 4;
-}
 
 // dQ of query block rows qa, qa + 8 (this thread's), columns c0 .. c0 + CN -
 // 1 of the head (those from c_end on are dropped): the stage's dS^T (64 keys x
@@ -1176,12 +1205,15 @@ __device__ __forceinline__ void hd_dq_chunk(const unsigned char* stg, const unsi
   }
 }
 
-// a CTA per sample-head (blockIdx.x), 256 threads. qkv (B, N, 3C) with token
+// a CTA per sample-head (blockIdx.x) and split of its passes (blockIdx.y:
+// passes per y .. per y + per - 1), 256 threads. qkv (B, N, 3C) with token
 // rows q_ld elements apart and samples q_bstride apart, o and dout (B*N, C),
 // st the forward's (B, H, N) float4 statistics, dqkv (B*N, 3C) packed;
 // policy mode: pol (B, N), dpol_part (B, H, N) or null; gcls (B, H, N) or
-// null; dq_acc (B*N, C) fp32 where N > 128, else null; pb: the copies'
-// bytes (hd_piece_bytes)
+// null; dq_acc (splits, B*N, C) fp32 where N > 128, else null: with one
+// split the sum of dQ over the passes, the last writing dQ to dqkv; with
+// more, each split's own sum, which reduce_q_kernel adds in split order;
+// pb: the copies' bytes (hd_piece_bytes)
 template <int DP, bool POLICY>
 static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // plain, d <= 16: two CTAs an SM
     attention_hd_bwd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
@@ -1189,7 +1221,7 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
                             const float4* __restrict__ st, const float* __restrict__ pol,
                             const float* __restrict__ gcls, bf16* __restrict__ dqkv,
                             float* __restrict__ dpol_part, float* __restrict__ dq_acc, int N,
-                            int H, float scale, float eps, int ring, int pb) {
+                            int H, float scale, float eps, int ring, int pb, int per) {
   constexpr int T = HD_TILE<DP>;
   constexpr int SB = HD_BLK * HD_BLK * 2;  // a stage tile: 64 keys x 64 queries
   constexpr int SN = hd_score_n(DP);       // the queries of a step: the score products' n
@@ -1202,9 +1234,7 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
   float* Dqs = reinterpret_cast<float*>(Stg + 4 * SB);        // dQ of the earlier passes
   float2* Rs0 = reinterpret_cast<float2*>(Dqs + HD_BLK * DP);  // a query row's (lse or m, D)
   float2* Rs1 = Rs0 + rows;                                   // policy mode: its (1 / den, gmx)
-  float* Ps = reinterpret_cast<float*>(Rs1 + rows);           // pol_j
-  float* Gs = Ps + rows;                                      // gcls_j
-  float* Cv = Gs + rows;                                      // colsum(V)
+  float* Cv = reinterpret_cast<float*>(Rs1 + rows);           // colsum(V)
   float* Cvp = Cv + DP;                                       // its segments' parts
   float* Fold = Cvp + 8 * 32 / hd_seg(DP) * DP;               // the fold's segment sums, totals
 
@@ -1249,7 +1279,12 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
     }
     for (int i = 0; i + 1 < ring; ++i) load_q(i);
   };
-  start_pass(0);  // its copies run during the prologue
+  // this CTA's passes, p0 .. p1 - 1; with more than one split its dQ is a
+  // partial sum, written in fp32 to its own slice of dq_acc
+  const int passes = (nb + 1) / 2;
+  const int p0 = blockIdx.y * per, p1 = min(passes, p0 + per);
+  const bool split = gridDim.y > 1;
+  start_pass(p0);  // its copies run during the prologue
 
   // The prologue, over a head's rows of d columns: a segment of SEG lanes a
   // row (its column pairs, PPL a lane), RPW rows a warp at once, U of those
@@ -1261,14 +1296,10 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
     for (int off = SEG / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
     return v;
   };
-  // the keys' policy and gcls; the rows' statistics as the forward stored
-  // them; colsum(V)'s parts; the fold's parts
-  for (int r = tid; r < rows; r += 256) {
-    const bool in = r < N;
-    Ps[r] = POLICY && in ? pol[(long long)b * N + r] : 0.f;
-    Gs[r] = gcls != nullptr && in ? gcls[srow + r] : 0.f;
+  // the rows' statistics as the forward stored them; colsum(V)'s parts; the
+  // fold's parts (the keys' policy and gcls are read per pass, below)
+  for (int r = tid; r < rows; r += 256)
     Rs0[r] = Rs1[r] = make_float2(0.f, 0.f);  // rows past N: zero probabilities below
-  }
   if (POLICY) {  // segment (wid, sub) sums rows wid RPW + sub, + 8 RPW, ...
     float a[2 * PPL];
 #pragma unroll
@@ -1395,23 +1426,28 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
   }
   __syncthreads();
 
-  const int passes = (nb + 1) / 2;
   const int wrow = warp * 16 + g;  // this thread's key rows of its block: wrow, wrow + 8
   // At DP >= 112 a pass runs twice, each time for half of dK's, dV's and
   // dQ's columns (DV of them), so that dK and dV fit the registers beside
   // the rest; the scores are formed again
   constexpr int NC = DP >= 112 ? 2 : 1, DV = DP / NC;
-  for (int pc = 0; pc < passes * NC; ++pc) {
+  for (int pc = p0 * NC; pc < p1 * NC; ++pc) {
     const int p = pc / NC, ch = pc % NC;  // the pass, its part of the columns
     const int jb = 2 * p + wg;  // this warpgroup's key block (past the last: all keys masked)
-    if (pc > 0) start_pass(p);
-    float* acc = dq_acc + (long long)b * N * C + h * d;  // dQ's sum, rows C apart
+    if (pc > p0 * NC) start_pass(p);
+    // dQ's sum (this split's), rows C apart
+    float* acc = dq_acc + ((long long)blockIdx.y * (gridDim.x / H) + b) * N * C + h * d;
     const int c_end = min(d, (ch + 1) * DV);  // the part's columns: ch DV .. c_end - 1
 
     const unsigned char* Kt = KV + wg * 2 * T;
     const unsigned char* Vt = Kt + T;
     const int ka = jb * HD_BLK + wrow;  // this thread's keys ka, ka + 8
-    const int kp = jb < nb ? ka : 0;  // pol_j and gcls_j of keys kp, kp + 8 (read where used)
+    // pol_j of those keys, 0 past N (and past the last block)
+    float pk[2] = {0.f, 0.f};
+    if (POLICY)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (jb < nb && ka + 8 * r < N) pk[r] = pol[(long long)b * N + ka + 8 * r];
     float dk[DV / 2], dv[DV / 2];
 #pragma unroll
     for (int i = 0; i < DV / 2; ++i) dk[i] = dv[i] = 0.f;
@@ -1422,7 +1458,7 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
       else cp_async_wait<1>();
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();  // Q_i and dO_i in; both warpgroups past query block i - 1
-      if (p > 0) {
+      if (p > p0) {
         // the earlier passes' dQ of query block i ([64][d] fp32), for its sum
         // after the products below: a commit group of its own, before the
         // ring's; pieces of 4 floats where the rows are 16-byte aligned
@@ -1474,12 +1510,12 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
           const bool valid = key < N && q < N;
           const float2 r0 = Rs0[q];  // (lse or m, D)
           float dpv = dp[e];
-          if (gcls != nullptr && q == 0 && jb < nb) dpv += Gs[kp + 8 * r];
+          if (gcls != nullptr && q == 0 && jb < nb) dpv += key < N ? gcls[srow + key] : 0.f;
           if (POLICY) {
             const float2 r1 = Rs1[q];  // (1 / den, gmx)
             const float v = s[e] * scale;
             const float xe = valid ? __expf(v - r0.x) : 0.f;
-            const float a = jb < nb ? Ps[kp + 8 * r] : 0.f;
+            const float a = pk[r];
             const float ew = xe * (key == q ? a + (1.f - a) : a);
             const float de = (dpv - r0.y) * r1.x;
             if (dpol_part != nullptr && key != q) dpa[r] += de * xe;  // the diagonal left out
@@ -1546,7 +1582,7 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
         const unsigned char* st0 = Stg + (i & 1) * 2 * SB;
         const int qa = i * HD_BLK + wrow;
         bf16* dq = dqkv + (long long)b * N * ld3 + h * d;
-        const bool first = p == 0, last = p + 1 == passes;
+        const bool first = p == p0, last = p + 1 == p1 && !split;
         hd_dq_chunk<DP, DQ0>(st0, KV, ch * DV + wg * DQ0, Dqs, i * HD_BLK, acc, dq, C, ld3, qa, N,
                              d, c_end, t, first, last);
       }
@@ -1590,22 +1626,29 @@ static cudaError_t launch_attention_hd_bwd_dp(const bf16* qkv, long long q_bstri
                                               float* dpol_part, float* dq_acc, int B, int N,
                                               int H, float scale, float eps,
                                               cudaStream_t stream) {
-  const int ring = hd_bwd_smem<DP>(N, 3) <= (size_t)AB_SMEM_MAX ? 3 : 2;
-  const size_t smem = hd_bwd_smem<DP>(N, ring);
+  const int ring = hd_bwd_smem(DP, N, 3) <= HD_SMEM_MAX ? 3 : 2;
+  const size_t smem = hd_bwd_smem(DP, N, ring);
   auto kernel = pol ? attention_hd_bwd_kernel<DP, true> : attention_hd_bwd_kernel<DP, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, 256, smem, stream>>>(qkv, q_bstride, q_ld, d, o, dout, st, pol, gcls, dqkv,
-                                       dpol_part, dq_acc, N, H, scale, eps, ring,
-                                       hd_piece_bytes(d));
+  const int splits = hd_bwd_splits(N);
+  const int per = splits > 1 ? HD_BWD_PASSES : hd_bwd_passes(N);
+  kernel<<<dim3(B * H, splits), 256, smem, stream>>>(qkv, q_bstride, q_ld, d, o, dout, st, pol,
+                                                     gcls, dqkv, dpol_part, dq_acc, N, H, scale,
+                                                     eps, ring, hd_piece_bytes(d), per);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ++attention_hd_launches[1];
-  return cudaSuccess;
+  if (splits == 1) return cudaSuccess;
+  const long long m = (long long)B * N, n2 = m * H * d / 2;
+  reduce_q_kernel<<<(unsigned)((n2 + 255) / 256), 256, 0, stream>>>(dq_acc, dqkv, m, H * d,
+                                                                   splits);
+  return cudaGetLastError();
 }
 
 // the d != 64 backward: st the forward's (B, H, N) float4 statistics;
-// dpol_part (B, H, N) or null; dq_acc (B*N, C) fp32 past 128 tokens
+// dpol_part (B, H, N) or null; dq_acc (hd_bwd_splits, B*N, C) fp32 past 128
+// tokens
 static cudaError_t launch_attention_hd_bwd(const bf16* qkv, long long q_bstride, int q_ld, int d,
                                            const bf16* o, const bf16* dout, float4* st,
                                            const float* pol, const float* gcls, bf16* dqkv,
@@ -1634,20 +1677,20 @@ static cudaError_t launch_attention_hd_bwd(const bf16* qkv, long long q_bstride,
 // dpol_part: dpol_part_floats(...) floats, or null (no dPolicy); kv_part:
 // kv_part_floats(...) floats (null where that is 0). A split sample-head's
 // dK and dV are added by reduce_kv_kernel right after.
-// At head width d != 64 the backward is attention_hd_bwd_kernel's
-// (launch_attention_hd_bwd: lse the forward's float4 statistics; kv_part
-// dQ's fp32 sum over the passes).
+// At head width d != 64, and at d = 64 past ATT_SHORT_N tokens (att_on_hd),
+// the backward is attention_hd_bwd_kernel's (launch_attention_hd_bwd: lse
+// the forward's float4 statistics; kv_part dQ's fp32 sum over the passes),
+// up to hd_max_tokens.
 static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, int q_ld,
                                         const bf16* o, const bf16* dout, float* lse,
                                         const float* pol, const float* gcls, bf16* dqkv,
                                         float* dpol_part, float* kv_part, int B, int N, int H,
                                         int d, float scale, float eps, cudaStream_t stream) {
   const bool policy = pol != nullptr;
-  if (B <= 0 || N <= 0 || N > AB_MAX_N || q_ld < 3 * H * d || q_ld % 8 || q_bstride % 8 ||
-      (kv_part == nullptr) != (kv_part_floats(B, N, H, d, policy) == 0))
+  if (B <= 0 || !att_takes(N, d, policy, true) || q_ld < 3 * H * d || q_ld % 8 ||
+      q_bstride % 8 || (kv_part == nullptr) != (kv_part_floats(B, N, H, d, policy) == 0))
     return cudaErrorInvalidValue;
-  if (d != AB_HD) {
-    if (!hd_width_ok(d)) return cudaErrorInvalidValue;
+  if (att_on_hd(N, d)) {
     return launch_attention_hd_bwd(qkv, q_bstride, q_ld, d, o, dout, reinterpret_cast<float4*>(lse),
                                    pol, gcls, dqkv, dpol_part, kv_part, B, N, H, scale, eps,
                                    stream);
@@ -1716,7 +1759,8 @@ static size_t carve_attn(char* base, int B, int N, int C, int H, bool policy, At
   s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
   const int d = C / H;
-  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy || d != AB_HD ? 4 : 1)));
+  const size_t lse_floats = (size_t)B * H * N * (policy || att_on_hd(N, d) ? 4 : 1);
+  s->lse = reinterpret_cast<float*>(take(lse_floats * e4));
   s->dpol_part = reinterpret_cast<float*>(take(dpol_part_floats(B, N, H, d, policy) * e4));
   s->kv_part = reinterpret_cast<float*>(take(kv_part_floats(B, N, H, d, policy) * e4));
   if (kv_part_floats(B, N, H, d, policy) == 0) s->kv_part = nullptr;
@@ -1730,8 +1774,8 @@ static size_t carve_attn(char* base, int B, int N, int C, int H, bool policy, At
   return off;
 }
 
-static bool attn_shapes_ok(int B, int N, int C, int H) {
-  return B > 0 && N > 0 && N <= AB_MAX_N && head_width_ok(C, H) && ln_bwd_takes(C) &&
+static bool attn_shapes_ok(int B, int N, int C, int H, bool policy) {
+  return B > 0 && head_width_ok(C, H) && att_takes(N, C / H, policy, true) && ln_bwd_takes(C) &&
          (long long)B * N <= (1LL << 31) - 1;
 }
 
@@ -1768,7 +1812,8 @@ static size_t carve(char* base, int B, int N, int C, int H, int hidden, bool pol
   s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
   const int d = C / H;
-  s->lse = reinterpret_cast<float*>(take((size_t)B * H * N * e4 * (policy || d != AB_HD ? 4 : 1)));
+  const size_t lse_floats = (size_t)B * H * N * (policy || att_on_hd(N, d) ? 4 : 1);
+  s->lse = reinterpret_cast<float*>(take(lse_floats * e4));
   s->dpol_part = reinterpret_cast<float*>(take(dpol_part_floats(B, N, H, d, policy) * e4));
   s->kv_part = reinterpret_cast<float*>(take(kv_part_floats(B, N, H, d, policy) * e4));
   if (kv_part_floats(B, N, H, d, policy) == 0) s->kv_part = nullptr;
@@ -1865,8 +1910,8 @@ static bool mlp_shapes_ok(int M, int C, int hidden) {
   return M > 0 && ln_bwd_takes(C) && hidden > 0 && hidden % 8 == 0;
 }
 
-static bool shapes_ok(int B, int N, int C, int H, int hidden) {
-  return B > 0 && N > 0 && N <= AB_MAX_N && head_width_ok(C, H) && ln_bwd_takes(C) &&
+static bool shapes_ok(int B, int N, int C, int H, int hidden, bool policy) {
+  return B > 0 && head_width_ok(C, H) && att_takes(N, C / H, policy, true) && ln_bwd_takes(C) &&
          hidden > 0 && hidden % 8 == 0 && (long long)B * N <= (1LL << 31) - 1;
 }
 
@@ -1878,7 +1923,7 @@ using d2s::bf16;
 // policy mode, else 0); 0 for shapes it does not take.
 extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H, int hidden,
                                                       int policy) {
-  if (!d2s::shapes_ok(B, N, C, H, hidden)) return 0;
+  if (!d2s::shapes_ok(B, N, C, H, hidden, policy != 0)) return 0;
   d2s::Scratch s;
   return (long long)d2s::carve(nullptr, B, N, C, H, hidden, policy != 0, &s);
 }
@@ -1893,7 +1938,8 @@ extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H
 // (no scale); they get no gradient. scratch:
 // d2s_block_backward_scratch_bytes(...) bytes. Requires C == d * H <= 768 with
 // an even head width d up to 128,
-// hidden % 8 == 0, N <= 800, 16-byte aligned pointers.
+// hidden % 8 == 0, N up to hd_max_tokens (attention_hd.cuh), 16-byte
+// aligned pointers.
 extern "C" int d2s_block_backward(
     const void* x, const void* g, void* dx, const void* ln1_w, const void* ln1_b,
     const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
@@ -1904,7 +1950,7 @@ extern "C" int d2s_block_backward(
     int B, int N, int C, int H, int hidden, float scale, float ln_eps, float eps, void* stream) {
   using namespace d2s;
   const bool use_policy = policy != nullptr;
-  if (!shapes_ok(B, N, C, H, hidden) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
+  if (!shapes_ok(B, N, C, H, hidden, use_policy) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
       (d_policy != nullptr && !use_policy))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1987,10 +2033,11 @@ extern "C" int d2s_block_backward(
 // is recomputed from qkv first (as the TPU kernel recomputes P): o (B*N, C)
 // bf16 and stats (B, H, N) fp32 (policy mode float4) are its scratch,
 // dpol_part dPolicy's partials (d2s_attention_bwd_part_floats(..., 1)
-// floats, fp32; null without d_policy) and kv_part the partial dK and dV of
-// a split sample-head (d2s_attention_bwd_part_floats(..., 0) floats; null
-// where that is 0). stats_buf is (B, H, N, 4) fp32 at a head width other
-// than 64. Requires C == d * H (d even, at most 128), N <= 800, q_ld and
+// floats, fp32; null without d_policy) and kv_part the core backward's
+// other partials (d2s_attention_bwd_part_floats(..., 0) floats; null where
+// that is 0). stats_buf is (B, H, N, 4) fp32 at a head width other
+// than 64, and at 64 past ATT_SHORT_N tokens. Requires C == d * H (d even,
+// at most 128), N up to hd_max_tokens, q_ld and
 // q_bstride multiples of 8, 16-byte aligned pointers.
 extern "C" int d2s_attention_packed_backward(const void* qkv, long long q_bstride, int q_ld,
                                              const void* g, const void* gcls,
@@ -2021,15 +2068,25 @@ extern "C" int d2s_attention_packed_backward(const void* qkv, long long q_bstrid
 }
 
 // The fp32 floats of d2s_attention_packed_backward's partials at these
-// shapes (C = H d): dPolicy's (which = 1; policy: 1 in policy mode) or a
-// split sample-head's dK and dV (which = 0; 0 where one CTA holds a
-// sample-head, and at every head width but 64); -1 for shapes the kernels
-// do not take.
+// shapes (C = H d): dPolicy's (which = 1; policy: 1 in policy mode) or
+// the core backward's others (which = 0, kv_part_floats: a split
+// sample-head's dK and dV on attention_bwd_kernel, dQ's sums on the
+// attention_hd path; 0 where there are none); -1 for shapes the kernels do
+// not take.
 extern "C" long long d2s_attention_bwd_part_floats(int which, int B, int N, int H, int C,
                                                    int policy) {
-  if (B <= 0 || N <= 0 || N > d2s::AB_MAX_N || !d2s::head_width_ok(C, H)) return -1;
+  if (B <= 0 || !d2s::head_width_ok(C, H) || !d2s::att_takes(N, C / H, policy != 0, true))
+    return -1;
   return which ? d2s::dpol_part_floats(B, N, H, C / H, policy != 0)
                : d2s::kv_part_floats(B, N, H, C / H, policy != 0);
+}
+
+// The longest sequence the attention cores take at head width d, in policy
+// mode (policy 1) or not, forward alone (backward 0) or both ways
+// (backward 1): attention_hd.cuh's hd_max_tokens, 0 for a width they do not
+// take. ops/block.py::attention_max_tokens computes the same without a card.
+extern "C" int d2s_attention_max_tokens(int d, int policy, int backward) {
+  return d2s::hd_max_tokens(d, policy != 0, backward != 0);
 }
 
 // The launches of attention_bwd_kernel (which = 0) and of those on its
@@ -2047,7 +2104,7 @@ extern "C" long long d2s_attention_bwd_launches(int which, long long value) {
 // (policy: 1 in policy mode, else 0); 0 for shapes it does not take.
 extern "C" long long d2s_attention_block_backward_scratch_bytes(int B, int N, int C, int H,
                                                                 int policy) {
-  if (!d2s::attn_shapes_ok(B, N, C, H)) return 0;
+  if (!d2s::attn_shapes_ok(B, N, C, H, policy != 0)) return 0;
   d2s::AttnScratch s;
   return (long long)d2s::carve_attn(nullptr, B, N, C, H, policy != 0, &s);
 }
@@ -2074,7 +2131,8 @@ extern "C" long long d2s_attention_block_backward_scratch_bytes(int B, int N, in
 // needed); the six gradients fp32 in the weights' shapes (d_bqkv null when
 // bqkv is). policy: (B, N) fp32 keep policy or null; d_policy: its (B, N)
 // fp32 gradient or null. scratch: d2s_attention_block_backward_scratch_bytes
-// bytes. Requires C == d * H <= 768 (d even, at most 128), N <= 800,
+// bytes. Requires C == d * H <= 768 (d even, at most 128), N up to
+// hd_max_tokens,
 // 16-byte aligned pointers.
 extern "C" int d2s_attention_block_backward(
     const void* x, const void* g, void* dx, const void* ln_w, const void* ln_b,
@@ -2084,7 +2142,7 @@ extern "C" int d2s_attention_block_backward(
     float eps, void* stream) {
   using namespace d2s;
   const bool use_policy = policy != nullptr;
-  if (!attn_shapes_ok(B, N, C, H) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
+  if (!attn_shapes_ok(B, N, C, H, use_policy) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
       (d_policy != nullptr && !use_policy))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

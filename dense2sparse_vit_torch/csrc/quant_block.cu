@@ -197,7 +197,7 @@ using d2s::bf16;
 // output channel; LayerNorm parameters and biases fp32; bqkv may be null.
 // Requires C == d * H (d even, at most 128: block.cu's cores), C % 16 == 0,
 // hidden % 16 == 0, C and hidden <= 4096,
-// N <= 800, 16-byte aligned pointers.
+// N up to hd_max_tokens (attention_hd.cuh), 16-byte aligned pointers.
 extern "C" int d2s_block_int8_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* act_buf,
     void* aq1, void* aq2, void* aq3, void* aq4, void* rs1, void* rs2, void* rs3, void* rs4,

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "d2s_attention_packed_forward": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "d2s_attention_packed_backward": [_P, _L, _I] + [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
     "d2s_attention_bwd_part_floats": [_I] * 6,
+    "d2s_attention_max_tokens": [_I] * 3,
     "d2s_mlp_residual_forward": [_P] * 10 + [_I] * 3 + [_F, _P],
     "d2s_mlp_residual_backward": [_P] * 15 + [_I] * 3 + [_F, _P],
     "d2s_mlp_residual_backward_scratch_bytes": [_I] * 3,

@@ -23,7 +23,8 @@ between the two. For CPU tensors they run `attention_reference` and autograd
 through it, the plain versions. The kernels take every even head width up
 to 128 (`ops.block.head_width`: 64 on the wgmma cores, the others on
 csrc/attention_hd.cuh's path, whose launches count in `ATTENTION_HD` and
-`ATTENTION_HD_BWD`) and N <= 800 both ways.
+`ATTENTION_HD_BWD`; at width 64 also past `ops.block.SHORT_TOKENS` = 800
+tokens) and every N up to `ops.block.attention_max_tokens` both ways.
 
 The attention half-block, x + proj(MHA(qkv(LN1 x))), the port of
 `fused_attention_block` and its backward kernels in the same JAX module:
@@ -58,12 +59,13 @@ import torch
 from dense2sparse_vit_torch.ops import _cuda
 from dense2sparse_vit_torch.ops.block import (
     HEAD_DIM,
-    MAX_TOKENS,
     _policy_arg,
     attention_reference,
+    check_tokens,
     head_width,
     layer_norm,
     linear,
+    lse_is_float4,
 )
 from dense2sparse_vit_torch.ops.norm import LaunchCount
 
@@ -92,20 +94,20 @@ def attention_backward_reference(qkv, g, num_heads, scale, *, policy=None, gcls=
     return grads[0], (grads[1] if len(grads) > 1 else None)
 
 
-def _qkv_arg(qkv, num_heads, max_tokens, what):
-    """Checks for the kernels; returns (B, N, C, sample stride, row stride)
-    of qkv, which may be a strided view with contiguous channels."""
+def _qkv_arg(qkv, num_heads, what, *, policy=False, backward=False):
+    """Checks for the kernels (`check_tokens` in the mode and direction
+    given); returns (B, N, C, sample stride, row stride) of qkv, which may
+    be a strided view with contiguous channels."""
     B, N, C3 = qkv.shape
     C = C3 // 3
     if C3 % 3:
         raise ValueError(f"{what}: qkv's last dimension {C3} is no multiple of 3")
-    head_width(C, num_heads, what)
+    d = head_width(C, num_heads, what)
     if qkv.device.type != "cuda":
         raise ValueError(f"{what}: qkv is on {qkv.device}: need a CUDA or CPU tensor")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"{what}: qkv has dtype {qkv.dtype}, the kernel takes bfloat16")
-    if N > max_tokens:
-        raise ValueError(f"{what}: the kernel takes at most {max_tokens} tokens, got {N}")
+    check_tokens(N, d, what, policy=policy, backward=backward)
     sb, sn, sc = qkv.stride()
     if sc != 1 or sn < C3 or sn % 8 or sb % 8 or qkv.data_ptr() % 16:
         raise ValueError(f"{what}: qkv needs contiguous channels, row and sample strides "
@@ -134,7 +136,7 @@ def fused_attention_packed(qkv: torch.Tensor, num_heads: int, policy: torch.Tens
         kw = {} if policy is None else {"policy": policy, "eps": eps}
         return attention_reference(qkv, num_heads, scale, return_cls=return_cls, **kw)
     what = "fused_attention_packed"
-    B, N, C, sb, sn = _qkv_arg(qkv, num_heads, MAX_TOKENS, what)
+    B, N, C, sb, sn = _qkv_arg(qkv, num_heads, what, policy=policy is not None)
     dev = qkv.device
     pol = _policy_arg(policy, qkv, what)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
@@ -172,7 +174,7 @@ def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_head
                                                   gcls=gcls, eps=eps, policy_grad=policy_grad)
         return dqkv if policy is None else (dqkv, dpol)
     what = "fused_attention_backward_packed"
-    B, N, C, sb, sn = _qkv_arg(qkv, num_heads, MAX_TOKENS, what)
+    B, N, C, sb, sn = _qkv_arg(qkv, num_heads, what, policy=policy is not None, backward=True)
     dev, f32 = qkv.device, torch.float32
     pol = _policy_arg(policy, qkv, what)
     g_ptr = _cuda.ptr(g, "g", dev, torch.bfloat16, (B, N, C))
@@ -180,13 +182,14 @@ def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_head
     want_dpol = pol is not None and policy_grad
     dqkv = torch.empty((B, N, 3 * C), dtype=qkv.dtype, device=dev)
     o = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
-    # the forward's row statistics: fp32 (plain mode at width 64), else float4
-    four = pol is not None or C != HEAD_DIM * num_heads
+    # the forward's row statistics: fp32 (plain mode on the width-64 core), else float4
+    four = lse_is_float4(N, C // num_heads, pol is not None)
     stats = torch.empty((B, num_heads, N, 4 if four else 1), dtype=f32, device=dev)
     dpol = torch.empty((B, N), dtype=f32, device=dev) if want_dpol else None
     lib = _cuda.library()
     # dPolicy's partials, and the dK and dV partials of a sample-head split
-    # over CTAs (N past 384, policy mode 352)
+    # over CTAs (N past 384, policy mode 352) or dQ's sum over the passes of
+    # the attention_hd path
     part = _part(lib, 1, B, N, C, num_heads, pol is not None, dev) if want_dpol else None
     kv_part = _part(lib, 0, B, N, C, num_heads, pol is not None, dev)
     err = lib.d2s_attention_packed_backward(
@@ -340,16 +343,16 @@ def attention_block_backward_reference(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_
     return grads[0], dw, dpol
 
 
-def _half_block_ptrs(x, weights, num_heads, max_tokens, what):
-    """Checks for the half-block kernels; returns (B, N, C, x's pointer, the
-    pointers of `weights` (a dict over ATTN_BLOCK_KEYS) in that order, their
-    dtypes and shapes)."""
+def _half_block_ptrs(x, weights, num_heads, what, *, policy=False, backward=False):
+    """Checks for the half-block kernels (`check_tokens` in the mode and
+    direction given); returns (B, N, C, x's pointer, the pointers of
+    `weights` (a dict over ATTN_BLOCK_KEYS) in that order, their dtypes and
+    shapes)."""
     B, N, C = x.shape
-    head_width(C, num_heads, what)
+    d = head_width(C, num_heads, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
-    if N > max_tokens:
-        raise ValueError(f"{what}: the kernel takes at most {max_tokens} tokens, got {N}")
+    check_tokens(N, d, what, policy=policy, backward=backward)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     shapes = {"ln_w": (f32, (C,)), "ln_b": (f32, (C,)), "wqkv": (bf16, (3 * C, C)),
               "bqkv": (f32, (3 * C,)), "wproj": (bf16, (C, C)), "bproj": (f32, (C,))}
@@ -387,7 +390,8 @@ def fused_attention_block(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tenso
     what = "fused_attention_block"
     _refuse_autograd((x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, policy), what)
     weights = dict(zip(ATTN_BLOCK_KEYS, (ln_w, ln_b, wqkv, bqkv, wproj, bproj)))
-    B, N, C, x_ptr, ptrs, _ = _half_block_ptrs(x, weights, num_heads, MAX_TOKENS, what)
+    B, N, C, x_ptr, ptrs, _ = _half_block_ptrs(x, weights, num_heads, what,
+                                               policy=policy is not None)
     dev = x.device
     pol = _policy_arg(policy, x, what)
     out = torch.empty_like(x)
@@ -418,7 +422,8 @@ def _attention_block_backward(x, g, weights, num_heads, policy, scale, eps, ln_e
         return attention_block_backward_reference(x, g, *w5, num_heads, policy=policy,
                                                   scale=scale, eps=eps, ln_eps=ln_eps,
                                                   policy_grad=policy_grad)
-    B, N, C, x_ptr, ptrs, shapes = _half_block_ptrs(x, weights, num_heads, MAX_TOKENS, what)
+    B, N, C, x_ptr, ptrs, shapes = _half_block_ptrs(x, weights, num_heads, what,
+                                                    policy=policy is not None, backward=True)
     dev, f32 = x.device, torch.float32
     g_ptr = _cuda.ptr(g, "g", dev, torch.bfloat16, (B, N, C))
     pol = _policy_arg(policy, x, what)
@@ -585,7 +590,7 @@ def fused_attention_variant(variant: int, x: torch.Tensor, ln_w: torch.Tensor,
                          f"{x.shape[2]}/{num_heads}")
     _refuse_autograd((x, ln_w, ln_b, wqkv, bqkv, wproj, bproj), what)
     weights = dict(zip(ATTN_BLOCK_KEYS, (ln_w, ln_b, wqkv, bqkv, wproj, bproj)))
-    B, N, C, x_ptr, ptrs, _ = _half_block_ptrs(x, weights, num_heads, MAX_TOKENS, what)
+    B, N, C, x_ptr, ptrs, _ = _half_block_ptrs(x, weights, num_heads, what)
     if not attention_variant_supported(variant, N, num_heads):
         raise ValueError(f"{what}: v{variant} does not take N={N} with {num_heads} heads")
     dev = x.device

@@ -66,9 +66,62 @@ BLOCK_WEIGHT_KEYS = (
 # csrc/attention_hd.cuh, chosen by the C code from d.
 HEAD_DIM = 64
 MAX_HEAD_DIM = 128
-# the forward keeps a sample-head's K and V in shared memory; the backward
-# splits a sample-head longer than 384 tokens (policy mode 352) over 2-3 CTAs
-MAX_TOKENS = 800
+# Sequence length. The d = 64 forward core keeps a sample-head's K and V in
+# shared memory, SHORT_TOKENS keys at most (its backward splits a
+# sample-head longer than 384 tokens, policy mode 352, over 2-3 CTAs).
+# Longer d = 64 heads, like every other width, take the pair of
+# csrc/attention_hd.cuh both ways, which streams keys and queries through
+# rings: what grows with N in its shared memory is the rows it keeps of every
+# key (forward: pol_j and the CLS row's raw scores, 4 B each) and of every
+# query (backward: the row statistics, 16 B). `attention_max_tokens` is its
+# ceiling, attention_hd.cuh's hd_max_tokens repeated (the library's
+# d2s_attention_max_tokens): the longest N whose layout fits SMEM_BYTES with
+# a ring of two, in 64-token blocks.
+SHORT_TOKENS = 800
+SMEM_BYTES = 232448  # the most dynamic shared memory a CTA takes on an H100
+_BLK = 64  # the rows of a query or key block on that path
+
+
+def attention_max_tokens(d: int, *, policy: bool = False, backward: bool = False) -> int:
+    """The longest sequence the attention cores take at head width d, in
+    policy mode or not, forward alone or both ways (the backward with the
+    forward it recomputes); 0 for a width they do not take. Needs no card."""
+    if not 0 < d <= MAX_HEAD_DIM or d % 2:
+        return 0
+    dp = (d + 15) // 16 * 16
+    tile = _BLK * dp * 2
+    # the forward: two Q tiles, a ring of two K and V pairs, colsum(V)'s parts
+    fwd_fixed = 6 * tile + (128 // (dp // 2) * dp * 4 if policy else 0)
+    fwd = (SMEM_BYTES - fwd_fixed) // (8 if policy else 4) // _BLK * _BLK
+    if not backward:
+        return fwd
+    # the backward: two key blocks' K and V, a ring of two Q and dO pairs, the
+    # dS^T stages, dQ's fp32 sum, colsum(V) with its parts, the fold's sums
+    seg = 32 if dp >= 64 else 16 if dp >= 32 else 8
+    bwd_fixed = (8 * tile + 4 * _BLK * _BLK * 2 + _BLK * dp * 4
+                 + (1 + 8 * 32 // seg) * dp * 4 + 66 * 4)
+    return min(fwd, (SMEM_BYTES - bwd_fixed) // 16 // _BLK * _BLK)
+
+
+def check_tokens(N: int, d: int, what: str, *, policy: bool = False,
+                 backward: bool = False) -> None:
+    """ValueError naming the limit and its cause where the kernels do not
+    take N tokens of width d (`attention_max_tokens`)."""
+    limit = attention_max_tokens(d, policy=policy, backward=backward)
+    if not 0 < N <= limit:
+        raise ValueError(
+            f"{what}: {N} tokens at head width {d}: the kernels take 1 to {limit} "
+            f"({'policy' if policy else 'plain'} mode, "
+            f"{'both ways' if backward else 'forward'}), where the rows the attention core "
+            f"keeps of every {'query' if backward else 'key'} outgrow a CTA's "
+            f"{SMEM_BYTES} bytes of shared memory")
+
+
+def lse_is_float4(N: int, d: int, policy: bool) -> bool:
+    """Whether the forward core's row statistics are (B, H, N) float4 (policy
+    mode, and the csrc/attention_hd.cuh path: d != 64 or N > SHORT_TOKENS)
+    rather than one fp32 log-sum-exp a row."""
+    return policy or d != HEAD_DIM or N > SHORT_TOKENS
 
 
 def layer_norm(x, weight, bias, eps):
@@ -187,15 +240,15 @@ def head_width(C: int, num_heads: int, what: str) -> int:
     return d
 
 
-def _kernel_args(x, w, num_heads, max_tokens, what):
-    """Checks shared by the kernel wrappers; returns (hidden, the weight
-    pointers in BLOCK_WEIGHT_KEYS order, their dtypes and shapes)."""
+def _kernel_args(x, w, num_heads, what, *, policy=False, backward=False):
+    """Checks shared by the kernel wrappers (`check_tokens` in the mode and
+    direction given); returns (hidden, the weight pointers in
+    BLOCK_WEIGHT_KEYS order, their dtypes and shapes)."""
     B, N, C = x.shape
-    head_width(C, num_heads, what)
+    d = head_width(C, num_heads, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
-    if N > max_tokens:
-        raise ValueError(f"{what}: the kernel takes at most {max_tokens} tokens, got {N}")
+    check_tokens(N, d, what, policy=policy, backward=backward)
     hidden = w["w1"].shape[0]
     if hidden % 8:
         raise ValueError(f"{what}: hidden={hidden}: need a multiple of 8")
@@ -268,7 +321,7 @@ def _launch_forward(x, w, num_heads, scale, ln_eps, *, policy, eps, cls, what,
     """One d2s_block_forward call: (out, stages, cls rows or None)."""
     _refuse_autograd(x, w, policy, what)
     B, N, C = x.shape
-    hidden, ptrs, _ = _kernel_args(x, w, num_heads, MAX_TOKENS, what)
+    hidden, ptrs, _ = _kernel_args(x, w, num_heads, what, policy=policy is not None)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     x_ptr = _cuda.ptr(x, "x", dev, bf16, (B, N, C))
     pol = _policy_arg(policy, x, what)
@@ -468,7 +521,8 @@ def fused_transformer_block_backward(
                                                     branch_scales=branch_scales)
     what = "fused_transformer_block_backward"
     B, N, _ = x.shape
-    hidden, ptrs, shapes = _kernel_args(x, w, num_heads, MAX_TOKENS, what)
+    hidden, ptrs, shapes = _kernel_args(x, w, num_heads, what, policy=policy is not None,
+                                        backward=True)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     x_ptr = _cuda.ptr(x, "x", dev, bf16, (B, N, C))
     g_ptr = _cuda.ptr(g, "g", dev, bf16, (B, N, C))

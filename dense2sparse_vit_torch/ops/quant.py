@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from dense2sparse_vit_torch.ops import _cuda
-from dense2sparse_vit_torch.ops.block import MAX_TOKENS, attention_reference, head_width
+from dense2sparse_vit_torch.ops.block import attention_reference, check_tokens, head_width
 
 QMAX = 127.0
 SCALE_FLOOR = 1e-8
@@ -251,13 +251,12 @@ def _launch_int8(x, qw, num_heads, scale, ln_eps, stages=False):
     intermediates "qkv", "attn", "mid" (fp32) and "act"."""
     what = "fused_transformer_block_int8"
     B, N, C = x.shape
-    head_width(C, num_heads, what)
+    d = head_width(C, num_heads, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
     if C % 16:
         raise ValueError(f"{what}: the kernel takes C % 16 == 0, got C={C}")
-    if N > MAX_TOKENS:
-        raise ValueError(f"{what}: the kernel takes at most {MAX_TOKENS} tokens, got {N}")
+    check_tokens(N, d, what)
     hidden = qw["w1_q"].shape[0]
     if hidden % 16 or max(C, hidden) > ROW_MAX:
         raise ValueError(f"{what}: C={C}, hidden={hidden}: need hidden % 16 == 0 and rows "

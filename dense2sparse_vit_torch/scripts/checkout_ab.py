@@ -33,7 +33,14 @@ same values.
   28's shapes: the block forward's four at M = 50,432, the backward's four
   dX products and four weight gradients (with the bias sums) at M = 25,216;
 - block/<stage>, block_bwd/<tensor>: the bf16 block forward's stages and
-  its backward's dx and gradients at B=64, N=197, C=384.
+  its backward's dx and gradients at B=64, N=197, C=384, and (block<d>/,
+  block<d>_bwd/) at head widths d = 12 (32 heads, C=384) and 96 (8 heads,
+  C=768) at B=16, N=197;
+- core/<d>/<N>/<mode>/<tensor>: the attention cores through the packed
+  entries at B=8, head widths 64 (6 heads), 12 (32) and 96 (8), N = 197,
+  577 and 785 (at width 64 also the long path of its backward): the
+  output and CLS rows in plain and policy mode (eps 0.1), dqkv with the
+  CLS rows' cotangent folded in, and in policy mode dPolicy.
 
 `--compare` prints one JSON line per case of the first file (equal, or
 missing from the second) and a summary line, and exits 1 if any differs.
@@ -208,14 +215,45 @@ def block_cases(device, B, N, C, H) -> dict:
     return out
 
 
+def core_cases(device, B, cases) -> dict:
+    """The packed attention both ways at each (N, C, H) of `cases`, plain
+    and policy mode, with the CLS rows and their cotangent."""
+    out = {}
+    for N, C, H in cases:
+        gen = torch.Generator().manual_seed(N + C + H)
+        qkv, g = randn(gen, (B, N, 3 * C), device), randn(gen, (B, N, C), device)
+        gcls = randn(gen, (B, H, N), device, torch.float32, 0.01)
+        pol = (torch.rand((B, N), generator=gen) < 0.6).float()
+        pol[:, 0] = 1.0
+        pol = pol.to(device)
+        tag = f"core/{C // H}/{N}"
+        with torch.no_grad():
+            for mode, kw in (("plain", {}), ("policy", {"policy": pol, "eps": 0.1})):
+                o, cls = ops.fused_attention_packed(qkv, H, return_cls=True, **kw)
+                got = ops.fused_attention_backward_packed(qkv, g, H, gcls=gcls, **kw)
+                dqkv, dpol = got if kw else (got, None)
+                out.update({f"{tag}/{mode}/out": digest(o), f"{tag}/{mode}/cls": digest(cls),
+                            f"{tag}/{mode}/dqkv": digest(dqkv)})
+                if dpol is not None:
+                    out[f"{tag}/{mode}/dpolicy"] = digest(dpol)
+    return out
+
+
 def measure(device) -> dict:
     if device.type == "cpu":  # the plain versions, at a smoke size
         shapes, rows, blk = [(2, 13, 128, 2)], 2048, (2, 13, 128, 2)
+        wide, cores, core_b = [(2, 13, 96, 8)], [(13, 128, 2), (13, 96, 8)], 2
     else:
         shapes = [(256, n, 384, 6) for n in (197, 138, 97, 68)] + [(16, 197, 768, 12)]
         rows, blk = 1, (64, 197, 384, 6)
+        wide = [(16, 197, 384, 32), (16, 197, 768, 8)]
+        cores = [(n, C, H) for n in (197, 577, 785) for C, H in ((384, 6), (384, 32), (768, 8))]
+        core_b = 8
     digests = {**int8_cases(device, shapes), **gemm_cases(device, rows),
-               **block_cases(device, *blk)}
+               **block_cases(device, *blk), **core_cases(device, core_b, cores)}
+    for B, N, C, H in wide:
+        digests.update({k.replace("block", f"block{C // H}", 1): v
+                        for k, v in block_cases(device, B, N, C, H).items()})
     if device.type == "cuda":
         torch.cuda.synchronize()
     card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

@@ -188,15 +188,18 @@ def _block_core(x, w, heads, scale, policy=None, eps=1e-6):
     """One d2s_block_forward call with every optional output: (the qkv its
     attention core read, the core's output, the (B, H, N) CLS rows, the
     rows' statistics: plain mode (B, H, N) log-sum-exp, policy mode
-    (B, H, N, 4) max, denominator, ties, 0)."""
+    (B, H, N, 4) max, denominator, ties, 0). Past 800 tokens the core is
+    attention_hd_kernel, whose plain-mode statistics are (lse, 0, 0, 0)
+    float4: their log-sum-exp is returned."""
     B, N, C = x.shape
-    hidden, ptrs, _ = block_ops._kernel_args(x, w, heads, block_ops.MAX_TOKENS, "core")
+    hidden, ptrs, _ = block_ops._kernel_args(x, w, heads, "core", policy=policy is not None)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     qkv = torch.empty((B, N, 3 * C), dtype=bf16, device=dev)
     out, attn, mid = (torch.empty_like(x) for _ in range(3))
     hid = torch.empty((B, N, hidden), dtype=bf16, device=dev)
     stats = torch.empty((B * N, 2), dtype=f32, device=dev)
-    lse = torch.empty((B, heads, N) + (() if policy is None else (4,)), dtype=f32, device=dev)
+    four = block_ops.lse_is_float4(N, C // heads, policy is not None)
+    lse = torch.empty((B, heads, N) + ((4,) if four else ()), dtype=f32, device=dev)
     cls = torch.empty((B, heads, N), dtype=bf16, device=dev)
     err = _cuda.library().d2s_block_forward(
         x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(), mid.data_ptr(),
@@ -204,7 +207,7 @@ def _block_core(x, w, heads, scale, policy=None, eps=1e-6):
         0 if policy is None else policy.data_ptr(), 0, 0, B, N, C, heads, hidden,
         float(scale), 1e-6, float(eps), _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_block_forward")
-    return qkv, attn, cls, lse
+    return qkv, attn, cls, lse[..., 0] if four and policy is None else lse
 
 
 def _scores(qkv, heads, scale):
@@ -216,14 +219,15 @@ def _scores(qkv, heads, scale):
 
 @pytest.mark.parametrize("b", [8, 128])
 @pytest.mark.parametrize("eps", [None, 1e-6, 0.1])
-@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 65, 68, 97, 138, 197, 577, 800])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 65, 68, 97, 138, 197, 577, 800, 801, 1025])
 def test_attention_core_output_cls_rows_and_row_statistics(cuda, n, eps, b):
     """The block's attention core, plain (eps None) and policy mode, on the
     qkv it read: its output and CLS rows against the plain versions, its
     row statistics against the scores' in fp32 (the log-sum-exp; the max,
     the denominator, and one column at the max on rows whose two largest
     scores are apart). B=8 splits each sample-head's query tiles over
-    several CTAs, B=128 gives each one CTA."""
+    several CTAs, B=128 gives each one CTA. Past 800 tokens the core is
+    attention_hd_kernel at width 64."""
     blk = _sharpen(Block(384, 6, use_fused=True), seed=n).to(cuda).eval()
     gen = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn((b, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
@@ -432,11 +436,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     xb = x.to(torch.bfloat16)
     with pytest.raises(RuntimeError, match="not differentiable"):
         ops.fused_transformer_block(xb, blk.kernel_weights(torch.bfloat16), 6)
-    with torch.no_grad(), pytest.raises(ValueError, match="at most 800"):
-        ops.fused_transformer_block_backward(
-            torch.zeros((1, 801, 384), device=cuda, dtype=torch.bfloat16),
-            torch.zeros((1, 801, 384), device=cuda, dtype=torch.bfloat16),
-            blk.kernel_weights(torch.bfloat16), 6)
+    # past the ceiling (shared memory), before anything touches the device
+    for backward in (False, True):
+        n = block_ops.attention_max_tokens(64, backward=backward) + 1
+        xn = torch.zeros((1, n, 384), device=cuda, dtype=torch.bfloat16)
+        with torch.no_grad(), pytest.raises(ValueError, match=f"the kernels take 1 to {n - 1}"):
+            if backward:
+                ops.fused_transformer_block_backward(xn, xn, blk.kernel_weights(torch.bfloat16), 6)
+            else:
+                ops.fused_transformer_block(xn, blk.kernel_weights(torch.bfloat16), 6)
 
 
 def test_train_step_launches_every_training_kernel(cuda):
@@ -471,7 +479,7 @@ def _policy(gen, b, n, dev):
 
 
 @pytest.mark.parametrize("eps", [1e-6, 0.1])
-@pytest.mark.parametrize("n", [197, 138, 13, 1, 800])
+@pytest.mark.parametrize("n", [197, 138, 13, 1, 800, 801, 1025])
 def test_policy_block_kernel(cuda, n, eps):
     """The policy-mode forward and its CLS rows against the plain version;
     at N=13 with eps = 0.1 the smoothing is large enough to see in bf16."""
@@ -488,7 +496,8 @@ def test_policy_block_kernel(cuda, n, eps):
             x, w, 6, blk.attn.scale, 1e-6, policy=pol, eps=eps, return_cls=True)
         torch.cuda.synchronize()
     assert ops.launch_counts() == {**NO_LAUNCHES, "fused_transformer_block[policy]": 1,
-                                   "fused_transformer_block_cls": 1}
+                                   "fused_transformer_block_cls": 1,
+                                   **chip_smoke.core_launches(forwards=2, n=n)}
     assert torch.equal(got, got_c)
     _assert_close(got, want)
     _assert_close(cls, want_cls)
@@ -529,7 +538,7 @@ def test_policy_block_backward_kernel(cuda, n, eps, ties):
         assert torch.equal(dw[k], dw2[k]), k
 
 
-@pytest.mark.parametrize("n", [197, 352, 800])
+@pytest.mark.parametrize("n", [197, 352, 800, 801, 1025])
 def test_policy_block_on_planted_exact_ties(cuda, n):
     """The token most often at a row's max copied to five more positions
     (chip_smoke.planted_ties): rows whose max is that group reach it at six
@@ -538,7 +547,9 @@ def test_policy_block_on_planted_exact_ties(cuda, n):
     keys equal the max's (the backward finds them by comparing its own
     recomputed scores with the stored max, so the forward's scores must be
     its bits); and dx, the gradients and dPolicy against the plain version
-    on that input (N = 800 on the backward's long path)."""
+    on that input (N = 800 on the backward's long path; past it on the
+    attention_hd pair at width 64, whose scores are one instruction's both
+    ways)."""
     blk = _sharpen(Block(384, 6, use_fused=True), seed=n).to(cuda)
     gen = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn((4, n, 384), generator=gen, device=cuda).to(torch.bfloat16)
@@ -1467,7 +1478,8 @@ def _core_both(qkv, g, pol, gcls, eps=1e-6):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         want = attention_backward_reference(qkv, g, 6, CORE_SCALE, gcls=gcls, **kw)
-    assert counts == {**NO_LAUNCHES, "fused_attention_backward_packed": 1, **_core(1)}
+    want_counts = chip_smoke.core_launches(1, n=qkv.shape[1])
+    assert counts == {**NO_LAUNCHES, "fused_attention_backward_packed": 1, **want_counts}
     return (got if pol is not None else (got, None)), want
 
 
@@ -1489,19 +1501,20 @@ def _core_close(dqkv, want, dpol=None, want_dpol=None):
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 129, 197, 384, 385, 404, 577, 768,
-                               769, 785, 800])
+                               769, 785, 800, 801, 1025, 3601])
 @pytest.mark.parametrize("with_gcls", [False, True])
 def test_attention_bwd_kernel_against_plain(cuda, n, with_gcls):
     """Plain mode at every edge of the 16-row and 64-row tiles up to the
     kernel's largest N, the long path (N > 384: 2 and 3 CTAs a sample-head)
     included: dqkv's q, k and v apart within BWD_TOL, with and without the
-    CLS rows' cotangent."""
+    CLS rows' cotangent; past 800 tokens the attention_hd pair at width 64."""
     qkv, g, _, gcls = _core_case(cuda, n, with_gcls=with_gcls)
     (dqkv, _), (want, _) = _core_both(qkv, g, None, gcls)
     _core_close(dqkv, want)
 
 
-@pytest.mark.parametrize("n", [1, 17, 65, 129, 197, 352, 353, 404, 577, 785, 800])
+@pytest.mark.parametrize("n", [1, 17, 65, 129, 197, 352, 353, 404, 577, 785, 800, 801, 1025,
+                               3601])
 @pytest.mark.parametrize("eps", [1e-6, 0.1])
 @pytest.mark.parametrize("with_gcls", [False, True])
 def test_attention_bwd_kernel_policy_against_plain(cuda, n, eps, with_gcls):
@@ -1549,11 +1562,13 @@ def test_attention_bwd_kernel_dpolicy_on_planted_ties(cuda, eps):
     _assert_close(dpol, want_dpol, chip_smoke.DPOL_TOL)
 
 
-@pytest.mark.parametrize("n", [197, 577])
+@pytest.mark.parametrize("n", [197, 577, 1025, 3601])
 @pytest.mark.parametrize("policy", [False, True])
 def test_attention_bwd_kernel_is_bit_equal_on_two_launches(cuda, policy, n):
-    """dqkv (and dPolicy) the same bits on two launches at B=128, N=197 and
-    on the long path at N=577: every sum in a fixed order, no atomics."""
+    """dqkv (and dPolicy) the same bits on two launches at B=128, N=197, on
+    the long path at N=577 and on the attention_hd pair at N=1025 and 3601
+    (its passes split over 3 and 8 CTAs a sample-head): every sum in a fixed
+    order, no atomics."""
     qkv, g, pol, gcls = _core_case(cuda, n, policy=policy, with_gcls=True, b=128, seed=4)
     kw = {} if pol is None else {"policy": pol, "eps": 0.1}
     with torch.no_grad():
@@ -1565,15 +1580,20 @@ def test_attention_bwd_kernel_is_bit_equal_on_two_launches(cuda, policy, n):
 
 
 def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
-    """N past the forward's 800 is refused by the wrapper and by the C entry
-    itself (cudaErrorInvalidValue)."""
-    for n, policy in ((801, False), (801, True)):
+    """N past the ceiling (`ops.block.attention_max_tokens`, shared memory)
+    is refused by the wrapper, naming the limit, and by the C entry itself
+    (cudaErrorInvalidValue), whose ceiling is the same."""
+    lib = _cuda.library()
+    for policy in (False, True):
+        limit = block_ops.attention_max_tokens(64, policy=policy, backward=True)
+        assert lib.d2s_attention_max_tokens(64, int(policy), 1) == limit >= 3601
+        n = limit + 1
         qkv, g, pol, _ = _core_case(cuda, n, policy=policy)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match=f"the kernels take 1 to {limit}"):
             ops.fused_attention_backward_packed(qkv, g, 6, policy=pol)
         f32 = torch.float32
         o = torch.empty_like(g)
-        stats = torch.empty((2, 6, n, 4 if policy else 1), dtype=f32, device=cuda)
+        stats = torch.empty((2, 6, n, 4), dtype=f32, device=cuda)
         part = torch.empty((2, 6, n), dtype=f32, device=cuda)
         dpol = torch.empty((2, n), dtype=f32, device=cuda)
         dqkv = torch.empty_like(qkv)
@@ -1595,8 +1615,9 @@ HD_CASES = ((12, 32), (96, 8))
 HD_EDGES = ((32, 12), (128, 6), (2, 192))
 HD_MORE = ((16, 8), (48, 8), (80, 8), (112, 4))
 # N: one key block and its edges, the backward's one pass (N <= 128) and
-# its first with a second (129), the zoo's sequences, the longest
-HD_TOKENS = [1, 17, 63, 64, 65, 128, 129, 197, 577, 785, 800]
+# its first with a second (129), the zoo's sequences, the width-64 core's
+# longest and past it
+HD_TOKENS = [1, 17, 63, 64, 65, 128, 129, 197, 577, 785, 800, 801, 1025]
 
 
 def _hd_case(cuda, d, H, n, b=2, policy=False, with_gcls=False, seed=0):

@@ -1462,3 +1462,109 @@ def test_native_ulps_and_params_rel_diff():
     b = {"w": torch.tensor([1.0, 2.0 + 2e-5]), "b": torch.tensor([0.5])}
     want = (b["w"][1] - 2.0).item() / b["w"][1].item()
     assert chip_smoke.params_rel_diff(torch, a, b) == pytest.approx(want)
+
+
+# ---- phase 38: sequences past 800 tokens ----------------------------------------
+
+
+def test_core_launches_follow_the_core_that_takes_the_tokens():
+    """Up to SHORT_TOKENS at width 64 the width-64 cores (attention_bwd a
+    backward, the forward uncounted); past it, and at any other width, the
+    attention_hd pair (a launch a forward and a recompute, one backward)."""
+    assert chip_smoke.SHORT_TOKENS == block_ops.SHORT_TOKENS
+    assert chip_smoke.core_launches(3) == {"attention_bwd": 3}
+    assert chip_smoke.core_launches(3, forwards=5, n=800) == {"attention_bwd": 3}
+    assert chip_smoke.core_launches(3, forwards=5, n=801) == {
+        "attention_hd": 8, "attention_hd_bwd": 3}
+    assert chip_smoke.core_launches(1, forwards=2, n=197, d=96) == {
+        "attention_hd": 3, "attention_hd_bwd": 1}
+
+
+def test_the_512_tables_count_each_block_on_its_core():
+    """1024 patches kept to 716 / 501 / 351: in top-k the three blocks at
+    1025 tokens take the attention_hd pair both ways (forward, recompute,
+    backward) and the nine after the first stage attention_bwd_kernel (the
+    six past 384 on its split path); the teacher's twelve CLS-row blocks and
+    every threshold block sit at 1025. An eval step: the teacher, the pruned
+    and the unpruned forwards."""
+    from dense2sparse_vit_torch.core import PruningConfig
+
+    keep = PruningConfig(pruning_locs=(3, 6, 9), keep_ratios=(0.7, 0.49, 0.343)).keep_counts(1024)
+    tokens = [1025] * 3 + [keep[0] + 1] * 3 + [keep[1] + 1] * 3 + [keep[2] + 1] * 3
+    assert tokens[3::3] == [717, 502, 352]
+    plus = lambda *ds: {k: sum(d.get(k, 0) for d in ds)  # noqa: E731
+                        for k in ("attention_bwd", "attention_hd", "attention_hd_bwd")}
+    core = chip_smoke.core_launches
+    teacher = core(0, forwards=12, n=1025)
+    topk = plus(teacher, *(core(1, forwards=1, n=n) for n in tokens))
+    thr = plus(teacher, *(core(1, forwards=1, n=1025) for _ in tokens))
+    _, top_table, top_long = chip_smoke.MODES_512["topk"]
+    _, thr_table, thr_long = chip_smoke.MODES_512["threshold"]
+    assert {k: top_table[k] for k in topk} == topk == {
+        "attention_bwd": 9, "attention_hd": 18, "attention_hd_bwd": 3}
+    assert {k: thr_table[k] for k in thr} == thr == {
+        "attention_bwd": 0, "attention_hd": 36, "attention_hd_bwd": 12}
+    assert top_long == sum(384 < n <= chip_smoke.SHORT_TOKENS for n in tokens) == 6
+    assert thr_long == 0
+    for _, table, _ in chip_smoke.MODES_512.values():
+        assert set(table) == set(chip_smoke.KERNEL_NAMES)
+    # the teacher's, the pruned forward's past 800 tokens, the unpruned's
+    forwards = 12 + sum(n > chip_smoke.SHORT_TOKENS for n in tokens) + 12
+    assert chip_smoke.PER_EVAL_512["topk"]["attention_hd"] == forwards == 27
+    assert chip_smoke.PER_EVAL_512["threshold"]["attention_hd"] == 36
+    for table in chip_smoke.PER_EVAL_512.values():
+        assert set(table) == set(chip_smoke.KERNEL_NAMES)
+        assert table["fused_transformer_block_cls"] == 12
+
+
+def test_the_512_command_builds_the_issues_configuration(tmp_path):
+    """CLI_512_FLAGS parse into DeiT-B/16 at 512 px with fused attention,
+    top-k at 3 / 6 / 9, bf16, B=16; with --patch-score-threshold the
+    threshold mode."""
+    from dense2sparse_vit_torch import cli
+
+    cfg, _ = cli.parse_config([*chip_smoke.CLI_512_FLAGS, "--imgnet-val-dir", str(tmp_path)])
+    m = cfg.model
+    assert (m.img_size, m.patch_size, m.embed_dim, m.depth, m.num_heads) == (512, 16, 768, 12, 12)
+    assert m.use_fused_attention and m.dtype == "bfloat16" and cfg.train.batch_size == 16
+    assert cfg.pruning.pruning_locs == (3, 6, 9) and cfg.pruning.selection == "topk"
+    cfg, _ = cli.parse_config([*chip_smoke.CLI_512_FLAGS, "--patch-score-threshold", "0.5",
+                               "--imgnet-val-dir", str(tmp_path)])
+    assert cfg.pruning.patch_score_threshold == 0.5
+
+
+def test_family_launches_count_the_pair_past_800_tokens():
+    """A family model's forward takes the attention_hd core once a block
+    at a width other than 64 or past SHORT_TOKENS: ViT-L/16 at 512 px and
+    DINO-S/8 at 480 px do, at 384 px and 224 px they do not."""
+    from dense2sparse_vit_torch.models import create_model
+
+    cases = (("vit_large_patch16_384", {"img_size": 512}, 1025, 1),
+             ("dino_small", {"patch_size": 8, "img_size": 480}, 3601, 1),
+             ("dino_small", {"patch_size": 8}, 785, 0),
+             ("vit_small_patch16_224", {"img_size": 512}, 1025, 1))
+    for name, kwargs, n, hd in cases:
+        model = create_model(name, device="cpu", depth=1, **kwargs)
+        assert chip_smoke.family_tokens(model) == n
+        got = chip_smoke.family_launches(model, name)
+        assert got["fused_transformer_block"] == 1 and got["attention_hd"] == min(hd, 1)
+
+
+def test_long_calls_add_to_the_d64_rows_and_time_every_launch():
+    tally = chip_smoke.Tally()
+    calls = chip_smoke.LongCalls(tally)
+    calls.add({"attention_hd": 18, "attention_hd_bwd": 3}, 64, 1025)
+    calls.add({"attention_hd": 12, "attention_hd_bwd": 0}, 64, 3601)
+    calls.add({"attention_hd": 24, "attention_hd_bwd": 12}, 96, 1025)
+    rows = tally.rows
+    assert rows["attention_hd[d64]"]["launches"] == 30
+    assert rows["attention_hd_bwd[d64]"]["launches"] == 3
+    bound = {"ops_ms": 0.2, "bytes_ms": 0.1}
+    row = lambda ms: {"ms": ms, "plain_ms": 10 * ms, "bound": bound, "library_ms": ms / 2}  # noqa
+    calls.times({(64, 1025): (row(1.0), row(3.0)), (64, 3601): (row(5.0), row(9.0)),
+                 (96, 1025): (row(2.0), row(4.0))})
+    assert rows["attention_hd[d64]"]["ms"] == 18 * 1.0 + 12 * 5.0
+    assert rows["attention_hd_bwd[d64]"]["ms"] == 3 * 3.0
+    assert rows["attention_hd"]["ms"] == 18 * 1.0 + 12 * 5.0 + 24 * 2.0
+    assert rows["attention_hd_bwd"]["ms"] == 3 * 3.0 + 12 * 4.0
+    assert rows["attention_hd"]["library_ms"] == 0.5 * (18 + 60 + 48)
