@@ -26,6 +26,8 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault mode_plain  # phase 33's launch check
     python3 chip_smoke.py --plant-fault remat       # phase 33's remat check
     python3 chip_smoke.py --plant-fault bn_eval     # phase 33's BatchNorm eval check
+    python3 chip_smoke.py --plant-fault ln_bwd_wide # phase 39's LayerNorm-backward check
+    python3 chip_smoke.py --plant-fault int8_wide   # phase 39's int8 walk at hidden 5120
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -328,6 +330,24 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  the attention_hd pair's device times at widths 64, 96 and
                  12, N = 1025 and 3601, beside its plain versions, SDPA and
                  its bounds, and the block both ways at 1025 and 3601.
+ 39. wide_models  models wider than ViT-B (`phase_wide_models`), at full
+                 width and depth, seeded weights, bf16: the CTA-a-row
+                 LayerNorm backward and row quantizer built without spills;
+                 (a) ViT-H/14 (the ViT paper's widths: C = 1280, 32 blocks,
+                 16 heads of 80, MLP 5120, patch 14; 257 tokens pruned at
+                 8/16/24 to 180 / 126 / 88) trained at B=32 with its live
+                 teacher in top-k, threshold and attn selection, and
+                 ViT-L/16 (C = 1024, 24 blocks, MLP 4096) in top-k, each
+                 step against its plain twin (launches, loss, gradients),
+                 the block backward and its LayerNorm backwards at the
+                 first block of each width and the last, the packed
+                 attention and the MLP half both ways at the blocks whose
+                 CLS rows rank a stage, the LayerNorm backward and the MLP
+                 half timed; (b) the top-k ViT-H/14 student (a) trained,
+                 served at B=64 in bf16 (against its plain twin) and int8
+                 (against the bf16 kernels; 16 samples walked block by
+                 block), the int8 block at each width and the row
+                 quantizer alone timed.
 The build phase fails if ptxas reports a spill in a GEMM kernel, in
 attention_bwd_kernel or in an instantiation of the head-width cores
 (attention_hd_kernel, attention_hd_bwd_kernel: each of the 16 of each
@@ -337,11 +357,12 @@ notices (`wgmma_notices`).
 The pruning student runs its serving, timing and export phases without
 capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
 callers do.
-The kernels summary holds four rows more than the kernels: the part of
+The kernels summary holds six rows more than the kernels: the part of
 attention_bwd_kernel's launches on its long path and the int8 block at
-hidden 4096, each with phase 34's launches and times, and the attention_hd
+hidden 4096, each with phase 34's launches and times, the attention_hd
 pair's launches at head width 64 past 800 tokens, both ways, with phase
-38's (SUB_ROWS).
+38's, and the LayerNorm backward past C = 768 and the int8 block at hidden
+5120, with phase 39's (SUB_ROWS).
 The line before the last two is the kernels summary, then the card's name
 and power limit, then {"ok": true, "device": {...}}. Without a CUDA device
 it exits 1 at once.
@@ -387,7 +408,13 @@ last key block out of P.V (not out of the row sums), on phase 35's block
 check at d = 12, N = 197 (its attn stage); --plant-fault head_width_bwd
 with its backward (`block_bwd.cu`'s attention_hd_bwd_kernel) leaving the
 last key block out of dQ, on the same run's block-backward check (the
-q third of the qkv weight's gradient).
+q third of the qkv weight's gradient). --plant-fault ln_bwd_wide with the
+CTA-a-row LayerNorm backward (`norm.cu`'s ln_bwd_row_kernel) adding its
+row sums without the last warp's, on phase 39's check of a ViT-H/14 B=8
+step's first block (its LayerNorm backwards alone); --plant-fault int8_wide
+with the CTA-a-row quantizer (`quant_block.cu`'s rowq_row_kernel) taking
+its absmax without the last warp's, on phase 39's int8 walk at B=8 (the
+activation's codes, 5120 wide).
 """
 
 from __future__ import annotations
@@ -456,9 +483,13 @@ NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # shapes of phase 34: attention_bwd_kernel's long path (N past 384, policy
 # mode 352; counted by the library, `ops.attention.ATTENTION_BWD_LONG`) and
 # the int8 block at ViT-L's MLP width (hidden 4096); at those of phase 38,
-# the attention_hd pair at head width 64 past SHORT_TOKENS, both ways
+# the attention_hd pair at head width 64 past SHORT_TOKENS, both ways; at
+# those of phase 39, the LayerNorm backward past C = 768 (its CTA-a-row
+# kernel, counted by the library: `ops.norm.LN_BWD_ROWS`) and the int8 block
+# at ViT-H's MLP width (hidden 5120: its rows past 4096 on the CTA-a-row
+# quantizer, `ops.quant.ROWQ_ROWS`)
 SUB_ROWS = ("attention_bwd[long]", "fused_transformer_block_int8[4096]", "attention_hd[d64]",
-            "attention_hd_bwd[d64]")
+            "attention_hd_bwd[d64]", "ln_bwd[C>768]", "fused_transformer_block_int8[>4096]")
 
 
 # the longest d = 64 sequence of the width-64 cores (ops.block.SHORT_TOKENS),
@@ -628,6 +659,12 @@ SOURCES = {
     "attention_hd_bwd[d64]": (
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
         "dense2sparse_vit_tpu/ops/pallas/block.py:729"),
+    "ln_bwd[C>768]": (
+        "dense2sparse_vit_torch/csrc/norm.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:663"),
+    "fused_transformer_block_int8[>4096]": (
+        "dense2sparse_vit_torch/csrc/quant_block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/quant.py:179"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -650,7 +687,10 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # each sample's pooled mean from the next sample's sums; (block.cu,
 # head_width) the core at other head widths leaving the last key block out of
 # P.V; (block_bwd.cu, head_width_bwd) its backward leaving the last key block
-# out of dQ; and the stage whose check must reject it
+# out of dQ; (norm.cu, ln_bwd_wide) the CTA-a-row LayerNorm backward's row
+# sums without the last warp's columns; (quant_block.cu, int8_wide) the
+# CTA-a-row quantizer's absmax without the last warp's columns; and the
+# stage whose check must reject it
 FAULTS = {
     "rowsum": ("block_bwd.cu", "    Ds[r] = acc;\n", "    Ds[r] = 0.f * acc;\n", "wqkv"),
     "policy": ("block_bwd.cu", "if (key != q) dpa[e & 1]", "if (true) dpa[e & 1]", "dpolicy"),
@@ -688,6 +728,10 @@ FAULTS = {
                   "  const int src = smp;  // the sample whose partial sums are added\n",
                   "  const int src = (smp + 1) % p.samples;  // the next sample's\n",
                   "predictor"),
+    "ln_bwd_wide": ("norm.cu", "for (int w = 0; w < LNB_WARPS; ++w) {\n",
+                    "for (int w = 0; w < LNB_WARPS - 1; ++w) {\n", "ln_bwd"),
+    "int8_wide": ("quant_block.cu", "for (int w = 0; w < RQR_WARPS; ++w) s = fmaxf(s, red[w]);",
+                  "for (int w = 0; w < RQR_WARPS - 1; ++w) s = fmaxf(s, red[w]);", "codes4"),
 }
 
 
@@ -1281,6 +1325,13 @@ def plant_fault(dev, kind: str) -> int:
             cases = capture_norm_cases(torch, dev)
             with torch.no_grad():
                 check_norm(torch, cases)
+        elif kind == "ln_bwd_wide":
+            check_wide_blocks(torch, wide_train_acts(torch, dev, 8), Tally(), "vit_h topk", (0,))
+        elif kind == "int8_wide":
+            images = torch.randn((8, 224, 224, 3), device=dev, dtype=torch.bfloat16,
+                                 generator=torch.Generator(device=dev).manual_seed(13))
+            with torch.inference_mode():
+                walk_int8(torch, wide_int8_student(torch, dev), images)
         elif kind == "attn_bwd":
             check_attn_bwd_cases(torch, capture_attn_bwd_cases(torch, dev))
         elif kind in ("head_width", "head_width_bwd"):
@@ -2370,10 +2421,11 @@ def build_int8_student(torch, dev, quant="int8"):
                         generator=torch.Generator().manual_seed(0), **HEADLINE_KWARGS).eval()
 
 
-def walk_int8(torch, model, images, tally=None):
+def walk_int8(torch, model, images, tally=None, rows=("fused_transformer_block_int8",)):
     """The int8 student's forward stage by stage, every block held against
-    its plain version (`check_int8_block`); returns the logits and, per
-    width, the first block's input, int8 weights and arguments."""
+    its plain version (`check_int8_block`; its error goes to the tally's
+    `rows`); returns the logits and, per width, the first block's input,
+    int8 weights and arguments."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.ops.topk import topk_keep_indices
 
@@ -2392,8 +2444,8 @@ def walk_int8(torch, model, images, tally=None):
         qw = blk.int8_weights(bf16)
         args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
         y, err = check_int8_block(torch, x, qw, *args, block=i)
-        if tally is not None:
-            tally.err("fused_transformer_block_int8", err)
+        for row in rows if tally is not None else ():
+            tally.err(row, err)
         if not shapes or shapes[-1][0].shape != x.shape:
             shapes.append((x, qw, blk.kernel_weights(bf16), args))
         x = y
@@ -5329,16 +5381,18 @@ def check_int8_family(torch, dev, model, tally, smi, batch=B_FAMILY, phase="deit
     del q
 
 
-def build_384(torch, dev, mode, teacher, img=384, batch=B_384):
+def build_384(torch, dev, mode, teacher, img=384, batch=B_384, modes=MODES_384,
+              overrides=None):
     """The 384-px (`img`) DeiT-B/16 student in `mode` (fused, seeded
-    weights) and its plain twin, each with AdamW past the warmup and a train
-    step with `teacher` (fused) or its plain twin: ((student, step), (plain,
-    step), cfg)."""
+    weights; `create_model` keyword arguments in `overrides` over the
+    mode's, e.g. wider widths) and its plain twin, each with AdamW past the
+    warmup and a train step with `teacher` (fused) or its plain twin:
+    ((student, step), (plain, step), cfg)."""
     from dense2sparse_vit_torch import models
     from dense2sparse_vit_torch.core import ExperimentConfig, TrainConfig
     from dense2sparse_vit_torch.train import make_optimizer, make_train_step
 
-    kwargs = getattr(models, MODES_384[mode][0])
+    kwargs = {**getattr(models, modes[mode][0]), **(overrides or {})}
     student = models.create_model(STUDENT_384, img_size=img, use_fused_attention=True,
                                   device=dev, generator=torch.Generator().manual_seed(0),
                                   **kwargs)
@@ -5353,18 +5407,21 @@ def build_384(torch, dev, mode, teacher, img=384, batch=B_384):
 
 
 def run_384(torch, dev, mode, teacher, tally, smi, img=384, batch=B_384, modes=MODES_384,
-            phase="deit_family", on_counts=None):
+            phase="deit_family", on_counts=None, overrides=None, keep=False):
     """(b) for one mode: a B=64 train step of the 384-px student (`img`,
     `batch`, the launches of `modes`; launches, the long path's among them,
     peak memory) against its plain twin's step on the same weights, draws
     and kept tokens (`compare_steps`); a second step, timed; a third with
     its activations captured for (a)'s checks. Each counted step's launches
-    also go to `on_counts`, where given. Returns (the summary, the captured activations)."""
+    also go to `on_counts`, where given; `overrides` go to `build_384`.
+    Returns (the summary, the captured activations; with `keep`, the
+    trained student too, under "student")."""
     from dense2sparse_vit_torch import ops
     from dense2sparse_vit_torch.ops.attention import ATTENTION_BWD_LONG
 
     _, per_step, long_per_step = modes[mode]
-    (student, step), (plain, p_step), cfg = build_384(torch, dev, mode, teacher, img, batch)
+    (student, step), (plain, p_step), cfg = build_384(torch, dev, mode, teacher, img, batch,
+                                                      modes, overrides)
     gen = torch.Generator(device=dev).manual_seed(3)
     images = torch.randn((batch, img, img, 3), generator=gen, device=dev)
     labels = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
@@ -5419,6 +5476,8 @@ def run_384(torch, dev, mode, teacher, tally, smi, img=384, batch=B_384, modes=M
            "peak_gib": peak / 2**30, "step_gib": (peak - resident) / 2**30,
            "tokens": [patches + 1] + [k + 1 for k in student.pruning.keep_counts(patches)]}
     emit({"phase": phase, f"train_{img}": out, "card": smi})
+    if keep:
+        acts["student"] = student
     del student, step
     return out, acts
 
@@ -7327,6 +7386,446 @@ def phase_long_tokens(torch, dev, tally, smi, root):
           "card": smi})
 
 
+# ---- 39. models wider than ViT-B -------------------------------------------------
+
+# The two students of phase 39, built as the JAX package's create_model
+# allows, by overrides of the DeiT-B/16 student and teacher: ViT-H/14 at the
+# ViT paper's widths (Dosovitskiy et al., ICLR 2021, Table 1, "ViT-Huge": C =
+# 1280, 32 blocks, 16 heads of 80, MLP 5120; patch 14 at 224 px, 257
+# tokens), pruned at blocks 8/16/24 to 180 / 126 / 88 tokens, and ViT-L/16
+# at the registry's vit_large_patch16_224 widths (C = 1024, 24 blocks, 16
+# heads of 64, MLP 4096; 197 tokens), pruned at 6/12/18; both with the
+# headline's keep ratios, small predictor, top-k and bf16.
+WIDE_MODELS = {
+    "vit_h": ({"embed_dim": 1280, "depth": 32, "num_heads": 16, "patch_size": 14},
+              (8, 16, 24)),
+    "vit_l": ({"embed_dim": 1024, "depth": 24, "num_heads": 16}, (6, 12, 18)),
+}
+WIDE_MODES = {"vit_h": ("topk", "threshold", "attn"), "vit_l": ("topk",)}
+B_WIDE_TRAIN, B_WIDE_SERVE = 32, 64
+B_WIDE_WALK = 16  # the int8 forward's samples walked block by block (`walk_int8`)
+
+
+def wide_kwargs(name) -> dict:
+    """`create_model` overrides of a wide student: its widths and stages."""
+    widths, locs = WIDE_MODELS[name]
+    return {**widths, "pruning_locs": locs}
+
+
+def wide_step_launches(mode, depth, first, d, n) -> dict:
+    """One train step of a wide student in `mode` with its live teacher
+    (its `depth` CLS-row blocks), at head width d and n tokens: top-k every
+    block both ways, 3 gathers and 3 scatters; threshold the `first` blocks
+    before the first stage plain and the rest in policy mode; attn the
+    packed attention and the MLP half each way, 3 gathers and 3 scatters;
+    with the LayerNorm backwards and column sums of each backward and the
+    cores of each forward (the teacher's and the student's) and backward."""
+    if mode == "attn":
+        out = {**NO_LAUNCHES, "fused_transformer_block_cls": depth,
+               "fused_attention_packed": depth, "fused_attention_backward_packed": depth,
+               "fused_mlp_residual": depth, "fused_mlp_residual_backward": depth,
+               **norm_launches(halves=depth)}
+    else:
+        plain = depth if mode == "topk" else first
+        out = {**NO_LAUNCHES, "fused_transformer_block": plain,
+               "fused_transformer_block[policy]": depth - plain,
+               "fused_transformer_block_cls": depth,
+               "fused_transformer_block_backward": plain,
+               "fused_transformer_block_backward[policy]": depth - plain,
+               **norm_launches(depth)}
+    if mode != "threshold":
+        out.update(fused_gather_tokens=3, fused_scatter_tokens=3)
+    out.update(core_launches(depth, forwards=2 * depth, n=n, d=d))
+    return out
+
+
+def wide_forward_launches(depth, d, n, int8=False) -> dict:
+    """One top-k eval forward of a wide student: every block (bf16 or int8)
+    with its core, 3 predictors, 3 gathers."""
+    return {**NO_LAUNCHES, "fused_transformer_block_int8" if int8 else "fused_transformer_block":
+            depth, "fused_predictor_lg": 3, "fused_gather_tokens": 3,
+            **core_launches(0, forwards=depth, n=n, d=d)}
+
+
+def wide_spills(build_log) -> dict:
+    """ptxas's spill lines of the two kernels this phase widens to (the
+    LayerNorm backward's and the row quantizer's CTA-a-row kernels); raises
+    if one is missing from the log or spills."""
+    out = {}
+    for word in ("ln_bwd_row_kernel", "rowq_row_kernel"):
+        found = gemm_spills(build_log, word)
+        if not found or any("0 bytes spill stores, 0 bytes spill loads" not in v
+                            for v in found.values()):
+            raise AssertionError(f"{word} spills, or misses from ptxas's log: {found}")
+        out.update(found)
+    return out
+
+
+class WideRows:
+    """The two sub-rows' launches, read from the library's counts of the
+    CTA-a-row kernels (`ops.norm.LN_BWD_ROWS`, `ops.quant.ROWQ_ROWS`) after
+    each main-path run and reset; `take` also holds them to what the run's
+    other counts say (every LayerNorm backward of a wide step on the row
+    kernel; every int8 block's widest row past 4096)."""
+
+    def __init__(self, tally):
+        self.tally = tally
+        self.reset()
+
+    def reset(self):
+        from dense2sparse_vit_torch.ops import norm, quant
+
+        norm.LN_BWD_ROWS.launches = 0
+        quant.ROWQ_ROWS.launches = 0
+
+    def take(self, counts, what):
+        from dense2sparse_vit_torch.ops import norm, quant
+
+        ln, rq = norm.LN_BWD_ROWS.launches, quant.ROWQ_ROWS.launches
+        if ln != counts["ln_bwd"] or rq != counts["fused_transformer_block_int8"]:
+            raise AssertionError(f"{what}: {ln} LayerNorm backwards on the row kernel of "
+                                 f"{counts['ln_bwd']}, {rq} rows past 4096 quantized in "
+                                 f"{counts['fused_transformer_block_int8']} int8 blocks")
+        self.tally.rows["ln_bwd[C>768]"]["launches"] += ln
+        self.tally.rows["fused_transformer_block_int8[>4096]"]["launches"] += rq
+        self.reset()
+
+
+def check_wide_blocks(torch, rec, tally, what, blocks):
+    """The block backward at `blocks` of a wide train step's own activations
+    (`capture_train_step`) against its plain version (`check_block_backward`;
+    a policy block with its step's keep policy at every eps of EPS_CHECKS,
+    with dPolicy), the real cotangent at the last block and a seeded one of
+    its scale elsewhere; at a plain block first both of its LayerNorm
+    backwards alone (`check_ln_bwd` on `norm_inputs`). Returns the plain
+    blocks' LayerNorm-backward inputs by width, for the timing."""
+    gen = torch.Generator(device=rec["last_g"].device).manual_seed(39)
+    scale_g = rec["last_g"].float().std().item()
+    H, scale, ln_eps = rec["heads"], rec["scale"], rec["ln_eps"]
+    last = len(rec["block_in"]) - 1
+    cases = {}
+    with torch.no_grad():
+        for i in blocks:
+            x, w, pol = rec["block_in"][i], rec["weights"][i], rec["policy"][i]
+            g = (rec["last_g"].contiguous() if i == last else
+                 (torch.randn(x.shape, generator=gen, device=x.device) * scale_g).to(x.dtype))
+            if pol is None:
+                inputs = norm_inputs(torch, x, g, w, H, scale, ln_eps)
+                for which, case in inputs["ln"].items():
+                    err = check_ln_bwd(torch, case, x.shape[1], which)
+                    tally.err("ln_bwd", err)
+                    tally.err("ln_bwd[C>768]", err)
+                cases.setdefault(x.shape[1], inputs["ln"])
+            suffix = "" if pol is None else "[policy]"
+            for kw in ([{}] if pol is None else
+                       [{"policy": pol.float().contiguous(), "eps": e} for e in EPS_CHECKS]):
+                err = check_block_backward(torch, x, g, w, H, scale, ln_eps, block=i,
+                                           phase=f"wide_models/{what}", **kw)
+                tally.err("fused_transformer_block_backward" + suffix, err)
+    return cases
+
+
+def time_wide_ln_bwd(torch, cases, blocks_per_width, tally, smi, what) -> dict:
+    """Both LayerNorm backwards of a block backward at each width of a wide
+    step (`check_wide_blocks`' cases) from CUDA graphs, beside the plain
+    version, torch.ops.aten.native_layer_norm_backward (dy, x and gamma in
+    fp32, no residual) and the bound; the sub-row takes them, times the
+    blocks at that width. Returns {N: (kernel, plain, library, bound) ms
+    of the pair}."""
+    from dense2sparse_vit_torch.ops import norm
+
+    out = {}
+    with torch.no_grad():
+        for n, calls in cases.items():
+            pair = [0.0, 0.0, 0.0, {"ops_ms": 0.0, "bytes_ms": 0.0}]
+            for which, (dy, x, st, ln_w, res, fp32_copy) in calls.items():
+                M, C = x.shape
+                xf, mean, rstd = x.float(), st[:, :1].contiguous(), st[:, 1:].contiguous()
+                zeros = torch.zeros_like(ln_w)
+                k = graph_ms(torch, lambda: norm.ln_backward(dy, x, st, ln_w, res, fp32_copy))
+                p = graph_ms(torch, lambda: norm.ln_backward_reference(dy, x, st, ln_w, res,
+                                                                       fp32_copy))
+                lib = graph_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, xf, [C], mean, rstd, ln_w, zeros, [True, True, True]))
+                b = ln_bwd_bound(M, C, res.element_size(), fp32_copy)
+                emit({"phase": "wide_models", "kernel": "ln_bwd", "model": what, "call": which,
+                      "shape": [M, C], "N": n, "graph_ms": k, "plain_graph_ms": p,
+                      "library_graph_ms": lib, "bound_ms": max(b.values()),
+                      "calls_per_step": blocks_per_width[n], "card": smi})
+                pair[0] += k
+                pair[1] += p
+                pair[2] += lib
+                pair[3] = {key: pair[3][key] + b[key] for key in b}
+            tally.add("ln_bwd[C>768]", blocks_per_width[n], pair[0], pair[1], pair[3], pair[2])
+            out[n] = (pair[0], pair[1], pair[2], max(pair[3].values()))
+    return out
+
+
+def time_wide_mlp(torch, rec, smi) -> dict:
+    """The MLP half both ways at an attn step's first block (its own input
+    and cotangent) beside its plain version (CUDA events, in turns) and its
+    bound."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.mlp import (
+        mlp_residual_backward_reference, mlp_residual_reference)
+
+    m = rec["mlp"][0]
+    x, w, eps, g = m["x"], m["w"], m["eps"], m["g"]
+    B, N, C = x.shape
+    hidden = w[2].shape[0]
+    with torch.no_grad():
+        fwd = paired_ms(torch, lambda: ops.fused_mlp_residual(x, *w, eps),
+                        lambda: mlp_residual_reference(x, *w, eps), iters=5, rounds=1,
+                        repeats=3)
+        bwd = paired_ms(torch, lambda: ops.fused_mlp_residual_backward(x, g, *w[:5], eps=eps),
+                        lambda: mlp_residual_backward_reference(x, g, *w[:5], eps), iters=3,
+                        rounds=1, repeats=3)
+    out = {}
+    for direction, (k, p), b in (("forward", fwd, mlp_bound(B, N, C, hidden)),
+                                 ("backward", bwd, mlp_backward_bound(B, N, C, hidden))):
+        out[direction] = {"ms": k, "plain_ms": p, "bound_ms": max(b.values())}
+        emit({"phase": "wide_models", "kernel": f"mlp_half {direction}", "shape": [B, N, C],
+              "hidden": hidden, **out[direction], "card": smi})
+    return out
+
+
+def train_wide(torch, dev, name, tally, smi, rows) -> dict:
+    """(a) for one wide student: per mode of WIDE_MODES a B=32 step with its
+    live teacher against its plain twin's (`run_384` at 224 px with the
+    student's overrides: launches `wide_step_launches`, the two sub-rows'
+    counts (`WideRows`), loss and gradients), a second, timed step and a
+    third with its activations captured; top-k and threshold: the block
+    backward and its LayerNorm backwards at the first block of each width
+    and the last (`check_wide_blocks`), the LayerNorm backward timed at each
+    width (`time_wide_ln_bwd`, ViT-H); attn: the packed attention and the
+    MLP half both ways at the blocks whose CLS rows rank a stage and the
+    last (`check_attn_block`), the MLP half timed (`time_wide_mlp`).
+    Returns the modes' summaries and times, and the trained top-k student
+    (under "student")."""
+    from dense2sparse_vit_torch.models import create_model
+
+    widths, locs = WIDE_MODELS[name]
+    depth, H = widths["depth"], widths["num_heads"]
+    d, n = widths["embed_dim"] // H, (224 // widths.get("patch_size", 16)) ** 2 + 1
+    teacher = create_model(TEACHER_384, use_fused_attention=True, device=dev, dtype="bfloat16",
+                           generator=torch.Generator().manual_seed(2), **widths)
+    modes = {m: (MODES_384[m][0], wide_step_launches(m, depth, locs[0], d, n), 0)
+             for m in WIDE_MODES[name]}
+    firsts = (0, *locs, depth - 1)
+    per_width = {}
+    out = {}
+    for mode in modes:
+        rows.reset()
+        t0 = time.perf_counter()
+        summary, acts = run_384(torch, dev, mode, teacher, tally, smi, img=224,
+                                batch=B_WIDE_TRAIN, modes=modes, phase=f"wide_models/{name}",
+                                on_counts=lambda c: rows.take(c, f"{name} {mode} step"),
+                                overrides=wide_kwargs(name), keep=mode == "topk")
+        rows.reset()  # the captured step's
+        torch.cuda.empty_cache()
+        out[mode] = {k: summary[k] for k in ("step_ms", "peak_gib", "step_gib", "tokens")}
+        out[mode]["run_s"] = time.perf_counter() - t0
+        if mode == "topk":
+            out["student"] = acts.pop("student")
+        if mode == "attn":
+            for i in [i - 1 for i in locs] + [depth - 1]:  # the stages' CLS-row feeders, the last
+                worst = check_attn_block(torch, acts["attn"][i], acts["mlp"][i], block=i)
+                for key, row in (("fwd", "fused_attention_packed"),
+                                 ("bwd", "fused_attention_backward_packed"),
+                                 ("mlp", "fused_mlp_residual"),
+                                 ("mlp_bwd", "fused_mlp_residual_backward")):
+                    tally.err(row, worst[key])
+            out[mode]["mlp_half"] = time_wide_mlp(torch, acts, smi)
+        else:
+            cases = check_wide_blocks(torch, acts, tally, f"{name} {mode}", firsts)
+            if mode == "topk" and name == "vit_h":
+                tokens = summary["tokens"]
+                per_width = {t: e - s for t, s, e in zip(tokens, (0, *locs), (*locs, depth))}
+                out[mode]["ln_bwd"] = time_wide_ln_bwd(torch, cases, per_width, tally, smi,
+                                                       name)
+        out[mode]["seconds"] = time.perf_counter() - t0
+        del acts
+        torch.cuda.empty_cache()
+    del teacher
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_wide(torch, dev, name, model, tally, smi, rows) -> dict:
+    """(b): the wide top-k student (`model`, as `train_wide` left it) in
+    eval mode, its B=64 forward with the kernels, bf16
+    (launches `wide_forward_launches`; logits within LOGITS_TOL of its plain
+    twin's on the same kept tokens) and with quant="int8" on every block
+    (the same weights; its logits against the bf16 kernels' by cosine
+    similarity, INT8_LOGITS_COS; B_WIDE_WALK of its samples walked block by
+    block, every int8 block held against its plain version,
+    `walk_int8`), each forward timed; the int8 block at the first block of
+    each width beside its plain version, the bf16 block and its bound (the
+    sub-row takes them, times the blocks at that width), and the row
+    quantizer alone on the first block's activation (its rows 5120 wide at
+    ViT-H) from CUDA graphs beside its plain version and bound."""
+    import copy
+
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.quant import (
+        quant_block_reference, row_quantize, row_quantize_reference)
+
+    widths, locs = WIDE_MODELS[name]
+    model = model.eval()
+    q = copy.deepcopy(model)
+    q.cfg = q.cfg.replace(quant="int8")
+    for blk in q.blocks:
+        blk.quant = "int8"
+    depth, H = widths["depth"], widths["num_heads"]
+    d, n = widths["embed_dim"] // H, model.cfg.num_patches + 1
+    x = torch.randn((B_WIDE_SERVE, 224, 224, 3), device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(39))
+    firsts = (0, *locs)
+    inputs = {}
+    hooks = [q.blocks[i].register_forward_pre_hook(
+        lambda m, a, i=i: inputs.__setitem__(i, a[0].detach())) for i in firsts]
+    out, logits = {}, {}
+    with torch.inference_mode():
+        for key, m, want in (("bf16", model, wide_forward_launches(depth, d, n)),
+                             ("int8", q, wide_forward_launches(depth, d, n, int8=True))):
+            rows.reset()
+            ops.reset_launch_counts()
+            with ModeRecorder() as rec:
+                res = m(x, collect_cls_attns=False)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            check_mode_launches(counts, want, f"{name} {key} forward")
+            for k, v in counts.items():
+                tally.rows[k]["launches"] += v
+            rows.take(counts, f"{name} {key} forward")
+            logits[key] = res.logits.float()
+            if not bool(torch.isfinite(logits[key]).all()) or logits[key].shape != (
+                    B_WIDE_SERVE, 1000):
+                raise AssertionError(f"{name} {key}: bad logits {logits[key].shape}")
+            out[key] = {"forward_ms": cuda_ms(torch, lambda: m(x, collect_cls_attns=False),
+                                              iters=2, repeats=3)}
+            rows.reset()
+            if key == "bf16":
+                plain = plain_twin(model)
+                with ModeRecorder(replay_from=rec):
+                    ref = plain(x, collect_cls_attns=False).logits.float()
+                err, top = rel_err(torch, logits[key], ref)
+                out[key]["logits_rel_err"] = err / top
+                del plain
+                if not err <= LOGITS_TOL * top:
+                    raise AssertionError(f"{name} bf16 forward against plain: {err / top}")
+                tally.err("fused_transformer_block", err)
+        for h in hooks:
+            h.remove()
+        cos = torch.nn.functional.cosine_similarity(logits["int8"].flatten(),
+                                                    logits["bf16"].flatten(), dim=0).item()
+        out["int8"]["cos_vs_bf16"] = cos
+        if not cos >= INT8_LOGITS_COS:
+            raise AssertionError(f"{name} int8 logits against bf16: cos {cos}")
+        walk_int8(torch, q, x[:B_WIDE_WALK], tally,
+                  rows=("fused_transformer_block_int8", "fused_transformer_block_int8[>4096]"))
+        rows.reset()
+        blk = q.blocks[0]
+        args = (blk.attn.num_heads, blk.attn.scale, blk.norm1.eps)
+        hidden = blk.mlp.fc1.out_features
+        times = {}
+        for t, (i, e) in zip((n, *(k + 1 for k in model.pruning.keep_counts(n - 1))),
+                             zip(firsts, (*locs, depth))):
+            xi, qw, w = inputs[i], q.blocks[i].int8_weights(torch.bfloat16), \
+                q.blocks[i].kernel_weights(torch.bfloat16)
+            k_ms, p_ms = paired_ms(
+                torch, lambda: ops.fused_transformer_block_int8(xi, qw, args[0], scale=args[1],
+                                                                ln_eps=args[2]),
+                lambda: quant_block_reference(xi, qw, *args), iters=3, rounds=1, repeats=3)
+            bf16_ms = cuda_ms(torch, lambda: ops.fused_transformer_block(
+                xi, w, args[0], scale=args[1], ln_eps=args[2]), iters=3, repeats=3)
+            b = int8_block_bound(*xi.shape, args[0], hidden)
+            tally.add("fused_transformer_block_int8[>4096]", e - i, k_ms, p_ms, b)
+            times[t] = {"ms": k_ms, "plain_ms": p_ms, "bf16_block_ms": bf16_ms,
+                        "bound_ms": max(b.values()), "blocks": e - i}
+            emit({"phase": "wide_models", "kernel": "fused_transformer_block_int8",
+                  "model": name, "shape": list(xi.shape), "hidden": hidden, **times[t],
+                  "card": smi})
+        out["int8"]["block"] = times
+        _, st = ops.fused_transformer_block_int8(inputs[0], q.blocks[0].int8_weights(
+            torch.bfloat16), *args[:1], scale=args[1], ln_eps=args[2], stages=True)
+        act = st["act"].reshape(-1, hidden)
+        k_ms = graph_ms(torch, lambda: row_quantize(act))
+        p_ms = graph_ms(torch, lambda: row_quantize_reference(act))
+        b = bound(0, act.numel() * 3 + 4 * act.shape[0])
+        out["int8"]["rowq"] = {"shape": list(act.shape), "graph_ms": k_ms, "plain_graph_ms": p_ms,
+                               "bound_ms": max(b.values())}
+        emit({"phase": "wide_models", "kernel": "rowq", "model": name,
+              **out["int8"]["rowq"], "card": smi})
+        rows.reset()
+    del model, q
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_train_acts(torch, dev, batch):
+    """A ViT-H/14 top-k step's own activations at `batch` with its live
+    teacher (`capture_train_step`), for `--plant-fault ln_bwd_wide`."""
+    from dense2sparse_vit_torch.models import create_model
+
+    widths, _ = WIDE_MODELS["vit_h"]
+    teacher = create_model(TEACHER_384, use_fused_attention=True, device=dev, dtype="bfloat16",
+                           generator=torch.Generator().manual_seed(2), **widths)
+    (student, step), _, _ = build_384(torch, dev, "topk", teacher, img=224, batch=batch,
+                                      overrides=wide_kwargs("vit_h"))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randn((batch, 224, 224, 3), generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
+    rec = capture_train_step(torch, student, teacher, step, images, labels)
+    blk = student.blocks[0]
+    rec.update(heads=blk.attn.num_heads, scale=blk.attn.scale, ln_eps=blk.norm1.eps)
+    return rec
+
+
+def wide_int8_student(torch, dev):
+    """The ViT-H/14 top-k student from seed 0 with quant="int8", eval mode,
+    for `--plant-fault int8_wide`."""
+    from dense2sparse_vit_torch import models
+
+    return models.create_model(STUDENT_384, use_fused_attention=True, quant="int8", device=dev,
+                               generator=torch.Generator().manual_seed(0),
+                               **{**models.HEADLINE_KWARGS, **wide_kwargs("vit_h")}).eval()
+
+
+def phase_wide_models(torch, dev, tally, smi):
+    """Phase 39: models wider than ViT-B, at full width and depth, bf16,
+    seeded weights. The CTA-a-row kernels built without spills
+    (`wide_spills`); (a) ViT-H/14 trained at B=32 in top-k, threshold and
+    attn selection, ViT-L/16 in top-k (`train_wide`: every step against its
+    plain twin, its launches, the block backward, its LayerNorm backwards,
+    the packed attention and the MLP half both ways held against their plain
+    versions on a step's own activations, the LayerNorm backward and the MLP
+    half timed); (b) the ViT-H/14 top-k student (a) trained, served at B=64
+    in bf16 and int8 (`serve_wide`: against the plain twin and the bf16
+    kernels, every int8 block walked, the int8 block and the row quantizer
+    timed). The sub-rows
+    `ln_bwd[C>768]` and `fused_transformer_block_int8[>4096]` take their
+    launches (`WideRows`), errors and times."""
+    from dense2sparse_vit_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    spills = wide_spills(_cuda.build_log)
+    rows = WideRows(tally)
+    train = {name: train_wide(torch, dev, name, tally, smi, rows) for name in ("vit_h", "vit_l")}
+    del train["vit_l"]["student"]
+    t1 = time.perf_counter()
+    serve = serve_wide(torch, dev, "vit_h", train["vit_h"].pop("student"), tally, smi, rows)
+    serve["seconds"] = time.perf_counter() - t1
+    for row in ("ln_bwd[C>768]", "fused_transformer_block_int8[>4096]"):
+        if not tally.rows[row]["launches"] > 0:
+            raise AssertionError(f"{row}: no launch on phase 39's path")
+    emit({"phase": "wide_models", "seconds": time.perf_counter() - t0, "spills": spills,
+          "train": train, "serve": serve,
+          "sub_rows": {r: tally.rows[r]["launches"] for r in
+                       ("ln_bwd[C>768]", "fused_transformer_block_int8[>4096]")},
+          "card": smi})
+
+
 def host_batch(torch, cfg, root, dev, split="val"):
     """The first LOOP_BATCH images of the loop's train or val split in the
     eval view, uint8 on the card, with their labels."""
@@ -7510,6 +8009,9 @@ def main(argv=None) -> int:
         # ---- 38. sequences past 800 tokens ------------------------------------------
         torch.cuda.empty_cache()
         phase_long_tokens(torch, dev, tally, smi, loop_root)
+        # ---- 39. models wider than ViT-B --------------------------------------------
+        torch.cuda.empty_cache()
+        phase_wide_models(torch, dev, tally, smi)
     finally:
         loop_tmp.cleanup()
 

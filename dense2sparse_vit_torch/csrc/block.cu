@@ -246,9 +246,11 @@ __device__ __forceinline__ void att_max16(float (&mx)[ATT_QT][2], float (&ct)[AT
 // pass 2 over keys k0..k0+15: p = 2^(s scale log2 e - max log2 e) (policy
 // mode: times a_ij, the smoothing eps/N added for P.V), l += p, O += p V.
 // ml: the rows' max times log2 e; query rows row0 + 16 qt + {0, 8}; EDGE as
-// above.
-template <int NQ, bool POLICY, bool EDGE>
+// above. RES: lb += the bf16 p that P.V takes, for attention_kernel's
+// out_res.
+template <int NQ, bool POLICY, bool EDGE, bool RES>
 __device__ __forceinline__ void att_pv16(float (&o)[ATT_QT][ATT_HD / 8][4], float (&l)[ATT_QT][2],
+                                         float (&lb)[ATT_QT][2],
                                          const uint32_t (&qa)[ATT_QT][ATT_HD / 16][4],
                                          const float (&ml)[ATT_QT][2], const bf16* Ks,
                                          const bf16* Vs, const float* Ps, int k0, int N,
@@ -294,6 +296,12 @@ __device__ __forceinline__ void att_pv16(float (&o)[ATT_QT][ATT_HD / 8][4], floa
       }
       pa[qt][2 * j] = pack_bf16(p[0], p[1]);
       pa[qt][2 * j + 1] = pack_bf16(p[2], p[3]);
+      if (RES) {
+        const float2 p01 = bf16x2_to_float2(pa[qt][2 * j]);
+        const float2 p23 = bf16x2_to_float2(pa[qt][2 * j + 1]);
+        lb[qt][0] += p01.x + p01.y;
+        lb[qt][1] += p23.x + p23.y;
+      }
     }
   }
 #pragma unroll
@@ -312,11 +320,12 @@ __device__ __forceinline__ void att_pv16(float (&o)[ATT_QT][ATT_HD / 8][4], floa
 template <int V>
 using att_int = std::integral_constant<int, V>;
 
-template <bool POLICY>
+template <bool POLICY, bool RES>
 static __global__ void __launch_bounds__(ATT_THREADS)
     attention_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld,
-                     bf16* __restrict__ out, float* __restrict__ lse, bf16* __restrict__ cls,
-                     const float* __restrict__ pol, int N, int H, float scale, float eps) {
+                     bf16* __restrict__ out, bf16* __restrict__ out_res, float* __restrict__ lse,
+                     bf16* __restrict__ cls, const float* __restrict__ pol, int N, int H,
+                     float scale, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = att_padded(N);
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -419,10 +428,11 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   auto pass2 = [&](auto nq) {
     constexpr int NQ = decltype(nq)::value;
     float o[ATT_QT][ATT_HD / 8][4];
-    float l[ATT_QT][2], ml[ATT_QT][2];
+    float l[ATT_QT][2], lb[ATT_QT][2], ml[ATT_QT][2];
 #pragma unroll
     for (int qt = 0; qt < NQ; ++qt) {
       l[qt][0] = l[qt][1] = 0.f;
+      lb[qt][0] = lb[qt][1] = 0.f;
       ml[qt][0] = mx[qt][0] * LOG2E;
       ml[qt][1] = mx[qt][1] * LOG2E;
 #pragma unroll
@@ -432,9 +442,11 @@ static __global__ void __launch_bounds__(ATT_THREADS)
     const int row0 = u * ATT_QT * 16 + g;  // this thread's rows: row0 + 16 qt + {0, 8}
     for (int k0 = 0; k0 < np; k0 += 16) {
       if (k0 + 16 <= N)
-        att_pv16<NQ, POLICY, false>(o, l, qa, ml, Ks, Vs, Ps, k0, N, sl2, cc, row0, lane);
+        att_pv16<NQ, POLICY, false, RES>(o, l, lb, qa, ml, Ks, Vs, Ps, k0, N, sl2, cc, row0,
+                                         lane);
       else
-        att_pv16<NQ, POLICY, true>(o, l, qa, ml, Ks, Vs, Ps, k0, N, sl2, cc, row0, lane);
+        att_pv16<NQ, POLICY, true, RES>(o, l, lb, qa, ml, Ks, Vs, Ps, k0, N, sl2, cc, row0,
+                                        lane);
     }
 
 #pragma unroll
@@ -443,6 +455,10 @@ static __global__ void __launch_bounds__(ATT_THREADS)
       for (int sh = 1; sh < 4; sh <<= 1) {
         l[qt][0] += __shfl_xor_sync(0xffffffffu, l[qt][0], sh);
         l[qt][1] += __shfl_xor_sync(0xffffffffu, l[qt][1], sh);
+        if (RES) {
+          lb[qt][0] += __shfl_xor_sync(0xffffffffu, lb[qt][0], sh);
+          lb[qt][1] += __shfl_xor_sync(0xffffffffu, lb[qt][1], sh);
+        }
       }
       if (POLICY) {
         l[qt][0] += eps;
@@ -481,15 +497,23 @@ static __global__ void __launch_bounds__(ATT_THREADS)
           }
         }
       }
-      bf16* obase = out + (long long)b * N * C + h * ATT_HD + 2 * t;
+      const long long oat = (long long)b * N * C + h * ATT_HD + 2 * t;
 #pragma unroll
       for (int nd = 0; nd < ATT_HD / 8; ++nd) {
-        if (q < N)
-          *reinterpret_cast<uint32_t*>(obase + (long long)q * C + nd * 8) =
-              pack_bf16(o[qt][nd][0] * inv0, o[qt][nd][1] * inv0);
-        if (q + 8 < N)
-          *reinterpret_cast<uint32_t*>(obase + (long long)(q + 8) * C + nd * 8) =
-              pack_bf16(o[qt][nd][2] * inv1, o[qt][nd][3] * inv1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (q + 8 * r >= N) continue;
+          const float inv = r ? inv1 : inv0;
+          const float lo = o[qt][nd][2 * r] * inv, hi = o[qt][nd][2 * r + 1] * inv;
+          const uint32_t v = pack_bf16(lo, hi);
+          const long long at = oat + (long long)(q + 8 * r) * C + nd * 8;
+          *reinterpret_cast<uint32_t*>(out + at) = v;
+          if (RES) {  // O normalised by the bf16 probabilities P.V took, less v
+            const float ib = 1.f / lb[qt][r];
+            *reinterpret_cast<uint32_t*>(out_res + at) =
+                pack_bf16_residual(o[qt][nd][2 * r] * ib, o[qt][nd][2 * r + 1] * ib, v);
+          }
+        }
       }
     }
   };
@@ -556,10 +580,11 @@ static __global__ void __launch_bounds__(ATT_THREADS)
 //     shared memory as the blocks pass and write the normalised row at the
 //     end, against the final max and sum.
 // Its times are in PERF.md.
-template <int DP, bool POLICY>
+template <int DP, bool POLICY, bool RES>
 static __global__ void __launch_bounds__(128 * HD_FWD_WG)
     attention_hd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
-                        bf16* __restrict__ out, float* __restrict__ lse, bf16* __restrict__ cls,
+                        bf16* __restrict__ out, bf16* __restrict__ out_res,
+                        float* __restrict__ lse, bf16* __restrict__ cls,
                         const float* __restrict__ pol, int N, int H, float scale, float eps,
                         int ring, int pb) {
   constexpr int T = HD_TILE<DP>;
@@ -617,6 +642,7 @@ static __global__ void __launch_bounds__(128 * HD_FWD_WG)
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, ct2[2] = {0.f, 0.f};
+  float lb[2] = {0.f, 0.f};   // RES: the sums of the bf16 p that P.V takes
   float cs[2] = {0.f, 0.f};  // policy mode: this thread's part of colsum(V)
 
   for (int j = 0; j < nkb; ++j) {
@@ -683,6 +709,7 @@ static __global__ void __launch_bounds__(128 * HD_FWD_WG)
       m[r] = mn;
       ml[r] = mn * LOG2E;
       l[r] *= alpha;
+      if (RES) lb[r] *= alpha;
 #pragma unroll
       for (int nd = 0; nd < DP / 8; ++nd) {
         o[4 * nd + 2 * r] *= alpha;
@@ -715,6 +742,7 @@ static __global__ void __launch_bounds__(128 * HD_FWD_WG)
           p *= col == ra + 8 * r ? a + (1.f - a) : a;
         }
         l[r] += p;
+        if (RES) lb[r] += __bfloat162float(__float2bfloat16_rn(p));
         s[hh][i] = p;
       }
 #pragma unroll
@@ -747,6 +775,11 @@ static __global__ void __launch_bounds__(128 * HD_FWD_WG)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (POLICY) l[r] += eps;
+    if (RES) {
+      lb[r] += __shfl_xor_sync(0xffffffffu, lb[r], 1);
+      lb[r] += __shfl_xor_sync(0xffffffffu, lb[r], 2);
+      if (POLICY) lb[r] += eps;  // the smoothing's colsum(V) term is added in fp32
+    }
   }
   if (POLICY) {  // colsum(V): the key groups' parts added in order
     if (wg == 0 && cgrp < GROUPS) {
@@ -780,7 +813,7 @@ static __global__ void __launch_bounds__(128 * HD_FWD_WG)
       cls[stat + col] = __float2bfloat16(v * inv0);
     }
   }
-  bf16* obase = out + (long long)b * N * C + h * d;
+  const long long oat = (long long)b * N * C + h * d;
 #pragma unroll
   for (int nd = 0; nd < DP / 8; ++nd) {
     const int c = nd * 8 + 2 * t;
@@ -795,10 +828,19 @@ static __global__ void __launch_bounds__(128 * HD_FWD_WG)
       add1 *= cc;
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (ra + 8 * r < N)
-        *reinterpret_cast<uint32_t*>(obase + (long long)(ra + 8 * r) * C + c) =
-            pack_bf16((o[4 * nd + 2 * r] + add0) * inv[r], (o[4 * nd + 2 * r + 1] + add1) * inv[r]);
+    for (int r = 0; r < 2; ++r) {
+      if (ra + 8 * r >= N) continue;
+      const float lo = (o[4 * nd + 2 * r] + add0) * inv[r];
+      const float hi = (o[4 * nd + 2 * r + 1] + add1) * inv[r];
+      const uint32_t v = pack_bf16(lo, hi);
+      const long long at = oat + (long long)(ra + 8 * r) * C + c;
+      *reinterpret_cast<uint32_t*>(out + at) = v;
+      if (RES) {  // O normalised by the bf16 probabilities P.V took, less v
+        const float ib = 1.f / lb[r];
+        *reinterpret_cast<uint32_t*>(out_res + at) = pack_bf16_residual(
+            (o[4 * nd + 2 * r] + add0) * ib, (o[4 * nd + 2 * r + 1] + add1) * ib, v);
+      }
+    }
   }
 }
 
@@ -806,21 +848,25 @@ long long attention_hd_launches[2] = {0, 0};
 
 template <int DP>
 static cudaError_t launch_attention_hd_dp(const bf16* qkv, long long q_bstride, int q_ld, int d,
-                                          bf16* out, float* lse, bf16* cls, const float* pol,
-                                          int B, int N, int H, float scale, float eps,
-                                          cudaStream_t stream) {
+                                          bf16* out, bf16* out_res, float* lse, bf16* cls,
+                                          const float* pol, int B, int N, int H, float scale,
+                                          float eps, cudaStream_t stream) {
   // the ring: three slots where two CTAs still fit an SM's 228 KB, else two
   const bool policy = pol != nullptr, with_cls = cls != nullptr;
   const int ring = 2 * (hd_fwd_smem(DP, N, 3, policy, with_cls) + 1024) <= 233472 ? 3 : 2;
   const size_t smem = hd_fwd_smem(DP, N, ring, policy, with_cls);
-  auto kernel = pol ? attention_hd_kernel<DP, true> : attention_hd_kernel<DP, false>;
+  auto kernel = pol ? (out_res ? attention_hd_kernel<DP, true, true>
+                               : attention_hd_kernel<DP, true, false>)
+                    : (out_res ? attention_hd_kernel<DP, false, true>
+                               : attention_hd_kernel<DP, false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int nqb = (N + HD_BLK - 1) / HD_BLK;
   const dim3 grid((nqb + HD_FWD_WG - 1) / HD_FWD_WG, B * H);
-  kernel<<<grid, 128 * HD_FWD_WG, smem, stream>>>(qkv, q_bstride, q_ld, d, out, lse, cls, pol, N,
-                                                  H, scale, eps, ring, hd_piece_bytes(d));
+  kernel<<<grid, 128 * HD_FWD_WG, smem, stream>>>(qkv, q_bstride, q_ld, d, out, out_res, lse,
+                                                  cls, pol, N, H, scale, eps, ring,
+                                                  hd_piece_bytes(d));
   err = cudaGetLastError();
   if (err == cudaSuccess) ++attention_hd_launches[0];
   return err;
@@ -829,13 +875,13 @@ static cudaError_t launch_attention_hd_dp(const bf16* qkv, long long q_bstride, 
 // the d != 64 core: rows as launch_attention_strided takes them (4-byte
 // aligned suffices), lse (B, H, N) float4 or null
 static cudaError_t launch_attention_hd(const bf16* qkv, long long q_bstride, int q_ld, int d,
-                                       bf16* out, float* lse, bf16* cls, const float* pol, int B,
-                                       int N, int H, float scale, float eps,
-                                       cudaStream_t stream) {
-#define D2S_HD_FWD(DP)                                                                      \
-  case DP:                                                                                  \
-    return launch_attention_hd_dp<DP>(qkv, q_bstride, q_ld, d, out, lse, cls, pol, B, N, H, \
-                                      scale, eps, stream);
+                                       bf16* out, bf16* out_res, float* lse, bf16* cls,
+                                       const float* pol, int B, int N, int H, float scale,
+                                       float eps, cudaStream_t stream) {
+#define D2S_HD_FWD(DP)                                                                    \
+  case DP:                                                                                \
+    return launch_attention_hd_dp<DP>(qkv, q_bstride, q_ld, d, out, out_res, lse, cls, pol, \
+                                      B, N, H, scale, eps, stream);
   switch (hd_pad(d)) {
     D2S_HD_FWD(16)
     D2S_HD_FWD(32)
@@ -855,18 +901,24 @@ static cudaError_t launch_attention_hd(const bf16* qkv, long long q_bstride, int
 // (both multiples of 8); out is (B*N, C) packed, C = H d. Heads of d = 64
 // up to ATT_SHORT_N tokens take attention_kernel, longer ones and every
 // other even d up to 128 attention_hd_kernel (att_on_hd; its lse is always
-// float4), up to hd_max_tokens. Also launched by block_bwd.cu (the packed
-// backward's recompute).
+// float4), up to hd_max_tokens. Also launched by block_bwd.cu (the
+// backwards' recompute), which takes out_res: where not null, (B*N, C)
+// bf16, the output's P.V normalised by the sum of the bf16 probabilities
+// it took, less out (their sum is that output to ~2^-17 of its size), so
+// that the backward's D = rowsum(dO * (out + out_res)) is sum_j p_ij dP_ij
+// with probabilities that sum to 1 (the kernels' RES instantiations).
 cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q_ld, bf16* out,
                                      float* lse, bf16* cls, const float* pol, int B, int N,
-                                     int H, int d, float scale, float eps, cudaStream_t stream) {
+                                     int H, int d, float scale, float eps, cudaStream_t stream,
+                                     bf16* out_res = nullptr) {
   if (!att_takes(N, d, pol != nullptr, false) || q_ld < 3 * H * d || q_ld % 8 || q_bstride % 8)
     return cudaErrorInvalidValue;
   if (att_on_hd(N, d))
-    return launch_attention_hd(qkv, q_bstride, q_ld, d, out, lse, cls, pol, B, N, H, scale, eps,
-                               stream);
+    return launch_attention_hd(qkv, q_bstride, q_ld, d, out, out_res, lse, cls, pol, B, N, H,
+                               scale, eps, stream);
   const size_t smem = att_smem_bytes(N, pol != nullptr);
-  auto kernel = pol ? attention_kernel<true> : attention_kernel<false>;
+  auto kernel = pol ? (out_res ? attention_kernel<true, true> : attention_kernel<true, false>)
+                    : (out_res ? attention_kernel<false, true> : attention_kernel<false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -881,19 +933,19 @@ cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q
   const int units = (att_padded(N) / 16 + ATT_QT - 1) / ATT_QT;
   const int slices = std::max(1, std::min(units, sms * std::max(fit, 1) / (B * H)));
   const dim3 grid(slices, B * H);
-  kernel<<<grid, ATT_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, out, lse, cls, pol, N, H,
-                                              scale, eps);
+  kernel<<<grid, ATT_THREADS, smem, stream>>>(qkv, q_bstride, q_ld, out, out_res, lse, cls, pol,
+                                              N, H, scale, eps);
   return cudaGetLastError();
 }
 
 // qkv packed (B*N, 3C); also launched by quant_block.cu (the int8 block's
-// bf16 attention core)
+// bf16 attention core); out_res as launch_attention_strided's
 cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
                              const float* pol, int B, int N, int H, int d, float scale, float eps,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, bf16* out_res = nullptr) {
   const int ld = 3 * H * d;
   return launch_attention_strided(qkv, (long long)N * ld, ld, out, lse, cls, pol, B, N, H, d,
-                                  scale, eps, stream);
+                                  scale, eps, stream, out_res);
 }
 
 // Stage 1, qkv = LN1(x) Wqkv^T + bqkv over M rows (the rows' LayerNorm
@@ -947,11 +999,12 @@ static cudaError_t attention_half(const bf16* x, bf16* out, bf16* qkv, bf16* att
                                   const float* bqkv, const bf16* wproj, const float* bproj,
                                   float* lse, bf16* cls, const float* policy, const float* sa,
                                   int B, int N, int C, int H, float scale, float ln_eps,
-                                  float eps, cudaStream_t stream) {
+                                  float eps, cudaStream_t stream, bf16* attn_res = nullptr) {
   const int M = B * N;
   cudaError_t err = qkv_stage(x, qkv, stats, ln_w, ln_b, wqkv, bqkv, M, C, ln_eps, stream);
   if (err != cudaSuccess) return err;
-  err = launch_attention(qkv, attn, lse, cls, policy, B, N, H, C / H, scale, eps, stream);
+  err = launch_attention(qkv, attn, lse, cls, policy, B, N, H, C / H, scale, eps, stream,
+                         attn_res);
   if (err != cudaSuccess) return err;
   return proj_stage(x, attn, out, wproj, bproj, sa, N, M, C, stream);
 }
@@ -1000,6 +1053,14 @@ static cudaError_t mlp_half(const bf16* x, bf16* out, bf16* hid, bf16* preact, f
   return launch_ln_gemm(g, stream);
 }
 
+int block_forward(const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf,
+                  void* hid_buf, void* stats_buf, const void* ln1_w, const void* ln1_b,
+                  const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
+                  const void* ln2_w, const void* ln2_b, const void* w1, const void* b1,
+                  const void* w2, const void* b2, void* preact, void* lse, void* cls,
+                  const void* policy, const void* sa, const void* sm, int B, int N, int C, int H,
+                  int hidden, float scale, float ln_eps, float eps, void* stream, void* attn_res);
+
 }  // namespace d2s
 
 using d2s::bf16;
@@ -1023,6 +1084,23 @@ extern "C" int d2s_block_forward(
     const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
     void* cls, const void* policy, const void* sa, const void* sm, int B, int N, int C, int H,
     int hidden, float scale, float ln_eps, float eps, void* stream) {
+  return d2s::block_forward(x, out, qkv_buf, attn_buf, mid_buf, hid_buf, stats_buf, ln1_w,
+                            ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2,
+                            preact, lse, cls, policy, sa, sm, B, N, C, H, hidden, scale, ln_eps,
+                            eps, stream, nullptr);
+}
+
+// d2s_block_forward with attn_res: where not null, (B*N, C) bf16, the
+// attention output's out_res (launch_attention_strided); block_bwd.cu's
+// recompute takes it.
+int d2s::block_forward(const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf,
+                       void* hid_buf, void* stats_buf, const void* ln1_w, const void* ln1_b,
+                       const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
+                       const void* ln2_w, const void* ln2_b, const void* w1, const void* b1,
+                       const void* w2, const void* b2, void* preact, void* lse, void* cls,
+                       const void* policy, const void* sa, const void* sm, int B, int N, int C,
+                       int H, int hidden, float scale, float ln_eps, float eps, void* stream,
+                       void* attn_res) {
   if (!d2s::head_width_ok(C, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = d2s::attention_half(
@@ -1032,7 +1110,8 @@ extern "C" int d2s_block_forward(
       static_cast<const bf16*>(wqkv), static_cast<const float*>(bqkv),
       static_cast<const bf16*>(wproj), static_cast<const float*>(bproj),
       static_cast<float*>(lse), static_cast<bf16*>(cls), static_cast<const float*>(policy),
-      static_cast<const float*>(sa), B, N, C, H, scale, ln_eps, eps, s);
+      static_cast<const float*>(sa), B, N, C, H, scale, ln_eps, eps, s,
+      static_cast<bf16*>(attn_res));
   if (err != cudaSuccess) return (int)err;
   return (int)d2s::mlp_half(
       static_cast<const bf16*>(mid_buf), static_cast<bf16*>(out), static_cast<bf16*>(hid_buf),

@@ -21,7 +21,8 @@
 // its A @ W with W in the (out, in) layout; the recompute runs the
 // forward's own GEMMs on the same tiles, so its qkv has the forward's bits):
 //   1. recompute  d2s_block_forward without its fc2 stage (x_mid with sa),
-//                 keeping qkv, the attention output O, x_mid, h = GELU(y),
+//                 keeping qkv, the attention output O (bf16, and the rest
+//                 of it in fp32 for D below), x_mid, h = GELU(y),
 //                 the pre-activation
 //                 y and each attention row's statistics (plain: log-sum-exp;
 //                 policy: max, denominator, ties); LN1(x) and LN2(x_mid)
@@ -40,7 +41,14 @@
 //                 ATT_SHORT_N = 800, over 2-3 CTAs: the long path below;
 //                 past 800 attention_hd_bwd_kernel, as at other widths):
 //                 P = exp(scale q.k - lse),
-//                 D = rowsum(dO * O), dS = P * (dO V^T - D), dV = P^T dO,
+//                 D = rowsum(dO * O) with O the recompute's fp32 output,
+//                 normalised by the bf16 probabilities its P.V took (its
+//                 bf16 copy plus out_res, launch_attention_strided's):
+//                 where V's rows share a large part, as deep in ViT-H, D
+//                 is a small difference of large terms, and the bf16 O
+//                 alone moved dQ and dK by ~3% (the TPU kernel sums
+//                 dP * P in fp32),
+//                 dS = P * (dO V^T - D), dV = P^T dO,
 //                 dQ = scale dS K, dK = scale dS^T Q in one pass over the
 //                 scores on wgmma (the design below); writes packed dqkv
 //                 (policy mode below)
@@ -182,21 +190,24 @@
 
 #include "attention_hd.cuh"
 
-extern "C" int d2s_block_forward(
-    const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* hid_buf,
-    void* stats_buf, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
-    const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
-    const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
-    void* cls, const void* policy, const void* sa, const void* sm, int B, int N, int C, int H,
-    int hidden, float scale, float ln_eps, float eps, void* stream);
-
 namespace d2s {
 
+// d2s_block_forward, writing out_res beside the attention output too
+// (launch_attention_strided's)
+int block_forward(const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf,
+                  void* hid_buf, void* stats_buf, const void* ln1_w, const void* ln1_b,
+                  const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
+                  const void* ln2_w, const void* ln2_b, const void* w1, const void* b1,
+                  const void* w2, const void* b2, void* preact, void* lse, void* cls,
+                  const void* policy, const void* sa, const void* sm, int B, int N, int C, int H,
+                  int hidden, float scale, float ln_eps, float eps, void* stream, void* attn_res);
 // block.cu's attention core, on qkv rows q_ld apart and samples q_bstride
-// apart, heads of width d (at d != 64, lse is (B, H, N) float4 in both modes)
+// apart, heads of width d (at d != 64, lse is (B, H, N) float4 in both modes);
+// out_res, where not null, what rounding out to bf16 left out
 cudaError_t launch_attention_strided(const bf16* qkv, long long q_bstride, int q_ld, bf16* out,
                                      float* lse, bf16* cls, const float* pol, int B, int N,
-                                     int H, int d, float scale, float eps, cudaStream_t stream);
+                                     int H, int d, float scale, float eps, cudaStream_t stream,
+                                     bf16* out_res = nullptr);
 // block.cu's stage 1, qkv = LN1(x) Wqkv^T + bqkv
 cudaError_t qkv_stage(const bf16* x, bf16* qkv, float2* stats, const float* ln_w,
                       const float* ln_b, const bf16* wqkv, const float* bqkv, int M, int C,
@@ -498,7 +509,8 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
     attention_bwd_kernel(const __grid_constant__ CUtensorMap tm_qkv,
                          const __grid_constant__ CUtensorMap tm_dout,
                          const bf16* __restrict__ qkv, long long q_bstride, int q_ld,
-                         const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                         const bf16* __restrict__ o, const bf16* __restrict__ o_res,
+                         const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ pol,
                          const float* __restrict__ gcls, bf16* __restrict__ dqkv,
                          float* __restrict__ dpol_part, float* __restrict__ kv_part, int N,
@@ -602,7 +614,11 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
     if (gcls) Gs[k] = k < N ? gcls[(long long)bh * N + k] : 0.f;
   }
   // D = rowsum(dO * O), the softmax backward's sum_j P_ij dP_ij, for the
-  // warpgroup's query rows: two threads a row, 16-byte loads
+  // warpgroup's query rows: two threads a row, 16-byte loads. O is the
+  // forward's fp32 output normalised by the bf16 probabilities its P.V took:
+  // its bf16 copy plus o_res (where V's rows share a large part, D is a
+  // small difference of large terms, and O's bf16 rounding alone would move
+  // dQ and dK by percents)
   for (int qq = 0; qq < QPW; ++qq) {
     const int qb = wg * QPW + qq;
     if (qb >= QBl) break;
@@ -614,10 +630,14 @@ static __global__ void __launch_bounds__(QPW == 1 ? 4 * 128 : 2 * 128, 1)
       for (int c = 0; c < 32; c += 8) {
         const uint4 ov = *reinterpret_cast<const uint4*>(o + at + c);
         const uint4 dv = *reinterpret_cast<const uint4*>(dout + at + c);
+        const uint4 rv = o_res ? *reinterpret_cast<const uint4*>(o_res + at + c)
+                               : make_uint4(0u, 0u, 0u, 0u);
         const bf16* oe = reinterpret_cast<const bf16*>(&ov);
         const bf16* de = reinterpret_cast<const bf16*>(&dv);
+        const bf16* re = reinterpret_cast<const bf16*>(&rv);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) acc += __bfloat162float(oe[k]) * __bfloat162float(de[k]);
+        for (int k = 0; k < 8; ++k)
+          acc += (__bfloat162float(oe[k]) + __bfloat162float(re[k])) * __bfloat162float(de[k]);
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -1217,7 +1237,8 @@ __device__ __forceinline__ void hd_dq_chunk(const unsigned char* stg, const unsi
 template <int DP, bool POLICY>
 static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // plain, d <= 16: two CTAs an SM
     attention_hd_bwd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
-                            const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                            const bf16* __restrict__ o, const bf16* __restrict__ o_res,
+                            const bf16* __restrict__ dout,
                             const float4* __restrict__ st, const float* __restrict__ pol,
                             const float* __restrict__ gcls, bf16* __restrict__ dqkv,
                             float* __restrict__ dpol_part, float* __restrict__ dq_acc, int N,
@@ -1250,6 +1271,7 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
   const bf16* base = qkv + (long long)b * q_bstride + h * d;
   const bf16* dbase = dout + (long long)b * N * C + h * d;
   const bf16* obase = o + (long long)b * N * C + h * d;
+  const bf16* rbase = o_res ? o_res + (long long)b * N * C + h * d : nullptr;
   const long long srow = (long long)bh * N;
   const long long ld3 = 3LL * C;
   const float cc = POLICY ? eps / N : 0.f;
@@ -1387,8 +1409,10 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
   }
   __syncthreads();
   // each real row's (lse or m, 1 / den, D, gmx), a segment a row: D =
-  // rowsum(dO * O) (row 0 with the fold), and in policy mode the max path's
-  // gmx_i = (c / den_i) (dO_i . colsum(V) - N D_i) over the row's ties
+  // rowsum(dO * O) (row 0 with the fold; O its bf16 copy plus o_res, as
+  // attention_bwd_kernel takes it), and in policy
+  // mode the max path's gmx_i = (c / den_i) (dO_i . colsum(V) - N D_i) over
+  // the row's ties
   for (int r0 = wid * U * RPW; r0 < N; r0 += 8 * U * RPW) {
     float Du[U], dvu[U];
 #pragma unroll
@@ -1400,7 +1424,12 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
       for (int k = 0; k < PPL; ++k) {
         const int c = 2 * (sl + SEG * k);
         if (r < N && c < d) {
-          const float2 ov = pair(obase + at + c), dov = pair(dbase + at + c);
+          float2 ov = pair(obase + at + c);
+          const float2 dov = pair(dbase + at + c);
+          if (rbase) {
+            const float2 rv = pair(rbase + at + c);
+            ov = make_float2(ov.x + rv.x, ov.y + rv.y);
+          }
           Du[u] += ov.x * dov.x + ov.y * dov.y;
           if (POLICY) dvu[u] += dov.x * Cv[c] + dov.y * Cv[c + 1];
         }
@@ -1621,7 +1650,8 @@ static __global__ void __launch_bounds__(256, DP == 16 && !POLICY ? 2 : 1)  // p
 
 template <int DP>
 static cudaError_t launch_attention_hd_bwd_dp(const bf16* qkv, long long q_bstride, int q_ld,
-                                              int d, const bf16* o, const bf16* dout, float4* st,
+                                              int d, const bf16* o, const bf16* o_res,
+                                              const bf16* dout, float4* st,
                                               const float* pol, const float* gcls, bf16* dqkv,
                                               float* dpol_part, float* dq_acc, int B, int N,
                                               int H, float scale, float eps,
@@ -1634,9 +1664,9 @@ static cudaError_t launch_attention_hd_bwd_dp(const bf16* qkv, long long q_bstri
   if (err != cudaSuccess) return err;
   const int splits = hd_bwd_splits(N);
   const int per = splits > 1 ? HD_BWD_PASSES : hd_bwd_passes(N);
-  kernel<<<dim3(B * H, splits), 256, smem, stream>>>(qkv, q_bstride, q_ld, d, o, dout, st, pol,
-                                                     gcls, dqkv, dpol_part, dq_acc, N, H, scale,
-                                                     eps, ring, hd_piece_bytes(d), per);
+  kernel<<<dim3(B * H, splits), 256, smem, stream>>>(qkv, q_bstride, q_ld, d, o, o_res, dout, st,
+                                                     pol, gcls, dqkv, dpol_part, dq_acc, N, H,
+                                                     scale, eps, ring, hd_piece_bytes(d), per);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ++attention_hd_launches[1];
   if (splits == 1) return cudaSuccess;
@@ -1650,14 +1680,15 @@ static cudaError_t launch_attention_hd_bwd_dp(const bf16* qkv, long long q_bstri
 // dpol_part (B, H, N) or null; dq_acc (hd_bwd_splits, B*N, C) fp32 past 128
 // tokens
 static cudaError_t launch_attention_hd_bwd(const bf16* qkv, long long q_bstride, int q_ld, int d,
-                                           const bf16* o, const bf16* dout, float4* st,
-                                           const float* pol, const float* gcls, bf16* dqkv,
-                                           float* dpol_part, float* dq_acc, int B, int N, int H,
-                                           float scale, float eps, cudaStream_t stream) {
-#define D2S_HD_BWD(DP)                                                                      \
-  case DP:                                                                                  \
-    return launch_attention_hd_bwd_dp<DP>(qkv, q_bstride, q_ld, d, o, dout, st, pol, gcls, \
-                                          dqkv, dpol_part, dq_acc, B, N, H, scale, eps,    \
+                                           const bf16* o, const bf16* o_res, const bf16* dout,
+                                           float4* st, const float* pol, const float* gcls,
+                                           bf16* dqkv, float* dpol_part, float* dq_acc, int B,
+                                           int N, int H, float scale, float eps,
+                                           cudaStream_t stream) {
+#define D2S_HD_BWD(DP)                                                                       \
+  case DP:                                                                                   \
+    return launch_attention_hd_bwd_dp<DP>(qkv, q_bstride, q_ld, d, o, o_res, dout, st, pol, \
+                                          gcls, dqkv, dpol_part, dq_acc, B, N, H, scale, eps, \
                                           stream);
   switch (hd_pad(d)) {
     D2S_HD_BWD(16)
@@ -1682,18 +1713,19 @@ static cudaError_t launch_attention_hd_bwd(const bf16* qkv, long long q_bstride,
 // the forward's float4 statistics; kv_part dQ's fp32 sum over the passes),
 // up to hd_max_tokens.
 static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, int q_ld,
-                                        const bf16* o, const bf16* dout, float* lse,
-                                        const float* pol, const float* gcls, bf16* dqkv,
-                                        float* dpol_part, float* kv_part, int B, int N, int H,
-                                        int d, float scale, float eps, cudaStream_t stream) {
+                                        const bf16* o, const bf16* o_res, const bf16* dout,
+                                        float* lse, const float* pol, const float* gcls,
+                                        bf16* dqkv, float* dpol_part, float* kv_part, int B, int N,
+                                        int H, int d, float scale, float eps,
+                                        cudaStream_t stream) {
   const bool policy = pol != nullptr;
   if (B <= 0 || !att_takes(N, d, policy, true) || q_ld < 3 * H * d || q_ld % 8 ||
       q_bstride % 8 || (kv_part == nullptr) != (kv_part_floats(B, N, H, d, policy) == 0))
     return cudaErrorInvalidValue;
   if (att_on_hd(N, d)) {
-    return launch_attention_hd_bwd(qkv, q_bstride, q_ld, d, o, dout, reinterpret_cast<float4*>(lse),
-                                   pol, gcls, dqkv, dpol_part, kv_part, B, N, H, scale, eps,
-                                   stream);
+    return launch_attention_hd_bwd(qkv, q_bstride, q_ld, d, o, o_res, dout,
+                                   reinterpret_cast<float4*>(lse), pol, gcls, dqkv, dpol_part,
+                                   kv_part, B, N, H, scale, eps, stream);
   }
   AbLayout l;
   cudaError_t err = ab_plan(N, policy, gcls != nullptr, &l);
@@ -1713,8 +1745,8 @@ static cudaError_t launch_attention_bwd(const bf16* qkv, long long q_bstride, in
     return cudaErrorInvalidValue;
   const int splits = ab_splits(N, policy);
   ab_kernel(policy, l.qpw, splits > 1)<<<dim3(B * H, splits), l.wgs * 128, l.bytes, stream>>>(
-      tq, td, qkv, q_bstride, q_ld, o, dout, lse, pol, gcls, dqkv, dpol_part, kv_part, N,
-      l.lqb, H, scale, eps, l.ring, l.stages);
+      tq, td, qkv, q_bstride, q_ld, o, o_res, dout, lse, pol, gcls, dqkv, dpol_part, kv_part,
+      N, l.lqb, H, scale, eps, l.ring, l.stages);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ++attention_bwd_launches;
@@ -1739,7 +1771,7 @@ static cudaError_t launch_sum_heads(const float* part, float* out, int B, int H,
 
 // scratch of d2s_attention_block_backward
 struct AttnScratch {
-  bf16 *qkv, *attn, *ln1o, *dattn, *dqkv;
+  bf16 *qkv, *attn, *ores, *ln1o, *dattn, *dqkv;
   float *lse, *dpol_part, *kv_part, *dln, *work;
   float2 *stats, *st1;
 };
@@ -1755,6 +1787,7 @@ static size_t carve_attn(char* base, int B, int N, int C, int H, bool policy, At
   const size_t e2 = sizeof(bf16), e4 = sizeof(float);
   s->qkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
   s->attn = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->ores = reinterpret_cast<bf16*>(take(M * C * e2));
   s->ln1o = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dattn = reinterpret_cast<bf16*>(take(M * C * e2));
   s->dqkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
@@ -1782,7 +1815,7 @@ static bool attn_shapes_ok(int B, int N, int C, int H, bool policy) {
 // ---- scratch ----------------------------------------------------------------
 
 struct Scratch {
-  bf16 *qkv, *attn, *mid, *hid, *pre, *ln1o, *ln2o, *dy, *dmid_b, *dattn, *dqkv;
+  bf16 *qkv, *attn, *ores, *mid, *hid, *pre, *ln1o, *ln2o, *dy, *dmid_b, *dattn, *dqkv;
   float *lse, *dln, *dmid_f, *work, *dpol_part, *kv_part;
   float2 *stats, *st1, *st2;
 };
@@ -1802,6 +1835,7 @@ static size_t carve(char* base, int B, int N, int C, int H, int hidden, bool pol
   const size_t e2 = sizeof(bf16), e4 = sizeof(float);
   s->qkv = reinterpret_cast<bf16*>(take(M * 3 * C * e2));
   s->attn = reinterpret_cast<bf16*>(take(M * C * e2));
+  s->ores = reinterpret_cast<bf16*>(take(M * C * e2));
   s->mid = reinterpret_cast<bf16*>(take(M * C * e2));
   s->hid = reinterpret_cast<bf16*>(take(M * hidden * e2));
   s->pre = reinterpret_cast<bf16*>(take(M * hidden * e2));
@@ -1936,8 +1970,9 @@ extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H
 // plain mode); eps: the policy softmax's smoothing. sa, sm: (B) fp32
 // DropPath scales of the attention and the MLP branch, each or both null
 // (no scale); they get no gradient. scratch:
-// d2s_block_backward_scratch_bytes(...) bytes. Requires C == d * H <= 768 with
-// an even head width d up to 128,
+// d2s_block_backward_scratch_bytes(...) bytes. Requires C == d * H with an
+// even head width d up to 128, C a multiple of 8 up to
+// d2s_ln_backward_max_width() (norm.cu's LayerNorm backward),
 // hidden % 8 == 0, N up to hd_max_tokens (attention_hd.cuh), 16-byte
 // aligned pointers.
 extern "C" int d2s_block_backward(
@@ -1964,10 +1999,10 @@ extern "C" int d2s_block_backward(
   auto w = [](const void* p) { return static_cast<const bf16*>(p); };
 
   // 1. recompute
-  int rc = d2s_block_forward(x, nullptr, s.qkv, s.attn, s.mid, s.hid, s.stats, ln1_w, ln1_b,
-                             wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, s.pre,
-                             s.lse, nullptr, policy, sa, nullptr, B, N, C, H, hidden, scale,
-                             ln_eps, eps, stream);
+  int rc = block_forward(x, nullptr, s.qkv, s.attn, s.mid, s.hid, s.stats, ln1_w, ln1_b, wqkv,
+                         bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, s.pre, s.lse, nullptr,
+                         policy, sa, nullptr, B, N, C, H, hidden, scale, ln_eps, eps, stream,
+                         s.ores);
   if (rc != 0) return rc;
   cudaError_t err = launch_ln_apply(xb, f(ln1_w), f(ln1_b), s.ln1o, s.st1, M, C, ln_eps, st);
   if (err != cudaSuccess) return (int)err;
@@ -2005,9 +2040,10 @@ extern "C" int d2s_block_backward(
     return (int)err;
 
   // 4. attention core
-  if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.dattn, s.lse,
-                                  f(policy), nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr,
-                                  s.kv_part, B, N, H, C / H, scale, eps, st)) != cudaSuccess)
+  if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.ores, s.dattn,
+                                  s.lse, f(policy), nullptr, s.dqkv,
+                                  d_policy ? s.dpol_part : nullptr, s.kv_part, B, N, H, C / H,
+                                  scale, eps, st)) != cudaSuccess)
     return (int)err;
   if (d_policy && (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, C / H, st)) !=
                       cudaSuccess)
@@ -2030,8 +2066,9 @@ extern "C" int d2s_block_backward(
 // bf16, the cotangent of the attention output. gcls: (B, H, N) fp32, the
 // cotangent of the CLS rows, or null (no fold). policy: (B, N) fp32 keep
 // policy or null; d_policy: its (B, N) fp32 gradient or null. The forward
-// is recomputed from qkv first (as the TPU kernel recomputes P): o (B*N, C)
-// bf16 and stats (B, H, N) fp32 (policy mode float4) are its scratch,
+// is recomputed from qkv first (as the TPU kernel recomputes P): o_buf (2,
+// B*N, C) bf16 (its output, then its out_res: launch_attention_strided) and
+// stats (B, H, N) fp32 (policy mode float4) are its scratch,
 // dpol_part dPolicy's partials (d2s_attention_bwd_part_floats(..., 1)
 // floats, fp32; null without d_policy) and kv_part the core backward's
 // other partials (d2s_attention_bwd_part_floats(..., 0) floats; null where
@@ -2053,11 +2090,13 @@ extern "C" int d2s_attention_packed_backward(const void* qkv, long long q_bstrid
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* q = static_cast<const bf16*>(qkv);
   const float* pol = static_cast<const float*>(policy);
-  cudaError_t err = launch_attention_strided(q, q_bstride, q_ld, static_cast<bf16*>(o_buf),
+  bf16* o = static_cast<bf16*>(o_buf);
+  bf16* o_res = o + (long long)B * N * C;
+  cudaError_t err = launch_attention_strided(q, q_bstride, q_ld, o,
                                              static_cast<float*>(stats_buf), nullptr, pol, B, N,
-                                             H, d, scale, eps, st);
+                                             H, d, scale, eps, st, o_res);
   if (err != cudaSuccess) return (int)err;
-  err = launch_attention_bwd(q, q_bstride, q_ld, static_cast<const bf16*>(o_buf),
+  err = launch_attention_bwd(q, q_bstride, q_ld, o, o_res,
                              static_cast<const bf16*>(g), static_cast<float*>(stats_buf),
                              pol, static_cast<const float*>(gcls), static_cast<bf16*>(dqkv),
                              d_policy ? static_cast<float*>(dpol_part) : nullptr,
@@ -2131,8 +2170,8 @@ extern "C" long long d2s_attention_block_backward_scratch_bytes(int B, int N, in
 // needed); the six gradients fp32 in the weights' shapes (d_bqkv null when
 // bqkv is). policy: (B, N) fp32 keep policy or null; d_policy: its (B, N)
 // fp32 gradient or null. scratch: d2s_attention_block_backward_scratch_bytes
-// bytes. Requires C == d * H <= 768 (d even, at most 128), N up to
-// hd_max_tokens,
+// bytes. Requires C == d * H (d even, at most 128) a multiple of 8 up to
+// d2s_ln_backward_max_width(), N up to hd_max_tokens,
 // 16-byte aligned pointers.
 extern "C" int d2s_attention_block_backward(
     const void* x, const void* g, void* dx, const void* ln_w, const void* ln_b,
@@ -2161,7 +2200,8 @@ extern "C" int d2s_attention_block_backward(
                               ln_eps, st);
   if (err != cudaSuccess) return (int)err;
   if ((err = launch_attention_strided(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.lse, nullptr,
-                                      pol, B, N, H, C / H, scale, eps, st)) != cudaSuccess)
+                                      pol, B, N, H, C / H, scale, eps, st, s.ores)) !=
+      cudaSuccess)
     return (int)err;
   if ((err = launch_ln_apply(xb, f(ln_w), f(ln_b), s.ln1o, s.st1, M, C, ln_eps, st)) !=
       cudaSuccess)
@@ -2175,8 +2215,8 @@ extern "C" int d2s_attention_block_backward(
     return (int)err;
 
   // the attention core
-  if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.dattn, s.lse,
-                                  pol, nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr,
+  if ((err = launch_attention_bwd(s.qkv, (long long)N * 3 * C, 3 * C, s.attn, s.ores, s.dattn,
+                                  s.lse, pol, nullptr, s.dqkv, d_policy ? s.dpol_part : nullptr,
                                   s.kv_part, B, N, H, C / H, scale, eps, st)) != cudaSuccess)
     return (int)err;
   if (d_policy && (err = launch_sum_heads(s.dpol_part, fo(d_policy), B, H, N, C / H, st)) !=
@@ -2208,7 +2248,8 @@ extern "C" long long d2s_mlp_residual_backward_scratch_bytes(int M, int C, int h
 // the six gradients fp32 in the weights' shapes, summed over the rows in a
 // fixed order. LN(x) and fc1 with GELU are recomputed from x. scratch:
 // d2s_mlp_residual_backward_scratch_bytes(M, C, hidden) bytes. Requires
-// C % 32 == 0, C <= 768, hidden % 8 == 0, 16-byte aligned pointers.
+// C a multiple of 8 up to d2s_ln_backward_max_width(), hidden % 8 == 0,
+// 16-byte aligned pointers.
 extern "C" int d2s_mlp_residual_backward(const void* x, const void* g, void* dx,
                                          const void* ln_w, const void* ln_b, const void* w1,
                                          const void* b1, const void* w2, void* d_ln_w,

@@ -124,6 +124,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t packed) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed));
+}
+
+// (lo, hi) less the bf16 pair `packed`, itself in bf16: where `packed` is
+// (lo, hi) rounded, the pair plus it is (lo, hi) to ~2^-17 of their size
+__device__ __forceinline__ uint32_t pack_bf16_residual(float lo, float hi, uint32_t packed) {
+  const float2 r = bf16x2_to_float2(packed);
+  return pack_bf16(lo - r.x, hi - r.y);
+}
+
 // c += a (16x16, row) * b (16x8, col); fragment layouts of the PTX ISA,
 // g = lane / 4, t = lane % 4:
 //   a: {(g, 2t..2t+1), (g+8, 2t..2t+1), (g, 2t+8..2t+9), (g+8, 2t+8..2t+9)}

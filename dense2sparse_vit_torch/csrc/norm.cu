@@ -32,7 +32,18 @@
 // CTAs (a multiple of the H100's 132 SMs, fixed so that the bits depend on
 // the shapes alone) each walking a contiguous run of rows, keeping dgamma's
 // and dbeta's per-lane sums in registers and adding its warps' sums in
-// order into one partial row each. column_sums: a CTA owns 32 16-byte
+// order into one partial row each. That layout keeps V chunks of dgamma's,
+// dbeta's and gamma's columns on every lane, which past 768 columns (V = 6)
+// outgrows the registers; wider rows (every multiple of 8 up to
+// LN_BWD_MAX_C, and the multiples of 8 below 768 that are no multiple of
+// 32) take ln_bwd_row_kernel: a row spread over the whole CTA, V <= 2
+// chunks a thread, so each column has one owner thread for the CTA's whole
+// run and dgamma's and dbeta's partial rows need no combining; 4 / V rows
+// in flight (their dy, x and residual loaded before either's reductions),
+// each row's two sums reduced by shuffles in a warp and the eight warps'
+// values added in order through shared memory (one barrier a group of
+// rows, double-buffered). Same grid, same partial rows, same reduce.
+// column_sums: a CTA owns 32 16-byte
 // column chunks (one warp's lanes) and a run of rows, its 8 warps striding
 // over the rows with 16-byte loads, added in order through shared memory
 // into one partial row. Both then add their partial rows in one launch of
@@ -44,7 +55,8 @@ namespace d2s {
 
 // launches where each kernel is launched (the block backward's own included),
 // read by d2s_norm_launches
-static long long norm_launches[2];  // [0] ln_bwd, [1] column_sums
+// [0] ln_bwd, [1] column_sums, [2] the ln_bwd launches on ln_bwd_row_kernel
+static long long norm_launches[3];
 
 // The partial rows' plan is fixed at this many CTAs, a multiple of the
 // H100 SXM's SMs, for bits that depend on the shapes alone.
@@ -207,17 +219,139 @@ static __global__ void __launch_bounds__(32 * LNB_WARPS)
   }
 }
 
-// How the kernel lays out a row of C values: 32 lanes a row where C is a
-// multiple of 128 (FULL), 16 where C is 64, 192 or 320 (FULL), else 32
-// lanes with a partial last chunk; V = the chunks a lane, at most 6.
-// lanes 0: not taken (C no multiple of 32, or past 768).
+// A row over the whole CTA, for the widths ln_bwd_kernel does not lay out:
+// chunk j of thread t holds columns 4 (t + LNW_THREADS j) .. + 3 (a chunk
+// past C is skipped), 4 / V rows in flight (for the registers). Rows [m0,
+// m1) of this CTA; part as ln_bwd_kernel's.
+constexpr int LNW_THREADS = 32 * LNB_WARPS;
+constexpr int LNW_ROWS = 4;  // the most rows in flight; divides LNB_STEP
+constexpr int LN_BWD_MAX_C = 2 * 4 * LNW_THREADS;  // V = 2: 2,048 columns
+
+template <int V>
+static __global__ void __launch_bounds__(LNW_THREADS, 2)
+    ln_bwd_row_kernel(const float* __restrict__ dy, const bf16* __restrict__ x,
+                      const float2* __restrict__ stats, const float* __restrict__ gamma,
+                      const bf16* __restrict__ res_b, const float* __restrict__ res_f,
+                      float* __restrict__ dx_f, bf16* __restrict__ dx_b,
+                      float* __restrict__ part, int M, int C, int rows_per_cta) {
+  constexpr int R = LNW_ROWS / V;
+  __shared__ float2 red[2][LNB_WARPS][R];  // (sum dz, sum dz z) per warp and row
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  auto has = [&](int j) { return 4 * (t + LNW_THREADS * j) < C; };
+  float4 gm[V], pg[V], pb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    gm[j] = has(j) ? __ldg(reinterpret_cast<const float4*>(gamma) + t + LNW_THREADS * j)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    pg[j] = pb[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int m0 = blockIdx.x * rows_per_cta;
+  const int m1 = min(M, m0 + rows_per_cta);
+  int buf = 0;
+  // the loop is uniform across the CTA (its barriers need every thread)
+  for (int base = m0; base < m1; base += R, buf ^= 1) {
+    float4 d[R][V], rr[R][V];
+    uint2 xr[R][V];
+    float2 st[R];
+    // rows past m1 and chunks past C read as zeros and add nothing
+#pragma unroll
+    for (int p = 0; p < R; ++p) {
+      const int m = base + p;
+      const bool ok = m < m1;
+      const long long r = (long long)m * C;
+      st[p] = ok ? stats[m] : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int c = 4 * (t + LNW_THREADS * j);
+        const bool in = ok && has(j);
+        d[p][j] = in ? *reinterpret_cast<const float4*>(dy + r + c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        xr[p][j] = in ? *reinterpret_cast<const uint2*>(x + r + c) : make_uint2(0u, 0u);
+        rr[p][j] = !in    ? make_float4(0.f, 0.f, 0.f, 0.f)
+                   : res_b ? bf16x4_to_float4(*reinterpret_cast<const uint2*>(res_b + r + c))
+                   : res_f ? *reinterpret_cast<const float4*>(res_f + r + c)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < R; ++p) {
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float4 xv = bf16x4_to_float4(xr[p][j]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float dd = f4(d[p][j], k);
+          const float z = (f4(xv, k) - st[p].x) * st[p].y;
+          const float dz = dd * f4(gm[j], k);
+          s1 += dz;
+          s2 += dz * z;
+          f4ref(pg[j], k) += dd * z;
+          f4ref(pb[j], k) += dd;
+        }
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) red[buf][warp][p] = make_float2(s1, s2);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < R; ++p) {
+      const int m = base + p;
+      if (m >= m1) continue;
+      float2 tot = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < LNB_WARPS; ++w) {
+        tot.x += red[buf][w][p].x;
+        tot.y += red[buf][w][p].y;
+      }
+      const long long r = (long long)m * C;
+      const float rs = st[p].y, mdz = tot.x / C, mdzz = tot.y / C;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (!has(j)) continue;
+        const int c = 4 * (t + LNW_THREADS * j);
+        const float4 xv = bf16x4_to_float4(xr[p][j]);
+        float4 out;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float dz = f4(d[p][j], k) * f4(gm[j], k);
+          const float z = (f4(xv, k) - st[p].x) * rs;
+          f4ref(out, k) = rs * ((dz - mdz) - z * mdzz) + f4(rr[p][j], k);
+        }
+        if (dx_f) *reinterpret_cast<float4*>(dx_f + r + c) = out;
+        if (dx_b)
+          *reinterpret_cast<uint2*>(dx_b + r + c) =
+              make_uint2(pack_bf16(out.x, out.y), pack_bf16(out.z, out.w));
+      }
+    }
+  }
+  // each column's sums are its owner thread's: the CTA's partial rows as they are
+  float4* part4 = reinterpret_cast<float4*>(part);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    if (!has(j)) continue;
+    const int c4 = t + LNW_THREADS * j;
+    part4[(long long)blockIdx.x * (C / 4) + c4] = pg[j];
+    part4[((long long)gridDim.x + blockIdx.x) * (C / 4) + c4] = pb[j];
+  }
+}
+
+// How the kernels lay out a row of C values: ln_bwd_kernel with 32 lanes a
+// row where C is a multiple of 128 (FULL), 16 where C is 64, 192 or 320
+// (FULL), else 32 lanes with a partial last chunk, V = the chunks a lane, at
+// most 6 (C a multiple of 32 up to 768); every other multiple of 8 up to
+// LN_BWD_MAX_C ln_bwd_row_kernel (lanes = LNW_THREADS, V chunks a thread).
+// lanes 0: not taken.
 struct LnBwdShape {
   int lanes, v;
   bool full;
 };
 
 static inline LnBwdShape ln_bwd_shape(int C) {
-  if (C <= 0 || C % 32 != 0 || C > 768) return {0, 0, false};
+  if (C <= 0 || C % 8 != 0 || C > LN_BWD_MAX_C) return {0, 0, false};
+  if (C % 32 != 0 || C > 768)
+    return {LNW_THREADS, (C + 4 * LNW_THREADS - 1) / (4 * LNW_THREADS), false};
   if (C % 128 == 0) return {32, C / 128, true};
   if (C % 64 == 0 && (C / 64) % 2 == 1 && C <= 320) return {16, C / 64, true};
   return {32, (C + 127) / 128, false};
@@ -277,6 +411,13 @@ cudaError_t launch_ln_bwd(const float* dy, const bf16* x, const float2* stats,
   D2S_LN_BWD(1, 32, false) D2S_LN_BWD(2, 32, false) D2S_LN_BWD(3, 32, false)
   D2S_LN_BWD(4, 32, false) D2S_LN_BWD(5, 32, false) D2S_LN_BWD(6, 32, false)
 #undef D2S_LN_BWD
+  if (sh.lanes == LNW_THREADS) {
+    const auto kernel = sh.v == 1 ? ln_bwd_row_kernel<1> : ln_bwd_row_kernel<2>;
+    kernel<<<ctas, LNW_THREADS, 0, stream>>>(dy, x, stats, gamma, res_b, res_f, dx_f, dx_b,
+                                             work, M, C, rows);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++norm_launches[2];
+  }
   if (err != cudaSuccess) return err;
   ++norm_launches[0];
   return launch_reduce(work, ctas, C, dgamma, stream, work + (long long)ctas * C, ctas, C, dbeta);
@@ -378,11 +519,12 @@ cudaError_t launch_column_sums(const bf16* a, float* out, float* work, int M, in
 
 using d2s::bf16;
 
-// The launches of ln_bwd (which = 0) and column_sums (1) since the last
-// reset, counted where each is launched, inside the backward entries too;
-// set resets the count to `value` when it is 0 or more.
+// The launches of ln_bwd (which = 0), column_sums (1), and of ln_bwd's
+// those on ln_bwd_row_kernel (2) since the last reset, counted where each is
+// launched, inside the backward entries too; set resets the count to
+// `value` when it is 0 or more.
 extern "C" long long d2s_norm_launches(int which, long long value) {
-  if (which < 0 || which > 1) return -1;
+  if (which < 0 || which > 2) return -1;
   if (value >= 0) d2s::norm_launches[which] = value;
   return d2s::norm_launches[which];
 }
@@ -398,7 +540,8 @@ extern "C" long long d2s_ln_backward_workspace_bytes(int M, int C) {
 // bf16, stats (M) float2 (mean, 1/std), gamma (C) fp32, res_b (bf16) or
 // res_f (fp32) or neither, dx_f (fp32) and/or dx_b (bf16) out, dgamma and
 // dbeta (C) fp32 out; work: d2s_ln_backward_workspace_bytes(M, C) bytes.
-// Requires C a multiple of 32 up to 768, 16-byte aligned pointers.
+// Requires C a multiple of 8 up to d2s_ln_backward_max_width(), 16-byte
+// aligned pointers.
 extern "C" int d2s_ln_backward(const void* dy, const void* x, const void* stats,
                                const void* gamma, const void* res_b, const void* res_f,
                                void* dx_f, void* dx_b, void* dgamma, void* dbeta, void* work,
@@ -411,6 +554,9 @@ extern "C" int d2s_ln_backward(const void* dy, const void* x, const void* stats,
       static_cast<float*>(dbeta), static_cast<float*>(work), M, C,
       static_cast<cudaStream_t>(stream));
 }
+
+// The widest row the LayerNorm backward takes (LN_BWD_MAX_C).
+extern "C" int d2s_ln_backward_max_width() { return d2s::LN_BWD_MAX_C; }
 
 // Bytes of workspace d2s_column_sums needs for an (M, N) matrix (fp32: 1
 // for fp32 elements, 0 for bf16).

@@ -51,6 +51,11 @@
 // Row quantization (rowq_kernel) stays a pass of its own: one warp per row,
 // read once into registers (all of a lane's loads in flight), then the
 // LayerNorm's fp32 mean and variance, the absmax and the codes from there.
+// A warp's registers hold 4,096 values (ViT-L's MLP); a longer row (ViT-H's
+// MLP is 5,120 wide, ViT-G's 8,192) is spread over a CTA's eight warps
+// (rowq_row_kernel), its sums and absmax added across them through shared
+// memory, up to 16,384 values. Both read the row once and write its codes
+// once: the same bytes bound.
 // A row's absmax spans 3 to 12 of the producing GEMM's 128-column tiles, so
 // quantizing in that GEMM's epilogue needs a CTA across the whole row or a
 // second pass over it, and a LayerNorm in the consuming GEMM's prologue is
@@ -64,10 +69,13 @@ namespace d2s {
 // block.cu's attention core (plain mode: pol, lse and cls null)
 cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, bf16* cls,
                              const float* pol, int B, int N, int H, int d, float scale, float eps,
-                             cudaStream_t stream);
+                             cudaStream_t stream, bf16* out_res = nullptr);
 
 constexpr float QMAX = 127.f;
 constexpr float SCALE_FLOOR = 1e-8f;
+
+// launches of rowq_row_kernel, wherever launched; read by d2s_quant_launches
+static long long rowq_row_launches;
 
 // 8 consecutive elements as fp32
 __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
@@ -161,14 +169,123 @@ static __global__ void rowq_kernel(const T* __restrict__ in, int M, int K,
   }
 }
 
-// rows of up to 4,096 values (ViT-L's MLP width); CH is the fewest chunks
-// per lane that cover K, from a few instantiations
-constexpr int ROWQ_MAX_K = 4096;
+// A row past ROWQ_WARP_K values over a whole CTA, one CTA a row: thread t
+// holds the 8-value chunks at columns 8t + 8 RQR_THREADS j (j < CH) in
+// registers, loaded once; each of the row's sums and its absmax is a
+// thread's, then its warp's (shuffles), then the warps' in order (shared
+// memory), so the bits depend on K alone. The arithmetic and its roundings
+// are rowq_kernel's.
+constexpr int RQR_THREADS = 256;
+constexpr int RQR_WARPS = RQR_THREADS / 32;
+
+template <typename T, int CH>
+static __global__ void __launch_bounds__(RQR_THREADS)
+    rowq_row_kernel(const T* __restrict__ in, int K, const float* __restrict__ ln_w,
+                    const float* __restrict__ ln_b, float ln_eps, int8_t* __restrict__ codes,
+                    float* __restrict__ scales) {
+  __shared__ float red[RQR_WARPS];
+  const int m = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  // the CTA's sum (max) of one value a thread, added in warp order; the
+  // barrier after the read frees `red` for the next
+  auto cta_sum = [&](float v) {
+    v = warp_sum(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < RQR_WARPS; ++w) s = __fadd_rn(s, red[w]);
+    __syncthreads();
+    return s;
+  };
+  auto cta_max = [&](float v) {
+    v = warp_max(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < RQR_WARPS; ++w) s = fmaxf(s, red[w]);
+    __syncthreads();
+    return s;
+  };
+  auto col = [&](int j) { return 8 * t + 8 * RQR_THREADS * j; };
+  const T* row = in + (long long)m * K;
+  float v[CH][8];
+#pragma unroll
+  for (int j = 0; j < CH; ++j)
+    if (col(j) < K) load8(row + col(j), v[j]);
+  if (ln_w) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+      if (col(j) < K)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += v[j][e];
+    const float mu = __fdiv_rn(cta_sum(s), (float)K);
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+      if (col(j) < K)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float d = __fsub_rn(v[j][e], mu);
+          q = __fadd_rn(q, __fmul_rn(d, d));
+        }
+    const float rs =
+        __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(cta_sum(q), (float)K), ln_eps)));
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = col(j);
+      if (c < K)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[j][e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j][e], mu), rs), __ldg(ln_w + c + e)),
+                              __ldg(ln_b + c + e));
+    }
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < CH; ++j)
+    if (col(j) < K)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[j][e]));
+  const float s = __fdiv_rn(fmaxf(cta_max(amax), SCALE_FLOOR), QMAX);
+  if (t == 0) scales[m] = s;
+  int8_t* out = codes + (long long)m * K;
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int c = col(j);
+    if (c >= K) continue;
+    uint2 packed;
+    int8_t* q = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      q[e] = (int8_t)max(-127, min(127, __float2int_rn(__fdiv_rn(v[j][e], s))));
+    *reinterpret_cast<uint2*>(out + c) = packed;
+  }
+}
+
+// Rows of up to ROWQ_WARP_K values (4,096: ViT-L's MLP width) take
+// rowq_kernel, a warp a row, with CH the fewest chunks a lane that cover K;
+// longer rows, up to ROWQ_MAX_K (16,384: past ViT-e's MLP width of 15,360),
+// rowq_row_kernel, with CH the fewest a thread. Both from a few
+// instantiations.
+constexpr int ROWQ_WARP_K = 4096;
+constexpr int ROWQ_MAX_K = 16384;
 
 template <typename T>
 static cudaError_t launch_rowq(const T* in, int M, int K, const float* ln_w, const float* ln_b,
                                float ln_eps, int8_t* codes, float* scales, cudaStream_t stream) {
   if (M <= 0 || K <= 0 || K % 8 != 0 || K > ROWQ_MAX_K) return cudaErrorInvalidValue;
+  if (K > ROWQ_WARP_K) {
+    const auto kernel = K <= 6144    ? rowq_row_kernel<T, 3>
+                        : K <= 8192  ? rowq_row_kernel<T, 4>
+                        : K <= 12288 ? rowq_row_kernel<T, 6>
+                                     : rowq_row_kernel<T, 8>;
+    kernel<<<M, RQR_THREADS, 0, stream>>>(in, K, ln_w, ln_b, ln_eps, codes, scales);
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) ++rowq_row_launches;
+    return err;
+  }
   constexpr int rows_per_cta = 8;
   const dim3 grid((M + rows_per_cta - 1) / rows_per_cta), block(32 * rows_per_cta);
   if (K <= 512)
@@ -196,7 +313,7 @@ using d2s::bf16;
 // int8 codes in the torch Linear layout (out, in) with fp32 scales per
 // output channel; LayerNorm parameters and biases fp32; bqkv may be null.
 // Requires C == d * H (d even, at most 128: block.cu's cores), C % 16 == 0,
-// hidden % 16 == 0, C and hidden <= 4096,
+// hidden % 16 == 0, C and hidden <= d2s_rowq_max_width() (ROWQ_MAX_K),
 // N up to hd_max_tokens (attention_hd.cuh), 16-byte aligned pointers.
 extern "C" int d2s_block_int8_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* act_buf,
@@ -284,4 +401,33 @@ extern "C" int d2s_block_int8_forward(
   q.N = C;
   q.K = hidden;
   return (int)d2s::launch_qgemm(q, s);
+}
+
+// The longest row the row quantization takes (ROWQ_MAX_K).
+extern "C" int d2s_rowq_max_width() { return d2s::ROWQ_MAX_K; }
+
+// The launches of rowq_row_kernel (which = 0: the rows past 4,096 values)
+// since the last reset, inside the int8 block too; set resets the count to
+// `value` when it is 0 or more.
+extern "C" long long d2s_quant_launches(int which, long long value) {
+  if (which != 0) return -1;
+  if (value >= 0) d2s::rowq_row_launches = value;
+  return d2s::rowq_row_launches;
+}
+
+// The row quantization alone (launch_rowq, the int8 block's stages 1, 4, 6
+// and 8): in (M, K) bf16 (fp32 = 0) or fp32 (fp32 = 1); with ln_w and ln_b
+// (K) fp32 each row first normalised by its own LayerNorm (ln_eps), else
+// both null; codes (M, K) int8 and scales (M) fp32 out. Requires K a
+// multiple of 8 up to d2s_rowq_max_width(), 16-byte aligned pointers.
+extern "C" int d2s_rowq(const void* in, int fp32, const void* ln_w, const void* ln_b,
+                        float ln_eps, void* codes, void* scales, int M, int K, void* stream) {
+  const float* w = static_cast<const float*>(ln_w);
+  const float* b = static_cast<const float*>(ln_b);
+  if ((w == nullptr) != (b == nullptr)) return (int)cudaErrorInvalidValue;
+  int8_t* q = static_cast<int8_t*>(codes);
+  float* s = static_cast<float*>(scales);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return fp32 ? (int)d2s::launch_rowq(static_cast<const float*>(in), M, K, w, b, ln_eps, q, s, st)
+              : (int)d2s::launch_rowq(static_cast<const bf16*>(in), M, K, w, b, ln_eps, q, s, st);
 }

@@ -54,9 +54,13 @@ _SIGNATURES = {
                    + [_I] * 4 + [_P],
     "d2s_wgrad": [_P] * 5 + [_I] * 3 + [_P],
     "d2s_qgemm": [_P] * 9 + [_I] * 4 + [_P],
+    "d2s_rowq": [_P, _I, _P, _P, _F, _P, _P, _I, _I, _P],
+    "d2s_rowq_max_width": [],
+    "d2s_quant_launches": [_I, _L],
     "d2s_wgrad_workspace_bytes": [_I] * 3,
     "d2s_ln_backward": [_P] * 11 + [_I] * 2 + [_P],
     "d2s_ln_backward_workspace_bytes": [_I] * 2,
+    "d2s_ln_backward_max_width": [],
     "d2s_column_sums": [_P, _I, _P, _P, _I, _I, _P],
     "d2s_column_sums_workspace_bytes": [_I] * 3,
     "d2s_norm_launches": [_I, _L],
@@ -72,7 +76,8 @@ _RESTYPES = {"d2s_block_backward_scratch_bytes": _L, "d2s_wgrad_workspace_bytes"
              "d2s_mlp_residual_backward_scratch_bytes": _L,
              "d2s_attention_block_backward_scratch_bytes": _L,
              "d2s_ln_backward_workspace_bytes": _L, "d2s_column_sums_workspace_bytes": _L,
-             "d2s_norm_launches": _L, "d2s_attention_bwd_launches": _L,
+             "d2s_norm_launches": _L, "d2s_quant_launches": _L,
+             "d2s_attention_bwd_launches": _L,
              "d2s_attention_hd_launches": _L,
              "d2s_predictor_scratch_bytes": _L, "d2s_attention_bwd_part_floats": _L}
 

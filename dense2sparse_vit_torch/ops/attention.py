@@ -67,7 +67,7 @@ from dense2sparse_vit_torch.ops.block import (
     linear,
     lse_is_float4,
 )
-from dense2sparse_vit_torch.ops.norm import LaunchCount
+from dense2sparse_vit_torch.ops.norm import LaunchCount, check_ln_width
 
 
 def attention_backward_reference(qkv, g, num_heads, scale, *, policy=None, gcls=None,
@@ -181,7 +181,10 @@ def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_head
     gc = None if gcls is None else gcls.detach().float().contiguous()
     want_dpol = pol is not None and policy_grad
     dqkv = torch.empty((B, N, 3 * C), dtype=qkv.dtype, device=dev)
-    o = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
+    # the recomputed forward's output, then the rest of it in fp32 (normalised
+    # by the bf16 probabilities its P.V took): the backward's D = rowsum(dO * O)
+    # takes their sum
+    o = torch.empty((2, B, N, C), dtype=qkv.dtype, device=dev)
     # the forward's row statistics: fp32 (plain mode on the width-64 core), else float4
     four = lse_is_float4(N, C // num_heads, pol is not None)
     stats = torch.empty((B, num_heads, N, 4 if four else 1), dtype=f32, device=dev)
@@ -345,14 +348,16 @@ def attention_block_backward_reference(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_
 
 def _half_block_ptrs(x, weights, num_heads, what, *, policy=False, backward=False):
     """Checks for the half-block kernels (`check_tokens` in the mode and
-    direction given); returns (B, N, C, x's pointer, the pointers of
-    `weights` (a dict over ATTN_BLOCK_KEYS) in that order, their dtypes and
-    shapes)."""
+    direction given, and the backward's LayerNorm width); returns (B, N, C,
+    x's pointer, the pointers of `weights` (a dict over ATTN_BLOCK_KEYS) in
+    that order, their dtypes and shapes)."""
     B, N, C = x.shape
     d = head_width(C, num_heads, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
     check_tokens(N, d, what, policy=policy, backward=backward)
+    if backward:
+        check_ln_width(C, what)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     shapes = {"ln_w": (f32, (C,)), "ln_b": (f32, (C,)), "wqkv": (bf16, (3 * C, C)),
               "bqkv": (f32, (3 * C,)), "wproj": (bf16, (C, C)), "bproj": (f32, (C,))}

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 
 from dense2sparse_vit_torch.ops import _cuda
 from dense2sparse_vit_torch.ops.masked_softmax import softmax_with_policy
+from dense2sparse_vit_torch.ops.norm import check_ln_width
 
 BLOCK_WEIGHT_KEYS = (
     "ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj",
@@ -242,13 +243,16 @@ def head_width(C: int, num_heads: int, what: str) -> int:
 
 def _kernel_args(x, w, num_heads, what, *, policy=False, backward=False):
     """Checks shared by the kernel wrappers (`check_tokens` in the mode and
-    direction given); returns (hidden, the weight pointers in
-    BLOCK_WEIGHT_KEYS order, their dtypes and shapes)."""
+    direction given, and the backward's LayerNorm width); returns (hidden,
+    the weight pointers in BLOCK_WEIGHT_KEYS order, their dtypes and
+    shapes)."""
     B, N, C = x.shape
     d = head_width(C, num_heads, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
     check_tokens(N, d, what, policy=policy, backward=backward)
+    if backward:
+        check_ln_width(C, what)
     hidden = w["w1"].shape[0]
     if hidden % 8:
         raise ValueError(f"{what}: hidden={hidden}: need a multiple of 8")

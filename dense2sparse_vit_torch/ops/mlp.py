@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from dense2sparse_vit_torch.ops import _cuda
 from dense2sparse_vit_torch.ops.block import layer_norm, linear
+from dense2sparse_vit_torch.ops.norm import check_ln_width
 
 MLP_WEIGHT_KEYS = ("ln_w", "ln_b", "w1", "b1", "w2", "b2")
 
@@ -50,16 +51,19 @@ def mlp_residual_backward_reference(x, g, ln_w, ln_b, w1, b1, w2, eps):
     return (dx, *(d.float() for d in dws))
 
 
-def _kernel_ptrs(x, weights, what):
-    """Checks for the kernels; returns (M, C, hidden, the weight pointers in
+def _kernel_ptrs(x, weights, what, *, backward=False):
+    """Checks for the kernels (the backward's LayerNorm width too, with
+    `backward`); returns (M, C, hidden, the weight pointers in
     MLP_WEIGHT_KEYS order, skipping the absent b2)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
     B, N, C = x.shape
     hidden = weights["w1"].shape[0]
-    if hidden % 8 or C % 32 or C > 768:
-        raise ValueError(f"{what}: C={C}, hidden={hidden}: the kernels take C a multiple of "
-                         "32 up to 768 and hidden a multiple of 8")
+    if hidden % 8 or C % 8:
+        raise ValueError(f"{what}: C={C}, hidden={hidden}: the kernels take C and hidden "
+                         "multiples of 8")
+    if backward:
+        check_ln_width(C, what)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     shapes = {"ln_w": (f32, (C,)), "ln_b": (f32, (C,)), "w1": (bf16, (hidden, C)),
               "b1": (f32, (hidden,)), "w2": (bf16, (C, hidden)), "b2": (f32, (C,))}
@@ -95,7 +99,7 @@ def fused_mlp_residual_backward(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Te
         return mlp_residual_backward_reference(x, g, ln_w, ln_b, w1, b1, w2, eps)
     what = "fused_mlp_residual_backward"
     w = dict(zip(MLP_WEIGHT_KEYS, (ln_w, ln_b, w1, b1, w2)))
-    M, C, hidden, ptrs = _kernel_ptrs(x, w, what)
+    M, C, hidden, ptrs = _kernel_ptrs(x, w, what, backward=True)
     dev, f32 = x.device, torch.float32
     x_ptr = _cuda.ptr(x, "x", dev, torch.bfloat16, tuple(x.shape))
     g_ptr = _cuda.ptr(g, "g", dev, torch.bfloat16, tuple(x.shape))

@@ -18,9 +18,17 @@ For CUDA tensors they launch the kernels (`d2s_ln_backward`,
 `column_sums_reference`, the plain versions. `ln_stats` gives the row
 statistics the LayerNorm backward takes, as the kernels compute them.
 
+The LayerNorm backward takes every C that is a multiple of 8 up to
+`LN_BWD_MAX_C` (`ln_backward_takes`, `check_ln_width`: every backward entry
+of the block kernels checks its C with them before it touches the device).
+Rows of a multiple of 32 up to 768 values run `ln_bwd_kernel`, a row over
+the lanes of a warp; every other width `ln_bwd_row_kernel`, a row over a
+whole CTA.
+
 The kernels count their launches where they are launched, inside the
 block backward's own entries too: `LN_BWD.launches` and
-`COLUMN_SUMS.launches` (0 until the kernels' library is loaded).
+`COLUMN_SUMS.launches`, and of `LN_BWD`'s those on `ln_bwd_row_kernel`,
+`LN_BWD_ROWS.launches` (0 until the kernels' library is loaded).
 """
 
 from __future__ import annotations
@@ -54,6 +62,26 @@ class LaunchCount:
 
 LN_BWD = LaunchCount(0)
 COLUMN_SUMS = LaunchCount(1)
+LN_BWD_ROWS = LaunchCount(2)
+
+# The widest row the LayerNorm backward takes: csrc/norm.cu's LN_BWD_MAX_C,
+# 2 chunks of 4 columns on each of a CTA's 256 threads (the library's
+# d2s_ln_backward_max_width).
+LN_BWD_MAX_C = 2048
+
+
+def ln_backward_takes(C: int) -> bool:
+    """Whether the LayerNorm backward takes rows of C values: a multiple of
+    8 up to LN_BWD_MAX_C. Needs no card."""
+    return 0 < C <= LN_BWD_MAX_C and C % 8 == 0
+
+
+def check_ln_width(C: int, what: str) -> None:
+    """ValueError naming the ceiling where the LayerNorm backward, which
+    every backward entry of the block kernels runs, does not take C."""
+    if not ln_backward_takes(C):
+        raise ValueError(f"{what}: C={C}: the LayerNorm backward takes a multiple of 8 up "
+                         f"to {LN_BWD_MAX_C}")
 
 
 def ln_stats(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -84,12 +112,13 @@ def ln_backward(dy: torch.Tensor, x: torch.Tensor, stats: torch.Tensor, ln_w: to
     """(dx (M, C) bf16[, dx fp32 with `fp32_copy`], d_ln_w (C,), d_ln_b (C,))
     for dy (M, C) fp32, x (M, C) bf16, stats (M, 2) fp32 (mean, 1/std; see
     `ln_stats`), ln_w (C,) fp32 and a residual (M, C) in bf16 or fp32 (or
-    None) added to dx. The kernel takes C a multiple of 32 up to 768, and
-    raises on any other."""
+    None) added to dx. The kernel takes C a multiple of 8 up to LN_BWD_MAX_C,
+    and raises on any other."""
     if x.device.type == "cpu":
         return ln_backward_reference(dy, x, stats, ln_w, residual, fp32_copy)
     what = "ln_backward"
     M, C = x.shape
+    check_ln_width(C, what)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     lib = _cuda.library()
     nbytes = lib.d2s_ln_backward_workspace_bytes(M, C)

@@ -27,8 +27,12 @@ exact row-max softmax of `ops.block.attention_reference`: the TPU kernel's
 tensor and runs `quant_block_reference`, the plain torch version, for a CPU
 tensor. Its four products run on the GEMM engine's int8 instantiation
 (`csrc/ln_gemm.cuh`), which `qgemm` runs alone (`csrc/gemm.cu`'s
-`d2s_qgemm`; `qgemm_reference` on the CPU), so that it can be tested and
-timed at the block's shapes.
+`d2s_qgemm`; `qgemm_reference` on the CPU), and its four row quantizations
+on `rowq_kernel` (rows of up to ROW_WARP_MAX values, a warp a row) or
+`rowq_row_kernel` (longer rows up to ROW_MAX, a CTA a row), which
+`row_quantize` runs alone (`d2s_rowq`; `row_quantize_reference`), so that
+each can be tested and timed at the block's shapes. The library counts
+`rowq_row_kernel`'s launches, inside the block too: `ROWQ_ROWS.launches`.
 
 Weights are in the torch Linear layout (out, in): `quantize_weight` takes
 the absmax of each row, where the JAX package, whose kernels are (in, out),
@@ -44,10 +48,16 @@ import torch.nn.functional as F
 
 from dense2sparse_vit_torch.ops import _cuda
 from dense2sparse_vit_torch.ops.block import attention_reference, check_tokens, head_width
+from dense2sparse_vit_torch.ops.norm import LaunchCount
 
 QMAX = 127.0
 SCALE_FLOOR = 1e-8
-ROW_MAX = 4096  # the kernel quantizes rows of at most this many values (ViT-L's MLP)
+# The kernels quantize rows of at most ROW_MAX values (past ViT-e's MLP
+# width of 15,360; the library's d2s_rowq_max_width), those past
+# ROW_WARP_MAX (ViT-L's MLP width) a CTA a row.
+ROW_WARP_MAX = 4096
+ROW_MAX = 16384
+ROWQ_ROWS = LaunchCount(0, "d2s_quant_launches")
 # the quantized block's weights, in the order the kernel takes them
 INT8_WEIGHT_KEYS = (
     "ln1_w", "ln1_b", "wqkv_q", "sqkv", "bqkv", "wproj_q", "sproj", "bproj",
@@ -99,6 +109,62 @@ def quantize_rows(h32: torch.Tensor):
     scales of shape (..., 1)."""
     s = _scale(h32.abs().amax(dim=-1, keepdim=True))
     return _codes(h32, s), s
+
+
+def row_quantize_takes(K: int) -> bool:
+    """Whether the row quantization takes rows of K values: a multiple of
+    8 up to ROW_MAX. Needs no card."""
+    return 0 < K <= ROW_MAX and K % 8 == 0
+
+
+def check_rows(C: int, hidden: int, what: str) -> None:
+    """ValueError naming the ceiling where the int8 block's row
+    quantizations do not take its widths (each a multiple of 16 up to
+    ROW_MAX). Needs no card."""
+    if C % 16 or hidden % 16 or not 0 < max(C, hidden) <= ROW_MAX:
+        raise ValueError(f"{what}: C={C}, hidden={hidden}: the kernel takes C and hidden "
+                         f"multiples of 16 and rows of at most {ROW_MAX} values")
+
+
+def row_quantize_reference(h: torch.Tensor, ln_w=None, ln_b=None, ln_eps: float = 1e-6):
+    """Plain torch version of `row_quantize`: `quantize_rows` of h in fp32,
+    normalised first by `layer_norm_f32` where ln_w is given."""
+    h32 = h.float() if ln_w is None else layer_norm_f32(h.float(), ln_w, ln_b, ln_eps)
+    q, s = quantize_rows(h32)
+    return q, s[..., 0]
+
+
+def row_quantize(h: torch.Tensor, ln_w=None, ln_b=None, ln_eps: float = 1e-6):
+    """One of the int8 block's row quantizations alone: (codes (M, K) int8,
+    scales (M,) fp32) of h (M, K) in bf16 or fp32, normalised first by its
+    own LayerNorm (ln_w, ln_b (K,) fp32, ln_eps) where ln_w is given. A CUDA
+    tensor launches the block's row kernel (K a multiple of 8 up to
+    ROW_MAX); a CPU tensor runs `row_quantize_reference`. Launches count in
+    `row_quantize.launches`."""
+    if h.dim() != 2 or (ln_w is None) != (ln_b is None):
+        raise ValueError(f"row_quantize: h {tuple(h.shape)} with ln_w and ln_b both or "
+                         "neither: need (M, K)")
+    if h.device.type == "cpu":
+        return row_quantize_reference(h, ln_w, ln_b, ln_eps)
+    M, K = h.shape
+    if not row_quantize_takes(K):
+        raise ValueError(f"row_quantize: K={K}: the kernel takes multiples of 8 and rows of "
+                         f"at most {ROW_MAX} values")
+    if h.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"row_quantize: h has dtype {h.dtype}: bf16 or fp32")
+    dev, f32 = h.device, torch.float32
+    codes = torch.empty((M, K), dtype=torch.int8, device=dev)
+    scales = torch.empty((M,), dtype=f32, device=dev)
+    err = _cuda.library().d2s_rowq(
+        _cuda.ptr(h, "h", dev, h.dtype, (M, K)), int(h.dtype == f32),
+        _cuda.ptr(ln_w, "ln_w", dev, f32, (K,)), _cuda.ptr(ln_b, "ln_b", dev, f32, (K,)),
+        float(ln_eps), codes.data_ptr(), scales.data_ptr(), M, K, _cuda.stream_handle(dev))
+    _cuda.check(err, "d2s_rowq")
+    row_quantize.launches += 1
+    return codes, scales
+
+
+row_quantize.launches = 0
 
 
 def int_dot(q: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -254,13 +320,9 @@ def _launch_int8(x, qw, num_heads, scale, ln_eps, stages=False):
     d = head_width(C, num_heads, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
-    if C % 16:
-        raise ValueError(f"{what}: the kernel takes C % 16 == 0, got C={C}")
     check_tokens(N, d, what)
     hidden = qw["w1_q"].shape[0]
-    if hidden % 16 or max(C, hidden) > ROW_MAX:
-        raise ValueError(f"{what}: C={C}, hidden={hidden}: need hidden % 16 == 0 and rows "
-                         f"of at most {ROW_MAX} values")
+    check_rows(C, hidden, what)
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
     shapes = _int8_shapes(C, hidden)
     ptrs = [_cuda.ptr(qw[k], k, dev, *shapes[k]) for k in INT8_WEIGHT_KEYS]

@@ -26,9 +26,14 @@ same values.
 "digests": {case: SHA-256 of the output's bytes}} for the cases:
 
 - int8/<B>x<N>x<C>/<stage>: the W8A8 block at B=256, C=384, N = 197, 138,
-  97, 68 and at B=16, C=768, N=197: its four quantizations' codes q1-q4
+  97, 68, at B=16, C=768, N=197 and at B=4, C=1024, N=197 (hidden 4096,
+  the longest row a warp quantizes): its four quantizations' codes q1-q4
   and the products' outputs qkv, mid (x + proj, fp32), act (GELU(fc1)) and
   out (mid + fc2);
+- ln/<M>x<C>/<residual>/<tensor>: the LayerNorm backward alone
+  (`ops.norm.ln_backward`) at every width its warp kernel lays out (C a
+  multiple of 32 up to 768; the card tests' shapes), with no residual, a
+  bf16 and an fp32 one: dx, its fp32 copy, d_ln_w and d_ln_b;
 - gemm/<name>: the bf16 GEMM engine's products at `chip_smoke.py` phase
   28's shapes: the block forward's four at M = 50,432, the backward's four
   dX products and four weight gradients (with the bias sums) at M = 25,216;
@@ -168,6 +173,28 @@ def int8_cases(device, shapes) -> dict:
     return out
 
 
+# (M, C) of the LayerNorm backward's cases: every layout of its warp kernel
+LN_CASES = ((25216, 384), (1003, 768), (63, 192), (97, 128), (40, 320), (25216, 448),
+            (130, 576), (33, 704), (17, 32), (200, 96), (129, 736), (8704, 640))
+
+
+def ln_cases(device, cases) -> dict:
+    out = {}
+    for M, C in cases:
+        gen = torch.Generator().manual_seed(M + C)
+        x = randn(gen, (M, C), device, scale=2.0)
+        dy = randn(gen, (M, C), device, torch.float32)
+        ln_w = 1 + randn(gen, (C,), device, torch.float32, 0.1)
+        stats = ops.norm.ln_stats(x, 1e-6)
+        for res_name, res in (("none", None), ("bf16", randn(gen, (M, C), device)),
+                              ("fp32", randn(gen, (M, C), device, torch.float32))):
+            with torch.no_grad():
+                got = ops.norm.ln_backward(dy, x, stats, ln_w, res, fp32_copy=True)
+            for key, t in zip(("dx", "dx_f32", "d_ln_w", "d_ln_b"), got):
+                out[f"ln/{M}x{C}/{res_name}/{key}"] = digest(t)
+    return out
+
+
 def gemm_cases(device, scale_rows: int) -> dict:
     out = {}
     gen = torch.Generator().manual_seed(28)
@@ -243,14 +270,17 @@ def measure(device) -> dict:
     if device.type == "cpu":  # the plain versions, at a smoke size
         shapes, rows, blk = [(2, 13, 128, 2)], 2048, (2, 13, 128, 2)
         wide, cores, core_b = [(2, 13, 96, 8)], [(13, 128, 2), (13, 96, 8)], 2
+        lns = ((13, 128), (5, 96))
     else:
-        shapes = [(256, n, 384, 6) for n in (197, 138, 97, 68)] + [(16, 197, 768, 12)]
-        rows, blk = 1, (64, 197, 384, 6)
+        shapes = [(256, n, 384, 6) for n in (197, 138, 97, 68)] + [(16, 197, 768, 12),
+                                                                    (4, 197, 1024, 16)]
+        rows, blk, lns = 1, (64, 197, 384, 6), LN_CASES
         wide = [(16, 197, 384, 32), (16, 197, 768, 8)]
         cores = [(n, C, H) for n in (197, 577, 785) for C, H in ((384, 6), (384, 32), (768, 8))]
         core_b = 8
     digests = {**int8_cases(device, shapes), **gemm_cases(device, rows),
-               **block_cases(device, *blk), **core_cases(device, core_b, cores)}
+               **block_cases(device, *blk), **core_cases(device, core_b, cores),
+               **ln_cases(device, lns)}
     for B, N, C, H in wide:
         digests.update({k.replace("block", f"block{C // H}", 1): v
                         for k, v in block_cases(device, B, N, C, H).items()})

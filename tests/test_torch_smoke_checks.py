@@ -1568,3 +1568,138 @@ def test_long_calls_add_to_the_d64_rows_and_time_every_launch():
     assert rows["attention_hd"]["ms"] == 18 * 1.0 + 12 * 5.0 + 24 * 2.0
     assert rows["attention_hd_bwd"]["ms"] == 3 * 3.0 + 12 * 4.0
     assert rows["attention_hd"]["library_ms"] == 0.5 * (18 + 60 + 48)
+
+
+# ---- phase 39: models wider than ViT-B ----------------------------------------
+
+
+def test_the_wide_tables_scale_the_headline_ones():
+    """At the headline's depth, stages and width the wide tables are the
+    headline's; at ViT-H/14's (32 blocks, d = 80, 257 tokens) every core
+    runs on the attention_hd pair and every backward's LayerNorm backwards
+    are counted."""
+    kn = set(chip_smoke.KERNEL_NAMES)
+    for mode, want in (("topk", chip_smoke.PER_TRAIN_STEP),
+                       ("threshold", chip_smoke.PER_POLICY_TRAIN_STEP),
+                       ("attn", chip_smoke.PER_ATTN_TRAIN_STEP)):
+        assert chip_smoke.wide_step_launches(mode, 12, 3, 64, 197) == want
+        assert set(chip_smoke.wide_step_launches(mode, 32, 8, 80, 257)) == kn
+    assert chip_smoke.wide_forward_launches(12, 64, 197) == chip_smoke.PER_FORWARD
+    assert chip_smoke.wide_forward_launches(12, 64, 197, int8=True) == chip_smoke.PER_INT8_FORWARD
+    h = chip_smoke.wide_step_launches("threshold", 32, 8, 80, 257)
+    assert h["attention_hd"] == 96 and h["attention_hd_bwd"] == 32 and h["attention_bwd"] == 0
+    assert h["ln_bwd"] == 64 and h["fused_transformer_block[policy]"] == 24
+    assert chip_smoke.wide_step_launches("attn", 32, 8, 80, 257)["ln_bwd"] == 32
+
+
+def test_the_wide_models_are_the_papers_widths():
+    """ViT-H/14 (C = 1280, 16 heads of 80, MLP 5120, 257 tokens pruned to
+    180 / 126 / 88) and ViT-L/16 (C = 1024, MLP 4096, 197 tokens) built
+    by overrides of the DeiT-B student's config."""
+    from dense2sparse_vit_torch.core import PruningConfig
+    from dense2sparse_vit_torch.core.config import deit_base
+
+    for name, (c, hidden, heads, depth, tokens) in {
+            "vit_h": (1280, 5120, 16, 32, [257, 180, 126, 88]),
+            "vit_l": (1024, 4096, 16, 24, [197, 138, 97, 68])}.items():
+        widths, locs = chip_smoke.WIDE_MODELS[name]
+        cfg = deit_base().replace(**widths)
+        assert (cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio), cfg.num_heads, cfg.depth) == (
+            c, hidden, heads, depth)
+        keep = PruningConfig(pruning_locs=locs, keep_ratios=(0.7, 0.49, 0.343)).keep_counts(
+            cfg.num_patches)
+        assert [cfg.num_patches + 1] + [k + 1 for k in keep] == tokens
+        assert chip_smoke.wide_kwargs(name)["pruning_locs"] == locs
+
+
+class _Count:
+    def __init__(self):
+        self.launches = 0
+
+
+def test_wide_rows_hold_the_row_kernels_counts_to_the_runs(monkeypatch):
+    """The sub-rows take the library's counts of the CTA-a-row kernels, and
+    a run whose LayerNorm backwards or wide int8 blocks missed them fails."""
+    import dense2sparse_vit_torch.ops.norm as norm_ops
+    import dense2sparse_vit_torch.ops.quant as quant_ops
+
+    ln, rq = _Count(), _Count()
+    monkeypatch.setattr(norm_ops, "LN_BWD_ROWS", ln)
+    monkeypatch.setattr(quant_ops, "ROWQ_ROWS", rq)
+    tally = chip_smoke.Tally()
+    rows = chip_smoke.WideRows(tally)
+    ln.launches, rq.launches = 64, 0
+    rows.take({"ln_bwd": 64, "fused_transformer_block_int8": 0}, "step")
+    ln.launches, rq.launches = 0, 32
+    rows.take({"ln_bwd": 0, "fused_transformer_block_int8": 32}, "forward")
+    assert tally.rows["ln_bwd[C>768]"]["launches"] == 64
+    assert tally.rows["fused_transformer_block_int8[>4096]"]["launches"] == 32
+    assert ln.launches == rq.launches == 0
+    ln.launches = 63
+    with pytest.raises(AssertionError, match="63 LayerNorm backwards on the row kernel of 64"):
+        rows.take({"ln_bwd": 64, "fused_transformer_block_int8": 0}, "step")
+
+
+def _wide_rec():
+    """A train step's record at one plain block, as capture_train_step keeps
+    it (with the heads, scale and eps run_384 adds)."""
+    x, w, (heads, scale, ln_eps) = _block_input()
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(39)).to(x.dtype)
+    return {"block_in": {0: x}, "weights": [w], "policy": {0: None}, "last_g": g,
+            "heads": heads, "scale": scale, "ln_eps": ln_eps}
+
+
+def test_check_wide_blocks_passes_the_plain_versions(capsys):
+    tally = chip_smoke.Tally()
+    cases = chip_smoke.check_wide_blocks(torch, _wide_rec(), tally, "t", (0,))
+    assert list(cases) == [N] and list(cases[N]) == ["ln2", "ln1"]
+    assert tally.rows["ln_bwd[C>768]"]["max_abs_err"] == 0.0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
+    assert [ln.get("kernel") for ln in lines] == ["ln_bwd", "ln_bwd",
+                                                 "fused_transformer_block_backward"]
+
+
+def test_check_wide_blocks_rejects_row_sums_without_a_warps_columns(monkeypatch):
+    """`--plant-fault ln_bwd_wide`: the CTA-a-row kernel adds its row sums
+    without the last warp's columns (here the last eighth of the row); the
+    LayerNorm backward's own check, which runs first, sees it."""
+    import dense2sparse_vit_torch.ops.norm as norm_ops
+
+    def faulty(dy, x, st, ln_w, residual=None, fp32_copy=False):
+        c = x.shape[-1] - x.shape[-1] // 8
+        z = (x.float() - st[:, :1]) * st[:, 1:]
+        dz = dy * ln_w
+        v = st[:, 1:] * (dz - dz[:, :c].sum(-1, keepdim=True) / x.shape[-1]
+                         - z * (dz * z)[:, :c].sum(-1, keepdim=True) / x.shape[-1])
+        v = v if residual is None else v + residual.float()
+        out = (v.to(torch.bfloat16), v, (dy * z).sum(0), dy.sum(0))
+        return out if fp32_copy else (out[0], *out[2:])
+
+    monkeypatch.setattr(norm_ops, "ln_backward", faulty)
+    with torch.no_grad(), pytest.raises(AssertionError,
+                                        match=chip_smoke.FAULTS["ln_bwd_wide"][3]):
+        chip_smoke.check_wide_blocks(torch, _wide_rec(), chip_smoke.Tally(), "t", (0,))
+
+
+def test_check_int8_block_rejects_an_absmax_without_a_warps_columns(monkeypatch):
+    """`--plant-fault int8_wide`: the CTA-a-row quantizer takes each row's
+    absmax without the last warp's columns (here the last eighth of the
+    activation's row): the activation's codes (codes4) must differ."""
+    from dense2sparse_vit_torch.ops.quant import QMAX, SCALE_FLOOR
+
+    real = ops.fused_transformer_block_int8
+
+    def faulty(*args, **kwargs):
+        y, st = real(*args, **kwargs)
+        act = st["act"].float()
+        k = act.shape[-1] - act.shape[-1] // 8
+        s = act[..., :k].abs().amax(-1).clamp(min=SCALE_FLOOR) / QMAX
+        st["s4"] = s
+        st["q4"] = torch.clamp(torch.round(act / s[..., None]), -QMAX, QMAX).to(torch.int8)
+        return y, st
+
+    monkeypatch.setattr(ops, "fused_transformer_block_int8", faulty)
+    x, qw, args = _int8_input()
+    with torch.inference_mode(), pytest.raises(AssertionError,
+                                               match=chip_smoke.FAULTS["int8_wide"][3]):
+        chip_smoke.check_int8_block(torch, x, qw, *args, block=0)
