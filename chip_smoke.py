@@ -487,9 +487,13 @@ NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # those of phase 39, the LayerNorm backward past C = 768 (its CTA-a-row
 # kernel, counted by the library: `ops.norm.LN_BWD_ROWS`) and the int8 block
 # at ViT-H's MLP width (hidden 5120: its rows past 4096 on the CTA-a-row
-# quantizer, `ops.quant.ROWQ_ROWS`)
+# quantizer, `ops.quant.ROWQ_ROWS`); at those of phase 40, the attention_hd
+# pair at odd head widths and at widths past 128, both ways (counted by the
+# library by padded width and parity, `d2s_attention_hd_dp_launches`)
 SUB_ROWS = ("attention_bwd[long]", "fused_transformer_block_int8[4096]", "attention_hd[d64]",
-            "attention_hd_bwd[d64]", "ln_bwd[C>768]", "fused_transformer_block_int8[>4096]")
+            "attention_hd_bwd[d64]", "ln_bwd[C>768]", "fused_transformer_block_int8[>4096]",
+            "attention_hd[odd]", "attention_hd_bwd[odd]", "attention_hd[d>128]",
+            "attention_hd_bwd[d>128]")
 
 
 # the longest d = 64 sequence of the width-64 cores (ops.block.SHORT_TOKENS),
@@ -642,10 +646,10 @@ SOURCES = {
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
         "dense2sparse_vit_tpu/ops/pallas/attention.py:626"),
     "attention_hd": (
-        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_torch/csrc/attention_hd_fwd.cuh",
         "dense2sparse_vit_tpu/ops/pallas/block.py:226"),
     "attention_hd_bwd": (
-        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_torch/csrc/attention_hd_bwd.cuh",
         "dense2sparse_vit_tpu/ops/pallas/block.py:753"),
     "attention_bwd[long]": (
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
@@ -654,10 +658,10 @@ SOURCES = {
         "dense2sparse_vit_torch/csrc/quant_block.cu",
         "dense2sparse_vit_tpu/ops/pallas/quant.py:179"),
     "attention_hd[d64]": (
-        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_torch/csrc/attention_hd_fwd.cuh",
         "dense2sparse_vit_tpu/ops/pallas/block.py:198"),
     "attention_hd_bwd[d64]": (
-        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_torch/csrc/attention_hd_bwd.cuh",
         "dense2sparse_vit_tpu/ops/pallas/block.py:729"),
     "ln_bwd[C>768]": (
         "dense2sparse_vit_torch/csrc/norm.cu",
@@ -665,6 +669,18 @@ SOURCES = {
     "fused_transformer_block_int8[>4096]": (
         "dense2sparse_vit_torch/csrc/quant_block.cu",
         "dense2sparse_vit_tpu/ops/pallas/quant.py:179"),
+    "attention_hd[odd]": (
+        "dense2sparse_vit_torch/csrc/attention_hd_fwd.cuh",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:226"),
+    "attention_hd_bwd[odd]": (
+        "dense2sparse_vit_torch/csrc/attention_hd_bwd.cuh",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:753"),
+    "attention_hd[d>128]": (
+        "dense2sparse_vit_torch/csrc/attention_hd_fwd.cuh",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:226"),
+    "attention_hd_bwd[d>128]": (
+        "dense2sparse_vit_torch/csrc/attention_hd_bwd.cuh",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:753"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -684,10 +700,10 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # without z mean(dz z) (ln_bwd), the column sums without the last split's
 # rows (colsum); (block_bwd.cu, attn_bwd) the attention core backward's dQ
 # without the last key block's products; (predictor.cu) the means launch taking
-# each sample's pooled mean from the next sample's sums; (block.cu,
+# each sample's pooled mean from the next sample's sums; (attention_hd_fwd.cuh,
 # head_width) the core at other head widths leaving the last key block out of
-# P.V; (block_bwd.cu, head_width_bwd) its backward leaving the last key block
-# out of dQ; (norm.cu, ln_bwd_wide) the CTA-a-row LayerNorm backward's row
+# P.V; (attention_hd_bwd.cuh, head_width_bwd) its backward leaving the last
+# key block out of dQ; (norm.cu, ln_bwd_wide) the CTA-a-row LayerNorm backward's row
 # sums without the last warp's columns; (quant_block.cu, int8_wide) the
 # CTA-a-row quantizer's absmax without the last warp's columns; and the
 # stage whose check must reject it
@@ -719,10 +735,10 @@ FAULTS = {
                "column_sums"),
     "attn_bwd": ("block_bwd.cu", "          wgmma_m64n64k16_rs<1>(dq[qq], da[c], ",
                  "          if (j + 1 < QB) wgmma_m64n64k16_rs<1>(dq[qq], da[c], ", "attn_bwd"),
-    "head_width": ("block.cu", "HdMma<DP>::template rs<1>(o, pa[kk], ",
-                   "if (j + 1 < nkb) HdMma<DP>::template rs<1>(o, pa[kk], ", "attn"),
-    "head_width_bwd": ("block_bwd.cu", "                da[jq >> 1][2 * (jq & 1) + r];",
-                       "                jb + 1 == nb ? 0u : da[jq >> 1][2 * (jq & 1) + r];",
+    "head_width": ("attention_hd_fwd.cuh", "hd_pv<DP>(o, pa[kk], ",
+                   "if (j + 1 < nkb) hd_pv<DP>(o, pa[kk], ", "attn"),
+    "head_width_bwd": ("attention_hd_bwd.cuh", "                  da[jq >> 1][2 * (jq & 1) + r];",
+                       "                  jb + 1 == nb ? 0u : da[jq >> 1][2 * (jq & 1) + r];",
                        "qkv.q"),
     "predictor": ("predictor.cu",
                   "  const int src = smp;  // the sample whose partial sums are added\n",
@@ -5830,7 +5846,7 @@ OTHERS_TOL = 0.1
 HD_GROUPS = ("attention_hd_kernel", "attention_hd_bwd_kernel", "sum_heads")
 # (padded width, policy mode) of each instantiation of the two head-width
 # cores, which the build phase finds in ptxas's log without a spill
-HD_KINDS = tuple((dp, pol) for dp in range(16, 129, 16) for pol in (False, True))
+HD_KINDS = tuple((dp, pol) for dp in range(16, 257, 16) for pol in (False, True))
 
 
 def hd_kind(name: str, word: str):
@@ -5847,10 +5863,13 @@ def hd_block(torch, dev, C, H, seed):
     """A block at width C with H heads (MLP ratio 3) whose matrices are drawn
     at N(0, 1/fan_in), so that the softmax is peaked, and whose LayerNorms
     and biases are perturbed: its kernel weights (bf16 matrices) on the
-    card."""
+    card. Every value comes from `seed` (the Linear layers' own bias init
+    from the global generator too, forked and seeded here)."""
     from dense2sparse_vit_torch.nn.layers import Block
 
-    blk = Block(C, H, mlp_ratio=3.0, use_fused=True)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        blk = Block(C, H, mlp_ratio=3.0, use_fused=True)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in blk.parameters():
@@ -7826,6 +7845,542 @@ def phase_wide_models(torch, dev, tally, smi):
           "card": smi})
 
 
+# ---- 40. odd head widths and widths past 128 ---------------------------------
+
+# (head width, heads): the widths (a) holds the cores at, odd ones at 8 heads
+# and every width at C a multiple of 8 (the block entries' row rule): odd
+# and even widths across the padded widths 16 to 256, both edges of 128 and
+# of 256; the D repair's shared-value case and planted ties at one odd and
+# one wide width
+HW_WIDTHS = ((3, 8), (13, 8), (63, 8), (65, 8), (127, 8), (129, 8), (130, 4), (160, 2),
+             (192, 2), (255, 8), (256, 3))
+HW_TOKENS = (13, 197, 577)
+# policy mode's smoothing at N tokens: 0.1 makes it visible, but at N = 13
+# its max path carries eps / N = 7.7e-3 of a row, which a near-tie of the
+# row's two largest scores (decided by the last bits of a dot product: the
+# kernel's wgmma order, the plain version's cuBLAS order) moves to another
+# key: on one draw at d = 65, N = 13 the kernel's dQ lay 5.7% from the plain
+# version's, on others the plain bf16 version lay as far from its fp32 twin.
+# Short sequences take the model's 1e-6.
+HW_EPS_FROM = 197
+HW_BATCH = 8  # (a)'s samples up to 577 tokens; 1 at a ceiling
+HW_TIES = (13, 256)
+HW_SHARED = (127, 256)
+HW_ROWS = 64  # the query rows a forward-alone ceiling is held at, first and last
+# (c): the cores timed at these (d, H, C) and N, B=64
+HW_TIMED = ((127, 8, 1016), (160, 4, 640), (256, 3, 768))
+HW_TIMED_TOKENS = (197, 577)
+# (b): DeiT-B/16 with three heads of 256 (C = 768, 12 blocks, MLP 3072) and
+# with eight heads of 127 (C = 1016, MLP 4064): the widths JAX's
+# create_model passes through, the headline's pruning; per model its
+# train modes at B=64, 224 px, and whether it serves in int8 (its C a
+# multiple of 16: the int8 rows' rule; the 127-wide heads serve int8 at 16
+# heads, C = 2032, MLP 8128)
+HW_MODELS = {
+    "heads256": ({"num_heads": 3}, ("topk", "threshold", "attn")),
+    "heads127": ({"embed_dim": 1016, "num_heads": 8}, ("topk", "threshold")),
+}
+HW_INT8_127 = {"embed_dim": 2032, "num_heads": 16}
+B_HW_TRAIN, B_HW_384, B_HW_SERVE = 64, 32, 256
+HW_ROWS_NAMES = ("attention_hd[odd]", "attention_hd_bwd[odd]", "attention_hd[d>128]",
+                 "attention_hd_bwd[d>128]")
+
+
+def hd_dp_launches(reset=False) -> dict:
+    """The library's launches of the two attention_hd cores by (direction,
+    padded width, odd) since the last reset (`d2s_attention_hd_dp_launches`:
+    0 the forward, 1 the backward), those above 0; with `reset`, set them
+    to 0 after reading."""
+    from dense2sparse_vit_torch.ops import _cuda
+
+    lib, out = _cuda.library(), {}
+    for which in (0, 1):
+        for dp in range(16, 257, 16):
+            for odd in (0, 1):
+                n = lib.d2s_attention_hd_dp_launches(which, dp, odd, -1)
+                if n > 0:
+                    out[(which, dp, odd)] = n
+                if reset:
+                    lib.d2s_attention_hd_dp_launches(which, dp, odd, 0)
+    return out
+
+
+def hw_rows(counts: dict) -> dict:
+    """The four sub-rows' launches in `hd_dp_launches` counts: odd widths,
+    and widths past 128 (padded width 144 on), each way."""
+    out = dict.fromkeys(HW_ROWS_NAMES, 0)
+    for (which, dp, odd), n in counts.items():
+        suffix = "_bwd" if which else ""
+        if odd:
+            out[f"attention_hd{suffix}[odd]"] += n
+        if dp > 128:
+            out[f"attention_hd{suffix}[d>128]"] += n
+    return out
+
+
+def attention_rows_plain(torch, qkv, H, scale, rows, policy=None, eps=1e-6):
+    """The plain attention's output at the query rows `rows` (B, R, C) and
+    its CLS row (B, H, N), as `attention_reference` computes them (fp32
+    scores, the exact or the policy softmax, bf16 probabilities), without
+    the (N, N) scores of every row: for a forward-alone ceiling, whose
+    sequence is too long for them."""
+    B, N, C3 = qkv.shape
+    d = C3 // 3 // H
+    q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+    idx = torch.cat([torch.tensor([0], device=qkv.device), rows])
+    s = torch.matmul(q[:, :, idx].float(), k.float().transpose(-1, -2)) * scale
+    if policy is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        a = policy.float()[:, None, None, :].expand(B, 1, len(idx), N).clone()
+        a[:, :, torch.arange(len(idx), device=qkv.device), idx] = 1.0  # the diagonal
+        e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True)) * a
+        p = (e + eps / N) / (e.sum(-1, keepdim=True) + eps)
+    p = p.to(qkv.dtype)
+    out = torch.matmul(p[:, :, 1:], v).transpose(1, 2).reshape(B, len(rows), H * d)
+    return out, p[:, :, 0]
+
+
+def check_forward_ceiling(torch, qkv, H, scale, policy=None, eps=0.1) -> float:
+    """The packed forward at a forward-alone ceiling against
+    `attention_rows_plain` at its first and last HW_ROWS query rows and its
+    CLS row, within STAGE_TOL. Returns the largest absolute error."""
+    from dense2sparse_vit_torch import ops
+
+    n = qkv.shape[1]
+    rows = torch.cat([torch.arange(HW_ROWS), torch.arange(n - HW_ROWS, n)]).to(qkv.device)
+    kw = {} if policy is None else {"policy": policy, "eps": eps}
+    with torch.no_grad():
+        out, cls = ops.fused_attention_packed(qkv, H, scale=scale, return_cls=True, **kw)
+        want, want_cls = attention_rows_plain(torch, qkv, H, scale, rows, **kw)
+    (o_err, o_ref), (c_err, c_ref) = rel_err(torch, out[:, rows], want), rel_err(
+        torch, cls, want_cls)
+    rel = {"attn_rows": o_err / o_ref, "cls": c_err / c_ref}
+    emit({"phase": "odd_wide_heads", "kernel": "fused_attention_packed", "ceiling": "forward",
+          "shape": list(qkv.shape), "policy": policy is not None, "rel_err": rel,
+          "tol_rel": STAGE_TOL})
+    if not max(rel.values()) <= STAGE_TOL:
+        raise AssertionError(f"packed forward at its ceiling N={n}, head width "
+                             f"{qkv.shape[2] // 3 // H}: {rel}")
+    return max(o_err, c_err)
+
+
+def check_cls_stage(torch, x, w, H, scale, policy=None, eps=1e-6) -> float:
+    """The block's CLS-row forward (`fused_transformer_block_cls`) held as
+    `check_block` holds its stages: its CLS rows against the plain
+    attention's on the kernel's own qkv stage (STAGE_TOL), its output against
+    the plain block (BLOCK_TOL). At d = 3 the plain block's own qkv, a bf16
+    ulp away, moves a 3-wide score enough to move the rows by ~2% of their
+    largest value (`check_cls_rows`: 2.04e-2 on the card, the packed core's
+    rows on one qkv bit-equal), so the rows take the kernel's qkv. Returns
+    the largest absolute error of the rows."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import attention_reference, transformer_block_reference
+
+    kw = {} if policy is None else {"policy": policy, "eps": eps}
+    out, cls = ops.fused_transformer_block_cls(x, w, H, policy, scale=scale, eps=eps)
+    _, st = ops.fused_transformer_block(x, w, H, policy, scale=scale, eps=eps, stages=True)
+    _, want_cls = attention_reference(st["qkv"], H, scale, return_cls=True, **kw)
+    want = transformer_block_reference(x, w, H, scale, 1e-6, **kw)
+    (c_err, c_ref), (o_err, o_ref) = rel_err(torch, cls, want_cls), rel_err(torch, out, want)
+    rel = {"cls": c_err / c_ref, "block": o_err / o_ref}
+    emit({"phase": "odd_wide_heads", "kernel": "fused_transformer_block_cls",
+          "shape": list(x.shape), "policy": policy is not None, "rel_err": rel,
+          "tol_rel": {"cls": STAGE_TOL, "block": BLOCK_TOL}})
+    if not (rel["cls"] <= STAGE_TOL and rel["block"] <= BLOCK_TOL):
+        raise AssertionError(f"CLS-row block at head width {x.shape[2] // H}: {rel}")
+    return c_err
+
+
+def check_shared_values(torch, dev, d, H, n, policy) -> float:
+    """The D repair's case (`tests/test_torch_cuda.py`'s
+    holds_d_where_the_values_share_a_large_part): every value row one large
+    vector plus a small spread; the core backward's dQ and dK within 1e-2 of
+    the fp32 truth's largest magnitude. Returns the worse relative error."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.attention import attention_backward_reference
+
+    gen = torch.Generator(device=dev).manual_seed(d + n)
+    c = d * H
+    qkv = torch.randn((2, n, 3 * c), generator=gen, device=dev)
+    qkv[..., 2 * c:] = 4 * torch.randn((1, 1, c), generator=gen, device=dev) + 0.25 * qkv[
+        ..., 2 * c:]
+    qkv = qkv.to(torch.bfloat16)
+    g = torch.randn((2, n, c), generator=gen, device=dev).to(torch.bfloat16)
+    kw = {}
+    if policy:
+        pol = (torch.rand((2, n), generator=gen, device=dev) < 0.6).float()
+        pol[:, 0] = 1.0
+        kw = {"policy": pol, "eps": 0.1}
+    with torch.no_grad():
+        got = ops.fused_attention_backward_packed(qkv, g, H, scale=d ** -0.5, **kw)
+        want, _ = attention_backward_reference(qkv.float(), g.float(), H, d ** -0.5, **kw)
+    got = got[0] if policy else got
+    rel = {}
+    for name, a, b in zip(("dq", "dk"), got.chunk(3, -1)[:2], want.chunk(3, -1)[:2]):
+        err, ref = rel_err(torch, a, b)
+        rel[name] = err / ref
+    emit({"phase": "odd_wide_heads", "shared_values": {"d": d, "heads": H, "N": n,
+                                                      "policy": policy}, "rel_err": rel,
+          "tol_rel": 1e-2})
+    if not max(rel.values()) <= 1e-2:
+        raise AssertionError(f"D repair at head width {d}, N={n}: {rel}")
+    return max(rel.values())
+
+
+def check_odd_wide(torch, dev, tally) -> dict:
+    """(a): at each (d, H) of HW_WIDTHS on seeded activations, at N of
+    HW_TOKENS (B = HW_BATCH) and at the width's ceiling both ways (B = 1):
+    the block forward stage by stage (`check_block`: plain, policy at eps
+    0.1 from N = 197 on (and 1e-6 at N = 197; 1e-6 at N = 13,
+    HW_EPS_FROM), branch scales) and its backward
+    (`check_block_backward`, dPolicy), the packed attention both ways with
+    the CLS fold (`check_packed_forward`, `check_attn_bwd`: two launches
+    bit-equal); up to 577 tokens the CLS rows in both modes
+    (`check_cls_stage`), the half-block
+    both ways (`check_attn_half`, `check_attn_half_backward`), and at N =
+    197 the int8 block where C % 16 == 0; the packed forward at its
+    forward-alone ceiling in both modes (`check_forward_ceiling`); planted
+    ties at HW_TIES, the D repair's shared values at HW_SHARED. Every
+    width's padded width and parity must count launches both ways
+    (`hd_dp_launches`). Returns the launches by (direction, padded width,
+    odd) and the largest errors."""
+    from dense2sparse_vit_torch.ops.block import attention_max_tokens
+    from dense2sparse_vit_torch.ops.quant import quantize_block_params
+
+    hd_dp_launches(reset=True)
+    fwd_err = bwd_err = 0.0
+    rows = dict.fromkeys(HW_ROWS_NAMES, 0.0)
+    for d, H in HW_WIDTHS:
+        C = d * H
+        w = hd_block(torch, dev, C, H, seed=d)
+        w6 = tuple(w[k] for k in HALF_BLOCK_KEYS)
+        scale, ln_eps = d ** -0.5, 1e-6
+        ceiling = attention_max_tokens(d, backward=True)
+        f_w = b_w = 0.0
+        for n in HW_TOKENS + (ceiling,):
+            gen = torch.Generator(device=dev).manual_seed(100 * d + n)
+            B = HW_BATCH if n <= 577 else 1
+            x = torch.randn((B, n, C), generator=gen, device=dev).to(torch.bfloat16)
+            g = torch.randn((B, n, C), generator=gen, device=dev).to(torch.bfloat16)
+            pol = (torch.rand((B, n), generator=gen, device=dev) < 0.6).float()
+            pol[:, 0] = 1.0
+            gcls = torch.randn((B, H, n), generator=gen, device=dev)
+            peps = 0.1 if n >= HW_EPS_FROM else 1e-6
+            with torch.no_grad():
+                modes = [{}, {"policy": pol, "eps": peps}]
+                if n == 197:
+                    modes.append({"policy": pol, "eps": 1e-6})
+                if n <= 577:
+                    modes.append({"branch_scales": droppath_scales(torch, B, gen)})
+                for kw in modes:
+                    if n > attention_max_tokens(d, policy="policy" in kw, backward=True):
+                        continue  # policy mode's ceiling lies below plain mode's
+                    _, err = check_block(torch, x, w, H, scale, ln_eps, phase="odd_wide_heads",
+                                         **kw)
+                    f_w = max(f_w, err)
+                    b_w = max(b_w, check_block_backward(torch, x, g, w, H, scale, ln_eps,
+                                                        phase="odd_wide_heads", **kw))
+                for kw in ({}, {"policy": pol, "eps": peps}):
+                    if n > attention_max_tokens(d, policy="policy" in kw, backward=True):
+                        continue
+                    qkv, do = attn_bwd_inputs(torch, x, g, w, H, scale, ln_eps, **kw)
+                    f_w = max(f_w, check_packed_forward(torch, qkv, H, scale, **kw))
+                    b_w = max(b_w, check_attn_bwd(torch, {
+                        "what": f"odd_wide_{d}", "block": None, "qkv": qkv, "g": do,
+                        "heads": H, "scale": scale, "policy": kw.get("policy"), "gcls": gcls,
+                        "eps": kw.get("eps", 1e-6)}))
+                if n == 197 and d in HW_TIES:
+                    x_tie, tied = planted_ties(torch, x, w, H, scale, ln_eps)
+                    emit({"phase": "odd_wide_heads", "planted_ties": {"d": d, "tied_rows": tied}})
+                    b_w = max(b_w, check_block_backward(torch, x_tie, g, w, H, scale, ln_eps,
+                                                        policy=pol, eps=peps,
+                                                        phase="odd_wide_heads"))
+                if n > 577:
+                    continue
+                f_w = max(f_w, check_cls_stage(torch, x, w, H, scale))
+                f_w = max(f_w, check_cls_stage(torch, x, w, H, scale, pol, peps))
+                for kw in ({}, {"policy": pol, "eps": peps}):
+                    f_w = max(f_w, check_attn_half(torch, x, w6, H, scale, ln_eps, cls=True,
+                                                   phase="odd_wide_heads", **kw))
+                    b_w = max(b_w, check_attn_half_backward(torch, x, g, w6, H, scale, ln_eps,
+                                                            phase="odd_wide_heads", **kw))
+                if n == 197 and C % 16 == 0:
+                    _, err = check_int8_block(torch, x, quantize_block_params(w), H, scale,
+                                              ln_eps)
+                    tally.err("fused_transformer_block_int8", err)
+                    f_w = max(f_w, err)
+            del x, g
+            torch.cuda.empty_cache()
+        for policy in (False, True):  # the forward alone at its own ceiling
+            n = attention_max_tokens(d, policy=policy)
+            gen = torch.Generator(device=dev).manual_seed(7 * d + policy)
+            qkv = torch.randn((1, n, 3 * C), generator=gen, device=dev).to(torch.bfloat16)
+            pol = (torch.rand((1, n), generator=gen, device=dev) < 0.6).float() if policy else None
+            f_w = max(f_w, check_forward_ceiling(torch, qkv, H, scale, pol))
+            del qkv
+        if d in HW_SHARED:
+            for policy in (False, True):
+                b_w = max(b_w, check_shared_values(torch, dev, d, H, 197, policy))
+        for name in (("attention_hd[odd]", "attention_hd_bwd[odd]") if d % 2 else ()) + (
+                ("attention_hd[d>128]", "attention_hd_bwd[d>128]") if d > 128 else ()):
+            rows[name] = max(rows[name], f_w if "_bwd" not in name else b_w)
+        fwd_err, bwd_err = max(fwd_err, f_w), max(bwd_err, b_w)
+        emit({"phase": "odd_wide_heads", "width": d, "heads": H, "ceiling_both_ways": ceiling,
+              "max_abs_err": {"forward": f_w, "backward": b_w}})
+        torch.cuda.empty_cache()
+    counts = hd_dp_launches(reset=True)
+    missing = [(d, which) for d, _ in HW_WIDTHS for which in (0, 1)
+               if not counts.get((which, (d + 15) // 16 * 16, d % 2))]
+    emit({"phase": "odd_wide_heads", "dp_launches": {f"{'bwd' if w else 'fwd'}_{dp}_"
+                                                     f"{'odd' if o else 'even'}": n
+                                                     for (w, dp, o), n in counts.items()}})
+    if missing:
+        raise AssertionError(f"no attention_hd launch counted at (width, direction) {missing}")
+    tally.err("attention_hd", fwd_err)
+    tally.err("attention_hd_bwd", bwd_err)
+    for name, e in rows.items():
+        tally.err(name, e)
+    return counts
+
+
+def hw_take(tally, counts, what):
+    """A main-path run's launches of the cores at odd widths and past 128
+    (`hd_dp_launches`, then reset) into the four sub-rows; raises unless
+    they are every attention_hd launch the run's `counts` hold."""
+    rows = hw_rows(hd_dp_launches(reset=True))
+    for suffix in ("", "_bwd"):
+        k = f"attention_hd{suffix}"
+        if rows[f"{k}[odd]"] + rows[f"{k}[d>128]"] != counts[k]:
+            raise AssertionError(f"{what}: {rows} of {counts[k]} {k} launches")
+    for k, v in rows.items():
+        tally.rows[k]["launches"] += v
+    return rows
+
+
+def hw_kwargs(name) -> dict:
+    """`create_model` overrides of a phase-40 student: its widths and the
+    headline's stages."""
+    return dict(HW_MODELS[name][0])
+
+
+def train_hw(torch, dev, name, tally, smi) -> dict:
+    """(b) training for one model of HW_MODELS: per mode a B=64 step at 224
+    px with its live teacher (the same overrides) against its plain twin's
+    (`run_384`: launches `wide_step_launches`, the cores' launches by width
+    (`hw_take`), loss and gradients), a second, timed step; the 256-wide
+    heads also one top-k step at 384 px, B=32 (N = 577). Returns the
+    modes' summaries and the trained top-k student (under "student")."""
+    from dense2sparse_vit_torch.models import create_model
+
+    widths, train_modes = HW_MODELS[name]
+    C, H = widths.get("embed_dim", 768), widths["num_heads"]
+    depth, d = 12, C // H
+    out = {}
+    runs = [(m, 224, B_HW_TRAIN) for m in train_modes]
+    if name == "heads256":
+        runs.append(("topk", 384, B_HW_384))
+    for mode, img, batch in runs:
+        if mode == train_modes[0] or img != 224:  # the live teacher at the step's size
+            teacher = create_model(TEACHER_384, img_size=img, use_fused_attention=True,
+                                   device=dev, dtype="bfloat16",
+                                   generator=torch.Generator().manual_seed(2), **widths)
+        n = (img // 16) ** 2 + 1
+        modes = {mode: (MODES_384[mode][0], wide_step_launches(mode, depth, 3, d, n), 0)}
+        hd_dp_launches(reset=True)
+        t0 = time.perf_counter()
+        summary, acts = run_384(torch, dev, mode, teacher, tally, smi, img=img, batch=batch,
+                                modes=modes, phase=f"odd_wide_heads/{name}",
+                                on_counts=lambda c: hw_take(tally, c, f"{name} {mode} step"),
+                                overrides=hw_kwargs(name), keep=(mode, img) == ("topk", 224))
+        hd_dp_launches(reset=True)  # the captured step's
+        key = mode if img == 224 else f"{mode}_{img}"
+        out[key] = {k: summary[k] for k in ("step_ms", "peak_gib", "step_gib", "tokens")}
+        out[key]["seconds"] = time.perf_counter() - t0
+        if "student" in acts:
+            out["student"] = acts.pop("student")
+        del acts
+        torch.cuda.empty_cache()
+    del teacher
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_hw(torch, dev, label, model, tally, smi, int8=True) -> dict:
+    """(b) serving: `model` in eval mode, its B=256 forward with the kernels
+    in bf16 (launches `wide_forward_launches`, the cores' by width; logits
+    within LOGITS_TOL of its plain twin's on the same kept tokens) and,
+    with `int8`, with quant="int8" on every block (the same weights; its
+    logits against the bf16 kernels' by cosine similarity,
+    INT8_LOGITS_COS); each forward timed (CUDA events). The predictor
+    kernel's units take widths C / 2 and C / 4 that are multiples of 8 (the
+    16-byte row rule, `ROADMAP.md` §2 item 3): at another C (1016, 2032:
+    heads of 127) the predictors run their plain version."""
+    import copy
+
+    from dense2sparse_vit_torch import ops
+
+    model = model.eval()
+    depth, H = len(model.blocks), model.blocks[0].attn.num_heads
+    d, n = model.cfg.embed_dim // H, model.cfg.num_patches + 1
+    fused_pred = model.cfg.embed_dim % 32 == 0
+    for p in model.score_predictor:
+        p.use_fused = fused_pred
+    pred = {} if fused_pred else {"fused_predictor_lg": 0}
+    runs = [("bf16", model, {**wide_forward_launches(depth, d, n), **pred})]
+    if int8:
+        q = copy.deepcopy(model)
+        q.cfg = q.cfg.replace(quant="int8")
+        for blk in q.blocks:
+            blk.quant = "int8"
+        runs.append(("int8", q, {**wide_forward_launches(depth, d, n, int8=True), **pred}))
+    x = torch.randn((B_HW_SERVE, 224, 224, 3), device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(40))
+    out, logits = {"heads": H, "width": d, "fused_predictor": fused_pred}, {}
+    with torch.inference_mode():
+        for key, m, want in runs:
+            hd_dp_launches(reset=True)
+            ops.reset_launch_counts()
+            with ModeRecorder() as rec:
+                res = m(x, collect_cls_attns=False)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            check_mode_launches(counts, want, f"{label} {key} forward")
+            for k, v in counts.items():
+                tally.rows[k]["launches"] += v
+            hw_take(tally, counts, f"{label} {key} forward")
+            logits[key] = res.logits.float()
+            if not bool(torch.isfinite(logits[key]).all()) or logits[key].shape != (
+                    B_HW_SERVE, 1000):
+                raise AssertionError(f"{label} {key}: bad logits {logits[key].shape}")
+            out[key] = {"forward_ms": cuda_ms(torch, lambda: m(x, collect_cls_attns=False),
+                                              iters=2, repeats=3)}
+            hd_dp_launches(reset=True)
+            if key == "bf16":
+                plain = plain_twin(model)
+                with ModeRecorder(replay_from=rec):
+                    ref = plain(x, collect_cls_attns=False).logits.float()
+                err, top = rel_err(torch, logits[key], ref)
+                out[key]["logits_rel_err"] = err / top
+                del plain
+                if not err <= LOGITS_TOL * top:
+                    raise AssertionError(f"{label} bf16 forward against plain: {err / top}")
+                tally.err("fused_transformer_block", err)
+        if int8:
+            cos = torch.nn.functional.cosine_similarity(logits["int8"].flatten(),
+                                                        logits["bf16"].flatten(), dim=0).item()
+            out["int8"]["cos_vs_bf16"] = cos
+            if not cos >= INT8_LOGITS_COS:
+                raise AssertionError(f"{label} int8 logits against bf16: cos {cos}")
+    emit({"phase": "odd_wide_heads", "serve": label, **out, "card": smi})
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_backend(torch, q, k, v, scale) -> str:
+    """The backend SDPA picks for these inputs, by name: the dispatcher's own
+    choice (`torch._fused_sdp_choice`), which needs no profiler window
+    (late windows lose their kernels' names)."""
+    from torch.nn.attention import SDPBackend
+
+    names = {m.value: name.lower() for name, m in SDPBackend.__members__.items()}
+    return names[torch._fused_sdp_choice(q, k, v, scale=scale)]
+
+
+def time_hw_blocks(torch, dev, model, smi, label) -> dict:
+    """(c): the block forward and backward at `model`'s first block's width
+    on seeded B=64, N=197 activations, kernel and plain version in turns
+    (CUDA events), beside the bounds."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops.block import (
+        transformer_block_backward_reference, transformer_block_reference)
+
+    blk = model.blocks[0]
+    w = blk.kernel_weights(torch.bfloat16)
+    H, scale, ln_eps = blk.attn.num_heads, blk.attn.scale, blk.norm1.eps
+    C, hidden = model.cfg.embed_dim, blk.mlp.fc1.out_features
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn((64, 197, C), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((64, 197, C), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        fwd = paired_ms(torch, lambda: ops.fused_transformer_block(x, w, H, scale=scale,
+                                                                   ln_eps=ln_eps),
+                        lambda: transformer_block_reference(x, w, H, scale, ln_eps), iters=5,
+                        rounds=1, repeats=3)
+        bwd = paired_ms(torch, lambda: ops.fused_transformer_block_backward(
+            x, g, w, H, scale=scale, ln_eps=ln_eps),
+            lambda: transformer_block_backward_reference(x, g, w, H, scale, ln_eps), iters=3,
+            rounds=1, repeats=3)
+    out = {}
+    for direction, (k, p), b in (("forward", fwd, block_bound(64, 197, C, H, hidden)),
+                                 ("backward", bwd, block_backward_bound(64, 197, C, H, hidden))):
+        out[direction] = {"ms": k, "plain_ms": p, "bound_ms": max(b.values())}
+        emit({"phase": "odd_wide_heads", "kernel": f"block {direction}", "model": label,
+              "shape": [64, 197, C], "heads": H, "hidden": hidden, **out[direction],
+              "card": smi})
+    return out
+
+
+def phase_odd_wide_heads(torch, dev, tally, smi):
+    """Phase 40: odd head widths and widths past 128. (a) the cores and
+    every entry reaching them at HW_WIDTHS (`check_odd_wide`); (b) DeiT-B/16
+    with three heads of 256 trained at B=64 in top-k, threshold and attn and
+    at 384 px (B=32), with eight heads of 127 in top-k and threshold
+    (`train_hw`), each served at B=256 in bf16 and the 256-wide in int8
+    (`serve_hw`), the 127-wide heads in int8 at 16 heads (C = 2032; 1016
+    breaks the int8 rows' rule), both with their predictors plain (the
+    predictor kernel's rows: C a multiple of 32); (c) the cores at HW_TIMED
+    (`time_head_widths`: profiler device ms, plain, SDPA and the backend it
+    picks, bounds) and each model's block both ways (`time_hw_blocks`). The
+    sub-rows of the kernels line take (b)'s launches and (c)'s N = 197
+    times at d = 127 (odd) and 256 (past 128)."""
+    from dense2sparse_vit_torch.models import HEADLINE_KWARGS, create_model
+
+    t0 = time.perf_counter()
+    hd_dp_launches(reset=True)
+    counts = check_odd_wide(torch, dev, tally)
+    t_a = time.perf_counter() - t0
+    train, serve, blocks = {}, {}, {}
+    for name in HW_MODELS:
+        train[name] = train_hw(torch, dev, name, tally, smi)
+        student = train[name].pop("student")
+        blocks[name] = time_hw_blocks(torch, dev, student, smi, name)
+        serve[name] = serve_hw(torch, dev, name, student, tally, smi, int8=name != "heads127")
+        del student
+        torch.cuda.empty_cache()
+    wide127 = create_model(STUDENT_384, use_fused_attention=True, device=dev,
+                           generator=torch.Generator().manual_seed(0),
+                           **{**HEADLINE_KWARGS, **HW_INT8_127})
+    serve["heads127_x16"] = serve_hw(torch, dev, "heads127_x16", wide127, tally, smi)
+    del wide127
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t0 - t_a
+    times = time_head_widths(torch, dev, smi, widths=HW_TIMED, tokens=HW_TIMED_TOKENS,
+                             phase="odd_wide_heads")
+    backends = {}
+    for d, H, C in HW_TIMED:
+        gen = torch.Generator(device=dev).manual_seed(d)
+        qkv = torch.randn((64, 197, 3 * C), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v, _ = sdpa_inputs(torch, qkv, qkv[..., :C], H)
+        backends[d] = sdpa_backend(torch, q.detach(), k.detach(), v.detach(), d ** -0.5)
+    for (d, n), rows in times.items():
+        if n != 197 or d not in (127, 256):
+            continue
+        suffix = "[odd]" if d % 2 else "[d>128]"
+        for kernel, r in zip(("attention_hd", "attention_hd_bwd"), rows):
+            name = kernel + suffix
+            calls = tally.rows[name]["launches"]
+            tally.add(name, calls, r["ms"], r["plain_ms"], r["bound"], r["library_ms"])
+    for name in HW_ROWS_NAMES:
+        if not tally.rows[name]["launches"] > 0:
+            raise AssertionError(f"{name}: no launch on phase 40's path")
+    emit({"phase": "odd_wide_heads", "seconds": time.perf_counter() - t0, "kernels_s": t_a,
+          "models_s": t_b, "train": train, "serve": serve, "blocks": blocks,
+          "sdpa_backend": backends, "dp_launches_checks": len(counts),
+          "sub_rows": {r: tally.rows[r]["launches"] for r in HW_ROWS_NAMES}, "card": smi})
+
+
 def host_batch(torch, cfg, root, dev, split="val"):
     """The first LOOP_BATCH images of the loop's train or val split in the
     eval view, uint8 on the card, with their labels."""
@@ -8012,6 +8567,9 @@ def main(argv=None) -> int:
         # ---- 39. models wider than ViT-B --------------------------------------------
         torch.cuda.empty_cache()
         phase_wide_models(torch, dev, tally, smi)
+        # ---- 40. odd head widths and widths past 128 ----------------------------------
+        torch.cuda.empty_cache()
+        phase_odd_wide_heads(torch, dev, tally, smi)
     finally:
         loop_tmp.cleanup()
 

@@ -157,17 +157,6 @@ __device__ __forceinline__ int att_swz(int r, int c) {
   return r * ATT_HD + ((c ^ (r & 7)) << 3);
 }
 
-// s[e] of a 16 x 8 score tile: rows g (e < 2) and g + 8, columns 2t + (e & 1)
-// of the 8-key block; (max, ties) of a row, merged across a quad
-__device__ __forceinline__ void max_count(float v, float& m, float& c) {
-  if (v > m) {
-    m = v;
-    c = 1.f;
-  } else if (v == m) {
-    c += 1.f;
-  }
-}
-
 // the A fragments of the warp's query tiles from its Q buffer
 __device__ __forceinline__ void att_load_q(uint32_t (&qa)[ATT_QT][ATT_HD / 16][4],
                                            const bf16* Qw, int lane) {
@@ -185,13 +174,6 @@ __device__ __forceinline__ void att_load_k(uint32_t (&kb)[2][4], const bf16* Ks,
                                            int lane) {
   ldmatrix_x4(kb[0], Ks + att_swz(n0 + (lane & 7), lane >> 3));
   ldmatrix_x4(kb[1], Ks + att_swz(n0 + (lane & 7), 4 + (lane >> 3)));
-}
-
-// 2^x (the exponentials take their argument pre-scaled by log2 e)
-__device__ __forceinline__ float att_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // s[j][qt] = q . k for keys n0 + 8 j + (0..7) of the first NQ query tiles:
@@ -544,363 +526,10 @@ static __global__ void __launch_bounds__(ATT_THREADS)
   }
 }
 
-// ---- the core at head widths other than 64 (attention_hd.cuh) ------------
-//
-// attention_hd_kernel computes what attention_kernel computes, in its three
-// modes (plain, policy, the CLS rows), for a head width d that is even and
-// at most 128: the same exact fp32 row-max softmax, the same policy softmax,
-// and the statistics the backward takes, always (B, H, N) float4 at these
-// widths: (lse, 0, 0, 0) in plain mode, (max, den, ties, 0) in policy mode.
-// What bounds it: bytes. At B=64, N=197, d=96 (8 heads) it reads qkv and
-// writes its output, ~0.023 ms at 3.35 TB/s, against ~7.6 GFLOP of score and
-// P.V products (~0.008 ms at the bf16 peak, ~0.012 ms with the padding to
-// 64-key blocks); at d=12 (32 heads) ~0.012 ms of bytes, but ~4 times as
-// many exponentials a byte. The design:
-//   - a CTA is two warpgroups, each with one 64-row query block of a
-//     sample-head, sharing the keys' tiles (grid: half the query blocks x
-//     B H): each key reaches shared memory once per 128 queries, from L2
-//     mostly, as the CTAs of one sample-head read the same K and V (one
-//     warpgroup a CTA, or four, took longer on the card);
-//   - one pass over the keys with an online softmax: per 64-key block, S =
-//     Q K^T on wgmma (m64n32k16 chains, n16 at d > 96: hd_score_n; Q and
-//     K from shared memory),
-//     the block's row max (policy mode: of the scaled scores, with the
-//     columns that reach it, merged into the running count as the max
-//     moves), the running sums and the output rescaled by 2^(m_old -
-//     m_new), p = 2^(s scale log2 e - m log2 e) (policy mode: times a_ij),
-//     and O += P V on wgmma m64nDPk16 with P from registers, V from shared
-//     memory as an MN-major operand. Nothing but the accumulators is
-//     rescaled: in policy mode the smoothing's (eps/N) colsum(V) stays
-//     apart, summed in fp32 from the V tiles as they pass, and added at the
-//     end;
-//   - the keys stream through a ring of `ring` (2 or 3) K and V tile pairs,
-//     filled by cp.async (attention_hd.cuh) ring - 1 blocks ahead of the
-//     products;
-//   - the CLS rows: the threads of query row 0 keep its raw scores in
-//     shared memory as the blocks pass and write the normalised row at the
-//     end, against the final max and sum.
-// Its times are in PERF.md.
-template <int DP, bool POLICY, bool RES>
-static __global__ void __launch_bounds__(128 * HD_FWD_WG)
-    attention_hd_kernel(const bf16* __restrict__ qkv, long long q_bstride, int q_ld, int d,
-                        bf16* __restrict__ out, bf16* __restrict__ out_res,
-                        float* __restrict__ lse, bf16* __restrict__ cls,
-                        const float* __restrict__ pol, int N, int H, float scale, float eps,
-                        int ring, int pb) {
-  constexpr int T = HD_TILE<DP>;
-  constexpr int NT = 128 * HD_FWD_WG;
-  constexpr int CP = DP / 2;  // column pairs
-  constexpr int GROUPS = hd_fwd_groups(DP);
-  constexpr int SN = hd_score_n(DP), NH = HD_BLK / SN;  // a score chain's keys, chains a block
-  constexpr float LOG2E = 1.4426950408889634f;
-  extern __shared__ __align__(128) unsigned char hd_smem[];
-  const int nkb = (N + HD_BLK - 1) / HD_BLK;
-  unsigned char* Qs = hd_smem;                   // the warpgroups' Q tiles
-  unsigned char* KVs = Qs + HD_FWD_WG * T;       // the ring's (K, V) tile pairs
-  float* Ps = reinterpret_cast<float*>(KVs + (size_t)ring * 2 * T);  // pol_j of every key
-  float* Cvp = Ps + (POLICY ? nkb * HD_BLK : 0);  // colsum(V)'s parts, [group][DP]
-  float* Row0 = Cvp + (POLICY ? GROUPS * DP : 0);  // with cls: row 0's raw scores
-
-  const int C = H * d;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7;
-  const int ct = tid & 127;
-  const int lane = tid & 31;
-  const int warp = ct >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = (blockIdx.x * HD_FWD_WG + wg) * HD_BLK;  // the warpgroup's query block
-  const bf16* base = qkv + (long long)b * q_bstride + h * d;
-  const float sl2 = scale * LOG2E;
-  const float cc = POLICY ? eps / N : 0.f;
-  const int ra = q0 + warp * 16 + g;  // this thread's query rows ra, ra + 8
-  const bool row0 = cls != nullptr && ra == 0;
-  const int cpair = ct % CP, cgrp = ct / CP;  // colsum: a column pair, a key group
-  const unsigned char* Qt = Qs + wg * T;
-
-  // key block j's K and V into its ring slot; a commit group each, empty
-  // past the last block
-  auto load_kv = [&](int j) {
-    if (j < nkb) {
-      unsigned char* slot = KVs + (size_t)(j % ring) * 2 * T;
-      hd_copy_tile<DP>(slot, base + C, q_ld, j * HD_BLK, N, d, pb, tid, NT);
-      hd_copy_tile<DP>(slot + T, base + 2 * C, q_ld, j * HD_BLK, N, d, pb, tid, NT);
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int w = 0; w < HD_FWD_WG; ++w)  // rows past N (a CTA's spare block) are zeros
-    hd_copy_tile<DP>(Qs + w * T, base, q_ld, (blockIdx.x * HD_FWD_WG + w) * HD_BLK, N, d, pb,
-                     tid, NT);
-  for (int j = 0; j + 1 < ring; ++j) load_kv(j);  // the first group holds Q too
-  if (POLICY)
-    for (int k = tid; k < nkb * HD_BLK; k += NT) Ps[k] = k < N ? pol[(long long)b * N + k] : 0.f;
-
-  float o[DP / 2];
-#pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, ct2[2] = {0.f, 0.f};
-  float lb[2] = {0.f, 0.f};   // RES: the sums of the bf16 p that P.V takes
-  float cs[2] = {0.f, 0.f};  // policy mode: this thread's part of colsum(V)
-
-  for (int j = 0; j < nkb; ++j) {
-    wgmma_wait<0>();  // block j - 1's P V, whose V slot is refilled below
-    fence_acc(o);
-    if (ring == 2) cp_async_wait<0>();
-    else cp_async_wait<1>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();  // K_j and V_j in for every thread; every product of block j - 1 done
-    load_kv(j + ring - 1);
-    const unsigned char* Kt = KVs + (size_t)(j % ring) * 2 * T;
-    const unsigned char* Vt = Kt + T;
-    const int k0 = j * HD_BLK;
-
-    // S = Q K^T for keys k0 + SN hh .. + SN - 1: m64nSNk16 from zero in kk order
-    float s[NH][SN / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int hh = 0; hh < NH; ++hh)
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        HdMma<SN>::template ss<0, 0>(s[hh], hd_kdesc<DP>(Qt + kk * 256),
-                                     hd_kdesc<DP>(Kt + hh * (SN / 8) * DP * 16 + kk * 256), kk);
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int hh = 0; hh < NH; ++hh) fence_acc(s[hh]);
-
-    // the block's max per row (policy mode: of the scaled scores, and the
-    // columns that reach it), columns past N left out; s[hh][i] is row
-    // (i >> 1) & 1 (ra or ra + 8), column k0 + SN hh + 8 (i >> 2) + 2t + (i & 1)
-    const bool edge = k0 + HD_BLK > N;
-    float bm[2] = {-INFINITY, -INFINITY}, bc[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hh = 0; hh < NH; ++hh)
-#pragma unroll
-      for (int i = 0; i < SN / 2; ++i) {
-        const int r = (i >> 1) & 1;
-        if (edge && k0 + SN * hh + 8 * (i >> 2) + 2 * t + (i & 1) >= N) {
-          s[hh][i] = -INFINITY;  // a probability of 0 below
-          continue;
-        }
-        if (POLICY) max_count(s[hh][i] * scale, bm[r], bc[r]);
-        else bm[r] = fmaxf(bm[r], s[hh][i]);
-      }
-    float ml[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const float mo = __shfl_xor_sync(0xffffffffu, bm[r], off);
-        if (POLICY) {
-          const float co = __shfl_xor_sync(0xffffffffu, bc[r], off);
-          if (mo > bm[r]) bc[r] = co;
-          else if (mo == bm[r]) bc[r] += co;
-        }
-        bm[r] = fmaxf(bm[r], mo);
-      }
-      // scale > 0, so the max of the scaled scores
-      const float bmax = POLICY ? bm[r] : bm[r] * scale;
-      const float mn = fmaxf(m[r], bmax);
-      if (POLICY) ct2[r] = bmax > m[r] ? bc[r] : bmax == m[r] ? ct2[r] + bc[r] : ct2[r];
-      const float alpha = att_exp2((m[r] - mn) * LOG2E);  // 0 at the first block
-      m[r] = mn;
-      ml[r] = mn * LOG2E;
-      l[r] *= alpha;
-      if (RES) lb[r] *= alpha;
-#pragma unroll
-      for (int nd = 0; nd < DP / 8; ++nd) {
-        o[4 * nd + 2 * r] *= alpha;
-        o[4 * nd + 2 * r + 1] *= alpha;
-      }
-    }
-
-    if (row0) {  // query row 0's raw scores, for the CLS row at the end
-#pragma unroll
-      for (int hh = 0; hh < NH; ++hh)
-#pragma unroll
-        for (int i = 0; i < SN / 2; ++i) {
-          const int col = k0 + SN * hh + 8 * (i >> 2) + 2 * t + (i & 1);
-          if (!(i & 2) && col < N) Row0[col] = s[hh][i];  // row ra, not ra + 8
-        }
-    }
-
-    // p = 2^(s scale log2 e - m log2 e) (policy mode: times a_ij = pol_j,
-    // pol_j + (1 - pol_j) on the diagonal), l += p, P as A fragments
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int hh = 0; hh < NH; ++hh) {
-#pragma unroll
-      for (int i = 0; i < SN / 2; ++i) {
-        const int r = (i >> 1) & 1;
-        const int col = k0 + SN * hh + 8 * (i >> 2) + 2 * t + (i & 1);
-        float p = att_exp2(s[hh][i] * sl2 - ml[r]);
-        if (POLICY) {
-          const float a = Ps[col];  // zero past N
-          p *= col == ra + 8 * r ? a + (1.f - a) : a;
-        }
-        l[r] += p;
-        if (RES) lb[r] += __bfloat162float(__float2bfloat16_rn(p));
-        s[hh][i] = p;
-      }
-#pragma unroll
-      for (int kk = 0; kk < SN / 16; ++kk) hd_pack_a(pa[(SN / 16) * hh + kk], s[hh], kk);
-    }
-    if (POLICY && wg == 0 && cgrp < GROUPS) {  // colsum(V): rows past N are zero
-      for (int k = cgrp; k < HD_BLK; k += GROUPS) {
-        const __nv_bfloat162 v2 =
-            *reinterpret_cast<const __nv_bfloat162*>(Vt + hd_at<DP>(k, 2 * cpair));
-        cs[0] += __low2float(v2);
-        cs[1] += __high2float(v2);
-      }
-    }
-
-    // O += P V over the block's keys, 16 at a time
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fence_acc(pa[kk]);
-    fence_acc(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      HdMma<DP>::template rs<1>(o, pa[kk], hd_mdesc<DP>(Vt + kk * 2 * DP * 16), 1);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-  fence_acc(o);
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (POLICY) l[r] += eps;
-    if (RES) {
-      lb[r] += __shfl_xor_sync(0xffffffffu, lb[r], 1);
-      lb[r] += __shfl_xor_sync(0xffffffffu, lb[r], 2);
-      if (POLICY) lb[r] += eps;  // the smoothing's colsum(V) term is added in fp32
-    }
-  }
-  if (POLICY) {  // colsum(V): the key groups' parts added in order
-    if (wg == 0 && cgrp < GROUPS) {
-      Cvp[cgrp * DP + 2 * cpair] = cs[0];
-      Cvp[cgrp * DP + 2 * cpair + 1] = cs[1];
-    }
-    __syncthreads();
-  }
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
-  const long long stat = (long long)blockIdx.y * N;  // (b, h) row of lse and cls
-  if (lse && t == 0) {
-    float4* st4 = reinterpret_cast<float4*>(lse);
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (ra + 8 * r < N)
-        st4[stat + ra + 8 * r] = POLICY ? make_float4(m[r], l[r], ct2[r], 0.f)
-                                        : make_float4(m[r] + logf(l[r]), 0.f, 0.f, 0.f);
-  }
-  if (cls && q0 == 0 && warp == 0) {
-    // query row 0: its probabilities against the final max and sum (lanes
-    // 0-3 hold them)
-    __syncwarp();
-    const float inv0 = __shfl_sync(0xffffffffu, inv[0], 0);
-    const float ml0 = __shfl_sync(0xffffffffu, m[0], 0) * LOG2E;
-    for (int col = lane; col < N; col += 32) {
-      float v = att_exp2(Row0[col] * sl2 - ml0);
-      if (POLICY) {
-        const float a = Ps[col];
-        v = v * (col == 0 ? a + (1.f - a) : a) + cc;
-      }
-      cls[stat + col] = __float2bfloat16(v * inv0);
-    }
-  }
-  const long long oat = (long long)b * N * C + h * d;
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (c >= d) continue;
-    float add0 = 0.f, add1 = 0.f;  // policy mode: (eps/N) colsum(V)
-    if (POLICY) {
-      for (int grp = 0; grp < GROUPS; ++grp) {
-        add0 += Cvp[grp * DP + c];
-        add1 += Cvp[grp * DP + c + 1];
-      }
-      add0 *= cc;
-      add1 *= cc;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (ra + 8 * r >= N) continue;
-      const float lo = (o[4 * nd + 2 * r] + add0) * inv[r];
-      const float hi = (o[4 * nd + 2 * r + 1] + add1) * inv[r];
-      const uint32_t v = pack_bf16(lo, hi);
-      const long long at = oat + (long long)(ra + 8 * r) * C + c;
-      *reinterpret_cast<uint32_t*>(out + at) = v;
-      if (RES) {  // O normalised by the bf16 probabilities P.V took, less v
-        const float ib = 1.f / lb[r];
-        *reinterpret_cast<uint32_t*>(out_res + at) = pack_bf16_residual(
-            (o[4 * nd + 2 * r] + add0) * ib, (o[4 * nd + 2 * r + 1] + add1) * ib, v);
-      }
-    }
-  }
-}
-
-long long attention_hd_launches[2] = {0, 0};
-
-template <int DP>
-static cudaError_t launch_attention_hd_dp(const bf16* qkv, long long q_bstride, int q_ld, int d,
-                                          bf16* out, bf16* out_res, float* lse, bf16* cls,
-                                          const float* pol, int B, int N, int H, float scale,
-                                          float eps, cudaStream_t stream) {
-  // the ring: three slots where two CTAs still fit an SM's 228 KB, else two
-  const bool policy = pol != nullptr, with_cls = cls != nullptr;
-  const int ring = 2 * (hd_fwd_smem(DP, N, 3, policy, with_cls) + 1024) <= 233472 ? 3 : 2;
-  const size_t smem = hd_fwd_smem(DP, N, ring, policy, with_cls);
-  auto kernel = pol ? (out_res ? attention_hd_kernel<DP, true, true>
-                               : attention_hd_kernel<DP, true, false>)
-                    : (out_res ? attention_hd_kernel<DP, false, true>
-                               : attention_hd_kernel<DP, false, false>);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int nqb = (N + HD_BLK - 1) / HD_BLK;
-  const dim3 grid((nqb + HD_FWD_WG - 1) / HD_FWD_WG, B * H);
-  kernel<<<grid, 128 * HD_FWD_WG, smem, stream>>>(qkv, q_bstride, q_ld, d, out, out_res, lse,
-                                                  cls, pol, N, H, scale, eps, ring,
-                                                  hd_piece_bytes(d));
-  err = cudaGetLastError();
-  if (err == cudaSuccess) ++attention_hd_launches[0];
-  return err;
-}
-
-// the d != 64 core: rows as launch_attention_strided takes them (4-byte
-// aligned suffices), lse (B, H, N) float4 or null
-static cudaError_t launch_attention_hd(const bf16* qkv, long long q_bstride, int q_ld, int d,
-                                       bf16* out, bf16* out_res, float* lse, bf16* cls,
-                                       const float* pol, int B, int N, int H, float scale,
-                                       float eps, cudaStream_t stream) {
-#define D2S_HD_FWD(DP)                                                                    \
-  case DP:                                                                                \
-    return launch_attention_hd_dp<DP>(qkv, q_bstride, q_ld, d, out, out_res, lse, cls, pol, \
-                                      B, N, H, scale, eps, stream);
-  switch (hd_pad(d)) {
-    D2S_HD_FWD(16)
-    D2S_HD_FWD(32)
-    D2S_HD_FWD(48)
-    D2S_HD_FWD(64)
-    D2S_HD_FWD(80)
-    D2S_HD_FWD(96)
-    D2S_HD_FWD(112)
-    D2S_HD_FWD(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef D2S_HD_FWD
-}
-
 // qkv's token rows lie q_ld elements apart and its samples q_bstride apart
 // (both multiples of 8); out is (B*N, C) packed, C = H d. Heads of d = 64
 // up to ATT_SHORT_N tokens take attention_kernel, longer ones and every
-// other even d up to 128 attention_hd_kernel (att_on_hd; its lse is always
+// other d up to 256 attention_hd_kernel (att_on_hd; its lse is always
 // float4), up to hd_max_tokens. Also launched by block_bwd.cu (the
 // backwards' recompute), which takes out_res: where not null, (B*N, C)
 // bf16, the output's P.V normalised by the sum of the bf16 probabilities
@@ -1074,8 +703,8 @@ using d2s::bf16;
 // DropPath scales of the attention and the MLP branch, each or both null
 // (no scale). Matrices are bf16
 // in the torch Linear layout (out, in); LayerNorm parameters and biases are
-// fp32; bqkv may be null. Requires C == d * H with an even head width d
-// up to 128 (attention_hd.cuh), hidden % 8 == 0, N up to hd_max_tokens
+// fp32; bqkv may be null. Requires C == d * H with a head width d
+// up to 256 (attention_hd.cuh), hidden % 8 == 0, N up to hd_max_tokens
 // (attention_hd.cuh), 16-byte aligned pointers.
 extern "C" int d2s_block_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* hid_buf,
@@ -1139,7 +768,7 @@ int d2s::block_forward(const void* x, void* out, void* qkv_buf, void* attn_buf, 
 // x, out: (B, N, C) bf16; scratch qkv (B*N, 3C) and attn (B*N, C) bf16 and
 // stats (B*N) float2; lse, cls, policy as d2s_block_forward takes them
 // (each may be null); weights bf16 (out, in), LayerNorm and biases fp32,
-// bqkv and bproj may be null. Requires C == d * H (d even, at most 128),
+// bqkv and bproj may be null. Requires C == d * H (d at most 256),
 // N up to hd_max_tokens, 16-byte aligned pointers.
 extern "C" int d2s_attention_block_forward(const void* x, void* out, void* qkv_buf,
                                            void* attn_buf, void* stats_buf, const void* ln_w,
@@ -1163,7 +792,7 @@ extern "C" int d2s_attention_block_forward(const void* x, void* out, void* qkv_b
 // runs outside: the CLS-capture route of a training block). qkv: (B, N, 3C)
 // bf16 with token rows q_ld elements apart and samples q_bstride apart; out
 // (B, N, C) bf16; cls (B, H, N) bf16 or null; policy (B, N) fp32 or null.
-// Requires C == d * H (d even, at most 128), N up to hd_max_tokens, q_ld
+// Requires C == d * H (d at most 256), N up to hd_max_tokens, q_ld
 // and q_bstride multiples of 8, 16-byte aligned pointers.
 extern "C" int d2s_attention_packed_forward(const void* qkv, long long q_bstride, int q_ld,
                                             void* out, void* cls, const void* policy, int B,
@@ -1174,18 +803,6 @@ extern "C" int d2s_attention_packed_forward(const void* qkv, long long q_bstride
       static_cast<const bf16*>(qkv), q_bstride, q_ld, static_cast<bf16*>(out), nullptr,
       static_cast<bf16*>(cls), static_cast<const float*>(policy), B, N, H, C / H, scale, eps,
       static_cast<cudaStream_t>(stream));
-}
-
-// The launches of the attention core at head widths other than 64 since the
-// last reset, counted where they are launched, inside every entry: which = 0
-// the forward (attention_hd_kernel), 1 the backward (block_bwd.cu's
-// attention_hd_bwd_kernel, once a backward);
-// value >= 0 resets the count to it.
-extern "C" long long d2s_attention_hd_launches(int which, long long value) {
-  if (which != 0 && which != 1) return -1;
-  long long& n = d2s::attention_hd_launches[which];
-  if (value >= 0) n = value;
-  return n;
 }
 
 // The MLP half alone, out = x + fc2(GELU(fc1(LN x))), over M = B*N rows: x,

@@ -62,6 +62,7 @@
 // what holds the bf16 engine's qkv and fc1 products to a fraction of their
 // rate. The pass already runs near its bytes bound; a fold would save
 // traffic only (each quantized activation's second read).
+#include "attention_hd.cuh"  // head_width_ok: the head widths of block.cu's cores
 #include "ln_gemm.cuh"
 
 namespace d2s {
@@ -312,7 +313,7 @@ using d2s::bf16;
 // one buffer: each is read by the next kernel only). Weights: the matrices'
 // int8 codes in the torch Linear layout (out, in) with fp32 scales per
 // output channel; LayerNorm parameters and biases fp32; bqkv may be null.
-// Requires C == d * H (d even, at most 128: block.cu's cores), C % 16 == 0,
+// Requires C == d * H (d at most 256: block.cu's cores), C % 16 == 0,
 // hidden % 16 == 0, C and hidden <= d2s_rowq_max_width() (ROWQ_MAX_K),
 // N up to hd_max_tokens (attention_hd.cuh), 16-byte aligned pointers.
 extern "C" int d2s_block_int8_forward(
@@ -323,7 +324,7 @@ extern "C" int d2s_block_int8_forward(
     const void* ln2_b, const void* w1_q, const void* s1, const void* b1, const void* w2_q,
     const void* s2, const void* b2, int B, int N, int C, int H, int hidden, float scale,
     float ln_eps, void* stream) {
-  if (H <= 0 || C % H != 0 || (C / H) % 2 != 0 || C / H > 128 || C % 16 != 0 || hidden % 16 != 0)
+  if (!d2s::head_width_ok(C, H) || C % 16 != 0 || hidden % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;

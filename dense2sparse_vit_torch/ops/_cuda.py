@@ -66,6 +66,7 @@ _SIGNATURES = {
     "d2s_norm_launches": [_I, _L],
     "d2s_attention_bwd_launches": [_I, _L],
     "d2s_attention_hd_launches": [_I, _L],
+    "d2s_attention_hd_dp_launches": [_I, _I, _I, _L],
     "d2s_predictor_forward": (
         [_P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P] + [_P] * 4 + [_P] * 4 + [_I, _F, _P]
     ),
@@ -78,7 +79,7 @@ _RESTYPES = {"d2s_block_backward_scratch_bytes": _L, "d2s_wgrad_workspace_bytes"
              "d2s_ln_backward_workspace_bytes": _L, "d2s_column_sums_workspace_bytes": _L,
              "d2s_norm_launches": _L, "d2s_quant_launches": _L,
              "d2s_attention_bwd_launches": _L,
-             "d2s_attention_hd_launches": _L,
+             "d2s_attention_hd_launches": _L, "d2s_attention_hd_dp_launches": _L,
              "d2s_predictor_scratch_bytes": _L, "d2s_attention_bwd_part_floats": _L}
 
 _lock = threading.Lock()

@@ -20,11 +20,12 @@ d2s_attention_packed_forward and `csrc/block_bwd.cu`'s
 d2s_attention_packed_backward, which recomputes the forward from qkv (as the
 TPU kernel recomputes P), so the Function keeps only qkv and the policy
 between the two. For CPU tensors they run `attention_reference` and autograd
-through it, the plain versions. The kernels take every even head width up
-to 128 (`ops.block.head_width`: 64 on the wgmma cores, the others on
-csrc/attention_hd.cuh's path, whose launches count in `ATTENTION_HD` and
-`ATTENTION_HD_BWD`; at width 64 also past `ops.block.SHORT_TOKENS` = 800
-tokens) and every N up to `ops.block.attention_max_tokens` both ways.
+through it, the plain versions. The kernels take every head width from 1
+to 256, odd or even (`ops.block.head_width`: 64 on the wgmma cores, the
+others on csrc/attention_hd.cuh's path, whose launches count in
+`ATTENTION_HD` and `ATTENTION_HD_BWD`; at width 64 also past
+`ops.block.SHORT_TOKENS` = 800 tokens) and every N up to
+`ops.block.attention_max_tokens` both ways.
 
 The attention half-block, x + proj(MHA(qkv(LN1 x))), the port of
 `fused_attention_block` and its backward kernels in the same JAX module:
@@ -61,6 +62,7 @@ from dense2sparse_vit_torch.ops.block import (
     HEAD_DIM,
     _policy_arg,
     attention_reference,
+    check_row_bytes,
     check_tokens,
     head_width,
     layer_norm,
@@ -215,9 +217,9 @@ ATTENTION_BWD = LaunchCount(0, "d2s_attention_bwd_launches")
 ATTENTION_BWD_LONG = LaunchCount(1, "d2s_attention_bwd_launches")
 # The attention core at head widths other than 64 (csrc/attention_hd.cuh),
 # launched inside every entry with attention in place of the width-64 cores:
-# its forward (block.cu's attention_hd_kernel, also in each backward's
-# recompute) and its backward (block_bwd.cu's attention_hd_bwd_kernel, one
-# launch a backward)
+# its forward (attention_hd_fwd.cuh's attention_hd_kernel, also in each
+# backward's recompute) and its backward (attention_hd_bwd.cuh's
+# attention_hd_bwd_kernel, one launch a backward)
 ATTENTION_HD = LaunchCount(0, "d2s_attention_hd_launches")
 ATTENTION_HD_BWD = LaunchCount(1, "d2s_attention_hd_launches")
 
@@ -353,6 +355,7 @@ def _half_block_ptrs(x, weights, num_heads, what, *, policy=False, backward=Fals
     that order, their dtypes and shapes)."""
     B, N, C = x.shape
     d = head_width(C, num_heads, what)
+    check_row_bytes(C, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
     check_tokens(N, d, what, policy=policy, backward=backward)

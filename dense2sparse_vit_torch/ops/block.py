@@ -61,12 +61,14 @@ BLOCK_WEIGHT_KEYS = (
     "ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj",
     "ln2_w", "ln2_b", "w1", "b1", "w2", "b2",
 )
-# The head widths the kernels take: every even d = C / num_heads up to
-# MAX_HEAD_DIM. d = HEAD_DIM runs the wgmma cores of csrc/block.cu and
-# csrc/block_bwd.cu; every other width the mma.sync path of
-# csrc/attention_hd.cuh, chosen by the C code from d.
+# The head widths the kernels take: every d = C / num_heads from 1 to
+# MAX_HEAD_DIM, odd or even (256: wgmma's widest n, twice ViT-22B's head).
+# d = HEAD_DIM runs the width-64 wgmma cores of csrc/block.cu and
+# csrc/block_bwd.cu up to SHORT_TOKENS; every other width the wgmma pair of
+# csrc/attention_hd.cuh (odd widths with gathered copies, widths past 128
+# with one key block a backward pass), chosen by the C code from d.
 HEAD_DIM = 64
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 # Sequence length. The d = 64 forward core keeps a sample-head's K and V in
 # shared memory, SHORT_TOKENS keys at most (its backward splits a
 # sample-head longer than 384 tokens, policy mode 352, over 2-3 CTAs).
@@ -81,13 +83,14 @@ MAX_HEAD_DIM = 128
 SHORT_TOKENS = 800
 SMEM_BYTES = 232448  # the most dynamic shared memory a CTA takes on an H100
 _BLK = 64  # the rows of a query or key block on that path
+_NARROW = 128  # the widest padded head whose backward takes two key blocks a pass
 
 
 def attention_max_tokens(d: int, *, policy: bool = False, backward: bool = False) -> int:
     """The longest sequence the attention cores take at head width d, in
     policy mode or not, forward alone or both ways (the backward with the
     forward it recomputes); 0 for a width they do not take. Needs no card."""
-    if not 0 < d <= MAX_HEAD_DIM or d % 2:
+    if not 0 < d <= MAX_HEAD_DIM:
         return 0
     dp = (d + 15) // 16 * 16
     tile = _BLK * dp * 2
@@ -96,11 +99,14 @@ def attention_max_tokens(d: int, *, policy: bool = False, backward: bool = False
     fwd = (SMEM_BYTES - fwd_fixed) // (8 if policy else 4) // _BLK * _BLK
     if not backward:
         return fwd
-    # the backward: two key blocks' K and V, a ring of two Q and dO pairs, the
-    # dS^T stages, dQ's fp32 sum, colsum(V) with its parts, the fold's sums
+    # the backward: a pass's key blocks' K and V (two up to _NARROW, one past
+    # it), a ring of two Q and dO pairs, the dS^T stages (four, one past
+    # _NARROW) with dQ's fp32 sum (none past it), colsum(V) with its parts,
+    # the fold's sums
     seg = 32 if dp >= 64 else 16 if dp >= 32 else 8
-    bwd_fixed = (8 * tile + 4 * _BLK * _BLK * 2 + _BLK * dp * 4
-                 + (1 + 8 * 32 // seg) * dp * 4 + 66 * 4)
+    narrow = dp <= _NARROW
+    bwd_fixed = ((4 if narrow else 2) * tile + 4 * tile + (4 if narrow else 1) * _BLK * _BLK * 2
+                 + (_BLK * dp * 4 if narrow else 0) + (1 + 8 * 32 // seg) * dp * 4 + 66 * 4)
     return min(fwd, (SMEM_BYTES - bwd_fixed) // 16 // _BLK * _BLK)
 
 
@@ -230,15 +236,23 @@ def transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps, *, p
 
 
 def head_width(C: int, num_heads: int, what: str) -> int:
-    """The head width d = C / num_heads, if the kernels take it (even, at
-    most MAX_HEAD_DIM); else ValueError naming it. The wrappers call it
-    before anything touches the device."""
+    """The head width d = C / num_heads, if the kernels take it (1 to
+    MAX_HEAD_DIM, odd or even); else ValueError naming it. The wrappers call
+    it before anything touches the device."""
     d = C // num_heads if num_heads > 0 else 0
-    if num_heads <= 0 or d * num_heads != C or d % 2 or not 0 < d <= MAX_HEAD_DIM:
+    if num_heads <= 0 or d * num_heads != C or not 0 < d <= MAX_HEAD_DIM:
         width = f"{C / num_heads:g}" if num_heads > 0 else "undefined"
         raise ValueError(f"{what}: head width {width} (C={C}, {num_heads} heads): the kernels "
-                         f"take an even width up to {MAX_HEAD_DIM}")
+                         f"take a width from 1 to {MAX_HEAD_DIM}")
     return d
+
+
+def check_row_bytes(C: int, what: str) -> None:
+    """ValueError where C is no multiple of 8: the block entries' GEMMs
+    (TMA) and LayerNorm take token rows whose bytes are a multiple of 16."""
+    if C % 8:
+        raise ValueError(f"{what}: C={C}: the kernels take C a multiple of 8 (rows of 16-byte "
+                         "multiples)")
 
 
 def _kernel_args(x, w, num_heads, what, *, policy=False, backward=False):
@@ -248,6 +262,7 @@ def _kernel_args(x, w, num_heads, what, *, policy=False, backward=False):
     shapes)."""
     B, N, C = x.shape
     d = head_width(C, num_heads, what)
+    check_row_bytes(C, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
     check_tokens(N, d, what, policy=policy, backward=backward)
@@ -455,6 +470,8 @@ def fused_transformer_block(
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, stages=stages, branch_scales=branch_scales)
     head_width(C, num_heads, what)
+    if x.device.type != "cpu":
+        check_row_bytes(C, what)
     if stages:
         out, st, _ = _launch_forward(x, w, num_heads, scale, ln_eps, policy=policy, eps=eps,
                                      cls=False, what=what, branch_scales=branch_scales)
@@ -487,6 +504,8 @@ def fused_transformer_block_cls(
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, return_cls=True)
     head_width(C, num_heads, "fused_transformer_block_cls")
+    if x.device.type != "cpu":
+        check_row_bytes(C, "fused_transformer_block_cls")
     _refuse_autograd(x, w, policy, "fused_transformer_block_cls")
     return torch.ops.d2s.block_forward_cls(x, _op_weights(w), w["bqkv"],
                                            _policy_arg(policy, x, "fused_transformer_block_cls"),

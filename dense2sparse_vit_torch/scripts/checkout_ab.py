@@ -43,9 +43,12 @@ same values.
   C=768) at B=16, N=197;
 - core/<d>/<N>/<mode>/<tensor>: the attention cores through the packed
   entries at B=8, head widths 64 (6 heads), 12 (32) and 96 (8), N = 197,
-  577 and 785 (at width 64 also the long path of its backward): the
-  output and CLS rows in plain and policy mode (eps 0.1), dqkv with the
-  CLS rows' cotangent folded in, and in policy mode dPolicy.
+  577 and 785 (at width 64 also the long path of its backward), and at
+  N = 197 and 577 every other padded width up to 128 (d = 2, 32, 48, 80,
+  112, 128) and the odd widths and those past 128 (d = 13, 127, 160, 256;
+  left out where the checkout refuses them): the output and CLS rows in
+  plain and policy mode (eps 0.1), dqkv with the CLS rows' cotangent folded
+  in, and in policy mode dPolicy.
 
 `--compare` prints one JSON line per case of the first file (equal, or
 missing from the second) and a summary line, and exits 1 if any differs.
@@ -87,8 +90,10 @@ rest and the total. Its last line names the package, the card and its
 power limit.
 
 `--hd-times` prints, at the head widths other than 64 that the zoo uses
-(d = 12 with 32 heads, C = 384; d = 96 with 8 heads, C = 768), N = 197 and
-577, B=64 (seeded qkv and cotangent, plain mode), one JSON line per case:
+(d = 12 with 32 heads, C = 384; d = 96 with 8 heads, C = 768) and at an
+odd width and two past 128 (d = 127 with 8 heads, 160 with 4, 256 with 3;
+left out where the checkout refuses them), N = 197 and 577, B=64 (seeded
+qkv and cotangent, plain mode), one JSON line per case:
 from torch.profiler over 10 calls, the device ms per call of the forward
 core inside `ops.fused_attention_packed` (kernels named
 `attention_hd_kernel`) and of the backward core inside
@@ -242,11 +247,14 @@ def block_cases(device, B, N, C, H) -> dict:
     return out
 
 
-def core_cases(device, B, cases) -> dict:
+def core_cases(device, B, cases, optional=()) -> dict:
     """The packed attention both ways at each (N, C, H) of `cases`, plain
-    and policy mode, with the CLS rows and their cotangent."""
+    and policy mode, with the CLS rows and their cotangent; those of
+    `optional` too, where the checkout takes their head width."""
     out = {}
-    for N, C, H in cases:
+    for N, C, H in (*cases, *optional):
+        if (N, C, H) in optional and not _takes(C, H):
+            continue
         gen = torch.Generator().manual_seed(N + C + H)
         qkv, g = randn(gen, (B, N, 3 * C), device), randn(gen, (B, N, C), device)
         gcls = randn(gen, (B, H, N), device, torch.float32, 0.01)
@@ -266,20 +274,35 @@ def core_cases(device, B, cases) -> dict:
     return out
 
 
+def _takes(C: int, H: int) -> bool:
+    """Whether the checkout's kernels take head width C / H."""
+    from dense2sparse_vit_torch.ops.block import head_width
+
+    try:
+        head_width(C, H, "checkout_ab")
+    except ValueError:
+        return False
+    return True
+
+
 def measure(device) -> dict:
     if device.type == "cpu":  # the plain versions, at a smoke size
         shapes, rows, blk = [(2, 13, 128, 2)], 2048, (2, 13, 128, 2)
         wide, cores, core_b = [(2, 13, 96, 8)], [(13, 128, 2), (13, 96, 8)], 2
-        lns = ((13, 128), (5, 96))
+        lns, new_cores = ((13, 128), (5, 96)), []
     else:
         shapes = [(256, n, 384, 6) for n in (197, 138, 97, 68)] + [(16, 197, 768, 12),
                                                                     (4, 197, 1024, 16)]
         rows, blk, lns = 1, (64, 197, 384, 6), LN_CASES
         wide = [(16, 197, 384, 32), (16, 197, 768, 8)]
         cores = [(n, C, H) for n in (197, 577, 785) for C, H in ((384, 6), (384, 32), (768, 8))]
+        cores += [(n, C, H) for n in (197, 577) for C, H in ((384, 192), (384, 12), (384, 8),
+                                                             (640, 8), (448, 4), (768, 6))]
+        new_cores = [(n, C, H) for n in (197, 577) for C, H in ((104, 8), (1016, 8), (640, 4),
+                                                                (768, 3))]
         core_b = 8
     digests = {**int8_cases(device, shapes), **gemm_cases(device, rows),
-               **block_cases(device, *blk), **core_cases(device, core_b, cores),
+               **block_cases(device, *blk), **core_cases(device, core_b, cores, new_cores),
                **ln_cases(device, lns)}
     for B, N, C, H in wide:
         digests.update({k.replace("block", f"block{C // H}", 1): v
@@ -451,7 +474,7 @@ def predictor_times(device) -> None:
 
 # --hd-times: (d, heads, C) of the zoo's head widths other than 64, the
 # sequences, the batch, and the device-kernel groups of either design
-HD_WIDTHS = ((12, 32, 384), (96, 8, 768))
+HD_WIDTHS = ((12, 32, 384), (96, 8, 768), (127, 8, 1016), (160, 4, 640), (256, 3, 768))
 HD_TIMED = (197, 577)
 HD_BATCH = 64
 HD_GROUPS = ("attention_hd_kernel", "attention_hd_bwd_kernel", "attention_hd_rows", "sum_heads")
@@ -461,6 +484,8 @@ def hd_times(device) -> None:
     gen = torch.Generator().manual_seed(20)
     with torch.no_grad():
         for d, H, C in HD_WIDTHS:
+            if not _takes(C, H):
+                continue
             for n in HD_TIMED:
                 qkv = randn(gen, (HD_BATCH, n, 3 * C), device)
                 g = randn(gen, (HD_BATCH, n, C), device)

@@ -1730,8 +1730,10 @@ def test_attention_bwd_kernel_is_bit_equal_on_two_launches(cuda, policy, n):
 
 
 # (d, heads, N): the width-64 core at DeiT-S's width and ViT-H/14's 80 on
-# the attention_hd pair, at its stages' token counts, and past 800 tokens
-D_CASES = [(64, 6, 197), (64, 6, 68), (80, 16, 257), (80, 16, 88), (64, 12, 1025)]
+# the attention_hd pair, at its stages' token counts, past 800 tokens, and
+# an odd width and one past 128
+D_CASES = [(64, 6, 197), (64, 6, 68), (80, 16, 257), (80, 16, 88), (64, 12, 1025),
+           (127, 8, 197), (256, 3, 197)]
 
 
 @pytest.mark.parametrize("policy", [False, True])
@@ -1967,18 +1969,131 @@ def test_head_width_int8_block(cuda, n):
 
 
 def test_head_widths_the_kernels_refuse(cuda):
-    """An odd head width and one past 128 are refused by every wrapper with
-    the width in the message, and by the C entries themselves."""
-    for C, H, width in ((26, 2, "13"), (260, 2, "130")):
+    """Head widths past 256 are refused by every wrapper with the width in
+    the message, and by the C entries themselves."""
+    for C, H, width in ((514, 2, "257"), (768, 2, "384")):
         qkv = torch.zeros((2, 17, 3 * C), device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match=f"head width {width}"):
             ops.fused_attention_packed(qkv, H)
         with pytest.raises(ValueError, match=f"head width {width}"):
             ops.fused_attention_backward_packed(qkv, qkv[..., :C].contiguous(), H)
     lib = _cuda.library()
-    assert lib.d2s_attention_bwd_part_floats(1, 2, 17, 2, 26, 1) == -1
+    assert lib.d2s_attention_bwd_part_floats(1, 2, 17, 2, 514, 1) == -1
     assert lib.d2s_attention_bwd_part_floats(1, 2, 17, 2, 24, 1) == 2 * 2 * 17
-    # dQ's fp32 sum over the head-width backward's passes: (B*N, C) past 128 tokens
+    assert lib.d2s_attention_bwd_part_floats(1, 2, 17, 2, 26, 1) == 2 * 2 * 17  # d = 13
+    # dQ's fp32 sum over the head-width backward's passes: (B*N, C) past 128
+    # tokens (two key blocks a pass), past 64 from d = 129 on (one)
     assert lib.d2s_attention_bwd_part_floats(0, 2, 577, 2, 24, 0) == 2 * 577 * 24
     assert lib.d2s_attention_bwd_part_floats(0, 2, 128, 2, 24, 0) == 0
-    assert lib.d2s_block_backward_scratch_bytes(2, 17, 26, 2, 104, 0) == 0
+    assert lib.d2s_attention_bwd_part_floats(0, 2, 65, 2, 320, 0) == 2 * 65 * 320
+    assert lib.d2s_attention_bwd_part_floats(0, 2, 64, 2, 320, 0) == 0
+    assert lib.d2s_block_backward_scratch_bytes(2, 17, 528, 2, 1056, 0) == 0
+    assert lib.d2s_block_backward_scratch_bytes(2, 17, 26, 2, 104, 0) == 0  # C % 8
+
+
+# ---- odd head widths and widths past 128 ------------------------------------
+
+# (head width, heads): odd widths at 8 heads (C % 8 == 0: the packed
+# entries' row strides, the block's row rule) across the padded widths 16,
+# 64, 80, 128 and 144; past 128 each of the
+# backward's part layouts (hd_bwd_parts: 2 x 80 at DP = 144 and 160, 2 x 96
+# at 192, 4 x 64 at 256) and d = 255 / 256, the ceiling
+HD_NEW = ((3, 8), (13, 8), (63, 8), (65, 8), (127, 8), (129, 8), (130, 4), (160, 2),
+          (192, 2), (255, 8), (256, 3))
+HD_NEW_TOKENS = [1, 13, 64, 65, 128, 129, 197, 577, "ceiling"]
+
+
+def _tokens(d, n, policy):
+    """n, or the width's ceiling both ways in the mode (capped at 4096 for
+    the plain version's memory)."""
+    if n != "ceiling":
+        return n
+    return min(block_ops.attention_max_tokens(d, policy=policy, backward=True), 4096)
+
+
+@pytest.mark.parametrize("d,H", HD_NEW)
+@pytest.mark.parametrize("n", HD_NEW_TOKENS)
+@pytest.mark.parametrize("policy", [False, True])
+def test_head_width_new_widths_packed_both_ways(cuda, d, H, n, policy):
+    """The packed attention at an odd width or one past 128, forward (output
+    and CLS rows) and backward with the CLS fold (dqkv's thirds and
+    dPolicy), against the plain versions; the launches counted at the
+    width's padded width and parity (`d2s_attention_hd_dp_launches`)."""
+    n = _tokens(d, n, policy)
+    b = 1 if n > 1024 else 2
+    qkv, g, pol, gcls = _hd_case(cuda, d, H, n, b=b, policy=policy, with_gcls=True, seed=5)
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    lib, dp = _cuda.library(), (d + 15) // 16 * 16
+    for which in (0, 1):
+        lib.d2s_attention_hd_dp_launches(which, dp, d % 2, 0)
+    with torch.no_grad():
+        out, cls = ops.fused_attention_packed(qkv, H, return_cls=True, **kw)
+        got = ops.fused_attention_backward_packed(qkv, g, H, gcls=gcls, **kw)
+        torch.cuda.synchronize()
+        want, want_cls = attention_reference(qkv, H, d ** -0.5, return_cls=True, **kw)
+        want_b = attention_backward_reference(qkv, g, H, d ** -0.5, gcls=gcls, **kw)
+    assert [lib.d2s_attention_hd_dp_launches(w, dp, d % 2, -1) for w in (0, 1)] == [2, 1]
+    _assert_close(out, want)
+    _assert_close(cls, want_cls)
+    (dqkv, dpol), (want_dqkv, want_dpol) = (got if pol is not None else (got, None)), want_b
+    _core_close(dqkv, want_dqkv, dpol, want_dpol)
+
+
+@pytest.mark.parametrize("d,H", [(13, 8), (256, 3)])
+@pytest.mark.parametrize("policy", [False, True])
+def test_head_width_new_widths_are_bit_equal_on_two_launches(cuda, d, H, policy):
+    qkv, g, pol, gcls = _hd_case(cuda, d, H, 577, b=8, policy=policy, with_gcls=True, seed=6)
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    with torch.no_grad():
+        fwd = [ops.fused_attention_packed(qkv, H, return_cls=True, **kw) for _ in range(2)]
+        bwd = [ops.fused_attention_backward_packed(qkv, g, H, gcls=gcls, **kw) for _ in range(2)]
+    assert torch.equal(fwd[0][0], fwd[1][0]) and torch.equal(fwd[0][1], fwd[1][1])
+    a, b = bwd if policy else ((bwd[0], None), (bwd[1], None))
+    assert torch.equal(a[0], b[0])
+    assert not policy or torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("d,H", [(13, 8), (127, 8), (160, 2), (256, 3)])
+@pytest.mark.parametrize("eps", [1e-6, 0.1])
+def test_head_width_new_widths_dpolicy_on_planted_ties(cuda, d, H, eps):
+    test_head_width_dpolicy_on_planted_ties(cuda, d, H, eps)
+
+
+@pytest.mark.parametrize("d,H", [(13, 8), (127, 8), (160, 2), (256, 3)])
+@pytest.mark.parametrize("n", [13, 197, 577])
+@pytest.mark.parametrize("mode", ["plain", "policy", "scaled"])
+def test_head_width_new_widths_block_both_ways(cuda, d, H, n, mode):
+    test_head_width_block_both_ways(cuda, d, H, n, mode)
+
+
+@pytest.mark.parametrize("d,H", [(13, 8), (256, 3)])
+@pytest.mark.parametrize("policy", [False, True])
+def test_head_width_new_widths_half_block_both_ways(cuda, d, H, policy):
+    test_head_width_half_block_both_ways(cuda, d, H, policy)
+
+
+@pytest.mark.parametrize("d,H", [(127, 16), (256, 3)])  # C % 16 == 0: the int8 rows' rule
+@pytest.mark.parametrize("n", [13, 197, 577])
+def test_head_width_new_widths_int8_block(cuda, d, H, n):
+    C = d * H
+    blk = _sharpen(Block(C, H, mlp_ratio=3.0, use_fused=True), seed=n + d).to(cuda).eval()
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((4, n, C), generator=gen, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        chip_smoke.check_int8_block(torch, x, blk.int8_weights(torch.bfloat16), H, d ** -0.5,
+                                    1e-6)
+
+
+def test_the_library_ceiling_is_the_wrappers_at_every_width(cuda):
+    """`d2s_attention_max_tokens` equals `ops.block.attention_max_tokens` at
+    every d from 1 to 257 in both modes and directions, is at least 577 both
+    ways at every d up to 256 (a DeiT-B/16 of such heads at 384 px) and 0
+    past it."""
+    lib = _cuda.library()
+    for d in range(1, 258):
+        for policy in (0, 1):
+            for backward in (0, 1):
+                want = block_ops.attention_max_tokens(d, policy=bool(policy),
+                                                      backward=bool(backward))
+                assert lib.d2s_attention_max_tokens(d, policy, backward) == want, (d, policy)
+                assert want >= 577 if d <= 256 else want == 0

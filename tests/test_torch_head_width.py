@@ -2,7 +2,7 @@
 dense2sparse_vit_tpu.
 
 The JAX Pallas kernels take any head width (`block.py:226`, `:753`); the
-port's kernels take every even width up to 128 (`ops.block.head_width`),
+port's kernels take every width from 1 to 256 (`ops.block.head_width`),
 64 on their wgmma cores and the others on csrc/attention_hd.cuh's path. On
 the CPU each wrapper runs its plain version, which is what these tests hold
 against the Pallas kernels in interpret mode, at d = 12 and 96 (2 heads, C
@@ -13,8 +13,8 @@ the int8 block. Tolerance TOL (1e-5, fp32 sums in another order: the TPU
 kernels fold LN1 into the weights and pad N to 16), relative to the
 largest magnitude compared; the int8 block within one code step, as
 `test_torch_quant.py` holds it. A last test holds
-the wrappers to refusing an odd width, and one past 128, before they touch
-the device.
+the wrappers to refusing a width past 256 before they touch the device (odd
+widths and widths past 128: `test_torch_head_width_odd_wide.py`).
 """
 
 import jax.numpy as jnp
@@ -159,11 +159,12 @@ def test_int8_block_matches_pallas(d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=step)
 
 
-@pytest.mark.parametrize("C,width", [(26, "13"), (260, "130")])
+@pytest.mark.parametrize("C,width", [(514, "257"), (768, "384")])
 def test_wrappers_refuse_widths_the_kernels_do_not_take(C, width):
-    """Every kernel wrapper raises ValueError naming the head width (odd, or
-    past 128) before it touches the device: on tensors on the meta device,
-    which hold no data, the wrappers' checks are all that runs."""
+    """Every kernel wrapper raises ValueError naming the head width (past
+    256) and the ceiling before it touches the device: on tensors on the
+    meta device, which hold no data, the wrappers' checks are all that
+    runs."""
     meta = torch.device("meta")
     x = torch.empty((B, 13, C), device=meta, dtype=torch.bfloat16)
     qkv = torch.empty((B, 13, 3 * C), device=meta, dtype=torch.bfloat16)
@@ -184,5 +185,5 @@ def test_wrappers_refuse_widths_the_kernels_do_not_take(C, width):
         lambda: ops.fused_transformer_block_int8(x, {}, H),
     ]
     for call in calls:
-        with pytest.raises(ValueError, match=f"head width {width}"):
+        with pytest.raises(ValueError, match=f"head width {width} .* from 1 to 256"):
             call()

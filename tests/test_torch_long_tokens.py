@@ -290,8 +290,8 @@ def test_the_ceilings_follow_the_layouts():
     assert attention_max_tokens(96, backward=True) == 4544
     assert attention_max_tokens(128, backward=True) == 1920
     assert attention_max_tokens(64) == 45824 and attention_max_tokens(64, policy=True) == 22784
-    assert all(attention_max_tokens(d) == 0 for d in (0, 3, 130))
-    for d in range(2, 130, 2):
+    assert all(attention_max_tokens(d) == 0 for d in (0, 257, 384))
+    for d in range(1, 257):
         fwd, bwd = attention_max_tokens(d), attention_max_tokens(d, backward=True)
         assert SHORT_TOKENS < bwd <= fwd
         assert attention_max_tokens(d, policy=True) <= fwd

@@ -923,7 +923,7 @@ def test_hd_kind_reads_the_head_width_instantiations():
     assert chip_smoke.hd_kind(HD_BWD, "attention_hd_bwd_kernel") == (16, True)
     assert chip_smoke.hd_kind(HD_BWD, "attention_hd_kernel") is None
     assert chip_smoke.hd_kind(ATTN_BWD_PLAIN, "attention_hd_bwd_kernel") is None
-    assert len(set(chip_smoke.HD_KINDS)) == 16
+    assert len(set(chip_smoke.HD_KINDS)) == 32  # padded widths 16 to 256, both modes
     log = "\n".join(f"ptxas info    : Function properties for {n}\n"
                     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
                     for n in (HD_FWD, HD_BWD, ATTN_BWD_PLAIN))
@@ -1703,3 +1703,78 @@ def test_check_int8_block_rejects_an_absmax_without_a_warps_columns(monkeypatch)
     with torch.inference_mode(), pytest.raises(AssertionError,
                                                match=chip_smoke.FAULTS["int8_wide"][3]):
         chip_smoke.check_int8_block(torch, x, qw, *args, block=0)
+
+
+# ---- phase 40: odd head widths and widths past 128 -----------------------------
+
+
+@pytest.mark.parametrize("policy", [False, True])
+def test_attention_rows_plain_is_the_reference_at_its_rows(policy):
+    """The forward-alone ceiling's plain version: at the rows it computes,
+    and in the CLS row, `attention_reference`'s values (fp32, d = 13, 8
+    heads, N = 37), in plain and policy mode."""
+    g = torch.Generator().manual_seed(40)
+    n, h, d = 37, 8, 13
+    qkv = torch.randn((2, n, 3 * h * d), generator=g)
+    pol = (torch.rand((2, n), generator=g) < 0.6).float() if policy else None
+    kw = {} if pol is None else {"policy": pol, "eps": 0.1}
+    rows = torch.tensor([1, 2, 30, 36])
+    got, got_cls = chip_smoke.attention_rows_plain(torch, qkv, h, d ** -0.5, rows, **kw)
+    want, want_cls = block_ops.attention_reference(qkv, h, d ** -0.5, return_cls=True, **kw)
+    torch.testing.assert_close(got, want[:, rows], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_cls, want_cls, rtol=1e-5, atol=1e-6)
+
+
+def test_hw_rows_sort_the_launches_by_width_and_parity():
+    """Odd widths go to the [odd] rows, padded widths past 128 to the
+    [d>128] rows (an odd one past 128 to both), each way; even widths up to
+    128 to neither."""
+    counts = {(0, 128, 1): 5, (1, 128, 1): 2, (0, 256, 0): 7, (1, 256, 0): 3,
+              (0, 144, 1): 1, (0, 96, 0): 11}
+    assert chip_smoke.hw_rows(counts) == {
+        "attention_hd[odd]": 6, "attention_hd_bwd[odd]": 2, "attention_hd[d>128]": 8,
+        "attention_hd_bwd[d>128]": 3}
+    assert set(chip_smoke.HW_ROWS_NAMES) <= set(chip_smoke.SUB_ROWS)
+
+
+def test_the_phase_40_widths_and_models_keep_the_row_rules():
+    """Every width (a) checks has C a multiple of 8 (the block entries' and
+    the packed entries' row strides) and a ceiling of at least 577 tokens
+    both ways; the models are DeiT-B/16 with three heads of 256 and eight of
+    127 (MLP 4064), the int8 serving of the 127-wide heads at C % 16 == 0."""
+    from dense2sparse_vit_torch.core.config import deit_base
+
+    for d, h in chip_smoke.HW_WIDTHS:
+        assert (d * h) % 8 == 0 and block_ops.attention_max_tokens(d, backward=True) >= 577
+    assert {d for d, _ in chip_smoke.HW_WIDTHS} >= {3, 13, 63, 65, 127, 129, 130, 160, 192,
+                                                     255, 256}
+    for name, (d, heads, c, hidden) in {"heads256": (256, 3, 768, 3072),
+                                        "heads127": (127, 8, 1016, 4064)}.items():
+        cfg = deit_base().replace(**chip_smoke.hw_kwargs(name))
+        assert (cfg.embed_dim // cfg.num_heads, cfg.num_heads, cfg.embed_dim,
+                int(cfg.embed_dim * cfg.mlp_ratio)) == (d, heads, c, hidden)
+    wide = chip_smoke.HW_INT8_127
+    assert wide["embed_dim"] // wide["num_heads"] == 127 and wide["embed_dim"] % 16 == 0
+
+
+@pytest.mark.parametrize("policy", [False, True])
+def test_check_cls_stage_passes_the_plain_block_at_an_odd_width(policy):
+    """Phase 40's CLS-row check on the CPU, where the wrappers run their
+    plain versions: d = 3 at 8 heads (C = 24), N = 13, both modes."""
+    g = torch.Generator().manual_seed(41)
+    blk = Block(24, 8, mlp_ratio=3.0)
+    w = blk.kernel_weights(torch.float32)
+    x = torch.randn((2, 13, 24), generator=g)
+    pol = (torch.rand((2, 13), generator=g) < 0.6).float() if policy else None
+    with torch.no_grad():
+        err = chip_smoke.check_cls_stage(torch, x, w, 8, 3 ** -0.5, pol, 0.1)
+    assert err <= 1e-6
+
+
+def test_sdpa_backend_names_the_dispatchers_choice():
+    """(c)'s SDPA backend is the dispatcher's choice by name, whatever the
+    device (here the CPU's)."""
+    q = torch.randn((2, 3, 5, 127))
+    assert chip_smoke.sdpa_backend(torch, q, q, q, 127 ** -0.5) in {
+        "math", "flash_attention", "efficient_attention", "cudnn_attention", "overrideable"}
+
