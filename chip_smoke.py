@@ -28,6 +28,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --plant-fault bn_eval     # phase 33's BatchNorm eval check
     python3 chip_smoke.py --plant-fault ln_bwd_wide # phase 39's LayerNorm-backward check
     python3 chip_smoke.py --plant-fault int8_wide   # phase 39's int8 walk at hidden 5120
+    python3 chip_smoke.py --plant-fault overfit     # phase 42's gate, backbone lr 0
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. build       the CUDA kernels of dense2sparse_vit_torch/csrc (nvcc, sm_90a);
@@ -348,6 +349,20 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                  (against the bf16 kernels; 16 samples walked block by
                  block), the int8 block at each width and the row
                  quantizer alone timed.
+ 40. odd_wide_heads  head widths odd and past 128 (`phase_odd_wide_heads`).
+ 41. row_widths  token rows of every width (`phase_row_widths`): each padded
+                 or narrow route (gather, scatter, block both ways with its
+                 CLS rows, LayerNorm backward, int8 block, predictor) held
+                 against its plain version at C = 381, 380 and 1016; DeiT-S/16
+                 with three heads of 127 (C = 381) trained at B=128 (top-k)
+                 and served at B=256 in bf16 and int8, DeiT-B/16 with eight
+                 heads of 127 (C = 1016) served likewise, both against their
+                 plain twins with the fused small predictor; every launch of
+                 those runs on its padded or narrow route; the routes timed
+                 beside their aligned twins (ROW_SUB_ROWS).
+ 42. overfit_gate  `dense2sparse_vit_torch/scripts/overfit_gate.py`'s gate in
+                 this process: 400 steps of the DeiT-S 3-stage student on
+                 one random batch, JAX's thresholds.
 The build phase fails if ptxas reports a spill in a GEMM kernel, in
 attention_bwd_kernel or in an instantiation of the head-width cores
 (attention_hd_kernel, attention_hd_bwd_kernel: each of the 16 of each
@@ -357,12 +372,13 @@ notices (`wgmma_notices`).
 The pruning student runs its serving, timing and export phases without
 capturing its own CLS rows (collect_cls_attns=False), as the JAX package's
 callers do.
-The kernels summary holds six rows more than the kernels: the part of
+The kernels summary holds rows beside the kernels' (SUB_ROWS): the part of
 attention_bwd_kernel's launches on its long path and the int8 block at
 hidden 4096, each with phase 34's launches and times, the attention_hd
 pair's launches at head width 64 past 800 tokens, both ways, with phase
-38's, and the LayerNorm backward past C = 768 and the int8 block at hidden
-5120, with phase 39's (SUB_ROWS).
+38's, the LayerNorm backward past C = 768 and the int8 block at hidden
+5120, with phase 39's, the attention_hd pair at odd widths and past 128
+with phase 40's, and each padded or narrow route with phase 41's.
 The line before the last two is the kernels summary, then the card's name
 and power limit, then {"ok": true, "device": {...}}. Without a CUDA device
 it exits 1 at once.
@@ -414,7 +430,9 @@ row sums without the last warp's, on phase 39's check of a ViT-H/14 B=8
 step's first block (its LayerNorm backwards alone); --plant-fault int8_wide
 with the CTA-a-row quantizer (`quant_block.cu`'s rowq_row_kernel) taking
 its absmax without the last warp's, on phase 39's int8 walk at B=8 (the
-activation's codes, 5120 wide).
+activation's codes, 5120 wide). --plant-fault overfit runs phase 42 with
+the backbone's learning rate at 0: the gate fails (its line reads "pass":
+false), and the script exits 0 only if it did.
 """
 
 from __future__ import annotations
@@ -489,11 +507,17 @@ NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # at ViT-H's MLP width (hidden 5120: its rows past 4096 on the CTA-a-row
 # quantizer, `ops.quant.ROWQ_ROWS`); at those of phase 40, the attention_hd
 # pair at odd head widths and at widths past 128, both ways (counted by the
-# library by padded width and parity, `d2s_attention_hd_dp_launches`)
+# library by padded width and parity, `d2s_attention_hd_dp_launches`); at
+# those of phase 41, each entry at widths off the 16-byte rules, on its
+# padded or narrow route (`ops.rowpad.PADDED`, ROW_SUB_ROWS)
 SUB_ROWS = ("attention_bwd[long]", "fused_transformer_block_int8[4096]", "attention_hd[d64]",
             "attention_hd_bwd[d64]", "ln_bwd[C>768]", "fused_transformer_block_int8[>4096]",
             "attention_hd[odd]", "attention_hd_bwd[odd]", "attention_hd[d>128]",
-            "attention_hd_bwd[d>128]")
+            "attention_hd_bwd[d>128]", "fused_gather_tokens[narrow]",
+            "fused_scatter_tokens[narrow]", "fused_transformer_block[padded]",
+            "fused_transformer_block_cls[padded]", "fused_transformer_block_backward[padded]",
+            "ln_bwd[padded]", "fused_transformer_block_int8[padded]",
+            "fused_predictor_lg[narrow]")
 
 
 # the longest d = 64 sequence of the width-64 cores (ops.block.SHORT_TOKENS),
@@ -681,6 +705,30 @@ SOURCES = {
     "attention_hd_bwd[d>128]": (
         "dense2sparse_vit_torch/csrc/attention_hd_bwd.cuh",
         "dense2sparse_vit_tpu/ops/pallas/block.py:753"),
+    "fused_gather_tokens[narrow]": (
+        "dense2sparse_vit_torch/csrc/gather.cu",
+        "dense2sparse_vit_tpu/ops/pallas/gather.py:121"),
+    "fused_scatter_tokens[narrow]": (
+        "dense2sparse_vit_torch/csrc/gather.cu",
+        "dense2sparse_vit_tpu/ops/pallas/gather.py:143"),
+    "fused_transformer_block[padded]": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:198"),
+    "fused_transformer_block_cls[padded]": (
+        "dense2sparse_vit_torch/csrc/block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:285"),
+    "fused_transformer_block_backward[padded]": (
+        "dense2sparse_vit_torch/csrc/block_bwd.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:729"),
+    "ln_bwd[padded]": (
+        "dense2sparse_vit_torch/csrc/norm.cu",
+        "dense2sparse_vit_tpu/ops/pallas/block.py:663"),
+    "fused_transformer_block_int8[padded]": (
+        "dense2sparse_vit_torch/csrc/quant_block.cu",
+        "dense2sparse_vit_tpu/ops/pallas/quant.py:179"),
+    "fused_predictor_lg[narrow]": (
+        "dense2sparse_vit_torch/csrc/predictor.cu",
+        "dense2sparse_vit_tpu/ops/pallas/predictor.py:242"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -5433,6 +5481,7 @@ def run_384(torch, dev, mode, teacher, tally, smi, img=384, batch=B_384, modes=M
     Returns (the summary, the captured activations; with `keep`, the
     trained student too, under "student")."""
     from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops import rowpad
     from dense2sparse_vit_torch.ops.attention import ATTENTION_BWD_LONG
 
     _, per_step, long_per_step = modes[mode]
@@ -5444,6 +5493,7 @@ def run_384(torch, dev, mode, teacher, tally, smi, img=384, batch=B_384, modes=M
 
     def counted_step(seed):
         ops.reset_launch_counts()
+        rowpad.reset()
         ATTENTION_BWD_LONG.launches = 0
         metrics = step(images, labels, TRAIN_EPOCH,
                        generator=torch.Generator(device=dev).manual_seed(seed))
@@ -7873,14 +7923,11 @@ HW_TIMED_TOKENS = (197, 577)
 # (b): DeiT-B/16 with three heads of 256 (C = 768, 12 blocks, MLP 3072) and
 # with eight heads of 127 (C = 1016, MLP 4064): the widths JAX's
 # create_model passes through, the headline's pruning; per model its
-# train modes at B=64, 224 px, and whether it serves in int8 (its C a
-# multiple of 16: the int8 rows' rule; the 127-wide heads serve int8 at 16
-# heads, C = 2032, MLP 8128)
+# train modes at B=64, 224 px (the 127-wide heads serve in phase 41)
 HW_MODELS = {
     "heads256": ({"num_heads": 3}, ("topk", "threshold", "attn")),
     "heads127": ({"embed_dim": 1016, "num_heads": 8}, ("topk", "threshold")),
 }
-HW_INT8_127 = {"embed_dim": 2032, "num_heads": 16}
 B_HW_TRAIN, B_HW_384, B_HW_SERVE = 64, 32, 256
 HW_ROWS_NAMES = ("attention_hd[odd]", "attention_hd_bwd[odd]", "attention_hd[d>128]",
                  "attention_hd_bwd[d>128]")
@@ -8206,41 +8253,39 @@ def train_hw(torch, dev, name, tally, smi) -> dict:
     return out
 
 
-def serve_hw(torch, dev, label, model, tally, smi, int8=True) -> dict:
+def serve_hw(torch, dev, label, model, tally, smi, int8=True, on_counts=None,
+             phase="odd_wide_heads") -> dict:
     """(b) serving: `model` in eval mode, its B=256 forward with the kernels
-    in bf16 (launches `wide_forward_launches`, the cores' by width; logits
-    within LOGITS_TOL of its plain twin's on the same kept tokens) and,
-    with `int8`, with quant="int8" on every block (the same weights; its
-    logits against the bf16 kernels' by cosine similarity,
-    INT8_LOGITS_COS); each forward timed (CUDA events). The predictor
-    kernel's units take widths C / 2 and C / 4 that are multiples of 8 (the
-    16-byte row rule, `ROADMAP.md` §2 item 3): at another C (1016, 2032:
-    heads of 127) the predictors run their plain version."""
+    in bf16 (launches `wide_forward_launches`, the predictor kernel's among
+    them at every width; logits within LOGITS_TOL of its plain twin's on the
+    same kept tokens) and, with `int8`, with quant="int8" on every block
+    (the same weights; its logits against the bf16 kernels' by cosine
+    similarity, INT8_LOGITS_COS); each forward timed (CUDA events). Each
+    forward's counts go to `on_counts(counts, "bf16" | "int8")`, else the
+    cores' launches by width to phase 40's sub-rows (`hw_take`)."""
     import copy
 
     from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops import rowpad
 
     model = model.eval()
     depth, H = len(model.blocks), model.blocks[0].attn.num_heads
     d, n = model.cfg.embed_dim // H, model.cfg.num_patches + 1
-    fused_pred = model.cfg.embed_dim % 32 == 0
-    for p in model.score_predictor:
-        p.use_fused = fused_pred
-    pred = {} if fused_pred else {"fused_predictor_lg": 0}
-    runs = [("bf16", model, {**wide_forward_launches(depth, d, n), **pred})]
+    runs = [("bf16", model, wide_forward_launches(depth, d, n))]
     if int8:
         q = copy.deepcopy(model)
         q.cfg = q.cfg.replace(quant="int8")
         for blk in q.blocks:
             blk.quant = "int8"
-        runs.append(("int8", q, {**wide_forward_launches(depth, d, n, int8=True), **pred}))
+        runs.append(("int8", q, wide_forward_launches(depth, d, n, int8=True)))
     x = torch.randn((B_HW_SERVE, 224, 224, 3), device=dev, dtype=torch.bfloat16,
                     generator=torch.Generator(device=dev).manual_seed(40))
-    out, logits = {"heads": H, "width": d, "fused_predictor": fused_pred}, {}
+    out, logits = {"heads": H, "width": d}, {}
     with torch.inference_mode():
         for key, m, want in runs:
             hd_dp_launches(reset=True)
             ops.reset_launch_counts()
+            rowpad.reset()
             with ModeRecorder() as rec:
                 res = m(x, collect_cls_attns=False)
             torch.cuda.synchronize()
@@ -8248,7 +8293,10 @@ def serve_hw(torch, dev, label, model, tally, smi, int8=True) -> dict:
             check_mode_launches(counts, want, f"{label} {key} forward")
             for k, v in counts.items():
                 tally.rows[k]["launches"] += v
-            hw_take(tally, counts, f"{label} {key} forward")
+            if on_counts is None:
+                hw_take(tally, counts, f"{label} {key} forward")
+            else:
+                on_counts(counts, key)
             logits[key] = res.logits.float()
             if not bool(torch.isfinite(logits[key]).all()) or logits[key].shape != (
                     B_HW_SERVE, 1000):
@@ -8272,7 +8320,7 @@ def serve_hw(torch, dev, label, model, tally, smi, int8=True) -> dict:
             out["int8"]["cos_vs_bf16"] = cos
             if not cos >= INT8_LOGITS_COS:
                 raise AssertionError(f"{label} int8 logits against bf16: cos {cos}")
-    emit({"phase": "odd_wide_heads", "serve": label, **out, "card": smi})
+    emit({"phase": phase, "serve": label, **out, "card": smi})
     del runs
     torch.cuda.empty_cache()
     return out
@@ -8327,16 +8375,13 @@ def phase_odd_wide_heads(torch, dev, tally, smi):
     every entry reaching them at HW_WIDTHS (`check_odd_wide`); (b) DeiT-B/16
     with three heads of 256 trained at B=64 in top-k, threshold and attn and
     at 384 px (B=32), with eight heads of 127 in top-k and threshold
-    (`train_hw`), each served at B=256 in bf16 and the 256-wide in int8
-    (`serve_hw`), the 127-wide heads in int8 at 16 heads (C = 2032; 1016
-    breaks the int8 rows' rule), both with their predictors plain (the
-    predictor kernel's rows: C a multiple of 32); (c) the cores at HW_TIMED
+    (`train_hw`), the 256-wide heads served at B=256 in bf16 and int8
+    (`serve_hw`; the 127-wide heads serve in phase 41, model (i), whose C =
+    1016 is no multiple of 16); (c) the cores at HW_TIMED
     (`time_head_widths`: profiler device ms, plain, SDPA and the backend it
     picks, bounds) and each model's block both ways (`time_hw_blocks`). The
     sub-rows of the kernels line take (b)'s launches and (c)'s N = 197
     times at d = 127 (odd) and 256 (past 128)."""
-    from dense2sparse_vit_torch.models import HEADLINE_KWARGS, create_model
-
     t0 = time.perf_counter()
     hd_dp_launches(reset=True)
     counts = check_odd_wide(torch, dev, tally)
@@ -8346,15 +8391,10 @@ def phase_odd_wide_heads(torch, dev, tally, smi):
         train[name] = train_hw(torch, dev, name, tally, smi)
         student = train[name].pop("student")
         blocks[name] = time_hw_blocks(torch, dev, student, smi, name)
-        serve[name] = serve_hw(torch, dev, name, student, tally, smi, int8=name != "heads127")
+        if name == "heads256":
+            serve[name] = serve_hw(torch, dev, name, student, tally, smi)
         del student
         torch.cuda.empty_cache()
-    wide127 = create_model(STUDENT_384, use_fused_attention=True, device=dev,
-                           generator=torch.Generator().manual_seed(0),
-                           **{**HEADLINE_KWARGS, **HW_INT8_127})
-    serve["heads127_x16"] = serve_hw(torch, dev, "heads127_x16", wide127, tally, smi)
-    del wide127
-    torch.cuda.empty_cache()
     t_b = time.perf_counter() - t0 - t_a
     times = time_head_widths(torch, dev, smi, widths=HW_TIMED, tokens=HW_TIMED_TOKENS,
                              phase="odd_wide_heads")
@@ -8379,6 +8419,377 @@ def phase_odd_wide_heads(torch, dev, tally, smi):
           "models_s": t_b, "train": train, "serve": serve, "blocks": blocks,
           "sdpa_backend": backends, "dp_launches_checks": len(counts),
           "sub_rows": {r: tally.rows[r]["launches"] for r in HW_ROWS_NAMES}, "card": smi})
+
+
+# ---- phase 41: token rows of every width ------------------------------------------
+
+# (a): each entry with a padded or narrow route held against its plain
+# version at (C, H): an odd C (381: three heads of 127), C % 8 = 4 (380: four
+# of 95), C % 16 = 8 (1016: eight of 127, the int8 block's rows); the small
+# predictor at D = 381, 380 (units 190 and 95) and 1016 (508 and 254)
+ROW_CHECK_WIDTHS = ((381, 3), (380, 4), (1016, 8))
+ROW_PRED_WIDTHS = (381, 380, 1016)
+ROW_CHECK_BATCH = 8
+# (b): model (ii), DeiT-S/16's geometry with three heads of 127 (C = 381, MLP
+# 1524, 12 blocks, 224 px): a B=128 top-k step and B=256 serving in bf16 and
+# int8; model (i), phase 40's DeiT-B/16 with eight heads of 127 (C = 1016, MLP
+# 4064), served at B=256 with the fused small predictor in bf16 and in int8
+# at its eight heads (its top-k step: phase 40's)
+ROW_MODELS = {"c381": {"embed_dim": 381, "num_heads": 3},
+              "heads127": {"embed_dim": 1016, "num_heads": 8}}
+B_ROW_TRAIN = 128
+# the kernels line's rows of the padded and narrow routes, each with the
+# entry whose padded (narrow) launches `ops.rowpad.PADDED` counts
+ROW_SUB_ROWS = {
+    "fused_gather_tokens[narrow]": "fused_gather_tokens",
+    "fused_scatter_tokens[narrow]": "fused_scatter_tokens",
+    "fused_transformer_block[padded]": "fused_transformer_block",
+    "fused_transformer_block_cls[padded]": "fused_transformer_block_cls",
+    "fused_transformer_block_backward[padded]": "fused_transformer_block_backward",
+    "ln_bwd[padded]": None,  # the library's count, inside the padded backwards
+    "fused_transformer_block_int8[padded]": "fused_transformer_block_int8",
+    "fused_predictor_lg[narrow]": "fused_predictor_lg",
+}
+
+
+def check_row_kernels(torch, dev, tally) -> dict:
+    """(a): at each ROW_CHECK_WIDTHS width, B=8 and N = 197, the gather and
+    the scatter (bf16 and fp32) bit-equal to their plain versions, the block
+    forward stage by stage in plain and policy mode (`check_block`) with its
+    CLS rows, its backward with dPolicy (`check_block_backward`), the
+    LayerNorm backward alone (LN_TOL), the int8 block stage by stage
+    (`check_int8_block`); the small predictor at each ROW_PRED_WIDTHS width
+    (`check_predictor`). Returns the padded launches these checks made."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.nn.predictor import PredictorLG
+    from dense2sparse_vit_torch.ops import norm, rowpad
+    from dense2sparse_vit_torch.ops.gather import scatter_tokens_reference
+    from dense2sparse_vit_torch.ops.quant import quantize_block_params
+
+    rowpad.reset()
+    gen = torch.Generator(device=dev).manual_seed(41)
+    B, N = ROW_CHECK_BATCH, 197
+    with torch.no_grad():
+        for C, H in ROW_CHECK_WIDTHS:
+            w = hd_block(torch, dev, C, H, seed=C)
+            scale, hidden = (C // H) ** -0.5, w["w1"].shape[0]
+            x = torch.randn((B, N, C), generator=gen, device=dev).to(torch.bfloat16)
+            g = torch.randn((B, N, C), generator=gen, device=dev).to(torch.bfloat16)
+            pol = (torch.rand((B, N), generator=gen, device=dev) < 0.6).float()
+            pol[:, 0] = 1.0
+            idx = torch.randint(-1, N + 1, (B, 138), generator=gen, device=dev)
+            for rows in (x, x.float()):
+                if not torch.equal(ops.fused_gather_tokens(rows, idx),
+                                   ops.gather_tokens_reference(rows, idx)):
+                    raise AssertionError(f"gather at D = {C} ({rows.dtype}) differs from plain")
+                kept = rows[:, :138].contiguous()
+                if not torch.equal(ops.fused_scatter_tokens(kept, idx, N),
+                                   scatter_tokens_reference(kept, idx, N)):
+                    raise AssertionError(f"scatter at D = {C} ({rows.dtype}) differs from plain")
+            for policy in (None, pol):
+                _, err = check_block(torch, x, w, H, scale, 1e-6, block=f"C={C}", policy=policy,
+                                     phase="row_widths")
+                tally.err("fused_transformer_block[padded]", err)
+                err = check_block_backward(torch, x, g, w, H, scale, 1e-6, block=f"C={C}",
+                                           policy=policy, phase="row_widths")
+                tally.err("fused_transformer_block_backward[padded]", err)
+            err = check_cls_stage(torch, x, w, H, scale)
+            tally.err("fused_transformer_block_cls[padded]", err)
+            xr = x.reshape(B * N, C)
+            case = (torch.randn((B * N, C), generator=gen, device=dev), xr,
+                    norm.ln_stats(xr, 1e-6), w["ln1_w"], g.reshape(B * N, C), False)
+            tally.err("ln_bwd[padded]", check_ln_bwd(torch, case, N, f"C={C}"))
+            _, err = check_int8_block(torch, x, quantize_block_params(w), H, scale, 1e-6,
+                                      block=f"C={C}")
+            tally.err("fused_transformer_block_int8[padded]", err)
+            tally.err("fused_gather_tokens[narrow]", 0.0)
+            tally.err("fused_scatter_tokens[narrow]", 0.0)
+        for D in ROW_PRED_WIDTHS:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(D)
+                pred = PredictorLG(D, small_predictor=True, use_fused=True)
+            pw = pred.to(dev).eval().kernel_weights(torch.bfloat16)
+            assert [u[2].shape[0] for u in pw["units"]] == [D, D // 2, D // 4]
+            xs = torch.randn((B, N, D), generator=gen, device=dev).to(torch.bfloat16)[:, 1:]
+            _, err = check_predictor(torch, xs, pw, f"D={D}", "row_widths")
+            tally.err("fused_predictor_lg[narrow]", err)
+    return rowpad.counts()
+
+
+# per model of ROW_MODELS, the entries whose widths are off the 16-byte rules:
+# all of model (ii)'s; model (i)'s predictor (units 508, 254) and int8 block
+# (C % 16 = 8), its bf16 block and gather rows (1016 values) being aligned
+ROW_OFF_RULES = {"c381": set(ROW_SUB_ROWS.values()) - {None},
+                 "heads127": {"fused_predictor_lg", "fused_transformer_block_int8"}}
+
+
+def row_counts_take(tally, counts, what, model) -> dict:
+    """A main-path run's padded and narrow launches (`ops.rowpad.PADDED`, then
+    reset) and, where model (ii)'s, its LayerNorm backwards into
+    ROW_SUB_ROWS; raises unless every launch of an entry off the rules at
+    `model`'s widths (ROW_OFF_RULES) went its padded (narrow) route and no
+    other did: each such entry launched its kernel, at the widths the rules
+    force, and ran no plain version (the entry counts are the kernels')."""
+    from dense2sparse_vit_torch.ops import rowpad
+
+    padded = rowpad.counts()
+    rowpad.reset()
+    off = ROW_OFF_RULES[model]
+    out = {}
+    for row, entry in ROW_SUB_ROWS.items():
+        if entry is None:
+            n = counts["ln_bwd"] if model == "c381" else 0
+        else:
+            n = padded.get(entry, 0)
+            if n != (counts[entry] if entry in off else 0):
+                raise AssertionError(f"{what}: {n} of {counts[entry]} {entry} launches padded")
+        out[row] = n
+        tally.rows[row]["launches"] += n
+    return out
+
+
+def train_row_model(torch, dev, tally, smi, launches) -> dict:
+    """(b) training: model (ii)'s B=128 top-k step with its live teacher
+    against its plain twin's (`run_384` at 224 px: launches, loss,
+    gradients), each counted step's launches padded (`row_counts_take`,
+    added to `launches`); returns its summary and the trained student."""
+    from dense2sparse_vit_torch.models import create_model
+    from dense2sparse_vit_torch.ops import rowpad
+
+    widths = ROW_MODELS["c381"]
+    C, H = widths["embed_dim"], widths["num_heads"]
+    teacher = create_model(TEACHER_384, use_fused_attention=True, device=dev, dtype="bfloat16",
+                           generator=torch.Generator().manual_seed(2), **widths)
+    modes = {"topk": (MODES_384["topk"][0], wide_step_launches("topk", 12, 3, C // H, 197), 0)}
+    rowpad.reset()
+    rows = {}
+    summary, acts = run_384(torch, dev, "topk", teacher, tally, smi, img=224, batch=B_ROW_TRAIN,
+                            modes=modes, phase="row_widths/c381",
+                            on_counts=lambda c: rows.update(
+                                count_rows(launches, row_counts_take(tally, c, "c381", "c381"))),
+                            overrides=widths, keep=True)
+    rowpad.reset()  # the captured step's
+    student = acts.pop("student")
+    del acts, teacher
+    torch.cuda.empty_cache()
+    return {"topk": {k: summary[k] for k in ("step_ms", "peak_gib", "tokens", "metrics")},
+            "padded_launches_per_step": rows}, student
+
+
+def time_row_kernels(torch, dev, smi, tally, launches) -> dict:
+    """(c): each padded (narrow) route at model (ii)'s train shapes (B=128, N =
+    197, C = 381; the gather and scatter 197 <-> 138) and model (i)'s and
+    (ii)'s serving shapes (the int8 block at B=256, N = 197; the predictor at
+    N = 196), kernel and plain version in turns (CUDA events), beside its
+    aligned twin (C = 384 with three heads, D = 384, the int8 block at C =
+    1024 with eight heads), the bound and the library call (torch.gather,
+    index_add_, native_layer_norm_backward); into the kernels line's
+    ROW_SUB_ROWS, each time weighted by its model's main-path launches
+    (`launches`: {"c381": ..., "heads127": ...})."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.nn.predictor import PredictorLG
+    from dense2sparse_vit_torch.ops import norm
+    from dense2sparse_vit_torch.ops.block import (
+        transformer_block_backward_reference, transformer_block_reference)
+    from dense2sparse_vit_torch.ops.gather import scatter_tokens_reference
+    from dense2sparse_vit_torch.ops.predictor import predictor_lg_reference
+    from dense2sparse_vit_torch.ops.quant import quant_block_reference, quantize_block_params
+
+    gen = torch.Generator(device=dev).manual_seed(42)
+    bf = torch.bfloat16
+    out = {}
+
+    def rand(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def record(row, shape, kernel, plain, twin, b, library=None, iters=10, model="c381"):
+        k, p = paired_ms(torch, kernel, plain, iters=iters, rounds=1, repeats=3)
+        lib = cuda_ms(torch, library, iters=iters, repeats=3) if library else None
+        t = cuda_ms(torch, twin, iters=iters, repeats=3)
+        r = {"ms": k, "plain_ms": p, "aligned_ms": t, "bound_ms": max(b.values()),
+             "library_ms": lib}
+        out.setdefault(row, []).append({"shape": shape, **r})
+        emit({"phase": "row_widths", "kernel": row, "shape": shape, **r, "card": smi})
+        tally.add(row, launches[model].get(row, 0), k, p, b, lib)
+
+    B, N, K = B_ROW_TRAIN, 197, 138
+    with torch.no_grad():
+        x, x384 = rand(B, N, 381), rand(B, N, 384)
+        idx = torch.argsort(torch.rand((B, N), generator=gen, device=dev), dim=1)[:, :K]
+        idx = idx.contiguous()
+        record("fused_gather_tokens[narrow]", [B, N, K, 381],
+               lambda: ops.fused_gather_tokens(x, idx), lambda: ops.gather_tokens_reference(x, idx),
+               lambda: ops.fused_gather_tokens(x384, idx), rows_bound(B, K, 381, K, 2),
+               lambda: torch.gather(x, 1, idx[..., None].expand(-1, -1, 381)), iters=20)
+        y, y384 = x[:, :K].contiguous(), x384[:, :K].contiguous()
+        flat = (idx + torch.arange(B, device=dev)[:, None] * N).reshape(-1)
+        acc = torch.zeros((B * N, 381), device=dev, dtype=torch.float32)
+        record("fused_scatter_tokens[narrow]", [B, K, N, 381],
+               lambda: ops.fused_scatter_tokens(y, idx, N),
+               lambda: scatter_tokens_reference(y, idx, N),
+               lambda: ops.fused_scatter_tokens(y384, idx, N), rows_bound(B, K, 381, N, 2),
+               lambda: acc.index_add_(0, flat, y.reshape(-1, 381).float()), iters=20)
+        w, w384 = hd_block(torch, dev, 381, 3, 7), hd_block(torch, dev, 384, 3, 7)
+        g = rand(B, N, 381)
+        g384 = rand(B, N, 384)
+        sc = 127 ** -0.5
+        record("fused_transformer_block[padded]", [B, N, 381],
+               lambda: ops.fused_transformer_block(x, w, 3),
+               lambda: transformer_block_reference(x, w, 3, sc, 1e-6),
+               lambda: ops.fused_transformer_block(x384, w384, 3),
+               block_bound(B, N, 381, 3, w["w1"].shape[0]), iters=5)
+        record("fused_transformer_block_cls[padded]", [B, N, 381],
+               lambda: ops.fused_transformer_block_cls(x, w, 3),
+               lambda: transformer_block_reference(x, w, 3, sc, 1e-6, return_cls=True),
+               lambda: ops.fused_transformer_block_cls(x384, w384, 3),
+               block_bound(B, N, 381, 3, w["w1"].shape[0], cls=True), iters=5)
+        record("fused_transformer_block_backward[padded]", [B, N, 381],
+               lambda: ops.fused_transformer_block_backward(x, g, w, 3),
+               lambda: transformer_block_backward_reference(x, g, w, 3, sc, 1e-6),
+               lambda: ops.fused_transformer_block_backward(x384, g384, w384, 3),
+               block_backward_bound(B, N, 381, 3, w["w1"].shape[0]), iters=3)
+        M = B * N
+        xr, dy = x.reshape(M, 381), rand(M, 381, dtype=torch.float32)
+        st = norm.ln_stats(xr, 1e-6)
+        xr384, dy384 = x384.reshape(M, 384), rand(M, 384, dtype=torch.float32)
+        st384 = norm.ln_stats(xr384, 1e-6)
+        lw, lw384 = w["ln1_w"], w384["ln1_w"]
+        res = g.reshape(M, 381)
+        zeros = torch.zeros_like(lw)
+        xf = xr.float()
+        record("ln_bwd[padded]", [M, 381],
+               lambda: norm.ln_backward(dy, xr, st, lw, res),
+               lambda: norm.ln_backward_reference(dy, xr, st, lw, res),
+               lambda: norm.ln_backward(dy384, xr384, st384, lw384, g384.reshape(M, 384)),
+               ln_bwd_bound(M, 381, 2, False),
+               lambda: torch.ops.aten.native_layer_norm_backward(
+                   dy, xf, [381], st[:, :1].contiguous(), st[:, 1:].contiguous(), lw, zeros,
+                   [True, True, True]))
+        for model, (C, H), twin in (("heads127", (1016, 8), (1024, 8)),
+                                    ("c381", (381, 3), (384, 3))):
+            xs = rand(256, 197, C)
+            qw = quantize_block_params(hd_block(torch, dev, C, H, 9))
+            xt = rand(256, 197, twin[0])
+            qt = quantize_block_params(hd_block(torch, dev, *twin, 9))
+            hidden = qw["w1_q"].shape[0]
+            record("fused_transformer_block_int8[padded]", [256, 197, C],
+                   lambda: ops.fused_transformer_block_int8(xs, qw, H),
+                   lambda: quant_block_reference(xs, qw, H, (C // H) ** -0.5, 1e-6),
+                   lambda: ops.fused_transformer_block_int8(xt, qt, twin[1]),
+                   int8_block_bound(256, 197, C, H, hidden), iters=5, model=model)
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(C)
+                pw = PredictorLG(C, small_predictor=True, use_fused=True).to(dev).eval(
+                    ).kernel_weights(bf)
+                pt = PredictorLG(twin[0], small_predictor=True, use_fused=True).to(dev).eval(
+                    ).kernel_weights(bf)
+            xp, xpt = xs[:, 1:], xt[:, 1:]
+            record("fused_predictor_lg[narrow]", [256, 196, C],
+                   lambda: ops.fused_predictor_lg(xp, pw),
+                   lambda: predictor_lg_reference(xp, pw),
+                   lambda: ops.fused_predictor_lg(xpt, pt), predictor_bound(256, 196, C, pw),
+                   iters=10, model=model)
+            del xs, xt, qw, qt
+    return out
+
+
+def count_rows(launches, rows) -> dict:
+    """Add a run's ROW_SUB_ROWS launches to `launches`; return them."""
+    for k, v in rows.items():
+        launches[k] = launches.get(k, 0) + v
+    return rows
+
+
+def serve_row_model(torch, dev, name, model, tally, smi, launches) -> dict:
+    """(b) serving: `serve_hw` on `model` (bf16 against its plain twin, int8
+    against bf16, the fused small predictor), each forward's launches padded
+    or narrow where the widths take those routes (`row_counts_take`, added
+    to `launches`)."""
+    from dense2sparse_vit_torch.ops import rowpad
+
+    rowpad.reset()
+    got = serve_hw(torch, dev, name, model, tally, smi, int8=True, phase="row_widths",
+                   on_counts=lambda c, key: count_rows(
+                       launches, row_counts_take(tally, c, f"{name} {key} forward", name)))
+    rowpad.reset()
+    return got
+
+
+def phase_row_widths(torch, dev, tally, smi):
+    """Phase 41: token rows of every width the Pallas kernels take. (a) every
+    entry with a padded or narrow route held against its plain version at
+    an odd C, C % 8 = 4 and C % 16 = 8 (`check_row_kernels`); (b) model (ii)
+    (C = 381) trained at B=128 in top-k (`train_row_model`) and served at
+    B=256 in bf16 and int8, model (i) (C = 1016) served likewise with its
+    eight heads in int8, both with the fused small predictor
+    (`serve_row_model`); (c) the routes timed beside their aligned twins
+    (`time_row_kernels`). The kernels line's ROW_SUB_ROWS take (b)'s
+    launches and (c)'s times; each must have launched."""
+    from dense2sparse_vit_torch.models import HEADLINE_KWARGS, create_model
+
+    t0 = time.perf_counter()
+    checks = check_row_kernels(torch, dev, tally)
+    t_a = time.perf_counter() - t0
+    launches = {name: {} for name in ROW_MODELS}
+    train, student = train_row_model(torch, dev, tally, smi, launches["c381"])
+    serve = {"c381": serve_row_model(torch, dev, "c381", student, tally, smi,
+                                     launches["c381"])}
+    del student
+    torch.cuda.empty_cache()
+    wide = create_model(STUDENT_384, use_fused_attention=True, device=dev,
+                        generator=torch.Generator().manual_seed(0),
+                        **{**HEADLINE_KWARGS, **ROW_MODELS["heads127"]})
+    serve["heads127"] = serve_row_model(torch, dev, "heads127", wide, tally, smi,
+                                        launches["heads127"])
+    del wide
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t0 - t_a
+    times = time_row_kernels(torch, dev, smi, tally, launches)
+    for row in ROW_SUB_ROWS:
+        if not tally.rows[row]["launches"] > 0:
+            raise AssertionError(f"{row}: no launch on phase 41's path")
+    emit({"phase": "row_widths", "seconds": time.perf_counter() - t0, "checks_s": t_a,
+          "models_s": t_b, "check_launches": checks, "train": train, "serve": serve,
+          "times": times, "launches": launches,
+          "sub_rows": {r: tally.rows[r]["launches"] for r in ROW_SUB_ROWS},
+          "card": smi})
+
+
+# ---- phase 42: the overfit-one-batch gate ------------------------------------------
+
+
+def phase_overfit_gate(torch, dev, smi, backbone_lr_scale=1.0) -> dict:
+    """Phase 42: `scripts/overfit_gate.py`'s gate on the port's trainer, in
+    this process: 400 steps of the DeiT-S 3-stage student (bf16, the fused
+    kernels) on one random batch of 32 with a random teacher, held to the
+    JAX gate's thresholds; raises if the gate fails (with `backbone_lr_scale`
+    0, the fault `--plant-fault overfit` plants, it must)."""
+    from dense2sparse_vit_torch.scripts import overfit_gate
+
+    t0 = time.perf_counter()
+    result = overfit_gate.run(dev, backbone_lr_scale=backbone_lr_scale)
+    emit({"phase": "overfit_gate", **result, "backbone_lr_scale": backbone_lr_scale,
+          "seconds": time.perf_counter() - t0, "card": smi})
+    if not result["pass"]:
+        raise AssertionError(f"overfit gate failed: {result}")
+    return result
+
+
+def plant_overfit_fault(torch, dev, smi) -> int:
+    """--plant-fault overfit: phase 42 with the backbone's learning rate at 0
+    (the predictors alone train: cross-entropy cannot fall 8x). The gate must
+    fail; reports whether it did."""
+    from dense2sparse_vit_torch.ops import _cuda
+
+    _cuda.library()
+    try:
+        phase_overfit_gate(torch, dev, smi, backbone_lr_scale=0.0)
+    except AssertionError as e:
+        emit({"phase": "plant_fault", "fault": "overfit", "rejected": True,
+              "message": str(e)[:400]})
+        return 0
+    emit({"phase": "plant_fault", "fault": "overfit", "rejected": False})
+    return 1
 
 
 def host_batch(torch, cfg, root, dev, split="val"):
@@ -8444,6 +8855,8 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(dev)})
     if "--plant-fault" in argv:
         rest = argv[argv.index("--plant-fault") + 1:]
+        if rest and rest[0] == "overfit":
+            return plant_overfit_fault(torch, dev, smi)
         return plant_fault(dev, rest[0] if rest else "rowsum")
 
     # ---- 1. build -------------------------------------------------------
@@ -8570,6 +8983,12 @@ def main(argv=None) -> int:
         # ---- 40. odd head widths and widths past 128 ----------------------------------
         torch.cuda.empty_cache()
         phase_odd_wide_heads(torch, dev, tally, smi)
+        # ---- 41. token rows of every width --------------------------------------------
+        torch.cuda.empty_cache()
+        phase_row_widths(torch, dev, tally, smi)
+        # ---- 42. the overfit-one-batch gate ---------------------------------------------
+        torch.cuda.empty_cache()
+        phase_overfit_gate(torch, dev, smi)
     finally:
         loop_tmp.cleanup()
 

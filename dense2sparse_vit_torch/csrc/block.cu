@@ -705,14 +705,16 @@ using d2s::bf16;
 // in the torch Linear layout (out, in); LayerNorm parameters and biases are
 // fp32; bqkv may be null. Requires C == d * H with a head width d
 // up to 256 (attention_hd.cuh), hidden % 8 == 0, N up to hd_max_tokens
-// (attention_hd.cuh), 16-byte aligned pointers.
+// (attention_hd.cuh), 16-byte aligned pointers. ln_c: the LayerNorms'
+// width, C or less where the rows end in zero columns (d2s::LnWidth).
 extern "C" int d2s_block_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* hid_buf,
     void* stats_buf, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
     const void* w1, const void* b1, const void* w2, const void* b2, void* preact, void* lse,
     void* cls, const void* policy, const void* sa, const void* sm, int B, int N, int C, int H,
-    int hidden, float scale, float ln_eps, float eps, void* stream) {
+    int hidden, int ln_c, float scale, float ln_eps, float eps, void* stream) {
+  const d2s::LnWidth scope(ln_c);
   return d2s::block_forward(x, out, qkv_buf, attn_buf, mid_buf, hid_buf, stats_buf, ln1_w,
                             ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2,
                             preact, lse, cls, policy, sa, sm, B, N, C, H, hidden, scale, ln_eps,
@@ -768,16 +770,17 @@ int d2s::block_forward(const void* x, void* out, void* qkv_buf, void* attn_buf, 
 // x, out: (B, N, C) bf16; scratch qkv (B*N, 3C) and attn (B*N, C) bf16 and
 // stats (B*N) float2; lse, cls, policy as d2s_block_forward takes them
 // (each may be null); weights bf16 (out, in), LayerNorm and biases fp32,
-// bqkv and bproj may be null. Requires C == d * H (d at most 256),
-// N up to hd_max_tokens, 16-byte aligned pointers.
+// bqkv and bproj may be null; ln_c as d2s_block_forward's. Requires C ==
+// d * H (d at most 256), N up to hd_max_tokens, 16-byte aligned pointers.
 extern "C" int d2s_attention_block_forward(const void* x, void* out, void* qkv_buf,
                                            void* attn_buf, void* stats_buf, const void* ln_w,
                                            const void* ln_b, const void* wqkv, const void* bqkv,
                                            const void* wproj, const void* bproj, void* lse,
                                            void* cls, const void* policy, int B, int N, int C,
-                                           int H, float scale, float ln_eps, float eps,
+                                           int H, int ln_c, float scale, float ln_eps, float eps,
                                            void* stream) {
   if (B <= 0 || !d2s::head_width_ok(C, H) || out == nullptr) return (int)cudaErrorInvalidValue;
+  const d2s::LnWidth scope(ln_c);
   return (int)d2s::attention_half(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<bf16*>(qkv_buf),
       static_cast<bf16*>(attn_buf), static_cast<float2*>(stats_buf),
@@ -807,13 +810,14 @@ extern "C" int d2s_attention_packed_forward(const void* qkv, long long q_bstride
 
 // The MLP half alone, out = x + fc2(GELU(fc1(LN x))), over M = B*N rows: x,
 // out (M, C) bf16; scratch hid (M, hidden) bf16 and stats (M) float2;
-// weights as d2s_block_forward takes ln2/w1/b1/w2/b2. Requires C and hidden
-// multiples of 8, 16-byte aligned pointers.
+// weights as d2s_block_forward takes ln2/w1/b1/w2/b2; ln_c as its. Requires
+// C and hidden multiples of 8, 16-byte aligned pointers.
 extern "C" int d2s_mlp_residual_forward(const void* x, void* out, void* hid_buf, void* stats_buf,
                                         const void* ln_w, const void* ln_b, const void* w1,
                                         const void* b1, const void* w2, const void* b2, int M,
-                                        int C, int hidden, float ln_eps, void* stream) {
+                                        int C, int hidden, int ln_c, float ln_eps, void* stream) {
   if (M <= 0 || out == nullptr) return (int)cudaErrorInvalidValue;
+  const d2s::LnWidth scope(ln_c);
   return (int)d2s::mlp_half(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<bf16*>(hid_buf), nullptr,
       static_cast<float2*>(stats_buf), static_cast<const float*>(ln_w),

@@ -217,15 +217,18 @@ cudaError_t qkv_stage(const bf16* x, bf16* qkv, float2* stats, const float* ln_w
 
 // out = bf16((x - mu) * rstd * gamma + beta) and stats = (mu, rstd), with
 // the same arithmetic as ln_stats_kernel and ln_gemm's prologue, so that the
-// recomputed LN1(x) and LN2(x_mid) equal what the forward multiplied.
+// recomputed LN1(x) and LN2(x_mid) equal what the forward multiplied; the
+// statistics over the first k columns (NARROW: k < C, the rest zeros).
+template <bool NARROW>
 static __global__ void ln_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                                        const float* __restrict__ beta, bf16* __restrict__ out,
-                                       float2* __restrict__ stats, int M, int C, float eps) {
+                                       float2* __restrict__ stats, int M, int C, int k,
+                                       float eps) {
   const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (m >= M) return;
   const int lane = threadIdx.x & 31;
   const uint4* row = reinterpret_cast<const uint4*>(x + (long long)m * C);
-  const int nv = C / 8;
+  const int nv = C / 8, n = NARROW ? k : C;
   float s = 0.f;
   for (int j = lane; j < nv; j += 32) {
     const uint4 v = row[j];
@@ -233,18 +236,9 @@ static __global__ void ln_apply_kernel(const bf16* __restrict__ x, const float* 
 #pragma unroll
     for (int t = 0; t < 8; ++t) s += __bfloat162float(e[t]);
   }
-  const float mu = warp_sum(s) / C;
-  float q = 0.f;
-  for (int j = lane; j < nv; j += 32) {
-    const uint4 v = row[j];
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float d = __bfloat162float(e[t]) - mu;
-      q += d * d;
-    }
-  }
-  const float rs = rsqrtf(warp_sum(q) / C + eps);
+  const float mu = warp_sum(s) / n;
+  const float q = row_sq_dev<NARROW>(row, nv, lane, mu, n);
+  const float rs = rsqrtf(warp_sum(q) / n + eps);
   if (lane == 0) stats[m] = make_float2(mu, rs);
   uint4* dst = reinterpret_cast<uint4*>(out + (long long)m * C);
   for (int j = lane; j < nv; j += 32) {
@@ -263,8 +257,13 @@ static cudaError_t launch_ln_apply(const bf16* x, const float* gamma, const floa
                                    bf16* out, float2* stats, int M, int C, float eps,
                                    cudaStream_t stream) {
   constexpr int rows_per_cta = 8;
-  ln_apply_kernel<<<(M + rows_per_cta - 1) / rows_per_cta, 32 * rows_per_cta, 0, stream>>>(
-      x, gamma, beta, out, stats, M, C, eps);
+  const int ctas = (M + rows_per_cta - 1) / rows_per_cta, k = ln_width(C);
+  if (k == C)
+    ln_apply_kernel<false><<<ctas, 32 * rows_per_cta, 0, stream>>>(x, gamma, beta, out, stats, M,
+                                                                    C, k, eps);
+  else
+    ln_apply_kernel<true><<<ctas, 32 * rows_per_cta, 0, stream>>>(x, gamma, beta, out, stats, M,
+                                                                   C, k, eps);
   return cudaGetLastError();
 }
 
@@ -1358,7 +1357,8 @@ extern "C" long long d2s_block_backward_scratch_bytes(int B, int N, int C, int H
 // head width d up to 256, C a multiple of 8 up to
 // d2s_ln_backward_max_width() (norm.cu's LayerNorm backward),
 // hidden % 8 == 0, N up to hd_max_tokens (attention_hd.cuh), 16-byte
-// aligned pointers.
+// aligned pointers. ln_c: the LayerNorms' width, C or less where the rows
+// end in zero columns (d2s::LnWidth), as the forward took them.
 extern "C" int d2s_block_backward(
     const void* x, const void* g, void* dx, const void* ln1_w, const void* ln1_b,
     const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
@@ -1366,8 +1366,10 @@ extern "C" int d2s_block_backward(
     const void* b2, void* d_ln1_w, void* d_ln1_b, void* d_wqkv, void* d_bqkv, void* d_wproj,
     void* d_bproj, void* d_ln2_w, void* d_ln2_b, void* d_w1, void* d_b1, void* d_w2,
     void* d_b2, const void* policy, void* d_policy, const void* sa, const void* sm, void* scratch,
-    int B, int N, int C, int H, int hidden, float scale, float ln_eps, float eps, void* stream) {
+    int B, int N, int C, int H, int hidden, int ln_c, float scale, float ln_eps, float eps,
+    void* stream) {
   using namespace d2s;
+  const LnWidth scope(ln_c);
   const bool use_policy = policy != nullptr;
   if (!shapes_ok(B, N, C, H, hidden, use_policy) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
       (d_policy != nullptr && !use_policy))
@@ -1561,9 +1563,10 @@ extern "C" int d2s_attention_block_backward(
     const void* x, const void* g, void* dx, const void* ln_w, const void* ln_b,
     const void* wqkv, const void* bqkv, const void* wproj, void* d_ln_w, void* d_ln_b,
     void* d_wqkv, void* d_bqkv, void* d_wproj, void* d_bproj, const void* policy,
-    void* d_policy, void* scratch, int B, int N, int C, int H, float scale, float ln_eps,
-    float eps, void* stream) {
+    void* d_policy, void* scratch, int B, int N, int C, int H, int ln_c, float scale,
+    float ln_eps, float eps, void* stream) {
   using namespace d2s;
+  const LnWidth scope(ln_c);
   const bool use_policy = policy != nullptr;
   if (!attn_shapes_ok(B, N, C, H, use_policy) || (bqkv == nullptr) != (d_bqkv == nullptr) ||
       (d_policy != nullptr && !use_policy))
@@ -1639,8 +1642,9 @@ extern "C" int d2s_mlp_residual_backward(const void* x, const void* g, void* dx,
                                          const void* b1, const void* w2, void* d_ln_w,
                                          void* d_ln_b, void* d_w1, void* d_b1, void* d_w2,
                                          void* d_b2, void* scratch, int M, int C, int hidden,
-                                         float ln_eps, void* stream) {
+                                         int ln_c, float ln_eps, void* stream) {
   using namespace d2s;
+  const LnWidth scope(ln_c);
   if (!mlp_shapes_ok(M, C, hidden)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   MlpScratch s;

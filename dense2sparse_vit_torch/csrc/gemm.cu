@@ -17,11 +17,12 @@ using d2s::bf16;
 // a_rows); w is (N, K), or (K, N) with w_kn; ln_w, ln_b null for no
 // LayerNorm (ln_stats: M float2 of scratch); bias, residual, row_scale (M /
 // scale_rows), gelu_in, preact each null for none; exactly one of out
-// (bf16) and out_f32; act: 0 none, 1 GELU, 2 ReLU. Requires K and N
-// multiples of 8 and 16-byte aligned pointers.
+// (bf16) and out_f32; act: 0 none, 1 GELU, 2 ReLU; ln_k: the LayerNorm's
+// width, K or less where a's rows end in zero columns (0: K). Requires K
+// and N multiples of 8 and 16-byte aligned pointers.
 extern "C" int d2s_ln_gemm(const void* a, int a_rows, long long a_bstride, const void* w,
                            int w_kn, const void* bias, const void* ln_w, const void* ln_b,
-                           float ln_eps, void* ln_stats, const void* residual,
+                           float ln_eps, int ln_k, void* ln_stats, const void* residual,
                            const void* row_scale, int scale_rows, const void* gelu_in,
                            void* preact, void* out, void* out_f32, int M, int N, int K, int act,
                            void* stream) {
@@ -35,6 +36,7 @@ extern "C" int d2s_ln_gemm(const void* a, int a_rows, long long a_bstride, const
   g.ln_w = static_cast<const float*>(ln_w);
   g.ln_b = static_cast<const float*>(ln_b);
   g.ln_eps = ln_eps;
+  g.ln_k = ln_k;
   g.ln_stats = static_cast<float2*>(ln_stats);
   g.residual = static_cast<const bf16*>(residual);
   g.row_scale = static_cast<const float*>(row_scale);

@@ -103,6 +103,25 @@ namespace d2s {
 
 using bf16 = __nv_bfloat16;
 
+// Rows padded with zero columns. An entry that takes token rows of any
+// width C gets them from its caller padded to an aligned width (16-byte
+// rows: the TMA maps and the vector copies), with zero LayerNorm
+// parameters, weights and biases in the padding; only the LayerNorm
+// statistics then need the true width. The entry opens an LnWidth scope
+// with C for the launches it makes, and each launch of a LayerNorm
+// (ln_stats_kernel, block_bwd.cu's ln_apply_kernel, norm.cu's backward,
+// quant_block.cu's row quantization) takes ln_width(K) of its K columns:
+// C where the scope narrows the rows, else K. Host code only.
+inline thread_local int ln_width_scope = 0;
+struct LnWidth {
+  int prev;
+  explicit LnWidth(int width) : prev(ln_width_scope) { ln_width_scope = width; }
+  ~LnWidth() { ln_width_scope = prev; }
+};
+inline int ln_width(int K) {
+  return ln_width_scope > 0 && ln_width_scope < K ? ln_width_scope : K;
+}
+
 enum Act : int { ACT_NONE = 0, ACT_GELU = 1, ACT_RELU = 2 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -238,6 +257,7 @@ struct GemmArgsT {
   const float* ln_b;     // (K)
   float ln_eps;
   float2* ln_stats;      // (M) scratch for the rows' (mean, 1/std)
+  int ln_k;              // the LayerNorm's width: columns past it are zeros (0: K)
   const bf16* residual;  // (M, N) or null
   const float* row_scale;  // (M / scale_rows) or null: scales the branch per sample
   int scale_rows;
@@ -470,22 +490,11 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
-// One warp per row: fp32 mean, then 1/std from the squared deviations (two
-// passes over the row; the second reads it from L1).
-static __global__ void ln_stats_kernel(const GemmArgs p) {
-  const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (m >= p.M) return;
-  const int lane = threadIdx.x & 31;
-  const uint4* row = reinterpret_cast<const uint4*>(gemm_a_row(p, m));
-  const int nv = p.K / 8;
-  float s = 0.f;
-  for (int j = lane; j < nv; j += 32) {
-    const uint4 v = row[j];
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) s += __bfloat162float(e[t]);
-  }
-  const float mu = warp_sum(s) / p.K;
+// The squared deviations about mu of a lane's 8-column vectors of a bf16
+// row of nv vectors; with NARROW, of its first k columns alone (the zeros
+// past a row's true width left out)
+template <bool NARROW>
+__device__ __forceinline__ float row_sq_dev(const uint4* row, int nv, int lane, float mu, int k) {
   float q = 0.f;
   for (int j = lane; j < nv; j += 32) {
     const uint4 v = row[j];
@@ -493,10 +502,32 @@ static __global__ void ln_stats_kernel(const GemmArgs p) {
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       const float d = __bfloat162float(e[t]) - mu;
-      q += d * d;
+      if (!NARROW || j * 8 + t < k) q += d * d;
     }
   }
-  const float rs = rsqrtf(warp_sum(q) / p.K + p.ln_eps);
+  return q;
+}
+
+// One warp per row: fp32 mean, then 1/std from the squared deviations (two
+// passes over the row; the second reads it from L1), over the LayerNorm's
+// p.ln_k columns (NARROW: fewer than K, the rest zeros).
+template <bool NARROW>
+static __global__ void ln_stats_kernel(const GemmArgs p) {
+  const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (m >= p.M) return;
+  const int lane = threadIdx.x & 31;
+  const uint4* row = reinterpret_cast<const uint4*>(gemm_a_row(p, m));
+  const int nv = p.K / 8, k = NARROW ? p.ln_k : p.K;
+  float s = 0.f;
+  for (int j = lane; j < nv; j += 32) {
+    const uint4 v = row[j];
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) s += __bfloat162float(e[t]);
+  }
+  const float mu = warp_sum(s) / k;
+  const float q = row_sq_dev<NARROW>(row, nv, lane, mu, k);
+  const float rs = rsqrtf(warp_sum(q) / k + p.ln_eps);
   if (lane == 0) p.ln_stats[m] = make_float2(mu, rs);
 }
 
@@ -1058,7 +1089,14 @@ static cudaError_t launch_ln_gemm(const GemmArgs& p, cudaStream_t stream) {
   if (!ok) return cudaErrorInvalidValue;
   if (p.ln_w) {
     constexpr int rows_per_cta = 8;
-    ln_stats_kernel<<<(p.M + rows_per_cta - 1) / rows_per_cta, 32 * rows_per_cta, 0, stream>>>(p);
+    GemmArgs q = p;
+    q.ln_k = p.ln_k > 0 ? p.ln_k : ln_width(p.K);
+    if (q.ln_k > p.K) return cudaErrorInvalidValue;
+    const int ctas = (p.M + rows_per_cta - 1) / rows_per_cta;
+    if (q.ln_k == p.K)
+      ln_stats_kernel<false><<<ctas, 32 * rows_per_cta, 0, stream>>>(q);
+    else
+      ln_stats_kernel<true><<<ctas, 32 * rows_per_cta, 0, stream>>>(q);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

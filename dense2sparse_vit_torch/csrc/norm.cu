@@ -95,7 +95,7 @@ static __global__ void __launch_bounds__(32 * LNB_WARPS)
                   const float2* __restrict__ stats, const float* __restrict__ gamma,
                   const bf16* __restrict__ res_b, const float* __restrict__ res_f,
                   float* __restrict__ dx_f, bf16* __restrict__ dx_b, float* __restrict__ part,
-                  int M, int width, int rows_per_cta) {
+                  int M, int width, int n, int rows_per_cta) {
   const int C = FULL ? 4 * V * LANES : width;
   constexpr int SUBS = 32 / LANES;                       // rows side by side in a warp
   constexpr int PAIR = (SUBS == 1 && V <= 3) ? 2 : 1;    // and one after the other
@@ -167,7 +167,7 @@ static __global__ void __launch_bounds__(32 * LNB_WARPS)
       const int m = wbase + sub * PAIR + p;
       if (m >= m1) continue;
       const long long r = (long long)m * C;
-      const float rs = st[p].y, mdz = s1[p] / C, mdzz = s2[p] / C;
+      const float rs = st[p].y, mdz = s1[p] / n, mdzz = s2[p] / n;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         if (!has(j)) continue;
@@ -233,7 +233,7 @@ static __global__ void __launch_bounds__(LNW_THREADS, 2)
                       const float2* __restrict__ stats, const float* __restrict__ gamma,
                       const bf16* __restrict__ res_b, const float* __restrict__ res_f,
                       float* __restrict__ dx_f, bf16* __restrict__ dx_b,
-                      float* __restrict__ part, int M, int C, int rows_per_cta) {
+                      float* __restrict__ part, int M, int C, int n, int rows_per_cta) {
   constexpr int R = LNW_ROWS / V;
   __shared__ float2 red[2][LNB_WARPS][R];  // (sum dz, sum dz z) per warp and row
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -306,7 +306,7 @@ static __global__ void __launch_bounds__(LNW_THREADS, 2)
         tot.y += red[buf][w][p].y;
       }
       const long long r = (long long)m * C;
-      const float rs = st[p].y, mdz = tot.x / C, mdzz = tot.y / C;
+      const float rs = st[p].y, mdz = tot.x / n, mdzz = tot.y / n;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         if (!has(j)) continue;
@@ -377,13 +377,13 @@ template <int V, int LANES, bool FULL>
 static cudaError_t run_ln_bwd(int ctas, int rows, const float* dy, const bf16* x,
                               const float2* stats, const float* gamma, const bf16* res_b,
                               const float* res_f, float* dx_f, bf16* dx_b, float* part, int M,
-                              int C, cudaStream_t stream) {
+                              int C, int n, cudaStream_t stream) {
   const int smem = LNB_WARPS * 2 * C * (int)sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       ln_bwd_kernel<V, LANES, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   ln_bwd_kernel<V, LANES, FULL><<<ctas, 32 * LNB_WARPS, smem, stream>>>(
-      dy, x, stats, gamma, res_b, res_f, dx_f, dx_b, part, M, C, rows);
+      dy, x, stats, gamma, res_b, res_f, dx_f, dx_b, part, M, C, n, rows);
   return cudaGetLastError();
 }
 
@@ -398,13 +398,14 @@ cudaError_t launch_ln_bwd(const float* dy, const bf16* x, const float2* stats,
                           int M, int C, cudaStream_t stream) {
   const LnBwdShape sh = ln_bwd_shape(C);
   if (M <= 0 || sh.lanes == 0 || (!dx_f && !dx_b)) return cudaErrorInvalidValue;
+  const int n = ln_width(C);  // the means' width: the rows' zero columns past it left out
   int ctas, rows;
   ln_bwd_plan(M, &ctas, &rows);
   cudaError_t err = cudaErrorInvalidValue;
 #define D2S_LN_BWD(V, L, F)                                                                  \
   if (sh.v == V && sh.lanes == L && sh.full == F)                                            \
     err = run_ln_bwd<V, L, F>(ctas, rows, dy, x, stats, gamma, res_b, res_f, dx_f, dx_b, work, \
-                              M, C, stream);
+                              M, C, n, stream);
   D2S_LN_BWD(1, 32, true) D2S_LN_BWD(2, 32, true) D2S_LN_BWD(3, 32, true)
   D2S_LN_BWD(4, 32, true) D2S_LN_BWD(5, 32, true) D2S_LN_BWD(6, 32, true)
   D2S_LN_BWD(1, 16, true) D2S_LN_BWD(3, 16, true) D2S_LN_BWD(5, 16, true)
@@ -414,7 +415,7 @@ cudaError_t launch_ln_bwd(const float* dy, const bf16* x, const float2* stats,
   if (sh.lanes == LNW_THREADS) {
     const auto kernel = sh.v == 1 ? ln_bwd_row_kernel<1> : ln_bwd_row_kernel<2>;
     kernel<<<ctas, LNW_THREADS, 0, stream>>>(dy, x, stats, gamma, res_b, res_f, dx_f, dx_b,
-                                             work, M, C, rows);
+                                             work, M, C, n, rows);
     err = cudaGetLastError();
     if (err == cudaSuccess) ++norm_launches[2];
   }
@@ -539,13 +540,15 @@ extern "C" long long d2s_ln_backward_workspace_bytes(int M, int C) {
 // The LayerNorm backward alone (launch_ln_bwd): dy (M, C) fp32, x (M, C)
 // bf16, stats (M) float2 (mean, 1/std), gamma (C) fp32, res_b (bf16) or
 // res_f (fp32) or neither, dx_f (fp32) and/or dx_b (bf16) out, dgamma and
-// dbeta (C) fp32 out; work: d2s_ln_backward_workspace_bytes(M, C) bytes.
-// Requires C a multiple of 8 up to d2s_ln_backward_max_width(), 16-byte
-// aligned pointers.
+// dbeta (C) fp32 out; work: d2s_ln_backward_workspace_bytes(M, C) bytes;
+// ln_c: the LayerNorm's width, C or less where the rows end in zero columns
+// (with zero gamma there; d2s::LnWidth). Requires C a multiple of 8 up to
+// d2s_ln_backward_max_width(), 16-byte aligned pointers.
 extern "C" int d2s_ln_backward(const void* dy, const void* x, const void* stats,
                                const void* gamma, const void* res_b, const void* res_f,
                                void* dx_f, void* dx_b, void* dgamma, void* dbeta, void* work,
-                               int M, int C, void* stream) {
+                               int M, int C, int ln_c, void* stream) {
+  const d2s::LnWidth scope(ln_c);
   return (int)d2s::launch_ln_bwd(
       static_cast<const float*>(dy), static_cast<const bf16*>(x),
       static_cast<const float2*>(stats), static_cast<const float*>(gamma),

@@ -103,8 +103,12 @@
 //
 // Every tile, partial and order is a function of the shapes alone, and each
 // output's sum runs in one warpgroup (or thread) in K order: the same bits
-// on every launch. Requires the widths multiples of 8; c / 2 may end inside
-// an 8-column vector (c = 8 mod 16), whose loads and sums mask the rest.
+// on every launch. It takes widths of any size: a row whose width is no
+// multiple of 8 ends inside an 8-column vector, whose loads, statistics and
+// sums mask the rest, and lies in device memory at a pitch rounded up to 8
+// (pred_pitch: the input x, each unit's weight rows, what a launch writes),
+// so that every row starts 16-byte aligned; c / 2 may end inside a vector
+// too.
 #include <vector>
 
 #include "ln_gemm.cuh"
@@ -285,6 +289,11 @@ __device__ __forceinline__ void pred_ld8(const float* p, float (&f)[8]) {
 __device__ __forceinline__ int pred_ln_width(const PredArgs& p, int u) {
   return p.split && u == 0 ? p.c2 + p.cg : p.u[u].K;
 }
+// ln_b's offset in a copy of k values' parameters (ln_w zero-filled up to
+// it, so that the 16-byte loads of a partial last vector stay aligned and
+// read zeros) and the weights' row pitch in device memory: rows of k values
+// lie 16-byte multiples apart
+__host__ __device__ __forceinline__ int pred_pitch(int k) { return (k + 7) / 8 * 8; }
 __device__ __forceinline__ const float* pred_ln(const PredArgs& p, const unsigned char* sm, int u) {
   return reinterpret_cast<const float*>(sm + p.u[u].s_ln);
 }
@@ -485,17 +494,27 @@ __device__ __forceinline__ void pred_terms(const PredArgs& p, unsigned char* sm)
   const float* lw = p.u[0].ln_w + c2;  // the global half's LayerNorm
   const float* lb = p.u[0].ln_b + c2;
   // W_bot's chunk at column k0: load e of a thread is output row (tid + e T)
-  // / 32, columns 4 ((tid + e T) % 32) .. + 3 (8-byte aligned: c2 and c are
-  // multiples of 4 and 8)
+  // / 32, columns 4 ((tid + e T) % 32) .. + 3 (8-byte aligned where c2 is a
+  // multiple of 4, the rows pred_pitch(c) apart; else column by column,
+  // zeros past cg)
+  const int wp = pred_pitch(c2 + cg);
   uint2 wn[PER];
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
       const int i = tid + e * T, r = i >> 5, k = k0 + 4 * (i & 31);
-      wn[e] = nb + r < n0 && k < cg
-                  ? __ldg(reinterpret_cast<const uint2*>(
-                        p.w_full + (long long)(nb + r) * (c2 + cg) + c2 + k))
-                  : make_uint2(0u, 0u);
+      const bf16* src = p.w_full + (long long)(nb + r) * wp + c2 + k;
+      if (nb + r >= n0 || k >= cg) {
+        wn[e] = make_uint2(0u, 0u);
+      } else if ((c2 & 3) == 0) {
+        wn[e] = __ldg(reinterpret_cast<const uint2*>(src));
+      } else {
+        uint16_t h[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          h[j] = k + j < cg ? __ldg(reinterpret_cast<const unsigned short*>(src) + j) : 0;
+        wn[e] = make_uint2(h[0] | (uint32_t)h[1] << 16, h[2] | (uint32_t)h[3] << 16);
+      }
     }
   };
   fetch(0);
@@ -730,7 +749,7 @@ __device__ __forceinline__ void pred_scores(const PredArgs& p, const unsigned ch
   const float2 st = pred_row_stats(reg, row, k, half);
   const float mu = st.x, r = rsqrtf(__fdividef(st.y, (float)k) + p.eps);
   const float* fln = reinterpret_cast<const float*>(sm_fln);
-  float dot = pred_score_dot(reg, row, k, half, mu, r, fln, fln + k, p.fw);
+  float dot = pred_score_dot(reg, row, k, half, mu, r, fln, fln + pred_pitch(k), p.fw);
   dot += __shfl_xor_sync(0xffffffffu, dot, 1);
   const int m = row0 + row;
   if (half == 0 && m < p.M) p.scores[m] = __float2bfloat16(dot + __ldg(p.fb));
@@ -746,11 +765,12 @@ __device__ __forceinline__ void pred_scores_concat(const PredArgs& p, const unsi
   const int row = ct >> 1, half = ct & 1;
   const int c2 = p.c2, c = c2 + p.cg;
   const float* fln = reinterpret_cast<const float*>(sm + p.s_fln);
-  float dot = pred_score_dot(reg, row, c2, half, mu, r, fln, fln + c, p.fw);
+  const int cp = pred_pitch(c);
+  float dot = pred_score_dot(reg, row, c2, half, mu, r, fln, fln + cp, p.fw);
   const int s = min(row0 + row, p.M - 1) / p.ntok - s_lo;
   const float* g = reinterpret_cast<const float*>(sm + p.off_glob) + s * p.cg;
   for (int j = half; j < p.cg; j += 2) {
-    const float y = pred_bf16_round((g[j] - mu) * r * fln[c2 + j] + fln[c + c2 + j]);
+    const float y = pred_bf16_round((g[j] - mu) * r * fln[c2 + j] + fln[cp + c2 + j]);
     dot += y * __bfloat162float(p.fw[c2 + j]);
   }
   dot += __shfl_xor_sync(0xffffffffu, dot, 1);
@@ -786,7 +806,7 @@ __device__ __forceinline__ void pred_tile(const PredArgs& p, unsigned char* sm, 
       const float2 st = reinterpret_cast<const float2*>(sm + p.off_rows)[wg * 64 + (ct >> 1)];
       const float* ln = pred_ln(p, sm, u);
       pred_row_normalize(src, ct >> 1, min(U.K - c * kc, kc), ct & 1, st.x, st.y, ln + c * kc,
-                         ln + pred_ln_width(p, u) + c * kc);
+                         ln + pred_pitch(pred_ln_width(p, u)) + c * kc);
       pred_fence_async();
       pred_bar(1 + wg, 128);
     }
@@ -901,22 +921,22 @@ __device__ __forceinline__ void pred_body(const PredArgs& p) {
   pred_issue_chunk(p, buf0, row0, 0, ct);
   for (int u = 0; u < p.n_units; ++u) {
     const PredUnit& U = p.u[u];
-    const int kl = pred_ln_width(p, u);
+    const int kl = pred_ln_width(p, u), kp = pred_pitch(kl);
     float* ln = reinterpret_cast<float*>(sm + U.s_ln);
-    for (int i = tid; i < kl; i += mma_threads) {
-      ln[i] = __ldg(U.ln_w + i);
-      ln[kl + i] = __ldg(U.ln_b + i);
+    for (int i = tid; i < kp; i += mma_threads) {
+      ln[i] = i < kl ? __ldg(U.ln_w + i) : 0.f;
+      ln[kp + i] = i < kl ? __ldg(U.ln_b + i) : 0.f;
     }
     float* bias = reinterpret_cast<float*>(sm + U.s_bias);
     for (int i = tid; i < pred_round(U.N, 128); i += mma_threads)
       bias[i] = i < U.N ? __ldg(U.bias + i) : 0.f;
   }
   if (p.end == PRED_END_SCORE) {
-    const int k = p.n_units ? p.u[p.n_units - 1].N : p.c2 + p.cg;
+    const int k = p.n_units ? p.u[p.n_units - 1].N : p.c2 + p.cg, kp = pred_pitch(k);
     float* fln = reinterpret_cast<float*>(sm + p.s_fln);
-    for (int i = tid; i < k; i += mma_threads) {
-      fln[i] = __ldg(p.fln_w + i);
-      fln[k + i] = __ldg(p.fln_b + i);
+    for (int i = tid; i < kp; i += mma_threads) {
+      fln[i] = i < k ? __ldg(p.fln_w + i) : 0.f;
+      fln[kp + i] = i < k ? __ldg(p.fln_b + i) : 0.f;
     }
   }
   if (p.split) pred_load_terms(p, sm, s_lo, S, tid, mma_threads);
@@ -955,7 +975,8 @@ __device__ __forceinline__ void pred_body(const PredArgs& p) {
   if (half == 0) rows[row] = make_float2(st.x, rstd);
   if (p.chunks == 1) {
     const float* ln = pred_ln(p, sm, 0);
-    pred_row_normalize(buf0, row, U0.K, half, st.x, rstd, ln, ln + pred_ln_width(p, 0));
+    pred_row_normalize(buf0, row, U0.K, half, st.x, rstd, ln,
+                       ln + pred_pitch(pred_ln_width(p, 0)));
     pred_fence_async();
   }
   pred_bar(1 + wg, 128);
@@ -985,7 +1006,7 @@ __device__ __forceinline__ void pred_body(const PredArgs& p) {
     const float2 s2 = pred_row_stats(dst, row, U.N, half);
     const float* ln = pred_ln(p, sm, u + 1);
     pred_row_normalize(dst, row, U.N, half, s2.x, rsqrtf(__fdividef(s2.y, (float)U.N) + p.eps),
-                       ln, ln + U.N);
+                       ln, ln + pred_pitch(U.N));
     pred_fence_async();
     pred_bar(1 + wg, 128);
   }
@@ -1077,10 +1098,10 @@ static int pred_layout(PredLaunch& L, const PredShapes& s) {
   }
   for (int u = L.a; u <= L.b; ++u) {
     const int kl = u == s.n_in ? s.c() : s.in_width(u);
-    L.s_ln[u - L.a] = take(2LL * kl * 4, 16);
+    L.s_ln[u - L.a] = take(2LL * pred_pitch(kl) * 4, 16);
     L.s_bias[u - L.a] = take((long long)pred_round(s.widths[u], 128) * 4, 16);
   }
-  L.s_fln = take(L.end == PRED_END_SCORE ? 2LL * s.widths[s.n_units - 1] * 4 : 0, 16);
+  L.s_fln = take(L.end == PRED_END_SCORE ? 2LL * pred_pitch(s.widths[s.n_units - 1]) * 4 : 0, 16);
   L.off_bar = take(2 * PRED_STAGES * 8, 8);
   return off + 1024;
 }
@@ -1166,7 +1187,7 @@ static bool pred_plan(const PredShapes& s, std::vector<PredLaunch>& plan) {
 // its local half, to a multiple of 8), or 0.
 static int pred_out_cols(const PredLaunch& L, const PredShapes& s) {
   if (L.end == PRED_END_SCORE || L.end >= PRED_END_MEANS) return 0;
-  return L.end == PRED_END_POOL ? pred_round(s.c2(), 8) : s.widths[L.b];
+  return pred_pitch(L.end == PRED_END_POOL ? s.c2() : s.widths[L.b]);
 }
 
 // scratch: two bf16 activation buffers between launches, the pooled sums,
@@ -1192,10 +1213,9 @@ static PredScratch pred_scratch(const PredShapes& s, const std::vector<PredLaunc
 }
 
 static bool pred_shapes_ok(const PredShapes& s) {
-  if (s.B < 1 || s.N < 1 || s.D < 8 || s.D % 8 || s.n_in < 1 || s.n_in > s.n_units)
-    return false;
+  if (s.B < 1 || s.N < 1 || s.D < 1 || s.n_in < 1 || s.n_in > s.n_units) return false;
   for (int u = 0; u < s.n_units; ++u)
-    if (s.widths[u] < 8 || s.widths[u] % 8) return false;
+    if (s.widths[u] < 1) return false;
   return true;
 }
 
@@ -1213,13 +1233,14 @@ extern "C" long long d2s_predictor_scratch_bytes(int B, int N, int D, int n_unit
   return d2s::pred_scratch(s, plan).total;
 }
 
-// x: spatial tokens, row n of sample b at x + b * x_bstride + n * D (bf16).
-// scores: (B, N) bf16. scratch: d2s_predictor_scratch_bytes bytes. Unit u
-// maps width (u ? widths[u-1] : D) -> widths[u] with LayerNorm (ln_w[u],
-// ln_b[u] fp32), weight w[u] (widths[u], in) bf16 and bias b[u] fp32; the
-// local/global split follows unit n_in - 1. The final unit has LayerNorm
-// (fln_w, fln_b), a (widths[n_units-1],) bf16 weight and an fp32 scalar
-// bias. act: 1 = GELU, 2 = ReLU. Host arrays: widths and the four pointer
+// x: spatial tokens, row n of sample b at x + b * x_bstride + n * P (bf16),
+// P = D rounded up to a multiple of 8. scores: (B, N) bf16. scratch:
+// d2s_predictor_scratch_bytes bytes. Unit u maps width (u ? widths[u-1] : D)
+// -> widths[u] with LayerNorm (ln_w[u], ln_b[u] fp32), weight w[u]
+// (widths[u], in) bf16 with rows the in width rounded up to 8 apart, and
+// bias b[u] fp32; the local/global split follows unit n_in - 1. The final
+// unit has LayerNorm (fln_w, fln_b), a bf16 weight of widths[n_units-1]
+// values (readable to the next multiple of 8) and an fp32 scalar bias. act: 1 = GELU, 2 = ReLU. Host arrays: widths and the four pointer
 // arrays. Launches on `stream`; returns the launch error (cudaSuccess = 0),
 // cudaErrorInvalidValue for shapes or arguments it does not take.
 extern "C" int d2s_predictor_forward(const void* x, long long x_bstride, void* scores,
@@ -1249,8 +1270,8 @@ extern "C" int d2s_predictor_forward(const void* x, long long x_bstride, void* s
   const int M = s.M(), c = s.c(), c2 = s.c2(), n0 = s.n0();
   // the next launch's input: the strided spatial view, then what the last launch wrote
   const bf16* in = static_cast<const bf16*>(x);
-  int in_rows = N, in_pitch = D, next = 0;
-  long long in_bstride = B > 1 ? x_bstride : (long long)N * D;
+  int in_rows = N, in_pitch = pred_pitch(D), next = 0;
+  long long in_bstride = B > 1 ? x_bstride : (long long)N * in_pitch;
   for (const PredLaunch& L : plan) {
     PredArgs p{};
     p.M = M;
@@ -1304,7 +1325,7 @@ extern "C" int d2s_predictor_forward(const void* x, long long x_bstride, void* s
       const int ld = s.in_width(u);  // the weight's row length
       U.K = p.split && u == L.a ? c2 : ld;
       const cuuint64_t dims[2] = {(cuuint64_t)U.K, (cuuint64_t)U.N};
-      const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+      const cuuint64_t strides[1] = {(cuuint64_t)pred_pitch(ld) * 2};
       const cuuint32_t box[2] = {PRED_BK, PRED_BN};
       if (!encode_map(&p.wmap[u - L.a], w[u], 2, dims, strides, box))
         return (int)cudaErrorInvalidValue;

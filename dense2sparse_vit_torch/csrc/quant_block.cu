@@ -103,9 +103,10 @@ __device__ __forceinline__ float warp_max(float v) {
 // the 8-value chunks at columns 8l + 256j (j < CH) in registers, loaded
 // once. With ln_w, the row is first normalised, (h - mean) * (1 / sqrt(var
 // + eps)) * ln_w + ln_b in fp32; then scales[m] = max(absmax, 1e-8) / 127
-// and codes = clip(rint(h / s)).
-template <typename T, int CH>
-static __global__ void rowq_kernel(const T* __restrict__ in, int M, int K,
+// and codes = clip(rint(h / s)). The LayerNorm's statistics run over the
+// first n columns (NARROW: n < K, the rest zeros with zero ln_w and ln_b).
+template <typename T, int CH, bool NARROW>
+static __global__ void rowq_kernel(const T* __restrict__ in, int M, int K, int n,
                                    const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                                    float ln_eps, int8_t* __restrict__ codes,
                                    float* __restrict__ scales) {
@@ -126,7 +127,8 @@ static __global__ void rowq_kernel(const T* __restrict__ in, int M, int K,
       if (lane * 8 + j * 256 < K)
 #pragma unroll
         for (int e = 0; e < 8; ++e) s += v[j][e];
-    const float mu = __fdiv_rn(warp_sum(s), (float)K);
+    const int k = NARROW ? n : K;
+    const float mu = __fdiv_rn(warp_sum(s), (float)k);
     float q = 0.f;
 #pragma unroll
     for (int j = 0; j < CH; ++j)
@@ -134,10 +136,10 @@ static __global__ void rowq_kernel(const T* __restrict__ in, int M, int K,
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const float d = __fsub_rn(v[j][e], mu);
-          q = __fadd_rn(q, __fmul_rn(d, d));
+          if (!NARROW || lane * 8 + j * 256 + e < k) q = __fadd_rn(q, __fmul_rn(d, d));
         }
     const float rs =
-        __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(q), (float)K), ln_eps)));
+        __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(q), (float)k), ln_eps)));
 #pragma unroll
     for (int j = 0; j < CH; ++j) {
       const int c = lane * 8 + j * 256;
@@ -179,9 +181,9 @@ static __global__ void rowq_kernel(const T* __restrict__ in, int M, int K,
 constexpr int RQR_THREADS = 256;
 constexpr int RQR_WARPS = RQR_THREADS / 32;
 
-template <typename T, int CH>
+template <typename T, int CH, bool NARROW>
 static __global__ void __launch_bounds__(RQR_THREADS)
-    rowq_row_kernel(const T* __restrict__ in, int K, const float* __restrict__ ln_w,
+    rowq_row_kernel(const T* __restrict__ in, int K, int n, const float* __restrict__ ln_w,
                     const float* __restrict__ ln_b, float ln_eps, int8_t* __restrict__ codes,
                     float* __restrict__ scales) {
   __shared__ float red[RQR_WARPS];
@@ -221,7 +223,8 @@ static __global__ void __launch_bounds__(RQR_THREADS)
       if (col(j) < K)
 #pragma unroll
         for (int e = 0; e < 8; ++e) s += v[j][e];
-    const float mu = __fdiv_rn(cta_sum(s), (float)K);
+    const int k = NARROW ? n : K;
+    const float mu = __fdiv_rn(cta_sum(s), (float)k);
     float q = 0.f;
 #pragma unroll
     for (int j = 0; j < CH; ++j)
@@ -229,10 +232,10 @@ static __global__ void __launch_bounds__(RQR_THREADS)
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const float d = __fsub_rn(v[j][e], mu);
-          q = __fadd_rn(q, __fmul_rn(d, d));
+          if (!NARROW || col(j) + e < k) q = __fadd_rn(q, __fmul_rn(d, d));
         }
     const float rs =
-        __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(cta_sum(q), (float)K), ln_eps)));
+        __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(cta_sum(q), (float)k), ln_eps)));
 #pragma unroll
     for (int j = 0; j < CH; ++j) {
       const int c = col(j);
@@ -273,33 +276,40 @@ static __global__ void __launch_bounds__(RQR_THREADS)
 constexpr int ROWQ_WARP_K = 4096;
 constexpr int ROWQ_MAX_K = 16384;
 
-template <typename T>
-static cudaError_t launch_rowq(const T* in, int M, int K, const float* ln_w, const float* ln_b,
-                               float ln_eps, int8_t* codes, float* scales, cudaStream_t stream) {
-  if (M <= 0 || K <= 0 || K % 8 != 0 || K > ROWQ_MAX_K) return cudaErrorInvalidValue;
+template <typename T, bool NARROW>
+static cudaError_t launch_rowq_as(const T* in, int M, int K, int n, const float* ln_w,
+                                  const float* ln_b, float ln_eps, int8_t* codes, float* scales,
+                                  cudaStream_t stream) {
   if (K > ROWQ_WARP_K) {
-    const auto kernel = K <= 6144    ? rowq_row_kernel<T, 3>
-                        : K <= 8192  ? rowq_row_kernel<T, 4>
-                        : K <= 12288 ? rowq_row_kernel<T, 6>
-                                     : rowq_row_kernel<T, 8>;
-    kernel<<<M, RQR_THREADS, 0, stream>>>(in, K, ln_w, ln_b, ln_eps, codes, scales);
+    const auto kernel = K <= 6144    ? rowq_row_kernel<T, 3, NARROW>
+                        : K <= 8192  ? rowq_row_kernel<T, 4, NARROW>
+                        : K <= 12288 ? rowq_row_kernel<T, 6, NARROW>
+                                     : rowq_row_kernel<T, 8, NARROW>;
+    kernel<<<M, RQR_THREADS, 0, stream>>>(in, K, n, ln_w, ln_b, ln_eps, codes, scales);
     const cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++rowq_row_launches;
     return err;
   }
   constexpr int rows_per_cta = 8;
   const dim3 grid((M + rows_per_cta - 1) / rows_per_cta), block(32 * rows_per_cta);
-  if (K <= 512)
-    rowq_kernel<T, 2><<<grid, block, 0, stream>>>(in, M, K, ln_w, ln_b, ln_eps, codes, scales);
-  else if (K <= 768)
-    rowq_kernel<T, 3><<<grid, block, 0, stream>>>(in, M, K, ln_w, ln_b, ln_eps, codes, scales);
-  else if (K <= 1536)
-    rowq_kernel<T, 6><<<grid, block, 0, stream>>>(in, M, K, ln_w, ln_b, ln_eps, codes, scales);
-  else if (K <= 3072)
-    rowq_kernel<T, 12><<<grid, block, 0, stream>>>(in, M, K, ln_w, ln_b, ln_eps, codes, scales);
-  else
-    rowq_kernel<T, 16><<<grid, block, 0, stream>>>(in, M, K, ln_w, ln_b, ln_eps, codes, scales);
+  const auto kernel = K <= 512    ? rowq_kernel<T, 2, NARROW>
+                      : K <= 768  ? rowq_kernel<T, 3, NARROW>
+                      : K <= 1536 ? rowq_kernel<T, 6, NARROW>
+                      : K <= 3072 ? rowq_kernel<T, 12, NARROW>
+                                  : rowq_kernel<T, 16, NARROW>;
+  kernel<<<grid, block, 0, stream>>>(in, M, K, n, ln_w, ln_b, ln_eps, codes, scales);
   return cudaGetLastError();
+}
+
+// With a LayerNorm, its statistics over ln_width(K) columns (the rows' zero
+// columns past it left out).
+template <typename T>
+static cudaError_t launch_rowq(const T* in, int M, int K, const float* ln_w, const float* ln_b,
+                               float ln_eps, int8_t* codes, float* scales, cudaStream_t stream) {
+  if (M <= 0 || K <= 0 || K % 8 != 0 || K > ROWQ_MAX_K) return cudaErrorInvalidValue;
+  const int n = ln_w ? ln_width(K) : K;
+  return n == K ? launch_rowq_as<T, false>(in, M, K, n, ln_w, ln_b, ln_eps, codes, scales, stream)
+                : launch_rowq_as<T, true>(in, M, K, n, ln_w, ln_b, ln_eps, codes, scales, stream);
 }
 
 }  // namespace d2s
@@ -316,16 +326,19 @@ using d2s::bf16;
 // Requires C == d * H (d at most 256: block.cu's cores), C % 16 == 0,
 // hidden % 16 == 0, C and hidden <= d2s_rowq_max_width() (ROWQ_MAX_K),
 // N up to hd_max_tokens (attention_hd.cuh), 16-byte aligned pointers.
+// ln_c: the LayerNorms' width, C or less where the rows end in zero
+// columns (d2s::LnWidth).
 extern "C" int d2s_block_int8_forward(
     const void* x, void* out, void* qkv_buf, void* attn_buf, void* mid_buf, void* act_buf,
     void* aq1, void* aq2, void* aq3, void* aq4, void* rs1, void* rs2, void* rs3, void* rs4,
     const void* ln1_w, const void* ln1_b, const void* wqkv_q, const void* sqkv, const void* bqkv,
     const void* wproj_q, const void* sproj, const void* bproj, const void* ln2_w,
     const void* ln2_b, const void* w1_q, const void* s1, const void* b1, const void* w2_q,
-    const void* s2, const void* b2, int B, int N, int C, int H, int hidden, float scale,
-    float ln_eps, void* stream) {
+    const void* s2, const void* b2, int B, int N, int C, int H, int hidden, int ln_c,
+    float scale, float ln_eps, void* stream) {
   if (!d2s::head_width_ok(C, H) || C % 16 != 0 || hidden % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  const d2s::LnWidth scope(ln_c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -419,10 +432,13 @@ extern "C" long long d2s_quant_launches(int which, long long value) {
 // The row quantization alone (launch_rowq, the int8 block's stages 1, 4, 6
 // and 8): in (M, K) bf16 (fp32 = 0) or fp32 (fp32 = 1); with ln_w and ln_b
 // (K) fp32 each row first normalised by its own LayerNorm (ln_eps), else
-// both null; codes (M, K) int8 and scales (M) fp32 out. Requires K a
-// multiple of 8 up to d2s_rowq_max_width(), 16-byte aligned pointers.
+// both null; codes (M, K) int8 and scales (M) fp32 out; ln_k: the
+// LayerNorm's width, K or less where the rows end in zero columns. Requires
+// K a multiple of 8 up to d2s_rowq_max_width(), 16-byte aligned pointers.
 extern "C" int d2s_rowq(const void* in, int fp32, const void* ln_w, const void* ln_b,
-                        float ln_eps, void* codes, void* scales, int M, int K, void* stream) {
+                        float ln_eps, void* codes, void* scales, int M, int K, int ln_k,
+                        void* stream) {
+  const d2s::LnWidth scope(ln_k);
   const float* w = static_cast<const float*>(ln_w);
   const float* b = static_cast<const float*>(ln_b);
   if ((w == nullptr) != (b == nullptr)) return (int)cudaErrorInvalidValue;

@@ -34,31 +34,31 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "d2s_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "d2s_scatter_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "d2s_block_forward": [_P] * 25 + [_I] * 5 + [_F] * 3 + [_P],
-    "d2s_block_backward": [_P] * 32 + [_I] * 5 + [_F] * 3 + [_P],
+    "d2s_block_forward": [_P] * 25 + [_I] * 6 + [_F] * 3 + [_P],
+    "d2s_block_backward": [_P] * 32 + [_I] * 6 + [_F] * 3 + [_P],
     "d2s_block_backward_scratch_bytes": [_I] * 6,
-    "d2s_block_int8_forward": [_P] * 30 + [_I] * 5 + [_F] * 2 + [_P],
+    "d2s_block_int8_forward": [_P] * 30 + [_I] * 6 + [_F] * 2 + [_P],
     "d2s_attention_packed_forward": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "d2s_attention_packed_backward": [_P, _L, _I] + [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
     "d2s_attention_bwd_part_floats": [_I] * 6,
     "d2s_attention_max_tokens": [_I] * 3,
-    "d2s_mlp_residual_forward": [_P] * 10 + [_I] * 3 + [_F, _P],
-    "d2s_mlp_residual_backward": [_P] * 15 + [_I] * 3 + [_F, _P],
+    "d2s_mlp_residual_forward": [_P] * 10 + [_I] * 4 + [_F, _P],
+    "d2s_mlp_residual_backward": [_P] * 15 + [_I] * 4 + [_F, _P],
     "d2s_mlp_residual_backward_scratch_bytes": [_I] * 3,
-    "d2s_attention_block_forward": [_P] * 14 + [_I] * 4 + [_F] * 3 + [_P],
-    "d2s_attention_block_backward": [_P] * 17 + [_I] * 4 + [_F] * 3 + [_P],
+    "d2s_attention_block_forward": [_P] * 14 + [_I] * 5 + [_F] * 3 + [_P],
+    "d2s_attention_block_backward": [_P] * 17 + [_I] * 5 + [_F] * 3 + [_P],
     "d2s_attention_block_backward_scratch_bytes": [_I] * 5,
     "d2s_attention_variant_forward": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],
     "d2s_attention_variant_supported": [_I] * 3,
-    "d2s_ln_gemm": [_P, _I, _L, _P, _I, _P, _P, _P, _F, _P, _P, _P, _I, _P, _P, _P, _P]
+    "d2s_ln_gemm": [_P, _I, _L, _P, _I, _P, _P, _P, _F, _I, _P, _P, _P, _I, _P, _P, _P, _P]
                    + [_I] * 4 + [_P],
     "d2s_wgrad": [_P] * 5 + [_I] * 3 + [_P],
     "d2s_qgemm": [_P] * 9 + [_I] * 4 + [_P],
-    "d2s_rowq": [_P, _I, _P, _P, _F, _P, _P, _I, _I, _P],
+    "d2s_rowq": [_P, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P],
     "d2s_rowq_max_width": [],
     "d2s_quant_launches": [_I, _L],
     "d2s_wgrad_workspace_bytes": [_I] * 3,
-    "d2s_ln_backward": [_P] * 11 + [_I] * 2 + [_P],
+    "d2s_ln_backward": [_P] * 11 + [_I] * 3 + [_P],
     "d2s_ln_backward_workspace_bytes": [_I] * 2,
     "d2s_ln_backward_max_width": [],
     "d2s_column_sums": [_P, _I, _P, _P, _I, _I, _P],

@@ -57,12 +57,11 @@ from __future__ import annotations
 
 import torch
 
-from dense2sparse_vit_torch.ops import _cuda
+from dense2sparse_vit_torch.ops import _cuda, rowpad
 from dense2sparse_vit_torch.ops.block import (
     HEAD_DIM,
     _policy_arg,
     attention_reference,
-    check_row_bytes,
     check_tokens,
     head_width,
     layer_norm,
@@ -118,6 +117,14 @@ def _qkv_arg(qkv, num_heads, what, *, policy=False, backward=False):
     return B, N, C, sb, sn
 
 
+def _head_layout(qkv, num_heads, what):
+    """`ops.rowpad`'s layout for a packed qkv whose C = 3C / 3 is no
+    multiple of 8 (its rows no 16-byte multiple), else None."""
+    C = qkv.shape[2] // 3
+    head_width(C, num_heads, what)
+    return rowpad.block_layout(C, num_heads)
+
+
 def _default_scale(qkv, num_heads, scale):
     if qkv.dim() != 3:
         raise ValueError(f"expected qkv (B, N, 3C), got {tuple(qkv.shape)}")
@@ -138,6 +145,14 @@ def fused_attention_packed(qkv: torch.Tensor, num_heads: int, policy: torch.Tens
         kw = {} if policy is None else {"policy": policy, "eps": eps}
         return attention_reference(qkv, num_heads, scale, return_cls=return_cls, **kw)
     what = "fused_attention_packed"
+    L = _head_layout(qkv, num_heads, what)
+    if L is not None:  # heads of dp columns (ops.rowpad)
+        got = rowpad.count(what, fused_attention_packed(
+            rowpad.pad(qkv, L, "qkv"), num_heads, policy, scale=scale, eps=eps,
+            return_cls=return_cls))
+        if return_cls:
+            return rowpad.unpad(got[0], L, "heads"), got[1]
+        return rowpad.unpad(got, L, "heads")
     B, N, C, sb, sn = _qkv_arg(qkv, num_heads, what, policy=policy is not None)
     dev = qkv.device
     pol = _policy_arg(policy, qkv, what)
@@ -176,6 +191,14 @@ def fused_attention_backward_packed(qkv: torch.Tensor, g: torch.Tensor, num_head
                                                   gcls=gcls, eps=eps, policy_grad=policy_grad)
         return dqkv if policy is None else (dqkv, dpol)
     what = "fused_attention_backward_packed"
+    L = _head_layout(qkv, num_heads, what)
+    if L is not None:  # heads of dp columns (ops.rowpad)
+        got = rowpad.count(what, fused_attention_backward_packed(
+            rowpad.pad(qkv, L, "qkv"), rowpad.pad(g, L, "heads"), num_heads, policy=policy,
+            gcls=gcls, scale=scale, eps=eps, policy_grad=policy_grad))
+        if policy is None:
+            return rowpad.unpad(got, L, "qkv")
+        return rowpad.unpad(got[0], L, "qkv"), got[1]
     B, N, C, sb, sn = _qkv_arg(qkv, num_heads, what, policy=policy is not None, backward=True)
     dev, f32 = qkv.device, torch.float32
     pol = _policy_arg(policy, qkv, what)
@@ -355,7 +378,6 @@ def _half_block_ptrs(x, weights, num_heads, what, *, policy=False, backward=Fals
     that order, their dtypes and shapes)."""
     B, N, C = x.shape
     d = head_width(C, num_heads, what)
-    check_row_bytes(C, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
     check_tokens(N, d, what, policy=policy, backward=backward)
@@ -398,6 +420,26 @@ def fused_attention_block(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tenso
     what = "fused_attention_block"
     _refuse_autograd((x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, policy), what)
     weights = dict(zip(ATTN_BLOCK_KEYS, (ln_w, ln_b, wqkv, bqkv, wproj, bproj)))
+    head_width(x.shape[2], num_heads, what)
+    L = rowpad.block_layout(x.shape[2], num_heads)
+    if L is None:
+        out, cls, st = _half_block_forward(x, weights, num_heads, policy, scale, eps, ln_eps,
+                                           x.shape[2], return_cls, what)
+    else:  # rows and heads padded (ops.rowpad)
+        out, cls, st = rowpad.count(what, _half_block_forward(
+            rowpad.pad(x, L, "C"), rowpad.pad_weights(weights, L), num_heads, policy, scale, eps,
+            ln_eps, L.C, return_cls, what))
+        out, st = rowpad.unpad(out, L, "C"), rowpad.unpad_stages(st, L)
+    result = (out,) + (() if cls is None else (cls,))
+    if stages:
+        result += (st,)
+    return result if len(result) > 1 else out
+
+
+def _half_block_forward(x, weights, num_heads, policy, scale, eps, ln_eps, ln_c, return_cls,
+                        what):
+    """One d2s_attention_block_forward call at widths the kernels take:
+    (out, CLS rows or None, {"qkv", "attn"})."""
     B, N, C, x_ptr, ptrs, _ = _half_block_ptrs(x, weights, num_heads, what,
                                                policy=policy is not None)
     dev = x.device
@@ -410,14 +452,11 @@ def fused_attention_block(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tenso
     err = _cuda.library().d2s_attention_block_forward(
         x_ptr, out.data_ptr(), qkv.data_ptr(), attn.data_ptr(), stats.data_ptr(), *ptrs, 0,
         0 if cls is None else cls.data_ptr(),
-        _cuda.ptr(pol, "policy", dev, torch.float32, (B, N)), B, N, C, num_heads, float(scale),
-        float(ln_eps), float(eps), _cuda.stream_handle(dev))
+        _cuda.ptr(pol, "policy", dev, torch.float32, (B, N)), B, N, C, num_heads, ln_c,
+        float(scale), float(ln_eps), float(eps), _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_attention_block_forward")
     fused_attention_block.launches += 1
-    result = (out,) + (() if cls is None else (cls,))
-    if stages:
-        result += ({"qkv": qkv, "attn": attn},)
-    return result if len(result) > 1 else out
+    return out, cls, {"qkv": qkv, "attn": attn}
 
 
 def _attention_block_backward(x, g, weights, num_heads, policy, scale, eps, ln_eps,
@@ -430,6 +469,21 @@ def _attention_block_backward(x, g, weights, num_heads, policy, scale, eps, ln_e
         return attention_block_backward_reference(x, g, *w5, num_heads, policy=policy,
                                                   scale=scale, eps=eps, ln_eps=ln_eps,
                                                   policy_grad=policy_grad)
+    head_width(x.shape[2], num_heads, what)
+    L = rowpad.block_layout(x.shape[2], num_heads)
+    if L is None:
+        return _half_block_backward(x, g, weights, num_heads, policy, scale, eps, ln_eps,
+                                    policy_grad, x.shape[2], what)
+    # rows and heads padded (ops.rowpad)
+    dx, dw, dpol = rowpad.count(what, _half_block_backward(
+        rowpad.pad(x, L, "C"), rowpad.pad(g, L, "C"), rowpad.pad_weights(weights, L), num_heads,
+        policy, scale, eps, ln_eps, policy_grad, L.C, what))
+    return rowpad.unpad(dx, L, "C"), rowpad.unpad_weights(dw, L), dpol
+
+
+def _half_block_backward(x, g, weights, num_heads, policy, scale, eps, ln_eps, policy_grad,
+                         ln_c, what):
+    """One d2s_attention_block_backward call at widths the kernels take."""
     B, N, C, x_ptr, ptrs, shapes = _half_block_ptrs(x, weights, num_heads, what,
                                                     policy=policy is not None, backward=True)
     dev, f32 = x.device, torch.float32
@@ -450,7 +504,7 @@ def _attention_block_backward(x, g, weights, num_heads, policy, scale, eps, ln_e
         x_ptr, g_ptr, dx.data_ptr(), *ptrs[:5],
         *(0 if dw[k] is None else dw[k].data_ptr() for k in ATTN_BLOCK_KEYS),
         _cuda.ptr(pol, "policy", dev, f32, (B, N)), 0 if dpol is None else dpol.data_ptr(),
-        scratch.data_ptr(), B, N, C, num_heads, float(scale), float(ln_eps), float(eps),
+        scratch.data_ptr(), B, N, C, num_heads, ln_c, float(scale), float(ln_eps), float(eps),
         _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_attention_block_backward")
     if policy is None:

@@ -53,7 +53,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from dense2sparse_vit_torch.ops import _cuda
+from dense2sparse_vit_torch.ops import _cuda, rowpad
 from dense2sparse_vit_torch.ops.masked_softmax import softmax_with_policy
 from dense2sparse_vit_torch.ops.norm import check_ln_width
 
@@ -131,10 +131,18 @@ def lse_is_float4(N: int, d: int, policy: bool) -> bool:
     return policy or d != HEAD_DIM or N > SHORT_TOKENS
 
 
-def layer_norm(x, weight, bias, eps):
-    """LayerNorm with fp32 statistics and affine; result in x.dtype."""
+def layer_norm(x, weight, bias, eps, width=None):
+    """LayerNorm with fp32 statistics and affine; result in x.dtype. With
+    `width` (less than x's), the statistics and the affine over the first
+    `width` columns and zeros past them: what the kernels compute on rows
+    padded with zero columns (`ops.rowpad`), whose LayerNorm parameters are
+    zero there."""
+    n = x.shape[-1]
+    if width is not None and width < n:
+        y = layer_norm(x[..., :width], weight[:width], bias[:width], eps)
+        return F.pad(y, (0, n - width))
     return F.layer_norm(
-        x.float(), (x.shape[-1],), weight.float(), bias.float(), eps
+        x.float(), (n,), weight.float(), bias.float(), eps
     ).to(x.dtype)
 
 
@@ -183,11 +191,13 @@ def _residual(res, branch, s):
 
 
 def transformer_block_reference(x, w, num_heads, scale, ln_eps, *, policy=None, eps=1e-6,
-                                stages=False, return_cls=False, branch_scales=None):
+                                stages=False, return_cls=False, branch_scales=None,
+                                ln_width=None):
     """Plain torch version of the block's forward: `out`, then the CLS rows
-    with `return_cls`, then the stages dict with `stages`."""
+    with `return_cls`, then the stages dict with `stages`. `ln_width`: the
+    LayerNorms' width where x's rows end in zero columns (`layer_norm`)."""
     sa, sm = (None, None) if branch_scales is None else branch_scales
-    qkv = linear(layer_norm(x, w["ln1_w"], w["ln1_b"], ln_eps), w["wqkv"], w["bqkv"])
+    qkv = linear(layer_norm(x, w["ln1_w"], w["ln1_b"], ln_eps, ln_width), w["wqkv"], w["bqkv"])
     kw = {} if policy is None else {"policy": policy, "eps": eps}
     if return_cls:
         kw["return_cls"] = True
@@ -195,7 +205,7 @@ def transformer_block_reference(x, w, num_heads, scale, ln_eps, *, policy=None, 
     if return_cls:
         attn, cls = attn
     mid = _residual(x, linear(attn, w["wproj"], w["bproj"]), sa)
-    h = layer_norm(mid, w["ln2_w"], w["ln2_b"], ln_eps)
+    h = layer_norm(mid, w["ln2_w"], w["ln2_b"], ln_eps, ln_width)
     hid = F.gelu(linear(h, w["w1"], w["b1"]).float()).to(x.dtype)
     out = _residual(mid, linear(hid, w["w2"], w["b2"]), sm)
     result = (out,)
@@ -207,7 +217,8 @@ def transformer_block_reference(x, w, num_heads, scale, ln_eps, *, policy=None, 
 
 
 def transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps, *, policy=None,
-                                         eps=1e-6, policy_grad=True, branch_scales=None):
+                                         eps=1e-6, policy_grad=True, branch_scales=None,
+                                         ln_width=None):
     """Plain torch version of `fused_transformer_block_backward`: autograd
     through `transformer_block_reference`. Returns (dx in x.dtype, grads in
     fp32 keyed like `w` with None for a None weight, dPolicy in fp32 or
@@ -223,7 +234,7 @@ def transformer_block_backward_reference(x, g, w, num_heads, scale, ln_eps, *, p
             pol = policy.detach().float().clone().requires_grad_(policy_grad)
         scales = None if branch_scales is None else tuple(t.detach() for t in branch_scales)
         out = transformer_block_reference(xs, ws, num_heads, scale, ln_eps, policy=pol, eps=eps,
-                                          branch_scales=scales)
+                                          branch_scales=scales, ln_width=ln_width)
         keys = [k for k in BLOCK_WEIGHT_KEYS if ws[k] is not None]
         inputs = [xs] + [ws[k] for k in keys]
         if pol is not None and policy_grad:
@@ -247,30 +258,20 @@ def head_width(C: int, num_heads: int, what: str) -> int:
     return d
 
 
-def check_row_bytes(C: int, what: str) -> None:
-    """ValueError where C is no multiple of 8: the block entries' GEMMs
-    (TMA) and LayerNorm take token rows whose bytes are a multiple of 16."""
-    if C % 8:
-        raise ValueError(f"{what}: C={C}: the kernels take C a multiple of 8 (rows of 16-byte "
-                         "multiples)")
-
-
 def _kernel_args(x, w, num_heads, what, *, policy=False, backward=False):
-    """Checks shared by the kernel wrappers (`check_tokens` in the mode and
-    direction given, and the backward's LayerNorm width); returns (hidden,
-    the weight pointers in BLOCK_WEIGHT_KEYS order, their dtypes and
-    shapes)."""
+    """Checks shared by the kernel wrappers, at the widths the kernels take
+    (`ops.rowpad`'s, where the caller's rows were padded): `check_tokens` in
+    the mode and direction given, and the backward's LayerNorm width;
+    returns (hidden, the weight pointers in BLOCK_WEIGHT_KEYS order, their
+    dtypes and shapes)."""
     B, N, C = x.shape
     d = head_width(C, num_heads, what)
-    check_row_bytes(C, what)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
     check_tokens(N, d, what, policy=policy, backward=backward)
     if backward:
         check_ln_width(C, what)
     hidden = w["w1"].shape[0]
-    if hidden % 8:
-        raise ValueError(f"{what}: hidden={hidden}: need a multiple of 8")
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     shapes = {
         "ln1_w": (f32, (C,)), "ln1_b": (f32, (C,)),
@@ -337,8 +338,37 @@ def _refuse_autograd(x, w, policy, what):
 
 def _launch_forward(x, w, num_heads, scale, ln_eps, *, policy, eps, cls, what,
                     branch_scales=None):
-    """One d2s_block_forward call: (out, stages, cls rows or None)."""
+    """One d2s_block_forward call: (out, stages, cls rows or None); rows of
+    a width the kernels do not take padded to one (`ops.rowpad`)."""
     _refuse_autograd(x, w, policy, what)
+    kw = dict(policy=policy, eps=eps, cls=cls, what=what, branch_scales=branch_scales)
+    L = rowpad.block_layout(x.shape[2], num_heads, w["w1"].shape[0])
+    if L is None:
+        return _kernel_forward(x, w, num_heads, scale, ln_eps, x.shape[2], **kw)
+    return rowpad.count(what, padded_forward(x, w, L, lambda xp, wp: _kernel_forward(
+        xp, wp, num_heads, scale, ln_eps, L.C, **kw)))
+
+
+def padded_forward(x, w, layout, kernel):
+    """The block's forward at `layout`'s padded widths: `kernel(xp, wp)` ->
+    (out, stages, cls rows or None) on the padded rows and weights, its out
+    and stages unpadded."""
+    out, st, cls = kernel(rowpad.pad(x, layout, "C"), rowpad.pad_weights(w, layout))
+    return rowpad.unpad(out, layout, "C"), rowpad.unpad_stages(st, layout), cls
+
+
+def padded_backward(x, g, w, layout, kernel):
+    """The block's backward at `layout`'s padded widths: `kernel(xp, gp,
+    wp)` -> (dx, dw, dPolicy) on the padded rows, cotangent and weights;
+    dx and every gradient unpadded, so that the pads' gradients reach no
+    parameter."""
+    dx, dw, dpol = kernel(rowpad.pad(x, layout, "C"), rowpad.pad(g, layout, "C"),
+                          rowpad.pad_weights(w, layout))
+    return rowpad.unpad(dx, layout, "C"), rowpad.unpad_weights(dw, layout), dpol
+
+
+def _kernel_forward(x, w, num_heads, scale, ln_eps, ln_c, *, policy, eps, cls, what,
+                    branch_scales=None):
     B, N, C = x.shape
     hidden, ptrs, _ = _kernel_args(x, w, num_heads, what, policy=policy is not None)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
@@ -358,7 +388,7 @@ def _launch_forward(x, w, num_heads, scale, ln_eps, *, policy, eps, cls, what,
         0, 0, 0 if cls_rows is None else cls_rows.data_ptr(),
         _cuda.ptr(pol, "policy", dev, f32, (B, N)),
         _cuda.ptr(sa, "sa", dev, f32, (B,)), _cuda.ptr(sm, "sm", dev, f32, (B,)),
-        B, N, C, num_heads, hidden, float(scale), float(ln_eps), float(eps),
+        B, N, C, num_heads, hidden, ln_c, float(scale), float(ln_eps), float(eps),
         _cuda.stream_handle(dev),
     )
     _cuda.check(err, "d2s_block_forward")
@@ -470,8 +500,6 @@ def fused_transformer_block(
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, stages=stages, branch_scales=branch_scales)
     head_width(C, num_heads, what)
-    if x.device.type != "cpu":
-        check_row_bytes(C, what)
     if stages:
         out, st, _ = _launch_forward(x, w, num_heads, scale, ln_eps, policy=policy, eps=eps,
                                      cls=False, what=what, branch_scales=branch_scales)
@@ -504,8 +532,6 @@ def fused_transformer_block_cls(
         return transformer_block_reference(x, w, num_heads, scale, ln_eps, policy=policy,
                                            eps=eps, return_cls=True)
     head_width(C, num_heads, "fused_transformer_block_cls")
-    if x.device.type != "cpu":
-        check_row_bytes(C, "fused_transformer_block_cls")
     _refuse_autograd(x, w, policy, "fused_transformer_block_cls")
     return torch.ops.d2s.block_forward_cls(x, _op_weights(w), w["bqkv"],
                                            _policy_arg(policy, x, "fused_transformer_block_cls"),
@@ -543,7 +569,20 @@ def fused_transformer_block_backward(
                                                     policy_grad=policy_grad,
                                                     branch_scales=branch_scales)
     what = "fused_transformer_block_backward"
-    B, N, _ = x.shape
+    kw = dict(policy=policy, eps=eps, policy_grad=policy_grad, branch_scales=branch_scales)
+    head_width(C, num_heads, what)
+    L = rowpad.block_layout(C, num_heads, w["w1"].shape[0])
+    if L is None:
+        return _kernel_backward(x, g, w, num_heads, scale, ln_eps, C, **kw)
+    return rowpad.count(what, padded_backward(x, g, w, L, lambda xp, gp, wp: _kernel_backward(
+        xp, gp, wp, num_heads, scale, ln_eps, L.C, **kw)))
+
+
+def _kernel_backward(x, g, w, num_heads, scale, ln_eps, ln_c, *, policy, eps, policy_grad,
+                     branch_scales):
+    """One d2s_block_backward call at widths the kernels take."""
+    what = "fused_transformer_block_backward"
+    B, N, C = x.shape
     hidden, ptrs, shapes = _kernel_args(x, w, num_heads, what, policy=policy is not None,
                                         backward=True)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
@@ -566,7 +605,7 @@ def fused_transformer_block_backward(
         *(0 if dw[k] is None else dw[k].data_ptr() for k in BLOCK_WEIGHT_KEYS),
         _cuda.ptr(pol, "policy", dev, f32, (B, N)), 0 if dpol is None else dpol.data_ptr(),
         _cuda.ptr(sa, "sa", dev, f32, (B,)), _cuda.ptr(sm, "sm", dev, f32, (B,)),
-        scratch.data_ptr(), B, N, C, num_heads, hidden, float(scale),
+        scratch.data_ptr(), B, N, C, num_heads, hidden, ln_c, float(scale),
         float(ln_eps), float(eps), _cuda.stream_handle(dev),
     )
     _cuda.check(err, "d2s_block_backward")

@@ -8,7 +8,10 @@ of the same file's `_fgt_bwd` (`_scatter_kernel`),
 dx[b, n] = sum_k [idx[b, k] == n] * g[b, k], summed in fp32, where repeated
 indices add up and out-of-range ones contribute nothing.
 
-For CUDA tensors both launch `csrc/gather.cu`; for CPU tensors they run
+For CUDA tensors both launch `csrc/gather.cu`, rows of any width: rows
+of 16-byte multiples in 16-byte vectors, any other row in the widest units
+that divide it (the gather) or element by element (the scatter), counted
+apart in `ops.rowpad.PADDED` as well; for CPU tensors they run
 `gather_tokens_reference` and `scatter_tokens_reference`, the plain torch
 versions of the same functions. The gather goes through the custom op
 `d2s::gather_tokens` (a `cuda` implementation that launches the kernel and
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from dense2sparse_vit_torch.ops import _cuda
+from dense2sparse_vit_torch.ops import _cuda, rowpad
 
 _SCATTER_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -63,9 +66,8 @@ def _check_pair(rows: torch.Tensor, idx: torch.Tensor, what: str) -> None:
     if not (rows.is_contiguous() and idx.is_contiguous()):
         raise ValueError(f"{what}: rows and idx must be contiguous")
     row_bytes = rows.shape[2] * rows.element_size()
-    if row_bytes % 16 or rows.data_ptr() % 16:
-        raise ValueError(
-            f"{what}: rows of {row_bytes} bytes: need a 16-byte multiple, aligned")
+    if row_bytes % 16 == 0 and rows.data_ptr() % 16:
+        raise ValueError(f"{what}: rows of {row_bytes} bytes must be 16-byte aligned")
 
 
 @torch.library.custom_op("d2s::gather_tokens", mutates_args=(), device_types="cpu")
@@ -90,6 +92,8 @@ def _launch_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )
     _cuda.check(err, "d2s_gather_rows")
     fused_gather_tokens.launches += 1
+    if (D * x.element_size()) % 16:  # the narrow path
+        rowpad.count("fused_gather_tokens")
     return out
 
 
@@ -111,6 +115,8 @@ def fused_scatter_tokens(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Te
     )
     _cuda.check(err, "d2s_scatter_rows")
     fused_scatter_tokens.launches += 1
+    if D % 8:  # the narrow path
+        rowpad.count("fused_scatter_tokens")
     return out
 
 

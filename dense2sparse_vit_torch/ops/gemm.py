@@ -20,6 +20,9 @@ version and timed at the block kernels' shapes:
 For CUDA tensors they launch `csrc/gemm.cu` (`d2s_ln_gemm`, `d2s_wgrad`);
 for CPU tensors they run `ln_gemm_reference` and `weight_grad_reference`:
 LayerNorm, then the product in fp32, then the epilogue, then one rounding.
+The engine's TMA maps take rows of 16-byte multiples; widths that are no
+multiple of 8 go to it padded with zero columns (the LayerNorm told its true
+width) and come back sliced (`ops.rowpad`).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from dense2sparse_vit_torch.ops import _cuda
+from dense2sparse_vit_torch.ops import _cuda, rowpad
 
 _ACTS = {"none": 0, "gelu": 1, "relu": 2}
 
@@ -119,8 +122,27 @@ def ln_gemm(a, w, *, w_kn=False, bias=None, ln=None, act="none", gelu_in=None,
     dev, bf16, f32 = a.device, torch.bfloat16, torch.float32
     if a.dtype != bf16:
         raise TypeError(f"ln_gemm: a has dtype {a.dtype}, the kernel takes bf16")
-    if a.data_ptr() % 16 or K % 8 or N % 8:
-        raise ValueError(f"ln_gemm: K={K}, N={N} must be multiples of 8, a 16-byte aligned")
+    Kp, Np = rowpad.aligned(K), rowpad.aligned(N)
+    if (Kp, Np) != (K, N):  # zero columns past K and N (ops.rowpad)
+        dk, dn = Kp - K, Np - N
+        padn = (lambda t: None if t is None else F.pad(t, (0, dn)))
+        wp = F.pad(w, (0, dn, 0, dk) if w_kn else (0, dk, 0, dn))
+        lnp = None if ln is None else (F.pad(ln[0], (0, dk)), F.pad(ln[1], (0, dk)), ln[2])
+        got = rowpad.count("ln_gemm", _ln_gemm(
+            F.pad(a, (0, dk)), wp, w_kn, padn(bias), lnp, K, act, padn(gelu_in), row_scale,
+            padn(residual), preact, out_f32))
+        return tuple(t[:, :N].contiguous() for t in got) if preact else got[:, :N].contiguous()
+    return _ln_gemm(a, w, w_kn, bias, ln, K, act, gelu_in, row_scale, residual, preact, out_f32)
+
+
+def _ln_gemm(a, w, w_kn, bias, ln, ln_k, act, gelu_in, row_scale, residual, preact, out_f32):
+    """One d2s_ln_gemm call at widths the engine takes."""
+    K = a.shape[-1]
+    N = w.shape[1] if w_kn else w.shape[0]
+    M = math.prod(a.shape[:-1])
+    dev, bf16, f32 = a.device, torch.bfloat16, torch.float32
+    if a.data_ptr() % 16:
+        raise ValueError("ln_gemm: a must be 16-byte aligned")
     a_rows, a_bstride = _a_layout(a, K)
     if row_scale is not None and (row_scale.dim() != 1 or M % row_scale.shape[0]):
         raise ValueError(f"ln_gemm: row_scale {tuple(row_scale.shape)} for {M} rows")
@@ -132,7 +154,7 @@ def ln_gemm(a, w, *, w_kn=False, bias=None, ln=None, act="none", gelu_in=None,
         a.data_ptr(), a_rows, a_bstride,
         _cuda.ptr(w, "w", dev, bf16, (K, N) if w_kn else (N, K)), int(w_kn),
         _cuda.ptr(bias, "bias", dev, f32, (N,)), _cuda.ptr(ln_w, "ln_w", dev, f32, (K,)),
-        _cuda.ptr(ln_b, "ln_b", dev, f32, (K,)), float(eps),
+        _cuda.ptr(ln_b, "ln_b", dev, f32, (K,)), float(eps), ln_k,
         0 if stats is None else stats.data_ptr(),
         _cuda.ptr(residual, "residual", dev, bf16, (M, N)),
         _cuda.ptr(row_scale, "row_scale", dev, f32, tuple(getattr(row_scale, "shape", ()))),
@@ -158,8 +180,13 @@ def weight_grad(p: torch.Tensor, q: torch.Tensor, bias: bool = False):
         return weight_grad_reference(p, q, bias)
     (M, I), J = p.shape, q.shape[1]
     dev, bf16 = p.device, torch.bfloat16
-    if I % 8 or J % 8:
-        raise ValueError(f"weight_grad: I={I}, J={J} must be multiples of 8")
+    Ip, Jp = rowpad.aligned(I), rowpad.aligned(J)
+    if (Ip, Jp) != (I, J):  # zero columns past I and J (ops.rowpad)
+        got = rowpad.count("weight_grad",
+                           weight_grad(F.pad(p, (0, Ip - I)), F.pad(q, (0, Jp - J)), bias))
+        if bias:
+            return got[0][:I, :J].contiguous(), got[1][:I]
+        return got[:I, :J].contiguous()
     p_ptr = _cuda.ptr(p, "p", dev, bf16, (M, I))
     q_ptr = _cuda.ptr(q, "q", dev, bf16, (M, J))
     lib = _cuda.library()

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from dense2sparse_vit_torch.ops import _cuda
+from dense2sparse_vit_torch.ops import _cuda, rowpad
 from dense2sparse_vit_torch.ops.block import layer_norm, linear
 from dense2sparse_vit_torch.ops.norm import check_ln_width
 
@@ -52,16 +52,14 @@ def mlp_residual_backward_reference(x, g, ln_w, ln_b, w1, b1, w2, eps):
 
 
 def _kernel_ptrs(x, weights, what, *, backward=False):
-    """Checks for the kernels (the backward's LayerNorm width too, with
-    `backward`); returns (M, C, hidden, the weight pointers in
+    """Checks for the kernels at the widths they take (`ops.rowpad`'s,
+    where the caller's rows were padded; the backward's LayerNorm width too,
+    with `backward`); returns (M, C, hidden, the weight pointers in
     MLP_WEIGHT_KEYS order, skipping the absent b2)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is on {x.device}: need a CUDA or CPU tensor")
     B, N, C = x.shape
     hidden = weights["w1"].shape[0]
-    if hidden % 8 or C % 8:
-        raise ValueError(f"{what}: C={C}, hidden={hidden}: the kernels take C and hidden "
-                         "multiples of 8")
     if backward:
         check_ln_width(C, what)
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
@@ -71,9 +69,25 @@ def _kernel_ptrs(x, weights, what, *, backward=False):
     return B * N, C, hidden, ptrs
 
 
+def _layout(x, w1):
+    """`ops.rowpad`'s layout for rows of C and hidden columns that are no
+    multiples of 8 (the MLP half has no heads), else None."""
+    return rowpad.block_layout(x.shape[2], 1, w1.shape[0])
+
+
 def _launch_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps):
     what = "fused_mlp_residual"
     w = dict(zip(MLP_WEIGHT_KEYS, (ln_w, ln_b, w1, b1, w2, b2)))
+    L = _layout(x, w1)
+    if L is not None:  # rows padded (ops.rowpad)
+        out = rowpad.count(what, _kernel_forward(rowpad.pad(x, L, "C"),
+                                                 rowpad.pad_weights(w, L), eps, L.C))
+        return rowpad.unpad(out, L, "C")
+    return _kernel_forward(x, w, eps, x.shape[2])
+
+
+def _kernel_forward(x, w, eps, ln_c):
+    what = "fused_mlp_residual"
     M, C, hidden, ptrs = _kernel_ptrs(x, w, what)
     dev = x.device
     x_ptr = _cuda.ptr(x, "x", dev, torch.bfloat16, tuple(x.shape))
@@ -81,7 +95,7 @@ def _launch_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps):
     hid = torch.empty((M, hidden), dtype=x.dtype, device=dev)
     stats = torch.empty((M, 2), dtype=torch.float32, device=dev)
     err = _cuda.library().d2s_mlp_residual_forward(
-        x_ptr, out.data_ptr(), hid.data_ptr(), stats.data_ptr(), *ptrs, M, C, hidden,
+        x_ptr, out.data_ptr(), hid.data_ptr(), stats.data_ptr(), *ptrs, M, C, hidden, ln_c,
         float(eps), _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_mlp_residual_forward")
     fused_mlp_residual.launches += 1
@@ -99,6 +113,17 @@ def fused_mlp_residual_backward(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Te
         return mlp_residual_backward_reference(x, g, ln_w, ln_b, w1, b1, w2, eps)
     what = "fused_mlp_residual_backward"
     w = dict(zip(MLP_WEIGHT_KEYS, (ln_w, ln_b, w1, b1, w2)))
+    L = _layout(x, w1)
+    if L is not None:  # rows padded (ops.rowpad)
+        dx, *grads = rowpad.count(what, _kernel_backward(
+            rowpad.pad(x, L, "C"), rowpad.pad(g, L, "C"), rowpad.pad_weights(w, L), eps, L.C))
+        dw = rowpad.unpad_weights(dict(zip(MLP_WEIGHT_KEYS, grads)), L)
+        return (rowpad.unpad(dx, L, "C"), *(dw[k] for k in MLP_WEIGHT_KEYS))
+    return _kernel_backward(x, g, w, eps, x.shape[2])
+
+
+def _kernel_backward(x, g, w, eps, ln_c):
+    what = "fused_mlp_residual_backward"
     M, C, hidden, ptrs = _kernel_ptrs(x, w, what, backward=True)
     dev, f32 = x.device, torch.float32
     x_ptr = _cuda.ptr(x, "x", dev, torch.bfloat16, tuple(x.shape))
@@ -113,7 +138,7 @@ def fused_mlp_residual_backward(x: torch.Tensor, g: torch.Tensor, ln_w: torch.Te
     grads.append(torch.empty((C,), dtype=f32, device=dev))  # db2
     err = lib.d2s_mlp_residual_backward(
         x_ptr, g_ptr, dx.data_ptr(), *ptrs, *(d.data_ptr() for d in grads), scratch.data_ptr(),
-        M, C, hidden, float(eps), _cuda.stream_handle(dev))
+        M, C, hidden, ln_c, float(eps), _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_mlp_residual_backward")
     fused_mlp_residual_backward.launches += 1
     return (dx, *grads)

@@ -18,12 +18,14 @@ For CUDA tensors they launch the kernels (`d2s_ln_backward`,
 `column_sums_reference`, the plain versions. `ln_stats` gives the row
 statistics the LayerNorm backward takes, as the kernels compute them.
 
-The LayerNorm backward takes every C that is a multiple of 8 up to
-`LN_BWD_MAX_C` (`ln_backward_takes`, `check_ln_width`: every backward entry
-of the block kernels checks its C with them before it touches the device).
-Rows of a multiple of 32 up to 768 values run `ln_bwd_kernel`, a row over
-the lanes of a warp; every other width `ln_bwd_row_kernel`, a row over a
-whole CTA.
+The LayerNorm backward takes every C up to `LN_BWD_MAX_C`
+(`ln_backward_takes`, `check_ln_width`: every backward entry of the block
+kernels checks its C with them before it touches the device). The kernels
+take rows of a multiple of 8 values: `ln_backward` pads any other C with
+zero columns (zero ln_w there) and tells them the true width, over which
+they take the means (`ops.rowpad`); `column_sums` pads N. Rows of a
+multiple of 32 up to 768 values run `ln_bwd_kernel`, a row over the lanes
+of a warp; every other width `ln_bwd_row_kernel`, a row over a whole CTA.
 
 The kernels count their launches where they are launched, inside the
 block backward's own entries too: `LN_BWD.launches` and
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from dense2sparse_vit_torch.ops import _cuda
+from dense2sparse_vit_torch.ops import _cuda, rowpad
 
 
 class LaunchCount:
@@ -71,17 +73,18 @@ LN_BWD_MAX_C = 2048
 
 
 def ln_backward_takes(C: int) -> bool:
-    """Whether the LayerNorm backward takes rows of C values: a multiple of
-    8 up to LN_BWD_MAX_C. Needs no card."""
-    return 0 < C <= LN_BWD_MAX_C and C % 8 == 0
+    """Whether the LayerNorm backward takes rows of C values: any C up to
+    LN_BWD_MAX_C. Needs no card."""
+    return 0 < C <= LN_BWD_MAX_C
 
 
 def check_ln_width(C: int, what: str) -> None:
     """ValueError naming the ceiling where the LayerNorm backward, which
-    every backward entry of the block kernels runs, does not take C."""
+    every backward entry of the block kernels runs, does not take C (the
+    padded width, where the entry pads its rows)."""
     if not ln_backward_takes(C):
-        raise ValueError(f"{what}: C={C}: the LayerNorm backward takes a multiple of 8 up "
-                         f"to {LN_BWD_MAX_C}")
+        raise ValueError(f"{what}: C={C}: the LayerNorm backward takes rows of at most "
+                         f"{LN_BWD_MAX_C} values")
 
 
 def ln_stats(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -112,13 +115,27 @@ def ln_backward(dy: torch.Tensor, x: torch.Tensor, stats: torch.Tensor, ln_w: to
     """(dx (M, C) bf16[, dx fp32 with `fp32_copy`], d_ln_w (C,), d_ln_b (C,))
     for dy (M, C) fp32, x (M, C) bf16, stats (M, 2) fp32 (mean, 1/std; see
     `ln_stats`), ln_w (C,) fp32 and a residual (M, C) in bf16 or fp32 (or
-    None) added to dx. The kernel takes C a multiple of 8 up to LN_BWD_MAX_C,
-    and raises on any other."""
+    None) added to dx. The kernel takes any C up to LN_BWD_MAX_C, and raises
+    on any other."""
     if x.device.type == "cpu":
         return ln_backward_reference(dy, x, stats, ln_w, residual, fp32_copy)
     what = "ln_backward"
     M, C = x.shape
     check_ln_width(C, what)
+    Cp = rowpad.aligned(C)
+    if Cp != C:  # zero columns past C, the means over C (ops.rowpad)
+        pad = torch.nn.functional.pad
+        got = rowpad.count(what, _ln_backward(
+            pad(dy, (0, Cp - C)), pad(x, (0, Cp - C)), stats, pad(ln_w, (0, Cp - C)),
+            None if residual is None else pad(residual, (0, Cp - C)), fp32_copy, C))
+        return tuple(t[..., :C].contiguous() for t in got)
+    return _ln_backward(dy, x, stats, ln_w, residual, fp32_copy, C)
+
+
+def _ln_backward(dy, x, stats, ln_w, residual, fp32_copy, ln_c):
+    """One d2s_ln_backward call at a width the kernels take."""
+    what = "ln_backward"
+    M, C = x.shape
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     lib = _cuda.library()
     nbytes = lib.d2s_ln_backward_workspace_bytes(M, C)
@@ -136,7 +153,7 @@ def ln_backward(dy: torch.Tensor, x: torch.Tensor, stats: torch.Tensor, ln_w: to
     work = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     err = lib.d2s_ln_backward(*ptrs, 0 if dx_f is None else dx_f.data_ptr(), dx.data_ptr(),
                               d_ln_w.data_ptr(), d_ln_b.data_ptr(), work.data_ptr(), M, C,
-                              _cuda.stream_handle(dev))
+                              ln_c, _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_ln_backward")
     return (dx, dx_f, d_ln_w, d_ln_b) if fp32_copy else (dx, d_ln_w, d_ln_b)
 
@@ -147,14 +164,16 @@ def column_sums_reference(a: torch.Tensor) -> torch.Tensor:
 
 
 def column_sums(a: torch.Tensor) -> torch.Tensor:
-    """(N,) fp32 column sums of a (M, N), bf16 or fp32; the kernel takes N a
-    multiple of 8."""
+    """(N,) fp32 column sums of a (M, N), bf16 or fp32 (an N that is no
+    multiple of 8 padded with zero columns, `ops.rowpad`)."""
     if a.device.type == "cpu":
         return column_sums_reference(a)
     M, N = a.shape
-    if a.dtype not in (torch.bfloat16, torch.float32) or N % 8:
-        raise ValueError(f"column_sums: {a.dtype} ({M}, {N}): the kernel takes bf16 or fp32 "
-                         "with N a multiple of 8")
+    if a.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"column_sums: {a.dtype} ({M}, {N}): the kernel takes bf16 or fp32")
+    if N % 8:
+        padded = torch.nn.functional.pad(a, (0, rowpad.aligned(N) - N))
+        return rowpad.count("column_sums", column_sums(padded)[:N])
     dev, fp32 = a.device, int(a.dtype == torch.float32)
     lib = _cuda.library()
     work = torch.empty((lib.d2s_column_sums_workspace_bytes(M, N, fp32),), dtype=torch.uint8,

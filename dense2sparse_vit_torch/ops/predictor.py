@@ -32,7 +32,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from dense2sparse_vit_torch.ops import _cuda
+from dense2sparse_vit_torch.ops import _cuda, rowpad
 from dense2sparse_vit_torch.ops.block import layer_norm, linear
 
 _ACTS = {"gelu": 1, "relu": 2}
@@ -142,7 +142,9 @@ def fused_predictor_lg(x: torch.Tensor, w: dict, eps: float = 1e-5):
 
     On the card, x's rows must be contiguous (stride(2) == 1,
     stride(1) == D); the sample stride is free, so the spatial view
-    x[:, 1:] of the residual stream is read in place.
+    x[:, 1:] of the residual stream is read in place. Widths of any size:
+    where D or a unit's input width is no multiple of 8, the kernel reads
+    a copy whose rows lie at that width rounded up to 8 (`pitched`).
     """
     if x.dim() != 3:
         raise ValueError(f"expected x (B, N, D), got {tuple(x.shape)}")
@@ -155,33 +157,52 @@ def fused_predictor_lg(x: torch.Tensor, w: dict, eps: float = 1e-5):
     return torch.ops.d2s.predictor_lg(x, _flat(w), w["n_in"], w["act"], float(eps))
 
 
+def pitched(x: torch.Tensor, w: dict):
+    """(x, w) as the kernel reads them: x's token rows, each unit's weight
+    rows and the final unit's weight at a pitch of their width rounded up
+    to 8, zeros past it (copies only where a width is no multiple of 8;
+    `csrc/predictor.cu` reads the true widths and masks the rest)."""
+    def at_pitch(t):
+        n = t.shape[-1]
+        return t if n % 8 == 0 else F.pad(t, (0, rowpad.aligned(n) - n))
+
+    units = [(lw, lb, at_pitch(weight), bias) for lw, lb, weight, bias in w["units"]]
+    flw, flb, fw, fb = w["final"]
+    return at_pitch(x), {**w, "units": units, "final": (flw, flb, at_pitch(fw), fb)}
+
+
 def _launch_predictor(x: torch.Tensor, w: dict, eps: float):
     B, N, D = x.shape
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     if x.dtype != bf16:
         raise TypeError(f"x has dtype {x.dtype}, expected {bf16}")
-    if x.stride(2) != 1 or x.stride(1) != D or x.stride(0) % 8 or x.data_ptr() % 16:
-        raise ValueError("x needs contiguous, 16-byte aligned token rows")
+    if x.stride(2) != 1 or x.stride(1) != D:
+        raise ValueError("x needs contiguous token rows")
     units, n_in, act = w["units"], w["n_in"], w["act"]
     if act not in _ACTS or not 1 <= n_in <= len(units):
         raise ValueError(f"act={act!r}, n_in={n_in} with {len(units)} units")
-    widths, ln_w, ln_b, mats, biases = [], [], [], [], []
+    widths = [weight.shape[0] for _, _, weight, _ in units]
+    narrow = any(c % 8 for c in [D] + widths)
+    if narrow:
+        x, w = pitched(x, w)
+        units = w["units"]
+    if x.stride(0) % 8 or x.data_ptr() % 16:
+        raise ValueError("x needs 16-byte aligned token rows")
+    ln_w, ln_b, mats, biases = [], [], [], []
     c_in = D
     for u, (lw, lb, weight, bias) in enumerate(units):
-        c_out = weight.shape[0]
-        if c_in % 8 or c_out % 8:
-            raise ValueError(f"unit {u}: widths {c_in}->{c_out}: need multiples of 8")
+        c_out = widths[u]
         ln_w.append(_cuda.ptr(lw, f"units[{u}].ln_w", dev, f32, (c_in,)))
         ln_b.append(_cuda.ptr(lb, f"units[{u}].ln_b", dev, f32, (c_in,)))
-        mats.append(_cuda.ptr(weight, f"units[{u}].weight", dev, bf16, (c_out, c_in)))
+        mats.append(_cuda.ptr(weight, f"units[{u}].weight", dev, bf16,
+                              (c_out, rowpad.aligned(c_in))))
         biases.append(_cuda.ptr(bias, f"units[{u}].bias", dev, f32, (c_out,)))
-        widths.append(c_out)
         c_in = c_out
     flw, flb, fw, fb = w["final"]
     final = [
         _cuda.ptr(flw, "final.ln_w", dev, f32, (c_in,)),
         _cuda.ptr(flb, "final.ln_b", dev, f32, (c_in,)),
-        _cuda.ptr(fw, "final.weight", dev, bf16, (1, c_in)),
+        _cuda.ptr(fw, "final.weight", dev, bf16, (1, rowpad.aligned(c_in))),
         _cuda.ptr(fb, "final.bias", dev, f32, (1,)),
     ]
     n = len(units)
@@ -200,6 +221,8 @@ def _launch_predictor(x: torch.Tensor, w: dict, eps: float):
     )
     _cuda.check(err, "d2s_predictor_forward")
     fused_predictor_lg.launches += 1
+    if narrow:
+        rowpad.count("fused_predictor_lg")
     return scores
 
 

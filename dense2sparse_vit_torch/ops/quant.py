@@ -46,7 +46,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
-from dense2sparse_vit_torch.ops import _cuda
+from dense2sparse_vit_torch.ops import _cuda, rowpad
 from dense2sparse_vit_torch.ops.block import attention_reference, check_tokens, head_width
 from dense2sparse_vit_torch.ops.norm import LaunchCount
 
@@ -112,24 +112,28 @@ def quantize_rows(h32: torch.Tensor):
 
 
 def row_quantize_takes(K: int) -> bool:
-    """Whether the row quantization takes rows of K values: a multiple of
-    8 up to ROW_MAX. Needs no card."""
-    return 0 < K <= ROW_MAX and K % 8 == 0
+    """Whether the row quantization takes rows of K values: any K up to
+    ROW_MAX (rows that are no multiple of 8 padded with zeros, `ops.rowpad`).
+    Needs no card."""
+    return 0 < K <= ROW_MAX
 
 
 def check_rows(C: int, hidden: int, what: str) -> None:
     """ValueError naming the ceiling where the int8 block's row
-    quantizations do not take its widths (each a multiple of 16 up to
-    ROW_MAX). Needs no card."""
-    if C % 16 or hidden % 16 or not 0 < max(C, hidden) <= ROW_MAX:
-        raise ValueError(f"{what}: C={C}, hidden={hidden}: the kernel takes C and hidden "
-                         f"multiples of 16 and rows of at most {ROW_MAX} values")
+    quantizations do not take its widths (rows of at most ROW_MAX values,
+    as the block's kernels take them: widths that are no multiple of 16
+    padded, `ops.rowpad`). Needs no card."""
+    if not 0 < max(C, hidden) <= ROW_MAX:
+        raise ValueError(f"{what}: C={C}, hidden={hidden}: the kernel takes rows of at most "
+                         f"{ROW_MAX} values")
 
 
-def row_quantize_reference(h: torch.Tensor, ln_w=None, ln_b=None, ln_eps: float = 1e-6):
+def row_quantize_reference(h: torch.Tensor, ln_w=None, ln_b=None, ln_eps: float = 1e-6,
+                           ln_width=None):
     """Plain torch version of `row_quantize`: `quantize_rows` of h in fp32,
-    normalised first by `layer_norm_f32` where ln_w is given."""
-    h32 = h.float() if ln_w is None else layer_norm_f32(h.float(), ln_w, ln_b, ln_eps)
+    normalised first by `layer_norm_f32` (over `ln_width` columns, where the
+    rows end in zeros) where ln_w is given."""
+    h32 = h.float() if ln_w is None else layer_norm_f32(h.float(), ln_w, ln_b, ln_eps, ln_width)
     q, s = quantize_rows(h32)
     return q, s[..., 0]
 
@@ -138,9 +142,10 @@ def row_quantize(h: torch.Tensor, ln_w=None, ln_b=None, ln_eps: float = 1e-6):
     """One of the int8 block's row quantizations alone: (codes (M, K) int8,
     scales (M,) fp32) of h (M, K) in bf16 or fp32, normalised first by its
     own LayerNorm (ln_w, ln_b (K,) fp32, ln_eps) where ln_w is given. A CUDA
-    tensor launches the block's row kernel (K a multiple of 8 up to
-    ROW_MAX); a CPU tensor runs `row_quantize_reference`. Launches count in
-    `row_quantize.launches`."""
+    tensor launches the block's row kernel (any K up to ROW_MAX: rows that
+    are no multiple of 8 go to it padded with zeros, the LayerNorm told
+    their width); a CPU tensor runs `row_quantize_reference`. Launches count
+    in `row_quantize.launches`."""
     if h.dim() != 2 or (ln_w is None) != (ln_b is None):
         raise ValueError(f"row_quantize: h {tuple(h.shape)} with ln_w and ln_b both or "
                          "neither: need (M, K)")
@@ -148,19 +153,27 @@ def row_quantize(h: torch.Tensor, ln_w=None, ln_b=None, ln_eps: float = 1e-6):
         return row_quantize_reference(h, ln_w, ln_b, ln_eps)
     M, K = h.shape
     if not row_quantize_takes(K):
-        raise ValueError(f"row_quantize: K={K}: the kernel takes multiples of 8 and rows of "
-                         f"at most {ROW_MAX} values")
+        raise ValueError(f"row_quantize: K={K}: the kernel takes rows of at most {ROW_MAX} "
+                         "values")
     if h.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"row_quantize: h has dtype {h.dtype}: bf16 or fp32")
+    Kp = rowpad.aligned(K)
+    if Kp != K:  # rows padded with zeros, the LayerNorm told their width
+        pad = torch.nn.functional.pad
+        h = pad(h, (0, Kp - K))
+        ln_w, ln_b = (None, None) if ln_w is None else (pad(ln_w, (0, Kp - K)),
+                                                         pad(ln_b, (0, Kp - K)))
     dev, f32 = h.device, torch.float32
-    codes = torch.empty((M, K), dtype=torch.int8, device=dev)
+    codes = torch.empty((M, Kp), dtype=torch.int8, device=dev)
     scales = torch.empty((M,), dtype=f32, device=dev)
     err = _cuda.library().d2s_rowq(
-        _cuda.ptr(h, "h", dev, h.dtype, (M, K)), int(h.dtype == f32),
-        _cuda.ptr(ln_w, "ln_w", dev, f32, (K,)), _cuda.ptr(ln_b, "ln_b", dev, f32, (K,)),
-        float(ln_eps), codes.data_ptr(), scales.data_ptr(), M, K, _cuda.stream_handle(dev))
+        _cuda.ptr(h, "h", dev, h.dtype, (M, Kp)), int(h.dtype == f32),
+        _cuda.ptr(ln_w, "ln_w", dev, f32, (Kp,)), _cuda.ptr(ln_b, "ln_b", dev, f32, (Kp,)),
+        float(ln_eps), codes.data_ptr(), scales.data_ptr(), M, Kp, K, _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_rowq")
     row_quantize.launches += 1
+    if Kp != K:
+        return rowpad.count("row_quantize", codes[:, :K].contiguous()), scales
     return codes, scales
 
 
@@ -229,14 +242,20 @@ def qgemm(codes, row_s, w_q, col_s, bias=None, residual=None, gelu=False,
     or fp32 or None, act the exact GELU of the bf16-rounded value where
     `gelu`; each operation rounded on its own, then one rounding to
     out_dtype (bf16 or fp32). A CUDA tensor launches the GEMM engine's int8
-    kernel (K a multiple of 16, N of 8); a CPU tensor runs
+    kernel (K that is no multiple of 16 and N that is no multiple of 8
+    padded with zero codes, `ops.rowpad`); a CPU tensor runs
     `qgemm_reference`. Launches count in `qgemm.launches`."""
     _qgemm_check(codes, row_s, w_q, col_s, bias, residual, out_dtype)
     if codes.device.type == "cpu":
         return qgemm_reference(codes, row_s, w_q, col_s, bias, residual, gelu, out_dtype)
     (M, K), N = codes.shape, w_q.shape[0]
-    if K % 16 or N % 8:
-        raise ValueError(f"qgemm: K={K}, N={N}: the kernel takes K % 16 == 0 and N % 8 == 0")
+    Kp, Np = rowpad.aligned(K, rowpad.INT8_QUANTUM), rowpad.aligned(N)
+    if (Kp, Np) != (K, N):  # zero codes and scales past K and N
+        pad = torch.nn.functional.pad
+        out = qgemm(pad(codes, (0, Kp - K)), row_s, pad(w_q, (0, Kp - K, 0, Np - N)),
+                    pad(col_s, (0, Np - N)), None if bias is None else pad(bias, (0, Np - N)),
+                    None if residual is None else pad(residual, (0, Np - N)), gelu, out_dtype)
+        return rowpad.count("qgemm", out[:, :N].contiguous())
     dev, i8, f32 = codes.device, torch.int8, torch.float32
     res_bf16 = residual if residual is not None and residual.dtype == torch.bfloat16 else None
     res_f32 = residual if residual is not None and residual.dtype == f32 else None
@@ -259,9 +278,15 @@ def qgemm(codes, row_s, w_q, col_s, bias=None, residual=None, gelu=False,
 qgemm.launches = 0
 
 
-def layer_norm_f32(h32: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
+def layer_norm_f32(h32: torch.Tensor, weight, bias, eps: float, width=None) -> torch.Tensor:
     """LayerNorm of fp32 rows in fp32, as the JAX block writes it: two-pass
-    mean and variance, (h - mean) * rsqrt(var + eps) * weight + bias."""
+    mean and variance, (h - mean) * rsqrt(var + eps) * weight + bias. With
+    `width` (less than the rows'), over the first `width` columns, zeros
+    past them (`ops.block.layer_norm`'s rule)."""
+    n = h32.shape[-1]
+    if width is not None and width < n:
+        y = layer_norm_f32(h32[..., :width], weight[:width], bias[:width], eps)
+        return F.pad(y, (0, n - width))
     mu = h32.mean(dim=-1, keepdim=True)
     d = h32 - mu
     var = (d * d).mean(dim=-1, keepdim=True)
@@ -269,13 +294,14 @@ def layer_norm_f32(h32: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
 
 
 def quant_block_reference(x: torch.Tensor, qw: dict, num_heads: int, scale: float,
-                          ln_eps: float, *, stages: bool = False):
+                          ln_eps: float, *, stages: bool = False, ln_width=None):
     """Plain torch version of the int8 block, (B, N, C) in the compute dtype
     -> the same. `qw`: `quantize_block_params` of the block's weights. With
     `stages`, returns (out, stages) where stages holds each quantization's
     input, codes and scales ("h1", "q1", "s1" for LN1(x), 2 for the
     attention output, 3 for LN2(x_mid), 4 for the GELU activation) and the
-    intermediates "qkv", "attn", "mid" (fp32) and "act"."""
+    intermediates "qkv", "attn", "mid" (fp32) and "act". `ln_width`: the
+    LayerNorms' width where x's rows end in zero columns (`ops.rowpad`)."""
     dtype = x.dtype
     x32 = x.float()
     st = {}
@@ -285,11 +311,11 @@ def quant_block_reference(x: torch.Tensor, qw: dict, num_heads: int, scale: floa
         st[f"h{i}"], st[f"q{i}"], st[f"s{i}"] = h32, q, s[..., 0]
         return dequantize(int_dot(q, wq), s, col_s, bias)
 
-    h1 = layer_norm_f32(x32, qw["ln1_w"], qw["ln1_b"], ln_eps)
+    h1 = layer_norm_f32(x32, qw["ln1_w"], qw["ln1_b"], ln_eps, ln_width)
     qkv = qmm(1, h1, qw["wqkv_q"], qw["sqkv"], qw["bqkv"]).to(dtype)
     attn = attention_reference(qkv, num_heads, scale)
     mid = x32 + qmm(2, attn.float(), qw["wproj_q"], qw["sproj"], qw["bproj"])
-    h3 = layer_norm_f32(mid, qw["ln2_w"], qw["ln2_b"], ln_eps)
+    h3 = layer_norm_f32(mid, qw["ln2_w"], qw["ln2_b"], ln_eps, ln_width)
     y = qmm(3, h3, qw["w1_q"], qw["s1"], qw["b1"])
     act = F.gelu(y.to(dtype).float()).to(dtype)
     out = (mid + qmm(4, act.float(), qw["w2_q"], qw["s2"], qw["b2"])).to(dtype)
@@ -314,7 +340,31 @@ def _int8_shapes(C: int, hidden: int) -> dict:
 def _launch_int8(x, qw, num_heads, scale, ln_eps, stages=False):
     """One d2s_block_int8_forward call: out, or (out, stages) with the four
     quantizations' codes "q1".."q4" and row scales "s1".."s4" and the
-    intermediates "qkv", "attn", "mid" (fp32) and "act"."""
+    intermediates "qkv", "attn", "mid" (fp32) and "act"; rows whose widths
+    are no multiples of 16 padded (`ops.rowpad`)."""
+    what = "fused_transformer_block_int8"
+    C = x.shape[2]
+    head_width(C, num_heads, what)
+    hidden = qw["w1_q"].shape[0]
+    check_rows(C, hidden, what)
+    L = rowpad.block_layout(C, num_heads, hidden, rowpad.INT8_QUANTUM)
+    if L is None:
+        return _kernel_int8(x, qw, num_heads, scale, ln_eps, C, stages)
+    return rowpad.count(what, padded_int8(x, qw, L, lambda xp, qwp: _kernel_int8(
+        xp, qwp, num_heads, scale, ln_eps, L.C, stages), stages))
+
+
+def padded_int8(x, qw, layout, kernel, stages=False):
+    """The int8 block at `layout`'s padded widths: `kernel(xp, qwp)` -> out
+    (or (out, stages)) on the padded rows and weights (zero codes, scales
+    and LayerNorm parameters in the padding), unpadded."""
+    got = kernel(rowpad.pad(x, layout, "C"), rowpad.pad_weights(qw, layout))
+    if not stages:
+        return rowpad.unpad(got, layout, "C")
+    return rowpad.unpad(got[0], layout, "C"), rowpad.unpad_stages(got[1], layout)
+
+
+def _kernel_int8(x, qw, num_heads, scale, ln_eps, ln_c, stages):
     what = "fused_transformer_block_int8"
     B, N, C = x.shape
     d = head_width(C, num_heads, what)
@@ -341,7 +391,7 @@ def _launch_int8(x, qw, num_heads, scale, ln_eps, stages=False):
     err = _cuda.library().d2s_block_int8_forward(
         x_ptr, out.data_ptr(), qkv.data_ptr(), attn.data_ptr(), mid.data_ptr(),
         act.data_ptr(), *(c.data_ptr() for c in codes), *(s.data_ptr() for s in scales),
-        *ptrs, B, N, C, num_heads, hidden, float(scale), float(ln_eps),
+        *ptrs, B, N, C, num_heads, hidden, ln_c, float(scale), float(ln_eps),
         _cuda.stream_handle(dev),
     )
     _cuda.check(err, "d2s_block_int8_forward")

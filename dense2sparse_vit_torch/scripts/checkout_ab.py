@@ -48,7 +48,11 @@ same values.
   112, 128) and the odd widths and those past 128 (d = 13, 127, 160, 256;
   left out where the checkout refuses them): the output and CLS rows in
   plain and policy mode (eps 0.1), dqkv with the CLS rows' cotangent folded
-  in, and in policy mode dPolicy.
+  in, and in policy mode dPolicy;
+- rows/<case>/<tensor>: token rows aligned and off the 16-byte rules at
+  B=8, N=197 (`row_cases`: the gather and scatter at D = 384 and 381, the
+  small predictor at D = 384, 381 and 1016, the block both ways at C = 381,
+  the int8 block at C = 1016; each left out where the checkout refuses it).
 
 `--compare` prints one JSON line per case of the first file (equal, or
 missing from the second) and a summary line, and exits 1 if any differs.
@@ -274,6 +278,52 @@ def core_cases(device, B, cases, optional=()) -> dict:
     return out
 
 
+def row_cases(device, B, N) -> dict:
+    """Token rows aligned and off the 16-byte rules, each left out where the
+    checkout refuses it (ValueError): the gather and the scatter (bf16) at D
+    = 384 and 381; the small predictor's scores at D = 384, 381 and 1016;
+    the bf16 block both ways at C = 381 (three heads of 127) and the int8
+    block's stages at C = 1016 (eight heads of 127)."""
+    from dense2sparse_vit_torch.nn.predictor import PredictorLG
+
+    out = {}
+
+    def take(name, fn):
+        try:
+            with torch.no_grad():
+                got = fn()
+        except ValueError:
+            return
+        out.update({f"rows/{name}/{k}": v if isinstance(v, str) else digest(v)
+                    for k, v in got.items() if v is not None})
+
+    gen = torch.Generator().manual_seed(38)
+    idx = torch.randint(-1, N + 1, (B, (N * 7) // 10), generator=gen).to(device)
+    for D in (384, 381):
+        x = randn(gen, (B, N, D), device)
+        take(f"gather/{D}", lambda: {"out": ops.fused_gather_tokens(x, idx)})
+        take(f"scatter/{D}", lambda: {
+            "out": ops.fused_scatter_tokens(x[:, :idx.shape[1]].contiguous(), idx, N)})
+    for D in (384, 381, 1016):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(D)
+            pred = PredictorLG(D, small_predictor=True, use_fused=True)
+        w = pred.to(device).eval().kernel_weights(torch.bfloat16)
+        x = randn(gen, (B, N, D), device)
+        take(f"pred/{D}", lambda: {"scores": ops.fused_predictor_lg(x[:, 1:], w)})
+    take("block381", lambda: block_cases(device, B, N, 381, 3))
+    blk = seeded_block(1016, 8, seed=1016, device=device)
+    x = randn(gen, (B, N, 1016), device)
+
+    def int8():
+        y, st = ops.fused_transformer_block_int8(x, blk.int8_weights(torch.bfloat16), 8,
+                                                 stages=True)
+        return {**{k: st[k] for k in ("q1", "q2", "q3", "q4", "qkv", "mid", "act")}, "out": y}
+
+    take("int8_1016", int8)
+    return out
+
+
 def _takes(C: int, H: int) -> bool:
     """Whether the checkout's kernels take head width C / H."""
     from dense2sparse_vit_torch.ops.block import head_width
@@ -303,7 +353,7 @@ def measure(device) -> dict:
         core_b = 8
     digests = {**int8_cases(device, shapes), **gemm_cases(device, rows),
                **block_cases(device, *blk), **core_cases(device, core_b, cores, new_cores),
-               **ln_cases(device, lns)}
+               **ln_cases(device, lns), **row_cases(device, core_b, 197 if rows == 1 else 13)}
     for B, N, C, H in wide:
         digests.update({k.replace("block", f"block{C // H}", 1): v
                         for k, v in block_cases(device, B, N, C, H).items()})

@@ -1176,16 +1176,26 @@ def test_backward_recomputes_the_forwards_qkv_bit_for_bit(cuda, policy, monkeypa
 
 
 def test_ln_gemm_refuses_what_the_engine_does_not_take(cuda):
-    a = torch.zeros((64, 384), device=cuda, dtype=torch.bfloat16)
-    w = torch.zeros((384, 384), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        gemm_ops.ln_gemm(a[:, :380], w[:, :380])
+    """K and N that are no multiples of 8 (380, 377) are taken, padded with
+    zero columns (`ops.rowpad`; the LayerNorm over the true K), within
+    GEMM_TOL of the plain version; a float `a` is refused, and so are
+    arguments the C entry does not take."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn((64, 384), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((384, 384), generator=gen, device=cuda) / 20).to(torch.bfloat16)
+    ln = (1 + torch.randn(380, generator=gen, device=cuda) / 10,
+          torch.randn(380, generator=gen, device=cuda) / 10, 1e-6)
+    for kw in ({}, {"ln": ln}):
+        got = gemm_ops.ln_gemm(a[:, :380], w[:377, :380], **kw)
+        want = gemm_ops.ln_gemm_reference(a[:, :380], w[:377, :380], **kw)
+        err, ref = chip_smoke.rel_err(torch, got, want)
+        assert got.shape == (64, 377) and err <= chip_smoke.GEMM_TOL * ref
     with pytest.raises(TypeError):
         gemm_ops.ln_gemm(a.float(), w)
     # the C entry itself: no output, or M not a whole number of samples
     lib = _cuda.library()
     stream = _cuda.stream_handle(cuda)
-    args = [a.data_ptr(), 64, 0, w.data_ptr(), 0, 0, 0, 0, 0.0, 0, 0, 0, 0, 0, 0]
+    args = [a.data_ptr(), 64, 0, w.data_ptr(), 0, 0, 0, 0, 0.0, 0, 0, 0, 0, 0, 0, 0]
     assert lib.d2s_ln_gemm(*args, 0, 0, 64, 384, 384, 0, stream) != 0
     args[1] = 60
     assert lib.d2s_ln_gemm(*args, a.data_ptr(), 0, 64, 384, 384, 0, stream) != 0
@@ -1341,12 +1351,14 @@ def test_int8_block_products_are_qgemm_bit_for_bit(cuda, c, heads):
 
 
 def test_qgemm_refuses_what_the_engine_does_not_take(cuda):
+    """K that is no multiple of 16 (376) and N that is no multiple of 8 (12)
+    are taken, padded with zero codes (`ops.rowpad`), bit-equal to the plain
+    version; the C entry refuses what it does not take."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     a, row_s, w, col_s, kw, _ = chip_smoke.qgemm_inputs(torch, gen, 64, 128, 384, ())
-    with pytest.raises(ValueError, match="K % 16"):
-        quant_ops.qgemm(a[:, :376].contiguous(), row_s, w[:, :376].contiguous(), col_s)
-    with pytest.raises(ValueError, match="N % 8"):
-        quant_ops.qgemm(a, row_s, w[:12].contiguous(), col_s[:12].contiguous())
+    for args in ((a[:, :376].contiguous(), row_s, w[:, :376].contiguous(), col_s),
+                 (a, row_s, w[:12].contiguous(), col_s[:12].contiguous())):
+        assert torch.equal(quant_ops.qgemm(*args), quant_ops.qgemm_reference(*args))
     # the C entry itself: both residuals, or no output
     lib = _cuda.library()
     stream = _cuda.stream_handle(cuda)
@@ -1419,12 +1431,20 @@ def test_ln_backward_gives_equal_bits_on_two_runs(cuda, m, c):
 
 @pytest.mark.parametrize("c", [12, 2056, 4096])
 def test_ln_backward_refuses_a_width_it_does_not_take(cuda, c):
-    """A width no multiple of 8, or past the ceiling, raises naming the
-    ceiling, which the library's equals; the C entry refuses it too."""
+    """A width past the ceiling raises naming it, which the library's
+    equals; the C entry refuses it too. A width that is no multiple of 8
+    (12) is taken: its rows padded, the means over 12 (`ops.rowpad`), within
+    LN_TOL of the plain version."""
     dy, x, st, ln_w, _ = _ln_inputs(cuda, 64, c, None)
     assert _cuda.library().d2s_ln_backward_max_width() == norm_ops.LN_BWD_MAX_C
     assert _cuda.library().d2s_ln_backward_workspace_bytes(64, c) == 0
-    with pytest.raises(ValueError, match=f"multiple of 8 up to {norm_ops.LN_BWD_MAX_C}"):
+    if c <= norm_ops.LN_BWD_MAX_C:
+        got = norm_ops.ln_backward(dy, x, st, ln_w, fp32_copy=True)
+        want = norm_ops.ln_backward_reference(dy, x, st, ln_w, fp32_copy=True)
+        err, ref = chip_smoke.rel_err(torch, got[1], want[1])
+        assert err <= chip_smoke.LN_TOL * ref
+        return
+    with pytest.raises(ValueError, match=f"at most {norm_ops.LN_BWD_MAX_C} values"):
         norm_ops.ln_backward(dy, x, st, ln_w)
 
 
@@ -1457,8 +1477,11 @@ def test_column_sums_kernel_against_plain(cuda, m, n, dtype):
 
 
 def test_column_sums_refuse_what_the_kernel_does_not_take(cuda):
-    with pytest.raises(ValueError, match="multiple of 8"):
-        norm_ops.column_sums(torch.zeros((16, 12), device=cuda))
+    """N = 12 is taken (zero columns past it); a float16 matrix is refused."""
+    a = _colsum_input(cuda, 16, 12, torch.float32)
+    got = norm_ops.column_sums(a)
+    assert got.shape == (12,)
+    assert ((got - a.sum(0)).abs() <= 1e-5 * a.abs().sum(0) + 1e-30).all()
     with pytest.raises(ValueError, match="bf16 or fp32"):
         norm_ops.column_sums(torch.zeros((16, 16), device=cuda, dtype=torch.float16))
 
@@ -1565,7 +1588,7 @@ def test_backward_wrappers_name_the_layernorm_ceiling(cuda):
     c, heads = norm_ops.LN_BWD_MAX_C + 32, 20
     x = torch.zeros((1, 13, c), device=cuda, dtype=torch.bfloat16)
     w = {"w1": torch.zeros((4 * c, c), device=cuda, dtype=torch.bfloat16)}
-    ceiling = f"multiple of 8 up to {norm_ops.LN_BWD_MAX_C}"
+    ceiling = f"at most {norm_ops.LN_BWD_MAX_C} values"
     with torch.no_grad():
         with pytest.raises(ValueError, match=ceiling):
             ops.fused_transformer_block_backward(x, x, w, heads)
@@ -2097,3 +2120,56 @@ def test_the_library_ceiling_is_the_wrappers_at_every_width(cuda):
                                                       backward=bool(backward))
                 assert lib.d2s_attention_max_tokens(d, policy, backward) == want, (d, policy)
                 assert want >= 577 if d <= 256 else want == 0
+
+
+# ---- token rows of every width (ops/rowpad.py, the narrow gather, scatter and predictor)
+
+
+@pytest.mark.parametrize("C,H", [(39, 3), (104, 8), (381, 3), (380, 4), (1016, 8)])
+def test_row_widths_kernels_against_plain(cuda, C, H):
+    """At widths off the 16-byte rules (odd C, C % 8 = 4, C % 16 = 8) every
+    padded or narrow route against its plain version: the gather and
+    scatter bit-equal, the block stage by stage in plain and policy mode
+    with its CLS rows and its backward (`chip_smoke.check_block`,
+    `check_block_backward`, `check_cls_stage`), the LayerNorm backward
+    (`check_ln_bwd`), the int8 block (`check_int8_block`), the small
+    predictor (`check_predictor`); each route's launches counted in
+    `ops.rowpad.PADDED` where its widths need it."""
+    from dense2sparse_vit_torch.ops import rowpad
+
+    w = chip_smoke.hd_block(torch, cuda, C, H, seed=C)
+    scale = (C // H) ** -0.5
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    x = torch.randn((2, 24, C), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((2, 24, C), generator=gen, device=cuda).to(torch.bfloat16)
+    pol = (torch.rand((2, 24), generator=gen, device=cuda) < 0.6).float()
+    pol[:, 0] = 1.0
+    idx = torch.randint(-1, 25, (2, 17), generator=gen, device=cuda)
+    rowpad.reset()
+    with torch.no_grad():
+        assert torch.equal(ops.fused_gather_tokens(x, idx), gather_tokens_reference(x, idx))
+        for rows in (x[:, :17].contiguous(), x[:, :17].float().contiguous()):
+            assert torch.equal(ops.fused_scatter_tokens(rows, idx, 24),
+                               scatter_tokens_reference(rows, idx, 24))
+        for policy in (None, pol):
+            chip_smoke.check_block(torch, x, w, H, scale, 1e-6, policy=policy)
+            chip_smoke.check_block_backward(torch, x, g, w, H, scale, 1e-6, policy=policy)
+        chip_smoke.check_cls_stage(torch, x, w, H, scale)
+        xr = x.reshape(48, C)
+        chip_smoke.check_ln_bwd(torch, (torch.randn((48, C), generator=gen, device=cuda), xr,
+                                        norm_ops.ln_stats(xr, 1e-6), w["ln1_w"],
+                                        g.reshape(48, C), False), 24, f"C={C}")
+        chip_smoke.check_int8_block(torch, x, quant_ops.quantize_block_params(w), H, scale, 1e-6)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(C)
+            pred = PredictorLG(C, small_predictor=True, use_fused=True)
+        pw = pred.to(cuda).eval().kernel_weights(torch.bfloat16)
+        chip_smoke.check_predictor(torch, x[:, 1:], pw, f"D={C}", "row_widths")
+    counts = rowpad.counts()
+    bf16_padded = C % 8 != 0
+    assert counts.get("fused_gather_tokens", 0) == int(bf16_padded)
+    assert counts.get("fused_transformer_block_backward", 0) == (2 if bf16_padded else 0)
+    assert counts.get("fused_transformer_block_int8", 0) == (1 if C % 16 else 0)
+    assert counts.get("fused_predictor_lg", 0) == (2 if any(c % 8 for c in (C, C // 2, C // 4))
+                                                   else 0)
+

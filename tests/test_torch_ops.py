@@ -313,6 +313,7 @@ def test_port_imports_no_jax():
         "dense2sparse_vit_torch.nn.t2t, dense2sparse_vit_torch.models.t2t, "
         "dense2sparse_vit_torch.scripts, dense2sparse_vit_torch.scripts.attn_variants, "
         "dense2sparse_vit_torch.scripts.kernel_sweep, dense2sparse_vit_torch.utils.profiling, "
+        "dense2sparse_vit_torch.ops.rowpad, dense2sparse_vit_torch.scripts.overfit_gate, "
         "dense2sparse_vit_torch.ops.gemm, dense2sparse_vit_torch.ops.norm, "
         "dense2sparse_vit_torch.scripts.checkout_ab, dense2sparse_vit_torch.cli, "
         "dense2sparse_vit_torch.data, dense2sparse_vit_torch.data.split, "

@@ -1738,10 +1738,11 @@ def test_hw_rows_sort_the_launches_by_width_and_parity():
 
 
 def test_the_phase_40_widths_and_models_keep_the_row_rules():
-    """Every width (a) checks has C a multiple of 8 (the block entries' and
-    the packed entries' row strides) and a ceiling of at least 577 tokens
-    both ways; the models are DeiT-B/16 with three heads of 256 and eight of
-    127 (MLP 4064), the int8 serving of the 127-wide heads at C % 16 == 0."""
+    """Every width (a) checks has C a multiple of 8 (phase 40 holds the
+    cores at aligned rows; phase 41 takes the others) and a ceiling of at
+    least 577 tokens both ways; the models are DeiT-B/16 with three heads of
+    256 and eight of 127 (MLP 4064); the 127-wide heads serve in int8 at
+    their eight heads (phase 41's model (i), C % 16 = 8, padded)."""
     from dense2sparse_vit_torch.core.config import deit_base
 
     for d, h in chip_smoke.HW_WIDTHS:
@@ -1753,8 +1754,9 @@ def test_the_phase_40_widths_and_models_keep_the_row_rules():
         cfg = deit_base().replace(**chip_smoke.hw_kwargs(name))
         assert (cfg.embed_dim // cfg.num_heads, cfg.num_heads, cfg.embed_dim,
                 int(cfg.embed_dim * cfg.mlp_ratio)) == (d, heads, c, hidden)
-    wide = chip_smoke.HW_INT8_127
-    assert wide["embed_dim"] // wide["num_heads"] == 127 and wide["embed_dim"] % 16 == 0
+    wide = chip_smoke.ROW_MODELS["heads127"]
+    assert wide["embed_dim"] // wide["num_heads"] == 127 and wide["embed_dim"] % 16 == 8
+    assert wide == chip_smoke.HW_MODELS["heads127"][0]
 
 
 @pytest.mark.parametrize("policy", [False, True])
@@ -1778,3 +1780,50 @@ def test_sdpa_backend_names_the_dispatchers_choice():
     assert chip_smoke.sdpa_backend(torch, q, q, q, 127 ** -0.5) in {
         "math", "flash_attention", "efficient_attention", "cudnn_attention", "overrideable"}
 
+
+
+def test_the_phase_41_models_break_the_rules_they_are_run_for():
+    """Phase 41's sub-rows are kernels-line rows with their sources; model
+    (ii) (C = 381) breaks every rule (odd C, 762-byte rows, hidden 1524,
+    predictor units 190 and 95), so each entry of its runs must take its
+    padded or narrow route; model (i) (C = 1016) breaks only the int8 rows'
+    rule (C % 16 = 8) and the predictor's (units 508, 254)."""
+    rows = chip_smoke.ROW_SUB_ROWS
+    assert set(rows) <= set(chip_smoke.SUB_ROWS) and set(rows) <= set(chip_smoke.SOURCES)
+    c, heads = chip_smoke.ROW_MODELS["c381"]["embed_dim"], chip_smoke.ROW_MODELS["c381"][
+        "num_heads"]
+    assert (c % 8, (4 * c) % 8, (c // 2) % 8, (c // 4) % 8) == (5, 4, 6, 7) and c // heads == 127
+    wide = chip_smoke.ROW_MODELS["heads127"]["embed_dim"]
+    assert (wide % 8, wide % 16, (wide // 2) % 8, (wide // 4) % 8) == (0, 8, 4, 6)
+    assert chip_smoke.ROW_OFF_RULES["c381"] == {e for e in rows.values() if e is not None}
+    assert chip_smoke.ROW_OFF_RULES["heads127"] == {"fused_predictor_lg",
+                                                    "fused_transformer_block_int8"}
+    for C, H in chip_smoke.ROW_CHECK_WIDTHS:
+        assert C % 8 or C % 16 and C // H <= block_ops.MAX_HEAD_DIM
+    assert {C % 16 for C, _ in chip_smoke.ROW_CHECK_WIDTHS} >= {13, 12, 8}
+
+
+def test_row_counts_take_holds_every_launch_to_its_route():
+    """A run's padded (narrow) launches must equal the entry's launches for
+    the entries off the rules at the model's widths and be 0 for the rest;
+    they go to the sub-rows, and the counts reset."""
+    from dense2sparse_vit_torch.ops import rowpad
+
+    counts = {**chip_smoke.NO_LAUNCHES, "fused_transformer_block_int8": 12,
+              "fused_predictor_lg": 3, "fused_gather_tokens": 3, "ln_bwd": 0}
+    tally = chip_smoke.Tally()
+    rowpad.reset()
+    for _ in range(12):
+        rowpad.count("fused_transformer_block_int8")
+    for _ in range(3):
+        rowpad.count("fused_predictor_lg")
+    got = chip_smoke.row_counts_take(tally, counts, "t", "heads127")
+    assert got["fused_transformer_block_int8[padded]"] == 12 and rowpad.counts() == {}
+    assert tally.rows["fused_predictor_lg[narrow]"]["launches"] == 3
+    for _ in range(3):
+        rowpad.count("fused_gather_tokens")  # 1016-wide rows are aligned: none may be narrow
+    with pytest.raises(AssertionError, match="fused_gather_tokens"):
+        chip_smoke.row_counts_take(tally, counts, "t", "heads127")
+    rowpad.reset()
+    with pytest.raises(AssertionError, match="0 of 3 fused_gather_tokens"):
+        chip_smoke.row_counts_take(tally, counts, "t", "c381")

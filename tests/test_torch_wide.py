@@ -306,8 +306,15 @@ def test_the_layernorm_backward_takes_every_multiple_of_8_up_to_its_ceiling(c):
 
 @pytest.mark.parametrize("c", [0, 12, 1284, LN_BWD_MAX_C + 8, 4096])
 def test_the_layernorm_backward_names_its_ceiling(c):
+    """Widths that are no multiple of 8 (12, 1284) are taken (their rows
+    padded, `ops.rowpad`); no width and widths past the ceiling are refused
+    with the ceiling named."""
+    if 0 < c <= LN_BWD_MAX_C:
+        assert ln_backward_takes(c)
+        check_ln_width(c, "t")
+        return
     assert not ln_backward_takes(c)
-    with pytest.raises(ValueError, match=f"t: C={c}: .* multiple of 8 up to {LN_BWD_MAX_C}"):
+    with pytest.raises(ValueError, match=f"t: C={c}: .* at most {LN_BWD_MAX_C} values"):
         check_ln_width(c, "t")
 
 
@@ -326,6 +333,12 @@ def test_the_int8_rows_are_taken_up_to_their_ceiling(rows):
 @pytest.mark.parametrize("c,hidden", [(1280, ROW_MAX + 16), (ROW_MAX + 16, 1280), (1288, 5120),
                                       (1280, 4104)])
 def test_the_int8_rows_name_their_ceiling(c, hidden):
-    assert not row_quantize_takes(ROW_MAX + 8) and not row_quantize_takes(4100)
+    """Rows past ROW_MAX are refused with the ceiling named; widths that are
+    no multiple of 16 (1288, 4104: the int8 block's former rule) are taken,
+    as are rows of any length up to the ceiling (4100)."""
+    assert not row_quantize_takes(ROW_MAX + 8) and row_quantize_takes(4100)
+    if max(c, hidden) <= ROW_MAX:
+        check_rows(c, hidden, "t")
+        return
     with pytest.raises(ValueError, match=f"rows of at most {ROW_MAX} values"):
         check_rows(c, hidden, "t")
