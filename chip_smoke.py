@@ -363,6 +363,18 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
  42. overfit_gate  `dense2sparse_vit_torch/scripts/overfit_gate.py`'s gate in
                  this process: 400 steps of the DeiT-S 3-stage student on
                  one random batch, JAX's thresholds.
+ 43. variant_widths  the attention variants v1-v3 (`ops.fused_attention_variant`)
+                 at every head width, row width and length JAX's
+                 `run_variant` takes (`phase_variant_widths`): at heads of
+                 16 (6, B=4, N=20), 12 (32), 96 (8), 64 (12; and at N = 577),
+                 127 (8, C = 1016; 3, C = 381 on the padded route) and 80
+                 (16, N = 257), at B=64-16, N = 197, DINO ViT-S/8's 3601
+                 tokens and one head of 64 at the ceiling, 45,824 tokens:
+                 each variant JAX admits (v2: an even number of heads),
+                 launched once with the counts at 0, held against its plain
+                 version (`check_variant`) and v0, timed beside them and its
+                 bound; every variant refused one token past the ceiling
+                 and at head width 128.
 The build phase fails if ptxas reports a spill in a GEMM kernel, in
 attention_bwd_kernel or in an instantiation of the head-width cores
 (attention_hd_kernel, attention_hd_bwd_kernel: each of the 16 of each
@@ -378,7 +390,8 @@ hidden 4096, each with phase 34's launches and times, the attention_hd
 pair's launches at head width 64 past 800 tokens, both ways, with phase
 38's, the LayerNorm backward past C = 768 and the int8 block at hidden
 5120, with phase 39's, the attention_hd pair at odd widths and past 128
-with phase 40's, and each padded or narrow route with phase 41's.
+with phase 40's, each padded or narrow route with phase 41's, and the
+attention variants at each of phase 43's geometries with its.
 The line before the last two is the kernels summary, then the card's name
 and power limit, then {"ok": true, "device": {...}}. Without a CUDA device
 it exits 1 at once.
@@ -509,7 +522,9 @@ NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # pair at odd head widths and at widths past 128, both ways (counted by the
 # library by padded width and parity, `d2s_attention_hd_dp_launches`); at
 # those of phase 41, each entry at widths off the 16-byte rules, on its
-# padded or narrow route (`ops.rowpad.PADDED`, ROW_SUB_ROWS)
+# padded or narrow route (`ops.rowpad.PADDED`, ROW_SUB_ROWS); at those of
+# phase 43, the attention variants at each of its geometries
+# (VARIANT_SUB_ROWS)
 SUB_ROWS = ("attention_bwd[long]", "fused_transformer_block_int8[4096]", "attention_hd[d64]",
             "attention_hd_bwd[d64]", "ln_bwd[C>768]", "fused_transformer_block_int8[>4096]",
             "attention_hd[odd]", "attention_hd_bwd[odd]", "attention_hd[d>128]",
@@ -517,7 +532,10 @@ SUB_ROWS = ("attention_bwd[long]", "fused_transformer_block_int8[4096]", "attent
             "fused_scatter_tokens[narrow]", "fused_transformer_block[padded]",
             "fused_transformer_block_cls[padded]", "fused_transformer_block_backward[padded]",
             "ln_bwd[padded]", "fused_transformer_block_int8[padded]",
-            "fused_predictor_lg[narrow]")
+            "fused_predictor_lg[narrow]", "attention_variant[d16]", "attention_variant[d12]",
+            "attention_variant[d96]", "attention_variant[d64]", "attention_variant[d127]",
+            "attention_variant[c381]", "attention_variant[d80]", "attention_variant[n3601]",
+            "attention_variant[ceiling]")
 
 
 # the longest d = 64 sequence of the width-64 cores (ops.block.SHORT_TOKENS),
@@ -658,7 +676,7 @@ SOURCES = {
         "dense2sparse_vit_torch/csrc/block_bwd.cu",
         "dense2sparse_vit_tpu/ops/pallas/attention.py:1655"),
     "attention_variant": (
-        "dense2sparse_vit_torch/csrc/attn_variants.cu",
+        "dense2sparse_vit_torch/csrc/attn_variants.cuh",
         "scripts/attn_variants.py:171"),
     "ln_bwd": (
         "dense2sparse_vit_torch/csrc/norm.cu",
@@ -729,6 +747,10 @@ SOURCES = {
     "fused_predictor_lg[narrow]": (
         "dense2sparse_vit_torch/csrc/predictor.cu",
         "dense2sparse_vit_tpu/ops/pallas/predictor.py:242"),
+    **{f"attention_variant[{g}]": (
+        "dense2sparse_vit_torch/csrc/attn_variants.cuh",
+        "scripts/attn_variants.py:171")
+       for g in ("d16", "d12", "d96", "d64", "d127", "c381", "d80", "n3601", "ceiling")},
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -740,7 +762,7 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations
 # with fc1's column scales; (ln_gemm.cuh) the DropPath branch scales ignored
 # in the residual epilogue; (block_bwd.cu, attn_block) the attention
 # half-block's dx without the residual cotangent g on row 0 of each sample;
-# (attn_variants.cu) v2 recovering head b's scores as (S+ + S-) / 2, head a's;
+# (attn_variants.cuh) v2 recovering head b's scores as (S+ + S-) / 2, head a's;
 # (block.cu, attn_core) pass 2 of the attention core stopping one 16-key block
 # short of N; (gather.cu) the scatter leaving out each row's last source;
 # (ln_gemm.cuh, gemm) the GEMM's consumers skipping the last K slice's
@@ -769,7 +791,7 @@ FAULTS = {
                    "                  cudaMemcpyDeviceToDevice, st);\n"
                    "  cudaMemset2DAsync(s.dattn, (size_t)N * C * sizeof(bf16), 0,\n"
                    "                    (size_t)C * sizeof(bf16), B, st);\n", "'dx'"),
-    "variant": ("attn_variants.cu", "sd[j][e] = 0.5f * (sum - dif);  // head b's",
+    "variant": ("attn_variants.cuh", "sd[j][e] = 0.5f * (sum - dif);  // head b's",
                 "sd[j][e] = 0.5f * (sum + dif);  // head b's", "v2 "),
     "attn_core": ("block.cu", "k0 < np; k0 += 16", "k0 < np - 16; k0 += 16", "attn"),
     "scatter": ("gather.cu", "k <= last; ++k", "k < last; ++k", "scatter"),
@@ -3458,7 +3480,7 @@ def phase_kernel_sweep(torch, dev, tally, smi, plain):
             tally.add(name, r["launches"], r["ms"], *plain[name, r["N"]])
 
 
-def check_variant(torch, v, x, params, num_heads):
+def check_variant(torch, v, x, params, num_heads, phase="attn_variants"):
     """Hold variant v's half-block kernel against its plain version, stage by
     stage: qkv and the attention core (v2: the head-pair algebra, fed the
     kernel's qkv) within STAGE_TOL, out beyond the bf16 rounding of the sum
@@ -3481,7 +3503,7 @@ def check_variant(torch, v, x, params, num_heads):
     rel["out"] = (branch_excess(y, x, st["attn"], wproj, bproj), BRANCH_TOL)
     err, ref = rel_err(torch, y, attention_variant_reference(v, x, *params, num_heads))
     rel["block"] = (err / ref, BLOCK_TOL)
-    emit({"phase": "attn_variants", "variant": v, "shape": list(x.shape), "max_abs_err": err,
+    emit({"phase": phase, "variant": v, "shape": list(x.shape), "max_abs_err": err,
           "rel_err": {k: r for k, (r, _) in rel.items()},
           "tol_rel": {k: t for k, (_, t) in rel.items()}})
     bad = {k: r for k, (r, t) in rel.items() if not r <= t}
@@ -8792,6 +8814,174 @@ def plant_overfit_fault(torch, dev, smi) -> int:
     return 1
 
 
+# ---- phase 43: the attention variants at every width -------------------------------
+
+# (sub-row, d, H, B, N): the geometries phase 43 holds the variants at, each
+# with every variant JAX's run_variant admits (v2: an even number of heads):
+# the JAX script's own CPU shape, t2t_vit_14_resnext's heads of 12,
+# vit_small_patch16_224's of 96, DeiT-B at 224 and 384 px, eight heads of 127
+# (C = 1016), three of 127 (C = 381: rows off 16 bytes, the padded route),
+# ViT-H/14, DINO ViT-S/8 at 480 px, and the ceiling: one head of 64 at
+# `ops.block.attention_max_tokens(64)` tokens (VARIANT_CEILING, checked there)
+VARIANT_CEILING = 45824
+VARIANT_GEOMETRIES = (
+    ("attention_variant[d16]", 16, 6, 4, 20),
+    ("attention_variant[d12]", 12, 32, 64, 197),
+    ("attention_variant[d96]", 96, 8, 64, 197),
+    ("attention_variant[d64]", 64, 12, 64, 197),
+    ("attention_variant[d64]", 64, 12, 16, 577),
+    ("attention_variant[d127]", 127, 8, 64, 197),
+    ("attention_variant[c381]", 127, 3, 64, 197),
+    ("attention_variant[d80]", 80, 16, 32, 257),
+    ("attention_variant[n3601]", 64, 6, 2, 3601),
+    ("attention_variant[ceiling]", 64, 1, 1, VARIANT_CEILING),
+)
+VARIANT_SUB_ROWS = tuple(dict.fromkeys(g[0] for g in VARIANT_GEOMETRIES))
+
+
+def variant_ids(H: int) -> tuple:
+    """The variants JAX's run_variant takes at H heads: v2 pairs them."""
+    return (1, 2, 3) if H % 2 == 0 else (1, 3)
+
+
+def variant_refusals(torch, dev) -> dict:
+    """Every variant raises a ValueError naming the limit one token past the
+    ceiling (VARIANT_CEILING) and at head width 128 (naming 127); returns
+    the messages."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.scripts import attn_variants as av
+
+    got = {}
+    for v in (1, 2, 3):
+        for label, (n, C, H), limit in (("tokens", (VARIANT_CEILING + 1, 64, 1), VARIANT_CEILING),
+                                        ("width", (13, 256, 2), 127)):
+            x = torch.zeros((1, n, C), device=dev, dtype=torch.bfloat16)
+            try:
+                with torch.inference_mode():
+                    ops.fused_attention_variant(v, x, *av.make_params(C, dev), H)
+            except ValueError as e:
+                if f"1 to {limit}" not in str(e):
+                    raise AssertionError(f"variant_widths: v{v} past the {label} ceiling: "
+                                         f"{e}") from e
+                got[f"v{v}/{label}"] = str(e)
+                continue
+            raise AssertionError(f"variant_widths: v{v} took {n} tokens at C={C}, {H} heads")
+    return got
+
+
+def check_variant_rule() -> int:
+    """The library's d2s_attention_variant_supported against the wrappers'
+    rule (`ops.attention.attention_variant_supported`) at every head width
+    from 1 to 129, at N = 0, 1 and each width's ceiling and one past it;
+    returns the cases held."""
+    from dense2sparse_vit_torch.ops import _cuda
+    from dense2sparse_vit_torch.ops.attention import attention_variant_supported
+    from dense2sparse_vit_torch.ops.block import attention_max_tokens
+
+    lib, cases = _cuda.library(), 0
+    for d in range(1, 130):
+        limit = attention_max_tokens(d)
+        for v in (1, 2, 3):
+            for n in (0, 1, limit, limit + 1):
+                got = bool(lib.d2s_attention_variant_supported(v, n, 2, d))
+                if got != attention_variant_supported(v, n, 2, d):
+                    raise AssertionError(f"variant_widths: the library's rule says {got} at v{v}, "
+                                         f"N={n}, d={d}")
+                cases += 1
+    return cases
+
+
+def phase_variant_widths(torch, dev, tally, smi):
+    """Phase 43: the attention variants (`ops.fused_attention_variant`) at
+    every geometry of VARIANT_GEOMETRIES, seeded `hd_block` weights: each
+    admitted variant once with the launch counts at 0 (each launch counted,
+    on the padded route exactly where C % 8 != 0: `ops.rowpad.PADDED`), held
+    against its plain version (`check_variant`) and against v0
+    (`fused_attention_block`: the core within STAGE_TOL, the output within
+    BLOCK_TOL), then timed beside its plain version, v0 and its bound; the
+    refusals past the ceilings (`variant_refusals`) and the library's rule
+    against the wrappers' (`check_variant_rule`). Each geometry's
+    launches and times go into its VARIANT_SUB_ROWS row and the
+    attention_variant row."""
+    from dense2sparse_vit_torch import ops
+    from dense2sparse_vit_torch.ops import _cuda, rowpad
+    from dense2sparse_vit_torch.ops.attention import attention_variant_reference
+    from dense2sparse_vit_torch.ops.block import attention_max_tokens
+
+    t0 = time.perf_counter()
+    if attention_max_tokens(64) != VARIANT_CEILING:
+        raise AssertionError(f"variant_widths: the ceiling moved to {attention_max_tokens(64)}")
+    emit({"phase": "variant_widths", "ptxas": gemm_spills(_cuda.build_log, "variant"),
+          "registers": kernel_registers(_cuda.build_log, "variant"),
+          "rule_cases": check_variant_rule()})
+    rows = []
+    with torch.inference_mode():
+        for row, d, H, B, N in VARIANT_GEOMETRIES:
+            C = d * H
+            w = hd_block(torch, dev, C, H, seed=C + N)
+            params = [w[k] for k in HALF_BLOCK_KEYS]
+            gen = torch.Generator(device=dev).manual_seed(N)
+            x = torch.randn((B, N, C), generator=gen, device=dev).to(torch.bfloat16)
+            vs = variant_ids(H)
+            padded = rowpad.block_layout(C, H) is not None
+            ops.reset_launch_counts()
+            rowpad.reset()
+            outs = {v: ops.fused_attention_variant(v, x, *params, H, stages=True) for v in vs}
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in ops.launch_counts().items() if n}
+            n_pad = rowpad.counts().get("fused_attention_variant", 0)
+            if counts != {"attention_variant": len(vs)} or n_pad != (len(vs) if padded else 0):
+                raise AssertionError(f"variant_widths {row} N={N}: launches {counts}, padded "
+                                     f"{n_pad} (want {len(vs)}, padded {padded})")
+            base, base_st = ops.fused_attention_block(x, *params, H, stages=True)
+            vs_v0, err = {}, 0.0
+            for v, (out, st) in outs.items():
+                core = rel_err(torch, st["attn"], base_st["attn"])
+                blk = rel_err(torch, out, base)
+                vs_v0[v] = {"core": core[0] / core[1], "out": blk[0] / blk[1]}
+                if not (vs_v0[v]["core"] <= STAGE_TOL and vs_v0[v]["out"] <= BLOCK_TOL):
+                    raise AssertionError(f"attention_variant v{v} {row} N={N} against v0: "
+                                         f"{vs_v0[v]}")
+                err = max(err, check_variant(torch, v, x, params, H, phase="variant_widths"))
+            del outs, base, base_st
+            iters = 1 if N > 4000 else 5
+            ms = {v: cuda_ms(torch, lambda v=v: ops.fused_attention_variant(v, x, *params, H),
+                             iters=iters, repeats=3) for v in vs}
+            plain = {v: cuda_ms(torch, lambda v=v: attention_variant_reference(v, x, *params, H),
+                                iters=1, repeats=3) for v in vs}
+            v0_ms = cuda_ms(torch, lambda: ops.fused_attention_block(x, *params, H),
+                            iters=iters, repeats=3)
+            b = half_block_bound(B, N, C, H)
+            for name in (row, "attention_variant"):
+                tally.rows[name]["launches"] += len(vs)
+                tally.err(name, err)
+                for v in vs:
+                    tally.add(name, 1, ms[v], plain[v], b)
+            rows.append({"row": row, "d": d, "H": H, "C": C, "B": B, "N": N, "padded": padded,
+                         "launches": len(vs), "ms": ms, "plain_ms": plain, "v0_ms": v0_ms,
+                         "bound_ms": max(b.values()), "max_abs_err": err, "vs_v0": vs_v0})
+            emit({"phase": "variant_widths", **rows[-1]})
+            del x, w, params
+            torch.cuda.empty_cache()
+    refusals = variant_refusals(torch, dev)
+    for row in VARIANT_SUB_ROWS:
+        if not tally.rows[row]["launches"] > 0:
+            raise AssertionError(f"{row}: no launch on phase 43's path")
+    emit({"phase": "variant_widths", "seconds": time.perf_counter() - t0,
+          "geometries": len(rows), "refusals": refusals,
+          "sub_rows": {r: tally.rows[r]["launches"] for r in VARIANT_SUB_ROWS}, "card": smi})
+    return rows
+
+
+def kernel_registers(build_log: str, word: str) -> dict:
+    """ptxas's register line for each kernel of the build log whose name
+    holds `word`."""
+    lines = build_log.splitlines()
+    return {ln.split("Function properties for ")[1].strip(): lines[i + 2].strip()
+            for i, ln in enumerate(lines[:-2])
+            if "Function properties for " in ln and word in ln}
+
+
 def host_batch(torch, cfg, root, dev, split="val"):
     """The first LOOP_BATCH images of the loop's train or val split in the
     eval view, uint8 on the card, with their labels."""
@@ -8989,6 +9179,9 @@ def main(argv=None) -> int:
         # ---- 42. the overfit-one-batch gate ---------------------------------------------
         torch.cuda.empty_cache()
         phase_overfit_gate(torch, dev, smi)
+        # ---- 43. the attention variants at every width ----------------------------------
+        torch.cuda.empty_cache()
+        phase_variant_widths(torch, dev, tally, smi)
     finally:
         loop_tmp.cleanup()
 

@@ -163,11 +163,13 @@ __device__ __forceinline__ void hd_cp_async(void* dst, const void* src, int byte
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 
-// rows r0 .. r0 + 63 of one head's d columns (src: the head's column 0 of row
-// 0; rows ld elements apart) into a tile, zero past d and at rows from n on:
-// pieces of pb bytes (hd_piece_bytes), nthreads threads from tid; at an odd
-// d (GATHER, pb = 2) gathered instead
-template <int DP, bool GATHER>
+// rows r0 .. r0 + ROWS - 1 of one head's d columns (src: the head's column 0
+// of row 0; rows ld elements apart) into a tile, zero past d and at rows from
+// n on: pieces of pb bytes (hd_piece_bytes), nthreads threads from tid; at an
+// odd d (GATHER, pb = 2) gathered instead. ROWS (a multiple of 8): 64, a
+// block's; 16 for attn_variants.cuh's v3 query tiles, the first 16 rows of
+// the same layout
+template <int DP, bool GATHER, int ROWS = HD_BLK>
 __device__ __forceinline__ void hd_copy_tile(unsigned char* dst, const bf16* src, long long ld,
                                              int r0, int n, int d, int pb, int tid,
                                              int nthreads) {
@@ -176,7 +178,7 @@ __device__ __forceinline__ void hd_copy_tile(unsigned char* dst, const bf16* src
     // element by element and stored at once, zero past d and from row n on;
     // synchronous, so the commit groups around it stay empty
     const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
-    for (int i = tid; i < HD_TILE<DP> / 16; i += nthreads) {
+    for (int i = tid; i < ROWS * DP * 2 / 16; i += nthreads) {
       const int rr = i & 7, cm = i >> 3;
       const int r = (cm / (DP / 8)) * 8 + rr, c0 = (cm % (DP / 8)) * 8;
       const bool rok = r0 + r < n;
@@ -193,7 +195,7 @@ __device__ __forceinline__ void hd_copy_tile(unsigned char* dst, const bf16* src
     return;
   }
   const int lg = pb == 16 ? 4 : pb == 8 ? 3 : 2;  // log2 of the piece's bytes
-  const int pieces = HD_TILE<DP> >> lg;
+  const int pieces = (ROWS * DP * 2) >> lg;
   for (int i = tid; i < pieces; i += nthreads) {
     // i walks the tile's bytes in order: core matrix (row group, column
     // chunk), its row, the piece within the row's 16 bytes

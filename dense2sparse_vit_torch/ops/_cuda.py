@@ -48,8 +48,9 @@ _SIGNATURES = {
     "d2s_attention_block_forward": [_P] * 14 + [_I] * 5 + [_F] * 3 + [_P],
     "d2s_attention_block_backward": [_P] * 17 + [_I] * 5 + [_F] * 3 + [_P],
     "d2s_attention_block_backward_scratch_bytes": [_I] * 5,
-    "d2s_attention_variant_forward": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],
-    "d2s_attention_variant_supported": [_I] * 3,
+    "d2s_attention_variant_forward": [_P] * 12 + [_I] * 6 + [_F] * 2 + [_P],
+    "d2s_attention_variant_supported": [_I] * 4,
+    "d2s_attention_variant_scratch_bytes": [_I] * 5,
     "d2s_ln_gemm": [_P, _I, _L, _P, _I, _P, _P, _P, _F, _I, _P, _P, _P, _I, _P, _P, _P, _P]
                    + [_I] * 4 + [_P],
     "d2s_wgrad": [_P] * 5 + [_I] * 3 + [_P],
@@ -80,7 +81,8 @@ _RESTYPES = {"d2s_block_backward_scratch_bytes": _L, "d2s_wgrad_workspace_bytes"
              "d2s_norm_launches": _L, "d2s_quant_launches": _L,
              "d2s_attention_bwd_launches": _L,
              "d2s_attention_hd_launches": _L, "d2s_attention_hd_dp_launches": _L,
-             "d2s_predictor_scratch_bytes": _L, "d2s_attention_bwd_part_floats": _L}
+             "d2s_predictor_scratch_bytes": _L, "d2s_attention_bwd_part_floats": _L,
+             "d2s_attention_variant_scratch_bytes": _L}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

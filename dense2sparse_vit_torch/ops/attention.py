@@ -50,7 +50,9 @@ they run `attention_block_reference` and autograd through it.
 
 `fused_attention_variant` runs the half-block's inference forward with one of
 the attention cores v1-v3 of `scripts/attn_variants.py` (`csrc/
-attn_variants.cu`); `attention_variant_reference` is its plain version.
+attn_variants.cuh`), at every head width d from 1 to 127 and every N up to
+`attention_max_tokens(d)` (`attention_variant_supported`);
+`attention_variant_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -59,14 +61,15 @@ import torch
 
 from dense2sparse_vit_torch.ops import _cuda, rowpad
 from dense2sparse_vit_torch.ops.block import (
-    HEAD_DIM,
     _policy_arg,
+    attention_max_tokens,
     attention_reference,
     check_tokens,
     head_width,
     layer_norm,
     linear,
     lse_is_float4,
+    padded_forward,
 )
 from dense2sparse_vit_torch.ops.norm import LaunchCount, check_ln_width
 
@@ -302,6 +305,9 @@ def fused_attention_packed_with_cls_trainable(qkv: torch.Tensor, num_heads: int,
 
 ATTN_BLOCK_KEYS = ("ln_w", "ln_b", "wqkv", "bqkv", "wproj", "bproj")
 VARIANTS = (1, 2, 3)  # the attention cores of `fused_attention_variant`
+# the widest head the variants take: JAX's run_variant pads each head's V to
+# 128 lanes with ones columns (scripts/attn_variants.py), none at d >= 128
+VARIANT_MAX_HEAD_DIM = 127
 
 
 def _scale_of(x, num_heads, scale):
@@ -310,10 +316,10 @@ def _scale_of(x, num_heads, scale):
     return (x.shape[2] // num_heads) ** -0.5 if scale is None else scale
 
 
-def _half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, ln_eps, core, stages):
+def _half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, ln_eps, core, stages, ln_width=None):
     """x + proj(core(qkv(LN1 x))); core maps qkv to the attention output, or
-    to (output, CLS rows)."""
-    qkv = linear(layer_norm(x, ln_w, ln_b, ln_eps), wqkv, bqkv)
+    to (output, CLS rows); `ln_width` as `ops.block.layer_norm` takes it."""
+    qkv = linear(layer_norm(x, ln_w, ln_b, ln_eps, ln_width), wqkv, bqkv)
     attn = core(qkv)
     cls = None
     if isinstance(attn, tuple):
@@ -610,24 +616,51 @@ def paired_attention_reference(qkv, num_heads, scale):
 
 
 def attention_variant_reference(variant, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, *,
-                                scale=None, ln_eps=1e-6, stages=False):
+                                scale=None, ln_eps=1e-6, stages=False, ln_width=None):
     """Plain torch version of `fused_attention_variant`: the half-block whose
     attention core is v2's head-pair algebra (`paired_attention_reference`)
     for variant 2, and the exact softmax of `attention_reference` for v1 and
-    v3, which differ from it in their schedule, not their algebra."""
+    v3, which differ from it in their schedule, not their algebra.
+    `ln_width`: the LayerNorm's width where x's rows end in zero columns
+    (`ops.block.layer_norm`; the padded route's stand-in for the kernel)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant}: expected one of {VARIANTS}")
     scale = _scale_of(x, num_heads, scale)
     core = paired_attention_reference if variant == 2 else attention_reference
     return _half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, ln_eps,
-                       lambda qkv: core(qkv, num_heads, scale), stages)
+                       lambda qkv: core(qkv, num_heads, scale), stages, ln_width)
 
 
-def attention_variant_supported(variant: int, n: int, num_heads: int) -> bool:
-    """Whether the card's kernel of `variant` takes n tokens and num_heads
-    heads of 64 (v3 stages every head's scores of a 16-row query tile in
-    shared memory). Builds the kernels on first use."""
-    return bool(_cuda.library().d2s_attention_variant_supported(variant, n, num_heads))
+def attention_variant_supported(variant: int, n: int, num_heads: int, d: int) -> bool:
+    """Whether `fused_attention_variant` takes `variant` at n tokens and
+    num_heads heads of width d on the card: d from 1 to VARIANT_MAX_HEAD_DIM
+    (JAX's `run_variant` takes no wider head), n from 1 to
+    `ops.block.attention_max_tokens(d)`, the half-block's forward ceiling.
+    Needs no card; the C library's d2s_attention_variant_supported repeats
+    it."""
+    return (variant in VARIANTS and num_heads > 0 and 0 < d <= VARIANT_MAX_HEAD_DIM
+            and 0 < n <= attention_max_tokens(d))
+
+
+def check_variant_shape(variant: int, n: int, C: int, num_heads: int, what: str) -> int:
+    """The head width d = C / num_heads where `fused_attention_variant` takes
+    `variant` at n tokens; else ValueError naming the limit and its cause."""
+    if variant not in VARIANTS:
+        raise ValueError(f"{what}: variant {variant}: expected one of {VARIANTS}")
+    d = head_width(C, num_heads, what)
+    if d > VARIANT_MAX_HEAD_DIM:
+        raise ValueError(
+            f"{what}: head width {d} (C={C}, {num_heads} heads): the variants take 1 to "
+            f"{VARIANT_MAX_HEAD_DIM}, as JAX's run_variant does: it pads each head's V with "
+            "128 - d ones columns and divides by the first of them "
+            "(scripts/attn_variants.py::_variant_kernel, av), none at d >= 128")
+    limit = attention_max_tokens(d)
+    if not 0 < n <= limit:
+        raise ValueError(
+            f"{what}: v{variant} at {n} tokens of head width {d}: the variants take 1 to "
+            f"{limit}, fused_attention_block's forward ceiling at that width "
+            "(ops.block.attention_max_tokens)")
+    return d
 
 
 def fused_attention_variant(variant: int, x: torch.Tensor, ln_w: torch.Tensor,
@@ -638,8 +671,13 @@ def fused_attention_variant(variant: int, x: torch.Tensor, ln_w: torch.Tensor,
     """The half-block's inference forward (no policy, no CLS rows) with the
     attention core of `variant` in VARIANTS: 1 one pass with an online
     softmax, 2 head pairs by sum and difference, 3 two phases over all
-    heads (`csrc/attn_variants.cu`). With `stages`, (out, {"qkv", "attn"}).
-    Not differentiable. Launches count in `launches`."""
+    heads (`csrc/attn_variants.cuh`). With `stages`, (out, {"qkv", "attn"}).
+    On the card it takes every head width d from 1 to VARIANT_MAX_HEAD_DIM
+    at any C = H d (rows and heads padded by `ops.rowpad` where C is no
+    multiple of 8; such launches count in `rowpad.PADDED`) and every N up to
+    `attention_max_tokens(d)` (`attention_variant_supported`), and raises a
+    ValueError past them. Not differentiable. Launches count in
+    `launches`."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant}: expected one of {VARIANTS}")
     scale = _scale_of(x, num_heads, scale)
@@ -647,25 +685,52 @@ def fused_attention_variant(variant: int, x: torch.Tensor, ln_w: torch.Tensor,
         return attention_variant_reference(variant, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                                            num_heads, scale=scale, ln_eps=ln_eps, stages=stages)
     what = "fused_attention_variant"
-    if x.shape[2] != HEAD_DIM * num_heads:
-        raise ValueError(f"{what}: the variants take heads of {HEAD_DIM}, got "
-                         f"{x.shape[2]}/{num_heads}")
+    C = x.shape[2]
+    check_variant_shape(variant, x.shape[1], C, num_heads, what)
     _refuse_autograd((x, ln_w, ln_b, wqkv, bqkv, wproj, bproj), what)
     weights = dict(zip(ATTN_BLOCK_KEYS, (ln_w, ln_b, wqkv, bqkv, wproj, bproj)))
+    out, st, padded = variant_route(x, weights, num_heads, lambda xp, wp: _variant_forward(
+        variant, xp, wp, num_heads, scale, ln_eps, C, what))
+    if padded:
+        rowpad.count(what)
+    return (out, st) if stages else out
+
+
+def variant_route(x, weights, num_heads, kernel):
+    """The variants' forward at widths the kernels take: `kernel(xp, wp)` ->
+    (out, {"qkv", "attn"}) on x and the weights (a dict over
+    ATTN_BLOCK_KEYS) as they are, or padded by `ops.rowpad` where C is no
+    multiple of its quantum, out and the stages unpadded. Returns (out,
+    stages, whether it padded)."""
+    L = rowpad.block_layout(x.shape[2], num_heads)
+    if L is None:
+        return (*kernel(x, weights), False)
+    out, st, _ = padded_forward(x, weights, L, lambda xp, wp: (*kernel(xp, wp), None))
+    return out, st, True
+
+
+def _variant_forward(variant, x, weights, num_heads, scale, ln_eps, ln_c, what):
+    """One d2s_attention_variant_forward call at widths the kernels take:
+    (out, {"qkv", "attn"})."""
     B, N, C, x_ptr, ptrs, _ = _half_block_ptrs(x, weights, num_heads, what)
-    if not attention_variant_supported(variant, N, num_heads):
-        raise ValueError(f"{what}: v{variant} does not take N={N} with {num_heads} heads")
     dev = x.device
+    lib = _cuda.library()
+    nbytes = lib.d2s_attention_variant_scratch_bytes(variant, B, N, C, num_heads)
+    if nbytes < 0:
+        raise ValueError(f"{what}: v{variant} at shapes {(B, N, C)}, {num_heads} heads: not "
+                         "taken by the kernel")
+    work = torch.empty((nbytes,), dtype=torch.uint8, device=dev) if nbytes else None
     out = torch.empty_like(x)
     qkv = torch.empty((B, N, 3 * C), dtype=x.dtype, device=dev)
     attn = torch.empty_like(x)
     stats = torch.empty((B * N, 2), dtype=torch.float32, device=dev)
-    err = _cuda.library().d2s_attention_variant_forward(
+    err = lib.d2s_attention_variant_forward(
         x_ptr, out.data_ptr(), qkv.data_ptr(), attn.data_ptr(), stats.data_ptr(), *ptrs,
-        variant, B, N, C, num_heads, float(scale), float(ln_eps), _cuda.stream_handle(dev))
+        0 if work is None else work.data_ptr(), variant, B, N, C, num_heads, ln_c, float(scale),
+        float(ln_eps), _cuda.stream_handle(dev))
     _cuda.check(err, "d2s_attention_variant_forward")
     fused_attention_variant.launches += 1
-    return (out, {"qkv": qkv, "attn": attn}) if stages else out
+    return out, {"qkv": qkv, "attn": attn}
 
 
 fused_attention_packed.launches = 0

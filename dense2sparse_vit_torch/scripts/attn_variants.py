@@ -12,8 +12,11 @@ holds each against v0:
   v2  v1 with the heads in pairs, both heads' scores from the sum and the
       difference of two K = 128 products (JAX: head pairing for the MXU);
   v3  all heads' QK^T, then all exps, then all P V, the scores staged in
-      shared memory (JAX: two-phase); at the widths where it does not fit a
-      CTA's shared memory it is printed as skipped.
+      shared memory, or in a workspace where they outgrow it (JAX:
+      two-phase).
+
+A shape the variants do not take (`attention_variant_supported`: a head
+wider than 127, or N past the half-block's ceiling) is printed as skipped.
 
 Every variant takes the exact row-max softmax; the TPU variants'
 exp(clip(s, -30, 30)) agrees with it inside |scaled logits| <= 30, where
@@ -138,9 +141,9 @@ def main(argv=None) -> list:
             for v in variant_ids:
                 row = {"N": n, "B": batch, "variant": v, "launches": 0}
                 rows.append(row)
-                if v and on_card and not attention_variant_supported(v, n, HEADS):
+                if v and on_card and not attention_variant_supported(v, n, HEADS, c // HEADS):
                     row["skipped"] = True
-                    print(f"v{v}: skipped at N={n} (its shared memory does not fit a CTA)",
+                    print(f"v{v}: skipped at N={n} (not taken at head width {c // HEADS})",
                           flush=True)
                     continue
                 out, st = run_variant(v, x, *params, stages=True)

@@ -17,7 +17,7 @@ first on PYTHONPATH, so one copy of it measures any checkout whose entry
 points it calls (`ops.fused_transformer_block_int8` with its stages,
 `ops.gemm.ln_gemm` and `weight_grad`, `ops.fused_transformer_block` and its
 backward, `ops.fused_attention_backward_packed`, `ops.fused_predictor_lg`,
-`ops.fused_attention_packed`);
+`ops.fused_attention_packed`, `ops.fused_attention_variant`);
 run both checkouts in one call. Every input is drawn on the CPU
 from a fixed seed and then moved to the device, so two checkouts see the
 same values.
@@ -52,7 +52,11 @@ same values.
 - rows/<case>/<tensor>: token rows aligned and off the 16-byte rules at
   B=8, N=197 (`row_cases`: the gather and scatter at D = 384 and 381, the
   small predictor at D = 384, 381 and 1016, the block both ways at C = 381,
-  the int8 block at C = 1016; each left out where the checkout refuses it).
+  the int8 block at C = 1016; each left out where the checkout refuses it);
+- variants/<N>/v<k>/<stage>: the half-block's inference variants v1-v3
+  (`ops.fused_attention_variant`) at `chip_smoke.py` phase 27's shapes,
+  B=256, C=384, 6 heads, N = 197, 138, 97, 68: the stages qkv and attn,
+  and out.
 
 `--compare` prints one JSON line per case of the first file (equal, or
 missing from the second) and a summary line, and exits 1 if any differs.
@@ -324,6 +328,24 @@ def row_cases(device, B, N) -> dict:
     return out
 
 
+def variant_cases(device, B, ns, C, H) -> dict:
+    """The half-block's inference variants v1-v3 (`ops.fused_attention_variant`)
+    at B, C, H and each N of `ns`: the stages qkv and attn, and out."""
+    blk = seeded_block(C, H, seed=27, device=device)
+    w = blk.kernel_weights(torch.bfloat16)
+    w6 = [w[k] for k in ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj")]
+    out = {}
+    for N in ns:
+        x = randn(torch.Generator().manual_seed(N + 27), (B, N, C), device)
+        for v in (1, 2, 3):
+            with torch.inference_mode():
+                y, st = ops.fused_attention_variant(v, x, *w6, H, stages=True)
+            tag = f"variants/{N}/v{v}"
+            out.update({f"{tag}/qkv": digest(st["qkv"]), f"{tag}/attn": digest(st["attn"]),
+                        f"{tag}/out": digest(y)})
+    return out
+
+
 def _takes(C: int, H: int) -> bool:
     """Whether the checkout's kernels take head width C / H."""
     from dense2sparse_vit_torch.ops.block import head_width
@@ -340,6 +362,7 @@ def measure(device) -> dict:
         shapes, rows, blk = [(2, 13, 128, 2)], 2048, (2, 13, 128, 2)
         wide, cores, core_b = [(2, 13, 96, 8)], [(13, 128, 2), (13, 96, 8)], 2
         lns, new_cores = ((13, 128), (5, 96)), []
+        variants = (2, (13,), 128, 2)
     else:
         shapes = [(256, n, 384, 6) for n in (197, 138, 97, 68)] + [(16, 197, 768, 12),
                                                                     (4, 197, 1024, 16)]
@@ -351,9 +374,11 @@ def measure(device) -> dict:
         new_cores = [(n, C, H) for n in (197, 577) for C, H in ((104, 8), (1016, 8), (640, 4),
                                                                 (768, 3))]
         core_b = 8
+        variants = (256, (197, 138, 97, 68), 384, 6)
     digests = {**int8_cases(device, shapes), **gemm_cases(device, rows),
                **block_cases(device, *blk), **core_cases(device, core_b, cores, new_cores),
-               **ln_cases(device, lns), **row_cases(device, core_b, 197 if rows == 1 else 13)}
+               **ln_cases(device, lns), **row_cases(device, core_b, 197 if rows == 1 else 13),
+               **variant_cases(device, *variants)}
     for B, N, C, H in wide:
         digests.update({k.replace("block", f"block{C // H}", 1): v
                         for k, v in block_cases(device, B, N, C, H).items()})

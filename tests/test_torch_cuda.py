@@ -30,7 +30,7 @@ from dense2sparse_vit_torch.nn.layers import Block
 from dense2sparse_vit_torch.nn.predictor import PredictorLG
 from dense2sparse_vit_torch.ops.attention import (
     ATTN_BLOCK_KEYS, attention_backward_reference, attention_block_backward_reference,
-    attention_block_reference, attention_variant_reference)
+    attention_block_reference, attention_variant_reference, paired_attention_reference)
 from dense2sparse_vit_torch.ops.block import (
     BLOCK_WEIGHT_KEYS, transformer_block_backward_reference, transformer_block_reference)
 from dense2sparse_vit_torch.ops.block import attention_reference
@@ -1052,13 +1052,62 @@ def test_paired_variant_runs_an_odd_last_head_alone(cuda):
 
 
 def test_two_phase_variant_refuses_what_does_not_fit(cuda):
+    """v3 stages its scores in a workspace where they outgrow a CTA: it takes
+    N = 800 at 6 heads and N = 197 at 12 (against its plain version); it
+    still refuses a head of 128 and a token past the ceiling."""
     from dense2sparse_vit_torch.ops.attention import attention_variant_supported
+    from dense2sparse_vit_torch.ops.block import attention_max_tokens
 
-    assert attention_variant_supported(3, 197, 6) and not attention_variant_supported(3, 800, 6)
+    assert attention_variant_supported(3, 800, 6, 64)
+    assert attention_variant_supported(3, 197, 12, 64)
+    limit = attention_max_tokens(64)
+    assert not attention_variant_supported(3, limit + 1, 6, 64)
+    assert not attention_variant_supported(3, 197, 2, 128)
+    for c, heads, n in ((384, 6, 800), (768, 12, 197)):
+        w6, scale = _half_block(cuda, 8, c=c, heads=heads)
+        x = torch.randn((2, n, c), generator=torch.Generator(device=cuda).manual_seed(n),
+                        device=cuda).to(torch.bfloat16)
+        with torch.inference_mode():
+            out, st = ops.fused_attention_variant(3, x, *w6, heads, stages=True)
+            _assert_close(st["attn"], attention_reference(st["qkv"], heads, scale))
+            _assert_close(out, attention_variant_reference(3, x, *w6, heads))
     w6, _ = _half_block(cuda, 8)
-    x = torch.zeros((1, 800, 384), device=cuda, dtype=torch.bfloat16)
-    with torch.inference_mode(), pytest.raises(ValueError, match="v3"):
+    x = torch.zeros((1, limit + 1, 384), device=cuda, dtype=torch.bfloat16)
+    with torch.inference_mode(), pytest.raises(ValueError, match="v3 at"):
         ops.fused_attention_variant(3, x, *w6, 6)
+    w2, _ = _half_block(cuda, 8, c=256, heads=2)
+    x = torch.zeros((1, 13, 256), device=cuda, dtype=torch.bfloat16)
+    with torch.inference_mode(), pytest.raises(ValueError, match="1 to 127"):
+        ops.fused_attention_variant(3, x, *w2, 2)
+
+
+@pytest.mark.parametrize("row,d,heads,b,n", chip_smoke.VARIANT_GEOMETRIES)
+def test_attention_variant_widths_against_plain(cuda, row, d, heads, b, n):
+    """chip_smoke.py phase 43's geometries at B <= 2: each variant JAX admits
+    there, one launch (on the padded route exactly where C % 8 != 0), its
+    attention core and output against its plain version and against v0."""
+    from dense2sparse_vit_torch.ops import rowpad
+
+    c = d * heads
+    w = chip_smoke.hd_block(torch, cuda, c, heads, seed=c + n)
+    w6 = [w[k] for k in HALF_BLOCK_KEYS]
+    x = torch.randn((min(b, 2), n, c), generator=torch.Generator(device=cuda).manual_seed(n),
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        base, base_st = ops.fused_attention_block(x, *w6, heads, stages=True)
+        for v in chip_smoke.variant_ids(heads):
+            ops.reset_launch_counts()
+            rowpad.reset()
+            out, st = ops.fused_attention_variant(v, x, *w6, heads, stages=True)
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == {**NO_LAUNCHES, "attention_variant": 1}
+            assert rowpad.counts() == ({"fused_attention_variant": 1} if c % 8 else {})
+            core = (paired_attention_reference if v == 2 else attention_reference)(
+                st["qkv"], heads, d ** -0.5)
+            _assert_close(st["attn"], core)
+            _assert_close(out, attention_variant_reference(v, x, *w6, heads))
+            _assert_close(st["attn"], base_st["attn"])
+            _assert_close(out, base)
 
 
 # ---- the shared GEMM engine (csrc/ln_gemm.cuh) alone -----------------------

@@ -153,13 +153,16 @@ def test_checkout_ab_digests_and_compares_two_runs(tmp_path, capsys):
     assert checkout_ab.main(["--compare", str(a), str(b)]) == 0
     run = json.loads(b.read_text())
     # the block at width 64 and (CPU smoke size: 8 heads of 12) at width 12,
-    # the cores both ways at both widths, the LayerNorm backward alone, and
-    # the token rows aligned and off the 16-byte rules
+    # the cores both ways at both widths, the LayerNorm backward alone, the
+    # token rows aligned and off the 16-byte rules, and the variants v1-v3
     assert {k.split("/")[0] for k in run["digests"]} == {
-        "int8", "gemm", "block", "block_bwd", "block12", "block12_bwd", "core", "ln", "rows"}
+        "int8", "gemm", "block", "block_bwd", "block12", "block12_bwd", "core", "ln", "rows",
+        "variants"}
     assert {k.split("/")[1] for k in run["digests"] if k.startswith("core/")} == {"64", "12"}
     assert {k.split("/")[1] for k in run["digests"] if k.startswith("rows/")} == {
         "gather", "scatter", "pred", "block381", "int8_1016"}
+    assert {k.split("/", 2)[2] for k in run["digests"] if k.startswith("variants/")} == {
+        f"v{v}/{t}" for v in (1, 2, 3) for t in ("qkv", "attn", "out")}
     run["digests"]["int8/2x13x128/qkv"] = "0" * 64
     b.write_text(json.dumps(run))
     capsys.readouterr()

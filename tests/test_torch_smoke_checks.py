@@ -1827,3 +1827,52 @@ def test_row_counts_take_holds_every_launch_to_its_route():
     rowpad.reset()
     with pytest.raises(AssertionError, match="0 of 3 fused_gather_tokens"):
         chip_smoke.row_counts_take(tally, counts, "t", "c381")
+
+
+def test_the_phase_43_geometries_are_the_widths_jax_takes():
+    """Phase 43's geometries: heads of 16 (the JAX script's CPU shape), 12,
+    96, 64, 127 (aligned and at C = 381, the only padded one) and 80, DINO's
+    3601 tokens and the ceiling, each taken by the rule at its N; v2 only at
+    an even number of heads, as JAX's run_variant pairs them."""
+    from dense2sparse_vit_torch.ops import rowpad
+    from dense2sparse_vit_torch.ops.attention import attention_variant_supported
+    from dense2sparse_vit_torch.ops.block import attention_max_tokens
+
+    geos = chip_smoke.VARIANT_GEOMETRIES
+    assert chip_smoke.VARIANT_CEILING == attention_max_tokens(64)
+    assert {(d, H, d * H) for _, d, H, _, _ in geos} >= {
+        (16, 6, 96), (12, 32, 384), (96, 8, 768), (64, 12, 768), (127, 8, 1016),
+        (127, 3, 381), (80, 16, 1280), (64, 6, 384), (64, 1, 64)}
+    assert {N for *_, N in geos} == {20, 197, 577, 257, 3601, chip_smoke.VARIANT_CEILING}
+    padded = {row for row, d, H, _, _ in geos if rowpad.block_layout(d * H, H) is not None}
+    assert padded == {"attention_variant[c381]"}
+    for row, d, H, B, N in geos:
+        vs = chip_smoke.variant_ids(H)
+        assert vs == ((1, 2, 3) if H % 2 == 0 else (1, 3)) and B >= 1
+        assert all(attention_variant_supported(v, N, H, d) for v in vs)
+        assert not attention_variant_supported(1, attention_max_tokens(d) + 1, H, d)
+
+
+def test_the_phase_43_sub_rows_are_kernels_line_rows():
+    """One sub-row per geometry label, each a kernels-line row with every key,
+    the variants' source and the Pallas call it replaces; `kernel_registers`
+    reads ptxas's register line of each kernel whose name holds a word."""
+    rows = chip_smoke.VARIANT_SUB_ROWS
+    assert len(rows) == 9 and set(rows) <= set(chip_smoke.SUB_ROWS)
+    assert rows == tuple(dict.fromkeys(g[0] for g in chip_smoke.VARIANT_GEOMETRIES))
+    tally = chip_smoke.Tally()
+    tally.rows[rows[0]]["launches"] += 3
+    tally.add(rows[0], 3, 0.5, 1.0, chip_smoke.half_block_bound(4, 20, 96, 6))
+    line = {r["name"]: r for r in tally.line()["kernels"]}
+    for row in rows:
+        r = line[row]
+        assert r["source"] == "dense2sparse_vit_torch/csrc/attn_variants.cuh"
+        assert r["replaces"] == chip_smoke.SOURCES["attention_variant"][1]
+        assert set(r) == set(line["attention_variant"])
+    assert line[rows[0]]["launches"] == 3 and line[rows[0]]["ms"] == 1.5
+    log = ("ptxas info    : Function properties for _ZN3d2s15variant1_kernelILi64ELb0EE\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 121 registers, used 1 barriers\n")
+    regs = chip_smoke.kernel_registers(log, "variant")
+    assert list(regs) == ["_ZN3d2s15variant1_kernelILi64ELb0EE"]
+    assert list(regs.values())[0].endswith("Used 121 registers, used 1 barriers")
